@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of byogan_tpu for one NVIDIA H100.
+
+The sampling path (``serve.Sampler``, ``cli.generate_samples``) of the full
+progressive StyleGAN generator, with the synthesis convs running through
+hand-written CUDA kernels (``ops/styleconv.py``, ``ops/adain.py``).  Layouts
+follow byogan_tpu at the public functions: NHWC activations, HWIO kernel
+weights, parameters stored under the reference state-dict keys.
+
+The package imports torch, numpy and the standard library only.  Entry
+points run on ``cuda`` unless the caller asks for ``device="cpu"``; on a CPU
+tensor every kernel wrapper takes its plain PyTorch version.
+"""

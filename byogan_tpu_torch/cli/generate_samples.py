@@ -1,0 +1,73 @@
+"""Sample-generation CLI (byogan_tpu/cli/generate_samples.py).
+
+Writes N frames ``image_{i}.png`` (or ``.npy`` with ``--format raw``) from
+a reference-format ``.pth`` at the checkpoint's saved step and alpha, from
+fresh truncated latents, in float32 as the reference CLI does.  Pixels are
+saved raw-range with save_image's clamp, so the negative half is black.
+
+    python -m byogan_tpu_torch.cli.generate_samples ckpt.pth 16 -o out/
+
+Runs on the GPU; ``-d cpu`` takes the plain PyTorch path on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from byogan_tpu_torch.serve import Sampler, save_frame_u8
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Generate samples")
+    parser.add_argument("model", help="path to saved model", type=str)
+    parser.add_argument("images", help="number of images to produce", type=int)
+    parser.add_argument(
+        "-d", "--device", dest="device", default=None, type=str,
+        help="torch device (default: cuda; cpu runs the plain path)",
+    )
+    parser.add_argument(
+        "-o", "--output", dest="output_dir", default=".", type=str,
+        help="output directory",
+    )
+    parser.add_argument(
+        "-z", "--z-size", dest="z_size", default=None, type=int,
+        help="noise size (default: read from the checkpoint)",
+    )
+    parser.add_argument(
+        "-t", "--truncation", dest="trunc", default=0.75, type=float,
+        help="truncation boundary",
+    )
+    parser.add_argument("--seed", default=None, type=int, help="seed (default: random)")
+    parser.add_argument(
+        "--batch", default=None, type=int,
+        help="generate in batches of this size (default: all at once)",
+    )
+    parser.add_argument(
+        "--format", default="png", choices=("png", "raw"),
+        help="output encoding: png, or raw (uint8 .npy, no encode)",
+    )
+    args = parser.parse_args(argv)
+
+    if not os.path.exists(args.output_dir):
+        raise OSError("path does not exist!")
+    sampler = Sampler(
+        args.model,
+        batch=args.batch or args.images,
+        z_dim=args.z_size,
+        truncation=args.trunc,
+        dtype="float32",
+        seed=args.seed,
+        device=args.device,
+    )
+    written = 0
+    for frames in sampler.sample_batches(args.images):
+        for frame in frames:
+            written += 1
+            stem = os.path.join(args.output_dir, f"image_{written}")
+            save_frame_u8(frame, stem, args.format, png_compression=6)
+    print(f"wrote {written} images to {args.output_dir}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,209 @@
+"""StyleGAN generator building blocks (byogan_tpu/models/layers.py).
+
+Parameters are stored under the reference state-dict names and layouts --
+linear (out, in), conv OIHW, noise (1, C, 1, 1), const (1, C, 4, 4) -- so a
+reference ``.pth`` loads with ``load_state_dict(strict=True)``.  Activations
+are NHWC, as in the JAX package.  Weights stay float32; a layer computes in
+its input's dtype, multiplying by the equalized scale in float32 and casting
+at call time, as the JAX layers do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from byogan_tpu_torch.core.resize import upsample2x_bilinear
+from byogan_tpu_torch.ops.fused import noise_lrelu_adain
+from byogan_tpu_torch.ops.styleconv import styleconv
+
+
+class EqualizedDense(nn.Module):
+    """Equalized-LR linear layer: N(0,1) weight, runtime scale
+    sqrt(2 / in_features) (layers.py:39-67)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.scale = math.sqrt(2.0 / in_features)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        nn.init.normal_(self.weight, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = (self.weight * self.scale).to(x.dtype)
+        return F.linear(x, w, self.bias.to(x.dtype))
+
+
+class EqualizedConv(nn.Module):
+    """Equalized-LR conv: OIHW weight, runtime scale sqrt(2 / (Cin*k*k))
+    (layers.py:253-288).  Only the 1x1 to_rgb form is applied directly; the
+    3x3 synthesis convs go through ``StyleConvBlock``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.scale = math.sqrt(2.0 / (in_channels * kernel_size * kernel_size))
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        nn.init.normal_(self.weight, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def scaled_hwio(self, dtype: torch.dtype) -> torch.Tensor:
+        """weight * scale in float32, as HWIO, cast to ``dtype``."""
+        return (self.weight * self.scale).permute(2, 3, 1, 0).to(dtype).contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """1x1 conv on NHWC x: a matmul over the channel axis."""
+        if self.weight.shape[-1] != 1:
+            raise ValueError("EqualizedConv.forward applies 1x1 kernels only")
+        w = (self.weight[:, :, 0, 0] * self.scale).to(x.dtype)
+        return F.linear(x, w, self.bias.to(x.dtype))
+
+
+class NoiseInjection(nn.Module):
+    """Per-channel learned noise scale, zero-init (layers.py:291-306)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.zeros(1, channels, 1, 1))
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        nn.init.zeros_(self.weights)
+
+    def flat(self) -> torch.Tensor:
+        """The (C,) float32 weight the kernels take."""
+        return self.weights.reshape(-1)
+
+
+class AdaIN(nn.Module):
+    """Style projection of adaptive instance norm (layers.py:322-365):
+    an equalized linear style -> (gamma, beta), bias init [1; 0], gamma the
+    first half.  The normalization itself runs in the fused epilogue."""
+
+    def __init__(self, channels: int, style_dim: int):
+        super().__init__()
+        self.channels = channels
+        self.style = EqualizedDense(style_dim, 2 * channels)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        self.style.reset_parameters(generator)
+        with torch.no_grad():
+            self.style.bias[: self.channels] = 1.0
+
+    def forward(self, style: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        proj = self.style(style)
+        return proj[:, : self.channels], proj[:, self.channels :]
+
+
+class StyleConvBlock(nn.Module):
+    """One synthesis conv (layers.py:368-480).
+
+    The initial block broadcasts a learned 4x4 const and runs the epilogue
+    alone (K2 on CUDA).  Every other block upsamples 2x first when asked,
+    then runs conv3x3 -> noise -> LeakyReLU -> AdaIN as one call (K1 on
+    CUDA).  On the CPU both take their plain versions.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        style_dim: int,
+        is_initial: bool = False,
+        upsample_input: bool = False,
+    ):
+        super().__init__()
+        self.is_initial = is_initial
+        self.upsample_input = upsample_input
+        if is_initial:
+            self.conv = nn.Parameter(torch.empty(1, in_channels, 4, 4))
+        else:
+            self.conv = EqualizedConv(in_channels, out_channels, 3)
+        self.inject_noise = NoiseInjection(out_channels)
+        self.adain = AdaIN(out_channels, style_dim)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        if self.is_initial:
+            nn.init.normal_(self.conv, generator=generator)
+        else:
+            self.conv.reset_parameters(generator)
+        self.inject_noise.reset_parameters(generator)
+        self.adain.reset_parameters(generator)
+
+    def forward(
+        self, x: Optional[torch.Tensor], style: torch.Tensor, noise: torch.Tensor
+    ) -> torch.Tensor:
+        gamma, beta = self.adain(style)
+        noise_w = self.inject_noise.flat()
+        if self.is_initial:
+            const = self.conv.permute(0, 2, 3, 1).to(style.dtype)
+            out = const.expand(style.shape[0], -1, -1, -1).contiguous()
+            return noise_lrelu_adain(
+                out, noise.to(out.dtype), noise_w, gamma.contiguous(),
+                beta.contiguous(),
+            )
+        if self.upsample_input:
+            x = upsample2x_bilinear(x)
+        return styleconv(
+            x.contiguous(),
+            self.conv.scaled_hwio(x.dtype),
+            self.conv.bias,
+            noise.to(x.dtype).contiguous(),
+            noise_w,
+            gamma.contiguous(),
+            beta.contiguous(),
+        )
+
+
+class StyleStage(nn.Module):
+    """One resolution stage (layers.py:483-526): optional 2x bilinear
+    upsample, then two StyleConvBlocks sharing one style and one noise map."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        style_dim: int,
+        is_initial: bool = False,
+    ):
+        super().__init__()
+        self.conv_1 = StyleConvBlock(
+            in_channels, out_channels, style_dim, is_initial=is_initial,
+            upsample_input=not is_initial,
+        )
+        self.conv_2 = StyleConvBlock(out_channels, out_channels, style_dim)
+
+    def forward(
+        self, x: Optional[torch.Tensor], style: torch.Tensor, noise: torch.Tensor
+    ) -> torch.Tensor:
+        return self.conv_2(self.conv_1(x, style, noise), style, noise)
+
+
+class MappingNetwork(nn.Module):
+    """z -> w: ``depth`` x (EqualizedDense + LeakyReLU(0.2)), no PixelNorm
+    (layers.py:529-551)."""
+
+    def __init__(self, z_dim: int, channels: int = 512, depth: int = 8):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.Sequential(
+                EqualizedDense(z_dim if i == 0 else channels, channels),
+                nn.LeakyReLU(0.2),
+            )
+            for i in range(depth)
+        )
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            z = layer(z)
+        return z

@@ -1,0 +1,202 @@
+"""Batched sampling service (byogan_tpu/serve.py).
+
+``Sampler`` loads a checkpoint once, keeps the generator on the device and
+serves requests of any size by tiling its fixed batch: latents and per-stage
+noise are drawn on the device from an explicit ``torch.Generator``, frames
+are quantized to uint8 on the device, and ragged tails are cut from a full
+batch.  ``save_stream`` overlaps encoding on a host thread with synthesis.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import struct
+import threading
+import zlib
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from byogan_tpu_torch.core.device import make_generator, resolve_device
+from byogan_tpu_torch.core.grids import to_uint8
+from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+from byogan_tpu_torch.models.factory import (
+    ModelSpec,
+    build_generator,
+    z_dim_from_params,
+)
+from byogan_tpu_torch.train.checkpoint import load_checkpoint
+
+#: encode lane -> file extension
+FRAME_EXTENSIONS = {"png": ".png", "raw": ".npy"}
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+
+def encode_png(frame: np.ndarray, compression: int = 6) -> bytes:
+    """A uint8 RGB frame (H, W, 3) as PNG bytes: 8-bit samples, filter 0 on
+    every row, one zlib stream."""
+    frame = np.ascontiguousarray(frame)
+    if frame.dtype != np.uint8 or frame.ndim != 3 or frame.shape[2] != 3:
+        raise ValueError(f"expected uint8 (H, W, 3), got {frame.dtype} {frame.shape}")
+    h, w, _ = frame.shape
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), frame.reshape(h, w * 3)], axis=1
+    )
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    return b"".join(
+        (
+            b"\x89PNG\r\n\x1a\n",
+            _png_chunk(b"IHDR", header),
+            _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), compression)),
+            _png_chunk(b"IEND", b""),
+        )
+    )
+
+
+def save_frame_u8(
+    frame: np.ndarray, stem: str, format: str = "png", png_compression: int = 1
+) -> str:
+    """Write one uint8 HWC frame as ``stem`` + extension ("png" or "raw"
+    ``.npy``); returns the path written."""
+    path = stem + FRAME_EXTENSIONS[format]
+    if format == "png":
+        with open(path, "wb") as f:
+            f.write(encode_png(frame, png_compression))
+    else:
+        np.save(path, frame)
+    return path
+
+
+class Sampler:
+    """Serve uint8 frames from a generator checkpoint.
+
+    ``device`` defaults to ``cuda`` and raises without a GPU; pass
+    ``device="cpu"`` for the plain PyTorch path.  ``dtype`` is the compute
+    dtype ("bfloat16" or "float32"); weights stay float32.
+    """
+
+    def __init__(
+        self,
+        checkpoint: str,
+        batch: int = 32,
+        z_dim: Optional[int] = None,
+        truncation: float = 0.75,
+        dtype: str = "bfloat16",
+        seed: Optional[int] = None,
+        device: Optional[str] = None,
+    ):
+        self.device = resolve_device(device)
+        save = load_checkpoint(checkpoint)
+        self.steps: int = save["step"]
+        self.alpha = save["alpha"]
+        self.batch = batch
+        trained_z_dim = z_dim_from_params(save["gen"])
+        self.z_dim = trained_z_dim if z_dim is None else z_dim
+        self.truncation = truncation
+        self.dtype = getattr(torch, dtype)
+        self._gen = build_generator(
+            ModelSpec.from_dict(save.get("model")), dtype=self.dtype, z_dim=trained_z_dim
+        )
+        self._gen.load_state_dict(save["gen"], strict=True)
+        self._gen.to(self.device).eval().requires_grad_(False)
+        self._rng = make_generator(self.device, seed)
+
+    @property
+    def resolution(self) -> int:
+        return 4 * 2 ** (self.steps - 1)
+
+    def draw(self) -> tuple:
+        """One batch of latents and per-stage noise maps, on the device."""
+        z = truncated_noise(self._rng, self.batch, self.z_dim, self.truncation, self.dtype)
+        noise = synthesis_noise(self._rng, self.batch, self.steps, dtype=self.dtype)
+        return z, noise
+
+    @torch.inference_mode()
+    def render_float(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
+        """Float32 NHWC frames in the generator's raw ~[-1, 1] range."""
+        img = self._gen(z, noise, steps=self.steps, alpha=self.alpha)
+        return img.float()
+
+    @torch.inference_mode()
+    def render(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
+        """uint8 NHWC frames, quantized on the device (save_image rounding)."""
+        return to_uint8(self.render_float(z, noise))
+
+    def sample_batches(self, n: int) -> Iterator[np.ndarray]:
+        """Yield uint8 NHWC batches until n frames are produced; the next
+        batch is queued on the device before the current one is fetched."""
+        produced = 0
+        pending = self.render(*self.draw())
+        while produced < n:
+            take = min(self.batch, n - produced)
+            produced += take
+            nxt = self.render(*self.draw()) if produced < n else None
+            yield pending[:take].cpu().numpy()
+            pending = nxt
+
+    def sample(self, n: int) -> np.ndarray:
+        """n uint8 HWC frames."""
+        return np.concatenate(list(self.sample_batches(n)), axis=0)
+
+    def sample_float(self, n: int) -> np.ndarray:
+        """n float32 NHWC frames in the raw ~[-1, 1] range (for metrics: the
+        uint8 path saturates the negative half)."""
+        out = []
+        produced = 0
+        while produced < n:
+            take = min(self.batch, n - produced)
+            out.append(self.render_float(*self.draw())[:take].cpu().numpy())
+            produced += take
+        return np.concatenate(out, axis=0)
+
+    def save_stream(
+        self,
+        directory: str,
+        n: int,
+        prefix: str = "image_",
+        format: str = "png",
+    ) -> int:
+        """Write n frames as ``{prefix}{i}`` (i from 1), encoding on a host
+        thread while the device renders the next batch."""
+        if format not in FRAME_EXTENSIONS:
+            raise ValueError(f"unknown save_stream format: {format!r}")
+        os.makedirs(directory, exist_ok=True)
+        q: "queue.Queue" = queue.Queue(maxsize=4)
+        done = object()
+        error: list = []
+
+        def writer():
+            idx = 0
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if error:
+                    continue  # keep draining so the producer never blocks
+                try:
+                    for frame in item:
+                        idx += 1
+                        stem = os.path.join(directory, f"{prefix}{idx}")
+                        save_frame_u8(frame, stem, format)
+                except Exception as e:  # handed to the caller after join
+                    error.append(e)
+
+        thread = threading.Thread(target=writer, daemon=True)
+        thread.start()
+        written = 0
+        try:
+            for batch in self.sample_batches(n):
+                q.put(batch)
+                written += len(batch)
+        finally:
+            q.put(done)
+            thread.join()
+        if error:
+            raise error[0]
+        return written
