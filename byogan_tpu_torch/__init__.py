@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of byogan_tpu for one NVIDIA H100.
 
-The sampling path (``serve.Sampler``, ``cli.generate_samples``) of the full
-progressive StyleGAN generator, with the synthesis convs running through
-hand-written CUDA kernels (``ops/styleconv.py``, ``ops/adain.py``).  Layouts
+Training (``cli.main``, ``train/``) and sampling (``serve.Sampler``,
+``cli.generate_samples``) of the full progressive StyleGAN, with every
+synthesis conv running through hand-written CUDA kernels: the forward
+(``ops/styleconv.py``, ``ops/adain.py``) and the epilogue's backward
+(``ops/styleconv_bwd.py``) inside autograd Functions.  Layouts
 follow byogan_tpu at the public functions: NHWC activations, HWIO kernel
 weights, parameters stored under the reference state-dict keys.
 

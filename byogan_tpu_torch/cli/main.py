@@ -1,0 +1,37 @@
+"""Training CLI (byogan_tpu/cli/main.py).
+
+    python -m byogan_tpu_torch.cli.main <section> [-c CKPT] [--config-file cfg.txt]
+                                        [--max-iters N] [-d DEVICE]
+
+Reads ``<section>`` of an INI config (``config.txt`` by default), trains on
+the GPU and writes ``.pth`` checkpoints.  ``-d cpu`` (or ``device = cpu``
+in the section) takes the plain PyTorch path on the CPU; without a GPU
+any other device raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from byogan_tpu_torch.train.config import load_ini_config
+from byogan_tpu_torch.train.loop import train
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train a progressive StyleGAN")
+    parser.add_argument("config", help="Specify which config to use", type=str)
+    parser.add_argument("-c", "--checkpoint", dest="checkpoint", help="Path to checkpoint file")
+    parser.add_argument("--config-file", default="config.txt", help="INI config path")
+    parser.add_argument("--max-iters", type=int, default=None, help="stop after N iterations")
+    parser.add_argument(
+        "-d", "--device", default=None,
+        help="torch device (default: cuda, or cpu when the section says device = cpu)",
+    )
+    args = parser.parse_args(argv)
+    config = load_ini_config(args.config_file, args.config)
+    device = args.device or ("cpu" if config.device == "cpu" else "cuda")
+    return train(config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device)
+
+
+if __name__ == "__main__":
+    main()

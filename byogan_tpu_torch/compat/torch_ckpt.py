@@ -2,9 +2,10 @@
 
 The port's modules already use the reference state-dict names and layouts,
 so a reference checkpoint loads as it is, after the ``module.`` prefix that
-``nn.DataParallel`` adds is stripped.  ``generator_state_from_jax`` carries
-a byogan_tpu generator param tree (as numpy) across, with the port's own
-copy of the key map (byogan_tpu/compat/torch_ckpt.py:79-125):
+``nn.DataParallel`` adds is stripped.  ``generator_state_from_jax`` and
+``critic_state_from_jax`` carry a byogan_tpu param tree (as numpy) across,
+with the port's own copy of the key maps (byogan_tpu/compat/torch_ckpt.py:
+79-186):
 
     linear  (in, out)        -> (out, in)        transpose
     conv    (kH, kW, I, O)   -> (O, I, kH, kW)   HWIO -> OIHW
@@ -57,6 +58,27 @@ def generator_key_map(
     return entries
 
 
+def critic_key_map(num_stages: int = 8) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """[(torch_key, jax_param_path, kind)] of the critic.  The final block
+    is conv_1 = Seq(stddev, conv, lrelu), conv_2 = Seq(conv4, lrelu,
+    flatten, linear, lrelu, linear); the others conv_1 = Seq(conv, lrelu),
+    conv_2 = Seq(conv, pool, lrelu)."""
+    entries = []
+    for k in range(num_stages):
+        entries.append((f"from_rgbs.{k}.0.weight", (f"from_rgbs_{k}", "conv", "weight"), "conv"))
+        entries.append((f"from_rgbs.{k}.0.bias", (f"from_rgbs_{k}", "conv", "bias"), "bias"))
+        block, base = f"blocks_{k}", f"conv_blocks.{k}"
+        if k == num_stages - 1:
+            layers = (("conv_1.1", "conv1", "conv"), ("conv_2.0", "conv2", "conv"),
+                      ("conv_2.3", "dense1", "linear"), ("conv_2.5", "dense2", "linear"))
+        else:
+            layers = (("conv_1.0", "conv1", "conv"), ("conv_2.0", "conv2", "conv"))
+        for torch_name, ours, kind in layers:
+            entries.append((f"{base}.{torch_name}.weight", (block, ours, "weight"), kind))
+            entries.append((f"{base}.{torch_name}.bias", (block, ours, "bias"), "bias"))
+    return entries
+
+
 def _to_torch_layout(v: np.ndarray, kind: str) -> np.ndarray:
     if kind == "linear":
         return v.T
@@ -69,19 +91,28 @@ def _to_torch_layout(v: np.ndarray, kind: str) -> np.ndarray:
     return v
 
 
-def generator_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """byogan_tpu generator params (nested dicts of arrays) -> the port's
-    float32 state dict.  Stage count and mapping depth come from the tree."""
-    num_stages = sum(1 for k in params if k.startswith("stages_"))
-    mapping_depth = len(params["mapping"])
+def _state_from_jax(params: Mapping[str, Any], key_map) -> Dict[str, torch.Tensor]:
     state = {}
-    for key, path, kind in generator_key_map(num_stages, mapping_depth):
+    for key, path, kind in key_map:
         node = params
         for p in path:
             node = node[p]
         v = _to_torch_layout(np.asarray(node, dtype=np.float32), kind)
         state[key] = torch.from_numpy(np.array(v, order="C"))  # a writable copy
     return state
+
+
+def generator_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """byogan_tpu generator params (nested dicts of arrays) -> the port's
+    float32 state dict.  Stage count and mapping depth come from the tree."""
+    num_stages = sum(1 for k in params if k.startswith("stages_"))
+    return _state_from_jax(params, generator_key_map(num_stages, len(params["mapping"])))
+
+
+def critic_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """byogan_tpu critic params -> the port's float32 state dict."""
+    num_stages = sum(1 for k in params if k.startswith("blocks_"))
+    return _state_from_jax(params, critic_key_map(num_stages))
 
 
 def strip_module_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -93,9 +124,11 @@ def strip_module_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:
-    """Load a reference-format ``.pth``: gen (state dict), iter, im_count,
-    step, epoch, alpha, and model (a ModelSpec dict, or None for the
-    reference architecture)."""
+    """Load a reference-format ``.pth``: gen and critic (state dicts, when
+    present), iter, im_count, step, epoch, alpha, and model (a ModelSpec
+    dict, or None for the reference architecture).  A checkpoint the port's
+    trainer wrote also carries gen_opt, critic_opt and rng, passed on as
+    they are."""
     save = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {
         "iter": int(save.get("iter", 0)),
@@ -105,6 +138,10 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
         "alpha": save.get("alpha", None),
         "model": save.get("model"),
     }
-    if "gen" in save:
-        out["gen"] = strip_module_prefix(save["gen"])
+    for net in ("gen", "critic"):
+        if net in save:
+            out[net] = strip_module_prefix(save[net])
+    for extra in ("gen_opt", "critic_opt", "rng"):
+        if extra in save:
+            out[extra] = save[extra]
     return out

@@ -26,6 +26,12 @@
 //     (N, tiles, C) buffer, finalize_moments (common.cuh) merges them by
 //     Chan's formula, and adain_apply recomputes h from x (cheaper than a
 //     scratch round trip) and writes the affine.
+//
+// Training (the initial 4x4 block's generator phase): when hv is not null
+// the kernel also writes h in f32 (the backward's residual) and the
+// per-(sample, channel) mean and inv = rsqrt(var + eps), which K3
+// (styleconv_bwd.cu) takes.  The TPU kernel is forward-only; its JAX
+// gradient is autodiff of the lax epilogue.
 #include "common.cuh"
 
 namespace byogan {
@@ -47,8 +53,9 @@ __global__ void __launch_bounds__(kLanesC * kLanesP)
     adain_tile(const T* __restrict__ x, const T* __restrict__ noise,
                const float* __restrict__ noise_w, const T* __restrict__ gamma,
                const T* __restrict__ beta, T* __restrict__ out,
-               float* __restrict__ part_mean, float* __restrict__ part_m2,
-               int hw, int C, float eps) {
+               float* __restrict__ hv, float* __restrict__ mean_out,
+               float* __restrict__ inv_out, float* __restrict__ part_mean,
+               float* __restrict__ part_m2, int hw, int C, float eps) {
   __shared__ float sn[kLanesP][kLanesC], sm[kLanesP][kLanesC],
       sq[kLanesP][kLanesC];
   __shared__ float s_scale[kLanesC], s_shift[kLanesC];
@@ -91,6 +98,10 @@ __global__ void __launch_bounds__(kLanesC * kLanesP)
     const float g = to_f<T>(gamma[s * C + c]) * inv;
     s_scale[lc] = g;
     s_shift[lc] = to_f<T>(beta[s * C + c]) - g * sm[0][lc];
+    if (hv) {
+      mean_out[s * C + c] = sm[0][lc];
+      inv_out[s * C + c] = inv;
+    }
   }
   __syncthreads();
   if (!live) return;
@@ -98,6 +109,7 @@ __global__ void __launch_bounds__(kLanesC * kLanesP)
     const long long pix = (long long)s * hw + p;
     const float v = epilogue_h<T>(x, noise, nw_t, pix, C, c);
     out[pix * C + c] = from_f<T>(fmaf(s_scale[lc], v, s_shift[lc]));
+    if (hv) hv[pix * C + c] = v;
   }
 }
 
@@ -106,34 +118,36 @@ __global__ void adain_apply(const T* __restrict__ x, const T* __restrict__ noise
                             const float* __restrict__ noise_w,
                             const float* __restrict__ scale,
                             const float* __restrict__ shift, T* __restrict__ out,
-                            int total, int hw, int C) {
+                            float* __restrict__ hv, int total, int hw, int C) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += gridDim.x * blockDim.x) {
     const int c = i % C, pix = i / C, sc = (pix / hw) * C + c;
     const float v = epilogue_h<T>(x, noise, round_to<T>(noise_w[c]), pix, C, c);
     out[i] = from_f<T>(fmaf(scale[sc], v, shift[sc]));
+    if (hv) hv[i] = v;
   }
 }
 
 template <typename T>
 int run(const void* x, const void* noise, const float* nw, const void* gamma,
-            const void* beta, void* out, float* pm, float* pm2,
-            float* scale_shift, int n, int hw, int C, float eps,
-            cudaStream_t stream) {
+        const void* beta, void* out, float* hv, float* mean_out, float* inv_out,
+        float* pm, float* pm2, float* scale_shift, int n, int hw, int C,
+        float eps, cudaStream_t stream) {
   const int tiles = (hw + kTile - 1) / kTile;
   const dim3 grid(tiles, (C + kLanesC - 1) / kLanesC, n);
   adain_tile<T><<<grid, dim3(kLanesC, kLanesP), 0, stream>>>(
       (const T*)x, (const T*)noise, nw, (const T*)gamma, (const T*)beta,
-      (T*)out, pm, pm2, hw, C, eps);
+      (T*)out, hv, mean_out, inv_out, pm, pm2, hw, C, eps);
   if (tiles > 1) {
     float* scale = scale_shift;
     float* shift = scale_shift + (long long)n * C;
     finalize_moments<T><<<dim3(C, n), finalize_threads(tiles), 0, stream>>>(
-        pm, pm2, (const T*)gamma, (const T*)beta, scale, shift, tiles, kTile,
-        hw, C, eps);
+        pm, pm2, (const T*)gamma, (const T*)beta, scale, shift, mean_out,
+        inv_out, tiles, kTile, hw, C, eps);
     const int total = n * hw * C;
     adain_apply<T><<<grid_for(total, 256), 256, 0, stream>>>(
-        (const T*)x, (const T*)noise, nw, scale, shift, (T*)out, total, hw, C);
+        (const T*)x, (const T*)noise, nw, scale, shift, (T*)out, hv, total, hw,
+        C);
   }
   return (int)cudaGetLastError();
 }
@@ -143,7 +157,8 @@ int run(const void* x, const void* noise, const float* nw, const void* gamma,
 
 extern "C" int adain_forward(const void* x, const void* noise,
                              const void* noise_w, const void* gamma,
-                             const void* beta, void* out, void* part_mean,
+                             const void* beta, void* out, void* hv,
+                             void* mean_out, void* inv_out, void* part_mean,
                              void* part_m2, void* scale_shift, int n, int hw,
                              int c, float eps, int dtype, void* stream) {
   using namespace byogan;
@@ -151,10 +166,12 @@ extern "C" int adain_forward(const void* x, const void* noise,
   auto nw = (const float*)noise_w;
   auto f = [](void* p) { return (float*)p; };
   if (dtype == kFloat32)
-    return run<float>(x, noise, nw, gamma, beta, out, f(part_mean),
-                          f(part_m2), f(scale_shift), n, hw, c, eps, st);
+    return run<float>(x, noise, nw, gamma, beta, out, f(hv), f(mean_out),
+                      f(inv_out), f(part_mean), f(part_m2), f(scale_shift), n,
+                      hw, c, eps, st);
   if (dtype == kBFloat16)
-    return run<__nv_bfloat16>(x, noise, nw, gamma, beta, out, f(part_mean),
-                                  f(part_m2), f(scale_shift), n, hw, c, eps, st);
+    return run<__nv_bfloat16>(x, noise, nw, gamma, beta, out, f(hv),
+                              f(mean_out), f(inv_out), f(part_mean),
+                              f(part_m2), f(scale_shift), n, hw, c, eps, st);
   return (int)cudaErrorInvalidValue;
 }

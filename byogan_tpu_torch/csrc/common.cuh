@@ -1,6 +1,7 @@
-// Device code shared by the styleconv (K1) and AdaIN-epilogue (K2) kernels:
-// dtype conversion, the deterministic merge of per-tile moments, and the
-// pass that turns merged moments into the per-(sample, channel) affine.
+// Device code shared by the styleconv (K1), AdaIN-epilogue (K2) and
+// epilogue-backward (K3) kernels: dtype conversion, the deterministic merge
+// of per-tile moments, the pass that turns merged moments into the
+// per-(sample, channel) affine, and a fixed-order sum of per-tile partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,16 +45,19 @@ __device__ __forceinline__ void merge_moments(float& n, float& mean, float& m2,
 // `tiles` partial (mean, M2) summaries of (s, c), tile t holding
 // min(tile, hw - t*tile) pixels, in a fixed tree order (the same result on
 // every run), then writes
-//   scale = gamma * rsqrt(M2/hw + eps),  shift = beta - scale * mean.
-// blockDim.x is a power of two <= 256.
+//   scale = gamma * rsqrt(M2/hw + eps),  shift = beta - scale * mean,
+// and, when mean_out is not null (a forward that feeds K3), the mean and
+// inv = rsqrt(M2/hw + eps) themselves.  blockDim.x is a power of two <= 256.
 template <typename T>
 __global__ void finalize_moments(const float* __restrict__ part_mean,
                                  const float* __restrict__ part_m2,
                                  const T* __restrict__ gamma,
                                  const T* __restrict__ beta,
                                  float* __restrict__ scale,
-                                 float* __restrict__ shift, int tiles, int tile,
-                                 int hw, int C, float eps) {
+                                 float* __restrict__ shift,
+                                 float* __restrict__ mean_out,
+                                 float* __restrict__ inv_out, int tiles,
+                                 int tile, int hw, int C, float eps) {
   __shared__ float sn[256], sm[256], sq[256];
   const int c = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
   float n = 0.f, mean = 0.f, m2 = 0.f;
@@ -77,7 +81,30 @@ __global__ void finalize_moments(const float* __restrict__ part_mean,
     const float g = to_f<T>(gamma[s * C + c]) * inv;
     scale[s * C + c] = g;
     shift[s * C + c] = to_f<T>(beta[s * C + c]) - g * sm[0];
+    if (mean_out) {
+      mean_out[s * C + c] = sm[0];
+      inv_out[s * C + c] = inv;
+    }
   }
+}
+
+// out[k, g, c] = sum over r < rows of part[k, g, r, c], for k < gridDim.z,
+// g < gridDim.y, c = blockIdx.x: per-tile partial sums merged in a fixed
+// tree order (the same result on every run, no atomics).  256 threads.
+__global__ void sum_rows(const float* __restrict__ part, float* __restrict__ out,
+                         int rows, int C) {
+  __shared__ float red[256];
+  const int c = blockIdx.x, g = blockIdx.y, k = blockIdx.z, tid = threadIdx.x;
+  const float* src = part + ((long long)k * gridDim.y + g) * rows * C + c;
+  float acc = 0.f;
+  for (int r = tid; r < rows; r += 256) acc += src[(long long)r * C];
+  red[tid] = acc;
+  __syncthreads();
+  for (int half = 128; half > 0; half >>= 1) {
+    if (tid < half) red[tid] += red[tid + half];
+    __syncthreads();
+  }
+  if (tid == 0) out[((long long)k * gridDim.y + g) * C + c] = red[0];
 }
 
 inline int finalize_threads(int tiles) {

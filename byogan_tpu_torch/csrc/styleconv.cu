@@ -36,6 +36,14 @@
 //     TPU kernel's one-pass var = E[h^2] - mean^2: at this size the
 //     cancellation would cost digits.
 //   * Pass 2b (affine_apply): out = scale * hv + shift in the output dtype.
+//
+// Training: the TPU kernel's emit_hv variant (_call_kernel with
+// emit_hv=True, reached from the custom_vjp's _styleconv_fwd) also writes hv
+// as the backward's residual, in x's dtype.  Here hv is pass 1's f32
+// scratch, handed to the caller as it is (more exact than a bf16 copy, and
+// no extra write), and pass 2a also writes the per-(sample, channel) mean
+// and inv = rsqrt(var + eps) when mean_out is not null, so the backward
+// (K3, styleconv_bwd.cu) need not recompute them.  Inference passes null.
 #include <cstdint>
 
 #include "common.cuh"
@@ -217,10 +225,10 @@ void launch_conv(const void* x, const void* w, const float* bias,
 
 template <typename T>
 int run(const void* x, const void* w, const float* bias, const void* noise,
-            const float* nw, const void* gamma, const void* beta, void* out,
-            float* hv, float* pm, float* pm2, float* scale_shift, int n, int h,
-            int wd, int cin, int cout, int block_m, float eps,
-            cudaStream_t stream) {
+        const float* nw, const void* gamma, const void* beta, void* out,
+        float* hv, float* pm, float* pm2, float* scale_shift, float* mean_out,
+        float* inv_out, int n, int h, int wd, int cin, int cout, int block_m,
+        float eps, cudaStream_t stream) {
   const int hw = h * wd;
   const int tiles = (hw + block_m - 1) / block_m;
   switch (block_m) {  // BM x BN = 64x64, 128x32 or 256x16 (see styleconv.py)
@@ -242,8 +250,8 @@ int run(const void* x, const void* w, const float* bias, const void* noise,
   float* scale = scale_shift;
   float* shift = scale_shift + (long long)n * cout;
   finalize_moments<T><<<dim3(cout, n), finalize_threads(tiles), 0, stream>>>(
-      pm, pm2, (const T*)gamma, (const T*)beta, scale, shift, tiles, block_m,
-      hw, cout, eps);
+      pm, pm2, (const T*)gamma, (const T*)beta, scale, shift, mean_out,
+      inv_out, tiles, block_m, hw, cout, eps);
   const int total = n * hw * cout;
   affine_apply<T><<<grid_for(total, 256), 256, 0, stream>>>(
       hv, scale, shift, (T*)out, total, hw * cout, cout);
@@ -257,9 +265,10 @@ extern "C" int styleconv_forward(const void* x, const void* w, const void* bias,
                                  const void* noise, const void* noise_w,
                                  const void* gamma, const void* beta, void* out,
                                  void* hv, void* part_mean, void* part_m2,
-                                 void* scale_shift, int n, int h, int w_,
-                                 int cin, int cout, int block_m, float eps,
-                                 int dtype, void* stream) {
+                                 void* scale_shift, void* mean_out,
+                                 void* inv_out, int n, int h, int w_, int cin,
+                                 int cout, int block_m, float eps, int dtype,
+                                 void* stream) {
   using namespace byogan;
   auto st = (cudaStream_t)stream;
   auto b = (const float*)bias;
@@ -267,11 +276,12 @@ extern "C" int styleconv_forward(const void* x, const void* w, const void* bias,
   auto f = [](void* p) { return (float*)p; };
   if (dtype == kFloat32)
     return run<float>(x, w, b, noise, nw, gamma, beta, out, f(hv),
-                          f(part_mean), f(part_m2), f(scale_shift), n, h, w_,
-                          cin, cout, block_m, eps, st);
+                      f(part_mean), f(part_m2), f(scale_shift), f(mean_out),
+                      f(inv_out), n, h, w_, cin, cout, block_m, eps, st);
   if (dtype == kBFloat16)
     return run<__nv_bfloat16>(x, w, b, noise, nw, gamma, beta, out, f(hv),
-                                  f(part_mean), f(part_m2), f(scale_shift), n,
-                                  h, w_, cin, cout, block_m, eps, st);
+                              f(part_mean), f(part_m2), f(scale_shift),
+                              f(mean_out), f(inv_out), n, h, w_, cin, cout,
+                              block_m, eps, st);
   return (int)cudaErrorInvalidValue;
 }

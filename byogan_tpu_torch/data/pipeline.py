@@ -1,0 +1,218 @@
+"""Per-stage training data (byogan_tpu/data/pipeline.py:33-377).
+
+A stage reads ``<root>/prepared/set_{stage}`` (ImageFolder layout: files
+under class subdirectories), or derives it from a higher set with prep's
+2x bilinear filter.  ``packed.npy`` (``pack_stage``) is read as a uint8 NHWC
+memmap with no decode; PNG sets go through the stdlib decoder of
+``data/png.py``.  The loader keeps the JAX loader's order of random draws
+(one permutation per epoch, then one flip draw per batch from
+``np.random.default_rng(seed)``), so the same seed gives the same batches,
+drops the ragged tail and yields flipped uint8 batches: the train step
+maps them to [-1, 1] on the device.  ``to_device`` copies them from pinned
+memory ahead of use.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import queue
+import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from byogan_tpu_torch.data.png import read_png
+
+IMAGE_EXTENSIONS = (".png",)
+
+
+#: a stage's decoded images are kept in memory when they fit in this
+CACHE_LIMIT_BYTES = 1 << 30
+
+
+class StageDataset:
+    """Images of one progressive stage.  ``derive_shift=k`` reads the files
+    of ``set_{stage}`` and downsamples each by 2^k."""
+
+    def __init__(self, root: str, stage: int, derive_shift: int = 0):
+        self.set_dir = os.path.join(root, "prepared", f"set_{stage}")
+        self.derive_shift = derive_shift
+        if not os.path.isdir(self.set_dir):
+            raise OSError(f"Did not detect prepared dataset! (missing {self.set_dir})")
+        self.files: List[str] = []
+        for dirpath, _, names in sorted(os.walk(self.set_dir)):
+            for name in sorted(names):
+                if os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS:
+                    self.files.append(os.path.join(dirpath, name))
+        self._cache: Optional[np.ndarray] = None
+        packed = os.path.join(self.set_dir, "packed.npy")
+        self._packed: Optional[np.ndarray] = None
+        if derive_shift == 0 and os.path.exists(packed):
+            self._packed = np.load(packed, mmap_mode="r")
+        if not self.files and self._packed is None:
+            raise OSError(f"no images under {self.set_dir}")
+
+    def __len__(self) -> int:
+        return len(self.files) if self._packed is None else int(self._packed.shape[0])
+
+    def decode(self, index: int) -> np.ndarray:
+        img = read_png(self.files[index])
+        return _downsample_u8(img, self.derive_shift) if self.derive_shift else img
+
+    def maybe_cache(self) -> bool:
+        """Decode everything into one uint8 NHWC array if under budget."""
+        if self._packed is not None or self._cache is not None:
+            return True
+        probe = self.decode(0)
+        if probe.nbytes * len(self.files) > CACHE_LIMIT_BYTES:
+            return False
+        cache = np.empty((len(self.files),) + probe.shape, np.uint8)
+        cache[0] = probe
+        for i in range(1, len(self.files)):
+            cache[i] = self.decode(i)
+        self._cache = cache
+        return True
+
+    def get_batch_uint8(self, indices: np.ndarray) -> np.ndarray:
+        if self._packed is not None:
+            order = np.argsort(indices)
+            out = np.empty((len(indices),) + self._packed.shape[1:], np.uint8)
+            out[order] = self._packed[indices[order]]
+            return out
+        if self._cache is not None:
+            return self._cache[indices]
+        return np.stack([self.decode(int(i)) for i in indices])
+
+
+def pack_stage(root: str, stage: int) -> str:
+    """Write set_{stage} as one uint8 NHWC ``packed.npy``, which later reads
+    take with no decode.  Returns its path."""
+    ds = StageDataset(root, stage)
+    probe = ds.decode(0)
+    path = os.path.join(ds.set_dir, "packed.npy")
+    tmp = path + ".tmp.npy"
+    arr = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.uint8, shape=(len(ds),) + probe.shape)
+    arr[0] = probe
+    for i in range(1, len(ds)):
+        arr[i] = ds.decode(i)
+    arr.flush()
+    del arr
+    os.replace(tmp, path)
+    return path
+
+
+def _halve_axis0(x: np.ndarray) -> np.ndarray:
+    """One 2x reduction along axis 0 with PIL's BILINEAR filter for an
+    integer factor: taps (1,3,3,1)/8 inside, (3,3,1)/7 at the borders."""
+    n = x.shape[0] // 2
+    if n == 1:
+        return (x[0:1] + x[1:2]) / 2.0
+    out = np.empty((n,) + x.shape[1:], np.float64)
+    out[0] = (3.0 * x[0] + 3.0 * x[1] + x[2]) / 7.0
+    out[n - 1] = (x[2 * n - 3] + 3.0 * x[2 * n - 2] + 3.0 * x[2 * n - 1]) / 7.0
+    if n > 2:
+        out[1:-1] = (
+            x[1 : 2 * n - 3 : 2] + 3.0 * x[2 : 2 * n - 2 : 2]
+            + 3.0 * x[3 : 2 * n - 1 : 2] + x[4 : 2 * n : 2]
+        ) / 8.0
+    return out
+
+
+def _downsample_u8(img: np.ndarray, shift: int) -> np.ndarray:
+    """2^shift downsample of an HWC uint8 image by repeated 2x halvings,
+    rounding to uint8 between them as prep's resize chain does."""
+    for _ in range(shift):
+        x = _halve_axis0(img.astype(np.float64))
+        x = _halve_axis0(x.transpose(1, 0, 2)).transpose(1, 0, 2)
+        img = np.clip(np.floor(x + 0.5), 0, 255).astype(np.uint8)
+    return img
+
+
+def open_stage_dataset(root: str, stage: int) -> StageDataset:
+    """set_{stage}, or the next higher set that exists, downsampled."""
+    prepared = os.path.join(root, "prepared")
+    if os.path.isdir(os.path.join(prepared, f"set_{stage}")):
+        return StageDataset(root, stage)
+    for higher in range(stage + 1, 16):
+        if os.path.isdir(os.path.join(prepared, f"set_{higher}")):
+            return StageDataset(root, higher, derive_shift=higher - stage)
+    raise OSError(f"Did not detect prepared dataset! (missing {prepared}/set_{stage})")
+
+
+def _flip_u8(batch: np.ndarray, flips: np.ndarray) -> np.ndarray:
+    if flips.any():
+        batch = batch.copy()
+        batch[flips] = batch[flips, :, ::-1]
+    return batch
+
+
+def make_stage_loader(
+    dataset: StageDataset, batch_size: int, seed: int = 0, skip_batches: int = 0
+) -> Iterator[np.ndarray]:
+    """Yield one epoch of shuffled, randomly flipped uint8 NHWC batches of
+    ``batch_size``, the ragged tail dropped, prepared on a worker thread two
+    batches ahead.  ``skip_batches`` skips the first batches but still makes
+    their random draws, so the stream continues as an uninterrupted one
+    would (batch-exact resume)."""
+    dataset.maybe_cache()
+    rng = np.random.default_rng(seed)
+    n = len(dataset)
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    stop = threading.Event()
+    done = object()
+
+    def producer():
+        try:
+            order = rng.permutation(n)
+            for lo in range(0, n - n % batch_size, batch_size):
+                if stop.is_set():
+                    return
+                idx = order[lo : lo + batch_size]
+                flips = rng.random(len(idx)) < 0.5
+                if lo // batch_size < skip_batches:
+                    continue
+                q.put(_flip_u8(dataset.get_batch_uint8(idx), flips))
+        except Exception as e:  # handed to the consumer
+            q.put(e)
+        finally:
+            q.put(done)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        thread.join(timeout=5)
+
+
+def batches_per_epoch(dataset_len: int, batch_size: int) -> int:
+    """len(DataLoader) with the tail dropped (train.py:119's fade span)."""
+    return dataset_len // batch_size
+
+
+def to_device(batches: Iterator[np.ndarray], device: torch.device, depth: int = 2):
+    """Move batches to ``device`` ``depth`` ahead of use; on CUDA from
+    pinned memory without blocking the host."""
+    buf: collections.deque = collections.deque()
+    cuda = device.type == "cuda"
+    for b in batches:
+        t = torch.from_numpy(b)
+        buf.append(t.pin_memory().to(device, non_blocking=True) if cuda else t)
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

@@ -1,0 +1,45 @@
+"""A synthetic prepared dataset, written with numpy alone.
+
+``write_prepared_dataset`` writes ``<root>/prepared/set_1 .. set_k`` (class
+folder ``0``), one PNG per image at each stage's resolution 4*2^(k-1):
+smooth colour gradients with a disk, drawn from parameters made by
+``np.random.default_rng(seed)``, so every stage shows the same scenes.
+For tests and for the smoke run on the card, which has no PIL.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from byogan_tpu_torch.serve import encode_png
+
+
+def render(params: np.ndarray, size: int) -> np.ndarray:
+    """One uint8 (size, size, 3) image from its 9 parameters."""
+    cx, cy, r, p0, p1, p2, c0, c1, c2 = params
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    img = np.stack([np.sin(4 * xx + p) * np.cos(3 * yy + p) for p in (p0, p1, p2)], axis=-1)
+    disk = ((xx - cx) ** 2 + (yy - cy) ** 2) < (0.3 * r) ** 2
+    img[disk] = (c0, c1, c2)
+    return ((img * 0.5 + 0.5) * 255).astype(np.uint8)
+
+
+def write_prepared_dataset(root: str, n_images: int, num_stages: int, seed: int = 0) -> str:
+    """Write ``n_images`` scenes at every stage up to ``num_stages``; returns
+    ``root``, the path a config's ``data`` key takes."""
+    rng = np.random.default_rng(seed)
+    params = np.concatenate(
+        [rng.random((n_images, 3)) * 0.8 + 0.1, rng.random((n_images, 3)) * 6.28,
+         rng.random((n_images, 3)) * 2 - 1],
+        axis=1,
+    )
+    for stage in range(1, num_stages + 1):
+        size = 4 * 2 ** (stage - 1)
+        folder = os.path.join(root, "prepared", f"set_{stage}", "0")
+        os.makedirs(folder, exist_ok=True)
+        for i, p in enumerate(params):
+            with open(os.path.join(folder, f"img-{i:04d}.png"), "wb") as f:
+                f.write(encode_png(render(p, size), compression=1))
+    return root

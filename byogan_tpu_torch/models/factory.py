@@ -1,4 +1,4 @@
-"""Generator construction from a serializable spec (byogan_tpu/models/factory.py).
+"""Model construction from a serializable spec (byogan_tpu/models/factory.py).
 
 ``ModelSpec()`` is the reference architecture: 8 stages 4 -> 512 px,
 ``GENERATOR_CHANNELS``, style_dim 512, mapping depth 8.  Fewer stages and
@@ -13,6 +13,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from byogan_tpu_torch.models.critic import CRITIC_CHANNELS, CRITIC_FROM_RGB, Critic
 from byogan_tpu_torch.models.generator import GENERATOR_CHANNELS, Generator
 
 _MIN_CHANNELS = 4
@@ -38,6 +39,17 @@ class ModelSpec:
         return tuple(
             (self._scale(ic), self._scale(oc))
             for ic, oc in GENERATOR_CHANNELS[: self.num_stages]
+        )
+
+    def critic_from_rgb(self) -> Tuple[int, ...]:
+        # Critic tables are highest-resolution first: an n-stage model keeps
+        # the LAST n entries.
+        return tuple(self._scale(c) for c in CRITIC_FROM_RGB[len(CRITIC_FROM_RGB) - self.num_stages :])
+
+    def critic_blocks(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple(
+            (self._scale(ic), self._scale(oc))
+            for ic, oc in CRITIC_CHANNELS[len(CRITIC_CHANNELS) - self.num_stages :]
         )
 
     def generator_style_dim(self) -> int:
@@ -76,3 +88,9 @@ def build_generator(
         dtype=dtype,
         generator=generator,
     )
+
+
+def build_critic(
+    spec: ModelSpec = ModelSpec(), generator: Optional[torch.Generator] = None
+) -> Critic:
+    return Critic(spec.critic_from_rgb(), spec.critic_blocks(), generator=generator)

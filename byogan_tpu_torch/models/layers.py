@@ -1,11 +1,13 @@
-"""StyleGAN generator building blocks (byogan_tpu/models/layers.py).
+"""StyleGAN building blocks (byogan_tpu/models/layers.py).
 
 Parameters are stored under the reference state-dict names and layouts --
 linear (out, in), conv OIHW, noise (1, C, 1, 1), const (1, C, 4, 4) -- so a
-reference ``.pth`` loads with ``load_state_dict(strict=True)``.  Activations
-are NHWC, as in the JAX package.  Weights stay float32; a layer computes in
-its input's dtype, multiplying by the equalized scale in float32 and casting
-at call time, as the JAX layers do.
+reference ``.pth`` loads with ``load_state_dict(strict=True)``.  The
+generator's activations are NHWC, as in the JAX package; the critic runs
+NCHW inside (``EqualizedConv2d``, ``MinibatchStdDev``) on cuDNN, as JAX runs
+its critic on lax.  Weights stay float32; a layer computes in its input's
+dtype, multiplying by the equalized scale in float32 and casting at call
+time, as the JAX layers do.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from byogan_tpu_torch.core.resize import upsample2x_bilinear
-from byogan_tpu_torch.ops.fused import noise_lrelu_adain
+from byogan_tpu_torch.ops.fused import leaky_relu, noise_lrelu_adain
 from byogan_tpu_torch.ops.styleconv import styleconv
 
 
@@ -68,6 +70,27 @@ class EqualizedConv(nn.Module):
             raise ValueError("EqualizedConv.forward applies 1x1 kernels only")
         w = (self.weight[:, :, 0, 0] * self.scale).to(x.dtype)
         return F.linear(x, w, self.bias.to(x.dtype))
+
+
+class EqualizedConv2d(EqualizedConv):
+    """The critic's equalized conv on NCHW activations: any kernel size,
+    zero padding ``padding``, through ``F.conv2d``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, padding: int = 0):
+        super().__init__(in_channels, out_channels, kernel_size)
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = (self.weight * self.scale).to(x.dtype)
+        return F.conv2d(x, w, self.bias.to(x.dtype), padding=self.padding)
+
+
+class LeakyReLU(nn.Module):
+    """``leaky_relu`` as a module, for the critic's ``nn.Sequential`` slots
+    (the reference's index positions carry its state-dict names)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x)
 
 
 class NoiseInjection(nn.Module):
@@ -207,3 +230,26 @@ class MappingNetwork(nn.Module):
         for layer in self.layers:
             z = layer(z)
         return z
+
+
+class MinibatchStdDev(nn.Module):
+    """Minibatch standard-deviation channel on NCHW (layers.py:554-587),
+    with the reference's statistics: the mean over the FULL batch; groups
+    by a strided reshape, so sample ``g*(B/G) + m`` belongs to column ``m``
+    and every member of a column shares its stat; the whole batch as the
+    group when ``group_size`` does not divide it (no state kept).  f32
+    statistics, cast back to x's dtype."""
+
+    def __init__(self, group_size: int = 4):
+        super().__init__()
+        self.group_size = group_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.group_size if b % self.group_size == 0 else b
+        m = b // g
+        x32 = x.float()
+        dev2 = (x32 - x32.mean(dim=0, keepdim=True)).square().reshape(g, m, c, h, w)
+        stat = torch.sqrt(dev2.mean(dim=0) + 1e-8).mean(dim=(1, 2, 3))  # (M,)
+        stat_map = stat.repeat(g)[:, None, None, None].expand(b, 1, h, w)
+        return torch.cat([x, stat_map.to(x.dtype)], dim=1)

@@ -18,15 +18,6 @@ def check_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_inference(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet: refuse inputs that want one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what} has no backward kernel yet: call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
-
-
 def check_cuda_input(what: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what} takes CUDA tensors, got {x.device}")

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-KERNELS = ("styleconv", "adain")
+KERNELS = ("styleconv", "adain", "styleconv_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -94,14 +94,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     "styleconv": {
         # x, w, bias, noise, noise_w, gamma, beta, out, hv, part_mean,
-        # part_m2, scale_shift, n, h, w, cin, cout, block_m, eps, dtype,
-        # stream
-        "styleconv_forward": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
+        # part_m2, scale_shift, mean_out, inv_out, n, h, w, cin, cout,
+        # block_m, eps, dtype, stream
+        "styleconv_forward": [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     },
     "adain": {
-        # x, noise, noise_w, gamma, beta, out, part_mean, part_m2,
-        # scale_shift, n, hw, c, eps, dtype, stream
-        "adain_forward": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+        # x, noise, noise_w, gamma, beta, out, hv, mean_out, inv_out,
+        # part_mean, part_m2, scale_shift, n, hw, c, eps, dtype, stream
+        "adain_forward": [_P] * 12 + [_I] * 3 + [_F, _I, _P],
+    },
+    "styleconv_bwd": {
+        # dy, hv, mean, inv, gamma, noise, noise_w, dpre, dnoise, dgamma,
+        # dbeta, dbias_dnw, part, sums, n, hw, c, dtype, stream
+        "styleconv_backward": [_P] * 14 + [_I] * 4 + [_P],
     },
 }
 

@@ -1,15 +1,77 @@
-"""Checkpoint loading (byogan_tpu/train/checkpoint.py:261-276, ``.pth`` only).
+"""Checkpoints as reference-format ``.pth`` files
+(byogan_tpu/train/checkpoint.py:119-193, 261-276, 387-455).
+
+A checkpoint holds the reference's logical fields {gen, critic, iter,
+im_count, step, epoch, alpha} under the reference's state-dict names, so
+the reference and ``byogan_tpu.train.checkpoint.load_checkpoint`` read it,
+plus what an exact resume needs: ``model`` (the ModelSpec), both optimizer
+states and the generator RNG's state.  Files are ``chk-{iters}.pth`` and
+``FINAL.pth``, written atomically.
 
 The JAX package's own checkpoints are orbax directories, which need JAX to
-read; convert one with ``byogan-export`` to a reference ``.pth`` first.
+read; convert one with ``byogan-export`` to a ``.pth`` first.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Optional
+
+import torch
 
 from byogan_tpu_torch.compat.torch_ckpt import load_torch_checkpoint
+
+
+def checkpoint_name(iters: int) -> str:
+    """Reference naming: ``chk-{iters}`` (train.py:258)."""
+    return f"chk-{iters}"
+
+
+def save_checkpoint(
+    directory: str,
+    state,
+    alpha: Optional[float],
+    name: Optional[str] = None,
+    model_spec=None,
+) -> str:
+    """Write ``state`` (a ``TrainState``) to ``{directory}/{name}.pth``;
+    ``alpha`` is the saved fade value, None once past the fade."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.abspath(os.path.join(directory, (name or checkpoint_name(state.iters)) + ".pth"))
+    save = {
+        "gen": state.gen.state_dict(),
+        "critic": state.critic.state_dict(),
+        "iter": int(state.iters),
+        "im_count": int(state.im_count),
+        "step": int(state.stage),
+        "epoch": int(state.epoch),
+        "alpha": None if alpha is None else float(alpha),
+        "model": None if model_spec is None else model_spec.to_dict(),
+        "gen_opt": state.gen_opt.state_dict(),
+        "critic_opt": state.critic_opt.state_dict(),
+        "rng": state.rng.get_state(),
+    }
+    tmp = path + ".tmp"
+    torch.save(save, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def prune_checkpoints(directory: str, keep: int) -> list:
+    """Remove the oldest ``chk-{iters}.pth`` beyond the newest ``keep``;
+    ``FINAL.pth`` stays.  Returns the removed paths."""
+    if keep <= 0 or not os.path.isdir(directory):
+        return []
+    found = sorted(
+        (int(m.group(1)), os.path.join(directory, e))
+        for e in os.listdir(directory)
+        if (m := re.fullmatch(r"chk-(\d+)\.pth", e))
+    )
+    removed = [p for _, p in found[: max(0, len(found) - keep)]]
+    for p in removed:
+        os.remove(p)
+    return removed
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -22,3 +84,19 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
             "only .pth files -- export it with byogan-export first"
         )
     raise FileNotFoundError(f"checkpoint not found: {path}")
+
+
+def restore_train_state(path: str, state) -> Optional[float]:
+    """Load a checkpoint into ``state`` in place; returns its alpha.  A
+    reference ``.pth`` restores the weights and counters; one the port
+    wrote also restores both optimizers and the RNG, for an exact resume."""
+    loaded = load_checkpoint(path)
+    state.gen.load_state_dict(loaded["gen"], strict=True)
+    state.critic.load_state_dict(loaded["critic"], strict=True)
+    if "gen_opt" in loaded:
+        state.gen_opt.load_state_dict(loaded["gen_opt"])
+        state.critic_opt.load_state_dict(loaded["critic_opt"])
+        state.rng.set_state(loaded["rng"])
+    state.iters, state.im_count = loaded["iter"], loaded["im_count"]
+    state.stage, state.epoch = loaded["step"], loaded["epoch"]
+    return loaded["alpha"]

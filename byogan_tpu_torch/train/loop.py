@@ -1,0 +1,192 @@
+"""The progressive training loop (byogan_tpu/train/loop.py:125-496).
+
+Stage by stage, 4 px up to ``len(epoch_progression)`` stages: a fresh
+loader per epoch, the fade-in span ``fade_in = fade_percentage * epochs *
+n_batches`` (a batch count that divides an image count, the reference's
+train.py:119 quirk, kept), per-repeat fade flags, a sample grid
+``output/s-{iters}.png`` every ``display_step``, ``chk-{iters}.pth`` every
+``checkpoint_step``, and ``FINAL.pth`` at the end.  ``max_iters`` stops
+early with a checkpoint that resumes batch-exactly: the loader is seeded
+per epoch and skips the batches already trained, and the checkpoint holds
+the optimizers and the RNG.
+
+Not here yet: the mesh, SWD eval and signal handling of the JAX loop.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from byogan_tpu_torch.core.device import resolve_device
+from byogan_tpu_torch.core.grids import make_grid, to_uint8
+from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+from byogan_tpu_torch.data.pipeline import (
+    batches_per_epoch,
+    make_stage_loader,
+    open_stage_dataset,
+    to_device,
+)
+from byogan_tpu_torch.models.factory import ModelSpec, build_critic, build_generator
+from byogan_tpu_torch.serve import encode_png
+from byogan_tpu_torch.train.checkpoint import prune_checkpoints, restore_train_state, save_checkpoint
+from byogan_tpu_torch.train.config import TrainConfig
+from byogan_tpu_torch.train.metrics import MetricsLogger
+from byogan_tpu_torch.train.state import TrainState, create_train_state
+from byogan_tpu_torch.train.steps import make_train_step
+
+
+def model_spec(config: TrainConfig) -> ModelSpec:
+    return ModelSpec(
+        num_stages=max(config.num_stages, 1),
+        channel_divisor=config.channel_divisor,
+        mapping_depth=config.mapping_depth,
+    )
+
+
+def build_state(config: TrainConfig, device: torch.device) -> TrainState:
+    """Fresh nets (weights seeded from ``config.seed``) and optimizers."""
+    spec = model_spec(config)
+    dtype = None if config.compute_dtype == "float32" else getattr(torch, config.compute_dtype)
+    init = torch.Generator().manual_seed(config.seed)
+    gen = build_generator(spec, dtype=dtype, z_dim=config.noise_size, generator=init)
+    critic = build_critic(spec, generator=init)
+    return create_train_state(config, gen, critic, device)
+
+
+def save_sample_grid(
+    state: TrainState,
+    config: TrainConfig,
+    show_z: torch.Tensor,
+    steps: int,
+    alpha: Optional[float],
+    iters: int,
+    filename: str,
+) -> str:
+    """The fixed-latent sample grid (train.py:236-245): images clamped to
+    [0, 1], sqrt(show_noise_count) per row, as a PNG without the
+    reference's matplotlib title."""
+    dev = show_z.device
+    rng = torch.Generator(device=dev).manual_seed(config.seed * 1_000_003 + 13 + iters)
+    dtype = getattr(torch, config.compute_dtype)
+    noise = synthesis_noise(rng, show_z.shape[0], steps, dtype=dtype)
+    with torch.no_grad():
+        img = state.gen(show_z.to(dtype), noise, steps=steps, alpha=alpha).float()
+    grid = make_grid(to_uint8(img.clamp(0.0, 1.0)).cpu().numpy(), nrow=int(np.sqrt(config.show_noise_count)))
+    os.makedirs(config.output_dir, exist_ok=True)
+    path = os.path.join(config.output_dir, f"{filename}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(grid))
+    return path
+
+
+def train(
+    config: TrainConfig,
+    checkpoint: Optional[str] = None,
+    max_iters: Optional[int] = None,
+    device: Optional[str] = None,
+) -> TrainState:
+    """Run the progressive schedule (reference train.py:15).  ``device``
+    defaults to ``cuda`` and raises without a GPU; ``checkpoint`` resumes
+    from a ``.pth``."""
+    dev = resolve_device(device)
+    if config.data is None:
+        raise ValueError("config.data must point at a prepared dataset")
+    if not os.path.exists(os.path.join(config.data, "prepared")):
+        raise OSError("Did not detect prepared dataset!")
+    spec = model_spec(config)
+    state = build_state(config, dev)
+    alpha_ckpt: Optional[float] = None
+    last_stage = None
+    if checkpoint is not None:
+        alpha_ckpt = restore_train_state(checkpoint, state)
+        last_stage = state.stage
+    os.makedirs(config.checkpoint_dir, exist_ok=True)
+
+    show_z = truncated_noise(
+        torch.Generator().manual_seed(config.seed + 7), config.show_noise_count,
+        config.noise_size, config.show_noise_trunc,
+    ).to(dev)
+    logger = MetricsLogger(os.path.join(config.output_dir, "metrics.jsonl"))
+    k = config.refresh_stat_step
+    c_hist: collections.deque = collections.deque(maxlen=k)
+    g_hist: collections.deque = collections.deque(maxlen=k)
+
+    def stop(epoch: int) -> TrainState:
+        logger.close()
+        state.epoch = epoch
+        save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec)
+        return state
+
+    for index in range(config.num_stages):
+        steps = index + 1
+        if last_stage is not None and steps < last_stage:
+            continue
+        batch = config.stage_batch(index)
+        stage_epochs = config.stage_epochs(index)
+        dataset = open_stage_dataset(config.data, steps)
+        n_batches = batches_per_epoch(len(dataset), batch)
+        if n_batches == 0:
+            raise ValueError(f"stage {steps}: dataset ({len(dataset)}) smaller than batch ({batch})")
+        fade_in = config.fade_percentage * stage_epochs * n_batches
+        resume = last_stage is not None and steps == last_stage
+        if not resume:
+            state.im_count = 0
+        state.stage = steps
+        iters_done = state.im_count // (batch * config.critic_repeats)
+        resume_epoch = iters_done // n_batches if resume else 0
+        resume_skip = iters_done % n_batches if resume else 0
+        print(f"STARTING STEP #{steps}")
+        step_cache = {}
+
+        for epoch in range(resume_epoch, stage_epochs):
+            loader = make_stage_loader(
+                dataset, batch, seed=config.seed * 100003 + steps * 1009 + epoch,
+                skip_batches=resume_skip if epoch == resume_epoch else 0,
+            )
+            for real in to_device(loader, dev):
+                repeats = config.critic_repeats
+                critic_fade = tuple(
+                    (state.im_count + r * batch) / fade_in <= 1.0 for r in range(repeats)
+                )
+                gen_fade = (state.im_count + repeats * batch) / fade_in <= 1.0
+                key = (critic_fade, gen_fade)
+                if key not in step_cache:
+                    step_cache[key] = make_train_step(
+                        config, steps, batch, fade_in, critic_fade, gen_fade
+                    )
+                metrics = step_cache[key](state, real)
+                gen_alpha = state.im_count / fade_in
+                alpha_ckpt = None if gen_alpha > 1.0 else gen_alpha
+
+                c_hist.append(metrics["c_loss"])
+                g_hist.append(metrics["g_loss"])
+                if state.iters % k == 0:
+                    extra = {"rt": round(float(metrics["real_sign"]), 4)} if "real_sign" in metrics else None
+                    logger.log_step(
+                        state.iters, float(torch.stack(list(c_hist)).mean()),
+                        float(torch.stack(list(g_hist)).mean()), epoch, steps, batch, extra,
+                    )
+                if state.iters % config.display_step == 0:
+                    save_sample_grid(
+                        state, config, show_z, steps, alpha_ckpt if gen_fade else None,
+                        state.iters, f"s-{state.iters}",
+                    )
+                if state.iters % config.checkpoint_step == 0:
+                    state.epoch = epoch
+                    save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec)
+                    prune_checkpoints(config.checkpoint_dir, config.max_checkpoints)
+                if max_iters is not None and state.iters >= max_iters:
+                    return stop(epoch)
+            state.epoch = epoch
+        last_stage = None
+
+    save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final")
+    save_checkpoint(config.checkpoint_dir, state, None, name="FINAL", model_spec=spec)
+    logger.close()
+    print("TRAINING IS FINISHED - MODEL SAVED!")
+    return state

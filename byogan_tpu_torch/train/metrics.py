@@ -1,0 +1,59 @@
+"""Rolling-loss readout and ``metrics.jsonl`` (byogan_tpu/train/metrics.py:18-98).
+
+Same console line and the same jsonl records as the JAX package: one
+``{"iter", "stage", "epoch", "c_loss", "g_loss", "images_per_sec", ...}``
+object per readout, appended and flushed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, Optional
+
+
+class MetricsLogger:
+    def __init__(self, jsonl_path: Optional[str] = None, print_fn=print):
+        self._jsonl = None
+        if jsonl_path:
+            os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
+            self._jsonl = open(jsonl_path, "a")
+        self._print = print_fn
+        self._last_time = time.perf_counter()
+        self._last_iters = 0
+
+    def log_step(
+        self,
+        iters: int,
+        c_loss: float,
+        g_loss: float,
+        epoch: int,
+        stage: int,
+        batch: int,
+        extra: Optional[Dict[str, float]] = None,
+    ) -> None:
+        """Record one readout of window-averaged losses."""
+        now = time.perf_counter()
+        rate = (
+            (iters - self._last_iters) * batch / (now - self._last_time)
+            if now > self._last_time and iters > self._last_iters
+            else 0.0
+        )
+        self._last_time, self._last_iters = now, iters
+        self._print(
+            f"step {stage} iter {iters}  g_loss: {g_loss:.3}  c_loss: {c_loss:.3}  "
+            f"epoch: {epoch + 1}  ({rate:.1f} img/s)"
+        )
+        if self._jsonl:
+            rec = {
+                "iter": iters, "stage": stage, "epoch": epoch, "c_loss": float(c_loss),
+                "g_loss": float(g_loss), "images_per_sec": rate, **(extra or {}),
+            }
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+
+    def close(self) -> None:
+        if self._jsonl:
+            self._jsonl.close()
+            self._jsonl = None
