@@ -143,7 +143,7 @@ int run(const void* x, const void* noise, const float* nw, const void* gamma,
     float* shift = scale_shift + (long long)n * C;
     finalize_moments<T><<<dim3(C, n), finalize_threads(tiles), 0, stream>>>(
         pm, pm2, (const T*)gamma, (const T*)beta, scale, shift, mean_out,
-        inv_out, tiles, kTile, hw, C, eps);
+        inv_out, tiles, TileGrid{1, hw, 1, kTile, tiles}, C, eps);
     const int total = n * hw * C;
     adain_apply<T><<<grid_for(total, 256), 256, 0, stream>>>(
         (const T*)x, (const T*)noise, nw, scale, shift, (T*)out, hv, total, hw,

@@ -41,10 +41,20 @@ __device__ __forceinline__ void merge_moments(float& n, float& mean, float& m2,
   n = nn;
 }
 
+// How a sample's h x w pixels are cut into th x tw tiles, tiles_x to a row
+// of the grid, numbered row by row.  A run of `tile` pixels of the flattened
+// sample is {1, hw, 1, tile, tiles}; a tile of whole samples is {h, w, h, w, 1}.
+struct TileGrid {
+  int h, w, th, tw, tiles_x;
+  __device__ __forceinline__ int count(int t) const {
+    return min(th, h - (t / tiles_x) * th) * min(tw, w - (t % tiles_x) * tw);
+  }
+};
+
 // One block per (channel c = blockIdx.x, sample s = blockIdx.y).  Merges the
 // `tiles` partial (mean, M2) summaries of (s, c), tile t holding
-// min(tile, hw - t*tile) pixels, in a fixed tree order (the same result on
-// every run), then writes
+// grid.count(t) pixels, in a fixed tree order (the same result on every
+// run), then writes
 //   scale = gamma * rsqrt(M2/hw + eps),  shift = beta - scale * mean,
 // and, when mean_out is not null (a forward that feeds K3), the mean and
 // inv = rsqrt(M2/hw + eps) themselves.  blockDim.x is a power of two <= 256.
@@ -57,13 +67,14 @@ __global__ void finalize_moments(const float* __restrict__ part_mean,
                                  float* __restrict__ shift,
                                  float* __restrict__ mean_out,
                                  float* __restrict__ inv_out, int tiles,
-                                 int tile, int hw, int C, float eps) {
+                                 TileGrid grid, int C, float eps) {
   __shared__ float sn[256], sm[256], sq[256];
   const int c = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
+  const int hw = grid.h * grid.w;
   float n = 0.f, mean = 0.f, m2 = 0.f;
   for (int t = tid; t < tiles; t += blockDim.x) {
     const long long idx = ((long long)s * tiles + t) * C + c;
-    merge_moments(n, mean, m2, (float)min(tile, hw - t * tile), part_mean[idx],
+    merge_moments(n, mean, m2, (float)grid.count(t), part_mean[idx],
                   part_m2[idx]);
   }
   sn[tid] = n;

@@ -41,6 +41,15 @@ class ModelSpec:
             for ic, oc in GENERATOR_CHANNELS[: self.num_stages]
         )
 
+    def styleconv_shapes(self) -> Tuple[Tuple[int, int, int], ...]:
+        """(H, Cin, Cout) of the synthesis convs of one pass through every
+        stage, in order: the first block's one, then two per block."""
+        out = []
+        for i, (ic, oc) in enumerate(self.generator_channels()):
+            r = 4 * 2**i
+            out += [(r, ic, oc), (r, oc, oc)] if i else [(r, oc, oc)]
+        return tuple(out)
+
     def critic_from_rgb(self) -> Tuple[int, ...]:
         # Critic tables are highest-resolution first: an n-stage model keeps
         # the LAST n entries.

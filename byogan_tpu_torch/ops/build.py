@@ -94,9 +94,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "styleconv": {
         # x, w, bias, noise, noise_w, gamma, beta, out, hv, part_mean,
-        # part_m2, scale_shift, mean_out, inv_out, n, h, w, cin, cout,
-        # block_m, eps, dtype, stream
-        "styleconv_forward": [_P] * 14 + [_I] * 6 + [_F, _I, _P],
+        # part_m2, scale_shift, mean_out, inv_out, n, h, w, cin, cout, then
+        # the tile plan bm, bn, th, tw, spt, stages, smem; eps, dtype,
+        # stream
+        "styleconv_forward": [_P] * 14 + [_I] * 12 + [_F, _I, _P],
     },
     "adain": {
         # x, noise, noise_w, gamma, beta, out, hv, mean_out, inv_out,

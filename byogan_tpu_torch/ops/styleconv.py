@@ -19,6 +19,8 @@ Function runs with the plain versions inside.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
@@ -75,14 +77,114 @@ def styleconv_plain(
     return out
 
 
-def block_m(cout: int) -> int:
-    """Pixels per conv tile: the kernel's tile is block_m x (4096/block_m)
-    output channels, narrow where Cout is narrow (styleconv.cu)."""
-    if cout <= 16:
-        return 256
-    if cout <= 32:
-        return 128
-    return 64
+# The bf16 route's tile configurations (csrc/styleconv.cu, launch_bf16):
+# (BM, BN) -> warps along M and N.
+WARPS = {
+    (256, 64): (4, 2), (128, 64): (4, 2), (64, 64): (2, 2), (32, 64): (2, 2), (16, 64): (1, 4),
+    (256, 32): (8, 1), (128, 32): (4, 1), (256, 16): (4, 1), (128, 16): (4, 1),
+}
+# The th x tw rectangle of one sample that a tile of BM pixels covers.
+RECT = {256: (16, 16), 128: (8, 16), 64: (8, 8), 32: (4, 8), 16: (4, 4)}
+BK = 16             # kBK: input channels per slice
+STAGES = 3          # kStages: the cp.async ring's depth (fewer where Cin has fewer slices)
+MAX_HALO = 336      # kMaxHalo: halo pixels a tile may stage
+MAX_SPT = 8         # kMaxSpt: whole samples a tile may hold
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
+TARGET_BLOCKS = 128  # about one block per SM (132)
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How one K1 call is cut into blocks.  A tile is ``bm`` pixels by
+    ``bn`` output channels, walked in slices of ``BK`` input channels: a
+    ``th`` x ``tw`` rectangle of one sample (``spt`` 1, ``tiles_y`` x
+    ``tiles_x`` of them per sample), or ``spt`` whole samples (th, tw = H,
+    W).  ``stages`` and ``smem`` are the pipeline's depth and its dynamic
+    shared memory in bytes (1 and 0 on the f32 route, whose tiles are runs
+    of ``bm`` pixels of the flattened sample)."""
+
+    bm: int
+    bn: int
+    th: int
+    tw: int
+    spt: int
+    tiles_y: int
+    tiles_x: int
+    m_tiles: int
+    n_tiles: int
+    stages: int
+    smem: int
+
+    @property
+    def tiles_per_sample(self) -> int:
+        return self.tiles_y * self.tiles_x
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def idle_rows(self) -> bool:
+        """Tiles of whole samples that leave rows without a pixel in every
+        tile (spt * H * W < bm)."""
+        return self.th * self.tw * self.spt < self.bm and self.tiles_per_sample == 1
+
+    def describe(self) -> str:
+        where = f"{self.spt} samples of {self.th}x{self.tw}" if self.spt > 1 else f"{self.th}x{self.tw} of one sample"
+        return f"tile {self.bm}x{self.bn} ({where}), {self.blocks} blocks, {self.stages} stages, {self.smem} B shared"
+
+
+def _stage_bytes(halo_px: int, bn: int) -> int:
+    """One pipeline stage: halo rows and weight rows, each padded by 8 bf16."""
+    return halo_px * (BK + 8) * 2 + 9 * BK * (bn + 8) * 2
+
+
+def bf16_plan(n: int, h: int, w: int, cin: int, cout: int, bm: int) -> TilePlan:
+    """The bf16 route's plan with tiles of ``bm`` pixels: whole samples
+    where H*W is at most ``bm`` and their halos fit, else rectangles of one
+    sample.  ``plan_tiles`` picks ``bm``; the card checks and ``tile_sweep``
+    call this to force it."""
+    bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    if (bm, bn) not in WARPS:
+        raise ValueError(f"styleconv: no tile of {bm} pixels x {bn} channels")
+    hw = h * w
+    spt = min(bm // hw, MAX_SPT, n) if hw <= bm else 0
+    while spt > 1 and spt * (h + 2) * (w + 2) > MAX_HALO:
+        spt -= 1
+    if spt >= 1 and (h + 2) * (w + 2) <= MAX_HALO:  # whole samples
+        th, tw, ty, tx, m_tiles = h, w, 1, 1, -(-n // spt)
+    else:  # rectangles of one sample
+        spt, (th, tw) = 1, RECT[bm]
+        ty, tx = -(-h // th), -(-w // tw)
+        m_tiles = n * ty * tx
+    warps_m = WARPS[(bm, bn)][0]
+    halo = spt * (th + 2) * (tw + 2)
+    stages = min(STAGES, -(-cin // BK))  # no buffer for slices that do not exist
+    smem = max(stages * _stage_bytes(halo, bn), (spt * warps_m * bn + spt * bn) * 4)
+    return TilePlan(bm, bn, th, tw, spt, ty, tx, m_tiles, -(-cout // bn), stages, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tiles(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype = torch.bfloat16) -> TilePlan:
+    """K1's tile plan for x (n, h, w, cin) and cout output channels.
+
+    bf16: BN follows Cout (16, 32 or 64).  BM is the largest of 256, 128,
+    64, 32, 16 (256 or 128, where BN < 64) that puts ``TARGET_BLOCKS``
+    blocks on the card, else the one with the most blocks; a tile of whole
+    samples with idle rows is taken only where every BM leaves some.  BK is
+    16: it halves a stage's shared memory against 32, so that two or three
+    blocks share an SM.  ``tile_sweep`` measured these rules (PERF.md).
+    f32: the CUDA-core route's runs of 256, 128 or 64 pixels by 16, 32 or
+    64 channels."""
+    if dtype == torch.float32:
+        bm = 256 if cout <= 16 else 128 if cout <= 32 else 64
+        tiles = -(-h * w // bm)
+        return TilePlan(bm, 4096 // bm, 1, bm, 1, 1, tiles, n * tiles, -(-cout // (4096 // bm)), 1, 0)
+    candidates = (256, 128) if cout <= 32 else (256, 128, 64, 32, 16)
+    plans = [bf16_plan(n, h, w, cin, cout, bm) for bm in candidates]
+    plans = [p for p in plans if not p.idle_rows] or plans
+    full = [p for p in plans if p.blocks >= TARGET_BLOCKS]
+    return full[0] if full else max(plans, key=lambda p: (p.blocks, -p.bm))
 
 
 def styleconv_cuda(
@@ -99,7 +201,8 @@ def styleconv_cuda(
     """Launch K1.  x (N,H,W,Cin) f32 or bf16; weight (3,3,Cin,Cout), noise
     (N,H,W,1), gamma and beta (N,Cout) in x's dtype; bias and noise_w
     (Cout,) f32.  Returns (N,H,W,Cout) in x's dtype and, ``with_stats``,
-    also hv (the pass-1 scratch) and mean, inv (N,Cout), all f32."""
+    also hv (the pass-1 scratch) and mean, inv (N,Cout), all f32.
+    ``plan_tiles`` cuts the call into blocks."""
     check_cuda_input("styleconv_cuda", x)
     n, h, w, cin = x.shape
     cout = weight.shape[-1]
@@ -113,13 +216,14 @@ def styleconv_cuda(
     check_tensor("beta", beta, (n, cout), dt, dev)
     if n * h * w * cout >= 2**31:
         raise ValueError("styleconv_cuda: output exceeds 32-bit indexing")
-    bm = block_m(cout)
-    tiles = -(-(h * w) // bm)
+    plan = plan_tiles(n, h, w, cin, cout, dt)
     out = torch.empty((n, h, w, cout), dtype=dt, device=dev)
     hv = torch.empty((n, h, w, cout), dtype=torch.float32, device=dev)
-    parts = torch.empty((2, n, tiles, cout), dtype=torch.float32, device=dev)
-    scale_shift = torch.empty((2, n, cout), dtype=torch.float32, device=dev)
-    stats = torch.empty((2, n, cout), dtype=torch.float32, device=dev) if with_stats else None
+    # One f32 scratch: mean, inv (N,Cout) each; scale and shift; the
+    # per-tile partial means and M2s (N, tiles, Cout) each.
+    nc, parts = n * cout, n * plan.tiles_per_sample * cout
+    aux = torch.empty(4 * nc + 2 * parts, dtype=torch.float32, device=dev)
+    at = lambda i: aux.data_ptr() + 4 * i  # noqa: E731  byte address of aux[i]
     lib = build.load("styleconv")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -127,14 +231,15 @@ def styleconv_cuda(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
             noise.data_ptr(), noise_w.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), out.data_ptr(), hv.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), scale_shift.data_ptr(),
-            stats[0].data_ptr() if with_stats else None,
-            stats[1].data_ptr() if with_stats else None,
-            n, h, w, cin, cout, bm, float(eps), DTYPE_CODES[dt], stream,
+            at(4 * nc), at(4 * nc + parts), at(2 * nc),
+            at(0) if with_stats else None, at(nc) if with_stats else None,
+            n, h, w, cin, cout, plan.bm, plan.bn, plan.th, plan.tw,
+            plan.spt, plan.stages, plan.smem, float(eps), DTYPE_CODES[dt], stream,
         )
     styleconv_cuda.launches += 1
     build.check(lib, code, "styleconv_cuda")
     if with_stats:
+        stats = aux[: 2 * nc].view(2, n, cout)
         return out, hv, stats[0], stats[1]
     return out
 

@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of ``byogan_tpu_torch/csrc`` into ``build/``, then
-drives both paths of the port at full width (``ModelSpec()``):
+Builds the CUDA kernels of ``byogan_tpu_torch/csrc`` into ``build/`` and
+counts the tensor-core instructions (HMMA/HGMMA) in K1's SASS, then drives
+both paths of the port at full width (``ModelSpec()``):
 
 * sampling: each forward kernel against its plain PyTorch version at the
-  shapes the sampling path gives it, 512 px frames through ``Sampler``
-  (counting kernel launches), the kernel path against the plain path, every
-  kernel's time beside its bound, PNGs through ``save_stream`` and the CLI;
+  shapes the sampling path gives it and K1 at the card tests' shapes, 512 px
+  frames through ``Sampler`` (counting kernel launches), the kernel path
+  against the plain path, every kernel's time beside its bound (K1 per
+  shape with its tile plan and the card's time in each of its kernels),
+  PNGs through ``save_stream`` and the CLI;
 * training: the forwards with their residuals, the backward kernel and the
   autograd Functions' gradients against their plain versions at the
   stage-8 shapes, all 8 stages 4 -> 512 px through the training CLI on a
@@ -108,30 +111,30 @@ def timed_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_shapes(channels):
-    """(H, Cin, Cout) of every K1 launch of one pass through the generator:
-    conv2 of stage 1, then conv1 and conv2 of each later stage."""
-    out = []
-    for i, (ic, oc) in enumerate(channels):
-        r = 4 * 2**i
-        if i > 0:
-            out.append((r, ic, oc))
-        out.append((r, oc, oc))
-    return out
+def device_ms(fn) -> float:
+    """Mean time per fn() that the card spends in kernels (torch.profiler)."""
+    from byogan_tpu_torch.ops.cardcheck import kernel_ms
+
+    return sum(kernel_ms(fn).values())
 
 
-def k1_inputs(n, r, cin, cout, dtype, gen):
+def fmt_times(times: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+
+
+def k1_inputs(n, r, cin, cout, dtype, gen, w=None):
     dev = "cuda"
+    w = r if w is None else w
 
     def randn(*shape, std=1.0, mean=0.0, dt=dtype):
         t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (mean + std * t).to(dt)
 
     return dict(
-        x=randn(n, r, r, cin),
+        x=randn(n, r, w, cin),
         weight=randn(3, 3, cin, cout, std=(2.0 / (9 * cin)) ** 0.5),
         bias=randn(cout, std=0.1, dt=torch.float32),
-        noise=randn(n, r, r, 1),
+        noise=randn(n, r, w, 1),
         noise_w=randn(cout, std=0.3, dt=torch.float32),
         gamma=randn(n, cout, std=0.1, mean=1.0),
         beta=randn(n, cout, std=0.1),
@@ -158,12 +161,15 @@ def k2_library(x, noise, noise_w, gamma, beta):
     return gamma[:, :, None, None] * h + beta[:, :, None, None]
 
 
-def k1_bound(n, r, cin, cout, isz):
+def k1_bound(n, r, cin, cout, isz, with_stats=False):
     """(bound_ms, bound_by) of one K1 call: each input read once, the output
-    written once; the conv's flops plus ~10 per output at the bf16 tensor
-    core rate (the fastest the card could do them)."""
+    written once (with_stats: also the f32 hv, mean and inv); the conv's
+    flops plus ~10 per output at the bf16 tensor core rate (the fastest the
+    card could do them)."""
     hw = r * r
     nbytes = (n * hw * cin + 9 * cin * cout + n * hw + 2 * n * cout + n * hw * cout) * isz + 8 * cout
+    if with_stats:
+        nbytes += 4 * n * hw * cout + 8 * n * cout
     flops = 2 * n * hw * 9 * cin * cout + 10 * n * hw * cout
     peak = PEAK_BF16_TENSOR if isz == 2 else PEAK_F32
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
@@ -204,6 +210,38 @@ def k3_library(dy, hv, mean, inv, gamma, noise, noise_w):
         return dpre, dg, db, dpre.sum((0, 2, 3)), (dpre * noise_c).sum((0, 2, 3)), (dpre * nw).sum(1)
 
     return run
+
+
+def tensor_core_instructions(lib, nvcc):
+    """HMMA/HGMMA instructions in a built library's SASS (cuobjdump of the
+    CUDA toolkit beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], check=True, capture_output=True, text=True).stdout
+    return sum(1 for line in sass.splitlines() if "HMMA" in line or "HGMMA" in line)
+
+
+def k1_extra_checks(gen):
+    """K1 and its residuals against the plain version at the card tests'
+    shapes and forced tile plans (``cardcheck.K1_CASES``), f32 and bf16;
+    returns the largest out error per dtype."""
+    from byogan_tpu_torch.ops.cardcheck import K1_CASES, forced_plan
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda, styleconv_plain
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype] = 0.0
+        for (n, h, w, cin, cout), bm in K1_CASES:
+            ins = k1_inputs(n, h, cin, cout, dtype, gen, w=w)
+            with torch.no_grad(), forced_plan(bm):
+                got = styleconv_cuda(**ins, with_stats=True)
+                want = styleconv_plain(**ins, with_stats=True)
+            tag = f"K1 {str(dtype)[6:]} ({n},{h},{w},{cin}->{cout}) " + (f"forced bm {bm}" if bm else "planned")
+            e = max_err(got[0], want[0], TOL[dtype])
+            for name, gt, wt in zip(("hv", "mean", "inv"), got[1:], want[1:]):
+                rel_err(gt, wt, RES_TOL, f"{tag} {name}")
+            print(f"check {tag} out max_abs_err {e:.3e}, residuals within {RES_TOL} relative")
+            worst[dtype] = max(worst[dtype], e)
+    return worst
 
 
 def training_kernels(shapes, gen):
@@ -436,13 +474,13 @@ def training_times(shapes, gen):
     """The stage-8 iteration, bf16, batch 5, no-blend path: ms and images/s
     by CUDA events, and its parts timed alone at the same shapes: K1
     forward (without and with residuals), K2, K3, the cuDNN conv transposes
-    and the critic phase's loss with R1 and its gradient.  Returns K3's
-    per-shape numbers summed."""
+    and the critic phase's loss with R1 and its gradient.  Returns K1's
+    with-residuals (emit_hv) and K3's per-shape numbers summed."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
     from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
-    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.ops.styleconv import plan_tiles, styleconv_cuda, styleconv_plain
     from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda, styleconv_backward_plain
     from byogan_tpu_torch.train.config import TrainConfig
     from byogan_tpu_torch.train.loop import build_state
@@ -457,7 +495,10 @@ def training_times(shapes, gen):
     it_ms = timed_ms(lambda: step(state, real), iters=TIMED_ITERS)
     print(f"time train iteration bf16 stage 8 batch {n}: {it_ms:.3f} ms, {1e3 * n / it_ms:.2f} images/s (CUDA events, {TIMED_ITERS} iterations)")
 
-    parts = {"K1 forward x30": 0.0, "K2 x2": 0.0, "K3 x16": 0.0, "cuDNN conv transposes x15": 0.0}
+    parts = {"K1 forward x15, no residuals": 0.0, "K1 forward x15, with residuals": 0.0, "K2 x2": 0.0,
+             "K3 x16": 0.0, "cuDNN conv transposes x15": 0.0}
+    k1s = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+    k1s_by = {"bytes": 0.0, "operations": 0.0}
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     k3_by = {"bytes": 0.0, "operations": 0.0}
     cases = [(r, cin, cout) for r, cin, cout in shapes] + [(4, None, 512)]
@@ -470,8 +511,20 @@ def training_times(shapes, gen):
                 _, hv, mean, inv = noise_lrelu_adain_plain(**ins, with_stats=True)
             else:
                 ins = k1_inputs(n, r, cin, cout, dt, gen)
-                parts["K1 forward x30"] += timed_ms(lambda: styleconv_cuda(**ins)) + timed_ms(
-                    lambda: styleconv_cuda(**ins, with_stats=True))
+                no_stats_ms = timed_ms(lambda: styleconv_cuda(**ins))
+                t = {
+                    "ms": timed_ms(lambda: styleconv_cuda(**ins, with_stats=True)),
+                    "plain_ms": timed_ms(lambda: styleconv_plain(**ins, with_stats=True)),
+                    "device_ms": device_ms(lambda: styleconv_cuda(**ins, with_stats=True)),
+                }
+                t["bound_ms"], by = k1_bound(n, r, cin, cout, 2, with_stats=True)
+                k1s_by[by] += t["bound_ms"]
+                for key in k1s:
+                    k1s[key] += t[key]
+                parts["K1 forward x15, no residuals"] += no_stats_ms
+                parts["K1 forward x15, with residuals"] += t["ms"]
+                print(f"time K1 with_stats bf16 ({n},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
+                      + f" bound_by {by}; without stats ms {no_stats_ms:.4f}; {plan_tiles(n, r, r, cin, cout).describe()}")
                 _, hv, mean, inv = styleconv_cuda(**ins, with_stats=True)
                 x_c, w_c = ins["x"].permute(0, 3, 1, 2), ins["weight"].permute(3, 2, 0, 1)
                 d_c = torch.randn((n, r, r, cout), generator=gen, device=dev).to(dt).permute(0, 3, 1, 2)
@@ -520,17 +573,14 @@ def training_times(shapes, gen):
         print(f"time train part {name}: {ms:.3f} ms ({100 * ms / it_ms:.1f}% of the iteration)")
     print(f"time train part rest (critic-phase generator forward glue, generator-phase critic, Adam, launch gaps), by difference: {rest:.3f} ms ({100 * rest / it_ms:.1f}%)")
 
-    try:  # optional readout: the profiler is untried on this machine
-        from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(state, real)
-            torch.cuda.synchronize()
-        print("profiler: top ten ops of one stage-8 iteration by device time")
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
-    except Exception as e:  # noqa: BLE001
-        print(f"profiler: not available here ({type(e).__name__}: {e})")
-    return k3, max(k3_by, key=k3_by.get), it_ms
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, real)
+        torch.cuda.synchronize()
+    print("profiler: top ten ops of one stage-8 iteration by device time")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
+    return (k1s, max(k1s_by, key=k1s_by.get)), (k3, max(k3_by, key=k3_by.get)), it_ms
 
 
 def main() -> int:
@@ -544,7 +594,8 @@ def main() -> int:
     from byogan_tpu_torch.ops import build
     from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
     from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
-    from byogan_tpu_torch.ops.styleconv import styleconv_cuda, styleconv_plain
+    from byogan_tpu_torch.ops.cardcheck import forced_plan, kernel_ms
+    from byogan_tpu_torch.ops.styleconv import bf16_plan, plan_tiles, styleconv_cuda, styleconv_plain
     from byogan_tpu_torch.serve import Sampler
 
     card = subprocess.run(
@@ -557,12 +608,14 @@ def main() -> int:
     t0 = time.time()
     built = build.build(force=True)
     print(f"build: {built} in {time.time() - t0:.1f} s")
+    hmma = tensor_core_instructions(build.library_path("styleconv"), build.nvcc())
+    print(f"sass: {hmma} HMMA/HGMMA instructions in {build.library_path('styleconv').name}")
+    require(hmma > 0, "the bf16 K1 has no tensor-core instruction in its SASS")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    channels = ModelSpec().generator_channels()
-    shapes = k1_shapes(channels)
+    shapes = ModelSpec().styleconv_shapes()
     require(len(shapes) == 15, f"expected 15 K1 shapes, got {len(shapes)}")
     k2_shapes = [(4, 512), (64, 128), (512, 16)]  # the path's, then split-HW
 
@@ -585,6 +638,7 @@ def main() -> int:
                 e2 = max(e2, e)
             errs[dtype] = (e1, e2)
         torch.cuda.synchronize()
+    extra_errs = k1_extra_checks(gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         # Phase 4: the full-width generator, saved and loaded as a .pth.
@@ -641,7 +695,7 @@ def main() -> int:
             f"(batch {PATH_BATCH}, bf16, host clock incl. fetch); render "
             f"{render_ms:.3f} ms per batch (CUDA events)"
         )
-        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0, "bound_ms": 0.0}
         bound_by_kind = {"bytes": 0.0, "operations": 0.0}
         with torch.inference_mode():
             for r, cin, cout in shapes:
@@ -650,12 +704,24 @@ def main() -> int:
                     "ms": timed_ms(lambda: styleconv_cuda(**ins)),
                     "plain_ms": timed_ms(lambda: styleconv_plain(**ins)),
                     "library_ms": timed_ms(lambda: k1_library(**ins)),
+                    "library_device_ms": device_ms(lambda: k1_library(**ins)),
                 }
+                parts_k1 = kernel_ms(lambda: styleconv_cuda(**ins))
+                t["device_ms"] = sum(parts_k1.values())
                 t["bound_ms"], by = k1_bound(PATH_BATCH, r, cin, cout, 2)
                 bound_by_kind[by] += t["bound_ms"]
                 for k in totals:
                     totals[k] += t[k]
-                print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items()) + f" bound_by {by}")
+                plan = plan_tiles(PATH_BATCH, r, r, cin, cout)
+                print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
+                      + f" bound_by {by}; plan: {plan.describe()}; device ms by kernel: {fmt_times(parts_k1)}")
+                if r <= 8:  # the same call with whole samples per tile, for comparison
+                    for bm in (64, 128):
+                        alt = bf16_plan(PATH_BATCH, r, r, cin, cout, bm)
+                        with forced_plan(bm):
+                            ms = timed_ms(lambda: styleconv_cuda(**ins))
+                            dms = device_ms(lambda: styleconv_cuda(**ins))
+                        print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) other plan ms {ms:.4f} device_ms {dms:.4f}: {alt.describe()}")
             k1_by = max(bound_by_kind, key=bound_by_kind.get)
             ins2 = k2_inputs(PATH_BATCH, 4, 512, torch.bfloat16, gen)
             k2 = {
@@ -685,10 +751,10 @@ def main() -> int:
         require(sorted(os.listdir(cli_dir)) == ["image_1.png", "image_2.png"], "CLI output")
 
         # Phases 7-10: the training path.
-        train_errs = training_kernels(k1_shapes(channels), gen)
+        train_errs = training_kernels(shapes, gen)
         train_launches, train_wall = train_through_cli(tmp)
         stage8_step_kernel_vs_plain()
-        k3, k3_by, it_ms = training_times(k1_shapes(channels), gen)
+        (k1s, k1s_by), (k3, k3_by), it_ms = training_times(shapes, gen)
 
     kernels = [
         {
@@ -698,10 +764,15 @@ def main() -> int:
             "launches": launches["styleconv"],
             "max_abs_err": errs[torch.bfloat16][0],
             "max_abs_err_f32": errs[torch.float32][0],
+            "max_abs_err_test_shapes": extra_errs[torch.bfloat16],
+            "max_abs_err_test_shapes_f32": extra_errs[torch.float32],
             **totals, "bound_by": k1_by,
             "shapes": "15 path shapes summed, batch 8, bf16",
             "launches_train": train_launches["styleconv"],
             "max_abs_err_train": train_errs[torch.bfloat16]["fwd"],
+            "with_stats": {**k1s, "bound_by": k1s_by, "library_ms": None,
+                           "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out"},
+            "hmma_sass": hmma,
         },
         {
             "name": "adain", "route": "cuda",

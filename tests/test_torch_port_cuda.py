@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+from byogan_tpu_torch.ops.cardcheck import K1_CASES, forced_plan
 from byogan_tpu_torch.ops.fused import NoiseLReLUAdaINFunction, noise_lrelu_adain_plain
 from byogan_tpu_torch.ops.styleconv import StyleConvFunction, styleconv_cuda, styleconv_plain
 from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda, styleconv_backward_plain
@@ -34,17 +35,33 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "shape", [(4, 8, 8, 16, 24), (2, 16, 16, 8, 8), (2, 32, 32, 32, 16), (3, 5, 7, 40, 70)]
-)
-def test_styleconv_kernel_matches_plain(cuda_device, shape, dtype):
+@pytest.mark.parametrize("shape,bm", K1_CASES)
+def test_styleconv_kernel_matches_plain(cuda_device, shape, bm, dtype):
     ins = as_torch(styleconv_inputs(*shape, seed=1), DTYPES[dtype], cuda_device)
     launches = styleconv_cuda.launches
-    with torch.no_grad():
+    with torch.no_grad(), forced_plan(bm):
         got = styleconv_cuda(**ins)
         want = styleconv_plain(**ins)
     torch.cuda.synchronize()
     assert styleconv_cuda.launches == launches + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_styleconv_kernel_takes_unaligned_views(cuda_device, dtype):
+    """x and the weight as contiguous views that start one element into
+    their storage, off the 16 bytes that K1's vector copies need."""
+    ins = as_torch(styleconv_inputs(2, 8, 8, 64, 64, seed=9), DTYPES[dtype], cuda_device)
+    shifted = dict(ins)
+    for k in ("x", "weight"):
+        t = ins[k]
+        shifted[k] = torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+        assert shifted[k].is_contiguous() and shifted[k].data_ptr() % 16 != 0
+    with torch.no_grad():
+        got = styleconv_cuda(**shifted)
+        want = styleconv_plain(**ins)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
@@ -65,7 +82,6 @@ def test_adain_kernel_matches_plain(cuda_device, shape, dtype):
 # differs by summation order; bf16 by the rounding of dpre to bf16 before
 # the conv transposes (as JAX does), about one bf16 ulp (2^-8).
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-SC_SHAPES = [(4, 8, 8, 16, 24), (2, 16, 16, 8, 8), (2, 32, 32, 32, 16), (3, 5, 7, 40, 70)]
 
 
 def assert_rel(got, want, tol, what=""):
@@ -77,10 +93,11 @@ def assert_rel(got, want, tol, what=""):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SC_SHAPES)
-def test_styleconv_kernel_residuals_match_plain(cuda_device, shape, dtype):
+@pytest.mark.parametrize("shape,bm", K1_CASES)
+def test_styleconv_kernel_residuals_match_plain(cuda_device, shape, bm, dtype):
     ins = as_torch(styleconv_inputs(*shape, seed=3), DTYPES[dtype], cuda_device)
-    got = styleconv_cuda(**ins, with_stats=True)
+    with forced_plan(bm):
+        got = styleconv_cuda(**ins, with_stats=True)
     want = styleconv_plain(**ins, with_stats=True)
     torch.cuda.synchronize()
     for name, g, w in zip(("out", "hv", "mean", "inv"), got, want):
@@ -141,16 +158,17 @@ def _grads_vs_plain(fn, plain, ins, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SC_SHAPES)
-def test_styleconv_function_grads_match_plain_autograd(cuda_device, shape, dtype):
+@pytest.mark.parametrize("shape,bm", K1_CASES)
+def test_styleconv_function_grads_match_plain_autograd(cuda_device, shape, bm, dtype):
     ins = as_torch(styleconv_inputs(*shape, seed=7), DTYPES[dtype], cuda_device)
-    with torch.no_grad():
-        positive = styleconv_cuda(**ins, with_stats=True)[1] >= 0
-    before = (styleconv_cuda.launches, styleconv_backward_cuda.launches)
-    _grads_vs_plain(
-        lambda *a: StyleConvFunction.apply(*a, 1e-8),
-        lambda *a: styleconv_plain(*a, positive=positive), ins, dtype,
-    )
+    with forced_plan(bm):
+        with torch.no_grad():
+            positive = styleconv_cuda(**ins, with_stats=True)[1] >= 0
+        before = (styleconv_cuda.launches, styleconv_backward_cuda.launches)
+        _grads_vs_plain(
+            lambda *a: StyleConvFunction.apply(*a, 1e-8),
+            lambda *a: styleconv_plain(*a, positive=positive), ins, dtype,
+        )
     assert (styleconv_cuda.launches, styleconv_backward_cuda.launches) == (before[0] + 1, before[1] + 1)
 
 

@@ -11,6 +11,7 @@ import functools
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +20,10 @@ import pytest
 import torch
 
 from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+from byogan_tpu_torch.models.factory import ModelSpec
 from byogan_tpu_torch.ops import adain as port_adain
 from byogan_tpu_torch.ops import styleconv as port_sc
+from byogan_tpu_torch.ops.cardcheck import K1_CASES
 from byogan_tpu_torch.ops.fused import noise_lrelu_adain, noise_lrelu_adain_plain
 from torch_port_inputs import F32_ARGS, as_torch, epilogue_inputs, styleconv_inputs
 
@@ -149,10 +152,68 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         port_adain.noise_lrelu_adain_cuda(**ep)
 
 
-def test_block_m_tiles_fill_256_threads():
-    for cout in (16, 32, 64, 512):
-        bm = port_sc.block_m(cout)
-        assert (bm // 4) * (4096 // bm // 4) == 256
+# (n, h, w, cin, cout, forced bm): the 15 K1 launches of one pass through
+# the full-width generator at batches 1, 5, 8 and 64 with the planner's own
+# tiles, then the card checks' shapes and forced plans.
+PLAN_CASES = [
+    (n, r, r, cin, cout, None) for n in (1, 5, 8, 64) for r, cin, cout in ModelSpec().styleconv_shapes()
+] + [(*shape, bm) for shape, bm in K1_CASES]
+
+
+def _pixel_hits(p, n, h, w):
+    """How often K1's blocks write each pixel under plan p: the kernel's
+    row -> (sample, y, x) map (csrc/styleconv.cu, conv3x3_mma) over every
+    tile."""
+    m = np.arange(p.bm)
+    hw_t = p.th * p.tw
+    j, l = m // hw_t, m % hw_t
+    t = np.arange(p.m_tiles)[:, None]
+    if p.spt > 1:
+        s0, y0, x0 = t * p.spt, 0, 0
+    else:
+        s0, ti = t // p.tiles_per_sample, t % p.tiles_per_sample
+        y0, x0 = (ti // p.tiles_x) * p.th, (ti % p.tiles_x) * p.tw
+    s, y, x, j = np.broadcast_arrays(s0 + j, y0 + l // p.tw, x0 + l % p.tw, j)
+    ok = (j < p.spt) & (s < n) & (y < h) & (x < w)
+    hits = np.zeros((n, h, w), np.int64)
+    np.add.at(hits, (s[ok], y[ok], x[ok]), 1)
+    return hits
+
+
+def test_generator_has_15_styleconv_shapes():
+    shapes = ModelSpec().styleconv_shapes()
+    assert len(shapes) == 15 and shapes[0] == (4, 512, 512) and shapes[-1] == (512, 16, 16)
+    assert all(a[2] == b[1] for a, b in zip(shapes, shapes[1:]))  # each conv feeds the next
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,bm", PLAN_CASES)
+def test_styleconv_tile_plan(n, h, w, cin, cout, bm):
+    p = port_sc.plan_tiles(n, h, w, cin, cout) if bm is None else port_sc.bf16_plan(n, h, w, cin, cout, bm)
+    assert (p.bm, p.bn) in port_sc.WARPS
+    assert 0 < p.smem <= port_sc.SMEM_LIMIT and 1 <= p.stages <= port_sc.STAGES
+    hw = h * w
+    if hw < p.bm and p.spt > 1:  # whole samples per tile: no room for one more
+        assert p.bm - p.spt * hw < hw or p.spt == n or (p.spt + 1) * (h + 2) * (w + 2) > port_sc.MAX_HALO
+    if bm is None:  # the planner's own choice leaves no row idle in every tile
+        assert not p.idle_rows
+        assert p.spt * p.th * p.tw == p.bm or p.tiles_per_sample > 1
+    # every pixel and every output channel exactly once
+    assert (_pixel_hits(p, n, h, w) == 1).all()
+    assert (p.n_tiles - 1) * p.bn < cout <= p.n_tiles * p.bn
+    # the f32 route: 256 threads of 4x4 outputs, runs of bm pixels
+    f = port_sc.plan_tiles(n, h, w, cin, cout, torch.float32)
+    assert (f.bm // 4) * (f.bn // 4) == 256 and f.bm * f.tiles_per_sample >= hw
+
+
+def test_tile_plan_mirrors_the_kernel_source():
+    """plan_tiles' tables are the ones csrc/styleconv.cu instantiates and checks."""
+    import re
+
+    src = (Path(port_sc.__file__).parent.parent / "csrc" / "styleconv.cu").read_text()
+    tiles = re.findall(r"^\s*BYOGAN_TILE\((\d+), (\d+), (\d+), (\d+)\)", src, re.M)
+    assert {tuple(map(int, t[:2])): tuple(map(int, t[2:])) for t in tiles} == port_sc.WARPS
+    for py, cu in (("BK", "kBK"), ("STAGES", "kStages"), ("MAX_HALO", "kMaxHalo"), ("MAX_SPT", "kMaxSpt")):
+        assert re.search(rf"constexpr int {cu} = (\d+);", src).group(1) == str(getattr(port_sc, py))
 
 
 def test_port_imports_no_jax():
