@@ -1,7 +1,7 @@
 // Device code shared by the styleconv (K1), AdaIN-epilogue (K2) and
 // epilogue-backward (K3) kernels: dtype conversion, the deterministic merge
-// of per-tile moments, the pass that turns merged moments into the
-// per-(sample, channel) affine, and a fixed-order sum of per-tile partials.
+// of per-tile moments and the pass that turns merged moments into the
+// per-(sample, channel) affine.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,25 +97,6 @@ __global__ void finalize_moments(const float* __restrict__ part_mean,
       inv_out[s * C + c] = inv;
     }
   }
-}
-
-// out[k, g, c] = sum over r < rows of part[k, g, r, c], for k < gridDim.z,
-// g < gridDim.y, c = blockIdx.x: per-tile partial sums merged in a fixed
-// tree order (the same result on every run, no atomics).  256 threads.
-__global__ void sum_rows(const float* __restrict__ part, float* __restrict__ out,
-                         int rows, int C) {
-  __shared__ float red[256];
-  const int c = blockIdx.x, g = blockIdx.y, k = blockIdx.z, tid = threadIdx.x;
-  const float* src = part + ((long long)k * gridDim.y + g) * rows * C + c;
-  float acc = 0.f;
-  for (int r = tid; r < rows; r += 256) acc += src[(long long)r * C];
-  red[tid] = acc;
-  __syncthreads();
-  for (int half = 128; half > 0; half >>= 1) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
-  }
-  if (tid == 0) out[((long long)k * gridDim.y + g) * C + c] = red[0];
 }
 
 inline int finalize_threads(int tiles) {

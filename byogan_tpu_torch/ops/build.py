@@ -106,8 +106,9 @@ SIGNATURES = {
     },
     "styleconv_bwd": {
         # dy, hv, mean, inv, gamma, noise, noise_w, dpre, dnoise, dgamma,
-        # dbeta, dbias_dnw, part, sums, n, hw, c, dtype, stream
-        "styleconv_backward": [_P] * 14 + [_I] * 4 + [_P],
+        # dbeta, dbias_dnw, scratch, n, hw, c, then the plan groups, pixels,
+        # steps, tiles; vec, dtype, stream
+        "styleconv_backward": [_P] * 13 + [_I] * 9 + [_P],
     },
 }
 

@@ -473,19 +473,26 @@ def stage8_step_kernel_vs_plain():
 def training_times(shapes, gen):
     """The stage-8 iteration, bf16, batch 5, no-blend path: ms and images/s
     by CUDA events, and its parts timed alone at the same shapes: K1
-    forward (without and with residuals), K2, K3, the cuDNN conv transposes
-    and the critic phase's loss with R1 and its gradient.  Returns K1's
-    with-residuals (emit_hv) and K3's per-shape numbers summed."""
+    forward (without and with residuals), K2, K3 (with its tile plan, the
+    card's time per call, the host's microseconds per call and GB/s), the
+    cuDNN conv transposes and the critic phase's loss with R1 and its
+    gradient.  Returns K1's with-residuals (emit_hv) and K3's per-shape
+    numbers summed (K3's host time: the mean per call)."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.cardcheck import host_us, queued_ms
     from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
     from byogan_tpu_torch.ops.styleconv import plan_tiles, styleconv_cuda, styleconv_plain
-    from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda, styleconv_backward_plain
+    from byogan_tpu_torch.ops.styleconv_bwd import plan_backward, styleconv_backward_cuda, styleconv_backward_plain
     from byogan_tpu_torch.train.config import TrainConfig
     from byogan_tpu_torch.train.loop import build_state
     from byogan_tpu_torch.train.steps import critic_loss, draw, make_train_step
 
+    # The card's time per call here is by calls queued back to back
+    # (queued_ms), not torch.profiler: after the training phases the
+    # profiler drops kernel records (tools/time_k3.py gives K3's split by
+    # kernel in a process of its own).
     n, dt, dev = TRAIN_BATCH, torch.bfloat16, torch.device("cuda")
     cfg = TrainConfig()
     state = build_state(cfg, dev)
@@ -499,7 +506,7 @@ def training_times(shapes, gen):
              "K3 x16": 0.0, "cuDNN conv transposes x15": 0.0}
     k1s = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
     k1s_by = {"bytes": 0.0, "operations": 0.0}
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0, "host_us_per_call": 0.0, "bound_ms": 0.0}
     k3_by = {"bytes": 0.0, "operations": 0.0}
     cases = [(r, cin, cout) for r, cin, cout in shapes] + [(4, None, 512)]
     for r, cin, cout in cases:
@@ -515,7 +522,7 @@ def training_times(shapes, gen):
                 t = {
                     "ms": timed_ms(lambda: styleconv_cuda(**ins, with_stats=True)),
                     "plain_ms": timed_ms(lambda: styleconv_plain(**ins, with_stats=True)),
-                    "device_ms": device_ms(lambda: styleconv_cuda(**ins, with_stats=True)),
+                    "device_ms": queued_ms(lambda: styleconv_cuda(**ins, with_stats=True)),
                 }
                 t["bound_ms"], by = k1_bound(n, r, cin, cout, 2, with_stats=True)
                 k1s_by[by] += t["bound_ms"]
@@ -536,13 +543,18 @@ def training_times(shapes, gen):
             "ms": timed_ms(lambda: styleconv_backward_cuda(*args)),
             "plain_ms": timed_ms(lambda: styleconv_backward_plain(*args)),
             "library_ms": timed_ms(k3_library(*args)),
+            "device_ms": queued_ms(lambda: styleconv_backward_cuda(*args)),
+            "host_us_per_call": host_us(lambda: styleconv_backward_cuda(*args)),
         }
         t["bound_ms"], by = k3_bound(n, r, cout, 2)
         k3_by[by] += t["bound_ms"]
         for key in k3:
             k3[key] += t[key]
-        print(f"time K3 bf16 ({n},{r},{r},{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items()) + f" bound_by {by}")
+        gbs = 8 * n * r * r * cout / t["device_ms"] / 1e6  # dy, hv read, dpre written: 8 B an element
+        print(f"time K3 bf16 ({n},{r},{r},{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f" bound_by {by}; {gbs:.1f} GB/s at 8 B an element over device time; plan: {plan_backward(n, r * r, cout).describe()}")
     parts["K3 x16"] = k3["ms"]
+    k3["host_us_per_call"] /= len(cases)  # the mean over the shapes; the times above are sums
 
     z, noise, _ = draw(state, cfg, n, 8, dt).critic[0]
     with torch.no_grad():
@@ -771,7 +783,8 @@ def main() -> int:
             "launches_train": train_launches["styleconv"],
             "max_abs_err_train": train_errs[torch.bfloat16]["fwd"],
             "with_stats": {**k1s, "bound_by": k1s_by, "library_ms": None,
-                           "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out"},
+                           "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
+                                     "(device_ms: calls queued back to back, CUDA events)"},
             "hmma_sass": hmma,
         },
         {
@@ -793,7 +806,8 @@ def main() -> int:
             "max_abs_err": train_errs[torch.bfloat16]["k3"],
             "max_abs_err_f32": train_errs[torch.float32]["k3"],
             **k3, "bound_by": k3_by,
-            "shapes": "16 stage-8 epilogue shapes summed, batch 5, bf16",
+            "shapes": "16 stage-8 epilogue shapes summed (host_us_per_call: their mean; device_ms: calls queued "
+                      "back to back, CUDA events), batch 5, bf16",
         },
     ]
     print(f"train: stage-8 iteration {it_ms:.3f} ms; CLI run {train_wall:.2f} s")

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
-from byogan_tpu_torch.ops.cardcheck import K1_CASES, forced_plan
+from byogan_tpu_torch.ops.cardcheck import K1_CASES, K3_CASES, forced_plan
 from byogan_tpu_torch.ops.fused import NoiseLReLUAdaINFunction, noise_lrelu_adain_plain
 from byogan_tpu_torch.ops.styleconv import StyleConvFunction, styleconv_cuda, styleconv_plain
 from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda, styleconv_backward_plain
@@ -119,26 +119,61 @@ def test_adain_kernel_residuals_match_plain(cuda_device, shape, dtype):
         assert_rel(g, w, TOL[dtype] if name in ("out", "hv") else 1e-3, name)
 
 
+def _backward_args(shape, dtype, device):
+    """K3's inputs: the residuals of the plain forward, a seeded dy."""
+    ins = as_torch(epilogue_inputs(shape, seed=5), DTYPES[dtype], device)
+    _, hv, mean, inv = noise_lrelu_adain_plain(**ins, with_stats=True)
+    dy = torch.randn(shape, generator=torch.Generator(device).manual_seed(6), device=device).to(DTYPES[dtype])
+    return dy, hv, mean, inv, ins["gamma"], ins["noise"], ins["noise_w"]
+
+
+def _assert_backward(got, want, dtype):
+    for name in got._fields:
+        g, wt = getattr(got, name), getattr(want, name)
+        assert g.dtype == wt.dtype, name
+        assert_rel(g, wt, GRAD_TOL[dtype], name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "shape", [(5, 4, 4, 512), (2, 64, 64, 128), (1, 512, 512, 16), (3, 9, 31, 40)]
-)
+@pytest.mark.parametrize("shape", K3_CASES)
 def test_backward_kernel_matches_plain(cuda_device, shape, dtype):
-    n, h, w, c = shape
-    ins = as_torch(epilogue_inputs(shape, seed=5), DTYPES[dtype], cuda_device)
-    _, hv, mean, inv = noise_lrelu_adain_plain(**ins, with_stats=True)
-    dy = torch.randn(shape, generator=torch.Generator(cuda_device).manual_seed(6), device=cuda_device).to(DTYPES[dtype])
-    args = (dy, hv, mean, inv, ins["gamma"], ins["noise"], ins["noise_w"])
+    args = _backward_args(shape, dtype, cuda_device)
     launches = styleconv_backward_cuda.launches
     got = styleconv_backward_cuda(*args)
     want = styleconv_backward_plain(*args)
     torch.cuda.synchronize()
     assert styleconv_backward_cuda.launches == launches + 1
-    for name in got._fields:
-        g, wt = getattr(got, name), getattr(want, name)
-        assert g.dtype == wt.dtype, name
-        assert_rel(g, wt, GRAD_TOL[dtype], name)
+    _assert_backward(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_takes_unaligned_views(cuda_device, dtype):
+    """dy and hv as contiguous views that start one element into their
+    storage, off the 16 bytes that K3's vector route needs."""
+    args = _backward_args((2, 8, 8, 64), dtype, cuda_device)
+    shifted = list(args)
+    for i in (0, 1):
+        t = args[i]
+        shifted[i] = torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+        assert shifted[i].is_contiguous() and shifted[i].data_ptr() % 16 != 0
+    got = styleconv_backward_cuda(*shifted)
+    want = styleconv_backward_plain(*args)
+    torch.cuda.synchronize()
+    _assert_backward(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 16, 16, 512), (1, 512, 512, 16), (2, 5, 7, 12)])
+def test_backward_kernel_is_deterministic(cuda_device, shape, dtype):
+    """No atomics, fixed summation orders: two runs give the same bits."""
+    args = _backward_args(shape, dtype, cuda_device)
+    first, second = styleconv_backward_cuda(*args), styleconv_backward_cuda(*args)
+    torch.cuda.synchronize()
+    for name in first._fields:
+        assert torch.equal(getattr(first, name), getattr(second, name)), name
 
 
 def _grads_vs_plain(fn, plain, ins, dtype):

@@ -23,8 +23,10 @@ from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
 from byogan_tpu_torch.models.factory import ModelSpec
 from byogan_tpu_torch.ops import adain as port_adain
 from byogan_tpu_torch.ops import styleconv as port_sc
-from byogan_tpu_torch.ops.cardcheck import K1_CASES
+from byogan_tpu_torch.ops import styleconv_bwd as port_bwd
+from byogan_tpu_torch.ops.cardcheck import K1_CASES, K3_CASES
 from byogan_tpu_torch.ops.fused import noise_lrelu_adain, noise_lrelu_adain_plain
+from byogan_tpu_torch.train.config import TrainConfig
 from torch_port_inputs import F32_ARGS, as_torch, epilogue_inputs, styleconv_inputs
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -150,6 +152,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ep = as_torch(epilogue_inputs((1, 4, 4, 8), seed=6), torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         port_adain.noise_lrelu_adain_cuda(**ep)
+    _, hv, mean, inv = noise_lrelu_adain_plain(**ep, with_stats=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_bwd.styleconv_backward_cuda(ep["x"], hv, mean, inv, ep["gamma"], ep["noise"], ep["noise_w"])
 
 
 # (n, h, w, cin, cout, forced bm): the 15 K1 launches of one pass through
@@ -214,6 +219,51 @@ def test_tile_plan_mirrors_the_kernel_source():
     assert {tuple(map(int, t[:2])): tuple(map(int, t[2:])) for t in tiles} == port_sc.WARPS
     for py, cu in (("BK", "kBK"), ("STAGES", "kStages"), ("MAX_HALO", "kMaxHalo"), ("MAX_SPT", "kMaxSpt")):
         assert re.search(rf"constexpr int {cu} = (\d+);", src).group(1) == str(getattr(port_sc, py))
+
+
+# (n, hw, c): K3's 16 calls of a stage-8 iteration (the 15 synthesis convs
+# and the initial block) at every batch of the default batch_progression,
+# then the card tests' shapes.
+K3_PLAN_CASES = [
+    (n, r * r, c) for n in sorted(set(TrainConfig().batch_progression))
+    for r, c in [(r, cout) for r, _, cout in ModelSpec().styleconv_shapes()] + [(4, 512)]
+] + [(n, h * w, c) for n, h, w, c in K3_CASES]
+
+
+@pytest.mark.parametrize("n,hw,c", K3_PLAN_CASES)
+def test_backward_plan(n, hw, c):
+    p = port_bwd.plan_backward(n, hw, c)
+    # every channel in exactly one group of 8, a pixel's groups in one block
+    assert (p.groups - 1) * port_bwd.VEC < c <= p.groups * port_bwd.VEC
+    assert p.pixels == port_bwd.THREADS // p.groups
+    # every pixel of a sample exactly once: block `tile` takes step st's
+    # pixel q at tile*steps*pixels + st*pixels + q, below its span's end
+    # (csrc/styleconv_bwd.cu, epilogue_sums and epilogue_apply)
+    span = p.steps * p.pixels
+    tile, st, q = np.ogrid[: p.tiles, : p.steps, : p.pixels]
+    pix = tile * span + st * p.pixels + q
+    hits = np.bincount(pix[pix < np.minimum((tile + 1) * span, hw)], minlength=hw)
+    assert len(hits) == hw and (hits == 1).all()
+    # at least 2 waves of blocks wherever the work allows, and few partials
+    if n * hw * c // port_bwd.VEC >= 2 * 132 * port_bwd.THREADS:
+        assert p.blocks >= 2 * 132
+    assert p.blocks < 2 * port_bwd.TARGET_BLOCKS + n
+    # the f32 scratch holds what the kernel indexes past dbias and dnoise_w
+    # (2, C): the sums (2, N, C), then the partials part[k, s, tile, c]
+    sums_end = 2 * n * c
+    part_end = ((1 * n + n - 1) * p.tiles + p.tiles - 1) * c + c
+    assert p.scratch_floats(c) == 2 * c + sums_end + part_end
+
+
+def test_backward_plan_mirrors_the_kernel_source():
+    """plan_backward's constants are the ones csrc/styleconv_bwd.cu uses."""
+    import re
+
+    src = (Path(port_bwd.__file__).parent.parent / "csrc" / "styleconv_bwd.cu").read_text()
+    for py, cu in (("THREADS", "kThreads"), ("VEC", "kVec")):
+        assert re.search(rf"constexpr int .*\b{cu} = (\d+)", src).group(1) == str(getattr(port_bwd, py))
+    with pytest.raises(ValueError, match="channels"):
+        port_bwd.plan_backward(1, 16, port_bwd.MAX_C + 1)
 
 
 def test_port_imports_no_jax():
