@@ -5,9 +5,10 @@ a reference-format ``.pth`` at the checkpoint's saved step and alpha, from
 fresh truncated latents, in float32 as the reference CLI does.  Pixels are
 saved raw-range with save_image's clamp, so the negative half is black.
 
-    python -m byogan_tpu_torch.cli.generate_samples ckpt.pth 16 -o out/
+    python -m byogan_tpu_torch.cli.generate_samples ckpt.pth 16 -o out/ [--ema] [--psi 0.7]
 
-Runs on the GPU; ``-d cpu`` takes the plain PyTorch path on the CPU.
+``--ema`` samples from the EMA generator (runs with ``ema_beta > 0``);
+``--psi`` pulls each style toward the mean w.  Runs on the GPU; ``-d cpu`` takes the plain PyTorch path on the CPU.
 """
 
 from __future__ import annotations
@@ -44,6 +45,14 @@ def main(argv=None):
         help="generate in batches of this size (default: all at once)",
     )
     parser.add_argument(
+        "--ema", action="store_true",
+        help="sample from the EMA generator weights (checkpoints trained with ema_beta > 0)",
+    )
+    parser.add_argument(
+        "--psi", default=None, type=float,
+        help="W-space truncation toward the mean w (e.g. 0.7 trades diversity for fidelity; off if unset)",
+    )
+    parser.add_argument(
         "--format", default="png", choices=("png", "raw"),
         help="output encoding: png, or raw (uint8 .npy, no encode)",
     )
@@ -59,6 +68,8 @@ def main(argv=None):
         dtype="float32",
         seed=args.seed,
         device=args.device,
+        use_ema=args.ema,
+        truncation_psi=args.psi,
     )
     written = 0
     for frames in sampler.sample_batches(args.images):

@@ -1,12 +1,15 @@
 """Training CLI (byogan_tpu/cli/main.py).
 
     python -m byogan_tpu_torch.cli.main <section> [-c CKPT] [--config-file cfg.txt]
-                                        [--max-iters N] [-d DEVICE]
+                                        [--max-iters N] [-d DEVICE] [--force-resume]
 
 Reads ``<section>`` of an INI config (``config.txt`` by default), trains on
 the GPU and writes ``.pth`` checkpoints.  ``-d cpu`` (or ``device = cpu``
 in the section) takes the plain PyTorch path on the CPU; without a GPU
-any other device raises.
+any other device raises.  SIGTERM or SIGINT saves ``chk-{iters}.pth`` at
+the next iteration boundary and exits 0; ``-c`` resumes from it.  A resume
+whose trajectory knobs differ from the checkpoint's fails unless
+``--force-resume``.
 """
 
 from __future__ import annotations
@@ -27,10 +30,19 @@ def main(argv=None):
         "-d", "--device", default=None,
         help="torch device (default: cuda, or cpu when the section says device = cpu)",
     )
+    parser.add_argument(
+        "--force-resume", action="store_true",
+        help="resume even when the config's trajectory knobs (batch/epoch "
+        "progressions, critic_repeats, seed, ...) differ from the ones the "
+        "checkpoint was trained with: the resumed trajectory will diverge",
+    )
     args = parser.parse_args(argv)
     config = load_ini_config(args.config_file, args.config)
     device = args.device or ("cpu" if config.device == "cpu" else "cuda")
-    return train(config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device)
+    return train(
+        config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
+        allow_config_mismatch=args.force_resume,
+    )
 
 
 if __name__ == "__main__":

@@ -128,7 +128,8 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     present), iter, im_count, step, epoch, alpha, and model (a ModelSpec
     dict, or None for the reference architecture).  A checkpoint the port's
     trainer wrote also carries gen_opt, critic_opt and rng, passed on as
-    they are."""
+    they are, and may carry gen_ema (the EMA generator's state dict) and
+    train_config (the trajectory knobs it was trained with)."""
     save = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {
         "iter": int(save.get("iter", 0)),
@@ -138,10 +139,10 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
         "alpha": save.get("alpha", None),
         "model": save.get("model"),
     }
-    for net in ("gen", "critic"):
+    for net in ("gen", "critic", "gen_ema"):
         if net in save:
             out[net] = strip_module_prefix(save[net])
-    for extra in ("gen_opt", "critic_opt", "rng"):
+    for extra in ("gen_opt", "critic_opt", "rng", "train_config"):
         if extra in save:
             out[extra] = save[extra]
     return out

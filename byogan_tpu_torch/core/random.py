@@ -62,3 +62,14 @@ def synthesis_noise(
             ).to(dtype)
         )
     return out
+
+
+def fixed_synthesis_noise(
+    generator: torch.Generator,
+    steps: int = 8,
+    base: int = 4,
+    dtype: torch.dtype = torch.float32,
+) -> List[torch.Tensor]:
+    """A batch-1 noise pyramid, broadcast by callers that hold the noise
+    fixed across images (byogan_tpu/core/random.py:61-68)."""
+    return synthesis_noise(generator, 1, steps, base, dtype)

@@ -1,11 +1,12 @@
 // Device code shared by the styleconv (K1), AdaIN-epilogue (K2) and
-// epilogue-backward (K3) kernels: dtype conversion, the deterministic merge
-// of per-tile moments and the pass that turns merged moments into the
-// per-(sample, channel) affine.
+// epilogue-backward (K3) kernels: dtype conversion, 8-channel vector loads
+// and stores, the deterministic merge of per-tile moments and the pass that
+// turns merged moments into the per-(sample, channel) affine.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace byogan {
 
@@ -26,6 +27,77 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // Round a float to T's precision and back: one arithmetic step in T.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// K2 and K3 give each thread kVec = 8 consecutive channels of a pixel: one
+// 16-byte access in bf16, two in f32.
+constexpr int kVec = 8;
+
+// Load channels c0 .. c0+7 of a row as floats; the scalar route loads the
+// first n and zeroes the rest.
+template <bool Vec>
+__device__ __forceinline__ void load8(const float* __restrict__ p, int n,
+                                      float (&v)[kVec]) {
+  if constexpr (Vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = i < n ? p[i] : 0.f;
+  }
+}
+
+template <bool Vec>
+__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
+                                      int n, float (&v)[kVec]) {
+  if constexpr (Vec) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+    for (int i = 0; i < kVec / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+  }
+}
+
+template <bool Vec>
+__device__ __forceinline__ void store8(float* __restrict__ p, int n,
+                                       const float (&v)[kVec]) {
+  if constexpr (Vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+
+template <bool Vec>
+__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p, int n,
+                                       const float (&v)[kVec]) {
+  if constexpr (Vec) {
+    uint4 a;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
+#pragma unroll
+    for (int i = 0; i < kVec / 2; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = a;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      if (i < n) p[i] = __float2bfloat16(v[i]);
+  }
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (uintptr_t)p % 16 == 0;
 }
 
 // Chan et al.'s merge of two (count, mean, M2) summaries into the first.

@@ -59,14 +59,12 @@
 //   * Pass D (sum_tiles): dbias and dnoise_w over all N*tiles partials.
 //   sum_tiles reads the partials a row of channels at a time (coalesced),
 //   its 256 threads split over the rows, and adds them by a fixed tree.
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace byogan {
 namespace {
 
-constexpr int kThreads = 256, kVec = 8, kUnroll = 1;
+constexpr int kThreads = 256, kUnroll = 1;
 constexpr int kMergeThreads = 256;
 
 // The block's share of the work: G threads a pixel, P pixels a step, `steps`
@@ -74,69 +72,6 @@ constexpr int kMergeThreads = 256;
 struct Plan {
   int groups, pixels, steps, tiles;
 };
-
-// Load channels c0 .. c0+7 of a row as floats; the scalar route loads the
-// first n and zeroes the rest.
-template <bool Vec>
-__device__ __forceinline__ void load8(const float* __restrict__ p, int n,
-                                      float (&v)[kVec]) {
-  if constexpr (Vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) v[i] = i < n ? p[i] : 0.f;
-  }
-}
-
-template <bool Vec>
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p,
-                                      int n, float (&v)[kVec]) {
-  if constexpr (Vec) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
-#pragma unroll
-    for (int i = 0; i < kVec / 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x, v[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
-  }
-}
-
-template <bool Vec>
-__device__ __forceinline__ void store8(float* __restrict__ p, int n,
-                                       const float (&v)[kVec]) {
-  if constexpr (Vec) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      if (i < n) p[i] = v[i];
-  }
-}
-
-template <bool Vec>
-__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p, int n,
-                                       const float (&v)[kVec]) {
-  if constexpr (Vec) {
-    uint4 a;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&a);
-#pragma unroll
-    for (int i = 0; i < kVec / 2; ++i)
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = a;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      if (i < n) p[i] = __float2bfloat16(v[i]);
-  }
-}
 
 __device__ __forceinline__ bool pow2(int x) { return (x & (x - 1)) == 0; }
 
@@ -396,8 +331,6 @@ int launch(bool vec, const void* dy, const float* hv, const float* mean,
                   dbeta, dbias_dnw, scratch, n, hw, C, pl, stream);
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 }  // namespace byogan

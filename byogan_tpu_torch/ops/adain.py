@@ -19,8 +19,11 @@ import torch
 from byogan_tpu_torch.ops import build
 from byogan_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_input, check_tensor
 
-#: pixels of one sample that one block of the kernel summarises (adain.cu)
+#: H*W up to which the kernel takes its one-launch route; larger images are
+#: cut into tiles of this many pixels (adain.cu)
 TILE = 256
+#: channels a thread of the one-launch route owns (16-byte accesses in bf16)
+VEC = 8
 
 
 def noise_lrelu_adain_cuda(
@@ -34,7 +37,10 @@ def noise_lrelu_adain_cuda(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Launch K2.  x (N,H,W,C) f32 or bf16; noise (N,H,W,1), gamma and beta
     (N,C) in x's dtype; noise_w (C,) f32.  Returns (N,H,W,C) in x's dtype
-    and, ``with_stats``, also hv (N,H,W,C) and mean, inv (N,C), all f32."""
+    and, ``with_stats``, also hv (N,H,W,C) and mean, inv (N,C), all f32.
+    Up to ``TILE`` pixels a sample (the path's 4x4 block) it is one launch
+    and allocates only its outputs; its vector accesses need C % 8 == 0 and
+    x on 16 bytes, and element accesses take the rest."""
     check_cuda_input("noise_lrelu_adain_cuda", x)
     n, h, w, c = x.shape
     dev, dt = x.device, x.dtype
@@ -44,10 +50,13 @@ def noise_lrelu_adain_cuda(
     check_tensor("gamma", gamma, (n, c), dt, dev)
     check_tensor("beta", beta, (n, c), dt, dev)
     hw = h * w
-    tiles = -(-hw // TILE)
-    out = torch.empty_like(x)
-    parts = torch.empty((2, n, tiles, c), dtype=torch.float32, device=dev)
-    scale_shift = torch.empty((2, n, c), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)  # fresh, so 16-byte aligned
+    vec = c % VEC == 0 and x.data_ptr() % 16 == 0
+    scratch = (None, None, None)
+    if hw > TILE:  # the split-HW route's f32 partials (2, N, tiles, C), then scale and shift (2, N, C)
+        part = n * -(-hw // TILE) * c
+        buf = torch.empty(2 * part + 2 * n * c, dtype=torch.float32, device=dev)
+        scratch = tuple(buf.data_ptr() + 4 * k * part for k in range(3))
     if with_stats:
         hv = torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
         stats = torch.empty((2, n, c), dtype=torch.float32, device=dev)
@@ -59,9 +68,8 @@ def noise_lrelu_adain_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.adain_forward(
             x.data_ptr(), noise.data_ptr(), noise_w.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), *extra,
-            parts[0].data_ptr(), parts[1].data_ptr(), scale_shift.data_ptr(),
-            n, hw, c, float(eps), DTYPE_CODES[dt], stream,
+            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), *extra, *scratch,
+            n, hw, c, float(eps), int(vec), DTYPE_CODES[dt], stream,
         )
     noise_lrelu_adain_cuda.launches += 1
     build.check(lib, code, "noise_lrelu_adain_cuda")

@@ -101,8 +101,8 @@ SIGNATURES = {
     },
     "adain": {
         # x, noise, noise_w, gamma, beta, out, hv, mean_out, inv_out,
-        # part_mean, part_m2, scale_shift, n, hw, c, eps, dtype, stream
-        "adain_forward": [_P] * 12 + [_I] * 3 + [_F, _I, _P],
+        # part_mean, part_m2, scale_shift, n, hw, c, eps, vec, dtype, stream
+        "adain_forward": [_P] * 12 + [_I] * 3 + [_F, _I, _I, _P],
     },
     "styleconv_bwd": {
         # dy, hv, mean, inv, gamma, noise, noise_w, dpre, dnoise, dgamma,

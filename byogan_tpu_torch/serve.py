@@ -5,6 +5,9 @@ serves requests of any size by tiling its fixed batch: latents and per-stage
 noise are drawn on the device from an explicit ``torch.Generator``, frames
 are quantized to uint8 on the device, and ragged tails are cut from a full
 batch.  ``save_stream`` overlaps encoding on a host thread with synthesis.
+It samples from the EMA weights (``use_ema``), pulls styles toward the mean
+w (``truncation_psi``) and mixes coarse and fine styles of two latent sets
+(``style_mix``), as the JAX Sampler does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from byogan_tpu_torch.models.factory import (
     build_generator,
     z_dim_from_params,
 )
+from byogan_tpu_torch.projector import mean_w, truncate
 from byogan_tpu_torch.train.checkpoint import load_checkpoint
 
 #: encode lane -> file extension
@@ -78,7 +82,11 @@ class Sampler:
 
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the plain PyTorch path.  ``dtype`` is the compute
-    dtype ("bfloat16" or "float32"); weights stay float32.
+    dtype ("bfloat16" or "float32"); weights stay float32.  ``use_ema``
+    loads the EMA generator (checkpoints of runs with ``ema_beta > 0``;
+    raises without one).  ``truncation_psi`` pulls each w toward the mean w
+    (``projector.mean_w``, computed once, at the first render that needs
+    it): psi = 1 changes nothing, 0 gives every sample the mean style.
     """
 
     def __init__(
@@ -90,9 +98,18 @@ class Sampler:
         dtype: str = "bfloat16",
         seed: Optional[int] = None,
         device: Optional[str] = None,
+        use_ema: bool = False,
+        truncation_psi: Optional[float] = None,
     ):
         self.device = resolve_device(device)
         save = load_checkpoint(checkpoint)
+        weights = save["gen"]
+        if use_ema:
+            if save.get("gen_ema") is None:
+                raise ValueError(
+                    f"use_ema=True but {checkpoint} carries no EMA weights (train with ema_beta > 0)"
+                )
+            weights = save["gen_ema"]
         self.steps: int = save["step"]
         self.alpha = save["alpha"]
         self.batch = batch
@@ -103,30 +120,82 @@ class Sampler:
         self._gen = build_generator(
             ModelSpec.from_dict(save.get("model")), dtype=self.dtype, z_dim=trained_z_dim
         )
-        self._gen.load_state_dict(save["gen"], strict=True)
+        self._gen.load_state_dict(weights, strict=True)
         self._gen.to(self.device).eval().requires_grad_(False)
         self._rng = make_generator(self.device, seed)
+        self.truncation_psi = truncation_psi
+        self._w_mean: Optional[torch.Tensor] = None
+
+    @property
+    def generator(self):
+        """The loaded generator (on the device, no gradients)."""
+        return self._gen
 
     @property
     def resolution(self) -> int:
         return 4 * 2 ** (self.steps - 1)
 
+    def draw_latents(self) -> torch.Tensor:
+        """One batch of truncated latents, on the device."""
+        return truncated_noise(self._rng, self.batch, self.z_dim, self.truncation, self.dtype)
+
     def draw(self) -> tuple:
         """One batch of latents and per-stage noise maps, on the device."""
-        z = truncated_noise(self._rng, self.batch, self.z_dim, self.truncation, self.dtype)
+        z = self.draw_latents()
         noise = synthesis_noise(self._rng, self.batch, self.steps, dtype=self.dtype)
         return z, noise
+
+    def mean_w(self) -> torch.Tensor:
+        """The mean w of this checkpoint's generator, computed once."""
+        if self._w_mean is None:
+            self._w_mean = mean_w(self._gen, self.z_dim, self.truncation)
+        return self._w_mean
+
+    def to_w(self, z: torch.Tensor) -> torch.Tensor:
+        """Styles of latents ``z``, truncated toward the mean w when
+        ``truncation_psi`` is set."""
+        w = self._gen.map_latent(z)
+        if self.truncation_psi is None:
+            return w
+        return truncate(w, self.mean_w(), self.truncation_psi)
 
     @torch.inference_mode()
     def render_float(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
         """Float32 NHWC frames in the generator's raw ~[-1, 1] range."""
-        img = self._gen(z, noise, steps=self.steps, alpha=self.alpha)
+        img = self._gen(None, noise, steps=self.steps, alpha=self.alpha, style=self.to_w(z))
         return img.float()
 
     @torch.inference_mode()
     def render(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
         """uint8 NHWC frames, quantized on the device (save_image rounding)."""
         return to_uint8(self.render_float(z, noise))
+
+    @torch.inference_mode()
+    def render_mix(
+        self, z_a: torch.Tensor, z_b: torch.Tensor, noise: List[torch.Tensor], crossover: int
+    ) -> torch.Tensor:
+        """uint8 NHWC frames whose stages below ``crossover`` take the
+        styles of ``z_a`` and the rest those of ``z_b``."""
+        if not 0 <= crossover <= self.steps:
+            raise ValueError(f"crossover must be in [0, {self.steps}], got {crossover}")
+        w_a, w_b = self.to_w(z_a), self.to_w(z_b)
+        styles = [w_a if i < crossover else w_b for i in range(self.steps)]
+        img = self._gen(None, noise, steps=self.steps, alpha=self.alpha, style=styles)
+        return to_uint8(img.float())
+
+    def style_mix(self, n: int, crossover: int) -> np.ndarray:
+        """n uint8 frames with coarse stages (below ``crossover``) styled by
+        one latent set and fine stages by another (byogan_tpu/serve.py:
+        229-286); ``truncation_psi`` applies to both.  Each batch draws z_a,
+        z_b, then the noise maps, at the constructor's batch size."""
+        out, produced = [], 0
+        while produced < n:
+            z_a, z_b = self.draw_latents(), self.draw_latents()
+            noise = synthesis_noise(self._rng, self.batch, self.steps, dtype=self.dtype)
+            take = min(self.batch, n - produced)
+            out.append(self.render_mix(z_a, z_b, noise, crossover)[:take].cpu().numpy())
+            produced += take
+        return np.concatenate(out, axis=0)
 
     def sample_batches(self, n: int) -> Iterator[np.ndarray]:
         """Yield uint8 NHWC batches until n frames are produced; the next

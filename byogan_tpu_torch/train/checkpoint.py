@@ -1,12 +1,14 @@
 """Checkpoints as reference-format ``.pth`` files
-(byogan_tpu/train/checkpoint.py:119-193, 261-276, 387-455).
+(byogan_tpu/train/checkpoint.py:42-193, 261-276, 387-455).
 
 A checkpoint holds the reference's logical fields {gen, critic, iter,
 im_count, step, epoch, alpha} under the reference's state-dict names, so
 the reference and ``byogan_tpu.train.checkpoint.load_checkpoint`` read it,
 plus what an exact resume needs: ``model`` (the ModelSpec), both optimizer
-states and the generator RNG's state.  Files are ``chk-{iters}.pth`` and
-``FINAL.pth``, written atomically.
+states, the generator RNG's state, ``gen_ema`` (the EMA generator, when the
+run has one) and ``train_config`` (the knobs that steer the trajectory,
+checked on resume).  Files are ``chk-{iters}.pth`` and ``FINAL.pth``,
+written atomically.
 
 The JAX package's own checkpoints are orbax directories, which need JAX to
 read; convert one with ``byogan-export`` to a ``.pth`` first.
@@ -22,6 +24,65 @@ import torch
 
 from byogan_tpu_torch.compat.torch_ckpt import load_torch_checkpoint
 
+#: Config knobs that determine the training trajectory: the batch-exact
+#: resume rebuilds the epoch and batch position and the RNG stream from
+#: them, so a resume under other values would silently land elsewhere
+#: (byogan_tpu/train/checkpoint.py:42-58).
+TRAJECTORY_KEYS = (
+    "batch_progression",
+    "epoch_progression",
+    "critic_repeats",
+    "fade_percentage",
+    "seed",
+    "noise_trunc",
+    "use_r1",
+    "r1_interval",
+    "style_mix_prob",
+    "aug_p",
+    "ada_target",
+    "ada_speed",
+    "plr_weight",
+    "plr_interval",
+    "compute_dtype",
+)
+
+
+def trajectory_snapshot(config) -> Dict[str, Any]:
+    """The trajectory knobs of ``config`` as plain values (tuples as lists)."""
+    snap = {}
+    for k in TRAJECTORY_KEYS:
+        v = getattr(config, k)
+        snap[k] = list(v) if isinstance(v, tuple) else v
+    return snap
+
+
+def check_resume_config(saved: Optional[Dict[str, Any]], config, allow_mismatch: bool = False) -> None:
+    """Raise (or, with ``allow_mismatch``, warn) when ``config``'s trajectory
+    knobs differ from ``saved``, the snapshot a checkpoint was written with
+    (byogan_tpu/train/checkpoint.py:70-102).  A checkpoint without one
+    loads unchecked."""
+    if saved is None or config is None:
+        return
+    current = trajectory_snapshot(config)
+    mismatched = [
+        f"  {k}: checkpoint={saved[k]!r} vs config={current[k]!r}"
+        for k in TRAJECTORY_KEYS
+        if k in saved and saved[k] != current[k]
+    ]
+    if not mismatched:
+        return
+    detail = (
+        "resume config mismatch: these knobs steer the batch-exact resume "
+        "position and RNG stream, so the resumed trajectory would silently "
+        "diverge:\n" + "\n".join(mismatched)
+    )
+    if allow_mismatch:
+        print(f"WARNING: {detail}\n(continuing: mismatch explicitly allowed)")
+        return
+    raise ValueError(
+        detail + "\n(resume with the original config, or pass --force-resume / "
+        "allow_config_mismatch=True to accept a divergent trajectory)"
+    )
 
 def checkpoint_name(iters: int) -> str:
     """Reference naming: ``chk-{iters}`` (train.py:258)."""
@@ -34,9 +95,11 @@ def save_checkpoint(
     alpha: Optional[float],
     name: Optional[str] = None,
     model_spec=None,
+    train_config=None,
 ) -> str:
     """Write ``state`` (a ``TrainState``) to ``{directory}/{name}.pth``;
-    ``alpha`` is the saved fade value, None once past the fade."""
+    ``alpha`` is the saved fade value, None once past the fade.  With
+    ``train_config`` the file records its trajectory knobs."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, (name or checkpoint_name(state.iters)) + ".pth"))
     save = {
@@ -51,7 +114,10 @@ def save_checkpoint(
         "gen_opt": state.gen_opt.state_dict(),
         "critic_opt": state.critic_opt.state_dict(),
         "rng": state.rng.get_state(),
+        "train_config": None if train_config is None else trajectory_snapshot(train_config),
     }
+    if state.gen_ema is not None:
+        save["gen_ema"] = state.gen_ema.state_dict()
     tmp = path + ".tmp"
     torch.save(save, tmp)
     os.replace(tmp, path)
@@ -86,13 +152,22 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     raise FileNotFoundError(f"checkpoint not found: {path}")
 
 
-def restore_train_state(path: str, state) -> Optional[float]:
+def restore_train_state(
+    path: str, state, config=None, allow_mismatch: bool = False
+) -> Optional[float]:
     """Load a checkpoint into ``state`` in place; returns its alpha.  A
     reference ``.pth`` restores the weights and counters; one the port
-    wrote also restores both optimizers and the RNG, for an exact resume."""
+    wrote also restores both optimizers and the RNG, for an exact resume.
+    With ``config``, its trajectory knobs are checked against the
+    checkpoint's (``check_resume_config``).  A run with EMA takes the
+    checkpoint's EMA generator, or a copy of its generator where it has
+    none (byogan_tpu/train/checkpoint.py:409-417)."""
     loaded = load_checkpoint(path)
+    check_resume_config(loaded.get("train_config"), config, allow_mismatch)
     state.gen.load_state_dict(loaded["gen"], strict=True)
     state.critic.load_state_dict(loaded["critic"], strict=True)
+    if state.gen_ema is not None:
+        state.gen_ema.load_state_dict(loaded.get("gen_ema", loaded["gen"]), strict=True)
     if "gen_opt" in loaded:
         state.gen_opt.load_state_dict(loaded["gen_opt"])
         state.critic_opt.load_state_dict(loaded["critic_opt"])

@@ -7,9 +7,9 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 ``gradient_lambda`` goes through ``int()``, ``lr`` defaults to 0.001 in
 code.  ``final_image_size`` is read by nobody.
 
-Knobs of features the port does not have yet (EMA, style mixing,
-augmentation and ADA, path-length regularization, remat, a mesh, periodic
-SWD eval) keep their fields, so a config file parses the same in both
+Knobs of features the port does not have yet (augmentation and ADA,
+path-length regularization, remat, a mesh, periodic SWD eval) keep their
+fields, so a config file parses the same in both
 packages, but a value that would turn one on raises a ``ValueError`` that
 names it instead of being ignored.
 """
@@ -81,8 +81,6 @@ class TrainConfig:
         unported = [
             name
             for name, on in (
-                ("ema_beta", self.ema_beta > 0),
-                ("style_mix_prob", self.style_mix_prob > 0),
                 ("aug_p", self.aug_p > 0),
                 ("ada_target", self.ada_target > 0),
                 ("plr_weight", self.plr_weight > 0),

@@ -1,4 +1,4 @@
-"""The progressive training loop (byogan_tpu/train/loop.py:125-496).
+"""The progressive training loop (byogan_tpu/train/loop.py:89-496).
 
 Stage by stage, 4 px up to ``len(epoch_progression)`` stages: a fresh
 loader per epoch, the fade-in span ``fade_in = fade_percentage * epochs *
@@ -8,15 +8,21 @@ train.py:119 quirk, kept), per-repeat fade flags, a sample grid
 ``checkpoint_step``, and ``FINAL.pth`` at the end.  ``max_iters`` stops
 early with a checkpoint that resumes batch-exactly: the loader is seeded
 per epoch and skips the batches already trained, and the checkpoint holds
-the optimizers and the RNG.
+the optimizers and the RNG.  SIGTERM or SIGINT stops the same way at the
+next iteration boundary (``_graceful_stop``), so a preempted run loses
+nothing; a resume checks the config's trajectory knobs against the
+checkpoint's.
 
-Not here yet: the mesh, SWD eval and signal handling of the JAX loop.
+Not here yet: the mesh and SWD eval of the JAX loop.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
+import signal
+import threading
 from typing import Optional
 
 import numpy as np
@@ -84,15 +90,59 @@ def save_sample_grid(
     return path
 
 
+@contextlib.contextmanager
+def _graceful_stop():
+    """SIGTERM or SIGINT -> checkpoint and return at the next iteration
+    boundary (byogan_tpu/train/loop.py:89-123).  Yields a list that the
+    first signal appends to; a second signal raises KeyboardInterrupt.
+    Handlers are installed only on the main thread and always restored."""
+    stop_requested: list = []
+    if threading.current_thread() is not threading.main_thread():
+        yield stop_requested  # signals cannot be bound here
+        return
+
+    def request(signum, frame):
+        if stop_requested:
+            raise KeyboardInterrupt  # second signal: abort now
+        stop_requested.append(signum)
+        print(
+            f"received signal {signum}: saving a checkpoint and exiting at "
+            "the next iteration boundary (send again to abort immediately)",
+            flush=True,
+        )
+
+    prev = {sig: signal.signal(sig, request) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield stop_requested
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+
+
 def train(
     config: TrainConfig,
     checkpoint: Optional[str] = None,
     max_iters: Optional[int] = None,
     device: Optional[str] = None,
+    allow_config_mismatch: bool = False,
 ) -> TrainState:
     """Run the progressive schedule (reference train.py:15).  ``device``
     defaults to ``cuda`` and raises without a GPU; ``checkpoint`` resumes
-    from a ``.pth``."""
+    from a ``.pth``, whose trajectory knobs must match ``config``'s unless
+    ``allow_config_mismatch`` (then a warning).  SIGTERM and SIGINT save a
+    checkpoint and return at the next iteration boundary."""
+    with _graceful_stop() as stop_requested:
+        return _train(config, checkpoint, max_iters, device, allow_config_mismatch, stop_requested)
+
+
+def _train(
+    config: TrainConfig,
+    checkpoint: Optional[str],
+    max_iters: Optional[int],
+    device: Optional[str],
+    allow_config_mismatch: bool,
+    stop_requested: list,
+) -> TrainState:
     dev = resolve_device(device)
     if config.data is None:
         raise ValueError("config.data must point at a prepared dataset")
@@ -103,7 +153,7 @@ def train(
     alpha_ckpt: Optional[float] = None
     last_stage = None
     if checkpoint is not None:
-        alpha_ckpt = restore_train_state(checkpoint, state)
+        alpha_ckpt = restore_train_state(checkpoint, state, config, allow_config_mismatch)
         last_stage = state.stage
     os.makedirs(config.checkpoint_dir, exist_ok=True)
 
@@ -119,7 +169,9 @@ def train(
     def stop(epoch: int) -> TrainState:
         logger.close()
         state.epoch = epoch
-        save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec)
+        path = save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
+        if stop_requested:
+            print(f"preemption checkpoint saved: {path}", flush=True)
         return state
 
     for index in range(config.num_stages):
@@ -149,6 +201,8 @@ def train(
                 skip_batches=resume_skip if epoch == resume_epoch else 0,
             )
             for real in to_device(loader, dev):
+                if stop_requested:  # before the next step: the state is at a boundary
+                    return stop(epoch)
                 repeats = config.critic_repeats
                 critic_fade = tuple(
                     (state.im_count + r * batch) / fade_in <= 1.0 for r in range(repeats)
@@ -178,15 +232,16 @@ def train(
                     )
                 if state.iters % config.checkpoint_step == 0:
                     state.epoch = epoch
-                    save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec)
+                    save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
                     prune_checkpoints(config.checkpoint_dir, config.max_checkpoints)
-                if max_iters is not None and state.iters >= max_iters:
+                if stop_requested or (max_iters is not None and state.iters >= max_iters):
                     return stop(epoch)
             state.epoch = epoch
         last_stage = None
 
-    save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final")
-    save_checkpoint(config.checkpoint_dir, state, None, name="FINAL", model_spec=spec)
+    if not stop_requested:  # a signal after the last iteration goes straight to the save
+        save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final")
+    save_checkpoint(config.checkpoint_dir, state, None, name="FINAL", model_spec=spec, train_config=config)
     logger.close()
     print("TRAINING IS FINISHED - MODEL SAVED!")
     return state

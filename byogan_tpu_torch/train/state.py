@@ -10,10 +10,16 @@ parameter and skips a parameter whose ``grad`` is None.  So every parameter
 holds a gradient from the start (zeros), and ``set_grads`` writes zeros for
 the ones a stage does not reach: the stages not yet grown get the same
 bias correction as in JAX when they join.
+
+With ``ema_beta > 0`` the state also holds ``gen_ema``, the generator's
+exponential moving average (byogan_tpu/train/state.py:38-41, 117-119): a
+second ``Generator`` of the same spec, float32 weights, never trained
+against (no gradients).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Iterable, Optional, Sequence
 
@@ -36,6 +42,7 @@ class TrainState:
     im_count: int = 0  # images seen this stage (train.py:108)
     stage: int = 1
     epoch: int = 0
+    gen_ema: Optional[Generator] = None  # EMA shadow of gen (ema_beta > 0)
 
 
 def _adam(groups, config: TrainConfig) -> torch.optim.Adam:
@@ -78,9 +85,14 @@ def create_train_state(
     config: TrainConfig, gen: Generator, critic: Critic, device: torch.device
 ) -> TrainState:
     """Move the nets to ``device``, give every parameter a zero gradient and
-    build both optimizers; the RNG is seeded from ``config.seed``."""
+    build both optimizers; the RNG is seeded from ``config.seed``.  With
+    ``ema_beta > 0`` the EMA generator starts as a copy of ``gen``."""
+    gen_ema = None
     for net in (gen, critic):
         net.to(device).train()
+    if config.ema_beta > 0:
+        gen_ema = copy.deepcopy(gen).requires_grad_(False)
+    for net in (gen, critic):
         for p in net.parameters():
             p.grad = torch.zeros_like(p)
     return TrainState(
@@ -89,4 +101,5 @@ def create_train_state(
         gen_opt=make_gen_optimizer(gen, config),
         critic_opt=make_critic_optimizer(critic, config),
         rng=make_generator(device, config.seed),
+        gen_ema=gen_ema,
     )

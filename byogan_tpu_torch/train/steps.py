@@ -1,4 +1,4 @@
-"""One training iteration (byogan_tpu/train/steps.py:168-310, 411-436).
+"""One training iteration (byogan_tpu/train/steps.py:38-57, 144-157, 168-436).
 
 ``critic_repeats`` critic updates on fakes made under ``no_grad``, then one
 generator update, as the JAX step does for its default path: per-repeat
@@ -11,9 +11,16 @@ in the generator phase they go through the autograd Functions, whose
 backward is K3 and cuDNN's conv transposes.  The critic, the losses and
 Adam are plain PyTorch and cuDNN, as JAX leaves them to XLA.
 
-Random draws (z, noise maps, WGAN-GP eps) come from ``state.rng`` in the
-order of ``draw``.  ``step(state, real, draws)`` also takes draws made
-elsewhere, so a test can feed it the JAX step's own.
+Two opt-in extensions of the JAX step: style mixing (``style_mix_prob >
+0``, from stage 2 on: both phases map two latent sets and switch from the
+first to the second at a per-sample crossover stage, ``mixed_styles``) and
+the generator's EMA (``ema_beta > 0``: ``e = e*beta + p*(1-beta)`` after the
+generator's Adam step).  With both off a step runs the code of the default
+path and draws the same random numbers.
+
+Random draws come from ``state.rng`` in the order of ``draw``.
+``step(state, real, draws)`` also takes draws made elsewhere, so a test can
+feed it the JAX step's own.
 """
 
 from __future__ import annotations
@@ -32,31 +39,101 @@ Noise = List[torch.Tensor]
 
 
 @dataclasses.dataclass
+class Mix:
+    """One phase's style-mixing draws: the second latents ``z2``, a
+    per-sample coin, uniform in [0, 1), and a crossover stage ``t``,
+    uniform in [1, steps)."""
+
+    z2: torch.Tensor
+    coin: torch.Tensor
+    t: torch.Tensor
+
+
+@dataclasses.dataclass
 class Draws:
     """Random inputs of one iteration: per critic repeat (z, noise, eps),
-    eps None under R1; then the generator phase's (z, noise)."""
+    eps None under R1; then the generator phase's (z, noise).  With style
+    mixing, ``mix`` holds one ``Mix`` per critic repeat and then the
+    generator phase's; ``z`` is then the first latent set."""
 
     critic: List[Tuple[torch.Tensor, Noise, Optional[torch.Tensor]]]
     gen: Tuple[torch.Tensor, Noise]
+    mix: Optional[List[Mix]] = None
+
+
+def mixes(config: TrainConfig, steps: int) -> bool:
+    """Whether a stage's step mixes styles: stage 1 has no crossover."""
+    return config.style_mix_prob > 0 and steps >= 2
 
 
 def draw(
     state: TrainState, config: TrainConfig, batch: int, steps: int, dtype: torch.dtype
 ) -> Draws:
+    """One iteration's draws from ``state.rng``, in this order: per critic
+    repeat z, the noise maps, eps (WGAN-GP only), then with mixing z2, the
+    coin and t; then the generator phase's z, noise maps and, with mixing,
+    z2, coin and t."""
     rng = state.rng
+    mixing = mixes(config, steps)
+
+    def latents():
+        return truncated_noise(rng, batch, config.noise_size, config.noise_trunc, dtype)
 
     def z_noise():
-        z = truncated_noise(rng, batch, config.noise_size, config.noise_trunc, dtype)
-        return z, synthesis_noise(rng, batch, steps, dtype=dtype)
+        return latents(), synthesis_noise(rng, batch, steps, dtype=dtype)
 
-    critic = []
+    def mix_draw():
+        z2 = latents()
+        coin = torch.rand((batch,), generator=rng, device=rng.device)
+        return Mix(z2, coin, torch.randint(1, steps, (batch,), generator=rng, device=rng.device))
+
+    critic, mix = [], []
     for _ in range(config.critic_repeats):
         z, noise = z_noise()
         eps = None
         if not config.use_r1:
             eps = torch.rand((batch, 1, 1, 1), generator=rng, device=rng.device).to(dtype)
         critic.append((z, noise, eps))
-    return Draws(critic, z_noise())
+        if mixing:
+            mix.append(mix_draw())
+    gen = z_noise()
+    if mixing:
+        mix.append(mix_draw())
+    return Draws(critic, gen, mix if mixing else None)
+
+
+def mixed_styles(
+    w1: torch.Tensor, w2: torch.Tensor, coin: torch.Tensor, t: torch.Tensor,
+    steps: int, mix_prob: float,
+) -> List[torch.Tensor]:
+    """Per-sample crossover (byogan_tpu/train/steps.py:38-57): a sample
+    whose coin is below ``mix_prob`` takes ``w2`` from stage ``t`` on, the
+    others take ``w1`` at every stage.  Returns ``steps`` per-stage
+    (B, style_dim) styles."""
+    t = torch.where(coin < mix_prob, t, steps)
+    return [torch.where((i >= t)[:, None], w2, w1) for i in range(steps)]
+
+
+def synthesize(
+    gen, config: TrainConfig, z: torch.Tensor, noise: Noise, steps: int,
+    alpha: Optional[float], mix: Optional[Mix] = None,
+) -> torch.Tensor:
+    """Fakes from ``z``; with ``mix``, from two mapping passes mixed per
+    stage (byogan_tpu/train/steps.py:144-157: two passes, not one over both
+    latent sets, so the rounding is the same)."""
+    if mix is None:
+        return gen(z, noise, steps=steps, alpha=alpha)
+    w1, w2 = gen.map_latent(z), gen.map_latent(mix.z2)
+    styles = mixed_styles(w1, w2, mix.coin, mix.t, steps, config.style_mix_prob)
+    return gen(None, noise, steps=steps, alpha=alpha, style=styles)
+
+
+def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor], beta: float) -> None:
+    """``e = e*beta + p*(1-beta)`` in place, rounded as the JAX expression
+    (byogan_tpu/train/steps.py:378-386): each product, then the sum."""
+    with torch.no_grad():
+        torch._foreach_mul_(ema, beta)
+        torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - beta))
 
 
 def critic_loss(
@@ -85,9 +162,10 @@ def generator_loss(
     noise: Noise,
     steps: int,
     alpha: Optional[float],
+    mix: Optional[Mix] = None,
 ) -> torch.Tensor:
     """The generator phase's loss through the critic."""
-    pred = state.critic(state.gen(z, noise, steps=steps, alpha=alpha), steps, alpha)
+    pred = state.critic(synthesize(state.gen, config, z, noise, steps, alpha, mix), steps, alpha)
     return losses.gen_logistic_loss(pred) if config.use_r1 else losses.gen_wgan_loss(pred)
 
 
@@ -121,13 +199,16 @@ def make_train_step(
         real = real.to(dtype)
         if draws is None:
             draws = draw(state, config, batch, steps, dtype)
+        if (draws.mix is not None) != mixes(config, steps):
+            raise ValueError(f"draws.mix must be given exactly when stage {steps} mixes styles")
         c_params = list(state.critic.parameters())
         g_params = list(state.gen.parameters())
         im_count = state.im_count
-        for fade, (z, noise, eps) in zip(critic_fade, draws.critic):
+        mix = draws.mix or [None] * (len(critic_fade) + 1)
+        for fade, (z, noise, eps), m in zip(critic_fade, draws.critic, mix):
             alpha = im_count / fade_in if fade else None
             with torch.no_grad():
-                fake = state.gen(z, noise, steps=steps, alpha=alpha)
+                fake = synthesize(state.gen, config, z, noise, steps, alpha, m)
             c_loss, c_aux = critic_loss(state, config, real, fake, steps, alpha, eps)
             _update(c_loss, c_params, state.critic_opt)
             im_count += batch
@@ -136,10 +217,12 @@ def make_train_step(
         alpha_g = im_count / fade_in if gen_fade else None
         state.critic.requires_grad_(False)
         try:
-            g_loss = generator_loss(state, config, z, noise, steps, alpha_g)
+            g_loss = generator_loss(state, config, z, noise, steps, alpha_g, mix[-1])
             _update(g_loss, g_params, state.gen_opt)
         finally:
             state.critic.requires_grad_(True)
+        if config.ema_beta > 0 and state.gen_ema is not None:
+            ema_update(list(state.gen_ema.parameters()), g_params, config.ema_beta)
         state.iters += 1
         state.im_count = im_count
         return {"c_loss": c_loss.detach().float(), "g_loss": g_loss.detach().float(), **c_aux}

@@ -18,7 +18,17 @@ both paths of the port at full width (``ModelSpec()``):
   stage-8 shapes, all 8 stages 4 -> 512 px through the training CLI on a
   synthetic dataset (counting launches per iteration), one stage-8 step on
   the kernel path against the plain path, and the stage-8 iteration's time
-  broken into its parts.
+  broken into its parts;
+* the EMA, style-mixing and preemption slice: the training CLI with EMA
+  and style mixing in a subprocess, stopped by SIGTERM at stage 5, a
+  resume with a changed knob refused, the resume to FINAL.pth (counting
+  launches per iteration), the stage-8 iteration with and without the two
+  extensions and the EMA update's time; then the sampling surfaces on the
+  EMA weights at 512 px (W-space truncation, style mixing, both CLIs).
+
+The parity checks run with TF32 off (``strict_f32``); every timing runs
+under PyTorch's defaults, as a user's run does, and its line prints both
+flags.
 
 Every phase that fails raises, so the script exits nonzero; the last line
 is the JSON result, printed only on success.  Without a GPU, or without the
@@ -31,12 +41,15 @@ import contextlib
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -71,6 +84,22 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # two paths' fakes.
 STEP_TOL, STEP_GRAD_TOL = 2e-3, (2e-2, 5e-2)
 TRAIN_BATCH, TRAIN_IMAGES, TIMED_ITERS = 5, 24, 5  # batch_progression[7]
+
+
+@contextlib.contextmanager
+def strict_f32():
+    """f32 convs and matmuls in full f32 (TF32 off) for the parity checks,
+    the flags restored after."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def math_flags() -> str:
+    return f"[tf32 cudnn {torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32}]"
 
 
 def require(cond: bool, what: str) -> None:
@@ -301,6 +330,49 @@ def training_kernels(shapes, gen):
     return errs
 
 
+KERNEL_NAMES = ("styleconv", "adain", "styleconv_bwd")
+
+
+def launch_counts() -> tuple:
+    """The launch counts of K1, K2 and K3's wrappers."""
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda
+
+    return tuple(w.launches for w in (styleconv_cuda, noise_lrelu_adain_cuda, styleconv_backward_cuda))
+
+
+def zero_launch_counts() -> None:
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda
+
+    styleconv_cuda.launches = noise_lrelu_adain_cuda.launches = styleconv_backward_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def counting_steps(records: list):
+    """The training loop's steps, each appending (stage, critic fade flags,
+    generator fade flag, its K1, K2 and K3 launches) to ``records``."""
+    from byogan_tpu_torch.train import loop
+
+    make_step = loop.make_train_step
+
+    def counting_step(config, steps, batch, fade_in, critic_fade, gen_fade):
+        fn = make_step(config, steps, batch, fade_in, critic_fade, gen_fade)
+
+        def step(state, real, draws=None):
+            before = launch_counts()
+            out = fn(state, real, draws)
+            records.append((steps, critic_fade, gen_fade, tuple(a - b for a, b in zip(launch_counts(), before))))
+            return out
+
+        return step
+
+    with mock.patch.object(loop, "make_train_step", counting_step):
+        yield
+
+
 def train_through_cli(tmp):
     """All 8 stages at full width through the training CLI: 16 iterations
     on 24 synthetic images.  Counts the kernel launches of every step (the
@@ -309,16 +381,7 @@ def train_through_cli(tmp):
     from byogan_tpu_torch.cli.main import main as train_main
     from byogan_tpu_torch.data.synthetic import write_prepared_dataset
     from byogan_tpu_torch.models.factory import ModelSpec, build_critic, build_generator
-    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
-    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
-    from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda
-    from byogan_tpu_torch.train import loop
     from byogan_tpu_torch.train.checkpoint import load_checkpoint
-
-    wrappers = (styleconv_cuda, noise_lrelu_adain_cuda, styleconv_backward_cuda)
-
-    def counts():
-        return tuple(w.launches for w in wrappers)
 
     t0 = time.perf_counter()
     data = write_prepared_dataset(os.path.join(tmp, "data"), TRAIN_IMAGES, 8, seed=0)
@@ -334,28 +397,14 @@ def train_through_cli(tmp):
             f"checkpoint_dir = {tmp}/ck\noutput_dir = {tmp}/out\n"
         )
     records = []
-    make_step = loop.make_train_step
-
-    def counting_step(config, steps, batch, fade_in, critic_fade, gen_fade):
-        fn = make_step(config, steps, batch, fade_in, critic_fade, gen_fade)
-
-        def step(state, real, draws=None):
-            before = counts()
-            out = fn(state, real, draws)
-            records.append((steps, critic_fade, gen_fade, tuple(a - b for a, b in zip(counts(), before))))
-            return out
-
-        return step
-
-    for w in wrappers:
-        w.launches = 0
+    zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(loop, "make_train_step", counting_step):
+    with counting_steps(records):
         state = train_main(["smoke", "--config-file", cfg])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(zip(("styleconv", "adain", "styleconv_bwd"), counts()))
+    launches = dict(zip(KERNEL_NAMES, launch_counts()))
     print(f"train: 8 stages 4->512 px, {state.iters} iterations in {wall:.2f} s through the CLI; launches {launches}")
     require(state.iters == 16 and len(records) == 16, f"iterations {state.iters}, steps {len(records)}")
     for k, _, _, got in records:
@@ -500,7 +549,7 @@ def training_times(shapes, gen):
     real = torch.randint(0, 256, (n, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
     step = make_train_step(cfg, 8, n, 8.0, (False,), False)
     it_ms = timed_ms(lambda: step(state, real), iters=TIMED_ITERS)
-    print(f"time train iteration bf16 stage 8 batch {n}: {it_ms:.3f} ms, {1e3 * n / it_ms:.2f} images/s (CUDA events, {TIMED_ITERS} iterations)")
+    print(f"time train iteration bf16 stage 8 batch {n}: {it_ms:.3f} ms, {1e3 * n / it_ms:.2f} images/s (CUDA events, {TIMED_ITERS} iterations) {math_flags()}")
 
     parts = {"K1 forward x15, no residuals": 0.0, "K1 forward x15, with residuals": 0.0, "K2 x2": 0.0,
              "K3 x16": 0.0, "cuDNN conv transposes x15": 0.0}
@@ -531,7 +580,7 @@ def training_times(shapes, gen):
                 parts["K1 forward x15, no residuals"] += no_stats_ms
                 parts["K1 forward x15, with residuals"] += t["ms"]
                 print(f"time K1 with_stats bf16 ({n},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
-                      + f" bound_by {by}; without stats ms {no_stats_ms:.4f}; {plan_tiles(n, r, r, cin, cout).describe()}")
+                      + f" bound_by {by}; without stats ms {no_stats_ms:.4f}; {plan_tiles(n, r, r, cin, cout).describe()} {math_flags()}")
                 _, hv, mean, inv = styleconv_cuda(**ins, with_stats=True)
                 x_c, w_c = ins["x"].permute(0, 3, 1, 2), ins["weight"].permute(3, 2, 0, 1)
                 d_c = torch.randn((n, r, r, cout), generator=gen, device=dev).to(dt).permute(0, 3, 1, 2)
@@ -552,7 +601,7 @@ def training_times(shapes, gen):
             k3[key] += t[key]
         gbs = 8 * n * r * r * cout / t["device_ms"] / 1e6  # dy, hv read, dpre written: 8 B an element
         print(f"time K3 bf16 ({n},{r},{r},{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
-              + f" bound_by {by}; {gbs:.1f} GB/s at 8 B an element over device time; plan: {plan_backward(n, r * r, cout).describe()}")
+              + f" bound_by {by}; {gbs:.1f} GB/s at 8 B an element over device time; plan: {plan_backward(n, r * r, cout).describe()} {math_flags()}")
     parts["K3 x16"] = k3["ms"]
     k3["host_us_per_call"] /= len(cases)  # the mean over the shapes; the times above are sums
 
@@ -578,12 +627,12 @@ def training_times(shapes, gen):
     print(
         f"time train critic R1 at 512 px, batch {n}, bf16: forward real + fake {fwd_ms:.3f} ms; forward + input "
         f"gradient (create_graph) {first_ms:.3f} ms; whole loss + parameter gradients (the double backward) "
-        f"{parts['critic R1 loss + grads']:.3f} ms"
+        f"{parts['critic R1 loss + grads']:.3f} ms {math_flags()}"
     )
     rest = it_ms - sum(parts.values())
     for name, ms in parts.items():
-        print(f"time train part {name}: {ms:.3f} ms ({100 * ms / it_ms:.1f}% of the iteration)")
-    print(f"time train part rest (critic-phase generator forward glue, generator-phase critic, Adam, launch gaps), by difference: {rest:.3f} ms ({100 * rest / it_ms:.1f}%)")
+        print(f"time train part {name}: {ms:.3f} ms ({100 * ms / it_ms:.1f}% of the iteration) {math_flags()}")
+    print(f"time train part rest (critic-phase generator forward glue, generator-phase critic, Adam, launch gaps), by difference: {rest:.3f} ms ({100 * rest / it_ms:.1f}%) {math_flags()}")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -593,6 +642,235 @@ def training_times(shapes, gen):
     print("profiler: top ten ops of one stage-8 iteration by device time")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=10))
     return (k1s, max(k1s_by, key=k1s_by.get)), (k3, max(k3_by, key=k3_by.get)), it_ms
+
+
+def k2_checks(gen):
+    """K2 against its plain version at every shape of the path's initial
+    block, (1..24, 4, 4, 512), f32 and bf16, with and without residuals; the
+    element route at C = 12 and on a view of x off 16 bytes; two runs
+    bit-equal.  Returns the largest out error per dtype."""
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
+
+    def check(tag, ins, want_ins=None):
+        err = 0.0
+        for stats in (False, True):
+            got = noise_lrelu_adain_cuda(**ins, with_stats=stats)
+            want = noise_lrelu_adain_plain(**(want_ins or ins), with_stats=stats)
+            got, want = (got, want) if stats else ((got,), (want,))
+            dtype = ins["x"].dtype
+            err = max(err, max_err(got[0], want[0], TOL[dtype]))
+            for name, gt, wt in zip(("hv", "mean", "inv"), got[1:], want[1:]):
+                rel_err(gt, wt, TOL[dtype] if name == "hv" else 1e-3, f"K2 {tag} {name}")
+        return err
+
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            worst[dtype] = max(check(f"{dt} ({n},4,4,512)", k2_inputs(n, 4, 512, dtype, gen)) for n in range(1, 25))
+            e12 = check(f"{dt} (3,4,4,12)", k2_inputs(3, 4, 12, dtype, gen))
+            ins = k2_inputs(5, 4, 512, dtype, gen)
+            x = ins["x"]
+            shifted = dict(ins, x=torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape))
+            require(shifted["x"].data_ptr() % 16 != 0, "the unaligned view is aligned")
+            e_view = check(f"{dt} (5,4,4,512) unaligned x", shifted, ins)
+            ins = k2_inputs(24, 4, 512, dtype, gen)
+            runs = [noise_lrelu_adain_cuda(**ins, with_stats=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(*runs)), f"K2 {dt}: two runs differ")
+            print(f"check K2 {dt} path shapes (1..24,4,4,512) with and without residuals: out max_abs_err "
+                  f"{worst[dtype]:.3e} tol {TOL[dtype]}*(1+|plain|), residuals hv {TOL[dtype]}, mean/inv 1e-3 "
+                  f"relative; element route C = 12 {e12:.3e}; unaligned x {e_view:.3e}; two runs bit-equal")
+    return worst
+
+
+def k2_card_times(ins, gen):
+    """K2's card time at ``ins`` with the host out of the way (calls queued
+    back to back), beside an empty kernel's (the launch floor) and the
+    library composition's, the host's microseconds per call, and the card
+    time with residuals at the training shapes (batch 5 and 24)."""
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.cardcheck import host_us, queued_ms
+
+    t = {
+        "device_ms": queued_ms(lambda: noise_lrelu_adain_cuda(**ins)),
+        "launch_floor_ms": queued_ms(lambda: torch.cuda._sleep(0)),
+        "library_device_ms": queued_ms(lambda: k2_library(**ins)),
+        "host_us_per_call": host_us(lambda: noise_lrelu_adain_cuda(**ins)),
+        "with_stats": {},
+    }
+    for n in (5, 24):
+        ins_n = k2_inputs(n, 4, 512, torch.bfloat16, gen)
+        t["with_stats"][f"({n},4,4,512)"] = queued_ms(lambda: noise_lrelu_adain_cuda(**ins_n, with_stats=True))
+    return t
+
+
+SLICE_CONFIG = (
+    "[slice]\n"
+    "data = {data}\n"
+    "epoch_progression = 1,1,1,1,1,1,1,1\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "ema_beta = 0.999\nstyle_mix_prob = {mix}\n"
+    "checkpoint_dir = {tmp}/slice_ck\noutput_dir = {tmp}/slice_out\n"
+)
+
+
+def slice_training(tmp, root):
+    """The slice's training path at full width on the 24 synthetic images,
+    EMA (0.999) and style mixing (0.9), all 8 stages at one epoch each:
+    ``python -m byogan_tpu_torch.cli.main`` in a subprocess, sent SIGTERM
+    once its metrics show stage 5; a resume with another style_mix_prob is
+    refused; the resume through the CLI (in this process, counting each
+    step's launches) runs to FINAL.pth.  Returns the resumed run's launches
+    and FINAL.pth's path."""
+    from byogan_tpu_torch.cli.main import main as train_main
+
+    data = os.path.join(tmp, "data")  # written by train_through_cli
+    cfg, changed = os.path.join(tmp, "slice.txt"), os.path.join(tmp, "slice_changed.txt")
+    for path, mix in ((cfg, 0.9), (changed, 0.5)):
+        with open(path, "w") as f:
+            f.write(SLICE_CONFIG.format(data=data, mix=mix, tmp=tmp))
+    metrics = os.path.join(tmp, "slice_out", "metrics.jsonl")
+    log_path = os.path.join(tmp, "slice_run.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "byogan_tpu_torch.cli.main", "slice", "--config-file", cfg],
+            cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        )
+        try:
+            stage = 0
+            while stage < 5:
+                require(proc.poll() is None, f"the training CLI ended (rc {proc.returncode}) before stage 5")
+                require(time.perf_counter() - t0 < 600, "no stage-5 metrics within 600 s")
+                time.sleep(0.05)
+                if os.path.exists(metrics):
+                    with open(metrics) as f:
+                        stages = [json.loads(line)["stage"] for line in f if line.endswith("\n")]
+                    stage = max(stages, default=0)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        out = f.read()
+    print(f"slice train: SIGTERM sent at stage {stage}; the CLI exited {rc} after {time.perf_counter() - t0:.2f} s")
+    require(rc == 0, f"the training CLI exited {rc} after SIGTERM:\n{out[-3000:]}")
+    found = re.search(r"preemption checkpoint saved: (\S+)", out)
+    require(found is not None, f"no stop line in the CLI's output:\n{out[-3000:]}")
+    ckpt = found.group(1)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    require(os.path.basename(ckpt) == f"chk-{saved['iter']}.pth", f"stop checkpoint {ckpt}")
+    require(saved.get("gen_ema") is not None and saved.get("train_config", {}).get("style_mix_prob") == 0.9,
+            "the stop checkpoint lacks gen_ema or train_config")
+    print(f"slice train: {found.group(0)} (iteration {saved['iter']}, stage {saved['step']}); it holds gen_ema "
+          f"and train_config {saved['train_config']}")
+    try:
+        train_main(["slice", "--config-file", changed, "-c", ckpt])
+    except ValueError as e:
+        require("style_mix_prob" in str(e) and "--force-resume" in str(e), f"resume guard message: {e}")
+        print("slice train: a resume with style_mix_prob 0.5 is refused without --force-resume")
+    else:
+        require(False, "a resume with a changed style_mix_prob ran")
+
+    records = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_steps(records):
+        state = train_main(["slice", "--config-file", cfg, "-c", ckpt])
+    torch.cuda.synchronize()
+    launches = dict(zip(KERNEL_NAMES, launch_counts()))
+    require(state.iters == 16 and state.gen_ema is not None, f"resumed run ended at {state.iters}")
+    for k, _, _, got in records:
+        require(got == (2 * (2 * k - 1), 2, 2 * k), f"slice stage {k}: launches per iteration {got}")
+    require(all(v > 0 for v in launches.values()), f"a kernel of the slice's training path never ran: {launches}")
+    final = os.path.join(tmp, "slice_ck", "FINAL.pth")
+    require(torch.load(final, map_location="cpu", weights_only=False).get("gen_ema") is not None, "FINAL without gen_ema")
+    stage8 = [got for k, _, _, got in records if k == 8]
+    print(f"slice train: resumed to FINAL.pth in {time.perf_counter() - t0:.2f} s, {len(records)} iterations "
+          f"(stages {records[0][0]}-8); launches {launches}; per iteration at stage 8 (K1, K2, K3) {stage8}, "
+          f"as without mixing")
+    return launches, final
+
+
+def slice_times(gen):
+    """The stage-8 iteration (bf16, batch 5, no-blend path) with style
+    mixing and EMA against the default config's, in the order default,
+    slice, slice, default; and the EMA update's card time (calls queued
+    back to back)."""
+    from byogan_tpu_torch.ops.cardcheck import queued_ms
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import ema_update, make_train_step
+
+    n, dev = TRAIN_BATCH, torch.device("cuda")
+    real = torch.randint(0, 256, (n, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
+    configs = {"default": TrainConfig(), "mixing 0.9 + EMA 0.999": TrainConfig(ema_beta=0.999, style_mix_prob=0.9)}
+    times = {k: [] for k in configs}
+    for name in ("default", "mixing 0.9 + EMA 0.999", "mixing 0.9 + EMA 0.999", "default"):
+        cfg = configs[name]
+        state = build_state(cfg, dev)
+        state.stage = 8
+        step = make_train_step(cfg, 8, n, 8.0, (False,), False)
+        times[name].append(timed_ms(lambda: step(state, real), iters=TIMED_ITERS))
+        if state.gen_ema is not None:
+            ema, params = list(state.gen_ema.parameters()), list(state.gen.parameters())
+            ema_ms = queued_ms(lambda: ema_update(ema, params, 0.999))
+        del state, step
+    print(f"time slice stage-8 iteration bf16 batch {n} (CUDA events, {TIMED_ITERS} iterations each, order A B B A): "
+          + "; ".join(f"{k} {' '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items())
+          + f"; EMA update {ema_ms:.4f} ms of card time (calls queued back to back) {math_flags()}")
+
+
+def slice_sampling(tmp, final):
+    """The sampling surfaces on the slice's FINAL.pth at 512 px: the EMA
+    weights with W-space truncation (psi 0.7) through ``Sampler`` (frames,
+    rate, launches), ``Sampler.style_mix``, psi = 1 against no psi on the
+    same draws (bit for bit), ``generate_samples --ema --psi`` and the
+    style-mix grid CLI at 4 x 4.  Returns the launches of the Sampler's
+    frames and mixes."""
+    from byogan_tpu_torch.cli.generate_samples import main as generate_main
+    from byogan_tpu_torch.cli.style_mix import main as style_mix_main
+    from byogan_tpu_torch.data.png import decode_png
+    from byogan_tpu_torch.serve import Sampler
+
+    s = Sampler(final, batch=PATH_BATCH, seed=0, use_ema=True, truncation_psi=0.7)
+    require(s.resolution == 512, "slice sampler resolution")
+    s.sample(PATH_BATCH)  # warm-up; computes the mean w
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    frames = s.sample(FRAMES)
+    mixed = s.style_mix(FRAMES, 4)
+    launches = dict(zip(KERNEL_NAMES[:2], launch_counts()[:2]))
+    batches = 2 * FRAMES // PATH_BATCH
+    require(launches == {"styleconv": 15 * batches, "adain": batches}, f"slice sampling launches {launches}")
+    for what, f in (("frames", frames), ("style_mix", mixed)):
+        require(f.shape == (FRAMES, 512, 512, 3) and str(f.dtype) == "uint8" and f.std() > 0, f"slice {what}")
+    t0 = time.perf_counter()
+    s.sample(RATE_FRAMES)
+    rate = RATE_FRAMES / (time.perf_counter() - t0)
+    print(f"sampler: EMA weights, psi 0.7: {rate:.2f} images/s at 512 px over {RATE_FRAMES} frames (batch "
+          f"{PATH_BATCH}, bf16, host clock incl. fetch); {FRAMES} frames and style_mix({FRAMES}, 4) launched "
+          f"{launches} ({15} K1 / 1 K2 a batch) {math_flags()}")
+    one = Sampler(final, batch=PATH_BATCH, seed=5, use_ema=True, truncation_psi=1.0).sample(PATH_BATCH)
+    none = Sampler(final, batch=PATH_BATCH, seed=5, use_ema=True).sample(PATH_BATCH)
+    require(np.array_equal(one, none), "psi = 1 frames differ from frames without psi")
+    print("slice sample: psi = 1 gives the frames of no psi bit for bit (same seed and draws)")
+    out = os.path.join(tmp, "slice_gen")
+    os.makedirs(out)
+    generate_main([final, "2", "-o", out, "--seed", "0", "--ema", "--psi", "0.7"])
+    require(sorted(os.listdir(out)) == ["image_1.png", "image_2.png"], "generate_samples --ema --psi output")
+    grid_path = os.path.join(tmp, "mix.png")
+    style_mix_main([final, "-o", grid_path, "-r", "4", "-c", "4", "--ema", "--psi", "0.7", "--seed", "0"])
+    with open(grid_path, "rb") as f:
+        grid = decode_png(f.read())
+    require(grid.shape == (5 * 514 + 2, 5 * 514 + 2, 3) and grid.std() > 0, f"style-mix grid {grid.shape}")
+    print(f"slice sample: generate_samples --ema --psi 0.7 wrote 2 PNGs; cli.style_mix 4x4 grid {grid.shape}")
+    return launches
 
 
 def main() -> int:
@@ -624,8 +902,6 @@ def main() -> int:
     print(f"sass: {hmma} HMMA/HGMMA instructions in {build.library_path('styleconv').name}")
     require(hmma > 0, "the bf16 K1 has no tensor-core instruction in its SASS")
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = ModelSpec().styleconv_shapes()
     require(len(shapes) == 15, f"expected 15 K1 shapes, got {len(shapes)}")
@@ -633,7 +909,7 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version, f32 then bf16.
     errs = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), strict_f32():
         for dtype in (torch.float32, torch.bfloat16):
             e1 = 0.0
             for r, cin, cout in shapes:
@@ -650,7 +926,9 @@ def main() -> int:
                 e2 = max(e2, e)
             errs[dtype] = (e1, e2)
         torch.cuda.synchronize()
-    extra_errs = k1_extra_checks(gen)
+    with strict_f32():
+        extra_errs = k1_extra_checks(gen)
+        k2_errs = k2_checks(gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         # Phase 4: the full-width generator, saved and loaded as a .pth.
@@ -666,11 +944,11 @@ def main() -> int:
         sampler.sample(PATH_BATCH)  # warm-up (cuDNN, allocator)
         torch.cuda.synchronize()
 
-        styleconv_cuda.launches = noise_lrelu_adain_cuda.launches = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         frames = sampler.sample(FRAMES)
         main_s = time.perf_counter() - t0
-        launches = {"styleconv": styleconv_cuda.launches, "adain": noise_lrelu_adain_cuda.launches}
+        launches = dict(zip(KERNEL_NAMES[:2], launch_counts()[:2]))
         batches = FRAMES // PATH_BATCH
         print(f"main path: {FRAMES} frames {frames.shape} {frames.dtype} in {main_s:.3f} s; launches {launches}")
         require(frames.shape == (FRAMES, 512, 512, 3) and str(frames.dtype) == "uint8", "frame shape/dtype")
@@ -684,7 +962,7 @@ def main() -> int:
         zg = torch.Generator(device="cuda").manual_seed(2)
         z = truncated_noise(zg, 2, 512)
         noise = synthesis_noise(zg, 2, 8)
-        with torch.inference_mode():
+        with torch.inference_mode(), strict_f32():
             img_k = g32(z, noise, steps=8)
             with mock.patch.object(layers, "styleconv", styleconv_plain), mock.patch.object(
                 layers, "noise_lrelu_adain", noise_lrelu_adain_plain
@@ -705,7 +983,7 @@ def main() -> int:
         print(
             f"sampler: {rate:.2f} images/s at 512 px over {RATE_FRAMES} frames "
             f"(batch {PATH_BATCH}, bf16, host clock incl. fetch); render "
-            f"{render_ms:.3f} ms per batch (CUDA events)"
+            f"{render_ms:.3f} ms per batch (CUDA events) {math_flags()}"
         )
         totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0, "library_device_ms": 0.0, "bound_ms": 0.0}
         bound_by_kind = {"bytes": 0.0, "operations": 0.0}
@@ -726,14 +1004,14 @@ def main() -> int:
                     totals[k] += t[k]
                 plan = plan_tiles(PATH_BATCH, r, r, cin, cout)
                 print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
-                      + f" bound_by {by}; plan: {plan.describe()}; device ms by kernel: {fmt_times(parts_k1)}")
+                      + f" bound_by {by}; plan: {plan.describe()}; device ms by kernel: {fmt_times(parts_k1)} {math_flags()}")
                 if r <= 8:  # the same call with whole samples per tile, for comparison
                     for bm in (64, 128):
                         alt = bf16_plan(PATH_BATCH, r, r, cin, cout, bm)
                         with forced_plan(bm):
                             ms = timed_ms(lambda: styleconv_cuda(**ins))
                             dms = device_ms(lambda: styleconv_cuda(**ins))
-                        print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) other plan ms {ms:.4f} device_ms {dms:.4f}: {alt.describe()}")
+                        print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) other plan ms {ms:.4f} device_ms {dms:.4f}: {alt.describe()} {math_flags()}")
             k1_by = max(bound_by_kind, key=bound_by_kind.get)
             ins2 = k2_inputs(PATH_BATCH, 4, 512, torch.bfloat16, gen)
             k2 = {
@@ -741,13 +1019,16 @@ def main() -> int:
                 "plain_ms": timed_ms(lambda: noise_lrelu_adain_plain(**ins2)),
                 "library_ms": timed_ms(lambda: k2_library(**ins2)),
             }
+            k2.update(k2_card_times(ins2, gen))
             k2["bound_ms"], k2_by = k2_bound(PATH_BATCH, 4, 512, 2)
-            print(f"time K2 bf16 ({PATH_BATCH},4,4,512) " + " ".join(f"{k} {v:.4f}" for k, v in k2.items()) + f" bound_by {k2_by}")
+            print(f"time K2 bf16 ({PATH_BATCH},4,4,512) " + " ".join(f"{k} {v:.5f}" for k, v in k2.items()
+                                                                   if not isinstance(v, dict))
+                  + f" bound_by {k2_by}; with residuals, device ms {fmt_times(k2['with_stats'])} {math_flags()}")
             for r, c in k2_shapes[1:]:
                 insx = k2_inputs(PATH_BATCH, r, c, torch.bfloat16, gen)
                 kx = timed_ms(lambda: noise_lrelu_adain_cuda(**insx), iters=10)
                 bx, _ = k2_bound(PATH_BATCH, r, c, 2)
-                print(f"time K2 bf16 ({PATH_BATCH},{r},{r},{c}) ms {kx:.4f} bound_ms {bx:.4f} (split-HW, off the path)")
+                print(f"time K2 bf16 ({PATH_BATCH},{r},{r},{c}) ms {kx:.4f} bound_ms {bx:.4f} (split-HW, off the path) {math_flags()}")
 
         # Phase 6: frames to disk through save_stream and through the CLI.
         out_dir = os.path.join(tmp, "stream")
@@ -763,10 +1044,18 @@ def main() -> int:
         require(sorted(os.listdir(cli_dir)) == ["image_1.png", "image_2.png"], "CLI output")
 
         # Phases 7-10: the training path.
-        train_errs = training_kernels(shapes, gen)
+        with strict_f32():
+            train_errs = training_kernels(shapes, gen)
         train_launches, train_wall = train_through_cli(tmp)
-        stage8_step_kernel_vs_plain()
+        with strict_f32():
+            stage8_step_kernel_vs_plain()
         (k1s, k1s_by), (k3, k3_by), it_ms = training_times(shapes, gen)
+
+        # Phases 11-12: the EMA, style-mixing and preemption slice, then its
+        # sampling surfaces on the EMA weights.
+        slice_train, final = slice_training(tmp, root)
+        slice_times(gen)
+        slice_sample = slice_sampling(tmp, final)
 
     kernels = [
         {
@@ -781,6 +1070,8 @@ def main() -> int:
             **totals, "bound_by": k1_by,
             "shapes": "15 path shapes summed, batch 8, bf16",
             "launches_train": train_launches["styleconv"],
+            "launches_slice_train": slice_train["styleconv"],
+            "launches_slice_sample": slice_sample["styleconv"],
             "max_abs_err_train": train_errs[torch.bfloat16]["fwd"],
             "with_stats": {**k1s, "bound_by": k1s_by, "library_ms": None,
                            "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
@@ -794,15 +1085,21 @@ def main() -> int:
             "launches": launches["adain"],
             "max_abs_err": errs[torch.bfloat16][1],
             "max_abs_err_f32": errs[torch.float32][1],
+            "max_abs_err_path_shapes": k2_errs[torch.bfloat16],
+            "max_abs_err_path_shapes_f32": k2_errs[torch.float32],
             **k2, "bound_by": k2_by,
-            "shapes": "(8,4,4,512) bf16",
+            "shapes": "(8,4,4,512) bf16 (device_ms, library_device_ms, launch_floor_ms: calls queued back to "
+                      "back, CUDA events; with_stats: (5,4,4,512) and (24,4,4,512))",
             "launches_train": train_launches["adain"],
+            "launches_slice_train": slice_train["adain"],
+            "launches_slice_sample": slice_sample["adain"],
         },
         {
             "name": "styleconv_bwd", "route": "cuda",
             "source": "byogan_tpu_torch/csrc/styleconv_bwd.cu",
             "replaces": "byogan_tpu/ops/pallas_styleconv.py:266",
             "launches": train_launches["styleconv_bwd"],
+            "launches_slice_train": slice_train["styleconv_bwd"],
             "max_abs_err": train_errs[torch.bfloat16]["k3"],
             "max_abs_err_f32": train_errs[torch.float32]["k3"],
             **k3, "bound_by": k3_by,

@@ -6,6 +6,8 @@ has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -65,10 +67,16 @@ def test_styleconv_kernel_takes_unaligned_views(cuda_device, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# K2's shapes: the path's initial block at batch 1-24 (sampling at 8,
+# training at 5 and 24, one sample), C % 8 != 0 (the element route) and a
+# ragged image, then the split-HW route off the path.
+K2_CASES = [(1, 4, 4, 512), (5, 4, 4, 512), (8, 4, 4, 512), (24, 4, 4, 512), (3, 4, 4, 12), (2, 9, 13, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "shape", [(8, 4, 4, 512), (2, 64, 64, 128), (1, 512, 512, 16), (2, 9, 31, 20)]
+    "shape", K2_CASES + [(2, 64, 64, 128), (1, 512, 512, 16), (2, 9, 31, 20)]
 )
 def test_adain_kernel_matches_plain(cuda_device, shape, dtype):
     ins = as_torch(epilogue_inputs(shape, seed=2), DTYPES[dtype], cuda_device)
@@ -76,6 +84,35 @@ def test_adain_kernel_matches_plain(cuda_device, shape, dtype):
     want = noise_lrelu_adain_plain(**ins)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adain_kernel_takes_unaligned_views(cuda_device, dtype):
+    """x as a contiguous view that starts one element into its storage, off
+    the 16 bytes that K2's vector accesses need."""
+    ins = as_torch(epilogue_inputs((5, 4, 4, 512), seed=10), DTYPES[dtype], cuda_device)
+    t = ins["x"]
+    shifted = dict(ins, x=torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape))
+    assert shifted["x"].is_contiguous() and shifted["x"].data_ptr() % 16 != 0
+    got = noise_lrelu_adain_cuda(**shifted, with_stats=True)
+    want = noise_lrelu_adain_plain(**ins, with_stats=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "hv", "mean", "inv"), got, want):
+        assert_rel(g, w, TOL[dtype] if name in ("out", "hv") else 1e-3, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(24, 4, 4, 512), (3, 4, 4, 12)])
+def test_adain_kernel_is_deterministic(cuda_device, shape, dtype):
+    """Fixed shuffle orders: two runs give the same bits."""
+    ins = as_torch(epilogue_inputs(shape, seed=11), DTYPES[dtype], cuda_device)
+    first = noise_lrelu_adain_cuda(**ins, with_stats=True)
+    second = noise_lrelu_adain_cuda(**ins, with_stats=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "hv", "mean", "inv"), first, second):
+        assert torch.equal(a, b), name
 
 
 # Gradients and the backward kernel, relative to each tensor's max: f32
@@ -107,7 +144,7 @@ def test_styleconv_kernel_residuals_match_plain(cuda_device, shape, bm, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(8, 4, 4, 512), (2, 64, 64, 128), (2, 9, 31, 20)])
+@pytest.mark.parametrize("shape", K2_CASES + [(2, 64, 64, 128), (2, 9, 31, 20)])
 def test_adain_kernel_residuals_match_plain(cuda_device, shape, dtype):
     ins = as_torch(epilogue_inputs(shape, seed=4), DTYPES[dtype], cuda_device)
     got = noise_lrelu_adain_cuda(**ins, with_stats=True)
@@ -216,3 +253,66 @@ def test_initial_block_function_grads_match_plain_autograd(cuda_device, shape, d
         lambda *a: NoiseLReLUAdaINFunction.apply(*a, 1e-8),
         lambda *a: noise_lrelu_adain_plain(*a), ins, dtype,
     )
+
+
+# One train step, f32, kernel path vs plain path (chip_smoke.py's STEP_TOL
+# and STEP_GRAD_TOL): losses relative 2e-3; each gradient within 2e-2
+# relative L2 and 5e-2 of its max.
+STEP_TOL, STEP_GRAD_TOL = 2e-3, (2e-2, 5e-2)
+
+
+@pytest.mark.cuda
+def test_mixed_style_step_kernel_path_matches_plain_path(cuda_device):
+    """A stage-3 step at full width with style mixing and EMA: the kernels
+    against their plain versions swapped into the layers, same draws.  The
+    EMA is held to its update on each path's own weights: across the paths
+    Adam's first step moves a weight by +-lr by the sign of its gradient,
+    which flips where a gradient is within rounding of zero."""
+    from unittest import mock
+
+    from byogan_tpu_torch.models import layers
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import draw, make_train_step
+
+    cfg = TrainConfig(compute_dtype="float32", style_mix_prob=0.9, ema_beta=0.99)
+    rng = torch.Generator(device=cuda_device).manual_seed(3)
+    state = build_state(cfg, cuda_device)
+    state.rng = rng
+    draws = draw(state, cfg, 16, 3, torch.float32)
+    assert draws.mix is not None
+    real = torch.randint(0, 256, (16, 16, 16, 3), generator=rng, device=cuda_device, dtype=torch.uint8)
+    step = make_train_step(cfg, 3, 16, 100.0, (True,), True)
+    out = {}
+    for path in ("kernel", "plain"):
+        state = build_state(cfg, cuda_device)
+        with torch.no_grad():  # noise weights start at zero, which hides the noise path
+            for name, p in state.gen.named_parameters():
+                if "inject_noise" in name:
+                    p.normal_(0.0, 0.3, generator=torch.Generator(device=cuda_device).manual_seed(len(name)))
+            for e, p in zip(state.gen_ema.parameters(), state.gen.parameters()):
+                e.copy_(p)
+        before = [p.detach().clone() for p in state.gen.parameters()]
+        launches = (styleconv_cuda.launches, noise_lrelu_adain_cuda.launches, styleconv_backward_cuda.launches)
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                stack.enter_context(mock.patch.object(layers, "styleconv", styleconv_plain))
+                stack.enter_context(mock.patch.object(layers, "noise_lrelu_adain", noise_lrelu_adain_plain))
+            metrics = step(state, real, draws)
+        torch.cuda.synchronize()
+        got = tuple(w.launches - b for w, b in zip((styleconv_cuda, noise_lrelu_adain_cuda, styleconv_backward_cuda), launches))
+        assert got == ((10, 2, 6) if path == "kernel" else (0, 0, 0)), got  # K1 2(2k-1), K2 2, K3 2k at k = 3
+        # The EMA after one step: 0.99 * the initial weights + 0.01 * the stepped ones.
+        for e, p0, p1 in zip(state.gen_ema.parameters(), before, state.gen.parameters()):
+            torch.testing.assert_close(e, p0 * 0.99 + p1.detach() * (1 - 0.99), rtol=1e-6, atol=1e-9)
+        out[path] = (metrics, {n: p.grad.clone() for n, p in state.gen.named_parameters()})
+    (mk, gk), (mp, gp) = out["kernel"], out["plain"]
+    for k in ("c_loss", "g_loss", "r1_penalty", "real_pred", "fake_pred"):
+        assert_rel(mk[k], mp[k], STEP_TOL, k)
+    l2_tol, max_tol = STEP_GRAD_TOL
+    for n, w in gp.items():
+        if w.abs().max() == 0:  # a stage the step does not reach
+            continue
+        d = (gk[n] - w).double()
+        assert float(d.norm() / w.double().norm()) <= l2_tol, n
+        assert float(d.abs().max() / w.abs().max()) <= max_tol, n

@@ -256,10 +256,12 @@ def test_backward_plan(n, hw, c):
 
 
 def test_backward_plan_mirrors_the_kernel_source():
-    """plan_backward's constants are the ones csrc/styleconv_bwd.cu uses."""
+    """plan_backward's constants are the ones csrc/styleconv_bwd.cu uses
+    (kVec from common.cuh, which it includes)."""
     import re
 
-    src = (Path(port_bwd.__file__).parent.parent / "csrc" / "styleconv_bwd.cu").read_text()
+    csrc = Path(port_bwd.__file__).parent.parent / "csrc"
+    src = (csrc / "styleconv_bwd.cu").read_text() + (csrc / "common.cuh").read_text()
     for py, cu in (("THREADS", "kThreads"), ("VEC", "kVec")):
         assert re.search(rf"constexpr int .*\b{cu} = (\d+)", src).group(1) == str(getattr(port_bwd, py))
     with pytest.raises(ValueError, match="channels"):
@@ -296,3 +298,13 @@ def test_chip_smoke_fails_without_a_gpu():
     )
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and "no CUDA device" in res.stderr
+
+
+def test_adain_constants_mirror_the_kernel_source():
+    """The K2 wrapper's TILE and VEC are csrc/adain.cu's kOneTile and kVec."""
+    import re
+
+    csrc = Path(port_adain.__file__).parent.parent / "csrc"
+    src = (csrc / "adain.cu").read_text() + (csrc / "common.cuh").read_text()
+    for py, cu in (("TILE", "kOneTile"), ("VEC", "kVec")):
+        assert re.search(rf"constexpr int .*\b{cu} = (\d+)", src).group(1) == str(getattr(port_adain, py))

@@ -265,22 +265,37 @@ def test_adam_matches_optax(small_jax):
 
 
 def _jax_draws(rng, jconfig, steps):
-    """The JAX step's draws from ``rng``, split as steps.py:195-197, 274."""
+    """The JAX step's draws from ``rng``, split as steps.py:195-197, 274;
+    with style mixing (from stage 2 on), each phase's latent key splits
+    into z1, z2 and the coin and crossover keys as steps.py:38-57, 144-154."""
     from byogan_tpu.core.random import synthesis_noise, truncated_noise
 
-    def zn(zk, nk):
-        z = truncated_noise(zk, BATCH, jconfig.noise_size, jconfig.noise_trunc, jnp.float32)
-        return _t(z), [_t(n) for n in synthesis_noise(nk, BATCH, steps, dtype=jnp.float32)]
+    mixing = jconfig.style_mix_prob > 0 and steps >= 2
 
-    critic, keys = [], []
+    def latents(zk):
+        return _t(truncated_noise(zk, BATCH, jconfig.noise_size, jconfig.noise_trunc, jnp.float32))
+
+    def zn(zk, nk):
+        noise = [_t(n) for n in synthesis_noise(nk, BATCH, steps, dtype=jnp.float32)]
+        if not mixing:
+            return latents(zk), noise, None
+        z1k, z2k, mk = jax.random.split(zk, 3)
+        ck, tk = jax.random.split(mk)
+        t = torch.from_numpy(np.asarray(jax.random.randint(tk, (BATCH,), 1, steps), np.int64))
+        mix = port_steps.Mix(latents(z2k), _t(jax.random.uniform(ck, (BATCH,))), t)
+        return latents(z1k), noise, mix
+
+    critic, keys, mixes = [], [], []
     for _ in range(jconfig.critic_repeats):
         rng, zk, nk, ek, _ = jax.random.split(rng, 5)
-        z, noise = zn(zk, nk)
+        z, noise, mix = zn(zk, nk)
         eps = None if jconfig.use_r1 else _t(jax.random.uniform(ek, (BATCH, 1, 1, 1)))
         critic.append((z, noise, eps))
         keys.append(ek)
+        mixes.append(mix)
     rng, zk, nk, _ = jax.random.split(rng, 4)
-    return port_steps.Draws(critic, zn(zk, nk)), keys
+    z, noise, mix = zn(zk, nk)
+    return port_steps.Draws(critic, (z, noise), mixes + [mix] if mixing else None), keys
 
 
 def _assert_params(got, want):
@@ -382,8 +397,10 @@ def test_config_parity_on_the_example_file():
     load_ini_config(path, "ffhq-tpu-tuned")
     with pytest.raises(ValueError) as err:
         port_load_ini(path, "ffhq-tpu-tuned")
-    for knob in ("ema_beta", "style_mix_prob", "remat_progression", "eval_step"):
+    for knob in ("remat_progression", "eval_step"):
         assert knob in str(err.value)
+    for ported in ("ema_beta", "style_mix_prob"):  # ported: parsed, not refused
+        assert ported not in str(err.value)
 
 
 def _png(img, filt):
