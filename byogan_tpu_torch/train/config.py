@@ -8,10 +8,9 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 code.  ``final_image_size`` is read by nobody.
 
 Knobs of features the port does not have yet (augmentation and ADA,
-path-length regularization, remat, a mesh, periodic SWD eval) keep their
-fields, so a config file parses the same in both
-packages, but a value that would turn one on raises a ``ValueError`` that
-names it instead of being ignored.
+path-length regularization, remat, a mesh) keep their fields, so a config
+file parses the same in both packages, but a value that would turn one on
+raises a ``ValueError`` that names it instead of being ignored.
 """
 
 from __future__ import annotations
@@ -88,7 +87,6 @@ class TrainConfig:
                 ("remat_progression", any(self.remat_progression or ())),
                 ("data_axis", self.data_axis > 1),
                 ("model_axis", self.model_axis > 1),
-                ("eval_step", self.eval_step > 0),
             )
             if on
         ]

@@ -11,9 +11,11 @@ per epoch and skips the batches already trained, and the checkpoint holds
 the optimizers and the RNG.  SIGTERM or SIGINT stops the same way at the
 next iteration boundary (``_graceful_stop``), so a preempted run loses
 nothing; a resume checks the config's trajectory knobs against the
-checkpoint's.
+checkpoint's.  ``eval_step > 0`` logs SWD and MS-SSIM every ``eval_step``
+iterations (``log_eval``) from draws of their own, so the training
+trajectory is the same with and without it.
 
-Not here yet: the mesh and SWD eval of the JAX loop.
+Not here yet: the mesh of the JAX loop.
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ import contextlib
 import os
 import signal
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from byogan_tpu_torch.core.device import resolve_device
-from byogan_tpu_torch.core.grids import make_grid, to_uint8
+from byogan_tpu_torch.core.grids import make_grid, to_uint8, uint8_to_training_range
 from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
 from byogan_tpu_torch.data.pipeline import (
     batches_per_epoch,
@@ -88,6 +90,72 @@ def save_sample_grid(
     with open(path, "wb") as f:
         f.write(encode_png(grid))
     return path
+
+
+def evict_stage_cache(eval_cache: Dict[tuple, object], steps: int) -> None:
+    """Drop the eval cache's entries of stages other than ``steps``: keys
+    are ``(what, steps)``, and the real images of a stage are the large
+    ones (eval_images f32 frames on the device)."""
+    for key in [k for k in eval_cache if k[1] != steps]:
+        del eval_cache[key]
+
+
+def log_eval(
+    state: TrainState,
+    config: TrainConfig,
+    dataset,
+    steps: int,
+    alpha: Optional[float],
+    iters: int,
+    eval_cache: Dict[tuple, object],
+    logger: MetricsLogger,
+) -> Dict[str, float]:
+    """The periodic evaluation (byogan_tpu/train/loop.py:561-674): SWD of
+    ``eval_images`` fresh samples at the stage's ``alpha`` against a seeded
+    subset (without replacement) of the stage's real images, ``swd`` for
+    the generator and ``swd_ema`` for its EMA, with the MS-SSIM diversity
+    of each sample set (``msssim``, ``msssim_ema``) and of the real subset
+    (``msssim_real``, once per stage).  Latents come from the training
+    distribution.  The real subset is kept on the device, uploaded as uint8
+    and converted there; ``eval_cache`` holds it per stage.  Every draw
+    comes from a generator seeded from ``(config.seed, iters)``, the same
+    for both nets, and none from the training's.  Logs and returns the
+    values."""
+    from byogan_tpu_torch.eval.msssim import msssim_diversity
+    from byogan_tpu_torch.eval.swd import sliced_wasserstein_distance
+
+    dev = next(state.gen.parameters()).device
+    n = min(config.eval_images, len(dataset))
+    real_key = ("real", steps)
+    if real_key not in eval_cache:
+        idx = np.random.default_rng(config.seed + 8191).choice(len(dataset), size=n, replace=False)
+        u8 = torch.from_numpy(dataset.get_batch_uint8(np.sort(idx))).to(dev)
+        eval_cache[real_key] = uint8_to_training_range(u8)
+    real = eval_cache[real_key]
+    dtype = getattr(torch, config.compute_dtype)
+    tag = config.seed * 1_000_003 + iters
+    nets = [("swd", state.gen)] + ([("swd_ema", state.gen_ema)] if state.gen_ema is not None else [])
+    values: Dict[str, float] = {}
+    for name, net in nets:
+        rng = torch.Generator(device=dev).manual_seed(tag + 131071)
+        z = truncated_noise(rng, n, config.noise_size, config.noise_trunc, dtype)
+        noise = synthesis_noise(rng, n, steps, dtype=dtype)
+        with torch.no_grad():
+            fake = net(z, noise, steps=steps, alpha=alpha).float()
+        swd = sliced_wasserstein_distance(
+            real, fake, torch.Generator(device=dev).manual_seed(tag + 524287),
+            patches_per_image=64, min_size=min(16, 4 * 2 ** (steps - 1)),
+        )
+        values[name] = round(swd[0], 3)
+        if n >= 2:
+            values["msssim" + name[len("swd"):]] = round(float(msssim_diversity(fake)), 4)
+    if n >= 2:
+        anchor_key = ("msssim_real", steps)
+        if anchor_key not in eval_cache:
+            eval_cache[anchor_key] = round(float(msssim_diversity(real)), 4)
+        values["msssim_real"] = eval_cache[anchor_key]
+    logger.log_eval(iters, steps, values)
+    return values
 
 
 @contextlib.contextmanager
@@ -165,6 +233,7 @@ def _train(
     k = config.refresh_stat_step
     c_hist: collections.deque = collections.deque(maxlen=k)
     g_hist: collections.deque = collections.deque(maxlen=k)
+    eval_cache: Dict[tuple, object] = {}
 
     def stop(epoch: int) -> TrainState:
         logger.close()
@@ -178,6 +247,7 @@ def _train(
         steps = index + 1
         if last_stage is not None and steps < last_stage:
             continue
+        evict_stage_cache(eval_cache, steps)
         batch = config.stage_batch(index)
         stage_epochs = config.stage_epochs(index)
         dataset = open_stage_dataset(config.data, steps)
@@ -229,6 +299,11 @@ def _train(
                     save_sample_grid(
                         state, config, show_z, steps, alpha_ckpt if gen_fade else None,
                         state.iters, f"s-{state.iters}",
+                    )
+                if config.eval_step > 0 and state.iters % config.eval_step == 0:
+                    log_eval(
+                        state, config, dataset, steps, alpha_ckpt if gen_fade else None,
+                        state.iters, eval_cache, logger,
                     )
                 if state.iters % config.checkpoint_step == 0:
                     state.epoch = epoch

@@ -1,8 +1,9 @@
-"""Rolling-loss readout and ``metrics.jsonl`` (byogan_tpu/train/metrics.py:18-98).
+"""Rolling-loss readout and ``metrics.jsonl`` (byogan_tpu/train/metrics.py:18-110).
 
-Same console line and the same jsonl records as the JAX package: one
+Same console lines and the same jsonl records as the JAX package: one
 ``{"iter", "stage", "epoch", "c_loss", "g_loss", "images_per_sec", ...}``
-object per readout, appended and flushed.
+object per readout and one ``{"kind": "eval", "iter", "stage", ...}``
+object per periodic evaluation, appended and flushed.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 class MetricsLogger:
@@ -53,7 +54,30 @@ class MetricsLogger:
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
 
+    def log_eval(self, iters: int, stage: int, values: Dict[str, float]) -> None:
+        """Record a periodic evaluation readout (SWD and MS-SSIM) as its own
+        ``{"kind": "eval"}`` record, so that readers of the loss records
+        can tell the two apart."""
+        readout = "  ".join(f"{k}: {v:.6g}" for k, v in values.items())
+        self._print(f"eval step {stage} iter {iters}  {readout}")
+        if self._jsonl:
+            rec = {"kind": "eval", "iter": iters, "stage": stage, **values}
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+
     def close(self) -> None:
         if self._jsonl:
             self._jsonl.close()
             self._jsonl = None
+
+
+def read_metrics(path: str, kind: Optional[str] = None) -> List[Dict]:
+    """The records of a metrics.jsonl file; ``kind="eval"`` keeps the
+    periodic evaluations only, None keeps everything."""
+    records: List[Dict] = []
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if kind is None or rec.get("kind") == kind:
+                records.append(rec)
+    return records

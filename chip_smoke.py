@@ -24,7 +24,15 @@ both paths of the port at full width (``ModelSpec()``):
   resume with a changed knob refused, the resume to FINAL.pth (counting
   launches per iteration), the stage-8 iteration with and without the two
   extensions and the EMA update's time; then the sampling surfaces on the
-  EMA weights at 512 px (W-space truncation, style mixing, both CLIs).
+  EMA weights at 512 px (W-space truncation, style mixing, both CLIs);
+* the W-space and eval slice on those EMA weights at 512 px: projections
+  in W and W+ from the mean w onto targets rendered from a known w
+  (launches per iteration, no weight gradient, the loss ratio under the
+  JAX suite's bars), the projection's gradient on the kernel path against
+  the plain path, ``cli.project``, ``cli.edit``, ``cli.interpolate`` and
+  ``cli.evaluate``, SWD and MS-SSIM on the card against the CPU, stage 8
+  through the training CLI with the periodic eval against the same run
+  without it, and their times.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -873,6 +881,452 @@ def slice_sampling(tmp, final):
     return launches
 
 
+# The W-space and eval slice (projection, SeFa edits, walks, SWD/MS-SSIM).
+PROJECT_ITERS, WPLUS_ITERS = 200, 100
+# Bars on last/first loss of a projection from the mean w onto a target
+# rendered from a known w.  The JAX suite's (tests/test_projector.py:54,
+# :72) are 0.1 in W and 0.2 in W+, for its 2-stage model; the card meets
+# them at that model (SMALL_PROJECT).  At full width on FINAL.pth's EMA
+# weights, W stalls near 0.2 in f32 and bf16 alike, for 400 iterations as
+# for 200 and at lr 0.1 as at 0.05 (tools/project_sweep.py; PERF.md): a
+# plateau of the barely trained 512 px model, not of the port.  So the
+# full-width W bar is set above that trajectory; W+ meets 0.2.
+PROJECT_BAR, WPLUS_BAR, SMALL_BAR = 0.25, 0.2, 0.1
+SMALL_PROJECT = dict(num_stages=2, channel_divisor=16, mapping_depth=2)
+# SWD per level (relative) and MS-SSIM diversity (absolute), card vs CPU on
+# the same images and draws: f32 sums in another order.
+SWD_TOL, MSSSIM_TOL = 1e-4, 1e-4
+EVAL_KEYS = ["kind", "iter", "stage", "swd", "msssim", "swd_ema", "msssim_ema", "msssim_real"]
+EVALUATE_KEYS = ["metric", "resolution", "n_images", "resampled", "ema", "truncation", "per_level", "mean",
+                 "msssim_diversity"]
+
+
+@contextlib.contextmanager
+def counting_conv_grads(counts: dict):
+    """StyleConvFunction's calls of ``conv2d_input`` (dx) and
+    ``conv2d_weight`` (dweight), counted into ``counts``."""
+    from byogan_tpu_torch.ops import styleconv as sc
+
+    def counted(name):
+        real = getattr(sc, name)
+
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return real(*args, **kwargs)
+
+        return call
+
+    with mock.patch.object(sc, "conv2d_input", counted("conv2d_input")), \
+            mock.patch.object(sc, "conv2d_weight", counted("conv2d_weight")):
+        yield
+
+
+def projection_setup(final, batch, dtype, seed=11):
+    """The FINAL checkpoint's EMA generator on the card, a target rendered
+    from a known w with the projector's own noise (noise_seed 0), so an
+    exact inversion exists, and the mean w."""
+    from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+    from byogan_tpu_torch.projector import synthesize_w
+    from byogan_tpu_torch.serve import Sampler
+
+    s = Sampler(final, batch=batch, dtype=dtype, use_ema=True)
+    gen = s.generator
+    with torch.no_grad():
+        w_true = gen.map_latent(truncated_noise(torch.Generator(device="cuda").manual_seed(seed), batch, s.z_dim)).float()
+        noise = synthesis_noise(torch.Generator(device="cuda").manual_seed(0), batch, 8)
+        target = synthesize_w(gen, w_true, noise, 8, s.alpha)
+    return s, target, noise
+
+
+def project_on_card(final, w_plus, n_iters, bar):
+    """A projection at 512 px, batch 2, bf16, from the mean w: launches per
+    iteration (K1 15 with residuals, K2 1, K3 16, plus the final render's 15
+    K1 and 1 K2), no weight gradient, finite losses, the last below ``bar``
+    times the first."""
+    from byogan_tpu_torch.projector import project
+
+    s, target, _ = projection_setup(final, 2, "bfloat16")
+    counts = {}
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_conv_grads(counts):
+        res = project(s.generator, target, 8, s.z_dim, n_iters=n_iters, lr=0.05, w_plus=w_plus)
+        losses = res.losses.cpu().numpy()  # the one fetch
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    mode = "W+" if w_plus else "W"
+    want = (15 * n_iters + 15, n_iters + 1, 16 * n_iters)
+    require(got == want, f"project {mode}: launches (K1, K2, K3) {got}, expected {want}")
+    require(counts.get("conv2d_weight", 0) == 0, f"project {mode}: {counts.get('conv2d_weight')} weight gradients")
+    require(counts.get("conv2d_input", 0) == 15 * n_iters, f"project {mode}: conv2d_input calls {counts}")
+    require(bool(np.isfinite(losses).all()) and losses.shape == (n_iters,), f"project {mode}: losses {losses}")
+    ratio = float(losses[-1] / losses[0])
+    marks = sorted({0, n_iters // 4, n_iters // 2, 3 * n_iters // 4, n_iters - 1})
+    err = float((res.image - target).abs().max())
+    print(f"project {mode}: 512 px batch 2 bf16, {n_iters} iterations from the mean w in {wall:.2f} s (host clock, "
+          f"one loss fetch); launches (K1, K2, K3) {got} = {n_iters} x (15, 1, 16) + the final render's (15, 1, 0); "
+          f"conv2d_weight calls 0, conv2d_input {counts['conv2d_input']}; loss at "
+          + ", ".join(f"{i}: {losses[i]:.5f}" for i in marks)
+          + f"; last/first {ratio:.4f} (bar {bar}); max |recon - target| {err:.4f} {math_flags()}")
+    require(ratio < bar, f"project {mode}: last/first loss {ratio:.4f} not below {bar}")
+    return dict(zip(KERNEL_NAMES, (15, 1, 16))), ratio
+
+
+def project_small_on_card():
+    """The JAX suite's projection test on the card: its 2-stage model
+    (random weights), a target from a known w with the projector's noise,
+    200 iterations from the mean w, bf16; last/first loss below 0.1 and
+    launches per iteration (K1 3, K2 1, K3 4)."""
+    from byogan_tpu_torch.core.random import synthesis_noise
+    from byogan_tpu_torch.models.factory import ModelSpec, build_generator
+    from byogan_tpu_torch.projector import project, synthesize_w
+
+    gen = build_generator(ModelSpec(**SMALL_PROJECT), dtype=torch.bfloat16, z_dim=16,
+                          generator=torch.Generator().manual_seed(0))
+    gen.cuda().requires_grad_(False)
+    z = torch.randn((2, 16), generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    with torch.no_grad():
+        noise = synthesis_noise(torch.Generator(device="cuda").manual_seed(0), 2, 2)
+        target = synthesize_w(gen, gen.map_latent(z).float(), noise, 2)
+    zero_launch_counts()
+    losses = project(gen, target, 2, 16, n_iters=PROJECT_ITERS).losses.cpu().numpy()
+    got = launch_counts()
+    n = PROJECT_ITERS
+    require(got == (3 * n + 3, n + 1, 4 * n), f"small project launches {got}")
+    ratio = float(losses[-1] / losses[0])
+    print(f"project W at the JAX test's model (2 stages, 8 px, channel_divisor 16, mapping depth 2), bf16, {n} "
+          f"iterations: loss {losses[0]:.5f} -> {losses[-1]:.5f}, last/first {ratio:.4f} (bar {SMALL_BAR}); "
+          f"launches {got}")
+    require(bool(np.isfinite(losses).all()) and ratio < SMALL_BAR, f"small project: last/first {ratio:.4f}")
+    return ratio
+
+
+def project_grad_kernel_vs_plain(final):
+    """One projection iteration's gradient with respect to w at 512 px,
+    batch 2, f32: the kernel path against the plain path (the plain
+    versions swapped into the layers)."""
+    from byogan_tpu_torch.models import layers
+    from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
+    from byogan_tpu_torch.ops.styleconv import styleconv_plain
+    from byogan_tpu_torch.projector import projection_loss
+
+    s, target, noise = projection_setup(final, 2, "float32")
+    w0 = s.mean_w().expand(2, -1)
+    rng = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    # A third run, the plain path at w moved by float rounding (1e-6
+    # relative), measures how far rounding alone moves this gradient.
+    for path in ("kernel", "plain", "plain, w moved by 1e-6"):
+        moved = path.endswith("1e-6")
+        w = (w0 * (1 + 1e-6 * torch.randn(w0.shape, generator=rng, device="cuda")) if moved else w0)
+        w = w.clone().requires_grad_(True)
+        before = launch_counts()
+        with contextlib.ExitStack() as stack:
+            if path != "kernel":
+                stack.enter_context(mock.patch.object(layers, "styleconv", styleconv_plain))
+                stack.enter_context(mock.patch.object(layers, "noise_lrelu_adain", noise_lrelu_adain_plain))
+            loss = projection_loss(s.generator, w, target, noise, 8, s.alpha)
+            (g,) = torch.autograd.grad(loss, w)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(launch_counts(), before))
+        require(launched == ((15, 1, 16) if path == "kernel" else (0, 0, 0)), f"{path} path launched {launched}")
+        out[path] = (loss.detach(), g)
+    (lk, gk), (lp, gp), (_, gm) = out["kernel"], out["plain"], out["plain, w moved by 1e-6"]
+    loss_err = rel_err(lk, lp, STEP_TOL, "projection loss")
+
+    def errs(g):
+        d = (g - gp).double()
+        return float(d.norm() / gp.double().norm()), float(d.abs().max() / gp.abs().max())
+
+    (l2, mx), (l2_moved, mx_moved) = errs(gk), errs(gm)
+    print(f"project f32 dL/dw kernel vs plain path (512 px, batch 2): loss {float(lk):.6f} vs {float(lp):.6f} "
+          f"(rel {loss_err:.2e}, tol {STEP_TOL}); gradient relative L2 {l2:.3e}, max {mx:.3e} (tol {STEP_GRAD_TOL}); "
+          f"rounding alone (plain, w moved by 1e-6 relative): relative L2 {l2_moved:.3e}, max {mx_moved:.3e}")
+    require(l2 <= STEP_GRAD_TOL[0] and mx <= STEP_GRAD_TOL[1], "projection gradient kernel vs plain")
+    return l2, mx
+
+
+def wspace_clis(tmp, final):
+    """cli.project on two PNGs of save_stream, cli.edit from one of the
+    written latents and from random rows, cli.interpolate -n 3 -p 5 --ema
+    --w-space, each at 512 px on the card; checks what each writes."""
+    from byogan_tpu_torch.cli.edit import main as edit_main
+    from byogan_tpu_torch.cli.interpolate import main as interpolate_main
+    from byogan_tpu_torch.cli.project import main as project_main
+    from byogan_tpu_torch.data.png import read_png
+    from byogan_tpu_torch.serve import Sampler
+
+    src, out = os.path.join(tmp, "wspace_in"), os.path.join(tmp, "wspace_out")
+    Sampler(final, batch=2, seed=3, use_ema=True).save_stream(src, 2)
+    t0 = time.perf_counter()
+    project_main([final, os.path.join(src, "image_1.png"), os.path.join(src, "image_2.png"), "-o", out,
+                  "--iters", "20", "--ema"])
+    t_project = time.perf_counter() - t0
+    require(sorted(os.listdir(out)) == ["image_1-proj.png", "image_1-w.npy", "image_2-proj.png", "image_2-w.npy"],
+            f"cli.project wrote {sorted(os.listdir(out))}")
+    require(read_png(os.path.join(out, "image_2-proj.png")).shape == (512, 512, 3), "cli.project reconstruction")
+    require(np.load(os.path.join(out, "image_1-w.npy")).shape == (512,), "cli.project w")
+    sheets = {}
+    t0 = time.perf_counter()
+    for name, extra, rows in (("proj", ["--w", os.path.join(out, "image_1-w.npy")], 1), ("random", [], 3)):
+        path = os.path.join(tmp, f"edit_{name}.png")
+        edit_main([final, "-o", path, "--ema"] + extra)
+        sheets[name] = read_png(path).shape
+        require(sheets[name] == (rows * 514 + 2, 7 * 514 + 2, 3), f"edit sheet {name} {sheets[name]}")
+    t_edit = time.perf_counter() - t0
+    frames = os.path.join(tmp, "walk")
+    t0 = time.perf_counter()
+    interpolate_main([final, "-o", frames, "-n", "3", "-p", "5", "--ema", "--w-space"])
+    t_walk = time.perf_counter() - t0
+    names = sorted(os.listdir(frames), key=lambda f: int(f[6:-4]))
+    require(names == [f"image_{e}.png" for e in range(1, 11)], f"cli.interpolate wrote {names}")
+    shape = read_png(os.path.join(frames, "image_10.png")).shape
+    require(shape == (512, 512, 3), f"walk frame {shape}")
+    print(f"wspace cli: project 2 PNGs of save_stream, 20 iterations -> {sorted(os.listdir(out))} in "
+          f"{t_project:.2f} s; edit sheets --w (1x7) {sheets['proj']}, random 3x7 {sheets['random']} in "
+          f"{t_edit:.2f} s; interpolate -n 3 -p 5 --ema --w-space: 10 frames {shape} in {t_walk:.2f} s")
+
+
+def evaluate_on_card(tmp, final):
+    """cli.evaluate --metric both -n 24 on the synthetic 512 px images: the
+    JSON line's schema; then its parts timed alone (sampling, SWD, MS-SSIM)
+    and SWD and MS-SSIM on the card against the CPU on the same images and
+    draws (TF32 off, and under PyTorch's defaults)."""
+    import io
+
+    from byogan_tpu_torch.cli.evaluate import main as evaluate_main
+    from byogan_tpu_torch.data.pipeline import open_stage_dataset
+    from byogan_tpu_torch.eval.msssim import msssim_diversity
+    from byogan_tpu_torch.eval.swd import LevelDraws, level_draws, sliced_wasserstein_distance
+    from byogan_tpu_torch.serve import Sampler
+
+    data = os.path.join(tmp, "data")  # written by train_through_cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        evaluate_main([final, data, "--metric", "both", "-n", "24", "--ema"])
+    t_cli = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    out = json.loads(line)
+    require(list(out) == EVALUATE_KEYS, f"evaluate keys {list(out)}")
+    require(list(out["per_level"]) == ["512", "256", "128", "64", "32", "16"], f"per_level {out['per_level']}")
+    require(list(out["msssim_diversity"]) == ["fake", "real", "real_n"] and out["msssim_diversity"]["real_n"] == 24,
+            f"msssim_diversity {out['msssim_diversity']}")
+    require(out["resolution"] == 512 and not out["resampled"] and math.isfinite(out["mean"]), f"evaluate {out}")
+    print(f"evaluate: cli.evaluate --metric both -n 24 --ema in {t_cli:.2f} s: {line}")
+
+    s = Sampler(final, batch=24, seed=0, use_ema=True)
+    real = torch.from_numpy(open_stage_dataset(data, 8).get_batch_uint8(np.arange(24))).cuda()
+    s.sample_float(24)  # warm-up
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fake = torch.from_numpy(s.sample_float(24)).cuda()
+    torch.cuda.synchronize()
+    parts["sampling 24 (bf16, incl. fetch and upload)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sliced_wasserstein_distance(real, fake, torch.Generator(device="cuda").manual_seed(0))
+    parts["SWD 6 levels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _ = float(msssim_diversity(fake)), float(msssim_diversity(real))
+    parts["MS-SSIM fake + real"] = time.perf_counter() - t0
+    print("time evaluate parts at 512 px, n 24 (host clock, each ends in a fetch): "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in parts.items()) + f" {math_flags()}")
+
+    cpu = torch.Generator().manual_seed(5)
+    draws = [level_draws(cpu, 24, 512 >> i) for i in range(6)]
+    on_card = [LevelDraws(tuple(t.cuda() for t in d.real_sites), tuple(t.cuda() for t in d.fake_sites),
+                          d.directions.cuda()) for d in draws]
+    want_swd = sliced_wasserstein_distance(real.cpu(), fake.cpu(), draws=draws)
+    want_ms = (float(msssim_diversity(fake.cpu())), float(msssim_diversity(real.cpu())))
+    worst = {}
+    for flags, ctx in (("TF32 off", strict_f32), ("PyTorch defaults", contextlib.nullcontext)):
+        with ctx():
+            got_swd = sliced_wasserstein_distance(real, fake, draws=on_card)
+            got_ms = (float(msssim_diversity(fake)), float(msssim_diversity(real)))
+        swd_err = max(abs(got_swd[k] - want_swd[k]) / abs(want_swd[k]) for k in want_swd)
+        ms_err = max(abs(a - b) for a, b in zip(got_ms, want_ms))
+        worst[flags] = (swd_err, ms_err)
+        print(f"evaluate card vs CPU, same images and draws, {flags} {math_flags()}: SWD per level max rel err "
+              f"{swd_err:.2e} (tol {SWD_TOL}; card mean {got_swd[0]:.4f}, CPU {want_swd[0]:.4f}); MS-SSIM "
+              f"diversity fake/real max abs err {ms_err:.2e} (tol {MSSSIM_TOL}; card {got_ms}, CPU {want_ms})")
+    swd_err, ms_err = worst["TF32 off"]
+    require(swd_err <= SWD_TOL and ms_err <= MSSSIM_TOL, "SWD or MS-SSIM on the card disagrees with the CPU")
+    return worst
+
+
+EVAL_CONFIG = (
+    "[evalrun]\n"
+    "data = {data}\n"
+    "epoch_progression = 1,1,1,1,1,1,1,2\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "ema_beta = 0.999\nstyle_mix_prob = 0.9\n"
+    "eval_step = {eval_step}\neval_images = 16\n"
+    "checkpoint_dir = {tmp}/{name}_ck\noutput_dir = {tmp}/{name}_out\n"
+)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside,
+    the previous setting restored after.  By default cuDNN may pick
+    algorithms whose sums run in no fixed order, so two identical training
+    runs need not end in equal bits; with this on, they do."""
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def train_with_eval(tmp, final):
+    """Stage 8 through the training CLI from the slice's FINAL.pth, one
+    more epoch (iterations 17-20) with ``eval_step = 2`` and ``eval_images
+    = 16``, then the same run with ``eval_step = 0``: the eval records'
+    keys, the time one eval adds, the training generator's RNG state (the
+    eval draws nothing from it) and the final weights of the two runs, bit
+    for bit, with deterministic algorithms.  Where they differ, a second
+    run without eval shows whether the card's own run-to-run differences
+    account for it."""
+    from byogan_tpu_torch.cli.main import main as train_main
+    from byogan_tpu_torch.train import loop
+    from byogan_tpu_torch.train.metrics import read_metrics
+
+    data = os.path.join(tmp, "data")
+    eval_ms = []
+    real_log_eval = loop.log_eval
+
+    def timed_log_eval(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_log_eval(*args)
+        torch.cuda.synchronize()
+        eval_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def run(name, eval_step):
+        cfg = os.path.join(tmp, f"{name}.txt")
+        with open(cfg, "w") as f:
+            f.write(EVAL_CONFIG.format(data=data, eval_step=eval_step, name=name, tmp=tmp))
+        t0 = time.perf_counter()
+        with mock.patch.object(loop, "log_eval", timed_log_eval), deterministic_algorithms():
+            state = train_main(["evalrun", "--config-file", cfg, "-c", final, "--force-resume"])
+        torch.cuda.synchronize()
+        require(state.iters == 20, f"{name}: ended at iteration {state.iters}")
+        print(f"train eval: {name}, stage 8, iterations 17-20, eval_step {eval_step}: {time.perf_counter() - t0:.2f} s")
+        weights = {}
+        for net in ("gen", "gen_ema", "critic"):
+            for k, v in getattr(state, net).state_dict().items():
+                weights[f"{net}.{k}"] = v.detach().clone()
+        return weights, state.rng.get_state()
+
+    with_eval, rng_eval = run("with_eval", 2)
+    evals = read_metrics(os.path.join(tmp, "with_eval_out", "metrics.jsonl"), kind="eval")
+    require([(r["iter"], r["stage"]) for r in evals] == [(18, 8), (20, 8)], f"eval records {evals}")
+    for r in evals:
+        require(list(r) == EVAL_KEYS, f"eval record keys {list(r)}")
+        require(all(math.isfinite(r[k]) for k in EVAL_KEYS[3:]), f"eval record {r}")
+    print(f"train eval: records {evals}; one eval at stage 8 (16 images; SWD and MS-SSIM of the generator and of "
+          f"its EMA) took {', '.join(f'{t:.1f}' for t in eval_ms)} ms (host clock, synchronised) {math_flags()}")
+    without, rng_plain = run("without_eval", 0)
+    require(torch.equal(rng_eval, rng_plain), "the eval changed the training generator's RNG state")
+    diff = lambda a, b: max(float((a[k].float() - b[k].float()).abs().max()) for k in a)  # noqa: E731
+    cross = diff(with_eval, without)
+    if cross == 0.0:
+        print("train eval: final generator, EMA and critic weights bit-equal with eval_step 2 and 0 (deterministic "
+              "algorithms on); the training RNG state equal")
+        return evals, eval_ms, 0.0, None
+    again, _ = run("without_eval_again", 0)
+    own = diff(without, again)
+    print(f"train eval: weights with and without eval differ by at most {cross:.3e}; two runs without eval differ "
+          f"by {own:.3e} (the card's run-to-run difference); the training RNG state equal")
+    require(own > 0.0, "two runs without eval are bit-equal, but the run with eval differs from them")
+    return evals, eval_ms, cross, own
+
+
+def wspace_times(final):
+    """Milliseconds per projection iteration at 512 px, bf16 (CUDA events
+    around project(25) and project(5), the difference over 20), batch 1 and
+    4, W and W+; then one iteration at batch 1 by torch.profiler (the same
+    difference): the card's time by kernel, K1's, K2's and K3's shares, and
+    the host's self time by op."""
+    from byogan_tpu_torch.projector import project
+
+    rows = []
+    for batch in (1, 4):
+        s, target, _ = projection_setup(final, batch, "bfloat16")
+        w0 = s.mean_w().expand(batch, -1)
+        for w_plus in (False, True):
+            w_init = w0[:, None, :].expand(batch, 8, -1) if w_plus else w0
+            run = lambda n: project(s.generator, target, 8, s.z_dim, n_iters=n, w_init=w_init, w_plus=w_plus)  # noqa: E731
+            run(5)
+            ms = {}
+            for n in (5, 25):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(n)
+                end.record()
+                torch.cuda.synchronize()
+                ms[n] = start.elapsed_time(end)
+            rows.append((batch, "W+" if w_plus else "W", (ms[25] - ms[5]) / 20))
+    print("time project iteration at 512 px bf16 (CUDA events, (project(25) - project(5)) / 20): "
+          + "; ".join(f"batch {b} {m} {t:.3f} ms" for b, m, t in rows) + f" {math_flags()}")
+    s, target, _ = projection_setup(final, 1, "bfloat16")
+    w0 = s.mean_w().expand(1, -1)
+    run = lambda n: project(s.generator, target, 8, s.z_dim, n_iters=n, w_init=w0)  # noqa: E731
+    traces = [profile_totals(lambda n=n: run(n)) for n in (2, 6)]
+    names = set(traces[0][0]) | set(traces[1][0])
+    per = {k: (traces[1][0].get(k, (0, 0.0))[1] - traces[0][0].get(k, (0, 0.0))[1]) / 4 for k in names}
+    launched = {k: (traces[1][0].get(k, (0, 0.0))[0] - traces[0][0].get(k, (0, 0.0))[0]) / 4 for k in names}
+    groups = {"K1": ("conv3x3", "finalize_moments", "affine_apply"), "K2": ("adain",),
+              "K3": ("epilogue_sums", "epilogue_apply", "sum_tiles")}
+    busy = sum(per.values())
+    share = {g: sum(v for k, v in per.items() if any(p in k for p in pats)) for g, pats in groups.items()}
+    recorded = {g: launched.get(k, 0.0) for g, k in (("K1", "conv3x3_mma"), ("K3", "epilogue_sums"))}
+    recorded["K2"] = sum(v for k, v in launched.items() if "adain" in k)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    host = {k: (traces[1][1].get(k, 0.0) - traces[0][1].get(k, 0.0)) / 4 for k in set(traces[0][1]) | set(traces[1][1])}
+    host_top = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    print(f"time project iteration, batch 1 W (profiler, (project(6) - project(2)) / 4): card busy {busy:.3f} ms in "
+          f"{sum(launched.values()):.0f} kernels; " + ", ".join(f"{g} {v:.4f} ms ({100 * v / busy:.1f}%)" for g, v in share.items())
+          + f"; recorded a iteration: K1 conv3x3_mma {recorded['K1']:.2f}, K2 {recorded['K2']:.2f}, K3 epilogue_sums "
+          f"{recorded['K3']:.2f} (15, 1, 16 launched; fewer: the profiler dropped records); largest: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in top) + "; host self CPU ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host_top) + f" {math_flags()}")
+    return rows, (busy, share)
+
+
+def profile_totals(fn):
+    """One traced fn() after a warm-up call: per kernel on the card (short
+    name as in ``cardcheck.KERNELS``) its launches and ms, and per host op
+    its self CPU ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from byogan_tpu_torch.ops.cardcheck import KERNELS
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    card, host = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):  # a range over kernels, not one
+                continue
+            name = next((k for k in KERNELS if k in e.name), e.name[:30])
+            count, ms = card.get(name, (0, 0.0))
+            card[name] = (count + 1, ms + e.device_time_total / 1e3)
+        elif e.self_cpu_time_total > 0:
+            host[e.name[:40]] = host.get(e.name[:40], 0.0) + e.self_cpu_time_total / 1e3
+    return card, host
+
+
 def main() -> int:
     # Phase 1: the card.
     require(torch.cuda.is_available(), "no CUDA device")
@@ -1057,6 +1511,20 @@ def main() -> int:
         slice_times(gen)
         slice_sample = slice_sampling(tmp, final)
 
+        # Phases 13-16: the W-space and eval slice on FINAL.pth's EMA
+        # weights: projections (counting launches per iteration), the
+        # projection gradient kernel vs plain path, the four CLIs, SWD and
+        # MS-SSIM card vs CPU, training with the periodic eval, timings.
+        project_launches, project_ratio = project_on_card(final, False, PROJECT_ITERS, PROJECT_BAR)
+        _, wplus_ratio = project_on_card(final, True, WPLUS_ITERS, WPLUS_BAR)
+        small_ratio = project_small_on_card()
+        with strict_f32():
+            project_grad = project_grad_kernel_vs_plain(final)
+        wspace_clis(tmp, final)
+        eval_errs = evaluate_on_card(tmp, final)
+        train_with_eval(tmp, final)
+        wspace_times(final)
+
     kernels = [
         {
             "name": "styleconv", "route": "cuda",
@@ -1072,6 +1540,7 @@ def main() -> int:
             "launches_train": train_launches["styleconv"],
             "launches_slice_train": slice_train["styleconv"],
             "launches_slice_sample": slice_sample["styleconv"],
+            "launches_project_per_iteration": project_launches["styleconv"],
             "max_abs_err_train": train_errs[torch.bfloat16]["fwd"],
             "with_stats": {**k1s, "bound_by": k1s_by, "library_ms": None,
                            "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
@@ -1093,6 +1562,7 @@ def main() -> int:
             "launches_train": train_launches["adain"],
             "launches_slice_train": slice_train["adain"],
             "launches_slice_sample": slice_sample["adain"],
+            "launches_project_per_iteration": project_launches["adain"],
         },
         {
             "name": "styleconv_bwd", "route": "cuda",
@@ -1100,6 +1570,7 @@ def main() -> int:
             "replaces": "byogan_tpu/ops/pallas_styleconv.py:266",
             "launches": train_launches["styleconv_bwd"],
             "launches_slice_train": slice_train["styleconv_bwd"],
+            "launches_project_per_iteration": project_launches["styleconv_bwd"],
             "max_abs_err": train_errs[torch.bfloat16]["k3"],
             "max_abs_err_f32": train_errs[torch.float32]["k3"],
             **k3, "bound_by": k3_by,
@@ -1108,6 +1579,10 @@ def main() -> int:
         },
     ]
     print(f"train: stage-8 iteration {it_ms:.3f} ms; CLI run {train_wall:.2f} s")
+    print(f"wspace: project last/first loss W {project_ratio:.4f} (bar {PROJECT_BAR}), W+ {wplus_ratio:.4f} "
+          f"(bar {WPLUS_BAR}), the JAX test's model {small_ratio:.4f} (bar {SMALL_BAR}); dL/dw kernel vs plain "
+          f"relative L2 {project_grad[0]:.3e}, max {project_grad[1]:.3e}; SWD, MS-SSIM card vs CPU (TF32 off) "
+          f"{eval_errs['TF32 off']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -316,3 +316,94 @@ def test_mixed_style_step_kernel_path_matches_plain_path(cuda_device):
         d = (gk[n] - w).double()
         assert float(d.norm() / w.double().norm()) <= l2_tol, n
         assert float(d.abs().max() / w.abs().max()) <= max_tol, n
+
+
+# -- the W-space and eval slice ----------------------------------------------
+
+# One projection iteration's dL/dw, kernel path vs plain path, relative L2
+# and max over max.  f32: the step tolerance above (16 convs and instance
+# norms compound f32 rounding; LeakyReLU's kink takes near-zero elements to
+# different branches).  bf16: the kernel path rounds dpre and dx to bf16 in
+# every conv's backward, as JAX's custom_vjp does, where plain autograd keeps
+# f32 inside each conv: about 2^-8 per layer over the 9 layers of 5 stages.
+PROJECT_GRAD_TOL = {"float32": STEP_GRAD_TOL, "bfloat16": (5e-2, 1e-1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_projection_gradient_kernel_path_matches_plain_path(cuda_device, dtype):
+    from unittest import mock
+
+    from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+    from byogan_tpu_torch.models import layers
+    from byogan_tpu_torch.models.factory import ModelSpec, build_generator
+    from byogan_tpu_torch.projector import projection_loss
+
+    steps = 5  # 64 px, every K1 route and K2
+    gen = build_generator(
+        ModelSpec(num_stages=steps, channel_divisor=4), dtype=DTYPES[dtype], generator=torch.Generator().manual_seed(0)
+    )
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if "inject_noise" in name:
+                p.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(len(name)))
+    gen.to(cuda_device).requires_grad_(False)
+    rng = torch.Generator(device=cuda_device).manual_seed(1)
+    noise = synthesis_noise(rng, 2, steps)
+    with torch.no_grad():
+        w0 = gen.map_latent(truncated_noise(rng, 2, gen.z_dim)).float()
+    target = torch.rand((2, 64, 64, 3), generator=rng, device=cuda_device) * 2 - 1
+    out = {}
+    for path in ("kernel", "plain"):
+        w = w0.clone().requires_grad_(True)
+        launches = (styleconv_cuda.launches, noise_lrelu_adain_cuda.launches, styleconv_backward_cuda.launches)
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                stack.enter_context(mock.patch.object(layers, "styleconv", styleconv_plain))
+                stack.enter_context(mock.patch.object(layers, "noise_lrelu_adain", noise_lrelu_adain_plain))
+            loss = projection_loss(gen, w, target, noise, steps, alpha=0.5)
+            (g,) = torch.autograd.grad(loss, w)
+        torch.cuda.synchronize()
+        got = tuple(f.launches - b for f, b in zip((styleconv_cuda, noise_lrelu_adain_cuda, styleconv_backward_cuda), launches))
+        assert got == ((9, 1, 10) if path == "kernel" else (0, 0, 0)), got
+        out[path] = (loss.detach(), g)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    l2_tol, max_tol = PROJECT_GRAD_TOL[dtype]
+    assert_rel(lk, lp, 2e-3 if dtype == "float32" else 2e-2, "loss")
+    d = (gk - gp).double()
+    assert float(d.norm() / gp.double().norm()) <= l2_tol
+    assert float(d.abs().max() / gp.abs().max()) <= max_tol
+
+
+def _smooth_images(seed, n, size):
+    """Colour fields plus noise in [-1, 1], on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(size) / size, torch.arange(size) / size, indexing="ij")
+    phase = torch.rand((n, 1, 1, 3), generator=g) * 6.28
+    img = 0.6 * torch.sin(5 * xx[None, :, :, None] + phase) * torch.cos(4 * yy[None, :, :, None] + phase)
+    return (img + 0.2 * torch.randn((n, size, size, 3), generator=g)).clamp(-1, 1)
+
+
+@pytest.mark.cuda
+def test_swd_and_msssim_on_the_card_match_the_cpu(cuda_device):
+    """The same images and draws on both devices: SWD per level within 1e-4
+    relative, MS-SSIM within 1e-4 (f32 sums in another order)."""
+    from byogan_tpu_torch.eval.msssim import msssim, msssim_diversity
+    from byogan_tpu_torch.eval.swd import LevelDraws, level_draws, sliced_wasserstein_distance
+
+    fake = _smooth_images(0, 8, 64)
+    real = ((_smooth_images(1, 8, 64) + 1) * 127.5).round().to(torch.uint8)
+    g = torch.Generator().manual_seed(2)
+    draws = [level_draws(g, 8, 64 >> i, patches_per_image=32, dirs_per_repeat=64) for i in range(3)]
+    card = [LevelDraws(tuple(t.to(cuda_device) for t in d.real_sites), tuple(t.to(cuda_device) for t in d.fake_sites),
+                       d.directions.to(cuda_device)) for d in draws]
+    kw = dict(patches_per_image=32, dirs_per_repeat=64)
+    want = sliced_wasserstein_distance(real, fake, draws=draws, **kw)
+    got = sliced_wasserstein_distance(real.to(cuda_device), fake.to(cuda_device), draws=card, **kw)
+    assert list(got) == list(want) == [64, 32, 16, 0]
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), (k, got[k], want[k])
+    b = (0.7 * fake + 0.3 * _smooth_images(3, 8, 64))
+    torch.testing.assert_close(msssim(fake.to(cuda_device), b.to(cuda_device)).cpu(), msssim(fake, b), atol=1e-4, rtol=0)
+    for images in (fake, real):
+        assert abs(float(msssim_diversity(images.to(cuda_device))) - float(msssim_diversity(images))) <= 1e-4

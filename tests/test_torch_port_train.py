@@ -397,9 +397,8 @@ def test_config_parity_on_the_example_file():
     load_ini_config(path, "ffhq-tpu-tuned")
     with pytest.raises(ValueError) as err:
         port_load_ini(path, "ffhq-tpu-tuned")
-    for knob in ("remat_progression", "eval_step"):
-        assert knob in str(err.value)
-    for ported in ("ema_beta", "style_mix_prob"):  # ported: parsed, not refused
+    assert "remat_progression" in str(err.value)
+    for ported in ("ema_beta", "style_mix_prob", "eval_step"):  # ported: parsed, not refused
         assert ported not in str(err.value)
 
 
