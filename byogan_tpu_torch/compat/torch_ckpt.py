@@ -128,8 +128,9 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     present), iter, im_count, step, epoch, alpha, and model (a ModelSpec
     dict, or None for the reference architecture).  A checkpoint the port's
     trainer wrote also carries gen_opt, critic_opt and rng, passed on as
-    they are, and may carry gen_ema (the EMA generator's state dict) and
-    train_config (the trajectory knobs it was trained with)."""
+    they are, and may carry gen_ema (the EMA generator's state dict),
+    aug_p, rt_ema and pl_ema (the regularizers' scalars) and train_config
+    (the trajectory knobs it was trained with)."""
     save = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {
         "iter": int(save.get("iter", 0)),
@@ -142,7 +143,7 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     for net in ("gen", "critic", "gen_ema"):
         if net in save:
             out[net] = strip_module_prefix(save[net])
-    for extra in ("gen_opt", "critic_opt", "rng", "train_config"):
+    for extra in ("gen_opt", "critic_opt", "rng", "train_config", "aug_p", "rt_ema", "pl_ema"):
         if extra in save:
             out[extra] = save[extra]
     return out

@@ -1,5 +1,7 @@
 """What the card checks share: the shapes and forced tile plans they hold K1
-to, the card's time by kernel and per call, and the host's time per call.
+to, the card's time by kernel and per call, the host's time per call, and
+the second derivatives that path-length regularization takes through the
+autograd Functions.
 
 ``tests/test_torch_port_cuda.py``, ``chip_smoke.py`` and ``tile_sweep``
 use these; nothing on the port's paths does.
@@ -126,3 +128,22 @@ def host_us(fn, calls: int = 100) -> float:
     us = 1e6 * (time.perf_counter() - t0) / calls
     torch.cuda.synchronize()
     return us
+
+
+def second_derivatives(fn, ins: dict, seed: int):
+    """First and second derivatives of ``fn(*ins.values())``, an epilogue
+    (a Function or its plain version): the VJP of a seeded dy (in the
+    output's dtype) with ``create_graph``, then the gradient of its inner
+    product with seeded directions with respect to dy and to every input
+    but ``noise`` (a draw).  Returns (firsts, seconds), zeros where an
+    input does not reach a second derivative (beta enters linearly)."""
+    dev = next(iter(ins.values())).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = [t.clone().requires_grad_(k != "noise") for k, t in ins.items()]
+    out = fn(*leaves)
+    dy = torch.randn(out.shape, generator=g, device=dev).to(out.dtype).requires_grad_(True)
+    wanted = [t for t in leaves if t.requires_grad]
+    firsts = torch.autograd.grad(out, wanted, dy, create_graph=True)
+    inner = sum((f.float() * torch.randn(f.shape, generator=g, device=dev)).sum() for f in firsts)
+    seconds = torch.autograd.grad(inner, [dy] + wanted, allow_unused=True)
+    return [f.detach() for f in firsts], [torch.zeros_like(t) if s is None else s for s, t in zip(seconds, [dy] + wanted)]

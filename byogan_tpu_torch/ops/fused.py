@@ -6,6 +6,9 @@ on the tensor's device: the plain version on the CPU, the hand-written K2
 kernel (``ops/adain.py``) on CUDA.  When an input wants a gradient it goes
 through ``NoiseLReLUAdaINFunction``, whose backward is K3
 (``ops/styleconv_bwd.py``); JAX differentiates the lax epilogue instead.
+Under ``create_graph`` that backward is ``NoiseLReLUAdaINBackwardFunction``,
+whose own backward, the second derivative, is autograd of the plain
+epilogue recomputed from the primal inputs.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Tuple, Union
 import torch
 from torch.autograd.function import once_differentiable
 
-from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward
+from byogan_tpu_torch.ops.styleconv_bwd import at_inputs, epilogue_double_backward, styleconv_backward
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -58,11 +61,22 @@ def noise_lrelu_adain_plain(
     return out, hv, mean, torch.rsqrt(var + eps)
 
 
+def _epilogue_grads(dy, need, noise, noise_w, gamma, hv, mean, inv) -> tuple:
+    """K3 (the plain version on a CPU tensor): grads of (x, noise, noise_w,
+    gamma, beta), None where ``need`` says nobody wants one.  dx is K3's
+    dpre; the caller's broadcast of the learned const sums it over the
+    batch."""
+    g = styleconv_backward(dy.contiguous(), hv, mean, inv, gamma, noise, noise_w)
+    grads = (g.dpre, g.dnoise, g.dnoise_w, g.dgamma, g.dbeta)
+    return tuple(t if want else None for t, want in zip(grads, need))
+
+
 class NoiseLReLUAdaINFunction(torch.autograd.Function):
     """The differentiable epilogue of the initial 4x4 block: K2 with its
     residuals forward, K3 backward (the plain versions on a CPU tensor).
-    dx is K3's dpre; the caller's broadcast of the learned const sums it
-    over the batch.  No second derivative."""
+    Under ``create_graph`` the backward is
+    ``NoiseLReLUAdaINBackwardFunction``, which runs the same code and has a
+    second derivative."""
 
     @staticmethod
     def forward(ctx, x, noise, noise_w, gamma, beta, eps):
@@ -71,18 +85,48 @@ class NoiseLReLUAdaINFunction(torch.autograd.Function):
         else:
             from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda as fwd
         out, hv, mean, inv = fwd(x, noise, noise_w, gamma, beta, eps, with_stats=True)
-        ctx.save_for_backward(noise, noise_w, gamma, hv, mean, inv)
+        ctx.save_for_backward(x, noise, noise_w, gamma, beta, hv, mean, inv)
+        ctx.eps = eps
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        noise, noise_w, gamma, hv, mean, inv = ctx.saved_tensors
-        g = styleconv_backward(dy.contiguous(), hv, mean, inv, gamma, noise, noise_w)
-        grads = (g.dpre, g.dnoise, g.dnoise_w, g.dgamma, g.dbeta)
-        return tuple(
-            t if want else None for t, want in zip(grads, ctx.needs_input_grad)
-        ) + (None,)
+        x, noise, noise_w, gamma, beta, hv, mean, inv = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        if torch.is_grad_enabled():  # create_graph: a second derivative may follow
+            out = NoiseLReLUAdaINBackwardFunction.apply(
+                dy, need, ctx.eps, hv, mean, inv, x, noise, noise_w, gamma, beta
+            )
+            return at_inputs(out, need) + (None,)
+        return _epilogue_grads(dy, need, noise, noise_w, gamma, hv, mean, inv) + (None,)
+
+
+class NoiseLReLUAdaINBackwardFunction(torch.autograd.Function):
+    """``NoiseLReLUAdaINFunction``'s backward as a Function of dy and the
+    primal inputs (x, noise, noise_w, gamma, beta).  Forward: K3 from the
+    forward's residuals, the wanted grads only.  Backward, the second
+    derivative: ``epilogue_double_backward`` of
+    ``noise_lrelu_adain_plain`` recomputed from the primal inputs (its
+    LeakyReLU branch agrees with K2's: both round the pre-activation in x's
+    dtype)."""
+
+    @staticmethod
+    def forward(ctx, dy, need, eps, hv, mean, inv, *primals):
+        _, noise, noise_w, gamma, _ = primals
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dy, *primals)
+        ctx.need, ctx.eps = need, eps
+        grads = _epilogue_grads(dy, need, noise, noise_w, gamma, hv, mean, inv)
+        return tuple(g for g in grads if g is not None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cotangents):
+        dy, *primals = ctx.saved_tensors
+        plain = lambda *p: noise_lrelu_adain_plain(*p, ctx.eps)  # noqa: E731
+        wants = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[6:]
+        got = epilogue_double_backward(plain, dy, primals, at_inputs(cotangents, ctx.need), wants)
+        return (got[0], None, None, None, None, None) + got[1:]
 
 
 def noise_lrelu_adain(

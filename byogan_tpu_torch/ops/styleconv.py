@@ -13,8 +13,12 @@ through ``StyleConvFunction``, the port of the custom_vjp ``styleconv``
 (``with_stats``: the f32 pre-norm activations hv, as the TPU kernel's
 ``emit_hv`` variant does in x's dtype, and the per-(sample, channel) mean
 and inv), the backward is K3 (``ops/styleconv_bwd.py``) followed by cuDNN's
-conv transposes, as JAX leaves them to XLA.  On a CPU tensor the same
-Function runs with the plain versions inside.
+conv transposes, as JAX leaves them to XLA.  A backward taken with
+``create_graph`` (path-length regularization's inner gradient) runs the
+same code as ``StyleConvBackwardFunction``, whose backward is the second
+derivative: autograd of ``styleconv_plain`` recomputed from the primal
+inputs, as ``jax.grad`` differentiates the lax path twice.  On a CPU
+tensor the same Functions run with the plain versions inside.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 
 from byogan_tpu_torch.ops import build
 from byogan_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_input, check_tensor
-from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward
+from byogan_tpu_torch.ops.styleconv_bwd import at_inputs, epilogue_double_backward, styleconv_backward
 
 #: (out, hv, mean, inv): the forward's output and the backward's residuals
 WithStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -247,16 +251,32 @@ def styleconv_cuda(
 styleconv_cuda.launches = 0
 
 
+def _styleconv_grads(dy, need, x, weight, noise, noise_w, gamma, hv, mean, inv) -> tuple:
+    """The synthesis conv's backward: K3 (the plain version on a CPU
+    tensor) for the epilogue, then ``conv2d_input`` and ``conv2d_weight``
+    for dx and dweight.  Grads of (x, weight, bias, noise, noise_w, gamma,
+    beta) in each input's own layout and dtype (weight HWIO, bias and
+    noise_w f32), None where ``need`` says nobody wants one."""
+    g = styleconv_backward(dy.contiguous(), hv, mean, inv, gamma, noise, noise_w)
+    dx = dweight = None
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1)
+    dpre = g.dpre.permute(0, 3, 1, 2)
+    if need[0]:
+        dx = conv2d_input(x_nchw.shape, w_oihw, dpre, padding=1).permute(0, 2, 3, 1)
+    if need[1]:
+        dweight = conv2d_weight(x_nchw, w_oihw.shape, dpre, padding=1).permute(2, 3, 1, 0)
+    grads = (g.dbias, g.dnoise, g.dnoise_w, g.dgamma, g.dbeta)
+    return (dx, dweight) + tuple(t if want else None for t, want in zip(grads, need[2:]))
+
+
 class StyleConvFunction(torch.autograd.Function):
     """The differentiable synthesis conv (the custom_vjp ``styleconv``).
 
     Forward: K1 with its residuals (the plain version on a CPU tensor).
-    Backward: K3 for the epilogue, then ``conv2d_input`` and
-    ``conv2d_weight`` for dx and dweight.  Grads come back in each input's
-    own layout and dtype (weight HWIO, bias and noise_w f32); what
-    ``needs_input_grad`` says nobody wants is not computed.  There is no
-    second derivative: path-length regularization, which needs one, is not
-    ported.
+    Backward: ``_styleconv_grads`` (K3, then cuDNN's conv transposes);
+    what ``needs_input_grad`` says nobody wants is not computed.  Under
+    ``create_graph`` the backward is ``StyleConvBackwardFunction``, which
+    runs the same code and has a second derivative.
     """
 
     @staticmethod
@@ -265,26 +285,51 @@ class StyleConvFunction(torch.autograd.Function):
         out, hv, mean, inv = fwd(
             x, weight, bias, noise, noise_w, gamma, beta, eps, with_stats=True
         )
-        ctx.save_for_backward(x, weight, noise, noise_w, gamma, hv, mean, inv)
+        ctx.save_for_backward(x, weight, bias, noise, noise_w, gamma, beta, hv, mean, inv)
+        ctx.eps = eps
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        x, weight, noise, noise_w, gamma, hv, mean, inv = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        g = styleconv_backward(dy.contiguous(), hv, mean, inv, gamma, noise, noise_w)
-        dx = dweight = None
-        x_nchw, w_oihw = x.permute(0, 3, 1, 2), weight.permute(3, 2, 0, 1)
-        dpre = g.dpre.permute(0, 3, 1, 2)
-        if need[0]:
-            dx = conv2d_input(x_nchw.shape, w_oihw, dpre, padding=1).permute(0, 2, 3, 1)
-        if need[1]:
-            dweight = conv2d_weight(x_nchw, w_oihw.shape, dpre, padding=1).permute(2, 3, 1, 0)
-        grads = (g.dbias, g.dnoise, g.dnoise_w, g.dgamma, g.dbeta)
-        return (dx, dweight) + tuple(
-            t if want else None for t, want in zip(grads, need[2:7])
-        ) + (None,)
+        x, weight, bias, noise, noise_w, gamma, beta, hv, mean, inv = ctx.saved_tensors
+        need = ctx.needs_input_grad[:7]
+        if torch.is_grad_enabled():  # create_graph: a second derivative may follow
+            out = StyleConvBackwardFunction.apply(
+                dy, need, ctx.eps, hv, mean, inv, x, weight, bias, noise, noise_w, gamma, beta
+            )
+            return at_inputs(out, need) + (None,)
+        return _styleconv_grads(dy, need, x, weight, noise, noise_w, gamma, hv, mean, inv) + (None,)
+
+
+class StyleConvBackwardFunction(torch.autograd.Function):
+    """``StyleConvFunction``'s backward as a Function of dy and the primal
+    inputs (x, weight, bias, noise, noise_w, gamma, beta), so that it can be
+    differentiated.  Forward: ``_styleconv_grads``, the same K3 launch and
+    conv transposes as the plain backward, from the forward's residuals.
+    Returns the wanted grads only.  Backward, the second derivative:
+    ``epilogue_double_backward`` of ``styleconv_plain`` recomputed from the
+    primal inputs, with LeakyReLU's branch taken from the forward's hv (the
+    first derivative's).  The residuals hide how hv depends on the inputs,
+    which is why the primal inputs come in too."""
+
+    @staticmethod
+    def forward(ctx, dy, need, eps, hv, mean, inv, *primals):
+        x, weight, _, noise, noise_w, gamma, _ = primals
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dy, hv, *primals)
+        ctx.need, ctx.eps = need, eps
+        grads = _styleconv_grads(dy, need, x, weight, noise, noise_w, gamma, hv, mean, inv)
+        return tuple(g for g in grads if g is not None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cotangents):
+        dy, hv, *primals = ctx.saved_tensors
+        positive = hv >= 0
+        plain = lambda *p: styleconv_plain(*p, ctx.eps, positive=positive)  # noqa: E731
+        wants = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[6:]
+        got = epilogue_double_backward(plain, dy, primals, at_inputs(cotangents, ctx.need), wants)
+        return (got[0], None, None, None, None, None) + got[1:]
 
 
 def styleconv(

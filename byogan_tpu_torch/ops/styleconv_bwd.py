@@ -12,12 +12,17 @@ It takes the forward's residuals: hv, the pre-norm activations in f32, and
 the per-(sample, channel) mean and inv = rsqrt(var + eps) the forward used.
 The JAX backward recomputes mean and a one-pass var from hv instead; the
 two agree to float rounding.
+
+``epilogue_double_backward`` is the backward of that backward, which
+path-length regularization needs: autograd's second derivative of a plain
+forward recomputed from the primal inputs.  JAX has no kernel for it
+(``jax.grad`` differentiates its lax path twice), so torch ops are its port.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -177,3 +182,39 @@ def styleconv_backward(
     """The epilogue's backward: plain on a CPU tensor, K3 on a CUDA one."""
     fn = styleconv_backward_plain if dy.device.type == "cpu" else styleconv_backward_cuda
     return fn(dy, hv, mean, inv, gamma, noise, noise_w)
+
+
+def at_inputs(out, need: Sequence[bool]) -> Tuple[Optional[torch.Tensor], ...]:
+    """A backward Function's outputs, the wanted grads only (a tensor or a
+    tuple), back at their inputs' positions, None elsewhere."""
+    out = iter((out,) if torch.is_tensor(out) else out)
+    return tuple(next(out) if want else None for want in need)
+
+
+def epilogue_double_backward(
+    plain: Callable[..., torch.Tensor],
+    dy: torch.Tensor,
+    primals: Sequence[torch.Tensor],
+    cotangents: Sequence[Optional[torch.Tensor]],
+    wants: Sequence[bool],
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward of a backward Function ``(dy, *primals) -> J^T dy``,
+    where J is the Jacobian of ``plain(*primals)``: given the cotangents of
+    J^T dy (None where its consumer took none), the gradients with respect
+    to dy and to each primal, where ``wants`` (one flag for dy, then one
+    per primal) asks.  ``plain`` is recomputed under ``enable_grad``, its
+    VJP taken with ``create_graph``, and that VJP's inner product with the
+    cotangents differentiated: d/d dy gives J v, d/d primals the
+    second-order terms.  The result carries no graph (no third derivative)."""
+    pairs = [(i, c) for i, c in enumerate(cotangents) if c is not None]
+    if not pairs or not any(wants):
+        return (None,) * len(wants)
+    with torch.enable_grad():
+        dy_ = dy.detach().requires_grad_(True)
+        leaves = [p.detach().requires_grad_(True) for p in primals]
+        out = plain(*leaves)
+        firsts = torch.autograd.grad(out, [leaves[i] for i, _ in pairs], dy_, create_graph=True)
+        inner = sum((f.float() * c.float()).sum() for f, (_, c) in zip(firsts, pairs))
+        targets = [t for t, want in zip([dy_] + leaves, wants) if want]
+        got = iter(torch.autograd.grad(inner, targets, allow_unused=True))
+    return tuple(next(got) if want else None for want in wants)

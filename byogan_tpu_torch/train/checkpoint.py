@@ -6,8 +6,9 @@ im_count, step, epoch, alpha} under the reference's state-dict names, so
 the reference and ``byogan_tpu.train.checkpoint.load_checkpoint`` read it,
 plus what an exact resume needs: ``model`` (the ModelSpec), both optimizer
 states, the generator RNG's state, ``gen_ema`` (the EMA generator, when the
-run has one) and ``train_config`` (the knobs that steer the trajectory,
-checked on resume).  Files are ``chk-{iters}.pth`` and ``FINAL.pth``,
+run has one), the regularizers' scalars ``aug_p``, ``rt_ema`` and
+``pl_ema`` (floats, when the run has them) and ``train_config`` (the knobs
+that steer the trajectory, checked on resume).  Files are ``chk-{iters}.pth`` and ``FINAL.pth``,
 written atomically.
 
 The JAX package's own checkpoints are orbax directories, which need JAX to
@@ -45,6 +46,11 @@ TRAJECTORY_KEYS = (
     "plr_interval",
     "compute_dtype",
 )
+
+
+#: The regularizers' scalars a checkpoint carries when the state has them
+#: (byogan_tpu/train/checkpoint.py:156-161).
+REGULARIZER_KEYS = ("aug_p", "rt_ema", "pl_ema")
 
 
 def trajectory_snapshot(config) -> Dict[str, Any]:
@@ -118,6 +124,9 @@ def save_checkpoint(
     }
     if state.gen_ema is not None:
         save["gen_ema"] = state.gen_ema.state_dict()
+    for key in REGULARIZER_KEYS:
+        if getattr(state, key) is not None:
+            save[key] = float(getattr(state, key))
     tmp = path + ".tmp"
     torch.save(save, tmp)
     os.replace(tmp, path)
@@ -161,13 +170,20 @@ def restore_train_state(
     With ``config``, its trajectory knobs are checked against the
     checkpoint's (``check_resume_config``).  A run with EMA takes the
     checkpoint's EMA generator, or a copy of its generator where it has
-    none (byogan_tpu/train/checkpoint.py:409-417)."""
+    none (byogan_tpu/train/checkpoint.py:409-417).  A run with
+    augmentation, ADA or path-length regularization continues from the
+    checkpoint's ``aug_p``, ``rt_ema`` and ``pl_ema``; a checkpoint written
+    without them leaves the state's (``aug_p`` from the config, the others
+    0), as JAX does (checkpoint.py:419-436)."""
     loaded = load_checkpoint(path)
     check_resume_config(loaded.get("train_config"), config, allow_mismatch)
     state.gen.load_state_dict(loaded["gen"], strict=True)
     state.critic.load_state_dict(loaded["critic"], strict=True)
     if state.gen_ema is not None:
         state.gen_ema.load_state_dict(loaded.get("gen_ema", loaded["gen"]), strict=True)
+    for key in REGULARIZER_KEYS:
+        if getattr(state, key) is not None and loaded.get(key) is not None:
+            setattr(state, key, torch.tensor(loaded[key], dtype=torch.float32, device=getattr(state, key).device))
     if "gen_opt" in loaded:
         state.gen_opt.load_state_dict(loaded["gen_opt"])
         state.critic_opt.load_state_dict(loaded["critic_opt"])

@@ -7,10 +7,13 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 ``gradient_lambda`` goes through ``int()``, ``lr`` defaults to 0.001 in
 code.  ``final_image_size`` is read by nobody.
 
-Knobs of features the port does not have yet (augmentation and ADA,
-path-length regularization, remat, a mesh) keep their fields, so a config
-file parses the same in both packages, but a value that would turn one on
-raises a ``ValueError`` that names it instead of being ignored.
+Knobs of features the port does not have yet (remat, a mesh) keep their
+fields, so a config file parses the same in both packages, but a value
+that would turn one on raises a ``ValueError`` that names it instead of
+being ignored.  The opt-in regularizers are ported: augmentation at a
+fixed ``aug_p`` or steered by the ADA controller (``ada_target``, which
+needs R1), and path-length regularization (``plr_weight``), with JAX's
+checks.
 """
 
 from __future__ import annotations
@@ -80,9 +83,6 @@ class TrainConfig:
         unported = [
             name
             for name, on in (
-                ("aug_p", self.aug_p > 0),
-                ("ada_target", self.ada_target > 0),
-                ("plr_weight", self.plr_weight > 0),
                 ("remat", self.remat),
                 ("remat_progression", any(self.remat_progression or ())),
                 ("data_axis", self.data_axis > 1),
@@ -97,10 +97,26 @@ class TrainConfig:
             )
         if self.r1_interval > 1 and not self.use_r1:
             raise ValueError("r1_interval > 1 requires use_r1=True")
+        if self.ada_target > 0 and not self.use_r1:
+            # byogan_tpu/train/steps.py:118-125
+            raise ValueError(
+                "ada_target > 0 requires use_r1=True: the controller's r_t = E[sign(D(real))] "
+                "is calibrated for the logistic loss only; a fixed aug_p works with either loss"
+            )
+        if self.plr_weight > 0 and (self.plr_interval < 1 or self.plr_batch_shrink < 1):
+            raise ValueError(
+                "plr_interval and plr_batch_shrink must be >= 1 when plr_weight > 0 "
+                f"(got {self.plr_interval}, {self.plr_batch_shrink})"
+            )
 
     @property
     def num_stages(self) -> int:
         return len(self.epoch_progression)
+
+    @property
+    def use_aug(self) -> bool:
+        """Augmentation is on: at a fixed aug_p or under the ADA controller."""
+        return self.aug_p > 0 or self.ada_target > 0
 
     def stage_batch(self, stage_index: int) -> int:
         return self.batch_progression[stage_index]

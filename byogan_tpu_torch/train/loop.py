@@ -290,7 +290,13 @@ def _train(
                 c_hist.append(metrics["c_loss"])
                 g_hist.append(metrics["g_loss"])
                 if state.iters % k == 0:
-                    extra = {"rt": round(float(metrics["real_sign"]), 4)} if "real_sign" in metrics else None
+                    # byogan_tpu/train/loop.py:421-441: r_t, then the regularizers' state
+                    extra = {
+                        name: round(float(metrics[key]), 4)
+                        for name, key in (("rt", "real_sign"), ("aug_p", "aug_p"), ("rt_ema", "rt_ema"),
+                                          ("pl_ema", "pl_ema"), ("pl_penalty", "pl_penalty"))
+                        if key in metrics
+                    } or None
                     logger.log_step(
                         state.iters, float(torch.stack(list(c_hist)).mean()),
                         float(torch.stack(list(g_hist)).mean()), epoch, steps, batch, extra,

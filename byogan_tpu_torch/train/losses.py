@@ -1,17 +1,24 @@
-"""GAN losses (byogan_tpu/train/losses.py:34-43, 93-187).
+"""GAN losses (byogan_tpu/train/losses.py:34-187).
 
 Each critic loss takes the critic as a callable on NHWC images and returns
 ``(loss, aux)``; the aux values are detached scalars.  The gradient
 penalties differentiate the critic with respect to its input images with
 ``torch.autograd.grad(create_graph=True)``, so the caller's parameter
-gradient runs the double backward.  That second-order path runs through the
-critic only (cuDNN and plain PyTorch), never through a synthesis kernel.
-The WGAN-GP is the corrected form the JAX package implements, with the
-per-sample mixing weights passed in.
+gradient runs the double backward through the critic (cuDNN and plain
+PyTorch).  The WGAN-GP is the corrected form the JAX package implements,
+with the per-sample mixing weights passed in.
+
+The path-length penalty (``gen_path_length_penalty``) differentiates the
+synthesis network with respect to w the same way, so its parameter
+gradient is a second derivative through the synthesis convs: on the card
+the inner gradient runs K3 inside the autograd Functions' backward
+Functions (``ops/styleconv.py``, ``ops/fused.py``), whose own backward is
+autograd of the plain epilogue, recomputed.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -29,6 +36,28 @@ def gen_wgan_loss(crit_fake_pred: torch.Tensor) -> torch.Tensor:
 def gen_logistic_loss(crit_fake_pred: torch.Tensor) -> torch.Tensor:
     """Non-saturating ``mean(softplus(-D(G(z))))`` (gan.py:227-228)."""
     return F.softplus(-crit_fake_pred).mean()
+
+
+def gen_path_length_penalty(
+    synth: Callable[[torch.Tensor], torch.Tensor],
+    w: torch.Tensor,
+    pl_ema: torch.Tensor,
+    y: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """StyleGAN2's path-length regularization (byogan_tpu/train/losses.py:46-78).
+
+    ``pl_i = ||J_w^T y_i||`` per sample, one VJP of the projection
+    ``sum(img * y / sqrt(H*W))`` through ``synth``, taken with
+    ``create_graph`` so the caller's parameter gradient runs the second
+    derivative.  ``y`` is the draw: (N, H, W, 3) standard normal, f32.
+    Returns ``(mean((pl - pl_ema)^2), mean(pl))``; the second feeds the
+    caller's running mean ``pl_ema``."""
+    img = synth(w).float()
+    h, wd = img.shape[1], img.shape[2]
+    proj = (img * (y / math.sqrt(float(h * wd)))).sum()
+    (grad,) = torch.autograd.grad(proj, w, create_graph=True)
+    pl = torch.sqrt(grad.float().square().sum(dim=-1) + 1e-8)
+    return (pl - pl_ema).square().mean(), pl.mean()
 
 
 def _input_grad(critic_fn: CriticFn, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

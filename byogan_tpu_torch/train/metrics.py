@@ -3,7 +3,8 @@
 Same console lines and the same jsonl records as the JAX package: one
 ``{"iter", "stage", "epoch", "c_loss", "g_loss", "images_per_sec", ...}``
 object per readout and one ``{"kind": "eval", "iter", "stage", ...}``
-object per periodic evaluation, appended and flushed.
+object per periodic evaluation, appended and flushed.  The console line
+also shows the regularizers' state (``DISPLAY_EXTRAS``) where a run has it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ import json
 import os
 import time
 from typing import Dict, List, Optional
+
+#: extras of a readout that the console line shows too: augmentation, ADA
+#: and path-length regularization state
+DISPLAY_EXTRAS = ("aug_p", "rt_ema", "pl_ema", "pl_penalty")
 
 
 class MetricsLogger:
@@ -42,9 +47,10 @@ class MetricsLogger:
             else 0.0
         )
         self._last_time, self._last_iters = now, iters
+        shown = "".join(f"  {k}: {extra[k]:.4g}" for k in DISPLAY_EXTRAS if k in (extra or {}))
         self._print(
             f"step {stage} iter {iters}  g_loss: {g_loss:.3}  c_loss: {c_loss:.3}  "
-            f"epoch: {epoch + 1}  ({rate:.1f} img/s)"
+            f"epoch: {epoch + 1}  ({rate:.1f} img/s){shown}"
         )
         if self._jsonl:
             rec = {

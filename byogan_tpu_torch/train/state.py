@@ -15,6 +15,12 @@ With ``ema_beta > 0`` the state also holds ``gen_ema``, the generator's
 exponential moving average (byogan_tpu/train/state.py:38-41, 117-119): a
 second ``Generator`` of the same spec, float32 weights, never trained
 against (no gradients).
+
+The regularizers' scalars are 0-dim f32 tensors on the device, None when
+their feature is off (byogan_tpu/train/state.py:42-53, 131-133): ``aug_p``
+(augmentation on) starts at ``config.aug_p``, ``rt_ema`` (ADA) and
+``pl_ema`` (path-length regularization) at 0.  The step updates them on
+the device, so reading its metrics needs no host sync.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ class TrainState:
     stage: int = 1
     epoch: int = 0
     gen_ema: Optional[Generator] = None  # EMA shadow of gen (ema_beta > 0)
+    aug_p: Optional[torch.Tensor] = None  # augmentation probability (config.use_aug)
+    rt_ema: Optional[torch.Tensor] = None  # ADA's smoothed r_t (ada_target > 0)
+    pl_ema: Optional[torch.Tensor] = None  # PLR's running path length (plr_weight > 0)
 
 
 def _adam(groups, config: TrainConfig) -> torch.optim.Adam:
@@ -86,8 +95,10 @@ def create_train_state(
 ) -> TrainState:
     """Move the nets to ``device``, give every parameter a zero gradient and
     build both optimizers; the RNG is seeded from ``config.seed``.  With
-    ``ema_beta > 0`` the EMA generator starts as a copy of ``gen``."""
+    ``ema_beta > 0`` the EMA generator starts as a copy of ``gen``; the
+    regularizers' scalars start as the module docstring says."""
     gen_ema = None
+    scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     for net in (gen, critic):
         net.to(device).train()
     if config.ema_beta > 0:
@@ -102,4 +113,7 @@ def create_train_state(
         critic_opt=make_critic_optimizer(critic, config),
         rng=make_generator(device, config.seed),
         gen_ema=gen_ema,
+        aug_p=scalar(config.aug_p) if config.use_aug else None,
+        rt_ema=scalar(0.0) if config.ada_target > 0 else None,
+        pl_ema=scalar(0.0) if config.plr_weight > 0 else None,
     )

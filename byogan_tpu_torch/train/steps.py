@@ -11,12 +11,24 @@ in the generator phase they go through the autograd Functions, whose
 backward is K3 and cuDNN's conv transposes.  The critic, the losses and
 Adam are plain PyTorch and cuDNN, as JAX leaves them to XLA.
 
-Two opt-in extensions of the JAX step: style mixing (``style_mix_prob >
-0``, from stage 2 on: both phases map two latent sets and switch from the
-first to the second at a per-sample crossover stage, ``mixed_styles``) and
-the generator's EMA (``ema_beta > 0``: ``e = e*beta + p*(1-beta)`` after the
-generator's Adam step).  With both off a step runs the code of the default
-path and draws the same random numbers.
+Opt-in extensions of the JAX step: style mixing (``style_mix_prob > 0``,
+from stage 2 on: both phases map two latent sets and switch from the first
+to the second at a per-sample crossover stage, ``mixed_styles``); the
+generator's EMA (``ema_beta > 0``: ``e = e*beta + p*(1-beta)`` after the
+generator's Adam step); augmentation of every critic input
+(``config.use_aug``: each critic repeat augments its reals and its
+detached fakes, R1 is taken at the augmented reals, the generator phase
+augments its fakes differentiably, ``ops/augment.py``) with the ADA
+controller (``ada_target > 0``: after the generator update, ``rt_ema``
+follows the repeats' mean E[sign(D(real))] and ``aug_p`` moves by
+``sign(rt_ema - target) * batch * repeats / ada_speed`` within [0, 1],
+byogan_tpu/train/steps.py:388-409); and path-length regularization
+(``plr_weight > 0``: on iterations where ``iters % plr_interval == 0``, a
+host branch as lazy R1's, the generator's loss adds ``plr_weight *
+plr_interval`` times the penalty on ``batch // plr_batch_shrink`` latents
+of their own, and ``pl_ema`` moves by ``plr_decay * (pl_mean - pl_ema)``,
+steps.py:312-369).  With all of them off a step runs the code of the
+default path and draws the same random numbers.
 
 Random draws come from ``state.rng`` in the order of ``draw``.
 ``step(state, real, draws)`` also takes draws made elsewhere, so a test can
@@ -30,7 +42,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+from byogan_tpu_torch.core.random import stage_resolution, synthesis_noise, truncated_noise
+from byogan_tpu_torch.ops.augment import AugDraws, augment_batch, draw_augment
 from byogan_tpu_torch.train import losses
 from byogan_tpu_torch.train.config import TrainConfig
 from byogan_tpu_torch.train.state import TrainState, set_grads
@@ -50,15 +63,31 @@ class Mix:
 
 
 @dataclasses.dataclass
+class PLRDraws:
+    """Path-length regularization's draws on a penalized iteration: latents
+    ``z`` (batch // plr_batch_shrink of them), their noise maps, and the
+    image-space direction ``y``, (N, R, R, 3) standard normal in f32."""
+
+    z: torch.Tensor
+    noise: Noise
+    y: torch.Tensor
+
+
+@dataclasses.dataclass
 class Draws:
     """Random inputs of one iteration: per critic repeat (z, noise, eps),
     eps None under R1; then the generator phase's (z, noise).  With style
     mixing, ``mix`` holds one ``Mix`` per critic repeat and then the
-    generator phase's; ``z`` is then the first latent set."""
+    generator phase's; ``z`` is then the first latent set.  With
+    augmentation, ``aug`` holds per critic repeat the reals' and the fakes'
+    ``AugDraws``, then the generator phase's fakes'.  On a penalized
+    iteration of path-length regularization, ``plr`` holds its draws."""
 
     critic: List[Tuple[torch.Tensor, Noise, Optional[torch.Tensor]]]
     gen: Tuple[torch.Tensor, Noise]
     mix: Optional[List[Mix]] = None
+    aug: Optional[List[AugDraws]] = None
+    plr: Optional[PLRDraws] = None
 
 
 def mixes(config: TrainConfig, steps: int) -> bool:
@@ -66,15 +95,24 @@ def mixes(config: TrainConfig, steps: int) -> bool:
     return config.style_mix_prob > 0 and steps >= 2
 
 
+def penalized(config: TrainConfig, state: TrainState) -> bool:
+    """Whether ``state``'s next iteration adds the path-length penalty
+    (``state.iters`` is read only with the penalty on)."""
+    return config.plr_weight > 0 and state.iters % config.plr_interval == 0
+
+
 def draw(
     state: TrainState, config: TrainConfig, batch: int, steps: int, dtype: torch.dtype
 ) -> Draws:
     """One iteration's draws from ``state.rng``, in this order: per critic
     repeat z, the noise maps, eps (WGAN-GP only), then with mixing z2, the
-    coin and t; then the generator phase's z, noise maps and, with mixing,
-    z2, coin and t."""
+    coin and t, then with augmentation the reals' and the fakes'
+    ``AugDraws``; then the generator phase's z, noise maps and, with
+    mixing, z2, coin and t, and with augmentation its ``AugDraws``; then on
+    a penalized iteration the ``PLRDraws`` (z, noise maps, y)."""
     rng = state.rng
     mixing = mixes(config, steps)
+    res = stage_resolution(steps - 1)
 
     def latents():
         return truncated_noise(rng, batch, config.noise_size, config.noise_trunc, dtype)
@@ -87,7 +125,10 @@ def draw(
         coin = torch.rand((batch,), generator=rng, device=rng.device)
         return Mix(z2, coin, torch.randint(1, steps, (batch,), generator=rng, device=rng.device))
 
-    critic, mix = [], []
+    def aug_draw():
+        return draw_augment(rng, batch, res, res)
+
+    critic, mix, aug = [], [], []
     for _ in range(config.critic_repeats):
         z, noise = z_noise()
         eps = None
@@ -96,10 +137,20 @@ def draw(
         critic.append((z, noise, eps))
         if mixing:
             mix.append(mix_draw())
+        if config.use_aug:
+            aug += [aug_draw(), aug_draw()]
     gen = z_noise()
     if mixing:
         mix.append(mix_draw())
-    return Draws(critic, gen, mix if mixing else None)
+    if config.use_aug:
+        aug.append(aug_draw())
+    plr = None
+    if penalized(config, state):
+        n = max(1, batch // config.plr_batch_shrink)
+        z = truncated_noise(rng, n, config.noise_size, config.noise_trunc, dtype)
+        noise = synthesis_noise(rng, n, steps, dtype=dtype)
+        plr = PLRDraws(z, noise, torch.randn((n, res, res, 3), generator=rng, device=rng.device))
+    return Draws(critic, gen, mix if mixing else None, aug if config.use_aug else None, plr)
 
 
 def mixed_styles(
@@ -163,10 +214,27 @@ def generator_loss(
     steps: int,
     alpha: Optional[float],
     mix: Optional[Mix] = None,
+    aug: Optional[AugDraws] = None,
 ) -> torch.Tensor:
-    """The generator phase's loss through the critic."""
-    pred = state.critic(synthesize(state.gen, config, z, noise, steps, alpha, mix), steps, alpha)
+    """The generator phase's loss through the critic; with ``aug`` the
+    fakes are augmented (differentiably) at ``state.aug_p`` first."""
+    fake = synthesize(state.gen, config, z, noise, steps, alpha, mix)
+    if aug is not None:
+        fake = augment_batch(fake, state.aug_p, aug)
+    pred = state.critic(fake, steps, alpha)
     return losses.gen_logistic_loss(pred) if config.use_r1 else losses.gen_wgan_loss(pred)
+
+
+def path_length_penalty(
+    state: TrainState, plr: PLRDraws, steps: int, alpha: Optional[float]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(penalty, mean path length) on ``plr``'s latents: w from the mapping
+    network inside the penalized branch, so the parameter gradient reaches
+    the mapping network through w too, and one w for every stage
+    (byogan_tpu/train/steps.py:318-336)."""
+    w = state.gen.map_latent(plr.z)
+    synth = lambda w_: state.gen(None, plr.noise, steps=steps, alpha=alpha, style=[w_] * steps)  # noqa: E731
+    return losses.gen_path_length_penalty(synth, w, state.pl_ema, plr.y)
 
 
 def _update(loss: torch.Tensor, params: Sequence[torch.nn.Parameter], opt) -> None:
@@ -201,15 +269,32 @@ def make_train_step(
             draws = draw(state, config, batch, steps, dtype)
         if (draws.mix is not None) != mixes(config, steps):
             raise ValueError(f"draws.mix must be given exactly when stage {steps} mixes styles")
+        if (draws.aug is not None) != config.use_aug:
+            raise ValueError("draws.aug must be given exactly when augmentation is on")
+        plr_on = penalized(config, state)
+        if (draws.plr is not None) != plr_on:
+            raise ValueError(f"draws.plr must be given exactly on a penalized iteration (iters {state.iters})")
+        for name, on in (("aug_p", config.use_aug), ("rt_ema", config.ada_target > 0),
+                         ("pl_ema", config.plr_weight > 0)):
+            if on and getattr(state, name) is None:
+                raise ValueError(f"TrainState carries no {name}: create the state with the same config")
         c_params = list(state.critic.parameters())
         g_params = list(state.gen.parameters())
         im_count = state.im_count
         mix = draws.mix or [None] * (len(critic_fade) + 1)
-        for fade, (z, noise, eps), m in zip(critic_fade, draws.critic, mix):
+        aug = draws.aug or [None] * (2 * len(critic_fade) + 1)
+        rt_acc = 0.0
+        for r, (fade, (z, noise, eps), m) in enumerate(zip(critic_fade, draws.critic, mix)):
             alpha = im_count / fade_in if fade else None
             with torch.no_grad():
                 fake = synthesize(state.gen, config, z, noise, steps, alpha, m)
-            c_loss, c_aux = critic_loss(state, config, real, fake, steps, alpha, eps)
+            real_r = real
+            if config.use_aug:  # fresh draws for each use; R1 at the augmented reals
+                real_r = augment_batch(real, state.aug_p, aug[2 * r])
+                fake = augment_batch(fake, state.aug_p, aug[2 * r + 1])
+            c_loss, c_aux = critic_loss(state, config, real_r, fake, steps, alpha, eps)
+            if config.ada_target > 0:
+                rt_acc = rt_acc + c_aux["real_sign"]
             _update(c_loss, c_params, state.critic_opt)
             im_count += batch
 
@@ -217,14 +302,34 @@ def make_train_step(
         alpha_g = im_count / fade_in if gen_fade else None
         state.critic.requires_grad_(False)
         try:
-            g_loss = generator_loss(state, config, z, noise, steps, alpha_g, mix[-1])
+            g_loss = generator_loss(state, config, z, noise, steps, alpha_g, mix[-1], aug[-1])
+            if config.plr_weight > 0:
+                g_loss, pen = g_loss.float(), torch.zeros((), device=real.device)
+                if plr_on:
+                    pen, pl_mean = path_length_penalty(state, draws.plr, steps, alpha_g)
+                    g_loss = g_loss + (config.plr_weight * config.plr_interval) * pen
             _update(g_loss, g_params, state.gen_opt)
         finally:
             state.critic.requires_grad_(True)
         if config.ema_beta > 0 and state.gen_ema is not None:
             ema_update(list(state.gen_ema.parameters()), g_params, config.ema_beta)
+        metrics = {"c_loss": c_loss.detach().float(), "g_loss": g_loss.detach().float(), **c_aux}
+        if plr_on:  # pl_ema tracks the path length where it was observed
+            state.pl_ema = state.pl_ema + config.plr_decay * (pl_mean.detach() - state.pl_ema)
+        if config.ada_target > 0:
+            beta = config.ada_rt_beta
+            state.rt_ema = beta * state.rt_ema + (1.0 - beta) * (rt_acc / len(critic_fade))
+            step_p = (batch * config.critic_repeats) / float(config.ada_speed)
+            state.aug_p = (state.aug_p + torch.sign(state.rt_ema - config.ada_target) * step_p).clamp(0.0, 1.0)
+        if config.use_aug:
+            metrics["aug_p"] = state.aug_p
+        if config.ada_target > 0:
+            metrics["rt_ema"] = state.rt_ema
+        if config.plr_weight > 0:
+            metrics["pl_penalty"] = pen.detach().float()
+            metrics["pl_ema"] = state.pl_ema
         state.iters += 1
         state.im_count = im_count
-        return {"c_loss": c_loss.detach().float(), "g_loss": g_loss.detach().float(), **c_aux}
+        return metrics
 
     return step

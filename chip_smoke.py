@@ -32,7 +32,16 @@ both paths of the port at full width (``ModelSpec()``):
   the plain path, ``cli.project``, ``cli.edit``, ``cli.interpolate`` and
   ``cli.evaluate``, SWD and MS-SSIM on the card against the CPU, stage 8
   through the training CLI with the periodic eval against the same run
-  without it, and their times.
+  without it, and their times;
+* the augmentation, ADA and path-length regularization slice: both
+  autograd Functions' second derivative against autograd's of the plain
+  forward at the stage-8 shapes, the training CLI at full width with ADA
+  and PLR (a subprocess through stage 7, then the resume through stage 8:
+  launches per plain and per penalized iteration, the controller's exact
+  steps, pl_ema, the checkpoint's regularizer state), one penalized
+  stage-8 step with augmentation on the kernel path against the plain
+  path, and the stage-8 iteration's time default, with ADA and penalized,
+  with a profile of the penalized one.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -359,10 +368,14 @@ def zero_launch_counts() -> None:
 
 
 @contextlib.contextmanager
-def counting_steps(records: list):
+def counting_steps(records: list, regularized: list = None):
     """The training loop's steps, each appending (stage, critic fade flags,
-    generator fade flag, its K1, K2 and K3 launches) to ``records``."""
+    generator fade flag, its K1, K2 and K3 launches) to ``records``; with
+    ``regularized``, also a dict of the iteration, the batch, the state's
+    aug_p, rt_ema and pl_ema before the step and the step's losses and
+    regularizer metrics, as floats (a host sync a step)."""
     from byogan_tpu_torch.train import loop
+    from byogan_tpu_torch.train.checkpoint import REGULARIZER_KEYS
 
     make_step = loop.make_train_step
 
@@ -371,8 +384,14 @@ def counting_steps(records: list):
 
         def step(state, real, draws=None):
             before = launch_counts()
+            if regularized is not None:
+                rec = {"iters": state.iters, "stage": steps, "batch": batch,
+                       "before": {k: float(getattr(state, k)) for k in REGULARIZER_KEYS if getattr(state, k) is not None}}
             out = fn(state, real, draws)
-            records.append((steps, critic_fade, gen_fade, tuple(a - b for a, b in zip(launch_counts(), before))))
+            launched = tuple(a - b for a, b in zip(launch_counts(), before))
+            records.append((steps, critic_fade, gen_fade, launched))
+            if regularized is not None:
+                regularized.append(dict(rec, launches=launched, **{k: float(v) for k, v in out.items()}))
             return out
 
         return step
@@ -498,22 +517,6 @@ def stage8_step_kernel_vs_plain():
     max_err(iso["kernel"][0], iso["plain"][0], GEN_TOL)
     (mk, gk, ck), (mp, gp, cp) = out["kernel"], out["plain"]
     worst = max(rel_err(mk[k], mp[k], STEP_TOL, f"step {k}") for k in ("c_loss", "g_loss", "r1_penalty", "real_pred", "fake_pred"))
-    def grad_errs(got, want, what):
-        """Per tensor (relative L2, max relative) errors, the worst printed
-        before any tolerance is applied."""
-        errs = []
-        for n, w in want.items():
-            if w.abs().max() == 0:  # a stage the step does not reach
-                continue
-            d = (got[n] - w).double()
-            errs.append((float(d.norm() / w.double().norm()), float(d.abs().max() / w.abs().max()), n))
-        errs.sort(reverse=True)
-        print(f"{what}: worst (rel L2, rel max): " + "; ".join(f"{n} {a:.2e} {b:.2e}" for a, b, n in errs[:4]))
-        l2_tol, max_tol = STEP_GRAD_TOL
-        for e2, em, n in errs:
-            require(e2 <= l2_tol and em <= max_tol, f"{what} {n}: relative L2 {e2:.3e}, max {em:.3e} over tol {STEP_GRAD_TOL}")
-        return max(e[0] for e in errs), max(e[1] for e in errs)
-
     zero = lambda d: {n: torch.zeros_like(gp[n]) if g is None else g for n, g in d.items()}  # noqa: E731
     iso_l2, iso_max = grad_errs(zero(iso["kernel"][1]), zero(iso["plain"][1]), "generator backward alone, kernel vs plain")
     grad_errs(zero(iso["plain, z moved by 1e-6"][1]), zero(iso["plain"][1]), "generator backward alone, plain with z moved by 1e-6 vs plain")
@@ -525,6 +528,25 @@ def stage8_step_kernel_vs_plain():
         f"(tol {STEP_GRAD_TOL}); c_loss {float(mk['c_loss']):.5f} "
         f"vs {float(mp['c_loss']):.5f}, g_loss {float(mk['g_loss']):.5f} vs {float(mp['g_loss']):.5f}"
     )
+
+
+def grad_errs(got, want, what, check=True):
+    """Per tensor (relative L2, max relative) errors of one step's
+    gradients, the worst printed before any tolerance is applied (``check``
+    False: printed only, as for rounding alone)."""
+    errs = []
+    for n, w in want.items():
+        if w.abs().max() == 0:  # a stage the step does not reach
+            continue
+        d = (got[n] - w).double()
+        errs.append((float(d.norm() / w.double().norm()), float(d.abs().max() / w.abs().max()), n))
+    errs.sort(reverse=True)
+    print(f"{what}: worst (rel L2, rel max): " + "; ".join(f"{n} {a:.2e} {b:.2e}" for a, b, n in errs[:4]))
+    l2_tol, max_tol = STEP_GRAD_TOL
+    for e2, em, n in errs:
+        require(not check or (e2 <= l2_tol and em <= max_tol),
+                f"{what} {n}: relative L2 {e2:.3e}, max {em:.3e} over tol {STEP_GRAD_TOL}")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def training_times(shapes, gen):
@@ -1300,6 +1322,370 @@ def wspace_times(final):
     return rows, (busy, share)
 
 
+# The augmentation, ADA and path-length regularization slice.
+REG_CONFIG = (
+    "[reg]\n"
+    "data = {data}\n"
+    "epoch_progression = 1,1,1,1,1,1,1,1\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "ada_target = 0.6\nplr_weight = 2.0\nplr_interval = 4\n"
+    "checkpoint_dir = {tmp}/reg_ck\noutput_dir = {tmp}/reg_out\n"
+)
+# The subprocess trains iterations 0-11 (stages 1-7) and stops with
+# chk-12.pth; the resume trains stage 8 (iterations 12-15).  Penalized:
+# iterations 0, 4, 8 and 12 (plr_interval 4).
+REG_STOP, REG_TARGET, REG_INTERVAL = 12, 0.6, 4
+SECOND_DERIVATIVE = "plr second derivative"  # the profiler's label of its torch ops
+
+
+def iteration_launches(stage: int, penalized: bool) -> tuple:
+    """(K1, K2, K3) launches of one iteration at ``stage``: the default
+    2(2k-1), 2, 2k; a penalized iteration adds PLR's forward with residuals
+    (K1 2k-1, K2 1), K3 for each Function in its inner gradient (2k), and
+    K3 again in the outer backward through that forward for every Function
+    but the last (2k-1): the last one's output reaches the image only
+    through to_rgb, which is linear, so the inner gradient does not depend
+    on it and the outer backward does not reach its Function."""
+    k1, k2, k3 = 2 * (2 * stage - 1), 2, 2 * stage
+    return (k1 + 2 * stage - 1, k2 + 1, k3 + 4 * stage - 1) if penalized else (k1, k2, k3)
+
+
+def second_derivative_checks(shapes, gen):
+    """Both Functions' first derivative (K3, run under create_graph by the
+    backward Functions) and second derivative (autograd of the plain
+    forward, recomputed) against autograd's of the plain forward at the 16
+    stage-8 epilogue shapes, batch 2, f32 and bf16.  Beside each, rounding
+    alone: the plain path's second derivative at inputs moved by 1e-6
+    relative (f32), or computed in f32 from the same bf16 inputs (bf16).
+    Returns the worst errors per dtype."""
+    from byogan_tpu_torch.ops.cardcheck import second_derivatives
+    from byogan_tpu_torch.ops.fused import NoiseLReLUAdaINFunction, noise_lrelu_adain_plain
+    from byogan_tpu_torch.ops.styleconv import StyleConvFunction, styleconv_cuda, styleconv_plain
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-12)
+
+    out = {}
+    cases = [("K1", r, cin, cout) for r, cin, cout in shapes] + [("K2", 4, 512, 512)]
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {"first": 0.0, "second": 0.0, "rounding alone": 0.0}
+        for kind, r, cin, cout in cases:
+            if kind == "K1":
+                ins = k1_inputs(2, r, cin, cout, dtype, gen)
+                with torch.no_grad():
+                    positive = styleconv_cuda(**ins, with_stats=True)[1] >= 0
+                fn = lambda *a: StyleConvFunction.apply(*a, 1e-8)  # noqa: E731
+                plain = lambda *a, m=positive: styleconv_plain(*a, positive=m)  # noqa: E731
+            else:
+                ins = k2_inputs(2, r, cout, dtype, gen)
+                fn, plain = (lambda *a: NoiseLReLUAdaINFunction.apply(*a, 1e-8)), noise_lrelu_adain_plain
+            tag = f"{kind} {str(dtype)[6:]} (2,{r},{r},{cin}->{cout})"
+            before = launch_counts()
+            kf, ks = second_derivatives(fn, ins, 1)
+            torch.cuda.synchronize()
+            launched = tuple(a - b for a, b in zip(launch_counts(), before))
+            require(launched == ((1, 0, 1) if kind == "K1" else (0, 1, 1)), f"{tag}: launches {launched}")
+            pf, ps = second_derivatives(plain, ins, 1)
+            if dtype == torch.float32:
+                moved = {k: v if k == "noise" else v * (1 + 1e-6 * torch.randn(v.shape, generator=gen, device="cuda"))
+                         for k, v in ins.items()}
+            else:
+                moved = {k: v.float() for k, v in ins.items()}
+            _, ms = second_derivatives(plain, moved, 1)
+            errs = {
+                "first": max(rel_err(a, b, GRAD_TOL[dtype], f"{tag} first derivative {i}") for i, (a, b) in enumerate(zip(kf, pf))),
+                "second": max(rel_err(a, b, GRAD_TOL[dtype], f"{tag} second derivative {i}") for i, (a, b) in enumerate(zip(ks, ps))),
+                "rounding alone": max(rel(a, b) for a, b in zip(ms, ps)),
+            }
+            print(f"check second derivative {tag}: max rel err first (K3) {errs['first']:.3e}, second {errs['second']:.3e} "
+                  f"(tol {GRAD_TOL[dtype]}); rounding alone (plain, inputs "
+                  f"{'moved by 1e-6' if dtype == torch.float32 else 'in f32'}) {errs['rounding alone']:.3e}; launches {launched}")
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+        out[dtype] = worst
+    return out
+
+
+def counted_cli(out_path: str, argv: list) -> int:
+    """The training CLI with every step counted (``counting_steps``): runs
+    ``byogan_tpu_torch.cli.main.main(argv)`` and writes the steps' records
+    to ``out_path`` as JSON.  ``regularized_training`` runs it in a
+    subprocess."""
+    from byogan_tpu_torch.cli.main import main as train_main
+
+    records, regularized = [], []
+    zero_launch_counts()
+    with counting_steps(records, regularized):
+        train_main(argv)
+    with open(out_path, "w") as f:
+        json.dump(regularized, f)
+    return 0
+
+
+def check_regularized_steps(regs: list, start_aug_p: float, what: str) -> int:
+    """Per recorded step: finite losses; launches as ``iteration_launches``;
+    on penalized iterations pl_penalty > 0 and pl_ema moved, else 0 and
+    unchanged; aug_p exactly the controller applied to the step before, in
+    f32 (each step moves it by +-batch/ada_speed, clipped to [0, 1]).
+    Returns the number of steps that started with aug_p inside (0, 1)."""
+    from byogan_tpu_torch.train.config import TrainConfig
+
+    speed = TrainConfig().ada_speed  # the slice's configs keep the default
+    prev, inside = torch.tensor(start_aug_p, dtype=torch.float32), 0
+    for r in regs:
+        it, k = r["iters"], r["stage"]
+        pen = it % REG_INTERVAL == 0
+        require(math.isfinite(r["c_loss"]) and math.isfinite(r["g_loss"]), f"{what} iteration {it}: losses {r}")
+        require(tuple(r["launches"]) == iteration_launches(k, pen), f"{what} iteration {it} stage {k}: launches {r['launches']}")
+        require(r["before"]["aug_p"] == float(prev), f"{what} iteration {it}: aug_p before {r['before']['aug_p']} vs {float(prev)}")
+        if pen:
+            require(r["pl_penalty"] > 0 and r["pl_ema"] != r["before"]["pl_ema"] and r["pl_ema"] > 0,
+                    f"{what} iteration {it}: pl_penalty {r['pl_penalty']}, pl_ema {r['before']['pl_ema']} -> {r['pl_ema']}")
+        else:
+            require(r["pl_penalty"] == 0 and r["pl_ema"] == r["before"]["pl_ema"], f"{what} iteration {it}: plain but {r}")
+        rt = torch.tensor(r["rt_ema"], dtype=torch.float32)
+        want = (prev + torch.sign(rt - REG_TARGET) * (r["batch"] / float(speed))).clamp(0.0, 1.0)
+        require(float(want) == r["aug_p"], f"{what} iteration {it}: aug_p {r['aug_p']!r}, controller gives {float(want)!r}")
+        inside += 0.0 < float(prev) < 1.0
+        prev = torch.tensor(r["aug_p"], dtype=torch.float32)
+    return inside
+
+
+def regularized_training(tmp, root):
+    """The slice's training CLI at full width on the 24 synthetic images with
+    ADA (target 0.6) and PLR (weight 2, interval 4), all 8 stages at one
+    epoch each: iterations 0-11 through the CLI in a subprocess
+    (``counted_cli``, --max-iters 12), then the resume from its chk-12.pth
+    in this process through stage 8 (iterations 12-15) to FINAL.pth.  Checks
+    every step (``check_regularized_steps``), that chk-12.pth and FINAL.pth
+    hold aug_p, rt_ema and pl_ema, and that the resume starts from them.
+    Returns the resumed run's launches, its launches per penalized and per
+    plain stage-8 iteration, and the walls."""
+    from byogan_tpu_torch.cli.main import main as train_main
+    from byogan_tpu_torch.train.checkpoint import REGULARIZER_KEYS
+
+    data = os.path.join(tmp, "data")  # written by train_through_cli
+    cfg = os.path.join(tmp, "reg.txt")
+    with open(cfg, "w") as f:
+        f.write(REG_CONFIG.format(data=data, tmp=tmp))
+    counts = os.path.join(tmp, "reg_counts.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.counted_cli(sys.argv[1], sys.argv[2:]))",
+         counts, "reg", "--config-file", cfg, "--max-iters", str(REG_STOP)],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    sub_wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the regularized training CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(counts) as f:
+        first = json.load(f)
+    require([r["iters"] for r in first] == list(range(REG_STOP)), f"subprocess iterations {[r['iters'] for r in first]}")
+    inside = check_regularized_steps(first, 0.0, "reg train (subprocess)")
+    require(first[0]["pl_ema"] > 0, "pl_ema after the first penalized iteration")
+    ckpt = os.path.join(tmp, "reg_ck", f"chk-{REG_STOP}.pth")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    held = {k: saved.get(k) for k in REGULARIZER_KEYS}
+    require(held == {k: first[-1][k] for k in REGULARIZER_KEYS}, f"chk-{REG_STOP}.pth holds {held}, the last step {first[-1]}")
+    print(f"reg train: the CLI in a subprocess, stages 1-7, {len(first)} iterations in {sub_wall:.2f} s (process start "
+          f"included); launches per iteration (K1, K2, K3) " + ", ".join(f"it {r['iters']} st {r['stage']} {tuple(r['launches'])}" for r in first)
+          + f"; pl_ema after iterations 0/4/8 {[round(first[i]['pl_ema'], 5) for i in (0, 4, 8)]}; chk-{REG_STOP}.pth holds {held}")
+    records, regs = [], []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_steps(records, regs):
+        state = train_main(["reg", "--config-file", cfg, "-c", ckpt])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_NAMES, launch_counts()))
+    require(state.iters == 16 and [r["iters"] for r in regs] == [12, 13, 14, 15], f"resumed iterations {[r['iters'] for r in regs]}")
+    require(regs[0]["before"] == held, f"the resume started from {regs[0]['before']}, the checkpoint holds {held}")
+    inside += check_regularized_steps(regs, held["aug_p"], "reg train (resume)")
+    final = torch.load(os.path.join(tmp, "reg_ck", "FINAL.pth"), map_location="cpu", weights_only=False)
+    require(all(final.get(k) == regs[-1][k] for k in REGULARIZER_KEYS), "FINAL.pth lacks the regularizers' state")
+    per_iteration = {"penalized": tuple(regs[0]["launches"]), "plain": tuple(regs[1]["launches"])}
+    every = first + regs
+    print(f"reg train: resumed from chk-{REG_STOP}.pth to FINAL.pth in this process, stage 8, iterations 12-15 in "
+          f"{wall:.2f} s; launches {launches}; per iteration at stage 8 (K1, K2, K3): penalized (it 12) "
+          f"{per_iteration['penalized']}, plain {per_iteration['plain']}; losses finite; aug_p "
+          + ", ".join(f"{r['aug_p']:.8g}" for r in every) + f" (rt_ema " + ", ".join(f"{r['rt_ema']:.4f}" for r in every)
+          + f"): the controller's exact step at every iteration, {inside} of 16 starting inside (0, 1); pl_ema "
+          + ", ".join(f"{r['pl_ema']:.5f}" for r in every) + "; FINAL.pth holds aug_p, rt_ema, pl_ema")
+    return launches, per_iteration, sub_wall, wall
+
+
+def regularized_step_kernel_vs_plain(critic_biases: bool = True):
+    """One stage-8 step at full width in f32 on a penalized iteration with
+    augmentation on (aug_p 0.5 under ADA 0.6, PLR weight 2): the kernel
+    path against the plain path (the plain versions swapped into the
+    layers), the same draws and batch; a third run, the plain path with
+    every latent moved by 1e-6 relative, gives rounding alone.  Losses,
+    pl_penalty, pl_ema, the controller's step and both phases' parameter
+    gradients, held to ``STEP_TOL`` and ``STEP_GRAD_TOL``.
+
+    The generator's noise weights and, with ``critic_biases``, the critic's
+    biases are drawn from normals first: both start at zero, and a zero
+    critic bias puts the whole of a cutout's zero square on LeakyReLU's
+    kink in every critic layer, where the sign of cuDNN's rounding picks
+    the slope (1 or 0.2) and so the critic's bias gradients: there, moving
+    the latents by 1e-6 moves them by ~8%.  ``critic_biases=False`` runs
+    that fresh critic and only prints the errors beside rounding alone."""
+    import dataclasses
+    import types
+
+    from byogan_tpu_torch.models import layers
+    from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
+    from byogan_tpu_torch.ops.styleconv import styleconv_plain
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import draw, make_train_step
+
+    cfg = TrainConfig(compute_dtype="float32", aug_p=0.5, ada_target=REG_TARGET, plr_weight=2.0, plr_interval=REG_INTERVAL)
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(5)
+    draws = draw(types.SimpleNamespace(rng=rng, iters=0), cfg, TRAIN_BATCH, 8, torch.float32)
+    require(draws.plr is not None and len(draws.aug) == 3, "the penalized iteration's draws")
+    real = torch.randint(0, 256, (TRAIN_BATCH, 512, 512, 3), generator=rng, device=dev, dtype=torch.uint8)
+
+    def move(z):
+        return z * (1 + 1e-6 * torch.randn(z.shape, generator=rng, device=dev))
+
+    moved = dataclasses.replace(
+        draws, critic=[(move(z), n, e) for z, n, e in draws.critic], gen=(move(draws.gen[0]), draws.gen[1]),
+        plr=dataclasses.replace(draws.plr, z=move(draws.plr.z)),
+    )
+    step = make_train_step(cfg, 8, TRAIN_BATCH, 8.0, (True,), True)
+    out = {}
+    for path, d in (("kernel", draws), ("plain", draws), ("plain, latents moved by 1e-6", moved)):
+        state = build_state(cfg, dev)
+        with torch.no_grad():
+            for net, pick, std in ((state.gen, "inject_noise", 0.3), (state.critic, "bias" if critic_biases else None, 0.1)):
+                for name, p in net.named_parameters():
+                    if pick is not None and pick in name:
+                        p.normal_(0.0, std, generator=torch.Generator(device=dev).manual_seed(len(name)))
+        before = launch_counts()
+        with contextlib.ExitStack() as stack:
+            if path != "kernel":
+                stack.enter_context(mock.patch.object(layers, "styleconv", styleconv_plain))
+                stack.enter_context(mock.patch.object(layers, "noise_lrelu_adain", noise_lrelu_adain_plain))
+            metrics = step(state, real, d)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(launch_counts(), before))
+        require(launched == (iteration_launches(8, True) if path == "kernel" else (0, 0, 0)), f"{path} path launched {launched}")
+        out[path] = ({k: v.detach().clone() for k, v in metrics.items()},
+                     {n: p.grad.clone() for n, p in state.gen.named_parameters()},
+                     {n: p.grad.clone() for n, p in state.critic.named_parameters()})
+        del state
+    (mk, gk, ck), (mp, gp, cp), (mm, gm, cm) = out["kernel"], out["plain"], out["plain, latents moved by 1e-6"]
+    what = "regularized step" + ("" if critic_biases else ", critic biases zero")
+    keys = ("c_loss", "g_loss", "r1_penalty", "real_pred", "fake_pred", "pl_penalty", "pl_ema", "aug_p", "rt_ema")
+    loss_round = max(abs(float(mm[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-12) for k in keys)
+    gr = grad_errs(gm, gp, f"{what} gen grad, rounding alone (plain, latents moved by 1e-6)", check=False)
+    cr = grad_errs(cm, cp, f"{what} critic grad, rounding alone (plain, latents moved by 1e-6)", check=False)
+    loss_err = max(rel_err(mk[k], mp[k], STEP_TOL if critic_biases else math.inf, f"{what} {k}") for k in keys)
+    # aug_p starts inside (0, 1): one controller step of exactly batch/ada_speed
+    moved_p = (torch.tensor(0.5) + torch.sign(mk["rt_ema"].cpu() - REG_TARGET) * (TRAIN_BATCH / float(cfg.ada_speed))).clamp(0.0, 1.0)
+    require(float(mk["aug_p"]) == float(moved_p) and float(mk["aug_p"]) != 0.5, f"aug_p {float(mk['aug_p'])!r} after one step")
+    g_l2, g_max = grad_errs(gk, gp, f"{what} gen grad", check=critic_biases)
+    c_l2, c_max = grad_errs(ck, cp, f"{what} critic grad", check=critic_biases)
+    print(f"step f32 stage 8 penalized, aug_p 0.5, {'critic biases N(0, 0.1)' if critic_biases else 'critic biases zero (not held)'}, "
+          f"kernel vs plain path: losses and regularizers max rel err {loss_err:.3e} "
+          f"(tol {STEP_TOL}; rounding alone {loss_round:.3e}); aug_p 0.5 -> {float(mk['aug_p']):.9f} (rt_ema "
+          f"{float(mk['rt_ema']):.4f}: one step of {TRAIN_BATCH}/{cfg.ada_speed}); pl_penalty {float(mk['pl_penalty']):.6f} vs "
+          f"{float(mp['pl_penalty']):.6f}; g_loss {float(mk['g_loss']):.5f} vs {float(mp['g_loss']):.5f}; generator grads "
+          f"relative L2 {g_l2:.3e}, max {g_max:.3e} (rounding alone {gr[0]:.3e}, {gr[1]:.3e}); critic grads relative L2 "
+          f"{c_l2:.3e}, max {c_max:.3e} (rounding alone {cr[0]:.3e}, {cr[1]:.3e}) (tol {STEP_GRAD_TOL})")
+    return loss_err, (g_l2, g_max), (c_l2, c_max)
+
+
+@contextlib.contextmanager
+def timed_second_derivative(pairs: list):
+    """Both backward Functions' second derivatives
+    (``epilogue_double_backward``) inside a profiler range named
+    ``SECOND_DERIVATIVE`` and between two CUDA events each, appended to
+    ``pairs``."""
+    from byogan_tpu_torch.ops import fused, styleconv
+
+    real = styleconv.epilogue_double_backward
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function(SECOND_DERIVATIVE):
+            start.record()
+            got = real(*args)
+            end.record()
+        pairs.append((start, end))
+        return got
+
+    with mock.patch.object(styleconv, "epilogue_double_backward", timed), \
+            mock.patch.object(fused, "epilogue_double_backward", timed):
+        yield
+
+
+def regularized_times(gen):
+    """The stage-8 iteration (bf16, batch 5, no-blend path) by CUDA events
+    under the default config, under ADA (target 0.6, aug_p from 0: the
+    augmentation runs whatever p is) and as a penalized PLR iteration
+    (weight 2, interval 1: every iteration penalized), in the order A B C
+    C B A; then one penalized iteration by torch.profiler: the card's busy
+    time, its ten largest kernels, the kernels launched, and the share of
+    the second derivative's torch ops (the profiler's range, and CUDA
+    events around its calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from byogan_tpu_torch.ops.cardcheck import KERNELS
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    n, dev = TRAIN_BATCH, torch.device("cuda")
+    real = torch.randint(0, 256, (n, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
+    configs = {"default": TrainConfig(), "ADA 0.6": TrainConfig(ada_target=REG_TARGET),
+               "PLR 2.0 penalized": TrainConfig(plr_weight=2.0, plr_interval=1)}
+    times = {k: [] for k in configs}
+    for name in ("default", "ADA 0.6", "PLR 2.0 penalized", "PLR 2.0 penalized", "ADA 0.6", "default"):
+        cfg = configs[name]
+        state = build_state(cfg, dev)
+        state.stage = 8
+        step = make_train_step(cfg, 8, n, 8.0, (False,), False)
+        times[name].append(timed_ms(lambda: step(state, real), iters=TIMED_ITERS))
+        del state, step
+    print(f"time reg stage-8 iteration bf16 batch {n} (CUDA events, {TIMED_ITERS} iterations each, order A B C C B A): "
+          + "; ".join(f"{k} {' '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items()) + f" {math_flags()}")
+    cfg = configs["PLR 2.0 penalized"]
+    state = build_state(cfg, dev)
+    state.stage = 8
+    step = make_train_step(cfg, 8, n, 8.0, (False,), False)
+    step(state, real)
+    torch.cuda.synchronize()
+    pairs = []
+    with timed_second_derivative(pairs), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, real)
+        torch.cuda.synchronize()
+    events_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    card = {}
+    ranged = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            name = next((k for k in KERNELS if k in e.name), e.name[:60])
+            count, ms = card.get(name, (0, 0.0))
+            card[name] = (count + 1, ms + e.device_time_total / 1e3)
+        elif e.device_type == DeviceType.CPU and e.name == SECOND_DERIVATIVE:
+            ranged += e.device_time_total / 1e3
+    busy = sum(ms for _, ms in card.values())
+    launched = sum(c for c, _ in card.values())
+    top = sorted(card.items(), key=lambda kv: -kv[1][1])[:10]
+    ours = {g: sum(ms for k, (_, ms) in card.items() if any(p in k for p in pats))
+            for g, pats in (("K1", ("conv3x3", "finalize_moments", "affine_apply")), ("K2", ("adain",)),
+                            ("K3", ("epilogue_sums", "epilogue_apply", "sum_tiles")))}
+    print(f"time reg penalized PLR iteration, stage 8 bf16 batch {n} (profiler): card busy {busy:.3f} ms in {launched} "
+          f"kernels; the second derivative's torch ops ({len(pairs)} calls): {ranged:.3f} ms of card time in the "
+          f"profiler's range ({100 * ranged / busy:.1f}% of busy), {events_ms:.3f} ms between CUDA events around its calls; "
+          + ", ".join(f"{g} {v:.3f} ms" for g, v in ours.items()) + "; ten largest kernels: "
+          + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in top) + f" {math_flags()}")
+    return times, {"busy_ms": busy, "kernels": launched, "second_derivative_ms": ranged, "second_derivative_event_ms": events_ms}
+
+
 def profile_totals(fn):
     """One traced fn() after a warm-up call: per kernel on the card (short
     name as in ``cardcheck.KERNELS``) its launches and ms, and per host op
@@ -1525,6 +1911,19 @@ def main() -> int:
         train_with_eval(tmp, final)
         wspace_times(final)
 
+        # Phases 17-20: the augmentation, ADA and path-length regularization
+        # slice: both Functions' second derivative, the training CLI with
+        # ADA and PLR (a subprocess to chk-12.pth, then the resume through
+        # stage 8, counting launches per plain and per penalized iteration),
+        # one penalized stage-8 step kernel vs plain path, and the times.
+        with strict_f32():
+            second_errs = second_derivative_checks(shapes, gen)
+        reg_launches, reg_per_iteration, reg_sub_wall, reg_wall = regularized_training(tmp, root)
+        with strict_f32():
+            reg_step = regularized_step_kernel_vs_plain()
+            regularized_step_kernel_vs_plain(critic_biases=False)
+        _, reg_profile = regularized_times(gen)
+
     kernels = [
         {
             "name": "styleconv", "route": "cuda",
@@ -1541,6 +1940,9 @@ def main() -> int:
             "launches_slice_train": slice_train["styleconv"],
             "launches_slice_sample": slice_sample["styleconv"],
             "launches_project_per_iteration": project_launches["styleconv"],
+            "launches_reg_train": reg_launches["styleconv"],
+            "launches_reg_stage8_penalized_iteration": reg_per_iteration["penalized"][0],
+            "launches_reg_stage8_plain_iteration": reg_per_iteration["plain"][0],
             "max_abs_err_train": train_errs[torch.bfloat16]["fwd"],
             "with_stats": {**k1s, "bound_by": k1s_by, "library_ms": None,
                            "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
@@ -1563,6 +1965,9 @@ def main() -> int:
             "launches_slice_train": slice_train["adain"],
             "launches_slice_sample": slice_sample["adain"],
             "launches_project_per_iteration": project_launches["adain"],
+            "launches_reg_train": reg_launches["adain"],
+            "launches_reg_stage8_penalized_iteration": reg_per_iteration["penalized"][1],
+            "launches_reg_stage8_plain_iteration": reg_per_iteration["plain"][1],
         },
         {
             "name": "styleconv_bwd", "route": "cuda",
@@ -1571,6 +1976,11 @@ def main() -> int:
             "launches": train_launches["styleconv_bwd"],
             "launches_slice_train": slice_train["styleconv_bwd"],
             "launches_project_per_iteration": project_launches["styleconv_bwd"],
+            "launches_reg_train": reg_launches["styleconv_bwd"],
+            "launches_reg_stage8_penalized_iteration": reg_per_iteration["penalized"][2],
+            "launches_reg_stage8_plain_iteration": reg_per_iteration["plain"][2],
+            "max_rel_err_under_create_graph": second_errs[torch.bfloat16]["first"],
+            "max_rel_err_under_create_graph_f32": second_errs[torch.float32]["first"],
             "max_abs_err": train_errs[torch.bfloat16]["k3"],
             "max_abs_err_f32": train_errs[torch.float32]["k3"],
             **k3, "bound_by": k3_by,
@@ -1583,6 +1993,13 @@ def main() -> int:
           f"(bar {WPLUS_BAR}), the JAX test's model {small_ratio:.4f} (bar {SMALL_BAR}); dL/dw kernel vs plain "
           f"relative L2 {project_grad[0]:.3e}, max {project_grad[1]:.3e}; SWD, MS-SSIM card vs CPU (TF32 off) "
           f"{eval_errs['TF32 off']}")
+    print(f"reg: second derivative kernel vs plain max rel err f32 {second_errs[torch.float32]['second']:.3e}, bf16 "
+          f"{second_errs[torch.bfloat16]['second']:.3e} (rounding alone {second_errs[torch.float32]['rounding alone']:.3e}, "
+          f"{second_errs[torch.bfloat16]['rounding alone']:.3e}); CLI with ADA 0.6 and PLR 2.0: subprocess {reg_sub_wall:.2f} s, "
+          f"resume {reg_wall:.2f} s; stage-8 launches per penalized iteration {reg_per_iteration['penalized']}, plain "
+          f"{reg_per_iteration['plain']}; penalized step kernel vs plain losses {reg_step[0]:.3e}, gen grads {reg_step[1]}, "
+          f"critic grads {reg_step[2]}; penalized iteration card busy {reg_profile['busy_ms']:.3f} ms, second derivative "
+          f"{reg_profile['second_derivative_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -7,12 +7,15 @@ has only PyTorch and the CUDA toolkit:
 """
 
 import contextlib
+import warnings
 
 import pytest
 import torch
 
+from byogan_tpu_torch.models.factory import ModelSpec
 from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
-from byogan_tpu_torch.ops.cardcheck import K1_CASES, K3_CASES, forced_plan
+from byogan_tpu_torch.ops.augment import augment_batch, draw_augment
+from byogan_tpu_torch.ops.cardcheck import K1_CASES, K3_CASES, forced_plan, second_derivatives
 from byogan_tpu_torch.ops.fused import NoiseLReLUAdaINFunction, noise_lrelu_adain_plain
 from byogan_tpu_torch.ops.styleconv import StyleConvFunction, styleconv_cuda, styleconv_plain
 from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda, styleconv_backward_plain
@@ -407,3 +410,68 @@ def test_swd_and_msssim_on_the_card_match_the_cpu(cuda_device):
     torch.testing.assert_close(msssim(fake.to(cuda_device), b.to(cuda_device)).cpu(), msssim(fake, b), atol=1e-4, rtol=0)
     for images in (fake, real):
         assert abs(float(msssim_diversity(images.to(cuda_device))) - float(msssim_diversity(images))) <= 1e-4
+
+
+# The synthesis epilogues of a stage-8 generator at batch 2, as path-length
+# regularization runs them (n, h, w, cin, cout for K1; n, h, w, c for K2).
+SECOND_ORDER_CASES = [(2, r, r, cin, cout) for r, cin, cout in ModelSpec().styleconv_shapes()] + [(2, 4, 4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SECOND_ORDER_CASES)
+def test_second_derivative_kernel_path_matches_plain(cuda_device, shape, dtype):
+    """First (K3 under create_graph) and second derivatives through the
+    Functions against autograd's of the plain forward, which takes
+    LeakyReLU's branch from the kernel's hv (see styleconv_plain)."""
+    if len(shape) == 5:
+        ins = as_torch(styleconv_inputs(*shape, seed=10), DTYPES[dtype], cuda_device)
+        with torch.no_grad():
+            positive = styleconv_cuda(**ins, with_stats=True)[1] >= 0
+        fn, plain = (lambda *a: StyleConvFunction.apply(*a, 1e-8)), (lambda *a: styleconv_plain(*a, positive=positive))
+    else:
+        ins = as_torch(epilogue_inputs(shape, seed=10), DTYPES[dtype], cuda_device)
+        fn, plain = (lambda *a: NoiseLReLUAdaINFunction.apply(*a, 1e-8)), noise_lrelu_adain_plain
+    k3 = styleconv_backward_cuda.launches
+    got_first, got = second_derivatives(fn, ins, 0)
+    torch.cuda.synchronize()
+    assert styleconv_backward_cuda.launches == k3 + 1
+    want_first, want = second_derivatives(plain, ins, 0)
+    for i, (g, w) in enumerate(zip(got_first + got, want_first + want)):
+        assert g.dtype == w.dtype, i
+        assert_rel(g, w, GRAD_TOL[dtype], f"derivative {i}")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 512, 512, 3), (24, 4, 4, 3), (16, 64, 64, 3)])
+def test_augment_on_the_card_matches_the_cpu(cuda_device, shape):
+    """The same images and draws on both devices, p a device scalar as the
+    ADA controller's: forward and backward within 1e-5 (f32 means summed in
+    another order), and no warning under deterministic algorithms (the
+    translation's backward is a gather, not a scatter_add)."""
+    n, h, w, _ = shape
+    draws = draw_augment(torch.Generator().manual_seed(3), n, h, w)
+    imgs = torch.rand(shape, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    cot = torch.randn(shape, generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        x = imgs.to(dev).requires_grad_(True)
+        with warnings.catch_warnings(record=True) as caught, _deterministic():
+            warnings.simplefilter("always")
+            y = augment_batch(x, torch.tensor(0.5, device=dev), draws.to(dev))
+            (g,) = torch.autograd.grad(y, x, cot.to(dev))
+            torch.cuda.synchronize()
+        assert not [c for c in caught if "determinis" in str(c.message)], [str(c.message) for c in caught]
+        out[str(dev)] = (y.detach().cpu(), g.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

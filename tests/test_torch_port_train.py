@@ -130,13 +130,18 @@ def test_initial_block_function_grads_match_jax_lax():
 
 
 def test_functions_refuse_a_second_derivative():
+    """Path-length regularization needs a second derivative through the
+    Functions, so they take one now (held against plain autograd in
+    tests/test_torch_port_regularizers.py); what they refuse is a third."""
     ins = styleconv_inputs(1, 4, 4, 4, 4, seed=13)
     targs = [_t(ins[k]).requires_grad_(True) for k in ARGS7]
     (gx,) = torch.autograd.grad(
         StyleConvFunction.apply(*targs, 1e-8).square().sum(), targs[0], create_graph=True
     )
+    (gw,) = torch.autograd.grad(gx.square().sum(), targs[1], create_graph=True)
+    assert torch.isfinite(gw).all() and gw.abs().max() > 0
     with pytest.raises(RuntimeError, match="once_differentiable"):
-        gx.sum().backward()
+        gw.sum().backward()
 
 
 # -- the critic ----------------------------------------------------------------
