@@ -2,6 +2,7 @@
 
     python -m byogan_tpu_torch.cli.main <section> [-c CKPT] [--config-file cfg.txt]
                                         [--max-iters N] [-d DEVICE] [--force-resume]
+                                        [--trace-dir DIR]
 
 Reads ``<section>`` of an INI config (``config.txt`` by default), trains on
 the GPU and writes ``.pth`` checkpoints.  ``-d cpu`` (or ``device = cpu``
@@ -9,13 +10,15 @@ in the section) takes the plain PyTorch path on the CPU; without a GPU
 any other device raises.  SIGTERM or SIGINT saves ``chk-{iters}.pth`` at
 the next iteration boundary and exits 0; ``-c`` resumes from it.  A resume
 whose trajectory knobs differ from the checkpoint's fails unless
-``--force-resume``.
+``--force-resume``.  ``--trace-dir`` writes a ``torch.profiler`` trace
+of the run there (``profiling.trace_if``).
 """
 
 from __future__ import annotations
 
 import argparse
 
+from byogan_tpu_torch.profiling import trace_if
 from byogan_tpu_torch.train.config import load_ini_config
 from byogan_tpu_torch.train.loop import train
 
@@ -26,6 +29,7 @@ def main(argv=None):
     parser.add_argument("-c", "--checkpoint", dest="checkpoint", help="Path to checkpoint file")
     parser.add_argument("--config-file", default="config.txt", help="INI config path")
     parser.add_argument("--max-iters", type=int, default=None, help="stop after N iterations")
+    parser.add_argument("--trace-dir", default=None, help="write a torch.profiler trace here")
     parser.add_argument(
         "-d", "--device", default=None,
         help="torch device (default: cuda, or cpu when the section says device = cpu)",
@@ -39,10 +43,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     config = load_ini_config(args.config_file, args.config)
     device = args.device or ("cpu" if config.device == "cpu" else "cuda")
-    return train(
-        config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
-        allow_config_mismatch=args.force_resume,
-    )
+    with trace_if(args.trace_dir):
+        return train(
+            config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
+            allow_config_mismatch=args.force_resume,
+        )
 
 
 if __name__ == "__main__":

@@ -5,15 +5,19 @@ folder ``0``), one PNG per image at each stage's resolution 4*2^(k-1):
 smooth colour gradients with a disk, drawn from parameters made by
 ``np.random.default_rng(seed)``, so every stage shows the same scenes.
 For tests and for the smoke run on the card, which has no PIL.
+``encode_png_filtered`` writes originals for ``data/prep.py`` under each
+of PNG's five row filters.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
-from byogan_tpu_torch.serve import encode_png
+from byogan_tpu_torch.serve import _png_chunk, encode_png
 
 
 def render(params: np.ndarray, size: int) -> np.ndarray:
@@ -43,3 +47,24 @@ def write_prepared_dataset(root: str, n_images: int, num_stages: int, seed: int 
             with open(os.path.join(folder, f"img-{i:04d}.png"), "wb") as f:
                 f.write(encode_png(render(p, size), compression=1))
     return root
+
+
+def encode_png_filtered(img: np.ndarray, row_filter: int, compression: int = 6) -> bytes:
+    """A uint8 RGB image (H, W, 3) as PNG bytes with every row under one
+    PNG filter: 0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth.  Each predictor
+    reads the unfiltered neighbours, so the whole image filters at once.
+    For originals that exercise every path of the decoder."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    left, up, up_left = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, c:], up[1:], up_left[1:, c:] = x[:, :-c], x[:-1], x[:-1, :-c]
+    if row_filter == 4:
+        p = left + up - up_left
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    else:
+        pred = (0, left, up, (left + up) >> 1)[row_filter]
+    rows = np.concatenate([np.full((h, 1), row_filter, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return b"".join((b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", header),
+                     _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), compression)), _png_chunk(b"IEND", b"")))

@@ -7,7 +7,10 @@ out.  The plain version is ``ops.fused.noise_lrelu_adain_plain`` and the
 device dispatch ``ops.fused.noise_lrelu_adain``.  For training the kernel
 also writes the backward's residuals (``with_stats``): the f32 pre-norm
 activations and the per-(sample, channel) mean and inv; the backward is K3
-(``ops.fused.NoiseLReLUAdaINFunction``).
+(``ops.fused.NoiseLReLUAdaINFunction``).  The forward without residuals
+is also the registered op ``torch.ops.byogan.noise_lrelu_adain``
+(``noise_lrelu_adain_op``): the plain version on a CPU tensor, K2 on a
+CUDA one, traceable by ``torch.export``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from byogan_tpu_torch.ops import build
 from byogan_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_input, check_tensor
+from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
 
 #: H*W up to which the kernel takes its one-launch route; larger images are
 #: cut into tiles of this many pixels (adain.cu)
@@ -79,3 +83,29 @@ def noise_lrelu_adain_cuda(
 
 
 noise_lrelu_adain_cuda.launches = 0
+
+
+@torch.library.custom_op("byogan::noise_lrelu_adain", mutates_args=(), device_types="cpu")
+def noise_lrelu_adain_op(
+    x: torch.Tensor,
+    noise: torch.Tensor,
+    noise_w: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    eps: float,
+) -> torch.Tensor:
+    """K2 without residuals as the op ``byogan::noise_lrelu_adain``: the
+    plain version on a CPU tensor; on a CUDA tensor
+    ``noise_lrelu_adain_cuda``, which counts the launch and raises if the
+    build or the launch fails."""
+    return noise_lrelu_adain_plain(x, noise, noise_w, gamma, beta, eps).contiguous()
+
+
+@noise_lrelu_adain_op.register_kernel("cuda")
+def _noise_lrelu_adain_op_cuda(x, noise, noise_w, gamma, beta, eps):
+    return noise_lrelu_adain_cuda(x, noise, noise_w, gamma, beta, eps)
+
+
+@noise_lrelu_adain_op.register_fake
+def _noise_lrelu_adain_op_fake(x, noise, noise_w, gamma, beta, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

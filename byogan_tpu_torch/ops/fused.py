@@ -3,7 +3,8 @@
 ``noise_lrelu_adain_plain`` is the plain PyTorch version, cast for cast the
 JAX package's ``noise_lrelu_adain_lax``.  ``noise_lrelu_adain`` dispatches
 on the tensor's device: the plain version on the CPU, the hand-written K2
-kernel (``ops/adain.py``) on CUDA.  When an input wants a gradient it goes
+kernel (``ops/adain.py``) on CUDA, through the registered op
+``byogan::noise_lrelu_adain``.  When an input wants a gradient it goes
 through ``NoiseLReLUAdaINFunction``, whose backward is K3
 (``ops/styleconv_bwd.py``); JAX differentiates the lax epilogue instead.
 Under ``create_graph`` that backward is ``NoiseLReLUAdaINBackwardFunction``,
@@ -138,12 +139,10 @@ def noise_lrelu_adain(
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """The epilogue: plain on a CPU tensor, the K2 kernel on a CUDA one,
-    through ``NoiseLReLUAdaINFunction`` when an input wants a gradient."""
+    through ``NoiseLReLUAdaINFunction`` when an input wants a gradient,
+    else through the op ``byogan::noise_lrelu_adain`` (``ops/adain.py``,
+    registered when ``byogan_tpu_torch.ops`` is imported)."""
     args = (x, noise, noise_w, gamma, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return NoiseLReLUAdaINFunction.apply(*args, eps)
-    if x.device.type == "cpu":
-        return noise_lrelu_adain_plain(x, noise, noise_w, gamma, beta, eps)
-    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
-
-    return noise_lrelu_adain_cuda(x, noise, noise_w, gamma, beta, eps)
+    return torch.ops.byogan.noise_lrelu_adain(*args, eps)

@@ -7,7 +7,11 @@ how it is laid out.  Same contract as ``styleconv_pallas``: NHWC x, an HWIO
 weight already multiplied by the equalized scale, bias and noise_w in f32.
 
 ``styleconv`` dispatches on the device: ``styleconv_plain`` for a CPU
-tensor, the kernel for a CUDA one.  When an input wants a gradient it goes
+tensor, the kernel for a CUDA one.  Without a gradient it calls the
+registered op ``torch.ops.byogan.styleconv`` (``styleconv_op``), whose CPU
+implementation is the plain version and whose CUDA one launches K1, so
+that ``torch.export`` can trace a generator through it (``deploy.py``); a
+ctypes call cannot be traced.  When an input wants a gradient it goes
 through ``StyleConvFunction``, the port of the custom_vjp ``styleconv``
 (pallas_styleconv.py:235-308): the forward also returns the residuals
 (``with_stats``: the f32 pre-norm activations hv, as the TPU kernel's
@@ -332,6 +336,34 @@ class StyleConvBackwardFunction(torch.autograd.Function):
         return (got[0], None, None, None, None, None) + got[1:]
 
 
+@torch.library.custom_op("byogan::styleconv", mutates_args=(), device_types="cpu")
+def styleconv_op(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    noise: torch.Tensor,
+    noise_w: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    eps: float,
+) -> torch.Tensor:
+    """K1 without residuals as the op ``byogan::styleconv``: the plain
+    version on a CPU tensor (contiguous, as the kernel's output is); on a
+    CUDA tensor ``styleconv_cuda``, which counts the launch and raises if
+    the build or the launch fails."""
+    return styleconv_plain(x, weight, bias, noise, noise_w, gamma, beta, eps).contiguous()
+
+
+@styleconv_op.register_kernel("cuda")
+def _styleconv_op_cuda(x, weight, bias, noise, noise_w, gamma, beta, eps):
+    return styleconv_cuda(x, weight, bias, noise, noise_w, gamma, beta, eps)
+
+
+@styleconv_op.register_fake
+def _styleconv_op_fake(x, weight, bias, noise, noise_w, gamma, beta, eps):
+    return x.new_empty((*x.shape[:3], weight.shape[-1]))
+
+
 def styleconv(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -343,10 +375,9 @@ def styleconv(
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """The synthesis conv: plain on a CPU tensor, K1 on a CUDA one, through
-    ``StyleConvFunction`` when an input wants a gradient."""
+    ``StyleConvFunction`` when an input wants a gradient, else through the
+    op ``byogan::styleconv``."""
     args = (x, weight, bias, noise, noise_w, gamma, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return StyleConvFunction.apply(*args, eps)
-    if x.device.type == "cpu":
-        return styleconv_plain(*args, eps)
-    return styleconv_cuda(*args, eps)
+    return torch.ops.byogan.styleconv(*args, eps)

@@ -117,9 +117,8 @@ class Sampler:
         self.z_dim = trained_z_dim if z_dim is None else z_dim
         self.truncation = truncation
         self.dtype = getattr(torch, dtype)
-        self._gen = build_generator(
-            ModelSpec.from_dict(save.get("model")), dtype=self.dtype, z_dim=trained_z_dim
-        )
+        self.spec = ModelSpec.from_dict(save.get("model"))
+        self._gen = build_generator(self.spec, dtype=self.dtype, z_dim=trained_z_dim)
         self._gen.load_state_dict(weights, strict=True)
         self._gen.to(self.device).eval().requires_grad_(False)
         self._rng = make_generator(self.device, seed)

@@ -7,13 +7,14 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 ``gradient_lambda`` goes through ``int()``, ``lr`` defaults to 0.001 in
 code.  ``final_image_size`` is read by nobody.
 
-Knobs of features the port does not have yet (remat, a mesh) keep their
-fields, so a config file parses the same in both packages, but a value
-that would turn one on raises a ``ValueError`` that names it instead of
-being ignored.  The opt-in regularizers are ported: augmentation at a
-fixed ``aug_p`` or steered by the ADA controller (``ada_target``, which
-needs R1), and path-length regularization (``plr_weight``), with JAX's
-checks.
+The mesh knobs (``data_axis``, ``model_axis``) keep their fields, so a
+config file parses the same in both packages, but a value that would turn
+one on raises a ``ValueError`` that names it instead of being ignored.
+The opt-in regularizers are ported: augmentation at a fixed ``aug_p`` or
+steered by the ADA controller (``ada_target``, which needs R1), and
+path-length regularization (``plr_weight``), with JAX's checks; so is
+rematerialization, for every stage (``remat``) or per stage
+(``remat_progression``, ``stage_remat``).
 """
 
 from __future__ import annotations
@@ -80,14 +81,14 @@ class TrainConfig:
                 f"but epoch_progression defines {len(self.epoch_progression)} "
                 "stages; every stage needs a batch size"
             )
+        if self.remat_progression is not None and len(self.remat_progression) != len(self.epoch_progression):
+            raise ValueError(
+                f"remat_progression has {len(self.remat_progression)} flags "
+                f"for {len(self.epoch_progression)} stages"
+            )
         unported = [
             name
-            for name, on in (
-                ("remat", self.remat),
-                ("remat_progression", any(self.remat_progression or ())),
-                ("data_axis", self.data_axis > 1),
-                ("model_axis", self.model_axis > 1),
-            )
+            for name, on in (("data_axis", self.data_axis > 1), ("model_axis", self.model_axis > 1))
             if on
         ]
         if unported:
@@ -120,6 +121,17 @@ class TrainConfig:
 
     def stage_batch(self, stage_index: int) -> int:
         return self.batch_progression[stage_index]
+
+    def stage_remat(self, stage_index: int) -> bool:
+        """Per-stage remat flag (remat_progression overrides global remat)."""
+        if self.remat_progression is None:
+            return self.remat
+        if len(self.remat_progression) != self.num_stages:
+            raise ValueError(
+                f"remat_progression has {len(self.remat_progression)} flags "
+                f"for {self.num_stages} stages"
+            )
+        return self.remat_progression[stage_index]
 
     def stage_epochs(self, stage_index: int) -> int:
         return self.epoch_progression[stage_index]

@@ -15,6 +15,7 @@ checkpoint's.  ``eval_step > 0`` logs SWD and MS-SSIM every ``eval_step``
 iterations (``log_eval``) from draws of their own, so the training
 trajectory is the same with and without it.
 
+Each iteration is a named region of a profiler trace (``annotate``).
 Not here yet: the mesh of the JAX loop.
 """
 
@@ -40,6 +41,7 @@ from byogan_tpu_torch.data.pipeline import (
     to_device,
 )
 from byogan_tpu_torch.models.factory import ModelSpec, build_critic, build_generator
+from byogan_tpu_torch.profiling import annotate
 from byogan_tpu_torch.serve import encode_png
 from byogan_tpu_torch.train.checkpoint import prune_checkpoints, restore_train_state, save_checkpoint
 from byogan_tpu_torch.train.config import TrainConfig
@@ -283,7 +285,8 @@ def _train(
                     step_cache[key] = make_train_step(
                         config, steps, batch, fade_in, critic_fade, gen_fade
                     )
-                metrics = step_cache[key](state, real)
+                with annotate(f"train_step stage {steps}"):
+                    metrics = step_cache[key](state, real)
                 gen_alpha = state.im_count / fade_in
                 alpha_ckpt = None if gen_alpha > 1.0 else gen_alpha
 

@@ -30,6 +30,14 @@ of their own, and ``pl_ema`` moves by ``plr_decay * (pl_mean - pl_ema)``,
 steps.py:312-369).  With all of them off a step runs the code of the
 default path and draws the same random numbers.
 
+Rematerialization (``config.stage_remat(steps - 1)``, byogan_tpu/train/
+steps.py:106, 159-163) wraps the applies JAX wraps in ``jax.checkpoint``
+in ``torch.utils.checkpoint`` (``maybe_remat``): the critic inside the
+critic's loss, R1's double backward included; the generator, plain or
+mixed, and the critic in the generator's loss; PLR's synthesis.  Their
+activations are not kept for the backward but computed again there, so
+on the card the generator phase runs K1 and K2 with residuals twice.
+
 Random draws come from ``state.rng`` in the order of ``draw``.
 ``step(state, real, draws)`` also takes draws made elsewhere, so a test can
 feed it the JAX step's own.
@@ -41,6 +49,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from byogan_tpu_torch.core.random import stage_resolution, synthesis_noise, truncated_noise
 from byogan_tpu_torch.ops.augment import AugDraws, augment_batch, draw_augment
@@ -179,6 +188,20 @@ def synthesize(
     return gen(None, noise, steps=steps, alpha=alpha, style=styles)
 
 
+def maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` whose activations are recomputed in the backward instead of
+    kept (byogan_tpu/train/steps.py:159-163), or ``fn`` itself.  The
+    non-reentrant checkpoint, because the reentrant one cannot be taken
+    through ``torch.autograd.grad``, which R1 and PLR take with
+    ``create_graph``.  The RNG state is not saved and restored around the
+    recompute: nothing inside the wrapped applies draws (every draw of a
+    step is made by ``draw`` before it, and augmentation runs outside them
+    on its ``AugDraws``), so the recompute sees the same inputs."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def ema_update(ema: Sequence[torch.Tensor], params: Sequence[torch.Tensor], beta: float) -> None:
     """``e = e*beta + p*(1-beta)`` in place, rounded as the JAX expression
     (byogan_tpu/train/steps.py:378-386): each product, then the sum."""
@@ -195,10 +218,12 @@ def critic_loss(
     steps: int,
     alpha: Optional[float],
     eps: Optional[torch.Tensor],
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, losses.Aux]:
     """The critic phase's loss: R1 (lazy when ``r1_interval > 1``, lambda
-    scaled by the interval) or WGAN-GP."""
-    crit = lambda imgs: state.critic(imgs, steps, alpha)  # noqa: E731
+    scaled by the interval) or WGAN-GP; ``remat`` recomputes the critic's
+    activations in the backward."""
+    crit = maybe_remat(lambda imgs: state.critic(imgs, steps, alpha), remat)
     if not config.use_r1:
         return losses.critic_wgan_gp_loss(crit, real, fake, config.c_lambda, eps)
     if state.iters % config.r1_interval:
@@ -215,25 +240,29 @@ def generator_loss(
     alpha: Optional[float],
     mix: Optional[Mix] = None,
     aug: Optional[AugDraws] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """The generator phase's loss through the critic; with ``aug`` the
-    fakes are augmented (differentiably) at ``state.aug_p`` first."""
-    fake = synthesize(state.gen, config, z, noise, steps, alpha, mix)
+    fakes are augmented (differentiably) at ``state.aug_p`` first.
+    ``remat`` recomputes the generator's and the critic's activations in
+    the backward, each apply on its own as in JAX."""
+    fake = maybe_remat(lambda z_: synthesize(state.gen, config, z_, noise, steps, alpha, mix), remat)(z)
     if aug is not None:
         fake = augment_batch(fake, state.aug_p, aug)
-    pred = state.critic(fake, steps, alpha)
+    pred = maybe_remat(lambda imgs: state.critic(imgs, steps, alpha), remat)(fake)
     return losses.gen_logistic_loss(pred) if config.use_r1 else losses.gen_wgan_loss(pred)
 
 
 def path_length_penalty(
-    state: TrainState, plr: PLRDraws, steps: int, alpha: Optional[float]
+    state: TrainState, plr: PLRDraws, steps: int, alpha: Optional[float], remat: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(penalty, mean path length) on ``plr``'s latents: w from the mapping
     network inside the penalized branch, so the parameter gradient reaches
     the mapping network through w too, and one w for every stage
-    (byogan_tpu/train/steps.py:318-336)."""
+    (byogan_tpu/train/steps.py:318-336); ``remat`` recomputes the
+    synthesis's activations in both backwards."""
     w = state.gen.map_latent(plr.z)
-    synth = lambda w_: state.gen(None, plr.noise, steps=steps, alpha=alpha, style=[w_] * steps)  # noqa: E731
+    synth = maybe_remat(lambda w_: state.gen(None, plr.noise, steps=steps, alpha=alpha, style=[w_] * steps), remat)
     return losses.gen_path_length_penalty(synth, w, state.pl_ema, plr.y)
 
 
@@ -252,10 +281,12 @@ def make_train_step(
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The step of one stage and fade pattern.  ``critic_fade`` has one flag
     per critic repeat (True: the blend path), ``gen_fade`` is the generator
-    phase's.  ``fade_in`` is the fade span in images (train.py:119)."""
+    phase's.  ``fade_in`` is the fade span in images (train.py:119).  The
+    stage's remat flag is ``config.stage_remat(steps - 1)``."""
     if len(critic_fade) != config.critic_repeats:
         raise ValueError("critic_fade must have one flag per critic repeat")
     dtype = getattr(torch, config.compute_dtype)
+    remat = config.stage_remat(steps - 1)
 
     def step(
         state: TrainState, real: torch.Tensor, draws: Optional[Draws] = None
@@ -292,7 +323,7 @@ def make_train_step(
             if config.use_aug:  # fresh draws for each use; R1 at the augmented reals
                 real_r = augment_batch(real, state.aug_p, aug[2 * r])
                 fake = augment_batch(fake, state.aug_p, aug[2 * r + 1])
-            c_loss, c_aux = critic_loss(state, config, real_r, fake, steps, alpha, eps)
+            c_loss, c_aux = critic_loss(state, config, real_r, fake, steps, alpha, eps, remat)
             if config.ada_target > 0:
                 rt_acc = rt_acc + c_aux["real_sign"]
             _update(c_loss, c_params, state.critic_opt)
@@ -302,11 +333,11 @@ def make_train_step(
         alpha_g = im_count / fade_in if gen_fade else None
         state.critic.requires_grad_(False)
         try:
-            g_loss = generator_loss(state, config, z, noise, steps, alpha_g, mix[-1], aug[-1])
+            g_loss = generator_loss(state, config, z, noise, steps, alpha_g, mix[-1], aug[-1], remat)
             if config.plr_weight > 0:
                 g_loss, pen = g_loss.float(), torch.zeros((), device=real.device)
                 if plr_on:
-                    pen, pl_mean = path_length_penalty(state, draws.plr, steps, alpha_g)
+                    pen, pl_mean = path_length_penalty(state, draws.plr, steps, alpha_g, remat)
                     g_loss = g_loss + (config.plr_weight * config.plr_interval) * pen
             _update(g_loss, g_params, state.gen_opt)
         finally:

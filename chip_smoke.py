@@ -41,7 +41,15 @@ both paths of the port at full width (``ModelSpec()``):
   steps, pl_ema, the checkpoint's regularizer state), one penalized
   stage-8 step with augmentation on the kernel path against the plain
   path, and the stage-8 iteration's time default, with ADA and penalized,
-  with a profile of the penalized one.
+  with a profile of the penalized one;
+* the remat, dataset-preparation, serving-program and trace slice: one
+  stage-8 step with remat against the same step without it (plain and
+  penalized), the training CLI through all 8 stages with remat at stage 7
+  (launches per iteration), peak memory and time with and without remat,
+  ``cli.prep`` on synthetic originals against the plain resize, the
+  generator exported with ``cli.export --program`` and served from a
+  fresh process against ``Sampler.render``, and a profiler trace of the
+  training CLI.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -1713,6 +1721,454 @@ def profile_totals(fn):
     return card, host
 
 
+# The remat, dataset-preparation, serving-program and trace slice.
+REMAT_CONFIG = (
+    "[remat]\n"
+    "data = {data}\n"
+    "epoch_progression = 1,1,1,1,1,1,1,1\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "remat_progression = False,False,False,False,False,False,True,False\n"
+    "checkpoint_dir = {tmp}/remat_ck\noutput_dir = {tmp}/remat_out\n"
+)
+REMAT_STAGE = 7  # [ffhq-tpu-tuned]'s remat_progression flags stage 7 (256 px), at batch 128
+PREP_ORIGINALS, PREP_SIDE = 16, 1024
+PROGRAM_FRAMES = 128  # frames timed per sampler in the serving-program phase
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints the wall time of the phase inside."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s of wall time")
+
+
+def remat_launches(stage: int, penalized: bool = False) -> tuple:
+    """(K1, K2, K3) launches of one remat iteration at ``stage``: the
+    default's, and the generator phase's forward once more in its backward
+    (K1 2k-1, K2 1): the recompute runs up to the last activation the
+    backward needs, to_rgb's input, so every synthesis conv runs again; K3
+    as without remat.  A penalized iteration also recomputes PLR's
+    synthesis in each of its two backwards, the inner gradient's and the
+    parameter gradient's (K1 2(2k-1), K2 2 more)."""
+    k1, k2, k3 = iteration_launches(stage, penalized)
+    extra = (2 * stage - 1, 1) if not penalized else (3 * (2 * stage - 1), 3)
+    return (k1 + extra[0], k2 + extra[1], k3)
+
+
+def _step_outcome(cfg, draws, real, critic_biases):
+    """One stage-8 step of ``cfg`` on the kernel path from a fresh state
+    (noise weights and, with ``critic_biases``, the critic's biases drawn
+    as in ``regularized_step_kernel_vs_plain``): its metrics, both nets'
+    gradients and the (K1, K2, K3) launches."""
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    state = build_state(cfg, dev)
+    with torch.no_grad():
+        for net, pick, std in ((state.gen, "inject_noise", 0.3), (state.critic, "bias" if critic_biases else None, 0.1)):
+            for name, p in net.named_parameters():
+                if pick is not None and pick in name:
+                    p.normal_(0.0, std, generator=torch.Generator(device=dev).manual_seed(len(name)))
+    step = make_train_step(cfg, 8, TRAIN_BATCH, 8.0, (True,), True)
+    before = launch_counts()
+    metrics = step(state, real, draws)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(launch_counts(), before))
+    out = ({k: v.detach().clone() for k, v in metrics.items()}, {n: p.grad.clone() for n, p in state.gen.named_parameters()},
+           {n: p.grad.clone() for n, p in state.critic.named_parameters()}, launched)
+    del state
+    return out
+
+
+def remat_step_checks():
+    """One stage-8 f32 step with ``remat=True`` against the same step
+    without it, same weights, draws and batch, on the kernel path: the
+    default step, and a penalized PLR + ADA step at aug_p 0.5 (the setup of
+    ``regularized_step_kernel_vs_plain``).  Beside each, rounding alone:
+    the step without remat on latents moved by 1e-6.  Losses within
+    ``STEP_TOL``, gradients within ``STEP_GRAD_TOL``; launches as
+    ``remat_launches``.  Returns the launches and the worst errors."""
+    import dataclasses
+    import types
+
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.steps import draw
+
+    dev = torch.device("cuda")
+    out = {}
+    for what, knobs, biases in (
+        ("default", {}, False),
+        ("penalized PLR 2.0 + ADA, aug_p 0.5", dict(aug_p=0.5, ada_target=REG_TARGET, plr_weight=2.0, plr_interval=REG_INTERVAL), True),
+    ):
+        cfg = TrainConfig(compute_dtype="float32", **knobs)
+        rng = torch.Generator(device=dev).manual_seed(7)
+        draws = draw(types.SimpleNamespace(rng=rng, iters=0), cfg, TRAIN_BATCH, 8, torch.float32)
+        real = torch.randint(0, 256, (TRAIN_BATCH, 512, 512, 3), generator=rng, device=dev, dtype=torch.uint8)
+
+        def move(z):
+            return z * (1 + 1e-6 * torch.randn(z.shape, generator=rng, device=dev))
+
+        moved = dataclasses.replace(
+            draws, critic=[(move(z), n, e) for z, n, e in draws.critic], gen=(move(draws.gen[0]), draws.gen[1]),
+            plr=None if draws.plr is None else dataclasses.replace(draws.plr, z=move(draws.plr.z)),
+        )
+        pen = draws.plr is not None
+        t0 = time.perf_counter()
+        mp, gp, cp, lp = _step_outcome(cfg, draws, real, biases)
+        mr, gr, cr, lr = _step_outcome(dataclasses.replace(cfg, remat=True), draws, real, biases)
+        mm, gm, cm, _ = _step_outcome(cfg, moved, real, biases)
+        wall = time.perf_counter() - t0
+        require(lp == iteration_launches(8, pen), f"remat check {what}: the step without remat launched {lp}")
+        require(lr == remat_launches(8, pen), f"remat check {what}: the remat step launched {lr}, predicted {remat_launches(8, pen)}")
+        keys = [k for k in mp if k in ("c_loss", "g_loss", "r1_penalty", "real_pred", "fake_pred", "pl_penalty", "pl_ema", "aug_p", "rt_ema")]
+        loss_round = max(abs(float(mm[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-12) for k in keys)
+        g_round = grad_errs(gm, gp, f"remat check {what}: gen grad, rounding alone (no remat, latents moved by 1e-6)", check=False)
+        c_round = grad_errs(cm, cp, f"remat check {what}: critic grad, rounding alone (no remat, latents moved by 1e-6)", check=False)
+        loss_err = max(rel_err(mr[k], mp[k], STEP_TOL, f"remat check {what} {k}") for k in keys)
+        g_err = grad_errs(gr, gp, f"remat check {what}: gen grad, remat vs not")
+        c_err = grad_errs(cr, cp, f"remat check {what}: critic grad, remat vs not")
+        print(f"check remat step f32 stage 8 {what}, remat vs not: losses max rel err {loss_err:.3e} (tol {STEP_TOL}; "
+              f"rounding alone {loss_round:.3e}); generator grads relative L2 {g_err[0]:.3e}, max {g_err[1]:.3e} (rounding "
+              f"alone {g_round[0]:.3e}, {g_round[1]:.3e}); critic grads {c_err[0]:.3e}, {c_err[1]:.3e} (rounding alone "
+              f"{c_round[0]:.3e}, {c_round[1]:.3e}) (tol {STEP_GRAD_TOL}); launches (K1, K2, K3) remat {lr}, without {lp}; "
+              f"three steps {wall:.2f} s")
+        out[what] = {"launches": lr, "loss_err": loss_err, "grad_err": (g_err, c_err)}
+    return out
+
+
+def remat_through_cli(tmp):
+    """All 8 stages through the training CLI on the 24 synthetic images with
+    ``[ffhq-tpu-tuned]``'s ``remat_progression`` (stage 7 only): launches
+    per iteration asserted at every iteration, ``remat_launches`` at stage
+    7 and the default's elsewhere.  Returns the run's launches and the
+    stage-7 iteration's."""
+    from byogan_tpu_torch.cli.main import main as train_main
+
+    cfg = os.path.join(tmp, "remat.txt")
+    with open(cfg, "w") as f:
+        f.write(REMAT_CONFIG.format(data=os.path.join(tmp, "data"), tmp=tmp))
+    records = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_steps(records):
+        state = train_main(["remat", "--config-file", cfg])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_NAMES, launch_counts()))
+    require(state.iters == 16 and len(records) == 16, f"remat run: iterations {state.iters}, steps {len(records)}")
+    for k, _, _, got in records:
+        want = remat_launches(k) if k == REMAT_STAGE else iteration_launches(k, False)
+        require(got == want, f"remat run stage {k}: launches per iteration {got}, predicted {want}")
+    per_stage = {k: got for k, _, _, got in records}
+    print(f"remat train: 8 stages through the CLI with remat_progression {'F,' * 6}T,F, {state.iters} iterations in "
+          f"{wall:.2f} s; launches {launches}; per iteration (K1, K2, K3) by stage {per_stage}: stage {REMAT_STAGE} "
+          f"{remat_launches(REMAT_STAGE)} as predicted, the others the default's")
+    return launches, per_stage[REMAT_STAGE]
+
+
+def remat_memory_and_time(gen):
+    """Peak allocated memory and ms per iteration (CUDA events, PyTorch's
+    default math flags), bf16, no-blend path, with and without remat: at
+    stage 7, batch 128 (``[ffhq-tpu-tuned]``'s remat stage and batch) and
+    at stage 8, batch 5 (the default schedule's).  A run without remat
+    that does not fit prints its out-of-memory error as the finding; the
+    remat run at the same batch must fit.  Then one profiled remat
+    iteration at stage 8."""
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    results = {}
+    for stage, batch in ((REMAT_STAGE, 128), (8, TRAIN_BATCH)):
+        res = 4 * 2 ** (stage - 1)
+        real = torch.randint(0, 256, (batch, res, res, 3), generator=gen, device=dev, dtype=torch.uint8)
+        for remat in (False, True):
+            cfg = TrainConfig(remat=remat)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                state = build_state(cfg, dev)
+                state.stage = stage
+                step = make_train_step(cfg, stage, batch, 8.0, (False,), False)
+                step(state, real)  # warm-up
+                torch.cuda.synchronize()
+                ms = timed_ms(lambda: step(state, real), iters=3)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                results[(stage, batch, remat)] = (ms, peak)
+                print(f"time remat stage {stage} ({res} px) batch {batch} bf16 remat {remat}: {ms:.3f} ms per iteration "
+                      f"({1e3 * batch / ms:.2f} images/s, CUDA events, 3 iterations), peak allocated {peak:.3f} GiB; "
+                      f"{time.perf_counter() - t0:.1f} s {math_flags()}")
+            except torch.cuda.OutOfMemoryError as e:
+                require(not remat, f"the remat iteration at stage {stage} batch {batch} does not fit: {e}")
+                results[(stage, batch, remat)] = None
+                print(f"time remat stage {stage} ({res} px) batch {batch} bf16 remat {remat}: out of memory "
+                      f"(peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB): {str(e).splitlines()[0]}")
+            finally:
+                state = step = None
+                torch.cuda.empty_cache()
+    cfg = TrainConfig(remat=True)
+    state = build_state(cfg, dev)
+    state.stage = 8
+    step = make_train_step(cfg, 8, TRAIN_BATCH, 8.0, (False,), False)
+    real = torch.randint(0, 256, (TRAIN_BATCH, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
+    before = launch_counts()
+    card, _ = profile_totals(lambda: step(state, real))
+    launched = tuple((a - b) // 2 for a, b in zip(launch_counts(), before))  # the warm-up call and the traced one
+    busy = sum(ms for _, ms in card.values())
+    top = sorted(card.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"time remat profiled stage-8 iteration bf16 batch {TRAIN_BATCH}: card busy {busy:.3f} ms in "
+          f"{sum(c for c, _ in card.values())} kernels; launches (K1, K2, K3) {launched}; largest: "
+          + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in top) + f" {math_flags()}")
+    del state, step
+    torch.cuda.empty_cache()
+    return results
+
+
+def prep_on_card(tmp, root):
+    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y --pack`` on
+    ``PREP_ORIGINALS`` synthetic 1024 px originals (two non-square), each
+    written under one of PNG's five row filters, resizing on the card:
+    every level bit-equal to the plain numpy resize of the same pixels,
+    every ``packed.npy`` equal to its set's PNGs, stage 8 opened by
+    ``open_stage_dataset``.  Seconds per original for the CLI (its worker
+    threads) and, one original at a time in this process, by filter:
+    decode, the card's 8 resizes with their fetch and encode.  Returns the
+    seconds."""
+    from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil, resize_uint8_bilinear_pil_plain
+    from byogan_tpu_torch.data.pipeline import StageDataset, open_stage_dataset
+    from byogan_tpu_torch.data.png import read_png
+    from byogan_tpu_torch.data.synthetic import encode_png_filtered
+    from byogan_tpu_torch.serve import encode_png
+
+    data = os.path.join(tmp, "prep")
+    os.makedirs(data)
+    rng = np.random.default_rng(21)
+    originals = {}
+    for i in range(PREP_ORIGINALS):
+        h, w = {3: (768, PREP_SIDE), 10: (PREP_SIDE, 900)}.get(i, (PREP_SIDE, PREP_SIDE))
+        yy, xx = np.mgrid[0:h, 0:w]  # smooth colour with noise on top, as photos are
+        base = np.stack([np.sin(xx / (37 + 5 * c + i) + c) * np.cos(yy / (53 + i)) for c in range(3)], -1)
+        img = np.clip(127.5 + 100 * base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        name = f"orig-{i:02d}.png"
+        with open(os.path.join(data, name), "wb") as f:
+            f.write(encode_png_filtered(img, i % 5))
+        originals[name] = img
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y", "--pack"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    require("dataset ready: 8 resolution sets" in proc.stdout, f"cli.prep said {proc.stdout[-500:]}")
+    names = sorted(originals)
+    for n, name in enumerate(names):
+        level = originals[name]
+        for size in (512, 256, 128, 64, 32, 16, 8, 4):
+            level = resize_uint8_bilinear_pil_plain(level, size)
+            k = int(math.log2(size // 4)) + 1
+            got = read_png(os.path.join(data, "prepared", f"set_{k}", "images", f"image-{n}.png"))
+            require(np.array_equal(got, level), f"prep {name} at {size} px differs from the plain resize")
+    for k in range(1, 9):
+        ds = StageDataset(data, k)
+        packed = np.load(os.path.join(ds.set_dir, "packed.npy"))
+        require(packed.shape == (PREP_ORIGINALS,) + (4 * 2 ** (k - 1),) * 2 + (3,), f"set_{k} packed {packed.shape}")
+        for i, path in enumerate(ds.files):
+            require(np.array_equal(packed[i], read_png(path)), f"set_{k} packed.npy differs from {path}")
+    stage8 = open_stage_dataset(data, 8)
+    batch = stage8.get_batch_uint8(np.arange(4))
+    require(len(stage8) == PREP_ORIGINALS and batch.shape == (4, 512, 512, 3), "open_stage_dataset on the prepared set")
+    by_filter = {}
+    dev = torch.device("cuda")
+    for name in names[:5]:  # one original of each filter, 0-4
+        path = os.path.join(data, "original", "images", name)
+        t0 = time.perf_counter()
+        img = read_png(path)
+        t1 = time.perf_counter()
+        x = torch.from_numpy(img).to(dev)
+        for size in (512, 256, 128, 64, 32, 16, 8, 4):
+            x = resize_uint8_bilinear_pil(x, size)
+            encode_png(x.cpu().numpy())
+        t2 = time.perf_counter()
+        by_filter[("None", "Sub", "Up", "Average", "Paeth")[int(name[5:7]) % 5]] = (t1 - t0, t2 - t1)
+    print(f"prep: cli.prep of {PREP_ORIGINALS} originals ({PREP_SIDE} px, two non-square) to 8 sets with --pack in "
+          f"{cli_s:.2f} s ({cli_s / PREP_ORIGINALS:.3f} s per original, process start included, 8 worker threads); every "
+          f"level bit-equal to the plain numpy resize, packed.npy equal to the PNGs, stage 8 opened; one original at a "
+          f"time, s (decode, card resizes + fetch + encode) by row filter: "
+          + "; ".join(f"{f} {d:.3f} + {r:.3f}" for f, (d, r) in by_filter.items()))
+    return cli_s / PREP_ORIGINALS, by_filter
+
+
+def serve_program(path: str, out_path: str, seeds: str) -> int:
+    """Run in a fresh process by ``serving_program``: load the program with
+    ``byogan_tpu_torch.ops`` and ``deploy`` alone, render one batch per seed
+    (frames saved to ``out_path``), count K1, K2 and K3 launches, time
+    ``PROGRAM_FRAMES`` frames, and write the numbers beside the frames."""
+    t0 = time.perf_counter()
+    from byogan_tpu_torch.deploy import ExportedSampler
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.ops.styleconv_bwd import styleconv_backward_cuda
+
+    s = ExportedSampler(path)
+    load_s = time.perf_counter() - t0
+    loaded = sorted(m for m in sys.modules if m.startswith("byogan"))
+    z = s.sample_z(seed=5)
+    s(z, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    counters = (styleconv_cuda, noise_lrelu_adain_cuda, styleconv_backward_cuda)
+    for c in counters:
+        c.launches = 0
+    frames = [s(z, seed=int(seed)) for seed in seeds.split(",")]
+    launches = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    for i in range(PROGRAM_FRAMES // s.in_shape[0]):
+        s(z, seed=100 + i)
+    rate = PROGRAM_FRAMES / (time.perf_counter() - t0)
+    np.savez(out_path, frames=np.stack(frames), z=z, launches=np.array(launches), load_s=load_s, rate=rate,
+             loaded=np.array(loaded))
+    return 0
+
+
+def serving_program(tmp, root, final):
+    """The serving program from FINAL.pth's EMA weights: ``cli.export
+    --program --ema`` at 512 px, batch 8, bf16, without and with ``--psi
+    0.7``; each loaded in a fresh process (``serve_program``) that imports
+    ``byogan_tpu_torch.ops`` and ``deploy`` alone.  Frames within 1 LSB of
+    ``Sampler.render`` on the same z and the seeded noise, (15, 1, 0)
+    launches per batch, the program's bytes, load seconds and images/s
+    beside the Sampler's; the seeded noise on the card against the CPU
+    within 1e-6.  Returns the launches per batch and the worst frame
+    error."""
+    from byogan_tpu_torch.cli.export import main as export_main
+    from byogan_tpu_torch.core.random import seeded_synthesis_noise
+    from byogan_tpu_torch.serve import Sampler
+
+    dev = torch.device("cuda")
+    worst, per_batch = 0, None
+    seeds = (3, 11)
+    for psi in (None, 0.7):
+        path = os.path.join(tmp, f"gen{'' if psi is None else '-psi'}.pt2")
+        argv = [final, path, "--program", "--ema", "--batch", str(PATH_BATCH)] + ([] if psi is None else ["--psi", str(psi)])
+        t0 = time.perf_counter()
+        export_main(argv)
+        export_s = time.perf_counter() - t0
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        require(meta["resolution"] == 512 and meta["device"].startswith("cuda") and meta["truncation_psi"] == psi, f"sidecar {meta}")
+        npz = path + ".npz"
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.serve_program(*sys.argv[1:]))",
+             path, npz, ",".join(map(str, seeds))],
+            cwd=root, capture_output=True, text=True, timeout=600,
+        )
+        require(proc.returncode == 0, f"the program's process exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        got = np.load(npz)
+        loaded = [str(m) for m in got["loaded"]]
+        require(all(m == "byogan_tpu_torch" or m.startswith(("byogan_tpu_torch.ops", "byogan_tpu_torch.core"))
+                    or m == "byogan_tpu_torch.deploy" for m in loaded), f"the program's process imported {loaded}")
+        launches = tuple(int(v) // len(seeds) for v in got["launches"])
+        require(launches == (15, 1, 0), f"the program launched {tuple(got['launches'])} over {len(seeds)} batches")
+        per_batch = launches
+        sampler = Sampler(final, batch=PATH_BATCH, seed=0, use_ema=True, truncation_psi=psi)
+        z = torch.from_numpy(got["z"]).to(dev)
+        diffs = []
+        for seed, frames in zip(seeds, got["frames"]):
+            want = sampler.render(z, seeded_synthesis_noise(seed, PATH_BATCH, 8, dtype=sampler.dtype, device=dev)).cpu().numpy()
+            d = np.abs(frames.astype(np.int16) - want.astype(np.int16))
+            diffs.append((int(d.max()), int((d > 0).sum())))
+        err = max(m for m, _ in diffs)
+        require(err <= 1, f"program vs Sampler.render: max frame error {err}")
+        worst = max(worst, err)
+        sampler.sample(PATH_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.sample(PROGRAM_FRAMES)
+        sampler_rate = PROGRAM_FRAMES / (time.perf_counter() - t0)
+        print(f"program: cli.export --program --ema{'' if psi is None else f' --psi {psi}'} 512 px batch {PATH_BATCH} bf16 "
+              f"in {export_s:.2f} s, {meta['bytes']} bytes; a fresh process (imports {len(loaded)} modules of the package: "
+              f"ops, core, deploy) loads it in {float(got['load_s']):.2f} s and serves {float(got['rate']):.2f} images/s "
+              f"(host clock incl. fetch, {PROGRAM_FRAMES} frames) beside the Sampler's {sampler_rate:.2f}; launches per "
+              f"batch (K1, K2, K3) {launches}; frames vs Sampler.render on the same z and seeded noise: max error "
+              f"{err} LSB, pixels differing " + ", ".join(f"seed {s} {n} of {frames.size}" for s, (_, n) in zip(seeds, diffs))
+              + f" {math_flags()}")
+        del sampler
+    op_dispatch_cost(final, dev)
+    noise_err = 0.0
+    for seed in (0, 7, -3, 2**40 + 1):
+        card = seeded_synthesis_noise(torch.tensor(seed, device=dev), PATH_BATCH, 8)
+        cpu = seeded_synthesis_noise(seed, PATH_BATCH, 8)
+        noise_err = max(noise_err, max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu)))
+    require(noise_err <= 1e-6, f"seeded noise card vs CPU {noise_err}")
+    print(f"program: seeded synthesis noise on the card vs the CPU (batch {PATH_BATCH}, 8 stages, 4 seeds): max abs err {noise_err:.3e}")
+    return per_batch, worst
+
+
+def op_dispatch_cost(final, dev):
+    """What the registered ops cost the host: microseconds to issue one
+    call through ``torch.ops.byogan`` against the wrapper called directly,
+    K1 and K2 at the 4x4 block, batch 8, bf16; and ``Sampler.render``'s
+    ms a batch (CUDA events) through the ops against the wrappers swapped
+    into the layers, in the order A B B A."""
+    from byogan_tpu_torch.models import layers
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.cardcheck import host_us
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.serve import Sampler
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k1 = list(k1_inputs(PATH_BATCH, 4, 512, 512, torch.bfloat16, gen).values())
+    k2 = list(k2_inputs(PATH_BATCH, 4, 512, torch.bfloat16, gen).values())
+    with torch.inference_mode():
+        us = {"K1 op": host_us(lambda: torch.ops.byogan.styleconv(*k1, 1e-8)), "K1 wrapper": host_us(lambda: styleconv_cuda(*k1)),
+              "K2 op": host_us(lambda: torch.ops.byogan.noise_lrelu_adain(*k2, 1e-8)),
+              "K2 wrapper": host_us(lambda: noise_lrelu_adain_cuda(*k2))}
+    sampler = Sampler(final, batch=PATH_BATCH, seed=0, use_ema=True)
+    draws = sampler.draw()
+    render = {"ops": [], "wrappers": []}
+    for how in ("ops", "wrappers", "wrappers", "ops"):
+        with contextlib.ExitStack() as stack:
+            if how == "wrappers":
+                stack.enter_context(mock.patch.object(layers, "styleconv", styleconv_cuda))
+                stack.enter_context(mock.patch.object(layers, "noise_lrelu_adain", noise_lrelu_adain_cuda))
+            render[how].append(timed_ms(lambda: sampler.render(*draws), iters=20))
+    print("program: host us to issue one call, (8,4,4,512) bf16: " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+          + "; Sampler.render ms a batch (CUDA events, order A B B A): "
+          + "; ".join(f"{k} {' '.join(f'{t:.3f}' for t in v)}" for k, v in render.items()) + f" {math_flags()}")
+
+
+def trace_run(tmp):
+    """The training CLI for 4 iterations (stages 1-4) with ``--trace-dir``:
+    the trace file exists and names K1's kernel and the loop's
+    ``annotate`` region."""
+    from byogan_tpu_torch.cli.main import main as train_main
+
+    cfg = os.path.join(tmp, "trace.txt")
+    with open(cfg, "w") as f:
+        f.write(REMAT_CONFIG.format(data=os.path.join(tmp, "data"), tmp=tmp).replace("[remat]", "[trace]")
+                .replace("remat_progression = False,False,False,False,False,False,True,False\n", "")
+                .replace("remat_ck", "trace_ck").replace("remat_out", "trace_out"))
+    trace_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    state = train_main(["trace", "--config-file", cfg, "--max-iters", "4", "--trace-dir", trace_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    require(state.iters == 4 and len(files) == 1, f"trace run: {state.iters} iterations, files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    k1 = sorted(n for n in names if "conv3x3" in n)
+    regions = sorted(n for n in names if n.startswith("train_step stage"))
+    require(k1 and regions, f"the trace names K1 {k1} and the regions {regions}")
+    print(f"trace: the training CLI, 4 iterations with --trace-dir in {wall:.2f} s: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, {len(events)} events; K1's kernels {k1[:2]}; regions {regions}")
+    return os.path.getsize(files[0])
+
+
 def main() -> int:
     # Phase 1: the card.
     require(torch.cuda.is_available(), "no CUDA device")
@@ -1924,6 +2380,30 @@ def main() -> int:
             regularized_step_kernel_vs_plain(critic_biases=False)
         _, reg_profile = regularized_times(gen)
 
+        # Phases 21-26: remat (the step against the step without it, launches
+        # per iteration through the CLI, memory and time), dataset
+        # preparation on the card, the serving program, a profiler trace.
+        with phase("remat steps"), strict_f32():
+            remat_steps = remat_step_checks()
+        with phase("remat CLI"):
+            remat_run, remat_stage7 = remat_through_cli(tmp)
+        with phase("remat memory and time"):
+            remat_memory_and_time(gen)
+        with phase("prep"):
+            prep_s, _ = prep_on_card(tmp, root)
+        with phase("serving program"):
+            program_launches, program_err = serving_program(tmp, root, final)
+        with phase("trace"):
+            trace_run(tmp)
+    penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]
+    remat_entries = [{
+        "launches_remat_train": remat_run[name],
+        f"launches_remat_stage{REMAT_STAGE}_iteration": remat_stage7[i],
+        "launches_remat_stage8_iteration": remat_steps["default"]["launches"][i],
+        "launches_remat_stage8_penalized_iteration": penalized_remat[i],
+        "launches_program_batch": program_launches[i],
+    } for i, name in enumerate(KERNEL_NAMES)]
+
     kernels = [
         {
             "name": "styleconv", "route": "cuda",
@@ -1948,6 +2428,7 @@ def main() -> int:
                            "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
                                      "(device_ms: calls queued back to back, CUDA events)"},
             "hmma_sass": hmma,
+            **remat_entries[0], "program_max_frame_err": program_err,
         },
         {
             "name": "adain", "route": "cuda",
@@ -1968,6 +2449,7 @@ def main() -> int:
             "launches_reg_train": reg_launches["adain"],
             "launches_reg_stage8_penalized_iteration": reg_per_iteration["penalized"][1],
             "launches_reg_stage8_plain_iteration": reg_per_iteration["plain"][1],
+            **remat_entries[1], "program_max_frame_err": program_err,
         },
         {
             "name": "styleconv_bwd", "route": "cuda",
@@ -1983,7 +2465,7 @@ def main() -> int:
             "max_rel_err_under_create_graph_f32": second_errs[torch.float32]["first"],
             "max_abs_err": train_errs[torch.bfloat16]["k3"],
             "max_abs_err_f32": train_errs[torch.float32]["k3"],
-            **k3, "bound_by": k3_by,
+            **k3, "bound_by": k3_by, **remat_entries[2],
             "shapes": "16 stage-8 epilogue shapes summed (host_us_per_call: their mean; device_ms: calls queued "
                       "back to back, CUDA events), batch 5, bf16",
         },
@@ -2000,6 +2482,10 @@ def main() -> int:
           f"{reg_per_iteration['plain']}; penalized step kernel vs plain losses {reg_step[0]:.3e}, gen grads {reg_step[1]}, "
           f"critic grads {reg_step[2]}; penalized iteration card busy {reg_profile['busy_ms']:.3f} ms, second derivative "
           f"{reg_profile['second_derivative_ms']:.3f} ms")
+    print(f"remat: steps remat vs not, f32 stage 8: default losses {remat_steps['default']['loss_err']:.3e}, penalized "
+          f"{remat_steps['penalized PLR 2.0 + ADA, aug_p 0.5']['loss_err']:.3e}; launches per iteration (K1, K2, K3) stage "
+          f"{REMAT_STAGE} {remat_stage7}, stage 8 {remat_steps['default']['launches']}, penalized {penalized_remat}; prep "
+          f"{prep_s:.3f} s per original; program launches per batch {program_launches}, max frame error {program_err} LSB")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -475,3 +475,41 @@ def test_augment_on_the_card_matches_the_cpu(cuda_device, shape):
         out[str(dev)] = (y.detach().cpu(), g.cpu())
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 4, 4, 512, 512), (8, 64, 64, 256, 128), (2, 512, 512, 32, 16)])
+def test_registered_ops_equal_the_kernels(cuda_device, shape, dtype):
+    """``byogan::styleconv`` and ``byogan::noise_lrelu_adain`` on CUDA
+    tensors are K1 and K2: the same bits as the wrappers called directly,
+    one launch each, counted."""
+    n, r, _, cin, cout = shape
+    ins = as_torch(styleconv_inputs(n, r, r, cin, cout, seed=4), DTYPES[dtype], cuda_device)
+    args = [ins[k] for k in ("x", "weight", "bias", "noise", "noise_w", "gamma", "beta")]
+    before = styleconv_cuda.launches
+    with torch.no_grad():
+        got, want = torch.ops.byogan.styleconv(*args, 1e-8), styleconv_cuda(*args)
+    torch.cuda.synchronize()
+    assert styleconv_cuda.launches == before + 2 and torch.equal(got, want)
+    ep = as_torch(epilogue_inputs((n, r, r, cout), seed=5), DTYPES[dtype], cuda_device)
+    args = [ep[k] for k in ("x", "noise", "noise_w", "gamma", "beta")]
+    before = noise_lrelu_adain_cuda.launches
+    with torch.no_grad():
+        got, want = torch.ops.byogan.noise_lrelu_adain(*args, 1e-8), noise_lrelu_adain_cuda(*args)
+    torch.cuda.synchronize()
+    assert noise_lrelu_adain_cuda.launches == before + 2 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, -3, 2**40 + 1])
+def test_seeded_noise_on_the_card_matches_the_cpu(cuda_device, seed):
+    """The hash is exact on both; Box-Muller in f64 leaves at most an f32
+    rounding between them."""
+    from byogan_tpu_torch.core.random import seeded_synthesis_noise
+
+    card = seeded_synthesis_noise(torch.tensor(seed, device=cuda_device), 8, 8)
+    cpu = seeded_synthesis_noise(seed, 8, 8)
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.shape == b.shape
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)

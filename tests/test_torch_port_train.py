@@ -396,15 +396,9 @@ def test_config_parity_on_the_example_file():
     from byogan_tpu.train.config import load_ini_config
 
     path = os.path.join(ROOT, "configs", "example.txt")
-    for section in ("ffhq", "anime", "smoke-cpu"):
+    for section in ("ffhq", "anime", "smoke-cpu", "ffhq-tpu-tuned"):  # every section parses, remat included
         want = dataclasses.asdict(load_ini_config(path, section))
         assert dataclasses.asdict(port_load_ini(path, section)) == want, section
-    load_ini_config(path, "ffhq-tpu-tuned")
-    with pytest.raises(ValueError) as err:
-        port_load_ini(path, "ffhq-tpu-tuned")
-    assert "remat_progression" in str(err.value)
-    for ported in ("ema_beta", "style_mix_prob", "eval_step"):  # ported: parsed, not refused
-        assert ported not in str(err.value)
 
 
 def _png(img, filt):
