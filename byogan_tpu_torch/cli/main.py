@@ -2,7 +2,8 @@
 
     python -m byogan_tpu_torch.cli.main <section> [-c CKPT] [--config-file cfg.txt]
                                         [--max-iters N] [-d DEVICE] [--force-resume]
-                                        [--trace-dir DIR]
+                                        [--trace-dir DIR] [--distributed]
+    torchrun --nproc-per-node N -m byogan_tpu_torch.cli.main <section> --distributed
 
 Reads ``<section>`` of an INI config (``config.txt`` by default), trains on
 the GPU and writes ``.pth`` checkpoints.  ``-d cpu`` (or ``device = cpu``
@@ -12,12 +13,23 @@ the next iteration boundary and exits 0; ``-c`` resumes from it.  A resume
 whose trajectory knobs differ from the checkpoint's fails unless
 ``--force-resume``.  ``--trace-dir`` writes a ``torch.profiler`` trace
 of the run there (``profiling.trace_if``).
+
+``--distributed`` trains data-parallel, one process per card, under
+``torchrun`` (byogan_tpu/cli/main.py:33-55): each process joins the
+process group from torchrun's environment (``parallel.init_distributed``)
+and trains on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo with
+``-d cpu``.  The section's ``data_axis`` must equal the number of
+processes and divide every ``batch_progression`` entry; rank 0 writes the
+checkpoints, grids and metrics.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
+from byogan_tpu_torch.parallel.mesh import init_distributed
 from byogan_tpu_torch.profiling import trace_if
 from byogan_tpu_torch.train.config import load_ini_config
 from byogan_tpu_torch.train.loop import train
@@ -31,6 +43,12 @@ def main(argv=None):
     parser.add_argument("--max-iters", type=int, default=None, help="stop after N iterations")
     parser.add_argument("--trace-dir", default=None, help="write a torch.profiler trace here")
     parser.add_argument(
+        "--distributed", action="store_true",
+        help="data-parallel under torchrun, one process per card (NCCL; gloo with -d cpu): join the "
+        "process group from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT; the section's "
+        "data_axis must equal the world size",
+    )
+    parser.add_argument(
         "-d", "--device", default=None,
         help="torch device (default: cuda, or cpu when the section says device = cpu)",
     )
@@ -43,11 +61,17 @@ def main(argv=None):
     args = parser.parse_args(argv)
     config = load_ini_config(args.config_file, args.config)
     device = args.device or ("cpu" if config.device == "cpu" else "cuda")
-    with trace_if(args.trace_dir):
-        return train(
-            config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
-            allow_config_mismatch=args.force_resume,
-        )
+    if args.distributed:
+        device = init_distributed(device=device)
+    try:
+        with trace_if(args.trace_dir):
+            return train(
+                config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
+                allow_config_mismatch=args.force_resume,
+            )
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -149,13 +149,27 @@ def _flip_u8(batch: np.ndarray, flips: np.ndarray) -> np.ndarray:
 
 
 def make_stage_loader(
-    dataset: StageDataset, batch_size: int, seed: int = 0, skip_batches: int = 0
+    dataset: StageDataset,
+    batch_size: int,
+    seed: int = 0,
+    skip_batches: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[np.ndarray]:
     """Yield one epoch of shuffled, randomly flipped uint8 NHWC batches of
     ``batch_size``, the ragged tail dropped, prepared on a worker thread two
     batches ahead.  ``skip_batches`` skips the first batches but still makes
     their random draws, so the stream continues as an uninterrupted one
-    would (batch-exact resume)."""
+    would (batch-exact resume).
+
+    Data parallelism (byogan_tpu/data/pipeline.py:274-335): with
+    ``process_count > 1`` every process draws the same global shuffle and
+    flips (same seed) but decodes only its contiguous ``batch_size /
+    process_count`` rows of each global batch, the rows of its rank."""
+    if batch_size % process_count != 0:
+        raise ValueError(f"batch_size {batch_size} not divisible by process_count {process_count}")
+    local_rows = batch_size // process_count
+    lo_row = process_index * local_rows
     dataset.maybe_cache()
     rng = np.random.default_rng(seed)
     n = len(dataset)
@@ -170,10 +184,11 @@ def make_stage_loader(
                 if stop.is_set():
                     return
                 idx = order[lo : lo + batch_size]
-                flips = rng.random(len(idx)) < 0.5
+                flips = rng.random(len(idx)) < 0.5  # the global batch's, then this process's rows
                 if lo // batch_size < skip_batches:
                     continue
-                q.put(_flip_u8(dataset.get_batch_uint8(idx), flips))
+                rows = slice(lo_row, lo_row + local_rows)
+                q.put(_flip_u8(dataset.get_batch_uint8(idx[rows]), flips[rows]))
         except Exception as e:  # handed to the consumer
             q.put(e)
         finally:

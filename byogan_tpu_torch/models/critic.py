@@ -112,6 +112,15 @@ class Critic(nn.Module):
     def num_stages(self) -> int:
         return len(self.conv_blocks)
 
+    def use_mesh(self, mesh) -> "Critic":
+        """Take the minibatch-stddev statistics over the global batch of a
+        data-parallel ``mesh`` (``parallel.mesh.DataMesh``), of which this
+        process sees its rows; None: over the batch it is given."""
+        for m in self.modules():
+            if isinstance(m, MinibatchStdDev):
+                m.mesh = mesh
+        return self
+
     def forward(
         self, images: torch.Tensor, steps: int = 1, alpha: Optional[float] = None
     ) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from byogan_tpu_torch.core.resize import upsample2x_bilinear
 from byogan_tpu_torch.ops.fused import leaky_relu, noise_lrelu_adain
 from byogan_tpu_torch.ops.styleconv import styleconv
+from byogan_tpu_torch.parallel.mesh import AllReduceSum
 
 
 class EqualizedDense(nn.Module):
@@ -238,13 +239,24 @@ class MinibatchStdDev(nn.Module):
     by a strided reshape, so sample ``g*(B/G) + m`` belongs to column ``m``
     and every member of a column shares its stat; the whole batch as the
     group when ``group_size`` does not divide it (no state kept).  f32
-    statistics, cast back to x's dtype."""
+    statistics, cast back to x's dtype.
+
+    Under data parallelism (``mesh``, which ``shard_train_state`` sets) x
+    holds this rank's contiguous row block of the global batch, as JAX's
+    batch sharding lays it out, and the statistics are the global batch's:
+    the mean is the ranks' row sums added by ``AllReduceSum`` over B, and
+    each column's squared deviations are summed by global row index
+    (``row % M``) on each rank, then across the ranks.  Without a mesh it
+    is the single-process module."""
 
     def __init__(self, group_size: int = 4):
         super().__init__()
         self.group_size = group_size
+        self.mesh = None  # a parallel.mesh.DataMesh, or None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._forward_over_mesh(x)
         b, c, h, w = x.shape
         g = self.group_size if b % self.group_size == 0 else b
         m = b // g
@@ -252,4 +264,18 @@ class MinibatchStdDev(nn.Module):
         dev2 = (x32 - x32.mean(dim=0, keepdim=True)).square().reshape(g, m, c, h, w)
         stat = torch.sqrt(dev2.mean(dim=0) + 1e-8).mean(dim=(1, 2, 3))  # (M,)
         stat_map = stat.repeat(g)[:, None, None, None].expand(b, 1, h, w)
+        return torch.cat([x, stat_map.to(x.dtype)], dim=1)
+
+    def _forward_over_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        local, c, h, w = x.shape
+        b = local * mesh.size
+        g = self.group_size if b % self.group_size == 0 else b
+        m = b // g
+        x32 = x.float()
+        mean = AllReduceSum.apply(x32.sum(dim=0), mesh) / b
+        cols = torch.arange(mesh.rank * local, (mesh.rank + 1) * local, device=x.device) % m
+        dev2 = x32.new_zeros((m, c, h, w)).index_add(0, cols, (x32 - mean).square())
+        stat = torch.sqrt(AllReduceSum.apply(dev2, mesh) / g + 1e-8).mean(dim=(1, 2, 3))  # (M,)
+        stat_map = stat[cols][:, None, None, None].expand(local, 1, h, w)
         return torch.cat([x, stat_map.to(x.dtype)], dim=1)

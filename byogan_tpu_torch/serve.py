@@ -7,17 +7,21 @@ are quantized to uint8 on the device, and ragged tails are cut from a full
 batch.  ``save_stream`` overlaps encoding on a host thread with synthesis.
 It samples from the EMA weights (``use_ema``), pulls styles toward the mean
 w (``truncation_psi``) and mixes coarse and fine styles of two latent sets
-(``style_mix``), as the JAX Sampler does.
+(``style_mix``), as the JAX Sampler does.  Over several devices
+(``devices``, the counterpart of the JAX Sampler's ``mesh``) it keeps one
+generator replica per device and renders each contiguous row block of a
+batch on its own.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import queue
 import struct
 import threading
 import zlib
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,6 +91,13 @@ class Sampler:
     raises without one).  ``truncation_psi`` pulls each w toward the mean w
     (``projector.mean_w``, computed once, at the first render that needs
     it): psi = 1 changes nothing, 0 gives every sample the mean style.
+
+    ``devices`` (byogan_tpu/serve.py:92, 129-171, ``mesh=``) is a list of
+    devices to split each batch over, in place of ``device``: one replica
+    of the generator per entry (an entry may repeat), latents and noise
+    drawn for the whole batch on the first, each contiguous block of
+    ``batch / len(devices)`` rows rendered on its own device and the frames
+    concatenated in order on the first.
     """
 
     def __init__(
@@ -100,7 +111,14 @@ class Sampler:
         device: Optional[str] = None,
         use_ema: bool = False,
         truncation_psi: Optional[float] = None,
+        devices: Optional[Sequence[str]] = None,
     ):
+        if devices is not None:
+            if device is not None or not devices:
+                raise ValueError("pass a non-empty devices list or one device, not both")
+            if batch % len(devices):
+                raise ValueError(f"batch {batch} does not split over {len(devices)} devices")
+            device = devices[0]
         self.device = resolve_device(device)
         save = load_checkpoint(checkpoint)
         weights = save["gen"]
@@ -121,6 +139,8 @@ class Sampler:
         self._gen = build_generator(self.spec, dtype=self.dtype, z_dim=trained_z_dim)
         self._gen.load_state_dict(weights, strict=True)
         self._gen.to(self.device).eval().requires_grad_(False)
+        self.devices = None if devices is None else [self.device] + [resolve_device(d) for d in devices[1:]]
+        self._replicas = [self._gen] + [copy.deepcopy(self._gen).to(d) for d in (self.devices or [])[1:]]
         self._rng = make_generator(self.device, seed)
         self.truncation_psi = truncation_psi
         self._w_mean: Optional[torch.Tensor] = None
@@ -150,19 +170,37 @@ class Sampler:
             self._w_mean = mean_w(self._gen, self.z_dim, self.truncation)
         return self._w_mean
 
-    def to_w(self, z: torch.Tensor) -> torch.Tensor:
-        """Styles of latents ``z``, truncated toward the mean w when
-        ``truncation_psi`` is set."""
-        w = self._gen.map_latent(z)
+    def to_w(self, z: torch.Tensor, gen=None) -> torch.Tensor:
+        """Styles of latents ``z`` (through ``gen``, a replica, default the
+        first), truncated toward the mean w when ``truncation_psi`` is set."""
+        w = (self._gen if gen is None else gen).map_latent(z)
         if self.truncation_psi is None:
             return w
-        return truncate(w, self.mean_w(), self.truncation_psi)
+        return truncate(w, self.mean_w().to(w.device), self.truncation_psi)
+
+    def _over_devices(self, fn: Callable, *batched) -> torch.Tensor:
+        """``fn(gen, *batched)``; over several devices, ``fn`` of each
+        replica on its row block of every tensor (or list of tensors) in
+        ``batched``, the outputs concatenated on the first device."""
+        if self.devices is None:
+            return fn(self._gen, *batched)
+        k = len(self.devices)
+
+        def block(x, i):
+            if isinstance(x, list):
+                return [block(t, i) for t in x]
+            return x.tensor_split(k)[i].to(self.devices[i])
+
+        outs = [fn(gen, *(block(x, i) for x in batched)) for i, gen in enumerate(self._replicas)]
+        return torch.cat([o.to(self.device) for o in outs])
 
     @torch.inference_mode()
     def render_float(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
         """Float32 NHWC frames in the generator's raw ~[-1, 1] range."""
-        img = self._gen(None, noise, steps=self.steps, alpha=self.alpha, style=self.to_w(z))
-        return img.float()
+        def synth(gen, z, noise):
+            return gen(None, noise, steps=self.steps, alpha=self.alpha, style=self.to_w(z, gen)).float()
+
+        return self._over_devices(synth, z, noise)
 
     @torch.inference_mode()
     def render(self, z: torch.Tensor, noise: List[torch.Tensor]) -> torch.Tensor:
@@ -177,10 +215,13 @@ class Sampler:
         styles of ``z_a`` and the rest those of ``z_b``."""
         if not 0 <= crossover <= self.steps:
             raise ValueError(f"crossover must be in [0, {self.steps}], got {crossover}")
-        w_a, w_b = self.to_w(z_a), self.to_w(z_b)
-        styles = [w_a if i < crossover else w_b for i in range(self.steps)]
-        img = self._gen(None, noise, steps=self.steps, alpha=self.alpha, style=styles)
-        return to_uint8(img.float())
+
+        def synth(gen, z_a, z_b, noise):
+            w_a, w_b = self.to_w(z_a, gen), self.to_w(z_b, gen)
+            styles = [w_a if i < crossover else w_b for i in range(self.steps)]
+            return gen(None, noise, steps=self.steps, alpha=self.alpha, style=styles).float()
+
+        return to_uint8(self._over_devices(synth, z_a, z_b, noise))
 
     def style_mix(self, n: int, crossover: int) -> np.ndarray:
         """n uint8 frames with coarse stages (below ``crossover``) styled by

@@ -7,9 +7,12 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 ``gradient_lambda`` goes through ``int()``, ``lr`` defaults to 0.001 in
 code.  ``final_image_size`` is read by nobody.
 
-The mesh knobs (``data_axis``, ``model_axis``) keep their fields, so a
-config file parses the same in both packages, but a value that would turn
-one on raises a ``ValueError`` that names it instead of being ignored.
+``data_axis`` is the number of processes of a data-parallel run, one
+per card (``parallel/mesh.py``); it must equal their world size and divide
+every ``batch_progression`` entry (checked by the loop).  ``model_axis``
+keeps its field, so a config file parses the same in both packages, but a
+value that would turn tensor parallelism on raises a ``ValueError`` that
+names it instead of being ignored.
 The opt-in regularizers are ported: augmentation at a fixed ``aug_p`` or
 steered by the ADA controller (``ada_target``, which needs R1), and
 path-length regularization (``plr_weight``), with JAX's checks; so is
@@ -86,16 +89,10 @@ class TrainConfig:
                 f"remat_progression has {len(self.remat_progression)} flags "
                 f"for {len(self.epoch_progression)} stages"
             )
-        unported = [
-            name
-            for name, on in (("data_axis", self.data_axis > 1), ("model_axis", self.model_axis > 1))
-            if on
-        ]
-        if unported:
-            raise ValueError(
-                "not in the PyTorch port yet (leave at the default to train): "
-                + ", ".join(unported)
-            )
+        if self.model_axis > 1:
+            raise ValueError("not in the PyTorch port yet (leave at the default to train): model_axis")
+        if self.data_axis < 1:
+            raise ValueError(f"data_axis must be >= 1, got {self.data_axis}")
         if self.r1_interval > 1 and not self.use_r1:
             raise ValueError("r1_interval > 1 requires use_r1=True")
         if self.ada_target > 0 and not self.use_r1:

@@ -16,7 +16,19 @@ iterations (``log_eval``) from draws of their own, so the training
 trajectory is the same with and without it.
 
 Each iteration is a named region of a profiler trace (``annotate``).
-Not here yet: the mesh of the JAX loop.
+
+Data parallelism (``data_axis > 1``, or any run inside a process group;
+byogan_tpu/train/loop.py:177-223, 328-373, 448-494): the loop builds the
+mesh (``parallel.make_mesh``), checks every stage's batch against it up
+front, replicates the built or restored state from rank 0
+(``shard_train_state``), and each rank loads and trains on its rows of
+every global batch.  Rank 0 alone writes: ``metrics.jsonl``, the sample
+grids, the eval log and the console; the periodic eval runs there while
+the others wait at a barrier, and checkpoints are written there between
+barriers.  The ranks agree on a SIGTERM or SIGINT at every iteration
+boundary (``parallel.agree``), so all stop at the same iteration and rank
+0 saves one checkpoint, which resumes batch-exactly in any number of
+processes.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from byogan_tpu_torch.core.device import resolve_device
 from byogan_tpu_torch.core.grids import make_grid, to_uint8, uint8_to_training_range
@@ -41,6 +54,7 @@ from byogan_tpu_torch.data.pipeline import (
     to_device,
 )
 from byogan_tpu_torch.models.factory import ModelSpec, build_critic, build_generator
+from byogan_tpu_torch.parallel.mesh import agree, barrier, make_mesh, shard_train_state
 from byogan_tpu_torch.profiling import annotate
 from byogan_tpu_torch.serve import encode_png
 from byogan_tpu_torch.train.checkpoint import prune_checkpoints, restore_train_state, save_checkpoint
@@ -205,6 +219,18 @@ def train(
         return _train(config, checkpoint, max_iters, device, allow_config_mismatch, stop_requested)
 
 
+def check_data_axis(config: TrainConfig, data: int) -> None:
+    """Every stage's batch must split evenly over the data axis
+    (byogan_tpu/train/loop.py:181-195): fail now, not at that stage."""
+    bad = [(i + 1, b) for i, b in enumerate(config.batch_progression[: config.num_stages]) if b % data != 0]
+    if bad:
+        raise ValueError(
+            f"batch_progression entries {bad} (stage, batch) are not "
+            f"divisible by the data-parallel axis ({data}); fix the "
+            "config now rather than crashing mid-run at that stage"
+        )
+
+
 def _train(
     config: TrainConfig,
     checkpoint: Optional[str],
@@ -218,6 +244,16 @@ def _train(
         raise ValueError("config.data must point at a prepared dataset")
     if not os.path.exists(os.path.join(config.data, "prepared")):
         raise OSError("Did not detect prepared dataset!")
+    mesh = None
+    if config.data_axis > 1 or (dist.is_initialized() and dist.get_world_size() > 1):
+        check_data_axis(config, config.data_axis)
+        mesh = make_mesh(config.data_axis, device=dev)
+        dev = mesh.device
+    elif dist.is_initialized():  # a one-process group: the step without a mesh
+        print(f"process group: world 1 ({dist.get_backend()}), no mesh")
+    primary = mesh is None or mesh.rank == 0
+    parallel = {} if mesh is None else {"mesh": mesh}  # the step's arguments without a mesh stay as they were
+    say = print if primary else (lambda *a, **k: None)
     spec = model_spec(config)
     state = build_state(config, dev)
     alpha_ckpt: Optional[float] = None
@@ -225,24 +261,44 @@ def _train(
     if checkpoint is not None:
         alpha_ckpt = restore_train_state(checkpoint, state, config, allow_config_mismatch)
         last_stage = state.stage
+    if mesh is not None:
+        shard_train_state(state, mesh)
+        say(f"mesh: data {mesh.size} ({mesh.backend})")
     os.makedirs(config.checkpoint_dir, exist_ok=True)
 
     show_z = truncated_noise(
         torch.Generator().manual_seed(config.seed + 7), config.show_noise_count,
         config.noise_size, config.show_noise_trunc,
     ).to(dev)
-    logger = MetricsLogger(os.path.join(config.output_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(config.output_dir, "metrics.jsonl") if primary else None, print_fn=say)
     k = config.refresh_stat_step
     c_hist: collections.deque = collections.deque(maxlen=k)
     g_hist: collections.deque = collections.deque(maxlen=k)
     eval_cache: Dict[tuple, object] = {}
 
-    def stop(epoch: int) -> TrainState:
+    def stopping() -> bool:
+        """Whether a signal asks to stop, agreed by every rank."""
+        return bool(stop_requested) if mesh is None else agree(bool(stop_requested), mesh)
+
+    def on_primary(fn, *args, **kw):
+        """``fn`` on rank 0 while the other ranks wait; its result there."""
+        barrier(mesh)
+        out = fn(*args, **kw) if primary else None
+        barrier(mesh)
+        return out
+
+    def save(prune: bool = False) -> str:
+        path = save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
+        if prune:
+            prune_checkpoints(config.checkpoint_dir, config.max_checkpoints)
+        return path
+
+    def stop(epoch: int, preempted: bool) -> TrainState:
         logger.close()
         state.epoch = epoch
-        path = save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
-        if stop_requested:
-            print(f"preemption checkpoint saved: {path}", flush=True)
+        path = on_primary(save)
+        if preempted:
+            say(f"preemption checkpoint saved: {path}", flush=True)
         return state
 
     for index in range(config.num_stages):
@@ -264,17 +320,17 @@ def _train(
         iters_done = state.im_count // (batch * config.critic_repeats)
         resume_epoch = iters_done // n_batches if resume else 0
         resume_skip = iters_done % n_batches if resume else 0
-        print(f"STARTING STEP #{steps}")
+        say(f"STARTING STEP #{steps}")
         step_cache = {}
 
         for epoch in range(resume_epoch, stage_epochs):
             loader = make_stage_loader(
                 dataset, batch, seed=config.seed * 100003 + steps * 1009 + epoch,
                 skip_batches=resume_skip if epoch == resume_epoch else 0,
+                process_index=0 if mesh is None else mesh.rank,
+                process_count=1 if mesh is None else mesh.size,
             )
             for real in to_device(loader, dev):
-                if stop_requested:  # before the next step: the state is at a boundary
-                    return stop(epoch)
                 repeats = config.critic_repeats
                 critic_fade = tuple(
                     (state.im_count + r * batch) / fade_in <= 1.0 for r in range(repeats)
@@ -283,7 +339,7 @@ def _train(
                 key = (critic_fade, gen_fade)
                 if key not in step_cache:
                     step_cache[key] = make_train_step(
-                        config, steps, batch, fade_in, critic_fade, gen_fade
+                        config, steps, batch, fade_in, critic_fade, gen_fade, **parallel
                     )
                 with annotate(f"train_step stage {steps}"):
                     metrics = step_cache[key](state, real)
@@ -292,7 +348,7 @@ def _train(
 
                 c_hist.append(metrics["c_loss"])
                 g_hist.append(metrics["g_loss"])
-                if state.iters % k == 0:
+                if primary and state.iters % k == 0:
                     # byogan_tpu/train/loop.py:421-441: r_t, then the regularizers' state
                     extra = {
                         name: round(float(metrics[key]), 4)
@@ -304,28 +360,29 @@ def _train(
                         state.iters, float(torch.stack(list(c_hist)).mean()),
                         float(torch.stack(list(g_hist)).mean()), epoch, steps, batch, extra,
                     )
-                if state.iters % config.display_step == 0:
+                if primary and state.iters % config.display_step == 0:
                     save_sample_grid(
                         state, config, show_z, steps, alpha_ckpt if gen_fade else None,
                         state.iters, f"s-{state.iters}",
                     )
                 if config.eval_step > 0 and state.iters % config.eval_step == 0:
-                    log_eval(
-                        state, config, dataset, steps, alpha_ckpt if gen_fade else None,
+                    on_primary(
+                        log_eval, state, config, dataset, steps, alpha_ckpt if gen_fade else None,
                         state.iters, eval_cache, logger,
                     )
                 if state.iters % config.checkpoint_step == 0:
                     state.epoch = epoch
-                    save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
-                    prune_checkpoints(config.checkpoint_dir, config.max_checkpoints)
-                if stop_requested or (max_iters is not None and state.iters >= max_iters):
-                    return stop(epoch)
+                    on_primary(save, prune=True)
+                preempted = stopping()  # the ranks agree once an iteration, after its step
+                if preempted or (max_iters is not None and state.iters >= max_iters):
+                    return stop(epoch, preempted)
             state.epoch = epoch
         last_stage = None
 
-    if not stop_requested:  # a signal after the last iteration goes straight to the save
+    preempted = stopping()
+    if primary and not preempted:  # a signal after the last iteration goes straight to the save
         save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final")
-    save_checkpoint(config.checkpoint_dir, state, None, name="FINAL", model_spec=spec, train_config=config)
+    on_primary(save_checkpoint, config.checkpoint_dir, state, None, name="FINAL", model_spec=spec, train_config=config)
     logger.close()
-    print("TRAINING IS FINISHED - MODEL SAVED!")
+    say("TRAINING IS FINISHED - MODEL SAVED!")
     return state

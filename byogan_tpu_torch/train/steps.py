@@ -41,6 +41,20 @@ on the card the generator phase runs K1 and K2 with residuals twice.
 Random draws come from ``state.rng`` in the order of ``draw``.
 ``step(state, real, draws)`` also takes draws made elsewhere, so a test can
 feed it the JAX step's own.
+
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``; byogan_tpu's
+jitted step under a data-sharded batch): ``batch`` stays the global batch
+and ``real`` is this rank's row block of it.  Every rank draws the global
+iteration's draws from its replica of ``state.rng`` and keeps its rows
+(``Draws.rows``), so a run over R ranks follows the trajectory of one
+process on the global batch.  After each ``autograd.grad`` the gradients
+are averaged over the ranks before Adam (``_update``); the critic's
+minibatch-stddev spans the global batch through the mesh; the losses, the
+critic's aux values, ADA's E[sign(D(real))] and PLR's mean path length
+(each rank's share weighted by its rows) are averaged in one stacked
+all-reduce before the controllers' updates, so ``aug_p``, ``rt_ema`` and
+``pl_ema`` stay equal on every rank and the metrics are the global batch's.
+Without a mesh the step runs as before.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from byogan_tpu_torch.core.random import stage_resolution, synthesis_noise, truncated_noise
 from byogan_tpu_torch.ops.augment import AugDraws, augment_batch, draw_augment
+from byogan_tpu_torch.parallel.mesh import DataMesh, all_reduce_mean_
 from byogan_tpu_torch.train import losses
 from byogan_tpu_torch.train.config import TrainConfig
 from byogan_tpu_torch.train.state import TrainState, set_grads
@@ -97,6 +112,33 @@ class Draws:
     mix: Optional[List[Mix]] = None
     aug: Optional[List[AugDraws]] = None
     plr: Optional[PLRDraws] = None
+
+    @property
+    def batch(self) -> int:
+        return self.gen[0].shape[0]
+
+    def rows(self, lo: int, hi: int) -> "Draws":
+        """The draws of rows ``[lo, hi)`` of the batch: every per-sample
+        draw cut to them; PLR's ``batch // plr_batch_shrink`` rows cut in
+        proportion, ``[lo*n // batch, hi*n // batch)``."""
+        def cut(t):
+            return t[lo:hi]
+
+        def cut_all(fields):
+            return type(fields)(*(cut(getattr(fields, f.name)) for f in dataclasses.fields(fields)))
+
+        plr = None
+        if self.plr is not None:
+            n = self.plr.z.shape[0]
+            plo, phi = lo * n // self.batch, hi * n // self.batch
+            plr = PLRDraws(self.plr.z[plo:phi], [x[plo:phi] for x in self.plr.noise], self.plr.y[plo:phi])
+        return Draws(
+            [(cut(z), [cut(x) for x in noise], None if eps is None else cut(eps)) for z, noise, eps in self.critic],
+            (cut(self.gen[0]), [cut(x) for x in self.gen[1]]),
+            None if self.mix is None else [cut_all(m) for m in self.mix],
+            None if self.aug is None else [cut_all(a) for a in self.aug],
+            plr,
+        )
 
 
 def mixes(config: TrainConfig, steps: int) -> bool:
@@ -266,8 +308,14 @@ def path_length_penalty(
     return losses.gen_path_length_penalty(synth, w, state.pl_ema, plr.y)
 
 
-def _update(loss: torch.Tensor, params: Sequence[torch.nn.Parameter], opt) -> None:
+def _update(
+    loss: torch.Tensor, params: Sequence[torch.nn.Parameter], opt, mesh: Optional[DataMesh] = None
+) -> None:
+    """Adam on the gradients of ``loss``; with a mesh, on their mean over
+    the ranks (JAX's psum over the data axis, one flattened all-reduce)."""
     set_grads(params, torch.autograd.grad(loss, params, allow_unused=True))
+    if mesh is not None:
+        all_reduce_mean_([p.grad for p in params], mesh)
     opt.step()
 
 
@@ -278,11 +326,14 @@ def make_train_step(
     fade_in: float,
     critic_fade: Tuple[bool, ...],
     gen_fade: bool,
+    mesh: Optional[DataMesh] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The step of one stage and fade pattern.  ``critic_fade`` has one flag
     per critic repeat (True: the blend path), ``gen_fade`` is the generator
     phase's.  ``fade_in`` is the fade span in images (train.py:119).  The
-    stage's remat flag is ``config.stage_remat(steps - 1)``."""
+    stage's remat flag is ``config.stage_remat(steps - 1)``.  With ``mesh``
+    the step is data-parallel (module docstring): ``batch`` is the global
+    batch, ``real`` and the critic hold this rank's share of it."""
     if len(critic_fade) != config.critic_repeats:
         raise ValueError("critic_fade must have one flag per critic repeat")
     dtype = getattr(torch, config.compute_dtype)
@@ -292,12 +343,28 @@ def make_train_step(
         state: TrainState, real: torch.Tensor, draws: Optional[Draws] = None
     ) -> Dict[str, torch.Tensor]:
         """Advance ``state`` by one iteration in place; returns the metrics
-        as device scalars (no host sync)."""
+        as device scalars (no host sync).  With a mesh, ``draws`` are the
+        global batch's."""
         if real.dtype == torch.uint8:
             real = real.float() * (2.0 / 255.0) - 1.0
         real = real.to(dtype)
         if draws is None:
             draws = draw(state, config, batch, steps, dtype)
+        plr_share = 1.0
+        if mesh is not None:
+            lo, hi = mesh.rows(batch)
+            if real.shape[0] != hi - lo or draws.batch != batch:
+                raise ValueError(
+                    f"rank {mesh.rank} takes rows {lo}:{hi} of the global batch {batch}: got {real.shape[0]} "
+                    f"real rows and draws for {draws.batch}"
+                )
+            n_plr = draws.plr.z.shape[0] if draws.plr is not None else 0
+            draws = draws.rows(lo, hi)
+            if draws.plr is not None:
+                if draws.plr.z.shape[0] == 0:
+                    raise ValueError(f"PLR's {n_plr} latents leave rank {mesh.rank} none: raise the batch")
+                # this rank's mean, weighted by its share of the rows: the ranks' mean is the global mean
+                plr_share = draws.plr.z.shape[0] * mesh.size / n_plr
         if (draws.mix is not None) != mixes(config, steps):
             raise ValueError(f"draws.mix must be given exactly when stage {steps} mixes styles")
         if (draws.aug is not None) != config.use_aug:
@@ -326,7 +393,7 @@ def make_train_step(
             c_loss, c_aux = critic_loss(state, config, real_r, fake, steps, alpha, eps, remat)
             if config.ada_target > 0:
                 rt_acc = rt_acc + c_aux["real_sign"]
-            _update(c_loss, c_params, state.critic_opt)
+            _update(c_loss, c_params, state.critic_opt, mesh)
             im_count += batch
 
         z, noise = draws.gen
@@ -338,18 +405,32 @@ def make_train_step(
                 g_loss, pen = g_loss.float(), torch.zeros((), device=real.device)
                 if plr_on:
                     pen, pl_mean = path_length_penalty(state, draws.plr, steps, alpha_g, remat)
+                    if plr_share != 1.0:
+                        pen, pl_mean = pen * plr_share, pl_mean * plr_share
                     g_loss = g_loss + (config.plr_weight * config.plr_interval) * pen
-            _update(g_loss, g_params, state.gen_opt)
+            _update(g_loss, g_params, state.gen_opt, mesh)
         finally:
             state.critic.requires_grad_(True)
         if config.ema_beta > 0 and state.gen_ema is not None:
             ema_update(list(state.gen_ema.parameters()), g_params, config.ema_beta)
         metrics = {"c_loss": c_loss.detach().float(), "g_loss": g_loss.detach().float(), **c_aux}
+        if config.ada_target > 0:
+            metrics["real_sign_mean"] = rt_acc / len(critic_fade)
+        if plr_on:
+            metrics["pl_mean"] = pl_mean.detach()
+        if config.plr_weight > 0:
+            metrics["pl_penalty"] = pen.detach().float()
+        if mesh is not None:  # one all-reduce: the global batch's values on every rank
+            values = torch.stack(list(metrics.values()))
+            all_reduce_mean_([values], mesh)
+            metrics = dict(zip(metrics, values))
+        rt_mean = metrics.pop("real_sign_mean", None)
+        pl_mean = metrics.pop("pl_mean", None)
         if plr_on:  # pl_ema tracks the path length where it was observed
-            state.pl_ema = state.pl_ema + config.plr_decay * (pl_mean.detach() - state.pl_ema)
+            state.pl_ema = state.pl_ema + config.plr_decay * (pl_mean - state.pl_ema)
         if config.ada_target > 0:
             beta = config.ada_rt_beta
-            state.rt_ema = beta * state.rt_ema + (1.0 - beta) * (rt_acc / len(critic_fade))
+            state.rt_ema = beta * state.rt_ema + (1.0 - beta) * rt_mean
             step_p = (batch * config.critic_repeats) / float(config.ada_speed)
             state.aug_p = (state.aug_p + torch.sign(state.rt_ema - config.ada_target) * step_p).clamp(0.0, 1.0)
         if config.use_aug:
@@ -357,7 +438,6 @@ def make_train_step(
         if config.ada_target > 0:
             metrics["rt_ema"] = state.rt_ema
         if config.plr_weight > 0:
-            metrics["pl_penalty"] = pen.detach().float()
             metrics["pl_ema"] = state.pl_ema
         state.iters += 1
         state.im_count = im_count

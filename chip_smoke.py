@@ -49,7 +49,15 @@ both paths of the port at full width (``ModelSpec()``):
   ``cli.prep`` on synthetic originals against the plain resize, the
   generator exported with ``cli.export --program`` and served from a
   fresh process against ``Sampler.render``, and a profiler trace of the
-  training CLI.
+  training CLI;
+* the data-parallel slice over two ranks that the script spawns (gloo,
+  both on this card, since NCCL refuses two ranks on one device; NCCL
+  with a card each where the machine has two): one stage-8 f32 step on
+  the global batch against one process on it (R1, then ADA and PLR on a
+  penalized iteration), ``train`` stopped by a signal to one rank and
+  resumed in one process, the training CLI at world 1 under NCCL through
+  torchrun, the iteration's time with and without a process group and
+  over two ranks, and the Sampler over two devices against one.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -63,6 +71,8 @@ package beside it, it fails before any result.
 from __future__ import annotations
 
 import contextlib
+import copy
+import datetime
 import json
 import math
 import os
@@ -387,8 +397,8 @@ def counting_steps(records: list, regularized: list = None):
 
     make_step = loop.make_train_step
 
-    def counting_step(config, steps, batch, fade_in, critic_fade, gen_fade):
-        fn = make_step(config, steps, batch, fade_in, critic_fade, gen_fade)
+    def counting_step(config, steps, batch, fade_in, critic_fade, gen_fade, **kw):
+        fn = make_step(config, steps, batch, fade_in, critic_fade, gen_fade, **kw)
 
         def step(state, real, draws=None):
             before = launch_counts()
@@ -2169,6 +2179,618 @@ def trace_run(tmp):
     return os.path.getsize(files[0])
 
 
+# The data-parallel slice: two ranks, spawned here, joined by gloo on one
+# card (NCCL refuses two ranks on one device) or by NCCL, one card each,
+# where the machine has two.
+DP_WORLD, DP_BATCH, DP_TIME_BATCH, DP_IMAGES = 2, 8, 2 * TRAIN_BATCH, 64
+DP_CONFIG = (
+    "[{name}]\n"
+    "data = {data}\n"
+    "batch_progression = 64,64,64,64,32,32,16,8\n"  # configs/example.txt [DEFAULT]
+    "epoch_progression = 1,1,1,1,1,1,1,1\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "data_axis = {data_axis}\n"
+    "checkpoint_dir = {tmp}/{name}_ck\noutput_dir = {tmp}/{name}_out\n"
+)
+DP_SIGNAL_STAGE = 5  # rank 1 alone receives SIGTERM after its first stage-5 iteration
+# After the first step from the fresh state, the share of the nets' and
+# the EMA's entries more than 1e-5 apart between the mesh and one process.
+# Adam moves each entry by about lr times its gradient's sign, so an entry
+# whose gradient is within rounding of zero lands up to 2 * lr away; a
+# wrong reduction moves most entries.  The H100 found 0.004-0.09% (2,253
+# to 54,649 of 61,878,353).  After a later step the share swings from run
+# to run with the state the first step left (0.002-2.5%, and rounding
+# alone, latents moved by 1e-6, 0.0003-2.6%), so it is printed only: the
+# weights after a later step are held through the gradients and Adam's
+# second moments (``DP_MOMENT_TOL``), not by a bound of their own.
+DP_FAR_SHARE = 0.01
+# Each net's whole gradient after a later step: Adam's first, sign-like
+# step leaves a state in which the generator's gradient moves by up to
+# 9e-3 (relative L2) between the mesh's batch split and one process's, and
+# by as much under latents moved by 1e-6; a wrong reduction moves it by
+# O(1).  At the fresh state it is held to STEP_GRAD_TOL, tensor by tensor.
+DP_LATER_GRAD_TOL = 0.1
+# Each optimizer's second moments (exp_avg_sq, all leaves as one vector)
+# after the step, relative L2 between the mesh and one process, from the
+# same state: beta_2 v + (1 - beta_2) g^2 of the averaged gradient g, so
+# a gradient off by e moves them by about 2e where g^2 dominates.  Twice
+# the gradient's bar, at the fresh state and after.  A gradient summed
+# and not averaged over two ranks moves them by O(1) (3 at the fresh
+# state).
+DP_MOMENT_TOL = (2 * STEP_GRAD_TOL[0], 2 * DP_LATER_GRAD_TOL)
+
+
+def dp_backend(world: int = DP_WORLD) -> str:
+    """NCCL with a card per rank, else gloo, every rank on the one card."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def _dp_entry(rank: int, world: int, backend: str, store: str, job: str, args: tuple, out: str) -> None:
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    # a rank that fails leaves the others in a collective: time it out
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        result = globals()[job](rank, dev, *args)
+        torch.save(result, f"{out}-{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(tmp: str, job: str, *args, backend: str = None, world: int = DP_WORLD) -> list:
+    """``job(rank, device, *args)`` on ``world`` spawned ranks; each rank's
+    result.  A rank that raises fails the call."""
+    import torch.multiprocessing as mp
+
+    backend = backend or dp_backend(world)
+    store, out = (os.path.join(tmp, f"{what}-{job}-{backend}-{world}") for what in ("store", "out"))
+    mp.spawn(_dp_entry, args=(world, backend, store, job, args, out), nprocs=world, join=True)
+    return [torch.load(f"{out}-{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _dp_step_state(cfg, dev):
+    """A fresh full-width state with the noise weights and the critic's
+    biases drawn, as ``_step_outcome`` makes it."""
+    from byogan_tpu_torch.train.loop import build_state
+
+    state = build_state(cfg, dev)
+    with torch.no_grad():
+        for net, pick, std in ((state.gen, "inject_noise", 0.3), (state.critic, "bias", 0.1)):
+            for name, p in net.named_parameters():
+                if pick in name:
+                    p.normal_(0.0, std, generator=torch.Generator(device=dev).manual_seed(len(name)))
+    return state
+
+
+def _flat_params(state) -> torch.Tensor:
+    nets = [state.gen, state.critic] + ([state.gen_ema] if state.gen_ema is not None else [])
+    return torch.cat([p.detach().reshape(-1) for net in nets for p in net.parameters()])
+
+
+DP_STEP_CASES = {
+    "R1": dict(compute_dtype="float32", ema_beta=0.999),
+    f"ADA {REG_TARGET} + PLR 2.0, penalized": dict(compute_dtype="float32", ema_beta=0.999, aug_p=0.5,
+                                                   ada_target=REG_TARGET, plr_weight=2.0, plr_interval=REG_INTERVAL),
+}
+
+
+def _copy_state(src, dst) -> None:
+    """``dst`` (a TrainState of the same config) takes ``src``'s nets,
+    optimizer states, regularizer scalars and counters."""
+    for net in ("gen", "critic", "gen_ema"):
+        if getattr(src, net) is not None:
+            getattr(dst, net).load_state_dict(getattr(src, net).state_dict())
+    for opt in ("gen_opt", "critic_opt"):  # load_state_dict would share src's moment tensors
+        getattr(dst, opt).load_state_dict(copy.deepcopy(getattr(src, opt).state_dict()))
+    for k in ("aug_p", "rt_ema", "pl_ema"):
+        if getattr(src, k) is not None:
+            setattr(dst, k, getattr(src, k).clone())
+    dst.iters, dst.im_count = src.iters, src.im_count
+
+
+def _params_apart(a, b) -> tuple:
+    """(largest |a - b|, entries more than 1e-5 apart, entries) over both
+    nets and the EMA of two states."""
+    worst, far, n = 0.0, 0, 0
+    for net in ("gen", "critic", "gen_ema"):
+        for p, q in zip(getattr(a, net).parameters(), getattr(b, net).parameters()):
+            d = (p.detach() - q.detach()).abs()
+            worst, far, n = max(worst, float(d.max())), far + int((d > 1e-5).sum()), n + d.numel()
+    return worst, far, n
+
+
+def _moments_rel_l2(a, b) -> dict:
+    """Per optimizer of two states, the relative L2 distance of its
+    second moments (every parameter's exp_avg_sq as one vector)."""
+    out = {}
+    for net, opt in (("gen", "gen_opt"), ("critic", "critic_opt")):
+        want = {n: getattr(b, opt).state[p]["exp_avg_sq"] for n, p in getattr(b, net).named_parameters()}
+        got = {n: getattr(a, opt).state[p]["exp_avg_sq"] for n, p in getattr(a, net).named_parameters()}
+        out[net] = _net_rel_l2(got, want)
+    return out
+
+
+def _moved_latents(draws, rng):
+    """``draws`` with every latent moved by 1e-6 relative: the same step
+    on them measures how far rounding alone moves its results."""
+    import dataclasses
+
+    def move(z):
+        return z * (1 + 1e-6 * torch.randn(z.shape, generator=rng, device=z.device))
+
+    return dataclasses.replace(
+        draws, critic=[(move(z), noise, eps) for z, noise, eps in draws.critic], gen=(move(draws.gen[0]), draws.gen[1]),
+        plr=None if draws.plr is None else dataclasses.replace(draws.plr, z=move(draws.plr.z)),
+    )
+
+
+def _step_record(step, state, real, draws) -> dict:
+    before = launch_counts()
+    metrics = step(state, real, draws)
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "launches": tuple(a - b for a, b in zip(launch_counts(), before))}
+
+
+def _net_rel_l2(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradients of one net, all its tensors
+    taken as one vector."""
+    num = sum(float((got[n] - w).double().square().sum()) for n, w in want.items())
+    return math.sqrt(num / max(sum(float(w.double().square().sum()) for w in want.values()), 1e-300))
+
+
+def dp_steps_job(rank: int, dev: torch.device) -> dict:
+    """On each rank: per case of ``DP_STEP_CASES``, 2 iterations at stage 8,
+    f32 (TF32 off), global batch 8 over the mesh, on global draws and
+    batches made from one seed.  Before each, rank 0 gives one process
+    the mesh's state and runs the same iteration on the whole batch (no
+    mesh), and once more with every latent moved by 1e-6 (rounding alone,
+    printed beside).  Rank 0 holds the mesh's losses within ``STEP_TOL``
+    of that step's at every iteration; at the fresh state (where the
+    tolerance was set) every gradient tensor within ``STEP_GRAD_TOL`` and
+    at most ``DP_FAR_SHARE`` of the weights more than 1e-5 apart after the
+    update; after a later step each net's whole gradient within
+    ``DP_LATER_GRAD_TOL`` (after Adam's first update the generator's
+    bias and noise-weight gradients, sums that cancel almost to zero, move
+    by up to ~3e-2 with the batch's summation order alone); aug_p and
+    rt_ema equal, pl_ema within ``STEP_TOL`` (path lengths summed in
+    another order); each optimizer's second moments within
+    ``DP_MOMENT_TOL``.  Every rank checks its parameters bit-equal to rank
+    0's.  A failed check is returned, not raised, so that no rank leaves
+    the others waiting in a collective.  Returns per case the (K1, K2, K3)
+    launches of each iteration on this rank (and one process's), the
+    errors, how far the nets and EMA lie apart, the regularizers and the
+    failures."""
+    import types
+
+    from byogan_tpu_torch.parallel.mesh import broadcast_, make_mesh, shard_batch, shard_train_state
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.steps import draw, make_train_step
+
+    mesh = make_mesh(device=dev)  # the spawned world
+    result = {"backend": mesh.backend, "cases": {}, "failures": []}
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            result["failures"].append(what)
+
+    with strict_f32():
+        for name, knobs in DP_STEP_CASES.items():
+            cfg = TrainConfig(**knobs)
+            rng = torch.Generator(device=dev).manual_seed(7)
+            inputs = []
+            for i in range(2):
+                draws = draw(types.SimpleNamespace(rng=rng, iters=i), cfg, DP_BATCH, 8, torch.float32)
+                real = torch.randint(0, 256, (DP_BATCH, 512, 512, 3), generator=rng, device=dev, dtype=torch.uint8)
+                inputs.append((real, draws))
+            check((inputs[0][1].plr is not None) == (cfg.plr_weight > 0) and inputs[1][1].plr is None,
+                  f"{name}: penalized iterations")
+            state = shard_train_state(_dp_step_state(cfg, dev), mesh)
+            step = make_train_step(cfg, 8, DP_BATCH, 8.0, (True,), True, mesh=mesh)
+            case = {"launches": [], "single_launches": [], "losses": 0.0, "grads": [], "moments": [],
+                    "step params": [], "regularizers": []}
+            if rank == 0:
+                single = make_train_step(cfg, 8, DP_BATCH, 8.0, (True,), True)
+                ref, moved = (_dp_step_state(cfg, dev) for _ in range(2))
+            for i, (real, draws) in enumerate(inputs):
+                what = f"dp {name} iteration {i}"
+                if rank == 0:
+                    _copy_state(state, ref)
+                    _copy_state(state, moved)
+                    want = _step_record(single, ref, real, draws)
+                    _step_record(single, moved, real, _moved_latents(draws, rng))
+                    case["single_launches"].append(want["launches"])
+                got = _step_record(step, state, shard_batch(real, mesh), draws)
+                case["launches"].append(got["launches"])
+                if rank != 0:
+                    continue
+                for k, v in want["metrics"].items():
+                    if k in ("aug_p", "rt_ema"):
+                        check(got["metrics"][k] == v, f"{what} {k}: {got['metrics'][k]} vs {v}")
+                    elif v != 0.0 or got["metrics"][k] != 0.0:
+                        e = abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                        check(e <= STEP_TOL, f"{what} {k}: relative error {e:.3e} over {STEP_TOL}")
+                        case["losses"] = max(case["losses"], e)
+                errs = {}
+                for net in ("gen", "critic"):
+                    grads = {x: {n: p.grad for n, p in getattr(st, net).named_parameters()} for x, st in
+                             (("mesh", state), ("one", ref), ("moved", moved))}
+                    per = grad_errs(grads["mesh"], grads["one"], f"{what} {net} grads", check=False)
+                    whole = _net_rel_l2(grads["mesh"], grads["one"])
+                    alone_err = grad_errs(grads["moved"], grads["one"], f"{what} {net} grads, rounding alone", check=False)
+                    bar = STEP_GRAD_TOL[0] if i == 0 else DP_LATER_GRAD_TOL
+                    check(whole <= bar, f"{what} {net} grads: relative L2 of the whole {whole:.3e} over {bar}")
+                    if i == 0:
+                        check(per[0] <= STEP_GRAD_TOL[0] and per[1] <= STEP_GRAD_TOL[1], f"{what} {net} grads {per}")
+                    errs[net] = {"whole": whole, "worst tensor": per, "rounding alone": alone_err,
+                                 "rounding alone whole": _net_rel_l2(grads["moved"], grads["one"])}
+                case["grads"].append(errs)
+                moments, by_rounding = _moments_rel_l2(state, ref), _moments_rel_l2(moved, ref)
+                for net, e in moments.items():
+                    check(e <= DP_MOMENT_TOL[min(i, 1)], f"{what} {net} second moments: relative L2 {e:.3e} over "
+                          f"{DP_MOMENT_TOL[min(i, 1)]} (rounding alone {by_rounding[net]:.3e})")
+                case["moments"].append((moments, by_rounding))
+                apart, by_rounding = _params_apart(state, ref), _params_apart(moved, ref)
+                check(i > 0 or apart[1] <= DP_FAR_SHARE * apart[2],
+                      f"{what}: nets and EMA apart {apart}, by rounding alone {by_rounding}")
+                case["step params"].append((apart, by_rounding))
+                case["regularizers"].append({k: (float(getattr(state, k)), float(getattr(ref, k)))
+                                             for k in ("aug_p", "rt_ema", "pl_ema") if getattr(ref, k) is not None})
+                if ref.pl_ema is not None:
+                    e = abs(float(state.pl_ema) - float(ref.pl_ema)) / max(abs(float(ref.pl_ema)), 1e-12)
+                    check(e <= STEP_TOL, f"{what} pl_ema: relative error {e:.3e}")
+            flat = _flat_params(state)
+            theirs = flat.clone()
+            broadcast_([theirs], mesh)
+            case["bit_equal"] = bool(torch.equal(flat, theirs))
+            check(case["bit_equal"], f"{name}: rank {rank}'s parameters differ from rank 0's")
+            if rank == 0:
+                del ref, moved
+            result["cases"][name] = case
+            del state
+            torch.cuda.empty_cache()
+    return result
+
+
+def dp_steps(tmp, world: int = DP_WORLD):
+    """The "dp steps" phase (``dp_steps_job`` on ``world`` spawned ranks)."""
+    out = spawn_ranks(tmp, "dp_steps_job", world=world)
+    backend = out[0]["backend"]
+    where = f"{world} ranks sharing one card" if backend == "gloo" else f"{world} cards"
+    for name, case in out[0]["cases"].items():
+        launches = [o["cases"][name]["launches"] for o in out]
+        g = case["grads"]
+        print(f"dp steps {name} ({backend}, {where}), f32 stage 8, global batch {DP_BATCH}, each iteration against one "
+              f"process from the same state: losses max rel err {case['losses']:.3e} (tol {STEP_TOL}); per iteration, "
+              f"per net, relative L2 of the whole gradient (tol {STEP_GRAD_TOL[0]} at the fresh state, then "
+              f"{DP_LATER_GRAD_TOL}) and the worst tensor's (rel L2, max) (tol {STEP_GRAD_TOL} at the fresh state), "
+              f"beside rounding alone's: "
+              + "; ".join(f"{i}: " + ", ".join(f"{net} {e['whole']:.3e} {e['worst tensor'][0]:.3e} {e['worst tensor'][1]:.3e} "
+                                                f"(rounding alone {e['rounding alone whole']:.3e} {e['rounding alone'][0]:.3e} "
+                                                f"{e['rounding alone'][1]:.3e})" for net, e in it.items())
+                         for i, it in enumerate(g))
+              + f"; per iteration, per net, relative L2 of the optimizer's second moments (tol {DP_MOMENT_TOL[0]} at "
+              f"the fresh state, then {DP_MOMENT_TOL[1]}) beside rounding alone's: "
+              + "; ".join(f"{i}: " + ", ".join(f"{net} {e:.3e} (rounding alone {r[net]:.3e})" for net, e in m.items())
+                          for i, (m, r) in enumerate(case["moments"]))
+              + f"; nets and EMA after each (max |diff|, entries over 1e-5, entries; held after the first only, to "
+              f"{DP_FAR_SHARE} of entries), beside rounding alone's {case['step params']}; regularizers (mesh, one "
+              f"process) {case['regularizers']}; the ranks' parameters "
+              f"bit-equal {[o['cases'][name]['bit_equal'] for o in out]}; launches per iteration (K1, K2, K3) per "
+              f"rank {launches[0]}, one process {case['single_launches']} {math_flags()}")
+        require(all(x == case["single_launches"] for x in launches),
+                f"{name}: launches {launches} vs one process's {case['single_launches']}")
+    failures = [f for o in out for f in o["failures"]]
+    require(not failures, "dp steps: " + "; ".join(failures))
+    return backend, {name: case["launches"] for name, case in out[0]["cases"].items()}
+
+
+def dp_train_job(rank: int, dev: torch.device, cfg_path: str) -> dict:
+    """``train`` of the ``[dp]`` section on this rank, counting each step's
+    launches; rank 1 sends itself SIGTERM after its first stage-5 step."""
+    from byogan_tpu_torch.train import loop
+    from byogan_tpu_torch.train.config import load_ini_config
+
+    records = []
+    make_step = loop.make_train_step
+
+    def signalling(*args, **kw):
+        fn = make_step(*args, **kw)
+
+        def step(state, real, draws=None):
+            out = fn(state, real, draws)
+            if rank == 1 and state.stage == DP_SIGNAL_STAGE and not any(r[0] == DP_SIGNAL_STAGE for r in records):
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        return step
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "make_train_step", signalling), counting_steps(records):
+        state = loop.train(load_ini_config(cfg_path, "dp"), device=str(dev))
+    torch.cuda.synchronize()
+    return {"iters": state.iters, "stage": state.stage, "records": records, "launches": launch_counts(),
+            "wall": time.perf_counter() - t0}
+
+
+def dp_train(tmp, root):
+    """The "dp train" phase: ``train`` on two ranks at full width on 64
+    synthetic images with ``[DEFAULT]``'s batch_progression, one epoch a
+    stage (20 iterations), SIGTERM to rank 1 alone at stage 5: both stop at
+    one iteration, rank 0 writes one checkpoint and one metrics file; the
+    checkpoint resumes in one process to FINAL.pth, which the Sampler
+    loads; then the CLI at world 1 under NCCL through torchrun."""
+    from byogan_tpu_torch.cli.main import main as train_main
+    from byogan_tpu_torch.data.synthetic import write_prepared_dataset
+    from byogan_tpu_torch.serve import Sampler
+
+    t0 = time.perf_counter()
+    data = write_prepared_dataset(os.path.join(tmp, "dp_data"), DP_IMAGES, 8, seed=1)
+    print(f"dp train: wrote {DP_IMAGES} images x 8 stages in {time.perf_counter() - t0:.2f} s")
+    cfg = os.path.join(tmp, "dp.txt")
+    with open(cfg, "w") as f:
+        for name, axis in (("dp", DP_WORLD), ("dp1", 1), ("dpcli", 1)):
+            f.write(DP_CONFIG.format(name=name, data=data, data_axis=axis, tmp=tmp))
+    out = spawn_ranks(tmp, "dp_train_job", cfg, backend="gloo")
+    iters = [o["iters"] for o in out]
+    require(iters[0] == iters[1] and out[0]["stage"] == DP_SIGNAL_STAGE, f"the ranks stopped at {iters}, stage {out[0]['stage']}")
+    n = iters[0]
+    for r, o in enumerate(out):
+        require(len(o["records"]) == n, f"rank {r}: {len(o['records'])} steps for {n} iterations")
+        for k, _, _, got in o["records"]:
+            require(got == (2 * (2 * k - 1), 2, 2 * k), f"rank {r} stage {k}: launches per iteration {got}")
+    require(sorted(os.listdir(os.path.join(tmp, "dp_ck"))) == [f"chk-{n}.pth"], f"checkpoints {os.listdir(os.path.join(tmp, 'dp_ck'))}")
+    require(sorted(os.listdir(os.path.join(tmp, "dp_out"))) == ["metrics.jsonl"], f"outputs {os.listdir(os.path.join(tmp, 'dp_out'))}")
+    with open(os.path.join(tmp, "dp_out", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    require([r["iter"] for r in logged] == list(range(1, n + 1)), f"metrics iterations {[r['iter'] for r in logged]}")
+    require(all(math.isfinite(r["c_loss"]) and math.isfinite(r["g_loss"]) for r in logged), "non-finite losses")
+    launches = [dict(zip(KERNEL_NAMES, o["launches"])) for o in out]
+    print(f"dp train: two ranks (gloo, one card) stopped together at iteration {n} (stage {DP_SIGNAL_STAGE}) in "
+          f"{out[0]['wall']:.2f} s; one checkpoint chk-{n}.pth, one metrics file of {len(logged)} records; launches "
+          f"per rank {launches}, per iteration as one process's; batch {64 // DP_WORLD} a rank at stages 1-4")
+
+    records = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_steps(records):
+        state = train_main(["dp1", "--config-file", cfg, "-c", os.path.join(tmp, "dp_ck", f"chk-{n}.pth")])
+    torch.cuda.synchronize()
+    require(state.iters == 20 and records[0][0] == DP_SIGNAL_STAGE, f"the resumed run ended at {state.iters}")
+    for k, _, _, got in records:
+        require(got == (2 * (2 * k - 1), 2, 2 * k), f"resumed stage {k}: launches per iteration {got}")
+    frames = Sampler(os.path.join(tmp, "dp1_ck", "FINAL.pth"), batch=8, seed=0).sample(8)
+    require(frames.shape == (8, 512, 512, 3) and frames.std() > 0, f"frames {frames.shape}")
+    print(f"dp train: chk-{n}.pth resumed in one process to FINAL.pth in {time.perf_counter() - t0:.2f} s "
+          f"({len(records)} iterations, stage 8 at batch 8); the Sampler's frames from it {frames.shape} "
+          f"{frames.dtype}, std {frames.std():.2f}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "byogan_tpu_torch.cli.main", "dpcli", "--config-file", cfg, "--distributed", "--max-iters", "4"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    require(proc.returncode == 0, f"torchrun CLI exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    require("process group: world 1 (nccl), no mesh" in proc.stdout, f"no NCCL group line:\n{proc.stdout[-2000:]}")
+    require(os.path.exists(os.path.join(tmp, "dpcli_ck", "chk-4.pth")), "torchrun CLI: no chk-4.pth")
+    print(f"dp train: torchrun --standalone --nproc-per-node 1 ... cli.main --distributed --max-iters 4 exited 0 "
+          f"in {time.perf_counter() - t0:.2f} s (a one-process NCCL group, no mesh; chk-4.pth)")
+    return launches
+
+
+def dp_time_job(rank: int, dev: torch.device) -> dict:
+    """The stage-8 bf16 iteration (no-blend path) over the mesh at global
+    batch ``DP_TIME_BATCH`` (``TRAIN_BATCH`` a rank), CUDA events; the
+    all-reduce of each net's gradients alone (host clock, synchronised);
+    one profiled iteration's host time in collective ops and card time in
+    NCCL kernels."""
+    import torch.distributed as dist
+
+    from byogan_tpu_torch.parallel.mesh import all_reduce_mean_, make_mesh, shard_train_state
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    mesh = make_mesh(device=dev)  # the spawned world
+    cfg = TrainConfig()
+    state = shard_train_state(build_state(cfg, dev), mesh)
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    real = torch.randint(0, 256, (DP_TIME_BATCH // mesh.size, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg, 8, DP_TIME_BATCH, 8.0, (False,), False, mesh=mesh)
+    it_ms = timed_ms(lambda: step(state, real), iters=TIMED_ITERS)
+    reduce_ms, mbytes = {}, {}
+    for net in ("critic", "gen"):
+        grads = [p.grad for p in getattr(state, net).parameters()]
+        all_reduce_mean_(grads, mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            all_reduce_mean_(grads, mesh)
+        torch.cuda.synchronize()
+        reduce_ms[net] = (time.perf_counter() - t0) / 5 * 1e3
+        mbytes[net] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    card, host = profile_totals(lambda: step(state, real))
+    collective = re.compile(r"all_?reduce|broadcast|gloo|nccl", re.IGNORECASE)
+    return {
+        "backend": mesh.backend, "it_ms": it_ms, "reduce_ms": reduce_ms, "mbytes": mbytes,
+        "host_collective_ms": {k: v for k, v in host.items() if collective.search(k)},
+        "card_nccl_ms": {k: ms for k, (_, ms) in card.items() if "nccl" in k.lower()},
+        "card_busy_ms": sum(ms for _, ms in card.values()),
+    }
+
+
+def dp_times(tmp):
+    """The "time dp" phase: the stage-8 bf16 iteration at world 1 with a
+    one-process NCCL group against none (A B B A, CUDA events: the cost of
+    the all-reduces with nothing to reduce across), then the two-rank
+    iteration with gloo on this card (two ranks sharing one card, not a
+    multi-card rate), and with NCCL on two cards where the machine has
+    them."""
+    import torch.distributed as dist
+
+    from byogan_tpu_torch.parallel.mesh import make_mesh, shard_train_state
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig()
+    mesh = make_mesh(1, device=dev)  # NCCL on a card
+    try:
+        states = {"none": build_state(cfg, dev), "nccl": shard_train_state(build_state(cfg, dev), mesh)}
+        step = {"none": make_train_step(cfg, 8, TRAIN_BATCH, 8.0, (False,), False),
+                "nccl": make_train_step(cfg, 8, TRAIN_BATCH, 8.0, (False,), False, mesh=mesh)}
+        real = torch.randint(0, 256, (TRAIN_BATCH, 512, 512, 3), generator=torch.Generator(device=dev).manual_seed(4),
+                             device=dev, dtype=torch.uint8)
+        times = {"none": [], "nccl": []}
+        for mode in ("none", "nccl", "nccl", "none") * 2:
+            times[mode].append(timed_ms(lambda: step[mode](states[mode], real), iters=TIMED_ITERS))
+        profiles = {mode: profile_totals(lambda: step[mode](states[mode], real)) for mode in ("none", "nccl")}
+        del states
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    busy = {m: (sum(ms for _, ms in card.values()), sum(n for n, _ in card.values())) for m, (card, _) in profiles.items()}
+    print(f"time dp world 1, stage-8 iteration bf16 batch {TRAIN_BATCH}: no process group {times['none']} ms, one-process "
+          f"NCCL group {times['nccl']} ms (A B B A twice, CUDA events, {TIMED_ITERS} iterations each); one profiled "
+          f"iteration (card busy ms, kernels): none {busy['none']}, NCCL {busy['nccl']}; NCCL kernels "
+          f"{fmt_times({k: v[1] for k, v in profiles['nccl'][0].items() if 'nccl' in k.lower()})} ms {math_flags()}")
+    runs = [("gloo", "two ranks sharing one card, gloo")]
+    if torch.cuda.device_count() >= DP_WORLD:
+        runs.append(("nccl", "two cards, NCCL"))
+    for backend, label in runs:
+        ranks = spawn_ranks(tmp, "dp_time_job", backend=backend)
+        for r, t in enumerate(ranks):
+            share = (t["reduce_ms"]["critic"] + t["reduce_ms"]["gen"]) / t["it_ms"]
+            print(f"time dp {label}, rank {r}: stage-8 iteration bf16 global batch {DP_TIME_BATCH} ({TRAIN_BATCH} a "
+                  f"rank) {t['it_ms']:.3f} ms (CUDA events, {TIMED_ITERS} iterations); gradient all-reduce alone "
+                  f"critic {t['reduce_ms']['critic']:.3f} ms ({t['mbytes']['critic']:.1f} MB), generator "
+                  f"{t['reduce_ms']['gen']:.3f} ms ({t['mbytes']['gen']:.1f} MB), {100 * share:.1f}% of the iteration; "
+                  f"profiled iteration: host ms in collective ops {fmt_times(t['host_collective_ms'])}, card ms in "
+                  f"NCCL kernels {fmt_times(t['card_nccl_ms'])}, card busy {t['card_busy_ms']:.3f} ms {math_flags()}")
+
+
+def dp_sampler(ckpt):
+    """The "dp sampler" phase: ``Sampler(devices=["cuda:0", "cuda:0"])``
+    against ``devices=None`` at 512 px, batch 8, on the same draws: in f32,
+    frames within 1 LSB; in bf16 (the Sampler's default), each device's
+    frames bit-equal to one device's render of the same rows alone, beside
+    how far that batch of 4 lies from the batch of 8 and both from the f32
+    frames; and which part depends on the batch: the mapping's w, and K1
+    alone at each of the path's 15 shapes, on the same rows at batch 4
+    and 8.  (K1, K2) launches a batch: one set per device."""
+    from byogan_tpu_torch.models.factory import ModelSpec
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+    from byogan_tpu_torch.serve import Sampler
+
+    def lsb(a, b):
+        d = (a.int() - b.int()).abs()
+        return int(d.max()), float((d > 1).float().mean())
+
+    out, f32 = {}, None
+    half = PATH_BATCH // 2
+    for dtype in ("float32", "bfloat16"):
+        one = Sampler(ckpt, batch=PATH_BATCH, seed=5, dtype=dtype)
+        two = Sampler(ckpt, batch=PATH_BATCH, seed=5, dtype=dtype, devices=["cuda:0", "cuda:0"])
+        z, noise = one.draw()
+        z2, noise2 = two.draw()
+        require(torch.equal(z, z2) and all(torch.equal(a, b) for a, b in zip(noise, noise2)), "the samplers' draws differ")
+        with strict_f32():
+            two.render(z, noise)  # warm-up
+            zero_launch_counts()
+            got = two.render(z, noise)
+            torch.cuda.synchronize()
+            launches = launch_counts()[:2]
+            want = one.render(z, noise)
+            blocks = torch.cat([one.render(z[i:i + half], [n[i:i + half] for n in noise]) for i in (0, half)])
+        require(got.shape == (PATH_BATCH, 512, 512, 3), f"dp sampler frames {tuple(got.shape)}")
+        require(launches == (2 * 15, 2), f"dp sampler launches {launches}")
+        require(torch.equal(got, blocks), f"dp sampler {dtype}: the devices' frames differ from one device's render of their rows")
+        err = lsb(got, want)
+        if dtype == "float32":
+            f32 = want
+            require(err[0] <= 1, f"dp sampler f32: {err[0]} LSB from one device")
+            frames, ref = two.sample(2 * PATH_BATCH), one.sample(2 * PATH_BATCH)
+            err = max(err, lsb(torch.from_numpy(frames), torch.from_numpy(ref)))
+            require(err[0] <= 1, f"dp sampler f32 sample(): {err[0]} LSB from one device")
+            extra = ""
+        else:
+            with torch.inference_mode():
+                w = {n: one.to_w(z[:n]).float() for n in (half, PATH_BATCH)}
+                gen = torch.Generator(device="cuda").manual_seed(6)
+                k1 = []
+                for r, cin, cout in ModelSpec().styleconv_shapes():
+                    ins = k1_inputs(PATH_BATCH, r, cin, cout, torch.bfloat16, gen)
+                    rows = {k: v[:half] if k in ("x", "noise", "gamma", "beta") else v for k, v in ins.items()}
+                    k1.append(float((styleconv_cuda(**ins)[:half].float() - styleconv_cuda(**rows).float()).abs().max()))
+            w_err = float((w[PATH_BATCH][:half] - w[half]).abs().max())
+            extra = (f"; from the f32 frames (max LSB, share of values over 1 LSB): batch {PATH_BATCH} "
+                     f"{lsb(want, f32)}, the two devices' {lsb(got, f32)}; rows 0-{half - 1} at batch {half} against "
+                     f"batch {PATH_BATCH}, max abs diff: the mapping's w {w_err:.3e}, K1 alone at the 15 path shapes "
+                     f"{max(k1):.3e} ({sum(e == 0.0 for e in k1)} of 15 shapes bit-equal)")
+        out[dtype] = err[0]
+        print(f"dp sampler {dtype}: devices [cuda:0, cuda:0] against None at 512 px, batch {PATH_BATCH}: (max LSB, share "
+              f"of values over 1 LSB) {err} (bar: 1 LSB in f32); bit-equal to one device rendering each block of {half} "
+              f"alone{extra}; launches a batch (K1, K2) {launches} {math_flags()}")
+    return launches, out
+
+
+def dp_cards_main() -> int:
+    """On a machine with several cards (``python -c "import chip_smoke;
+    chip_smoke.dp_cards_main()"``): the dp steps over NCCL, one card a
+    rank, with two ranks and with four where there are four, and the
+    iteration's times over gloo on one card and NCCL on two."""
+    require(torch.cuda.device_count() >= DP_WORLD, f"{torch.cuda.device_count()} cards")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from byogan_tpu_torch.ops import build
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (DP_WORLD, 4):
+            if torch.cuda.device_count() >= world:
+                with phase(f"dp steps, {world} cards"):
+                    dp_steps(tmp, world)
+        with phase("time dp"):
+            dp_times(tmp)
+    return 0
+
+
+def dp_main() -> int:
+    """The data-parallel phases alone (``python -c "import chip_smoke;
+    chip_smoke.dp_main()"``), for a short call; ``main`` runs them too."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from byogan_tpu_torch.models.factory import ModelSpec, build_generator
+    from byogan_tpu_torch.ops import build
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gen.pth")
+        torch.save({"gen": build_generator(ModelSpec(), generator=torch.Generator().manual_seed(0)).state_dict(),
+                    "step": 8, "alpha": None}, ckpt)
+        with phase("dp steps"):
+            dp_steps(tmp)
+        with phase("dp train"):
+            dp_train(tmp, root)
+        with phase("time dp"):
+            dp_times(tmp)
+        with phase("dp sampler"):
+            dp_sampler(ckpt)
+    return 0
+
+
 def main() -> int:
     # Phase 1: the card.
     require(torch.cuda.is_available(), "no CUDA device")
@@ -2395,6 +3017,19 @@ def main() -> int:
             program_launches, program_err = serving_program(tmp, root, final)
         with phase("trace"):
             trace_run(tmp)
+
+        # Phases 27-30: data parallelism over two spawned ranks: steps on the
+        # global batch against one process, train() with a stop signal to
+        # one rank and the resume in one process, the torchrun CLI, the
+        # iteration's times, and the Sampler over two devices.
+        with phase("dp steps"):
+            dp_backend_used, dp_step_launches = dp_steps(tmp)
+        with phase("dp train"):
+            dp_launches = dp_train(tmp, root)
+        with phase("time dp"):
+            dp_times(tmp)
+        with phase("dp sampler"):
+            dp_sample_launches, dp_frame_err = dp_sampler(ckpt)
     penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]
     remat_entries = [{
         "launches_remat_train": remat_run[name],
@@ -2402,6 +3037,9 @@ def main() -> int:
         "launches_remat_stage8_iteration": remat_steps["default"]["launches"][i],
         "launches_remat_stage8_penalized_iteration": penalized_remat[i],
         "launches_program_batch": program_launches[i],
+        "launches_dp_train": [r[name] for r in dp_launches],
+        "launches_dp_step_iteration": [it[i] for it in dp_step_launches["R1"]],
+        **({"launches_dp_sampler_batch": dp_sample_launches[i]} if i < 2 else {}),
     } for i, name in enumerate(KERNEL_NAMES)]
 
     kernels = [
@@ -2486,6 +3124,8 @@ def main() -> int:
           f"{remat_steps['penalized PLR 2.0 + ADA, aug_p 0.5']['loss_err']:.3e}; launches per iteration (K1, K2, K3) stage "
           f"{REMAT_STAGE} {remat_stage7}, stage 8 {remat_steps['default']['launches']}, penalized {penalized_remat}; prep "
           f"{prep_s:.3f} s per original; program launches per batch {program_launches}, max frame error {program_err} LSB")
+    print(f"dp: steps on {dp_backend_used}; launches per rank in the two-rank train() run {dp_launches}; the "
+          f"Sampler over two devices {dp_sample_launches} a batch, {dp_frame_err} LSB from one device")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
