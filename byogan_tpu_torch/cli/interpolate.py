@@ -2,7 +2,7 @@
 interpolate.py).
 
     python -m byogan_tpu_torch.cli.interpolate [ckpt.pth] -o ./output [-n 60]
-        [-t 0.7] [-p 61] [-z Z] [--seed 0] [--ema] [--w-space] [-d cpu]
+        [-t 0.7] [-p 61] [-z Z] [--seed 0] [--ema] [--w-space] [-d cpu] [--pallas]
 
 The reference's defaults (``./chk-116000.pth``, 60 latents at truncation
 0.7, 61 lerp steps per adjacent pair with inclusive endpoints, frames
@@ -10,7 +10,8 @@ The reference's defaults (``./chk-116000.pth``, 60 latents at truncation
 over every frame; each pair's frames are one batch.  Z-space lerp as the
 reference, or W-space with ``--w-space``.  Frames are saved raw-range with
 save_image's clamp, so the negative half is black.  Float32; on the GPU
-unless ``-d cpu``.
+unless ``-d cpu``.  ``--pallas`` is accepted for the JAX CLI's command
+lines and changes nothing: on a GPU the port's CUDA kernels always run.
 """
 
 from __future__ import annotations
@@ -62,6 +63,10 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "-d", "--device", default=None, help="torch device (default: cuda; cpu runs the plain path)",
+    )
+    parser.add_argument(
+        "--pallas", action="store_true",
+        help="accepted for the JAX CLI's command lines; no effect: on a GPU the port's CUDA kernels always run",
     )
     parser.add_argument(
         "--ema", action="store_true",

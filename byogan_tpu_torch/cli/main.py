@@ -2,14 +2,16 @@
 
     python -m byogan_tpu_torch.cli.main <section> [-c CKPT] [--config-file cfg.txt]
                                         [--max-iters N] [-d DEVICE] [--force-resume]
-                                        [--trace-dir DIR] [--distributed]
+                                        [--trace-dir DIR] [--distributed] [--auto-resume]
     torchrun --nproc-per-node N -m byogan_tpu_torch.cli.main <section> --distributed
 
 Reads ``<section>`` of an INI config (``config.txt`` by default), trains on
 the GPU and writes ``.pth`` checkpoints.  ``-d cpu`` (or ``device = cpu``
 in the section) takes the plain PyTorch path on the CPU; without a GPU
 any other device raises.  SIGTERM or SIGINT saves ``chk-{iters}.pth`` at
-the next iteration boundary and exits 0; ``-c`` resumes from it.  A resume
+the next iteration boundary and exits 0; ``-c`` resumes from it, and
+``--auto-resume`` from the newest checkpoint in the section's
+``checkpoint_dir`` (``latest_checkpoint``; ``-c`` wins).  A resume
 whose trajectory knobs differ from the checkpoint's fails unless
 ``--force-resume``.  ``--trace-dir`` writes a ``torch.profiler`` trace
 of the run there (``profiling.trace_if``).
@@ -31,6 +33,7 @@ import torch.distributed as dist
 
 from byogan_tpu_torch.parallel.mesh import init_distributed
 from byogan_tpu_torch.profiling import trace_if
+from byogan_tpu_torch.train.checkpoint import latest_checkpoint
 from byogan_tpu_torch.train.config import load_ini_config
 from byogan_tpu_torch.train.loop import train
 
@@ -49,6 +52,11 @@ def main(argv=None):
         "data_axis must equal the world size",
     )
     parser.add_argument(
+        "--auto-resume", action="store_true",
+        help="resume from the newest checkpoint in checkpoint_dir if one exists (chk-N.pth, or FINAL.pth "
+        "when it is as new); -c wins",
+    )
+    parser.add_argument(
         "-d", "--device", default=None,
         help="torch device (default: cuda, or cpu when the section says device = cpu)",
     )
@@ -63,10 +71,15 @@ def main(argv=None):
     device = args.device or ("cpu" if config.device == "cpu" else "cuda")
     if args.distributed:
         device = init_distributed(device=device)
+    checkpoint = args.checkpoint
+    if checkpoint is None and args.auto_resume:  # every rank reads the same directory
+        checkpoint = latest_checkpoint(config.checkpoint_dir)
+        if checkpoint:
+            print(f"auto-resuming from {checkpoint}")
     try:
         with trace_if(args.trace_dir):
             return train(
-                config, checkpoint=args.checkpoint, max_iters=args.max_iters, device=device,
+                config, checkpoint=checkpoint, max_iters=args.max_iters, device=device,
                 allow_config_mismatch=args.force_resume,
             )
     finally:

@@ -3,12 +3,13 @@
     python -m byogan_tpu_torch.cli.prep <datapath> [start_size] [end_size]
                                         [-y] [-w WORKERS] [--pack] [-d DEVICE]
 
-Moves the PNG originals under ``<datapath>`` into ``original/images`` and
-writes ``prepared/set_{k}/images/image-{n}.png`` for every size from
-``start_size`` to ``end_size`` (``data/prep.py``), asking before it
-rebuilds an existing set unless ``-y``.  ``--pack`` also writes each set's
-``packed.npy``, which training reads with no decode.  The resizes run on
-the GPU; ``-d cpu`` runs them on the CPU.
+Moves the PNG, JPEG or BMP originals under ``<datapath>`` into
+``original/images`` and writes ``prepared/set_{k}/images/image-{n}.png``
+for every size from ``start_size`` to ``end_size`` (``data/prep.py``),
+asking before it rebuilds an existing set unless ``-y``.  ``--pack`` also
+writes each set's ``packed.npy``, which training reads with no decode.
+``-w`` threads decode and encode the files, for the pyramid and for the
+packing.  The resizes run on the GPU; ``-d cpu`` runs them on the CPU.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def main(argv=None):
     )
     if args.pack:
         for k in range(1, len(sets) + 1):
-            pack_stage(args.datapath, k)
+            pack_stage(args.datapath, k, workers=args.workers)
             print(f"packed set_{k}")
     print(f"dataset ready: {len(sets)} resolution sets")
 

@@ -3,14 +3,13 @@
     python -m byogan_tpu_torch.cli.project ckpt.pth a.png [b.png ...] -o out/
         [--iters 400] [--lr 0.05] [--w-plus] [--ema] [--seed 0] [-d cpu]
 
-Inverts PNG images into the generator's W space (``projector.project``,
+Inverts images (PNG, JPEG or BMP, ``data/images.py``) into the generator's W space (``projector.project``,
 float32) and writes ``{stem}-proj.png`` (the reconstruction) and
 ``{stem}-w.npy`` (its w, or its W+ rows) per input.  An input whose size
 is not the checkpoint's stage resolution is resized with
 ``F.interpolate(mode="bilinear", antialias=True)``; the JAX CLI resizes
-with PIL's bilinear filter, so the two targets differ slightly.  PNG only:
-the decoder is the port's own (``data/png.py``).  On the GPU unless ``-d
-cpu``.
+with PIL's bilinear filter, so the two targets differ slightly.  On the
+GPU unless ``-d cpu``.
 """
 
 from __future__ import annotations
@@ -24,10 +23,10 @@ import torch.nn.functional as F
 
 
 def load_target(path: str, res: int) -> np.ndarray:
-    """One PNG as uint8 (res, res, 3)."""
-    from byogan_tpu_torch.data.png import read_png
+    """One image file (PNG, JPEG or BMP) as uint8 (res, res, 3)."""
+    from byogan_tpu_torch.data.images import read_image
 
-    img = read_png(path)
+    img = read_image(path)
     if img.shape[:2] == (res, res):
         return img
     x = torch.from_numpy(img).permute(2, 0, 1)[None].float()

@@ -3,12 +3,14 @@
 A stage reads ``<root>/prepared/set_{stage}`` (ImageFolder layout: files
 under class subdirectories), or derives it from a higher set with prep's
 2x bilinear filter.  ``packed.npy`` (``pack_stage``) is read as a uint8 NHWC
-memmap with no decode; PNG sets go through the stdlib decoder of
-``data/png.py``.  The loader keeps the JAX loader's order of random draws
-(one permutation per epoch, then one flip draw per batch from
-``np.random.default_rng(seed)``), so the same seed gives the same batches,
-drops the ragged tail and yields flipped uint8 batches: the train step
-maps them to [-1, 1] on the device.  ``to_device`` copies them from pinned
+memmap with no decode.  Files are listed by extension and decoded by
+format (``data/images.py``: PNG and JPEG through the native lane, BMP in
+numpy; any other raises, naming the file), on ``workers`` threads as the
+JAX package's are (byogan_tpu/data/pipeline.py:91-168).  The loader keeps
+the JAX loader's order of random draws (one permutation per epoch, then
+one flip draw per batch from ``np.random.default_rng(seed)``), so the same
+seed gives the same batches, drops the ragged tail and yields flipped
+uint8 batches: the train step maps them to [-1, 1] on the device.  ``to_device`` copies them from pinned
 memory ahead of use.
 """
 
@@ -18,15 +20,13 @@ import collections
 import os
 import queue
 import threading
-from typing import Iterator, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
-from byogan_tpu_torch.data.png import read_png
-
-IMAGE_EXTENSIONS = (".png",)
-
+from byogan_tpu_torch.data.images import is_image, read_image
 
 #: a stage's decoded images are kept in memory when they fit in this
 CACHE_LIMIT_BYTES = 1 << 30
@@ -34,19 +34,22 @@ CACHE_LIMIT_BYTES = 1 << 30
 
 class StageDataset:
     """Images of one progressive stage.  ``derive_shift=k`` reads the files
-    of ``set_{stage}`` and downsamples each by 2^k."""
+    of ``set_{stage}`` and downsamples each by 2^k.  ``maybe_cache`` keeps
+    the decoded set in memory when it fits in ``cache_limit_bytes`` (0: never)."""
 
-    def __init__(self, root: str, stage: int, derive_shift: int = 0):
+    def __init__(self, root: str, stage: int, cache_limit_bytes: int = CACHE_LIMIT_BYTES, derive_shift: int = 0):
         self.set_dir = os.path.join(root, "prepared", f"set_{stage}")
         self.derive_shift = derive_shift
+        self.cache_limit_bytes = cache_limit_bytes
         if not os.path.isdir(self.set_dir):
             raise OSError(f"Did not detect prepared dataset! (missing {self.set_dir})")
         self.files: List[str] = []
         for dirpath, _, names in sorted(os.walk(self.set_dir)):
             for name in sorted(names):
-                if os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS:
+                if is_image(name):
                     self.files.append(os.path.join(dirpath, name))
         self._cache: Optional[np.ndarray] = None
+        self._file_shape: Optional[tuple] = None  # (H, W) of the last file decoded: a hint, see decode
         packed = os.path.join(self.set_dir, "packed.npy")
         self._packed: Optional[np.ndarray] = None
         if derive_shift == 0 and os.path.exists(packed):
@@ -58,24 +61,38 @@ class StageDataset:
         return len(self.files) if self._packed is None else int(self._packed.shape[0])
 
     def decode(self, index: int) -> np.ndarray:
-        img = read_png(self.files[index])
+        # A set's files share one size, so the last one's lets the native
+        # lane decode in one call; a file of another size is still read.
+        img = read_image(self.files[index], self._file_shape)
+        self._file_shape = img.shape[:2]
         return _downsample_u8(img, self.derive_shift) if self.derive_shift else img
 
-    def maybe_cache(self) -> bool:
+    def fill(self, out: np.ndarray, indices: Iterable[int], workers: int = 8) -> None:
+        """``out[j] = decode(indices[j])`` on ``workers`` threads; a file of
+        another size than ``out``'s rows raises, naming it."""
+        def one(j_index):
+            j, index = j_index
+            img = self.decode(int(index))
+            if img.shape != out.shape[1:]:
+                raise OSError(f"{self.files[index]}: size {img.shape} differs from the set's {out.shape[1:]}")
+            out[j] = img
+
+        _threaded(one, list(enumerate(indices)), workers)
+
+    def maybe_cache(self, workers: int = 8) -> bool:
         """Decode everything into one uint8 NHWC array if under budget."""
         if self._packed is not None or self._cache is not None:
             return True
         probe = self.decode(0)
-        if probe.nbytes * len(self.files) > CACHE_LIMIT_BYTES:
+        if probe.nbytes * len(self.files) > self.cache_limit_bytes:
             return False
         cache = np.empty((len(self.files),) + probe.shape, np.uint8)
         cache[0] = probe
-        for i in range(1, len(self.files)):
-            cache[i] = self.decode(i)
+        self.fill(cache[1:], range(1, len(self.files)), workers)
         self._cache = cache
         return True
 
-    def get_batch_uint8(self, indices: np.ndarray) -> np.ndarray:
+    def get_batch_uint8(self, indices: np.ndarray, workers: int = 8) -> np.ndarray:
         if self._packed is not None:
             order = np.argsort(indices)
             out = np.empty((len(indices),) + self._packed.shape[1:], np.uint8)
@@ -83,20 +100,31 @@ class StageDataset:
             return out
         if self._cache is not None:
             return self._cache[indices]
-        return np.stack([self.decode(int(i)) for i in indices])
+        batch = _threaded(self.decode, [int(i) for i in indices], workers)
+        for index, img in zip(indices, batch):
+            if img.shape != batch[0].shape:
+                raise OSError(f"{self.files[index]}: size {img.shape} differs from the batch's {batch[0].shape}")
+        return np.stack(batch)
 
 
-def pack_stage(root: str, stage: int) -> str:
+def _threaded(fn, items: list, workers: int) -> list:
+    """``[fn(x) for x in items]`` on up to ``workers`` threads."""
+    if workers <= 1 or len(items) <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=min(workers, len(items))) as pool:
+        return list(pool.map(fn, items))
+
+
+def pack_stage(root: str, stage: int, workers: int = 8) -> str:
     """Write set_{stage} as one uint8 NHWC ``packed.npy``, which later reads
-    take with no decode.  Returns its path."""
-    ds = StageDataset(root, stage)
+    take with no decode, decoding on ``workers`` threads.  Returns its path."""
+    ds = StageDataset(root, stage, cache_limit_bytes=0)
     probe = ds.decode(0)
     path = os.path.join(ds.set_dir, "packed.npy")
     tmp = path + ".tmp.npy"
     arr = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.uint8, shape=(len(ds),) + probe.shape)
     arr[0] = probe
-    for i in range(1, len(ds)):
-        arr[i] = ds.decode(i)
+    ds.fill(arr[1:], range(1, len(ds)), workers)
     arr.flush()
     del arr
     os.replace(tmp, path)
@@ -130,14 +158,14 @@ def _downsample_u8(img: np.ndarray, shift: int) -> np.ndarray:
     return img
 
 
-def open_stage_dataset(root: str, stage: int) -> StageDataset:
+def open_stage_dataset(root: str, stage: int, cache_limit_bytes: int = CACHE_LIMIT_BYTES) -> StageDataset:
     """set_{stage}, or the next higher set that exists, downsampled."""
     prepared = os.path.join(root, "prepared")
     if os.path.isdir(os.path.join(prepared, f"set_{stage}")):
-        return StageDataset(root, stage)
+        return StageDataset(root, stage, cache_limit_bytes)
     for higher in range(stage + 1, 16):
         if os.path.isdir(os.path.join(prepared, f"set_{higher}")):
-            return StageDataset(root, higher, derive_shift=higher - stage)
+            return StageDataset(root, higher, cache_limit_bytes, derive_shift=higher - stage)
     raise OSError(f"Did not detect prepared dataset! (missing {prepared}/set_{stage})")
 
 
@@ -155,12 +183,14 @@ def make_stage_loader(
     skip_batches: int = 0,
     process_index: int = 0,
     process_count: int = 1,
+    workers: int = 8,
 ) -> Iterator[np.ndarray]:
     """Yield one epoch of shuffled, randomly flipped uint8 NHWC batches of
     ``batch_size``, the ragged tail dropped, prepared on a worker thread two
     batches ahead.  ``skip_batches`` skips the first batches but still makes
     their random draws, so the stream continues as an uninterrupted one
-    would (batch-exact resume).
+    would (batch-exact resume).  ``workers`` threads decode each batch
+    (and the stage's cache): they change who decodes, not what.
 
     Data parallelism (byogan_tpu/data/pipeline.py:274-335): with
     ``process_count > 1`` every process draws the same global shuffle and
@@ -170,7 +200,7 @@ def make_stage_loader(
         raise ValueError(f"batch_size {batch_size} not divisible by process_count {process_count}")
     local_rows = batch_size // process_count
     lo_row = process_index * local_rows
-    dataset.maybe_cache()
+    dataset.maybe_cache(workers)
     rng = np.random.default_rng(seed)
     n = len(dataset)
     q: "queue.Queue" = queue.Queue(maxsize=2)
@@ -188,7 +218,7 @@ def make_stage_loader(
                 if lo // batch_size < skip_batches:
                     continue
                 rows = slice(lo_row, lo_row + local_rows)
-                q.put(_flip_u8(dataset.get_batch_uint8(idx[rows]), flips[rows]))
+                q.put(_flip_u8(dataset.get_batch_uint8(idx[rows], workers), flips[rows]))
         except Exception as e:  # handed to the consumer
             q.put(e)
         finally:

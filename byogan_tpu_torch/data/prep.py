@@ -7,13 +7,11 @@ order, so a dataset prepared by either package trains in both.  Each
 original is decoded once and resized to every size, largest first, each
 size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
-package's.  Decoding (``data/png.py``) and encoding (``serve.encode_png``)
-run on a pool of host threads; the resizes run on ``device``, the GPU
-unless ``"cpu"`` is asked for.
-
-Originals are read as PNG only; a JPEG, BMP or WebP original raises,
-naming the file (those need the JAX package's prep, which decodes with
-PIL).
+package's.  Decoding (``data/images.py``: PNG and JPEG through the native
+lane, BMP in numpy) and encoding (``serve.encode_png``) run on a pool of
+host threads; the resizes run on ``device``, the GPU unless ``"cpu"`` is
+asked for.  An original the port cannot decode, a WebP among them,
+raises before any set is written, naming the file.
 """
 
 from __future__ import annotations
@@ -27,14 +25,8 @@ import torch
 
 from byogan_tpu_torch.core.device import resolve_device
 from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil
-from byogan_tpu_torch.data.png import read_png
+from byogan_tpu_torch.data.images import is_image, read_image, sniff
 from byogan_tpu_torch.serve import encode_png
-
-IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
-
-
-def _is_image(name: str) -> bool:
-    return os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS
 
 
 def _gather_sizes(start_size: int, end_size: int) -> List[int]:
@@ -68,13 +60,12 @@ def prepare_pyramid(
         for name in sorted(os.listdir(datapath)):
             if name not in ("original", "prepared"):
                 shutil.move(os.path.join(datapath, name), dest)
-    files = sorted(os.path.join(dest, f) for f in os.listdir(dest) if _is_image(f))
+    files = sorted(os.path.join(dest, f) for f in os.listdir(dest) if is_image(f))
     for path in files:
-        if not path.lower().endswith(".png"):
-            raise ValueError(
-                f"{path}: the PyTorch port reads PNG originals only; prepare "
-                "JPEG, BMP or WebP originals with the JAX package's prep"
-            )
+        with open(path, "rb") as f:
+            fmt = sniff(f.read(12))
+        if fmt not in ("PNG", "JPEG", "BMP"):
+            raise OSError(f"{path}: the original's format is {fmt}: the PyTorch port decodes PNG, JPEG and BMP files")
 
     sizes = _gather_sizes(start_size, end_size)
     prepared = os.path.join(datapath, "prepared")
@@ -97,7 +88,7 @@ def prepare_pyramid(
 
     def process(item) -> None:
         n, path = item
-        img = torch.from_numpy(read_png(path)).to(dev)
+        img = torch.from_numpy(read_image(path)).to(dev)
         for size, set_dir in chain:
             img = resize_uint8_bilinear_pil(img, size)
             with open(os.path.join(set_dir, f"image-{n}.png"), "wb") as f:

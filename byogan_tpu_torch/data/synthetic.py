@@ -6,7 +6,8 @@ smooth colour gradients with a disk, drawn from parameters made by
 ``np.random.default_rng(seed)``, so every stage shows the same scenes.
 For tests and for the smoke run on the card, which has no PIL.
 ``encode_png_filtered`` writes originals for ``data/prep.py`` under each
-of PNG's five row filters.
+of PNG's five row filters, ``encode_bmp`` the 24-bit bitmaps Pillow
+writes.
 """
 
 from __future__ import annotations
@@ -68,3 +69,14 @@ def encode_png_filtered(img: np.ndarray, row_filter: int, compression: int = 6) 
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return b"".join((b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", header),
                      _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), compression)), _png_chunk(b"IEND", b"")))
+
+
+def encode_bmp(img: np.ndarray) -> bytes:
+    """A uint8 RGB image (H, W, 3) as an uncompressed 24-bit BMP, rows
+    bottom-up and padded to 4 bytes, as Pillow writes RGB images."""
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()

@@ -10,7 +10,8 @@ w (``truncation_psi``) and mixes coarse and fine styles of two latent sets
 (``style_mix``), as the JAX Sampler does.  Over several devices
 (``devices``, the counterpart of the JAX Sampler's ``mesh``) it keeps one
 generator replica per device and renders each contiguous row block of a
-batch on its own.
+batch on its own.  Frames are written as PNG, as JPEG through the native
+lane's libjpeg (``format="jpeg"``), or raw.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from byogan_tpu_torch.core.device import make_generator, resolve_device
 from byogan_tpu_torch.core.grids import to_uint8
 from byogan_tpu_torch.core.random import synthesis_noise, truncated_noise
+from byogan_tpu_torch.data import native
 from byogan_tpu_torch.models.factory import (
     ModelSpec,
     build_generator,
@@ -38,7 +40,7 @@ from byogan_tpu_torch.projector import mean_w, truncate
 from byogan_tpu_torch.train.checkpoint import load_checkpoint
 
 #: encode lane -> file extension
-FRAME_EXTENSIONS = {"png": ".png", "raw": ".npy"}
+FRAME_EXTENSIONS = {"png": ".png", "jpeg": ".jpg", "raw": ".npy"}
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -68,14 +70,17 @@ def encode_png(frame: np.ndarray, compression: int = 6) -> bytes:
 
 
 def save_frame_u8(
-    frame: np.ndarray, stem: str, format: str = "png", png_compression: int = 1
+    frame: np.ndarray, stem: str, format: str = "png", png_compression: int = 1, jpeg_quality: int = 92
 ) -> str:
-    """Write one uint8 HWC frame as ``stem`` + extension ("png" or "raw"
-    ``.npy``); returns the path written."""
+    """Write one uint8 HWC frame as ``stem`` + extension ("png", "jpeg"
+    ``.jpg`` at ``jpeg_quality``, or "raw" ``.npy``); returns the path
+    written (byogan_tpu/serve.py:50-81)."""
     path = stem + FRAME_EXTENSIONS[format]
     if format == "png":
         with open(path, "wb") as f:
             f.write(encode_png(frame, png_compression))
+    elif format == "jpeg":
+        native.encode_jpeg(path, frame, jpeg_quality)
     else:
         np.save(path, frame)
     return path
@@ -270,9 +275,11 @@ class Sampler:
         n: int,
         prefix: str = "image_",
         format: str = "png",
+        jpeg_quality: int = 92,
     ) -> int:
-        """Write n frames as ``{prefix}{i}`` (i from 1), encoding on a host
-        thread while the device renders the next batch."""
+        """Write n frames as ``{prefix}{i}`` (i from 1) in ``format`` (see
+        ``save_frame_u8``), encoding on a host thread while the device
+        renders the next batch."""
         if format not in FRAME_EXTENSIONS:
             raise ValueError(f"unknown save_stream format: {format!r}")
         os.makedirs(directory, exist_ok=True)
@@ -292,7 +299,7 @@ class Sampler:
                     for frame in item:
                         idx += 1
                         stem = os.path.join(directory, f"{prefix}{idx}")
-                        save_frame_u8(frame, stem, format)
+                        save_frame_u8(frame, stem, format, jpeg_quality=jpeg_quality)
                 except Exception as e:  # handed to the caller after join
                     error.append(e)
 

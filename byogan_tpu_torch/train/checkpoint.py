@@ -1,5 +1,5 @@
 """Checkpoints as reference-format ``.pth`` files
-(byogan_tpu/train/checkpoint.py:42-193, 261-276, 387-455).
+(byogan_tpu/train/checkpoint.py:42-229, 261-276, 387-455).
 
 A checkpoint holds the reference's logical fields {gen, critic, iter,
 im_count, step, epoch, alpha} under the reference's state-dict names, so
@@ -9,7 +9,7 @@ states, the generator RNG's state, ``gen_ema`` (the EMA generator, when the
 run has one), the regularizers' scalars ``aug_p``, ``rt_ema`` and
 ``pl_ema`` (floats, when the run has them) and ``train_config`` (the knobs
 that steer the trajectory, checked on resume).  Files are ``chk-{iters}.pth`` and ``FINAL.pth``,
-written atomically.
+written atomically; ``latest_checkpoint`` picks the one to resume from.
 
 The JAX package's own checkpoints are orbax directories, which need JAX to
 read; convert one with ``byogan-export`` to a ``.pth`` first.
@@ -18,6 +18,7 @@ read; convert one with ``byogan-export`` to a ``.pth`` first.
 from __future__ import annotations
 
 import os
+import pickle
 import re
 from typing import Any, Dict, Optional
 
@@ -147,6 +148,31 @@ def prune_checkpoints(directory: str, keep: int) -> list:
     for p in removed:
         os.remove(p)
     return removed
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    """The checkpoint to resume from (byogan_tpu/train/checkpoint.py:196-229):
+    the newest ``chk-{N}.pth``, or ``FINAL.pth`` when its saved ``iter`` is
+    at least N (ties go to FINAL, written after the periodic save at the
+    same iteration); None if there is neither.  A leftover ``*.pth.tmp``
+    (a save cut short) is never picked, and a FINAL that cannot be read
+    falls back to the periodic checkpoint.  FINAL is memory-mapped, so only
+    its ``iter`` is read."""
+    if not os.path.isdir(directory):
+        return None
+    best, best_iter = None, -1
+    for entry in os.listdir(directory):
+        m = re.fullmatch(r"chk-(\d+)\.pth", entry)
+        if m and int(m.group(1)) > best_iter:
+            best, best_iter = os.path.join(directory, entry), int(m.group(1))
+    final = os.path.join(directory, "FINAL.pth")
+    if os.path.isfile(final):
+        try:
+            if torch.load(final, map_location="cpu", mmap=True, weights_only=True)["iter"] >= best_iter:
+                return final
+        except (OSError, RuntimeError, EOFError, KeyError, TypeError, ValueError, pickle.UnpicklingError):
+            pass  # a partial or foreign FINAL: resume from the periodic checkpoint
+    return best
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -328,7 +328,7 @@ def _train(
                 dataset, batch, seed=config.seed * 100003 + steps * 1009 + epoch,
                 skip_batches=resume_skip if epoch == resume_epoch else 0,
                 process_index=0 if mesh is None else mesh.rank,
-                process_count=1 if mesh is None else mesh.size,
+                process_count=1 if mesh is None else mesh.size, workers=config.num_workers,
             )
             for real in to_device(loader, dev):
                 repeats = config.critic_repeats

@@ -58,6 +58,15 @@ both paths of the port at full width (``ModelSpec()``):
   resumed in one process, the training CLI at world 1 under NCCL through
   torchrun, the iteration's time with and without a process group and
   over two ranks, and the Sampler over two devices against one.
+* the image-IO slice: the native image-IO library (``native/
+  byogan_io.cpp``; the script fails if it does not build), the PNG decode
+  of its lane bit-equal to the Python unfilter's on smooth (Paeth, Average)
+  and noisy (Up, Sub) sets, BMP and JPEG files (JPEG where libjpeg was
+  compiled in, else refused by name), the loader's ms per batch by lane and
+  decode threads beside the stage-8 iteration, prep's and the frame
+  writers' times, and the training CLI on a set with non-PNG files among
+  its PNGs, stopped by SIGTERM and resumed with ``--auto-resume``, then
+  ``cli.generate_samples --pallas`` on its FINAL.pth.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -73,6 +82,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import io
 import json
 import math
 import os
@@ -2742,6 +2752,379 @@ def dp_sampler(ckpt):
     return launches, out
 
 
+# --- the image-IO slice: the native lane, the loader's rate, JPEG/BMP sets ---
+
+IO_IMAGES, IO_SIDE = 32, 512  # per set: smooth (Paeth, Average rows) and noisy (Up, Sub rows)
+IO_JPEGS, IO_JPEG_QUALITY = 8, 92
+# A JPEG at quality 92 against its source pixels: mean |error| in LSB (the
+# CPU test's bound on a smooth image with noise and one sharp edge).
+IO_JPEG_MEAN_ERR = 3.0
+LOADER_WORKERS = (1, 2, 8)  # 2: dataloader_threads' default
+LOADER_TIMED = {"native": 5, "python": 2}  # batches timed per loader, after its first
+IO_PREP_ORIGINALS = 4  # per format, 1024 px
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 4  # per stage: Paeth PNGs, then non-PNG files among them
+IO_CONFIG = (
+    "[io]\n"
+    "data = {data}\n"
+    "epoch_progression = 1,1,1,1,1,1,1,1\n"
+    "fade_percentage = 2\n"
+    "display_step = 1000\ncheckpoint_step = 1000\nrefresh_stat_step = 1\n"
+    "checkpoint_dir = {tmp}/io_ck\noutput_dir = {tmp}/io_out\n"
+)
+
+
+def scenes(rng, n: int) -> np.ndarray:
+    """Parameters of ``n`` synthetic scenes (``data/synthetic.render``)."""
+    return np.concatenate([rng.random((n, 3)) * 0.8 + 0.1, rng.random((n, 3)) * 6.28,
+                           rng.random((n, 3)) * 2 - 1], axis=1)
+
+
+@contextlib.contextmanager
+def python_lane():
+    """data/png.py with its Python ``_unfilter`` alone: the native library
+    taken away for the duration (the plain lane a failed build leaves)."""
+    from byogan_tpu_torch.data import native
+
+    with mock.patch.object(native, "load_library", lambda: None):
+        yield
+
+
+def io_checks(tmp) -> dict:
+    """Builds the native image-IO library (it must build: the script fails
+    on the Python lane alone) and prints the compiler, the headers found and
+    ``features()``.  Writes two sets of ``IO_IMAGES`` 512 px PNGs, smooth
+    (3 in 4 Paeth rows, the rest Average, as Pillow picks on smooth images)
+    and noisy (Up, Sub), and holds each set's decode (``maybe_cache``) on
+    the native lane bit-equal to the Python ``_unfilter``'s and to the
+    source pixels, timing both; BMP files decode exactly; JPEG files, where
+    libjpeg was compiled in, decode deterministically within
+    ``IO_JPEG_MEAN_ERR`` of their sources, and elsewhere raise naming the
+    file and libjpeg.  Returns the sets and the timings."""
+    from byogan_tpu_torch.data import images, native
+    from byogan_tpu_torch.data.pipeline import StageDataset
+    from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
+    from byogan_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    native_build.build(force=True)
+    build_s = time.perf_counter() - t0
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout.splitlines()[0]
+    headers = {h: native_build.has_header(h) for h in ("png.h", "jpeglib.h", "zlib.h")}
+    lanes = native.features()
+    print(f"io: {gxx}; headers {headers}; {native_build.LIBRARY.name} built in {build_s:.2f} s with "
+          f"{' '.join(native_build.link_flags())}; features {lanes}")
+    require(native.load_library() is not None and native.build_error() is None,
+            f"the native image-IO library did not build: {native.build_error()}")
+    png_lane = "libpng" if lanes["png"] else "data/png.py + byogan_unfilter"
+    jpeg_lane = "libjpeg" if lanes["jpeg"] else "none (raises)"
+    print(f"io: lanes built: PNG {png_lane}; JPEG {jpeg_lane}; BMP numpy")
+
+    rng = np.random.default_rng(31)
+    out = {"sets": {}, "cache_s": {}, "jpeg": lanes["jpeg"]}
+    for name in ("smooth", "noisy"):
+        folder = os.path.join(tmp, "io", name, "prepared", "set_8", "images")
+        os.makedirs(folder)
+        src = np.empty((IO_IMAGES, IO_SIDE, IO_SIDE, 3), np.uint8)
+        filters = []
+        for i, p in enumerate(scenes(rng, IO_IMAGES)):
+            img = render(p, IO_SIDE)
+            if name == "noisy":
+                img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+                f = (2, 1)[i % 2]
+            else:
+                f = 3 if i % 4 == 0 else 4
+            src[i] = img
+            filters.append(f)
+            with open(os.path.join(folder, f"image-{i:02d}.png"), "wb") as fh:
+                fh.write(encode_png_filtered(img, f))
+        root = os.path.dirname(os.path.dirname(os.path.dirname(folder)))
+        caches = {}
+        for lane in ("python", "native"):
+            ds = StageDataset(root, 8)
+            t0 = time.perf_counter()
+            with python_lane() if lane == "python" else contextlib.nullcontext():
+                require(ds.maybe_cache(workers=2), f"{name} set not cached")
+            out["cache_s"][(name, lane)] = time.perf_counter() - t0
+            caches[lane] = ds._cache
+        require(np.array_equal(caches["native"], caches["python"]),
+                f"{name} set: the native lane's decode differs from data/png.py's Python _unfilter")
+        require(np.array_equal(caches["native"], src), f"{name} set: decoded pixels differ from the sources")
+        out["sets"][name] = root
+        print(f"io: {name} set, {IO_IMAGES} PNGs at {IO_SIDE} px, row filters {sorted(set(filters))}: native lane "
+              f"({png_lane}) bit-equal to the Python _unfilter and to the sources; maybe_cache(workers=2) s: "
+              f"python {out['cache_s'][(name, 'python')]:.3f}, native {out['cache_s'][(name, 'native')]:.3f}")
+
+    other = os.path.join(tmp, "io", "other")
+    os.makedirs(other)
+    for i, p in enumerate(scenes(rng, 4)):
+        img = render(p, 96 + 8 * i)[:, : 96 + 12 * i - 5]
+        path = os.path.join(other, f"b{i}.bmp")
+        with open(path, "wb") as fh:
+            fh.write(encode_bmp(img))
+        require(np.array_equal(images.read_image(path), img), f"{path} decodes to other pixels")
+    stub = os.path.join(other, "stub.jpg")
+    with open(stub, "wb") as fh:
+        fh.write(b"\xff\xd8\xff\xe0" + bytes(16))
+    if lanes["jpeg"]:
+        errs = []
+        for i, p in enumerate(scenes(rng, IO_JPEGS)):
+            img = render(p, IO_SIDE)
+            path = os.path.join(other, f"j{i}.jpg")
+            native.encode_jpeg(path, img, IO_JPEG_QUALITY)
+            a, b = images.read_image(path), images.read_image(path)
+            require(np.array_equal(a, b), f"{path}: two decodes differ")
+            errs.append(float(np.abs(a.astype(np.int16) - img).mean()))
+        require(max(errs) <= IO_JPEG_MEAN_ERR, f"JPEG mean errors {errs} over {IO_JPEG_MEAN_ERR}")
+        print(f"io: {IO_JPEGS} JPEGs (quality {IO_JPEG_QUALITY}, {IO_SIDE} px) decode deterministically, mean |error| "
+              f"{min(errs):.3f}-{max(errs):.3f} LSB (bound {IO_JPEG_MEAN_ERR}); 4 BMPs (odd widths) exact")
+    else:
+        try:
+            images.read_image(stub)
+        except OSError as e:
+            require("stub.jpg" in str(e) and "libjpeg" in str(e), f"the JPEG error names neither: {e}")
+            print(f"io: no libjpeg on this machine: a JPEG file raises: {e}; 4 BMPs (odd widths) exact")
+        else:
+            require(False, "a JPEG file decoded without libjpeg")
+    return out
+
+
+def time_loader(io_state: dict, it_ms) -> dict:
+    """``make_stage_loader`` over each set at 512 px, batch 5, cache off,
+    on 1, 2 and 8 decode threads, over the native lane and the Python
+    ``_unfilter`` (fewer batches: it takes about a second a batch): ms per
+    batch after the first, beside the stage-8 iteration's ms from this run.
+    Then ``prepare_pyramid`` (card resizes, 8 threads) in this process on
+    1024 px originals: Paeth PNGs, BMPs and, with libjpeg, JPEGs, seconds
+    per original; and ``save_frame_u8`` ms per 512 px frame as PNG (levels
+    1 and 6) and JPEG."""
+    from byogan_tpu_torch.data import native
+    from byogan_tpu_torch.data.pipeline import StageDataset, make_stage_loader
+    from byogan_tpu_torch.data.prep import prepare_pyramid
+    from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered
+    from byogan_tpu_torch.serve import save_frame_u8
+
+    iteration = "not measured in this run" if it_ms is None else f"{it_ms:.3f} ms"
+    rates = {}
+    for name, root in io_state["sets"].items():
+        for lane, timed in LOADER_TIMED.items():
+            for workers in LOADER_WORKERS:
+                ds = StageDataset(root, 8, cache_limit_bytes=0)
+                with python_lane() if lane == "python" else contextlib.nullcontext():
+                    loader = make_stage_loader(ds, TRAIN_BATCH, seed=workers, workers=workers)
+                    next(loader)
+                    t0 = time.perf_counter()
+                    for _ in range(timed):
+                        next(loader)
+                    ms = 1e3 * (time.perf_counter() - t0) / timed
+                    loader.close()
+                rates[(name, lane, workers)] = ms
+                print(f"time loader {name} {lane} workers {workers}: {ms:.3f} ms per batch of {TRAIN_BATCH} at "
+                      f"{IO_SIDE} px, cache off ({timed} batches after the first; host clock); stage-8 iteration "
+                      f"{iteration}")
+
+    rng = np.random.default_rng(41)
+    formats = ["png", "bmp"] + (["jpeg"] if io_state["jpeg"] else [])
+    prep_s = {}
+    for fmt in formats:
+        data = os.path.join(os.path.dirname(io_state["sets"]["smooth"]), f"prep_{fmt}")
+        os.makedirs(data)
+        for i in range(IO_PREP_ORIGINALS):
+            yy, xx = np.mgrid[0:PREP_SIDE, 0:PREP_SIDE]
+            base = np.stack([np.sin(xx / (37 + 5 * c + i) + c) * np.cos(yy / (53 + i)) for c in range(3)], -1)
+            img = np.clip(127.5 + 100 * base + rng.normal(0, 2, base.shape), 0, 255).astype(np.uint8)
+            path = os.path.join(data, f"orig-{i}." + {"png": "png", "bmp": "bmp", "jpeg": "jpg"}[fmt])
+            if fmt == "jpeg":
+                native.encode_jpeg(path, img, IO_JPEG_QUALITY)
+            else:
+                with open(path, "wb") as fh:
+                    fh.write(encode_png_filtered(img, 4) if fmt == "png" else encode_bmp(img))
+        t0 = time.perf_counter()
+        prepare_pyramid(data, 4, 512, workers=8)
+        torch.cuda.synchronize()
+        prep_s[fmt] = (time.perf_counter() - t0) / IO_PREP_ORIGINALS
+    print(f"time prep: prepare_pyramid in this process, {IO_PREP_ORIGINALS} originals of {PREP_SIDE} px a format, "
+          f"8 sets, 8 threads, s per original: " + ", ".join(f"{f} {s:.3f}" for f, s in prep_s.items())
+          + " (PNG originals under Paeth rows; the \"prep:\" line's cli.prep reading is the one to hold against "
+          "PR 9's 0.858 s)")
+
+    frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
+    frame_ms = {}
+    out_dir = os.path.join(os.path.dirname(io_state["sets"]["smooth"]), "frames")
+    os.makedirs(out_dir)
+    lanes = [("png level 1", "png", {"png_compression": 1}), ("png level 6", "png", {"png_compression": 6})]
+    if io_state["jpeg"]:
+        lanes.append((f"jpeg quality {IO_JPEG_QUALITY}", "jpeg", {"jpeg_quality": IO_JPEG_QUALITY}))
+    for label, fmt, kw in lanes:
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            save_frame_u8(f, os.path.join(out_dir, f"{fmt}-{kw}-{i}"), fmt, **kw)
+        frame_ms[label] = 1e3 * (time.perf_counter() - t0) / len(frames)
+    print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + ("" if io_state["jpeg"] else "; jpeg: no libjpeg"))
+    return {"loader_ms": rates, "prep_s": prep_s, "frame_ms": frame_ms}
+
+
+def uncached_stage8_cli(argv: list) -> int:
+    """The training CLI with the stage-8 set never cached (every batch
+    decoded by the loader): ``io_train`` runs it in a subprocess."""
+    from byogan_tpu_torch.cli.main import main as train_main
+    from byogan_tpu_torch.data import pipeline
+    from byogan_tpu_torch.train import loop
+
+    def open_uncached(root, stage):
+        return pipeline.open_stage_dataset(root, stage, cache_limit_bytes=0 if stage == 8 else pipeline.CACHE_LIMIT_BYTES)
+
+    with mock.patch.object(loop, "open_stage_dataset", open_uncached):
+        train_main(argv)
+    return 0
+
+
+def io_train(tmp, root, jpeg: bool) -> tuple:
+    """The training CLI at full width on a prepared set of Paeth PNGs with
+    non-PNG files among them (2 JPEG and 2 BMP a stage with libjpeg, else 4
+    BMP), stage 8 uncached: ``len()`` counts them; a subprocess stopped by
+    SIGTERM once its metrics show stage 5; ``--auto-resume`` with no ``-c``
+    picks the checkpoint the stop wrote and runs to FINAL (launches per
+    iteration counted); then ``cli.generate_samples FINAL.pth 8 --pallas``,
+    JPEG frames with libjpeg (PNG, and JPEG refused by name, without).
+    Returns the resume's launches and the sampling CLI's."""
+    from byogan_tpu_torch.cli.generate_samples import main as generate_main
+    from byogan_tpu_torch.data import images, native
+    from byogan_tpu_torch.data.pipeline import open_stage_dataset
+    from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
+    from byogan_tpu_torch.train.checkpoint import latest_checkpoint
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "io_data")
+    params = scenes(np.random.default_rng(51), IO_TRAIN_IMAGES)
+    for stage in range(1, 9):
+        size = 4 * 2 ** (stage - 1)
+        folder = os.path.join(data, "prepared", f"set_{stage}", "images")
+        os.makedirs(folder)
+        for i, p in enumerate(params):
+            img = render(p, size)
+            k = i - (IO_TRAIN_IMAGES - IO_TRAIN_OTHER)
+            if k >= 0 and jpeg and k < 2:
+                native.encode_jpeg(os.path.join(folder, f"image-{i}.jpg"), img, IO_JPEG_QUALITY)
+            elif k >= 0:
+                with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
+                    fh.write(encode_bmp(img))
+            else:
+                with open(os.path.join(folder, f"image-{i}.png"), "wb") as fh:
+                    fh.write(encode_png_filtered(img, 4))
+    stage8 = open_stage_dataset(data, 8, cache_limit_bytes=0)
+    kinds = sorted({os.path.splitext(f)[1] for f in stage8.files})
+    require(len(stage8) == IO_TRAIN_IMAGES, f"the stage-8 set counts {len(stage8)} of {IO_TRAIN_IMAGES} files")
+    print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}) in {time.perf_counter() - t0:.2f} s; "
+          f"len() of set_8 {len(stage8)}")
+
+    cfg = os.path.join(tmp, "io.txt")
+    with open(cfg, "w") as f:
+        f.write(IO_CONFIG.format(data=data, tmp=tmp))
+    metrics = os.path.join(tmp, "io_out", "metrics.jsonl")
+    log_path = os.path.join(tmp, "io_run.log")
+    argv = ["io", "--config-file", cfg, "--auto-resume"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.uncached_stage8_cli(sys.argv[1:]))",
+             *argv], cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        )
+        try:
+            stage = 0
+            while stage < 5:
+                require(proc.poll() is None, f"the training CLI ended (rc {proc.returncode}) before stage 5")
+                require(time.perf_counter() - t0 < 600, "no stage-5 metrics within 600 s")
+                time.sleep(0.05)
+                if os.path.exists(metrics):
+                    with open(metrics) as f:
+                        stage = max([json.loads(line)["stage"] for line in f if line.endswith("\n")], default=0)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        out = f.read()
+    require(rc == 0, f"the training CLI exited {rc} after SIGTERM:\n{out[-3000:]}")
+    found = re.search(r"preemption checkpoint saved: (\S+)", out)
+    require(found is not None, f"no stop line in the CLI's output:\n{out[-3000:]}")
+    ckpt = found.group(1)
+    chosen = latest_checkpoint(os.path.join(tmp, "io_ck"))
+    require(chosen == ckpt, f"latest_checkpoint picks {chosen}, not the stop's {ckpt}")
+    saved_iter = torch.load(ckpt, map_location="cpu", weights_only=False)["iter"]
+    print(f"io train: SIGTERM at stage {stage}, the CLI exited {rc} after {time.perf_counter() - t0:.2f} s; "
+          f"{found.group(0)} (iteration {saved_iter}); latest_checkpoint picks it")
+
+    records = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with counting_steps(records), contextlib.redirect_stdout(printed):
+        uncached_stage8_cli(argv)
+    torch.cuda.synchronize()
+    launches = dict(zip(KERNEL_NAMES, launch_counts()))
+    require(f"auto-resuming from {ckpt}" in printed.getvalue(), f"the resume did not start from {ckpt}:\n"
+            f"{printed.getvalue()[-3000:]}")
+    print(printed.getvalue().strip().splitlines()[-1])
+    require(len(records) == 16 - saved_iter, f"{len(records)} iterations resumed after iteration {saved_iter}")
+    for k, _, _, got in records:
+        require(got == (2 * (2 * k - 1), 2, 2 * k), f"io stage {k}: launches per iteration {got}")
+    require(all(v > 0 for v in launches.values()), f"a kernel of the io training path never ran: {launches}")
+    final = os.path.join(tmp, "io_ck", "FINAL.pth")
+    require(latest_checkpoint(os.path.join(tmp, "io_ck")) == final, "FINAL.pth is not the latest after the resume")
+    print(f"io train: --auto-resume to FINAL.pth in {time.perf_counter() - t0:.2f} s, {len(records)} iterations "
+          f"(stages {records[0][0]}-8, set_8 uncached, dataloader_threads' default 2); launches {launches}")
+
+    frames_dir = os.path.join(tmp, "io_frames")
+    os.makedirs(frames_dir)
+    fmt = "jpeg" if jpeg else "png"
+    zero_launch_counts()
+    generate_main([final, "8", "-o", frames_dir, "--seed", "0", "--format", fmt, "--pallas"])
+    torch.cuda.synchronize()
+    sample_launches = dict(zip(KERNEL_NAMES, launch_counts()))
+    ext = ".jpg" if jpeg else ".png"
+    require(sorted(os.listdir(frames_dir)) == sorted(f"image_{i}{ext}" for i in range(1, 9)), "generate_samples files")
+    for i in range(1, 9):
+        img = images.read_image(os.path.join(frames_dir, f"image_{i}{ext}"))
+        require(img.shape == (512, 512, 3) and img.std() > 0, f"frame {i}: {img.shape}")
+    require(sample_launches["styleconv"] == 15 and sample_launches["adain"] == 1, f"sampling launches {sample_launches}")
+    if not jpeg:
+        try:
+            generate_main([final, "1", "-o", frames_dir, "--format", "jpeg"])
+        except OSError as e:
+            require("libjpeg" in str(e), f"--format jpeg error: {e}")
+            print(f"io train: no libjpeg: --format jpeg raises: {e}")
+        else:
+            require(False, "--format jpeg ran without libjpeg")
+    print(f"io train: cli.generate_samples FINAL.pth 8 --format {fmt} --pallas: 8 frames of 512 px decode; "
+          f"launches {sample_launches}")
+    return launches, sample_launches
+
+
+def io_main() -> int:
+    """The image-IO phases alone (``python -c "import chip_smoke;
+    chip_smoke.io_main()"``), for a short call; ``main`` runs them too."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from byogan_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; {card}")
+    build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("io"):
+            io_state = io_checks(tmp)
+        with phase("time loader"):
+            time_loader(io_state, None)
+        with phase("io train"):
+            io_train(tmp, root, io_state["jpeg"])
+    return 0
+
+
 def dp_cards_main() -> int:
     """On a machine with several cards (``python -c "import chip_smoke;
     chip_smoke.dp_cards_main()"``): the dp steps over NCCL, one card a
@@ -3030,6 +3413,18 @@ def main() -> int:
             dp_times(tmp)
         with phase("dp sampler"):
             dp_sample_launches, dp_frame_err = dp_sampler(ckpt)
+
+        # Phases 31-33: the image-IO slice: the native library (PNG and JPEG
+        # decode against the plain decoder), the loader's rate by lane and
+        # threads beside the iteration, prep and frame encode times, and the
+        # training CLI on a set with JPEG or BMP files, stopped and resumed
+        # with --auto-resume, then JPEG frames.
+        with phase("io"):
+            io_state = io_checks(tmp)
+        with phase("time loader"):
+            time_loader(io_state, it_ms)
+        with phase("io train"):
+            io_launches, io_sample_launches = io_train(tmp, root, io_state["jpeg"])
     penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]
     remat_entries = [{
         "launches_remat_train": remat_run[name],
@@ -3040,6 +3435,8 @@ def main() -> int:
         "launches_dp_train": [r[name] for r in dp_launches],
         "launches_dp_step_iteration": [it[i] for it in dp_step_launches["R1"]],
         **({"launches_dp_sampler_batch": dp_sample_launches[i]} if i < 2 else {}),
+        "launches_io_train": io_launches[name],
+        **({"launches_io_sample_batch": io_sample_launches[name]} if i < 2 else {}),
     } for i, name in enumerate(KERNEL_NAMES)]
 
     kernels = [

@@ -84,10 +84,15 @@ def test_prep_cli_overwrite_and_pack(tmp_path, capsys, monkeypatch):
     """JAX's CLI surface (tests/test_cli.py:34): the sets, the prompt
     before a rebuild (kept on "n", rebuilt with ``-y`` or "y"), and
     ``--pack``: each set's packed.npy equals its PNGs in the loader's
-    order."""
+    order, packed on the ``-w`` threads."""
     root = _originals(str(tmp_path / "ds"))
+    packs = []
+    real_pack = port_prep_cli.pack_stage
+    monkeypatch.setattr(port_prep_cli, "pack_stage",
+                        lambda root, k, workers: packs.append((k, workers)) or real_pack(root, k, workers))
     port_prep_cli.main([root, "4", "16", "-y", "-w", "2", "--pack", "-d", "cpu"])
     assert "dataset ready: 3 resolution sets" in capsys.readouterr().out
+    assert packs == [(1, 2), (2, 2), (3, 2)]
     for k in (1, 2, 3):
         ds = StageDataset(root, k)
         packed = np.load(os.path.join(ds.set_dir, "packed.npy"))
@@ -105,13 +110,46 @@ def test_prep_cli_overwrite_and_pack(tmp_path, capsys, monkeypatch):
     assert os.path.getmtime(marker) > 0
 
 
-def test_prep_refuses_a_non_png_original(tmp_path):
+def test_prep_refuses_a_webp_original(tmp_path):
+    """A WebP original raises before any set is written, naming the file
+    (JPEG and BMP originals are decoded: the test below)."""
     root = _originals(str(tmp_path / "ds"))
-    with open(os.path.join(root, "photo.jpg"), "wb") as f:
-        f.write(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match=r"photo\.jpg: the PyTorch port reads PNG originals only"):
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(os.path.join(root, "photo.webp"))
+    with pytest.raises(OSError, match=r"photo\.webp: the original's format is WebP"):
         prepare_pyramid(root, 4, 8, device="cpu")
     assert not os.path.exists(os.path.join(root, "prepared"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             prepare_pyramid(root, 4, 8)
+
+
+def test_prepare_pyramid_matches_jax_on_a_jpeg_original(tmp_path):
+    """JPEG (and BMP) originals beside PNG ones, written by Pillow: the
+    port decodes them through the native lane (libjpeg) and numpy, and
+    every level of the pyramid equals JAX's ``prepare_pyramid`` (PIL's
+    decode and resize) bit for bit."""
+    from byogan_tpu.data.prep import prepare_pyramid as jax_prepare
+
+    def originals(root):
+        r = np.random.default_rng(9)
+        os.makedirs(root)
+        smooth = np.linspace(0, 255, 48 * 40 * 3).reshape(48, 40, 3)
+        Image.fromarray((smooth + r.normal(0, 6, smooth.shape)).clip(0, 255).astype(np.uint8)).save(
+            os.path.join(root, "a.jpg"), quality=90)
+        Image.fromarray(r.integers(0, 256, (36, 52, 3), dtype=np.uint8)).save(os.path.join(root, "b.jpeg"))
+        Image.fromarray(r.integers(0, 256, (21, 34, 3), dtype=np.uint8)).save(os.path.join(root, "c.bmp"))
+        with open(os.path.join(root, "d.png"), "wb") as f:
+            f.write(encode_png_filtered(r.integers(0, 256, (40, 40, 3), dtype=np.uint8), 4))
+        return root
+
+    jax_root, port_root = originals(str(tmp_path / "jax")), originals(str(tmp_path / "port"))
+    jax_prepare(jax_root, 4, 32, workers=2)
+    prepare_pyramid(port_root, 4, 32, workers=2, device="cpu")
+    for k in range(1, 5):
+        sub = os.path.join("prepared", f"set_{k}", "images")
+        names = sorted(os.listdir(os.path.join(port_root, sub)))
+        assert names == sorted(os.listdir(os.path.join(jax_root, sub))) == [f"image-{n}.png" for n in range(4)]
+        for name in names:
+            with Image.open(os.path.join(jax_root, sub, name)) as im:
+                np.testing.assert_array_equal(read_png(os.path.join(port_root, sub, name)), np.asarray(im),
+                                              err_msg=f"set_{k} {name}")
