@@ -16,12 +16,13 @@ whose trajectory knobs differ from the checkpoint's fails unless
 ``--force-resume``.  ``--trace-dir`` writes a ``torch.profiler`` trace
 of the run there (``profiling.trace_if``).
 
-``--distributed`` trains data-parallel, one process per card, under
-``torchrun`` (byogan_tpu/cli/main.py:33-55): each process joins the
-process group from torchrun's environment (``parallel.init_distributed``)
-and trains on ``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo with
-``-d cpu``.  The section's ``data_axis`` must equal the number of
-processes and divide every ``batch_progression`` entry; rank 0 writes the
+``--distributed`` trains over a ``data x model`` mesh, one process per
+card, under ``torchrun`` (byogan_tpu/cli/main.py:33-55): each process
+joins the process group from torchrun's environment
+(``parallel.init_distributed``) and trains on ``cuda:LOCAL_RANK`` over
+NCCL, or on the CPU over gloo with ``-d cpu``.  The section's
+``data_axis`` times ``model_axis`` must equal the number of processes and
+``data_axis`` divide every ``batch_progression`` entry; rank 0 writes the
 checkpoints, grids and metrics.
 """
 
@@ -47,9 +48,9 @@ def main(argv=None):
     parser.add_argument("--trace-dir", default=None, help="write a torch.profiler trace here")
     parser.add_argument(
         "--distributed", action="store_true",
-        help="data-parallel under torchrun, one process per card (NCCL; gloo with -d cpu): join the "
-        "process group from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT; the section's "
-        "data_axis must equal the world size",
+        help="data- and model-parallel under torchrun, one process per card (NCCL; gloo with -d cpu): join "
+        "the process group from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT; the section's "
+        "data_axis x model_axis must equal the world size",
     )
     parser.add_argument(
         "--auto-resume", action="store_true",

@@ -114,8 +114,10 @@ class Critic(nn.Module):
 
     def use_mesh(self, mesh) -> "Critic":
         """Take the minibatch-stddev statistics over the global batch of a
-        data-parallel ``mesh`` (``parallel.mesh.DataMesh``), of which this
-        process sees its rows; None: over the batch it is given."""
+        ``mesh`` (``parallel.mesh.Mesh``), of which this process sees its
+        data rank's rows; None: over the batch it is given.  The model
+        axis's layers take the mesh where ``parallel.tensor.shard_module_``
+        shards their weights."""
         for m in self.modules():
             if isinstance(m, MinibatchStdDev):
                 m.mesh = mesh

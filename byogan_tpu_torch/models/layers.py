@@ -8,6 +8,20 @@ NCHW inside (``EqualizedConv2d``, ``MinibatchStdDev``) on cuDNN, as JAX runs
 its critic on lax.  Weights stay float32; a layer computes in its input's
 dtype, multiplying by the equalized scale in float32 and casting at call
 time, as the JAX layers do.
+
+Under the model axis (``parallel/tensor.py``) a layer whose weight is
+sharded holds its block of output features and runs column-parallel: its
+``model_mesh`` is set, it computes its block from the full, replicated
+input (through ``CopyToModel``) and gathers the blocks
+(``GatherChannels``); with no mesh both are the identity, so one body
+serves both.  ``tp_block_params`` names the replicated parameters a layer
+uses on its block only, whose gradients the model group sums.  The
+synthesis conv runs K1 on its block of channels with the matching blocks
+of the conv bias, noise weights, gamma and beta: the instance norm and the
+style affine work per channel, so a block needs nothing of the other
+ranks' channels.  A synthesis block whose conv is replicated but whose
+style is sharded (the initial block, and 64 px at full width) gathers
+gamma and beta first.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from byogan_tpu_torch.core.resize import upsample2x_bilinear
 from byogan_tpu_torch.ops.fused import leaky_relu, noise_lrelu_adain
 from byogan_tpu_torch.ops.styleconv import styleconv
 from byogan_tpu_torch.parallel.mesh import AllReduceSum
+from byogan_tpu_torch.parallel.tensor import copy_to_model, gather_channels, local_rows, local_style_rows
 
 
 class EqualizedDense(nn.Module):
@@ -34,14 +49,21 @@ class EqualizedDense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         self.scale = math.sqrt(2.0 / in_features)
+        self.model_mesh = None  # set where the weight is sharded (parallel.tensor.shard_module_)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         nn.init.normal_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
 
+    def tp_block_params(self) -> Tuple[str, ...]:
+        """The replicated parameters used on this rank's block only."""
+        return () if self.model_mesh is None else ("bias",)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = (self.weight * self.scale).to(x.dtype)
-        return F.linear(x, w, self.bias.to(x.dtype))
+        mesh = self.model_mesh
+        b = local_rows(self.bias, w.shape[0], mesh).to(x.dtype)
+        return gather_channels(F.linear(copy_to_model(x, mesh), w, b), -1, mesh)
 
 
 class EqualizedConv(nn.Module):
@@ -56,10 +78,15 @@ class EqualizedConv(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.scale = math.sqrt(2.0 / (in_channels * kernel_size * kernel_size))
+        self.model_mesh = None  # set where the weight is sharded (parallel.tensor.shard_module_)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         nn.init.normal_(self.weight, generator=generator)
         nn.init.zeros_(self.bias)
+
+    def tp_block_params(self) -> Tuple[str, ...]:
+        """The replicated parameters used on this rank's block only."""
+        return () if self.model_mesh is None else ("bias",)
 
     def scaled_hwio(self, dtype: torch.dtype) -> torch.Tensor:
         """weight * scale in float32, as HWIO, cast to ``dtype``."""
@@ -83,7 +110,9 @@ class EqualizedConv2d(EqualizedConv):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = (self.weight * self.scale).to(x.dtype)
-        return F.conv2d(x, w, self.bias.to(x.dtype), padding=self.padding)
+        mesh = self.model_mesh
+        b = local_rows(self.bias, w.shape[0], mesh).to(x.dtype)
+        return gather_channels(F.conv2d(copy_to_model(x, mesh), w, b, padding=self.padding), 1, mesh)
 
 
 class LeakyReLU(nn.Module):
@@ -124,9 +153,19 @@ class AdaIN(nn.Module):
         with torch.no_grad():
             self.style.bias[: self.channels] = 1.0
 
-    def forward(self, style: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        proj = self.style(style)
-        return proj[:, : self.channels], proj[:, self.channels :]
+    def forward(self, style: torch.Tensor, on_block: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(gamma, beta) of every channel; with ``on_block``, of this model
+        rank's block of channels where the style weight is sharded (its
+        rows are [gamma block; beta block], ``parallel.tensor.shard_rows``)."""
+        layer = self.style
+        mesh = layer.model_mesh
+        w = (layer.weight * layer.scale).to(style.dtype)
+        b = local_style_rows(layer.bias, w.shape[0] // 2, mesh).to(style.dtype)
+        proj = F.linear(copy_to_model(style, mesh), w, b)
+        proj = proj.view(proj.shape[0], 2, -1)
+        if not on_block:
+            proj = gather_channels(proj, 2, mesh)
+        return proj[:, 0], proj[:, 1]
 
 
 class StyleConvBlock(nn.Module):
@@ -164,10 +203,17 @@ class StyleConvBlock(nn.Module):
         self.inject_noise.reset_parameters(generator)
         self.adain.reset_parameters(generator)
 
+    def tp_block_params(self) -> Tuple[str, ...]:
+        """The replicated parameters used on this rank's block only (the
+        conv's bias is the conv's own)."""
+        sharded = not self.is_initial and self.conv.model_mesh is not None
+        return ("inject_noise.weights",) if sharded else ()
+
     def forward(
         self, x: Optional[torch.Tensor], style: torch.Tensor, noise: torch.Tensor
     ) -> torch.Tensor:
-        gamma, beta = self.adain(style)
+        mesh = None if self.is_initial else self.conv.model_mesh
+        gamma, beta = self.adain(style, on_block=mesh is not None)
         noise_w = self.inject_noise.flat()
         if self.is_initial:
             const = self.conv.permute(0, 2, 3, 1).to(style.dtype)
@@ -178,15 +224,18 @@ class StyleConvBlock(nn.Module):
             )
         if self.upsample_input:
             x = upsample2x_bilinear(x)
-        return styleconv(
-            x.contiguous(),
-            self.conv.scaled_hwio(x.dtype),
-            self.conv.bias,
+        w = self.conv.scaled_hwio(x.dtype)
+        k = w.shape[-1]
+        out = styleconv(
+            copy_to_model(x.contiguous(), mesh),
+            w,
+            local_rows(self.conv.bias, k, mesh).contiguous(),
             noise.to(x.dtype).contiguous(),
-            noise_w,
+            local_rows(noise_w, k, mesh).contiguous(),
             gamma.contiguous(),
             beta.contiguous(),
         )
+        return gather_channels(out, 3, mesh)
 
 
 class StyleStage(nn.Module):
@@ -242,17 +291,18 @@ class MinibatchStdDev(nn.Module):
     statistics, cast back to x's dtype.
 
     Under data parallelism (``mesh``, which ``shard_train_state`` sets) x
-    holds this rank's contiguous row block of the global batch, as JAX's
+    holds this data rank's contiguous row block of the global batch, as JAX's
     batch sharding lays it out, and the statistics are the global batch's:
     the mean is the ranks' row sums added by ``AllReduceSum`` over B, and
     each column's squared deviations are summed by global row index
-    (``row % M``) on each rank, then across the ranks.  Without a mesh it
-    is the single-process module."""
+    (``row % M``) on each rank, then across the data group.  Under the
+    model axis x is the gathered activation, the same on every rank of a
+    model group.  Without a mesh it is the single-process module."""
 
     def __init__(self, group_size: int = 4):
         super().__init__()
         self.group_size = group_size
-        self.mesh = None  # a parallel.mesh.DataMesh, or None
+        self.mesh = None  # a parallel.mesh.Mesh, or None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mesh is not None:

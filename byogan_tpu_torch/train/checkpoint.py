@@ -10,6 +10,10 @@ run has one), the regularizers' scalars ``aug_p``, ``rt_ema`` and
 ``pl_ema`` (floats, when the run has them) and ``train_config`` (the knobs
 that steer the trajectory, checked on resume).  Files are ``chk-{iters}.pth`` and ``FINAL.pth``,
 written atomically; ``latest_checkpoint`` picks the one to resume from.
+Under the model axis every rank gathers the nets, the EMA and both
+optimizer states from their blocks and global rank 0 writes them, so the
+file is the one a single process writes; a restore loads it into the full
+state, which ``parallel.shard_train_state`` then cuts.
 
 The JAX package's own checkpoints are orbax directories, which need JAX to
 read; convert one with ``byogan-export`` to a ``.pth`` first.
@@ -25,6 +29,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from byogan_tpu_torch.compat.torch_ckpt import load_torch_checkpoint
+from byogan_tpu_torch.parallel.tensor import gather_optimizer_state, gather_state_dict
 
 #: Config knobs that determine the training trajectory: the batch-exact
 #: resume rebuilds the epoch and batch position and the RNG stream from
@@ -103,34 +108,39 @@ def save_checkpoint(
     name: Optional[str] = None,
     model_spec=None,
     train_config=None,
+    mesh=None,
 ) -> str:
     """Write ``state`` (a ``TrainState``) to ``{directory}/{name}.pth``;
     ``alpha`` is the saved fade value, None once past the fade.  With
-    ``train_config`` the file records its trajectory knobs."""
-    os.makedirs(directory, exist_ok=True)
+    ``train_config`` the file records its trajectory knobs.  With a
+    ``mesh`` (a ``parallel.mesh.Mesh``) every rank must call it: the model
+    axis's blocks are gathered on every rank and global rank 0 alone
+    writes.  Returns the path on every rank."""
     path = os.path.abspath(os.path.join(directory, (name or checkpoint_name(state.iters)) + ".pth"))
     save = {
-        "gen": state.gen.state_dict(),
-        "critic": state.critic.state_dict(),
+        "gen": gather_state_dict(state.gen, mesh),
+        "critic": gather_state_dict(state.critic, mesh),
         "iter": int(state.iters),
         "im_count": int(state.im_count),
         "step": int(state.stage),
         "epoch": int(state.epoch),
         "alpha": None if alpha is None else float(alpha),
         "model": None if model_spec is None else model_spec.to_dict(),
-        "gen_opt": state.gen_opt.state_dict(),
-        "critic_opt": state.critic_opt.state_dict(),
+        "gen_opt": gather_optimizer_state(state.gen_opt, state.gen, mesh),
+        "critic_opt": gather_optimizer_state(state.critic_opt, state.critic, mesh),
         "rng": state.rng.get_state(),
         "train_config": None if train_config is None else trajectory_snapshot(train_config),
     }
     if state.gen_ema is not None:
-        save["gen_ema"] = state.gen_ema.state_dict()
+        save["gen_ema"] = gather_state_dict(state.gen_ema, mesh)
     for key in REGULARIZER_KEYS:
         if getattr(state, key) is not None:
             save[key] = float(getattr(state, key))
-    tmp = path + ".tmp"
-    torch.save(save, tmp)
-    os.replace(tmp, path)
+    if mesh is None or mesh.global_rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(save, tmp)
+        os.replace(tmp, path)
     return path
 
 

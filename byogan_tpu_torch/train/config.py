@@ -7,12 +7,11 @@ quirks: ``use_r1`` is true only for the exact string ``"True"``,
 ``gradient_lambda`` goes through ``int()``, ``lr`` defaults to 0.001 in
 code.  ``final_image_size`` is read by nobody.
 
-``data_axis`` is the number of processes of a data-parallel run, one
-per card (``parallel/mesh.py``); it must equal their world size and divide
-every ``batch_progression`` entry (checked by the loop).  ``model_axis``
-keeps its field, so a config file parses the same in both packages, but a
-value that would turn tensor parallelism on raises a ``ValueError`` that
-names it instead of being ignored.
+``data_axis`` and ``model_axis`` lay the processes of a parallel run, one
+per card, out as a ``data x model`` mesh (``parallel/mesh.py``): their
+product must equal the world size, and ``data_axis`` must divide every
+``batch_progression`` entry (checked by the loop).  The model axis shards
+the widest weights over its ranks (``parallel/tensor.py``).
 The opt-in regularizers are ported: augmentation at a fixed ``aug_p`` or
 steered by the ADA controller (``ada_target``, which needs R1), and
 path-length regularization (``plr_weight``), with JAX's checks; so is
@@ -89,10 +88,8 @@ class TrainConfig:
                 f"remat_progression has {len(self.remat_progression)} flags "
                 f"for {len(self.epoch_progression)} stages"
             )
-        if self.model_axis > 1:
-            raise ValueError("not in the PyTorch port yet (leave at the default to train): model_axis")
-        if self.data_axis < 1:
-            raise ValueError(f"data_axis must be >= 1, got {self.data_axis}")
+        if self.data_axis < 1 or self.model_axis < 1:
+            raise ValueError(f"data_axis and model_axis must be >= 1, got {self.data_axis}, {self.model_axis}")
         if self.r1_interval > 1 and not self.use_r1:
             raise ValueError("r1_interval > 1 requires use_r1=True")
         if self.ada_target > 0 and not self.use_r1:

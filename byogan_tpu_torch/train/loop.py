@@ -17,18 +17,22 @@ trajectory is the same with and without it.
 
 Each iteration is a named region of a profiler trace (``annotate``).
 
-Data parallelism (``data_axis > 1``, or any run inside a process group;
-byogan_tpu/train/loop.py:177-223, 328-373, 448-494): the loop builds the
-mesh (``parallel.make_mesh``), checks every stage's batch against it up
-front, replicates the built or restored state from rank 0
-(``shard_train_state``), and each rank loads and trains on its rows of
-every global batch.  Rank 0 alone writes: ``metrics.jsonl``, the sample
-grids, the eval log and the console; the periodic eval runs there while
-the others wait at a barrier, and checkpoints are written there between
-barriers.  The ranks agree on a SIGTERM or SIGINT at every iteration
-boundary (``parallel.agree``), so all stop at the same iteration and rank
-0 saves one checkpoint, which resumes batch-exactly in any number of
-processes.
+Data and model parallelism (``data_axis > 1`` or ``model_axis > 1``, or
+any run inside a process group; byogan_tpu/train/loop.py:177-223,
+328-373, 448-494): the loop builds the ``data x model`` mesh
+(``parallel.make_mesh``), checks every stage's batch against the data
+axis up front, replicates the built or restored state from rank 0 and cuts
+the model axis's blocks (``shard_train_state``), and each data rank loads
+and trains on its rows of every global batch; the model ranks of one data
+rank load the same rows.  Global rank 0 alone writes: ``metrics.jsonl``,
+the sample grids, the eval log and the console.  What runs a sharded net
+runs on every rank that needs to enter its collectives: the sample grids
+and the periodic eval run on the model group of rank 0 (data rank 0)
+while the others wait at a barrier, and every rank gathers a checkpoint's
+blocks, which rank 0 writes, between barriers.  The ranks agree on a
+SIGTERM or SIGINT at every iteration boundary (``parallel.agree``), so all
+stop at the same iteration and rank 0 saves one checkpoint, which resumes
+batch-exactly in any number of processes and on any mesh.
 """
 
 from __future__ import annotations
@@ -90,16 +94,20 @@ def save_sample_grid(
     alpha: Optional[float],
     iters: int,
     filename: str,
-) -> str:
+    write: bool = True,
+) -> Optional[str]:
     """The fixed-latent sample grid (train.py:236-245): images clamped to
     [0, 1], sqrt(show_noise_count) per row, as a PNG without the
-    reference's matplotlib title."""
+    reference's matplotlib title.  ``write`` False renders it only (a rank
+    that enters a sharded generator's collectives) and returns None."""
     dev = show_z.device
     rng = torch.Generator(device=dev).manual_seed(config.seed * 1_000_003 + 13 + iters)
     dtype = getattr(torch, config.compute_dtype)
     noise = synthesis_noise(rng, show_z.shape[0], steps, dtype=dtype)
     with torch.no_grad():
         img = state.gen(show_z.to(dtype), noise, steps=steps, alpha=alpha).float()
+    if not write:
+        return None
     grid = make_grid(to_uint8(img.clamp(0.0, 1.0)).cpu().numpy(), nrow=int(np.sqrt(config.show_noise_count)))
     os.makedirs(config.output_dir, exist_ok=True)
     path = os.path.join(config.output_dir, f"{filename}.png")
@@ -245,13 +253,14 @@ def _train(
     if not os.path.exists(os.path.join(config.data, "prepared")):
         raise OSError("Did not detect prepared dataset!")
     mesh = None
-    if config.data_axis > 1 or (dist.is_initialized() and dist.get_world_size() > 1):
+    if config.data_axis > 1 or config.model_axis > 1 or (dist.is_initialized() and dist.get_world_size() > 1):
         check_data_axis(config, config.data_axis)
-        mesh = make_mesh(config.data_axis, device=dev)
+        mesh = make_mesh(config.data_axis, config.model_axis, device=dev)
         dev = mesh.device
     elif dist.is_initialized():  # a one-process group: the step without a mesh
         print(f"process group: world 1 ({dist.get_backend()}), no mesh")
-    primary = mesh is None or mesh.rank == 0
+    primary = mesh is None or mesh.global_rank == 0  # writes
+    renders = mesh is None or mesh.rank == 0  # rank 0's model group: grids and eval
     parallel = {} if mesh is None else {"mesh": mesh}  # the step's arguments without a mesh stay as they were
     say = print if primary else (lambda *a, **k: None)
     spec = model_spec(config)
@@ -263,7 +272,8 @@ def _train(
         last_stage = state.stage
     if mesh is not None:
         shard_train_state(state, mesh)
-        say(f"mesh: data {mesh.size} ({mesh.backend})")
+        axes = f"data {mesh.size}" + (f" x model {mesh.model_size}" if mesh.model_size > 1 else "")
+        say(f"mesh: {axes} ({mesh.backend})")
     os.makedirs(config.checkpoint_dir, exist_ok=True)
 
     show_z = truncated_noise(
@@ -280,23 +290,25 @@ def _train(
         """Whether a signal asks to stop, agreed by every rank."""
         return bool(stop_requested) if mesh is None else agree(bool(stop_requested), mesh)
 
-    def on_primary(fn, *args, **kw):
-        """``fn`` on rank 0 while the other ranks wait; its result there."""
+    def between_barriers(fn, *args, run: bool = True, **kw):
+        """``fn`` on the ranks where ``run`` while the others wait."""
         barrier(mesh)
-        out = fn(*args, **kw) if primary else None
+        out = fn(*args, **kw) if run else None
         barrier(mesh)
         return out
 
-    def save(prune: bool = False) -> str:
-        path = save_checkpoint(config.checkpoint_dir, state, alpha_ckpt, model_spec=spec, train_config=config)
-        if prune:
+    def save(alpha: Optional[float], name: Optional[str] = None, prune: bool = False) -> str:
+        """Every rank gathers (``save_checkpoint`` with the mesh); rank 0 writes."""
+        path = save_checkpoint(config.checkpoint_dir, state, alpha, name=name, model_spec=spec,
+                               train_config=config, mesh=mesh)
+        if prune and primary:
             prune_checkpoints(config.checkpoint_dir, config.max_checkpoints)
         return path
 
     def stop(epoch: int, preempted: bool) -> TrainState:
         logger.close()
         state.epoch = epoch
-        path = on_primary(save)
+        path = between_barriers(save, alpha_ckpt)
         if preempted:
             say(f"preemption checkpoint saved: {path}", flush=True)
         return state
@@ -360,19 +372,19 @@ def _train(
                         state.iters, float(torch.stack(list(c_hist)).mean()),
                         float(torch.stack(list(g_hist)).mean()), epoch, steps, batch, extra,
                     )
-                if primary and state.iters % config.display_step == 0:
+                if renders and state.iters % config.display_step == 0:
                     save_sample_grid(
                         state, config, show_z, steps, alpha_ckpt if gen_fade else None,
-                        state.iters, f"s-{state.iters}",
+                        state.iters, f"s-{state.iters}", write=primary,
                     )
                 if config.eval_step > 0 and state.iters % config.eval_step == 0:
-                    on_primary(
+                    between_barriers(
                         log_eval, state, config, dataset, steps, alpha_ckpt if gen_fade else None,
-                        state.iters, eval_cache, logger,
+                        state.iters, eval_cache, logger, run=renders,
                     )
                 if state.iters % config.checkpoint_step == 0:
                     state.epoch = epoch
-                    on_primary(save, prune=True)
+                    between_barriers(save, alpha_ckpt, prune=True)
                 preempted = stopping()  # the ranks agree once an iteration, after its step
                 if preempted or (max_iters is not None and state.iters >= max_iters):
                     return stop(epoch, preempted)
@@ -380,9 +392,9 @@ def _train(
         last_stage = None
 
     preempted = stopping()
-    if primary and not preempted:  # a signal after the last iteration goes straight to the save
-        save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final")
-    on_primary(save_checkpoint, config.checkpoint_dir, state, None, name="FINAL", model_spec=spec, train_config=config)
+    if renders and not preempted:  # a signal after the last iteration goes straight to the save
+        save_sample_grid(state, config, show_z, state.stage, None, state.iters, "s-final", write=primary)
+    between_barriers(save, None, name="FINAL")
     logger.close()
     say("TRAINING IS FINISHED - MODEL SAVED!")
     return state

@@ -42,16 +42,22 @@ Random draws come from ``state.rng`` in the order of ``draw``.
 ``step(state, real, draws)`` also takes draws made elsewhere, so a test can
 feed it the JAX step's own.
 
-Data parallelism (``mesh``, a ``parallel.mesh.DataMesh``; byogan_tpu's
-jitted step under a data-sharded batch): ``batch`` stays the global batch
-and ``real`` is this rank's row block of it.  Every rank draws the global
-iteration's draws from its replica of ``state.rng`` and keeps its rows
-(``Draws.rows``), so a run over R ranks follows the trajectory of one
-process on the global batch.  After each ``autograd.grad`` the gradients
-are averaged over the ranks before Adam (``_update``); the critic's
-minibatch-stddev spans the global batch through the mesh; the losses, the
-critic's aux values, ADA's E[sign(D(real))] and PLR's mean path length
-(each rank's share weighted by its rows) are averaged in one stacked
+Data and model parallelism (``mesh``, a ``parallel.mesh.Mesh``;
+byogan_tpu's jitted step under a sharded state and batch): ``batch`` stays
+the global batch and ``real`` is this data rank's row block of it.  Every
+rank draws the global iteration's draws from its replica of ``state.rng``
+and keeps its data rank's rows (``Draws.rows``), so the model ranks of one
+data rank hold bit-equal draws and a run over the mesh follows the
+trajectory of one process on the global batch.  After each
+``autograd.grad`` (``_update``), at ``model_size > 1``, the replicated
+leaves' gradients are made whole over the model group
+(``parallel.tensor.reduce_model_grads_``: summed where a rank used the
+leaf on its block of channels, averaged where every rank used it whole; a
+sharded leaf's gradient is its block's), then every gradient is averaged
+over the data group before Adam.  The critic's minibatch-stddev spans the
+global batch through the data group; the losses, the critic's aux values,
+ADA's E[sign(D(real))] and PLR's mean path length (each rank's share
+weighted by its rows) are averaged over the data group in one stacked
 all-reduce before the controllers' updates, so ``aug_p``, ``rt_ema`` and
 ``pl_ema`` stay equal on every rank and the metrics are the global batch's.
 Without a mesh the step runs as before.
@@ -67,7 +73,8 @@ from torch.utils.checkpoint import checkpoint
 
 from byogan_tpu_torch.core.random import stage_resolution, synthesis_noise, truncated_noise
 from byogan_tpu_torch.ops.augment import AugDraws, augment_batch, draw_augment
-from byogan_tpu_torch.parallel.mesh import DataMesh, all_reduce_mean_
+from byogan_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_
+from byogan_tpu_torch.parallel.tensor import reduce_model_grads_
 from byogan_tpu_torch.train import losses
 from byogan_tpu_torch.train.config import TrainConfig
 from byogan_tpu_torch.train.state import TrainState, set_grads
@@ -308,13 +315,16 @@ def path_length_penalty(
     return losses.gen_path_length_penalty(synth, w, state.pl_ema, plr.y)
 
 
-def _update(
-    loss: torch.Tensor, params: Sequence[torch.nn.Parameter], opt, mesh: Optional[DataMesh] = None
-) -> None:
-    """Adam on the gradients of ``loss``; with a mesh, on their mean over
-    the ranks (JAX's psum over the data axis, one flattened all-reduce)."""
+def _update(loss: torch.Tensor, net: torch.nn.Module, opt, mesh: Optional[Mesh] = None) -> None:
+    """Adam on the gradients of ``loss`` for ``net``'s parameters; with a
+    mesh, on their mean over the data group (JAX's psum over the data axis,
+    one flattened all-reduce), the replicated leaves' made whole over the
+    model group first."""
+    params = list(net.parameters())
     set_grads(params, torch.autograd.grad(loss, params, allow_unused=True))
     if mesh is not None:
+        if mesh.model_size > 1:
+            reduce_model_grads_(net, mesh)
         all_reduce_mean_([p.grad for p in params], mesh)
     opt.step()
 
@@ -326,14 +336,14 @@ def make_train_step(
     fade_in: float,
     critic_fade: Tuple[bool, ...],
     gen_fade: bool,
-    mesh: Optional[DataMesh] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The step of one stage and fade pattern.  ``critic_fade`` has one flag
     per critic repeat (True: the blend path), ``gen_fade`` is the generator
     phase's.  ``fade_in`` is the fade span in images (train.py:119).  The
     stage's remat flag is ``config.stage_remat(steps - 1)``.  With ``mesh``
-    the step is data-parallel (module docstring): ``batch`` is the global
-    batch, ``real`` and the critic hold this rank's share of it."""
+    the step runs over it (module docstring): ``batch`` is the global
+    batch, ``real`` and the critic hold this data rank's share of it."""
     if len(critic_fade) != config.critic_repeats:
         raise ValueError("critic_fade must have one flag per critic repeat")
     dtype = getattr(torch, config.compute_dtype)
@@ -376,8 +386,6 @@ def make_train_step(
                          ("pl_ema", config.plr_weight > 0)):
             if on and getattr(state, name) is None:
                 raise ValueError(f"TrainState carries no {name}: create the state with the same config")
-        c_params = list(state.critic.parameters())
-        g_params = list(state.gen.parameters())
         im_count = state.im_count
         mix = draws.mix or [None] * (len(critic_fade) + 1)
         aug = draws.aug or [None] * (2 * len(critic_fade) + 1)
@@ -393,7 +401,7 @@ def make_train_step(
             c_loss, c_aux = critic_loss(state, config, real_r, fake, steps, alpha, eps, remat)
             if config.ada_target > 0:
                 rt_acc = rt_acc + c_aux["real_sign"]
-            _update(c_loss, c_params, state.critic_opt, mesh)
+            _update(c_loss, state.critic, state.critic_opt, mesh)
             im_count += batch
 
         z, noise = draws.gen
@@ -408,11 +416,11 @@ def make_train_step(
                     if plr_share != 1.0:
                         pen, pl_mean = pen * plr_share, pl_mean * plr_share
                     g_loss = g_loss + (config.plr_weight * config.plr_interval) * pen
-            _update(g_loss, g_params, state.gen_opt, mesh)
+            _update(g_loss, state.gen, state.gen_opt, mesh)
         finally:
             state.critic.requires_grad_(True)
         if config.ema_beta > 0 and state.gen_ema is not None:
-            ema_update(list(state.gen_ema.parameters()), g_params, config.ema_beta)
+            ema_update(list(state.gen_ema.parameters()), list(state.gen.parameters()), config.ema_beta)
         metrics = {"c_loss": c_loss.detach().float(), "g_loss": g_loss.detach().float(), **c_aux}
         if config.ada_target > 0:
             metrics["real_sign_mean"] = rt_acc / len(critic_fade)

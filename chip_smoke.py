@@ -2257,7 +2257,8 @@ def spawn_ranks(tmp: str, job: str, *args, backend: str = None, world: int = DP_
     import torch.multiprocessing as mp
 
     backend = backend or dp_backend(world)
-    store, out = (os.path.join(tmp, f"{what}-{job}-{backend}-{world}") for what in ("store", "out"))
+    tag = f"{job}-{backend}-{world}-{time.time_ns()}"  # a fresh file store for every spawn
+    store, out = (os.path.join(tmp, f"{what}-{tag}") for what in ("store", "out"))
     mp.spawn(_dp_entry, args=(world, backend, store, job, args, out), nprocs=world, join=True)
     return [torch.load(f"{out}-{r}.pt", weights_only=False) for r in range(world)]
 
@@ -2499,9 +2500,10 @@ def dp_steps(tmp, world: int = DP_WORLD):
     return backend, {name: case["launches"] for name, case in out[0]["cases"].items()}
 
 
-def dp_train_job(rank: int, dev: torch.device, cfg_path: str) -> dict:
-    """``train`` of the ``[dp]`` section on this rank, counting each step's
-    launches; rank 1 sends itself SIGTERM after its first stage-5 step."""
+def dp_train_job(rank: int, dev: torch.device, cfg_path: str, section: str = "dp") -> dict:
+    """``train`` of the ``section`` of ``cfg_path`` on this rank, counting
+    each step's launches; rank 1 sends itself SIGTERM after its first
+    stage-5 step."""
     from byogan_tpu_torch.train import loop
     from byogan_tpu_torch.train.config import load_ini_config
 
@@ -2522,7 +2524,7 @@ def dp_train_job(rank: int, dev: torch.device, cfg_path: str) -> dict:
     zero_launch_counts()
     t0 = time.perf_counter()
     with mock.patch.object(loop, "make_train_step", signalling), counting_steps(records):
-        state = loop.train(load_ini_config(cfg_path, "dp"), device=str(dev))
+        state = loop.train(load_ini_config(cfg_path, section), device=str(dev))
     torch.cuda.synchronize()
     return {"iters": state.iters, "stage": state.stage, "records": records, "launches": launch_counts(),
             "wall": time.perf_counter() - t0}
@@ -2750,6 +2752,376 @@ def dp_sampler(ckpt):
               f"of values over 1 LSB) {err} (bar: 1 LSB in f32); bit-equal to one device rendering each block of {half} "
               f"alone{extra}; launches a batch (K1, K2) {launches} {math_flags()}")
     return launches, out
+
+
+# --- the model-axis slice: tensor parallelism over ranks the script spawns ---
+
+TP_MODEL = 2
+# (global batch 8, f32, stage 8) one iteration each from the fresh state,
+# where the dp phases' per-tensor bars hold: R1, then a penalized one
+TP_STEP_CASES = {
+    "R1": dict(compute_dtype="float32", ema_beta=0.999),
+    f"ADA {REG_TARGET} + PLR 2.0, penalized": dict(compute_dtype="float32", ema_beta=0.999, aug_p=0.5,
+                                                   ada_target=REG_TARGET, plr_weight=2.0, plr_interval=REG_INTERVAL),
+}
+# Parameters a rank holds at model 2 (the rule on ModelSpec(); JAX's
+# sharding_for_leaf gives the same leaves)
+TP_RANK_PARAMS = {"gen": 10_646_632, "critic": 10_642_433}
+
+
+def tp_shard_shapes(model: int = TP_MODEL) -> list:
+    """(H, Cin, Cout, Cout per rank) of the path's synthesis convs whose
+    kernel the model axis shards (``sharding_for_param``), in path order."""
+    from byogan_tpu_torch.models.factory import ModelSpec
+    from byogan_tpu_torch.parallel.tensor import sharding_for_param
+
+    return [(r, cin, cout, cout // model) for r, cin, cout in ModelSpec().styleconv_shapes()
+            if sharding_for_param("gen_blocks.1.conv_1.conv.weight", (cout, cin, 3, 3), model) is not None]
+
+
+def tp_kernels(gen) -> dict:
+    """The "tp kernels" phase: K1 (without and with its residuals) and K3
+    at the 7 model-2 shard shapes, stage 8, batch 5, f32 and bf16 (TF32
+    off), against their plain versions at ``TOL``, ``RES_TOL`` and
+    ``GRAD_TOL``, and K2 at the shape it keeps under the model axis, (5, 4,
+    4, 512); then, bf16 under PyTorch's defaults, each shard shape's K1
+    (with residuals) and K3 card time beside the full-width shape's, with
+    their tile plans.  Returns the largest errors per kernel and dtype and
+    the summed times."""
+    from byogan_tpu_torch.ops.adain import noise_lrelu_adain_cuda
+    from byogan_tpu_torch.ops.fused import noise_lrelu_adain_plain
+    from byogan_tpu_torch.ops.styleconv import plan_tiles, styleconv_cuda, styleconv_plain
+    from byogan_tpu_torch.ops.styleconv_bwd import plan_backward, styleconv_backward_cuda, styleconv_backward_plain
+
+    n, shapes = TRAIN_BATCH, tp_shard_shapes()
+    require(len(shapes) == 7, f"expected 7 sharded K1 shapes at model {TP_MODEL}, got {shapes}")
+    errs = {}
+    with strict_f32(), torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = {"styleconv": 0.0, "adain": 0.0, "styleconv_bwd": 0.0}
+            for r, cin, _, cout in shapes:
+                tag = f"tp K1 {str(dtype)[6:]} ({n},{r},{r},{cin}->{cout})"
+                ins = k1_inputs(n, r, cin, cout, dtype, gen)
+                e = max_err(styleconv_cuda(**ins), styleconv_plain(**ins), TOL[dtype])
+                got, want = styleconv_cuda(**ins, with_stats=True), styleconv_plain(**ins, with_stats=True)
+                e = max(e, max_err(got[0], want[0], TOL[dtype]))
+                er = max(rel_err(gt, wt, RES_TOL if name == "hv" else 1e-3, f"{tag} {name}")
+                         for name, gt, wt in zip(("hv", "mean", "inv"), got[1:], want[1:]))
+                dy = torch.randn(want[0].shape, generator=gen, device="cuda").to(dtype)
+                args = (dy, *want[1:], ins["gamma"], ins["noise"], ins["noise_w"])
+                k3, p3 = styleconv_backward_cuda(*args), styleconv_backward_plain(*args)
+                e3 = max(rel_err(getattr(k3, f), getattr(p3, f), GRAD_TOL[dtype], f"{tag} K3 {f}") for f in k3._fields)
+                k3_abs = float((k3.dpre.float() - p3.dpre.float()).abs().max())
+                torch.cuda.synchronize()
+                print(f"check {tag} out max_abs_err {e:.3e} (tol {TOL[dtype]}*(1+|plain|)); residuals max rel err "
+                      f"{er:.3e} (hv tol {RES_TOL}); K3 max rel err {e3:.3e} tol {GRAD_TOL[dtype]} (dpre max_abs_err "
+                      f"{k3_abs:.3e}); plans {plan_tiles(n, r, r, cin, cout, dtype).describe()}; "
+                      f"{plan_backward(n, r * r, cout).describe()}")
+                worst["styleconv"] = max(worst["styleconv"], e)
+                worst["styleconv_bwd"] = max(worst["styleconv_bwd"], k3_abs)
+            ins = k2_inputs(n, 4, 512, dtype, gen)
+            for stats in (False, True):
+                got = noise_lrelu_adain_cuda(**ins, with_stats=stats)
+                want = noise_lrelu_adain_plain(**ins, with_stats=stats)
+                got, want = (got[0], want[0]) if stats else (got, want)
+                worst["adain"] = max(worst["adain"], max_err(got, want, TOL[dtype]))
+            print(f"check tp K2 {str(dtype)[6:]} ({n},4,4,512) max_abs_err {worst['adain']:.3e}: the initial block "
+                  f"keeps its full width under the model axis (its style gathered)")
+            errs[dtype] = worst
+    totals = {"K1 shard ms": 0.0, "K1 full ms": 0.0, "K3 shard ms": 0.0, "K3 full ms": 0.0,
+              "K1 shard bound_ms": 0.0, "K3 shard bound_ms": 0.0}
+    with torch.no_grad():
+        for r, cin, full, cout in shapes:
+            t = {}
+            for what, c in (("shard", cout), ("full", full)):
+                ins = k1_inputs(n, r, cin, c, torch.bfloat16, gen)
+                t[f"K1 {what}"] = timed_ms(lambda: styleconv_cuda(**ins, with_stats=True))
+                _, hv, mean, inv = styleconv_cuda(**ins, with_stats=True)
+                dy = torch.randn((n, r, r, c), generator=gen, device="cuda").to(torch.bfloat16)
+                args = (dy, hv, mean, inv, ins["gamma"], ins["noise"], ins["noise_w"])
+                t[f"K3 {what}"] = timed_ms(lambda: styleconv_backward_cuda(*args))
+                totals[f"K1 {what} ms"] += t[f"K1 {what}"]
+                totals[f"K3 {what} ms"] += t[f"K3 {what}"]
+            b1, by1 = k1_bound(n, r, cin, cout, 2, with_stats=True)
+            b3, by3 = k3_bound(n, r, cout, 2)
+            totals["K1 shard bound_ms"] += b1
+            totals["K3 shard bound_ms"] += b3
+            print(f"time tp K1 with_stats bf16 ({n},{r},{r},{cin}->{cout}) ms {t['K1 shard']:.4f} bound_ms {b1:.4f} "
+                  f"({by1}; plan {plan_tiles(n, r, r, cin, cout).describe()}) against the full width ->{full} ms "
+                  f"{t['K1 full']:.4f} ({plan_tiles(n, r, r, cin, full).describe()}); K3 ({n},{r},{r},{cout}) ms "
+                  f"{t['K3 shard']:.4f} bound_ms {b3:.4f} ({by3}) against {full} channels {t['K3 full']:.4f} "
+                  f"(CUDA events) {math_flags()}")
+    print("time tp kernels, the 7 sharded shapes summed (one rank's calls against one process's): "
+          + fmt_times(totals) + f" {math_flags()}")
+    return {"errs": errs, "times": totals}
+
+
+def _apart(got: dict, want: dict) -> tuple:
+    """(largest |a - b|, entries more than 1e-5 apart, entries) of two
+    state dicts."""
+    worst, far, n = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        worst, far, n = max(worst, float(d.max())), far + int((d > 1e-5).sum()), n + d.numel()
+    return worst, far, n
+
+
+def _exp_avg_sq(opt_state: dict, names: list) -> dict:
+    """Adam's second moments by parameter name from a state dict."""
+    return {n: opt_state["state"][i]["exp_avg_sq"] for i, n in enumerate(names) if i in opt_state["state"]}
+
+
+def tp_steps_job(rank: int, dev: torch.device, model: int = TP_MODEL) -> dict:
+    """On each rank of a ``world/model x model`` mesh: per case of
+    ``TP_STEP_CASES``, one iteration at stage 8, f32 (TF32 off), global
+    batch ``DP_BATCH``, from the fresh full-width state cut to the model
+    axis's blocks, on global draws made from one seed; rank 0 runs one
+    process on the whole batch from the same state and draws.  Every rank
+    gathers the gradients, the nets, the EMA and Adam's second moments to
+    the full layout; rank 0 holds the losses within ``STEP_TOL``, every
+    gradient tensor within ``STEP_GRAD_TOL``, the second moments within
+    ``DP_MOMENT_TOL``, at most ``DP_FAR_SHARE`` of the weights more than
+    1e-5 apart, aug_p and rt_ema equal and pl_ema within ``STEP_TOL``.
+    Every rank checks its replicated leaves bit-equal to rank 0's.  Failures
+    are returned, not raised, so that no rank leaves the others waiting in
+    a collective.  Returns per case the (K1, K2, K3) launches on this rank
+    (and one process's), the errors, the parameters this rank holds and
+    the failures."""
+    import types
+
+    from byogan_tpu_torch.parallel.mesh import broadcast_, make_mesh, shard_batch, shard_train_state
+    from byogan_tpu_torch.parallel.tensor import gather_named, gather_optimizer_state, gather_state_dict
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.steps import draw, make_train_step
+
+    mesh = make_mesh(None, model, device=dev)
+    result = {"backend": mesh.backend, "mesh": (mesh.size, mesh.model_size), "cases": {}, "failures": []}
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            result["failures"].append(what)
+
+    with strict_f32():
+        for name, knobs in TP_STEP_CASES.items():
+            cfg = TrainConfig(**knobs, data_axis=mesh.size, model_axis=model)
+            rng = torch.Generator(device=dev).manual_seed(7)
+            draws = draw(types.SimpleNamespace(rng=rng, iters=0), cfg, DP_BATCH, 8, torch.float32)
+            real = torch.randint(0, 256, (DP_BATCH, 512, 512, 3), generator=rng, device=dev, dtype=torch.uint8)
+            check((draws.plr is not None) == (cfg.plr_weight > 0), f"{name}: penalized iteration")
+            state = shard_train_state(_dp_step_state(cfg, dev), mesh)
+            held = {net: sum(p.numel() for p in getattr(state, net).parameters()) for net in ("gen", "critic")}
+            step = make_train_step(cfg, 8, DP_BATCH, 8.0, (True,), True, mesh=mesh)
+            case = {"params_held": held}
+            if rank == 0:
+                ref = _dp_step_state(cfg, dev)
+                want = _step_record(make_train_step(cfg, 8, DP_BATCH, 8.0, (True,), True), ref, real, draws)
+                case["single_launches"] = want["launches"]
+            got = _step_record(step, state, shard_batch(real, mesh), draws)
+            case["launches"] = got["launches"]
+            nets = {net: getattr(state, net) for net in ("gen", "critic", "gen_ema")}
+            grads = {net: gather_named({n: p.grad for n, p in nets[net].named_parameters()}, nets[net].tp_shards, mesh)
+                     for net in ("gen", "critic")}
+            params = {net: gather_state_dict(m, mesh) for net, m in nets.items()}
+            moments = {net: _exp_avg_sq(gather_optimizer_state(getattr(state, f"{net}_opt"), nets[net], mesh),
+                                        [n for n, _ in nets[net].named_parameters()]) for net in ("gen", "critic")}
+            replicated = torch.cat([p.detach().reshape(-1) for m in nets.values() for n, p in m.named_parameters()
+                                    if n not in m.tp_shards])
+            theirs = replicated.clone()
+            broadcast_([theirs], mesh)
+            case["replicated_bit_equal"] = bool(torch.equal(replicated, theirs))
+            case["replicated_entries"] = replicated.numel()
+            check(case["replicated_bit_equal"], f"{name}: rank {rank}'s replicated leaves differ from rank 0's")
+            if rank == 0:
+                what = f"tp {name}"
+                case["losses"] = 0.0
+                for k, v in want["metrics"].items():
+                    if k in ("aug_p", "rt_ema"):
+                        check(got["metrics"][k] == v, f"{what} {k}: {got['metrics'][k]} vs {v}")
+                    elif v != 0.0 or got["metrics"][k] != 0.0:
+                        e = abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                        check(e <= STEP_TOL, f"{what} {k}: relative error {e:.3e} over {STEP_TOL}")
+                        case["losses"] = max(case["losses"], e)
+                case["grads"], case["moments"] = {}, {}
+                for net in ("gen", "critic"):
+                    one = {n: p.grad for n, p in getattr(ref, net).named_parameters()}
+                    per = grad_errs(grads[net], one, f"{what} {net} grads", check=False)
+                    whole = _net_rel_l2(grads[net], one)
+                    check(per[0] <= STEP_GRAD_TOL[0] and per[1] <= STEP_GRAD_TOL[1], f"{what} {net} grads {per}")
+                    check(whole <= STEP_GRAD_TOL[0], f"{what} {net} grads: relative L2 of the whole {whole:.3e}")
+                    case["grads"][net] = {"whole": whole, "worst tensor": per}
+                    m_one = _exp_avg_sq(getattr(ref, f"{net}_opt").state_dict(),
+                                        [n for n, _ in getattr(ref, net).named_parameters()])
+                    e = _net_rel_l2(moments[net], m_one)
+                    check(e <= DP_MOMENT_TOL[0], f"{what} {net} second moments: relative L2 {e:.3e}")
+                    case["moments"][net] = e
+                case["apart"] = {net: _apart(params[net], getattr(ref, net).state_dict()) for net in params}
+                far, n = sum(a[1] for a in case["apart"].values()), sum(a[2] for a in case["apart"].values())
+                check(far <= DP_FAR_SHARE * n, f"{what}: nets and EMA apart {case['apart']}")
+                case["regularizers"] = {k: (float(getattr(state, k)), float(getattr(ref, k)))
+                                        for k in ("aug_p", "rt_ema", "pl_ema") if getattr(ref, k) is not None}
+                if ref.pl_ema is not None:
+                    e = abs(float(state.pl_ema) - float(ref.pl_ema)) / max(abs(float(ref.pl_ema)), 1e-12)
+                    check(e <= STEP_TOL, f"{what} pl_ema: relative error {e:.3e}")
+                del ref
+            result["cases"][name] = case
+            del state, grads, params, moments
+            torch.cuda.empty_cache()
+    return result
+
+
+def tp_steps(tmp, world: int = TP_MODEL, model: int = TP_MODEL) -> dict:
+    """The "tp steps" phase (``tp_steps_job`` on ``world`` spawned ranks,
+    a ``world/model x model`` mesh): per case, the errors against one
+    process, the parameters each rank holds, and the launches."""
+    out = spawn_ranks(tmp, "tp_steps_job", model, world=world)
+    backend, (data, _) = out[0]["backend"], out[0]["mesh"]
+    where = f"{world} ranks sharing one card" if backend == "gloo" else f"{world} cards"
+    for name, case in out[0]["cases"].items():
+        launches = [o["cases"][name]["launches"] for o in out]
+        held = [o["cases"][name]["params_held"] for o in out]
+        print(f"tp steps {name} (data {data} x model {model}, {backend}, {where}), f32 stage 8, global batch {DP_BATCH}, "
+              f"one iteration against one process from the same state: losses max rel err {case['losses']:.3e} "
+              f"(tol {STEP_TOL}); per net, gathered gradients' relative L2 of the whole and the worst tensor's (rel L2, "
+              f"max) (tol {STEP_GRAD_TOL}): "
+              + ", ".join(f"{net} {e['whole']:.3e} {e['worst tensor'][0]:.3e} {e['worst tensor'][1]:.3e}"
+                          for net, e in case["grads"].items())
+              + f"; second moments relative L2 (tol {DP_MOMENT_TOL[0]}) {case['moments']}; nets and EMA after the "
+              f"step, gathered (max |diff|, entries over 1e-5, entries; held to {DP_FAR_SHARE} of entries) "
+              f"{case['apart']}; regularizers (mesh, one process) {case['regularizers']}; replicated leaves bit-equal "
+              f"across the ranks {[o['cases'][name]['replicated_bit_equal'] for o in out]} "
+              f"({case['replicated_entries']} entries); parameters per rank {held}; launches (K1, K2, K3) per rank "
+              f"{launches}, one process {case['single_launches']} {math_flags()}")
+        require(all(x == case["single_launches"] for x in launches),
+                f"{name}: launches {launches} vs one process's {case['single_launches']}")
+        if model == TP_MODEL:
+            require(all(h == TP_RANK_PARAMS for h in held), f"{name}: parameters per rank {held}, not {TP_RANK_PARAMS}")
+    failures = [f for o in out for f in o["failures"]]
+    require(not failures, "tp steps: " + "; ".join(failures))
+    return {name: case["launches"] for name, case in out[0]["cases"].items()}
+
+
+def tp_train(tmp, root) -> list:
+    """The "tp train" phase: ``train`` on two ranks (gloo, this card) with
+    ``model_axis = 2`` at full width, ``[DEFAULT]``'s batch_progression on
+    64 synthetic images, SIGTERM to rank 1 alone at stage 5: both stop at
+    one iteration, rank 0 writes one checkpoint in the full layout (the
+    shapes of one process's) and one metrics file; launches per rank per
+    iteration as one process's; the checkpoint resumes in one process to
+    FINAL.pth, which the Sampler loads."""
+    from byogan_tpu_torch.cli.main import main as train_main
+    from byogan_tpu_torch.data.synthetic import write_prepared_dataset
+    from byogan_tpu_torch.models.factory import ModelSpec, build_critic, build_generator
+    from byogan_tpu_torch.serve import Sampler
+
+    data = os.path.join(tmp, "dp_data")
+    if not os.path.isdir(data):
+        write_prepared_dataset(data, DP_IMAGES, 8, seed=1)
+    cfg = os.path.join(tmp, "tp.txt")
+    with open(cfg, "w") as f:
+        f.write(DP_CONFIG.format(name="tp", data=data, data_axis=1, tmp=tmp) + f"model_axis = {TP_MODEL}\n")
+        f.write(DP_CONFIG.format(name="tp1", data=data, data_axis=1, tmp=tmp))
+    out = spawn_ranks(tmp, "dp_train_job", cfg, "tp", backend="gloo")
+    iters = [o["iters"] for o in out]
+    require(iters[0] == iters[1] and out[0]["stage"] == DP_SIGNAL_STAGE, f"the ranks stopped at {iters}, stage {out[0]['stage']}")
+    n = iters[0]
+    for r, o in enumerate(out):
+        require(len(o["records"]) == n, f"rank {r}: {len(o['records'])} steps for {n} iterations")
+        for k, _, _, got in o["records"]:
+            require(got == (2 * (2 * k - 1), 2, 2 * k), f"rank {r} stage {k}: launches per iteration {got}")
+    require(sorted(os.listdir(os.path.join(tmp, "tp_ck"))) == [f"chk-{n}.pth"], f"checkpoints {os.listdir(os.path.join(tmp, 'tp_ck'))}")
+    with open(os.path.join(tmp, "tp_out", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    require([r["iter"] for r in logged] == list(range(1, n + 1)), f"metrics iterations {[r['iter'] for r in logged]}")
+    require(all(math.isfinite(r["c_loss"]) and math.isfinite(r["g_loss"]) for r in logged), "non-finite losses")
+    chk = os.path.join(tmp, "tp_ck", f"chk-{n}.pth")
+    saved = torch.load(chk, map_location="cpu", weights_only=False)
+    for net, model in (("gen", build_generator(ModelSpec())), ("critic", build_critic(ModelSpec()))):
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        require({k: tuple(v.shape) for k, v in saved[net].items()} == want, f"{net}: the checkpoint is not in the full layout")
+        require(all(tuple(v["exp_avg"].shape) == tuple(p.shape) for v, p in
+                    zip(saved[f"{net}_opt"]["state"].values(), model.parameters())), f"{net}_opt: moments not gathered")
+    launches = [dict(zip(KERNEL_NAMES, o["launches"])) for o in out]
+    print(f"tp train: two ranks (data 1 x model {TP_MODEL}, gloo, one card) stopped together at iteration {n} (stage "
+          f"{DP_SIGNAL_STAGE}) in {out[0]['wall']:.2f} s; one checkpoint chk-{n}.pth in the full layout (nets and "
+          f"both Adam states gathered), one metrics file of {len(logged)} records; launches per rank {launches}, per "
+          f"iteration as one process's")
+    records = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with counting_steps(records):
+        state = train_main(["tp1", "--config-file", cfg, "-c", chk])
+    torch.cuda.synchronize()
+    require(state.iters == 20 and records[0][0] == DP_SIGNAL_STAGE, f"the resumed run ended at {state.iters}")
+    for k, _, _, got in records:
+        require(got == (2 * (2 * k - 1), 2, 2 * k), f"resumed stage {k}: launches per iteration {got}")
+    frames = Sampler(os.path.join(tmp, "tp1_ck", "FINAL.pth"), batch=8, seed=0).sample(8)
+    require(frames.shape == (8, 512, 512, 3) and frames.std() > 0, f"frames {frames.shape}")
+    print(f"tp train: chk-{n}.pth resumed in one process to FINAL.pth in {time.perf_counter() - t0:.2f} s "
+          f"({len(records)} iterations); the Sampler's frames from it {frames.shape} {frames.dtype}, std {frames.std():.2f}")
+    return launches
+
+
+def tp_time_job(rank: int, dev: torch.device, model: int) -> dict:
+    """The stage-8 bf16 iteration (no-blend path, batch ``TRAIN_BATCH``) on
+    a ``world/model x model`` mesh, or with no mesh in a world of one at
+    ``model`` 1: CUDA events, the peak of allocated memory over the timed
+    iterations, one profiled iteration's host ms in collective ops and card
+    busy ms, and the parameters this rank holds."""
+    from byogan_tpu_torch.parallel.mesh import make_mesh, shard_train_state
+    from byogan_tpu_torch.train.config import TrainConfig
+    from byogan_tpu_torch.train.loop import build_state
+    from byogan_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig()
+    state = build_state(cfg, dev)
+    mesh = None if model == 1 else make_mesh(None, model, device=dev)
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    gen = torch.Generator(device=dev).manual_seed(0 if mesh is None else mesh.rank)
+    batch = TRAIN_BATCH * (1 if mesh is None else mesh.size)
+    real = torch.randint(0, 256, (TRAIN_BATCH, 512, 512, 3), generator=gen, device=dev, dtype=torch.uint8)
+    step = make_train_step(cfg, 8, batch, 8.0, (False,), False, **({} if mesh is None else {"mesh": mesh}))
+    step(state, real)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    it_ms = timed_ms(lambda: step(state, real), iters=TIMED_ITERS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    card, host = profile_totals(lambda: step(state, real))
+    collective = re.compile(r"all_?reduce|broadcast|gloo|nccl", re.IGNORECASE)
+    return {
+        "it_ms": it_ms, "peak_gib": peak / 2**30, "mesh": None if mesh is None else (mesh.size, mesh.model_size),
+        "backend": None if mesh is None else mesh.backend,
+        "host_collective_ms": sum(v for k, v in host.items() if collective.search(k)),
+        "card_busy_ms": sum(ms for _, ms in card.values()),
+        "card_nccl_ms": sum(ms for k, (_, ms) in card.items() if "nccl" in k.lower()),
+        "kernels": sum(n for n, _ in card.values()),
+        "top": sorted(card.items(), key=lambda kv: -kv[1][1])[:6],
+        "params_held": {net: sum(p.numel() for p in getattr(state, net).parameters()) for net in ("gen", "critic")},
+    }
+
+
+def tp_times(tmp, world: int = TP_MODEL, model: int = TP_MODEL) -> dict:
+    """The "time tp" phase: the stage-8 bf16 iteration of one process
+    against the ``world/model x model`` mesh's (two ranks sharing this card
+    over gloo on one card: not a multi-card rate; NCCL with a card each
+    where the machine has ``world``), each in fresh processes."""
+    out = {}
+    for label, w, m in (("one", 1, 1), ("mesh", world, model)):
+        out[label] = spawn_ranks(tmp, "tp_time_job", m, world=w, backend="gloo" if w == 1 else None)
+    for ranks in out.values():
+        for r, t in enumerate(ranks):
+            where = "one process, no mesh" if t["mesh"] is None else (
+                f"data {t['mesh'][0]} x model {t['mesh'][1]} over {t['backend']}, "
+                + ("ranks sharing one card" if t["backend"] == "gloo" else "a card each"))
+            share = t["host_collective_ms"] / t["it_ms"]
+            print(f"time tp {where}, rank {r}: stage-8 iteration bf16 batch {TRAIN_BATCH} a data rank "
+                  f"{t['it_ms']:.3f} ms (CUDA events, {TIMED_ITERS} iterations); peak allocated "
+                  f"{t['peak_gib']:.3f} GiB; profiled iteration: host ms in collective ops "
+                  f"{t['host_collective_ms']:.3f} ({100 * share:.1f}% of the iteration), card busy "
+                  f"{t['card_busy_ms']:.3f} ms in {t['kernels']} kernels, {t['card_nccl_ms']:.3f} ms of it in NCCL "
+                  f"kernels; six largest kernels " + "; ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in t["top"])
+                  + f"; parameters held {t['params_held']} {math_flags()}")
+    return out
 
 
 # --- the image-IO slice: the native lane, the loader's rate, JPEG/BMP sets ---
@@ -3174,6 +3546,54 @@ def dp_main() -> int:
     return 0
 
 
+def tp_main() -> int:
+    """The model-axis phases alone (``python -c "import chip_smoke;
+    chip_smoke.tp_main()"``), for a short call; ``main`` runs them too."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from byogan_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}; {card}")
+    build.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("tp kernels"):
+            tp_kernels(gen)
+        with phase("tp steps"):
+            tp_steps(tmp)
+        with phase("tp train"):
+            tp_train(tmp, root)
+        with phase("time tp"):
+            tp_times(tmp)
+    return 0
+
+
+def tp_cards_main() -> int:
+    """On a machine with several cards (``python -c "import chip_smoke;
+    chip_smoke.tp_cards_main()"``): the tp steps over NCCL, one card a rank,
+    at data 1 x model 2 on two cards and data 2 x model 2 on four where
+    there are four, and the iteration's time on each against one process."""
+    require(torch.cuda.device_count() >= TP_MODEL, f"{torch.cuda.device_count()} cards")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from byogan_tpu_torch.ops import build
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+    build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in (TP_MODEL, 2 * TP_MODEL):
+            if torch.cuda.device_count() >= world:
+                with phase(f"tp steps, {world} cards"):
+                    tp_steps(tmp, world)
+                with phase(f"time tp, {world} cards"):
+                    tp_times(tmp, world)
+    return 0
+
+
 def main() -> int:
     # Phase 1: the card.
     require(torch.cuda.is_available(), "no CUDA device")
@@ -3414,7 +3834,20 @@ def main() -> int:
         with phase("dp sampler"):
             dp_sample_launches, dp_frame_err = dp_sampler(ckpt)
 
-        # Phases 31-33: the image-IO slice: the native library (PNG and JPEG
+        # Phases 31-34: the model axis over two spawned ranks sharing this
+        # card: K1 and K3 at the channel shards' shapes, one step of each
+        # kind against one process, train() stopped by a signal to one rank
+        # and resumed in one process, and the iteration's time.
+        with phase("tp kernels"):
+            tp_kernel_out = tp_kernels(gen)
+        with phase("tp steps"):
+            tp_step_launches = tp_steps(tmp)
+        with phase("tp train"):
+            tp_launches = tp_train(tmp, root)
+        with phase("time tp"):
+            tp_times(tmp)
+
+        # Phases 35-37: the image-IO slice: the native library (PNG and JPEG
         # decode against the plain decoder), the loader's rate by lane and
         # threads beside the iteration, prep and frame encode times, and the
         # training CLI on a set with JPEG or BMP files, stopped and resumed
@@ -3426,6 +3859,7 @@ def main() -> int:
         with phase("io train"):
             io_launches, io_sample_launches = io_train(tmp, root, io_state["jpeg"])
     penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]
+    tp_kind = {"styleconv": "K1", "styleconv_bwd": "K3"}  # the kernels that run on channel shards
     remat_entries = [{
         "launches_remat_train": remat_run[name],
         f"launches_remat_stage{REMAT_STAGE}_iteration": remat_stage7[i],
@@ -3437,6 +3871,13 @@ def main() -> int:
         **({"launches_dp_sampler_batch": dp_sample_launches[i]} if i < 2 else {}),
         "launches_io_train": io_launches[name],
         **({"launches_io_sample_batch": io_sample_launches[name]} if i < 2 else {}),
+        "launches_tp_stage8_iteration": tp_step_launches["R1"][i],
+        "launches_tp_stage8_penalized_iteration": tp_step_launches[f"ADA {REG_TARGET} + PLR 2.0, penalized"][i],
+        "launches_tp_train": [r[name] for r in tp_launches],
+        "max_abs_err_tp_shapes": tp_kernel_out["errs"][torch.bfloat16][name],
+        "max_abs_err_tp_shapes_f32": tp_kernel_out["errs"][torch.float32][name],
+        **({"tp_shapes_ms": {k: v for k, v in tp_kernel_out["times"].items() if k.startswith(tp_kind[name])}}
+           if name in tp_kind else {}),
     } for i, name in enumerate(KERNEL_NAMES)]
 
     kernels = [
@@ -3523,6 +3964,8 @@ def main() -> int:
           f"{prep_s:.3f} s per original; program launches per batch {program_launches}, max frame error {program_err} LSB")
     print(f"dp: steps on {dp_backend_used}; launches per rank in the two-rank train() run {dp_launches}; the "
           f"Sampler over two devices {dp_sample_launches} a batch, {dp_frame_err} LSB from one device")
+    print(f"tp: launches per rank per stage-8 iteration {tp_step_launches}; per rank in the model-2 train() run "
+          f"{tp_launches}; the 7 shard shapes' K1 and K3 ms summed {tp_kernel_out['times']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

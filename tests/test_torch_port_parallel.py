@@ -319,8 +319,9 @@ def test_sampler_over_two_devices_matches_one_and_jax(checkpoint):  # noqa: F811
 
 def test_config_and_mesh_checks(tmp_path, monkeypatch):
     assert PortConfig(data_axis=2).data_axis == 2
-    with pytest.raises(ValueError, match="not in the PyTorch port yet .*model_axis"):
-        PortConfig(model_axis=2)
+    assert PortConfig(model_axis=2).model_axis == 2  # the model axis: tests/test_torch_port_tensor_parallel.py
+    with pytest.raises(ValueError, match="model_axis must be >= 1, got 1, 0"):
+        PortConfig(model_axis=0)
     with pytest.raises(ValueError, match="data_axis=2 needs 2 processes"):
         port_mesh.make_mesh(2, device="cpu")
     root = write_prepared_dataset(str(tmp_path / "data"), 8, 2, seed=2)

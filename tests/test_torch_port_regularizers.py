@@ -336,8 +336,9 @@ def test_config_takes_the_regularizers_and_keeps_jax_checks():
     for knob in (dict(aug_p=0.3), dict(ada_target=0.6), dict(plr_weight=2.0)):
         assert PortConfig(**knob).use_aug == ("plr_weight" not in knob)
     assert not PortConfig().use_aug
-    with pytest.raises(ValueError, match="not in the PyTorch port yet .*model_axis"):
-        PortConfig(model_axis=2)
+    assert PortConfig(model_axis=2).model_axis == 2  # ported: parallel/tensor.py
+    with pytest.raises(ValueError, match="model_axis must be >= 1, got 1, 0"):
+        PortConfig(model_axis=0)
     assert PortConfig(data_axis=2).data_axis == 2  # ported: parallel/mesh.py
     for knob in (dict(remat=True), dict(remat_progression=(True,) * 8)):  # ported: they construct
         PortConfig(**knob)

@@ -144,8 +144,9 @@ def test_stage_remat_parses_and_checks_as_jax():
     assert c2.remat_progression is None and [c2.stage_remat(i) for i in range(2)] == [True, True]
     with pytest.raises(ValueError, match="remat_progression has 1 flags for 2 stages"):
         PortConfig(batch_progression=(4, 4), epoch_progression=(1, 1), remat_progression=(True,))
-    with pytest.raises(ValueError, match="not in the PyTorch port yet .*model_axis"):  # TP is not ported
-        PortConfig(model_axis=2)
+    assert PortConfig(model_axis=2).model_axis == 2  # the model axis is too (parallel/tensor.py)
+    with pytest.raises(ValueError, match="model_axis must be >= 1, got 1, 0"):
+        PortConfig(model_axis=0)
     assert PortConfig(data_axis=2).data_axis == 2  # the data axis is (parallel/mesh.py)
 
 
