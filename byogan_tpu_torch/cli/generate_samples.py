@@ -1,8 +1,8 @@
 """Sample-generation CLI (byogan_tpu/cli/generate_samples.py).
 
 Writes N frames ``image_{i}.png`` (``.jpg`` with ``--format jpeg``, through
-the native lane's libjpeg at ``--jpeg-quality``; ``.npy`` with ``--format
-raw``) from
+the native library's encoder at ``--jpeg-quality``, byte for byte libjpeg's;
+``.npy`` with ``--format raw``) from
 a reference-format ``.pth`` at the checkpoint's saved step and alpha, from
 fresh truncated latents, in float32 as the reference CLI does.  Pixels are
 saved raw-range with save_image's clamp, so the negative half is black.
@@ -70,10 +70,10 @@ def main(argv=None):
     )
     parser.add_argument(
         "--format", default="png", choices=("png", "jpeg", "raw"),
-        help="output encoding: png, jpeg (the native lane's libjpeg), or raw (uint8 .npy, no encode)",
+        help="output encoding: png, jpeg (the native library's encoder, libjpeg's bytes), or raw (uint8 .npy, no encode)",
     )
     parser.add_argument(
-        "--jpeg-quality", default=92, type=jpeg_quality, help="libjpeg quality for --format jpeg (1-100)",
+        "--jpeg-quality", default=92, type=jpeg_quality, help="JPEG quality for --format jpeg (1-100, libjpeg's scale)",
     )
     args = parser.parse_args(argv)
 

@@ -1,40 +1,44 @@
 """ctypes bridge to the native image-IO library (byogan_tpu/data/native.py).
 
-``load_library()`` builds ``native/byogan_io.cpp`` at first use
-(``native/build.py``) and loads it once per process.  ``features()`` says
-what it was compiled with: ``png`` and ``jpeg`` (libpng, libjpeg, found at
-build time) and ``unfilter`` (the PNG row unfilter, in every build).  If the
-library does not build or load, a warning naming the error is printed
-once; PNG files then decode in Python alone (``data/png.py``) and every
-call here that needs the library raises ``OSError`` naming the file and the
-error.  ctypes releases the interpreter lock during each call, so threads
-decode in parallel.
+``load_library()`` builds the port's codecs (``native/*.cpp``, linked to
+zlib alone: ``native/build.py``) at first use and loads them once per
+process.  ``decode_image`` reads PNG and JPEG files and ``encode_jpeg``
+writes JPEG files, each bit for bit with the JAX package's libpng and
+libjpeg-turbo lane, on any machine with a C++ compiler and zlib.  A build
+that fails raises, naming the compiler's error: there is no other lane
+to fall back on.  ctypes releases the interpreter lock during each call,
+so threads decode in parallel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-import warnings
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 2
-#: bits of byogan_io_features()
-PNG, JPEG = 1, 2
-#: the library's return codes
+ABI_VERSION = 3
+#: the library's return codes (native/codec.h)
 ERRORS = {
     -1: "cannot open the file",
     -2: "not a PNG or JPEG file",
     -3: "out of memory",
-    -4: "the decoder refused the data",
+    -4: "the decoder refused the data: it breaks the format's rules",
     -5: "its size changed while it was read",
     -6: "it does not decode to RGB",
-    -7: "the library for this format was not compiled in",
     -8: "unknown PNG row filter",
+    -9: "a PNG chunk's CRC does not match",
+    -10: "the file is truncated",
+    -11: "unsupported JPEG feature: CMYK or YCCK (4 components)",
+    -12: "unsupported JPEG feature: samples of other than 8 bits (12-bit)",
+    -13: "unsupported JPEG feature: arithmetic coding",
+    -14: "unsupported JPEG feature: a lossless (SOF3) frame",
+    -15: "unsupported JPEG feature: a hierarchical frame",
+    -16: "unsupported JPEG feature: chroma sampling other than h2v1, h2v2 or integral boxes (4:4:0 is one)",
+    -17: "unsupported JPEG feature: a progressive file left for libjpeg's block smoothing (unfinished scans)",
 }
 
 _P = ctypes.c_void_p
@@ -43,7 +47,6 @@ _S = ctypes.c_char_p
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "byogan_abi_version": [],
-    "byogan_io_features": [],
     "byogan_decode": [_S, _P, _IP, _IP],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
@@ -55,9 +58,8 @@ class _Loaded:
 
     def __init__(self):
         self.lock = threading.Lock()
-        self.tried = False
         self.lib: Optional[ctypes.CDLL] = None
-        self.error: Optional[str] = None
+        self.error: Optional[Exception] = None
 
 
 _LOADED = _Loaded()
@@ -73,68 +75,34 @@ def _open(force: bool) -> ctypes.CDLL:
     return lib
 
 
-def load_library() -> Optional[ctypes.CDLL]:
-    """The loaded library, built first if needed; None if it failed (then
-    ``build_error()`` says why)."""
+def load_library() -> ctypes.CDLL:
+    """The loaded library, built first if needed.  Raises ``RuntimeError``
+    (the compiler's output) or ``OSError`` (the loader's) if it cannot be
+    built or loaded, every time it is asked for."""
     with _LOADED.lock:
-        if not _LOADED.tried:
-            _LOADED.tried = True
+        if _LOADED.lib is None and _LOADED.error is None:
             try:
                 try:
                     _LOADED.lib = _open(force=False)
-                except OSError:  # built for another machine's libraries: build it here
+                except OSError:  # built for another machine, or an older ABI: build it here
                     _LOADED.lib = _open(force=True)
             except (OSError, RuntimeError) as e:
-                _LOADED.error = f"{type(e).__name__}: {e}"
-                warnings.warn(
-                    f"the native image-IO library is unavailable ({_LOADED.error}); PNG files decode in "
-                    "Python and JPEG files cannot be read or written", RuntimeWarning, stacklevel=2,
-                )
+                _LOADED.error = e
+        if _LOADED.error is not None:
+            raise type(_LOADED.error)(f"the native image-IO library did not build or load: {_LOADED.error}")
         return _LOADED.lib
-
-
-def build_error() -> Optional[str]:
-    """Why the library did not load, or None."""
-    load_library()
-    return _LOADED.error
-
-
-def features() -> Dict[str, bool]:
-    """What the loaded library can do: ``png``, ``jpeg``, ``unfilter``."""
-    lib = load_library()
-    bits = lib.byogan_io_features() if lib is not None else 0
-    return {"png": bool(bits & PNG), "jpeg": bool(bits & JPEG), "unfilter": lib is not None}
-
-
-def unavailable(path: str, fmt: str) -> OSError:
-    """The error for ``path`` when the library cannot handle ``fmt``."""
-    lib = load_library()
-    if lib is None:
-        why = f"the native image-IO library did not build ({_LOADED.error})"
-    else:
-        header = {"PNG": "png.h", "JPEG": "jpeglib.h"}[fmt]
-        why = f"the native image-IO library was built without lib{fmt.lower()} (no <{header}> on this machine)"
-    return OSError(f"{path}: cannot read or write {fmt} files: {why}")
-
-
-def _need(path: str, fmt: str, bit: int) -> ctypes.CDLL:
-    lib = load_library()
-    if lib is None or not lib.byogan_io_features() & bit:
-        raise unavailable(path, fmt)
-    return lib
 
 
 def _failed(path: str, what: str, rc: int) -> OSError:
     return OSError(f"{path}: {what} failed: {ERRORS.get(rc, 'error')} ({rc})")
 
 
-def decode_image(path: str, fmt: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """A PNG or JPEG file (``fmt``, "PNG" or "JPEG" as ``images.sniff``
-    read it) as uint8 RGB (H, W, 3), through libpng or libjpeg.  ``shape``
-    is the (H, W) the caller expects: where it is right, one call opens
-    and decodes the file; otherwise the first call reads the size and a
-    second decodes."""
-    lib = _need(path, fmt, JPEG if fmt == "JPEG" else PNG)
+def decode_image(path: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """A PNG or JPEG file (told apart by its first bytes) as uint8 RGB
+    (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
+    right, one call opens and decodes the file; otherwise the first call
+    reads the size and a second decodes."""
+    lib = load_library()
     h, w = shape or (0, 0)
     for _ in range(2):
         out = np.empty((h, w, 3), np.uint8)
@@ -152,7 +120,8 @@ def decode_image(path: str, fmt: str, shape: Optional[Tuple[int, int]] = None) -
 def unfilter(raw: bytes, h: int, stride: int, bpp: int) -> Optional[np.ndarray]:
     """PNG's row filters undone on ``h`` inflated scanlines of ``stride``
     bytes (each after its filter byte), ``bpp`` bytes a pixel: (h, stride)
-    uint8.  None when the library is unavailable."""
+    uint8.  None where ``load_library`` gives None (a caller that took the
+    library away, to run ``data/png.py`` in Python alone)."""
     lib = load_library()
     if lib is None:
         return None
@@ -174,11 +143,11 @@ def _rgb_u8(image: np.ndarray) -> np.ndarray:
 
 def encode_jpeg(path: str, image: np.ndarray, quality: int = 92) -> None:
     """Write a uint8 RGB (H, W, 3) image as a JPEG file at ``quality``
-    (1-100) through libjpeg."""
+    (1-100): the bytes libjpeg writes with its defaults (baseline, 4:2:0,
+    the standard tables)."""
     image = _rgb_u8(image)
     if not 1 <= quality <= 100:
         raise ValueError(f"JPEG quality must be in [1, 100], got {quality}")
-    lib = _need(path, "JPEG", JPEG)
-    rc = lib.byogan_encode_jpeg(path.encode(), image.ctypes.data, image.shape[0], image.shape[1], quality)
+    rc = load_library().byogan_encode_jpeg(path.encode(), image.ctypes.data, image.shape[0], image.shape[1], quality)
     if rc != 0:
         raise _failed(path, "JPEG encode", rc)

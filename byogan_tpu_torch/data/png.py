@@ -2,15 +2,18 @@
 
 Reads every non-interlaced PNG: gray at 1, 2, 4, 8 and 16 bits, RGB,
 palette (with or without tRNS), gray+alpha and RGBA, any of the five row
-filters.  Returns an RGB uint8 (H, W, 3) array, as the native lane's libpng
-decode does (``native/byogan_io.cpp``): 16-bit samples keep their high byte,
-low-depth gray is scaled to 8 bits, palettes are expanded, gray is repeated
-into three channels, and alpha and tRNS are dropped.
+filters.  Returns an RGB uint8 (H, W, 3) array, as the JAX package's libpng
+lane does: 16-bit samples keep their high byte, low-depth gray is scaled to
+8 bits, palettes are expanded, gray is repeated into three channels, and
+alpha and tRNS are dropped.
 
-The native lane reads PNG files through libpng where it was built with it.
-Where it was not, they come here, and the C ``byogan_unfilter`` undoes the
-row filters (``_unfilter`` in Python only where the library did not load:
-it runs Average and Paeth rows byte by byte).
+The loader never comes here: PNG files decode in the native library's own
+decoder (``native/png.cpp``).  This module is that decoder's plain
+reference, for the tests and ``chip_smoke.py``.  The C ``byogan_unfilter``
+undoes the row filters where the library loads; ``_unfilter`` does it in
+Python alone (Average and Paeth rows byte by byte) where a caller takes the
+library away (``load_library`` giving None), so the reference shares no
+code with the decoder it checks.
 """
 
 from __future__ import annotations

@@ -1,17 +1,18 @@
 """Build the native image-IO library (byogan_tpu/native/build.py).
 
-One ``g++`` call compiles ``byogan_io.cpp`` into ``build/libbyogan_io.so``
-at the root of the checkout (git-ignored, beside the CUDA kernels of
-``ops/build.py``), at first use and again whenever the source is newer:
+One ``g++`` call compiles the port's own codecs into
+``build/libbyogan_io.so`` at the root of the checkout (git-ignored, beside
+the CUDA kernels of ``ops/build.py``), at first use and again whenever a
+source is newer:
 
-    g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp -o build/libbyogan_io.so \\
-        [-lpng -lz] [-ljpeg]
+    g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp png.cpp jpeg_decode.cpp \\
+        jpeg_encode.cpp jpeg_tables.cpp -o build/libbyogan_io.so -lz
 
-libpng (with zlib) and libjpeg are linked where their headers are found;
-without them the library holds the part that needs no library (the PNG
-row unfilter).  Concurrent builds, such as test
-workers starting together, take a file lock and compile to a name of their
-own, which replaces the library in one step.
+zlib is the one library it links (PNG's inflate), on every machine; a
+machine without ``zlib.h`` fails the build, and the ``RuntimeError``
+carries the compiler's output.  Concurrent builds, such as test workers
+starting together, take a file lock and compile to a name of their own,
+which replaces the library in one step.
 
     python -m byogan_tpu_torch.native.build [--force]
 """
@@ -24,32 +25,22 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
-from typing import List
 
-SOURCE = Path(__file__).resolve().parent / "byogan_io.cpp"
-BUILD = Path(__file__).resolve().parent.parent.parent / "build"
+HERE = Path(__file__).resolve().parent
+SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_encode.cpp", "jpeg_tables.cpp"))
+HEADERS = (HERE / "codec.h",)
+BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-#: header -> the libraries it needs, in link order
-OPTIONAL_LIBRARIES = (("png.h", ("-lpng", "-lz")), ("jpeglib.h", ("-ljpeg",)))
+LIBS = ("-lz",)
 
 
-def has_header(name: str) -> bool:
-    """Whether the compiler finds ``<name>``."""
-    probe = subprocess.run(
-        ["g++", "-x", "c++", "-E", "-o", os.devnull, "-"],
-        input=f"#include <{name}>\n", capture_output=True, text=True,
-    )
-    return probe.returncode == 0
-
-
-def link_flags() -> List[str]:
-    """The ``-l`` flags for the optional libraries whose headers exist."""
-    return [f for header, libs in OPTIONAL_LIBRARIES if has_header(header) for f in libs]
+def command(out: str) -> list:
+    return ["g++", *FLAGS, *map(str, SOURCES), "-o", out, *LIBS]
 
 
 def _stale() -> bool:
-    return not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime
+    return not LIBRARY.exists() or LIBRARY.stat().st_mtime < max(p.stat().st_mtime for p in SOURCES + HEADERS)
 
 
 def build(force: bool = False) -> Path:
@@ -63,7 +54,7 @@ def build(force: bool = False) -> Path:
         if force or _stale():  # another process may have built it meanwhile
             fd, tmp = tempfile.mkstemp(prefix=".libbyogan_io.", suffix=".so", dir=BUILD)
             os.close(fd)
-            cmd = ["g++", *FLAGS, str(SOURCE), "-o", tmp, *link_flags()]
+            cmd = command(tmp)
             try:
                 done = subprocess.run(cmd, capture_output=True, text=True)
                 if done.returncode != 0:

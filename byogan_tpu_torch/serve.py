@@ -11,7 +11,7 @@ w (``truncation_psi``) and mixes coarse and fine styles of two latent sets
 (``devices``, the counterpart of the JAX Sampler's ``mesh``) it keeps one
 generator replica per device and renders each contiguous row block of a
 batch on its own.  Frames are written as PNG, as JPEG through the native
-lane's libjpeg (``format="jpeg"``), or raw.
+library's own encoder, byte for byte libjpeg's (``format="jpeg"``), or raw.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def save_frame_u8(
     if format == "png":
         with open(path, "wb") as f:
             f.write(encode_png(frame, png_compression))
-    elif format == "jpeg":
+    elif format == "jpeg":  # the bytes libjpeg writes at this quality
         native.encode_jpeg(path, frame, jpeg_quality)
     else:
         np.save(path, frame)

@@ -58,15 +58,17 @@ both paths of the port at full width (``ModelSpec()``):
   resumed in one process, the training CLI at world 1 under NCCL through
   torchrun, the iteration's time with and without a process group and
   over two ranks, and the Sampler over two devices against one.
-* the image-IO slice: the native image-IO library (``native/
-  byogan_io.cpp``; the script fails if it does not build), the PNG decode
-  of its lane bit-equal to the Python unfilter's on smooth (Paeth, Average)
-  and noisy (Up, Sub) sets, BMP and JPEG files (JPEG where libjpeg was
-  compiled in, else refused by name), the loader's ms per batch by lane and
-  decode threads beside the stage-8 iteration, prep's and the frame
-  writers' times, and the training CLI on a set with non-PNG files among
-  its PNGs, stopped by SIGTERM and resumed with ``--auto-resume``, then
-  ``cli.generate_samples --pallas`` on its FINAL.pth.
+* the image-IO slice: the native image-IO library, the port's own PNG and
+  JPEG codecs linked to zlib alone (``native/``; the script fails if it
+  does not build or links libpng or libjpeg), held to the fixtures' hashes
+  of libjpeg-turbo's and libpng's output, the PNG decode bit-equal to
+  data/png.py's on smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG
+  and BMP files, the codecs' and the loader's times by decode threads
+  beside the stage-8 iteration, prep's (cli.prep on JPEG originals) and
+  the frame writers' times, and the training CLI on a set with JPEG and
+  BMP files among its PNGs, stopped by SIGTERM and resumed with
+  ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
+  on its FINAL.pth.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -79,6 +81,7 @@ package beside it, it fails before any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import datetime
@@ -3124,17 +3127,20 @@ def tp_times(tmp, world: int = TP_MODEL, model: int = TP_MODEL) -> dict:
     return out
 
 
-# --- the image-IO slice: the native lane, the loader's rate, JPEG/BMP sets ---
+# --- the image-IO slice: the port's codecs, the loader's rate, JPEG/BMP sets ---
 
-IO_IMAGES, IO_SIDE = 32, 512  # per set: smooth (Paeth, Average rows) and noisy (Up, Sub rows)
-IO_JPEGS, IO_JPEG_QUALITY = 8, 92
+IO_IMAGES, IO_SIDE = 32, 512  # per set: smooth (Paeth, Average rows), noisy (Up, Sub rows) and JPEG
+IO_JPEG_QUALITY = 92
 # A JPEG at quality 92 against its source pixels: mean |error| in LSB (the
 # CPU test's bound on a smooth image with noise and one sharp edge).
 IO_JPEG_MEAN_ERR = 3.0
 LOADER_WORKERS = (1, 2, 8)  # 2: dataloader_threads' default
-LOADER_TIMED = {"native": 5, "python": 2}  # batches timed per loader, after its first
-IO_PREP_ORIGINALS = 4  # per format, 1024 px
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 4  # per stage: Paeth PNGs, then non-PNG files among them
+LOADER_TIMED = 5  # batches timed per loader, after its first
+IO_PREP_ORIGINALS = 4  # per format, 1024 px, prepare_pyramid in this process
+IO_PREP_JPEGS = 6  # 1024 px JPEG originals through cli.prep
+CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
+CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 4  # per stage: Paeth PNGs, then 2 JPEG and 2 BMP files among them
 IO_CONFIG = (
     "[io]\n"
     "data = {data}\n"
@@ -3146,33 +3152,73 @@ IO_CONFIG = (
 
 
 def scenes(rng, n: int) -> np.ndarray:
-    """Parameters of ``n`` synthetic scenes (``data/synthetic.render``)."""
     return np.concatenate([rng.random((n, 3)) * 0.8 + 0.1, rng.random((n, 3)) * 6.28,
                            rng.random((n, 3)) * 2 - 1], axis=1)
+
+
+def photo(rng, h: int, w: int, noise: float = 2.0) -> np.ndarray:
+    """Smooth colour with noise on top, as photos are."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    i = int(rng.integers(0, 9))
+    base = np.stack([np.sin(xx / (37 + 5 * c + i) + c) * np.cos(yy / (53 + i)) for c in range(3)], -1)
+    return np.clip(127.5 + 100 * base + rng.normal(0, noise, base.shape), 0, 255).astype(np.uint8)
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager
 def python_lane():
     """data/png.py with its Python ``_unfilter`` alone: the native library
-    taken away for the duration (the plain lane a failed build leaves)."""
+    taken away for the duration, so the plain reference shares no code
+    with the decoder it checks."""
     from byogan_tpu_torch.data import native
 
     with mock.patch.object(native, "load_library", lambda: None):
         yield
 
 
+def codec_fixtures():
+    """``tests/torch_port_codec_fixtures.py``, loaded by its path (numpy
+    alone at import)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_codec_fixtures.py")
+    spec = importlib.util.spec_from_file_location("torch_port_codec_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def host_ms(fn, repeats: int = CODEC_REPEATS) -> float:
+    """Median host ms of ``fn()`` over ``repeats`` calls after one."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
 def io_checks(tmp) -> dict:
-    """Builds the native image-IO library (it must build: the script fails
-    on the Python lane alone) and prints the compiler, the headers found and
-    ``features()``.  Writes two sets of ``IO_IMAGES`` 512 px PNGs, smooth
-    (3 in 4 Paeth rows, the rest Average, as Pillow picks on smooth images)
-    and noisy (Up, Sub), and holds each set's decode (``maybe_cache``) on
-    the native lane bit-equal to the Python ``_unfilter``'s and to the
-    source pixels, timing both; BMP files decode exactly; JPEG files, where
-    libjpeg was compiled in, decode deterministically within
-    ``IO_JPEG_MEAN_ERR`` of their sources, and elsewhere raise naming the
-    file and libjpeg.  Returns the sets and the timings."""
-    from byogan_tpu_torch.data import images, native
+    """Builds the native image-IO library (it must build) and prints the
+    compiler, the headers it finds and what the library links: zlib, never
+    libpng or libjpeg (``ldd``).  Holds the port's codecs to the fixtures'
+    hashes: libjpeg-turbo's and libpng's RGB and libjpeg's JPEG bytes,
+    recorded where those libraries exist (``tests/
+    torch_port_codec_fixtures.py``).  Writes two sets of ``IO_IMAGES`` 512
+    px PNGs, smooth (3 in 4 Paeth rows, the rest Average, as Pillow picks on
+    smooth images) and noisy (Up, Sub), and a set of JPEGs at quality
+    ``IO_JPEG_QUALITY``; holds each PNG set's decode (``maybe_cache``)
+    bit-equal to data/png.py in Python alone and to the sources, and the
+    JPEG set's within ``IO_JPEG_MEAN_ERR`` of its sources and equal to
+    one file's decode at a time; BMP files decode exactly.  Then the
+    codecs' host times beside the card's name.  Returns the sets and the
+    timings."""
+    from byogan_tpu_torch.data import images, native, png
     from byogan_tpu_torch.data.pipeline import StageDataset
     from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
     from byogan_tpu_torch.native import build as native_build
@@ -3181,19 +3227,36 @@ def io_checks(tmp) -> dict:
     native_build.build(force=True)
     build_s = time.perf_counter() - t0
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout.splitlines()[0]
-    headers = {h: native_build.has_header(h) for h in ("png.h", "jpeglib.h", "zlib.h")}
-    lanes = native.features()
-    print(f"io: {gxx}; headers {headers}; {native_build.LIBRARY.name} built in {build_s:.2f} s with "
-          f"{' '.join(native_build.link_flags())}; features {lanes}")
-    require(native.load_library() is not None and native.build_error() is None,
-            f"the native image-IO library did not build: {native.build_error()}")
-    png_lane = "libpng" if lanes["png"] else "data/png.py + byogan_unfilter"
-    jpeg_lane = "libjpeg" if lanes["jpeg"] else "none (raises)"
-    print(f"io: lanes built: PNG {png_lane}; JPEG {jpeg_lane}; BMP numpy")
+    headers = {h: subprocess.run(["g++", "-x", "c++", "-E", "-o", os.devnull, "-"], input=f"#include <{h}>\n",
+                                 capture_output=True, text=True).returncode == 0
+               for h in ("zlib.h", "png.h", "jpeglib.h")}
+    native.load_library()
+    linked = subprocess.run(["ldd", str(native_build.LIBRARY)], capture_output=True, text=True,
+                            check=True).stdout
+    libs = sorted({line.split()[0] for line in linked.splitlines() if line.strip()})
+    require(any(lib.startswith("libz.") for lib in libs), f"the library does not link zlib: {libs}")
+    require(not any("png" in lib or "jpeg" in lib for lib in libs), f"the library links libpng or libjpeg: {libs}")
+    print(f"io: {gxx}; headers {headers}; {native_build.LIBRARY.name} built in {build_s:.2f} s by "
+          f"{' '.join(native_build.command(native_build.LIBRARY.name)[:5])} ... {' '.join(native_build.LIBS)}; "
+          f"links {', '.join(libs)} (zlib only: no libpng, no libjpeg)")
+
+    fx = codec_fixtures()
+
+    def encode_bytes(img, quality):
+        path = os.path.join(tmp, "fixture.jpg")
+        native.encode_jpeg(path, img, quality)
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    matched = fx.check(native.decode_image, encode_bytes)
+    files = [m for m in matched if "@q" not in m]
+    print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} files decoded to libjpeg-turbo's "
+          f"/ libpng's RGB ({', '.join(files)}), {len(matched) - len(files)} encodes to libjpeg's bytes "
+          f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES})")
 
     rng = np.random.default_rng(31)
-    out = {"sets": {}, "cache_s": {}, "jpeg": lanes["jpeg"]}
-    for name in ("smooth", "noisy"):
+    out = {"sets": {}, "cache_s": {}}
+    for name in ("smooth", "noisy", "jpeg"):
         folder = os.path.join(tmp, "io", name, "prepared", "set_8", "images")
         os.makedirs(folder)
         src = np.empty((IO_IMAGES, IO_SIDE, IO_SIDE, 3), np.uint8)
@@ -3207,24 +3270,36 @@ def io_checks(tmp) -> dict:
                 f = 3 if i % 4 == 0 else 4
             src[i] = img
             filters.append(f)
-            with open(os.path.join(folder, f"image-{i:02d}.png"), "wb") as fh:
-                fh.write(encode_png_filtered(img, f))
+            if name == "jpeg":
+                native.encode_jpeg(os.path.join(folder, f"image-{i:02d}.jpg"), img, IO_JPEG_QUALITY)
+            else:
+                with open(os.path.join(folder, f"image-{i:02d}.png"), "wb") as fh:
+                    fh.write(encode_png_filtered(img, f))
         root = os.path.dirname(os.path.dirname(os.path.dirname(folder)))
-        caches = {}
-        for lane in ("python", "native"):
-            ds = StageDataset(root, 8)
-            t0 = time.perf_counter()
-            with python_lane() if lane == "python" else contextlib.nullcontext():
-                require(ds.maybe_cache(workers=2), f"{name} set not cached")
-            out["cache_s"][(name, lane)] = time.perf_counter() - t0
-            caches[lane] = ds._cache
-        require(np.array_equal(caches["native"], caches["python"]),
-                f"{name} set: the native lane's decode differs from data/png.py's Python _unfilter")
-        require(np.array_equal(caches["native"], src), f"{name} set: decoded pixels differ from the sources")
+        ds = StageDataset(root, 8)
+        t0 = time.perf_counter()
+        require(ds.maybe_cache(workers=2), f"{name} set not cached")
+        out["cache_s"][(name, "native")] = time.perf_counter() - t0
         out["sets"][name] = root
-        print(f"io: {name} set, {IO_IMAGES} PNGs at {IO_SIDE} px, row filters {sorted(set(filters))}: native lane "
-              f"({png_lane}) bit-equal to the Python _unfilter and to the sources; maybe_cache(workers=2) s: "
-              f"python {out['cache_s'][(name, 'python')]:.3f}, native {out['cache_s'][(name, 'native')]:.3f}")
+        if name == "jpeg":
+            one = np.stack([images.read_image(f) for f in ds.files])
+            require(np.array_equal(ds._cache, one), "jpeg set: the threads' decode differs from one file's at a time")
+            errs = np.abs(one.astype(np.int16) - src).mean(axis=(1, 2, 3))
+            require(errs.max() <= IO_JPEG_MEAN_ERR, f"JPEG mean errors {errs.max()} over {IO_JPEG_MEAN_ERR}")
+            print(f"io: jpeg set, {IO_IMAGES} JPEGs (quality {IO_JPEG_QUALITY}, {IO_SIDE} px, the port's encoder): "
+                  f"maybe_cache(workers=2) equal to one file at a time, mean |error| {errs.min():.3f}-{errs.max():.3f} "
+                  f"LSB (bound {IO_JPEG_MEAN_ERR}), {out['cache_s'][(name, 'native')]:.3f} s")
+            continue
+        t0 = time.perf_counter()
+        with python_lane():
+            plain = np.stack([png.read_png(f) for f in ds.files])
+        out["cache_s"][(name, "python")] = time.perf_counter() - t0
+        require(np.array_equal(ds._cache, plain), f"{name} set: the native decoder differs from data/png.py's")
+        require(np.array_equal(ds._cache, src), f"{name} set: decoded pixels differ from the sources")
+        print(f"io: {name} set, {IO_IMAGES} PNGs at {IO_SIDE} px, row filters {sorted(set(filters))}: the native "
+              f"decoder bit-equal to data/png.py (Python unfilter) and to the sources; s: maybe_cache(workers=2) "
+              f"{out['cache_s'][(name, 'native')]:.3f}, data/png.py one file at a time "
+              f"{out['cache_s'][(name, 'python')]:.3f}")
 
     other = os.path.join(tmp, "io", "other")
     os.makedirs(other)
@@ -3234,41 +3309,109 @@ def io_checks(tmp) -> dict:
         with open(path, "wb") as fh:
             fh.write(encode_bmp(img))
         require(np.array_equal(images.read_image(path), img), f"{path} decodes to other pixels")
-    stub = os.path.join(other, "stub.jpg")
-    with open(stub, "wb") as fh:
-        fh.write(b"\xff\xd8\xff\xe0" + bytes(16))
-    if lanes["jpeg"]:
-        errs = []
-        for i, p in enumerate(scenes(rng, IO_JPEGS)):
-            img = render(p, IO_SIDE)
-            path = os.path.join(other, f"j{i}.jpg")
-            native.encode_jpeg(path, img, IO_JPEG_QUALITY)
-            a, b = images.read_image(path), images.read_image(path)
-            require(np.array_equal(a, b), f"{path}: two decodes differ")
-            errs.append(float(np.abs(a.astype(np.int16) - img).mean()))
-        require(max(errs) <= IO_JPEG_MEAN_ERR, f"JPEG mean errors {errs} over {IO_JPEG_MEAN_ERR}")
-        print(f"io: {IO_JPEGS} JPEGs (quality {IO_JPEG_QUALITY}, {IO_SIDE} px) decode deterministically, mean |error| "
-              f"{min(errs):.3f}-{max(errs):.3f} LSB (bound {IO_JPEG_MEAN_ERR}); 4 BMPs (odd widths) exact")
-    else:
-        try:
-            images.read_image(stub)
-        except OSError as e:
-            require("stub.jpg" in str(e) and "libjpeg" in str(e), f"the JPEG error names neither: {e}")
-            print(f"io: no libjpeg on this machine: a JPEG file raises: {e}; 4 BMPs (odd widths) exact")
-        else:
-            require(False, "a JPEG file decoded without libjpeg")
+    print("io: 4 BMPs (odd widths) exact")
+    out["codec_ms"] = codec_times(other)
     return out
 
 
-def time_loader(io_state: dict, it_ms) -> dict:
-    """``make_stage_loader`` over each set at 512 px, batch 5, cache off,
-    on 1, 2 and 8 decode threads, over the native lane and the Python
-    ``_unfilter`` (fewer batches: it takes about a second a batch): ms per
+def codec_times(folder: str) -> dict:
+    """Host ms of the codecs, one call at a time (median of
+    ``CODEC_REPEATS``): JPEG decode of a 1024 px original and of a 512 px
+    image (4:2:0, quality 92, the port's encoder), PNG decode of a 512 px
+    Paeth image through the native decoder beside data/png.py (zlib in
+    Python, the C unfilter: PR 11's lane on this machine), JPEG encode of a
+    512 px frame; then the wall ms an image of ``CODEC_POOL_CALLS`` 512 px
+    decodes on pools of 1, 2 and 8 threads (the codec's own scaling,
+    without the loader)."""
+    from byogan_tpu_torch.data import native, png
+    from byogan_tpu_torch.data.synthetic import encode_png_filtered
+
+    rng = np.random.default_rng(61)
+    paths = {}
+    for side in (PREP_SIDE, IO_SIDE):
+        paths[side] = os.path.join(folder, f"photo-{side}.jpg")
+        native.encode_jpeg(paths[side], photo(rng, side, side), IO_JPEG_QUALITY)
+    frame = photo(rng, IO_SIDE, IO_SIDE)
+    png_path = os.path.join(folder, "photo-512.png")
+    with open(png_path, "wb") as fh:
+        fh.write(encode_png_filtered(frame, 4))
+    require(np.array_equal(native.decode_image(png_path), png.read_png(png_path)), "the PNG timed decodes differently")
+    ms = {
+        "jpeg_decode_1024": host_ms(lambda: native.decode_image(paths[PREP_SIDE], (PREP_SIDE, PREP_SIDE))),
+        "jpeg_decode_512": host_ms(lambda: native.decode_image(paths[IO_SIDE], (IO_SIDE, IO_SIDE))),
+        "png_decode_512": host_ms(lambda: native.decode_image(png_path, (IO_SIDE, IO_SIDE))),
+        "png_decode_512_png_py": host_ms(lambda: png.read_png(png_path)),
+        "jpeg_encode_512": host_ms(lambda: native.encode_jpeg(os.path.join(folder, "enc.jpg"), frame,
+                                                              IO_JPEG_QUALITY)),
+    }
+    for fmt, path in (("jpeg", paths[IO_SIDE]), ("png", png_path)):  # the codec alone on a pool of threads
+        for workers in LOADER_WORKERS:
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                list(pool.map(lambda _: native.decode_image(path, (IO_SIDE, IO_SIDE)), range(workers)))
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: native.decode_image(path, (IO_SIDE, IO_SIDE)), range(CODEC_POOL_CALLS)))
+                ms[f"{fmt}_decode_512_pool_{workers}"] = 1e3 * (time.perf_counter() - t0) / CODEC_POOL_CALLS
+    print(f"io codecs: host ms, median of {CODEC_REPEATS} calls, one thread: JPEG decode 4:2:0 q{IO_JPEG_QUALITY} "
+          f"{PREP_SIDE} px {ms['jpeg_decode_1024']:.3f}, {IO_SIDE} px {ms['jpeg_decode_512']:.3f}; PNG decode "
+          f"{IO_SIDE} px Paeth: native {ms['png_decode_512']:.3f}, data/png.py (C unfilter) "
+          f"{ms['png_decode_512_png_py']:.3f}; JPEG encode {IO_SIDE} px q{IO_JPEG_QUALITY} {ms['jpeg_encode_512']:.3f}; "
+          f"wall ms an image of {CODEC_POOL_CALLS} {IO_SIDE} px decodes on a pool of " + "/".join(map(str, LOADER_WORKERS))
+          + " threads: JPEG " + "/".join(f"{ms[f'jpeg_decode_512_pool_{w}']:.3f}" for w in LOADER_WORKERS)
+          + ", PNG " + "/".join(f"{ms[f'png_decode_512_pool_{w}']:.3f}" for w in LOADER_WORKERS)
+          + f" ({os.cpu_count()} CPUs); card {card_name()}")
+    return ms
+
+
+def prep_jpeg_cli(tmp, root) -> float:
+    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y --pack`` on
+    ``IO_PREP_JPEGS`` 1024 px JPEG originals (one 768 x 1024), the resizes
+    on the card: every level bit-equal to the plain numpy resize of the
+    original's pixels as ``read_image`` decodes them (the fixtures hold
+    that decode to libjpeg's).  Returns the seconds per original, process
+    start included."""
+    from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil_plain
+    from byogan_tpu_torch.data import images, native
+    from byogan_tpu_torch.data.pipeline import StageDataset
+
+    data = os.path.join(tmp, "prep_jpeg_cli")
+    os.makedirs(data)
+    rng = np.random.default_rng(71)
+    names = []
+    for i in range(IO_PREP_JPEGS):
+        h = 768 if i == 1 else PREP_SIDE
+        names.append(f"orig-{i:02d}.jpg")
+        native.encode_jpeg(os.path.join(data, names[-1]), photo(rng, h, PREP_SIDE, noise=12), IO_JPEG_QUALITY)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y", "--pack"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    require("dataset ready: 8 resolution sets" in proc.stdout, f"cli.prep said {proc.stdout[-500:]}")
+    for n, name in enumerate(names):
+        level = images.read_image(os.path.join(data, "original", "images", name))
+        for size in (512, 256, 128, 64, 32, 16, 8, 4):
+            level = resize_uint8_bilinear_pil_plain(level, size)
+            k = int(math.log2(size // 4)) + 1
+            got = images.read_image(os.path.join(data, "prepared", f"set_{k}", "images", f"image-{n}.png"))
+            require(np.array_equal(got, level), f"prep {name} at {size} px differs from the plain resize")
+    packed = np.load(os.path.join(StageDataset(data, 8).set_dir, "packed.npy"))
+    require(packed.shape == (IO_PREP_JPEGS, 512, 512, 3), f"set_8 packed {packed.shape}")
+    print(f"io prep: cli.prep of {IO_PREP_JPEGS} JPEG originals ({PREP_SIDE} px, one 768 x {PREP_SIDE}, quality "
+          f"{IO_JPEG_QUALITY}) to 8 sets with --pack in {cli_s:.2f} s, {cli_s / IO_PREP_JPEGS:.3f} s per original "
+          f"(process start included, 8 worker threads, resizes on the card); every level bit-equal to the plain "
+          f"numpy resize of the decoded original; card {card_name()}")
+    return cli_s / IO_PREP_JPEGS
+
+
+def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
+    """``make_stage_loader`` over each set at 512 px (smooth and noisy
+    PNGs, JPEGs), batch 5, cache off, on 1, 2 and 8 decode threads: ms per
     batch after the first, beside the stage-8 iteration's ms from this run.
     Then ``prepare_pyramid`` (card resizes, 8 threads) in this process on
-    1024 px originals: Paeth PNGs, BMPs and, with libjpeg, JPEGs, seconds
-    per original; and ``save_frame_u8`` ms per 512 px frame as PNG (levels
-    1 and 6) and JPEG."""
+    1024 px originals, Paeth PNGs, BMPs and JPEGs, seconds per original;
+    ``cli.prep`` on JPEG originals (``prep_jpeg_cli``); and
+    ``save_frame_u8`` ms per 512 px frame as PNG (levels 1 and 6) and
+    JPEG."""
     from byogan_tpu_torch.data import native
     from byogan_tpu_torch.data.pipeline import StageDataset, make_stage_loader
     from byogan_tpu_torch.data.prep import prepare_pyramid
@@ -3276,34 +3419,32 @@ def time_loader(io_state: dict, it_ms) -> dict:
     from byogan_tpu_torch.serve import save_frame_u8
 
     iteration = "not measured in this run" if it_ms is None else f"{it_ms:.3f} ms"
+    card = card_name()
     rates = {}
-    for name, root in io_state["sets"].items():
-        for lane, timed in LOADER_TIMED.items():
-            for workers in LOADER_WORKERS:
-                ds = StageDataset(root, 8, cache_limit_bytes=0)
-                with python_lane() if lane == "python" else contextlib.nullcontext():
-                    loader = make_stage_loader(ds, TRAIN_BATCH, seed=workers, workers=workers)
-                    next(loader)
-                    t0 = time.perf_counter()
-                    for _ in range(timed):
-                        next(loader)
-                    ms = 1e3 * (time.perf_counter() - t0) / timed
-                    loader.close()
-                rates[(name, lane, workers)] = ms
-                print(f"time loader {name} {lane} workers {workers}: {ms:.3f} ms per batch of {TRAIN_BATCH} at "
-                      f"{IO_SIDE} px, cache off ({timed} batches after the first; host clock); stage-8 iteration "
-                      f"{iteration}")
+    for name, data_root in io_state["sets"].items():
+        for workers in LOADER_WORKERS:
+            ds = StageDataset(data_root, 8, cache_limit_bytes=0)
+            loader = make_stage_loader(ds, TRAIN_BATCH, seed=workers, workers=workers)
+            next(loader)
+            t0 = time.perf_counter()
+            for _ in range(LOADER_TIMED):
+                next(loader)
+            ms = 1e3 * (time.perf_counter() - t0) / LOADER_TIMED
+            loader.close()
+            rates[(name, workers)] = ms
+            rows = np.arange(TRAIN_BATCH)
+            batch_ms = host_ms(lambda: ds.get_batch_uint8(rows, workers), LOADER_TIMED)
+            print(f"time loader {name} workers {workers}: {ms:.3f} ms per batch of {TRAIN_BATCH} at {IO_SIDE} px, "
+                  f"cache off ({LOADER_TIMED} batches after the first; host clock); get_batch_uint8 alone (no "
+                  f"producer thread, flips or queue) {batch_ms:.3f} ms; stage-8 iteration {iteration}; card {card}")
 
     rng = np.random.default_rng(41)
-    formats = ["png", "bmp"] + (["jpeg"] if io_state["jpeg"] else [])
     prep_s = {}
-    for fmt in formats:
+    for fmt in ("png", "bmp", "jpeg"):
         data = os.path.join(os.path.dirname(io_state["sets"]["smooth"]), f"prep_{fmt}")
         os.makedirs(data)
         for i in range(IO_PREP_ORIGINALS):
-            yy, xx = np.mgrid[0:PREP_SIDE, 0:PREP_SIDE]
-            base = np.stack([np.sin(xx / (37 + 5 * c + i) + c) * np.cos(yy / (53 + i)) for c in range(3)], -1)
-            img = np.clip(127.5 + 100 * base + rng.normal(0, 2, base.shape), 0, 255).astype(np.uint8)
+            img = photo(rng, PREP_SIDE, PREP_SIDE)
             path = os.path.join(data, f"orig-{i}." + {"png": "png", "bmp": "bmp", "jpeg": "jpg"}[fmt])
             if fmt == "jpeg":
                 native.encode_jpeg(path, img, IO_JPEG_QUALITY)
@@ -3318,22 +3459,22 @@ def time_loader(io_state: dict, it_ms) -> dict:
           f"8 sets, 8 threads, s per original: " + ", ".join(f"{f} {s:.3f}" for f, s in prep_s.items())
           + " (PNG originals under Paeth rows; the \"prep:\" line's cli.prep reading is the one to hold against "
           "PR 9's 0.858 s)")
+    prep_jpeg_s = prep_jpeg_cli(tmp, root)
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
     out_dir = os.path.join(os.path.dirname(io_state["sets"]["smooth"]), "frames")
     os.makedirs(out_dir)
-    lanes = [("png level 1", "png", {"png_compression": 1}), ("png level 6", "png", {"png_compression": 6})]
-    if io_state["jpeg"]:
-        lanes.append((f"jpeg quality {IO_JPEG_QUALITY}", "jpeg", {"jpeg_quality": IO_JPEG_QUALITY}))
+    lanes = [("png level 1", "png", {"png_compression": 1}), ("png level 6", "png", {"png_compression": 6}),
+             (f"jpeg quality {IO_JPEG_QUALITY}", "jpeg", {"jpeg_quality": IO_JPEG_QUALITY})]
     for label, fmt, kw in lanes:
         t0 = time.perf_counter()
         for i, f in enumerate(frames):
             save_frame_u8(f, os.path.join(out_dir, f"{fmt}-{kw}-{i}"), fmt, **kw)
         frame_ms[label] = 1e3 * (time.perf_counter() - t0) / len(frames)
     print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + ("" if io_state["jpeg"] else "; jpeg: no libjpeg"))
-    return {"loader_ms": rates, "prep_s": prep_s, "frame_ms": frame_ms}
+          + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
+    return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "frame_ms": frame_ms}
 
 
 def uncached_stage8_cli(argv: list) -> int:
@@ -3351,15 +3492,15 @@ def uncached_stage8_cli(argv: list) -> int:
     return 0
 
 
-def io_train(tmp, root, jpeg: bool) -> tuple:
+def io_train(tmp, root) -> tuple:
     """The training CLI at full width on a prepared set of Paeth PNGs with
-    non-PNG files among them (2 JPEG and 2 BMP a stage with libjpeg, else 4
-    BMP), stage 8 uncached: ``len()`` counts them; a subprocess stopped by
-    SIGTERM once its metrics show stage 5; ``--auto-resume`` with no ``-c``
-    picks the checkpoint the stop wrote and runs to FINAL (launches per
-    iteration counted); then ``cli.generate_samples FINAL.pth 8 --pallas``,
-    JPEG frames with libjpeg (PNG, and JPEG refused by name, without).
-    Returns the resume's launches and the sampling CLI's."""
+    non-PNG files among them (2 JPEG and 2 BMP a stage), stage 8 uncached:
+    ``len()`` counts them; a subprocess stopped by SIGTERM once its metrics
+    show stage 5; ``--auto-resume`` with no ``-c`` picks the checkpoint the
+    stop wrote and runs to FINAL (launches per iteration counted); then
+    ``cli.generate_samples FINAL.pth 8 --format jpeg --pallas``, its JPEG
+    frames read back by the port's decoder.  Returns the resume's launches
+    and the sampling CLI's."""
     from byogan_tpu_torch.cli.generate_samples import main as generate_main
     from byogan_tpu_torch.data import images, native
     from byogan_tpu_torch.data.pipeline import open_stage_dataset
@@ -3376,7 +3517,7 @@ def io_train(tmp, root, jpeg: bool) -> tuple:
         for i, p in enumerate(params):
             img = render(p, size)
             k = i - (IO_TRAIN_IMAGES - IO_TRAIN_OTHER)
-            if k >= 0 and jpeg and k < 2:
+            if 0 <= k < 2:
                 native.encode_jpeg(os.path.join(folder, f"image-{i}.jpg"), img, IO_JPEG_QUALITY)
             elif k >= 0:
                 with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
@@ -3451,27 +3592,17 @@ def io_train(tmp, root, jpeg: bool) -> tuple:
 
     frames_dir = os.path.join(tmp, "io_frames")
     os.makedirs(frames_dir)
-    fmt = "jpeg" if jpeg else "png"
     zero_launch_counts()
-    generate_main([final, "8", "-o", frames_dir, "--seed", "0", "--format", fmt, "--pallas"])
+    generate_main([final, "8", "-o", frames_dir, "--seed", "0", "--format", "jpeg", "--pallas"])
     torch.cuda.synchronize()
     sample_launches = dict(zip(KERNEL_NAMES, launch_counts()))
-    ext = ".jpg" if jpeg else ".png"
-    require(sorted(os.listdir(frames_dir)) == sorted(f"image_{i}{ext}" for i in range(1, 9)), "generate_samples files")
+    require(sorted(os.listdir(frames_dir)) == sorted(f"image_{i}.jpg" for i in range(1, 9)), "generate_samples files")
     for i in range(1, 9):
-        img = images.read_image(os.path.join(frames_dir, f"image_{i}{ext}"))
+        img = images.read_image(os.path.join(frames_dir, f"image_{i}.jpg"))
         require(img.shape == (512, 512, 3) and img.std() > 0, f"frame {i}: {img.shape}")
     require(sample_launches["styleconv"] == 15 and sample_launches["adain"] == 1, f"sampling launches {sample_launches}")
-    if not jpeg:
-        try:
-            generate_main([final, "1", "-o", frames_dir, "--format", "jpeg"])
-        except OSError as e:
-            require("libjpeg" in str(e), f"--format jpeg error: {e}")
-            print(f"io train: no libjpeg: --format jpeg raises: {e}")
-        else:
-            require(False, "--format jpeg ran without libjpeg")
-    print(f"io train: cli.generate_samples FINAL.pth 8 --format {fmt} --pallas: 8 frames of 512 px decode; "
-          f"launches {sample_launches}")
+    print(f"io train: cli.generate_samples FINAL.pth 8 --format jpeg --pallas: 8 JPEG frames of 512 px read back "
+          f"by the port's decoder; launches {sample_launches}")
     return launches, sample_launches
 
 
@@ -3491,9 +3622,9 @@ def io_main() -> int:
         with phase("io"):
             io_state = io_checks(tmp)
         with phase("time loader"):
-            time_loader(io_state, None)
+            time_loader(io_state, None, tmp, root)
         with phase("io train"):
-            io_train(tmp, root, io_state["jpeg"])
+            io_train(tmp, root)
     return 0
 
 
@@ -3855,9 +3986,9 @@ def main() -> int:
         with phase("io"):
             io_state = io_checks(tmp)
         with phase("time loader"):
-            time_loader(io_state, it_ms)
+            time_loader(io_state, it_ms, tmp, root)
         with phase("io train"):
-            io_launches, io_sample_launches = io_train(tmp, root, io_state["jpeg"])
+            io_launches, io_sample_launches = io_train(tmp, root)
     penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]
     tp_kind = {"styleconv": "K1", "styleconv_bwd": "K3"}  # the kernels that run on channel shards
     remat_entries = [{

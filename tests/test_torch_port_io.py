@@ -1,13 +1,15 @@
 """The port's image IO against the JAX package's and Pillow, on the CPU.
 
-The native lane (``native/byogan_io.cpp`` through ``data/native.py``),
-``data/png.py``'s plain decoder (its Python ``_unfilter`` and the C
-``byogan_unfilter``), the BMP reader and the format dispatch of
-``data/images.py``; then the fault they fix: a prepared set's JPEG and
-BMP files were dropped, so the port trained on another set than JAX.
-Everything is held bit for bit, JPEG included: both lanes decode it with
-libjpeg's defaults.  JAX's own native lane is the reference where it
-loads, Pillow where it does not.
+The native library (the port's own PNG and JPEG codecs, ``native/*.cpp``
+through ``data/native.py``), ``data/png.py``'s plain decoder (its Python
+``_unfilter`` and the C ``byogan_unfilter``), the BMP reader and the format
+dispatch of ``data/images.py``; then the fault they fix: a prepared set's
+JPEG and BMP files were dropped, so the port trained on another set than
+JAX.  Everything is held bit for bit, JPEG included: the port's decoder
+gives libjpeg's output for its defaults, and its encoder libjpeg's bytes.
+JAX's own native lane (libpng, libjpeg) is the reference where it loads,
+Pillow where it does not.  ``test_torch_port_codecs.py`` holds the codecs
+over the whole matrix of layouts.
 """
 
 import os
@@ -122,11 +124,12 @@ PNG_VARIANTS = [f"rgb8-f{k}" for k in range(5)] + [
 
 @pytest.mark.parametrize("name", PNG_VARIANTS)
 def test_png_decode_matches_plain_decoder_and_jax(tmp_path, name):
-    """libpng, data/png.py with the C unfilter and with the Python one, and
-    JAX's lane: one array on each row filter and PNG layout."""
+    """The port's PNG decoder, data/png.py with the C unfilter and with the
+    Python one, and JAX's libpng lane: one array on each row filter and PNG
+    layout."""
     path = tmp_path / f"{name}.png"
     path.write_bytes(_variant(name))
-    got = native.decode_image(str(path), "PNG")
+    got = native.decode_image(str(path))
     assert got.dtype == np.uint8 and got.shape == (13, 11, 3)
     with _python_lane():
         plain = png.read_png(str(path))
@@ -151,7 +154,7 @@ def test_pillow_written_png_matches_jax_and_pillow(tmp_path, mode):
         im = im.convert(mode)
     path = tmp_path / "pil.png"
     im.save(path, **({"transparency": 3} if mode == "P-transparency" else {}))
-    got = native.decode_image(str(path), "PNG")
+    got = native.decode_image(str(path))
     with _python_lane():
         np.testing.assert_array_equal(png.read_png(str(path)), got)
     np.testing.assert_array_equal(got, _pil_rgb(path))
@@ -180,6 +183,8 @@ def test_native_unfilter_matches_python(bpp):
 
 @pytest.mark.parametrize("kind", ["q92", "q50-444", "gray", "progressive"])
 def test_jpeg_decode_matches_jax_and_pillow(tmp_path, kind):
+    """The port's own JPEG decoder against JAX's libjpeg lane and Pillow's
+    libjpeg-turbo, bit for bit."""
     r = np.random.default_rng(3)
     img = (render(r.random(9), 48)[:40] + r.normal(0, 4, (40, 48, 3))).clip(0, 255).astype(np.uint8)
     im = Image.fromarray(img)
@@ -192,7 +197,7 @@ def test_jpeg_decode_matches_jax_and_pillow(tmp_path, kind):
         im.convert("L").save(path)
     else:
         im.save(path, progressive=True)
-    got = native.decode_image(str(path), "JPEG")
+    got = native.decode_image(str(path))
     assert got.shape == (40, 48, 3)
     np.testing.assert_array_equal(got, _pil_rgb(path))
     np.testing.assert_array_equal(got, _jax_decode(path))
@@ -236,13 +241,20 @@ def test_decode_batch_on_threads_equals_one_at_a_time(tmp_path):
 
 
 def test_encode_png_and_jpeg_round_trip(tmp_path):
+    """The port's PNG writer read back by every decoder; its own JPEG
+    encoder writes JAX's libjpeg lane's bytes and reads back as Pillow
+    reads it."""
+    from byogan_tpu.data import native as jax_native
+
     r = np.random.default_rng(6)
     img = (render(r.random(9), 64)[:48] + r.integers(0, 4, (48, 64, 3), dtype=np.uint8)).astype(np.uint8)
     (tmp_path / "a.png").write_bytes(encode_png(img, 6))  # the port's PNG writer (serve.py)
-    for decode in (lambda p: native.decode_image(p, "PNG"), _pil_rgb, png.read_png):
+    for decode in (native.decode_image, _pil_rgb, png.read_png):
         np.testing.assert_array_equal(decode(str(tmp_path / "a.png")), img)
     native.encode_jpeg(str(tmp_path / "a.jpg"), img, 92)
-    got = native.decode_image(str(tmp_path / "a.jpg"), "JPEG")
+    if jax_native.encode_jpeg(str(tmp_path / "jax.jpg"), img, 92):  # False where its library is unavailable
+        assert (tmp_path / "a.jpg").read_bytes() == (tmp_path / "jax.jpg").read_bytes()
+    got = native.decode_image(str(tmp_path / "a.jpg"))
     np.testing.assert_array_equal(got, _pil_rgb(tmp_path / "a.jpg"))
     err = np.abs(got.astype(int) - img)
     assert err.mean() < 3.0, err.mean()  # quality 92 on a smooth image with noise and one sharp edge
@@ -291,51 +303,52 @@ def test_unreadable_files_raise_naming_the_file(tmp_path):
 
 
 def test_lanes_without_the_libraries(tmp_path, monkeypatch):
-    """The card's machine builds the library without libpng and libjpeg:
-    PNG goes through data/png.py (the C unfilter), JPEG raises naming the
-    file and the missing library.  A library that did not build at all:
-    PNG in Python alone, JPEG raises naming the build error."""
+    """One lane serves PNG and JPEG, and needs neither libpng nor libjpeg
+    (the card's machine has neither): the build links zlib alone, the
+    library asks the loader for no png_* or jpeg_* symbol, and both formats
+    decode through it (never data/png.py) and JPEG encodes through it."""
+    assert native_build.LIBS == ("-lz",)
+    command = " ".join(native_build.command("lib.so"))
+    assert "-lpng" not in command and "-ljpeg" not in command
+    for source in native_build.SOURCES + native_build.HEADERS:
+        text = source.read_text()
+        assert "png.h" not in text and "jpeglib.h" not in text, source
+    lib = native.load_library()
+    undefined = subprocess.run(["nm", "-D", "--undefined-only", str(native_build.LIBRARY)], capture_output=True,
+                               text=True, check=True).stdout.split()
+    assert not [s for s in undefined if s.startswith(("png_", "jpeg_", "jpeg_std"))], undefined
+    assert "inflate" in undefined
     img = render(np.random.default_rng(7).random(9), 24)
     (tmp_path / "a.png").write_bytes(encode_png_filtered(img, 4))
     Image.fromarray(img).save(tmp_path / "a.jpg")
-    monkeypatch.setattr(native, "features", lambda: {"png": False, "jpeg": False, "unfilter": True})
-    calls = []
-    real = native.unfilter
-    monkeypatch.setattr(native, "unfilter", lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setattr(native, "decode_image", lambda *a: pytest.fail("libpng's decode used"))
+    counting = mock.Mock(wraps=lib)
+    monkeypatch.setattr(native, "load_library", lambda: counting)
+    monkeypatch.setattr(png, "read_png", lambda *a: pytest.fail("data/png.py used"))
     np.testing.assert_array_equal(images.read_image(str(tmp_path / "a.png")), img)
-    assert calls == [1]
-    monkeypatch.undo()
-
-    lib = native.load_library()
-    no_jpeg = mock.Mock(wraps=lib)
-    no_jpeg.byogan_io_features.return_value = native.PNG
-    with mock.patch.object(native, "load_library", lambda: no_jpeg):
-        with pytest.raises(OSError, match=r"a\.jpg: cannot read or write JPEG files: .*without libjpeg"):
-            images.read_image(str(tmp_path / "a.jpg"))
-        with pytest.raises(OSError, match=r"b\.jpg: cannot read or write JPEG files"):
-            native.encode_jpeg(str(tmp_path / "b.jpg"), img, 92)
-
-    failed = native._Loaded()
-    failed.tried, failed.error = True, "RuntimeError: g++ failed"
-    monkeypatch.setattr(native, "_LOADED", failed)
-    assert native.features() == {"png": False, "jpeg": False, "unfilter": False}
-    np.testing.assert_array_equal(images.read_image(str(tmp_path / "a.png")), img)
-    with pytest.raises(OSError, match=r"a\.jpg: cannot read or write JPEG files: .*did not build \(RuntimeError: g\+\+"):
-        images.read_image(str(tmp_path / "a.jpg"))
+    np.testing.assert_array_equal(images.read_image(str(tmp_path / "a.jpg")), _pil_rgb(tmp_path / "a.jpg"))
+    native.encode_jpeg(str(tmp_path / "b.jpg"), img, 92)
+    assert counting.byogan_decode.call_count == 4  # each file's size, then its pixels
+    assert counting.byogan_encode_jpeg.call_count == 1
 
 
-def test_a_failed_build_warns_once_naming_the_error(monkeypatch):
-    fresh = native._Loaded()
-    monkeypatch.setattr(native, "_LOADED", fresh)
-
-    def broken(force=False):
-        raise RuntimeError("g++ ... failed: no such header")
-
-    monkeypatch.setattr(native_build, "build", broken)
-    with pytest.warns(RuntimeWarning, match="no such header"):
-        assert native.load_library() is None
-    assert native.load_library() is None and "no such header" in native.build_error()
+def test_a_failed_build_warns_once_naming_the_error(tmp_path, monkeypatch):
+    """A build that fails raises the compiler's output, from load_library
+    and from every decode or encode, each time it is asked: no lane is
+    left to fall back on."""
+    monkeypatch.setattr(native, "_LOADED", native._Loaded())
+    monkeypatch.setattr(native_build, "BUILD", tmp_path)
+    monkeypatch.setattr(native_build, "LIBRARY", tmp_path / "libbyogan_io.so")
+    monkeypatch.setattr(native_build, "LIBS", ("-lz", "-lbyogan_no_such_library"))
+    img = render(np.random.default_rng(7).random(9), 8)
+    (tmp_path / "a.png").write_bytes(encode_png_filtered(img, 1))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"did not build or load: g\+\+ .*failed:\n.*byogan_no_such_library"):
+            native.load_library()
+    with pytest.raises(RuntimeError, match="byogan_no_such_library"):
+        images.read_image(str(tmp_path / "a.png"))
+    with pytest.raises(RuntimeError, match="byogan_no_such_library"):
+        native.encode_jpeg(str(tmp_path / "a.jpg"), img, 92)
+    assert not (tmp_path / "libbyogan_io.so").exists()
 
 
 def test_concurrent_builds_leave_one_whole_library(tmp_path):
@@ -349,9 +362,10 @@ def test_concurrent_builds_leave_one_whole_library(tmp_path):
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err.decode()
     assert not [f for f in os.listdir(native_build.BUILD) if f.startswith(".libbyogan_io.")]
-    out = subprocess.run([sys.executable, "-c", "from byogan_tpu_torch.data import native; print(native.features())"],
+    out = subprocess.run([sys.executable, "-c", "from byogan_tpu_torch.data import native; "
+                          "print(native.load_library().byogan_abi_version())"],
                          cwd=root, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0 and "'png': True, 'jpeg': True" in out.stdout, out.stderr
+    assert out.returncode == 0 and out.stdout.strip() == str(native.ABI_VERSION), out.stderr
 
 
 # --- the fault: a prepared set's non-PNG files ------------------------------
