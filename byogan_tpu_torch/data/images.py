@@ -2,10 +2,10 @@
 
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
-first bytes: PNG and JPEG through the port's own codecs
-(``data/native.py``), BMP by ``decode_bmp`` below.  Any other file, WebP
-among them, raises an ``OSError`` that names it and its format: no listed
-file is skipped.
+first bytes: PNG, JPEG and WebP through the port's own codecs
+(``data/native.py``), BMP by ``decode_bmp`` below.  Any other file, or one
+a decoder refuses, raises an ``OSError`` that names it and the reason: no
+listed file is skipped.
 """
 
 from __future__ import annotations
@@ -66,16 +66,17 @@ def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """Decode an image file to uint8 RGB (H, W, 3) by its format.  ``shape``,
-    the (H, W) the caller expects, lets the native library decode a PNG or
-    JPEG in one call (``native.decode_image``); any shape is still read."""
+    the (H, W) the caller expects, lets the native library decode a PNG,
+    JPEG or WebP in one call (``native.decode_image``); any shape is still
+    read."""
     with open(path, "rb") as f:
         head = f.read(12)
     fmt = sniff(head)
     if fmt == "BMP":
         with open(path, "rb") as f:
             return decode_bmp(f.read(), path)
-    if fmt in ("PNG", "JPEG"):
+    if fmt in ("PNG", "JPEG", "WebP"):
         return native.decode_image(path, shape)
-    what = f"{fmt} image" if fmt != "unknown" else f"unknown format (first bytes {head[:4]!r})"
-    raise OSError(f"{path}: {what}: the PyTorch port decodes PNG, JPEG and BMP files")
+    raise OSError(f"{path}: unknown format (first bytes {head[:4]!r}): the PyTorch port decodes PNG, JPEG, BMP "
+                  "and WebP files")
 

@@ -2,9 +2,11 @@
 
 ``load_library()`` builds the port's codecs (``native/*.cpp``, linked to
 zlib alone: ``native/build.py``) at first use and loads them once per
-process.  ``decode_image`` reads PNG and JPEG files and ``encode_jpeg``
-writes JPEG files, each bit for bit with the JAX package's libpng and
-libjpeg-turbo lane, on any machine with a C++ compiler and zlib.  A build
+process.  ``decode_image`` reads PNG and JPEG files bit for bit with the
+JAX package's libpng and libjpeg-turbo lane, and WebP files (VP8, VP8L,
+VP8X with its alpha dropped, the first frame of an animation) bit for bit
+with its Pillow lane (libwebp); ``encode_jpeg`` writes libjpeg's JPEG
+bytes.  All of it runs on any machine with a C++ compiler and zlib.  A build
 that fails raises, naming the compiler's error: there is no other lane
 to fall back on.  ctypes releases the interpreter lock during each call,
 so threads decode in parallel.
@@ -20,11 +22,11 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 3
+ABI_VERSION = 4
 #: the library's return codes (native/codec.h)
 ERRORS = {
     -1: "cannot open the file",
-    -2: "not a PNG or JPEG file",
+    -2: "not a PNG, JPEG or WebP file",
     -3: "out of memory",
     -4: "the decoder refused the data: it breaks the format's rules",
     -5: "its size changed while it was read",
@@ -39,6 +41,8 @@ ERRORS = {
     -15: "unsupported JPEG feature: a hierarchical frame",
     -16: "unsupported JPEG feature: chroma sampling other than h2v1, h2v2 or integral boxes (4:4:0 is one)",
     -17: "unsupported JPEG feature: a progressive file left for libjpeg's block smoothing (unfinished scans)",
+    -18: "the animated WebP's first frame lies outside its canvas",
+    -19: "the WebP's VP8X canvas is not its frame's size",
 }
 
 _P = ctypes.c_void_p
@@ -50,6 +54,7 @@ SIGNATURES = {
     "byogan_decode": [_S, _P, _IP, _IP],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
+    "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
 }
 
 
@@ -98,8 +103,8 @@ def _failed(path: str, what: str, rc: int) -> OSError:
 
 
 def decode_image(path: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """A PNG or JPEG file (told apart by its first bytes) as uint8 RGB
-    (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
+    """A PNG, JPEG or WebP file (told apart by its first bytes) as uint8
+    RGB (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
     right, one call opens and decodes the file; otherwise the first call
     reads the size and a second decodes."""
     lib = load_library()
@@ -115,6 +120,26 @@ def decode_image(path: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarr
     if rc != 0:
         raise _failed(path, "decode", rc)
     return out
+
+
+def decode_vp8_yuv(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The Y (H, W), U and V ((H + 1) // 2, (W + 1) // 2) planes of a lossy
+    WebP file's frame, before the RGB conversion (libwebp's
+    ``WebPDecodeYUV``).  For the tests, which hold the decoder and the
+    conversion apart; nothing else calls it."""
+    lib = load_library()
+    hc, wc = _I(0), _I(0)
+    rc = lib.byogan_decode_vp8_yuv(path.encode(), None, None, None, ctypes.byref(hc), ctypes.byref(wc))
+    if rc == -5:
+        h, w = hc.value, wc.value
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        rc = lib.byogan_decode_vp8_yuv(path.encode(), y.ctypes.data, u.ctypes.data, v.ctypes.data,
+                                       ctypes.byref(hc), ctypes.byref(wc))
+    if rc != 0:
+        raise _failed(path, "VP8 decode", rc)
+    return y, u, v
 
 
 def unfilter(raw: bytes, h: int, stride: int, bpp: int) -> Optional[np.ndarray]:

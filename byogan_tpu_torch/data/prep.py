@@ -7,12 +7,12 @@ order, so a dataset prepared by either package trains in both.  Each
 original is decoded once and resized to every size, largest first, each
 size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
-package's.  Decoding (``data/images.py``: PNG and JPEG through the port's
-own codecs, which need no libpng or libjpeg, BMP in numpy) and encoding
-(``serve.encode_png``) run on a pool of host threads; the resizes run on
-``device``, the GPU unless ``"cpu"`` is asked for.  An original the port
-cannot decode, a WebP among them, raises before any set is written,
-naming the file.
+package's.  Decoding (``data/images.py``: PNG, JPEG and WebP through the
+port's own codecs, which need no libpng, libjpeg or libwebp, BMP in numpy)
+and encoding (``serve.encode_png``) run on a pool of host threads; the
+resizes run on ``device``, the GPU unless ``"cpu"`` is asked for.  An
+original of a format the port does not read raises before any set is
+written, naming the file.
 """
 
 from __future__ import annotations
@@ -65,9 +65,9 @@ def prepare_pyramid(
     for path in files:
         with open(path, "rb") as f:
             fmt = sniff(f.read(12))
-        if fmt not in ("PNG", "JPEG", "BMP"):
+        if fmt not in ("PNG", "JPEG", "BMP", "WebP"):
             raise OSError(f"{path}: the original's format is {fmt}: the PyTorch port decodes PNG (Adam7 too), "
-                          "JPEG (baseline, extended and progressive) and BMP files")
+                          "JPEG (baseline, extended and progressive), BMP and WebP (lossy, lossless, animated) files")
 
     sizes = _gather_sizes(start_size, end_size)
     prepared = os.path.join(datapath, "prepared")

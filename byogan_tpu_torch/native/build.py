@@ -6,13 +6,14 @@ the CUDA kernels of ``ops/build.py``), at first use and again whenever a
 source is newer:
 
     g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp png.cpp jpeg_decode.cpp \\
-        jpeg_encode.cpp jpeg_tables.cpp -o build/libbyogan_io.so -lz
+        jpeg_encode.cpp jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp \\
+        webp_tables.cpp -o build/libbyogan_io.so -lz
 
-zlib is the one library it links (PNG's inflate), on every machine; a
-machine without ``zlib.h`` fails the build, and the ``RuntimeError``
-carries the compiler's output.  Concurrent builds, such as test workers
-starting together, take a file lock and compile to a name of their own,
-which replaces the library in one step.
+zlib is the one library it links (PNG's inflate), on every machine: no
+libpng, libjpeg or libwebp.  A machine without ``zlib.h`` fails the build,
+and the ``RuntimeError`` carries the compiler's output.  Concurrent
+builds, such as test workers starting together, take a file lock and
+compile to a name of their own, which replaces the library in one step.
 
     python -m byogan_tpu_torch.native.build [--force]
 """
@@ -27,8 +28,9 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_encode.cpp", "jpeg_tables.cpp"))
-HEADERS = (HERE / "codec.h",)
+SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_encode.cpp", "jpeg_tables.cpp",
+                                   "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp", "webp_tables.cpp"))
+HEADERS = (HERE / "codec.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")

@@ -2,14 +2,16 @@
 //
 // Its own codecs, needing nothing but zlib: PNG decode (png.cpp), JPEG
 // decode (jpeg_decode.cpp) and JPEG encode (jpeg_encode.cpp), each bit for
-// bit with the JAX package's libpng and libjpeg-turbo lane, and the PNG row
-// unfilter below.  The data loader, dataset preparation and the JPEG frame
+// bit with the JAX package's libpng and libjpeg-turbo lane, WebP decode
+// (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), bit for bit with the JAX
+// package's Pillow lane (libwebp), and the PNG row unfilter below.  The
+// data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
 // so threads decode in parallel.
 //
 // Build: python -m byogan_tpu_torch.native.build (one g++ -O3 -shared of
-// the four sources, -lz).
+// the sources, -lz).
 //
 // Every entry returns 0 on success or a negative code of codec.h.
 
@@ -20,6 +22,7 @@
 #include <vector>
 
 #include "codec.h"
+#include "webp.h"
 
 namespace {
 
@@ -136,12 +139,12 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 3; }
+int byogan_abi_version() { return 4; }
 
-// Decode one PNG or JPEG file (told apart by its first bytes) into out, RGB
-// of size (*h, *w).  Where out is null or the image has another size,
-// *h and *w get the image's and the return is -5: the caller sizes its
-// buffer and calls again, so a right guess costs one call.
+// Decode one PNG, JPEG or WebP file (told apart by its first bytes) into
+// out, RGB of size (*h, *w).  Where out is null or the image has another
+// size, *h and *w get the image's and the return is -5: the caller sizes
+// its buffer and calls again, so a right guess costs one call.
 int byogan_decode(const char* path, uint8_t* out, int* h, int* w) {
   int rc;
   std::vector<uint8_t> data;
@@ -156,7 +159,36 @@ int byogan_decode(const char* path, uint8_t* out, int* h, int* w) {
     return byogan::decode_png(data.data(), data.size(), out, h, w);
   if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF)
     return byogan::decode_jpeg(data.data(), data.size(), out, h, w);
+  if (data.size() >= 12 && memcmp(data.data(), "RIFF", 4) == 0 && memcmp(data.data() + 8, "WEBP", 4) == 0)
+    return byogan::decode_webp(data.data(), data.size(), out, h, w);
   return byogan::kNotImage;
+}
+
+// For the tests alone: the Y, U and V planes of a lossy WebP file's frame
+// (libwebp's WebPDecodeYUV), Y (*h, *w) and U, V ((*h + 1) / 2, (*w + 1) / 2),
+// with byogan_decode's size protocol (-5 and the frame's size where y is null
+// or the size is another).  -2 where the frame is lossless.
+int byogan_decode_vp8_yuv(const char* path, uint8_t* y, uint8_t* u, uint8_t* v, int* h, int* w) {
+  int rc;
+  std::vector<uint8_t> data;
+  byogan::Vp8Planes planes;
+  try {
+    data = read_file(path, &rc);
+    if (rc) return rc;
+    rc = byogan::decode_webp_planes(data.data(), data.size(), &planes);
+  } catch (const std::bad_alloc&) {
+    return byogan::kNoMemory;
+  }
+  if (rc) return rc;
+  if (!y || *h != planes.height || *w != planes.width) {
+    *h = planes.height;
+    *w = planes.width;
+    return byogan::kSize;
+  }
+  memcpy(y, planes.y.data(), planes.y.size());
+  memcpy(u, planes.u.data(), planes.u.size());
+  memcpy(v, planes.v.data(), planes.v.size());
+  return byogan::kOk;
 }
 
 // Undo PNG's row filters (None, Sub, Up, Average, Paeth) of h zlib-inflated

@@ -1,7 +1,7 @@
 // What the codecs of byogan_io share: the return codes, the entry points
 // byogan_io.cpp wraps, and the JPEG tables the decoder and the encoder both
-// read.  The tables are constant; no codec keeps mutable state between
-// calls, so threads decode in parallel.
+// read (the WebP decoders' own are in webp.h).  The tables are constant; no
+// codec keeps mutable state between calls, so threads decode in parallel.
 
 #pragma once
 
@@ -16,7 +16,7 @@ namespace byogan {
 enum Status {
   kOk = 0,
   kCannotOpen = -1,        // the file cannot be opened or written
-  kNotImage = -2,          // neither PNG nor JPEG
+  kNotImage = -2,          // not a PNG, JPEG or WebP file
   kNoMemory = -3,          // out of memory
   kCorrupt = -4,           // the data break the format's rules
   kSize = -5,              // the image's size is not the buffer's
@@ -31,6 +31,8 @@ enum Status {
   kJpegHierarchical = -15, // a hierarchical (differential) frame
   kJpegSampling = -16,     // a sampling ratio libjpeg does not upsample as h2v1, h2v2 or integral boxes
   kJpegSmoothing = -17,    // a progressive file left for libjpeg's block smoothing
+  kWebpFrameOutside = -18, // an animated WebP's first frame lies outside its canvas
+  kWebpCanvas = -19,       // a still WebP's VP8X canvas is not its frame's size
 };
 
 // Decode a whole file held in memory into out, uint8 RGB (*h, *w, 3).  Where
@@ -38,6 +40,7 @@ enum Status {
 // the return is kSize.
 int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

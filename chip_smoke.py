@@ -90,6 +90,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -3140,7 +3141,7 @@ IO_PREP_ORIGINALS = 4  # per format, 1024 px, prepare_pyramid in this process
 IO_PREP_JPEGS = 6  # 1024 px JPEG originals through cli.prep
 CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
 CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 4  # per stage: Paeth PNGs, then 2 JPEG and 2 BMP files among them
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 6  # per stage: Paeth PNGs, then 2 JPEG, 2 BMP and 2 WebP files among them
 IO_CONFIG = (
     "[io]\n"
     "data = {data}\n"
@@ -3206,11 +3207,11 @@ def host_ms(fn, repeats: int = CODEC_REPEATS) -> float:
 def io_checks(tmp) -> dict:
     """Builds the native image-IO library (it must build) and prints the
     compiler, the headers it finds and what the library links: zlib, never
-    libpng or libjpeg (``ldd``).  Holds the port's codecs to the fixtures'
-    hashes: libjpeg-turbo's and libpng's RGB and libjpeg's JPEG bytes,
-    recorded where those libraries exist (``tests/
-    torch_port_codec_fixtures.py``).  Writes two sets of ``IO_IMAGES`` 512
-    px PNGs, smooth (3 in 4 Paeth rows, the rest Average, as Pillow picks on
+    libpng, libjpeg or libwebp (``ldd``).  Holds the port's codecs to the
+    fixtures' hashes: libjpeg-turbo's, libpng's and libwebp's (Pillow's)
+    RGB, libwebp's VP8 planes and libjpeg's JPEG bytes, recorded where
+    those libraries exist (``tests/torch_port_codec_fixtures.py``).
+    Writes two sets of ``IO_IMAGES`` 512 px PNGs, smooth (3 in 4 Paeth rows, the rest Average, as Pillow picks on
     smooth images) and noisy (Up, Sub), and a set of JPEGs at quality
     ``IO_JPEG_QUALITY``; holds each PNG set's decode (``maybe_cache``)
     bit-equal to data/png.py in Python alone and to the sources, and the
@@ -3229,16 +3230,17 @@ def io_checks(tmp) -> dict:
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout.splitlines()[0]
     headers = {h: subprocess.run(["g++", "-x", "c++", "-E", "-o", os.devnull, "-"], input=f"#include <{h}>\n",
                                  capture_output=True, text=True).returncode == 0
-               for h in ("zlib.h", "png.h", "jpeglib.h")}
+               for h in ("zlib.h", "png.h", "jpeglib.h", "webp/decode.h")}
     native.load_library()
     linked = subprocess.run(["ldd", str(native_build.LIBRARY)], capture_output=True, text=True,
                             check=True).stdout
     libs = sorted({line.split()[0] for line in linked.splitlines() if line.strip()})
     require(any(lib.startswith("libz.") for lib in libs), f"the library does not link zlib: {libs}")
-    require(not any("png" in lib or "jpeg" in lib for lib in libs), f"the library links libpng or libjpeg: {libs}")
+    require(not any("png" in lib or "jpeg" in lib or "webp" in lib for lib in libs),
+            f"the library links libpng, libjpeg or libwebp: {libs}")
     print(f"io: {gxx}; headers {headers}; {native_build.LIBRARY.name} built in {build_s:.2f} s by "
           f"{' '.join(native_build.command(native_build.LIBRARY.name)[:5])} ... {' '.join(native_build.LIBS)}; "
-          f"links {', '.join(libs)} (zlib only: no libpng, no libjpeg)")
+          f"links {', '.join(libs)} (zlib only: no libpng, no libjpeg, no libwebp)")
 
     fx = codec_fixtures()
 
@@ -3248,11 +3250,17 @@ def io_checks(tmp) -> dict:
         with open(path, "rb") as fh:
             return fh.read()
 
-    matched = fx.check(native.decode_image, encode_bytes)
-    files = [m for m in matched if "@q" not in m]
-    print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} files decoded to libjpeg-turbo's "
-          f"/ libpng's RGB ({', '.join(files)}), {len(matched) - len(files)} encodes to libjpeg's bytes "
-          f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES})")
+    matched = fx.check(native.decode_image, encode_bytes, native.decode_vp8_yuv)
+    files = [m for m in matched if "@" not in m and not m.startswith(f"{fx.WEBP}/")]
+    webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
+    planes = [m for m in matched if m.endswith("@yuv")]
+    encodes = [m for m in matched if "@q" in m]
+    require(len(webp) >= 20 and planes, f"the manifest holds {len(webp)} WebP files, {len(planes)} with planes")
+    print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} JPEG/PNG files decoded to "
+          f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
+          f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
+          f"(libwebp; {', '.join(os.path.relpath(m, fx.WEBP) for m in webp)}) and {len(planes)} of them to libwebp's "
+          f"VP8 planes")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3311,6 +3319,7 @@ def io_checks(tmp) -> dict:
         require(np.array_equal(images.read_image(path), img), f"{path} decodes to other pixels")
     print("io: 4 BMPs (odd widths) exact")
     out["codec_ms"] = codec_times(other)
+    out["codec_ms"].update(webp_codec_times(fx))
     return out
 
 
@@ -3360,6 +3369,66 @@ def codec_times(folder: str) -> dict:
           + ", PNG " + "/".join(f"{ms[f'png_decode_512_pool_{w}']:.3f}" for w in LOADER_WORKERS)
           + f" ({os.cpu_count()} CPUs); card {card_name()}")
     return ms
+
+
+def webp_codec_times(fx) -> dict:
+    """Host ms of the WebP decoder, one call at a time (median of
+    ``CODEC_REPEATS``), on the committed originals: VP8 at 1024 and 512 px,
+    VP8L at 512 px; then the wall ms an image of ``CODEC_POOL_CALLS`` 512
+    px decodes on pools of 1, 2 and 8 threads."""
+    from byogan_tpu_torch.data import native
+
+    card_dir = os.path.join(fx.FIXTURES, fx.WEBP, "card")
+    files = {"vp8_1024": ("lossy-1024.webp", 1024, 1024), "vp8_512": ("lossy-512.webp", 512, 512),
+             "vp8l_512": ("lossless-512.webp", 512, 512)}
+    ms = {}
+    for key, (name, h, w) in files.items():
+        path = os.path.join(card_dir, name)
+        ms[f"webp_{key}"] = host_ms(lambda: native.decode_image(path, (h, w)))
+    for key in ("vp8_512", "vp8l_512"):
+        path = os.path.join(card_dir, files[key][0])
+        for workers in LOADER_WORKERS:
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                list(pool.map(lambda _: native.decode_image(path, (512, 512)), range(workers)))
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: native.decode_image(path, (512, 512)), range(CODEC_POOL_CALLS)))
+                ms[f"webp_{key}_pool_{workers}"] = 1e3 * (time.perf_counter() - t0) / CODEC_POOL_CALLS
+    print(f"io codecs: WebP decode to RGB, host ms, median of {CODEC_REPEATS} calls, one thread: VP8 (lossy, "
+          f"fancy upsampling) 1024 px {ms['webp_vp8_1024']:.3f}, 512 px {ms['webp_vp8_512']:.3f}; VP8L (lossless) "
+          f"512 px {ms['webp_vp8l_512']:.3f}; wall ms an image of {CODEC_POOL_CALLS} 512 px decodes on a pool of "
+          + "/".join(map(str, LOADER_WORKERS)) + " threads: VP8 "
+          + "/".join(f"{ms[f'webp_vp8_512_pool_{w}']:.3f}" for w in LOADER_WORKERS) + ", VP8L "
+          + "/".join(f"{ms[f'webp_vp8l_512_pool_{w}']:.3f}" for w in LOADER_WORKERS)
+          + f" ({os.cpu_count()} CPUs); card {card_name()}")
+    return ms
+
+
+def prep_webp_cli(tmp, root) -> float:
+    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
+    committed WebP originals (lossy 512 px, 640 x 480 and 1024 px,
+    lossless 512 px, lossy with alpha 448 x 320), the resizes on the card:
+    every image of the 8 sets equal to the one the JAX package's
+    ``prepare_pyramid`` wrote from them (recorded in the fixtures'
+    manifest).  Returns the seconds per original, process start included."""
+    from byogan_tpu_torch.data import images
+
+    fx = codec_fixtures()
+    data = os.path.join(tmp, "prep_webp_cli")
+    os.makedirs(data)
+    for name in sorted(fx.WEBP_CARD):
+        shutil.copy(os.path.join(fx.FIXTURES, fx.WEBP, "card", name), data)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    matched = fx.check_webp_prep(data, images.read_image)
+    n = len(fx.WEBP_CARD)
+    print(f"io prep: cli.prep of {n} WebP originals (VP8 512 px, 640 x 480 and 1024 px, VP8L 512 px, VP8X + ALPH "
+          f"448 x 320) to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
+          f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
+          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
+    return cli_s / n
 
 
 def prep_jpeg_cli(tmp, root) -> float:
@@ -3460,6 +3529,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
           + " (PNG originals under Paeth rows; the \"prep:\" line's cli.prep reading is the one to hold against "
           "PR 9's 0.858 s)")
     prep_jpeg_s = prep_jpeg_cli(tmp, root)
+    prep_webp_s = prep_webp_cli(tmp, root)
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
@@ -3474,7 +3544,8 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
         frame_ms[label] = 1e3 * (time.perf_counter() - t0) / len(frames)
     print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
-    return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "frame_ms": frame_ms}
+    return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "prep_webp_cli_s": prep_webp_s,
+            "frame_ms": frame_ms}
 
 
 def uncached_stage8_cli(argv: list) -> int:
@@ -3494,7 +3565,9 @@ def uncached_stage8_cli(argv: list) -> int:
 
 def io_train(tmp, root) -> tuple:
     """The training CLI at full width on a prepared set of Paeth PNGs with
-    non-PNG files among them (2 JPEG and 2 BMP a stage), stage 8 uncached:
+    non-PNG files among them (2 JPEG, 2 BMP and 2 WebP a stage: the
+    committed lossy and lossless files of each stage's size, so the loader
+    decodes VP8 and VP8L on every stage-8 batch), stage 8 uncached:
     ``len()`` counts them; a subprocess stopped by SIGTERM once its metrics
     show stage 5; ``--auto-resume`` with no ``-c`` picks the checkpoint the
     stop wrote and runs to FINAL (launches per iteration counted); then
@@ -3507,6 +3580,7 @@ def io_train(tmp, root) -> tuple:
     from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
     from byogan_tpu_torch.train.checkpoint import latest_checkpoint
 
+    fx = codec_fixtures()
     t0 = time.perf_counter()
     data = os.path.join(tmp, "io_data")
     params = scenes(np.random.default_rng(51), IO_TRAIN_IMAGES)
@@ -3517,7 +3591,11 @@ def io_train(tmp, root) -> tuple:
         for i, p in enumerate(params):
             img = render(p, size)
             k = i - (IO_TRAIN_IMAGES - IO_TRAIN_OTHER)
-            if 0 <= k < 2:
+            if k >= 4:
+                kind = ("lossy", "lossless")[k - 4]
+                shutil.copy(os.path.join(fx.FIXTURES, fx.WEBP, "train", f"{size}-{kind}.webp"),
+                            os.path.join(folder, f"image-{i}.webp"))
+            elif 0 <= k < 2:
                 native.encode_jpeg(os.path.join(folder, f"image-{i}.jpg"), img, IO_JPEG_QUALITY)
             elif k >= 0:
                 with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
@@ -3528,6 +3606,7 @@ def io_train(tmp, root) -> tuple:
     stage8 = open_stage_dataset(data, 8, cache_limit_bytes=0)
     kinds = sorted({os.path.splitext(f)[1] for f in stage8.files})
     require(len(stage8) == IO_TRAIN_IMAGES, f"the stage-8 set counts {len(stage8)} of {IO_TRAIN_IMAGES} files")
+    require(".webp" in kinds, f"no WebP file in set_8: {kinds}")
     print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}) in {time.perf_counter() - t0:.2f} s; "
           f"len() of set_8 {len(stage8)}")
 

@@ -1,5 +1,8 @@
 """The port's own JPEG and PNG codecs against libjpeg-turbo and libpng, on the CPU.
 
+(The WebP decoder has its own file, ``test_torch_port_webp.py``; its
+failures and its fixtures' hashes are held here beside the others.)
+
 The native library (``native/png.cpp``, ``jpeg_decode.cpp``,
 ``jpeg_encode.cpp``, through ``data/native.py``) links zlib alone, so the
 same code runs here and on the machine with the card, which has neither
@@ -231,15 +234,16 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     """The fixtures and their manifest rebuilt here (Pillow, JAX's lane)
     equal the committed ones, so they cannot drift from the libraries."""
     files = fx.fixtures()
-    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES) if n != "manifest.json")
+    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES) if n not in ("manifest.json", fx.WEBP))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
-    import json
-
-    with open(fx.MANIFEST) as f:
-        assert fx.build_manifest(files, jax_lane, str(tmp_path)) == json.load(f)
+    # The WebP files are the committed ones: another libwebp build may encode other bytes.
+    webp = fx.committed_webp()
+    assert sorted(webp) == sorted(fx.webp_fixtures())
+    assert fx.build_manifest(files, jax_lane, str(tmp_path), webp) == fx.load_manifest()
     assert sum(len(d) for d, _ in files.values()) < 300_000
+    assert sum(len(d) for d in webp.values()) < 300_000
 
 
 def test_port_matches_the_fixtures(tmp_path):
@@ -250,8 +254,11 @@ def test_port_matches_the_fixtures(tmp_path):
         native.encode_jpeg(str(tmp_path / "e.jpg"), img, quality)
         return (tmp_path / "e.jpg").read_bytes()
 
-    matched = fx.check(native.decode_image, encode)
-    assert len(matched) == len(os.listdir(fx.FIXTURES)) - 1 + len(fx.SOURCES) * len(fx.QUALITIES)
+    matched = fx.check(native.decode_image, encode, native.decode_vp8_yuv)
+    manifest = fx.load_manifest()
+    planes = sum("sha256_yuv" in e for e in manifest["files"].values())
+    assert len(matched) == len(manifest["files"]) + planes + len(fx.SOURCES) * len(fx.QUALITIES)
+    assert len(manifest["files"]) == len(os.listdir(fx.FIXTURES)) - 2 + len(fx.committed_webp())
 
 
 # --- failures ---------------------------------------------------------------
@@ -305,8 +312,7 @@ def _failures():
     bad_crc[png_bytes.index(b"IDAT") + 10] ^= 0x55
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, format="JPEG")
-    webp = io.BytesIO()
-    Image.fromarray(img).save(webp, format="WEBP")
+    webp = {name: (data, "webp", what) for name, (data, what) in fx.webp_failures().items()}
     return {
         "jpeg-truncated-in-scan": (base[:scan + (len(base) - scan) // 2], "jpg", "truncated"),
         "jpeg-truncated-before-scan": (base[:scan - 5], "jpg", "truncated"),
@@ -324,7 +330,7 @@ def _failures():
         "440": (fx.jpeg_from_blocks(16, 16, [(1, 2), (1, 1), (1, 1)], 3), "jpg", "4:4:0"),
         "fractional-sampling": (fx.jpeg_from_blocks(16, 24, [(3, 1), (2, 1), (1, 1)], 3), "jpg", "sampling"),
         "progressive-dc-only": (_progressive_dc_only(prog), "jpg", "block smoothing"),
-        "webp": (webp.getvalue(), "webp", "WebP image"),
+        **webp,
     }
 
 
@@ -346,7 +352,7 @@ def test_eight_threads_equal_one(tmp_path):
     """The loader's threads call the decoders at once (ctypes drops the
     interpreter lock): 8 threads over a set of JPEGs and PNGs of every kind
     give what one thread gives, and the encoder likewise."""
-    paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES)) if n != "manifest.json"]
+    paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES)) if n not in ("manifest.json", fx.WEBP)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

@@ -288,9 +288,9 @@ def test_bmp_matches_pillow(tmp_path, shape):
 
 def test_unreadable_files_raise_naming_the_file(tmp_path):
     img = np.zeros((8, 8, 3), np.uint8)
-    Image.fromarray(img).save(tmp_path / "a.webp")
-    with pytest.raises(OSError, match=r"a\.webp: WebP image: the PyTorch port decodes PNG, JPEG and BMP"):
-        images.read_image(str(tmp_path / "a.webp"))
+    webp = render(np.random.default_rng(3).random(9), 8)
+    Image.fromarray(webp).save(tmp_path / "a.webp")  # a WebP decodes, as Pillow decodes it
+    np.testing.assert_array_equal(images.read_image(str(tmp_path / "a.webp")), _pil_rgb(tmp_path / "a.webp"))
     (tmp_path / "b.png").write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(OSError, match=r"b\.png: unknown format"):
         images.read_image(str(tmp_path / "b.png"))
@@ -440,17 +440,27 @@ def test_mixed_set_loader_matches_jax_for_any_worker_count(mixed_root):
     np.testing.assert_array_equal(pd.get_batch_uint8(np.arange(5), 3), want)
 
 
-def test_pack_stage_on_threads_and_a_webp_file_raises(mixed_root):
+def test_pack_stage_on_threads_and_a_webp_file_decodes(mixed_root):
+    """``pack_stage`` on threads; then a WebP in the set is listed,
+    decoded, cached and packed as JAX's Pillow lane decodes it (its native
+    lane refuses WebP)."""
+    from byogan_tpu.data import pipeline as jax_pipe
+
     path = port_pipe.pack_stage(mixed_root, 3, workers=3)
     ds = port_pipe.StageDataset(mixed_root, 3, cache_limit_bytes=0)
     packed = np.load(path)
     os.remove(path)
     np.testing.assert_array_equal(packed, ds.get_batch_uint8(np.arange(5), 2))
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
-        os.path.join(mixed_root, "prepared", "set_3", "images", "zz.webp"))
+    Image.fromarray(render(np.random.default_rng(4).random(9), 16)).save(
+        os.path.join(mixed_root, "prepared", "set_3", "images", "zz.webp"), quality=80)
     ds = port_pipe.StageDataset(mixed_root, 3, cache_limit_bytes=0)
     assert len(ds) == 6  # listed, as in JAX, and never skipped
-    with pytest.raises(OSError, match=r"zz\.webp: WebP image"):
-        ds.get_batch_uint8(np.array([0, 5]), 2)
-    with pytest.raises(OSError, match=r"zz\.webp: WebP image"):
-        port_pipe.StageDataset(mixed_root, 3).maybe_cache(workers=2)
+    with _jax_pil_lane():
+        want = jax_pipe.StageDataset(mixed_root, 3, cache_limit_bytes=0).get_batch_uint8(np.arange(6), workers=2)
+    np.testing.assert_array_equal(ds.get_batch_uint8(np.arange(6), 2), want)
+    cached = port_pipe.StageDataset(mixed_root, 3)
+    assert cached.maybe_cache(workers=2)
+    np.testing.assert_array_equal(cached.get_batch_uint8(np.arange(6), 2), want)
+    path = port_pipe.pack_stage(mixed_root, 3, workers=3)
+    np.testing.assert_array_equal(np.load(path), want)
+    os.remove(path)

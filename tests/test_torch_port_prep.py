@@ -110,17 +110,31 @@ def test_prep_cli_overwrite_and_pack(tmp_path, capsys, monkeypatch):
     assert os.path.getmtime(marker) > 0
 
 
-def test_prep_refuses_a_webp_original(tmp_path):
-    """A WebP original raises before any set is written, naming the file
-    (JPEG and BMP originals are decoded: the test below)."""
-    root = _originals(str(tmp_path / "ds"))
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(os.path.join(root, "photo.webp"))
-    with pytest.raises(OSError, match=r"photo\.webp: the original's format is WebP"):
-        prepare_pyramid(root, 4, 8, device="cpu")
-    assert not os.path.exists(os.path.join(root, "prepared"))
+def test_prep_reads_a_webp_original(tmp_path):
+    """A WebP original beside PNG ones is prepared as JAX's
+    ``prepare_pyramid`` prepares it (Pillow's decode), set for set; without
+    ``device="cpu"`` prep still needs the card."""
+    from byogan_tpu.data.prep import prepare_pyramid as jax_prepare
+
+    roots = []
+    for name in ("jax", "port"):
+        root = _originals(str(tmp_path / name))
+        Image.fromarray(np.random.default_rng(5).integers(0, 256, (20, 24, 3), dtype=np.uint8)).save(
+            os.path.join(root, "photo.webp"), quality=85)
+        roots.append(root)
+    jax_prepare(roots[0], 4, 16, workers=2)
+    prepare_pyramid(roots[1], 4, 16, device="cpu")
+    for k in (1, 2, 3):
+        sub = os.path.join("prepared", f"set_{k}", "images")
+        names = sorted(os.listdir(os.path.join(roots[1], sub)))
+        assert names == sorted(os.listdir(os.path.join(roots[0], sub)))
+        for name in names:
+            with Image.open(os.path.join(roots[0], sub, name)) as im:
+                np.testing.assert_array_equal(read_png(os.path.join(roots[1], sub, name)), np.asarray(im),
+                                              err_msg=f"set_{k} {name}")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            prepare_pyramid(root, 4, 8)
+            prepare_pyramid(roots[1], 4, 8)
 
 
 def test_prepare_pyramid_matches_jax_on_a_jpeg_original(tmp_path):

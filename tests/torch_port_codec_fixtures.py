@@ -1,21 +1,33 @@
-"""Fixtures of the port's JPEG and PNG codecs, and the writers that make them.
+"""Fixtures of the port's JPEG, PNG and WebP codecs, and the writers that make them.
 
     python tests/torch_port_codec_fixtures.py
 
 writes ``tests/data/torch_port_codecs/``: small JPEG files (Pillow's, and
 this module's own for the samplings Pillow cannot write), Adam7 and
-16-bit PNGs, and ``manifest.json``.  For each file the manifest records
-the SHA-256 of its bytes and of the RGB that libjpeg-turbo (or libpng)
-decodes from it: the JAX package's native lane and Pillow, which must agree.
-For each seeded source image it records the SHA-256 of the pixels and of
-the JAX lane's JPEG bytes at every quality of ``QUALITIES``.  The machine
-with the card has neither library, so ``chip_smoke.py`` holds the port's
-codecs to these hashes there; ``tests/test_torch_port_codecs.py`` rebuilds
-the manifest here and asserts that it is the committed one.
+16-bit PNGs, WebP files under ``webp/`` and ``manifest.json``.  For each
+file the manifest records the SHA-256 of its bytes and of the RGB that
+libjpeg-turbo, libpng or libwebp decodes from it: the JAX package's native
+lane and Pillow, which must agree (for WebP, Pillow is the JAX package's
+lane).  For each seeded source image it records the SHA-256 of the pixels
+and of the JAX lane's JPEG bytes at every quality of ``QUALITIES``.  For
+each lossy WebP it records the SHA-256 of the Y, U and V planes libwebp's
+``WebPDecodeYUV`` gives, and for the WebP originals of ``webp/card/`` the
+SHA-256 of every image the JAX package's ``prepare_pyramid`` makes of them
+(4-512 px).  The machine with the card has none of these libraries, so
+``chip_smoke.py`` holds the port's codecs to these hashes there;
+``tests/test_torch_port_codecs.py`` rebuilds the manifest here and asserts
+that it is the committed one.
 
-At import this module needs numpy alone: Pillow and the JAX lane (built
-from ``byogan_tpu/native/byogan_io.cpp`` into a directory the caller
-names, never the JAX package's own library) are reached inside the
+The WebP files are written once, by Pillow and by the system's libwebp
+(``libwebp.so.7``, through ctypes: its advanced API reaches the simple
+filter, segments, partitions and sharpness, which Pillow cannot set), and
+committed: the manifest is rebuilt from the committed bytes, since another
+libwebp build may encode other ones.  Writing them needs Pillow with WebP
+and ``libwebp.so.7``; reading them, Pillow alone.
+
+At import this module needs numpy alone: Pillow, libwebp and the JAX lane
+(built from ``byogan_tpu/native/byogan_io.cpp`` into a directory the
+caller names, never the JAX package's own library) are reached inside the
 functions that need them.
 """
 
@@ -27,17 +39,25 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
 import zlib
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port_codecs")
 MANIFEST = os.path.join(FIXTURES, "manifest.json")
+WEBP = "webp"  # the WebP files' folder under FIXTURES
+#: WebP originals for the card's prep: name -> (kind, height, width)
+WEBP_CARD = {"lossy-512.webp": ("lossy", 512, 512), "lossy-640x480.webp": ("lossy", 480, 640),
+             "lossless-512.webp": ("lossless", 512, 512), "alpha-448x320.webp": ("alpha", 320, 448),
+             "lossy-1024.webp": ("lossy", 1024, 1024)}
+#: the card's training sets: a lossy and a lossless WebP at each stage's size
+WEBP_TRAIN_SIZES = tuple(4 << k for k in range(8))
 QUALITIES = (1, 50, 75, 92, 100)
 #: the seeded sources of the encoder: name -> (seed, height, width)
 SOURCES = {"src-16x16": (101, 16, 16), "src-23x37": (102, 23, 37), "src-61x50": (103, 61, 50)}
@@ -345,12 +365,349 @@ def pil_rgb(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str) -> dict:
-    """The manifest of ``fixtures()``: each file decoded by the JAX lane,
-    which must agree with Pillow or with the file's known RGB; each source
-    encoded by the JAX lane."""
-    import PIL
+# --- WebP -------------------------------------------------------------------
 
+
+def smooth_scene(seed: int, h: int, w: int, cell: int = 64, step: int = 1) -> np.ndarray:
+    """A seeded uint8 RGB scene without noise, which WebP compresses well:
+    a random grid of ``cell`` px upsampled bilinearly in integers, then
+    posterised to multiples of ``step``."""
+    r = np.random.default_rng(seed)
+    grid = r.integers(0, 256, (h // cell + 2, w // cell + 2, 3), dtype=np.int64)
+    y, x = np.arange(h, dtype=np.int64), np.arange(w, dtype=np.int64)
+    y0, fy = y // cell, (y % cell)[:, None, None]
+    x0, fx = x // cell, (x % cell)[None, :, None]
+    a, b = grid[y0][:, x0], grid[y0][:, x0 + 1]
+    c, d = grid[y0 + 1][:, x0], grid[y0 + 1][:, x0 + 1]
+    img = ((cell - fy) * ((cell - fx) * a + fx * b) + fy * ((cell - fx) * c + fx * d)) // (cell * cell)
+    return (img // step * step).astype(np.uint8)
+
+
+def palette_image(seed: int, h: int, w: int, colors: int) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    return r.integers(0, 256, (colors, 3), dtype=np.uint8)[r.integers(0, colors, (h, w))]
+
+
+def with_alpha(img: np.ndarray, seed: Optional[int] = None) -> np.ndarray:
+    """RGBA: alpha 0-252, seeded noise or (no seed) a diagonal ramp, so
+    transparent pixels keep their RGB only where the encoder is asked for
+    it (``exact``)."""
+    h, w = img.shape[:2]
+    if seed is None:
+        a = ((np.arange(h)[:, None] + np.arange(w)[None, :]) * 252 // (h + w - 1)).astype(np.uint8)[..., None]
+    else:
+        a = np.random.default_rng(seed).integers(0, 253, (h, w, 1), dtype=np.uint8)
+    return np.concatenate([img, a], axis=2)
+
+
+def pil_webp(img: np.ndarray, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="WEBP", **kw)
+    return buf.getvalue()
+
+
+def pil_webp_animation(frames: List[np.ndarray], **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    ims = [Image.fromarray(f) for f in frames]
+    ims[0].save(buf, format="WEBP", save_all=True, append_images=ims[1:], duration=80, **kw)
+    return buf.getvalue()
+
+
+_WEBP_CONFIG = [(n, ctypes.c_float if n in ("quality", "target_PSNR") else ctypes.c_int) for n in (
+    "lossless", "quality", "method", "image_hint", "target_size", "target_PSNR", "segments", "sns_strength",
+    "filter_strength", "filter_sharpness", "filter_type", "autofilter", "alpha_compression", "alpha_filtering",
+    "alpha_quality", "pass_", "show_compressed", "preprocessing", "partitions", "partition_limit",
+    "emulate_jpeg_size", "thread_level", "low_memory", "near_lossless", "exact", "use_delta_palette",
+    "use_sharp_yuv", "qmin", "qmax")]
+_ENCODER_ABI = 0x020F  # WEBP_ENCODER_ABI_VERSION of /usr/include/webp/encode.h (libwebp 1.2.4)
+
+
+def libwebp() -> ctypes.CDLL:
+    """The system's libwebp (``libwebp.so.7``) with the signatures this
+    module calls: the advanced encoder and ``WebPDecodeYUV``."""
+    lib = ctypes.CDLL("libwebp.so.7")
+    p, ip, u8p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint8)
+    lib.WebPConfigInitInternal.argtypes = [p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+    lib.WebPValidateConfig.argtypes = [p]
+    lib.WebPPictureInitInternal.argtypes = [p, ctypes.c_int]
+    lib.WebPPictureImportRGB.argtypes = lib.WebPPictureImportRGBA.argtypes = [p, p, ctypes.c_int]
+    lib.WebPEncode.argtypes = [p, p]
+    lib.WebPPictureFree.argtypes = lib.WebPMemoryWriterInit.argtypes = lib.WebPMemoryWriterClear.argtypes = [p]
+    lib.WebPDecodeYUV.restype = u8p
+    lib.WebPDecodeYUV.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ip, ip, ctypes.POINTER(u8p),
+                                  ctypes.POINTER(u8p), ip, ip]
+    lib.WebPFree.argtypes = [p]
+    return lib
+
+
+class _WebPPicture(ctypes.Structure):  # struct WebPPicture of encode.h
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int), ("width", ctypes.c_int),
+                ("height", ctypes.c_int), ("y", ctypes.c_void_p), ("u", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("y_stride", ctypes.c_int), ("uv_stride", ctypes.c_int), ("a", ctypes.c_void_p),
+                ("a_stride", ctypes.c_int), ("pad1", ctypes.c_uint32 * 2), ("argb", ctypes.c_void_p),
+                ("argb_stride", ctypes.c_int), ("pad2", ctypes.c_uint32 * 3), ("writer", ctypes.c_void_p),
+                ("custom_ptr", ctypes.c_void_p), ("extra_info_type", ctypes.c_int), ("extra_info", ctypes.c_void_p),
+                ("stats", ctypes.c_void_p), ("error_code", ctypes.c_int), ("progress_hook", ctypes.c_void_p),
+                ("user_data", ctypes.c_void_p), ("pad3", ctypes.c_uint32 * 3), ("pad4", ctypes.c_void_p),
+                ("pad5", ctypes.c_void_p), ("pad6", ctypes.c_uint32 * 8), ("memory_", ctypes.c_void_p),
+                ("memory_argb_", ctypes.c_void_p), ("pad7", ctypes.c_void_p * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                ("pad", ctypes.c_uint32)]
+
+
+def webp_encode(lib: ctypes.CDLL, img: np.ndarray, quality: float = 75.0, **options) -> bytes:
+    """``img`` (RGB or RGBA uint8) encoded by libwebp's advanced API: a
+    ``WebPConfig`` at ``quality`` with ``options`` set (filter_type,
+    segments, partitions, filter_sharpness, filter_strength, lossless...)."""
+    config = type("WebPConfig", (ctypes.Structure,), {"_fields_": _WEBP_CONFIG})()
+    if not lib.WebPConfigInitInternal(ctypes.byref(config), 0, float(quality), _ENCODER_ABI):
+        raise RuntimeError("libwebp: WebPConfigInit failed (another encoder ABI?)")
+    for k, v in options.items():
+        setattr(config, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(config)):
+        raise ValueError(f"libwebp refuses the options {options}")
+    img = np.ascontiguousarray(img)
+    pic, out = _WebPPicture(), _WebPMemoryWriter()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), _ENCODER_ABI):
+        raise RuntimeError("libwebp: WebPPictureInit failed")
+    pic.width, pic.height, pic.use_argb = img.shape[1], img.shape[0], int(config.lossless)
+    ch = img.shape[2]
+    (lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB)(ctypes.byref(pic), img.ctypes.data,
+                                                                        img.shape[1] * ch)
+    lib.WebPMemoryWriterInit(ctypes.byref(out))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value
+    pic.custom_ptr = ctypes.addressof(out)
+    try:
+        if not lib.WebPEncode(ctypes.byref(config), ctypes.byref(pic)):
+            raise RuntimeError(f"libwebp: WebPEncode failed with error {pic.error_code}")
+        return ctypes.string_at(out.mem, out.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(out))
+
+
+def webp_yuv(lib: ctypes.CDLL, data: bytes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """libwebp's ``WebPDecodeYUV`` of a still lossy file: Y, U and V."""
+    w, h, stride, uv_stride = (ctypes.c_int() for _ in range(4))
+    u, v = ctypes.POINTER(ctypes.c_uint8)(), ctypes.POINTER(ctypes.c_uint8)()
+    y = lib.WebPDecodeYUV(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(u), ctypes.byref(v),
+                          ctypes.byref(stride), ctypes.byref(uv_stride))
+    if not y:
+        raise OSError("libwebp: WebPDecodeYUV failed")
+    H, W = h.value, w.value
+    uh, uw = (H + 1) // 2, (W + 1) // 2
+
+    def plane(ptr, rows, cols, pitch):
+        return np.ctypeslib.as_array(ptr, (rows * pitch,)).reshape(rows, pitch)[:, :cols].copy()
+
+    try:
+        return plane(y, H, W, stride.value), plane(u, uh, uw, uv_stride.value), plane(v, uh, uw, uv_stride.value)
+    finally:
+        lib.WebPFree(ctypes.cast(y, ctypes.c_void_p))
+
+
+def riff_chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_animation(canvas: Tuple[int, int], frames: List[Tuple[int, int, bytes]], background: int = 0xFF20C040) -> bytes:
+    """An animated WebP built by hand: ``frames`` of (x, y, a still WebP
+    file's bytes), each drawn at (x, y) (even) on a ``canvas`` (h, w)
+    whose ANIM background colour decoders ignore."""
+    h, w = canvas
+    le24 = lambda v: struct.pack("<I", v)[:3]  # noqa: E731
+    body = [riff_chunk(b"VP8X", bytes([0x02 | 0x10, 0, 0, 0]) + le24(w - 1) + le24(h - 1)),
+            riff_chunk(b"ANIM", struct.pack("<IH", background, 0))]
+    for x, y, still in frames:
+        fh, fw = webp_size(still)
+        head = le24(x // 2) + le24(y // 2) + le24(fw - 1) + le24(fh - 1) + le24(80) + b"\x00"
+        body.append(riff_chunk(b"ANMF", head + still[12:]))
+    payload = b"WEBP" + b"".join(body)
+    return b"RIFF" + struct.pack("<I", len(payload)) + payload
+
+
+def webp_size(still: bytes) -> Tuple[int, int]:
+    """(h, w) of a simple-format file's VP8 or VP8L bitstream."""
+    tag, data = still[12:16], still[20:]
+    if tag == b"VP8L":
+        bits = int.from_bytes(data[1:5], "little")
+        return ((bits >> 14) & 0x3FFF) + 1, (bits & 0x3FFF) + 1
+    return int.from_bytes(data[8:10], "little") & 0x3FFF, int.from_bytes(data[6:8], "little") & 0x3FFF
+
+
+def webp_fixtures() -> Dict[str, bytes]:
+    """Every WebP fixture's name (under ``webp/``) and bytes, encoded anew:
+    lossy by Pillow (qualities, methods 0 and 6, odd sizes, alpha), this
+    module's own lossy variants through libwebp's advanced API, lossless
+    (a photo-like image for the predictor, cross-colour and subtract-green
+    transforms, palettes of 2, 4, 16 and 200 colours, RGBA with exact RGB,
+    1x1), animations (Pillow's, and a hand-built one whose first frame is
+    offset), then the card's originals and training sets."""
+    lib = libwebp()
+    photo = source_image(201, 61, 50)
+    scene = smooth_scene(202, 61, 50, cell=16)
+    out = {
+        "lossy-q1-m0.webp": pil_webp(photo, quality=1, method=0),
+        "lossy-q50-m6.webp": pil_webp(photo, quality=50, method=6),
+        "lossy-q75.webp": pil_webp(photo, quality=75),
+        "lossy-q95.webp": pil_webp(photo, quality=95),
+        "lossy-q100-m0.webp": pil_webp(photo, quality=100, method=0),
+        "lossy-1x1.webp": pil_webp(photo[:1, :1], quality=80),
+        "lossy-17x33.webp": pil_webp(photo[:17, :33], quality=80, method=6),
+        "lossy-300x257.webp": pil_webp(smooth_scene(203, 300, 257, cell=32), quality=70),
+        "lossy-alpha.webp": pil_webp(with_alpha(scene, 204), quality=80),
+        "own-simple-filter.webp": webp_encode(lib, photo, 60, filter_type=0, filter_strength=60, autofilter=0),
+        "own-segments4.webp": webp_encode(lib, scene, 60, segments=4, sns_strength=100),
+        "own-partitions8.webp": webp_encode(lib, smooth_scene(205, 96, 80, cell=16), 60, partitions=3),
+        "own-sharpness7.webp": webp_encode(lib, photo, 40, filter_type=1, filter_sharpness=7, filter_strength=80,
+                                           autofilter=0),
+        "own-filter-off.webp": webp_encode(lib, photo, 60, filter_strength=0, autofilter=0),
+        "lossless-photo.webp": pil_webp(photo, lossless=True),
+        "lossless-palette2.webp": pil_webp(palette_image(206, 23, 37, 2), lossless=True),
+        "lossless-palette4.webp": pil_webp(palette_image(207, 23, 37, 4), lossless=True),
+        "lossless-palette16.webp": pil_webp(palette_image(208, 23, 37, 16), lossless=True),
+        "lossless-palette200.webp": pil_webp(palette_image(209, 40, 44, 200), lossless=True),
+        "lossless-rgba-exact.webp": pil_webp(with_alpha(photo[:29, :31], 210), lossless=True, exact=True),
+        "lossless-1x1.webp": pil_webp(photo[:1, :1], lossless=True),
+        "anim-pillow.webp": pil_webp_animation([smooth_scene(211 + i, 30, 40, cell=8) for i in range(3)],
+                                               quality=70),
+        "anim-offset.webp": webp_animation((24, 24), [(4, 6, pil_webp(source_image(214, 16, 16), lossless=True)),
+                                                       (0, 0, pil_webp(source_image(215, 24, 24), quality=60))]),
+    }
+    out = {f"{WEBP}/{k}": v for k, v in out.items()}
+    for i, (name, (kind, h, w)) in enumerate(sorted(WEBP_CARD.items())):
+        if kind == "lossless":
+            img = smooth_scene(220 + i, h, w, cell=128, step=32)
+            data = pil_webp(img, lossless=True)
+        else:
+            img = smooth_scene(220 + i, h, w, cell=128)
+            data = pil_webp(with_alpha(img) if kind == "alpha" else img, quality=75)
+        out[f"{WEBP}/card/{name}"] = data
+    for size in WEBP_TRAIN_SIZES:
+        cell = max(2, size // 4)
+        out[f"{WEBP}/train/{size}-lossy.webp"] = pil_webp(smooth_scene(240 + size, size, size, cell=cell), quality=80)
+        out[f"{WEBP}/train/{size}-lossless.webp"] = pil_webp(
+            smooth_scene(250 + size, size, size, cell=cell, step=32), lossless=True)
+    return out
+
+
+def committed_webp() -> Dict[str, bytes]:
+    """The committed WebP fixtures: name (under ``webp/``) -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, WEBP)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def is_animated(data: bytes) -> bool:
+    return data[12:16] == b"VP8X" and bool(data[20] & 0x02)
+
+
+def is_lossy(data: bytes) -> bool:
+    """A still file whose frame is VP8 (after any VP8X and ALPH chunks)."""
+    pos = 12
+    while pos + 8 <= len(data):
+        tag, n = data[pos:pos + 4], int.from_bytes(data[pos + 4:pos + 8], "little")
+        if tag in (b"VP8 ", b"VP8L"):
+            return tag == b"VP8 "
+        pos += 8 + n + (n & 1)
+    return False
+
+
+def yuv_digest(planes) -> str:
+    return sha256(b"".join(p.tobytes() for p in planes))
+
+
+def jax_prep_digests(scratch: str, originals: Dict[str, bytes]) -> Dict[str, Dict[str, str]]:
+    """The JAX package's ``prepare_pyramid`` (Pillow's decode and
+    bilinear resize) of ``originals`` at 4-512 px: for each set, each
+    image's SHA-256 of its RGB."""
+    from PIL import Image
+
+    from byogan_tpu.data.prep import prepare_pyramid
+
+    root = os.path.join(scratch, "webp_prep")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for name, data in originals.items():
+        with open(os.path.join(root, os.path.basename(name)), "wb") as f:
+            f.write(data)
+    prepare_pyramid(root, 4, 512, workers=4)
+    out = {}
+    for k in range(1, 9):
+        folder = os.path.join(root, "prepared", f"set_{k}", "images")
+        out[f"set_{k}"] = {}
+        for name in sorted(os.listdir(folder)):
+            with Image.open(os.path.join(folder, name)) as im:
+                out[f"set_{k}"][name] = sha256(np.asarray(im.convert("RGB")))
+    return out
+
+
+def _set_sizes(data: bytes, chunk_at: int, chunk_size: int) -> bytes:
+    """``data`` with its RIFF size and the chunk at ``chunk_at``'s size
+    rewritten, so a cut file is whole as a container."""
+    out = bytearray(data)
+    out[4:8] = struct.pack("<I", len(data) - 8)
+    out[chunk_at + 4:chunk_at + 8] = struct.pack("<I", chunk_size)
+    return bytes(out)
+
+
+def webp_failures() -> Dict[str, Tuple[bytes, str]]:
+    """WebP files Pillow refuses: name -> (bytes, the reason the port
+    names): files cut in the first partition, in the token partition and
+    anywhere (with and without container sizes that agree with the cut), a
+    bad VP8 start code, a VP8X canvas that is not the frame's size, a bad
+    VP8L signature, an animation's first frame outside its canvas."""
+    img = source_image(3, 40, 48)
+    lossy = pil_webp(img, quality=90)
+    lossless = pil_webp(img, lossless=True)
+    part0 = int.from_bytes(lossy[20:23], "little") >> 5  # the first partition's size (frame tag)
+    tokens = 20 + 10 + part0  # where the token partition starts
+    in_tokens = lossy[:tokens + (len(lossy) - tokens) // 2]
+    in_part0 = lossy[:30 + part0 // 2]
+    start = bytearray(lossy)
+    start[23:26] = b"\x9d\x01\x2b"
+    canvas = bytearray(pil_webp(with_alpha(img), quality=90))
+    canvas[27:30] = (40).to_bytes(3, "little")  # the VP8X canvas 41 rows high, the frame 40
+    signature = bytearray(lossless)
+    signature[20] = 0x2e
+    outside = webp_animation((20, 20), [(6, 6, pil_webp(source_image(4, 16, 16), lossless=True))])
+    return {
+        "webp-cut-in-token-partition": (_set_sizes(in_tokens, 12, len(in_tokens) - 20), "truncated"),
+        "webp-cut-in-first-partition": (_set_sizes(in_part0, 12, len(in_part0) - 20), "truncated"),
+        "webp-cut-file": (lossy[: len(lossy) // 2], "truncated"),
+        "webp-bad-start-code": (bytes(start), "breaks the format"),
+        "webp-vp8x-canvas-not-frame": (bytes(canvas), "VP8X canvas is not its frame's size"),
+        "webp-vp8l-bad-signature": (bytes(signature), "breaks the format"),
+        "webp-frame-outside-canvas": (outside, "first frame lies outside its canvas"),
+        "webp-vp8l-cut": (_set_sizes(lossless[:len(lossless) * 2 // 3], 12, len(lossless) * 2 // 3 - 20),
+                          "truncated"),
+    }
+
+
+
+def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
+                   webp: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest of ``fixtures()`` and of the WebP files (``webp``, the
+    committed ones by default): each JPEG or PNG decoded by the JAX lane,
+    which must agree with Pillow or with the file's known RGB; each WebP
+    decoded by Pillow (the JAX package's WebP lane), and each still lossy
+    one's planes by libwebp; each source encoded by the JAX lane; the JAX
+    package's pyramid of the card's WebP originals."""
+    import PIL
+    from PIL import features
+
+    webp = committed_webp() if webp is None else webp
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -362,6 +719,16 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                                  + ("Pillow" if truth is None else "its samples"))
         entries[name] = {"bytes": len(data), "sha256": sha256(data), "shape": list(rgb.shape[:2]),
                          "sha256_rgb": sha256(rgb)}
+    webp_lib = libwebp()
+    for name, data in webp.items():
+        path = os.path.join(scratch, "webp.webp")
+        with open(path, "wb") as f:
+            f.write(data)
+        rgb = pil_rgb(path)
+        entries[name] = {"bytes": len(data), "sha256": sha256(data), "shape": list(rgb.shape[:2]),
+                         "sha256_rgb": sha256(rgb)}
+        if is_lossy(data) and not is_animated(data):
+            entries[name]["sha256_yuv"] = yuv_digest(webp_yuv(webp_lib, data))
     sources = {}
     for name, (seed, h, w) in SOURCES.items():
         img = source_image(seed, h, w)
@@ -370,32 +737,43 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
             "sha256_jpeg": {str(q): sha256(jax_encode(lib, img, q, os.path.join(scratch, f"{name}-{q}.jpg")))
                             for q in QUALITIES},
         }
+    card = {n: d for n, d in webp.items() if n.startswith(f"{WEBP}/card/")}
     return {
         "decoded_by": f"the JAX package's native lane (libpng, libjpeg-turbo), held to Pillow {PIL.__version__} "
-                      "(JPEG, 8-bit PNG) or to the samples (PNG)",
-        "files": entries, "sources": sources,
+                      "(JPEG, 8-bit PNG) or to the samples (PNG); WebP: the JAX package's Pillow lane, Pillow "
+                      f"{PIL.__version__} with libwebp {features.version('webp')}, planes by the system's libwebp",
+        "files": entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
     }
 
 
 def write(scratch: str) -> dict:
     files = fixtures()
-    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch)
-    os.makedirs(FIXTURES, exist_ok=True)
-    for name, (data, _) in files.items():
+    webp = webp_fixtures()
+    shutil.rmtree(os.path.join(FIXTURES, WEBP), ignore_errors=True)
+    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp}.items():
+        os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
+    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     return manifest
 
 
-def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int], bytes]) -> List[str]:
-    """The committed fixtures against ``decode`` (a path -> RGB) and
-    ``encode`` (image, quality -> JPEG bytes): the names of those that
-    match; raises ``AssertionError`` naming the first that does not."""
+def load_manifest() -> dict:
     with open(MANIFEST) as f:
-        manifest = json.load(f)
+        return json.load(f)
+
+
+def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int], bytes],
+          decode_yuv: Optional[Callable[[str], Tuple[np.ndarray, np.ndarray, np.ndarray]]] = None) -> List[str]:
+    """The committed fixtures against ``decode`` (a path -> RGB),
+    ``encode`` (image, quality -> JPEG bytes) and ``decode_yuv`` (a lossy
+    WebP's path -> Y, U, V; skipped where None): the names of those that
+    match (``name@yuv`` for planes, ``source@qN`` for encodes); raises
+    ``AssertionError`` naming the first that does not."""
+    manifest = load_manifest()
     matched = []
     for name, want in sorted(manifest["files"].items()):
         path = os.path.join(FIXTURES, name)
@@ -404,8 +782,12 @@ def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int
                 raise AssertionError(f"{name}: the file is not the one the manifest records")
         got = decode(path)
         if list(got.shape) != want["shape"] + [3] or sha256(got) != want["sha256_rgb"]:
-            raise AssertionError(f"{name}: decoded to other pixels than libjpeg-turbo's / libpng's")
+            raise AssertionError(f"{name}: decoded to other pixels than libjpeg-turbo's / libpng's / libwebp's")
         matched.append(name)
+        if decode_yuv is not None and "sha256_yuv" in want:
+            if yuv_digest(decode_yuv(path)) != want["sha256_yuv"]:
+                raise AssertionError(f"{name}: decoded to other planes than libwebp's WebPDecodeYUV")
+            matched.append(f"{name}@yuv")
     for name, want in sorted(manifest["sources"].items()):
         img = source_image(want["seed"], *want["shape"])
         if sha256(img) != want["sha256_pixels"]:
@@ -417,11 +799,30 @@ def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int
     return matched
 
 
+def check_webp_prep(root: str, read: Callable[[str], np.ndarray]) -> int:
+    """The pyramid prepared under ``root`` from the card's WebP originals
+    against the JAX package's recorded one: the number of images matched;
+    raises ``AssertionError`` naming the first that differs."""
+    want = load_manifest()["webp_prep"]
+    n = 0
+    for set_name, digests in sorted(want.items()):
+        folder = os.path.join(root, "prepared", set_name, "images")
+        if sorted(os.listdir(folder)) != sorted(digests):
+            raise AssertionError(f"{set_name}: files {sorted(os.listdir(folder))}, expected {sorted(digests)}")
+        for name, digest in sorted(digests.items()):
+            if sha256(read(os.path.join(folder, name))) != digest:
+                raise AssertionError(f"{set_name}/{name}: other pixels than the JAX package's prepare_pyramid")
+            n += 1
+    return n
+
+
 if __name__ == "__main__":
     import tempfile
 
+    sys.path.insert(0, ROOT)  # the JAX package, whose prep the card's WebP originals are held to
     with tempfile.TemporaryDirectory() as tmp:
         out = write(tmp)
     total = sum(e["bytes"] for e in out["files"].values())
-    print(f"{len(out['files'])} files ({total} bytes), {len(out['sources'])} sources x {len(QUALITIES)} qualities "
-          f"-> {FIXTURES}", file=sys.stderr)
+    webp_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{WEBP}/"))
+    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP), {len(out['sources'])} sources x "
+          f"{len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)
