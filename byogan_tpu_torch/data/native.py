@@ -3,9 +3,11 @@
 ``load_library()`` builds the port's codecs (``native/*.cpp``, linked to
 zlib alone: ``native/build.py``) at first use and loads them once per
 process.  ``decode_image`` reads PNG and JPEG files bit for bit with the
-JAX package's libpng and libjpeg-turbo lane, and WebP files (VP8, VP8L,
-VP8X with its alpha dropped, the first frame of an animation) bit for bit
-with its Pillow lane (libwebp); ``encode_jpeg`` writes libjpeg's JPEG
+JAX package's libpng and libjpeg-turbo lane; the JPEG kinds that lane
+refuses or reads otherwise (CMYK, YCCK, lossless, progressive files left
+for block smoothing) and WebP files (VP8, VP8L, VP8X with its alpha
+dropped, the first frame of an animation) bit for bit with its Pillow lane
+(libjpeg-turbo 3.1.3, libwebp); ``encode_jpeg`` writes libjpeg's JPEG
 bytes.  All of it runs on any machine with a C++ compiler and zlib.  A build
 that fails raises, naming the compiler's error: there is no other lane
 to fall back on.  ctypes releases the interpreter lock during each call,
@@ -34,13 +36,11 @@ ERRORS = {
     -8: "unknown PNG row filter",
     -9: "a PNG chunk's CRC does not match",
     -10: "the file is truncated",
-    -11: "unsupported JPEG feature: CMYK or YCCK (4 components)",
     -12: "unsupported JPEG feature: samples of other than 8 bits (12-bit)",
-    -13: "unsupported JPEG feature: arithmetic coding",
-    -14: "unsupported JPEG feature: a lossless (SOF3) frame",
+    -14: "unsupported JPEG feature: a lossless frame that Pillow's libjpeg-turbo does not read (arithmetic coding "
+         "(SOF11), a precision other than 8 bits, or a JFIF or Adobe YCbCr colour space)",
     -15: "unsupported JPEG feature: a hierarchical frame",
-    -16: "unsupported JPEG feature: chroma sampling other than h2v1, h2v2 or integral boxes (4:4:0 is one)",
-    -17: "unsupported JPEG feature: a progressive file left for libjpeg's block smoothing (unfinished scans)",
+    -16: "unsupported JPEG feature: a fractional chroma sampling ratio",
     -18: "the animated WebP's first frame lies outside its canvas",
     -19: "the WebP's VP8X canvas is not its frame's size",
 }

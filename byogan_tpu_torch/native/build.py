@@ -6,8 +6,8 @@ the CUDA kernels of ``ops/build.py``), at first use and again whenever a
 source is newer:
 
     g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp png.cpp jpeg_decode.cpp \\
-        jpeg_encode.cpp jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp \\
-        webp_tables.cpp -o build/libbyogan_io.so -lz
+        jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp jpeg_tables.cpp webp.cpp \\
+        vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp -o build/libbyogan_io.so -lz
 
 zlib is the one library it links (PNG's inflate), on every machine: no
 libpng, libjpeg or libwebp.  A machine without ``zlib.h`` fails the build,
@@ -28,9 +28,10 @@ import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_encode.cpp", "jpeg_tables.cpp",
-                                   "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp", "webp_tables.cpp"))
-HEADERS = (HERE / "codec.h", HERE / "webp.h")
+SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
+                                   "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
+                                   "webp_tables.cpp"))
+HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")

@@ -24,13 +24,10 @@ enum Status {
   kBadFilter = -8,         // an unknown PNG row filter
   kBadCrc = -9,            // a PNG critical chunk's CRC does not match
   kTruncated = -10,        // the file ends before its image data do
-  kJpegCmyk = -11,         // four components: CMYK or YCCK
-  kJpeg12Bit = -12,        // samples of other than 8 bits
-  kJpegArithmetic = -13,   // arithmetic entropy coding
-  kJpegLossless = -14,     // a lossless (SOF3) frame
+  kJpeg12Bit = -12,        // a DCT frame's samples of other than 8 bits
+  kJpegLossless = -14,     // a lossless frame Pillow's libjpeg-turbo refuses: arithmetic (SOF11), not 8-bit, or converted
   kJpegHierarchical = -15, // a hierarchical (differential) frame
-  kJpegSampling = -16,     // a sampling ratio libjpeg does not upsample as h2v1, h2v2 or integral boxes
-  kJpegSmoothing = -17,    // a progressive file left for libjpeg's block smoothing
+  kJpegSampling = -16,     // a fractional sampling ratio (a component's factors do not divide the largest)
   kWebpFrameOutside = -18, // an animated WebP's first frame lies outside its canvas
   kWebpCanvas = -19,       // a still WebP's VP8X canvas is not its frame's size
 };

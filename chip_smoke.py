@@ -3141,7 +3141,8 @@ IO_PREP_ORIGINALS = 4  # per format, 1024 px, prepare_pyramid in this process
 IO_PREP_JPEGS = 6  # 1024 px JPEG originals through cli.prep
 CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
 CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 6  # per stage: Paeth PNGs, then 2 JPEG, 2 BMP and 2 WebP files among them
+# per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files and a JPEG of each kind of fx.JPEG_KINDS among them
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 13
 IO_CONFIG = (
     "[io]\n"
     "data = {data}\n"
@@ -3204,6 +3205,22 @@ def host_ms(fn, repeats: int = CODEC_REPEATS) -> float:
     return float(np.median(times))
 
 
+def pool_ms(path: str, shape: tuple) -> dict:
+    """Wall ms an image of ``CODEC_POOL_CALLS`` decodes of ``path`` on a
+    pool of each of ``LOADER_WORKERS`` threads (the codec's own scaling,
+    without the loader), after one decode a thread."""
+    from byogan_tpu_torch.data import native
+
+    out = {}
+    for workers in LOADER_WORKERS:
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            list(pool.map(lambda _: native.decode_image(path, shape), range(workers)))
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: native.decode_image(path, shape), range(CODEC_POOL_CALLS)))
+            out[workers] = 1e3 * (time.perf_counter() - t0) / CODEC_POOL_CALLS
+    return out
+
+
 def io_checks(tmp) -> dict:
     """Builds the native image-IO library (it must build) and prints the
     compiler, the headers it finds and what the library links: zlib, never
@@ -3251,16 +3268,23 @@ def io_checks(tmp) -> dict:
             return fh.read()
 
     matched = fx.check(native.decode_image, encode_bytes, native.decode_vp8_yuv)
-    files = [m for m in matched if "@" not in m and not m.startswith(f"{fx.WEBP}/")]
+    files = [m for m in matched if "@" not in m and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
+    kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
     encodes = [m for m in matched if "@q" in m]
     require(len(webp) >= 20 and planes, f"the manifest holds {len(webp)} WebP files, {len(planes)} with planes")
+    require(len(kinds) >= 80 and {fx.kind_of(m) for m in kinds} >= set(fx.JPEG_KINDS),
+            f"the manifest holds {len(kinds)} files of the JPEG kinds")
+    small = [os.path.relpath(m, fx.KINDS) for m in kinds if "/card/" not in m and "/train/" not in m]
     print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
           f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
           f"(libwebp; {', '.join(os.path.relpath(m, fx.WEBP) for m in webp)}) and {len(planes)} of them to libwebp's "
-          f"VP8 planes")
+          f"VP8 planes; {len(kinds)} files of the JPEG kinds (4:4:0, arithmetic, block smoothing, CMYK, YCCK, "
+          f"lossless) decoded to Pillow's RGB (libjpeg-turbo 3.1.3; the 4:4:0 and arithmetic ones the JAX native "
+          f"lane's too): {', '.join(small)}, {len(fx.KINDS_CARD)} card originals and {len(kinds) - len(small) - len(fx.KINDS_CARD)} "
+          f"training files")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3320,6 +3344,7 @@ def io_checks(tmp) -> dict:
     print("io: 4 BMPs (odd widths) exact")
     out["codec_ms"] = codec_times(other)
     out["codec_ms"].update(webp_codec_times(fx))
+    out["codec_ms"].update(kinds_codec_times(fx, other))
     return out
 
 
@@ -3353,13 +3378,9 @@ def codec_times(folder: str) -> dict:
         "jpeg_encode_512": host_ms(lambda: native.encode_jpeg(os.path.join(folder, "enc.jpg"), frame,
                                                               IO_JPEG_QUALITY)),
     }
-    for fmt, path in (("jpeg", paths[IO_SIDE]), ("png", png_path)):  # the codec alone on a pool of threads
-        for workers in LOADER_WORKERS:
-            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-                list(pool.map(lambda _: native.decode_image(path, (IO_SIDE, IO_SIDE)), range(workers)))
-                t0 = time.perf_counter()
-                list(pool.map(lambda _: native.decode_image(path, (IO_SIDE, IO_SIDE)), range(CODEC_POOL_CALLS)))
-                ms[f"{fmt}_decode_512_pool_{workers}"] = 1e3 * (time.perf_counter() - t0) / CODEC_POOL_CALLS
+    for fmt, path in (("jpeg", paths[IO_SIDE]), ("png", png_path)):
+        for workers, t in pool_ms(path, (IO_SIDE, IO_SIDE)).items():
+            ms[f"{fmt}_decode_512_pool_{workers}"] = t
     print(f"io codecs: host ms, median of {CODEC_REPEATS} calls, one thread: JPEG decode 4:2:0 q{IO_JPEG_QUALITY} "
           f"{PREP_SIDE} px {ms['jpeg_decode_1024']:.3f}, {IO_SIDE} px {ms['jpeg_decode_512']:.3f}; PNG decode "
           f"{IO_SIDE} px Paeth: native {ms['png_decode_512']:.3f}, data/png.py (C unfilter) "
@@ -3386,13 +3407,8 @@ def webp_codec_times(fx) -> dict:
         path = os.path.join(card_dir, name)
         ms[f"webp_{key}"] = host_ms(lambda: native.decode_image(path, (h, w)))
     for key in ("vp8_512", "vp8l_512"):
-        path = os.path.join(card_dir, files[key][0])
-        for workers in LOADER_WORKERS:
-            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-                list(pool.map(lambda _: native.decode_image(path, (512, 512)), range(workers)))
-                t0 = time.perf_counter()
-                list(pool.map(lambda _: native.decode_image(path, (512, 512)), range(CODEC_POOL_CALLS)))
-                ms[f"webp_{key}_pool_{workers}"] = 1e3 * (time.perf_counter() - t0) / CODEC_POOL_CALLS
+        for workers, t in pool_ms(os.path.join(card_dir, files[key][0]), (512, 512)).items():
+            ms[f"webp_{key}_pool_{workers}"] = t
     print(f"io codecs: WebP decode to RGB, host ms, median of {CODEC_REPEATS} calls, one thread: VP8 (lossy, "
           f"fancy upsampling) 1024 px {ms['webp_vp8_1024']:.3f}, 512 px {ms['webp_vp8_512']:.3f}; VP8L (lossless) "
           f"512 px {ms['webp_vp8l_512']:.3f}; wall ms an image of {CODEC_POOL_CALLS} 512 px decodes on a pool of "
@@ -3403,27 +3419,90 @@ def webp_codec_times(fx) -> dict:
     return ms
 
 
-def prep_webp_cli(tmp, root) -> float:
+def kinds_codec_times(fx, folder: str) -> dict:
+    """Host ms of the JPEG decoder on the kinds, one call at a time (median
+    of ``CODEC_REPEATS``), each beside a Huffman baseline file of the same
+    source pixels at the same quality (4:2:0, the port's encoder, which
+    writes libjpeg's bytes): arithmetic sequential and progressive at 1024
+    and 512 px, CMYK, YCCK, 4:4:0 and the block-smoothed progressive file
+    at 1024 px, lossless at 512 px; then the wall ms an image of
+    ``CODEC_POOL_CALLS`` 512 px decodes, arithmetic and CMYK, on pools of
+    1, 2 and 8 threads."""
+    from byogan_tpu_torch.data import native
+
+    files = {f"{k}_1024": f"card/{k}-1024.jpg" for k in ("arith", "arith-prog", "cmyk", "ycck", "440", "smoothed")}
+    files.update({"arith_512": "train/512-arith.jpg", "arith-prog_512": "train/512-arith-prog.jpg",
+                  "lossless_512": "card/lossless-512.jpg"})
+    ms = {}
+    for key, name in files.items():
+        path = os.path.join(fx.FIXTURES, fx.KINDS, name)
+        src = fx.kind_source(name)
+        twin = os.path.join(folder, f"twin-{key}.jpg")
+        native.encode_jpeg(twin, src, fx.KINDS_QUALITY)
+        shape = src.shape[:2]
+        ms[f"kind_{key}"] = host_ms(lambda: native.decode_image(path, shape))
+        ms[f"kind_{key}_baseline"] = host_ms(lambda: native.decode_image(twin, shape))
+    for key in ("arith", "cmyk"):
+        for workers, t in pool_ms(os.path.join(fx.FIXTURES, fx.KINDS, "train", f"512-{key}.jpg"), (512, 512)).items():
+            ms[f"kind_{key}_512_pool_{workers}"] = t
+    print(f"io codecs: JPEG kinds, host ms, median of {CODEC_REPEATS} calls, one thread, each beside the same "
+          f"pixels' Huffman baseline (q{fx.KINDS_QUALITY}, 4:2:0): "
+          + ", ".join(f"{key} {ms[f'kind_{key}']:.3f} ({ms[f'kind_{key}_baseline']:.3f})" for key in files)
+          + f"; wall ms an image of {CODEC_POOL_CALLS} 512 px decodes on a pool of "
+          + "/".join(map(str, LOADER_WORKERS)) + " threads: arithmetic "
+          + "/".join(f"{ms[f'kind_arith_512_pool_{w}']:.3f}" for w in LOADER_WORKERS) + ", CMYK "
+          + "/".join(f"{ms[f'kind_cmyk_512_pool_{w}']:.3f}" for w in LOADER_WORKERS)
+          + f" ({os.cpu_count()} CPUs); card {card_name()}")
+    return ms
+
+
+def prep_committed_cli(tmp, root, folder: str, names, key: str) -> tuple:
     """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
-    committed WebP originals (lossy 512 px, 640 x 480 and 1024 px,
-    lossless 512 px, lossy with alpha 448 x 320), the resizes on the card:
-    every image of the 8 sets equal to the one the JAX package's
-    ``prepare_pyramid`` wrote from them (recorded in the fixtures'
-    manifest).  Returns the seconds per original, process start included."""
+    committed originals ``names`` of ``fx.FIXTURES/folder``, the resizes on
+    the card: every image of the 8 sets equal to the one the JAX package's
+    ``prepare_pyramid`` wrote from them (the fixtures' manifest's ``key``).
+    Returns the seconds the CLI took, process start included, and the
+    images matched."""
     from byogan_tpu_torch.data import images
 
     fx = codec_fixtures()
-    data = os.path.join(tmp, "prep_webp_cli")
+    data = os.path.join(tmp, f"prep_{key}")
     os.makedirs(data)
-    for name in sorted(fx.WEBP_CARD):
-        shutil.copy(os.path.join(fx.FIXTURES, fx.WEBP, "card", name), data)
+    for name in sorted(names):
+        shutil.copy(os.path.join(fx.FIXTURES, folder, name), data)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
                           cwd=root, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    matched = fx.check_webp_prep(data, images.read_image)
+    matched = fx.check_prep(data, images.read_image, key)
+    require(matched == 8 * len(names), f"{matched} prepared images, expected {8 * len(names)}")
+    return cli_s, matched
+
+
+def prep_kinds_cli(tmp, root) -> float:
+    """``prep_committed_cli`` on the originals of the JPEG kinds
+    (arithmetic sequential and progressive, CMYK, YCCK, 4:4:0 and
+    block-smoothed at 1024 px, lossless at 512 px), held to the JAX
+    package's prep of them (Pillow's decode).  Returns the seconds per
+    original."""
+    fx = codec_fixtures()
+    n = len(fx.KINDS_CARD)
+    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.KINDS, "card"), fx.KINDS_CARD, "jpeg_prep")
+    print(f"io prep: cli.prep of {n} originals of the JPEG kinds ({', '.join(sorted(fx.KINDS_CARD))}) to 8 sets in "
+          f"{cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker threads, resizes on the "
+          f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
+          f"resize, hashes in the fixtures' manifest); card {card_name()}")
+    return cli_s / n
+
+
+def prep_webp_cli(tmp, root) -> float:
+    """``prep_committed_cli`` on the WebP originals (lossy 512 px, 640 x
+    480 and 1024 px, lossless 512 px, lossy with alpha 448 x 320), held to
+    the JAX package's prep of them.  Returns the seconds per original."""
+    fx = codec_fixtures()
     n = len(fx.WEBP_CARD)
+    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.WEBP, "card"), fx.WEBP_CARD, "webp_prep")
     print(f"io prep: cli.prep of {n} WebP originals (VP8 512 px, 640 x 480 and 1024 px, VP8L 512 px, VP8X + ALPH "
           f"448 x 320) to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
@@ -3530,6 +3609,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
           "PR 9's 0.858 s)")
     prep_jpeg_s = prep_jpeg_cli(tmp, root)
     prep_webp_s = prep_webp_cli(tmp, root)
+    prep_kinds_s = prep_kinds_cli(tmp, root)
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
@@ -3545,6 +3625,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
     print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
     return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "prep_webp_cli_s": prep_webp_s,
+            "prep_kinds_cli_s": prep_kinds_s,
             "frame_ms": frame_ms}
 
 
@@ -3567,8 +3648,12 @@ def io_train(tmp, root) -> tuple:
     """The training CLI at full width on a prepared set of Paeth PNGs with
     non-PNG files among them (2 JPEG, 2 BMP and 2 WebP a stage: the
     committed lossy and lossless files of each stage's size, so the loader
-    decodes VP8 and VP8L on every stage-8 batch), stage 8 uncached:
-    ``len()`` counts them; a subprocess stopped by SIGTERM once its metrics
+    decodes VP8 and VP8L on every stage-8 batch; and a committed JPEG of
+    each kind of ``fx.JPEG_KINDS`` at each stage's size: 4:4:0,
+    arithmetic sequential and progressive, block-smoothed, CMYK, YCCK,
+    lossless), stage 8 uncached: ``len()`` counts them, the stage-8
+    dataset's batch of the kinds' files equals their manifest hashes; a
+    subprocess stopped by SIGTERM once its metrics
     show stage 5; ``--auto-resume`` with no ``-c`` picks the checkpoint the
     stop wrote and runs to FINAL (launches per iteration counted); then
     ``cli.generate_samples FINAL.pth 8 --format jpeg --pallas``, its JPEG
@@ -3591,7 +3676,11 @@ def io_train(tmp, root) -> tuple:
         for i, p in enumerate(params):
             img = render(p, size)
             k = i - (IO_TRAIN_IMAGES - IO_TRAIN_OTHER)
-            if k >= 4:
+            if k >= 6:
+                kind = fx.JPEG_KINDS[k - 6]
+                shutil.copy(os.path.join(fx.FIXTURES, fx.KINDS, "train", f"{size}-{kind}.jpg"),
+                            os.path.join(folder, f"image-{i}.jpg"))
+            elif k >= 4:
                 kind = ("lossy", "lossless")[k - 4]
                 shutil.copy(os.path.join(fx.FIXTURES, fx.WEBP, "train", f"{size}-{kind}.webp"),
                             os.path.join(folder, f"image-{i}.webp"))
@@ -3607,6 +3696,13 @@ def io_train(tmp, root) -> tuple:
     kinds = sorted({os.path.splitext(f)[1] for f in stage8.files})
     require(len(stage8) == IO_TRAIN_IMAGES, f"the stage-8 set counts {len(stage8)} of {IO_TRAIN_IMAGES} files")
     require(".webp" in kinds, f"no WebP file in set_8: {kinds}")
+    manifest = fx.load_manifest()["files"]
+    first = IO_TRAIN_IMAGES - IO_TRAIN_OTHER + 6
+    rows = np.array([stage8.files.index(os.path.join(data, "prepared", "set_8", "images", f"image-{first + j}.jpg"))
+                     for j in range(len(fx.JPEG_KINDS))])
+    for kind, img in zip(fx.JPEG_KINDS, stage8.get_batch_uint8(rows, 2)):
+        require(fx.sha256(img) == manifest[f"{fx.KINDS}/train/512-{kind}.jpg"]["sha256_rgb"],
+                f"the stage-8 dataset read its {kind} file to other pixels than Pillow's")
     print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}) in {time.perf_counter() - t0:.2f} s; "
           f"len() of set_8 {len(stage8)}")
 

@@ -1,7 +1,9 @@
 """The port's own JPEG and PNG codecs against libjpeg-turbo and libpng, on the CPU.
 
-(The WebP decoder has its own file, ``test_torch_port_webp.py``; its
-failures and its fixtures' hashes are held here beside the others.)
+(The WebP decoder has its own file, ``test_torch_port_webp.py``, and so
+do the JPEG kinds its native lane refuses or reads otherwise,
+``test_torch_port_jpeg_kinds.py``; their failures and their fixtures'
+hashes are held here beside the others.)
 
 The native library (``native/png.cpp``, ``jpeg_decode.cpp``,
 ``jpeg_encode.cpp``, through ``data/native.py``) links zlib alone, so the
@@ -234,14 +236,15 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     """The fixtures and their manifest rebuilt here (Pillow, JAX's lane)
     equal the committed ones, so they cannot drift from the libraries."""
     files = fx.fixtures()
-    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES) if n not in ("manifest.json", fx.WEBP))
+    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES) if n not in ("manifest.json", fx.WEBP, fx.KINDS))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
-    # The WebP files are the committed ones: another libwebp build may encode other bytes.
+    # The WebP files are the committed ones: another libwebp build may encode other bytes.  So are the
+    # files of the JPEG kinds (test_torch_port_jpeg_kinds.py holds them to their writers).
     webp = fx.committed_webp()
     assert sorted(webp) == sorted(fx.webp_fixtures())
-    assert fx.build_manifest(files, jax_lane, str(tmp_path), webp) == fx.load_manifest()
+    assert fx.build_manifest(files, jax_lane, str(tmp_path), webp, fx.committed_kinds()) == fx.load_manifest()
     assert sum(len(d) for d, _ in files.values()) < 300_000
     assert sum(len(d) for d in webp.values()) < 300_000
 
@@ -258,7 +261,7 @@ def test_port_matches_the_fixtures(tmp_path):
     manifest = fx.load_manifest()
     planes = sum("sha256_yuv" in e for e in manifest["files"].values())
     assert len(matched) == len(manifest["files"]) + planes + len(fx.SOURCES) * len(fx.QUALITIES)
-    assert len(manifest["files"]) == len(os.listdir(fx.FIXTURES)) - 2 + len(fx.committed_webp())
+    assert len(manifest["files"]) == len(os.listdir(fx.FIXTURES)) - 3 + len(fx.committed_webp()) + len(fx.committed_kinds())
 
 
 # --- failures ---------------------------------------------------------------
@@ -270,27 +273,16 @@ def _scan_start(data: bytes) -> int:
     return at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
 
 
-def _progressive_dc_only(data: bytes) -> bytes:
-    """A progressive file with its AC scans taken out: the DC is known, the
-    AC never sent (libjpeg would smooth the blocks)."""
-    out, pos = bytearray(data[:2]), 2
-    while pos < len(data):
-        marker = data[pos + 1]
-        if marker == 0xD9:
-            out += data[pos:pos + 2]
-            break
-        n = int.from_bytes(data[pos + 2:pos + 4], "big")
-        end = pos + 2 + n
-        if marker == 0xDA:  # to the next marker that is not a restart or a stuffed byte
-            end = next(i for i in range(end, len(data) - 1)
-                       if data[i] == 0xFF and data[i + 1] not in (0,) and not 0xD0 <= data[i + 1] <= 0xD7)
-            ss = data[pos + 4 + 2 * data[pos + 4] + 1]
-            if ss > 0:
-                pos = end
-                continue
-        out += data[pos:end]
-        pos = end
-    return bytes(out)
+def _cut_in_scan(data: bytes, scan: int = 0) -> bytes:
+    """``data`` cut halfway through the entropy-coded data of its scan
+    number ``scan``."""
+    at = -1
+    for _ in range(scan + 1):
+        at = data.index(b"\xff\xda", at + 1)
+    start = at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
+    end = next(i for i in range(start, len(data) - 1)
+               if data[i] == 0xFF and data[i + 1] != 0 and not 0xD0 <= data[i + 1] <= 0xD7)
+    return data[:(start + end) // 2]
 
 
 def _failures():
@@ -310,8 +302,14 @@ def _failures():
     png_bytes = fx.png_bytes(img.astype(np.int64), 8, 2)
     bad_crc = bytearray(png_bytes)
     bad_crc[png_bytes.index(b"IDAT") + 10] ^= 0x55
-    cmyk = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(cmyk, format="JPEG")
+    kind = lambda name: fx.committed_kinds()[f"{fx.KINDS}/{name}"]  # noqa: E731
+    planes = [img[..., c] for c in range(3)]
+    lossless = fx.jpeg_lossless(planes, 7, restart_rows=2)
+    sof11 = bytearray(lossless)
+    sof11[sof11.index(b"\xff\xc3") + 1] = 0xCB
+    dac = bytearray(kind("arith-seq-420.jpg"))
+    at = dac.index(b"\xff\xcc")
+    dac[at + 5] = 0x23  # DC table 0: L 3 above U 2
     webp = {name: (data, "webp", what) for name, (data, what) in fx.webp_failures().items()}
     return {
         "jpeg-truncated-in-scan": (base[:scan + (len(base) - scan) // 2], "jpg", "truncated"),
@@ -322,14 +320,23 @@ def _failures():
         "jpeg-marker-inside-scan": (bytes(corrupt), "jpg", "breaks the format"),
         "png-truncated": (png_bytes[:len(png_bytes) // 2], "png", "truncated"),
         "png-bad-crc": (bytes(bad_crc), "png", "CRC does not match"),
-        "cmyk": (cmyk.getvalue(), "jpg", "CMYK"),
+        # the kinds that now decode, cut in their data
+        "cmyk": (_cut_in_scan(kind("cmyk-adobe.jpg")), "jpg", "truncated"),
+        "arithmetic": (_cut_in_scan(kind("arith-seq-420.jpg")), "jpg", "truncated"),
+        "lossless": (_cut_in_scan(lossless), "jpg", "truncated"),
+        "440": (_cut_in_scan(kind("440-33x45.jpg")), "jpg", "truncated"),
+        "progressive-dc-only": (_cut_in_scan(kind("smooth-dc-only-420.jpg")), "jpg", "truncated"),
+        "arithmetic-progressive-cut-in-a-later-scan": (_cut_in_scan(kind("arith-prog-444.jpg"), 3), "jpg",
+                                                       "truncated"),
+        "ycck-cut-in-restart-interval": (_cut_in_scan(kind("ycck-420.jpg")), "jpg", "truncated"),
+        "arithmetic-dac-l-above-u": (bytes(dac), "jpg", "breaks the format"),
+        "lossless-arithmetic-sof11": (bytes(sof11), "jpg", "arithmetic coding \\(SOF11\\)"),
+        "lossless-16-bit": (fx.jpeg_lossless(planes[:1], 1, precision=16), "jpg", "precision other than 8 bits"),
+        "lossless-12-bit": (fx.jpeg_lossless(planes[:1], 1, precision=12), "jpg", "precision other than 8 bits"),
+        "lossless-jfif-ycbcr": (fx.jpeg_lossless(planes, 1, jfif=True), "jpg", "YCbCr colour space"),
         "12-bit": (bytes(twelve), "jpg", "12-bit"),
-        "arithmetic": (with_marker(0xC9), "jpg", "arithmetic coding"),
-        "lossless": (with_marker(0xC3), "jpg", "lossless"),
         "hierarchical": (with_marker(0xC5), "jpg", "hierarchical"),
-        "440": (fx.jpeg_from_blocks(16, 16, [(1, 2), (1, 1), (1, 1)], 3), "jpg", "4:4:0"),
         "fractional-sampling": (fx.jpeg_from_blocks(16, 24, [(3, 1), (2, 1), (1, 1)], 3), "jpg", "sampling"),
-        "progressive-dc-only": (_progressive_dc_only(prog), "jpg", "block smoothing"),
         **webp,
     }
 
@@ -352,7 +359,8 @@ def test_eight_threads_equal_one(tmp_path):
     """The loader's threads call the decoders at once (ctypes drops the
     interpreter lock): 8 threads over a set of JPEGs and PNGs of every kind
     give what one thread gives, and the encoder likewise."""
-    paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES)) if n not in ("manifest.json", fx.WEBP)]
+    paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES))
+             if n not in ("manifest.json", fx.WEBP, fx.KINDS)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

@@ -4,31 +4,42 @@
 
 writes ``tests/data/torch_port_codecs/``: small JPEG files (Pillow's, and
 this module's own for the samplings Pillow cannot write), Adam7 and
-16-bit PNGs, WebP files under ``webp/`` and ``manifest.json``.  For each
-file the manifest records the SHA-256 of its bytes and of the RGB that
-libjpeg-turbo, libpng or libwebp decodes from it: the JAX package's native
-lane and Pillow, which must agree (for WebP, Pillow is the JAX package's
-lane).  For each seeded source image it records the SHA-256 of the pixels
-and of the JAX lane's JPEG bytes at every quality of ``QUALITIES``.  For
-each lossy WebP it records the SHA-256 of the Y, U and V planes libwebp's
-``WebPDecodeYUV`` gives, and for the WebP originals of ``webp/card/`` the
-SHA-256 of every image the JAX package's ``prepare_pyramid`` makes of them
-(4-512 px).  The machine with the card has none of these libraries, so
-``chip_smoke.py`` holds the port's codecs to these hashes there;
-``tests/test_torch_port_codecs.py`` rebuilds the manifest here and asserts
-that it is the committed one.
+16-bit PNGs, WebP files under ``webp/``, the JPEG kinds under ``kinds/``
+and ``manifest.json``.  For each file the manifest records the SHA-256 of
+its bytes and of the RGB that libjpeg-turbo, libpng or libwebp decodes
+from it: the JAX package's native lane and Pillow, which must agree (for
+WebP, Pillow is the JAX package's lane).  For each seeded source image it
+records the SHA-256 of the pixels and of the JAX lane's JPEG bytes at
+every quality of ``QUALITIES``.  For each lossy WebP it records the
+SHA-256 of the Y, U and V planes libwebp's ``WebPDecodeYUV`` gives, and
+for the WebP originals of ``webp/card/`` the SHA-256 of every image the
+JAX package's ``prepare_pyramid`` makes of them (4-512 px).  The JPEG
+kinds (4:4:0, arithmetic coding, progressive files left for block
+smoothing, CMYK, YCCK, lossless) are held to Pillow's RGB, the lane of the
+JAX package that reads them all, and their entries record what its native
+lane makes of each (``native_lane``: the same RGB, the samples it puts
+apart, or its return code); the prep of their originals of
+``kinds/card/`` is recorded as the WebP one is.  The machine with the card
+has none of these libraries, so ``chip_smoke.py`` holds the port's
+codecs to these hashes there; ``tests/test_torch_port_codecs.py``
+rebuilds the manifest here and asserts that it is the committed one.
 
 The WebP files are written once, by Pillow and by the system's libwebp
 (``libwebp.so.7``, through ctypes: its advanced API reaches the simple
 filter, segments, partitions and sharpness, which Pillow cannot set), and
 committed: the manifest is rebuilt from the committed bytes, since another
 libwebp build may encode other ones.  Writing them needs Pillow with WebP
-and ``libwebp.so.7``; reading them, Pillow alone.
+and ``libwebp.so.7``; reading them, Pillow alone.  The JPEG kinds are
+committed too, written by the system's libjpeg (``torch_port_jpeg_writer.c``,
+compiled by ``jpeg_writer``: arithmetic coding, YCCK, CMYK without an
+Adobe marker, 4:4:0), Pillow (CMYK, progressive) and this module's
+lossless writer; ``tests/test_torch_port_jpeg_kinds.py`` holds them to
+what those writers make here.
 
-At import this module needs numpy alone: Pillow, libwebp and the JAX lane
-(built from ``byogan_tpu/native/byogan_io.cpp`` into a directory the
-caller names, never the JAX package's own library) are reached inside the
-functions that need them.
+At import this module needs numpy alone: Pillow, libwebp, libjpeg and the
+JAX lane (built from ``byogan_tpu/native/byogan_io.cpp`` into a directory
+the caller names, never the JAX package's own library) are reached inside
+the functions that need them.
 """
 
 from __future__ import annotations
@@ -251,6 +262,169 @@ def jpeg_from_blocks(h: int, w: int, sampling: List[Tuple[int, int]], seed: int)
     return head + bw.flush() + b"\xff\xd9"
 
 
+def optimal_huffman(counts: Dict[int, int]) -> Tuple[List[int], List[int]]:
+    """A Huffman table for symbols of the given counts, as libjpeg's
+    jpeg_gen_optimal_table builds it (T.81 K.2, codes of 16 bits or
+    fewer, no code of all ones): (bits[1..16], symbols in code order)."""
+    freq = [0] * 257
+    for sym, n in counts.items():
+        freq[sym] = n
+    freq[256] = 1  # a reserved code point, so no code is all ones
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if freq[i]]
+        c1 = min(live, key=lambda i: (freq[i], -i))
+        live.remove(c1)
+        if not live:
+            break
+        c2 = min(live, key=lambda i: (freq[i], -i))
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for n in size:
+        if n:
+            bits[n] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    symbols = [s for n in range(1, 33) for s in range(256) if size[s] == n]
+    return bits[1:17], symbols
+
+
+def _huffman_codes(bits: List[int], symbols: List[int]) -> Dict[int, Tuple[int, int]]:
+    """symbol -> (code, length) of a table given as DHT carries it."""
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def _lossless_differences(x: np.ndarray, psv: int, first_rows: np.ndarray, initial: int) -> np.ndarray:
+    """The differences a lossless encoder sends for the samples ``x``
+    (int64, already reconstructed as the decoder will hold them), rows
+    where ``first_rows`` predicted as a scan's first row."""
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = (None, ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv].copy()
+    pred[:, 0] = rb[:, 0]  # the first column from above
+    pred[first_rows, 1:] = ra[first_rows, 1:]  # a first row from the left
+    pred[first_rows, 0] = initial
+    d = (x - pred) & 0xFFFF
+    return np.where(d > 32768, d - 65536, d)
+
+
+def jpeg_lossless(planes: List[np.ndarray], psv: int, pt: int = 0, sampling: Optional[List[Tuple[int, int]]] = None,
+                  restart_rows: int = 0, jfif: bool = False, adobe: Optional[int] = None, ids=None,
+                  precision: int = 8, wrap: Tuple[Tuple[int, int, int], ...] = ()) -> bytes:
+    """A lossless JPEG (SOF3, Huffman) of the components' sample planes
+    (uint8 2-D arrays, each of its component's downsampled size, all in one
+    interleaved scan) with predictor ``psv`` (1-7) and point transform
+    ``pt``, written as T.81's Annex H and libjpeg-turbo's jclossls.c /
+    jcdiffct.c do: the first row predicted from its left neighbour, the
+    first column from the sample above, 2^(P-Pt-1) at the top left, and
+    after every ``restart_rows`` MCU rows an RST marker and the first-row
+    rules again; one Huffman table, optimal for the differences.  ``wrap``
+    lists (component, y, x) whose difference is sent 32768 apart (the
+    category-16 code, which wraps modulo 2^16 back to the same 8-bit
+    sample).  ``jfif``, ``adobe`` (its transform) and ``ids`` (the
+    component identifiers, 1, 2, 3... by default) set what a decoder reads
+    the colour space from.  Component 0 is sampled at the largest factors
+    and sets the image's size."""
+    ncomp = len(planes)
+    sampling = sampling or [(1, 1)] * ncomp
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    h, w = planes[0].shape
+    ids = ids or list(range(1, ncomp + 1))
+    mcux, mcuy = _ceil(w, hmax), _ceil(h, vmax)
+    diffs = []
+    for c, (p, (sh, sv)) in enumerate(zip(planes, sampling)):
+        x = p.astype(np.int64) >> pt
+        for cc, y, i in wrap:
+            if cc == c:
+                x[y, i] += 32768
+        rows = np.arange(x.shape[0])
+        first = rows == 0 if not restart_rows else rows % (restart_rows * sv) == 0
+        d = np.zeros((mcuy * sv, mcux * sh), np.int64)  # the MCUs' padding sends 0
+        d[:x.shape[0], :x.shape[1]] = _lossless_differences(x, psv, first, 1 << (precision - pt - 1))
+        diffs.append(d)
+    # the differences in scan order: MCU rows, MCUs, components, their rows and columns
+    order = [np.stack([d[my * sv:(my + 1) * sv, :].reshape(sv, mcux, sh).transpose(1, 0, 2).reshape(mcux, sv * sh)
+                       for my in range(mcuy)]) for d, (sh, sv) in zip(diffs, sampling)]
+    seq = np.concatenate(order, axis=2)  # (mcuy, mcux, samples an MCU)
+    mag = np.abs(seq)
+    cat = sum((mag >= (1 << k)).astype(np.int64) for k in range(16))  # the bit length; 32768 is category 16
+    extra = np.where(seq >= 0, seq, seq - 1 + (1 << cat)) & ((1 << cat) - 1)
+    bits, symbols = optimal_huffman({int(k): int(n) for k, n in zip(*np.unique(cat, return_counts=True))})
+    codes = _huffman_codes(bits, symbols)
+    head = b"\xff\xd8"
+    if jfif:
+        head += b"\xff\xe0" + struct.pack(">H", 16) + b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    if adobe is not None:
+        head += b"\xff\xee" + struct.pack(">H", 14) + b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)
+    sof = struct.pack(">BHHB", precision, h, w, ncomp) + b"".join(
+        bytes([ids[i], (sh << 4) | sv, 0]) for i, (sh, sv) in enumerate(sampling))
+    head += b"\xff\xc3" + struct.pack(">H", 2 + len(sof)) + sof
+    dht = bytes([0x00]) + bytes(bits) + bytes(symbols)
+    head += b"\xff\xc4" + struct.pack(">H", 2 + len(dht)) + dht
+    if restart_rows:
+        head += b"\xff\xdd" + struct.pack(">HH", 4, restart_rows * mcux)
+    sos = bytes([ncomp]) + b"".join(bytes([ids[i], 0x00]) for i in range(ncomp)) + bytes([psv, 0, pt])
+    head += b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+    code = np.zeros(17, np.int64)
+    length = np.zeros(17, np.int64)
+    for sym, (c, n) in codes.items():
+        code[sym], length[sym] = c, n
+    # each sample's code, then its extra bits (none for categories 0 and 16)
+    values = np.stack([code[cat], extra], -1).reshape(mcuy, -1)
+    lengths = np.stack([length[cat], np.where(cat == 16, 0, cat)], -1).reshape(mcuy, -1)
+    out = bytearray(head)
+    step = restart_rows or mcuy
+    for at in range(0, mcuy, step):
+        if at:
+            out += bytes([0xFF, 0xD0 + (at // step - 1) % 8])
+        out += _pack_bits(values[at:at + step].reshape(-1), lengths[at:at + step].reshape(-1))
+    return bytes(out + b"\xff\xd9")
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """The low ``lengths[i]`` bits of each ``values[i]`` (at most 16),
+    most significant first, as entropy-coded bytes: padded with ones to a
+    whole byte, 0xFF followed by a stuffed 0x00."""
+    shifts = lengths[:, None] - 1 - np.arange(16)[None, :]
+    bits = (values[:, None] >> np.maximum(shifts, 0)) & 1
+    stream = bits[shifts >= 0].astype(np.uint8)
+    stream = np.concatenate([stream, np.ones(-len(stream) % 8, np.uint8)])
+    data = np.packbits(stream).tobytes()
+    return data.replace(b"\xff", b"\xff\x00")
+
+
 # --- the fixtures -----------------------------------------------------------
 
 
@@ -333,6 +507,57 @@ def jax_lane(build_dir: str) -> ctypes.CDLL:
     handle.byogan_decode.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ip, ip]
     handle.byogan_encode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_void_p] + [ctypes.c_int] * 3
     return handle
+
+
+#: libjpeg's J_COLOR_SPACE values
+JCS = {"gray": 1, "rgb": 2, "ycbcr": 3, "cmyk": 4, "ycck": 5}
+
+
+class _JpegOptions(ctypes.Structure):  # struct byogan_jpeg_options of torch_port_jpeg_writer.c
+    _fields_ = [(n, ctypes.c_int) for n in ("quality", "arith", "progressive", "restart_interval", "restart_rows",
+                                            "jpeg_space", "adobe", "jfif", "dc_l", "dc_u", "ac_k")] + [
+        ("sampling", ctypes.c_int * 8)]
+
+
+def jpeg_writer(build_dir: str) -> ctypes.CDLL:
+    """``tests/torch_port_jpeg_writer.c`` over the system's libjpeg,
+    compiled into ``build_dir`` once under a file lock."""
+    os.makedirs(build_dir, exist_ok=True)
+    lib = os.path.join(build_dir, "libbyogan_jpeg_writer.so")
+    with open(os.path.join(build_dir, "libbyogan_jpeg_writer.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib):
+            tmp = lib + f".{os.getpid()}.tmp"
+            src = os.path.join(ROOT, "tests", "torch_port_jpeg_writer.c")
+            subprocess.run(["gcc", "-O2", "-shared", "-fPIC", src, "-o", tmp, "-ljpeg"], check=True,
+                           capture_output=True)
+            os.replace(tmp, lib)
+    handle = ctypes.CDLL(lib)
+    handle.byogan_write_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(_JpegOptions)]
+    return handle
+
+
+def libjpeg_file(lib: ctypes.CDLL, samples: np.ndarray, path: str, space: str = "ycbcr", sampling=(),
+                 **options) -> bytes:
+    """``samples`` (RGB (h, w, 3), gray (h, w, 1) or CMYK (h, w, 4) uint8)
+    written by the system's libjpeg as a ``space`` file (a key of ``JCS``)
+    with the components' (h, v) factors ``sampling`` and ``options`` (the
+    fields of ``struct byogan_jpeg_options``: arith, progressive, quality,
+    restart_interval, adobe, jfif, dc_l...): the file's bytes."""
+    o = _JpegOptions(*([-1] * 11))
+    for k, v in options.items():
+        setattr(o, k, int(v))
+    o.jpeg_space = JCS[space]
+    for i, (sh, sv) in enumerate(sampling):
+        o.sampling[2 * i], o.sampling[2 * i + 1] = sh, sv
+    samples = np.ascontiguousarray(samples, np.uint8)
+    in_space = {1: JCS["gray"], 3: JCS["rgb"], 4: JCS["cmyk"]}[samples.shape[2]]
+    if lib.byogan_write_jpeg(path.encode(), samples.ctypes.data, samples.shape[0], samples.shape[1], in_space,
+                             ctypes.byref(o)) != 0:
+        raise OSError(f"{path}: cannot be written")
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def jax_decode(lib: ctypes.CDLL, path: str) -> np.ndarray:
@@ -636,7 +861,7 @@ def jax_prep_digests(scratch: str, originals: Dict[str, bytes]) -> Dict[str, Dic
 
     from byogan_tpu.data.prep import prepare_pyramid
 
-    root = os.path.join(scratch, "webp_prep")
+    root = os.path.join(scratch, "prep")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     for name, data in originals.items():
@@ -696,18 +921,210 @@ def webp_failures() -> Dict[str, Tuple[bytes, str]]:
 
 
 
+# --- the JPEG kinds the JAX package's native lane refuses or reads otherwise ---
+
+KINDS = "kinds"  # their files' folder under FIXTURES
+#: the kinds of ``kind_jpeg``: 4:4:0 chroma, arithmetic coding (sequential
+#: and progressive), a progressive file left for block smoothing (its
+#: refinement scans missing), CMYK (Pillow's, with its Adobe marker), YCCK
+#: (4:2:0 chroma, K at full size), lossless (SOF3, predictor 7)
+JPEG_KINDS = ("440", "arith", "arith-prog", "smoothed", "cmyk", "ycck", "lossless")
+#: originals for the card's prep and decode rates: name -> (kind, height, width)
+KINDS_CARD = {**{f"{k}-1024.jpg": (k, 1024, 1024) for k in JPEG_KINDS if k != "lossless"},
+              "lossless-512.jpg": ("lossless", 512, 512)}
+KINDS_QUALITY = 92  # the port's encoder's default, so each has a baseline twin of the same quality
+
+
+def drop_scans(data: bytes, keep: Callable[[int, int, int, int, int], bool]) -> bytes:
+    """A JPEG with the scans for which ``keep(components, Ss, Se, Ah, Al)``
+    is false taken out (each up to the next marker that is not a restart)."""
+    out, pos = bytearray(data[:2]), 2
+    while pos < len(data):
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            out += data[pos:pos + 2]
+            break
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            end = next(i for i in range(end, len(data) - 1)
+                       if data[i] == 0xFF and data[i + 1] != 0 and not 0xD0 <= data[i + 1] <= 0xD7)
+            n = data[pos + 4]
+            ss, se, a = data[pos + 5 + 2 * n:pos + 8 + 2 * n]
+            if not keep(n, ss, se, a >> 4, a & 15):
+                pos = end
+                continue
+        out += data[pos:end]
+        pos = end
+    return bytes(out)
+
+
+def cmyk_of(rgb: np.ndarray) -> np.ndarray:
+    """RGB as CMYK samples by undercolour removal: K the least of 255 - R,
+    G, B, and C, M, Y what is left of each."""
+    cmy = 255 - rgb.astype(np.int64)
+    k = cmy.min(axis=2, keepdims=True)
+    return np.concatenate([cmy - k, k], axis=2).astype(np.uint8)
+
+
+def kind_jpeg(lib: ctypes.CDLL, kind: str, img: np.ndarray, scratch: str) -> bytes:
+    """``img`` (uint8 RGB) as a JPEG of ``kind`` (one of ``JPEG_KINDS``) at
+    ``KINDS_QUALITY``, written by the system's libjpeg (``lib``, from
+    ``jpeg_writer``), Pillow or this module's lossless writer."""
+    from PIL import Image
+
+    path = os.path.join(scratch, f"kind-{kind}.jpg")
+    q = KINDS_QUALITY
+    if kind == "440":
+        return libjpeg_file(lib, img, path, sampling=[(1, 2), (1, 1), (1, 1)], quality=q)
+    if kind in ("arith", "arith-prog"):
+        return libjpeg_file(lib, img, path, arith=1, progressive=kind == "arith-prog", quality=q)
+    if kind == "smoothed":  # the successive-approximation refinements never arrived
+        return drop_scans(_pil_jpeg(img, quality=q, progressive=True), lambda n, ss, se, ah, al: ah == 0)
+    if kind == "cmyk":
+        buf = io.BytesIO()
+        Image.fromarray(cmyk_of(img), "CMYK").save(buf, format="JPEG", quality=q)
+        return buf.getvalue()
+    if kind == "ycck":
+        return libjpeg_file(lib, cmyk_of(img), path, space="ycck", quality=q)
+    if kind == "lossless":
+        return jpeg_lossless([img[..., c] for c in range(3)], 7)
+    raise ValueError(kind)
+
+
+def kind_source(name: str) -> np.ndarray:
+    """The source pixels of a card original or training file of the kinds
+    (a name of ``kinds_fixtures()`` under ``card/`` or ``train/``)."""
+    if name.startswith("card/"):
+        i = sorted(KINDS_CARD).index(name[5:])
+        _, h, w = KINDS_CARD[name[5:]]
+        return smooth_scene(300 + i, h, w, cell=128)
+    size, kind = name[6:-4].split("-", 1)
+    size = int(size)
+    return smooth_scene(330 + 10 * JPEG_KINDS.index(kind) + size.bit_length(), size, size, cell=max(2, size // 4),
+                        step=16 if kind == "lossless" else 1)
+
+
+def kinds_fixtures(scratch: str) -> Dict[str, bytes]:
+    """Every file of the kinds (name under ``kinds/``) and its bytes, written
+    anew: small files of each kind and variant the tests name, then the
+    card's originals (``card/``) and training sets (``train/``, a file of
+    each kind at each stage's size)."""
+    from PIL import Image
+
+    lib = jpeg_writer(os.path.join(scratch, "build"))
+    photo = source_image(401, 61, 50)
+    out = {"440-33x45.jpg": jpeg_from_blocks(33, 45, [(1, 2), (1, 1), (1, 1)], 402)}
+    arith = {
+        "arith-seq-420.jpg": dict(),
+        "arith-prog-444.jpg": dict(progressive=1, sampling=[(1, 1)] * 3),
+        "arith-restarts-dac-422.jpg": dict(restart_interval=2, dc_l=2, dc_u=6, ac_k=12,
+                                          sampling=[(2, 1), (1, 1), (1, 1)]),
+        "arith-prog-440-restarts.jpg": dict(progressive=1, restart_interval=3, sampling=[(1, 2), (1, 1), (1, 1)]),
+    }
+    for name, kw in arith.items():
+        out[name] = libjpeg_file(lib, photo, os.path.join(scratch, name), arith=1, quality=88, **kw)
+    out["arith-prog-gray.jpg"] = libjpeg_file(lib, photo[..., :1], os.path.join(scratch, "g.jpg"), space="gray",
+                                              arith=1, progressive=1, quality=80)
+    for sub, name in ((0, "444"), (2, "420")):
+        prog = _pil_jpeg(photo, quality=90, progressive=True, subsampling=sub)
+        out[f"smooth-dc-only-{name}.jpg"] = drop_scans(prog, lambda n, ss, se, ah, al: ss == 0)
+        out[f"smooth-no-refine-{name}.jpg"] = drop_scans(prog, lambda n, ss, se, ah, al: ah == 0)
+    cmyk = cmyk_of(photo)
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, format="JPEG", quality=90)
+    out["cmyk-adobe.jpg"] = buf.getvalue()
+    out["cmyk-no-adobe.jpg"] = libjpeg_file(lib, cmyk, os.path.join(scratch, "c.jpg"), space="cmyk", adobe=0,
+                                            quality=90)
+    out["cmyk-420.jpg"] = libjpeg_file(lib, cmyk, os.path.join(scratch, "c.jpg"), space="cmyk", quality=90,
+                                       sampling=[(2, 2), (1, 1), (1, 1), (2, 2)])
+    out["ycck-420.jpg"] = libjpeg_file(lib, cmyk, os.path.join(scratch, "y.jpg"), space="ycck", quality=90)
+    out["ycck-prog-444.jpg"] = libjpeg_file(lib, cmyk, os.path.join(scratch, "y.jpg"), space="ycck", quality=90,
+                                            progressive=1, sampling=[(1, 1)] * 4)
+    planes = [photo[..., c] for c in range(3)]
+    out["lossless-gray-p1-restarts.jpg"] = jpeg_lossless(planes[:1], 1, restart_rows=4)
+    out["lossless-rgb-p7-pt2.jpg"] = jpeg_lossless(planes, 7, pt=2)
+    out["lossless-rgb-p5-wrap.jpg"] = jpeg_lossless(planes, 5, wrap=((0, 0, 0), (1, 7, 9), (2, 60, 49)))
+    out["lossless-420-p4.jpg"] = jpeg_lossless([planes[0], planes[1][::2, ::2], planes[2][::2, ::2]], 4,
+                                               sampling=[(2, 2), (1, 1), (1, 1)])
+    y, x = np.mgrid[0:256, 0:256]  # every (C, M or Y, K) pair: Pillow's cmyk2rgb, exhaustively
+    pairs = np.stack([x, 255 - x, (x + y) % 256, y], -1).astype(np.uint8)
+    out["lossless-cmyk-pairs.jpg"] = jpeg_lossless([pairs[..., c] for c in range(4)], 1)
+    out = {f"{KINDS}/{k}": v for k, v in out.items()}
+    for name in sorted(KINDS_CARD):
+        out[f"{KINDS}/card/{name}"] = kind_jpeg(lib, KINDS_CARD[name][0], kind_source(f"card/{name}"), scratch)
+    for size in WEBP_TRAIN_SIZES:
+        for kind in JPEG_KINDS:
+            name = f"train/{size}-{kind}.jpg"
+            out[f"{KINDS}/{name}"] = kind_jpeg(lib, kind, kind_source(name), scratch)
+    return out
+
+
+def committed_kinds() -> Dict[str, bytes]:
+    """The committed files of the kinds: name (under ``kinds/``) -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, KINDS)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+#: the kinds read by both of the JAX package's lanes alike; the others are
+#: held to its Pillow lane alone
+BOTH_LANES = ("440", "arith", "arith-prog")
+
+
+def kind_of(name: str) -> str:
+    """The kind of a file of ``kinds_fixtures()``: 440, arith, smooth,
+    cmyk, ycck, lossless..."""
+    base = os.path.basename(name)
+    if "/train/" in f"/{name}":
+        return base[:-4].split("-", 1)[1]
+    if "/card/" in f"/{name}":
+        return KINDS_CARD[base][0]
+    return base.split("-")[0]
+
+
+def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
+    """A manifest entry of a file of the kinds: its Pillow RGB (the JAX
+    package's Pillow lane), and what the JAX native lane does with it:
+    refuses it (its return code), or reads it to the same RGB or to one
+    that many samples apart by at most so much.  The 4:4:0 and arithmetic
+    files must read alike in both lanes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    rgb = pil_rgb(path)
+    entry = {"bytes": len(data), "sha256": sha256(data), "shape": list(rgb.shape[:2]), "sha256_rgb": sha256(rgb)}
+    try:
+        native_rgb = jax_decode(lib, path)
+    except OSError as e:
+        entry["native_lane"] = str(e).rsplit(" ", 1)[1]
+    else:
+        diff = np.abs(native_rgb.astype(np.int64) - rgb)
+        entry["native_lane"] = "same" if not diff.any() else {"samples_apart": int((diff > 0).sum()),
+                                                                 "max": int(diff.max())}
+    if kind_of(name) in BOTH_LANES and entry["native_lane"] != "same":
+        raise AssertionError(f"{name}: the JAX package's two lanes read it differently: {entry['native_lane']}")
+    return entry
+
+
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
-                   webp: Optional[Dict[str, bytes]] = None) -> dict:
-    """The manifest of ``fixtures()`` and of the WebP files (``webp``, the
-    committed ones by default): each JPEG or PNG decoded by the JAX lane,
-    which must agree with Pillow or with the file's known RGB; each WebP
-    decoded by Pillow (the JAX package's WebP lane), and each still lossy
-    one's planes by libwebp; each source encoded by the JAX lane; the JAX
-    package's pyramid of the card's WebP originals."""
+                   webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest of ``fixtures()``, of the WebP files (``webp``, the
+    committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
+    each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
+    or with the file's known RGB; each WebP decoded by Pillow (the JAX
+    package's WebP lane), and each still lossy one's planes by libwebp;
+    each file of the kinds decoded by Pillow, beside what the JAX native
+    lane makes of it (``kinds_entry``); each source encoded by the JAX
+    lane; the JAX package's pyramids of the card's WebP originals and of
+    its originals of the kinds."""
     import PIL
     from PIL import features
 
     webp = committed_webp() if webp is None else webp
+    kinds = committed_kinds() if kinds is None else kinds
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -729,6 +1146,11 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                          "sha256_rgb": sha256(rgb)}
         if is_lossy(data) and not is_animated(data):
             entries[name]["sha256_yuv"] = yuv_digest(webp_yuv(webp_lib, data))
+    for name, data in kinds.items():
+        path = os.path.join(scratch, "kind.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = kinds_entry(lib, name, path)
     sources = {}
     for name, (seed, h, w) in SOURCES.items():
         img = source_image(seed, h, w)
@@ -738,23 +1160,29 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                             for q in QUALITIES},
         }
     card = {n: d for n, d in webp.items() if n.startswith(f"{WEBP}/card/")}
+    kinds_card = {n: d for n, d in kinds.items() if n.startswith(f"{KINDS}/card/")}
     return {
         "decoded_by": f"the JAX package's native lane (libpng, libjpeg-turbo), held to Pillow {PIL.__version__} "
                       "(JPEG, 8-bit PNG) or to the samples (PNG); WebP: the JAX package's Pillow lane, Pillow "
-                      f"{PIL.__version__} with libwebp {features.version('webp')}, planes by the system's libwebp",
+                      f"{PIL.__version__} with libwebp {features.version('webp')}, planes by the system's libwebp; "
+                      f"{KINDS}/: the JAX package's Pillow lane, Pillow {PIL.__version__} with libjpeg-turbo "
+                      f"{features.version('libjpeg_turbo')}, beside its native lane (native_lane)",
         "files": entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
+        "jpeg_prep": jax_prep_digests(scratch, kinds_card),
     }
 
 
 def write(scratch: str) -> dict:
     files = fixtures()
     webp = webp_fixtures()
-    shutil.rmtree(os.path.join(FIXTURES, WEBP), ignore_errors=True)
-    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp}.items():
+    kinds = kinds_fixtures(scratch)
+    for folder in (WEBP, KINDS):
+        shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
+    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
-    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp)
+    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -799,11 +1227,12 @@ def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int
     return matched
 
 
-def check_webp_prep(root: str, read: Callable[[str], np.ndarray]) -> int:
+def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_prep") -> int:
     """The pyramid prepared under ``root`` from the card's WebP originals
+    (``key`` "webp_prep") or its originals of the JPEG kinds ("jpeg_prep")
     against the JAX package's recorded one: the number of images matched;
     raises ``AssertionError`` naming the first that differs."""
-    want = load_manifest()["webp_prep"]
+    want = load_manifest()[key]
     n = 0
     for set_name, digests in sorted(want.items()):
         folder = os.path.join(root, "prepared", set_name, "images")
@@ -819,10 +1248,11 @@ def check_webp_prep(root: str, read: Callable[[str], np.ndarray]) -> int:
 if __name__ == "__main__":
     import tempfile
 
-    sys.path.insert(0, ROOT)  # the JAX package, whose prep the card's WebP originals are held to
+    sys.path.insert(0, ROOT)  # the JAX package, whose prep the card's originals are held to
     with tempfile.TemporaryDirectory() as tmp:
         out = write(tmp)
     total = sum(e["bytes"] for e in out["files"].values())
     webp_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{WEBP}/"))
-    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP), {len(out['sources'])} sources x "
-          f"{len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)
+    kinds_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{KINDS}/"))
+    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds), "
+          f"{len(out['sources'])} sources x {len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)
