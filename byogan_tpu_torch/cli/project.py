@@ -24,11 +24,12 @@ import torch.nn.functional as F
 
 
 def load_target(path: str, res: int) -> np.ndarray:
-    """One image file (PNG, JPEG, BMP or WebP, decoded by ``read_image``) as
-    uint8 (res, res, 3)."""
+    """One image file (PNG, JPEG, BMP or WebP, decoded by ``read_image`` in
+    the lane of the JAX CLI, Pillow's ``convert("RGB")``) as uint8 (res,
+    res, 3)."""
     from byogan_tpu_torch.data.images import read_image
 
-    img = read_image(path)
+    img = read_image(path, lane="pillow")
     if img.shape[:2] == (res, res):
         return img
     x = torch.from_numpy(img).permute(2, 0, 1)[None].float()

@@ -3,7 +3,8 @@
 ``load_library()`` builds the port's codecs (``native/*.cpp``, linked to
 zlib alone: ``native/build.py``) at first use and loads them once per
 process.  ``decode_image`` reads PNG and JPEG files bit for bit with the
-JAX package's libpng and libjpeg-turbo lane; the JPEG kinds that lane
+JAX package's libpng and libjpeg-turbo lane (16-bit gray PNGs, where its
+lanes part, as either lane reads them); the JPEG kinds that lane
 refuses or reads otherwise (CMYK, YCCK, lossless, progressive files left
 for block smoothing) and WebP files (VP8, VP8L, VP8X with its alpha
 dropped, the first frame of an animation) bit for bit with its Pillow lane
@@ -24,7 +25,11 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 4
+ABI_VERSION = 5
+#: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
+#: "native", its libpng lane (its loader), and "pillow", its Pillow lane
+#: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
+LANES = {"native": 0, "pillow": 1}
 #: the library's return codes (native/codec.h)
 ERRORS = {
     -1: "cannot open the file",
@@ -51,7 +56,7 @@ _S = ctypes.c_char_p
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "byogan_abi_version": [],
-    "byogan_decode": [_S, _P, _IP, _IP],
+    "byogan_decode": [_S, _P, _IP, _IP, _I],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
@@ -102,18 +107,22 @@ def _failed(path: str, what: str, rc: int) -> OSError:
     return OSError(f"{path}: {what} failed: {ERRORS.get(rc, 'error')} ({rc})")
 
 
-def decode_image(path: str, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
+def decode_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
     """A PNG, JPEG or WebP file (told apart by its first bytes) as uint8
     RGB (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
     right, one call opens and decodes the file; otherwise the first call
-    reads the size and a second decodes."""
+    reads the size and a second decodes.  ``lane`` (a key of ``LANES``)
+    picks the JAX package's lane where its lanes part: a 16-bit gray PNG's
+    samples cut to their high byte ("native") or clipped at 255
+    ("pillow")."""
+    flag = LANES[lane]
     lib = load_library()
     h, w = shape or (0, 0)
     for _ in range(2):
         out = np.empty((h, w, 3), np.uint8)
         hc, wc = _I(h), _I(w)
         buf = out.ctypes.data if out.size else None
-        rc = lib.byogan_decode(path.encode(), buf, ctypes.byref(hc), ctypes.byref(wc))
+        rc = lib.byogan_decode(path.encode(), buf, ctypes.byref(hc), ctypes.byref(wc), flag)
         if rc != -5:
             break
         h, w = hc.value, wc.value

@@ -8,11 +8,12 @@ original is decoded once and resized to every size, largest first, each
 size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
 package's.  Decoding (``data/images.py``: PNG, JPEG and WebP through the
-port's own codecs, which need no libpng, libjpeg or libwebp, BMP in numpy)
-and encoding (``serve.encode_png``) run on a pool of host threads; the
-resizes run on ``device``, the GPU unless ``"cpu"`` is asked for.  An
-original of a format the port does not read raises before any set is
-written, naming the file.
+port's own codecs, which need no libpng, libjpeg or libwebp, BMP in numpy,
+each in the lane of the JAX package's prep, Pillow's ``convert("RGB")``,
+so a 16-bit gray PNG clips at 255) and encoding (``serve.encode_png``)
+run on a pool of host threads; the resizes run on ``device``, the GPU
+unless ``"cpu"`` is asked for.  An original of a format the port does not
+read raises before any set is written, naming the file.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def prepare_pyramid(
 
     def process(item) -> None:
         n, path = item
-        img = torch.from_numpy(read_image(path)).to(dev)
+        img = torch.from_numpy(read_image(path, lane="pillow")).to(dev)
         for size, set_dir in chain:
             img = resize_uint8_bilinear_pil(img, size)
             with open(os.path.join(set_dir, f"image-{n}.png"), "wb") as f:

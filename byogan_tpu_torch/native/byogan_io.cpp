@@ -139,13 +139,14 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 4; }
+int byogan_abi_version() { return 5; }
 
 // Decode one PNG, JPEG or WebP file (told apart by its first bytes) into
 // out, RGB of size (*h, *w).  Where out is null or the image has another
 // size, *h and *w get the image's and the return is -5: the caller sizes
-// its buffer and calls again, so a right guess costs one call.
-int byogan_decode(const char* path, uint8_t* out, int* h, int* w) {
+// its buffer and calls again, so a right guess costs one call.  `lane`
+// (codec.h's Lane) picks the JAX package's lane where its lanes part.
+int byogan_decode(const char* path, uint8_t* out, int* h, int* w, int lane) {
   int rc;
   std::vector<uint8_t> data;
   try {
@@ -156,7 +157,8 @@ int byogan_decode(const char* path, uint8_t* out, int* h, int* w) {
   if (rc) return rc;
   static const uint8_t png_sig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
   if (data.size() >= 8 && memcmp(data.data(), png_sig, 8) == 0)
-    return byogan::decode_png(data.data(), data.size(), out, h, w);
+    return byogan::decode_png(data.data(), data.size(), out, h, w,
+                              lane == byogan::kPillowLane ? byogan::kPillowLane : byogan::kNativeLane);
   if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF)
     return byogan::decode_jpeg(data.data(), data.size(), out, h, w);
   if (data.size() >= 12 && memcmp(data.data(), "RIFF", 4) == 0 && memcmp(data.data() + 8, "WEBP", 4) == 0)

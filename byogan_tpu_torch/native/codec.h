@@ -32,10 +32,16 @@ enum Status {
   kWebpCanvas = -19,       // a still WebP's VP8X canvas is not its frame's size
 };
 
+// Which of the JAX package's lanes a decode follows where they part: its
+// native lane (libpng; its loader), or its Pillow lane (its prep and
+// cli.project).  Only 16-bit gray PNGs tell them apart: libpng keeps each
+// sample's high byte, Pillow's I;16 -> RGB clips the sample at 255.
+enum Lane { kNativeLane = 0, kPillowLane = 1 };
+
 // Decode a whole file held in memory into out, uint8 RGB (*h, *w, 3).  Where
 // out is null or the image has another size, *h and *w get the image's and
 // the return is kSize.
-int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane lane);
 int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 

@@ -10,7 +10,8 @@
 // arithmetic decoding (jdarith.c, in jpeg_arith.cpp), the whole coefficient
 // image kept until the last scan (as libjpeg does for multi-scan files
 // outside buffered-image mode), dequantisation and the accurate integer
-// IDCT (jidctint.c's jpeg_idct_islow, JDCT_ISLOW), the block smoothing of
+// IDCT (JDCT_ISLOW) as libjpeg-turbo's SIMD code (jidctint-avx2/-sse2,
+// which both lanes run) computes it in 16-bit lanes, the block smoothing of
 // jdcoefct.c (libjpeg-turbo 3.1.3) for progressive files whose scans leave
 // low-frequency coefficients unfinished, the chroma upsampling of jdsample.c
 // with do_fancy_upsampling (the h2v1, h2v2 and h1v2 triangle filters, boxes
@@ -30,6 +31,10 @@
 #include <climits>
 #include <memory>
 #include <new>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 #include "jpeg.h"
 
@@ -245,20 +250,109 @@ inline uint8_t cmyk_channel(int sample, int nk) {
   return clamp255(nk - (((t >> 8) + t) >> 8));
 }
 
-// The post-IDCT range limit of jdmaster.c's prepare_range_limit_table:
-// x + 128 clamped, indexed by x & 1023 (so far-off values wrap as
-// libjpeg's table does).
-inline uint8_t idct_limit(int x) {
-  const int v = x & 1023;
-  return (uint8_t)(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
+// The IDCT's last step as libjpeg-turbo's SIMD islow IDCT takes it (both
+// JAX lanes run it): the sample packed to 16 bits, then to a signed byte,
+// each with saturation, and 128 added: x + 128 clamped to [0, 255].
+// (jidctint.c masks x with RANGE_MASK and looks it up in range_limit
+// instead, which wraps where |x| >= 512.)
+inline uint8_t idct_limit(int64_t x) { return (uint8_t)(x < -128 ? 0 : x > 127 ? 255 : x + 128); }
+
+constexpr int kConst = 13, kPass1 = 2;
+constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
+                  F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+
+// Below this sum of |dequantised coefficient| in every column, no
+// intermediate of the 16-bit SIMD IDCT leaves its range: a pass-1 output is
+// at most 5.5484 times the column's sum, so |w| <= 16091 and pass 2's 16-bit
+// sums of two outputs cannot wrap.  There jidctint.c's arithmetic in 64 bits
+// (idct_wide) gives the SIMD's samples; elsewhere idct_simd16 follows the
+// 16-bit lanes, to the same samples where both hold, more slowly.  A
+// photograph's blocks stay below it.
+constexpr uint32_t kWideColumnSum = 2900;
+
+// Each |coefficient x quantiser| is saturated to 16 bits and summed down
+// its column with saturation: a block a single test, 8 rows of 8 lanes.
+bool wide_is_exact(const int16_t* coef, const int16_t* q) {
+#if defined(__SSE2__)
+  const __m128i zero = _mm_setzero_si128(), ones = _mm_set1_epi16(-1);
+  __m128i acc = zero;
+  for (int r = 0; r < 8; r++) {
+    const __m128i c = _mm_loadu_si128(reinterpret_cast<const __m128i*>(coef + 8 * r));
+    const __m128i k = _mm_loadu_si128(reinterpret_cast<const __m128i*>(q + 8 * r));
+    const __m128i a = _mm_max_epi16(c, _mm_sub_epi16(zero, c));  // |c|, -32768 read as 32768
+    const __m128i fits = _mm_cmpeq_epi16(_mm_mulhi_epu16(a, k), zero);
+    const __m128i p = _mm_or_si128(_mm_and_si128(_mm_mullo_epi16(a, k), fits), _mm_andnot_si128(fits, ones));
+    acc = _mm_adds_epu16(acc, p);
+  }
+  const __m128i over = _mm_subs_epu16(acc, _mm_set1_epi16((short)kWideColumnSum));
+  return _mm_movemask_epi8(_mm_cmpeq_epi16(over, zero)) == 0xFFFF;
+#else
+  uint16_t col[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int i = 0; i < 64; i++) {
+    const uint32_t a = (uint32_t)(coef[i] < 0 ? -coef[i] : coef[i]) * (uint16_t)q[i];
+    const uint32_t t = (uint32_t)col[i & 7] + (a < 65535u ? a : 65535u);
+    col[i & 7] = (uint16_t)(t < 65535u ? t : 65535u);
+  }
+  for (int c = 0; c < 8; c++)
+    if (col[c] > kWideColumnSum) return false;
+  return true;
+#endif
 }
 
-// jidctint.c's jpeg_idct_islow on one dequantised block, in JLONG's 64 bits
-// so that the far-off values of bad data wrap as libjpeg's do.
-void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
-  constexpr int kConst = 13, kPass1 = 2;
-  constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633,
-                    F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+inline int16_t wrap16(int64_t v) { return (int16_t)(uint16_t)(uint64_t)v; }
+inline int32_t wrap32(int64_t v) { return (int32_t)(uint32_t)(uint64_t)v; }
+
+// One 1-D pass of jidctint-avx2/-sse2 over 8 samples of 16 bits: the sums
+// in0 + in4, in0 - in4, in7 + in3 and in5 + in1 in 16 bits (they wrap), the
+// products in 32 (pmaddwd), the results in 32-bit lanes, rounded and
+// shifted right by `shift`.
+void simd16_pass(const int16_t* in, int shift, int32_t* out) {
+  const int64_t tmp3 = in[2] * (F0541 + F0765) + in[6] * F0541;
+  const int64_t tmp2 = in[2] * F0541 + in[6] * (F0541 - F1847);
+  const int64_t tmp0 = (int64_t)wrap16(in[0] + in[4]) * (1 << kConst);
+  const int64_t tmp1 = (int64_t)wrap16(in[0] - in[4]) * (1 << kConst);
+  const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  const int64_t z3 = wrap16(in[7] + in[3]), z4 = wrap16(in[5] + in[1]);
+  const int64_t z3p = z3 * (F1175 - F1961) + z4 * F1175, z4p = z3 * F1175 + z4 * (F1175 - F0390);
+  const int64_t a0 = in[7] * (F0298 - F0899) - in[1] * F0899 + z3p;
+  const int64_t a3 = -in[7] * F0899 + in[1] * (F1501 - F0899) + z4p;
+  const int64_t a1 = in[5] * (F2053 - F2562) - in[3] * F2562 + z4p;
+  const int64_t a2 = -in[5] * F2562 + in[3] * (F3072 - F2562) + z3p;
+  const int64_t v[8] = {t10 + a3, t11 + a2, t12 + a1, t13 + a0, t13 - a0, t12 - a1, t11 - a2, t10 - a3};
+  for (int k = 0; k < 8; k++) out[k] = wrap32(v[k] + (1 << (shift - 1))) >> shift;
+}
+
+// jidctint-avx2/-sse2 (libjpeg-turbo's SIMD islow IDCT) on one block, where
+// its 16-bit lanes part from jidctint.c: the dequantisation product kept to
+// 16 bits; where rows 1-7 of the whole block are zero (before
+// dequantisation), each column's DC shifted left in 16 bits; otherwise
+// pass 1's outputs packed to 16 bits with saturation; the final pack with
+// saturation (idct_limit).
+void idct_simd16(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  int16_t ws[64];
+  bool ac_zero = true;
+  for (int i = 8; i < 64; i++) ac_zero &= coef[i] == 0;
+  int16_t col[8];
+  int32_t res[8];
+  for (int c = 0; c < 8; c++) {
+    if (ac_zero) {
+      const int16_t dc = wrap16(wrap16((int32_t)coef[c] * q[c]) * (1 << kPass1));
+      for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+      continue;
+    }
+    for (int r = 0; r < 8; r++) col[r] = wrap16((int32_t)coef[r * 8 + c] * q[r * 8 + c]);
+    simd16_pass(col, kConst - kPass1, res);
+    for (int r = 0; r < 8; r++) ws[r * 8 + c] = (int16_t)(res[r] < -32768 ? -32768 : res[r] > 32767 ? 32767 : res[r]);
+  }
+  for (int r = 0; r < 8; r++) {
+    simd16_pass(ws + r * 8, kConst + kPass1 + 3, res);
+    for (int k = 0; k < 8; k++) out[(size_t)r * stride + k] = idct_limit(res[k]);
+  }
+}
+
+// jidctint.c's jpeg_idct_islow on one dequantised block, in JLONG's 64 bits,
+// with the SIMD's final limit: exact where wide_is_exact holds.
+void idct_wide(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
   int ws[64];
   for (int c = 0; c < 8; c++) {
     const int16_t* in = coef + c;
@@ -315,7 +409,7 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
     const int* w = ws + r * 8;
     uint8_t* o = out + (size_t)r * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      const uint8_t dc = idct_limit((int)(((int64_t)w[0] + (1 << (kPass1 + 2))) >> (kPass1 + 3)));
+      const uint8_t dc = idct_limit(((int64_t)w[0] + (1 << (kPass1 + 2))) >> (kPass1 + 3));
       memset(o, dc, 8);
       continue;
     }
@@ -347,14 +441,25 @@ void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride)
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-    o[0] = idct_limit((int)((t10 + tmp3 + rnd) >> sh));
-    o[7] = idct_limit((int)((t10 - tmp3 + rnd) >> sh));
-    o[1] = idct_limit((int)((t11 + tmp2 + rnd) >> sh));
-    o[6] = idct_limit((int)((t11 - tmp2 + rnd) >> sh));
-    o[2] = idct_limit((int)((t12 + tmp1 + rnd) >> sh));
-    o[5] = idct_limit((int)((t12 - tmp1 + rnd) >> sh));
-    o[3] = idct_limit((int)((t13 + tmp0 + rnd) >> sh));
-    o[4] = idct_limit((int)((t13 - tmp0 + rnd) >> sh));
+    o[0] = idct_limit((t10 + tmp3 + rnd) >> sh);
+    o[7] = idct_limit((t10 - tmp3 + rnd) >> sh);
+    o[1] = idct_limit((t11 + tmp2 + rnd) >> sh);
+    o[6] = idct_limit((t11 - tmp2 + rnd) >> sh);
+    o[2] = idct_limit((t12 + tmp1 + rnd) >> sh);
+    o[5] = idct_limit((t12 - tmp1 + rnd) >> sh);
+    o[3] = idct_limit((t13 + tmp0 + rnd) >> sh);
+    o[4] = idct_limit((t13 - tmp0 + rnd) >> sh);
+  }
+}
+
+// libjpeg-turbo's islow IDCT on one block as its SIMD code computes it (what
+// both of the JAX package's lanes run): the 64-bit arithmetic where the
+// block's coefficients keep it exact, the 16-bit lanes elsewhere.
+void idct_islow(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) {
+  if (wide_is_exact(coef, q)) {
+    idct_wide(coef, q, out, stride);
+  } else {
+    idct_simd16(coef, q, out, stride);
   }
 }
 

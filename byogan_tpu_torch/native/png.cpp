@@ -2,7 +2,9 @@
 // (byogan_tpu/native/byogan_io.cpp:32-91), bit for bit: every colour type
 // and depth, Adam7 interlacing, 16-bit samples cut to their high byte,
 // palettes and low-depth gray expanded, tRNS and alpha dropped, gray
-// repeated into three channels.
+// repeated into three channels.  In the Pillow lane (kPillowLane) a 16-bit
+// gray sample is clipped at 255 instead, as Pillow's I;16 -> RGB does; every
+// other kind decodes alike in Pillow and libpng.
 //
 // As libpng does by default: the CRC of every critical chunk is checked
 // (an ancillary chunk's is not: libpng would drop the chunk, and none
@@ -49,7 +51,7 @@ void pass_size(const Layout& l, int p, int* pw, int* ph) {
 
 // One unfiltered row of n pixels to RGB at out, pixels `step` apart.
 void expand_row(const Layout& l, const uint8_t* row, int n, const uint8_t (*palette)[3], uint8_t* out,
-                int step) {
+                int step, Lane lane) {
   const int d = l.depth;
   if (d < 8) {  // gray or palette indices, packed from the most significant bit
     const int mask = (1 << d) - 1, scale = 255 / mask;
@@ -66,6 +68,14 @@ void expand_row(const Layout& l, const uint8_t* row, int n, const uint8_t (*pale
     return;
   }
   const int bytes = d / 8, px = bytes * l.channels;
+  if (lane == kPillowLane && l.color == 0 && d == 16) {
+    for (int x = 0; x < n; x++) {
+      const uint8_t* s = row + (size_t)x * 2;
+      uint8_t* o = out + (size_t)x * step * 3;
+      o[0] = o[1] = o[2] = s[0] ? 255 : s[1];  // min(sample, 255)
+    }
+    return;
+  }
   for (int x = 0; x < n; x++) {
     const uint8_t* s = row + (size_t)x * px;  // the high byte of each sample comes first
     uint8_t* o = out + (size_t)x * step * 3;
@@ -92,7 +102,7 @@ struct Inflater {
   }
 };
 
-int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
+int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane lane) {
   static const uint8_t sig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
   if (size < 8 || memcmp(data, sig, 8) != 0) return kNotImage;
   size_t pos = 8;
@@ -205,16 +215,16 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
     const int x0 = a[0], y0 = a[1], dx = a[2], dy = a[3];
     for (int y = 0; y < ph; y++)
       expand_row(l, dst + (size_t)y * stride, pw, palette,
-                 out + ((size_t)(y0 + y * dy) * l.w + x0) * 3, dx);
+                 out + ((size_t)(y0 + y * dy) * l.w + x0) * 3, dx, lane);
   }
   return kOk;
 }
 
 }  // namespace
 
-int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
+int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane lane) {
   try {
-    return decode(data, size, out, h, w);
+    return decode(data, size, out, h, w, lane);
   } catch (const std::bad_alloc&) {
     return kNoMemory;
   }

@@ -61,12 +61,16 @@ both paths of the port at full width (``ModelSpec()``):
 * the image-IO slice: the native image-IO library, the port's own PNG and
   JPEG codecs linked to zlib alone (``native/``; the script fails if it
   does not build or links libpng or libjpeg), held to the fixtures' hashes
-  of libjpeg-turbo's and libpng's output, the PNG decode bit-equal to
+  of libjpeg-turbo's, libpng's, libwebp's and Pillow's output (every BMP
+  layout Pillow reads and its refusals, 16-bit gray PNGs in both lanes,
+  JPEG blocks past 16 bits among them), the PNG decode bit-equal to
   data/png.py's on smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG
   and BMP files, the codecs' and the loader's times by decode threads
-  beside the stage-8 iteration, prep's (cli.prep on JPEG originals) and
-  the frame writers' times, and the training CLI on a set with JPEG and
-  BMP files among its PNGs, stopped by SIGTERM and resumed with
+  beside the stage-8 iteration, prep's (cli.prep on JPEG, WebP, JPEG-kind
+  and Pillow-lane originals, held to the JAX package's pyramids) and the
+  frame writers' times, and the training CLI on a set with JPEG, WebP,
+  palette and 16-bit BMP files among its PNGs, stopped by SIGTERM and
+  resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
   on its FINAL.pth.
 
@@ -3267,8 +3271,8 @@ def io_checks(tmp) -> dict:
         with open(path, "rb") as fh:
             return fh.read()
 
-    matched = fx.check(native.decode_image, encode_bytes, native.decode_vp8_yuv)
-    files = [m for m in matched if "@" not in m and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/"))]
+    matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
+    files = [m for m in matched if "@" not in m and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3277,6 +3281,14 @@ def io_checks(tmp) -> dict:
     require(len(kinds) >= 80 and {fx.kind_of(m) for m in kinds} >= set(fx.JPEG_KINDS),
             f"the manifest holds {len(kinds)} files of the JPEG kinds")
     small = [os.path.relpath(m, fx.KINDS) for m in kinds if "/card/" not in m and "/train/" not in m]
+    lanes = [m for m in matched if m.startswith(f"{fx.PILLOW}/")]
+    layouts = [m for m in lanes if "/bmp/" in m and "@" not in m]
+    refused = [m for m in lanes if m.endswith("@refused")]
+    gray16 = [m for m in lanes if m.endswith("@pillow")]
+    wide = [m for m in lanes if "/idct/" in m]
+    require(len(layouts) >= 60 and len(refused) >= 10 and len(gray16) >= 5 and len(wide) == len(fx.IDCT_KINDS),
+            f"the manifest holds {len(layouts)} BMP layouts, {len(refused)} refusals, {len(gray16)} 16-bit gray "
+            f"PNGs in the Pillow lane and {len(wide)} out-of-range JPEGs")
     print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
           f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
@@ -3284,7 +3296,12 @@ def io_checks(tmp) -> dict:
           f"VP8 planes; {len(kinds)} files of the JPEG kinds (4:4:0, arithmetic, block smoothing, CMYK, YCCK, "
           f"lossless) decoded to Pillow's RGB (libjpeg-turbo 3.1.3; the 4:4:0 and arithmetic ones the JAX native "
           f"lane's too): {', '.join(small)}, {len(fx.KINDS_CARD)} card originals and {len(kinds) - len(small) - len(fx.KINDS_CARD)} "
-          f"training files")
+          f"training files; {len(layouts)} BMP layouts decoded to Pillow's RGB "
+          f"({', '.join(os.path.basename(m) for m in layouts)}) and {len(refused)} refused with Pillow's reason "
+          f"({', '.join(os.path.basename(m)[:-12] for m in refused)}); {len(gray16)} 16-bit gray PNGs in both lanes "
+          f"(the loader's high byte, prep's clip at 255: {', '.join(os.path.basename(m)[:-7] for m in gray16)}); "
+          f"{len(wide)} JPEGs whose dequantised coefficients leave 16 bits decoded to libjpeg-turbo's SIMD IDCT "
+          f"({', '.join(os.path.basename(m) for m in wide)})")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3345,6 +3362,7 @@ def io_checks(tmp) -> dict:
     out["codec_ms"] = codec_times(other)
     out["codec_ms"].update(webp_codec_times(fx))
     out["codec_ms"].update(kinds_codec_times(fx, other))
+    out["codec_ms"].update(lane_codec_times(fx, other))
     return out
 
 
@@ -3456,6 +3474,34 @@ def kinds_codec_times(fx, folder: str) -> dict:
     return ms
 
 
+def lane_codec_times(fx, folder: str) -> dict:
+    """Host ms of the decodes the Pillow lane added, one call at a time
+    (median of ``CODEC_REPEATS``), on the card's committed 1024 px
+    originals: the 8-bit palette BMP and the RLE8 BMP (a Python loop over
+    its opcodes) beside a 24-bit ``BI_RGB`` BMP of the same size, and the
+    16-bit gray PNG in both lanes."""
+    from byogan_tpu_torch.data import images
+    from byogan_tpu_torch.data.synthetic import encode_bmp
+
+    card = os.path.join(fx.FIXTURES, fx.PILLOW, "card")
+    rgb = os.path.join(folder, "rgb-1024.bmp")
+    with open(rgb, "wb") as fh:
+        fh.write(encode_bmp(photo(np.random.default_rng(81), PREP_SIDE, PREP_SIDE)))
+    gray16 = os.path.join(card, "gray16-1024.png")
+    ms = {
+        "bmp_rgb24_1024": host_ms(lambda: images.read_image(rgb)),
+        "bmp_palette8_1024": host_ms(lambda: images.read_image(os.path.join(card, "palette-1024.bmp"))),
+        "bmp_rle8_1024": host_ms(lambda: images.read_image(os.path.join(card, "rle8-1024.bmp"))),
+        "png_gray16_1024_native": host_ms(lambda: images.read_image(gray16, (PREP_SIDE, PREP_SIDE))),
+        "png_gray16_1024_pillow": host_ms(lambda: images.read_image(gray16, (PREP_SIDE, PREP_SIDE), lane="pillow")),
+    }
+    print(f"io codecs: the Pillow lane's kinds, host ms, median of {CODEC_REPEATS} calls, one thread, {PREP_SIDE} px: "
+          f"BMP 24-bit BI_RGB {ms['bmp_rgb24_1024']:.3f}, 8-bit palette {ms['bmp_palette8_1024']:.3f}, RLE8 "
+          f"{ms['bmp_rle8_1024']:.3f} (numpy; RLE a Python loop over opcodes); 16-bit gray PNG native lane "
+          f"{ms['png_gray16_1024_native']:.3f}, Pillow lane {ms['png_gray16_1024_pillow']:.3f}; card {card_name()}")
+    return ms
+
+
 def prep_committed_cli(tmp, root, folder: str, names, key: str) -> tuple:
     """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
     committed originals ``names`` of ``fx.FIXTURES/folder``, the resizes on
@@ -3490,6 +3536,21 @@ def prep_kinds_cli(tmp, root) -> float:
     n = len(fx.KINDS_CARD)
     cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.KINDS, "card"), fx.KINDS_CARD, "jpeg_prep")
     print(f"io prep: cli.prep of {n} originals of the JPEG kinds ({', '.join(sorted(fx.KINDS_CARD))}) to 8 sets in "
+          f"{cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker threads, resizes on the "
+          f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
+          f"resize, hashes in the fixtures' manifest); card {card_name()}")
+    return cli_s / n
+
+
+def prep_pillow_cli(tmp, root) -> float:
+    """``prep_committed_cli`` on the originals the Pillow lane added (an
+    8-bit palette BMP, an RLE8 BMP and a 16-bit gray PNG scan of 10 bits,
+    1024 px), held to the JAX package's prep of them (Pillow's decode: the
+    scan clipped at 255).  Returns the seconds per original."""
+    fx = codec_fixtures()
+    n = len(fx.PILLOW_CARD)
+    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.PILLOW, "card"), fx.PILLOW_CARD, "pillow_prep")
+    print(f"io prep: cli.prep of {n} originals of the Pillow lane ({', '.join(fx.PILLOW_CARD)}) to 8 sets in "
           f"{cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker threads, resizes on the "
           f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
           f"resize, hashes in the fixtures' manifest); card {card_name()}")
@@ -3610,6 +3671,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
     prep_jpeg_s = prep_jpeg_cli(tmp, root)
     prep_webp_s = prep_webp_cli(tmp, root)
     prep_kinds_s = prep_kinds_cli(tmp, root)
+    prep_pillow_s = prep_pillow_cli(tmp, root)
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
@@ -3625,8 +3687,22 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
     print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
     return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "prep_webp_cli_s": prep_webp_s,
-            "prep_kinds_cli_s": prep_kinds_s,
+            "prep_kinds_cli_s": prep_kinds_s, "prep_pillow_cli_s": prep_pillow_s,
             "frame_ms": frame_ms}
+
+
+def lane_bmp(fx, img: np.ndarray, palette: bool) -> tuple:
+    """``img`` (uint8 RGB) as an 8-bit palette BMP on a 6 x 6 x 6 colour
+    cube, or as a 16-bit ``BI_RGB`` (555) BMP: (the file's bytes, the RGB
+    Pillow reads from it: the palette's entries; each 5-bit field as v *
+    255 // 31)."""
+    h, w = img.shape[:2]
+    if palette:
+        idx, table = fx._quantised(img, 6)
+        return fx.bmp_file(fx.bmp_rows(idx, 8)[::-1].tobytes(), w, h, 8, palette=table), table[idx]
+    v = img.astype(np.int64) >> 3
+    words = v[..., 0] << 10 | v[..., 1] << 5 | v[..., 2]
+    return fx.bmp_file(fx.bmp_rows(words, 16)[::-1].tobytes(), w, h, 16), (v * 255 // 31).astype(np.uint8)
 
 
 def uncached_stage8_cli(argv: list) -> int:
@@ -3646,7 +3722,8 @@ def uncached_stage8_cli(argv: list) -> int:
 
 def io_train(tmp, root) -> tuple:
     """The training CLI at full width on a prepared set of Paeth PNGs with
-    non-PNG files among them (2 JPEG, 2 BMP and 2 WebP a stage: the
+    non-PNG files among them (2 JPEG, 2 BMP (8-bit palette and 16-bit 555,
+    held to their own pixels at stage 8) and 2 WebP a stage: the
     committed lossy and lossless files of each stage's size, so the loader
     decodes VP8 and VP8L on every stage-8 batch; and a committed JPEG of
     each kind of ``fx.JPEG_KINDS`` at each stage's size: 4:4:0,
@@ -3662,13 +3739,14 @@ def io_train(tmp, root) -> tuple:
     from byogan_tpu_torch.cli.generate_samples import main as generate_main
     from byogan_tpu_torch.data import images, native
     from byogan_tpu_torch.data.pipeline import open_stage_dataset
-    from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
+    from byogan_tpu_torch.data.synthetic import encode_png_filtered, render
     from byogan_tpu_torch.train.checkpoint import latest_checkpoint
 
     fx = codec_fixtures()
     t0 = time.perf_counter()
     data = os.path.join(tmp, "io_data")
     params = scenes(np.random.default_rng(51), IO_TRAIN_IMAGES)
+    bmp_want = {}
     for stage in range(1, 9):
         size = 4 * 2 ** (stage - 1)
         folder = os.path.join(data, "prepared", f"set_{stage}", "images")
@@ -3686,9 +3764,12 @@ def io_train(tmp, root) -> tuple:
                             os.path.join(folder, f"image-{i}.webp"))
             elif 0 <= k < 2:
                 native.encode_jpeg(os.path.join(folder, f"image-{i}.jpg"), img, IO_JPEG_QUALITY)
-            elif k >= 0:
+            elif k >= 0:  # an 8-bit palette BMP and a 16-bit (555) one, read as Pillow reads them
+                bmp, want = lane_bmp(fx, img, k == 2)
                 with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
-                    fh.write(encode_bmp(img))
+                    fh.write(bmp)
+                if stage == 8:
+                    bmp_want[f"image-{i}.bmp"] = want
             else:
                 with open(os.path.join(folder, f"image-{i}.png"), "wb") as fh:
                     fh.write(encode_png_filtered(img, 4))
@@ -3703,6 +3784,9 @@ def io_train(tmp, root) -> tuple:
     for kind, img in zip(fx.JPEG_KINDS, stage8.get_batch_uint8(rows, 2)):
         require(fx.sha256(img) == manifest[f"{fx.KINDS}/train/512-{kind}.jpg"]["sha256_rgb"],
                 f"the stage-8 dataset read its {kind} file to other pixels than Pillow's")
+    rows = np.array([stage8.files.index(os.path.join(data, "prepared", "set_8", "images", n)) for n in sorted(bmp_want)])
+    for name, img in zip(sorted(bmp_want), stage8.get_batch_uint8(rows, 2)):
+        require(np.array_equal(img, bmp_want[name]), f"the stage-8 dataset read {name} to other pixels than its own")
     print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}) in {time.perf_counter() - t0:.2f} s; "
           f"len() of set_8 {len(stage8)}")
 

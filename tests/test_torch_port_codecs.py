@@ -236,32 +236,39 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     """The fixtures and their manifest rebuilt here (Pillow, JAX's lane)
     equal the committed ones, so they cannot drift from the libraries."""
     files = fx.fixtures()
-    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES) if n not in ("manifest.json", fx.WEBP, fx.KINDS))
+    assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES)
+                                   if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
     # The WebP files are the committed ones: another libwebp build may encode other bytes.  So are the
-    # files of the JPEG kinds (test_torch_port_jpeg_kinds.py holds them to their writers).
+    # files of the JPEG kinds (test_torch_port_jpeg_kinds.py holds them to their writers) and those under
+    # pillow/ (test_torch_port_lanes.py does).
     webp = fx.committed_webp()
     assert sorted(webp) == sorted(fx.webp_fixtures())
-    assert fx.build_manifest(files, jax_lane, str(tmp_path), webp, fx.committed_kinds()) == fx.load_manifest()
+    assert fx.build_manifest(files, jax_lane, str(tmp_path), webp, fx.committed_kinds(),
+                             fx.committed_pillow()) == fx.load_manifest()
     assert sum(len(d) for d, _ in files.values()) < 300_000
     assert sum(len(d) for d in webp.values()) < 300_000
 
 
 def test_port_matches_the_fixtures(tmp_path):
     """What ``chip_smoke.py`` checks on the card's machine: every fixture
-    decodes to the manifest's hash, every source encodes to it."""
+    decodes to the manifest's hash (a 16-bit gray PNG in both lanes), each
+    BMP Pillow refuses raises naming the file and the reason, every source
+    encodes to its hash."""
 
     def encode(img, quality):
         native.encode_jpeg(str(tmp_path / "e.jpg"), img, quality)
         return (tmp_path / "e.jpg").read_bytes()
 
-    matched = fx.check(native.decode_image, encode, native.decode_vp8_yuv)
+    matched = fx.check(images.read_image, encode, native.decode_vp8_yuv)
     manifest = fx.load_manifest()
     planes = sum("sha256_yuv" in e for e in manifest["files"].values())
-    assert len(matched) == len(manifest["files"]) + planes + len(fx.SOURCES) * len(fx.QUALITIES)
-    assert len(manifest["files"]) == len(os.listdir(fx.FIXTURES)) - 3 + len(fx.committed_webp()) + len(fx.committed_kinds())
+    pillow = sum("sha256_rgb_pillow" in e for e in manifest["files"].values())
+    assert len(matched) == len(manifest["files"]) + planes + pillow + len(fx.SOURCES) * len(fx.QUALITIES)
+    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 4 + len(fx.committed_webp())
+                                      + len(fx.committed_kinds()) + len(fx.committed_pillow()))
 
 
 # --- failures ---------------------------------------------------------------
@@ -360,7 +367,7 @@ def test_eight_threads_equal_one(tmp_path):
     interpreter lock): 8 threads over a set of JPEGs and PNGs of every kind
     give what one thread gives, and the encoder likewise."""
     paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES))
-             if n not in ("manifest.json", fx.WEBP, fx.KINDS)]
+             if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

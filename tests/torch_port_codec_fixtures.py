@@ -19,7 +19,14 @@ smoothing, CMYK, YCCK, lossless) are held to Pillow's RGB, the lane of the
 JAX package that reads them all, and their entries record what its native
 lane makes of each (``native_lane``: the same RGB, the samples it puts
 apart, or its return code); the prep of their originals of
-``kinds/card/`` is recorded as the WebP one is.  The machine with the card
+``kinds/card/`` is recorded as the WebP one is.  Under ``pillow/`` are
+the files the JAX package reads through Pillow and the port once refused
+or read otherwise: a BMP of every layout Pillow reads (``bmp/``) and of
+those it refuses (``bmp/refused/``, with Pillow's error and the reason the
+port names), 16-bit gray PNGs (``gray16/``, with both lanes' RGB) and JPEGs
+whose dequantised coefficients leave 16 bits (``idct/``, Pillow's RGB
+beside the native lane's), and originals for the card's prep
+(``card/``).  The machine with the card
 has none of these libraries, so ``chip_smoke.py`` holds the port's
 codecs to these hashes there; ``tests/test_torch_port_codecs.py``
 rebuilds the manifest here and asserts that it is the committed one.
@@ -34,7 +41,9 @@ committed too, written by the system's libjpeg (``torch_port_jpeg_writer.c``,
 compiled by ``jpeg_writer``: arithmetic coding, YCCK, CMYK without an
 Adobe marker, 4:4:0), Pillow (CMYK, progressive) and this module's
 lossless writer; ``tests/test_torch_port_jpeg_kinds.py`` holds them to
-what those writers make here.
+what those writers make here.  So are the files under ``pillow/``
+(``tests/test_torch_port_lanes.py`` holds them to this module's BMP and
+PNG writers and the system libjpeg's coefficient writer).
 
 At import this module needs numpy alone: Pillow, libwebp, libjpeg and the
 JAX lane (built from ``byogan_tpu/native/byogan_io.cpp`` into a directory
@@ -147,9 +156,10 @@ def png_bytes(samples: np.ndarray, depth: int, color: int, interlace: bool = Fal
         if sub.size == 0:
             continue
         rows = _pack(sub, depth)
+        filtered = {kind: filter_rows(rows, bpp, kind) for kind in set(kinds)}
         for r in range(rows.shape[0]):
             kind = kinds[r % len(kinds)]
-            raw.append(bytes([kind]) + filter_rows(rows, bpp, kind)[r].tobytes())
+            raw.append(bytes([kind]) + filtered[kind][r].tobytes())
     header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
     return b"".join([b"\x89PNG\r\n\x1a\n", png_chunk(b"IHDR", header), *[png_chunk(k, d) for k, d in chunks],
                      png_chunk(b"IDAT", zlib.compress(b"".join(raw))), png_chunk(b"IEND", b"")])
@@ -535,6 +545,9 @@ def jpeg_writer(build_dir: str) -> ctypes.CDLL:
     handle = ctypes.CDLL(lib)
     handle.byogan_write_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(_JpegOptions)]
+    handle.byogan_write_coefficients.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_ushort), ctypes.POINTER(ctypes.POINTER(ctypes.c_short)), ctypes.c_int, ctypes.c_int]
     return handle
 
 
@@ -1110,21 +1123,25 @@ def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
 
 
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
-                   webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None) -> dict:
+                   webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
+                   pillow: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
     or with the file's known RGB; each WebP decoded by Pillow (the JAX
     package's WebP lane), and each still lossy one's planes by libwebp;
     each file of the kinds decoded by Pillow, beside what the JAX native
-    lane makes of it (``kinds_entry``); each source encoded by the JAX
-    lane; the JAX package's pyramids of the card's WebP originals and of
-    its originals of the kinds."""
+    lane makes of it (``kinds_entry``); each file under ``pillow/``
+    (``pillow``, likewise) as ``pillow_entry`` records it; each source
+    encoded by the JAX lane; the JAX package's pyramids of the card's WebP
+    originals, of its originals of the kinds and of its originals under
+    ``pillow/card/``."""
     import PIL
     from PIL import features
 
     webp = committed_webp() if webp is None else webp
     kinds = committed_kinds() if kinds is None else kinds
+    pillow = committed_pillow() if pillow is None else pillow
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -1151,6 +1168,11 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         with open(path, "wb") as f:
             f.write(data)
         entries[name] = kinds_entry(lib, name, path)
+    for name, data in pillow.items():
+        path = os.path.join(scratch, "pillow" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = pillow_entry(lib, name, path)
     sources = {}
     for name, (seed, h, w) in SOURCES.items():
         img = source_image(seed, h, w)
@@ -1161,14 +1183,20 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         }
     card = {n: d for n, d in webp.items() if n.startswith(f"{WEBP}/card/")}
     kinds_card = {n: d for n, d in kinds.items() if n.startswith(f"{KINDS}/card/")}
+    pillow_card_files = {n: d for n, d in pillow.items() if n.startswith(f"{PILLOW}/card/")}
     return {
         "decoded_by": f"the JAX package's native lane (libpng, libjpeg-turbo), held to Pillow {PIL.__version__} "
                       "(JPEG, 8-bit PNG) or to the samples (PNG); WebP: the JAX package's Pillow lane, Pillow "
                       f"{PIL.__version__} with libwebp {features.version('webp')}, planes by the system's libwebp; "
                       f"{KINDS}/: the JAX package's Pillow lane, Pillow {PIL.__version__} with libjpeg-turbo "
-                      f"{features.version('libjpeg_turbo')}, beside its native lane (native_lane)",
+                      f"{features.version('libjpeg_turbo')}, beside its native lane (native_lane); {PILLOW}/: "
+                      f"Pillow {PIL.__version__}'s convert(\"RGB\") (BMP layouts, refusals with Pillow's "
+                      "error), 16-bit "
+                      "gray PNGs in both lanes (sha256_rgb: the native lane's, sha256_rgb_pillow: Pillow's), JPEGs "
+                      "whose dequantised coefficients leave 16 bits beside the native lane (native_lane)",
         "files": entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
+        "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
     }
 
 
@@ -1176,13 +1204,14 @@ def write(scratch: str) -> dict:
     files = fixtures()
     webp = webp_fixtures()
     kinds = kinds_fixtures(scratch)
-    for folder in (WEBP, KINDS):
+    pillow = pillow_fixtures(scratch)
+    for folder in (WEBP, KINDS, PILLOW):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
-    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds}.items():
+    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
-    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds)
+    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -1194,13 +1223,18 @@ def load_manifest() -> dict:
         return json.load(f)
 
 
-def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int], bytes],
+def check(decode: Callable[..., np.ndarray], encode: Callable[[np.ndarray, int], bytes],
           decode_yuv: Optional[Callable[[str], Tuple[np.ndarray, np.ndarray, np.ndarray]]] = None) -> List[str]:
-    """The committed fixtures against ``decode`` (a path -> RGB),
-    ``encode`` (image, quality -> JPEG bytes) and ``decode_yuv`` (a lossy
-    WebP's path -> Y, U, V; skipped where None): the names of those that
-    match (``name@yuv`` for planes, ``source@qN`` for encodes); raises
+    """The committed fixtures against ``decode`` (a path -> RGB, in the
+    JAX package's native lane; ``decode(path, lane="pillow")`` in its
+    Pillow lane), ``encode`` (image, quality -> JPEG bytes) and
+    ``decode_yuv`` (a lossy WebP's path -> Y, U, V; skipped where None):
+    the names of those that match (``name@pillow`` for the Pillow lane,
+    ``name@refused`` for a file ``decode`` must refuse with the recorded
+    reason, ``name@yuv`` for planes, ``source@qN`` for encodes); raises
     ``AssertionError`` naming the first that does not."""
+    import re
+
     manifest = load_manifest()
     matched = []
     for name, want in sorted(manifest["files"].items()):
@@ -1208,10 +1242,25 @@ def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int
         with open(path, "rb") as f:
             if sha256(f.read()) != want["sha256"]:
                 raise AssertionError(f"{name}: the file is not the one the manifest records")
+        if "refused" in want:
+            try:
+                decode(path)
+            except OSError as e:
+                if not re.search(want["refused"], str(e)) or path not in str(e):
+                    raise AssertionError(f"{name}: refused for another reason: {e}") from e
+            else:
+                raise AssertionError(f"{name}: decoded, where Pillow refuses it ({want['pillow']})")
+            matched.append(f"{name}@refused")
+            continue
         got = decode(path)
         if list(got.shape) != want["shape"] + [3] or sha256(got) != want["sha256_rgb"]:
-            raise AssertionError(f"{name}: decoded to other pixels than libjpeg-turbo's / libpng's / libwebp's")
+            raise AssertionError(f"{name}: decoded to other pixels than libjpeg-turbo's / libpng's / libwebp's / "
+                                 "Pillow's")
         matched.append(name)
+        if "sha256_rgb_pillow" in want:
+            if sha256(decode(path, lane="pillow")) != want["sha256_rgb_pillow"]:
+                raise AssertionError(f"{name}: decoded to other pixels than Pillow's in the Pillow lane")
+            matched.append(f"{name}@pillow")
         if decode_yuv is not None and "sha256_yuv" in want:
             if yuv_digest(decode_yuv(path)) != want["sha256_yuv"]:
                 raise AssertionError(f"{name}: decoded to other planes than libwebp's WebPDecodeYUV")
@@ -1229,8 +1278,9 @@ def check(decode: Callable[[str], np.ndarray], encode: Callable[[np.ndarray, int
 
 def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_prep") -> int:
     """The pyramid prepared under ``root`` from the card's WebP originals
-    (``key`` "webp_prep") or its originals of the JPEG kinds ("jpeg_prep")
-    against the JAX package's recorded one: the number of images matched;
+    (``key`` "webp_prep"), its originals of the JPEG kinds ("jpeg_prep")
+    or its originals under ``pillow/card/`` ("pillow_prep") against the JAX
+    package's recorded one: the number of images matched;
     raises ``AssertionError`` naming the first that differs."""
     want = load_manifest()[key]
     n = 0
@@ -1245,6 +1295,413 @@ def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_pr
     return n
 
 
+
+# --- the files the JAX package's Pillow lanes read and the port refused or read otherwise ---
+
+PILLOW = "pillow"  # their files' folder under FIXTURES
+#: the card's originals for cli.prep (under ``pillow/card/``): an 8-bit
+#: palette BMP, an RLE8 BMP and a 16-bit gray PNG scan, at 1024 px
+PILLOW_CARD = ("palette-1024.bmp", "rle8-1024.bmp", "gray16-1024.png")
+
+
+def bmp_rows(values: np.ndarray, bits: int) -> np.ndarray:
+    """BMP pixel rows of ``values``, top row first, each padded to 4 bytes:
+    (h, w) indices at 1, 4 or 8 bits, (h, w) pixel words at 16 or 32 bits,
+    (h, w, 3) bytes at 24 (in file order: B, G, R)."""
+    v = np.asarray(values)
+    h, w = v.shape[:2]
+    out = np.zeros((h, (w * bits + 31) // 32 * 4), np.uint8)
+    if bits < 8:
+        per = 8 // bits
+        pad = np.zeros((h, -(-w // per) * per), np.int64)
+        pad[:, :w] = v
+        groups = pad.reshape(h, -1, per)
+        packed = sum(groups[..., i] << (bits * (per - 1 - i)) for i in range(per)).astype(np.uint8)
+        out[:, :packed.shape[1]] = packed
+    elif bits == 8:
+        out[:, :w] = v
+    else:
+        words = {16: "<u2", 32: "<u4"}.get(bits)
+        raw = v.astype(np.uint8) if words is None else v.astype(words).view(np.uint8)
+        out[:, :w * bits // 8] = raw.reshape(h, -1)
+    return out
+
+
+def bmp_file(body: bytes, w: int, h: int, bits: int, header: int = 40, compression: int = 0,
+             palette: Optional[np.ndarray] = None, colors: int = 0, masks: Tuple[int, ...] = (),
+             offset: Optional[int] = None, top_down: bool = False) -> bytes:
+    """A BMP file of pixel data ``body`` (rows in file order, or an RLE
+    stream): a ``header``-byte info header (12: OS/2 1.x, with 3-byte
+    palette entries), ``palette`` (RGB rows) written as BGR(X) after it,
+    ``masks`` in the header (52 bytes and up) or after it (40), ``offset``
+    the pixel data's (by default right after the palette), the height
+    negated where ``top_down``."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, compression, len(body),
+                           2835, 2835, colors, 0)
+        if header >= 52:
+            info += struct.pack("<IIII", *(tuple(masks) + (0,) * 4)[:4])[:12 if header == 52 else 16]
+        info = info.ljust(header, b"\0")
+    after = struct.pack("<III", *masks[:3]) if header == 40 and compression == 3 else b""
+    table = b""
+    if palette is not None:
+        bgr = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            bgr = np.concatenate([bgr, np.zeros((len(bgr), 1), np.uint8)], axis=1)
+        table = bgr.tobytes()
+    start = 14 + len(info) + len(after) + len(table)
+    at = start if offset is None else offset
+    gap = bytes(max(0, at - start))
+    return b"BM" + struct.pack("<IHHI", start + len(gap) + len(body), 0, 0, at) + info + after + table + gap + body
+
+
+def rle_stream(rows: np.ndarray, rle4: bool) -> bytes:
+    """Index rows (file order) as a BMP RLE8 or RLE4 stream that Pillow
+    reads: runs of 3 or more equal indices, absolute runs of the rest (an
+    even count at 4 bits) padded to 16 bits, end of line after each row,
+    end of bitmap after the last."""
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        x, w = 0, len(row)
+        while x < w:
+            n = 1
+            while x + n < w and n < 255 and row[x + n] == row[x]:
+                n += 1
+            if n >= 3 or w - x < 4:
+                n = max(1, min(n, w - x))
+                out += bytes([n, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += n
+                continue
+            m = 1  # an absolute run up to the next run of 3
+            while x + m < w and m < 254 and not (x + m + 2 < w and row[x + m] == row[x + m + 1] == row[x + m + 2]):
+                m += 1
+            m -= m % 2 if rle4 else 0
+            if m < (4 if rle4 else 3):
+                out += bytes([1, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += 1
+                continue
+            vals = row[x:x + m]
+            data = bytes((vals[0::2] << 4 | vals[1::2]).astype(np.uint8)) if rle4 else bytes(vals.astype(np.uint8))
+            out += bytes([0, m]) + data + bytes(len(data) % 2)
+            x += m
+        out += b"\0\0"
+    return bytes(out[:-2]) + b"\0\1"
+
+
+def _quantised(img: np.ndarray, levels: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``img`` (uint8 RGB) on a palette of ``levels``^3 colours: (indices,
+    palette rows)."""
+    q = img.astype(np.int64) * levels // 256
+    idx = (q[..., 0] * levels + q[..., 1]) * levels + q[..., 2]
+    grid = np.stack(np.meshgrid(*[np.arange(levels)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return idx, (grid * 255 // max(1, levels - 1)).astype(np.uint8)
+
+
+def bmp_layouts() -> Dict[str, bytes]:
+    """A BMP of every layout Pillow 12.1.0 reads (name -> bytes), small and
+    of odd widths: each header size; 1-, 4- and 8-bit palettes, full,
+    short, counted in the header or not, 3-byte entries; the gray palettes
+    Pillow drops (a black-and-white pair at 1, 4 and 8 bits, the 16-entry
+    ramp at 4 bits, the 256-entry ramp); 16-bit BI_RGB and bitfields; 24-
+    and 32-bit BI_RGB and every bitfield layout; RLE8 and RLE4 with runs,
+    absolute runs, end of line, end of bitmap and deltas; top-down rows;
+    the offsets Pillow guesses; Pillow's own L, P and 1 files."""
+    from PIL import Image
+
+    r = np.random.default_rng(1601)
+    h, w = 11, 13
+    out = {}
+    pal = r.integers(0, 256, (256, 3))
+    for bits in (1, 4, 8):
+        n = 1 << bits
+        idx = r.integers(0, n, (h, w))
+        body = bmp_rows(idx, bits)[::-1].tobytes()
+        out[f"pal{bits}.bmp"] = bmp_file(body, w, h, bits, palette=pal[:n])
+        out[f"pal{bits}-colors-in-header.bmp"] = bmp_file(body, w, h, bits, palette=pal[:n], colors=n)
+        out[f"pal{bits}-os2.bmp"] = bmp_file(body, w, h, bits, header=12, palette=pal[:n])
+        out[f"pal{bits}-top-down.bmp"] = bmp_file(bmp_rows(idx, bits).tobytes(), w, h, bits, palette=pal[:n],
+                                                   top_down=True)
+        if bits > 1:
+            short = max(2, n // 3)
+            out[f"pal{bits}-short-{short}.bmp"] = bmp_file(body, w, h, bits, palette=pal[:short] + 1, colors=short)
+        out[f"pal{bits}-black-white.bmp"] = bmp_file(body, w, h, bits, palette=[[0, 0, 0], [255, 255, 255]], colors=2)
+    idx = r.integers(0, 16, (h, w))
+    ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    out["pal4-gray-ramp16.bmp"] = bmp_file(bmp_rows(idx, 4)[::-1].tobytes(), w, h, 4, palette=ramp[:16])
+    idx = r.integers(0, 256, (h, w))
+    out["pal8-gray-ramp.bmp"] = bmp_file(bmp_rows(idx, 8)[::-1].tobytes(), w, h, 8, palette=ramp)
+    out["pal8-offset-guessed.bmp"] = bmp_file(bmp_rows(idx, 8)[::-1].tobytes(), w, h, 8, palette=pal, offset=54)
+    out["pal8-offset-zero.bmp"] = bmp_file(bmp_rows(idx, 8)[::-1].tobytes(), w, h, 8, palette=pal, offset=0)
+    for header in (52, 56, 64, 108, 124):
+        out[f"pal8-header{header}.bmp"] = bmp_file(bmp_rows(idx, 8)[::-1].tobytes(), w, h, 8, header=header,
+                                                   palette=pal)
+    words = r.integers(0, 65536, (h, w))
+    body16 = bmp_rows(words, 16)[::-1].tobytes()
+    out["rgb16-555.bmp"] = bmp_file(body16, w, h, 16)
+    out["rgb16-555-os2.bmp"] = bmp_file(body16, w, h, 16, header=12)
+    for name, masks in (("555", (0x7C00, 0x3E0, 0x1F)), ("565", (0xF800, 0x7E0, 0x1F))):
+        for header in (40, 56, 124):
+            out[f"bitfields16-{name}-header{header}.bmp"] = bmp_file(body16, w, h, 16, header=header, compression=3,
+                                                                      masks=masks)
+    bgr = r.integers(0, 256, (h, w, 3))
+    out["rgb24.bmp"] = bmp_file(bmp_rows(bgr, 24)[::-1].tobytes(), w, h, 24)
+    out["rgb24-os2.bmp"] = bmp_file(bmp_rows(bgr, 24)[::-1].tobytes(), w, h, 24, header=12)
+    out["rgb24-top-down-header108.bmp"] = bmp_file(bmp_rows(bgr, 24).tobytes(), w, h, 24, header=108, top_down=True)
+    out["bitfields24.bmp"] = bmp_file(bmp_rows(bgr, 24)[::-1].tobytes(), w, h, 24, compression=3,
+                                      masks=(0xFF0000, 0xFF00, 0xFF))
+    px = r.integers(0, 2**32, (h, w), dtype=np.uint64)
+    body32 = bmp_rows(px, 32)[::-1].tobytes()
+    out["rgb32.bmp"] = bmp_file(body32, w, h, 32)
+    for masks in ((0xFF0000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0x0), (0xFF000000, 0xFF00, 0xFF, 0x0),
+                  (0xFF000000, 0xFF0000, 0xFF00, 0xFF), (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+                  (0xFF0000, 0xFF00, 0xFF, 0xFF000000), (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)):
+        tag = "-".join(f"{m:x}" for m in masks)
+        out[f"bitfields32-{tag}.bmp"] = bmp_file(body32, w, h, 32, header=124, compression=3, masks=masks)
+    out["bitfields32-header40.bmp"] = bmp_file(body32, w, h, 32, compression=3, masks=(0xFF0000, 0xFF00, 0xFF))
+    scene = smooth_scene(1602, 2 * h, 3 * w + 1, cell=8, step=48)
+    for bits, comp in ((8, 1), (4, 2)):
+        idx, palette = _quantised(scene, 6 if bits == 8 else 2)
+        if bits == 4:
+            idx = idx * 2 % 16
+        stream = rle_stream(idx[::-1], bits == 4)
+        hh, ww = idx.shape
+        out[f"rle{bits}.bmp"] = bmp_file(stream, ww, hh, bits, compression=comp, palette=palette[:1 << bits])
+        out[f"rle{bits}-gray.bmp"] = bmp_file(stream, ww, hh, bits, compression=comp, palette=ramp[:1 << bits])
+        out[f"rle{bits}-top-down.bmp"] = bmp_file(rle_stream(idx, bits == 4), ww, hh, bits, compression=comp,
+                                                  palette=palette[:1 << bits], top_down=True)
+    # Pillow's reading of the escapes, on 6 x 4: a delta skips two bytes and reads (right, up) from the next
+    # two; a run is cut at the row's end; an absolute run runs over it; an odd absolute count at 4 bits
+    # reads count // 2 bytes; the alignment after an absolute run follows the file's offsets (odd here).
+    escapes = {
+        "rle8-delta.bmp": [6, 10, 0, 0, 2, 20, 0, 2, 9, 9, 2, 1, 0, 0, 6, 40, 0, 1],
+        "rle8-run-past-row.bmp": [9, 10, 0, 0, 6, 20, 0, 0, 6, 30, 0, 0, 4, 40, 0, 0, 0, 1],
+        "rle8-absolute-over-row.bmp": [0, 8, 1, 2, 3, 4, 5, 6, 7, 8, 0, 0, 6, 30, 0, 0, 6, 40, 0, 1],
+        "rle8-no-end-of-bitmap.bmp": [6, 10, 0, 0, 6, 20, 0, 0, 6, 30, 0, 0, 6, 40],
+        "rle8-odd-offset.bmp": [0, 3, 1, 2, 3, 3, 9, 0, 0, 6, 20, 0, 0, 6, 30, 0, 0, 6, 40, 0, 1],
+        "rle4-odd-absolute.bmp": [0, 5, 0x12, 0x34, 0, 0, 6, 0x9A, 0, 0, 6, 0x11, 0, 0, 6, 0x22, 0, 1],
+    }
+    for name, ops in escapes.items():
+        bits = 4 if name.startswith("rle4") else 8
+        out[name] = bmp_file(bytes(ops), 6, 4, bits, compression=1 if bits == 8 else 2,
+                             palette=ramp if bits == 8 else pal[:16],
+                             offset=14 + 40 + 1024 + 1 if "odd-offset" in name else None)
+    img = source_image(1603, h, w)
+    for mode in ("L", "P", "1"):
+        buf = io.BytesIO()
+        Image.fromarray(img).convert(mode).save(buf, format="BMP")
+        out[f"pillow-{mode}.bmp"] = buf.getvalue()
+    return {f"{PILLOW}/bmp/{k}": v for k, v in sorted(out.items())}
+
+
+def bmp_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """BMP files Pillow 12.1.0 refuses: name -> (bytes, the reason the
+    port's ``OSError`` names, a regular expression)."""
+    r = np.random.default_rng(1604)
+    h, w = 5, 7
+    idx = r.integers(0, 4, (h, w))
+    pal = r.integers(0, 256, (300, 3))
+    body8 = bmp_rows(idx, 8)[::-1].tobytes()
+    rgb = bmp_rows(r.integers(0, 256, (h, w, 3)), 24)[::-1].tobytes()
+    with_header16 = bytearray(bmp_file(body8, w, h, 8, palette=pal[:256]))
+    with_header16[14:18] = struct.pack("<I", 16)
+    ramp16 = np.repeat(np.arange(16)[:, None], 3, axis=1)
+    ramp4 = bmp_file(bmp_rows(r.integers(0, 16, (h, w)), 4)[::-1].tobytes(), w, h, 4, palette=ramp16)
+    return {
+        "2-bit.bmp": (bmp_file(bmp_rows(idx, 2)[::-1].tobytes(), w, h, 2, palette=pal[:4]), "2-bit pixels"),
+        "64-bit.bmp": (bmp_file(bytes(8 * w * h), w, h, 64), "64-bit pixels"),
+        "bi-jpeg.bmp": (bmp_file(rgb, w, h, 24, compression=4), "BI_JPEG"),
+        "bi-png.bmp": (bmp_file(rgb, w, h, 24, compression=5), "BI_PNG"),
+        "bitfields32-rgb-alpha-low.bmp": (bmp_file(bytes(4 * w * h), w, h, 32, header=56, compression=3,
+                                                   masks=(0xFF0000, 0xFF00, 0xFF, 0xFF)), "bitfields"),
+        "bitfields16-444.bmp": (bmp_file(bytes(2 * w * h + 2 * h), w, h, 16, compression=3,
+                                         masks=(0xF00, 0xF0, 0xF)), "bitfields"),
+        "bitfields8.bmp": (bmp_file(body8, w, h, 8, compression=3, palette=pal[:256], masks=(0xE0, 0x1C, 0x3)),
+                           "bitfields"),
+        "palette-70000-colours.bmp": (bmp_file(body8, w, h, 8, palette=pal[:4], colors=70000), "70000 colours"),
+        "palette-300-colours.bmp": (bmp_file(body8, w, h, 8, palette=pal, colors=300), "300 colours"),
+        "header16.bmp": (bytes(with_header16), "16-byte header"),
+        "rle8-black-white.bmp": (bmp_file(bytes([7, 1, 0, 0] * h), w, h, 8, compression=1,
+                                          palette=[[0, 0, 0], [255, 255, 255]], colors=2), "black and white"),
+        "rle8-24-bit.bmp": (bmp_file(bytes([7, 1, 0, 0] * h), w, h, 24, compression=1), "no palette"),
+        "rle8-ends-early.bmp": (bmp_file(bytes([7, 1, 0, 0, 0, 1]), w, h, 8, compression=1, palette=pal[:256]),
+                                "end before"),
+        "truncated.bmp": (bmp_file(rgb, w, h, 24)[:-20], "truncated"),
+        "gray-ramp16-truncated.bmp": (ramp4[:-1], "truncated"),
+    }
+
+
+def gray16_pngs() -> Dict[str, bytes]:
+    """16-bit gray PNGs, where the JAX package's lanes part: samples over
+    the whole range and below 1024 (a scanner's 10 bits), Adam7, tRNS."""
+    r = np.random.default_rng(1605)
+    full = r.integers(0, 65536, (9, 14, 1))
+    full[0, :6, 0] = [0, 255, 256, 771, 1542, 65535]
+    low = r.integers(0, 1024, (13, 10, 1))
+    out = {
+        "gray16-full.png": png_bytes(full, 16, 0),
+        "gray16-10-bit.png": png_bytes(low, 16, 0),
+        "gray16-10-bit-adam7.png": png_bytes(low, 16, 0, interlace=True),
+        "gray16-trns.png": png_bytes(low, 16, 0, chunks=((b"tRNS", struct.pack(">H", int(low[0, 0, 0]))),)),
+    }
+    return {f"{PILLOW}/gray16/{k}": v for k, v in out.items()}
+
+
+def coefficient_jpeg(lib: ctypes.CDLL, path: str, h: int, w: int, sampling: List[Tuple[int, int]], quant: np.ndarray,
+                     coefs: List[np.ndarray], arith: bool = False, progressive: bool = False) -> bytes:
+    """A JPEG written by the system's libjpeg (``jpeg_write_coefficients``)
+    from quantised coefficients chosen here: component c of (h, v) factors
+    ``sampling[c]``, quantised by ``quant[c]`` (64 values, natural order),
+    its blocks ``coefs[c]`` ((rows, columns, 64) over its block grid
+    rounded up to whole MCUs, natural order).  The file's bytes."""
+    ints = ctypes.c_int * 8
+    samp = ints(*[v for s in sampling for v in s])
+    q = np.ascontiguousarray(np.asarray(quant, np.uint16).reshape(len(sampling), 64))
+    arrays = [np.ascontiguousarray(c, np.int16) for c in coefs]
+    short_p = ctypes.POINTER(ctypes.c_short)
+    ptrs = (short_p * 4)(*[a.ctypes.data_as(short_p) for a in arrays])
+    rc = lib.byogan_write_coefficients(path.encode(), h, w, len(sampling), samp,
+                                       q.ctypes.data_as(ctypes.POINTER(ctypes.c_ushort)), ptrs, int(arith),
+                                       int(progressive))
+    if rc != 0:
+        raise OSError(f"{path}: libjpeg did not write it ({rc})")
+    with open(path, "rb") as f:
+        return f.read()
+
+
+#: the JPEG kinds that share the IDCT, as (sampling, arithmetic, progressive, block-smoothed)
+IDCT_KINDS = {
+    "baseline-gray": ([(1, 1)], False, False, False),
+    "baseline-420": ([(2, 2), (1, 1), (1, 1)], False, False, False),
+    "baseline-444": ([(1, 1)] * 3, False, False, False),
+    "progressive-420": ([(2, 2), (1, 1), (1, 1)], False, True, False),
+    "arith-444": ([(1, 1)] * 3, True, False, False),
+    "arith-progressive-420": ([(2, 2), (1, 1), (1, 1)], True, True, False),
+    "smoothed-420": ([(2, 2), (1, 1), (1, 1)], False, True, True),
+}
+
+
+def wide_blocks(seed: int, h: int, w: int, sampling: List[Tuple[int, int]]) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """Quantisers (up to 255) and coefficients (DC up to +-2047, AC up to
+    +-1023: what a baseline file codes) whose dequantised values leave the
+    16-bit range in three blocks of four, beside blocks that stay in it:
+    (quant, coefficients of each component).  A component's DC values keep
+    one sign, so no difference between neighbours passes 2047."""
+    r = np.random.default_rng(seed)
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = _ceil(w, 8 * hmax), _ceil(h, 8 * vmax)
+    quant = r.integers(1, 256, (len(sampling), 64))
+    quant[:, 0] = r.integers(100, 256, len(sampling))
+    coefs = []
+    for ci, (sh, sv) in enumerate(sampling):
+        sign = 1 if ci % 2 == 0 else -1
+        rows, cols = mcuy * sv, mcux * sh
+        c = np.zeros((rows, cols, 64), np.int64)
+        for by in range(rows):
+            for bx in range(cols):
+                kind = (by * cols + bx) % 4
+                c[by, bx, 0] = sign * r.integers(0, 2048)
+                if kind == 1:  # one large AC term
+                    c[by, bx, r.integers(1, 64)] = r.integers(-1023, 1024)
+                elif kind == 2:  # several
+                    at = r.choice(np.arange(1, 64), 6, replace=False)
+                    c[by, bx, at] = r.integers(-1023, 1024, 6)
+                elif kind == 3:  # small terms: in range once dequantised
+                    c[by, bx, 0] = sign * r.integers(0, 9)
+                    c[by, bx, 1:10] = r.integers(-2, 3, 9)
+        coefs.append(c.astype(np.int16))
+    return quant, coefs
+
+
+def idct_jpegs(lib: ctypes.CDLL, scratch: str) -> Dict[str, bytes]:
+    """JPEGs of each kind of ``IDCT_KINDS`` whose dequantised coefficients
+    leave the 16-bit range (``wide_blocks``), written by the system's
+    libjpeg (``lib``, from ``jpeg_writer``); the block-smoothed one a
+    progressive file with its refinement scans taken out."""
+    out = {}
+    for i, (kind, (sampling, arith, progressive, smoothed)) in enumerate(IDCT_KINDS.items()):
+        h, w = 29 + 8 * i, 37
+        quant, coefs = wide_blocks(1606 + i, h, w, sampling)
+        data = coefficient_jpeg(lib, os.path.join(scratch, "idct.jpg"), h, w, sampling, quant, coefs, arith,
+                                progressive)
+        if smoothed:
+            data = drop_scans(data, lambda n, ss, se, ah, al: ah == 0)
+        out[f"{PILLOW}/idct/{kind}.jpg"] = data
+    return out
+
+
+def pillow_card() -> Dict[str, bytes]:
+    """The card's originals for cli.prep: an 8-bit palette BMP of a photo
+    on a 6 x 6 x 6 colour cube, an RLE8 BMP of a posterised scene and a
+    16-bit gray PNG scan of 10 bits, each 1024 px."""
+    side = 1024
+    idx, palette = _quantised(source_image(1610, side, side), 6)
+    scene = smooth_scene(1611, side, side, cell=128, step=32)
+    ridx, rpalette = _quantised(scene, 6)
+    high, low = smooth_scene(1612, side, side, cell=256), smooth_scene(1613, side, side, cell=256)
+    gray = high[..., :1].astype(np.int64) * 4 + low[..., :1] % 4
+    return {
+        f"{PILLOW}/card/palette-1024.bmp": bmp_file(bmp_rows(idx, 8)[::-1].tobytes(), side, side, 8, palette=palette),
+        f"{PILLOW}/card/rle8-1024.bmp": bmp_file(rle_stream(ridx[::-1], False), side, side, 8, compression=1,
+                                                  palette=rpalette),
+        f"{PILLOW}/card/gray16-1024.png": png_bytes(gray, 16, 0, kinds=(4,)),
+    }
+
+
+def pillow_fixtures(scratch: str) -> Dict[str, bytes]:
+    """Every file under ``pillow/`` (name -> bytes), written anew: the BMP
+    layouts and refusals, the 16-bit gray PNGs, the out-of-range JPEGs and
+    the card's originals."""
+    lib = jpeg_writer(os.path.join(scratch, "build"))
+    refused = {f"{PILLOW}/bmp/refused/{k}": v for k, (v, _) in bmp_refusals().items()}
+    return dict(sorted({**bmp_layouts(), **refused, **gray16_pngs(), **idct_jpegs(lib, scratch),
+                        **pillow_card()}.items()))
+
+
+def committed_pillow() -> Dict[str, bytes]:
+    """The committed files under ``pillow/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, PILLOW)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def pillow_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
+    """A manifest entry of a file under ``pillow/``: a BMP Pillow refuses
+    records Pillow's error and the reason the port must name (``refused``);
+    any other its Pillow RGB, and what the JAX native lane makes of it
+    (``native_lane``, as ``kinds_entry``); a 16-bit gray PNG records the
+    native lane's RGB (the loader's) as ``sha256_rgb`` and Pillow's (prep's)
+    as ``sha256_rgb_pillow``."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if "/refused/" in name:
+        try:
+            with Image.open(path) as im:
+                im.convert("RGB")
+        except Exception as e:  # noqa: BLE001 - Pillow raises OSError, ValueError and its own
+            return {"bytes": len(data), "sha256": sha256(data), "pillow": f"{type(e).__name__}: {e}",
+                    "refused": bmp_refusals()[os.path.basename(name)][1]}
+        raise AssertionError(f"{name}: Pillow reads it")
+    if "/gray16/" in name or name.endswith(".png"):
+        native_rgb, rgb = jax_decode(lib, path), pil_rgb(path)
+        return {"bytes": len(data), "sha256": sha256(data), "shape": list(rgb.shape[:2]),
+                "sha256_rgb": sha256(native_rgb), "sha256_rgb_pillow": sha256(rgb)}
+    if name.endswith(".bmp"):
+        rgb = pil_rgb(path)
+        return {"bytes": len(data), "sha256": sha256(data), "shape": list(rgb.shape[:2]), "sha256_rgb": sha256(rgb)}
+    entry = kinds_entry(lib, name, path)
+    if "/smoothed" not in name and entry["native_lane"] != "same":
+        raise AssertionError(f"{name}: the JAX package's two lanes read it differently: {entry['native_lane']}")
+    return entry
+
+
 if __name__ == "__main__":
     import tempfile
 
@@ -1254,5 +1711,7 @@ if __name__ == "__main__":
     total = sum(e["bytes"] for e in out["files"].values())
     webp_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{WEBP}/"))
     kinds_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{KINDS}/"))
-    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds), "
+    pillow_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{PILLOW}/"))
+    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds, "
+          f"{pillow_total} under {PILLOW}/), "
           f"{len(out['sources'])} sources x {len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)

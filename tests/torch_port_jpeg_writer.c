@@ -3,9 +3,13 @@
  * directory it names and calls it through ctypes).  It reaches what Pillow
  * cannot ask libjpeg for: arithmetic coding with the DAC conditioning
  * values set, YCCK, CMYK without an Adobe marker, 4:4:0 and other
- * sampling factors, progressive scripts with arithmetic coding.
+ * sampling factors, progressive scripts with arithmetic coding; and files
+ * of coefficients chosen by the caller, with quantisers of its own
+ * (byogan_write_coefficients: jpeg_write_coefficients), so a block's
+ * dequantised coefficients can leave the 16-bit range.
  */
 
+#include <setjmp.h>
 #include <stdio.h>
 #include <string.h>
 
@@ -65,6 +69,80 @@ int byogan_write_jpeg(const char *path, const unsigned char *samples, int h, int
   while (cinfo.next_scanline < cinfo.image_height) {
     JSAMPROW row = (JSAMPROW)(samples + (size_t)cinfo.next_scanline * stride);
     jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  fclose(f);
+  return 0;
+}
+
+struct byogan_error {
+  struct jpeg_error_mgr mgr;
+  jmp_buf jump;
+};
+
+static void byogan_error_exit(j_common_ptr cinfo) { longjmp(((struct byogan_error *)cinfo->err)->jump, 1); }
+
+/* An h x w file of ncomp components (1: gray, 3: YCbCr) with the (h, v)
+ * factors sampling[2c], sampling[2c + 1], component c quantised by the 64
+ * values quant[64c...] (natural order, 1-255) and holding the coefficients
+ * coef[c] (its blocks row by row over the component's block grid rounded
+ * up to whole MCUs, 64 natural-order values each); Huffman coding
+ * (optimal tables) or arithmetic, sequential or progressive
+ * (jpeg_simple_progression).  Returns 0, -1 if the file cannot be opened,
+ * -2 if libjpeg refuses (a coefficient it cannot code). */
+int byogan_write_coefficients(const char *path, int h, int w, int ncomp, const int *sampling,
+                              const unsigned short *quant, const short *const *coef, int arith,
+                              int progressive) {
+  struct jpeg_compress_struct cinfo;
+  struct byogan_error err;
+  jvirt_barray_ptr arrays[4];
+  FILE *f = fopen(path, "wb");
+  if (!f) return -1;
+  cinfo.err = jpeg_std_error(&err.mgr);
+  err.mgr.error_exit = byogan_error_exit;
+  if (setjmp(err.jump)) {
+    jpeg_destroy_compress(&cinfo);
+    fclose(f);
+    return -2;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_stdio_dest(&cinfo, f);
+  cinfo.image_width = (JDIMENSION)w;
+  cinfo.image_height = (JDIMENSION)h;
+  cinfo.input_components = ncomp;
+  cinfo.in_color_space = ncomp == 1 ? JCS_GRAYSCALE : JCS_YCbCr;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_colorspace(&cinfo, ncomp == 1 ? JCS_GRAYSCALE : JCS_YCbCr);
+  int hmax = 1, vmax = 1;
+  for (int c = 0; c < ncomp; c++) {
+    jpeg_component_info *comp = &cinfo.comp_info[c];
+    comp->h_samp_factor = sampling[2 * c];
+    comp->v_samp_factor = sampling[2 * c + 1];
+    if (comp->h_samp_factor > hmax) hmax = comp->h_samp_factor;
+    if (comp->v_samp_factor > vmax) vmax = comp->v_samp_factor;
+    comp->quant_tbl_no = c;
+    if (!cinfo.quant_tbl_ptrs[c]) cinfo.quant_tbl_ptrs[c] = jpeg_alloc_quant_table((j_common_ptr)&cinfo);
+    for (int k = 0; k < DCTSIZE2; k++) cinfo.quant_tbl_ptrs[c]->quantval[k] = quant[64 * c + k];
+    cinfo.quant_tbl_ptrs[c]->sent_table = FALSE;
+  }
+  cinfo.arith_code = (boolean)arith;
+  cinfo.optimize_coding = (boolean)!arith;
+  if (progressive) jpeg_simple_progression(&cinfo);
+  int bw[4], bh[4];
+  const int mcux = (w + 8 * hmax - 1) / (8 * hmax), mcuy = (h + 8 * vmax - 1) / (8 * vmax);
+  for (int c = 0; c < ncomp; c++) {
+    bw[c] = mcux * sampling[2 * c];
+    bh[c] = mcuy * sampling[2 * c + 1];
+    arrays[c] = (*cinfo.mem->request_virt_barray)((j_common_ptr)&cinfo, JPOOL_IMAGE, TRUE, (JDIMENSION)bw[c],
+                                                   (JDIMENSION)bh[c], (JDIMENSION)sampling[2 * c + 1]);
+  }
+  jpeg_write_coefficients(&cinfo, arrays);
+  for (int c = 0; c < ncomp; c++) {
+    for (int by = 0; by < bh[c]; by++) {
+      JBLOCKARRAY row = (*cinfo.mem->access_virt_barray)((j_common_ptr)&cinfo, arrays[c], (JDIMENSION)by, 1, TRUE);
+      memcpy(row[0], coef[c] + (size_t)by * bw[c] * DCTSIZE2, (size_t)bw[c] * sizeof(JBLOCK));
+    }
   }
   jpeg_finish_compress(&cinfo);
   jpeg_destroy_compress(&cinfo);

@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Host ms of one checkout's image decodes on one thread, for comparing two
+checkouts on one machine.
+
+    python3 tools/time_decode.py [--checkout DIR] [--repeats 40]
+
+Loads DIR's native image-IO library (``data/native.load_library``, which
+builds it into DIR/build where it is missing or stale; DIR: the checkout
+that holds this script by default) and times, median and least of
+``--repeats`` calls after one, a 1024 px photo-like JPEG (4:2:0, quality
+92, written by DIR's encoder, which writes libjpeg's bytes) decoded to RGB
+through ``byogan_decode``, whatever the library's ABI (4 before the lane
+argument, 5 after).  The photo is the one ``chip_smoke.py`` times (smooth
+colour with noise of 2 LSB, seed 61).  The last line is a JSON summary
+with the machine's card, where ``nvidia-smi`` finds one.  To compare two
+checkouts, run both inside one call, in the order A, B, B, A.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+SIDE = 1024
+QUALITY = 92
+
+
+def photo(rng, h: int, w: int, noise: float = 2.0) -> np.ndarray:
+    """Smooth colour with noise on top (``chip_smoke.photo``)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    i = int(rng.integers(0, 9))
+    base = np.stack([np.sin(xx / (37 + 5 * c + i) + c) * np.cos(yy / (53 + i)) for c in range(3)], -1)
+    return np.clip(127.5 + 100 * base + rng.normal(0, noise, base.shape), 0, 255).astype(np.uint8)
+
+
+def card() -> str:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout
+        return out.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError):
+        return "no card"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkout", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--repeats", type=int, default=40)
+    args = parser.parse_args(argv)
+    checkout = os.path.abspath(args.checkout)
+    sys.path.insert(0, checkout)
+    from byogan_tpu_torch.data import native
+
+    lib = native.load_library()
+    abi = lib.byogan_abi_version()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "photo.jpg")
+        native.encode_jpeg(path, photo(np.random.default_rng(61), SIDE, SIDE), QUALITY)
+        out = np.empty((SIDE, SIDE, 3), np.uint8)
+        h, w = ctypes.c_int(SIDE), ctypes.c_int(SIDE)
+        call = [path.encode(), out.ctypes.data, ctypes.byref(h), ctypes.byref(w)]
+        call += [0] if abi >= 5 else []
+        times = []
+        for _ in range(args.repeats + 1):
+            t0 = time.perf_counter()
+            rc = lib.byogan_decode(*call)
+            times.append(1e3 * (time.perf_counter() - t0))
+            if rc != 0:
+                raise OSError(f"{path}: decode returned {rc}")
+    times = times[1:]
+    result = {"checkout": checkout, "abi": abi, "jpeg_decode_1024_ms_median": float(np.median(times)),
+              "jpeg_decode_1024_ms_min": float(np.min(times)), "repeats": args.repeats, "card": card()}
+    print(f"time decode: {checkout} (ABI {abi}): JPEG 4:2:0 q{QUALITY} {SIDE} px, host ms over {args.repeats} calls "
+          f"on one thread: median {result['jpeg_decode_1024_ms_median']:.3f}, least "
+          f"{result['jpeg_decode_1024_ms_min']:.3f}; card {result['card']}")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
