@@ -2,10 +2,14 @@
 
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
-first bytes: PNG, JPEG and WebP through the port's own codecs
-(``data/native.py``), BMP by ``decode_bmp`` below, every layout as Pillow
-reads it.  Any other file, or one a decoder refuses, raises an ``OSError``
-that names it and the reason: no listed file is skipped.
+first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
+GIF (the first frame) and baseline TIFF (the first page) through the
+port's own codecs (``data/native.py``), BMP by ``decode_bmp`` below, each
+as the JAX package's lane for it reads it.  A file of another format that
+Pillow opens raises ``OSError`` naming the file and the format ("<format>
+files are not read by the PyTorch port"), one that no Pillow plugin
+accepts "unknown format", and one a decoder refuses names the reason: no
+listed file is skipped.
 """
 
 from __future__ import annotations
@@ -19,24 +23,85 @@ import numpy as np
 from byogan_tpu_torch.data import native
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+#: the formats the port decodes; ``sniff`` names any other Pillow opens
+READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF")
 
 
 def is_image(name: str) -> bool:
     return os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS
 
 
+def _u16(b: bytes, at: int, order: str = "<") -> int:
+    return struct.unpack_from(order + "H", b, at)[0] if len(b) >= at + 2 else -1
+
+
+def _u32(b: bytes, at: int, order: str = "<") -> int:
+    return struct.unpack_from(order + "I", b, at)[0] if len(b) >= at + 4 else -1
+
+
+#: the ``_accept`` test of each Pillow 12.1.0 plugin, in the order
+#: ``Image.open`` tries them (the five it loads first, then the rest as
+#: ``Image.init`` registers them), on a file's first 16 bytes; TGA, which
+#: has none, by the header fields its ``_open`` checks (18 bytes)
+SIGNATURES = (
+    ("BMP", lambda b: b.startswith(b"BM")),
+    ("DIB", lambda b: _u32(b, 0) in (12, 40, 52, 56, 64, 108, 124)),
+    ("GIF", lambda b: b.startswith((b"GIF87a", b"GIF89a"))),
+    ("JPEG", lambda b: b.startswith(b"\xff\xd8\xff")),
+    ("PPM", lambda b: len(b) >= 2 and b[:1] == b"P" and b[1] in b"0123456fy"),
+    ("PNG", lambda b: b.startswith(b"\x89PNG\r\n\x1a\n")),
+    ("AVIF", lambda b: b[4:8] == b"ftyp" and b[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda b: b.startswith((b"BLP1", b"BLP2"))),
+    ("BUFR", lambda b: b.startswith((b"BUFR", b"ZCZC"))),
+    ("CUR", lambda b: b.startswith(b"\0\0\2\0")),
+    ("PCX", lambda b: len(b) >= 2 and b[0] == 10 and b[1] in (0, 2, 3, 5)),
+    ("DCX", lambda b: _u32(b, 0) == 987654321),
+    ("DDS", lambda b: b.startswith(b"DDS ")),
+    ("EPS", lambda b: b.startswith(b"%!PS") or _u32(b, 0) == 0xC6D3D0C5),
+    ("FITS", lambda b: b.startswith(b"SIMPLE")),
+    ("FLI", lambda b: len(b) >= 16 and _u16(b, 4) in (0xAF11, 0xAF12) and _u16(b, 14) in (0, 3)),
+    ("FTEX", lambda b: b.startswith(b"FTEX")),
+    ("GBR", lambda b: len(b) >= 8 and _u32(b, 0, ">") >= 20 and _u32(b, 4, ">") in (1, 2)),
+    ("GRIB", lambda b: len(b) >= 8 and b.startswith(b"GRIB") and b[7] == 1),
+    ("HDF5", lambda b: b.startswith(b"\x89HDF\r\n\x1a\n")),
+    ("JPEG 2000", lambda b: b.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
+    ("ICNS", lambda b: b.startswith(b"icns")),
+    ("ICO", lambda b: b.startswith(b"\0\0\1\0")),
+    ("McIdas", lambda b: b.startswith(b"\0\0\0\0\0\0\0\x04")),
+    ("MPEG", lambda b: b.startswith(b"\0\0\1\xb3")),
+    ("TIFF", lambda b: b.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
+                                      b"II\x2b\x00"))),
+    ("MSP", lambda b: b.startswith((b"DanM", b"LinS"))),
+    ("PIXAR", lambda b: b.startswith(b"\200\350\000\000")),
+    ("PSD", lambda b: b.startswith(b"8BPS")),
+    ("QOI", lambda b: b.startswith(b"qoif")),
+    ("SGI", lambda b: _u16(b, 0, ">") == 474),
+    ("Sun raster", lambda b: _u32(b, 0, ">") == 0x59A66A95),
+    ("WebP", lambda b: b[:4] == b"RIFF" and b[8:12] == b"WEBP"),
+    ("WMF", lambda b: b.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"))),
+    ("XBM", lambda b: b.lstrip().startswith(b"#define")),
+    ("XPM", lambda b: b.startswith(b"/* XPM */")),
+    ("XV thumbnail", lambda b: b.startswith(b"P7 332")),
+)
+
+
+def _tga(head: bytes) -> bool:
+    """TgaImagePlugin's header test: colour map type 0 or 1, a positive
+    size, a depth of 1, 8, 16, 24 or 32 bits."""
+    return (len(head) >= 18 and head[1] in (0, 1) and _u16(head, 12) > 0 and _u16(head, 14) > 0
+            and head[16] in (1, 8, 16, 24, 32))
+
+
 def sniff(head: bytes) -> str:
-    """The format of a file from its first 12 bytes: "PNG", "JPEG", "BMP",
-    "WebP" or "unknown"."""
-    if head.startswith(b"\x89PNG\r\n\x1a\n"):
-        return "PNG"
-    if head.startswith(b"\xff\xd8\xff"):
-        return "JPEG"
-    if head.startswith(b"BM"):
-        return "BMP"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "WebP"
-    return "unknown"
+    """The format of a file from its first 18 bytes, as Pillow's
+    ``Image.open`` identifies it (``SIGNATURES``): a name of ``READ``, of
+    another format Pillow opens, or "unknown" (Pillow's other formats
+    without a signature, IM, IPTC, PCD and SPIDER, among them)."""
+    prefix = head[:16]
+    for name, accept in SIGNATURES:
+        if accept(prefix):
+            return name
+    return "TGA" if _tga(head) else "unknown"
 
 
 #: the BMP header sizes Pillow reads (BmpImagePlugin): OS/2 1.x's 12 bytes,
@@ -253,19 +318,27 @@ def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
     """Decode an image file to uint8 RGB (H, W, 3) by its format.  ``shape``,
     the (H, W) the caller expects, lets the native library decode a PNG,
-    JPEG or WebP in one call (``native.decode_image``); any shape is still
-    read.  ``lane`` is the JAX package's lane to follow where its lanes
-    part (``native.LANES``): "native" for the loader, as its
-    ``StageDataset`` reads, "pillow" for originals, as its prep and
+    JPEG, WebP, GIF or TIFF in one call (``native.decode_image``); any
+    shape is still read.  ``lane`` is the JAX package's lane to follow
+    where its lanes part (``native.LANES``): "native" for the loader, as
+    its ``StageDataset`` reads, "pillow" for originals, as its prep and
     ``cli.project`` read them (``Image.open(path).convert("RGB")``)."""
     with open(path, "rb") as f:
-        head = f.read(12)
+        head = f.read(18)
     fmt = sniff(head)
     if fmt == "BMP":
         with open(path, "rb") as f:
             return decode_bmp(f.read(), path)
-    if fmt in ("PNG", "JPEG", "WebP"):
+    if fmt in READ:
         return native.decode_image(path, shape, lane)
-    raise OSError(f"{path}: unknown format (first bytes {head[:4]!r}): the PyTorch port decodes PNG, JPEG, BMP "
-                  "and WebP files")
+    raise unreadable(path, head)
 
+
+def unreadable(path: str, head: bytes) -> OSError:
+    """The error for a file whose first bytes (``head``) are of no format
+    the port reads: it names the file and the format ``sniff`` finds."""
+    fmt = sniff(head)
+    decodes = f"the PyTorch port decodes {', '.join(READ[:-1])} and {READ[-1]} files"
+    if fmt == "unknown":
+        return OSError(f"{path}: unknown format (first bytes {head[:4]!r}): no Pillow plugin accepts it, and {decodes}")
+    return OSError(f"{path}: {fmt} files are not read by the PyTorch port ({decodes})")

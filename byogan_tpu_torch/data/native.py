@@ -6,13 +6,15 @@ process.  ``decode_image`` reads PNG and JPEG files bit for bit with the
 JAX package's libpng and libjpeg-turbo lane (16-bit gray PNGs, where its
 lanes part, as either lane reads them); the JPEG kinds that lane
 refuses or reads otherwise (CMYK, YCCK, lossless, progressive files left
-for block smoothing) and WebP files (VP8, VP8L, VP8X with its alpha
-dropped, the first frame of an animation) bit for bit with its Pillow lane
-(libjpeg-turbo 3.1.3, libwebp); ``encode_jpeg`` writes libjpeg's JPEG
-bytes.  All of it runs on any machine with a C++ compiler and zlib.  A build
-that fails raises, naming the compiler's error: there is no other lane
-to fall back on.  ctypes releases the interpreter lock during each call,
-so threads decode in parallel.
+for block smoothing), WebP files (VP8, VP8L, VP8X with its alpha
+dropped, the first frame of an animation), GIF files (the first frame)
+and baseline TIFF files (the first page) bit for bit with its Pillow lane
+(libjpeg-turbo 3.1.3, libwebp, Pillow 12.1.0's GIF decoder, libtiff
+4.7.1); ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
+any machine with a C++ compiler and zlib.  A build that fails raises,
+naming the compiler's error: there is no other lane to fall back on.
+ctypes releases the interpreter lock during each call, so threads decode
+in parallel.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 5
+ABI_VERSION = 6
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -33,7 +35,7 @@ LANES = {"native": 0, "pillow": 1}
 #: the library's return codes (native/codec.h)
 ERRORS = {
     -1: "cannot open the file",
-    -2: "not a PNG, JPEG or WebP file",
+    -2: "not a PNG, JPEG, WebP, GIF or TIFF file",
     -3: "out of memory",
     -4: "the decoder refused the data: it breaks the format's rules",
     -5: "its size changed while it was read",
@@ -48,6 +50,29 @@ ERRORS = {
     -16: "unsupported JPEG feature: a fractional chroma sampling ratio",
     -18: "the animated WebP's first frame lies outside its canvas",
     -19: "the WebP's VP8X canvas is not its frame's size",
+    -20: "the GIF is cut short or malformed before its image data, where Pillow cannot identify it",
+    -21: "the GIF holds no image",
+    -22: "broken GIF data stream: an LZW code past the table, where Pillow's decoder stops",
+    -23: "the GIF's LZW minimum code size is above 12",
+    -24: "the GIF's first frame has no width or no height",
+    -25: "more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)",
+    -26: "a TIFF header or first directory that does not describe an image Pillow reads (a bad version, a tag "
+         "missing or not an integer, strip or tile offsets that do not match the image)",
+    -27: "BigTIFF files are not read by the PyTorch port",
+    -28: "TIFF files with JPEG or old-style JPEG compression are not read by the PyTorch port",
+    -29: "TIFF files with CCITT (fax) compression are not read by the PyTorch port",
+    -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
+    -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
+    -32: "TIFF files of YCbCr pixels are not read by the PyTorch port",
+    -33: "TIFF files of CMYK pixels are not read by the PyTorch port",
+    -34: "TIFF files of this photometric interpretation (Lab, a mask...) are not read by the PyTorch port",
+    -35: "TIFF files of floating-point samples are not read by the PyTorch port",
+    -36: "TIFF files of signed-integer samples are not read by the PyTorch port",
+    -37: "TIFF files with FillOrder 2 are not read by the PyTorch port",
+    -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-bit bilevel, "
+         "8- and 16-bit gray, 8-bit gray with alpha, 8-bit RGB with up to 3 extra samples and 8-bit palettes)",
+    -39: "a TIFF predictor that libtiff refuses on these samples",
+    -40: "TIFF files of old-style LZW codes are not read by the PyTorch port",
 }
 
 _P = ctypes.c_void_p
@@ -108,8 +133,8 @@ def _failed(path: str, what: str, rc: int) -> OSError:
 
 
 def decode_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
-    """A PNG, JPEG or WebP file (told apart by its first bytes) as uint8
-    RGB (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
+    """A PNG, JPEG, WebP, GIF or TIFF file (told apart by its first bytes)
+    as uint8 RGB (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
     right, one call opens and decodes the file; otherwise the first call
     reads the size and a second decodes.  ``lane`` (a key of ``LANES``)
     picks the JAX package's lane where its lanes part: a 16-bit gray PNG's

@@ -7,13 +7,14 @@ order, so a dataset prepared by either package trains in both.  Each
 original is decoded once and resized to every size, largest first, each
 size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
-package's.  Decoding (``data/images.py``: PNG, JPEG and WebP through the
-port's own codecs, which need no libpng, libjpeg or libwebp, BMP in numpy,
+package's.  Decoding (``data/images.py``: PNG, JPEG, WebP, GIF and TIFF
+through the port's own codecs, which need no libpng, libjpeg, libwebp or
+libtiff, BMP in numpy,
 each in the lane of the JAX package's prep, Pillow's ``convert("RGB")``,
 so a 16-bit gray PNG clips at 255) and encoding (``serve.encode_png``)
 run on a pool of host threads; the resizes run on ``device``, the GPU
 unless ``"cpu"`` is asked for.  An original of a format the port does not
-read raises before any set is written, naming the file.
+read raises before any set is written, naming the file and the format.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from byogan_tpu_torch.core.device import resolve_device
 from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil
-from byogan_tpu_torch.data.images import is_image, read_image, sniff
+from byogan_tpu_torch.data.images import READ, is_image, read_image, sniff, unreadable
 from byogan_tpu_torch.serve import encode_png
 
 
@@ -63,12 +64,11 @@ def prepare_pyramid(
             if name not in ("original", "prepared"):
                 shutil.move(os.path.join(datapath, name), dest)
     files = sorted(os.path.join(dest, f) for f in os.listdir(dest) if is_image(f))
-    for path in files:
+    for path in files:  # every original's format before any set is written
         with open(path, "rb") as f:
-            fmt = sniff(f.read(12))
-        if fmt not in ("PNG", "JPEG", "BMP", "WebP"):
-            raise OSError(f"{path}: the original's format is {fmt}: the PyTorch port decodes PNG (Adam7 too), "
-                          "JPEG (baseline, extended and progressive), BMP and WebP (lossy, lossless, animated) files")
+            head = f.read(18)
+        if sniff(head) not in READ:
+            raise unreadable(path, head)
 
     sizes = _gather_sizes(start_size, end_size)
     prepared = os.path.join(datapath, "prepared")

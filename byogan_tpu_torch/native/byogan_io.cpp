@@ -3,8 +3,9 @@
 // Its own codecs, needing nothing but zlib: PNG decode (png.cpp), JPEG
 // decode (jpeg_decode.cpp) and JPEG encode (jpeg_encode.cpp), each bit for
 // bit with the JAX package's libpng and libjpeg-turbo lane, WebP decode
-// (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), bit for bit with the JAX
-// package's Pillow lane (libwebp), and the PNG row unfilter below.  The
+// (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), GIF decode (gif.cpp) and
+// baseline TIFF decode (tiff.cpp), bit for bit with the JAX package's
+// Pillow lane, and the PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -139,9 +140,9 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 5; }
+int byogan_abi_version() { return 6; }
 
-// Decode one PNG, JPEG or WebP file (told apart by its first bytes) into
+// Decode one PNG, JPEG, WebP, GIF or TIFF file (told apart by its first bytes) into
 // out, RGB of size (*h, *w).  Where out is null or the image has another
 // size, *h and *w get the image's and the return is -5: the caller sizes
 // its buffer and calls again, so a right guess costs one call.  `lane`
@@ -163,6 +164,11 @@ int byogan_decode(const char* path, uint8_t* out, int* h, int* w, int lane) {
     return byogan::decode_jpeg(data.data(), data.size(), out, h, w);
   if (data.size() >= 12 && memcmp(data.data(), "RIFF", 4) == 0 && memcmp(data.data() + 8, "WEBP", 4) == 0)
     return byogan::decode_webp(data.data(), data.size(), out, h, w);
+  if (data.size() >= 6 && (memcmp(data.data(), "GIF87a", 6) == 0 || memcmp(data.data(), "GIF89a", 6) == 0))
+    return byogan::decode_gif(data.data(), data.size(), out, h, w);
+  if (data.size() >= 4 && ((data[0] == 'I' && data[1] == 'I') || (data[0] == 'M' && data[1] == 'M')) &&
+      ((data[2] == 42 || data[2] == 43) ? data[3] == 0 : data[2] == 0 && (data[3] == 42 || data[3] == 43)))
+    return byogan::decode_tiff(data.data(), data.size(), out, h, w);
   return byogan::kNotImage;
 }
 

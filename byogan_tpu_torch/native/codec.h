@@ -16,7 +16,7 @@ namespace byogan {
 enum Status {
   kOk = 0,
   kCannotOpen = -1,        // the file cannot be opened or written
-  kNotImage = -2,          // not a PNG, JPEG or WebP file
+  kNotImage = -2,          // not a PNG, JPEG, WebP, GIF or TIFF file
   kNoMemory = -3,          // out of memory
   kCorrupt = -4,           // the data break the format's rules
   kSize = -5,              // the image's size is not the buffer's
@@ -30,6 +30,27 @@ enum Status {
   kJpegSampling = -16,     // a fractional sampling ratio (a component's factors do not divide the largest)
   kWebpFrameOutside = -18, // an animated WebP's first frame lies outside its canvas
   kWebpCanvas = -19,       // a still WebP's VP8X canvas is not its frame's size
+  kGifHeader = -20,        // a GIF cut short or malformed before its first image's data (Pillow cannot identify it)
+  kGifNoImage = -21,       // a GIF with no image before its trailer or its end
+  kGifBroken = -22,        // GIF LZW data that Pillow's decoder refuses (a code past the table)
+  kGifCodeSize = -23,      // a GIF LZW minimum code size above 12
+  kGifEmptyFrame = -24,    // a GIF whose first frame has no width or no height
+  kTooLarge = -25,         // more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)
+  kTiffDirectory = -26,    // a TIFF header or first directory that does not describe an image Pillow reads
+  kTiffBig = -27,          // BigTIFF
+  kTiffJpeg = -28,         // TIFF with JPEG or old-style JPEG compression
+  kTiffCcitt = -29,        // TIFF with CCITT (fax) compression
+  kTiffLogLuv = -30,       // TIFF with LogLuv or LogL data
+  kTiffCompression = -31,  // TIFF with another compression (LZMA, ZSTD, WebP, JBIG...)
+  kTiffYcbcr = -32,        // TIFF with YCbCr pixels (subsampled or not)
+  kTiffCmyk = -33,         // TIFF with CMYK pixels
+  kTiffPhotometric = -34,  // TIFF with another photometric interpretation (Lab, a mask...)
+  kTiffFloat = -35,        // TIFF with floating-point samples
+  kTiffSigned = -36,       // TIFF with signed-integer samples
+  kTiffFillOrder = -37,    // TIFF with FillOrder 2 (bits least significant first)
+  kTiffLayout = -38,       // TIFF samples of another depth or layout than the port reads
+  kTiffPredictor = -39,    // a TIFF predictor libtiff refuses on these samples
+  kTiffOldLzw = -40,       // TIFF with old-style LZW codes
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -44,6 +65,8 @@ enum Lane { kNativeLane = 0, kPillowLane = 1 };
 int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane lane);
 int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+int decode_gif(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+int decode_tiff(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

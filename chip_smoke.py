@@ -63,11 +63,12 @@ both paths of the port at full width (``ModelSpec()``):
   does not build or links libpng or libjpeg), held to the fixtures' hashes
   of libjpeg-turbo's, libpng's, libwebp's and Pillow's output (every BMP
   layout Pillow reads and its refusals, 16-bit gray PNGs in both lanes,
-  JPEG blocks past 16 bits among them), the PNG decode bit-equal to
+  JPEG blocks past 16 bits, GIF and baseline TIFF layouts and the kinds
+  refused by name among them), the PNG decode bit-equal to
   data/png.py's on smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG
   and BMP files, the codecs' and the loader's times by decode threads
-  beside the stage-8 iteration, prep's (cli.prep on JPEG, WebP, JPEG-kind
-  and Pillow-lane originals, held to the JAX package's pyramids) and the
+  beside the stage-8 iteration, prep's (cli.prep on JPEG, WebP, JPEG-kind,
+  Pillow-lane and GIF/TIFF originals, held to the JAX package's pyramids) and the
   frame writers' times, and the training CLI on a set with JPEG, WebP,
   palette and 16-bit BMP files among its PNGs, stopped by SIGTERM and
   resumed with
@@ -3272,7 +3273,8 @@ def io_checks(tmp) -> dict:
             return fh.read()
 
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
-    files = [m for m in matched if "@" not in m and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/"))]
+    files = [m for m in matched if "@" not in m
+             and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3289,6 +3291,16 @@ def io_checks(tmp) -> dict:
     require(len(layouts) >= 60 and len(refused) >= 10 and len(gray16) >= 5 and len(wide) == len(fx.IDCT_KINDS),
             f"the manifest holds {len(layouts)} BMP layouts, {len(refused)} refusals, {len(gray16)} 16-bit gray "
             f"PNGs in the Pillow lane and {len(wide)} out-of-range JPEGs")
+    gif_tiff = [m for m in matched if m.startswith(f"{fx.GIF_TIFF}/")]
+    gifs = [m for m in gif_tiff if "/gif/" in m and "@" not in m]
+    tiffs = [m for m in gif_tiff if "/tiff/" in m and "@" not in m]
+    gif_refused = [m for m in gif_tiff if "/gif/refused/" in m]
+    tiff_refused = [m for m in gif_tiff if "/tiff/refused/" in m]
+    gif_tiff_card = [m for m in gif_tiff if "/card/" in m]
+    require(len(gifs) >= 30 and len(tiffs) >= 50 and len(gif_refused) >= 8 and len(tiff_refused) >= 20
+            and len(gif_tiff_card) == len(fx.GIF_TIFF_CARD),
+            f"the manifest holds {len(gifs)} GIF layouts, {len(tiffs)} TIFF layouts, {len(gif_refused)} GIF and "
+            f"{len(tiff_refused)} TIFF refusals, {len(gif_tiff_card)} GIF/TIFF card originals")
     print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
           f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
@@ -3301,7 +3313,12 @@ def io_checks(tmp) -> dict:
           f"({', '.join(os.path.basename(m)[:-12] for m in refused)}); {len(gray16)} 16-bit gray PNGs in both lanes "
           f"(the loader's high byte, prep's clip at 255: {', '.join(os.path.basename(m)[:-7] for m in gray16)}); "
           f"{len(wide)} JPEGs whose dequantised coefficients leave 16 bits decoded to libjpeg-turbo's SIMD IDCT "
-          f"({', '.join(os.path.basename(m) for m in wide)})")
+          f"({', '.join(os.path.basename(m) for m in wide)}); {len(gifs)} GIF layouts decoded to Pillow 12.1.0's "
+          f"first frame ({', '.join(os.path.basename(m)[:-4] for m in gifs)}) and {len(gif_refused)} refused where "
+          f"Pillow refuses them ({', '.join(os.path.basename(m)[:-12] for m in gif_refused)}); {len(tiffs)} TIFF "
+          f"layouts decoded to Pillow's (libtiff 4.7.1) RGB ({', '.join(os.path.basename(m)[:-4] for m in tiffs)}) "
+          f"and {len(tiff_refused)} kinds refused by name ({', '.join(os.path.basename(m)[:-12] for m in tiff_refused)}); "
+          f"{len(gif_tiff_card)} GIF/TIFF card originals")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3363,6 +3380,7 @@ def io_checks(tmp) -> dict:
     out["codec_ms"].update(webp_codec_times(fx))
     out["codec_ms"].update(kinds_codec_times(fx, other))
     out["codec_ms"].update(lane_codec_times(fx, other))
+    out["codec_ms"].update(gif_tiff_codec_times(fx))
     return out
 
 
@@ -3502,9 +3520,10 @@ def lane_codec_times(fx, folder: str) -> dict:
     return ms
 
 
-def prep_committed_cli(tmp, root, folder: str, names, key: str) -> tuple:
+def prep_committed_cli(tmp, root, folder: str, names, key: str, listed: dict = None) -> tuple:
     """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
-    committed originals ``names`` of ``fx.FIXTURES/folder``, the resizes on
+    committed originals ``names`` of ``fx.FIXTURES/folder`` (``listed``
+    renames each to the listed name prep reads it under), the resizes on
     the card: every image of the 8 sets equal to the one the JAX package's
     ``prepare_pyramid`` wrote from them (the fixtures' manifest's ``key``).
     Returns the seconds the CLI took, process start included, and the
@@ -3515,7 +3534,7 @@ def prep_committed_cli(tmp, root, folder: str, names, key: str) -> tuple:
     data = os.path.join(tmp, f"prep_{key}")
     os.makedirs(data)
     for name in sorted(names):
-        shutil.copy(os.path.join(fx.FIXTURES, folder, name), data)
+        shutil.copy(os.path.join(fx.FIXTURES, folder, name), os.path.join(data, (listed or {}).get(name, name)))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
                           cwd=root, capture_output=True, text=True, timeout=600)
@@ -3555,6 +3574,44 @@ def prep_pillow_cli(tmp, root) -> float:
           f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
           f"resize, hashes in the fixtures' manifest); card {card_name()}")
     return cli_s / n
+
+
+def prep_gif_tiff_cli(tmp, root) -> float:
+    """``prep_committed_cli`` on the GIF and TIFF originals (a posterised
+    1024 px photo as a GIF with a global table under a .jpg name, the same
+    pixels interlaced under a .png name, a two-frame GIF with a local table
+    and transparency at an offset under a .jpeg name, an LZW TIFF with
+    predictor 2 under a .png name), held to the JAX package's prep of them
+    (Pillow's decode).  Returns the seconds per original."""
+    fx = codec_fixtures()
+    n = len(fx.GIF_TIFF_CARD)
+    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.GIF_TIFF, "card"), fx.GIF_TIFF_CARD,
+                                        "gif_tiff_prep", listed=fx.GIF_TIFF_CARD)
+    print(f"io prep: cli.prep of {n} GIF and TIFF originals ("
+          + ", ".join(f"{k} as {v}" for k, v in fx.GIF_TIFF_CARD.items())
+          + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
+          f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
+          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
+    return cli_s / n
+
+
+def gif_tiff_codec_times(fx) -> dict:
+    """Host ms of the GIF and TIFF decoders, one call at a time on one
+    thread (median of ``CODEC_REPEATS``), on the card's committed 1024 px
+    originals: the GIF with a global table, the same pixels interlaced, and
+    the LZW TIFF with predictor 2 (64-row strips)."""
+    from byogan_tpu_torch.data import native
+
+    card = os.path.join(fx.FIXTURES, fx.GIF_TIFF, "card")
+    files = {"gif_1024": "poster-1024.gif", "gif_1024_interlaced": "poster-1024-interlaced.gif",
+             "tiff_lzw_predictor_1024": "scan-1024.tif"}
+    ms = {k: host_ms(lambda: native.decode_image(os.path.join(card, name), (PREP_SIDE, PREP_SIDE)))
+          for k, name in files.items()}
+    print(f"io codecs: GIF and TIFF decode to RGB, host ms, median of {CODEC_REPEATS} calls, one thread, "
+          f"{PREP_SIDE} px: GIF (global table, 8-bit codes) {ms['gif_1024']:.3f}, the same interlaced "
+          f"{ms['gif_1024_interlaced']:.3f}; TIFF LZW + predictor 2 (RGB, 64-row strips) "
+          f"{ms['tiff_lzw_predictor_1024']:.3f}; card {card_name()}")
+    return ms
 
 
 def prep_webp_cli(tmp, root) -> float:
@@ -3672,6 +3729,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
     prep_webp_s = prep_webp_cli(tmp, root)
     prep_kinds_s = prep_kinds_cli(tmp, root)
     prep_pillow_s = prep_pillow_cli(tmp, root)
+    prep_gif_tiff_s = prep_gif_tiff_cli(tmp, root)
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
@@ -3688,6 +3746,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
     return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "prep_webp_cli_s": prep_webp_s,
             "prep_kinds_cli_s": prep_kinds_s, "prep_pillow_cli_s": prep_pillow_s,
+            "prep_gif_tiff_cli_s": prep_gif_tiff_s,
             "frame_ms": frame_ms}
 
 

@@ -7,9 +7,14 @@ dispatch of ``data/images.py``; then the fault they fix: a prepared set's
 JPEG and BMP files were dropped, so the port trained on another set than
 JAX.  Everything is held bit for bit, JPEG included: the port's decoder
 gives libjpeg's output for its defaults, and its encoder libjpeg's bytes.
-JAX's own native lane (libpng, libjpeg) is the reference where it loads,
-Pillow where it does not.  ``test_torch_port_codecs.py`` holds the codecs
-over the whole matrix of layouts.
+JAX's own native lane (libpng, libjpeg) is the reference, built from its
+source into the session's temporary directory under a lock
+(``torch_port_codec_fixtures.jax_lane``, as ``test_torch_port_codecs.py``
+builds it), never the JAX package's own library, which its test workers
+may be writing while another loads it: where the lane does not build, the
+tests fail naming the compiler's error, and no Pillow decode stands in.
+``test_torch_port_codecs.py`` holds the codecs over the whole matrix of
+layouts.
 """
 
 import os
@@ -29,19 +34,19 @@ from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, ren
 from byogan_tpu_torch.native import build as native_build
 from byogan_tpu_torch.serve import encode_png
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_port_codec_fixtures as fx  # noqa: E402
+
+
+@pytest.fixture(scope="session")
+def jax_lane(tmp_path_factory):
+    """JAX's libpng/libjpeg lane, built once for all of the session's workers."""
+    return fx.jax_lane(str(tmp_path_factory.getbasetemp().parent / "jax_native_lane"))
+
 
 def _pil_rgb(path):
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
-
-
-def _jax_decode(path):
-    """JAX's native decode of a PNG or JPEG, Pillow's where its library is
-    unavailable (the JAX package's own fallback)."""
-    from byogan_tpu.data import native as jax_native
-
-    img = jax_native.decode_image(str(path))
-    return _pil_rgb(path) if img is None else img
 
 
 def _python_lane():
@@ -123,7 +128,7 @@ PNG_VARIANTS = [f"rgb8-f{k}" for k in range(5)] + [
 
 
 @pytest.mark.parametrize("name", PNG_VARIANTS)
-def test_png_decode_matches_plain_decoder_and_jax(tmp_path, name):
+def test_png_decode_matches_plain_decoder_and_jax(tmp_path, jax_lane, name):
     """The port's PNG decoder, data/png.py with the C unfilter and with the
     Python one, and JAX's libpng lane: one array on each row filter and PNG
     layout."""
@@ -135,12 +140,12 @@ def test_png_decode_matches_plain_decoder_and_jax(tmp_path, name):
         plain = png.read_png(str(path))
     np.testing.assert_array_equal(png.read_png(str(path)), plain)  # the C byogan_unfilter
     np.testing.assert_array_equal(got, plain)
-    np.testing.assert_array_equal(got, _jax_decode(path))
+    np.testing.assert_array_equal(got, fx.jax_decode(jax_lane, str(path)))
     np.testing.assert_array_equal(images.read_image(str(path)), got)
 
 
 @pytest.mark.parametrize("mode", ["RGB", "L", "LA", "RGBA", "P", "P-transparency"])
-def test_pillow_written_png_matches_jax_and_pillow(tmp_path, mode):
+def test_pillow_written_png_matches_jax_and_pillow(tmp_path, jax_lane, mode):
     """Files Pillow writes, with its own filter choice (Paeth on smooth
     rows): the port's lanes equal JAX's and Pillow's decode."""
     r = np.random.default_rng(len(mode))
@@ -158,7 +163,7 @@ def test_pillow_written_png_matches_jax_and_pillow(tmp_path, mode):
     with _python_lane():
         np.testing.assert_array_equal(png.read_png(str(path)), got)
     np.testing.assert_array_equal(got, _pil_rgb(path))
-    np.testing.assert_array_equal(got, _jax_decode(path))
+    np.testing.assert_array_equal(got, fx.jax_decode(jax_lane, str(path)))
 
 
 @pytest.mark.parametrize("bpp", [1, 3, 4, 6])
@@ -182,7 +187,7 @@ def test_native_unfilter_matches_python(bpp):
 
 
 @pytest.mark.parametrize("kind", ["q92", "q50-444", "gray", "progressive"])
-def test_jpeg_decode_matches_jax_and_pillow(tmp_path, kind):
+def test_jpeg_decode_matches_jax_and_pillow(tmp_path, jax_lane, kind):
     """The port's own JPEG decoder against JAX's libjpeg lane and Pillow's
     libjpeg-turbo, bit for bit."""
     r = np.random.default_rng(3)
@@ -200,7 +205,7 @@ def test_jpeg_decode_matches_jax_and_pillow(tmp_path, kind):
     got = native.decode_image(str(path))
     assert got.shape == (40, 48, 3)
     np.testing.assert_array_equal(got, _pil_rgb(path))
-    np.testing.assert_array_equal(got, _jax_decode(path))
+    np.testing.assert_array_equal(got, fx.jax_decode(jax_lane, str(path)))
     np.testing.assert_array_equal(images.read_image(str(path)), got)
     for shape in ((40, 48), (48, 40)):  # the right size expected, and a wrong one
         np.testing.assert_array_equal(images.read_image(str(path), shape), got)
@@ -240,20 +245,17 @@ def test_decode_batch_on_threads_equals_one_at_a_time(tmp_path):
         ds.get_batch_uint8(np.array([0, 1, 8]), 2)
 
 
-def test_encode_png_and_jpeg_round_trip(tmp_path):
+def test_encode_png_and_jpeg_round_trip(tmp_path, jax_lane):
     """The port's PNG writer read back by every decoder; its own JPEG
     encoder writes JAX's libjpeg lane's bytes and reads back as Pillow
     reads it."""
-    from byogan_tpu.data import native as jax_native
-
     r = np.random.default_rng(6)
     img = (render(r.random(9), 64)[:48] + r.integers(0, 4, (48, 64, 3), dtype=np.uint8)).astype(np.uint8)
     (tmp_path / "a.png").write_bytes(encode_png(img, 6))  # the port's PNG writer (serve.py)
     for decode in (native.decode_image, _pil_rgb, png.read_png):
         np.testing.assert_array_equal(decode(str(tmp_path / "a.png")), img)
     native.encode_jpeg(str(tmp_path / "a.jpg"), img, 92)
-    if jax_native.encode_jpeg(str(tmp_path / "jax.jpg"), img, 92):  # False where its library is unavailable
-        assert (tmp_path / "a.jpg").read_bytes() == (tmp_path / "jax.jpg").read_bytes()
+    assert (tmp_path / "a.jpg").read_bytes() == fx.jax_encode(jax_lane, img, 92, str(tmp_path / "jax.jpg"))
     got = native.decode_image(str(tmp_path / "a.jpg"))
     np.testing.assert_array_equal(got, _pil_rgb(tmp_path / "a.jpg"))
     err = np.abs(got.astype(int) - img)
@@ -291,9 +293,20 @@ def test_unreadable_files_raise_naming_the_file(tmp_path):
     webp = render(np.random.default_rng(3).random(9), 8)
     Image.fromarray(webp).save(tmp_path / "a.webp")  # a WebP decodes, as Pillow decodes it
     np.testing.assert_array_equal(images.read_image(str(tmp_path / "a.webp")), _pil_rgb(tmp_path / "a.webp"))
-    (tmp_path / "b.png").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(OSError, match=r"b\.png: unknown format"):
+    (tmp_path / "b.png").write_bytes(b"GIF89a" + bytes(20))  # a GIF screen with no image: Pillow refuses it too
+    with pytest.raises(Exception):
+        _pil_rgb(tmp_path / "b.png")
+    with pytest.raises(OSError, match=r"b\.png: decode failed: the GIF holds no image"):
         images.read_image(str(tmp_path / "b.png"))
+    (tmp_path / "j2k.png").write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40))  # a JPEG 2000 signature
+    with pytest.raises(OSError, match=r"j2k\.png: JPEG 2000 files are not read by the PyTorch port"):
+        images.read_image(str(tmp_path / "j2k.png"))
+    noise = bytes(np.random.default_rng(5).integers(0, 256, 64, dtype=np.uint8))
+    (tmp_path / "noise.jpg").write_bytes(noise)
+    with pytest.raises(OSError, match="cannot identify"):  # no Pillow plugin takes it
+        _pil_rgb(tmp_path / "noise.jpg")
+    with pytest.raises(OSError, match=r"noise\.jpg: unknown format"):
+        images.read_image(str(tmp_path / "noise.jpg"))
     Image.fromarray(webp).convert("P").save(tmp_path / "p.bmp")  # a palette BMP decodes, as Pillow decodes it
     np.testing.assert_array_equal(images.read_image(str(tmp_path / "p.bmp")), _pil_rgb(tmp_path / "p.bmp"))
     (tmp_path / "c.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(10))

@@ -501,7 +501,8 @@ def fixtures() -> Dict[str, Tuple[bytes, object]]:
 def jax_lane(build_dir: str) -> ctypes.CDLL:
     """The JAX package's native lane (libpng, libjpeg), compiled from its
     source into ``build_dir`` once under a file lock: its ``byogan_decode``
-    and ``byogan_encode_jpeg``."""
+    and ``byogan_encode_jpeg``.  A build that fails raises
+    ``RuntimeError`` with the compiler's output: no other lane stands in."""
     os.makedirs(build_dir, exist_ok=True)
     lib = os.path.join(build_dir, "libbyogan_io_jax.so")
     with open(os.path.join(build_dir, "libbyogan_io_jax.lock"), "w") as lock:
@@ -509,8 +510,14 @@ def jax_lane(build_dir: str) -> ctypes.CDLL:
         if not os.path.exists(lib):
             tmp = lib + f".{os.getpid()}.tmp"
             src = os.path.join(ROOT, "byogan_tpu", "native", "byogan_io.cpp")
-            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp, "-lpng", "-ljpeg", "-lz",
-                            "-lpthread"], check=True, capture_output=True)
+            cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp, "-lpng", "-ljpeg", "-lz", "-lpthread"]
+            try:
+                done = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:  # no compiler on the PATH
+                raise RuntimeError(f"the JAX package's native lane did not build: {' '.join(cmd)}: {e}") from e
+            if done.returncode != 0:
+                raise RuntimeError(f"the JAX package's native lane did not build: {' '.join(cmd)} failed:\n"
+                                   f"{done.stdout}{done.stderr}")
             os.replace(tmp, lib)
     handle = ctypes.CDLL(lib)
     ip = ctypes.POINTER(ctypes.c_int)
@@ -1124,7 +1131,7 @@ def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
 
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
-                   pillow: Optional[Dict[str, bytes]] = None) -> dict:
+                   pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1133,15 +1140,18 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     each file of the kinds decoded by Pillow, beside what the JAX native
     lane makes of it (``kinds_entry``); each file under ``pillow/``
     (``pillow``, likewise) as ``pillow_entry`` records it; each source
-    encoded by the JAX lane; the JAX package's pyramids of the card's WebP
-    originals, of its originals of the kinds and of its originals under
-    ``pillow/card/``."""
+    encoded by the JAX lane; each file under ``gif_tiff/`` (``gif_tiff``,
+    likewise) as ``gif_tiff_entry`` records it; the JAX package's pyramids
+    of the card's WebP originals, of its originals of the kinds, of its
+    originals under ``pillow/card/`` and of those under ``gif_tiff/card/``
+    (by their listed names, ``GIF_TIFF_CARD``)."""
     import PIL
     from PIL import features
 
     webp = committed_webp() if webp is None else webp
     kinds = committed_kinds() if kinds is None else kinds
     pillow = committed_pillow() if pillow is None else pillow
+    gif_tiff = committed_gif_tiff() if gif_tiff is None else gif_tiff
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -1173,6 +1183,11 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         with open(path, "wb") as f:
             f.write(data)
         entries[name] = pillow_entry(lib, name, path)
+    for name, data in gif_tiff.items():
+        path = os.path.join(scratch, "gif-tiff" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path)
     sources = {}
     for name, (seed, h, w) in SOURCES.items():
         img = source_image(seed, h, w)
@@ -1184,6 +1199,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     card = {n: d for n, d in webp.items() if n.startswith(f"{WEBP}/card/")}
     kinds_card = {n: d for n, d in kinds.items() if n.startswith(f"{KINDS}/card/")}
     pillow_card_files = {n: d for n, d in pillow.items() if n.startswith(f"{PILLOW}/card/")}
+    gif_tiff_card_files = {GIF_TIFF_CARD[os.path.basename(n)]: d for n, d in gif_tiff.items()
+                           if n.startswith(f"{GIF_TIFF}/card/")}
     return {
         "decoded_by": f"the JAX package's native lane (libpng, libjpeg-turbo), held to Pillow {PIL.__version__} "
                       "(JPEG, 8-bit PNG) or to the samples (PNG); WebP: the JAX package's Pillow lane, Pillow "
@@ -1193,10 +1210,13 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       f"Pillow {PIL.__version__}'s convert(\"RGB\") (BMP layouts, refusals with Pillow's "
                       "error), 16-bit "
                       "gray PNGs in both lanes (sha256_rgb: the native lane's, sha256_rgb_pillow: Pillow's), JPEGs "
-                      "whose dequantised coefficients leave 16 bits beside the native lane (native_lane)",
+                      "whose dequantised coefficients leave 16 bits beside the native lane (native_lane); "
+                      f"{GIF_TIFF}/: Pillow {PIL.__version__}'s convert(\"RGB\") (GIF's own decoder, libtiff "
+                      f"{features.version('libtiff')}), refusals with what Pillow makes of the file",
         "files": entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
+        "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
     }
 
 
@@ -1205,13 +1225,14 @@ def write(scratch: str) -> dict:
     webp = webp_fixtures()
     kinds = kinds_fixtures(scratch)
     pillow = pillow_fixtures(scratch)
-    for folder in (WEBP, KINDS, PILLOW):
+    gif_tiff = gif_tiff_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
-    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow}.items():
+    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
-    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow)
+    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -1278,8 +1299,9 @@ def check(decode: Callable[..., np.ndarray], encode: Callable[[np.ndarray, int],
 
 def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_prep") -> int:
     """The pyramid prepared under ``root`` from the card's WebP originals
-    (``key`` "webp_prep"), its originals of the JPEG kinds ("jpeg_prep")
-    or its originals under ``pillow/card/`` ("pillow_prep") against the JAX
+    (``key`` "webp_prep"), its originals of the JPEG kinds ("jpeg_prep"),
+    its originals under ``pillow/card/`` ("pillow_prep") or those under
+    ``gif_tiff/card/`` ("gif_tiff_prep") against the JAX
     package's recorded one: the number of images matched;
     raises ``AssertionError`` naming the first that differs."""
     want = load_manifest()[key]
@@ -1715,3 +1737,561 @@ if __name__ == "__main__":
     print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds, "
           f"{pillow_total} under {PILLOW}/), "
           f"{len(out['sources'])} sources x {len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)
+
+
+# --- GIF and baseline TIFF: the JAX package's Pillow lane ---------------------
+
+GIF_TIFF = "gif_tiff"  # their files' folder under FIXTURES
+#: the card's originals for cli.prep (under ``gif_tiff/card/``), each by the
+#: listed name prep reads it under: a posterised 1024 px photo as a GIF with
+#: a global table, the same pixels interlaced, a two-frame GIF whose first
+#: frame sits at an offset on a transparent screen with a local table, and
+#: an RGB scan as an LZW TIFF with predictor 2
+GIF_TIFF_CARD = {"poster-1024.gif": "poster-1024.jpg", "poster-1024-interlaced.gif": "poster-1024-interlaced.png",
+                 "sprite-1024.gif": "sprite-1024.jpeg", "scan-1024.tif": "scan-1024.png"}
+
+
+def gif_lzw_codes(indices, min_size: int, clear_first: bool = True, end: bool = True,
+                  clear_every: Optional[int] = None, clear_when_full: bool = True) -> List[Tuple[int, int]]:
+    """The GIF LZW codes of an index sequence as (code, bits): each code's
+    width the one a decoder reads it at (it adds an entry on every code
+    but the first after a Clear, and widens once it has added entry
+    2^bits - 1).  ``clear_first`` starts with a Clear, ``end`` ends with the
+    end code, ``clear_every`` puts a Clear after that many indices, and
+    ``clear_when_full`` a Clear once the table holds 4096 entries (else
+    the codes go on at 12 bits with no new entries).  Below a minimum code
+    size of 2 the width never grows past the first (a decoder's next entry
+    starts above its mask), so the codes are literals alone, and at size 0
+    there is no room for the end code."""
+    clear = 1 << min_size
+    literals = min_size < 2
+    end = end and min_size > 0
+    out: List[Tuple[int, int]] = []
+    st: dict = {}
+
+    def reset():
+        st.update(table={(i,): i for i in range(clear)}, next=clear + 2, decoder_next=clear + 2, bits=min_size + 1,
+                  first=True)
+
+    def emit(code):
+        out.append((code, st["bits"]))
+        if st["first"]:
+            st["first"] = False
+        elif st["decoder_next"] < 4096:
+            if st["decoder_next"] == (1 << st["bits"]) - 1 and st["bits"] < 12:
+                st["bits"] += 1
+            st["decoder_next"] += 1
+
+    def emit_clear():
+        out.append((clear, st["bits"]))
+        reset()
+
+    reset()
+    if clear_first:
+        emit_clear()
+    run: tuple = ()
+    for count, v in enumerate(int(v) for v in indices):
+        if clear_every and count and count % clear_every == 0 and run:
+            emit(st["table"][run])
+            run = ()
+            emit_clear()
+        if not literals and run + (v,) in st["table"]:
+            run += (v,)
+            continue
+        if run:
+            emit(st["table"][run])
+            if st["next"] < 4096:
+                st["table"][run + (v,)] = st["next"]
+                st["next"] += 1
+            elif clear_when_full:
+                emit_clear()
+        run = (v,)
+    if run:
+        emit(st["table"][run])
+    if end:
+        out.append((clear + 1, st["bits"]))
+    return out
+
+
+def gif_pack(codes: List[Tuple[int, int]]) -> bytes:
+    """GIF codes packed least significant bit first."""
+    acc = nbits = 0
+    out = bytearray()
+    for code, size in codes:
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_sub_blocks(data: bytes, size: int = 255) -> bytes:
+    """``data`` in sub-blocks of ``size`` bytes, then the terminator."""
+    out = bytearray()
+    for i in range(0, len(data), size):
+        out += bytes([len(data[i:i + size])]) + data[i:i + size]
+    return bytes(out) + b"\0"
+
+
+def _gif_table(palette) -> Tuple[int, bytes]:
+    """The smallest colour table that holds the palette, 2^bits entries,
+    zeros past the palette: (bits, bytes)."""
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    bits = max(1, int(np.ceil(np.log2(max(2, len(pal))))))
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[: min(len(pal), 1 << bits)] = pal[: 1 << bits]
+    return bits, table.tobytes()
+
+
+def gif_image(indices, x: int = 0, y: int = 0, palette=None, interlace: bool = False,
+              min_size: int = 8, size: Optional[Tuple[int, int]] = None, data: Optional[bytes] = None,
+              **lzw) -> bytes:
+    """An image descriptor (at x, y; a local table where ``palette``), its
+    minimum code size and its LZW data in sub-blocks: the codes of
+    ``indices`` (h, w), rows in interlaced order where ``interlace``, or
+    ``data`` as it stands; ``size`` (w, h) overrides the descriptor's."""
+    idx = np.asarray(indices)
+    h, w = idx.shape
+    flags, table = 0, b""
+    if palette is not None:
+        b, table = _gif_table(palette)
+        flags |= 0x80 | (b - 1)
+    if interlace:
+        flags |= 0x40
+        idx = idx[[r for start, step in ((0, 8), (4, 8), (2, 4), (1, 2)) for r in range(start, h, step)]]
+    if data is None:
+        data = gif_sub_blocks(gif_pack(gif_lzw_codes(idx.reshape(-1), min_size, **lzw)))
+    w, h = size or (w, h)
+    return b"," + struct.pack("<HHHHB", x, y, w, h, flags) + table + bytes([min_size]) + data
+
+
+def gif_gce(transparency: Optional[int] = None, disposal: int = 0, delay: int = 0) -> bytes:
+    """A graphic control extension."""
+    flags = disposal << 2 | (transparency is not None)
+    return b"!\xf9\x04" + struct.pack("<BHB", flags, delay, transparency or 0) + b"\0"
+
+
+def gif_extension(label: int, payload: bytes, size: int = 255) -> bytes:
+    return b"!" + bytes([label]) + gif_sub_blocks(payload, size)
+
+
+def gif_file(w: int, h: int, blocks: List[bytes], palette=None, version: bytes = b"GIF89a",
+             trailer: bool = True) -> bytes:
+    """A GIF: the screen (w, h) with a global table where ``palette``, the
+    ``blocks`` and the trailer."""
+    flags, table = 0, b""
+    if palette is not None:
+        b, table = _gif_table(palette)
+        flags |= 0x80 | (b - 1)
+    return (version + struct.pack("<HHBBB", w, h, flags, 0, 0) + table + b"".join(blocks)
+            + (b";" if trailer else b""))
+
+
+def gif_layouts() -> Dict[str, bytes]:
+    """GIFs of each layout Pillow 12.1.0 reads, by this module's writer
+    (Pillow's writes none of local tables beside a global one, odd code
+    sizes, tables full without a Clear or missing end codes): name -> bytes."""
+    r = np.random.default_rng(1701)
+    h, w = 13, 11
+    pal = r.integers(0, 256, (256, 3))
+    idx = r.integers(0, 256, (h, w))
+    small = r.integers(0, 4, (h, w))
+    ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    photo, table = _quantised(source_image(1702, 64, 80), 6)
+    out = {
+        "global-87a.gif": gif_file(w, h, [gif_image(idx)], pal, version=b"GIF87a"),
+        "global-89a.gif": gif_file(w, h, [gif_image(idx)], pal),
+        "photo-216-colours.gif": gif_file(80, 64, [gif_image(photo)], table),
+        "short-global-table.gif": gif_file(w, h, [gif_image(idx)], pal[:4]),  # indices past the table: black
+        "local-table.gif": gif_file(w, h, [gif_image(idx, palette=pal[::-1])], pal),
+        "local-table-only.gif": gif_file(w, h, [gif_image(small, palette=pal[:4], min_size=2)]),
+        "local-ramp-global-colours.gif": gif_file(w, h, [gif_image(small, palette=ramp[:4], min_size=2)], pal[:8]),
+        "global-ramp.gif": gif_file(w, h, [gif_image(idx)], ramp),
+        "no-table.gif": gif_file(w, h, [gif_image(idx)]),
+        "transparency-offset-frame.gif": gif_file(w + 6, h + 4, [gif_gce(transparency=9), gif_image(idx, 2, 3)], pal),
+        "offset-frame.gif": gif_file(w + 6, h + 4, [gif_image(idx, 5, 1)], pal),
+        "frame-past-screen.gif": gif_file(w - 4, h - 5, [gif_image(idx, 2, 1)], pal),
+        "transparency-no-table.gif": gif_file(w + 2, h, [gif_gce(transparency=77), gif_image(idx, 1, 0)]),
+        "interlaced.gif": gif_file(w, h, [gif_image(idx, interlace=True)], pal),
+        "interlaced-3-rows.gif": gif_file(w, 3, [gif_image(idx[:3], interlace=True)], pal),
+        "clear-every-17.gif": gif_file(w, h, [gif_image(idx, clear_every=17)], pal),
+        "no-first-clear.gif": gif_file(w, h, [gif_image(idx, clear_first=False)], pal),
+        "no-end-code.gif": gif_file(w, h, [gif_image(idx, end=False)], pal),
+        "extensions.gif": gif_file(w, h, [gif_extension(254, b"a comment " * 40),
+                                          gif_extension(255, b"NETSCAPE2.0", 11)[:-1] + b"\x03\x01\x05\x00\x00",
+                                          gif_extension(1, bytes([12]) + bytes(12) + b"plain text"),
+                                          gif_extension(0xAB, b"unknown"), gif_gce(disposal=2, delay=7),
+                                          gif_image(idx)], pal),
+        "two-frames.gif": gif_file(w, h, [gif_gce(disposal=1), gif_image(idx), gif_gce(transparency=0),
+                                          gif_image(small, 1, 1, palette=pal[:4], min_size=2)], pal),
+        "zero-width-at-x0.gif": gif_file(w, h, [gif_image(idx, 0, 4, size=(0, 3))], pal),  # Pillow: the whole screen
+    }
+    big = r.integers(0, 256, (96, 160))  # more codes than 4096 entries hold
+    out["table-full-no-clear.gif"] = gif_file(160, 96, [gif_image(big, clear_when_full=False)], pal)
+    out["table-full-clear.gif"] = gif_file(160, 96, [gif_image(big)], pal)
+    for bits in (0, 1, 2, 3, 4, 5, 6, 7, 9, 12):
+        top = min(1 << bits, 256) if bits <= 8 else 256
+        codes = r.integers(0, top, (h, w)) if bits else np.zeros((h, w), np.int64)
+        out[f"code-size-{bits}.gif"] = gif_file(w, h, [gif_image(codes, min_size=bits)], pal[: max(2, top)])
+    return {f"{GIF_TIFF}/gif/{k}": v for k, v in sorted(out.items())}
+
+
+def gif_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """GIFs Pillow 12.1.0 refuses: name -> (bytes, the reason the port's
+    ``OSError`` names, a regular expression)."""
+    r = np.random.default_rng(1703)
+    h, w = 9, 7
+    pal = r.integers(0, 256, (256, 3))
+    idx = r.integers(0, 256, (h, w))
+    whole = gif_file(w, h, [gif_image(idx)], pal)
+    stream = gif_pack(gif_lzw_codes(idx.reshape(-1)[:30], 8))
+    broken = gif_pack([(256, 9), (5, 9), (300, 9)] + [(5, 9)] * 80)
+    return {
+        "screen-only.gif": (b"GIF89a" + bytes(20), "holds no image"),
+        "trailer-only.gif": (gif_file(w, h, [], pal), "holds no image"),
+        "cut-in-data.gif": (whole[: len(whole) - 40], "truncated"),
+        "cut-in-header.gif": (whole[:9], "cut short or malformed"),
+        "cut-in-descriptor.gif": (gif_file(w, h, [], pal, trailer=False) + b",\0\0\0", "cut short or malformed"),
+        "early-end-code.gif": (gif_file(w, h, [gif_image(idx, data=gif_sub_blocks(stream))], pal), "truncated"),
+        "code-past-table.gif": (gif_file(w, h, [gif_image(idx, data=gif_sub_blocks(broken))], pal), "broken GIF"),
+        "code-size-13.gif": (gif_file(w, h, [gif_image(idx, min_size=13, data=gif_sub_blocks(bytes(40)))], pal),
+                             "above 12"),
+        "zero-width.gif": (gif_file(w, h, [gif_image(idx, 1, 0, size=(0, h))], pal), "no width or no height"),
+        "short-control-extension.gif": (gif_file(w, h, [b"!\xf9\x02\x01\x00\x00", gif_image(idx)], pal),
+                                        "cut short or malformed"),
+    }
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, widened one code early as libtiff
+    reads them): a Clear first, a Clear whenever the table reaches 4094
+    entries, the end code last."""
+    out: List[Tuple[int, int]] = []
+    st: dict = {}
+
+    def reset():
+        st.update(table={bytes([i]): i for i in range(256)}, next=258, decoder_next=258, bits=9, first=True)
+
+    def emit(code):
+        out.append((code, st["bits"]))
+        if code == 256:
+            return
+        if st["first"]:
+            st["first"] = False
+            return
+        st["decoder_next"] += 1
+        if st["decoder_next"] > (1 << st["bits"]) - 2 and st["bits"] < 12:
+            st["bits"] += 1
+
+    reset()
+    emit(256)
+    run = b""
+    for byte in data:
+        longer = run + bytes([byte])
+        if longer in st["table"]:
+            run = longer
+            continue
+        emit(st["table"][run])
+        st["table"][longer] = st["next"]
+        st["next"] += 1
+        run = bytes([byte])
+        if st["next"] >= 4094:
+            emit(st["table"][run])
+            run = b""
+            emit(256)
+            reset()
+    if run:
+        emit(st["table"][run])
+    emit(257)
+    acc = nbits = 0
+    buf = bytearray()
+    for code, n in out:
+        acc = (acc << n) | code
+        nbits += n
+        while nbits >= 8:
+            nbits -= 8
+            buf.append((acc >> nbits) & 255)
+        acc &= (1 << nbits) - 1
+    if nbits:
+        buf.append((acc << (8 - nbits)) & 255)
+    return bytes(buf)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes, literal runs of up to 128."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([(257 - (j - i + 1)) & 255, data[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j + 1] == data[j]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+TIFF_COMPRESS = {1: lambda b: b, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits}
+
+
+def _tiff_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
+    """(h, w, c) samples as TIFF rows of bytes (h, row bytes)."""
+    h, w, c = block.shape
+    if bits == 16:
+        return block.astype(order + "u2").view(np.uint8).reshape(h, w * c * 2)
+    if bits == 8:
+        return block.astype(np.uint8).reshape(h, w * c)
+    return _pack(block.reshape(h, w * c, 1), bits)
+
+
+def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", compression: int = 1,
+               predictor: int = 1, planar: int = 1, rows_per_strip: Optional[int] = None,
+               tile: Optional[Tuple[int, int]] = None, extra=None, colormap=None, orientation: Optional[int] = None,
+               tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None) -> bytes:
+    """A TIFF of ``samples`` ((h, w) or (h, w, c) integers of ``bits``) in
+    byte order ``order`` ("<" II, ">" MM): strips of ``rows_per_strip`` or
+    tiles (th, tw), each plane apart where ``planar`` is 2, differenced
+    horizontally where ``predictor`` is 2 (whatever the compression: a
+    reader applies it under LZW and Deflate alone), then compressed
+    (``TIFF_COMPRESS``, or ``data`` as every chunk); ``tags`` (id -> (type,
+    values)) add to or replace the directory's."""
+    s = np.asarray(samples)
+    s = s[:, :, None] if s.ndim == 2 else s
+    h, w, c = s.shape
+    planes = [s[:, :, k:k + 1] for k in range(c)] if planar == 2 else [s]
+    blocks = []
+    for p in planes:
+        if tile:
+            th, tw = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    blk = np.zeros((th, tw, p.shape[2]), s.dtype)
+                    part = p[ty:ty + th, tx:tx + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    blocks.append(blk)
+        else:
+            blocks += [p[y:y + (rows_per_strip or h)] for y in range(0, h, rows_per_strip or h)]
+    chunks = []
+    for blk in blocks:
+        if predictor == 2:
+            blk = blk.astype(np.int64)
+            blk[:, 1:] -= blk[:, :-1].copy()
+            blk %= 1 << bits
+        chunks.append(data if data is not None else TIFF_COMPRESS[compression](_tiff_rows(blk, bits, order).tobytes()))
+    body = bytearray((b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, 0))
+    offsets = []
+    for chunk in chunks:
+        offsets.append(len(body))
+        body += chunk + b"\0" * (len(chunk) % 2)
+    t = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]), 262: (3, [photometric]),
+         277: (3, [c]), 284: (3, [planar])}
+    if predictor != 1:
+        t[317] = (3, [predictor])
+    if tile:
+        t.update({322: (3, [tile[1]]), 323: (3, [tile[0]]), 324: (4, offsets), 325: (4, list(map(len, chunks)))})
+    else:
+        t.update({273: (4, offsets), 278: (4, [rows_per_strip or h]), 279: (4, list(map(len, chunks)))})
+    if extra is not None:
+        t[338] = (3, list(extra))
+    if colormap is not None:
+        t[320] = (3, list(np.asarray(colormap).T.reshape(-1)))
+    if orientation is not None:
+        t[274] = (3, [orientation])
+    t.update(tags or {})
+    entries = sorted(t.items())
+    ifd_at = len(body)
+    values_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, values = bytearray(struct.pack(order + "H", len(entries))), bytearray()
+    for tag, (typ, vals) in entries:
+        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 11: "f"}[typ] * len(vals), *vals)
+        if len(raw) > 4:
+            field = struct.pack(order + "I", values_at + len(values))
+            values += raw + b"\0" * (len(raw) % 2)
+        else:
+            field = raw + bytes(4 - len(raw))
+        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
+    body[4:8] = struct.pack(order + "I", ifd_at)
+    return bytes(body + ifd + b"\0\0\0\0" + values)
+
+
+def tiff_layouts() -> Dict[str, bytes]:
+    """TIFFs of each layout the port reads, by ``tiff_bytes``: name -> bytes."""
+    r = np.random.default_rng(1704)
+    h, w = 13, 11
+    rgb = r.integers(0, 256, (h, w, 3))
+    rgba = r.integers(0, 256, (h, w, 4))
+    rgba[0, :4, 3] = [0, 1, 128, 255]
+    gray = r.integers(0, 256, (h, w))
+    gray16 = r.integers(0, 65536, (h, w))
+    gray16[0, :4] = [0, 255, 256, 65535]
+    bits1 = r.integers(0, 2, (h, w))
+    cmap = r.integers(0, 65536, (256, 3))
+    comps = {"raw": 1, "packbits": 32773, "lzw": 5, "deflate": 8, "adobe-deflate": 32946}
+    out = {}
+    for cname, comp in comps.items():
+        out[f"rgb-{cname}.tif"] = tiff_bytes(rgb, compression=comp, rows_per_strip=5)
+        out[f"gray8-{cname}.tif"] = tiff_bytes(gray, photometric=1, compression=comp)
+        out[f"bilevel-white-{cname}.tif"] = tiff_bytes(bits1, 1, photometric=0, compression=comp, rows_per_strip=4)
+        out[f"palette-{cname}.tif"] = tiff_bytes(gray, photometric=3, compression=comp, colormap=cmap)
+    for order, oname in (("<", "ii"), (">", "mm")):
+        out[f"gray16-{oname}-lzw-predictor.tif"] = tiff_bytes(gray16, 16, 1, order, 5, 2, rows_per_strip=6)
+        out[f"gray16-{oname}-raw.tif"] = tiff_bytes(gray16, 16, 1, order)
+        out[f"rgb-{oname}-deflate-predictor.tif"] = tiff_bytes(rgb, order=order, compression=8, predictor=2)
+        out[f"rgb-{oname}-lzw-tiles.tif"] = tiff_bytes(rgb, order=order, compression=5, tile=(16, 16))
+    out.update({
+        "gray8-white-lzw.tif": tiff_bytes(gray, photometric=0, compression=5),
+        "gray16-white-ii-raw.tif": tiff_bytes(gray16, 16, 0),  # I;16: not inverted
+        "bilevel-black-lzw.tif": tiff_bytes(bits1, 1, photometric=1, compression=5),
+        "bilevel-black-raw-tiles.tif": tiff_bytes(bits1, 1, photometric=1, tile=(16, 16)),
+        "gray-alpha-lzw.tif": tiff_bytes(r.integers(0, 256, (h, w, 2)), photometric=1, compression=5, extra=(2,)),
+        "rgba-unassociated-lzw.tif": tiff_bytes(rgba, compression=5, extra=(2,)),
+        "rgba-associated-lzw.tif": tiff_bytes(rgba, compression=5, extra=(1,)),  # divided out
+        "rgba-associated-raw.tif": tiff_bytes(rgba, extra=(1,)),
+        "rgbx-unspecified-deflate.tif": tiff_bytes(rgba, compression=8, extra=(0,)),
+        "rgba-no-extrasamples-packbits.tif": tiff_bytes(rgba, compression=32773),
+        "rgb-3-extra-lzw.tif": tiff_bytes(r.integers(0, 256, (h, w, 6)), compression=5, extra=(1, 0, 0)),
+        "rgb-planar-lzw-predictor.tif": tiff_bytes(rgb, compression=5, predictor=2, planar=2, rows_per_strip=4),
+        "rgb-planar-raw-tiles.tif": tiff_bytes(rgb, planar=2, tile=(16, 16)),
+        "rgba-planar-associated-lzw.tif": tiff_bytes(rgba, compression=5, planar=2, extra=(1,)),
+        "rgba-planar-no-extrasamples-lzw.tif": tiff_bytes(rgba, compression=5, planar=2),  # divided out too
+        "palette-lzw-predictor.tif": tiff_bytes(gray, photometric=3, compression=5, predictor=2, colormap=cmap),
+        "rgb-packbits-predictor.tif": tiff_bytes(rgb, compression=32773, predictor=2),  # no predictor applied
+        "rgb-raw-predictor.tif": tiff_bytes(rgb, predictor=2),  # likewise
+        "gray8-raw-tiles-48x32.tif": tiff_bytes(r.integers(0, 256, (40, 37)), photometric=1, tile=(48, 32)),
+    })
+    for o in range(1, 9):
+        out[f"rgb-lzw-orientation-{o}.tif"] = tiff_bytes(rgb, compression=5, orientation=o, rows_per_strip=6)
+    out["gray8-raw-orientation-6.tif"] = tiff_bytes(gray, photometric=1, orientation=6)  # mapped at swapped size
+    out["rgb-raw-orientation-5.tif"] = tiff_bytes(rgb, orientation=5)
+    return {f"{GIF_TIFF}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """TIFFs the port refuses by name (Pillow reads some of them: JPEG,
+    CMYK, YCbCr, float, 4-bit and 16-bit RGB, FillOrder 2): name -> (bytes,
+    the reason the port's ``OSError`` names, a regular expression)."""
+    r = np.random.default_rng(1705)
+    h, w = 9, 7
+    rgb = r.integers(0, 256, (h, w, 3))
+    gray = r.integers(0, 256, (h, w))
+    junk = bytes(r.integers(0, 256, 64, dtype=np.uint8))
+    lzw = tiff_bytes(rgb, compression=5)
+    old_lzw = tiff_bytes(rgb, compression=5, data=b"\x00\x01" + junk)
+    return {
+        "bigtiff.tif": (b"II+\0\x08\0\0\0" + bytes(32), "BigTIFF"),
+        "jpeg.tif": (tiff_bytes(rgb, compression=7, data=junk), "JPEG or old-style JPEG compression"),
+        "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "JPEG or old-style JPEG compression"),
+        "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk), "CCITT"),
+        "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
+        "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "with this compression"),
+        "float.tif": (tiff_bytes(gray, 32, 1, data=bytes(4 * h * w), tags={339: (3, [3])}), "floating-point"),
+        "signed.tif": (tiff_bytes(gray, photometric=1, tags={339: (3, [2])}), "signed-integer"),
+        "ycbcr.tif": (tiff_bytes(rgb, photometric=6), "YCbCr"),
+        "cmyk.tif": (tiff_bytes(r.integers(0, 256, (h, w, 4)), photometric=5), "CMYK"),
+        "lab.tif": (tiff_bytes(rgb, photometric=8), "photometric interpretation"),
+        "fill-order-2.tif": (tiff_bytes(gray & 1, 1, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
+        "gray4.tif": (tiff_bytes(gray & 15, 4, photometric=1), "depth or sample layout"),
+        "rgb16.tif": (tiff_bytes(rgb * 257, 16), "depth or sample layout"),
+        "palette4.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3))),
+                         "depth or sample layout"),
+        "predictor-3.tif": (tiff_bytes(rgb, compression=5, tags={317: (3, [3])}), "predictor"),
+        "bilevel-predictor-2.tif": (tiff_bytes(gray & 1, 1, photometric=1, compression=5, predictor=2), "predictor"),
+        "old-style-lzw.tif": (old_lzw, "old-style LZW"),
+        "lzw-cut-short.tif": (tiff_bytes(rgb, compression=5, data=tiff_lzw(rgb.astype(np.uint8).tobytes())[:40]),
+                              "refused the data|breaks the format"),
+        "strip-past-the-end.tif": (_strip_at_the_end(lzw), "truncated"),
+        "raw-past-the-end.tif": (_strip_at_the_end(tiff_bytes(rgb)), "truncated"),
+        "no-width.tif": (_without_tag(tiff_bytes(rgb), 256), "first directory"),
+    }
+
+
+def _strip_at_the_end(data: bytes) -> bytes:
+    """``data`` (II, one strip) with its strip's offset moved to 10 bytes
+    before the file's end, so its data run past it."""
+    out = bytearray(data)
+    at = struct.unpack_from("<I", out, 4)[0]
+    for i in range(struct.unpack_from("<H", out, at)[0]):
+        if struct.unpack_from("<H", out, at + 2 + 12 * i)[0] == 273:
+            struct.pack_into("<I", out, at + 2 + 12 * i + 8, len(out) - 10)
+    return bytes(out)
+
+
+def _without_tag(data: bytes, tag: int) -> bytes:
+    """``data`` (II) with the directory entry of ``tag`` renamed to a tag no
+    reader knows."""
+    out = bytearray(data)
+    at = struct.unpack_from("<I", out, 4)[0]
+    for i in range(struct.unpack_from("<H", out, at)[0]):
+        if struct.unpack_from("<H", out, at + 2 + 12 * i)[0] == tag:
+            struct.pack_into("<H", out, at + 2 + 12 * i, 65000)
+    return bytes(out)
+
+
+def gif_tiff_card() -> Dict[str, bytes]:
+    """The card's originals (``GIF_TIFF_CARD``), 1024 px."""
+    side = 1024
+    idx, palette = _quantised(smooth_scene(1710, side, side, cell=128, step=32), 6)
+    sprite, sprite_palette = _quantised(smooth_scene(1711, 896, 960, cell=64, step=48), 5)
+    scan = smooth_scene(1712, side, side, cell=256, step=16)
+    return {
+        f"{GIF_TIFF}/card/poster-1024.gif": gif_file(side, side, [gif_image(idx)], palette),
+        f"{GIF_TIFF}/card/poster-1024-interlaced.gif": gif_file(side, side, [gif_image(idx, interlace=True)], palette),
+        f"{GIF_TIFF}/card/sprite-1024.gif": gif_file(
+            side, side, [gif_extension(255, b"NETSCAPE2.0", 11)[:-1] + b"\x03\x01\x00\x00\x00",
+                         gif_gce(transparency=200, disposal=2), gif_image(sprite, 40, 96, palette=sprite_palette),
+                         gif_gce(transparency=0), gif_image(sprite[:64, :64] % 4, 0, 0, palette=palette[:4], min_size=2)],
+            palette),
+        f"{GIF_TIFF}/card/scan-1024.tif": tiff_bytes(scan, compression=5, predictor=2, rows_per_strip=64),
+    }
+
+
+def gif_tiff_fixtures() -> Dict[str, bytes]:
+    """Every file under ``gif_tiff/`` (name -> bytes), written anew: the GIF
+    and TIFF layouts, their refusals and the card's originals."""
+    refused = {f"{GIF_TIFF}/gif/refused/{k}": v for k, (v, _) in gif_refusals().items()}
+    refused.update({f"{GIF_TIFF}/tiff/refused/{k}": v for k, (v, _) in tiff_refusals().items()})
+    return dict(sorted({**gif_layouts(), **tiff_layouts(), **refused, **gif_tiff_card()}.items()))
+
+
+def committed_gif_tiff() -> Dict[str, bytes]:
+    """The committed files under ``gif_tiff/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, GIF_TIFF)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def gif_tiff_entry(name: str, path: str) -> dict:
+    """A manifest entry of a file under ``gif_tiff/``: Pillow's RGB, or for
+    a refusal the reason the port names (``refused``) beside what Pillow
+    makes of the file (its error, or the mode it reads)."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        data = f.read()
+    entry = {"bytes": len(data), "sha256": sha256(data)}
+    if "/refused/" in name:
+        reasons = {**gif_refusals(), **tiff_refusals()}
+        try:
+            with Image.open(path) as im:
+                entry["pillow"] = f"reads it ({im.mode})"
+                im.convert("RGB")
+        except Exception as e:  # noqa: BLE001 - Pillow raises OSError, ValueError, EOFError and its own
+            entry["pillow"] = f"{type(e).__name__}: {e}".replace(path, "<path>")
+        entry["refused"] = reasons[os.path.basename(name)][1]
+        return entry
+    rgb = pil_rgb(path)
+    return {**entry, "shape": list(rgb.shape[:2]), "sha256_rgb": sha256(rgb)}
