@@ -3,8 +3,9 @@
     python -m byogan_tpu_torch.cli.project ckpt.pth a.png [b.png ...] -o out/
         [--iters 400] [--lr 0.05] [--w-plus] [--ema] [--seed 0] [-d cpu]
 
-Inverts images (PNG, JPEG, BMP or WebP, ``data/images.py``: the port's
-own codecs, on any machine) into the generator's W space
+Inverts images (PNG, JPEG, BMP, WebP, GIF, TIFF, ICO, CUR, PNM or
+Targa, told apart by their bytes whatever their names, ``data/images.py``:
+the port's own codecs, on any machine) into the generator's W space
 (``projector.project``, float32) and writes ``{stem}-proj.png`` (the reconstruction) and
 ``{stem}-w.npy`` (its w, or its W+ rows) per input.  An input whose size
 is not the checkpoint's stage resolution is resized with
@@ -24,9 +25,8 @@ import torch.nn.functional as F
 
 
 def load_target(path: str, res: int) -> np.ndarray:
-    """One image file (PNG, JPEG, BMP or WebP, decoded by ``read_image`` in
-    the lane of the JAX CLI, Pillow's ``convert("RGB")``) as uint8 (res,
-    res, 3)."""
+    """One image file (any format ``read_image`` reads, in the lane of the
+    JAX CLI, Pillow's ``convert("RGB")``) as uint8 (res, res, 3)."""
     from byogan_tpu_torch.data.images import read_image
 
     img = read_image(path, lane="pillow")

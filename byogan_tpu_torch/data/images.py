@@ -3,9 +3,11 @@
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
 first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
-GIF (the first frame) and baseline TIFF (the first page) through the
-port's own codecs (``data/native.py``), BMP by ``decode_bmp`` below, each
-as the JAX package's lane for it reads it.  A file of another format that
+GIF (the first frame) and TIFF (the first page) through the port's own
+codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
+(``decode_pnm``) and Targa (``decode_tga``) in numpy below, their
+sequential loops (plain PNM samples, Targa RLE packets) in the native
+library; each as the JAX package's lane for it reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
 files are not read by the PyTorch port"), one that no Pillow plugin
 accepts "unknown format", and one a decoder refuses names the reason: no
@@ -14,17 +16,25 @@ listed file is skipped.
 
 from __future__ import annotations
 
+import math
 import os
 import struct
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from byogan_tpu_torch.data import native
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+class NotThisFormat(OSError):
+    """Raised where Pillow's ``_open`` of the format fails with an error
+    ``Image.open`` takes as "not this plugin's file" (SyntaxError,
+    IndexError, TypeError, struct.error): Pillow then tries the plugins
+    after it, and so does ``read_image``."""
 #: the formats the port decodes; ``sniff`` names any other Pillow opens
-READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF")
+READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "TGA")
 
 
 def is_image(name: str) -> bool:
@@ -92,16 +102,22 @@ def _tga(head: bytes) -> bool:
             and head[16] in (1, 8, 16, 24, 32))
 
 
+def candidates(head: bytes) -> List[str]:
+    """The formats whose plugins accept a file by its first 18 bytes, in
+    the order Pillow's ``Image.open`` tries them (``SIGNATURES``, then TGA
+    by its header checks)."""
+    prefix = head[:16]
+    names = [name for name, accept in SIGNATURES if accept(prefix)]
+    return names + ["TGA"] if _tga(head) else names
+
+
 def sniff(head: bytes) -> str:
     """The format of a file from its first 18 bytes, as Pillow's
-    ``Image.open`` identifies it (``SIGNATURES``): a name of ``READ``, of
-    another format Pillow opens, or "unknown" (Pillow's other formats
-    without a signature, IM, IPTC, PCD and SPIDER, among them)."""
-    prefix = head[:16]
-    for name, accept in SIGNATURES:
-        if accept(prefix):
-            return name
-    return "TGA" if _tga(head) else "unknown"
+    ``Image.open`` identifies it: the first of ``candidates``, a name of
+    ``READ`` or of another format Pillow opens, or "unknown" (Pillow's
+    other formats without a signature, IM, IPTC, PCD and SPIDER, among
+    them)."""
+    return (candidates(head) or ["unknown"])[0]
 
 
 #: the BMP header sizes Pillow reads (BmpImagePlugin): OS/2 1.x's 12 bytes,
@@ -124,7 +140,7 @@ _MASKS_16 = {(0xF800, 0x7E0, 0x1F): (11, 5, 0, 63), (0x7C00, 0x3E0, 0x1F): (10, 
 _COMPRESSIONS = {0: "BI_RGB", 1: "BI_RLE8", 2: "BI_RLE4", 3: "BI_BITFIELDS", 4: "BI_JPEG", 5: "BI_PNG"}
 #: the most pixels Pillow opens (twice ``Image.MAX_IMAGE_PIXELS``: above
 #: that it raises ``DecompressionBombError``)
-BMP_MAX_PIXELS = 2 * 89478485
+MAX_PIXELS = 2 * 89478485
 
 
 def _rle(data: bytes, at: int, w: int, h: int, rle4: bool) -> Optional[bytes]:
@@ -178,66 +194,60 @@ def _rle(data: bytes, at: int, w: int, h: int, rle4: bool) -> Optional[bytes]:
     return bytes(out[:need]) if len(out) >= need else None
 
 
-def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
-    """A BMP file as uint8 RGB (H, W, 3), bit for bit with Pillow's
-    ``Image.open(path).convert("RGB")`` (``BmpImagePlugin``, Pillow
-    12.1.0), the lane through which the JAX package reads BMP files:
-
-    - headers of 12 (OS/2 1.x, 3-byte palette entries), 40, 52, 56, 64,
-      108 and 124 bytes; bottom-up rows, or top-down where the height's
-      top byte is 0xFF;
-    - 1-, 4- and 8-bit palettes of the header's colour count (or 2^bits),
-      indices past a short palette black; a palette of 2 entries black and
-      white reads as 1-bit pixels and any other gray ramp (entry i = (i, i,
-      i)) as 8-bit gray, at every depth, as Pillow drops such palettes (so
-      a 4-bit file with the 16-entry ramp reads a byte a pixel, rows
-      overlapping, past the file's end as zeros);
-    - 16-bit ``BI_RGB`` (555) and ``BI_BITFIELDS`` 555 and 565, each field
-      expanded as v * 255 // max; 24-bit ``BI_RGB`` and BGR bitfields;
-      32-bit ``BI_RGB`` and the eight bitfield layouts Pillow reads, alpha
-      dropped;
-    - RLE8 and RLE4 (``_rle``).
-
-    What Pillow refuses raises ``OSError`` naming the file and the reason:
-    another header size or depth, ``BI_JPEG``/``BI_PNG`` or an unknown
-    compression, other bitfield masks, a palette of no or more than 65536
-    colours (or more than 256 that are not a gray ramp), RLE without a
-    palette, a truncated file."""
+def _bitmap(data: bytes, at: int, offset: int, name: str, fmt: str = "BMP", halve: Optional[str] = None,
+            mapped: bool = True) -> Tuple[np.ndarray, int]:
+    """The bitmap whose header starts at ``data[at]``, as Pillow 12.1.0's
+    ``BmpImageFile._bitmap(header, offset)`` reads it and its raw or RLE
+    decoder decodes it: (uint8 RGB, the pixels' offset in the file).
+    ``offset`` is the one a BMP's file header gives, or 0 where there is
+    none (DIB, ICO and CUR: the pixels then follow the palette).  ``fmt``
+    names the format in errors.  ``halve`` is "before" or "after" where
+    the bitmap is an icon's frame, which holds its AND mask below the
+    image: its height is halved before Pillow checks the size (CUR) or
+    after (ICO).  ``mapped`` is false where Pillow's reader does not map
+    the file (an ICO frame's), so rows that overlap cannot be read."""
 
     def refuse(why: str) -> OSError:
-        return OSError(f"{name}: BMP {why}, which Pillow (the JAX package's BMP lane) does not read")
+        return OSError(f"{name}: {fmt} {why}, which Pillow (the JAX package's {fmt} lane) does not read")
 
-    if len(data) < 18 or data[:2] != b"BM":
-        raise OSError(f"{name}: not a BMP file")
-    offset, header = struct.unpack_from("<II", data, 10)
+    if at + 4 > len(data):
+        raise NotThisFormat(f"{name}: {fmt} truncated before its bitmap header")
+    header = _u32(data, at)
     if header not in BMP_HEADERS:
         raise refuse(f"with a {header}-byte header (Pillow reads {', '.join(map(str, BMP_HEADERS))})")
-    pos = 14 + header
+    pos = at + header
     if len(data) < pos:
-        raise OSError(f"{name}: BMP truncated in its {header}-byte header")
+        raise OSError(f"{name}: {fmt} truncated in its {header}-byte header")
     masks = ()
     if header == 12:
-        w, h, _, bits = struct.unpack_from("<HHHH", data, 18)
+        w, h, _, bits = struct.unpack_from("<HHHH", data, at + 4)
         compression, colors, entry, top_down = 0, 0, 3, False
     else:
-        w, h, _, bits, compression = struct.unpack_from("<IIHHI", data, 18)
-        (colors,) = struct.unpack_from("<I", data, 46)
-        entry, top_down = 4, data[25] == 0xFF
+        w, h, _, bits, compression = struct.unpack_from("<IIHHI", data, at + 4)
+        (colors,) = struct.unpack_from("<I", data, at + 32)
+        entry, top_down = 4, data[at + 11] == 0xFF
         if top_down:
             h = 2**32 - h
         if compression == 3:
             if header >= 52:
-                masks = struct.unpack_from("<IIII" if header >= 56 else "<III", data, 54)
+                masks = struct.unpack_from("<IIII" if header >= 56 else "<III", data, at + 40)
             else:
                 if len(data) < pos + 12:
-                    raise OSError(f"{name}: BMP truncated in its bitfield masks")
+                    raise NotThisFormat(f"{name}: {fmt} truncated in its bitfield masks")
                 masks = struct.unpack_from("<III", data, pos)
                 pos += 12
             masks = (masks + (0,))[:4]
-    if w <= 0 or h <= 0:
-        raise refuse(f"of {w} x {h} pixels")
-    if w * h > BMP_MAX_PIXELS:
-        raise refuse(f"of {w} x {h} pixels, more than {BMP_MAX_PIXELS}")
+    if halve == "before":
+        h //= 2
+    if w <= 0 or h <= 0:  # Pillow raises SyntaxError: not its file
+        raise NotThisFormat(f"{name}: {fmt} of {w} x {h} pixels, which Pillow does not identify")
+    checked = h  # the height Pillow's size check sees
+    if halve == "after":
+        h //= 2
+        if h <= 0:  # a frame of one row: Pillow's tile of no rows
+            raise refuse(f"of {w} x {h} pixels (tile cannot extend outside image)")
+    if w * checked > MAX_PIXELS:
+        raise refuse(f"of {w} x {checked} pixels, more than {MAX_PIXELS}")
     if bits not in (1, 4, 8, 16, 24, 32):
         raise refuse(f"with {bits}-bit pixels (Pillow reads 1, 4, 8, 16, 24 and 32)")
     colors = colors or 1 << bits
@@ -274,24 +284,24 @@ def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
                          + ("a black and white palette" if gray == "1" else "no palette"))
         rle = _rle(data, offset, w, h, compression == 2)
         if rle is None:
-            raise OSError(f"{name}: BMP {_COMPRESSIONS[compression]} data end before its {w} x {h} pixels")
+            raise OSError(f"{name}: {fmt} {_COMPRESSIONS[compression]} data end before its {w} x {h} pixels")
         px = np.frombuffer(rle, np.uint8).reshape(h, w)
     else:
         stride = (w * bits + 31) // 32 * 4
         depth = 8 if gray == "L" else 1 if gray == "1" else bits
         row = (w * depth + 7) // 8
+        if stride < row and not mapped:  # the raw decoder's rows would overlap: "bad configuration"
+            raise refuse(f"gray palette of {bits}-bit pixels read a byte a pixel, its rows overlapping")
         # 8-bit gray over rows of fewer bytes: Pillow maps the file, which must hold every row's stride
         need = offset + (h * stride if stride < row else (h - 1) * stride + row)
         if need > len(data):
-            raise OSError(f"{name}: BMP truncated ({len(data)} bytes, its pixels end at {need})")
+            raise OSError(f"{name}: {fmt} truncated ({len(data)} bytes, its pixels end at {need})")
         span = np.frombuffer(data[offset:offset + (h - 1) * stride + row], np.uint8)
         if span.size < (h - 1) * stride + row:  # overlapping rows: the last reads past the file's end as zeros
             span = np.concatenate([span, np.zeros((h - 1) * stride + row - span.size, np.uint8)])
         rows = np.lib.stride_tricks.as_strided(span, (h, row), (stride, 1))
         if depth < 8:
-            per = 8 // depth
-            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-            px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, row * per)[:, :w]
+            px = _unpack_bits(rows, depth, w)
             if gray == "1":
                 px = px * np.uint8(255)
         elif depth == 8:
@@ -308,11 +318,388 @@ def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
             px = np.stack([(v >> s) & 255 for s in shifts], -1)
     if not top_down:
         px = px[::-1]
+    return _rgb(px, lut), offset
+
+
+def _unpack_bits(rows: np.ndarray, depth: int, w: int) -> np.ndarray:
+    """(h, bytes) rows of ``depth``-bit samples packed from each byte's
+    most significant bit as (h, w) uint8 samples."""
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(rows.shape[0], -1)[:, :w]
+
+
+def _rgb(px: np.ndarray, lut: Optional[np.ndarray] = None) -> np.ndarray:
+    """Indices through ``lut``, gray repeated, or RGB, as uint8 (H, W, 3)."""
     if lut is not None:
         return lut[px]
     if px.ndim == 2:
         return np.repeat(px[:, :, None], 3, axis=2).astype(np.uint8)
-    return np.ascontiguousarray(px, np.uint8)
+    out = np.ascontiguousarray(px[:, :, :3], np.uint8)
+    return out if out.flags.writeable else out.copy()  # not a view of the file's bytes
+
+
+def decode_bmp(data: bytes, name: str = "BMP") -> np.ndarray:
+    """A BMP file as uint8 RGB (H, W, 3), bit for bit with Pillow's
+    ``Image.open(path).convert("RGB")`` (``BmpImagePlugin``, Pillow
+    12.1.0), the lane through which the JAX package reads BMP files:
+
+    - headers of 12 (OS/2 1.x, 3-byte palette entries), 40, 52, 56, 64,
+      108 and 124 bytes; bottom-up rows, or top-down where the height's
+      top byte is 0xFF;
+    - 1-, 4- and 8-bit palettes of the header's colour count (or 2^bits),
+      indices past a short palette black; a palette of 2 entries black and
+      white reads as 1-bit pixels and any other gray ramp (entry i = (i, i,
+      i)) as 8-bit gray, at every depth, as Pillow drops such palettes (so
+      a 4-bit file with the 16-entry ramp reads a byte a pixel, rows
+      overlapping, past the file's end as zeros);
+    - 16-bit ``BI_RGB`` (555) and ``BI_BITFIELDS`` 555 and 565, each field
+      expanded as v * 255 // max; 24-bit ``BI_RGB`` and BGR bitfields;
+      32-bit ``BI_RGB`` and the eight bitfield layouts Pillow reads, alpha
+      dropped;
+    - RLE8 and RLE4 (``_rle``).
+
+    What Pillow refuses raises ``OSError`` naming the file and the reason:
+    another header size or depth, ``BI_JPEG``/``BI_PNG`` or an unknown
+    compression, other bitfield masks, a palette of no or more than 65536
+    colours (or more than 256 that are not a gray ramp), RLE without a
+    palette, a truncated file."""
+    if len(data) < 18 or data[:2] != b"BM":
+        raise OSError(f"{name}: not a BMP file")
+    return _bitmap(data, 14, _u32(data, 10), name)[0]
+
+
+def decode_dib(data: bytes, name: str = "DIB") -> np.ndarray:
+    """A headerless bitmap (Pillow's DIB: the file starts with the bitmap
+    header, its first u32 a size of ``BMP_HEADERS``) as uint8 RGB, as
+    Pillow's ``DibImageFile`` reads it: ``decode_bmp``'s layouts, the
+    pixels right after the header, its bitfield masks and its palette
+    (Pillow guesses no other offset without a file header)."""
+    return _bitmap(data, 0, 0, name, "DIB")[0]
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def decode_ico(data: bytes, name: str = "ICO") -> np.ndarray:
+    """A Windows icon's image as uint8 RGB, as Pillow 12.1.0's
+    ``IcoImagePlugin`` opens it and ``convert("RGB")`` reads it: the entry
+    first after its two stable sorts, by colour depth (``bpp``, or
+    ceil(log2(colours)), or 256) ascending and then by area (a width or
+    height byte of 0 is 256) descending; its frame a PNG (the port's PNG
+    codec in the Pillow lane, a 16-bit gray sample clipped at 255) or a
+    DIB whose height is halved (``_bitmap``), whatever size its entry
+    gives.  Pillow reads a DIB frame's AND mask (or, where the
+    entry's ``bpp`` is 32, its alpha bytes) before ``convert("RGB")``
+    drops it, so a mask or alpha cut short by the file's end raises, as
+    does an icon of no entry."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: ICO {why}, which Pillow (the JAX package's ICO lane) does not read")
+
+    count = _u16(data, 4)
+    if count <= 0:
+        raise NotThisFormat(f"{name}: ICO with no image, which Pillow does not identify")
+    entries = []
+    for i in range(count):
+        s = data[6 + 16 * i:22 + 16 * i]
+        if len(s) < 16:
+            raise NotThisFormat(f"{name}: ICO directory cut short at entry {i} of {count}")
+        width, height, colors, bpp = s[0] or 256, s[1] or 256, s[2], _u16(s, 6)
+        depth = bpp or (colors != 0 and math.ceil(math.log(colors, 2))) or 256
+        entries.append((width * height, depth, bpp, _u32(s, 8), _u32(s, 12)))
+    entries.sort(key=lambda e: e[1])
+    entries.sort(key=lambda e: e[0], reverse=True)
+    _, _, bpp, size, at = entries[0]
+    if data[at:at + 8] == _PNG_MAGIC:
+        rgb = native.decode_buffer(data[at:], name, "pillow")
+        if rgb.shape[0] * rgb.shape[1] > MAX_PIXELS:
+            raise refuse(f"PNG frame of {rgb.shape[1]} x {rgb.shape[0]} pixels, more than {MAX_PIXELS}")
+        return rgb
+    rgb, offset = _bitmap(data, at, 0, name, "ICO", halve="after", mapped=False)
+    h, w = rgb.shape[:2]
+    if bpp == 32:  # the alpha bytes, every fourth of 4 * w * h from the pixels' start
+        if offset + 4 * w * h > len(data):
+            raise refuse("32-bit frame whose alpha bytes end past the file's end (buffer is not large enough)")
+    else:  # the AND mask, rows of 32-bit words, ending where the entry's bytes end
+        stride = (w + 31) // 32 * 4
+        mask_at = at + size - stride * h
+        if mask_at < 0:
+            raise refuse(f"frame whose AND mask would start before the file ({mask_at})")
+        if mask_at + (h - 1) * stride + (w + 7) // 8 > len(data):
+            raise refuse("frame whose AND mask ends past the file's end (not enough image data)")
+    return rgb
+
+
+def decode_cur(data: bytes, name: str = "CUR") -> np.ndarray:
+    """A Windows cursor's image as uint8 RGB, as Pillow 12.1.0's
+    ``CurImagePlugin`` reads it: the first entry, unless a later one is
+    strictly wider and taller by its raw width and height bytes (so a 0,
+    which means 256, never wins); its DIB read from the entry's offset
+    (``_bitmap``; an offset of 0 reads on after the directory) with its
+    height halved, and no mask read."""
+    count = _u16(data, 4)
+    best = b""
+    for i in range(max(count, 0)):
+        s = data[6 + 16 * i:22 + 16 * i]
+        if not best:
+            best = s
+        elif not s or s[0] > best[0] and (len(s) < 2 or len(best) < 2):
+            raise NotThisFormat(f"{name}: CUR directory cut short at entry {i} of {count}")
+        elif s[0] > best[0] and s[1] > best[1]:
+            best = s
+    if not best:
+        raise NotThisFormat(f"{name}: CUR with no entry (No cursors were found), which Pillow does not identify")
+    if len(best) < 16:
+        raise NotThisFormat(f"{name}: CUR directory cut short in the entry it reads")
+    at = _u32(best, 12) or min(6 + 16 * count, len(data))
+    return _bitmap(data, at, 0, name, "CUR", halve="before")[0]
+
+
+#: Pillow 12.1.0's PPM modes by magic (``PpmImagePlugin.MODES``): P1-P6,
+#: its float and CMYK extensions, and its test modes
+PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB", b"P0CMYK": "CMYK",
+             b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_BANDS = {"1": 1, "L": 1, "I": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}
+_WHITESPACE = b" \t\n\x0b\x0c\r"
+
+
+def _pnm_token(data: bytes, pos: int, name: str) -> Tuple[bytes, int]:
+    """``PpmImageFile._read_token`` from ``data[pos]``: leading whitespace
+    skipped, a ``#`` comment dropped up to and through its CR or LF (the
+    token goes on after it), the token ended by the whitespace it reads;
+    at most 10 characters.  Returns the token and the position after it."""
+    token = b""
+    while len(token) <= 10:
+        if pos >= len(data):
+            break
+        c = data[pos:pos + 1]
+        pos += 1
+        if c in _WHITESPACE:
+            if not token:
+                continue
+            break
+        if c == b"#":
+            while data[pos:pos + 1] not in b"\r\n":  # b"" at the file's end is in it
+                pos += 1
+            pos += 1
+            continue
+        token += c
+    if not token:
+        raise OSError(f"{name}: PPM header: Reached EOF while reading header")
+    if len(token) > 10:
+        raise OSError(f"{name}: PPM header: Token too long in file header: {token!r}")
+    return token, pos
+
+
+def _pnm_int(token: bytes, name: str) -> int:
+    try:
+        return int(token)  # Python's int(), as Pillow parses the header
+    except ValueError as e:
+        raise OSError(f"{name}: PPM header: {e}") from e
+
+
+def _cmyk2rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb`` (Convert.c): each of C, M, Y (uint8) taken off
+    255 - K as MULDIV255."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _f2l(v: np.ndarray) -> np.ndarray:
+    """Pillow's F -> L (``f2l``, Convert.c): 0 at or below 0 (and NaN),
+    255 at or above 255, the integer part between."""
+    out = np.zeros(v.shape, np.uint8)
+    inside = (v > 0) & (v < 255)
+    out[inside] = v[inside].astype(np.uint8)
+    out[v >= 255] = 255
+    return out
+
+
+def decode_pnm(data: bytes, name: str = "PPM") -> np.ndarray:
+    """A PBM, PGM, PPM (or Pillow's ``Pf`` float, ``P0CMYK`` and test
+    ``Py*``) file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``PpmImagePlugin`` and ``convert("RGB")``:
+
+    - the header as Pillow reads it: a magic of up to 6 bytes up to the
+      first whitespace, then tokens of at most 10 characters (``_pnm_token``),
+      parsed by Python's ``int`` and ``float``;
+    - raw P4 (1-bit, 1 black), P5 and P6: maxval 255 read raw, gray at
+      65535 as big-endian 16-bit samples (mode I), any other maxval as
+      samples of 1 byte (2 big-endian at 256 and above) scaled to
+      min(out_max, round(v / maxval * out_max)) in float64 with
+      round-half-even, out_max 65535 where gray is above 255 (mode I) and
+      255 otherwise; mode I then clips at 255, as Pillow's I -> RGB does;
+    - plain P1, P2 and P3 through the native library (``native.pnm_plain``:
+      Pillow's ``PpmPlainDecoder``, block by block);
+    - ``Pf``: float32, little-endian where the scale is negative, rows
+      bottom-up, F -> RGB as ``f2l``; ``P0CMYK`` and ``PyCMYK`` through
+      ``cmyk2rgb``; ``PyP`` has no palette, so reads black.
+
+    Bytes Pillow does not identify raise "unknown format"; what it refuses
+    (a bad token, maxval or scale, data cut short) raises ``OSError``
+    naming the file and the reason."""
+    magic, pos = b"", 0
+    while len(magic) < 6 and pos < len(data):
+        c = data[pos:pos + 1]
+        pos += 1
+        if c in _WHITESPACE:
+            break
+        magic += c
+    mode = PNM_MODES.get(magic)
+    if mode is None:
+        raise NotThisFormat(f"{name}: unknown format: Pillow's PPM reader does not identify the magic {magic!r}")
+    tok, pos = _pnm_token(data, pos, name)
+    w = _pnm_int(tok, name)
+    tok, pos = _pnm_token(data, pos, name)
+    h = _pnm_int(tok, name)
+    plain = magic in (b"P1", b"P2", b"P3")
+    maxval, scale = 0, 0.0
+    if mode == "F":
+        tok, pos = _pnm_token(data, pos, name)
+        try:
+            scale = float(tok)
+        except ValueError as e:
+            raise OSError(f"{name}: PPM header: {e}") from e
+        if scale == 0.0 or not math.isfinite(scale):
+            raise OSError(f"{name}: PPM header: scale must be finite and non-zero")
+    elif mode != "1":
+        tok, pos = _pnm_token(data, pos, name)
+        maxval = _pnm_int(tok, name)
+        if not 0 < maxval < 65536:
+            raise OSError(f"{name}: PPM header: maxval must be greater than 0 and less than 65536")
+        if maxval > 255 and mode == "L":
+            mode = "I"
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: unknown format: a PPM of {w} x {h} pixels, which Pillow does not identify")
+    if w * h > MAX_PIXELS:
+        raise OSError(f"{name}: PPM of {w} x {h} pixels, more than {MAX_PIXELS}, which Pillow does not read")
+    bands = _BANDS[mode]
+    if plain:
+        px = native.pnm_plain(data[pos:], name, h, w, bands, maxval, mode == "I")
+        return _rgb(px if bands > 1 else px[:, :, 0])
+
+    def body(n: int) -> np.ndarray:
+        if pos + n > len(data):
+            raise OSError(f"{name}: PPM truncated ({len(data)} bytes, its pixels end at {pos + n})")
+        return np.frombuffer(data, np.uint8, n, pos)
+
+    if mode == "1":
+        row = (w + 7) // 8
+        return _rgb(np.where(_unpack_bits(body(h * row).reshape(h, row), 1, w), 0, 255).astype(np.uint8))
+    if mode == "F":
+        v = body(4 * w * h).view("<f4" if scale < 0 else ">f4").reshape(h, w)[::-1]
+        return _rgb(_f2l(v))
+    if maxval == 255:
+        px = body(w * h * bands).reshape(h, w, bands)
+    elif maxval == 65535 and mode == "I":
+        px = np.minimum(body(2 * w * h).view(">u2").reshape(h, w, 1), 255).astype(np.uint8)
+    else:
+        size = 1 if maxval < 256 else 2
+        v = body(size * w * h * bands).view(">u2" if size == 2 else np.uint8).reshape(h, w, bands)
+        out_max = 65535 if mode == "I" else 255
+        px = np.minimum(out_max, np.rint(v / maxval * out_max))
+        px = np.minimum(px, 255).astype(np.uint8)
+    if mode == "P":  # no palette: every index reads black
+        return np.zeros((h, w, 3), np.uint8)
+    if mode == "CMYK":
+        return _cmyk2rgb(px)
+    return _rgb(px if bands > 1 else px[:, :, 0])
+
+
+#: Pillow 12.1.0's Targa raw modes (``TgaImagePlugin.MODES``) by (image
+#: type & 7, depth), with their bits a pixel
+TGA_MODES = {(1, 8): ("P", 8), (3, 1): ("1", 1), (3, 8): ("L", 8), (3, 16): ("LA", 16), (2, 16): ("BGRA;15Z", 16),
+             (2, 24): ("BGR", 24), (2, 32): ("BGRA", 32)}
+
+
+def _bgra15z(v: np.ndarray) -> np.ndarray:
+    """Pillow's ``BGRA;15Z`` unpacker on little-endian 16-bit words: 5 bits
+    a channel, each expanded as v * 255 // 31."""
+    return np.stack([((v >> s) & 31) * 255 // 31 for s in (10, 5, 0)], -1).astype(np.uint8)
+
+
+def decode_tga(data: bytes, name: str = "TGA") -> np.ndarray:
+    """A Targa file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``TgaImagePlugin`` and ``convert("RGB")``:
+
+    - image types 1/9 (colour-mapped), 2/10 (true colour) and 3/11 (gray),
+      raw or RLE, at the depths of ``TGA_MODES`` (16-bit colour as
+      ``BGRA;15Z``); the ID field skipped, rows bottom-up unless the flags
+      hold 0x20, mirrored where they hold 0x10, a TGA 2.0 footer ignored;
+    - the colour map (16- or 24-bit entries) after ``start`` black entries;
+      an index past the map reads black; a gray image with a map reads
+      through it, as Pillow's ``putpalette`` turns L into P;
+    - RLE through the native library (``native.tga_rle``: Pillow's
+      TgaRleDecode.c, whose run packets may not cross a row's end and
+      whose literal ones may).
+
+    What Pillow refuses raises ``OSError`` naming the file and the reason:
+    another image type, map depth (8 or 32 bits) or depth, type 1 without
+    a map, a map on true-colour or 1-bit pixels or of more than 256
+    entries, RLE of 1-bit pixels (Pillow steps 0 bytes a packet), data cut
+    short."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: TGA {why}, which Pillow (the JAX package's TGA lane) does not read")
+
+    id_len, cmt, itype, depth, flags = data[0], data[1], data[2], data[16], data[17]
+    w, h = _u16(data, 12), _u16(data, 14)
+    if itype not in (1, 2, 3, 9, 10, 11):
+        raise NotThisFormat(f"{name}: TGA of image type {itype} (unknown TGA mode), which Pillow does not identify")
+    pos = 18 + id_len
+    lut = None
+    if cmt:
+        start, size, map_depth = _u16(data, 3), _u16(data, 5), data[7]
+        if map_depth not in (16, 24, 32):
+            raise NotThisFormat(f"{name}: TGA with a {map_depth}-bit colour map (unknown TGA map depth), which Pillow "
+                                "does not identify")
+        k = map_depth // 8
+        table = data[pos:pos + k * size]
+        pos += len(table)
+        entries = start + len(table) // k
+        if map_depth == 32:
+            raise refuse("with a 32-bit colour map (Pillow's palette has no BGRA raw mode)")
+        if entries > 256:
+            raise refuse(f"with a colour map of {entries} entries (invalid palette size)")
+        lut = np.zeros((256, 3), np.uint8)
+        raw = np.frombuffer(table, np.uint8, len(table) // k * k)
+        lut[start:entries] = (_bgra15z(raw.view("<u2")) if k == 2 else raw.reshape(-1, 3)[:, ::-1])
+    if (itype & 7, depth) not in TGA_MODES:
+        raise refuse(f"of image type {itype} at {depth} bits (cannot load this image)")
+    rawmode, bits = TGA_MODES[itype & 7, depth]
+    if rawmode == "P" and lut is None:
+        raise refuse("of a colour-mapped type without a colour map (unknown raw mode for given image mode)")
+    if lut is not None and rawmode not in ("P", "L", "LA"):
+        raise refuse(f"with a colour map on {rawmode} pixels (unrecognized image mode)")
+    if w * h > MAX_PIXELS:
+        raise refuse(f"of {w} x {h} pixels, more than {MAX_PIXELS}")
+    row = (w * bits + 7) // 8
+    if itype & 8:
+        rows = native.tga_rle(data[pos:], name, bits // 8, row, h)
+    else:
+        if pos + h * row > len(data):
+            raise OSError(f"{name}: TGA truncated ({len(data)} bytes, its pixels end at {pos + h * row})")
+        rows = np.frombuffer(data, np.uint8, h * row, pos).reshape(h, row)
+    if not flags & 0x20:
+        rows = rows[::-1]
+    if rawmode == "1":
+        px = _unpack_bits(rows, 1, w) * np.uint8(255)
+    elif rawmode in ("P", "L", "LA"):
+        px = rows.reshape(h, w, bits // 8)[:, :, 0]
+    elif rawmode == "BGRA;15Z":
+        px = _bgra15z(rows.copy().view("<u2"))
+    else:
+        px = rows.reshape(h, w, bits // 8)[:, :, 2::-1]
+    if flags & 0x10:
+        px = px[:, ::-1]
+    return _rgb(px, lut)
+
+
+#: the formats read in numpy here, each from the whole file's bytes
+_DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_pnm,
+             "TGA": decode_tga}
 
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
@@ -322,22 +709,37 @@ def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "
     shape is still read.  ``lane`` is the JAX package's lane to follow
     where its lanes part (``native.LANES``): "native" for the loader, as
     its ``StageDataset`` reads, "pillow" for originals, as its prep and
-    ``cli.project`` read them (``Image.open(path).convert("RGB")``)."""
+    ``cli.project`` read them (``Image.open(path).convert("RGB")``).  The
+    formats of ``_DECODERS`` reach the JAX package through Pillow alone, so
+    they read alike in both lanes.  As ``Image.open`` does, a file that a
+    format's reader does not identify (``NotThisFormat``) goes on to the
+    next format that accepts its first bytes: a true-colour Targa whose
+    first bytes are a cursor's magic is read as Targa."""
     with open(path, "rb") as f:
         head = f.read(18)
-    fmt = sniff(head)
-    if fmt == "BMP":
-        with open(path, "rb") as f:
-            return decode_bmp(f.read(), path)
-    if fmt in READ:
-        return native.decode_image(path, shape, lane)
+    last = data = None
+    for fmt in candidates(head):
+        if fmt not in READ:
+            raise unreadable(path, head, fmt)
+        if fmt not in _DECODERS:
+            return native.decode_image(path, shape, lane)
+        if data is None:  # read once, whichever of the candidates reads it
+            with open(path, "rb") as f:
+                data = f.read()
+        try:
+            return _DECODERS[fmt](data, path)
+        except NotThisFormat as e:
+            last = e
+    if last is not None:
+        raise last
     raise unreadable(path, head)
 
 
-def unreadable(path: str, head: bytes) -> OSError:
+def unreadable(path: str, head: bytes, fmt: Optional[str] = None) -> OSError:
     """The error for a file whose first bytes (``head``) are of no format
-    the port reads: it names the file and the format ``sniff`` finds."""
-    fmt = sniff(head)
+    the port reads: it names the file and the format (``fmt``, or the one
+    ``sniff`` finds)."""
+    fmt = fmt or sniff(head)
     decodes = f"the PyTorch port decodes {', '.join(READ[:-1])} and {READ[-1]} files"
     if fmt == "unknown":
         return OSError(f"{path}: unknown format (first bytes {head[:4]!r}): no Pillow plugin accepts it, and {decodes}")

@@ -8,9 +8,12 @@ lanes part, as either lane reads them); the JPEG kinds that lane
 refuses or reads otherwise (CMYK, YCCK, lossless, progressive files left
 for block smoothing), WebP files (VP8, VP8L, VP8X with its alpha
 dropped, the first frame of an animation), GIF files (the first frame)
-and baseline TIFF files (the first page) bit for bit with its Pillow lane
+and TIFF files (the first page) bit for bit with its Pillow lane
 (libjpeg-turbo 3.1.3, libwebp, Pillow 12.1.0's GIF decoder, libtiff
-4.7.1); ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
+4.7.1); ``decode_buffer`` does the same for bytes in memory (an icon's PNG
+frame); ``pnm_plain`` and ``tga_rle`` run the plain PNM and Targa RLE
+loops of ``data/images.py``'s readers as Pillow's decoders do;
+``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
 naming the compiler's error: there is no other lane to fall back on.
 ctypes releases the interpreter lock during each call, so threads decode
@@ -27,7 +30,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 6
+ABI_VERSION = 7
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -64,24 +67,34 @@ ERRORS = {
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
     -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
     -32: "TIFF files of YCbCr pixels are not read by the PyTorch port",
-    -33: "TIFF files of CMYK pixels are not read by the PyTorch port",
-    -34: "TIFF files of this photometric interpretation (Lab, a mask...) are not read by the PyTorch port",
-    -35: "TIFF files of floating-point samples are not read by the PyTorch port",
-    -36: "TIFF files of signed-integer samples are not read by the PyTorch port",
-    -37: "TIFF files with FillOrder 2 are not read by the PyTorch port",
-    -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-bit bilevel, "
-         "8- and 16-bit gray, 8-bit gray with alpha, 8-bit RGB with up to 3 extra samples and 8-bit palettes)",
+    -34: "TIFF files of this photometric interpretation (Lab, which Pillow converts through LittleCMS, a "
+         "mask...) are not read by the PyTorch port",
+    -37: "uncompressed TIFF files with FillOrder 2 of MinIsWhite 8-bit gray or 1-, 2- or 4-bit palettes, which "
+         "Pillow's raw decoder has no raw mode for (unknown raw mode)",
+    -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-, 2-, 4- and "
+         "8-bit gray, unsigned and signed 16-bit gray, 32-bit float gray, 8-bit gray with alpha, 8- and 16-bit "
+         "RGB with extra samples, 1- to 8-bit palettes and 8- and 16-bit CMYK, as Pillow's keys list them)",
     -39: "a TIFF predictor that libtiff refuses on these samples",
     -40: "TIFF files of old-style LZW codes are not read by the PyTorch port",
+    -41: "a plain PBM sample other than 0 or 1 (Pillow: Invalid token for this mode)",
+    -42: "a plain PNM token longer than 10 characters (Pillow: Token too long found in data)",
+    -43: "a plain PNM token that is not an integer (Pillow: invalid literal for int())",
+    -44: "a negative plain PNM sample (Pillow: Channel value is negative)",
+    -45: "a plain PNM sample above its maxval (Pillow: Channel value too large for this mode)",
+    -46: "a Targa RLE run packet past the end of its row (Pillow: buffer overrun when reading image file)",
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _S = ctypes.c_char_p
 _IP = ctypes.POINTER(ctypes.c_int)
+_N = ctypes.c_size_t
 SIGNATURES = {
     "byogan_abi_version": [],
     "byogan_decode": [_S, _P, _IP, _IP, _I],
+    "byogan_decode_buffer": [_P, _N, _P, _IP, _IP, _I],
+    "byogan_pnm_plain": [_P, _N, _I, _I, _I, _I, _I, _P],
+    "byogan_tga_rle": [_P, _N, _I, _I, _I, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
@@ -132,6 +145,23 @@ def _failed(path: str, what: str, rc: int) -> OSError:
     return OSError(f"{path}: {what} failed: {ERRORS.get(rc, 'error')} ({rc})")
 
 
+def _decode(call, name: str, shape: Optional[Tuple[int, int]]) -> np.ndarray:
+    """``call(out, h, w)`` (a decode with ``byogan_decode``'s size protocol)
+    into a uint8 RGB array: one call where ``shape`` is right, else a
+    first call reads the size and a second decodes."""
+    h, w = shape or (0, 0)
+    for _ in range(2):
+        out = np.empty((h, w, 3), np.uint8)
+        hc, wc = _I(h), _I(w)
+        rc = call(out.ctypes.data if out.size else None, ctypes.byref(hc), ctypes.byref(wc))
+        if rc != -5:
+            break
+        h, w = hc.value, wc.value
+    if rc != 0:
+        raise _failed(name, "decode", rc)
+    return out
+
+
 def decode_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
     """A PNG, JPEG, WebP, GIF or TIFF file (told apart by its first bytes)
     as uint8 RGB (H, W, 3).  ``shape`` is the (H, W) the caller expects: where it is
@@ -142,17 +172,38 @@ def decode_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str =
     ("pillow")."""
     flag = LANES[lane]
     lib = load_library()
-    h, w = shape or (0, 0)
-    for _ in range(2):
-        out = np.empty((h, w, 3), np.uint8)
-        hc, wc = _I(h), _I(w)
-        buf = out.ctypes.data if out.size else None
-        rc = lib.byogan_decode(path.encode(), buf, ctypes.byref(hc), ctypes.byref(wc), flag)
-        if rc != -5:
-            break
-        h, w = hc.value, wc.value
+    return _decode(lambda out, h, w: lib.byogan_decode(path.encode(), out, h, w, flag), path, shape)
+
+
+def decode_buffer(data: bytes, name: str, lane: str = "native") -> np.ndarray:
+    """``decode_image`` of a file's bytes held in memory (an ICO's PNG
+    frame); ``name`` is the file errors name."""
+    flag = LANES[lane]
+    lib = load_library()
+    return _decode(lambda out, h, w: lib.byogan_decode_buffer(data, len(data), out, h, w, flag), name, None)
+
+
+def pnm_plain(data: bytes, name: str, h: int, w: int, bands: int, maxval: int, wide: bool) -> np.ndarray:
+    """The samples of a plain PBM, PGM or PPM from ``data``, the bytes after
+    its header, as uint8 (h, w, bands), as Pillow's ``PpmPlainDecoder``
+    reads them (``maxval`` 0: P1, '1' black, '0' white; ``wide``: gray above
+    maxval 255, which Pillow reads as mode I, scaled to 16 bits and then
+    clipped at 255)."""
+    out = np.empty((h, w, bands), np.uint8)
+    rc = load_library().byogan_pnm_plain(data, len(data), bands, w, h, maxval, int(wide), out.ctypes.data)
     if rc != 0:
-        raise _failed(path, "decode", rc)
+        raise _failed(name, "plain PNM decode", rc)
+    return out
+
+
+def tga_rle(data: bytes, name: str, pixel_bytes: int, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of a Targa RLE image from ``data``, the bytes after its
+    colour map, in file order: uint8 (rows, row_bytes), as Pillow's
+    TgaRleDecode.c reads packets of ``pixel_bytes``-byte pixels."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_tga_rle(data, len(data), pixel_bytes, row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "Targa RLE decode", rc)
     return out
 
 

@@ -4,8 +4,9 @@ A stage reads ``<root>/prepared/set_{stage}`` (ImageFolder layout: files
 under class subdirectories), or derives it from a higher set with prep's
 2x bilinear filter.  ``packed.npy`` (``pack_stage``) is read as a uint8 NHWC
 memmap with no decode.  Files are listed by extension and decoded by
-format (``data/images.py``: PNG, JPEG and WebP through the native lane,
-BMP in numpy; any other raises, naming the file), on ``workers`` threads
+format (``data/images.py``: PNG, JPEG, WebP, GIF and TIFF through the
+native lane; BMP, DIB, ICO, CUR, PNM and Targa as the JAX loader's Pillow
+fallback reads them; any other raises, naming the file), on ``workers`` threads
 as the JAX package's are (byogan_tpu/data/pipeline.py:91-168).  The loader keeps
 the JAX loader's order of random draws (one permutation per epoch, then
 one flip draw per batch from ``np.random.default_rng(seed)``), so the same

@@ -9,9 +9,10 @@ size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
 package's.  Decoding (``data/images.py``: PNG, JPEG, WebP, GIF and TIFF
 through the port's own codecs, which need no libpng, libjpeg, libwebp or
-libtiff, BMP in numpy,
-each in the lane of the JAX package's prep, Pillow's ``convert("RGB")``,
-so a 16-bit gray PNG clips at 255) and encoding (``serve.encode_png``)
+libtiff; BMP, DIB, ICO, CUR, PNM and Targa in numpy with the native
+library's loops; each in the lane of the JAX package's prep, Pillow's
+``convert("RGB")``, so a 16-bit gray PNG clips at 255) and encoding
+(``serve.encode_png``)
 run on a pool of host threads; the resizes run on ``device``, the GPU
 unless ``"cpu"`` is asked for.  An original of a format the port does not
 read raises before any set is written, naming the file and the format.

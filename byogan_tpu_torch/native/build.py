@@ -7,7 +7,8 @@ source is newer:
 
     g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp png.cpp jpeg_decode.cpp \\
         jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp jpeg_tables.cpp webp.cpp \\
-        vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp gif.cpp tiff.cpp -o build/libbyogan_io.so -lz
+        vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp gif.cpp tiff.cpp pnm_tga.cpp \\
+        -o build/libbyogan_io.so -lz
 
 zlib is the one library it links (PNG's inflate), on every machine: no
 libpng, libjpeg or libwebp.  A machine without ``zlib.h`` fails the build,
@@ -30,7 +31,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
-                                   "webp_tables.cpp", "gif.cpp", "tiff.cpp"))
+                                   "webp_tables.cpp", "gif.cpp", "tiff.cpp", "pnm_tga.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"

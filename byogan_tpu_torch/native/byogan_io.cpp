@@ -4,8 +4,9 @@
 // decode (jpeg_decode.cpp) and JPEG encode (jpeg_encode.cpp), each bit for
 // bit with the JAX package's libpng and libjpeg-turbo lane, WebP decode
 // (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), GIF decode (gif.cpp) and
-// baseline TIFF decode (tiff.cpp), bit for bit with the JAX package's
-// Pillow lane, and the PNG row unfilter below.  The
+// TIFF decode (tiff.cpp), bit for bit with the JAX package's Pillow lane,
+// the plain PNM and Targa RLE loops of the PNM and Targa readers
+// (pnm_tga.cpp), and the PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -140,13 +141,32 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 6; }
+int byogan_abi_version() { return 7; }
 
-// Decode one PNG, JPEG, WebP, GIF or TIFF file (told apart by its first bytes) into
-// out, RGB of size (*h, *w).  Where out is null or the image has another
-// size, *h and *w get the image's and the return is -5: the caller sizes
-// its buffer and calls again, so a right guess costs one call.  `lane`
-// (codec.h's Lane) picks the JAX package's lane where its lanes part.
+// Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
+// by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
+// the image has another size, *h and *w get the image's and the return is
+// -5: the caller sizes its buffer and calls again, so a right guess costs
+// one call.  `lane` (codec.h's Lane) picks the JAX package's lane where its
+// lanes part.
+int byogan_decode_buffer(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, int lane) {
+  static const uint8_t png_sig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
+  if (size >= 8 && memcmp(data, png_sig, 8) == 0)
+    return byogan::decode_png(data, size, out, h, w,
+                              lane == byogan::kPillowLane ? byogan::kPillowLane : byogan::kNativeLane);
+  if (size >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF)
+    return byogan::decode_jpeg(data, size, out, h, w);
+  if (size >= 12 && memcmp(data, "RIFF", 4) == 0 && memcmp(data + 8, "WEBP", 4) == 0)
+    return byogan::decode_webp(data, size, out, h, w);
+  if (size >= 6 && (memcmp(data, "GIF87a", 6) == 0 || memcmp(data, "GIF89a", 6) == 0))
+    return byogan::decode_gif(data, size, out, h, w);
+  if (size >= 4 && ((data[0] == 'I' && data[1] == 'I') || (data[0] == 'M' && data[1] == 'M')) &&
+      ((data[2] == 42 || data[2] == 43) ? data[3] == 0 : data[2] == 0 && (data[3] == 42 || data[3] == 43)))
+    return byogan::decode_tiff(data, size, out, h, w);
+  return byogan::kNotImage;
+}
+
+// byogan_decode_buffer on a file's bytes.
 int byogan_decode(const char* path, uint8_t* out, int* h, int* w, int lane) {
   int rc;
   std::vector<uint8_t> data;
@@ -156,20 +176,22 @@ int byogan_decode(const char* path, uint8_t* out, int* h, int* w, int lane) {
     return byogan::kNoMemory;
   }
   if (rc) return rc;
-  static const uint8_t png_sig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
-  if (data.size() >= 8 && memcmp(data.data(), png_sig, 8) == 0)
-    return byogan::decode_png(data.data(), data.size(), out, h, w,
-                              lane == byogan::kPillowLane ? byogan::kPillowLane : byogan::kNativeLane);
-  if (data.size() >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF)
-    return byogan::decode_jpeg(data.data(), data.size(), out, h, w);
-  if (data.size() >= 12 && memcmp(data.data(), "RIFF", 4) == 0 && memcmp(data.data() + 8, "WEBP", 4) == 0)
-    return byogan::decode_webp(data.data(), data.size(), out, h, w);
-  if (data.size() >= 6 && (memcmp(data.data(), "GIF87a", 6) == 0 || memcmp(data.data(), "GIF89a", 6) == 0))
-    return byogan::decode_gif(data.data(), data.size(), out, h, w);
-  if (data.size() >= 4 && ((data[0] == 'I' && data[1] == 'I') || (data[0] == 'M' && data[1] == 'M')) &&
-      ((data[2] == 42 || data[2] == 43) ? data[3] == 0 : data[2] == 0 && (data[3] == 42 || data[3] == 43)))
-    return byogan::decode_tiff(data.data(), data.size(), out, h, w);
-  return byogan::kNotImage;
+  return byogan_decode_buffer(data.data(), data.size(), out, h, w, lane);
+}
+
+// The samples of a plain (ASCII) PBM, PGM or PPM from the bytes after its
+// header: w * h * bands uint8 into out, as Pillow's PpmPlainDecoder reads
+// them block by block (maxval 0: P1, '1' black; `wide`: gray above maxval
+// 255, scaled to 16 bits and clipped at 255 as Pillow's I -> RGB does).
+int byogan_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, int maxval, int wide, uint8_t* out) {
+  return byogan::decode_pnm_plain(data, size, bands, w, h, maxval, wide, out);
+}
+
+// The rows of a Targa RLE image from the bytes after its colour map, in file
+// order: rows * row_bytes bytes into out, as Pillow's TgaRleDecode.c reads
+// packets of `pixel_bytes`-byte pixels.
+int byogan_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out) {
+  return byogan::decode_tga_rle(data, size, pixel_bytes, row_bytes, rows, out);
 }
 
 // For the tests alone: the Y, U and V planes of a lossy WebP file's frame

@@ -43,14 +43,17 @@ enum Status {
   kTiffLogLuv = -30,       // TIFF with LogLuv or LogL data
   kTiffCompression = -31,  // TIFF with another compression (LZMA, ZSTD, WebP, JBIG...)
   kTiffYcbcr = -32,        // TIFF with YCbCr pixels (subsampled or not)
-  kTiffCmyk = -33,         // TIFF with CMYK pixels
   kTiffPhotometric = -34,  // TIFF with another photometric interpretation (Lab, a mask...)
-  kTiffFloat = -35,        // TIFF with floating-point samples
-  kTiffSigned = -36,       // TIFF with signed-integer samples
-  kTiffFillOrder = -37,    // TIFF with FillOrder 2 (bits least significant first)
+  kTiffFillOrder = -37,    // TIFF with FillOrder 2 of samples Pillow's raw decoder has no raw mode for
   kTiffLayout = -38,       // TIFF samples of another depth or layout than the port reads
   kTiffPredictor = -39,    // a TIFF predictor libtiff refuses on these samples
   kTiffOldLzw = -40,       // TIFF with old-style LZW codes
+  kPnmBitonal = -41,       // a plain PBM sample other than 0 or 1
+  kPnmToken = -42,         // a plain PNM token longer than 10 characters
+  kPnmInteger = -43,       // a plain PNM token that is not an integer
+  kPnmNegative = -44,      // a negative plain PNM sample
+  kPnmValue = -45,         // a plain PNM sample above its maxval
+  kTgaOverrun = -46,       // a Targa RLE run packet past its row's end
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -67,6 +70,11 @@ int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_gif(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_tiff(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+
+// The loops of the PNM and Targa readers (byogan_pnm_plain and
+// byogan_tga_rle in byogan_io.cpp).
+int decode_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, int maxval, int wide, uint8_t* out);
+int decode_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

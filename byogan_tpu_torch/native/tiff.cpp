@@ -1,7 +1,7 @@
-// TIFF decode: the first page of a baseline TIFF as uint8 RGB, bit for bit
-// with Pillow 12.1.0's Image.open(path).convert("RGB") (TiffImagePlugin,
-// libtiff 4.7.1), the lane through which the JAX package reads a TIFF under
-// a listed extension (its prep, cli.project and its loader's fallback).
+// TIFF decode: the first page of a TIFF as uint8 RGB, bit for bit with
+// Pillow 12.1.0's Image.open(path).convert("RGB") (TiffImagePlugin, libtiff
+// 4.7.1), the lane through which the JAX package reads a TIFF under a
+// listed extension (its prep, cli.project and its loader's fallback).
 //
 // What is read, as Pillow reads it:
 //
@@ -10,23 +10,35 @@
 // - compression none, PackBits, LZW (libtiff's decoder: MSB-first codes,
 //   the width one code early, a table that may grow past 4096 entries
 //   without a Clear) and Deflate (8 and 32946), with Predictor 2
-//   (horizontal differencing of 8- and 16-bit samples) where libtiff
+//   (horizontal differencing of 8-, 16- and 32-bit samples) where libtiff
 //   applies it: under LZW and Deflate; uncompressed and PackBits data take
 //   no predictor, as libtiff installs none for them;
-// - bilevel (1-bit MinIsWhite and MinIsBlack), 8-bit gray (MinIsWhite
-//   inverted), 16-bit gray (Pillow's I;16 and I;16B: each sample clipped at
-//   255 by convert("RGB"), MinIsWhite not inverted), 8-bit gray with an
-//   unassociated alpha (LA), 8-bit RGB with 0 to 3 extra samples (dropped;
-//   an associated alpha first is divided out as Pillow's RGBa unpacker
-//   does), and 8-bit palettes (each 16-bit colour map entry / 256);
+// - the pixel kinds of Pillow's OPEN_INFO keys that need no codec library:
+//   bilevel and 2- and 4-bit gray (MinIsWhite and MinIsBlack), 8-bit gray
+//   (MinIsWhite inverted; signed samples read unsigned), 16-bit gray (I;16
+//   and I;16B clipped at 255 by convert("RGB"), MinIsWhite not inverted),
+//   signed 16-bit gray (I;16S, clipped at 0 and 255), 32-bit float gray (F,
+//   Pillow's f2l), 8-bit gray with an unassociated alpha (LA), 8- and
+//   16-bit RGB with extra samples (dropped; an associated alpha first is
+//   divided out as Pillow's RGBa unpackers do; 16-bit samples keep their
+//   high byte), 1-, 2-, 4- and 8-bit palettes (each 16-bit colour map entry
+//   / 256) and 8- and 16-bit CMYK (Pillow's cmyk2rgb);
+// - FillOrder 2: Pillow's raw decoder reverses each byte's bits (its ;R raw
+//   modes), libtiff the coded bytes' before it decodes them;
+// - Pillow's quirks: a plane of separate planes read by one character of
+//   the raw mode (so a single 8-bit or 1-bit sample reads neither inverted
+//   nor reversed), big-endian signed and float samples byte-swapped under
+//   libtiff (its native-order samples unpacked as I;16BS and F;32BF), a
+//   single uncompressed strip of a mapped mode read at the size Orientation
+//   5-8 swapped;
 // - the Orientation tag, applied as Pillow's load does
 //   (ImageOps.exif_transpose).
 //
 // Everything else returns a code of codec.h that names it: BigTIFF, JPEG
-// and old JPEG, CCITT, LogLuv and other compressions, float and signed
-// samples, YCbCr, CMYK and other photometric interpretations, FillOrder 2,
-// other depths and sample layouts, old-style LZW, truncated or corrupt
-// data (where libtiff or Pillow's raw decoder fails).
+// and old JPEG, CCITT, LogLuv and other compressions, YCbCr, Lab and other
+// photometric interpretations, other depths and sample layouts, FillOrder
+// 2 where Pillow has no raw mode for it, old-style LZW, truncated or
+// corrupt data (where libtiff or Pillow's raw decoder fails).
 
 #include <zlib.h>
 
@@ -240,7 +252,95 @@ int deflate_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
 }
 
 // The pixel kinds read (Pillow's mode and raw mode).
-enum Kind { kBilevel, kGray8, kGray16, kGrayAlpha, kRgb, kPalette };
+enum Kind { kBilevel, kGray, kGray16, kSigned16, kFloat, kGrayAlpha, kRgb, kPalette, kCmyk };
+
+// Each byte's bits in reverse order (FillOrder 2).
+void reverse_bits(uint8_t* p, size_t n) {
+  for (size_t i = 0; i < n; i++) {
+    uint8_t b = p[i];
+    b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+    b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+    p[i] = (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+  }
+}
+
+// Pillow's F -> L (f2l): 0 at or below 0 and for NaN, 255 at or above 255,
+// the integer part between.
+uint8_t f2l(uint32_t word) {
+  float v;
+  memcpy(&v, &word, 4);
+  return v > 0.0f && v < 255.0f ? (uint8_t)v : v >= 255.0f ? 255 : 0;
+}
+
+// Pillow's cmyk2rgb: each of C, M, Y taken off 255 - K as MULDIV255.
+void cmyk2rgb(const uint32_t* c, uint8_t* o) {
+  const int nk = 255 - (int)c[3];
+  for (int k = 0; k < 3; k++) {
+    const int t = (int)c[k] * nk + 128;
+    o[k] = (uint8_t)(nk - (((t >> 8) + t) >> 8));
+  }
+}
+
+// n pixels of a row, per samples each, read at `bits` a sample (MSB first
+// under 8 bits; 16 and 32 bits big-endian where be) into dst, a pixel every
+// step entries: the depth is picked once a row, not once a sample.
+template <typename T>
+void unpack(const uint8_t* row, uint32_t bits, bool be, size_t n, uint32_t per, uint32_t step, T* dst) {
+  auto put = [&](auto read) {
+    for (size_t x = 0, i = 0; x < n; x++)
+      for (uint32_t s = 0; s < per; s++, i++) dst[x * step + s] = (T)read(i);
+  };
+  switch (bits) {
+    case 1: put([&](size_t i) { return (row[i >> 3] >> (7 - (i & 7))) & 1; }); break;
+    case 2: put([&](size_t i) { return (row[i >> 2] >> (6 - 2 * (i & 3))) & 3; }); break;
+    case 4: put([&](size_t i) { return (row[i >> 1] >> (4 - 4 * (i & 1))) & 15; }); break;
+    case 8: put([&](size_t i) { return row[i]; }); break;
+    case 16:
+      if (be)
+        put([&](size_t i) { return row[2 * i] << 8 | row[2 * i + 1]; });
+      else
+        put([&](size_t i) { return row[2 * i] | row[2 * i + 1] << 8; });
+      break;
+    default:
+      if (be)
+        put([&](size_t i) {
+          const uint8_t* p = row + 4 * i;
+          return (uint32_t)p[0] << 24 | p[1] << 16 | p[2] << 8 | p[3];
+        });
+      else
+        put([&](size_t i) {
+          const uint8_t* p = row + 4 * i;
+          return p[0] | p[1] << 8 | p[2] << 16 | (uint32_t)p[3] << 24;
+        });
+  }
+}
+
+// Predictor 2 undone on a row of 8-, 16- or 32-bit words in the file's
+// order, each word the sum of itself and the word per samples before it.
+void undo_predictor(uint8_t* row, size_t row_bytes, uint32_t bps, uint32_t per, bool big) {
+  if (bps == 8) {
+    for (size_t i = per; i < row_bytes; i++) row[i] = (uint8_t)(row[i] + row[i - per]);
+  } else if (bps == 16) {
+    const int hi = big ? 0 : 1;
+    for (size_t i = per; i < row_bytes / 2; i++) {
+      const uint8_t* q = row + 2 * (i - per);
+      uint8_t* p = row + 2 * i;
+      const uint32_t v = (p[hi] << 8 | p[1 - hi]) + (q[hi] << 8 | q[1 - hi]);
+      p[hi] = (uint8_t)(v >> 8);
+      p[1 - hi] = (uint8_t)v;
+    }
+  } else {
+    auto word = [big](const uint8_t* p) -> uint32_t {
+      return big ? (uint32_t)p[0] << 24 | p[1] << 16 | p[2] << 8 | p[3]
+                 : p[0] | p[1] << 8 | p[2] << 16 | (uint32_t)p[3] << 24;
+    };
+    for (size_t i = per; i < row_bytes / 4; i++) {
+      uint8_t* p = row + 4 * i;
+      const uint32_t v = word(p) + word(p - 4 * per);
+      for (int b = 0; b < 4; b++) p[big ? 3 - b : b] = (uint8_t)(v >> (8 * b));
+    }
+  }
+}
 
 }  // namespace
 
@@ -270,17 +370,20 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   if (compression == 34676 || compression == 34677) return kTiffLogLuv;
   const bool deflate = compression == 8 || compression == 32946;
   if (compression != 1 && compression != 5 && compression != 32773 && !deflate) return kTiffCompression;
+  const bool raw = compression == 1;  // Pillow's own raw decoder; libtiff for the rest
   const uint32_t photometric = one(kPhotometric, 0);  // Pillow's default: MinIsWhite
   if (photometric == 6) return kTiffYcbcr;
-  if (photometric == 5) return kTiffCmyk;
   if (photometric == 32844 || photometric == 32845) return kTiffLogLuv;
-  if (photometric > 3) return kTiffPhotometric;
-  for (uint32_t s : tag(kSampleFormat).v) {
-    if (s == 3) return kTiffFloat;
-    if (s == 2) return kTiffSigned;
-    if (s != 1) return kTiffLayout;
-  }
-  if (one(kFillOrder, 1) != 1) return kTiffFillOrder;
+  if (photometric > 3 && photometric != 5) return kTiffPhotometric;  // Lab goes through LittleCMS in Pillow
+  // SampleFormat: one value, or one a sample all 1 (Pillow's (1,))
+  std::vector<uint32_t> formats = tag(kSampleFormat).present ? tag(kSampleFormat).v : std::vector<uint32_t>{1};
+  if (formats.size() > 1 && *std::max_element(formats.begin(), formats.end()) == 1 &&
+      *std::min_element(formats.begin(), formats.end()) == 1)
+    formats.assign(1, 1);
+  if (formats.size() != 1 || formats[0] < 1 || formats[0] > 3) return kTiffLayout;
+  const uint32_t format = formats[0];
+  const uint32_t fill = one(kFillOrder, 1);
+  if (fill != 1 && fill != 2) return kTiffLayout;
   const std::vector<uint32_t>& extras = tag(kExtraSamples).v;
   const uint32_t samples = one(kSamples, 1);
   if (samples > 6) return kTiffDirectory;  // MAX_SAMPLESPERPIXEL
@@ -295,53 +398,102 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const uint32_t bps = bits[0];
   const bool planar = one(kPlanar, 1) == 2;
   if (one(kPlanar, 1) != 1 && !planar) return kTiffDirectory;
+  const bool big = f.big;
   Kind kind;
-  bool unpremultiply = false;
-  if (photometric <= 1 && samples == 1 && extras.empty() && bps == 1) {
-    kind = kBilevel;
-  } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 8) {
-    kind = kGray8;
-  } else if (samples == 1 && extras.empty() && bps == 16 && (photometric == 1 || (photometric == 0 && !f.big))) {
-    kind = kGray16;
-  } else if (photometric == 1 && samples == 2 && bps == 8 && extras.size() == 1 && extras[0] == 2) {
+  bool invert = photometric == 0, unpremultiply = false, fill_known = fill == 1;
+  if (photometric <= 1 && samples == 1 && extras.empty() && format == 1 && (bps == 1 || bps == 2 || bps == 4)) {
+    kind = bps == 1 ? kBilevel : kGray;  // 1;I 1 L;2I L;2 L;4I L;4, and each with R (FillOrder 2)
+    fill_known = true;
+  } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 8 && format <= 2 &&
+             (format == 1 || photometric == 1)) {
+    kind = kGray;  // L;I L, signed L, and L;R; L;IR is no raw mode
+    fill_known = fill == 1 || (format == 1 && (photometric == 1 || !raw));
+  } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 16 && format == 1 &&
+             (photometric == 1 || !big) && (fill == 1 || (photometric == 1 && !big))) {
+    kind = kGray16;  // I;16 I;16B, and I;16R (II, FillOrder 2)
+    invert = false;
+    fill_known = true;
+  } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 16 && format == 2) {
+    kind = kSigned16;  // I;16S I;16BS
+  } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 32 && format == 3) {
+    kind = kFloat;  // F;32F F;32BF
+    invert = false;
+  } else if (photometric == 1 && samples == 2 && bps == 8 && format == 1 && extras.size() == 1 && extras[0] == 2) {
     kind = kGrayAlpha;
-  } else if (photometric == 2 && bps == 8 && samples >= 3 &&
+  } else if (photometric == 2 && format == 1 && bps == 8 && samples >= 3 &&
              (extras.empty() ? samples <= 4 : extras.size() == samples - 3)) {
-    // Pillow's keys: RGB, RGBA without ExtraSamples, then extra samples
-    // (0|1|2, 0, 0) or (999,): the first an alpha where it is 1 or 2
+    // Pillow's keys: RGB (and RGB;R), RGBA without ExtraSamples, then extra
+    // samples (0|1|2, 0, 0) or (999,): the first an alpha where it is 1 or 2
     kind = kRgb;
     for (size_t k = 1; k < extras.size(); k++)
       if (extras[k] != 0) return kTiffLayout;
     if (!extras.empty() && !(extras[0] <= 2 || (extras[0] == 999 && samples == 4))) return kTiffLayout;
     unpremultiply = !extras.empty() && extras[0] == 1;
-  } else if (photometric == 3 && samples == 1 && extras.empty() && bps == 8) {
-    kind = kPalette;
+    fill_known = fill == 1 || (samples == 3 && extras.empty());
+  } else if (photometric == 2 && format == 1 && bps == 16 &&
+             (samples == 3 ? extras.empty() : samples == 4 && extras.size() <= 1 && (extras.empty() || extras[0] <= 2))) {
+    kind = kRgb;  // RGB;16 RGBA;16 RGBX;16 RGBa;16
+    unpremultiply = extras.size() == 1 && extras[0] == 1;
+  } else if (photometric == 3 && samples == 1 && extras.empty() && format == 1 &&
+             (bps == 1 || bps == 2 || bps == 4 || bps == 8)) {
+    kind = kPalette;  // P;1 P;2 P;4 P, and P;R; P;1R P;2R P;4R are no raw modes
+    fill_known = fill == 1 || bps == 8 || !raw;
+  } else if (photometric == 5 && format == 1 && ((bps == 8 && samples >= 4 && extras.size() == samples - 4) ||
+                                                  (bps == 16 && samples == 4 && extras.empty()))) {
+    kind = kCmyk;  // CMYK CMYKX CMYKXX CMYK;16
+    for (uint32_t e : extras)
+      if (e != 0) return kTiffLayout;
   } else {
     return kTiffLayout;
   }
-  const bool raw = compression == 1;  // Pillow's own raw decoder; libtiff for the rest
+  if (fill == 2 && kind != kBilevel && kind != kGray && kind != kGray16 && kind != kPalette &&
+      !(kind == kRgb && bps == 8 && samples == 3 && extras.empty()))
+    return kTiffLayout;  // no key of Pillow's holds FillOrder 2 with these samples
   if (!raw && !whole) return kTiffDirectory;
   const bool tiled = tag(kTileOffsets).present || (!tag(kStripOffsets).present && tag(kTileWidth).present);
-  if (planar && samples > 1) {
-    // what each of Pillow's lanes makes of separate planes
-    if (raw) {
-      if (kind == kGrayAlpha || samples > 4 || (samples == 4 && !extras.empty() && extras[0] != 2 && extras[0] != 999))
-        return kTiffLayout;  // "unknown raw mode for given image mode"
-    } else {
-      if (!tiled && (samples > 4 || (samples == 4 && !extras.empty() && extras[0] == 0)))
-        return kTiffLayout;  // "decoder error -2"
-      if (samples == 4 && extras.empty()) unpremultiply = true;
-    }
+  // Pillow's raw decoder reads each plane of separate planes with one
+  // character of the raw mode: 1 (1-bit, not inverted), L, P, R, G, B, A, C,
+  // M, Y, K (a byte, whatever the samples' depth: a 2- or 4-bit or a 16-bit
+  // plane reads as bytes), I (a native 32-bit integer, for signed 16-bit)
+  // and F (a native float); so samples read neither inverted nor reversed
+  const bool by_char = raw && planar;
+  uint32_t rbits = bps;  // the bits a sample is read at
+  bool native = false;   // read little-endian whatever the file's order
+  if (by_char) {
+    if (kind == kGray16 || kind == kGrayAlpha || samples > 4 ||
+        (samples == 4 && kind == kRgb && !extras.empty() && extras[0] != 2 && extras[0] != 999))
+      return kTiffLayout;  // "unknown raw mode for given image mode" (I, LA's A, a, X)
+    rbits = kind == kBilevel ? 1 : kind == kSigned16 || kind == kFloat ? 32 : 8;
+    native = rbits == 32;
+    invert = false;
+    fill_known = true;
   }
+  if (!fill_known) return kTiffFillOrder;  // L;IR, P;1R...: "unknown raw mode for given image mode"
+  if (planar && samples > 1 && !raw) {
+    // what Pillow's libtiff lane makes of separate planes
+    if (!tiled && (kind == kRgb ? samples > 4 || (samples == 4 && !extras.empty() && extras[0] == 0)
+                                : kind == kCmyk && samples > 4))
+      return kTiffLayout;  // "decoder error -2"
+    if (kind == kRgb && samples == 4 && extras.empty()) unpremultiply = true;
+  }
+  const bool reverse = fill == 2 && !by_char;  // the raw bytes' bits, least significant first
+  // libtiff hands Pillow native-order (little-endian) samples, which Pillow
+  // unpacks as big-endian where its raw mode names the order and is not
+  // renamed (I;16BS, F;32BF): each such sample reads byte-swapped
+  const bool byteswap = !raw && big && (kind == kSigned16 || kind == kFloat);
   const uint32_t predictor = one(kPredictor, 1);
   const bool predict = (compression == 5 || deflate) && predictor != 1;
-  if (predict && (predictor != 2 || bps == 1)) return kTiffPredictor;  // libtiff's PredictorSetup
-  std::vector<uint8_t> cmap;
+  if (predict && (predictor != 2 || (bps != 8 && bps != 16 && bps != 32)))
+    return kTiffPredictor;  // libtiff's PredictorSetup
+  std::vector<uint8_t> cmap;  // Pillow's "RGB;L" palette: every red, then every green, then every blue
+  size_t entries = 0;
   if (kind == kPalette) {
     const Tag& cm = tag(kColorMap);
-    if (!cm.present || cm.v.size() != 768) return kTiffDirectory;
-    cmap.resize(768);
-    for (int i = 0; i < 768; i++) cmap[i] = (uint8_t)(cm.v[i] / 256);
+    // libtiff wants 3 * 2^bits entries; Pillow's raw lane reads what there is
+    if (!cm.present || !(cm.v.size() == 3u << bps || (raw && cm.v.size() == 768))) return kTiffDirectory;
+    entries = cm.v.size() / 3;
+    cmap.resize(cm.v.size());
+    for (size_t i = 0; i < cm.v.size(); i++) cmap[i] = (uint8_t)(cm.v[i] / 256);
   }
 
   // the chunks: strips, or tiles, each plane after the other where planar
@@ -365,25 +517,29 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const Tag& counts = tag(tiled ? kTileBytes : kStripBytes);
   if (offsets.size() != chunks) return kTiffDirectory;
   if (!raw && (!counts.present || counts.v.size() != chunks)) return kTiffDirectory;
-  const size_t row_bytes = ((size_t)cw * per_plane * bps + 7) / 8;
+  const size_t row_bytes = ((size_t)cw * per_plane * rbits + 7) / 8;
   // Pillow's raw decoder steps the rows of a tile past the right edge by
   // int(w * sum(bits) / 8), over the planes' count Pillow expects where
   // planar (3 + the extra samples for RGB); other rows by their width
-  const uint32_t expected = (photometric == 2 ? 3 : 1) + (uint32_t)extras.size();
+  const uint32_t expected = (photometric == 2 ? 3 : photometric == 5 ? 4 : 1) + (uint32_t)extras.size();
   const size_t edge_stride = (size_t)((uint64_t)cw * samples * bps / (8ull * (planar ? expected : 1)));
 
   // a single uncompressed chunk of a mode Pillow maps (L, P, I;16, I;16B,
-  // RGBA): it maps the file at the size it reports, which Orientation 5-8
-  // has swapped, before it applies the orientation
+  // RGBA, CMYK): it maps the file at the size it reports, which Orientation
+  // 5-8 has swapped, before it applies the orientation
   const uint32_t orientation = one(kOrientation, 1);
   const bool swap = orientation >= 5 && orientation <= 8;
-  const bool mappable = (kind == kGray8 && photometric == 1) || kind == kPalette || kind == kGray16 ||
-                        (kind == kRgb && samples == 4 && !planar && (extras.empty() || extras[0] == 2 || extras[0] == 999));
+  const bool mappable = (by_char && (kind == kGray || kind == kPalette)) ||
+                        (kind == kGray && bps == 8 && photometric == 1 && fill == 1) ||
+                        (kind == kPalette && bps == 8 && fill == 1) || (kind == kGray16 && fill == 1) ||
+                        (kind == kRgb && bps == 8 && samples == 4 && !planar &&
+                         (extras.empty() || extras[0] == 2 || extras[0] == 999)) ||
+                        (kind == kCmyk && bps == 8 && samples == 4 && !planar);
   bool mapped = raw && chunks == 1 && mappable;
   size_t map_stride = 0;
   uint32_t ih = height, iw = width;  // the image before the orientation
   if (mapped) {
-    const size_t pixel = kind == kGray16 ? 2 : kind == kRgb ? 4 : 1;
+    const size_t pixel = kind == kGray16 ? 2 : kind == kRgb || kind == kCmyk ? 4 : 1;  // L, P, I;16, RGBA, CMYK
     const uint32_t mh = swap ? width : height, mw = swap ? height : width;
     const size_t arg = tiled && cw > width ? edge_stride : 0;
     if (arg && offsets[0] + (uint64_t)mh * arg > size) {
@@ -402,110 +558,137 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     return kSize;
   }
 
-  // every sample of the image, as an integer: (ih, iw, samples)
-  std::vector<uint16_t> px;
-  std::vector<uint8_t> buffer;
+  // every sample of the image, as an integer: (ih, iw, samples), 16 bits
+  // a sample but where it is read as a 32-bit word (F, and I by one character)
+  const bool wide = rbits == 32;
+  std::vector<uint16_t> px16;
+  std::vector<uint32_t> px32;
+  std::vector<uint8_t> buffer, reversed;
   try {
-    px.resize((size_t)ih * iw * samples);
+    if (wide)
+      px32.resize((size_t)ih * iw * samples);
+    else
+      px16.resize((size_t)ih * iw * samples);
     buffer.resize(mapped ? 0 : row_bytes * ch);
   } catch (const std::bad_alloc&) {
     return kNoMemory;
   }
-  auto sample = [&](const uint8_t* row, size_t i) -> uint32_t {
-    if (bps == 1) return (row[i >> 3] >> (7 - (i & 7))) & 1;
-    if (bps == 8) return row[i];
-    return f.big ? (row[2 * i] << 8 | row[2 * i + 1]) : (row[2 * i] | row[2 * i + 1] << 8);
-  };
-  if (mapped) {
-    for (uint32_t y = 0; y < ih; y++) {
-      const uint8_t* row = file + offsets[0] + (size_t)y * map_stride;
-      for (size_t i = 0; i < (size_t)iw * samples; i++) px[(size_t)y * iw * samples + i] = (uint16_t)sample(row, i);
+  const bool be = big && !native;
+  auto read_px = [&](auto* px) -> int {
+    if (mapped) {
+      for (uint32_t y = 0; y < ih; y++)
+        unpack(file + offsets[0] + (size_t)y * map_stride, rbits, be, iw, samples, samples,
+               px + (size_t)y * iw * samples);
+      return kOk;
     }
-  }
-  for (uint64_t c = 0; c < (mapped ? 0 : chunks); c++) {
-    const uint32_t plane = (uint32_t)(c / (across * down)), at = (uint32_t)(c % (across * down));
-    const uint32_t x0 = (uint32_t)(at % across) * cw, y0 = (uint32_t)(at / across) * ch;
-    // rows of this chunk: a strip's last is short; a tile is whole in the data
-    const uint32_t rows = tiled ? ch : std::min(ch, height - y0);
-    const uint32_t used = std::min(ch, height - y0), cols = std::min(cw, width - x0);
-    size_t stride = row_bytes;
-    const uint8_t* data;
-    const uint64_t offset = offsets[c];
-    if (raw) {
-      // Pillow's raw decoder reads the rows it shows, the last as far as the image's right edge
-      if (tiled && x0 + cw > width) stride = edge_stride;
-      const size_t last = ((size_t)cols * per_plane * bps + 7) / 8;
-      if (stride < last) return kTiffLayout;  // its rows overlap: "bad configuration"
-      if (offset + stride * (used - 1) + last > size) return kTruncated;
-      data = file + offset;
-    } else {
-      const uint64_t count = counts.v[c];
-      if (offset > size || count > size - offset) return kTruncated;  // libtiff: "Read error on strip"
-      const uint8_t* in = file + offset;
-      const size_t need = row_bytes * rows;
-      if (compression == 5)
-        rc = lzw_decode(in, count, buffer.data(), need);
-      else if (deflate)
-        rc = deflate_decode(in, count, buffer.data(), need);
-      else
-        rc = packbits_decode(in, count, buffer.data(), need);
-      if (rc) return rc;
-      if (predict) {
-        for (uint32_t r = 0; r < rows; r++) {
-          uint8_t* row = buffer.data() + row_bytes * r;
-          if (bps == 8) {
-            for (size_t i = per_plane; i < row_bytes; i++) row[i] = (uint8_t)(row[i] + row[i - per_plane]);
-          } else {  // 16-bit words in the file's order
-            for (size_t i = per_plane; i < row_bytes / 2; i++) {
-              const uint32_t v = sample(row, i) + sample(row, i - per_plane);
-              row[2 * i + (f.big ? 0 : 1)] = (uint8_t)(v >> 8);
-              row[2 * i + (f.big ? 1 : 0)] = (uint8_t)v;
-            }
-          }
+    for (uint64_t c = 0; c < chunks; c++) {
+      const uint32_t plane = (uint32_t)(c / (across * down)), at = (uint32_t)(c % (across * down));
+      const uint32_t x0 = (uint32_t)(at % across) * cw, y0 = (uint32_t)(at / across) * ch;
+      // rows of this chunk: a strip's last is short; a tile is whole in the data
+      const uint32_t rows = tiled ? ch : std::min(ch, height - y0);
+      const uint32_t used = std::min(ch, height - y0), cols = std::min(cw, width - x0);
+      size_t stride = row_bytes;
+      const uint8_t* data;
+      const uint64_t offset = offsets[c];
+      if (raw) {
+        // Pillow's raw decoder reads the rows it shows, the last as far as the image's right edge
+        if (tiled && x0 + cw > width) stride = edge_stride;
+        const size_t last = ((size_t)cols * per_plane * rbits + 7) / 8;
+        if (stride < last) return kTiffLayout;  // its rows overlap: "bad configuration"
+        if (offset + stride * (used - 1) + last > size) return kTruncated;
+        data = file + offset;
+        if (reverse) {  // the raw modes of FillOrder 2 (1;R, L;2R, I;16R, RGB;R...) reverse each byte first
+          reversed.assign(data, data + stride * (used - 1) + last);
+          reverse_bits(reversed.data(), reversed.size());
+          data = reversed.data();
         }
+      } else {
+        const uint64_t count = counts.v[c];
+        if (offset > size || count > size - offset) return kTruncated;  // libtiff: "Read error on strip"
+        const uint8_t* in = file + offset;
+        if (reverse) {  // libtiff reverses the coded bytes' bits before it decodes them
+          reversed.assign(in, in + count);
+          reverse_bits(reversed.data(), reversed.size());
+          in = reversed.data();
+        }
+        const size_t need = row_bytes * rows;
+        int rc;
+        if (compression == 5)
+          rc = lzw_decode(in, count, buffer.data(), need);
+        else if (deflate)
+          rc = deflate_decode(in, count, buffer.data(), need);
+        else
+          rc = packbits_decode(in, count, buffer.data(), need);
+        if (rc) return rc;
+        if (predict)
+          for (uint32_t r = 0; r < rows; r++) undo_predictor(buffer.data() + row_bytes * r, row_bytes, bps, per_plane, big);
+        data = buffer.data();
       }
-      data = buffer.data();
+      // the chunk's samples into the image, clipped at its right and bottom edges
+      for (uint32_t r = 0; r < used; r++)
+        unpack(data + stride * r, rbits, be, cols, per_plane, samples,
+               px + ((size_t)(y0 + r) * width + x0) * samples + plane);
     }
-    // the chunk's samples into the image, clipped at its right and bottom edges
-    for (uint32_t r = 0; r < used; r++) {
-      const uint8_t* row = data + stride * r;
-      uint16_t* dst = px.data() + ((size_t)(y0 + r) * width + x0) * samples + plane;
-      for (uint32_t x = 0; x < cols; x++)
-        for (uint32_t s = 0; s < per_plane; s++)
-          dst[(size_t)x * samples + s] = (uint16_t)sample(row, (size_t)x * per_plane + s);
-    }
-  }
+    return kOk;
+  };
+  rc = wide ? read_px(px32.data()) : read_px(px16.data());
+  if (rc) return rc;
 
   // convert("RGB") of Pillow's mode, then the orientation
   std::vector<uint8_t> img((size_t)ih * iw * 3);
-  for (size_t i = 0; i < (size_t)ih * iw; i++) {
-    const uint16_t* s = px.data() + i * samples;
-    uint8_t* o = img.data() + 3 * i;
-    switch (kind) {
-      case kBilevel:
-        o[0] = o[1] = o[2] = (s[0] ^ (photometric == 0)) ? 255 : 0;
-        break;
-      case kGray8:
-        o[0] = o[1] = o[2] = (uint8_t)(photometric == 0 ? 255 - s[0] : s[0]);
-        break;
-      case kGray16:
-        o[0] = o[1] = o[2] = (uint8_t)std::min<uint16_t>(s[0], 255);
-        break;
-      case kGrayAlpha:
-        o[0] = o[1] = o[2] = (uint8_t)s[0];
-        break;
-      case kRgb:
-        if (unpremultiply && s[3] != 255) {
-          for (int k = 0; k < 3; k++) o[k] = s[3] ? (uint8_t)std::min(255, s[k] * 255 / s[3]) : 0;
-        } else {
-          for (int k = 0; k < 3; k++) o[k] = (uint8_t)s[k];
+  const uint32_t scale = rbits < 8 ? 255 / ((1u << rbits) - 1) : 1;  // L;2 and L;4 expand a sample to 8 bits
+  const int high = rbits == 16 ? 8 : 0;  // 16-bit RGB and CMYK keep each sample's high byte
+  auto to_rgb = [&](const auto* px) {
+    for (size_t i = 0; i < (size_t)ih * iw; i++) {
+      const auto* s = px + i * samples;
+      uint8_t* o = img.data() + 3 * i;
+      switch (kind) {
+        case kBilevel:
+          o[0] = o[1] = o[2] = (s[0] ^ invert) ? 255 : 0;
+          break;
+        case kGray:
+          o[0] = o[1] = o[2] = (uint8_t)(invert ? 255 - s[0] * scale : s[0] * scale);
+          break;
+        case kGray16:
+          o[0] = o[1] = o[2] = (uint8_t)std::min<uint32_t>(s[0], 255);
+          break;
+        case kSigned16: {  // Pillow's I -> RGB clips at 0 and 255
+          const uint32_t v = byteswap ? ((uint32_t)s[0] >> 8 | (s[0] & 255) << 8) : s[0];
+          const int value = rbits == 32 ? (int)(int32_t)v : (int)(int16_t)(uint16_t)v;
+          o[0] = o[1] = o[2] = (uint8_t)std::min(255, std::max(0, value));
+          break;
         }
-        break;
-      case kPalette:
-        for (int k = 0; k < 3; k++) o[k] = cmap[256 * k + s[0]];
-        break;
+        case kFloat:
+          o[0] = o[1] = o[2] = f2l(byteswap ? __builtin_bswap32(s[0]) : s[0]);
+          break;
+        case kGrayAlpha:
+          o[0] = o[1] = o[2] = (uint8_t)s[0];
+          break;
+        case kRgb: {
+          const uint32_t a = samples > 3 ? (uint32_t)s[3] >> high : 255;
+          if (unpremultiply && a != 255) {
+            for (int k = 0; k < 3; k++) o[k] = a ? (uint8_t)std::min<uint32_t>(255, ((uint32_t)s[k] >> high) * 255 / a) : 0;
+          } else {
+            for (int k = 0; k < 3; k++) o[k] = (uint8_t)(s[k] >> high);
+          }
+          break;
+        }
+        case kPalette:  // an index past the palette (a plane read a byte a sample) reads black
+          for (int k = 0; k < 3; k++) o[k] = s[0] < entries ? cmap[entries * k + s[0]] : 0;
+          break;
+        case kCmyk: {
+          const uint32_t c[4] = {(uint32_t)s[0] >> high, (uint32_t)s[1] >> high, (uint32_t)s[2] >> high,
+                                 (uint32_t)s[3] >> high};
+          cmyk2rgb(c, o);
+          break;
+        }
+      }
     }
-  }
+  };
+  if (wide)
+    to_rgb(px32.data());
+  else
+    to_rgb(px16.data());
   // exif_transpose: where output pixel (y, x) comes from
   for (int y = 0; y < out_h; y++) {
     for (int x = 0; x < out_w; x++) {

@@ -3274,7 +3274,8 @@ def io_checks(tmp) -> dict:
 
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
     files = [m for m in matched if "@" not in m
-             and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/"))]
+             and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
+                                   f"{fx.ICO_PNM_TGA}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3301,7 +3302,27 @@ def io_checks(tmp) -> dict:
             and len(gif_tiff_card) == len(fx.GIF_TIFF_CARD),
             f"the manifest holds {len(gifs)} GIF layouts, {len(tiffs)} TIFF layouts, {len(gif_refused)} GIF and "
             f"{len(tiff_refused)} TIFF refusals, {len(gif_tiff_card)} GIF/TIFF card originals")
-    print(f"io fixtures: {len(matched)} of {len(matched)} hashes matched: {len(files)} JPEG/PNG files decoded to "
+    ico_pnm_tga = [m for m in matched if m.startswith(f"{fx.ICO_PNM_TGA}/")]
+    ipt_read = [m for m in ico_pnm_tga if "@" not in m]
+    ipt_refused = [m for m in ico_pnm_tga if m.endswith("@refused")]
+    by_kind = {k: sum(f"/{k}/" in m for m in ipt_read) for k in ("ico", "cur", "dib", "pnm", "tga")}
+    new_tiff = [m for m in tiffs if any(k in m for k in ("gray2", "gray4", "palette1", "palette2", "palette4", "cmyk",
+                                                          "rgb16", "rgba16", "signed", "float", "fill-order-2"))]
+    require(min(by_kind.values()) >= 5 and len(ipt_refused) >= 30 and len(new_tiff) >= 60,
+            f"the manifest holds ICO/CUR/DIB/PNM/TGA layouts {by_kind}, {len(ipt_refused)} of their refusals and "
+            f"{len(new_tiff)} layouts of the TIFF kinds past the baseline")
+    written = os.path.join(tmp, "card_originals")
+    os.makedirs(written)
+    card_paths = fx.check_card_originals(written, images.read_image)
+    print(f"io fixtures: {len(ipt_read)} ICO, CUR, DIB, PNM and Targa layouts decoded to Pillow 12.1.0's RGB "
+          f"({', '.join(f'{k} {v}' for k, v in by_kind.items())}: {', '.join(m.split('/', 1)[1] for m in ipt_read)}) "
+          f"and {len(ipt_refused)} refused with Pillow's reason "
+          f"({', '.join(os.path.basename(m)[:-12] for m in ipt_refused)}); {len(new_tiff)} of the TIFF layouts are "
+          f"kinds past the baseline (2- and 4-bit gray and palettes, signed and float gray, 16-bit RGB, CMYK, "
+          f"FillOrder 2); {len(card_paths)} card originals written here by the fixtures' seeded writers, each the "
+          f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
+    print(f"io fixtures: {len(matched) + len(card_paths)} of {len(matched) + len(card_paths)} hashes matched: "
+          f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
           f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
           f"(libwebp; {', '.join(os.path.relpath(m, fx.WEBP) for m in webp)}) and {len(planes)} of them to libwebp's "
@@ -3318,7 +3339,8 @@ def io_checks(tmp) -> dict:
           f"Pillow refuses them ({', '.join(os.path.basename(m)[:-12] for m in gif_refused)}); {len(tiffs)} TIFF "
           f"layouts decoded to Pillow's (libtiff 4.7.1) RGB ({', '.join(os.path.basename(m)[:-4] for m in tiffs)}) "
           f"and {len(tiff_refused)} kinds refused by name ({', '.join(os.path.basename(m)[:-12] for m in tiff_refused)}); "
-          f"{len(gif_tiff_card)} GIF/TIFF card originals")
+          f"{len(gif_tiff_card)} GIF/TIFF card originals; {len(ico_pnm_tga)} ICO/CUR/DIB/PNM/Targa files and "
+          f"{len(card_paths)} written card originals (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3381,6 +3403,8 @@ def io_checks(tmp) -> dict:
     out["codec_ms"].update(kinds_codec_times(fx, other))
     out["codec_ms"].update(lane_codec_times(fx, other))
     out["codec_ms"].update(gif_tiff_codec_times(fx))
+    out["codec_ms"].update(ico_pnm_tga_codec_times(written))
+    out["card_originals"] = written
     return out
 
 
@@ -3520,14 +3544,15 @@ def lane_codec_times(fx, folder: str) -> dict:
     return ms
 
 
-def prep_committed_cli(tmp, root, folder: str, names, key: str, listed: dict = None) -> tuple:
+def prep_committed_cli(tmp, root, folder: str, names, key: str, listed: dict = None, written: dict = None) -> tuple:
     """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
     committed originals ``names`` of ``fx.FIXTURES/folder`` (``listed``
-    renames each to the listed name prep reads it under), the resizes on
-    the card: every image of the 8 sets equal to the one the JAX package's
-    ``prepare_pyramid`` wrote from them (the fixtures' manifest's ``key``).
-    Returns the seconds the CLI took, process start included, and the
-    images matched."""
+    renames each to the listed name prep reads it under) and the files
+    ``written`` (listed name -> path of an original written in this run),
+    the resizes on the card: every image of the 8 sets equal to the one the
+    JAX package's ``prepare_pyramid`` wrote from them (the fixtures'
+    manifest's ``key``).  Returns the seconds the CLI took, process start
+    included, and the images matched."""
     from byogan_tpu_torch.data import images
 
     fx = codec_fixtures()
@@ -3535,13 +3560,16 @@ def prep_committed_cli(tmp, root, folder: str, names, key: str, listed: dict = N
     os.makedirs(data)
     for name in sorted(names):
         shutil.copy(os.path.join(fx.FIXTURES, folder, name), os.path.join(data, (listed or {}).get(name, name)))
+    for name, path in (written or {}).items():
+        shutil.copy(path, os.path.join(data, name))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
                           cwd=root, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
     matched = fx.check_prep(data, images.read_image, key)
-    require(matched == 8 * len(names), f"{matched} prepared images, expected {8 * len(names)}")
+    require(matched == 8 * (len(names) + len(written or {})),
+            f"{matched} prepared images, expected {8 * (len(names) + len(written or {}))}")
     return cli_s, matched
 
 
@@ -3576,19 +3604,25 @@ def prep_pillow_cli(tmp, root) -> float:
     return cli_s / n
 
 
-def prep_gif_tiff_cli(tmp, root) -> float:
+def prep_gif_tiff_cli(tmp, root, card_originals: str) -> float:
     """``prep_committed_cli`` on the GIF and TIFF originals (a posterised
     1024 px photo as a GIF with a global table under a .jpg name, the same
     pixels interlaced under a .png name, a two-frame GIF with a local table
     and transparency at an offset under a .jpeg name, an LZW TIFF with
-    predictor 2 under a .png name), held to the JAX package's prep of them
-    (Pillow's decode).  Returns the seconds per original."""
+    predictor 2 under a .png name) and, in the same process, the written
+    originals of ``card_originals`` (a folder ``fx.check_card_originals``
+    filled) that prep reads (a 1024 px P6 under .jpg, a 1024 px RLE Targa
+    and a 1024 px 4-bit gray LZW TIFF under .png, a 256 px icon under
+    .bmp), held to the JAX package's prep of them (Pillow's decode).
+    Returns the seconds per original."""
     fx = codec_fixtures()
-    n = len(fx.GIF_TIFF_CARD)
+    written = {listed: os.path.join(card_originals, name) for name, listed in fx.CARD_ORIGINALS.items() if listed}
+    n = len(fx.GIF_TIFF_CARD) + len(written)
     cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.GIF_TIFF, "card"), fx.GIF_TIFF_CARD,
-                                        "gif_tiff_prep", listed=fx.GIF_TIFF_CARD)
-    print(f"io prep: cli.prep of {n} GIF and TIFF originals ("
+                                        "gif_tiff_prep", listed=fx.GIF_TIFF_CARD, written=written)
+    print(f"io prep: cli.prep of {n} GIF, TIFF, PNM, Targa and ICO originals ("
           + ", ".join(f"{k} as {v}" for k, v in fx.GIF_TIFF_CARD.items())
+          + ", " + ", ".join(f"{k} as {v}" for k, v in fx.CARD_ORIGINALS.items() if v)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
           f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
@@ -3611,6 +3645,29 @@ def gif_tiff_codec_times(fx) -> dict:
           f"{PREP_SIDE} px: GIF (global table, 8-bit codes) {ms['gif_1024']:.3f}, the same interlaced "
           f"{ms['gif_1024_interlaced']:.3f}; TIFF LZW + predictor 2 (RGB, 64-row strips) "
           f"{ms['tiff_lzw_predictor_1024']:.3f}; card {card_name()}")
+    return ms
+
+
+def ico_pnm_tga_codec_times(folder: str) -> dict:
+    """Host ms of the PNM, Targa, ICO and TIFF-kind readers, one call at a time on one
+    thread (median of ``CODEC_REPEATS``), on the card's originals the
+    fixtures' writers put in ``folder``: a 1024 px photo as a raw P6 (numpy)
+    and as a plain P3 (the native loop over 3.1 M tokens), a 1024 px RLE
+    Targa (24-bit), the 1024 px 4-bit gray LZW TIFF and the 1024 px CMYK
+    LZW TIFF, and a 256 px icon with a PNG frame and one with a 32-bit BMP
+    frame."""
+    from byogan_tpu_torch.data import images
+
+    files = {"p6_raw_1024": "photo-1024.ppm", "p3_plain_1024": "photo-1024-plain.ppm",
+             "tga_rle24_1024": "poster-1024-rle.tga", "tiff_gray4_lzw_1024": "scan-1024-gray4.tif",
+             "tiff_cmyk_lzw_1024": "print-1024-cmyk.tif", "ico_png_256": "icon-256-png.ico",
+             "ico_bmp32_256": "icon-256-bmp.ico"}
+    ms = {k: host_ms(lambda: images.read_image(os.path.join(folder, name))) for k, name in files.items()}
+    print(f"io codecs: PNM, Targa, TIFF kinds and ICO, host ms, median of {CODEC_REPEATS} calls, one thread: P6 raw 1024 px "
+          f"{ms['p6_raw_1024']:.3f}, P3 plain 1024 px {ms['p3_plain_1024']:.3f}, Targa RLE 24-bit 1024 px "
+          f"{ms['tga_rle24_1024']:.3f}, TIFF 4-bit gray LZW 1024 px {ms['tiff_gray4_lzw_1024']:.3f}, TIFF CMYK LZW "
+          f"1024 px {ms['tiff_cmyk_lzw_1024']:.3f}, ICO 256 px PNG frame {ms['ico_png_256']:.3f}, ICO 256 px 32-bit "
+          f"BMP frame {ms['ico_bmp32_256']:.3f}; card {card_name()}")
     return ms
 
 
@@ -3729,7 +3786,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
     prep_webp_s = prep_webp_cli(tmp, root)
     prep_kinds_s = prep_kinds_cli(tmp, root)
     prep_pillow_s = prep_pillow_cli(tmp, root)
-    prep_gif_tiff_s = prep_gif_tiff_cli(tmp, root)
+    prep_gif_tiff_s = prep_gif_tiff_cli(tmp, root, io_state["card_originals"])
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}

@@ -199,8 +199,9 @@ def test_committed_gif_tiff_fixtures_are_what_the_writers_make():
     for name in committed:
         assert ("refused" in files[name]) == ("/refused/" in name) and files[name]["sha256"] == fx.sha256(
             committed[name]), name
+    listed = len(fx.GIF_TIFF_CARD) + sum(v is not None for v in fx.CARD_ORIGINALS.values())
     assert sorted(n for d in manifest["gif_tiff_prep"].values() for n in d) == sorted(
-        f"image-{i}.png" for i in range(len(fx.GIF_TIFF_CARD)) for _ in range(8))
+        f"image-{i}.png" for i in range(listed) for _ in range(8))
     assert sum(map(len, committed.values())) < 600_000
 
 
@@ -233,7 +234,10 @@ def test_prep_cli_on_gif_and_tiff_originals_matches_jax(tmp_path):
     give equal sets on a folder of GIF and TIFF originals under listed
     names; then on the card's committed 1024 px originals (two GIFs under
     .jpg names, one interlaced under .png, an LZW TIFF with predictor 2)
-    against the JAX package's recorded pyramid."""
+    with the written ones it prepares in the same process (a P6 under
+    .jpg, an RLE Targa and a 4-bit gray TIFF under .png, an icon under
+    .bmp: ``fx.card_originals``) against the JAX package's recorded
+    pyramid."""
     from byogan_tpu.data.prep import prepare_pyramid as jax_prepare
 
     from byogan_tpu_torch.cli import prep as port_prep_cli
@@ -258,8 +262,14 @@ def test_prep_cli_on_gif_and_tiff_originals_matches_jax(tmp_path):
     committed = fx.committed_gif_tiff()
     for name, listed in fx.GIF_TIFF_CARD.items():
         (card / listed).write_bytes(committed[f"{fx.GIF_TIFF}/card/{name}"])
+    written = 0
+    for name, data in fx.card_originals().items():
+        listed = fx.CARD_ORIGINALS[os.path.basename(name)]
+        if listed:
+            (card / listed).write_bytes(data)
+            written += 1
     port_prep_cli.main([str(card), "4", "512", "-y", "-d", "cpu"])
-    assert fx.check_prep(str(card), read_png, "gif_tiff_prep") == 8 * len(fx.GIF_TIFF_CARD)
+    assert fx.check_prep(str(card), read_png, "gif_tiff_prep") == 8 * (len(fx.GIF_TIFF_CARD) + written)
 
 
 def test_loader_reads_gif_and_tiff_as_jax_pillow_fallback(tmp_path):

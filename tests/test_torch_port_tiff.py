@@ -8,10 +8,12 @@ held bit for bit to Pillow 12.1.0's ``convert("RGB")`` of the first page
 on a file of each layout it reads (``torch_port_codec_fixtures.tiff_layouts``:
 II and MM, strips and tiles, planar configurations 1 and 2, no
 compression, PackBits, LZW and Deflate, Predictor 2 where libtiff applies
-it, 1-bit, 8- and 16-bit gray, gray with alpha, RGB with extra samples,
-palettes, every Orientation), on TIFFs Pillow writes through libtiff and on
-seeded files; and each kind it does not read is refused naming the file
-and the kind, whether Pillow reads it or not.  Tolerance 0.
+it, 1-, 2-, 4-, 8- and 16-bit gray, signed and float gray, gray with
+alpha, 8- and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and
+16-bit CMYK, FillOrder 2, every Orientation), on TIFFs Pillow writes
+through libtiff and on seeded files; and each kind it does not read is
+refused naming the file and the kind, whether Pillow reads it or not.
+Tolerance 0.
 """
 
 import os
@@ -47,13 +49,15 @@ def test_refused_tiff_raises_naming_the_file_and_the_kind(tmp_path, name):
 
 
 @pytest.mark.parametrize("compression", ["raw", "tiff_lzw", "tiff_deflate", "tiff_adobe_deflate", "packbits"])
-@pytest.mark.parametrize("mode", ["1", "L", "I;16", "LA", "RGB", "RGBA", "P"])
+@pytest.mark.parametrize("mode", ["1", "L", "I;16", "LA", "RGB", "RGBA", "P", "CMYK", "F"])
 def test_pillow_written_tiff_matches_pillow(tmp_path, compression, mode):
     """Pillow's own writer (libtiff for the compressed ones)."""
     img = fx.smooth_scene(1780, 24, 37, cell=8, step=8)
     im = Image.fromarray(img)
     if mode == "I;16":
         im = Image.fromarray((img[..., 0].astype(np.uint16) * 3 + 7))
+    elif mode == "F":
+        im = Image.fromarray(img[..., 0].astype(np.float32) * 1.7 - 40)
     elif mode == "P":
         im = im.quantize(50)
     elif mode != "RGB":
@@ -65,11 +69,13 @@ def test_pillow_written_tiff_matches_pillow(tmp_path, compression, mode):
 
 def _seeded_tiff(r) -> bytes:
     """A TIFF over the layouts' parameters together: kind, size, byte
-    order, compression, predictor, planes, strips or tiles, orientation,
-    truncation."""
-    kind = r.choice(["bilevel", "gray8", "gray16", "gray-alpha", "rgb", "rgba", "palette"])
+    order, compression, predictor, planes, strips or tiles, fill order,
+    orientation, truncation."""
+    kind = r.choice(["bilevel", "gray8", "gray16", "gray-alpha", "rgb", "rgba", "palette", "gray-low", "signed",
+                     "float", "cmyk", "rgb16"])
     h, w = int(r.integers(1, 40)), int(r.integers(1, 40))
     kw = {"order": "<" if r.random() < 0.6 else ">", "compression": int(r.choice([1, 5, 5, 8, 32946, 32773]))}
+    tags = {}
     if kind == "bilevel":
         s = r.integers(0, 2, (h, w))
         kw.update(bits=1, photometric=int(r.integers(0, 2)))
@@ -91,12 +97,37 @@ def _seeded_tiff(r) -> bytes:
             s[..., 3] = r.choice([0, 1, 128, 254, 255], (h, w))
         kw["extra"] = ([None, (0,), (1,), (2,), (999,)][int(r.integers(0, 5))] if n == 4
                        else (int(r.integers(0, 3)),) + (0,) * (n - 4))
+    elif kind == "gray-low":
+        bits = int(r.choice([2, 4]))
+        s = r.integers(0, 1 << bits, (h, w))
+        kw.update(bits=bits, photometric=int(r.choice([0, 1, 3])))
+        if kw["photometric"] == 3:
+            kw["colormap"] = r.integers(0, 65536, (1 << bits, 3))
+    elif kind == "signed":
+        bits = int(r.choice([8, 16]))
+        s = r.integers(0, 1 << bits, (h, w))
+        kw.update(bits=bits, photometric=1)
+        tags[339] = (3, [2])
+    elif kind == "float":
+        order = kw["order"]
+        s = r.normal(100, 150, (h, w)).astype(order + "f4").view(order + "u4")
+        kw.update(bits=32, photometric=int(r.integers(0, 2)))
+        tags[339] = (3, [3])
+    elif kind == "cmyk":
+        bits = int(r.choice([8, 8, 16]))
+        n = 4 if bits == 16 else int(r.choice([4, 4, 5]))
+        s = r.integers(0, 1 << bits, (h, w, n))
+        kw.update(bits=bits, photometric=5, extra=(0,) if n == 5 else None)
+    elif kind == "rgb16":
+        n = int(r.choice([3, 4]))
+        s = r.integers(0, 65536, (h, w, n))
+        kw.update(bits=16, extra=[None, (0,), (1,), (2,)][int(r.integers(0, 4))] if n == 4 else None)
     else:
         s = r.integers(0, 256, (h, w))
         kw.update(photometric=3, colormap=r.integers(0, 65536, (256, 3)))
     if r.random() < 0.4 and kw.get("bits", 8) != 1 or r.random() < 0.1:
         kw["predictor"] = 2
-    if r.random() < 0.3 and s.ndim == 3:
+    if r.random() < 0.3 and (s.ndim == 3 or r.random() < 0.2):
         kw["planar"] = 2
     if r.random() < 0.3:
         kw["tile"] = (int(r.choice([16, 32])), int(r.choice([16, 32, 48])))
@@ -104,16 +135,18 @@ def _seeded_tiff(r) -> bytes:
         kw["rows_per_strip"] = int(r.integers(1, h + 3))
     if r.random() < 0.3:
         kw["orientation"] = int(r.integers(0, 10))
-    data = fx.tiff_bytes(s, **kw)
+    if r.random() < 0.1:
+        tags[266] = (3, [2])  # FillOrder 2: the coded bytes are not reversed, so compressed ones decode to other data
+    data = fx.tiff_bytes(s, tags=tags, **kw)
     return data[:int(r.integers(8, len(data)))] if r.random() < 0.08 else data
 
 
 @pytest.mark.parametrize("seed", range(3))
 def test_seeded_tiffs_match_pillow(tmp_path, seed):
     """80 seeded files a seed: wherever Pillow decodes one, the port
-    decodes it to the same pixels or refuses it by name (FillOrder and
-    the like never arise here, so every one Pillow reads is read); wherever
-    Pillow refuses one, the port raises ``OSError`` naming it."""
+    decodes it to the same pixels (every kind here is one the port reads,
+    so every one Pillow reads is read); wherever Pillow refuses one, the
+    port raises ``OSError`` naming it."""
     r = np.random.default_rng(1790 + seed)
     decoded = sum(_same_as_pillow(_write(tmp_path, f"t{t}.png", _seeded_tiff(r)), f"file {t}") for t in range(80))
     assert decoded > 50

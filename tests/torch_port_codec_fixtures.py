@@ -1131,7 +1131,8 @@ def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
 
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
-                   pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None) -> dict:
+                   pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
+                   ico_pnm_tga: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1141,10 +1142,14 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     lane makes of it (``kinds_entry``); each file under ``pillow/``
     (``pillow``, likewise) as ``pillow_entry`` records it; each source
     encoded by the JAX lane; each file under ``gif_tiff/`` (``gif_tiff``,
-    likewise) as ``gif_tiff_entry`` records it; the JAX package's pyramids
-    of the card's WebP originals, of its originals of the kinds, of its
-    originals under ``pillow/card/`` and of those under ``gif_tiff/card/``
-    (by their listed names, ``GIF_TIFF_CARD``)."""
+    likewise) as ``gif_tiff_entry`` records it, and each under
+    ``ico_pnm_tga/`` (``ico_pnm_tga``, likewise) and each of the card's
+    written originals (``card_originals``, under ``card``) as
+    ``ico_pnm_tga_entry`` does; the JAX package's pyramids of the card's
+    WebP originals, of its originals of the kinds, of its originals under
+    ``pillow/card/`` and of those under ``gif_tiff/card/`` together with
+    the written ones cli.prep reads (by their listed names,
+    ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``)."""
     import PIL
     from PIL import features
 
@@ -1152,6 +1157,7 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     kinds = committed_kinds() if kinds is None else kinds
     pillow = committed_pillow() if pillow is None else pillow
     gif_tiff = committed_gif_tiff() if gif_tiff is None else gif_tiff
+    ico_pnm_tga = committed_ico_pnm_tga() if ico_pnm_tga is None else ico_pnm_tga
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -1188,6 +1194,18 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         with open(path, "wb") as f:
             f.write(data)
         entries[name] = gif_tiff_entry(name, path)
+    for name, data in ico_pnm_tga.items():
+        path = os.path.join(scratch, "ico-pnm-tga" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = ico_pnm_tga_entry(name, path)
+    written = card_originals()
+    card_entries = {}
+    for name, data in written.items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        card_entries[name] = ico_pnm_tga_entry(name, path)
     sources = {}
     for name, (seed, h, w) in SOURCES.items():
         img = source_image(seed, h, w)
@@ -1201,6 +1219,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     pillow_card_files = {n: d for n, d in pillow.items() if n.startswith(f"{PILLOW}/card/")}
     gif_tiff_card_files = {GIF_TIFF_CARD[os.path.basename(n)]: d for n, d in gif_tiff.items()
                            if n.startswith(f"{GIF_TIFF}/card/")}
+    gif_tiff_card_files.update({CARD_ORIGINALS[os.path.basename(n)]: d for n, d in written.items()
+                                if CARD_ORIGINALS[os.path.basename(n)]})
     return {
         "decoded_by": f"the JAX package's native lane (libpng, libjpeg-turbo), held to Pillow {PIL.__version__} "
                       "(JPEG, 8-bit PNG) or to the samples (PNG); WebP: the JAX package's Pillow lane, Pillow "
@@ -1212,8 +1232,11 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       "gray PNGs in both lanes (sha256_rgb: the native lane's, sha256_rgb_pillow: Pillow's), JPEGs "
                       "whose dequantised coefficients leave 16 bits beside the native lane (native_lane); "
                       f"{GIF_TIFF}/: Pillow {PIL.__version__}'s convert(\"RGB\") (GIF's own decoder, libtiff "
-                      f"{features.version('libtiff')}), refusals with what Pillow makes of the file",
-        "files": entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
+                      f"{features.version('libtiff')}), refusals with what Pillow makes of the file; "
+                      f"{ICO_PNM_TGA}/ and card: Pillow {PIL.__version__}'s convert(\"RGB\") (ICO, CUR, DIB, PNM, "
+                      "Targa), refusals with Pillow's error; card: the originals card_originals writes on the "
+                      "card, never committed",
+        "files": entries, "card": card_entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
@@ -1226,13 +1249,16 @@ def write(scratch: str) -> dict:
     kinds = kinds_fixtures(scratch)
     pillow = pillow_fixtures(scratch)
     gif_tiff = gif_tiff_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF):
+    ico_pnm_tga = ico_pnm_tga_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
-    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff}.items():
+    for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
+                       **ico_pnm_tga}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
-    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff)
+    manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
+                              ico_pnm_tga)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -1301,7 +1327,8 @@ def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_pr
     """The pyramid prepared under ``root`` from the card's WebP originals
     (``key`` "webp_prep"), its originals of the JPEG kinds ("jpeg_prep"),
     its originals under ``pillow/card/`` ("pillow_prep") or those under
-    ``gif_tiff/card/`` ("gif_tiff_prep") against the JAX
+    ``gif_tiff/card/`` with the written ones cli.prep reads
+    (``card_originals``; "gif_tiff_prep") against the JAX
     package's recorded one: the number of images matched;
     raises ``AssertionError`` naming the first that differs."""
     want = load_manifest()[key]
@@ -1724,21 +1751,6 @@ def pillow_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
     return entry
 
 
-if __name__ == "__main__":
-    import tempfile
-
-    sys.path.insert(0, ROOT)  # the JAX package, whose prep the card's originals are held to
-    with tempfile.TemporaryDirectory() as tmp:
-        out = write(tmp)
-    total = sum(e["bytes"] for e in out["files"].values())
-    webp_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{WEBP}/"))
-    kinds_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{KINDS}/"))
-    pillow_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{PILLOW}/"))
-    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds, "
-          f"{pillow_total} under {PILLOW}/), "
-          f"{len(out['sources'])} sources x {len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)
-
-
 # --- GIF and baseline TIFF: the JAX package's Pillow lane ---------------------
 
 GIF_TIFF = "gif_tiff"  # their files' folder under FIXTURES
@@ -1970,55 +1982,54 @@ def tiff_lzw(data: bytes) -> bytes:
     """TIFF LZW (MSB-first codes, widened one code early as libtiff
     reads them): a Clear first, a Clear whenever the table reaches 4094
     entries, the end code last."""
-    out: List[Tuple[int, int]] = []
-    st: dict = {}
-
-    def reset():
-        st.update(table={bytes([i]): i for i in range(256)}, next=258, decoder_next=258, bits=9, first=True)
+    out = bytearray()
+    acc = nbits = 0
+    bits, decoder_next, first = 9, 258, True
 
     def emit(code):
-        out.append((code, st["bits"]))
-        if code == 256:
-            return
-        if st["first"]:
-            st["first"] = False
-            return
-        st["decoder_next"] += 1
-        if st["decoder_next"] > (1 << st["bits"]) - 2 and st["bits"] < 12:
-            st["bits"] += 1
-
-    reset()
-    emit(256)
-    run = b""
-    for byte in data:
-        longer = run + bytes([byte])
-        if longer in st["table"]:
-            run = longer
-            continue
-        emit(st["table"][run])
-        st["table"][longer] = st["next"]
-        st["next"] += 1
-        run = bytes([byte])
-        if st["next"] >= 4094:
-            emit(st["table"][run])
-            run = b""
-            emit(256)
-            reset()
-    if run:
-        emit(st["table"][run])
-    emit(257)
-    acc = nbits = 0
-    buf = bytearray()
-    for code, n in out:
-        acc = (acc << n) | code
-        nbits += n
+        nonlocal acc, nbits, bits, decoder_next, first
+        acc = (acc << bits) | code
+        nbits += bits
         while nbits >= 8:
             nbits -= 8
-            buf.append((acc >> nbits) & 255)
+            out.append((acc >> nbits) & 255)
         acc &= (1 << nbits) - 1
+        if code == 256:
+            bits, decoder_next, first = 9, 258, True
+        elif first:
+            first = False
+        else:
+            decoder_next += 1
+            if decoder_next > (1 << bits) - 2 and bits < 12:
+                bits += 1
+
+    emit(256)
+    table: Dict[int, int] = {}  # (prefix code << 8 | byte) -> code
+    next_code, run = 258, -1
+    for byte in data:
+        if run < 0:
+            run = byte
+            continue
+        code = table.get(run << 8 | byte)
+        if code is not None:
+            run = code
+            continue
+        emit(run)
+        table[run << 8 | byte] = next_code
+        next_code += 1
+        run = byte
+        if next_code >= 4094:
+            emit(run)
+            run = -1
+            emit(256)
+            table.clear()
+            next_code = 258
+    if run >= 0:
+        emit(run)
+    emit(257)
     if nbits:
-        buf.append((acc << (8 - nbits)) & 255)
-    return bytes(buf)
+        out.append((acc << (8 - nbits)) & 255)
+    return bytes(out)
 
 
 def packbits(data: bytes) -> bytes:
@@ -2047,8 +2058,8 @@ TIFF_COMPRESS = {1: lambda b: b, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.comp
 def _tiff_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
     """(h, w, c) samples as TIFF rows of bytes (h, row bytes)."""
     h, w, c = block.shape
-    if bits == 16:
-        return block.astype(order + "u2").view(np.uint8).reshape(h, w * c * 2)
+    if bits in (16, 32):
+        return block.astype(f"{order}u{bits // 8}").view(np.uint8).reshape(h, w * c * bits // 8)
     if bits == 8:
         return block.astype(np.uint8).reshape(h, w * c)
     return _pack(block.reshape(h, w * c, 1), bits)
@@ -2113,7 +2124,7 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     values_at = ifd_at + 2 + 12 * len(entries) + 4
     ifd, values = bytearray(struct.pack(order + "H", len(entries))), bytearray()
     for tag, (typ, vals) in entries:
-        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 11: "f"}[typ] * len(vals), *vals)
+        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 11: "f"}[typ] * len(vals), *map(int, vals))
         if len(raw) > 4:
             field = struct.pack(order + "I", values_at + len(values))
             values += raw + b"\0" * (len(raw) % 2)
@@ -2169,6 +2180,70 @@ def tiff_layouts() -> Dict[str, bytes]:
         "rgb-raw-predictor.tif": tiff_bytes(rgb, predictor=2),  # likewise
         "gray8-raw-tiles-48x32.tif": tiff_bytes(r.integers(0, 256, (40, 37)), photometric=1, tile=(48, 32)),
     })
+    # the kinds past the baseline that Pillow reads without a codec library
+    f32 = r.normal(100, 120, (h, w)).astype(np.float32)
+    f32[0, :4] = [0.25, 254.99, np.nan, -3]
+    cmyk = r.integers(0, 256, (h, w, 4))
+    rgb16 = r.integers(0, 65536, (h, w, 3))
+    rgba16 = r.integers(0, 65536, (h, w, 4))
+    rgba16[0, :3, 3] = [0, 255, 65535]
+    signed = r.integers(-32768, 32768, (h, w)) & 0xFFFF
+    for cname, comp in comps.items():
+        for bits in (2, 4):
+            g = gray >> (8 - bits)
+            out[f"gray{bits}-{cname}.tif"] = tiff_bytes(g, bits, 1, compression=comp, rows_per_strip=5)
+            out[f"gray{bits}-white-{cname}.tif"] = tiff_bytes(g, bits, 0, compression=comp)
+            out[f"palette{bits}-{cname}.tif"] = tiff_bytes(g, bits, 3, compression=comp,
+                                                           colormap=r.integers(0, 65536, (1 << bits, 3)))
+        out[f"cmyk-{cname}.tif"] = tiff_bytes(cmyk, photometric=5, compression=comp, rows_per_strip=6)
+        out[f"rgb16-{cname}.tif"] = tiff_bytes(rgb16, 16, compression=comp)
+        out[f"signed16-{cname}.tif"] = tiff_bytes(signed, 16, 1, compression=comp, tags={339: (3, [2])})
+        out[f"float-{cname}.tif"] = tiff_bytes(f32.view("<u4"), 32, 1, compression=comp, tags={339: (3, [3])})
+        fill = tiff_bytes(gray, photometric=1, compression=comp, tags={266: (3, [2])})
+        if comp != 1:  # the coded bytes' bits reversed, as the tag says
+            fill = tiff_bytes(gray, photometric=1, compression=comp, tags={266: (3, [2])},
+                              data=bytes(_reverse_bits(TIFF_COMPRESS[comp](gray.astype(np.uint8).tobytes()))))
+        out[f"fill-order-2-gray8-{cname}.tif"] = fill
+    for order, oname in (("<", "ii"), (">", "mm")):
+        out[f"signed16-{oname}-lzw-predictor.tif"] = tiff_bytes(signed, 16, 1, order, 5, 2, tags={339: (3, [2])})
+        out[f"signed16-{oname}-raw.tif"] = tiff_bytes(signed, 16, 1, order, tags={339: (3, [2])})
+        out[f"float-{oname}-deflate-predictor.tif"] = tiff_bytes(f32.astype(order + "f4").view(order + "u4"), 32, 0,
+                                                                 order, 8, 2, tags={339: (3, [3])})
+        out[f"float-{oname}-raw.tif"] = tiff_bytes(f32.astype(order + "f4").view(order + "u4"), 32, 1, order,
+                                                   tags={339: (3, [3])})
+        out[f"rgb16-{oname}-lzw-predictor-tiles.tif"] = tiff_bytes(rgb16, 16, order=order, compression=5, predictor=2,
+                                                                   tile=(16, 16))
+        out[f"cmyk16-{oname}-lzw.tif"] = tiff_bytes(cmyk * 257, 16, 5, order, 5)
+    for extra in (None, (0,), (1,), (2,)):
+        tag = "none" if extra is None else extra[0]
+        out[f"rgba16-extra-{tag}-lzw.tif"] = tiff_bytes(rgba16, 16, compression=5, extra=extra)
+        out[f"rgba16-extra-{tag}-raw.tif"] = tiff_bytes(rgba16, 16, extra=extra)
+    out.update({
+        "signed8-lzw.tif": tiff_bytes(gray, photometric=1, compression=5, tags={339: (3, [2])}),
+        "signed8-raw.tif": tiff_bytes(gray, photometric=1, tags={339: (3, [2])}),
+        "cmyk-x-lzw.tif": tiff_bytes(r.integers(0, 256, (h, w, 5)), photometric=5, compression=5, extra=(0,)),
+        "cmyk-xx-raw.tif": tiff_bytes(r.integers(0, 256, (h, w, 6)), photometric=5, extra=(0, 0)),
+        "cmyk-planar-lzw.tif": tiff_bytes(cmyk, photometric=5, compression=5, planar=2),
+        "cmyk-planar-raw.tif": tiff_bytes(cmyk, photometric=5, planar=2),
+        "cmyk-lzw-predictor-tiles.tif": tiff_bytes(cmyk, photometric=5, compression=5, predictor=2, tile=(16, 16)),
+        "rgb16-planar-lzw.tif": tiff_bytes(rgb16, 16, compression=5, planar=2),
+        "rgb16-planar-raw.tif": tiff_bytes(rgb16, 16, planar=2),  # Pillow reads each plane a byte a sample
+        "gray4-planar-raw.tif": tiff_bytes(gray >> 4, 4, 1, planar=2),  # likewise
+        "palette1-raw.tif": tiff_bytes(bits1, 1, 3, colormap=r.integers(0, 65536, (2, 3))),
+        "palette4-raw-256-entries.tif": tiff_bytes(gray >> 4, 4, 3, colormap=cmap),
+        "gray4-raw-tiles.tif": tiff_bytes(r.integers(0, 16, (40, 37)), 4, 1, tile=(16, 32)),
+        "fill-order-2-bilevel-white-raw.tif": tiff_bytes(bits1, 1, photometric=0, tags={266: (3, [2])}),
+        "fill-order-2-bilevel-black-raw.tif": tiff_bytes(bits1, 1, photometric=1, tags={266: (3, [2])}),
+        "fill-order-2-gray4-white-raw.tif": tiff_bytes(gray >> 4, 4, 0, tags={266: (3, [2])}),
+        "fill-order-2-gray16-ii-raw.tif": tiff_bytes(gray16, 16, 1, tags={266: (3, [2])}),
+        "fill-order-2-rgb-raw.tif": tiff_bytes(rgb, tags={266: (3, [2])}),
+        "fill-order-2-palette8-raw.tif": tiff_bytes(gray, photometric=3, colormap=cmap, tags={266: (3, [2])}),
+        "fill-order-2-gray8-white-lzw.tif": tiff_bytes(gray, photometric=0, compression=5, tags={266: (3, [2])},
+                                                       data=bytes(_reverse_bits(tiff_lzw(gray.astype(np.uint8)
+                                                                                         .tobytes())))),
+        "gray8-white-planar-raw.tif": tiff_bytes(gray, photometric=0, planar=2),  # a plane's raw mode: L, not L;I
+        "bilevel-white-planar-raw.tif": tiff_bytes(bits1, 1, photometric=0, planar=2),
+    })
     for o in range(1, 9):
         out[f"rgb-lzw-orientation-{o}.tif"] = tiff_bytes(rgb, compression=5, orientation=o, rows_per_strip=6)
     out["gray8-raw-orientation-6.tif"] = tiff_bytes(gray, photometric=1, orientation=6)  # mapped at swapped size
@@ -2176,10 +2251,15 @@ def tiff_layouts() -> Dict[str, bytes]:
     return {f"{GIF_TIFF}/tiff/{k}": v for k, v in sorted(out.items())}
 
 
+def _reverse_bits(data: bytes) -> np.ndarray:
+    """Each byte of ``data`` with its bits in reverse order (FillOrder 2)."""
+    return np.packbits(np.unpackbits(np.frombuffer(data, np.uint8)).reshape(-1, 8)[:, ::-1])
+
+
 def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
     """TIFFs the port refuses by name (Pillow reads some of them: JPEG,
-    CMYK, YCbCr, float, 4-bit and 16-bit RGB, FillOrder 2): name -> (bytes,
-    the reason the port's ``OSError`` names, a regular expression)."""
+    YCbCr, Lab, CCITT): name -> (bytes, the reason the port's ``OSError``
+    names, a regular expression)."""
     r = np.random.default_rng(1705)
     h, w = 9, 7
     rgb = r.integers(0, 256, (h, w, 3))
@@ -2194,16 +2274,14 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk), "CCITT"),
         "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
         "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "with this compression"),
-        "float.tif": (tiff_bytes(gray, 32, 1, data=bytes(4 * h * w), tags={339: (3, [3])}), "floating-point"),
-        "signed.tif": (tiff_bytes(gray, photometric=1, tags={339: (3, [2])}), "signed-integer"),
         "ycbcr.tif": (tiff_bytes(rgb, photometric=6), "YCbCr"),
-        "cmyk.tif": (tiff_bytes(r.integers(0, 256, (h, w, 4)), photometric=5), "CMYK"),
         "lab.tif": (tiff_bytes(rgb, photometric=8), "photometric interpretation"),
-        "fill-order-2.tif": (tiff_bytes(gray & 1, 1, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
-        "gray4.tif": (tiff_bytes(gray & 15, 4, photometric=1), "depth or sample layout"),
-        "rgb16.tif": (tiff_bytes(rgb * 257, 16), "depth or sample layout"),
-        "palette4.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3))),
-                         "depth or sample layout"),
+        "fill-order-2-gray8-white-raw.tif": (tiff_bytes(gray, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
+        "fill-order-2-palette4-raw.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3)),
+                                                     tags={266: (3, [2])}), "FillOrder 2"),
+        "signed-white.tif": (tiff_bytes(gray, photometric=0, tags={339: (3, [2])}), "depth or sample layout"),
+        "gray16-planar-raw.tif": (tiff_bytes(gray * 257, 16, 1, planar=2), "depth or sample layout"),
+        "gray4-predictor-2.tif": (tiff_bytes(gray & 15, 4, photometric=1, compression=5, predictor=2), "predictor"),
         "predictor-3.tif": (tiff_bytes(rgb, compression=5, tags={317: (3, [3])}), "predictor"),
         "bilevel-predictor-2.tif": (tiff_bytes(gray & 1, 1, photometric=1, compression=5, predictor=2), "predictor"),
         "old-style-lzw.tif": (old_lzw, "old-style LZW"),
@@ -2295,3 +2373,440 @@ def gif_tiff_entry(name: str, path: str) -> dict:
         return entry
     rgb = pil_rgb(path)
     return {**entry, "shape": list(rgb.shape[:2]), "sha256_rgb": sha256(rgb)}
+
+
+# --- ICO, CUR, DIB, PNM and Targa: the JAX package's Pillow lane ----------------
+
+ICO_PNM_TGA = "ico_pnm_tga"  # their files' folder under FIXTURES
+#: the card's originals, written on the card by ``card_originals`` (never
+#: committed, held to the manifest's hashes), each by the listed name
+#: cli.prep reads it under, or None for one only timed: a 1024 px photo
+#: as a raw P6 and as a plain P3, a 1024 px posterised scene as an RLE
+#: Targa, a 256 px icon with a PNG frame and one with a BMP frame, a
+#: 1024 px 4-bit gray scan and a 1024 px CMYK print as LZW TIFFs
+CARD_ORIGINALS = {"photo-1024.ppm": "photo-1024.jpg", "photo-1024-plain.ppm": None,
+                  "poster-1024-rle.tga": "poster-1024-rle.png", "icon-256-png.ico": "icon-256-png.bmp",
+                  "icon-256-bmp.ico": None, "scan-1024-gray4.tif": "scan-1024-gray4.png",
+                  "print-1024-cmyk.tif": None}
+
+
+def dib_bytes(*args, **kw) -> bytes:
+    """A headerless bitmap (Pillow's DIB): ``bmp_file``'s bytes after its
+    14-byte file header, the pixels right after the palette."""
+    return bmp_file(*args, **kw)[14:]
+
+
+def icon_dib(values: np.ndarray, bits: int, palette=None, mask: bool = True, top_down: bool = False,
+             header: int = 40) -> bytes:
+    """An icon's bitmap frame: a DIB of ``values`` (``bmp_rows``' kinds) at
+    twice its height, its rows then the AND mask's (zeros, rows of 32-bit
+    words) where ``mask``."""
+    h, w = np.asarray(values).shape[:2]
+    rows = bmp_rows(values, bits)
+    body = (rows if top_down else rows[::-1]).tobytes()
+    if mask:
+        body += bytes((w + 31) // 32 * 4 * h)
+    return dib_bytes(body, w, 2 * h, bits, header=header, palette=palette, top_down=top_down)
+
+
+def icon_file(frames: List[Tuple[int, int, int, int, bytes]], kind: int = 1, sizes=None, offsets=None,
+              count: Optional[int] = None) -> bytes:
+    """An ICO (``kind`` 1) or CUR (2) of ``frames``, each (width byte,
+    height byte, colour count, bpp (for a CUR the hotspot's y), frame
+    bytes), the frames after the directory in order; ``sizes`` and
+    ``offsets`` (None or a value per entry) replace what the entries say,
+    ``count`` the directory's count."""
+    head = struct.pack("<HHH", 0, kind, len(frames) if count is None else count)
+    at, body = 6 + 16 * len(frames), b""
+    for i, (w, h, colors, bpp, blob) in enumerate(frames):
+        size = len(blob) if sizes is None or sizes[i] is None else sizes[i]
+        offset = at + len(body) if offsets is None or offsets[i] is None else offsets[i]
+        head += struct.pack("<BBBBHHII", w & 255, h & 255, colors, 0, 1, bpp, size, offset)
+        body += blob
+    return head + body
+
+
+def pil_bytes(im, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def pnm_plain(samples: np.ndarray, magic: bytes, maxval: Optional[int] = 255, per_line: int = 17,
+              comment_every: int = 0) -> bytes:
+    """A plain PBM (P1: 1 black), PGM or PPM of ``samples`` ((h, w) or (h,
+    w, 3) integers), ``per_line`` samples a line, a comment after every
+    ``comment_every`` lines."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    head = magic + b"\n# a plain PNM\n" + f"{w} {h}\n".encode() + (b"" if maxval is None else f"{maxval}\n".encode())
+    flat = s.reshape(-1)
+    lines = []
+    for i in range(0, flat.size, per_line):
+        lines.append(b" ".join(b"%d" % v for v in flat[i:i + per_line]))
+        if comment_every and len(lines) % (comment_every + 1) == comment_every:
+            lines.append(b"# comment " + str(i).encode())
+    return head + b"\n".join(lines) + b"\n"
+
+
+def pnm_raw(samples: np.ndarray, magic: bytes, maxval: int = 255) -> bytes:
+    """A raw PGM (P5) or PPM (P6, or Pillow's P0CMYK and Py* magics) of
+    ``samples``: a byte a sample, two big-endian where ``maxval`` is above
+    255; P4 packs (h, w) bits, 1 black, and has no maxval."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    if magic == b"P4":
+        return f"P4\n{w} {h}\n".encode() + _pack(s.reshape(h, w, 1), 1).tobytes()
+    data = s.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return magic + f"\n{w} {h}\n{maxval}\n".encode() + data
+
+
+def tga_header(w: int, h: int, itype: int, depth: int, id_field: bytes = b"", cmap: Optional[bytes] = None,
+               start: int = 0, map_depth: int = 24, flags: int = 0) -> bytes:
+    """A Targa header (18 bytes), the ID field and the colour map's bytes."""
+    entries = 0 if cmap is None else len(cmap) // (map_depth // 8)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), cmap is not None, itype, start, entries,
+                       map_depth if cmap is not None else 0, 0, 0, w, h, depth, flags)
+    return head + id_field + (cmap or b"")
+
+
+def tga_rle(rows: np.ndarray, pixel_bytes: int, cross_rows: bool = True) -> bytes:
+    """Targa RLE packets of ``rows`` ((h, row bytes), file order): runs of 2
+    or more equal pixels within a row, literal packets of the rest, each of
+    at most 128 pixels; literal packets run on across rows where
+    ``cross_rows``."""
+    out = bytearray()
+    px = np.asarray(rows, np.uint8).reshape(rows.shape[0], -1, pixel_bytes)
+    lines = [px.reshape(-1, pixel_bytes)] if cross_rows else list(px)
+    w = px.shape[1]
+    for line in lines:
+        n, x = len(line), 0
+        while x < n:
+            run = 1
+            while x + run < n and run < 128 and (line[x + run] == line[x]).all() and (x + run) // w == x // w:
+                run += 1
+            if run >= 2:
+                out += bytes([0x80 | (run - 1)]) + line[x].tobytes()
+                x += run
+                continue
+            lit = 1
+            while x + lit < n and lit < 128 and not (x + lit + 1 < n and (line[x + lit] == line[x + lit + 1]).all()
+                                                     and (x + lit + 1) // w == (x + lit) // w):
+                lit += 1
+            out += bytes([lit - 1]) + line[x:x + lit].tobytes()
+            x += lit
+    return bytes(out)
+
+
+def tga_file(pixels: np.ndarray, itype: int, depth: int, rle_cross_rows: Optional[bool] = None,
+             flags: int = 0, **header) -> bytes:
+    """A Targa of ``pixels`` (uint8 (h, w, bytes a pixel) in file order: B,
+    G, R(, A); an index or gray byte; 16-bit words as 2 bytes) or (h, row
+    bytes) at 1 bit, rows bottom-up unless ``flags`` holds 0x20, raw or
+    RLE (``rle_cross_rows`` True or False: ``tga_rle``)."""
+    p = np.asarray(pixels, np.uint8)
+    h = p.shape[0]
+    w = p.shape[1] * 8 if depth == 1 else p.shape[1]
+    rows = p.reshape(h, -1)
+    stored = rows if flags & 0x20 else rows[::-1]
+    body = stored.tobytes() if rle_cross_rows is None else tga_rle(stored, max(1, depth // 8), rle_cross_rows)
+    return tga_header(w, h, itype, depth, flags=flags, **header) + body
+
+
+def ico_pnm_tga_layouts() -> Dict[str, bytes]:
+    """A file of each ICO, CUR, DIB, PNM and Targa layout the port reads
+    (name -> bytes; Pillow reads each): icons Pillow writes with PNG and BMP
+    frames, multi-entry icons of equal areas and other depths, frames of
+    another size than their entries, 32-bit frames, cursors; DIBs of
+    every header and depth; each PNM magic and maxval kind, plain and raw;
+    Targa of each type and depth from Pillow's writer and this module's
+    (colour-map starts, 16-bit maps, orientations, RLE across rows)."""
+    from PIL import Image
+
+    r = np.random.default_rng(1801)
+    h, w = 11, 13
+    img = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    pal = r.integers(0, 256, (256, 3))
+    idx8 = r.integers(0, 256, (h, w))
+    out = {}
+    # icons
+    im = Image.fromarray(r.integers(0, 256, (40, 40, 3)).astype(np.uint8))
+    for mode in ("RGB", "RGBA", "P", "L", "1"):
+        m = im.convert(mode)
+        out[f"ico/pillow-{mode}-png.ico"] = pil_bytes(m, "ICO", sizes=[(16, 16), (32, 32)])
+        out[f"ico/pillow-{mode}-bmp.ico"] = pil_bytes(m, "ICO", sizes=[(16, 16), (24, 24)], bitmap_format="bmp")
+    gray16 = png_bytes(r.integers(0, 65536, (12, 12, 1)), 16, 0)
+    out["ico/png-gray16.ico"] = icon_file([(12, 12, 0, 32, gray16)])
+    out["ico/png-palette.ico"] = icon_file([(9, 9, 0, 8, png_bytes(r.integers(0, 4, (9, 9, 1)), 2, 3, chunks=(
+        (b"PLTE", pal[:4].astype(np.uint8).tobytes()),)))])
+    bgra = r.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    out["ico/bmp-32.ico"] = icon_file([(w, h, 0, 32, icon_dib(bgra.view("<u4")[..., 0], 32))])
+    out["ico/bmp-24.ico"] = icon_file([(w, h, 0, 24, icon_dib(img[..., ::-1], 24))])
+    for bits in (1, 4, 8):
+        v = r.integers(0, 1 << bits, (h, w))
+        out[f"ico/bmp-pal{bits}.ico"] = icon_file([(w, h, (1 << bits) & 255, bits, icon_dib(v, bits, pal[:1 << bits]))])
+    out["ico/bmp-16.ico"] = icon_file([(w, h, 0, 16, icon_dib(r.integers(0, 65536, (h, w)), 16))])
+    out["ico/bmp-top-down.ico"] = icon_file([(w, h, 0, 24, icon_dib(img[..., ::-1], 24, top_down=True))])
+    out["ico/bmp-os2-header.ico"] = icon_file([(w, h, 0, 24, icon_dib(img[..., ::-1], 24, header=12))])
+    out["ico/bmp-no-mask-in-size.ico"] = icon_file([(w, h, 0, 24, icon_dib(img[..., ::-1], 24, mask=False))])
+    a24, a8 = icon_dib(img[..., ::-1], 24), icon_dib(idx8, 8, pal)
+    b24 = icon_dib(r.integers(0, 256, (h + 4, w + 4, 3)), 24)
+    out["ico/equal-areas-24-then-8.ico"] = icon_file([(w, h, 0, 24, a24), (w, h, 0, 8, a8)])
+    out["ico/equal-areas-8-then-24.ico"] = icon_file([(w, h, 0, 8, a8), (w, h, 0, 24, a24)])
+    out["ico/equal-areas-colour-count.ico"] = icon_file([(w, h, 0, 0, a24), (w, h, 16, 0, a8)])
+    out["ico/largest-wins.ico"] = icon_file([(w, h, 0, 8, a8), (w + 4, h + 4, 0, 24, b24), (w, h, 0, 24, a24)])
+    out["ico/frame-not-entry-size.ico"] = icon_file([(40, 40, 0, 24, a24)])
+    out["ico/entry-bpp-32-frame-24.ico"] = icon_file([(w, h, 0, 32, a24 + bytes(4 * w * h))])  # alpha read past
+    out["ico/entry-size-short-of-frame.ico"] = icon_file([(w, h, 0, 24, a24)], sizes=[len(a24) - 20])
+    wide = icon_dib(r.integers(0, 256, (2, 256, 3)), 24)
+    out["ico/width-byte-0.ico"] = icon_file([(0, 2, 0, 24, wide)])
+    cur = icon_dib(img[..., ::-1], 24)
+    cur32 = icon_dib(bgra.view("<u4")[..., 0], 32, mask=False)
+    big = icon_dib(r.integers(0, 256, (h + 2, w + 2, 3)), 24)
+    out["cur/one.cur"] = icon_file([(w, h, 0, 3, cur)], kind=2)
+    out["cur/32-bit.cur"] = icon_file([(w, h, 0, 3, cur32)], kind=2)
+    out["cur/larger-second.cur"] = icon_file([(w, h, 0, 3, cur), (w + 2, h + 2, 0, 3, big)], kind=2)
+    out["cur/wider-only-second.cur"] = icon_file([(w, h, 0, 3, cur), (w + 2, h, 0, 3, big)], kind=2)
+    out["cur/zero-byte-second.cur"] = icon_file([(w, h, 0, 3, cur), (0, 0, 0, 3, big)], kind=2)
+    out["cur/palette.cur"] = icon_file([(w, h, 0, 3, a8)], kind=2)
+    # DIBs
+    for header in (12, 40, 52, 56, 64, 108, 124):
+        out[f"dib/pal8-header{header}.dib"] = dib_bytes(bmp_rows(idx8, 8)[::-1].tobytes(), w, h, 8, header=header,
+                                                        palette=pal)
+    for bits in (1, 4, 16, 24, 32):
+        v = r.integers(0, 1 << min(bits, 24), (h, w)) if bits != 24 else img[..., ::-1]
+        out[f"dib/{bits}-bit.dib"] = dib_bytes(bmp_rows(v, bits)[::-1].tobytes(), w, h, bits,
+                                               palette=pal[:1 << bits] if bits < 8 else None)
+    out["dib/bitfields-565.dib"] = dib_bytes(bmp_rows(r.integers(0, 65536, (h, w)), 16)[::-1].tobytes(), w, h, 16,
+                                             compression=3, masks=(0xF800, 0x7E0, 0x1F))
+    out["dib/rle8.dib"] = dib_bytes(rle_stream(r.integers(0, 4, (h, w))[::-1] * 7, False), w, h, 8, compression=1,
+                                    palette=pal)
+    out["dib/pillow-P.dib"] = pil_bytes(Image.fromarray(img).convert("P"), "DIB")
+    out["dib/pillow-RGB.dib"] = pil_bytes(Image.fromarray(img), "DIB")
+    # PNM
+    gray = r.integers(0, 256, (h, w))
+    bits1 = r.integers(0, 2, (h, w))
+    for maxval in (1, 100, 255, 256, 1000, 65535):
+        g = r.integers(0, maxval + 1, (h, w))
+        c = r.integers(0, maxval + 1, (h, w, 3))
+        out[f"pnm/p5-maxval-{maxval}.pgm"] = pnm_raw(g, b"P5", maxval)
+        out[f"pnm/p6-maxval-{maxval}.ppm"] = pnm_raw(c, b"P6", maxval)
+        out[f"pnm/p2-maxval-{maxval}.pgm"] = pnm_plain(g, b"P2", maxval)
+        out[f"pnm/p3-maxval-{maxval}.ppm"] = pnm_plain(c, b"P3", maxval)
+    out["pnm/p5-over-maxval.pgm"] = pnm_raw(np.full((2, 3), 200), b"P5", 100)  # scaled, then min(255)
+    out["pnm/p1.pbm"] = pnm_plain(bits1, b"P1", None)
+    out["pnm/p1-no-whitespace.pbm"] = b"P1\n%d %d\n" % (w, h) + b"".join(b"%d" % v for v in bits1.reshape(-1))
+    out["pnm/p4.pbm"] = pnm_raw(bits1, b"P4")
+    out["pnm/p2-comments.pgm"] = pnm_plain(gray, b"P2", 255, per_line=5, comment_every=3)
+    out["pnm/p2-signs-underscores.pgm"] = b"P2 3 1 1000 +1 -0 1_0\n"
+    out["pnm/header-comment-in-token.pgm"] = b"P5\n1#a\n3 2\n2#b\n55\n" + bytes(range(26))  # 13 x 2, maxval 255
+    out["pnm/header-10-character-token.pgm"] = b"P5 0000000003 1 255\n" + bytes(3)
+    floats = np.array([[0.25, 2.0, 254.99, 300.0, -3.0, 127.5, np.nan]], np.float32)
+    out["pnm/pf-little-endian.pfm"] = b"Pf\n7 1\n-1.0\n" + floats.astype("<f4").tobytes()
+    out["pnm/pf-big-endian-rows.pfm"] = b"Pf\n2 3\n1.0\n" + r.normal(100, 90, (3, 2)).astype(">f4").tobytes()
+    out["pnm/p0cmyk.pam"] = pnm_raw(r.integers(0, 256, (h, w, 4)), b"P0CMYK")
+    out["pnm/p0cmyk-maxval-1000.pam"] = pnm_raw(r.integers(0, 1001, (h, w, 4)), b"P0CMYK", 1000)
+    out["pnm/pyp.pam"] = pnm_raw(gray, b"PyP")
+    out["pnm/pyrgba.pam"] = pnm_raw(r.integers(0, 256, (h, w, 4)), b"PyRGBA")
+    out["pnm/pycmyk.pam"] = pnm_raw(r.integers(0, 256, (h, w, 4)), b"PyCMYK")
+    for mode in ("1", "L", "I", "RGB"):
+        m = Image.fromarray(img).convert(mode) if mode != "I" else Image.fromarray(gray.astype(np.int32) * 200)
+        out[f"pnm/pillow-{mode}.pnm"] = pil_bytes(m, "PPM")
+    # Targa
+    for mode in ("1", "L", "LA", "P", "RGB", "RGBA"):
+        m = Image.fromarray(img).convert(mode)
+        for rle in (False, True):
+            if mode == "1" and rle:
+                continue
+            out[f"tga/pillow-{mode}{'-rle' if rle else ''}.tga"] = pil_bytes(m, "TGA", rle=rle)
+    bgr = img[..., ::-1]
+    for itype, depth, px in ((2, 24, bgr), (2, 32, bgra), (2, 16, r.integers(0, 256, (h, w, 2))), (3, 8, gray[..., None]),
+                             (3, 16, r.integers(0, 256, (h, w, 2)))):
+        for rle in (None, True, False):
+            t = itype + (8 if rle is not None else 0)
+            tag = "raw" if rle is None else "rle-across-rows" if rle else "rle"
+            out[f"tga/type{itype}-{depth}-{tag}.tga"] = tga_file(px, t, depth, rle_cross_rows=rle)
+    out["tga/type3-1-bit.tga"] = tga_file(_pack(bits1.reshape(h, w, 1), 1), 3, 1)
+    for flags in (0x10, 0x20, 0x30):
+        out[f"tga/flags-{flags:#04x}.tga"] = tga_file(bgr, 10, 24, rle_cross_rows=True, flags=flags)
+    idx = r.integers(0, 8, (h, w, 1))
+    cmap24 = r.integers(0, 256, (6, 3)).astype(np.uint8).tobytes()
+    cmap16 = r.integers(0, 65536, 6).astype("<u2").tobytes()
+    out["tga/map24-start-2.tga"] = tga_file(idx, 1, 8, cmap=cmap24, start=2)
+    out["tga/map16-start-3-rle.tga"] = tga_file(idx, 9, 8, rle_cross_rows=True, cmap=cmap16, start=3, map_depth=16)
+    out["tga/map24-on-gray.tga"] = tga_file(idx, 3, 8, cmap=cmap24)
+    out["tga/map16-on-gray-alpha.tga"] = tga_file(np.concatenate([idx, idx], 2), 3, 16, cmap=cmap16, map_depth=16)
+    out["tga/id-field-and-footer.tga"] = tga_file(bgr, 2, 24, id_field=b"made here") + bytes(8) + b"TRUEVISION-XFILE.\0"
+    return {f"{ICO_PNM_TGA}/{k}": v for k, v in sorted(out.items())}
+
+
+def ico_pnm_tga_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """ICO, CUR, DIB, PNM and Targa files Pillow 12.1.0 refuses: name ->
+    (bytes, the reason the port's ``OSError`` names, a regular
+    expression)."""
+    r = np.random.default_rng(1802)
+    h, w = 5, 7
+    img = r.integers(0, 256, (h, w, 3))
+    a24 = icon_dib(img, 24)
+    icon = icon_file([(w, h, 0, 24, a24)])
+    bgra = r.integers(0, 256, (h, w, 4))
+    icon32 = icon_file([(w, h, 0, 32, icon_dib(bgra.astype(np.uint8).view("<u4")[..., 0], 32, mask=False))])
+    idx = r.integers(0, 4, (h, w, 1))
+    return {
+        "ico-no-entry.ico": (icon_file([]), "no image"),
+        "ico-mask-cut-short.ico": (icon[:-8], "AND mask ends past"),
+        "ico-mask-past-the-end.ico": (icon_file([(w, h, 0, 24, a24)], sizes=[4000]), "AND mask ends past"),
+        "ico-alpha-cut-short.ico": (icon_file([(w, h, 0, 32, a24[:-4])]), "alpha bytes"),
+        "ico-32-bit-cut-short.ico": (icon32[:-1], "alpha bytes|truncated"),
+        "ico-mask-before-the-file.ico": (icon_file([(w, 11, 0, 24, icon_dib(r.integers(0, 256, (11, w, 3)), 24))],
+                                                   sizes=[0]), "before the file"),
+        "ico-frame-one-row.ico": (icon_file([(w, 1, 0, 24, dib_bytes(bytes(24), w, 1, 24))]), "of 7 x 0 pixels"),
+        "ico-pixels-cut-short.ico": (icon_file([(w, h, 0, 24, a24[:60])]), "truncated"),
+        "cur-no-entry.cur": (icon_file([], kind=2), "No cursors were found"),
+        "cur-one-row.cur": (icon_file([(w, 1, 0, 0, dib_bytes(bytes(24), w, 1, 24))], kind=2), "of 7 x 0 pixels"),
+        "dib-64-bit.dib": (dib_bytes(bytes(8 * w * h), w, h, 64), "64-bit pixels"),
+        "dib-cut-short.dib": (dib_bytes(bmp_rows(img, 24)[::-1].tobytes(), w, h, 24)[:-30], "truncated"),
+        "pnm-unknown-magic.ppm": (b"P0RGB\n1 1\n255\n" + bytes(3), "unknown format"),
+        "pnm-maxval-0.pgm": (b"P5 1 1 0\n\0", "maxval must be greater than 0"),
+        "pnm-maxval-65536.pgm": (b"P5 1 1 65536\n\0\0", "maxval must be greater than 0"),
+        "pnm-width-not-integer.pgm": (b"P5 x 1 255\n\0", "invalid literal"),
+        "pnm-header-token-too-long.pgm": (b"P5 00000000001 1 255\n\0", "Token too long in file header"),
+        "pnm-header-ends.pgm": (b"P5 1 1", "Reached EOF"),
+        "pnm-zero-width.pgm": (b"P5 0 1 255\n", "unknown format"),
+        "pnm-scale-zero.pfm": (b"Pf 1 1 0.0\n" + bytes(4), "scale must be finite"),
+        "pnm-scale-nan.pfm": (b"Pf 1 1 nan\n" + bytes(4), "scale must be finite"),
+        "pnm-raw-cut-short.ppm": (b"P6 2 1 255\n" + bytes(5), "truncated"),
+        "pnm-raw-scaled-cut-short.ppm": (b"P6 2 1 1000\n" + bytes(10), "truncated"),
+        "pnm-plain-cut-short.pgm": (b"P2 3 1 255\n1 2", "truncated"),
+        "pnm-plain-token-too-long.pgm": (b"P2 3 1 255\n1 2 3 00000000004", "longer than 10"),
+        "pnm-plain-negative.pgm": (b"P2 3 1 255\n1 -2 3\n", "negative"),
+        "pnm-plain-over-maxval.pgm": (b"P2 3 1 255\n1 256 3\n", "above its maxval"),
+        "pnm-plain-not-integer.pgm": (b"P2 3 1 255\n1 2.5 3\n", "not an integer"),
+        "pnm-plain-bitonal-2.pbm": (b"P1 3 1\n0 1 0 2\n", "other than 0 or 1"),
+        "tga-type-4.tga": (tga_file(img.astype(np.uint8), 4, 24), "image type 4"),
+        "tga-map-depth-8.tga": (tga_file(idx, 1, 8, cmap=bytes(6), map_depth=8), "8-bit colour map"),
+        "tga-map-depth-32.tga": (tga_file(idx, 1, 8, cmap=bytes(16), map_depth=32), "32-bit colour map"),
+        "tga-map-of-300.tga": (tga_file(idx, 1, 8, cmap=bytes(900)), "300 entries"),
+        "tga-type-1-no-map.tga": (tga_file(idx, 1, 8), "without a colour map"),
+        "tga-map-on-rgb.tga": (tga_file(img.astype(np.uint8), 2, 24, cmap=bytes(6)), "colour map on BGR"),
+        "tga-type-2-8-bit.tga": (tga_file(idx, 2, 8), "cannot load"),
+        "tga-rle-1-bit.tga": (tga_header(8, 2, 11, 1) + bytes([0x81, 0xFF]), "truncated"),
+        "tga-rle-run-past-row.tga": (tga_header(3, 2, 11, 8) + bytes([0x85, 7]), "past the end of its row"),
+        "tga-rle-cut-short.tga": (tga_header(3, 2, 11, 8) + bytes([0x82, 7, 4, 1]), "truncated"),
+        "tga-raw-cut-short.tga": (tga_file(img.astype(np.uint8), 2, 24)[:-4], "truncated"),
+    }
+
+
+def card_originals() -> Dict[str, bytes]:
+    """The card's originals (``CARD_ORIGINALS``), written by this module's
+    writers from seeded numpy alone, as the card's machine (no Pillow)
+    writes them: name (under ``ico_pnm_tga/card/``) -> bytes."""
+    side = 1024
+    r = np.random.default_rng(1880)
+    photo = np.clip(smooth_scene(1881, side, side, cell=128, step=8).astype(np.int64)
+                    + r.integers(-6, 7, (side, side, 3)), 0, 255)
+    digits = [b"%d" % v for v in range(256)]
+    plain = b"\n".join(b" ".join(digits[v] for v in line) for line in photo.reshape(-1, 24).tolist())
+    poster = (smooth_scene(1882, side, side, cell=128, step=32) // 51 * 51).astype(np.uint8)
+    icon = smooth_scene(1883, 256, 256, cell=32, step=16)
+    alpha = np.full((256, 256, 1), 255, np.int64)
+    alpha[:16] = 0
+    small = [(s, s, 0, 32, icon_dib(np.concatenate([icon[::256 // s, ::256 // s, ::-1], alpha[:s, :s]], 2)
+                                    .astype(np.uint8).view("<u4")[..., 0], 32, mask=False)) for s in (16, 32)]
+    bgra = np.concatenate([icon[..., ::-1], alpha], 2).astype(np.uint8).view("<u4")[..., 0]
+    scan = smooth_scene(1884, side, side, cell=256, step=16)[..., 0] >> 4
+    cmy = (255 - smooth_scene(1885, side, side, cell=128, step=16)).astype(np.int64)
+    cmyk = np.concatenate([cmy, cmy.min(axis=2, keepdims=True) // 2], 2)
+    out = {
+        "photo-1024.ppm": pnm_raw(photo, b"P6"),
+        "photo-1024-plain.ppm": b"P3\n# a 1024 px photo\n1024 1024\n255\n" + plain + b"\n",
+        "poster-1024-rle.tga": tga_file(poster[..., ::-1], 10, 24, rle_cross_rows=True, id_field=b"poster"),
+        "icon-256-png.ico": icon_file(small + [(0, 0, 0, 32, png_bytes(np.concatenate([icon, alpha], 2), 8, 6,
+                                                                        kinds=(1, 4)))]),
+        "icon-256-bmp.ico": icon_file(small + [(0, 0, 0, 32, icon_dib(bgra, 32, mask=False))]),
+        "scan-1024-gray4.tif": tiff_bytes(scan, 4, 1, compression=5, rows_per_strip=64),
+        "print-1024-cmyk.tif": tiff_bytes(cmyk, photometric=5, compression=5, rows_per_strip=64),
+    }
+    assert sorted(out) == sorted(CARD_ORIGINALS)
+    return {f"{ICO_PNM_TGA}/card/{k}": v for k, v in out.items()}
+
+
+def ico_pnm_tga_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``ico_pnm_tga/`` (name -> bytes), written
+    anew: the layouts and the refusals (the card's originals are written
+    on the card, ``card_originals``)."""
+    refused = {f"{ICO_PNM_TGA}/refused/{k}": v for k, (v, _) in ico_pnm_tga_refusals().items()}
+    return dict(sorted({**ico_pnm_tga_layouts(), **refused}.items()))
+
+
+def committed_ico_pnm_tga() -> Dict[str, bytes]:
+    """The committed files under ``ico_pnm_tga/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, ICO_PNM_TGA)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def ico_pnm_tga_entry(name: str, path: str) -> dict:
+    """A manifest entry of a file under ``ico_pnm_tga/`` (or of a card
+    original): Pillow's RGB, or for a refusal the reason the port names
+    (``refused``) beside Pillow's error."""
+    import warnings
+
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        data = f.read()
+    entry = {"bytes": len(data), "sha256": sha256(data)}
+    if "/refused/" in name:
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with Image.open(path) as im:
+                    im.convert("RGB")
+        except Exception as e:  # noqa: BLE001 - Pillow raises OSError, ValueError and its own
+            entry["pillow"] = f"{type(e).__name__}: {e}".replace(path, "<path>")
+            entry["refused"] = ico_pnm_tga_refusals()[os.path.basename(name)][1]
+            return entry
+        raise AssertionError(f"{name}: Pillow reads it")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rgb = pil_rgb(path)
+    return {**entry, "shape": list(rgb.shape[:2]), "sha256_rgb": sha256(rgb)}
+
+
+def check_card_originals(folder: str, decode: Callable[[str], np.ndarray]) -> List[str]:
+    """Writes ``card_originals`` into ``folder`` and holds each to the
+    manifest (``card``): its bytes and ``decode``'s RGB.  Returns the paths
+    written; raises ``AssertionError`` naming the first that differs."""
+    want = load_manifest()["card"]
+    paths = []
+    for name, data in card_originals().items():
+        if sha256(data) != want[name]["sha256"]:
+            raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+        path = os.path.join(folder, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths.append(path)
+    return paths
+
+
+if __name__ == "__main__":
+    import tempfile
+
+    sys.path.insert(0, ROOT)  # the JAX package, whose prep the card's originals are held to
+    with tempfile.TemporaryDirectory() as tmp:
+        out = write(tmp)
+    total = sum(e["bytes"] for e in out["files"].values())
+    webp_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{WEBP}/"))
+    kinds_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{KINDS}/"))
+    pillow_total = sum(e["bytes"] for n, e in out["files"].items() if n.startswith(f"{PILLOW}/"))
+    print(f"{len(out['files'])} files ({total} bytes, {webp_total} of them WebP, {kinds_total} of the JPEG kinds, "
+          f"{pillow_total} under {PILLOW}/), "
+          f"{len(out['sources'])} sources x {len(QUALITIES)} qualities -> {FIXTURES}", file=sys.stderr)

@@ -11,9 +11,12 @@ that holds this script by default) and times, median and least of
 92, written by DIR's encoder, which writes libjpeg's bytes) decoded to RGB
 through ``byogan_decode``, whatever the library's ABI (4 before the lane
 argument, 5 after).  The photo is the one ``chip_smoke.py`` times (smooth
-colour with noise of 2 LSB, seed 61).  The last line is a JSON summary
-with the machine's card, where ``nvidia-smi`` finds one.  To compare two
-checkouts, run both inside one call, in the order A, B, B, A.
+colour with noise of 2 LSB, seed 61).  Where the checkout holds them, it
+also times the committed 1024 px originals ``chip_smoke.py`` times beside
+it: the RGB LZW TIFF with predictor 2 (64-row strips) and the GIF with a
+global table.  The last line is a JSON summary with the machine's card,
+where ``nvidia-smi`` finds one.  To compare two checkouts, run both inside
+one call, in the order A, B, B, A.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ import numpy as np
 
 SIDE = 1024
 QUALITY = 92
+#: the committed 1024 px originals timed beside the JPEG, by the key of the summary
+ORIGINALS = {"tiff_lzw_predictor_1024": "tests/data/torch_port_codecs/gif_tiff/card/scan-1024.tif",
+             "gif_1024": "tests/data/torch_port_codecs/gif_tiff/card/poster-1024.gif"}
 
 
 def photo(rng, h: int, w: int, noise: float = 2.0) -> np.ndarray:
@@ -61,10 +67,9 @@ def main(argv=None) -> int:
 
     lib = native.load_library()
     abi = lib.byogan_abi_version()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "photo.jpg")
-        native.encode_jpeg(path, photo(np.random.default_rng(61), SIDE, SIDE), QUALITY)
-        out = np.empty((SIDE, SIDE, 3), np.uint8)
+    out = np.empty((SIDE, SIDE, 3), np.uint8)
+
+    def host_ms(path: str) -> list:
         h, w = ctypes.c_int(SIDE), ctypes.c_int(SIDE)
         call = [path.encode(), out.ctypes.data, ctypes.byref(h), ctypes.byref(w)]
         call += [0] if abi >= 5 else []
@@ -75,12 +80,23 @@ def main(argv=None) -> int:
             times.append(1e3 * (time.perf_counter() - t0))
             if rc != 0:
                 raise OSError(f"{path}: decode returned {rc}")
-    times = times[1:]
-    result = {"checkout": checkout, "abi": abi, "jpeg_decode_1024_ms_median": float(np.median(times)),
-              "jpeg_decode_1024_ms_min": float(np.min(times)), "repeats": args.repeats, "card": card()}
-    print(f"time decode: {checkout} (ABI {abi}): JPEG 4:2:0 q{QUALITY} {SIDE} px, host ms over {args.repeats} calls "
-          f"on one thread: median {result['jpeg_decode_1024_ms_median']:.3f}, least "
-          f"{result['jpeg_decode_1024_ms_min']:.3f}; card {result['card']}")
+        return times[1:]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "photo.jpg")
+        native.encode_jpeg(path, photo(np.random.default_rng(61), SIDE, SIDE), QUALITY)
+        timed = {"jpeg_decode_1024": host_ms(path)}
+    for key, name in ORIGINALS.items():
+        if os.path.exists(os.path.join(checkout, name)):
+            timed[key] = host_ms(os.path.join(checkout, name))
+    result = {"checkout": checkout, "abi": abi}
+    for key, times in timed.items():
+        result[f"{key}_ms_median"] = float(np.median(times))
+        result[f"{key}_ms_min"] = float(np.min(times))
+    result.update(repeats=args.repeats, card=card())
+    print(f"time decode: {checkout} (ABI {abi}): {SIDE} px, host ms over {args.repeats} calls on one thread, "
+          + "; ".join(f"{key} median {result[f'{key}_ms_median']:.3f}, least {result[f'{key}_ms_min']:.3f}"
+                      for key in timed) + f"; card {result['card']}")
     print(json.dumps(result))
     return 0
 
