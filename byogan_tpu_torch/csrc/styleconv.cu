@@ -39,11 +39,13 @@
 //     ldmatrix's 8 row addresses fall in distinct banks.  The tile plan
 //     comes from ops/styleconv.py::plan_tiles, its rules from the
 //     measurements of ops/tile_sweep.py: BN follows Cout (16, 32, 64), BM
-//     (16 to 256) is the largest that still puts about one block on each of
-//     the 132 SMs, tiles of whole samples only where they fill every row
-//     (on an H100 at batch 64 they run 1.5x faster than tiles of one
-//     sample at 4 and 8 px), BK is 16 so that two or three blocks share an
-//     SM.  What limits the 512-channel shapes now is the weight stream and
+//     (16 to 256) is the largest that puts about one block on each of the
+//     132 SMs at batch 8, two 8x8 samples share a tile of 128, BK is 16 so
+//     that two or three blocks share an SM.  Every choice follows the
+//     sample's shape alone, so a sample's rows sit on the same rows of any
+//     tile that holds it: its moments are summed in the same order, and its
+//     output has the same bits, whatever the batch (a tile of whole samples
+//     may be partly empty).  What limits the 512-channel shapes now is the weight stream and
 //     the ldmatrix traffic of mma.sync's small fragments: each block reads the
 //     whole 9 x Cin x BN weight for its few rows (wgmma with TMA multicast
 //     of the weight across a cluster is the next step).
@@ -51,7 +53,9 @@
 //     writes hv to an f32 scratch and, per (sample in the tile, column), the
 //     tile's mean and centred M2 from the accumulator fragments: a
 //     fixed-order warp shuffle over the 8 lanes that share a column, then a
-//     fixed-order sum over warps in shared memory.  Partials go to an
+//     fixed-order sum over warps in shared memory (the warps that hold none
+//     of a sample's rows add exact zeros, so a sample's sum does not depend
+//     on its slot in a tile of several).  Partials go to an
 //     (N, tiles, Cout) buffer instead of atomics, so every run gives the
 //     same bits.
 //   * Pass 2a (finalize_moments, common.cuh): Chan's merge of the partials

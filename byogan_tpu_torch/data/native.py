@@ -30,7 +30,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 7
+ABI_VERSION = 8
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -62,11 +62,14 @@ ERRORS = {
     -26: "a TIFF header or first directory that does not describe an image Pillow reads (a bad version, a tag "
          "missing or not an integer, strip or tile offsets that do not match the image)",
     -27: "BigTIFF files are not read by the PyTorch port",
-    -28: "TIFF files with JPEG or old-style JPEG compression are not read by the PyTorch port",
+    -28: "TIFF files with old-style JPEG compression, or with JPEG compression of other samples than 8-bit gray, "
+         "RGB, CMYK or YCbCr in one plane, are not read by the PyTorch port",
     -29: "TIFF files with CCITT (fax) compression are not read by the PyTorch port",
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
     -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
-    -32: "TIFF files of YCbCr pixels are not read by the PyTorch port",
+    -32: "TIFF files of YCbCr pixels in this layout (a subsampling libtiff has no routine for, subsampled "
+         "separate planes, a predictor, one sample under compression, bad coefficients) are not read by the "
+         "PyTorch port",
     -34: "TIFF files of this photometric interpretation (Lab, which Pillow converts through LittleCMS, a "
          "mask...) are not read by the PyTorch port",
     -37: "uncompressed TIFF files with FillOrder 2 of MinIsWhite 8-bit gray or 1-, 2- or 4-bit palettes, which "
@@ -82,6 +85,8 @@ ERRORS = {
     -44: "a negative plain PNM sample (Pillow: Channel value is negative)",
     -45: "a plain PNM sample above its maxval (Pillow: Channel value too large for this mode)",
     -46: "a Targa RLE run packet past the end of its row (Pillow: buffer overrun when reading image file)",
+    -47: "a JPEG-compressed TIFF strip or tile that does not match the file's tags (its size, components or "
+         "sampling factors), which libtiff refuses",
 }
 
 _P = ctypes.c_void_p

@@ -141,7 +141,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 7; }
+int byogan_abi_version() { return 8; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or

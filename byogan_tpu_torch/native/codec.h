@@ -38,11 +38,11 @@ enum Status {
   kTooLarge = -25,         // more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)
   kTiffDirectory = -26,    // a TIFF header or first directory that does not describe an image Pillow reads
   kTiffBig = -27,          // BigTIFF
-  kTiffJpeg = -28,         // TIFF with JPEG or old-style JPEG compression
+  kTiffJpeg = -28,         // TIFF with old-style JPEG compression, or JPEG of samples the port does not read
   kTiffCcitt = -29,        // TIFF with CCITT (fax) compression
   kTiffLogLuv = -30,       // TIFF with LogLuv or LogL data
   kTiffCompression = -31,  // TIFF with another compression (LZMA, ZSTD, WebP, JBIG...)
-  kTiffYcbcr = -32,        // TIFF with YCbCr pixels (subsampled or not)
+  kTiffYcbcr = -32,        // TIFF with YCbCr pixels in a layout the port does not read
   kTiffPhotometric = -34,  // TIFF with another photometric interpretation (Lab, a mask...)
   kTiffFillOrder = -37,    // TIFF with FillOrder 2 of samples Pillow's raw decoder has no raw mode for
   kTiffLayout = -38,       // TIFF samples of another depth or layout than the port reads
@@ -54,6 +54,7 @@ enum Status {
   kPnmNegative = -44,      // a negative plain PNM sample
   kPnmValue = -45,         // a plain PNM sample above its maxval
   kTgaOverrun = -46,       // a Targa RLE run packet past its row's end
+  kTiffJpegStream = -47,   // a JPEG-compressed TIFF strip or tile that does not match the file's tags
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -75,6 +76,19 @@ int decode_tiff(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 // byogan_tga_rle in byogan_io.cpp).
 int decode_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, int maxval, int wide, uint8_t* out);
 int decode_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out);
+
+// One strip or tile of a JPEG-compressed TIFF (tiff.cpp): `tables` (the
+// JPEGTables tag, empty where there is none) read before `data`; YCbCr ->
+// RGB where `ycbcr`, else the components as they are.  Fails with
+// kTiffJpegStream where the stream has other than `components`
+// components; *frame gets the stream's size and sampling factors, *out
+// frame->h x frame->w pixels of 3 (ycbcr) or `components` samples.
+struct JpegFrame {
+  int h = 0, w = 0, components = 0, marker = 0;  // marker: the SOF's
+  int hsamp[4] = {1, 1, 1, 1}, vsamp[4] = {1, 1, 1, 1};
+};
+int decode_jpeg_tiff(const uint8_t* tables, size_t tables_size, const uint8_t* data, size_t size, bool ycbcr,
+                     int components, JpegFrame* frame, std::vector<uint8_t>* out);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

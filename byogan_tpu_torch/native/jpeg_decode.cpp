@@ -19,7 +19,9 @@
 // YCbCr -> RGB, and YCCK -> CMYK for 4-component files, whose CMYK Pillow
 // then inverts (rawmode "CMYK;I") and converts to RGB (cmyk2rgb).  Lossless
 // frames (SOF3, 8-bit: jpeg_lossless.cpp) take the same upsampling (boxes)
-// and colour path.
+// and colour path.  A JPEG-compressed TIFF's strips and tiles take the same
+// path (decode_jpeg_tiff): the JPEGTables stream read first, the colour
+// space set by libtiff's codec, not by the stream's markers.
 //
 // Not read, each with its own return code: samples of other than 8 bits in
 // a DCT frame, hierarchical frames, lossless frames that Pillow's
@@ -495,6 +497,61 @@ class Decoder {
       *h = height_, *w = width_;
       return kSize;
     }
+    decode(m, out);
+    return kOk;
+  }
+
+  // One strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec
+  // decodes it: the JPEGTables stream first (its tables persist, as
+  // jpeg_read_header(FALSE) leaves them), then the image's, whose SOI
+  // resets the restart interval, the arithmetic conditioning and the
+  // JFIF and Adobe markers; the colour space is the codec's, not the
+  // stream's.  `ycbcr` (PHOTOMETRIC_YCBCR under JPEGCOLORMODE_RGB): YCbCr
+  // -> RGB, 3 samples a pixel; else JCS_UNKNOWN, every component as it is.
+  int run_tiff(const uint8_t* tables, size_t tables_size, bool ycbcr, int components, JpegFrame* f,
+               std::vector<uint8_t>* out) {
+    if (tables_size) read_tables(tables, tables_size);
+    if (end_ - d_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail(kCorrupt);  // "Not a JPEG file"
+    p_ = d_ + 2;
+    forced_ = ycbcr ? kYCbCr : kUnknown;
+    const int m = read_header();
+    f->h = height_, f->w = width_, f->components = ncomp_, f->marker = sof_;
+    for (int c = 0; c < ncomp_; c++) f->hsamp[c] = comp_[c].h, f->vsamp[c] = comp_[c].v;
+    if (ncomp_ != components) return kTiffJpegStream;  // "Improper JPEG component count"
+    out->resize((size_t)height_ * width_ * (ycbcr ? 3 : ncomp_));
+    decode(m, out->data());
+    return kOk;
+  }
+
+ private:
+  enum Space { kGray, kYCbCr, kRgb, kCmyk, kYcck, kUnknown };
+  const uint8_t* d_;
+  const uint8_t* end_;
+  const uint8_t* p_ = nullptr;
+  int forced_ = -1;  // a colour space the caller sets (run_tiff), or -1
+  int sof_ = 0;      // the frame's marker
+
+  void read_tables(const uint8_t* t, size_t n) {
+    const uint8_t *save_p = p_, *save_end = end_;
+    p_ = t, end_ = t + n;
+    if (n < 2 || t[0] != 0xFF || t[1] != 0xD8) fail(kCorrupt);
+    p_ += 2;
+    while (true) {
+      const int m = next_marker(&p_, end_);
+      if (m == 0xD9) break;
+      if (m < 0) fail(kTruncated);
+      if (m == 0xDA || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC))
+        fail(kCorrupt);  // a frame: "Bogus JPEGTables field"
+      marker(m);
+    }
+    p_ = save_p, end_ = save_end;
+    restart_ = 0;
+    cond_ = ArithConditioning();
+    jfif_ = adobe_ = false;
+    adobe_transform_ = -1;
+  }
+
+  void decode(int m, uint8_t* out) {
     allocate();
     bool eoi = false;
     while (true) {
@@ -512,14 +569,8 @@ class Decoder {
     }
     if (!eoi) fail(kTruncated);
     output(out);
-    return kOk;
   }
 
- private:
-  enum Space { kGray, kYCbCr, kRgb, kCmyk, kYcck };
-  const uint8_t* d_;
-  const uint8_t* end_;
-  const uint8_t* p_ = nullptr;
   int width_ = 0, height_ = 0, ncomp_ = 0;
   bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false;
@@ -561,7 +612,8 @@ class Decoder {
       if (m < 0) fail(kTruncated);
       if (m == 0xDA) {
         if (!frame_) fail(kCorrupt);
-        space_ = color_space();  // fixed at the first scan, as jpeg_read_header fixes it
+        space_ = forced_ >= 0 ? (Space)forced_ : color_space();  // fixed at the first scan, as jpeg_read_header fixes it
+        if (lossless_ && space_ == kYCbCr && forced_ >= 0) fail(kJpegLossless);
         return m;
       }
       if (m == 0xD9) fail(kCorrupt);  // no image
@@ -631,6 +683,7 @@ class Decoder {
     height_ = (s[1] << 8) | s[2];
     width_ = (s[3] << 8) | s[4];
     ncomp_ = s[5];
+    sof_ = m;
     lossless_ = m == 0xC3 || m == 0xCB;
     arith_ = m >= 0xC9;
     progressive_ = m == 0xC2 || m == 0xCA;
@@ -1002,6 +1055,7 @@ class Decoder {
           idct_islow(k.block(by, bx), k.q, plane[c].data() + (size_t)by * 8 * stride[c] + bx * 8, stride[c]);
     }
     // upsample each component's row to the image's width, then convert
+    const int oc = space_ == kUnknown ? ncomp_ : 3;  // samples a pixel out
     const size_t pitch = (size_t)width_ + 16;
     std::vector<uint8_t> rows((size_t)ncomp_ * pitch);
     const uint8_t* r0 = rows.data();
@@ -1011,8 +1065,12 @@ class Decoder {
         const uint8_t* samples = lossless_ ? comp_[c].plane.data() : plane[c].data();
         upsample_row(c, y, samples, stride[c], rows.data() + (size_t)c * pitch);
       }
-      uint8_t* o = out + (size_t)y * width_ * 3;
+      uint8_t* o = out + (size_t)y * width_ * oc;
       switch (space_) {
+        case kUnknown:  // null_convert: the components as they are
+          for (int x = 0; x < width_; x++)
+            for (int c = 0; c < ncomp_; c++) o[oc * x + c] = rows[(size_t)c * pitch + x];
+          break;
         case kGray:
           for (int x = 0; x < width_; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = r0[x];
           break;
@@ -1145,6 +1203,18 @@ class Decoder {
 
 }  // namespace
 }  // namespace jpeg
+
+int decode_jpeg_tiff(const uint8_t* tables, size_t tables_size, const uint8_t* data, size_t size, bool ycbcr,
+                     int components, JpegFrame* frame, std::vector<uint8_t>* out) {
+  try {
+    jpeg::Decoder dec(data, size);
+    return dec.run_tiff(tables, tables_size, ycbcr, components, frame, out);
+  } catch (const jpeg::Error& e) {
+    return e.code == kNotImage ? kCorrupt : e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
 
 int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
   try {

@@ -31,14 +31,28 @@
 //   libtiff (its native-order samples unpacked as I;16BS and F;32BF), a
 //   single uncompressed strip of a mapped mode read at the size Orientation
 //   5-8 swapped;
+// - JPEG compression (7) of 8-bit gray (MinIsWhite inverted), RGB, CMYK
+//   and YCbCr in one plane: libtiff's JPEG codec hands each strip's or
+//   tile's stream, after the JPEGTables stream, to libjpeg with its own
+//   colour space (YCbCr -> RGB under Pillow's JPEGCOLORMODE_RGB, else the
+//   components as they are), holds the stream's size and sampling factors
+//   to the tags (the luma factors to YCbCrSubsampling, which a file
+//   without the tag takes from its first stream), and a last strip may
+//   say more rows than it has; the decode is jpeg_decode.cpp's;
+// - YCbCr: uncompressed, Pillow's raw decoder reads it as RGBX (four bytes
+//   a pixel, unconverted); under LZW, Deflate or PackBits, Pillow's
+//   _decodeAsRGBA, libtiff's TIFFRGBAImage (YcbcrTables, put_ycbcr);
 // - the Orientation tag, applied as Pillow's load does
 //   (ImageOps.exif_transpose).
 //
-// Everything else returns a code of codec.h that names it: BigTIFF, JPEG
-// and old JPEG, CCITT, LogLuv and other compressions, YCbCr, Lab and other
-// photometric interpretations, other depths and sample layouts, FillOrder
-// 2 where Pillow has no raw mode for it, old-style LZW, truncated or
-// corrupt data (where libtiff or Pillow's raw decoder fails).
+// Everything else returns a code of codec.h that names it: BigTIFF, old
+// JPEG and JPEG of other samples, CCITT, LogLuv and other compressions,
+// YCbCr in a layout libtiff has no routine for (1x4, 2x4, subsampled
+// planes) or with a predictor, Lab and other photometric interpretations,
+// other depths and sample layouts, FillOrder 2 where Pillow has no raw
+// mode for it, old-style LZW, truncated or corrupt data (where libtiff or
+// Pillow's raw decoder fails; YCbCr data short of the tags, which Pillow
+// shows as zeros, are refused too).
 
 #include <zlib.h>
 
@@ -64,21 +78,26 @@ struct Bytes {
   }
 };
 
-// One tag's values, read as unsigned integers (BYTE, SHORT, LONG).
+// One tag's values, read as unsigned integers (BYTE, SHORT, LONG), or as
+// floats (RATIONAL, as libtiff reads them), and where they lie in the file.
 struct Tag {
   bool present = false;
   std::vector<uint32_t> v;
+  std::vector<float> f;
+  size_t at = 0;
 };
 
 enum TagId {
   kWidth = 256, kLength = 257, kBits = 258, kCompression = 259, kPhotometric = 262, kFillOrder = 266,
   kStripOffsets = 273, kOrientation = 274, kSamples = 277, kRowsPerStrip = 278, kStripBytes = 279,
   kPlanar = 284, kPredictor = 317, kColorMap = 320, kTileWidth = 322, kTileLength = 323, kTileOffsets = 324,
-  kTileBytes = 325, kExtraSamples = 338, kSampleFormat = 339,
+  kTileBytes = 325, kExtraSamples = 338, kSampleFormat = 339, kJpegTables = 347, kYcbcrCoefficients = 529,
+  kYcbcrSubsampling = 530, kReferenceBlackWhite = 532,
 };
 const int kTags[] = {kWidth, kLength, kBits, kCompression, kPhotometric, kFillOrder, kStripOffsets,
                      kOrientation, kSamples, kRowsPerStrip, kStripBytes, kPlanar, kPredictor, kColorMap,
-                     kTileWidth, kTileLength, kTileOffsets, kTileBytes, kExtraSamples, kSampleFormat};
+                     kTileWidth, kTileLength, kTileOffsets, kTileBytes, kExtraSamples, kSampleFormat,
+                     kJpegTables, kYcbcrCoefficients, kYcbcrSubsampling, kReferenceBlackWhite};
 
 int tag_slot(int id) {
   for (int i = 0; i < (int)(sizeof(kTags) / sizeof(kTags[0])); i++)
@@ -90,7 +109,9 @@ int tag_slot(int id) {
 // reads them: the entries up to the file's end (a directory cut short
 // keeps those before the cut), a tag whose values lie past the end
 // skipped.  *whole is false where either happened (libtiff refuses such a
-// directory).  kTiffDirectory where a tag of kTags holds no integers.
+// directory).  kTiffDirectory where a tag of kTags holds no integers (the
+// JPEG tables: bytes; the YCbCr coefficients and reference black and
+// white: rationals).
 int read_directory(const Bytes& f, size_t at, std::vector<Tag>* tags, bool* whole) {
   tags->assign(sizeof(kTags) / sizeof(kTags[0]), Tag());
   *whole = true;
@@ -105,7 +126,11 @@ int read_directory(const Bytes& f, size_t at, std::vector<Tag>* tags, bool* whol
     const int slot = tag_slot((int)f.u16(e));
     if (slot < 0) continue;
     const uint32_t type = f.u16(e + 2), count = f.u32(e + 4);
-    const int size = type == 1 ? 1 : type == 3 ? 2 : type == 4 ? 4 : 0;
+    const int id = kTags[slot];
+    const bool rational = id == kYcbcrCoefficients || id == kReferenceBlackWhite;
+    const int size = rational ? (type == 5 ? 8 : 0)
+                     : id == kJpegTables ? (type == 7 || type == 1 ? 1 : 0)
+                     : type == 1 ? 1 : type == 3 ? 2 : type == 4 ? 4 : 0;
     if (!size || count == 0) return kTiffDirectory;
     size_t pos = e + 8;
     if ((uint64_t)size * count > 4) {
@@ -117,6 +142,19 @@ int read_directory(const Bytes& f, size_t at, std::vector<Tag>* tags, bool* whol
     }
     Tag& t = (*tags)[slot];
     t.present = true;
+    t.at = pos;
+    if (id == kJpegTables) {
+      t.v.assign(1, count);  // the bytes stay in the file
+      continue;
+    }
+    if (rational) {  // TIFFReadDirEntryFloatArray: 0 where the denominator is
+      t.f.resize(count);
+      for (uint32_t k = 0; k < count; k++) {
+        const uint32_t num = f.u32(pos + 8 * k), den = f.u32(pos + 8 * k + 4);
+        t.f[k] = den ? (float)((double)num / den) : 0.0f;
+      }
+      continue;
+    }
     t.v.resize(count);
     for (uint32_t k = 0; k < count; k++) {
       const size_t p = pos + (size_t)size * k;
@@ -342,6 +380,60 @@ void undo_predictor(uint8_t* row, size_t row_bytes, uint32_t bps, uint32_t per, 
   }
 }
 
+// libtiff's TIFFYCbCrToRGBInit (tif_color.c) for one file's coefficients
+// and reference black and white, in its float arithmetic, and
+// TIFFYCbCrtoRGB: the conversion TIFFRGBAImage's put routines make.
+struct YcbcrTables {
+  int32_t y[256], cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+
+  YcbcrTables(const float* luma, const float* rbw) {
+    auto clamp = [](float f, float lo, float hi) { return f < lo ? lo : f > hi ? hi : f; };
+    auto clampw = [](float f, float lo, float hi) { return !(f >= lo) ? lo : f > hi ? hi : f; };  // NaN -> lo
+    auto fix = [](float x) { return (int32_t)(x * (float)(1L << 16) + 0.5); };
+    auto code2v = [](int c, float rb, float rw, int cr) {
+      return ((float)(c - (int32_t)rb) * (float)cr) / (rw - rb != 0 ? rw - rb : 1.0f);
+    };
+    const float f1 = 2 - 2 * luma[0], f2 = luma[0] * f1 / luma[1];
+    const float f3 = 2 - 2 * luma[2], f4 = luma[2] * f3 / luma[1];
+    const int32_t d1 = fix(clamp(f1, 0.0f, 2.0f)), d2 = -fix(clamp(f2, 0.0f, 2.0f));
+    const int32_t d3 = fix(clamp(f3, 0.0f, 2.0f)), d4 = -fix(clamp(f4, 0.0f, 2.0f));
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      const int32_t cr = (int32_t)clampw(code2v(x, rbw[4] - 128.0f, rbw[5] - 128.0f, 127), -128.0f * 32, 128.0f * 32);
+      const int32_t cb = (int32_t)clampw(code2v(x, rbw[2] - 128.0f, rbw[3] - 128.0f, 127), -128.0f * 32, 128.0f * 32);
+      cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+      cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + (1 << 15);
+      y[i] = (int32_t)clampw(code2v(x + 128, rbw[0], rbw[1], 255), -128.0f * 32, 128.0f * 32);
+    }
+  }
+
+  void rgb(int yv, int cb, int cr, uint16_t* o) const {
+    auto c255 = [](int32_t v) { return (uint16_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    o[0] = c255(y[yv] + cr_r[cr]);
+    o[1] = c255(y[yv] + (int32_t)((cb_g[cb] + cr_g[cr]) >> 16));
+    o[2] = c255(y[yv] + cb_b[cb]);
+  }
+};
+
+// One call of a TIFFRGBAImage put routine (tif_getimage.c,
+// putcontig8bitYCbCr{11,12,21,22,41,42,44}tile) over rows x cols pixels
+// of packed YCbCr blocks (hs x vs luma samples, then Cb and Cr): a block
+// for every hs columns, the last one partly shown, then `skip` bytes at
+// the end of each row of blocks, as the routine steps over a tile's
+// columns past the image's right edge.
+void put_ycbcr(const YcbcrTables& t, const uint8_t* pp, uint32_t rows, uint32_t cols, uint32_t hs, uint32_t vs,
+               size_t skip, uint16_t* px, size_t pitch) {
+  const uint32_t k = hs * vs + 2;
+  for (uint32_t by = 0; by * vs < rows; by++) {
+    for (uint32_t bx = 0; bx * hs < cols; bx++, pp += k)
+      for (uint32_t dy = 0; dy < vs && by * vs + dy < rows; dy++)
+        for (uint32_t dx = 0; dx < hs && bx * hs + dx < cols; dx++)
+          t.rgb(pp[dy * hs + dx], pp[k - 2], pp[k - 1], px + (size_t)(by * vs + dy) * pitch + 3 * (bx * hs + dx));
+    pp += skip;
+  }
+}
+
 }  // namespace
 
 int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) {
@@ -365,16 +457,16 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
 
   // compression and pixel kind, by Pillow's OPEN_INFO key
   const uint32_t compression = one(kCompression, 1);
-  if (compression == 6 || compression == 7) return kTiffJpeg;
+  if (compression == 6) return kTiffJpeg;  // old-style JPEG
+  const bool jpeg = compression == 7;
   if ((compression >= 2 && compression <= 4) || compression == 32771) return kTiffCcitt;
   if (compression == 34676 || compression == 34677) return kTiffLogLuv;
   const bool deflate = compression == 8 || compression == 32946;
-  if (compression != 1 && compression != 5 && compression != 32773 && !deflate) return kTiffCompression;
+  if (compression != 1 && compression != 5 && compression != 32773 && !deflate && !jpeg) return kTiffCompression;
   const bool raw = compression == 1;  // Pillow's own raw decoder; libtiff for the rest
   const uint32_t photometric = one(kPhotometric, 0);  // Pillow's default: MinIsWhite
-  if (photometric == 6) return kTiffYcbcr;
   if (photometric == 32844 || photometric == 32845) return kTiffLogLuv;
-  if (photometric > 3 && photometric != 5) return kTiffPhotometric;  // Lab goes through LittleCMS in Pillow
+  if (photometric > 3 && photometric != 5 && photometric != 6) return kTiffPhotometric;  // Lab goes through LittleCMS in Pillow
   // SampleFormat: one value, or one a sample all 1 (Pillow's (1,))
   std::vector<uint32_t> formats = tag(kSampleFormat).present ? tag(kSampleFormat).v : std::vector<uint32_t>{1};
   if (formats.size() > 1 && *std::max_element(formats.begin(), formats.end()) == 1 &&
@@ -443,8 +535,51 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     kind = kCmyk;  // CMYK CMYKX CMYKXX CMYK;16
     for (uint32_t e : extras)
       if (e != 0) return kTiffLayout;
+  } else if (photometric == 6 && format == 1 && bps == 8 && extras.empty() && (samples == 3 || raw)) {
+    // Pillow's keys: RGB (raw mode RGBX; RGB under JPEG) and L, FillOrder 1
+    // alone; one sample is read by the raw decoder alone (libtiff refuses it)
+    if (fill != 1) return kTiffLayout;
+    if (samples == 1) kind = kGray;
+    else if (samples == 3) kind = kRgb;
+    else return kTiffLayout;
   } else {
     return kTiffLayout;
+  }
+  if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 && !planar &&
+                ((kind == kGray && samples == 1) || (kind == kRgb && samples == 3) || (kind == kCmyk && samples == 4))))
+    return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples in one plane, as Pillow reads them here
+  // YCbCr: Pillow's raw decoder reads an uncompressed file as RGBX, four
+  // bytes a pixel, unconverted; libjpeg converts it under JPEG; libtiff's
+  // TIFFRGBAImage under LZW, Deflate and PackBits (ycbcr_rgba)
+  const bool ycbcr = photometric == 6 && samples == 3;
+  const bool rgbx = ycbcr && raw && !planar;
+  const bool ycbcr_rgba = ycbcr && !raw && !jpeg;
+  uint32_t hs = 2, vs = 2;  // YCbCrSubsampling: libtiff's default 2, 2
+  if (ycbcr && tag(kYcbcrSubsampling).present) {
+    if (tag(kYcbcrSubsampling).v.size() != 2) return kTiffDirectory;
+    hs = tag(kYcbcrSubsampling).v[0];
+    vs = tag(kYcbcrSubsampling).v[1];
+  }
+  float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
+  if (ycbcr_rgba) {
+    // libtiff's strip and scanline sizes take 1, 2 or 4 alone; put routines
+    // exist for these; separate planes, 1 x 1 alone; a predictor the port
+    // does not undo on blocks
+    const uint32_t code = hs << 4 | vs;
+    if (code != 0x11 && code != 0x12 && code != 0x21 && code != 0x22 && code != 0x41 && code != 0x42 && code != 0x44)
+      return kTiffYcbcr;
+    if ((planar && code != 0x11) || one(kPredictor, 1) != 1) return kTiffYcbcr;
+    if (tag(kYcbcrCoefficients).present) {
+      if (tag(kYcbcrCoefficients).f.size() != 3) return kTiffDirectory;
+      std::copy_n(tag(kYcbcrCoefficients).f.begin(), 3, luma);
+      if (luma[1] == 0.0f) return kTiffYcbcr;  // "Invalid values for YCbCrCoefficients tag"
+    }
+    if (tag(kReferenceBlackWhite).present) {
+      if (tag(kReferenceBlackWhite).f.size() != 6) return kTiffDirectory;
+      std::copy_n(tag(kReferenceBlackWhite).f.begin(), 6, rbw);
+      for (float v : rbw)
+        if (!(v > (float)(-0x7FFFFFFF + 128) && v < (float)0x7FFFFFFF)) return kTiffYcbcr;
+    }
   }
   if (fill == 2 && kind != kBilevel && kind != kGray && kind != kGray16 && kind != kPalette &&
       !(kind == kRgb && bps == 8 && samples == 3 && extras.empty()))
@@ -497,7 +632,9 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   }
 
   // the chunks: strips, or tiles, each plane after the other where planar
-  const uint32_t planes = planar ? samples : 1, per_plane = planar ? 1 : samples;
+  // a pixel's samples in a chunk's row: one, a plane apart; RGBX's four
+  const uint32_t planes = planar ? samples : 1, per_plane = planar ? 1 : rgbx ? 4 : samples;
+  const uint32_t px_samples = rgbx ? 4 : samples;  // the samples kept a pixel
   uint32_t cw, ch;  // a chunk's width and rows
   if (tiled) {
     if (!tag(kTileWidth).present || !tag(kTileLength).present || !tag(kTileOffsets).present) return kTiffDirectory;
@@ -521,7 +658,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // Pillow's raw decoder steps the rows of a tile past the right edge by
   // int(w * sum(bits) / 8), over the planes' count Pillow expects where
   // planar (3 + the extra samples for RGB); other rows by their width
-  const uint32_t expected = (photometric == 2 ? 3 : photometric == 5 ? 4 : 1) + (uint32_t)extras.size();
+  const uint32_t expected = (photometric == 2 || photometric == 6 ? 3 : photometric == 5 ? 4 : 1) + (uint32_t)extras.size();
   const size_t edge_stride = (size_t)((uint64_t)cw * samples * bps / (8ull * (planar ? expected : 1)));
 
   // a single uncompressed chunk of a mode Pillow maps (L, P, I;16, I;16B,
@@ -530,7 +667,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const uint32_t orientation = one(kOrientation, 1);
   const bool swap = orientation >= 5 && orientation <= 8;
   const bool mappable = (by_char && (kind == kGray || kind == kPalette)) ||
-                        (kind == kGray && bps == 8 && photometric == 1 && fill == 1) ||
+                        (kind == kGray && bps == 8 && (photometric == 1 || photometric == 6) && fill == 1) ||
                         (kind == kPalette && bps == 8 && fill == 1) || (kind == kGray16 && fill == 1) ||
                         (kind == kRgb && bps == 8 && samples == 4 && !planar &&
                          (extras.empty() || extras[0] == 2 || extras[0] == 999)) ||
@@ -566,9 +703,9 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   std::vector<uint8_t> buffer, reversed;
   try {
     if (wide)
-      px32.resize((size_t)ih * iw * samples);
+      px32.resize((size_t)ih * iw * px_samples);
     else
-      px16.resize((size_t)ih * iw * samples);
+      px16.resize((size_t)ih * iw * px_samples);
     buffer.resize(mapped ? 0 : row_bytes * ch);
   } catch (const std::bad_alloc&) {
     return kNoMemory;
@@ -577,8 +714,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   auto read_px = [&](auto* px) -> int {
     if (mapped) {
       for (uint32_t y = 0; y < ih; y++)
-        unpack(file + offsets[0] + (size_t)y * map_stride, rbits, be, iw, samples, samples,
-               px + (size_t)y * iw * samples);
+        unpack(file + offsets[0] + (size_t)y * map_stride, rbits, be, iw, samples, px_samples,
+               px + (size_t)y * iw * px_samples);
       return kOk;
     }
     for (uint64_t c = 0; c < chunks; c++) {
@@ -626,12 +763,121 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
       }
       // the chunk's samples into the image, clipped at its right and bottom edges
       for (uint32_t r = 0; r < used; r++)
-        unpack(data + stride * r, rbits, be, cols, per_plane, samples,
-               px + ((size_t)(y0 + r) * width + x0) * samples + plane);
+        unpack(data + stride * r, rbits, be, cols, per_plane, px_samples,
+               px + ((size_t)(y0 + r) * width + x0) * px_samples + plane);
     }
     return kOk;
   };
-  rc = wide ? read_px(px32.data()) : read_px(px16.data());
+  // every chunk's bytes as libtiff reads them: "Read error on strip" past the file's end
+  auto coded = [&](uint64_t c, const uint8_t** in, size_t* count) -> int {
+    const uint64_t offset = offsets[c];
+    *count = counts.v[c];
+    if (offset > size || *count > size - offset) return kTruncated;
+    *in = file + offset;
+    return kOk;
+  };
+  auto inflate = [&](const uint8_t* in, size_t count, uint8_t* out, size_t need) -> int {
+    if (compression == 5) return lzw_decode(in, count, out, need);
+    if (deflate) return deflate_decode(in, count, out, need);
+    return packbits_decode(in, count, out, need);
+  };
+  // JPEG: each strip or tile a JPEG stream after the JPEGTables stream, held
+  // to the tags as libtiff's JPEGPreDecode holds it
+  auto read_jpeg = [&]() -> int {
+    const Tag& jt = tag(kJpegTables);
+    const uint8_t* tables = jt.present ? file + jt.at : nullptr;
+    const size_t tables_size = jt.present ? jt.v[0] : 0;
+    JpegFrame frame;
+    std::vector<uint8_t> pixels;
+    for (uint64_t c = 0; c < chunks; c++) {
+      const uint32_t x0 = (uint32_t)(c % across) * cw, y0 = (uint32_t)(c / across) * ch;
+      const uint32_t used = std::min(ch, height - y0), cols = std::min(cw, width - x0);
+      const uint8_t* in;
+      size_t count;
+      int rc = coded(c, &in, &count);
+      if (!rc) rc = decode_jpeg_tiff(tables, tables_size, in, count, ycbcr, (int)samples, &frame, &pixels);
+      if (rc) return rc;
+      if (c == 0 && ycbcr && !tag(kYcbcrSubsampling).present) {
+        // JPEGFixupTagsSubsampling: without the tag, the first chunk's luma
+        // factors, where the frame is one it scans and they have a TIFF
+        // equivalent; else the default 2, 2 stays
+        const int m = frame.marker;
+        const bool scanned = m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA;
+        const int ph = frame.hsamp[0], pv = frame.vsamp[0];
+        if (scanned && frame.hsamp[1] == 1 && frame.vsamp[1] == 1 && frame.hsamp[2] == 1 && frame.vsamp[2] == 1 &&
+            (ph == 1 || ph == 2 || ph == 4) && (pv == 1 || pv == 2 || pv == 4))
+          hs = ph, vs = pv;
+      }
+      // the sampling factors: the first component's the YCbCr tag's, every other 1 x 1
+      for (int k = 0; k < frame.components; k++)
+        if (frame.hsamp[k] != (k == 0 && ycbcr ? (int)hs : 1) || frame.vsamp[k] != (k == 0 && ycbcr ? (int)vs : 1))
+          return kTiffJpegStream;  // "Improper JPEG sampling factors"
+      // the size: a tile's, or a strip's rows; a last strip may say more rows than it has
+      const uint32_t seg_h = tiled ? ch : used;
+      if ((uint32_t)frame.w != cw ||
+          !((uint32_t)frame.h == seg_h || (!tiled && (uint32_t)frame.h > seg_h && y0 + seg_h == height)))
+        return kTiffJpegStream;
+      for (uint32_t r = 0; r < used; r++)
+        for (uint32_t x = 0; x < cols; x++)
+          for (uint32_t k = 0; k < samples; k++)
+            px16[((size_t)(y0 + r) * width + x0 + x) * samples + k] = pixels[((size_t)r * frame.w + x) * samples + k];
+    }
+    return kOk;
+  };
+  // YCbCr under LZW, Deflate or PackBits: Pillow's _decodeAsRGBA, one
+  // TIFFRGBAImageGet a strip or a row of tiles.  gtStripContig decodes a
+  // strip's rows rounded up to the block height at TIFFScanlineSize, the
+  // bytes of a row of blocks over the block height rounded down, into a
+  // zeroed buffer (4 x 4 blocks, an odd number across: the last block's
+  // last bytes are never decoded); gtTileContig a whole tile, and the put
+  // routine steps over the columns past the image's edge by whole blocks,
+  // putcontig8bitYCbCr44tile by 10 bytes a block
+  auto read_ycbcr = [&]() -> int {
+    const YcbcrTables tabs(luma, rbw);
+    const uint32_t k = hs * vs + 2;
+    const size_t row_blocks = (cw + hs - 1) / hs;
+    const uint64_t per_plane_chunks = across * down;
+    std::vector<uint8_t> planes_buf[3];
+    for (uint64_t c = 0; c < per_plane_chunks; c++) {
+      const uint32_t x0 = (uint32_t)(c % across) * cw, y0 = (uint32_t)(c / across) * ch;
+      const uint32_t used = std::min(ch, height - y0), cols = std::min(cw, width - x0);
+      const uint32_t rows = tiled ? ch : used;  // the rows in the chunk's data
+      uint16_t* out = px16.data() + ((size_t)y0 * width + x0) * 3;
+      if (planar) {  // putseparate8bitYCbCr11tile
+        for (uint32_t p = 0; p < 3; p++) {
+          const uint8_t* in;
+          size_t count;
+          planes_buf[p].assign((size_t)rows * cw, 0);
+          int rc = coded(c + p * per_plane_chunks, &in, &count);
+          if (!rc) rc = inflate(in, count, planes_buf[p].data(), planes_buf[p].size());
+          if (rc) return rc;
+        }
+        for (uint32_t r = 0; r < used; r++)
+          for (uint32_t x = 0; x < cols; x++) {
+            const size_t i = (size_t)r * cw + x;
+            tabs.rgb(planes_buf[0][i], planes_buf[1][i], planes_buf[2][i], out + (size_t)r * width * 3 + 3 * x);
+          }
+        continue;
+      }
+      const size_t sampling_row = row_blocks * k, full = (rows + vs - 1) / vs * sampling_row;
+      const size_t read = tiled ? full : std::min(full, (size_t)(rows + vs - 1) / vs * vs * (sampling_row / vs));
+      const uint8_t* in;
+      size_t count;
+      buffer.assign(full, 0);
+      int rc = coded(c, &in, &count);
+      if (!rc) rc = inflate(in, count, buffer.data(), read);
+      if (rc) return rc;
+      const size_t fromskew = tiled && x0 + cw > width ? cw - cols : 0;
+      put_ycbcr(tabs, buffer.data(), used, cols, hs, vs, fromskew / hs * (k == 18 ? 10 : k), out, (size_t)width * 3);
+    }
+    return kOk;
+  };
+  if (jpeg)
+    rc = read_jpeg();
+  else if (ycbcr_rgba)
+    rc = read_ycbcr();
+  else
+    rc = wide ? read_px(px32.data()) : read_px(px16.data());
   if (rc) return rc;
 
   // convert("RGB") of Pillow's mode, then the orientation
@@ -640,7 +886,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const int high = rbits == 16 ? 8 : 0;  // 16-bit RGB and CMYK keep each sample's high byte
   auto to_rgb = [&](const auto* px) {
     for (size_t i = 0; i < (size_t)ih * iw; i++) {
-      const auto* s = px + i * samples;
+      const auto* s = px + i * px_samples;
       uint8_t* o = img.data() + 3 * i;
       switch (kind) {
         case kBilevel:

@@ -99,6 +99,11 @@ MAX_HALO = 336      # kMaxHalo: halo pixels a tile may stage
 MAX_SPT = 8         # kMaxSpt: whole samples a tile may hold
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
 TARGET_BLOCKS = 128  # about one block per SM (132)
+PLAN_BATCH = 8       # the batch at which the planner counts blocks (the Sampler's)
+# BM by a sample's pixels where tile_sweep found a better tile than the
+# block-count rule (PERF.md): two 8x8 samples a tile of 128, within 3 % of
+# the 4x8 rectangles at batch 5 and 8 and 1.2-2x faster at 16 to 64.
+TILE_BY_PIXELS = {64: 128}
 
 
 @dataclass(frozen=True)
@@ -107,9 +112,10 @@ class TilePlan:
     ``bn`` output channels, walked in slices of ``BK`` input channels: a
     ``th`` x ``tw`` rectangle of one sample (``spt`` 1, ``tiles_y`` x
     ``tiles_x`` of them per sample), or ``spt`` whole samples (th, tw = H,
-    W).  ``stages`` and ``smem`` are the pipeline's depth and its dynamic
-    shared memory in bytes (1 and 0 on the f32 route, whose tiles are runs
-    of ``bm`` pixels of the flattened sample)."""
+    W; the last tile may hold fewer).  ``stages`` and ``smem`` are the
+    pipeline's depth and its dynamic shared memory in bytes (1 and 0 on the
+    f32 route, whose tiles are runs of ``bm`` pixels of the flattened
+    sample).  Everything but ``m_tiles`` follows the sample's shape alone."""
 
     bm: int
     bn: int
@@ -149,14 +155,17 @@ def _stage_bytes(halo_px: int, bn: int) -> int:
 
 def bf16_plan(n: int, h: int, w: int, cin: int, cout: int, bm: int) -> TilePlan:
     """The bf16 route's plan with tiles of ``bm`` pixels: whole samples
-    where H*W is at most ``bm`` and their halos fit, else rectangles of one
-    sample.  ``plan_tiles`` picks ``bm``; the card checks and ``tile_sweep``
-    call this to force it."""
+    where H*W is at most ``bm`` and their halos fit, as many as fit
+    whatever ``n`` is (the last tile holds the rest), else rectangles of
+    one sample.  Only ``m_tiles`` depends on ``n``, so a sample's rows fall
+    on the same rows of a tile, and its moments are summed in the same
+    order, in any batch.  ``plan_tiles`` picks ``bm``; the card checks and
+    ``tile_sweep`` call this to force it."""
     bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
     if (bm, bn) not in WARPS:
         raise ValueError(f"styleconv: no tile of {bm} pixels x {bn} channels")
     hw = h * w
-    spt = min(bm // hw, MAX_SPT, n) if hw <= bm else 0
+    spt = min(bm // hw, MAX_SPT) if hw <= bm else 0
     while spt > 1 and spt * (h + 2) * (w + 2) > MAX_HALO:
         spt -= 1
     if spt >= 1 and (h + 2) * (w + 2) <= MAX_HALO:  # whole samples
@@ -173,13 +182,32 @@ def bf16_plan(n: int, h: int, w: int, cin: int, cout: int, bm: int) -> TilePlan:
 
 
 @functools.lru_cache(maxsize=None)
+def _bf16_tile(h: int, w: int, cin: int, cout: int) -> int:
+    """BM for a sample of (h, w, cin) -> cout: the largest of 256, 128, 64,
+    32, 16 (256 or 128, where BN < 64) that puts ``TARGET_BLOCKS`` blocks on
+    the card at ``PLAN_BATCH`` samples, else the one with the most blocks
+    there; a tile of whole samples with idle rows only where every BM
+    leaves some; ``TILE_BY_PIXELS`` first, where its tile has no idle row."""
+    candidates = (256, 128) if cout <= 32 else (256, 128, 64, 32, 16)
+    plans = [bf16_plan(PLAN_BATCH, h, w, cin, cout, bm) for bm in candidates]
+    chosen = [p for p in plans if p.bm == TILE_BY_PIXELS.get(h * w) and not p.idle_rows]
+    if chosen:
+        return chosen[0].bm
+    plans = [p for p in plans if not p.idle_rows] or plans
+    full = [p for p in plans if p.blocks >= TARGET_BLOCKS]
+    return (full[0] if full else max(plans, key=lambda p: (p.blocks, -p.bm))).bm
+
+
+@functools.lru_cache(maxsize=None)
 def plan_tiles(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype = torch.bfloat16) -> TilePlan:
     """K1's tile plan for x (n, h, w, cin) and cout output channels.
 
-    bf16: BN follows Cout (16, 32 or 64).  BM is the largest of 256, 128,
-    64, 32, 16 (256 or 128, where BN < 64) that puts ``TARGET_BLOCKS``
-    blocks on the card, else the one with the most blocks; a tile of whole
-    samples with idle rows is taken only where every BM leaves some.  BK is
+    Every choice that fixes the order in which a sample's moments are
+    summed (BM, the rectangle, the tiles per sample, the samples per tile,
+    which warp holds which row) follows the sample's shape and the dtype
+    alone; ``n`` sets only the number of blocks.  So a sample's output
+    does not depend on the batch it runs in.
+    bf16: BN follows Cout (16, 32 or 64), BM is ``_bf16_tile``'s.  BK is
     16: it halves a stage's shared memory against 32, so that two or three
     blocks share an SM.  ``tile_sweep`` measured these rules (PERF.md).
     f32: the CUDA-core route's runs of 256, 128 or 64 pixels by 16, 32 or
@@ -188,11 +216,7 @@ def plan_tiles(n: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype =
         bm = 256 if cout <= 16 else 128 if cout <= 32 else 64
         tiles = -(-h * w // bm)
         return TilePlan(bm, 4096 // bm, 1, bm, 1, 1, tiles, n * tiles, -(-cout // (4096 // bm)), 1, 0)
-    candidates = (256, 128) if cout <= 32 else (256, 128, 64, 32, 16)
-    plans = [bf16_plan(n, h, w, cin, cout, bm) for bm in candidates]
-    plans = [p for p in plans if not p.idle_rows] or plans
-    full = [p for p in plans if p.blocks >= TARGET_BLOCKS]
-    return full[0] if full else max(plans, key=lambda p: (p.blocks, -p.bm))
+    return bf16_plan(n, h, w, cin, cout, _bf16_tile(h, w, cin, cout))
 
 
 def styleconv_cuda(

@@ -119,6 +119,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # by an instance norm, compound the per-conv rounding differences.
 GEN_TOL = 2e-3
 PATH_BATCH, FRAMES, RATE_FRAMES = 8, 16, 128
+# K1 gives a sample the same bits in any batch: checked at these batches at
+# the 15 path shapes, and at INVARIANCE_WIDE for shapes up to 64 px; its
+# card sums are printed at K1_SUM_BATCHES.
+INVARIANCE_BATCHES, INVARIANCE_WIDE = (1, 3, 4, 5, 8), 64
+K1_SUM_BATCHES = (1, 5, PATH_BATCH)
+K1_PER_SAMPLE = ("x", "noise", "gamma", "beta")  # the inputs with a row a sample
 # Training: the residuals (hv, mean, inv) are f32 in both versions, so f32
 # rounding only.  The backward kernel and the Functions' gradients, relative
 # to each tensor's max: f32 differs by summation order; bf16 by rounding
@@ -325,6 +331,68 @@ def k1_extra_checks(gen):
             print(f"check {tag} out max_abs_err {e:.3e}, residuals within {RES_TOL} relative")
             worst[dtype] = max(worst[dtype], e)
     return worst
+
+
+def k1_batch_invariance(shapes, gen) -> int:
+    """K1 gives a sample the same bits whatever batch it runs in: at each of
+    the path's 15 shapes, f32 and bf16, with and without residuals, every
+    sample of the first n rows of a pool and of its last n rows (n in
+    ``INVARIANCE_BATCHES``, and ``INVARIANCE_WIDE`` up to 64 px, so a
+    sample sits at every slot of a tile of several) against the same
+    sample alone: out, hv, mean and inv ``torch.equal``.  Returns the
+    number of (shape, dtype) pairs that held."""
+    from byogan_tpu_torch.ops.styleconv import plan_tiles, styleconv_cuda
+
+    held = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for r, cin, cout in shapes:
+            pool_n = INVARIANCE_WIDE if r <= 64 else max(INVARIANCE_BATCHES)
+            pool = k1_inputs(pool_n, r, cin, cout, dtype, gen)
+            batches = sorted(set(INVARIANCE_BATCHES) | {pool_n})
+
+            def rows(a, b):
+                return {k: v[a:b] if k in K1_PER_SAMPLE else v for k, v in pool.items()}
+
+            for stats in (False, True):
+                alone = [styleconv_cuda(**rows(i, i + 1), with_stats=stats) for i in range(pool_n)]
+                alone = [a if stats else (a,) for a in alone]
+                for n in batches:
+                    for first in sorted({0, pool_n - n}):
+                        got = styleconv_cuda(**rows(first, first + n), with_stats=stats)
+                        got = got if stats else (got,)
+                        for i in range(n):
+                            for name, g, a in zip(("out", "hv", "mean", "inv"), got, alone[first + i]):
+                                require(torch.equal(g[i:i + 1], a), f"K1 {str(dtype)[6:]} ({r},{r},{cin}->{cout}) "
+                                        f"with_stats {stats}: sample {first + i} at slot {i} of batch {n}: {name} "
+                                        f"differs from the sample alone")
+            plans = {n: plan_tiles(n, r, r, cin, cout, dtype) for n in batches}
+            print(f"check K1 {str(dtype)[6:]} ({r},{r},{cin}->{cout}) batch invariance: out, hv, mean, inv bit-equal to "
+                  f"each sample alone at batches {batches} (rows from the first and from the last of {pool_n}), with "
+                  f"and without residuals; plan {plans[1].describe()} at 1, {plans[pool_n].blocks} blocks at {pool_n}")
+            held += 1
+    torch.cuda.synchronize()
+    return held
+
+
+def k1_batch_sums(shapes, gen) -> dict:
+    """K1's time summed over the 15 path shapes, bf16, at each batch of
+    ``K1_SUM_BATCHES``: CUDA events per call (``ms``) and the card's time in
+    K1's kernels (``device_ms``), without and with residuals."""
+    from byogan_tpu_torch.ops.styleconv import styleconv_cuda
+
+    sums = {}
+    with torch.inference_mode():
+        for n in K1_SUM_BATCHES:
+            t = {"ms": 0.0, "device_ms": 0.0, "with_stats_ms": 0.0, "with_stats_device_ms": 0.0}
+            for r, cin, cout in shapes:
+                ins = k1_inputs(n, r, cin, cout, torch.bfloat16, gen)
+                t["ms"] += timed_ms(lambda: styleconv_cuda(**ins))
+                t["device_ms"] += device_ms(lambda: styleconv_cuda(**ins))
+                t["with_stats_ms"] += timed_ms(lambda: styleconv_cuda(**ins, with_stats=True))
+                t["with_stats_device_ms"] += device_ms(lambda: styleconv_cuda(**ins, with_stats=True))
+            sums[n] = t
+            print(f"time K1 bf16 sums over the 15 path shapes at batch {n}: {fmt_times(t)} {math_flags()}")
+    return sums
 
 
 def training_kernels(shapes, gen):
@@ -2752,6 +2820,10 @@ def dp_sampler(ckpt):
                     rows = {k: v[:half] if k in ("x", "noise", "gamma", "beta") else v for k, v in ins.items()}
                     k1.append(float((styleconv_cuda(**ins)[:half].float() - styleconv_cuda(**rows).float()).abs().max()))
             w_err = float((w[PATH_BATCH][:half] - w[half]).abs().max())
+            if err[0] != 0:
+                print(f"dp sampler bfloat16: {err[0]} LSB from one device; the first op whose output on rows "
+                      f"0-{half - 1} differs between batch {half} and batch {PATH_BATCH}: "
+                      f"{first_batch_dependent_op(one, z, noise, half)}")
             extra = (f"; from the f32 frames (max LSB, share of values over 1 LSB): batch {PATH_BATCH} "
                      f"{lsb(want, f32)}, the two devices' {lsb(got, f32)}; rows 0-{half - 1} at batch {half} against "
                      f"batch {PATH_BATCH}, max abs diff: the mapping's w {w_err:.3e}, K1 alone at the 15 path shapes "
@@ -2761,6 +2833,34 @@ def dp_sampler(ckpt):
               f"of values over 1 LSB) {err} (bar: 1 LSB in f32); bit-equal to one device rendering each block of {half} "
               f"alone{extra}; launches a batch (K1, K2) {launches} {math_flags()}")
     return launches, out
+
+
+def first_batch_dependent_op(sampler, z, noise, half: int) -> str:
+    """The first module of ``sampler``'s generator, in the order they run,
+    whose output on rows 0..half-1 differs between a render of the whole
+    batch and a render of those rows alone; "none" where every output is
+    bit-equal."""
+    outs = {}
+
+    def hook(name, key):
+        def record(module, args, out):
+            if torch.is_tensor(out):
+                outs[key].append((name, out[:half].detach().clone()))
+        return record
+
+    gen = sampler.generator
+    for key, zz, nn in (("whole", z, noise), ("rows", z[:half], [n[:half] for n in noise])):
+        outs[key] = []
+        handles = [m.register_forward_hook(hook(name or "generator", key)) for name, m in gen.named_modules()]
+        try:
+            sampler.render(zz, nn)
+        finally:
+            for h in handles:
+                h.remove()
+    for (name, a), (_, b) in zip(outs["whole"], outs["rows"]):
+        if a.shape != b.shape or not torch.equal(a, b):
+            return f"{name} (max abs diff {float((a.float() - b.float()).abs().max()):.3e})"
+    return "none"
 
 
 # --- the model-axis slice: tensor parallelism over ranks the script spawns ---
@@ -3308,9 +3408,10 @@ def io_checks(tmp) -> dict:
     by_kind = {k: sum(f"/{k}/" in m for m in ipt_read) for k in ("ico", "cur", "dib", "pnm", "tga")}
     new_tiff = [m for m in tiffs if any(k in m for k in ("gray2", "gray4", "palette1", "palette2", "palette4", "cmyk",
                                                           "rgb16", "rgba16", "signed", "float", "fill-order-2"))]
-    require(min(by_kind.values()) >= 5 and len(ipt_refused) >= 30 and len(new_tiff) >= 60,
+    jpeg_ycbcr = [m for m in tiffs if os.path.basename(m).startswith(("jpeg-", "ycbcr-"))]
+    require(min(by_kind.values()) >= 5 and len(ipt_refused) >= 30 and len(new_tiff) >= 60 and len(jpeg_ycbcr) >= 60,
             f"the manifest holds ICO/CUR/DIB/PNM/TGA layouts {by_kind}, {len(ipt_refused)} of their refusals and "
-            f"{len(new_tiff)} layouts of the TIFF kinds past the baseline")
+            f"{len(new_tiff)} layouts of the TIFF kinds past the baseline, {len(jpeg_ycbcr)} JPEG and YCbCr TIFF layouts")
     written = os.path.join(tmp, "card_originals")
     os.makedirs(written)
     card_paths = fx.check_card_originals(written, images.read_image)
@@ -3319,7 +3420,9 @@ def io_checks(tmp) -> dict:
           f"and {len(ipt_refused)} refused with Pillow's reason "
           f"({', '.join(os.path.basename(m)[:-12] for m in ipt_refused)}); {len(new_tiff)} of the TIFF layouts are "
           f"kinds past the baseline (2- and 4-bit gray and palettes, signed and float gray, 16-bit RGB, CMYK, "
-          f"FillOrder 2); {len(card_paths)} card originals written here by the fixtures' seeded writers, each the "
+          f"FillOrder 2) and {len(jpeg_ycbcr)} JPEG-compressed or YCbCr TIFFs "
+          f"({', '.join(os.path.basename(m)[:-4] for m in jpeg_ycbcr)}); {len(card_paths)} card originals written "
+          f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
     print(f"io fixtures: {len(matched) + len(card_paths)} of {len(matched) + len(card_paths)} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
@@ -3613,8 +3716,9 @@ def prep_gif_tiff_cli(tmp, root, card_originals: str) -> float:
     originals of ``card_originals`` (a folder ``fx.check_card_originals``
     filled) that prep reads (a 1024 px P6 under .jpg, a 1024 px RLE Targa
     and a 1024 px 4-bit gray LZW TIFF under .png, a 256 px icon under
-    .bmp), held to the JAX package's prep of them (Pillow's decode).
-    Returns the seconds per original."""
+    .bmp, a 1024 px YCbCr 2 x 2 JPEG TIFF under .jpg), held to the JAX
+    package's prep of them (Pillow's decode).  Returns the seconds per
+    original."""
     fx = codec_fixtures()
     written = {listed: os.path.join(card_originals, name) for name, listed in fx.CARD_ORIGINALS.items() if listed}
     n = len(fx.GIF_TIFF_CARD) + len(written)
@@ -3654,20 +3758,26 @@ def ico_pnm_tga_codec_times(folder: str) -> dict:
     fixtures' writers put in ``folder``: a 1024 px photo as a raw P6 (numpy)
     and as a plain P3 (the native loop over 3.1 M tokens), a 1024 px RLE
     Targa (24-bit), the 1024 px 4-bit gray LZW TIFF and the 1024 px CMYK
-    LZW TIFF, and a 256 px icon with a PNG frame and one with a 32-bit BMP
-    frame."""
+    LZW TIFF, a 256 px icon with a PNG frame and one with a 32-bit BMP
+    frame, and the photo as a YCbCr 2 x 2 JPEG TIFF (64-row strips,
+    JPEGTables) beside the same photo as one JPEG file of the same
+    quality and sampling (its twin)."""
     from byogan_tpu_torch.data import images
 
     files = {"p6_raw_1024": "photo-1024.ppm", "p3_plain_1024": "photo-1024-plain.ppm",
              "tga_rle24_1024": "poster-1024-rle.tga", "tiff_gray4_lzw_1024": "scan-1024-gray4.tif",
              "tiff_cmyk_lzw_1024": "print-1024-cmyk.tif", "ico_png_256": "icon-256-png.ico",
-             "ico_bmp32_256": "icon-256-bmp.ico"}
+             "ico_bmp32_256": "icon-256-bmp.ico", "tiff_jpeg_ycbcr22_1024": "photo-1024-ycbcr-jpeg.tif",
+             "jpeg_twin_1024": "photo-1024-twin.jpg"}
     ms = {k: host_ms(lambda: images.read_image(os.path.join(folder, name))) for k, name in files.items()}
     print(f"io codecs: PNM, Targa, TIFF kinds and ICO, host ms, median of {CODEC_REPEATS} calls, one thread: P6 raw 1024 px "
           f"{ms['p6_raw_1024']:.3f}, P3 plain 1024 px {ms['p3_plain_1024']:.3f}, Targa RLE 24-bit 1024 px "
           f"{ms['tga_rle24_1024']:.3f}, TIFF 4-bit gray LZW 1024 px {ms['tiff_gray4_lzw_1024']:.3f}, TIFF CMYK LZW "
           f"1024 px {ms['tiff_cmyk_lzw_1024']:.3f}, ICO 256 px PNG frame {ms['ico_png_256']:.3f}, ICO 256 px 32-bit "
           f"BMP frame {ms['ico_bmp32_256']:.3f}; card {card_name()}")
+    print(f"io codecs: JPEG TIFF, host ms, median of {CODEC_REPEATS} calls, one thread: YCbCr 2x2 JPEG TIFF 1024 px "
+          f"(16 strips of 64 rows, JPEGTables) {ms['tiff_jpeg_ycbcr22_1024']:.3f} beside its plain-JPEG twin (one "
+          f"stream, the same quality and sampling) {ms['jpeg_twin_1024']:.3f}; card {card_name()}")
     return ms
 
 
@@ -4003,6 +4113,32 @@ def io_main() -> int:
     return 0
 
 
+def k1_main() -> int:
+    """K1's checks and times alone (``python -c "import chip_smoke;
+    chip_smoke.k1_main()"``): the checks at the card tests' shapes, the
+    batch invariance at the 15 path shapes and the sums over them at
+    ``K1_SUM_BATCHES``; ``main`` runs them too."""
+    require(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from byogan_tpu_torch.models.factory import ModelSpec
+    from byogan_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}; {card}")
+    build.build(["styleconv"], force=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ModelSpec().styleconv_shapes()
+    with phase("K1 checks"), strict_f32():
+        k1_extra_checks(gen)
+        with torch.inference_mode():
+            held = k1_batch_invariance(shapes, gen)
+        require(held == 2 * len(shapes), f"K1 batch invariance held at {held} of {2 * len(shapes)}")
+    with phase("time K1"):
+        k1_batch_sums(shapes, gen)
+    return 0
+
+
 def dp_cards_main() -> int:
     """On a machine with several cards (``python -c "import chip_smoke;
     chip_smoke.dp_cards_main()"``): the dp steps over NCCL, one card a
@@ -4155,6 +4291,9 @@ def main() -> int:
         torch.cuda.synchronize()
     with strict_f32():
         extra_errs = k1_extra_checks(gen)
+        with torch.inference_mode():
+            invariant = k1_batch_invariance(shapes, gen)
+        require(invariant == 2 * len(shapes), f"K1 batch invariance held at {invariant} of {2 * len(shapes)}")
         k2_errs = k2_checks(gen)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4232,14 +4371,16 @@ def main() -> int:
                 plan = plan_tiles(PATH_BATCH, r, r, cin, cout)
                 print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) " + " ".join(f"{k} {v:.4f}" for k, v in t.items())
                       + f" bound_by {by}; plan: {plan.describe()}; device ms by kernel: {fmt_times(parts_k1)} {math_flags()}")
-                if r <= 8:  # the same call with whole samples per tile, for comparison
-                    for bm in (64, 128):
+                if r <= 8:  # the same call under the other tiles of one or more whole samples, for comparison
+                    for bm in sorted({16, 32, 64, 128} - {plan.bm}):
                         alt = bf16_plan(PATH_BATCH, r, r, cin, cout, bm)
                         with forced_plan(bm):
                             ms = timed_ms(lambda: styleconv_cuda(**ins))
                             dms = device_ms(lambda: styleconv_cuda(**ins))
                         print(f"time K1 bf16 ({PATH_BATCH},{r},{r},{cin}->{cout}) other plan ms {ms:.4f} device_ms {dms:.4f}: {alt.describe()} {math_flags()}")
             k1_by = max(bound_by_kind, key=bound_by_kind.get)
+        k1_sums = k1_batch_sums(shapes, gen)
+        with torch.inference_mode():
             ins2 = k2_inputs(PATH_BATCH, 4, 512, torch.bfloat16, gen)
             k2 = {
                 "ms": timed_ms(lambda: noise_lrelu_adain_cuda(**ins2)),
@@ -4410,6 +4551,8 @@ def main() -> int:
                            "shapes": "15 stage-8 shapes summed, batch 5, bf16, f32 hv, mean, inv out "
                                      "(device_ms: calls queued back to back, CUDA events)"},
             "hmma_sass": hmma,
+            "batch_invariant_shape_dtypes": invariant,
+            "batch_sums": {f"batch {n}": t for n, t in k1_sums.items()},
             **remat_entries[0], "program_max_frame_err": program_err,
         },
         {

@@ -197,8 +197,9 @@ def test_styleconv_tile_plan(n, h, w, cin, cout, bm):
     assert (p.bm, p.bn) in port_sc.WARPS
     assert 0 < p.smem <= port_sc.SMEM_LIMIT and 1 <= p.stages <= port_sc.STAGES
     hw = h * w
-    if hw < p.bm and p.spt > 1:  # whole samples per tile: no room for one more
-        assert p.bm - p.spt * hw < hw or p.spt == n or (p.spt + 1) * (h + 2) * (w + 2) > port_sc.MAX_HALO
+    if hw < p.bm and p.spt > 1:  # whole samples per tile: no room for one more, whatever n is
+        assert p.bm - p.spt * hw < hw or p.spt == port_sc.MAX_SPT or (p.spt + 1) * (h + 2) * (w + 2) > port_sc.MAX_HALO
+        assert p.m_tiles == -(-n // p.spt)  # the last tile holds the rest
     if bm is None:  # the planner's own choice leaves no row idle in every tile
         assert not p.idle_rows
         assert p.spt * p.th * p.tw == p.bm or p.tiles_per_sample > 1
@@ -208,6 +209,22 @@ def test_styleconv_tile_plan(n, h, w, cin, cout, bm):
     # the f32 route: 256 threads of 4x4 outputs, runs of bm pixels
     f = port_sc.plan_tiles(n, h, w, cin, cout, torch.float32)
     assert (f.bm // 4) * (f.bn // 4) == 256 and f.bm * f.tiles_per_sample >= hw
+
+
+@pytest.mark.parametrize("h,cin,cout", ModelSpec().styleconv_shapes())
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tile_plan_geometry_does_not_depend_on_the_batch(h, cin, cout, dtype):
+    """What fixes the order of a sample's moment sums (BM, BN, the
+    rectangle, the tiles per sample, the samples a tile holds) is the same
+    at every batch: only the number of tiles follows n, so K1 gives a
+    sample the same bits in any batch."""
+    def geometry(p):
+        return p.bm, p.bn, p.th, p.tw, p.tiles_per_sample, p.spt, p.stages, p.smem
+
+    plans = {n: port_sc.plan_tiles(n, h, h, cin, cout, dtype) for n in [*range(1, 17), 64, 128]}
+    assert {geometry(p) for p in plans.values()} == {geometry(plans[1])}
+    for n, p in plans.items():
+        assert p.m_tiles == (-(-n // p.spt) if p.spt > 1 else n * p.tiles_per_sample)
 
 
 def test_tile_plan_mirrors_the_kernel_source():

@@ -10,10 +10,11 @@ II and MM, strips and tiles, planar configurations 1 and 2, no
 compression, PackBits, LZW and Deflate, Predictor 2 where libtiff applies
 it, 1-, 2-, 4-, 8- and 16-bit gray, signed and float gray, gray with
 alpha, 8- and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and
-16-bit CMYK, FillOrder 2, every Orientation), on TIFFs Pillow writes
-through libtiff and on seeded files; and each kind it does not read is
-refused naming the file and the kind, whether Pillow reads it or not.
-Tolerance 0.
+16-bit CMYK, FillOrder 2, every Orientation; JPEG compression and YCbCr,
+``fx.ycbcr_jpeg_layouts``, more in ``test_torch_port_tiff_jpeg.py``), on
+TIFFs Pillow writes through libtiff and on seeded files; and each kind it
+does not read is refused naming the file and the kind, whether Pillow
+reads it or not.  Tolerance 0.
 """
 
 import os

@@ -2068,14 +2068,17 @@ def _tiff_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
 def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", compression: int = 1,
                predictor: int = 1, planar: int = 1, rows_per_strip: Optional[int] = None,
                tile: Optional[Tuple[int, int]] = None, extra=None, colormap=None, orientation: Optional[int] = None,
-               tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None) -> bytes:
+               tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None,
+               chunks: Optional[List[bytes]] = None) -> bytes:
     """A TIFF of ``samples`` ((h, w) or (h, w, c) integers of ``bits``) in
     byte order ``order`` ("<" II, ">" MM): strips of ``rows_per_strip`` or
     tiles (th, tw), each plane apart where ``planar`` is 2, differenced
     horizontally where ``predictor`` is 2 (whatever the compression: a
     reader applies it under LZW and Deflate alone), then compressed
-    (``TIFF_COMPRESS``, or ``data`` as every chunk); ``tags`` (id -> (type,
-    values)) add to or replace the directory's."""
+    (``TIFF_COMPRESS``, or ``data`` as every chunk, or ``chunks``, one
+    each); ``tags`` (id -> (type, values), a RATIONAL's values numerator,
+    denominator pairs, UNDEFINED (7) bytes) add to or replace the
+    directory's."""
     s = np.asarray(samples)
     s = s[:, :, None] if s.ndim == 2 else s
     h, w, c = s.shape
@@ -2092,13 +2095,15 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
                     blocks.append(blk)
         else:
             blocks += [p[y:y + (rows_per_strip or h)] for y in range(0, h, rows_per_strip or h)]
-    chunks = []
+    coded = []
     for blk in blocks:
         if predictor == 2:
             blk = blk.astype(np.int64)
             blk[:, 1:] -= blk[:, :-1].copy()
             blk %= 1 << bits
-        chunks.append(data if data is not None else TIFF_COMPRESS[compression](_tiff_rows(blk, bits, order).tobytes()))
+        if chunks is None:
+            coded.append(data if data is not None else TIFF_COMPRESS[compression](_tiff_rows(blk, bits, order).tobytes()))
+    chunks = coded if chunks is None else chunks
     body = bytearray((b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, 0))
     offsets = []
     for chunk in chunks:
@@ -2124,15 +2129,206 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     values_at = ifd_at + 2 + 12 * len(entries) + 4
     ifd, values = bytearray(struct.pack(order + "H", len(entries))), bytearray()
     for tag, (typ, vals) in entries:
-        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 11: "f"}[typ] * len(vals), *map(int, vals))
+        # RATIONAL (5): vals are numerator, denominator pairs
+        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f"}[typ] * len(vals), *map(int, vals))
         if len(raw) > 4:
             field = struct.pack(order + "I", values_at + len(values))
             values += raw + b"\0" * (len(raw) % 2)
         else:
             field = raw + bytes(4 - len(raw))
-        ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + field
+        ifd += struct.pack(order + "HHI", tag, typ, len(vals) // 2 if typ == 5 else len(vals)) + field
     body[4:8] = struct.pack(order + "I", ifd_at)
     return bytes(body + ifd + b"\0\0\0\0" + values)
+
+
+JPEG_TIFF_MODES = {1: "L", 2: "RGB", 5: "CMYK", 6: "RGB"}  # photometric -> Pillow's JPEG mode
+JPEG_TIFF_SAMPLING = {(1, 1): 0, (2, 1): 1, (2, 2): 2}   # luma factors -> Pillow's subsampling
+
+
+def _jpeg_segments(stream: bytes) -> List[Tuple[int, bytes]]:
+    """A JPEG stream's marker segments up to its scan: (marker, whole
+    segment); the scan's header and data, to EOI, as the last (0xDA, ...)."""
+    out, i = [], 2
+    while True:
+        m, n = stream[i + 1], struct.unpack(">H", stream[i + 2:i + 4])[0]
+        if m == 0xDA:
+            return out + [(m, stream[i:])]
+        out.append((m, stream[i:i + 2 + n]))
+        i += 2 + n
+
+
+def jpeg_tiff_stream(block: np.ndarray, photometric: int, quality: int, sampling=(2, 2)) -> bytes:
+    """One strip's or tile's JPEG stream as Pillow's libjpeg writes it:
+    gray (photometric 0, 1), RGB kept as RGB (2), CMYK (5), or YCbCr
+    converted from RGB (6) with luma factors ``sampling``."""
+    mode = JPEG_TIFF_MODES[max(photometric, 1)]
+    from PIL import Image
+
+    block = block.astype(np.uint8)
+    im = Image.fromarray(block[..., 0] if block.shape[2] == 1 else block, "CMYK" if photometric == 5 else None)
+    im = im.convert(mode)
+    buf = io.BytesIO()
+    kw = {"subsampling": JPEG_TIFF_SAMPLING[tuple(sampling)]} if photometric == 6 else {"keep_rgb": True}
+    im.save(buf, format="JPEG", quality=quality, **kw)
+    return buf.getvalue()
+
+
+def jpeg_tiff(samples: np.ndarray, photometric: int = 6, quality: int = 90, sampling=(2, 2),
+              rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None, tables: bool = True,
+              sampling_tag="stream", full_last: bool = False, encode: Optional[Callable[[np.ndarray], bytes]] = None,
+              **kw) -> bytes:
+    """A JPEG-compressed TIFF (Compression 7) of ``samples`` ((h, w) gray,
+    (h, w, 3) RGB or (h, w, 4) CMYK), a JPEG stream a strip (the last one
+    as tall as the others where ``full_last``) or a tile (edges repeated
+    past the image), by ``jpeg_tiff_stream``; where ``tables``, their
+    quantisation and Huffman tables in JPEGTables alone (abbreviated
+    streams).  YCbCr (photometric 6): YCbCrSubsampling ``sampling`` where
+    ``sampling_tag`` is "stream", another pair, or absent where None.
+    ``encode`` (an RGB block -> a YCbCr JPEG of those factors) writes the
+    streams in place of Pillow.  ``kw`` goes to ``tiff_bytes``."""
+    s = np.asarray(samples)
+    s = s[:, :, None] if s.ndim == 2 else s
+    h, w, c = s.shape
+    blocks = []
+    if tile:
+        th, tw = tile
+        padded = np.pad(s, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
+        blocks = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        blocks = [s[y:y + rps] for y in range(0, h, rps)]
+        if full_last and h % rps:
+            blocks[-1] = np.pad(blocks[-1], ((0, rps - blocks[-1].shape[0]), (0, 0), (0, 0)), mode="edge")
+    streams = [encode(b.astype(np.uint8)) if encode else jpeg_tiff_stream(b, photometric, quality, sampling)
+               for b in blocks]
+    tags = dict(kw.pop("tags", {}) or {})
+    if tables:
+        segs = _jpeg_segments(streams[0])
+        table = b"\xff\xd8" + b"".join(d for m, d in segs if m in (0xDB, 0xC4)) + b"\xff\xd9"
+        streams = [b"\xff\xd8" + b"".join(d for m, d in _jpeg_segments(st) if m not in (0xDB, 0xC4)) for st in streams]
+        tags[347] = (7, list(table))
+    if photometric == 6 and sampling_tag is not None:
+        tags[530] = (3, list(sampling if sampling_tag == "stream" else sampling_tag))
+    return tiff_bytes(np.zeros((h, w, c), np.uint8), photometric=photometric, compression=7,
+                      rows_per_strip=rows_per_strip, tile=tile, tags=tags, chunks=streams, **kw)
+
+
+def port_jpeg(img: np.ndarray, quality: int) -> bytes:
+    """libjpeg's bytes (baseline, 4:2:0, the standard tables) for an RGB
+    image, by the port's encoder (``native.encode_jpeg``), which the card's
+    machine has without an image library."""
+    import tempfile
+
+    from byogan_tpu_torch.data import native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.jpg")
+        native.encode_jpeg(path, img, quality)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def ycbcr_blocks(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """Packed YCbCr data: for each block of hs x vs luma samples (y (h, w),
+    zeros past its edges) the block's samples row by row, then its Cb and
+    Cr (cb, cr (ceil(h/vs), ceil(w/hs))): (block rows, blocks, hs*vs + 2)."""
+    h, w = y.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    yp = np.zeros((bh * vs, bw * hs), np.uint8)
+    yp[:h, :w] = y
+    out = np.zeros((bh, bw, hs * vs + 2), np.uint8)
+    out[:, :, :hs * vs] = yp.reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, hs * vs)
+    out[:, :, -2], out[:, :, -1] = cb, cr
+    return out
+
+
+def ycbcr_tiff(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int, compression: int = 5,
+               rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None,
+               sampling_tag: bool = True, **kw) -> bytes:
+    """A YCbCr TIFF (photometric 6) of subsampled planes (``ycbcr_blocks``),
+    a strip's rows (a multiple of vs) or a tile's blocks each compressed
+    apart; YCbCrSubsampling (hs, vs) unless not ``sampling_tag``; ``kw``
+    goes to ``tiff_bytes`` (YCbCrCoefficients 529, ReferenceBlackWhite 532
+    as ``tags``)."""
+    h, w = y.shape
+    comp, chunks = TIFF_COMPRESS[compression], []
+    if tile:
+        th, tw = tile
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                part = [np.zeros((n, m), np.uint8) for n, m in ((th, tw), (th // vs, tw // hs), (th // vs, tw // hs))]
+                for p, src, (y0, x0) in zip(part, (y, cb, cr), ((ty, tx), (ty // vs, tx // hs), (ty // vs, tx // hs))):
+                    cut = src[y0:y0 + p.shape[0], x0:x0 + p.shape[1]]
+                    p[:cut.shape[0], :cut.shape[1]] = cut
+                chunks.append(comp(ycbcr_blocks(*part, hs, vs).tobytes()))
+    else:
+        rps = rows_per_strip or h
+        for y0 in range(0, h, rps):
+            rows = slice(y0 // vs, -(-(y0 + rps) // vs))
+            chunks.append(comp(ycbcr_blocks(y[y0:y0 + rps], cb[rows], cr[rows], hs, vs).tobytes()))
+    tags = dict(kw.pop("tags", {}) or {})
+    if sampling_tag:
+        tags[530] = (3, [hs, vs])
+    return tiff_bytes(np.zeros((h, w, 3), np.uint8), photometric=6, compression=compression,
+                      rows_per_strip=rows_per_strip, tile=tile, tags=tags, chunks=chunks, **kw)
+
+
+def ycbcr_planes(r, h: int, w: int, hs: int, vs: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Seeded luma (h, w) and chroma (ceil(h/vs), ceil(w/hs)) planes."""
+    shape = (-(-h // vs), -(-w // hs))
+    return (r.integers(0, 256, (h, w)).astype(np.uint8), r.integers(0, 256, shape).astype(np.uint8),
+            r.integers(0, 256, shape).astype(np.uint8))
+
+
+def ycbcr_jpeg_layouts() -> Dict[str, bytes]:
+    """TIFFs of JPEG compression and of YCbCr pixels, each layout the port
+    reads: name -> bytes."""
+    r = np.random.default_rng(1901)
+    h, w = 27, 21
+    photo = np.clip(smooth_scene(1902, h, w, cell=8, step=4).astype(np.int64) + r.integers(-9, 10, (h, w, 3)), 0, 255)
+    cmyk = np.concatenate([photo, photo.min(axis=2, keepdims=True) // 3], 2)
+    out = {}
+    for q in (50, 90):
+        for samp in ((1, 1), (2, 1), (2, 2)):
+            name = f"jpeg-ycbcr-{samp[0]}x{samp[1]}-q{q}"
+            out[f"{name}-strips-11.tif"] = jpeg_tiff(photo, 6, q, samp, rows_per_strip=11)
+            out[f"{name}-tiles.tif"] = jpeg_tiff(photo, 6, q, samp, tile=(16, 16))
+        out[f"jpeg-gray-q{q}-strips-8.tif"] = jpeg_tiff(photo[..., 1], 1, q, rows_per_strip=8)
+        out[f"jpeg-rgb-q{q}.tif"] = jpeg_tiff(photo, 2, q)
+        out[f"jpeg-cmyk-q{q}-tiles.tif"] = jpeg_tiff(cmyk, 5, q, tile=(32, 16))
+    out.update({
+        "jpeg-ycbcr-2x2-inline-tables.tif": jpeg_tiff(photo, 6, 75, rows_per_strip=16, tables=False),
+        "jpeg-ycbcr-2x2-no-subsampling-tag.tif": jpeg_tiff(photo, 6, 75, sampling_tag=None),
+        "jpeg-ycbcr-1x1-no-subsampling-tag.tif": jpeg_tiff(photo, 6, 75, (1, 1), sampling_tag=None),
+        "jpeg-ycbcr-2x1-last-strip-full.tif": jpeg_tiff(photo, 6, 75, (2, 1), rows_per_strip=16, full_last=True),
+        "jpeg-ycbcr-2x2-mm-orientation-6.tif": jpeg_tiff(photo, 6, 75, order=">", orientation=6, rows_per_strip=24),
+        "jpeg-white-is-zero.tif": jpeg_tiff(photo[..., 0], 0, 75, rows_per_strip=5),
+    })
+    samplings = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+    for hs, vs in samplings:
+        for comp, cname in ((5, "lzw"), (8, "deflate"), (32773, "packbits")):
+            planes = ycbcr_planes(r, 13, 11, hs, vs)
+            out[f"ycbcr-{hs}x{vs}-{cname}-strips.tif"] = ycbcr_tiff(*planes, hs, vs, comp, rows_per_strip=4 // vs * vs or vs)
+        out[f"ycbcr-{hs}x{vs}-lzw-tiles.tif"] = ycbcr_tiff(*ycbcr_planes(r, 20, 19, hs, vs), hs, vs, tile=(16, 16))
+        out[f"ycbcr-{hs}x{vs}-lzw-one-strip.tif"] = ycbcr_tiff(*ycbcr_planes(r, 9, 7, hs, vs), hs, vs)
+    yuv = r.integers(0, 256, (9, 7, 3))
+    out.update({
+        "ycbcr-2x2-lzw-no-subsampling-tag.tif": ycbcr_tiff(*ycbcr_planes(r, 9, 7, 2, 2), 2, 2, sampling_tag=False),
+        "ycbcr-1x1-lzw-coefficients.tif": ycbcr_tiff(*ycbcr_planes(r, 9, 7, 1, 1), 1, 1, tags={
+            529: (5, [2126, 10000, 7152, 10000, 722, 10000])}),
+        "ycbcr-2x1-deflate-reference-black-white.tif": ycbcr_tiff(*ycbcr_planes(r, 9, 7, 2, 1), 2, 1, 8, tags={
+            532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}),
+        "ycbcr-4x2-lzw-both-tags-mm.tif": ycbcr_tiff(*ycbcr_planes(r, 11, 13, 4, 2), 4, 2, order=">", tags={
+            529: (5, [299, 1000, 587, 1000, 114, 1000]), 532: (5, [15, 1, 236, 1, 127, 2, 511, 2, 100, 1, 200, 1])}),
+        "ycbcr-1x1-lzw-planar.tif": tiff_bytes(yuv, photometric=6, compression=5, planar=2, tags={530: (3, [1, 1])}),
+        "ycbcr-2x2-lzw-orientation-3.tif": ycbcr_tiff(*ycbcr_planes(r, 9, 7, 2, 2), 2, 2, orientation=3),
+        # Pillow's raw decoder: RGBX, unconverted, four bytes a pixel read on past the strip (the file that
+        # tiff_refusals named ycbcr.tif before the port read it)
+        "ycbcr-raw.tif": tiff_bytes(np.random.default_rng(1705).integers(0, 256, (9, 7, 3)), photometric=6),
+        "ycbcr-raw-planar.tif": tiff_bytes(yuv, photometric=6, planar=2),
+        "ycbcr-raw-one-sample.tif": tiff_bytes(yuv[..., 0], photometric=6),
+    })
+    return out
 
 
 def tiff_layouts() -> Dict[str, bytes]:
@@ -2248,6 +2444,7 @@ def tiff_layouts() -> Dict[str, bytes]:
         out[f"rgb-lzw-orientation-{o}.tif"] = tiff_bytes(rgb, compression=5, orientation=o, rows_per_strip=6)
     out["gray8-raw-orientation-6.tif"] = tiff_bytes(gray, photometric=1, orientation=6)  # mapped at swapped size
     out["rgb-raw-orientation-5.tif"] = tiff_bytes(rgb, orientation=5)
+    out.update(ycbcr_jpeg_layouts())
     return {f"{GIF_TIFF}/tiff/{k}": v for k, v in sorted(out.items())}
 
 
@@ -2257,9 +2454,9 @@ def _reverse_bits(data: bytes) -> np.ndarray:
 
 
 def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
-    """TIFFs the port refuses by name (Pillow reads some of them: JPEG,
-    YCbCr, Lab, CCITT): name -> (bytes, the reason the port's ``OSError``
-    names, a regular expression)."""
+    """TIFFs the port refuses by name (Pillow reads some of them: Lab,
+    CCITT, a JPEG stream cut short): name -> (bytes, the reason the port's
+    ``OSError`` names, a regular expression)."""
     r = np.random.default_rng(1705)
     h, w = 9, 7
     rgb = r.integers(0, 256, (h, w, 3))
@@ -2267,14 +2464,30 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
     junk = bytes(r.integers(0, 256, 64, dtype=np.uint8))
     lzw = tiff_bytes(rgb, compression=5)
     old_lzw = tiff_bytes(rgb, compression=5, data=b"\x00\x01" + junk)
+    photo = smooth_scene(1903, 24, 20, cell=8, step=4)
+    jpeg = jpeg_tiff(photo, 6, 80, (2, 2))
+    sof = jpeg.index(b"\xff\xc0")
+    jpeg12 = jpeg[:sof + 4] + b"\x0c" + jpeg[sof + 5:]  # the frame's precision 12 bits
+    cut = jpeg_tiff(photo, 6, 80, (2, 2), tables=False)
+    rr = np.random.default_rng(1904)  # the JPEG and YCbCr refusals' own draws
+    lzw_planes = ycbcr_planes(rr, h, w, 1, 4)
     return {
         "bigtiff.tif": (b"II+\0\x08\0\0\0" + bytes(32), "BigTIFF"),
-        "jpeg.tif": (tiff_bytes(rgb, compression=7, data=junk), "JPEG or old-style JPEG compression"),
-        "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "JPEG or old-style JPEG compression"),
+        "jpeg.tif": (tiff_bytes(rgb, compression=7, data=junk), "breaks the format's rules"),
+        "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "old-style JPEG compression"),
+        "jpeg-12-bit.tif": (jpeg12, "12-bit"),
+        "jpeg-cut-short.tif": (_cut_strip(cut, 60), "truncated"),
+        "jpeg-subsampling-tag-1x1.tif": (jpeg_tiff(photo, 6, 80, (2, 2), sampling_tag=(1, 1)),
+                                         "does not match the file's tags"),
+        "jpeg-rgba.tif": (tiff_bytes(np.zeros((h, w, 4), np.uint8), compression=7, extra=(2,), data=junk),
+                          "JPEG compression of other samples"),
+        "ycbcr-1x4-lzw.tif": (ycbcr_tiff(*lzw_planes, 1, 4), "YCbCr pixels in this layout"),
+        "ycbcr-lzw-predictor.tif": (ycbcr_tiff(*ycbcr_planes(rr, h, w, 1, 1), 1, 1, predictor=2),
+                                    "YCbCr pixels in this layout"),
+        "ycbcr-lzw-one-sample.tif": (tiff_bytes(rgb[..., 0], photometric=6, compression=5), "depth or sample layout"),
         "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk), "CCITT"),
         "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
         "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "with this compression"),
-        "ycbcr.tif": (tiff_bytes(rgb, photometric=6), "YCbCr"),
         "lab.tif": (tiff_bytes(rgb, photometric=8), "photometric interpretation"),
         "fill-order-2-gray8-white-raw.tif": (tiff_bytes(gray, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
         "fill-order-2-palette4-raw.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3)),
@@ -2291,6 +2504,19 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "raw-past-the-end.tif": (_strip_at_the_end(tiff_bytes(rgb)), "truncated"),
         "no-width.tif": (_without_tag(tiff_bytes(rgb), 256), "first directory"),
     }
+
+
+def _cut_strip(data: bytes, keep: int) -> bytes:
+    """``data`` (II, one strip or tile at the last offset) with its last
+    chunk's byte count cut to ``keep`` bytes."""
+    out = bytearray(data)
+    at = struct.unpack_from("<I", out, 4)[0]
+    for i in range(struct.unpack_from("<H", out, at)[0]):
+        tag, typ, count = struct.unpack_from("<HHI", out, at + 2 + 12 * i)
+        if tag in (279, 325):
+            where = at + 2 + 12 * i + 8 if count == 1 else struct.unpack_from("<I", out, at + 2 + 12 * i + 8)[0] + 4 * (count - 1)
+            struct.pack_into("<I", out, where, keep)
+    return bytes(out)
 
 
 def _strip_at_the_end(data: bytes) -> bytes:
@@ -2383,11 +2609,14 @@ ICO_PNM_TGA = "ico_pnm_tga"  # their files' folder under FIXTURES
 #: cli.prep reads it under, or None for one only timed: a 1024 px photo
 #: as a raw P6 and as a plain P3, a 1024 px posterised scene as an RLE
 #: Targa, a 256 px icon with a PNG frame and one with a BMP frame, a
-#: 1024 px 4-bit gray scan and a 1024 px CMYK print as LZW TIFFs
+#: 1024 px 4-bit gray scan and a 1024 px CMYK print as LZW TIFFs, the
+#: photo as a YCbCr 2 x 2 JPEG TIFF (64-row strips, JPEGTables, the port's
+#: encoder) and as a JPEG file (its twin, for the decode times)
 CARD_ORIGINALS = {"photo-1024.ppm": "photo-1024.jpg", "photo-1024-plain.ppm": None,
                   "poster-1024-rle.tga": "poster-1024-rle.png", "icon-256-png.ico": "icon-256-png.bmp",
                   "icon-256-bmp.ico": None, "scan-1024-gray4.tif": "scan-1024-gray4.png",
-                  "print-1024-cmyk.tif": None}
+                  "print-1024-cmyk.tif": None, "photo-1024-ycbcr-jpeg.tif": "photo-1024-ycbcr-jpeg.jpg",
+                  "photo-1024-twin.jpg": None}
 
 
 def dib_bytes(*args, **kw) -> bytes:
@@ -2726,6 +2955,9 @@ def card_originals() -> Dict[str, bytes]:
         "icon-256-bmp.ico": icon_file(small + [(0, 0, 0, 32, icon_dib(bgra, 32, mask=False))]),
         "scan-1024-gray4.tif": tiff_bytes(scan, 4, 1, compression=5, rows_per_strip=64),
         "print-1024-cmyk.tif": tiff_bytes(cmyk, photometric=5, compression=5, rows_per_strip=64),
+        "photo-1024-ycbcr-jpeg.tif": jpeg_tiff(photo, 6, sampling=(2, 2), rows_per_strip=64,
+                                               encode=lambda b: port_jpeg(b, 90)),
+        "photo-1024-twin.jpg": port_jpeg(photo.astype(np.uint8), 90),
     }
     assert sorted(out) == sorted(CARD_ORIGINALS)
     return {f"{ICO_PNM_TGA}/card/{k}": v for k, v in out.items()}
