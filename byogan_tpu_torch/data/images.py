@@ -5,9 +5,11 @@ A file is listed by its extension, as the JAX package lists them
 first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
 GIF (the first frame) and TIFF (the first page) through the port's own
 codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
-(``decode_pnm``) and Targa (``decode_tga``) in numpy below, their
-sequential loops (plain PNM samples, Targa RLE packets) in the native
-library; each as the JAX package's lane for it reads it.  A file of another format that
+(``decode_pnm``), Targa (``decode_tga``), PSD (``decode_psd``), PCX
+(``decode_pcx``), SGI (``decode_sgi``) and QOI (``decode_qoi``) in numpy
+below, their sequential loops (plain PNM samples, Targa RLE packets,
+PackBits, PCX and SGI RLE, QOI ops) in the native library; each as the
+JAX package's lane for it reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
 files are not read by the PyTorch port"), one that no Pillow plugin
 accepts "unknown format", and one a decoder refuses names the reason: no
@@ -34,7 +36,7 @@ class NotThisFormat(OSError):
     IndexError, TypeError, struct.error): Pillow then tries the plugins
     after it, and so does ``read_image``."""
 #: the formats the port decodes; ``sniff`` names any other Pillow opens
-READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "TGA")
+READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA")
 
 
 def is_image(name: str) -> bool:
@@ -102,17 +104,32 @@ def _tga(head: bytes) -> bool:
             and head[16] in (1, 8, 16, 24, 32))
 
 
+def _gbr(head: bytes) -> bool:
+    """GbrImagePlugin's ``_open`` checks, which its ``_accept`` leaves to it
+    (a QOI of width 1 or 2 passes that): a header of at least 20 bytes,
+    version 1 or 2, a size, a depth of 1 or 4, version 2's magic."""
+    version = _u32(head, 4, ">")
+    return (len(head) >= 20 and _u32(head, 0, ">") >= 20 and version in (1, 2) and _u32(head, 8, ">") > 0
+            and _u32(head, 12, ">") > 0 and _u32(head, 16, ">") in (1, 4)
+            and (version == 1 or (len(head) >= 28 and head[20:24] == b"GIMP")))
+
+
+#: the first bytes of a file ``candidates`` reads
+HEAD = 28
+
+
 def candidates(head: bytes) -> List[str]:
-    """The formats whose plugins accept a file by its first 18 bytes, in
-    the order Pillow's ``Image.open`` tries them (``SIGNATURES``, then TGA
-    by its header checks)."""
+    """The formats whose plugins accept a file by its first ``HEAD`` bytes,
+    in the order Pillow's ``Image.open`` tries them (``SIGNATURES`` on the
+    first 16 bytes, GBR where its ``_open`` identifies the file too, then
+    TGA by its header checks)."""
     prefix = head[:16]
-    names = [name for name, accept in SIGNATURES if accept(prefix)]
+    names = [name for name, accept in SIGNATURES if accept(prefix) and (name != "GBR" or _gbr(head))]
     return names + ["TGA"] if _tga(head) else names
 
 
 def sniff(head: bytes) -> str:
-    """The format of a file from its first 18 bytes, as Pillow's
+    """The format of a file from its first ``HEAD`` bytes, as Pillow's
     ``Image.open`` identifies it: the first of ``candidates``, a name of
     ``READ`` or of another format Pillow opens, or "unknown" (Pillow's
     other formats without a signature, IM, IPTC, PCD and SPIDER, among
@@ -697,9 +714,282 @@ def decode_tga(data: bytes, name: str = "TGA") -> np.ndarray:
     return _rgb(px, lut)
 
 
+class _Reader:
+    """A file's bytes read as Pillow's plugins read a file object: ``read``
+    returns what is left of the ``n`` asked for and moves on by as much,
+    ``seek`` may go past the end (where ``read`` returns nothing); the
+    big-endian fields raise ``NotThisFormat`` where they are cut short,
+    as Pillow's struct.error and IndexError pass the file on."""
+
+    def __init__(self, data: bytes, name: str, fmt: str, pos: int = 0):
+        self.data, self.name, self.fmt, self.pos = data, name, fmt, pos
+
+    def read(self, n: int) -> bytes:
+        out = self.data[self.pos:self.pos + max(n, 0)]
+        self.pos += len(out)
+        return out
+
+    def u(self, n: int) -> int:
+        b = self.read(n)
+        if len(b) < n:
+            raise NotThisFormat(f"{self.name}: {self.fmt} header cut short at byte {self.pos}, which Pillow does not "
+                                "identify")
+        return int.from_bytes(b, "big")
+
+
+#: Pillow 12.1.0's PSD modes (``PsdImagePlugin.MODES``): (colour mode,
+#: bits) -> (mode, channels it needs)
+PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1), (3, 8): ("RGB", 3),
+             (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
+
+
+def _too_large(name: str, fmt: str, w: int, h: int) -> None:
+    if w * h > MAX_PIXELS:
+        raise OSError(f"{name}: {fmt} of {w} x {h} pixels, more than {MAX_PIXELS}, which Pillow does not read")
+
+
+def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
+    """A Photoshop file's merged image as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``PsdImagePlugin`` and ``convert("RGB")``:
+
+    - the header, colour mode data, image resources and layer section as
+      Pillow's ``_open`` walks them (``_Reader``), layers skipped by their
+      section's length;
+    - every (mode, bits) of ``PSD_MODES`` but Lab: bitmap (1-bit, a set bit
+      white, as Pillow reads it), gray, multichannel, duotone and 8-bit
+      bitmap as L, indexed through the colour mode data where it is 768
+      bytes (planar R, G, B; black without), RGB from the first 3 channels
+      (4 channels: RGBA, the alpha dropped), CMYK inverted then ``cmyk2rgb``;
+    - raw channels, and PackBits through the native library
+      (``native.packbits``: Pillow's PackbitsDecode.c, a channel's stream
+      from the offset its row counts give to the file's end).
+
+    What Pillow does not identify (another version, mode or depth, a
+    header cut short) raises ``NotThisFormat``; what it refuses (too few
+    channels, ZIP or another compression, data cut short, too many pixels)
+    and Lab colour raise ``OSError`` naming the file and the reason."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: PSD {why}, which Pillow (the JAX package's PSD lane) does not read")
+
+    f = _Reader(data, name, "PSD")
+    head = f.read(26)
+    if len(head) < 26 or head[:4] != b"8BPS" or _u16(head, 4, ">") != 1:
+        raise NotThisFormat(f"{name}: not a PSD file of version 1, which Pillow does not identify")
+    channels, h, w, bits, psd_mode = struct.unpack_from(">HIIHH", head, 12)
+    if (psd_mode, bits) not in PSD_MODES:
+        raise NotThisFormat(f"{name}: PSD of colour mode {psd_mode} at {bits} bits a channel, which Pillow does not "
+                            "identify")
+    mode, need = PSD_MODES[psd_mode, bits]
+    if need > channels:
+        raise refuse(f"of mode {mode} with {channels} channels (not enough channels)")
+    if mode == "LAB":
+        raise OSError(f"{name}: PSD files in Lab colour are not read by the PyTorch port")
+    if mode == "RGB" and channels == 4:
+        mode, need = "RGBA", 4
+    palette = None
+    size = f.u(4)  # colour mode data
+    if size:
+        colors = f.read(size)
+        if mode == "P" and size == 768 and len(colors) == 768:  # cut short, the next field fails
+            palette = np.frombuffer(colors, np.uint8).reshape(3, 256).T
+    size = f.u(4)  # image resources, entry by entry as Pillow reads them
+    end = f.pos + size
+    while size and f.pos < end:
+        f.read(4)
+        f.u(2)
+        n = f.read(1)
+        if not n:
+            raise NotThisFormat(f"{name}: PSD resource cut short, which Pillow does not identify")
+        label = f.read(n[0])
+        if not len(label) & 1:
+            f.read(1)
+        if len(f.read(f.u(4))) & 1:
+            f.read(1)
+    size = f.u(4)  # layers and masks, skipped
+    if size:
+        end = f.pos + size
+        f.u(4)
+        f.pos = end
+    compression = f.u(2)
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: PSD of {w} x {h} pixels, which Pillow does not identify")
+    _too_large(name, "PSD", w, h)
+    row = (w + 7) // 8 if mode == "1" else w
+    if compression == 0:
+        planes = []
+        for at in (f.pos + k * w * h for k in range(need)):
+            if at + h * row > len(data):
+                raise refuse(f"truncated ({len(data)} bytes, a channel's pixels end at {at + h * row})")
+            planes.append(np.frombuffer(data, np.uint8, h * row, at).reshape(h, row))
+    elif compression == 1:
+        counts = f.read(need * h * 2)
+        if len(counts) < need * h * 2:
+            raise NotThisFormat(f"{name}: PSD row byte counts cut short, which Pillow does not identify")
+        per_channel = np.frombuffer(counts, ">u2").reshape(need, h).sum(axis=1, dtype=np.int64)
+        at = f.pos
+        planes = []
+        for k in range(need):
+            planes.append(native.packbits(data[at:], name, row, h))
+            at += int(per_channel[k])
+    else:
+        raise refuse(f"with compression {compression} ({'ZIP' if compression in (2, 3) else 'unknown'}: cannot load "
+                     "this image)")
+    if mode == "1":
+        return _rgb(_unpack_bits(planes[0], 1, w) * np.uint8(255))
+    if mode == "P":
+        if palette is None:
+            return np.zeros((h, w, 3), np.uint8)
+        return palette[planes[0]]
+    if mode == "L":
+        return _rgb(planes[0])
+    px = np.stack(planes, -1)
+    if mode == "CMYK":
+        return _cmyk2rgb(255 - px)
+    return _rgb(px)
+
+
+def decode_pcx(data: bytes, name: str = "PCX") -> np.ndarray:
+    """A PCX file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``PcxImagePlugin`` and ``convert("RGB")``: the size from the bbox; 1 bit
+    in 1 plane as 1-bit pixels (the header's palette ignored), 1 bit in 2 or
+    4 planes as ``P;2L``/``P;4L`` through the header's 16 colours, version 5
+    with 8 bits in 1 plane as gray or, where the last 769 bytes start with
+    12 and hold another palette than the gray ramp, through it, version 5
+    with 8 bits in 3 planes as ``RGB;L``; Pillow's own stride (the header's
+    only tells it to round up to even), and the row's planes moved as
+    PcxDecode.c moves them; the RLE through the native library
+    (``native.pcx_rle``).  A bad bbox or a header cut short raises
+    ``NotThisFormat``; what Pillow refuses (another layout, "unknown PCX
+    mode", which it passes to no other format; 8 bits in 1 plane in a file
+    of fewer than 769 bytes, where its seek to the palette fails; a run
+    past its row; data cut short) raises ``OSError`` naming the file."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: PCX {why}, which Pillow (the JAX package's PCX lane) does not read")
+
+    if len(data) < 68:
+        raise NotThisFormat(f"{name}: PCX header cut short ({len(data)} bytes), which Pillow does not identify")
+    xmin, ymin, xmax, ymax = struct.unpack_from("<HHHH", data, 4)
+    w, h = xmax + 1 - xmin, ymax + 1 - ymin
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: PCX of bbox ({xmin}, {ymin}, {xmax}, {ymax}) (bad PCX image size), which Pillow "
+                            "does not identify")
+    version, bits, planes, provided = data[1], data[3], data[65], _u16(data, 66)
+    lut = None
+    if bits == 1 and planes == 1:
+        rawmode = "1"
+    elif bits == 1 and planes in (2, 4):
+        rawmode = f"P;{planes}L"
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+    elif version == 5 and bits == 8 and planes == 1:
+        rawmode = "L"
+        if len(data) < 769:
+            raise refuse(f"of 8 bits in 1 plane in {len(data)} bytes (its seek to the 769-byte palette before the "
+                         "file's start fails)")
+        tail = np.frombuffer(data, np.uint8, 769, len(data) - 769)
+        if tail[0] == 12 and not (tail[1:].reshape(256, 3) == np.arange(256, dtype=np.uint8)[:, None]).all():
+            lut = tail[1:].reshape(256, 3)
+    elif version == 5 and bits == 8 and planes == 3:
+        rawmode = "RGB;L"
+    else:
+        raise refuse(f"version {version} of {bits} bits in {planes} planes (unknown PCX mode)")
+    _too_large(name, "PCX", w, h)
+    stride = (w * bits + 7) // 8
+    if provided != stride:
+        stride += stride % 2
+    size = planes * stride
+    rows = native.pcx_rle(data[128:], name, size, h)
+    # PcxDecode.c moves each plane after the first next to the one before
+    # it: planes of (w + 7) // 8 bytes at size // planes apart for 1-bit
+    # planes, else planes of w bytes at size // (size // w) apart
+    span, bands = ((w + 7) // 8, planes) if rawmode.startswith("P;") else (w, size // w)
+    step = size // bands if bands else 0
+    if step > span:
+        moved = rows.copy()
+        for i in range(1, bands):
+            moved[:, i * span:(i + 1) * span] = rows[:, i * step:i * step + span]
+        rows = moved
+    if rawmode == "1":
+        return _rgb(_unpack_bits(rows, 1, w) * np.uint8(255))
+    if rawmode.startswith("P;"):
+        s = (w + 7) // 8
+        idx = sum(_unpack_bits(rows[:, j * s:(j + 1) * s], 1, w) << j for j in range(planes))
+        return lut[idx.astype(np.uint8)]
+    if rawmode == "L":
+        return _rgb(rows[:, :w], lut)
+    return np.ascontiguousarray(rows[:, :3 * w].reshape(h, 3, w).transpose(0, 2, 1))
+
+
+#: Pillow 12.1.0's SGI layouts (``SgiImagePlugin.MODES``): (bytes a
+#: sample, dimension, channels) -> bands
+SGI_MODES = {(1, 1, 1): 1, (1, 2, 1): 1, (2, 1, 1): 1, (2, 2, 1): 1, (1, 3, 3): 3, (2, 3, 3): 3, (1, 3, 4): 4,
+             (2, 3, 4): 4}
+
+
+def decode_sgi(data: bytes, name: str = "SGI") -> np.ndarray:
+    """An SGI image as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``SgiImagePlugin`` and ``convert("RGB")``: the eight layouts of
+    ``SGI_MODES`` (L, RGB, RGBA at 8 and 16 bits, 16-bit samples keeping
+    their high byte, alpha dropped), rows bottom-up, raw (channel planes
+    one after the other) or RLE through the native library
+    (``native.sgi_rle``: SgiRleDecode.c, its offset and length tables, its
+    row buffer kept across rows, a row left unterminated ending the image
+    in black).  A header cut short raises ``NotThisFormat``; what Pillow
+    refuses (another layout, another storage, data cut short, an RLE
+    table or row past the file's end, a run past its row) raises
+    ``OSError`` naming the file and the reason."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: SGI {why}, which Pillow (the JAX package's SGI lane) does not read")
+
+    if len(data) < 12:
+        raise NotThisFormat(f"{name}: SGI header cut short ({len(data)} bytes), which Pillow does not identify")
+    storage, bpc = data[2], data[3]
+    dimension, w, h, z = struct.unpack_from(">HHHH", data, 4)
+    if (bpc, dimension, z) not in SGI_MODES:
+        raise refuse(f"of {bpc} bytes a sample, dimension {dimension} and {z} channels (Unsupported SGI image mode)")
+    bands = SGI_MODES[bpc, dimension, z]
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: SGI of {w} x {h} pixels, which Pillow does not identify")
+    _too_large(name, "SGI", w, h)
+    if storage == 0:
+        page = w * h * bpc
+        if 512 + bands * page > len(data):
+            raise refuse(f"truncated ({len(data)} bytes, its pixels end at {512 + bands * page})")
+        px = np.frombuffer(data, np.uint8, bands * page, 512).reshape(bands, h, w, bpc)[..., 0].transpose(1, 2, 0)
+    elif storage == 1:
+        px = native.sgi_rle(data[512:], name, bpc, bands, w, h)[..., ::bpc]
+    else:
+        raise refuse(f"of storage {storage} (cannot load this image)")
+    return _rgb(px[::-1] if bands > 1 else px[::-1, :, 0])
+
+
+def decode_qoi(data: bytes, name: str = "QOI") -> np.ndarray:
+    """A QOI file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``QoiImagePlugin`` (its own decoder, through the native library:
+    ``native.qoi``) and ``convert("RGB")``: 3 channels read as RGB and any
+    other count as RGBA, its alpha then dropped; an INDEX op on an empty
+    slot reads (0, 0, 0, 0), and a RUN leaves the index as it is, as
+    Pillow's decoder does.  A header cut short raises ``NotThisFormat``;
+    data that end before the last pixel raise ``OSError`` naming the
+    file."""
+    if len(data) < 13 or data[:4] != b"qoif":
+        raise NotThisFormat(f"{name}: QOI header cut short ({len(data)} bytes), which Pillow does not identify")
+    w, h = struct.unpack_from(">II", data, 4)
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: QOI of {w} x {h} pixels, which Pillow does not identify")
+    _too_large(name, "QOI", w, h)
+    bands = 3 if data[12] == 3 else 4
+    if (len(data) - 14) * 62 < w * h:  # a byte gives at most a run of 62 pixels: it ends first
+        raise OSError(f"{name}: QOI truncated ({len(data)} bytes for {w} x {h} pixels)")
+    return _rgb(native.qoi(data[14:], name, bands, h, w))
+
+
 #: the formats read in numpy here, each from the whole file's bytes
 _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_pnm,
-             "TGA": decode_tga}
+             "TGA": decode_tga, "PCX": decode_pcx, "PSD": decode_psd, "QOI": decode_qoi, "SGI": decode_sgi}
 
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
@@ -716,7 +1006,7 @@ def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "
     next format that accepts its first bytes: a true-colour Targa whose
     first bytes are a cursor's magic is read as Targa."""
     with open(path, "rb") as f:
-        head = f.read(18)
+        head = f.read(HEAD)
     last = data = None
     for fmt in candidates(head):
         if fmt not in READ:

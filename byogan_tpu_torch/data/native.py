@@ -11,8 +11,9 @@ dropped, the first frame of an animation), GIF files (the first frame)
 and TIFF files (the first page) bit for bit with its Pillow lane
 (libjpeg-turbo 3.1.3, libwebp, Pillow 12.1.0's GIF decoder, libtiff
 4.7.1); ``decode_buffer`` does the same for bytes in memory (an icon's PNG
-frame); ``pnm_plain`` and ``tga_rle`` run the plain PNM and Targa RLE
-loops of ``data/images.py``'s readers as Pillow's decoders do;
+frame); ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``
+and ``qoi`` run the sequential loops of ``data/images.py``'s PNM, Targa,
+PSD, PCX, SGI and QOI readers as Pillow's decoders do;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
 naming the compiler's error: there is no other lane to fall back on.
@@ -30,7 +31,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 8
+ABI_VERSION = 9
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -63,12 +64,12 @@ ERRORS = {
          "missing or not an integer, strip or tile offsets that do not match the image)",
     -27: "BigTIFF files are not read by the PyTorch port",
     -28: "TIFF files with old-style JPEG compression, or with JPEG compression of other samples than 8-bit gray, "
-         "RGB, CMYK or YCbCr in one plane, are not read by the PyTorch port",
+         "RGB, CMYK or YCbCr, are not read by the PyTorch port",
     -29: "TIFF files with CCITT (fax) compression are not read by the PyTorch port",
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
     -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
     -32: "TIFF files of YCbCr pixels in this layout (a subsampling libtiff has no routine for, subsampled "
-         "separate planes, a predictor, one sample under compression, bad coefficients) are not read by the "
+         "separate planes, one sample under compression, bad coefficients) are not read by the "
          "PyTorch port",
     -34: "TIFF files of this photometric interpretation (Lab, which Pillow converts through LittleCMS, a "
          "mask...) are not read by the PyTorch port",
@@ -87,6 +88,9 @@ ERRORS = {
     -46: "a Targa RLE run packet past the end of its row (Pillow: buffer overrun when reading image file)",
     -47: "a JPEG-compressed TIFF strip or tile that does not match the file's tags (its size, components or "
          "sampling factors), which libtiff refuses",
+    -48: "a PCX RLE run past the end of its row (Pillow: buffer overrun when reading image file)",
+    -49: "an SGI RLE offset or length table past the file's end, a row outside the file's data or a run past the "
+         "end of its row (Pillow: buffer overrun when reading image file)",
 }
 
 _P = ctypes.c_void_p
@@ -100,6 +104,10 @@ SIGNATURES = {
     "byogan_decode_buffer": [_P, _N, _P, _IP, _IP, _I],
     "byogan_pnm_plain": [_P, _N, _I, _I, _I, _I, _I, _P],
     "byogan_tga_rle": [_P, _N, _I, _I, _I, _P],
+    "byogan_packbits": [_P, _N, _I, _I, _P],
+    "byogan_pcx_rle": [_P, _N, _I, _I, _P],
+    "byogan_sgi_rle": [_P, _N, _I, _I, _I, _I, _P],
+    "byogan_qoi": [_P, _N, _I, _N, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
@@ -209,6 +217,49 @@ def tga_rle(data: bytes, name: str, pixel_bytes: int, row_bytes: int, rows: int)
     rc = load_library().byogan_tga_rle(data, len(data), pixel_bytes, row_bytes, rows, out.ctypes.data)
     if rc != 0:
         raise _failed(name, "Targa RLE decode", rc)
+    return out
+
+
+def packbits(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of a PSD channel's PackBits stream, ``data`` from its first
+    byte to the file's end: uint8 (rows, row_bytes), as Pillow's
+    PackbitsDecode.c reads them (a packet cut at its row's end)."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_packbits(data, len(data), row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "PSD PackBits decode", rc)
+    return out
+
+
+def pcx_rle(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of a PCX image from ``data``, the bytes after its header:
+    uint8 (rows, row_bytes), as Pillow's PcxDecode.c reads them."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_pcx_rle(data, len(data), row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "PCX RLE decode", rc)
+    return out
+
+
+def sgi_rle(data: bytes, name: str, bpc: int, bands: int, xsize: int, ysize: int) -> np.ndarray:
+    """The rows of an SGI RLE image from ``data``, the bytes after its
+    header, in the file's order (bottom-up): uint8 (ysize, xsize, bands *
+    bpc), samples interleaved (16-bit ones big-endian), as Pillow's
+    SgiRleDecode.c reads them."""
+    out = np.empty((ysize, xsize, bands * bpc), np.uint8)
+    rc = load_library().byogan_sgi_rle(data, len(data), bpc, bands, xsize, ysize, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "SGI RLE decode", rc)
+    return out
+
+
+def qoi(data: bytes, name: str, bands: int, h: int, w: int) -> np.ndarray:
+    """The pixels of a QOI image from ``data``, the bytes after its header:
+    uint8 (h, w, bands), as Pillow's QoiDecoder reads them."""
+    out = np.empty((h, w, bands), np.uint8)
+    rc = load_library().byogan_qoi(data, len(data), bands, h * w, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "QOI decode", rc)
     return out
 
 

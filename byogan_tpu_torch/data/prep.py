@@ -29,7 +29,7 @@ import torch
 
 from byogan_tpu_torch.core.device import resolve_device
 from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil
-from byogan_tpu_torch.data.images import READ, is_image, read_image, sniff, unreadable
+from byogan_tpu_torch.data.images import HEAD, READ, is_image, read_image, sniff, unreadable
 from byogan_tpu_torch.serve import encode_png
 
 
@@ -67,7 +67,7 @@ def prepare_pyramid(
     files = sorted(os.path.join(dest, f) for f in os.listdir(dest) if is_image(f))
     for path in files:  # every original's format before any set is written
         with open(path, "rb") as f:
-            head = f.read(18)
+            head = f.read(HEAD)
         if sniff(head) not in READ:
             raise unreadable(path, head)
 

@@ -6,7 +6,9 @@
 // (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), GIF decode (gif.cpp) and
 // TIFF decode (tiff.cpp), bit for bit with the JAX package's Pillow lane,
 // the plain PNM and Targa RLE loops of the PNM and Targa readers
-// (pnm_tga.cpp), and the PNG row unfilter below.  The
+// (pnm_tga.cpp), the PackBits, PCX RLE, SGI RLE and QOI loops of the PSD,
+// PCX, SGI and QOI readers (psd_pcx_sgi_qoi.cpp), and the PNG row unfilter
+// below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -141,7 +143,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 8; }
+int byogan_abi_version() { return 9; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -192,6 +194,34 @@ int byogan_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, 
 // packets of `pixel_bytes`-byte pixels.
 int byogan_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out) {
   return byogan::decode_tga_rle(data, size, pixel_bytes, row_bytes, rows, out);
+}
+
+// The rows of a PackBits channel of a PSD (Pillow's PackbitsDecode.c): from
+// the channel's first byte to the file's end, rows * row_bytes bytes into
+// out, a packet cut at its row's end, 0x80 a no-op.
+int byogan_packbits(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out) {
+  return byogan::decode_packbits_rows(data, size, row_bytes, rows, out);
+}
+
+// The rows of a PCX image from the bytes after its 128-byte header (Pillow's
+// PcxDecode.c): rows * row_bytes bytes into out, a run cut at its row's
+// end and then refused (-48) once every row is decoded.
+int byogan_pcx_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out) {
+  return byogan::decode_pcx_rle(data, size, row_bytes, rows, out);
+}
+
+// The rows of an SGI RLE image from the bytes after its 512-byte header
+// (Pillow's SgiRleDecode.c): ysize rows of xsize * bands samples of bpc
+// bytes, interleaved, in the file's row order (bottom-up), into out; rows
+// after an unterminated one stay zero.
+int byogan_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsize, int ysize, uint8_t* out) {
+  return byogan::decode_sgi_rle(data, size, bpc, bands, xsize, ysize, out);
+}
+
+// The pixels of a QOI image from the bytes after its 14-byte header
+// (Pillow's QoiDecoder): `pixels` pixels of `bands` (3 or 4) bytes into out.
+int byogan_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out) {
+  return byogan::decode_qoi(data, size, bands, pixels, out);
 }
 
 // For the tests alone: the Y, U and V planes of a lossy WebP file's frame

@@ -55,6 +55,8 @@ enum Status {
   kPnmValue = -45,         // a plain PNM sample above its maxval
   kTgaOverrun = -46,       // a Targa RLE run packet past its row's end
   kTiffJpegStream = -47,   // a JPEG-compressed TIFF strip or tile that does not match the file's tags
+  kPcxOverrun = -48,       // a PCX RLE run past the end of its row
+  kSgiOverrun = -49,       // an SGI RLE table or row past the file's end, or a run past its row's end
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -72,10 +74,15 @@ int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_gif(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_tiff(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 
-// The loops of the PNM and Targa readers (byogan_pnm_plain and
-// byogan_tga_rle in byogan_io.cpp).
+// The loops of the PNM, Targa, PSD, PCX, SGI and QOI readers (byogan_pnm_plain,
+// byogan_tga_rle, byogan_packbits, byogan_pcx_rle, byogan_sgi_rle and
+// byogan_qoi in byogan_io.cpp).
 int decode_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, int maxval, int wide, uint8_t* out);
 int decode_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out);
+int decode_packbits_rows(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
+int decode_pcx_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
+int decode_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsize, int ysize, uint8_t* out);
+int decode_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out);
 
 // One strip or tile of a JPEG-compressed TIFF (tiff.cpp): `tables` (the
 // JPEGTables tag, empty where there is none) read before `data`; YCbCr ->

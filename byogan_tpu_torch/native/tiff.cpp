@@ -32,27 +32,35 @@
 //   single uncompressed strip of a mapped mode read at the size Orientation
 //   5-8 swapped;
 // - JPEG compression (7) of 8-bit gray (MinIsWhite inverted), RGB, CMYK
-//   and YCbCr in one plane: libtiff's JPEG codec hands each strip's or
-//   tile's stream, after the JPEGTables stream, to libjpeg with its own
-//   colour space (YCbCr -> RGB under Pillow's JPEGCOLORMODE_RGB, else the
-//   components as they are), holds the stream's size and sampling factors
-//   to the tags (the luma factors to YCbCrSubsampling, which a file
-//   without the tag takes from its first stream), and a last strip may
-//   say more rows than it has; the decode is jpeg_decode.cpp's;
+//   and YCbCr: libtiff's JPEG codec hands each strip's or tile's stream,
+//   after the JPEGTables stream, to libjpeg with its own colour space
+//   (YCbCr -> RGB under Pillow's JPEGCOLORMODE_RGB, else the components as
+//   they are), holds the stream's size and sampling factors to the tags
+//   (the luma factors to YCbCrSubsampling, which a file without the tag
+//   takes from its first stream), and a last strip may say more rows than
+//   it has; the decode is jpeg_decode.cpp's.  In separate planes each
+//   plane's chunk is a one-component stream of 1 x 1 factors, its samples
+//   kept as they are: gray, RGB and CMYK planes interleaved back, YCbCr 1 x 1
+//   through TIFFRGBAImage's putseparate8bitYCbCr11tile (YcbcrTables);
 // - YCbCr: uncompressed, Pillow's raw decoder reads it as RGBX (four bytes
 //   a pixel, unconverted); under LZW, Deflate or PackBits, Pillow's
-//   _decodeAsRGBA, libtiff's TIFFRGBAImage (YcbcrTables, put_ycbcr);
+//   _decodeAsRGBA, libtiff's TIFFRGBAImage (YcbcrTables, put_ycbcr), with
+//   Predictor 2 undone under LZW and Deflate on libtiff's row unit (the
+//   scanline of a row of blocks over vs, a tile's 3 bytes a column), or
+//   left undone where libtiff's checks fail, as TIFFRGBAImage then shows
+//   the bytes;
 // - the Orientation tag, applied as Pillow's load does
 //   (ImageOps.exif_transpose).
 //
 // Everything else returns a code of codec.h that names it: BigTIFF, old
 // JPEG and JPEG of other samples, CCITT, LogLuv and other compressions,
 // YCbCr in a layout libtiff has no routine for (1x4, 2x4, subsampled
-// planes) or with a predictor, Lab and other photometric interpretations,
+// planes), Lab and other photometric interpretations,
 // other depths and sample layouts, FillOrder 2 where Pillow has no raw
 // mode for it, old-style LZW, truncated or corrupt data (where libtiff or
-// Pillow's raw decoder fails; YCbCr data short of the tags, which Pillow
-// shows as zeros, are refused too).
+// Pillow's raw decoder fails; YCbCr data short of the tags, and YCbCr
+// planes whose JPEG stream libtiff refuses, which Pillow shows as the
+// buffer's bytes, are refused too).
 
 #include <zlib.h>
 
@@ -545,15 +553,18 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   } else {
     return kTiffLayout;
   }
-  if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 && !planar &&
+  if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 &&
                 ((kind == kGray && samples == 1) || (kind == kRgb && samples == 3) || (kind == kCmyk && samples == 4))))
-    return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples in one plane, as Pillow reads them here
+    return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples, as Pillow reads them here
   // YCbCr: Pillow's raw decoder reads an uncompressed file as RGBX, four
-  // bytes a pixel, unconverted; libjpeg converts it under JPEG; libtiff's
-  // TIFFRGBAImage under LZW, Deflate and PackBits (ycbcr_rgba)
+  // bytes a pixel, unconverted; libjpeg converts it under JPEG in one
+  // plane; libtiff's TIFFRGBAImage under LZW, Deflate and PackBits
+  // (ycbcr_rgba) and under JPEG in separate planes (ycbcr_planes: each a
+  // one-component stream, read as it is)
   const bool ycbcr = photometric == 6 && samples == 3;
   const bool rgbx = ycbcr && raw && !planar;
   const bool ycbcr_rgba = ycbcr && !raw && !jpeg;
+  const bool ycbcr_planes = ycbcr && jpeg && planar;
   uint32_t hs = 2, vs = 2;  // YCbCrSubsampling: libtiff's default 2, 2
   if (ycbcr && tag(kYcbcrSubsampling).present) {
     if (tag(kYcbcrSubsampling).v.size() != 2) return kTiffDirectory;
@@ -561,14 +572,13 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     vs = tag(kYcbcrSubsampling).v[1];
   }
   float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
-  if (ycbcr_rgba) {
+  if (ycbcr_rgba || ycbcr_planes) {
     // libtiff's strip and scanline sizes take 1, 2 or 4 alone; put routines
-    // exist for these; separate planes, 1 x 1 alone; a predictor the port
-    // does not undo on blocks
+    // exist for these; separate planes, 1 x 1 alone
     const uint32_t code = hs << 4 | vs;
     if (code != 0x11 && code != 0x12 && code != 0x21 && code != 0x22 && code != 0x41 && code != 0x42 && code != 0x44)
       return kTiffYcbcr;
-    if ((planar && code != 0x11) || one(kPredictor, 1) != 1) return kTiffYcbcr;
+    if (planar && code != 0x11) return kTiffYcbcr;
     if (tag(kYcbcrCoefficients).present) {
       if (tag(kYcbcrCoefficients).f.size() != 3) return kTiffDirectory;
       std::copy_n(tag(kYcbcrCoefficients).f.begin(), 3, luma);
@@ -782,22 +792,28 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     return packbits_decode(in, count, out, need);
   };
   // JPEG: each strip or tile a JPEG stream after the JPEGTables stream, held
-  // to the tags as libtiff's JPEGPreDecode holds it
+  // to the tags as libtiff's JPEGPreDecode holds it; in separate planes
+  // each plane's chunk a one-component stream of 1 x 1 factors, its
+  // samples as they are (YCbCr 1 x 1 then through TIFFRGBAImage's
+  // putseparate8bitYCbCr11tile and the tables of the file's tags)
   auto read_jpeg = [&]() -> int {
     const Tag& jt = tag(kJpegTables);
     const uint8_t* tables = jt.present ? file + jt.at : nullptr;
     const size_t tables_size = jt.present ? jt.v[0] : 0;
+    const uint32_t components = planar ? 1 : samples;
+    const bool convert = ycbcr && !planar;  // libjpeg's YCbCr -> RGB
     JpegFrame frame;
     std::vector<uint8_t> pixels;
     for (uint64_t c = 0; c < chunks; c++) {
-      const uint32_t x0 = (uint32_t)(c % across) * cw, y0 = (uint32_t)(c / across) * ch;
+      const uint32_t plane = (uint32_t)(c / (across * down)), at = (uint32_t)(c % (across * down));
+      const uint32_t x0 = (uint32_t)(at % across) * cw, y0 = (uint32_t)(at / across) * ch;
       const uint32_t used = std::min(ch, height - y0), cols = std::min(cw, width - x0);
       const uint8_t* in;
       size_t count;
       int rc = coded(c, &in, &count);
-      if (!rc) rc = decode_jpeg_tiff(tables, tables_size, in, count, ycbcr, (int)samples, &frame, &pixels);
+      if (!rc) rc = decode_jpeg_tiff(tables, tables_size, in, count, convert, (int)components, &frame, &pixels);
       if (rc) return rc;
-      if (c == 0 && ycbcr && !tag(kYcbcrSubsampling).present) {
+      if (c == 0 && convert && !tag(kYcbcrSubsampling).present) {
         // JPEGFixupTagsSubsampling: without the tag, the first chunk's luma
         // factors, where the frame is one it scans and they have a TIFF
         // equivalent; else the default 2, 2 stays
@@ -810,7 +826,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
       }
       // the sampling factors: the first component's the YCbCr tag's, every other 1 x 1
       for (int k = 0; k < frame.components; k++)
-        if (frame.hsamp[k] != (k == 0 && ycbcr ? (int)hs : 1) || frame.vsamp[k] != (k == 0 && ycbcr ? (int)vs : 1))
+        if (frame.hsamp[k] != (k == 0 && convert ? (int)hs : 1) || frame.vsamp[k] != (k == 0 && convert ? (int)vs : 1))
           return kTiffJpegStream;  // "Improper JPEG sampling factors"
       // the size: a tile's, or a strip's rows; a last strip may say more rows than it has
       const uint32_t seg_h = tiled ? ch : used;
@@ -819,8 +835,16 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
         return kTiffJpegStream;
       for (uint32_t r = 0; r < used; r++)
         for (uint32_t x = 0; x < cols; x++)
-          for (uint32_t k = 0; k < samples; k++)
-            px16[((size_t)(y0 + r) * width + x0 + x) * samples + k] = pixels[((size_t)r * frame.w + x) * samples + k];
+          for (uint32_t k = 0; k < components; k++)
+            px16[((size_t)(y0 + r) * width + x0 + x) * samples + plane + k] =
+                pixels[((size_t)r * frame.w + x) * components + k];
+    }
+    if (ycbcr_planes) {
+      const YcbcrTables tabs(luma, rbw);
+      for (size_t i = 0; i < (size_t)height * width; i++) {
+        uint16_t* p = px16.data() + 3 * i;
+        tabs.rgb(p[0], p[1], p[2], p);
+      }
     }
     return kOk;
   };
@@ -832,6 +856,18 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // last bytes are never decoded); gtTileContig a whole tile, and the put
   // routine steps over the columns past the image's edge by whole blocks,
   // putcontig8bitYCbCr44tile by 10 bytes a block
+  // Predictor 2 on YCbCr: libtiff's PredictorDecodeTile undoes horAcc8 on
+  // each `rowsize` bytes of what it decoded, a sample `stride` bytes back
+  // (3 in one plane, whatever the blocks' size); where the bytes are not
+  // whole rows or a row not whole strides it fails before it changes a
+  // byte, and TIFFRGBAImage (Pillow's stoponerr 0) shows the bytes as
+  // decoded
+  auto undo_ycbcr_predictor = [&](uint8_t* p, size_t n, size_t rowsize, size_t stride) -> int {
+    if (!predict || rowsize % stride || n % rowsize) return kOk;
+    for (size_t at = 0; at < n; at += rowsize)
+      for (size_t i = stride; i < rowsize; i++) p[at + i] = (uint8_t)(p[at + i] + p[at + i - stride]);
+    return kOk;
+  };
   auto read_ycbcr = [&]() -> int {
     const YcbcrTables tabs(luma, rbw);
     const uint32_t k = hs * vs + 2;
@@ -850,6 +886,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
           planes_buf[p].assign((size_t)rows * cw, 0);
           int rc = coded(c + p * per_plane_chunks, &in, &count);
           if (!rc) rc = inflate(in, count, planes_buf[p].data(), planes_buf[p].size());
+          if (!rc) rc = undo_ycbcr_predictor(planes_buf[p].data(), planes_buf[p].size(), cw, 1);
           if (rc) return rc;
         }
         for (uint32_t r = 0; r < used; r++)
@@ -866,6 +903,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
       buffer.assign(full, 0);
       int rc = coded(c, &in, &count);
       if (!rc) rc = inflate(in, count, buffer.data(), read);
+      // the predictor's row: TIFFTileRowSize (3 bytes a column) or TIFFScanlineSize (a row of blocks over vs)
+      if (!rc) rc = undo_ycbcr_predictor(buffer.data(), read, tiled ? (size_t)cw * 3 : sampling_row / vs, 3);
       if (rc) return rc;
       const size_t fromskew = tiled && x0 + cw > width ? cw - cols : 0;
       put_ycbcr(tabs, buffer.data(), used, cols, hs, vs, fromskew / hs * (k == 18 ? 10 : k), out, (size_t)width * 3);

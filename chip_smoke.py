@@ -56,24 +56,31 @@ both paths of the port at full width (``ModelSpec()``):
   the global batch against one process on it (R1, then ADA and PLR on a
   penalized iteration), ``train`` stopped by a signal to one rank and
   resumed in one process, the training CLI at world 1 under NCCL through
-  torchrun, the iteration's time with and without a process group and
-  over two ranks, and the Sampler over two devices against one.
+  torchrun, and the Sampler over two devices against one; then the model
+  axis's kernels at the shards' shapes, steps and ``train`` over two
+  ranks;
 * the image-IO slice: the native image-IO library, the port's own PNG and
   JPEG codecs linked to zlib alone (``native/``; the script fails if it
   does not build or links libpng or libjpeg), held to the fixtures' hashes
   of libjpeg-turbo's, libpng's, libwebp's and Pillow's output (every BMP
   layout Pillow reads and its refusals, 16-bit gray PNGs in both lanes,
-  JPEG blocks past 16 bits, GIF and baseline TIFF layouts and the kinds
-  refused by name among them), the PNG decode bit-equal to
+  JPEG blocks past 16 bits, GIF, TIFF, ICO, CUR, DIB, PNM, Targa, PSD,
+  PCX, SGI and QOI layouts, and the kinds refused by name among them:
+  Lab TIFF and PSD, CCITT, DDS, ICNS...), the PNG decode bit-equal to
   data/png.py's on smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG
-  and BMP files, the codecs' and the loader's times by decode threads
-  beside the stage-8 iteration, prep's (cli.prep on JPEG, WebP, JPEG-kind,
-  Pillow-lane and GIF/TIFF originals, held to the JAX package's pyramids) and the
-  frame writers' times, and the training CLI on a set with JPEG, WebP,
-  palette and 16-bit BMP files among its PNGs, stopped by SIGTERM and
-  resumed with
+  and BMP files, the codecs' times by decode threads, cli.prep on JPEG,
+  WebP, JPEG-kind, Pillow-lane, GIF/TIFF/PNM/Targa/ICO and PSD/PCX/SGI/
+  QOI/TIFF originals held to the JAX package's pyramids ("io prep"), and
+  the training CLI on a set with JPEG, WebP, palette and 16-bit BMP files
+  among its PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
   on its FINAL.pth.
+
+The phases that only time (the data-parallel and model-axis iterations,
+"time dp" and "time tp"; the loader, in-process prep and frame writers,
+"time loader") run in the entry points of their slices, not in ``main``:
+``python -c "import chip_smoke; chip_smoke.dp_main()"`` (and ``tp_main()``,
+``io_main()``) runs a slice's phases with its timing phase.
 
 The parity checks run with TF32 off (``strict_f32``); every timing runs
 under PyTorch's defaults, as a user's run does, and its line prints both
@@ -3375,7 +3382,7 @@ def io_checks(tmp) -> dict:
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
-                                   f"{fx.ICO_PNM_TGA}/"))]
+                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3412,9 +3419,23 @@ def io_checks(tmp) -> dict:
     require(min(by_kind.values()) >= 5 and len(ipt_refused) >= 30 and len(new_tiff) >= 60 and len(jpeg_ycbcr) >= 60,
             f"the manifest holds ICO/CUR/DIB/PNM/TGA layouts {by_kind}, {len(ipt_refused)} of their refusals and "
             f"{len(new_tiff)} layouts of the TIFF kinds past the baseline, {len(jpeg_ycbcr)} JPEG and YCbCr TIFF layouts")
+    raster = [m for m in matched if m.startswith(f"{fx.RASTER}/")]
+    raster_read = [m for m in raster if "@" not in m]
+    raster_refused = [m for m in raster if m.endswith("@refused")]
+    raster_kind = {k: sum(f"/{k}/" in m for m in raster_read) for k in ("psd", "pcx", "sgi", "qoi", "tiff")}
+    require(min(raster_kind.values()) >= 5 and len(raster_refused) >= 25,
+            f"the manifest holds PSD/PCX/SGI/QOI/TIFF layouts {raster_kind} and {len(raster_refused)} of their "
+            "refusals")
     written = os.path.join(tmp, "card_originals")
     os.makedirs(written)
     card_paths = fx.check_card_originals(written, images.read_image)
+    raster_card = fx.check_raster_card(written, images.read_image)
+    print(f"io fixtures: {len(raster_read)} PSD, PCX, SGI, QOI and TIFF (JPEG in separate planes, YCbCr under "
+          f"Predictor 2) layouts decoded to Pillow 12.1.0's RGB ({', '.join(f'{k} {v}' for k, v in raster_kind.items())}: "
+          f"{', '.join(m.split('/', 1)[1] for m in raster_read)}) and {len(raster_refused)} refused with Pillow's "
+          f"reason ({', '.join(os.path.basename(m)[:-12] for m in raster_refused)}); {len(raster_card)} card originals "
+          f"of this slice, {len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written here by the fixtures' numpy "
+          f"writers, each the manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(raster_card))})")
     print(f"io fixtures: {len(ipt_read)} ICO, CUR, DIB, PNM and Targa layouts decoded to Pillow 12.1.0's RGB "
           f"({', '.join(f'{k} {v}' for k, v in by_kind.items())}: {', '.join(m.split('/', 1)[1] for m in ipt_read)}) "
           f"and {len(ipt_refused)} refused with Pillow's reason "
@@ -3424,7 +3445,8 @@ def io_checks(tmp) -> dict:
           f"({', '.join(os.path.basename(m)[:-4] for m in jpeg_ycbcr)}); {len(card_paths)} card originals written "
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
-    print(f"io fixtures: {len(matched) + len(card_paths)} of {len(matched) + len(card_paths)} hashes matched: "
+    hashes = len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD)
+    print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
           f"({len(fx.SOURCES)} sources x qualities {fx.QUALITIES}); {len(webp)} WebP files decoded to Pillow's RGB "
@@ -3443,7 +3465,8 @@ def io_checks(tmp) -> dict:
           f"layouts decoded to Pillow's (libtiff 4.7.1) RGB ({', '.join(os.path.basename(m)[:-4] for m in tiffs)}) "
           f"and {len(tiff_refused)} kinds refused by name ({', '.join(os.path.basename(m)[:-12] for m in tiff_refused)}); "
           f"{len(gif_tiff_card)} GIF/TIFF card originals; {len(ico_pnm_tga)} ICO/CUR/DIB/PNM/Targa files and "
-          f"{len(card_paths)} written card originals (above)")
+          f"{len(card_paths)} written card originals; {len(raster)} PSD/PCX/SGI/QOI/TIFF files and "
+          f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals of this slice (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3507,7 +3530,9 @@ def io_checks(tmp) -> dict:
     out["codec_ms"].update(lane_codec_times(fx, other))
     out["codec_ms"].update(gif_tiff_codec_times(fx))
     out["codec_ms"].update(ico_pnm_tga_codec_times(written))
+    out["codec_ms"].update(raster_codec_times(raster_card))
     out["card_originals"] = written
+    out["raster_card"] = raster_card
     return out
 
 
@@ -3781,6 +3806,51 @@ def ico_pnm_tga_codec_times(folder: str) -> dict:
     return ms
 
 
+def raster_codec_times(paths: dict) -> dict:
+    """Host ms of the PSD, PCX, SGI, QOI and JPEG-in-planes TIFF readers,
+    one call at a time on one thread (median of ``CODEC_REPEATS``), on the
+    card's 1024 px originals (``paths``: name -> path): a photo as a raw
+    and as a PackBits RGB PSD, a poster as a PCX of 8 bits in 3 planes, the
+    photo as an RLE SGI and as a QOI, and as a YCbCr 1 x 1 JPEG TIFF in
+    separate planes beside its twin, an RGB JPEG TIFF of one stream a
+    strip."""
+    from byogan_tpu_torch.data import images
+
+    files = {"psd_raw_1024": "photo-1024-raw.psd", "psd_packbits_1024": "photo-1024-packbits.psd",
+             "pcx_rgb_1024": "poster-1024.pcx", "sgi_rle_1024": "photo-1024-rle.sgi", "qoi_1024": "photo-1024.qoi",
+             "tiff_jpeg_planes_1024": "photo-1024-jpeg-planes.tif",
+             "tiff_jpeg_contig_1024": "photo-1024-jpeg-contig.tif"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    print(f"io codecs: PSD, PCX, SGI, QOI and JPEG-in-planes TIFF, host ms, median of {CODEC_REPEATS} calls, one "
+          f"thread, {PREP_SIDE} px: PSD raw RGB {ms['psd_raw_1024']:.3f}, PSD PackBits RGB "
+          f"{ms['psd_packbits_1024']:.3f}, PCX 8 bits x 3 planes {ms['pcx_rgb_1024']:.3f}, SGI RLE RGB "
+          f"{ms['sgi_rle_1024']:.3f}, QOI RGB {ms['qoi_1024']:.3f}; TIFF YCbCr 1x1 JPEG in 3 planes (16 strips a "
+          f"plane) {ms['tiff_jpeg_planes_1024']:.3f} beside its twin, RGB JPEG of one stream a strip "
+          f"{ms['tiff_jpeg_contig_1024']:.3f}; card {card_name()}")
+    return ms
+
+
+def prep_raster_cli(tmp, root, paths: dict) -> float:
+    """``prep_committed_cli`` on the card originals of this slice that prep
+    reads (``fx.RASTER_CARD``: a 1024 px PackBits PSD under .png, a PCX of
+    8 bits in 3 planes under .jpg, an RLE SGI under .bmp, a QOI under
+    .webp, all written in this run, and the committed YCbCr 1 x 1 JPEG
+    TIFF in separate planes under .jpg), held to the JAX package's prep of
+    them (Pillow's decode).  Returns the seconds per original."""
+    fx = codec_fixtures()
+    committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
+    written = {fx.RASTER_CARD[n]: p for n, p in paths.items() if fx.RASTER_CARD[n] and n not in committed}
+    n = len(committed) + len(written)
+    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.RASTER, "card"), committed, "raster_prep",
+                                        listed=fx.RASTER_CARD, written=written)
+    print(f"io prep: cli.prep of {n} PSD, PCX, SGI, QOI and TIFF originals ("
+          + ", ".join(f"{k} as {v}" for k, v in fx.RASTER_CARD.items() if v)
+          + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
+          f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
+          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
+    return cli_s / n
+
+
 def prep_webp_cli(tmp, root) -> float:
     """``prep_committed_cli`` on the WebP originals (lossy 512 px, 640 x
     480 and 1024 px, lossless 512 px, lossy with alpha 448 x 320), held to
@@ -3836,22 +3906,33 @@ def prep_jpeg_cli(tmp, root) -> float:
     return cli_s / IO_PREP_JPEGS
 
 
-def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
-    """``make_stage_loader`` over each set at 512 px (smooth and noisy
-    PNGs, JPEGs), batch 5, cache off, on 1, 2 and 8 decode threads: ms per
-    batch after the first, beside the stage-8 iteration's ms from this run.
-    Then ``prepare_pyramid`` (card resizes, 8 threads) in this process on
-    1024 px originals, Paeth PNGs, BMPs and JPEGs, seconds per original;
-    ``cli.prep`` on JPEG originals (``prep_jpeg_cli``); and
-    ``save_frame_u8`` ms per 512 px frame as PNG (levels 1 and 6) and
-    JPEG."""
+def io_prep(io_state: dict, tmp, root) -> dict:
+    """The "io prep" phase: ``cli.prep`` on JPEG originals, every level
+    bit-equal to the plain resize (``prep_jpeg_cli``), and on the committed
+    and written originals of each slice of image formats, every image equal
+    to the JAX package's recorded prep (WebP, the JPEG kinds, the Pillow
+    lane's, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF).  Returns the
+    seconds per original of each."""
+    return {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root), "prep_webp_cli_s": prep_webp_cli(tmp, root),
+            "prep_kinds_cli_s": prep_kinds_cli(tmp, root), "prep_pillow_cli_s": prep_pillow_cli(tmp, root),
+            "prep_gif_tiff_cli_s": prep_gif_tiff_cli(tmp, root, io_state["card_originals"]),
+            "prep_raster_cli_s": prep_raster_cli(tmp, root, io_state["raster_card"])}
+
+
+def time_loader(io_state: dict) -> dict:
+    """The "time loader" phase (``io_main`` runs it; ``main`` does not):
+    ``make_stage_loader`` over each set at 512 px (smooth and noisy PNGs,
+    JPEGs), batch 5, cache off, on 1, 2 and 8 decode threads: ms per batch
+    after the first.  Then ``prepare_pyramid`` (card resizes, 8 threads) in
+    this process on 1024 px originals, Paeth PNGs, BMPs and JPEGs, seconds
+    per original; and ``save_frame_u8`` ms per 512 px frame as PNG (levels
+    1 and 6) and JPEG."""
     from byogan_tpu_torch.data import native
     from byogan_tpu_torch.data.pipeline import StageDataset, make_stage_loader
     from byogan_tpu_torch.data.prep import prepare_pyramid
     from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered
     from byogan_tpu_torch.serve import save_frame_u8
 
-    iteration = "not measured in this run" if it_ms is None else f"{it_ms:.3f} ms"
     card = card_name()
     rates = {}
     for name, data_root in io_state["sets"].items():
@@ -3869,7 +3950,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
             batch_ms = host_ms(lambda: ds.get_batch_uint8(rows, workers), LOADER_TIMED)
             print(f"time loader {name} workers {workers}: {ms:.3f} ms per batch of {TRAIN_BATCH} at {IO_SIDE} px, "
                   f"cache off ({LOADER_TIMED} batches after the first; host clock); get_batch_uint8 alone (no "
-                  f"producer thread, flips or queue) {batch_ms:.3f} ms; stage-8 iteration {iteration}; card {card}")
+                  f"producer thread, flips or queue) {batch_ms:.3f} ms; card {card}")
 
     rng = np.random.default_rng(41)
     prep_s = {}
@@ -3892,11 +3973,6 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
           f"8 sets, 8 threads, s per original: " + ", ".join(f"{f} {s:.3f}" for f, s in prep_s.items())
           + " (PNG originals under Paeth rows; the \"prep:\" line's cli.prep reading is the one to hold against "
           "PR 9's 0.858 s)")
-    prep_jpeg_s = prep_jpeg_cli(tmp, root)
-    prep_webp_s = prep_webp_cli(tmp, root)
-    prep_kinds_s = prep_kinds_cli(tmp, root)
-    prep_pillow_s = prep_pillow_cli(tmp, root)
-    prep_gif_tiff_s = prep_gif_tiff_cli(tmp, root, io_state["card_originals"])
 
     frames = StageDataset(io_state["sets"]["smooth"], 8).get_batch_uint8(np.arange(8), 2)
     frame_ms = {}
@@ -3911,10 +3987,7 @@ def time_loader(io_state: dict, it_ms, tmp, root) -> dict:
         frame_ms[label] = 1e3 * (time.perf_counter() - t0) / len(frames)
     print(f"time frames: save_frame_u8 ms per {IO_SIDE} px frame ({len(frames)} frames, host clock): "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame_ms.items()) + f"; card {card}")
-    return {"loader_ms": rates, "prep_s": prep_s, "prep_jpeg_cli_s": prep_jpeg_s, "prep_webp_cli_s": prep_webp_s,
-            "prep_kinds_cli_s": prep_kinds_s, "prep_pillow_cli_s": prep_pillow_s,
-            "prep_gif_tiff_cli_s": prep_gif_tiff_s,
-            "frame_ms": frame_ms}
+    return {"loader_ms": rates, "prep_s": prep_s, "frame_ms": frame_ms}
 
 
 def lane_bmp(fx, img: np.ndarray, palette: bool) -> tuple:
@@ -4093,7 +4166,9 @@ def io_train(tmp, root) -> tuple:
 
 def io_main() -> int:
     """The image-IO phases alone (``python -c "import chip_smoke;
-    chip_smoke.io_main()"``), for a short call; ``main`` runs them too."""
+    chip_smoke.io_main()"``), for a short call: "io", "io prep" and "io
+    train", which ``main`` runs too, and "time loader", which only this
+    entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4106,8 +4181,10 @@ def io_main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with phase("io"):
             io_state = io_checks(tmp)
+        with phase("io prep"):
+            io_prep(io_state, tmp, root)
         with phase("time loader"):
-            time_loader(io_state, None, tmp, root)
+            time_loader(io_state)
         with phase("io train"):
             io_train(tmp, root)
     return 0
@@ -4163,7 +4240,9 @@ def dp_cards_main() -> int:
 
 def dp_main() -> int:
     """The data-parallel phases alone (``python -c "import chip_smoke;
-    chip_smoke.dp_main()"``), for a short call; ``main`` runs them too."""
+    chip_smoke.dp_main()"``), for a short call: "dp steps", "dp train" and
+    "dp sampler", which ``main`` runs too, and "time dp", which only this
+    entry point (and ``dp_cards_main``) runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4190,7 +4269,9 @@ def dp_main() -> int:
 
 def tp_main() -> int:
     """The model-axis phases alone (``python -c "import chip_smoke;
-    chip_smoke.tp_main()"``), for a short call; ``main`` runs them too."""
+    chip_smoke.tp_main()"``), for a short call: "tp kernels", "tp steps"
+    and "tp train", which ``main`` runs too, and "time tp", which only this
+    entry point (and ``tp_cards_main``) runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4468,41 +4549,39 @@ def main() -> int:
         with phase("trace"):
             trace_run(tmp)
 
-        # Phases 27-30: data parallelism over two spawned ranks: steps on the
+        # Phases 27-29: data parallelism over two spawned ranks: steps on the
         # global batch against one process, train() with a stop signal to
-        # one rank and the resume in one process, the torchrun CLI, the
-        # iteration's times, and the Sampler over two devices.
+        # one rank and the resume in one process, the torchrun CLI, and the
+        # Sampler over two devices (the iteration's times: dp_main).
         with phase("dp steps"):
             dp_backend_used, dp_step_launches = dp_steps(tmp)
         with phase("dp train"):
             dp_launches = dp_train(tmp, root)
-        with phase("time dp"):
-            dp_times(tmp)
         with phase("dp sampler"):
             dp_sample_launches, dp_frame_err = dp_sampler(ckpt)
 
-        # Phases 31-34: the model axis over two spawned ranks sharing this
+        # Phases 30-32: the model axis over two spawned ranks sharing this
         # card: K1 and K3 at the channel shards' shapes, one step of each
         # kind against one process, train() stopped by a signal to one rank
-        # and resumed in one process, and the iteration's time.
+        # and resumed in one process (the iteration's time: tp_main).
         with phase("tp kernels"):
             tp_kernel_out = tp_kernels(gen)
         with phase("tp steps"):
             tp_step_launches = tp_steps(tmp)
         with phase("tp train"):
             tp_launches = tp_train(tmp, root)
-        with phase("time tp"):
-            tp_times(tmp)
 
-        # Phases 35-37: the image-IO slice: the native library (PNG and JPEG
-        # decode against the plain decoder), the loader's rate by lane and
-        # threads beside the iteration, prep and frame encode times, and the
-        # training CLI on a set with JPEG or BMP files, stopped and resumed
-        # with --auto-resume, then JPEG frames.
+        # Phases 33-35: the image-IO slice: the native library (every
+        # fixture's hash, the codecs against the plain decoder, their host
+        # times), cli.prep on every slice's originals against the JAX
+        # package's recorded prep, and the training CLI on a set with JPEG
+        # or BMP files, stopped and resumed with --auto-resume, then JPEG
+        # frames (the loader's rate, in-process prep and frame encode times:
+        # io_main).
         with phase("io"):
             io_state = io_checks(tmp)
-        with phase("time loader"):
-            time_loader(io_state, it_ms, tmp, root)
+        with phase("io prep"):
+            io_prep(io_state, tmp, root)
         with phase("io train"):
             io_launches, io_sample_launches = io_train(tmp, root)
     penalized_remat = remat_steps["penalized PLR 2.0 + ADA, aug_p 0.5"]["launches"]

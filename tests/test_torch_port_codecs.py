@@ -238,14 +238,14 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     files = fx.fixtures()
     assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES)
                                    if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF,
-                                                fx.ICO_PNM_TGA))
+                                                fx.ICO_PNM_TGA, fx.RASTER))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
     # The WebP files are the committed ones: another libwebp build may encode other bytes.  So are the
     # files of the JPEG kinds (test_torch_port_jpeg_kinds.py holds them to their writers) and those under
-    # pillow/ (test_torch_port_lanes.py does), gif_tiff/ (test_torch_port_gif.py does) and ico_pnm_tga/
-    # (test_torch_port_pnm_tga.py does).
+    # pillow/ (test_torch_port_lanes.py does), gif_tiff/ (test_torch_port_gif.py does), ico_pnm_tga/
+    # (test_torch_port_pnm_tga.py does) and psd_pcx_sgi_qoi/ (test_torch_port_pcx_sgi_qoi.py does).
     webp = fx.committed_webp()
     assert sorted(webp) == sorted(fx.webp_fixtures())
     assert fx.build_manifest(files, jax_lane, str(tmp_path), webp, fx.committed_kinds(),
@@ -257,10 +257,10 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
 def test_port_matches_the_fixtures(tmp_path):
     """What ``chip_smoke.py`` checks on the card's machine: every fixture
     decodes to the manifest's hash (a 16-bit gray PNG in both lanes), each
-    BMP, ICO, CUR, DIB, PNM and Targa Pillow refuses and each GIF and TIFF
-    the port refuses raises naming the file and the reason, every source
-    encodes to its hash, and the card's written originals are the
-    manifest's bytes and decode to its hashes."""
+    BMP, ICO, CUR, DIB, PNM, Targa, PSD, PCX, SGI and QOI file Pillow
+    refuses and each GIF and TIFF the port refuses raises naming the file
+    and the reason, every source encodes to its hash, and the card's
+    written originals are the manifest's bytes and decode to its hashes."""
 
     def encode(img, quality):
         native.encode_jpeg(str(tmp_path / "e.jpg"), img, quality)
@@ -271,10 +271,12 @@ def test_port_matches_the_fixtures(tmp_path):
     planes = sum("sha256_yuv" in e for e in manifest["files"].values())
     pillow = sum("sha256_rgb_pillow" in e for e in manifest["files"].values())
     assert len(matched) == len(manifest["files"]) + planes + pillow + len(fx.SOURCES) * len(fx.QUALITIES)
-    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 6 + len(fx.committed_webp())
+    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 7 + len(fx.committed_webp())
                                       + len(fx.committed_kinds()) + len(fx.committed_pillow())
-                                      + len(fx.committed_gif_tiff()) + len(fx.committed_ico_pnm_tga()))
+                                      + len(fx.committed_gif_tiff()) + len(fx.committed_ico_pnm_tga())
+                                      + len(fx.committed_raster()))
     assert len(fx.check_card_originals(str(tmp_path), images.read_image)) == len(fx.CARD_ORIGINALS)
+    assert len(fx.check_raster_card(str(tmp_path), images.read_image)) == len(fx.RASTER_CARD)
 
 
 # --- failures ---------------------------------------------------------------
@@ -373,7 +375,7 @@ def test_eight_threads_equal_one(tmp_path):
     interpreter lock): 8 threads over a set of JPEGs and PNGs of every kind
     give what one thread gives, and the encoder likewise."""
     paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES))
-             if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF, fx.ICO_PNM_TGA)]
+             if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF, fx.ICO_PNM_TGA, fx.RASTER)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

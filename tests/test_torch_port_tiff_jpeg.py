@@ -12,12 +12,18 @@ decoder as RGBX.  ``native/tiff.cpp`` is held bit for bit to Pillow's
 ``convert("RGB")`` on files Pillow's writer makes through libtiff, on the
 libjpeg writer's other samplings, and on seeded files of every layout; the
 JAX package's prep, loader fallback and ``cli.project`` on such originals
-against the port's.  The fixed layouts and the refusals are in
-``test_torch_port_tiff.py`` (``fx.ycbcr_jpeg_layouts``,
+against the port's.  JPEG in separate planes (a one-component stream a
+plane a strip or tile: gray, RGB and CMYK planes interleaved back, YCbCr 1
+x 1 through TIFFRGBAImage) and YCbCr under Predictor 2 (libtiff's row unit,
+and its checks that leave the predictor undone) are held here on their
+layouts (``fx.jpeg_planes_predictor_layouts``), refusals
+(``fx.jpeg_planes_refusals``) and seeded files.  The other fixed layouts
+and refusals are in ``test_torch_port_tiff.py`` (``fx.ycbcr_jpeg_layouts``,
 ``fx.tiff_refusals``).  Tolerance 0.
 """
 
 import os
+import re
 import sys
 from unittest import mock
 
@@ -33,6 +39,73 @@ import torch_port_codec_fixtures as fx  # noqa: E402
 from test_torch_port_gif import _pillow, _same_as_pillow, _write  # noqa: E402
 
 SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+PLANES_LAYOUTS = fx.jpeg_planes_predictor_layouts()
+PLANES_REFUSALS = fx.jpeg_planes_refusals()
+
+
+@pytest.mark.parametrize("name", sorted(PLANES_LAYOUTS), ids=lambda n: os.path.basename(n)[:-4])
+def test_jpeg_planes_and_ycbcr_predictor_layout_matches_pillow(tmp_path, name):
+    path = _write(tmp_path, os.path.basename(name).replace(".tif", ".jpg"), PLANES_LAYOUTS[name])
+    assert _same_as_pillow(path, name)
+
+
+@pytest.mark.parametrize("name", sorted(PLANES_REFUSALS), ids=lambda n: n[:-4])
+def test_refused_jpeg_planes_raise_naming_the_file_and_the_kind(tmp_path, name):
+    """Subsampled YCbCr planes and a plane's stream of other factors than
+    1 x 1: libtiff refuses them, and so does Pillow."""
+    data, reason = PLANES_REFUSALS[name]
+    path = _write(tmp_path, name.replace(".tif", ".png"), data)
+    assert isinstance(_pillow(path), Exception)
+    with pytest.raises(OSError, match=f"{re.escape(path)}: .*{reason}"):
+        images.read_image(path)
+
+
+def _seeded_planes_or_predictor(r) -> bytes:
+    """A TIFF of JPEG streams in separate planes (gray, RGB, CMYK, YCbCr 1 x
+    1 and now and then subsampled; strips or tiles; tables; a full last
+    strip; byte order, orientation) or of YCbCr blocks under Predictor 2
+    (every sampling, LZW, Deflate, PackBits; strips of rows that are or
+    are not whole blocks, tiles; one plane or three)."""
+    h, w = int(r.integers(1, 40)), int(r.integers(1, 40))
+    kw = {"order": "<" if r.random() < 0.6 else ">"}
+    if r.random() < 0.2:
+        kw["orientation"] = int(r.integers(1, 9))
+    tiled = r.random() < 0.4
+    if r.random() < 0.5:
+        photometric = int(r.choice([1, 2, 2, 5, 6, 6]))
+        img = fx.smooth_scene(int(r.integers(1 << 30)), h, w, cell=8, step=int(r.integers(1, 8)))
+        samples = {1: img[..., 1], 2: img, 6: img}.get(photometric)
+        if photometric == 5:
+            samples = np.concatenate([img, img.min(axis=2, keepdims=True) // 2], 2)
+        if tiled:
+            kw["tile"] = (16 * int(r.integers(1, 3)), 16 * int(r.integers(1, 3)))
+        else:
+            kw["rows_per_strip"] = int(r.integers(1, h + 1))
+            kw["full_last"] = r.random() < 0.3
+        sampling = (1, 1) if r.random() < 0.85 else (2, 2)
+        return fx.jpeg_tiff(samples, photometric, int(r.integers(5, 101)), sampling, tables=r.random() < 0.7,
+                            planar=2, **kw)
+    if r.random() < 0.15:  # three planes, 1 x 1
+        return fx.tiff_bytes(r.integers(0, 256, (h, w, 3)), photometric=6, compression=int(r.choice([5, 8])),
+                             planar=2, predictor=2, tags={530: (3, [1, 1])},
+                             **({"tile": (16, 16)} if tiled else {"rows_per_strip": int(r.integers(1, h + 1))}), **kw)
+    hs, vs = SAMPLINGS[int(r.integers(len(SAMPLINGS)))]
+    if tiled:
+        kw["tile"] = (16 * int(r.integers(1, 3)), 16 * int(r.integers(1, 3)))
+    else:
+        kw["rows_per_strip"] = vs * int(r.integers(1, -(-h // vs) + 1))
+    return fx.ycbcr_predictor_tiff(r, h, w, hs, vs, int(r.choice([5, 8, 32946, 32773])), **kw)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_seeded_jpeg_planes_and_ycbcr_predictor_tiffs_match_pillow(tmp_path, seed):
+    """60 seeded files a seed: each decodes to Pillow's RGB, or where
+    Pillow refuses it (subsampled YCbCr planes) the port raises naming the
+    file."""
+    r = np.random.default_rng(2090 + seed)
+    decoded = sum(_same_as_pillow(_write(tmp_path, f"t{t}.bmp", _seeded_planes_or_predictor(r)), f"file {t}")
+                  for t in range(60))
+    assert decoded > 45
 
 
 @pytest.mark.parametrize("quality", [40, 95])

@@ -1132,7 +1132,7 @@ def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
-                   ico_pnm_tga: Optional[Dict[str, bytes]] = None) -> dict:
+                   ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1145,11 +1145,15 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     likewise) as ``gif_tiff_entry`` records it, and each under
     ``ico_pnm_tga/`` (``ico_pnm_tga``, likewise) and each of the card's
     written originals (``card_originals``, under ``card``) as
-    ``ico_pnm_tga_entry`` does; the JAX package's pyramids of the card's
+    ``ico_pnm_tga_entry`` does; each under ``psd_pcx_sgi_qoi/`` (``raster``,
+    likewise) and each of the card's written originals of that folder
+    (``raster_card_originals``, under ``raster_card``) as ``gif_tiff_entry``
+    does with ``raster_refusals``; the JAX package's pyramids of the card's
     WebP originals, of its originals of the kinds, of its originals under
     ``pillow/card/`` and of those under ``gif_tiff/card/`` together with
     the written ones cli.prep reads (by their listed names,
-    ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``)."""
+    ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``), and of the PSD, PCX, SGI,
+    QOI and TIFF originals of ``RASTER_CARD`` by their listed names."""
     import PIL
     from PIL import features
 
@@ -1158,6 +1162,7 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     pillow = committed_pillow() if pillow is None else pillow
     gif_tiff = committed_gif_tiff() if gif_tiff is None else gif_tiff
     ico_pnm_tga = committed_ico_pnm_tga() if ico_pnm_tga is None else ico_pnm_tga
+    raster = committed_raster() if raster is None else raster
     entries = {}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
@@ -1199,6 +1204,20 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         with open(path, "wb") as f:
             f.write(data)
         entries[name] = ico_pnm_tga_entry(name, path)
+    for name, data in raster.items():
+        path = os.path.join(scratch, "raster" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, raster_refusals())
+    raster_written = raster_card_originals()
+    raster_card = {}
+    for name, data in raster_written.items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        raster_card[name] = gif_tiff_entry(name, path, raster_refusals())
+    raster_listed = {RASTER_CARD[os.path.basename(n)]: d for n, d in {**raster_written, **raster}.items()
+                     if n.startswith(f"{RASTER}/card/") and RASTER_CARD[os.path.basename(n)]}
     written = card_originals()
     card_entries = {}
     for name, data in written.items():
@@ -1235,11 +1254,14 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       f"{features.version('libtiff')}), refusals with what Pillow makes of the file; "
                       f"{ICO_PNM_TGA}/ and card: Pillow {PIL.__version__}'s convert(\"RGB\") (ICO, CUR, DIB, PNM, "
                       "Targa), refusals with Pillow's error; card: the originals card_originals writes on the "
-                      "card, never committed",
+                      f"card, never committed; {RASTER}/ and raster_card: Pillow {PIL.__version__}'s "
+                      "convert(\"RGB\") (PSD, PCX, SGI, QOI, TIFF), refusals with what Pillow makes of the file; "
+                      "raster_card: the originals raster_card_originals writes on the card, never committed",
         "files": entries, "card": card_entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
+        "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed),
     }
 
 
@@ -1250,15 +1272,16 @@ def write(scratch: str) -> dict:
     pillow = pillow_fixtures(scratch)
     gif_tiff = gif_tiff_fixtures()
     ico_pnm_tga = ico_pnm_tga_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA):
+    raster = raster_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga}.items():
+                       **ico_pnm_tga, **raster}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga)
+                              ico_pnm_tga, raster)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -2176,7 +2199,7 @@ def jpeg_tiff_stream(block: np.ndarray, photometric: int, quality: int, sampling
 def jpeg_tiff(samples: np.ndarray, photometric: int = 6, quality: int = 90, sampling=(2, 2),
               rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None, tables: bool = True,
               sampling_tag="stream", full_last: bool = False, encode: Optional[Callable[[np.ndarray], bytes]] = None,
-              **kw) -> bytes:
+              planar: int = 1, **kw) -> bytes:
     """A JPEG-compressed TIFF (Compression 7) of ``samples`` ((h, w) gray,
     (h, w, 3) RGB or (h, w, 4) CMYK), a JPEG stream a strip (the last one
     as tall as the others where ``full_last``) or a tile (edges repeated
@@ -2185,22 +2208,25 @@ def jpeg_tiff(samples: np.ndarray, photometric: int = 6, quality: int = 90, samp
     streams).  YCbCr (photometric 6): YCbCrSubsampling ``sampling`` where
     ``sampling_tag`` is "stream", another pair, or absent where None.
     ``encode`` (an RGB block -> a YCbCr JPEG of those factors) writes the
-    streams in place of Pillow.  ``kw`` goes to ``tiff_bytes``."""
+    streams in place of Pillow.  Where ``planar`` is 2 each plane's strips
+    or tiles follow the plane before, each a gray stream of that plane's
+    samples as they are (YCbCr ones too).  ``kw`` goes to ``tiff_bytes``."""
     s = np.asarray(samples)
     s = s[:, :, None] if s.ndim == 2 else s
     h, w, c = s.shape
-    blocks = []
-    if tile:
-        th, tw = tile
-        padded = np.pad(s, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
-        blocks = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
-    else:
-        rps = rows_per_strip or h
-        blocks = [s[y:y + rps] for y in range(0, h, rps)]
-        if full_last and h % rps:
-            blocks[-1] = np.pad(blocks[-1], ((0, rps - blocks[-1].shape[0]), (0, 0), (0, 0)), mode="edge")
-    streams = [encode(b.astype(np.uint8)) if encode else jpeg_tiff_stream(b, photometric, quality, sampling)
-               for b in blocks]
+    streams = []
+    for p in [s[:, :, k:k + 1] for k in range(c)] if planar == 2 else [s]:
+        if tile:
+            th, tw = tile
+            padded = np.pad(p, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
+            blocks = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+        else:
+            rps = rows_per_strip or h
+            blocks = [p[y:y + rps] for y in range(0, h, rps)]
+            if full_last and h % rps:
+                blocks[-1] = np.pad(blocks[-1], ((0, rps - blocks[-1].shape[0]), (0, 0), (0, 0)), mode="edge")
+        streams += [encode(b.astype(np.uint8)) if encode else
+                    jpeg_tiff_stream(b, 1 if planar == 2 else photometric, quality, sampling) for b in blocks]
     tags = dict(kw.pop("tags", {}) or {})
     if tables:
         segs = _jpeg_segments(streams[0])
@@ -2210,7 +2236,7 @@ def jpeg_tiff(samples: np.ndarray, photometric: int = 6, quality: int = 90, samp
     if photometric == 6 and sampling_tag is not None:
         tags[530] = (3, list(sampling if sampling_tag == "stream" else sampling_tag))
     return tiff_bytes(np.zeros((h, w, c), np.uint8), photometric=photometric, compression=7,
-                      rows_per_strip=rows_per_strip, tile=tile, tags=tags, chunks=streams, **kw)
+                      rows_per_strip=rows_per_strip, tile=tile, tags=tags, chunks=streams, planar=planar, **kw)
 
 
 def port_jpeg(img: np.ndarray, quality: int) -> bytes:
@@ -2445,7 +2471,59 @@ def tiff_layouts() -> Dict[str, bytes]:
     out["gray8-raw-orientation-6.tif"] = tiff_bytes(gray, photometric=1, orientation=6)  # mapped at swapped size
     out["rgb-raw-orientation-5.tif"] = tiff_bytes(rgb, orientation=5)
     out.update(ycbcr_jpeg_layouts())
+    # the file that tiff_refusals named ycbcr-lzw-predictor.tif before the port read it: its blocks never
+    # differenced, so the predictor's sums are what Pillow shows
+    out["ycbcr-lzw-predictor.tif"] = ycbcr_predictor_tiff(_refusal_draws(), 9, 7, 1, 1)
     return {f"{GIF_TIFF}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def ycbcr_predictor_tiff(r, h: int, w: int, hs: int, vs: int, compression: int = 5, **kw) -> bytes:
+    """``ycbcr_tiff`` of seeded planes with Predictor 2 (the blocks as they
+    are: a reader differences them back, on its own row unit)."""
+    return ycbcr_tiff(*ycbcr_planes(r, h, w, hs, vs), hs, vs, compression, predictor=2, **kw)
+
+
+def jpeg_planes_predictor_layouts() -> Dict[str, bytes]:
+    """TIFFs of JPEG streams in separate planes (gray, RGB, CMYK, YCbCr 1 x
+    1) and of YCbCr blocks under Predictor 2 (1 x 1, 2 x 1, 2 x 2, 4 x 2
+    and 4 x 4, widths that leave blocks partly shown, strips and tiles,
+    rows whose unit libtiff's predictor does not divide, PackBits, which
+    takes no predictor): name -> bytes."""
+    r = np.random.default_rng(2001)
+    h, w = 27, 21
+    photo = np.clip(smooth_scene(2002, h, w, cell=8, step=4).astype(np.int64) + r.integers(-9, 10, (h, w, 3)), 0, 255)
+    cmyk = np.concatenate([photo, photo.min(axis=2, keepdims=True) // 3], 2)
+    yuv = r.integers(16, 240, (h, w, 3))
+    out = {
+        "jpeg-planes-rgb-strips-5.tif": jpeg_tiff(photo, 2, 85, rows_per_strip=5, planar=2),
+        "jpeg-planes-rgb-tiles-mm.tif": jpeg_tiff(photo, 2, 60, tile=(16, 16), planar=2, order=">"),
+        "jpeg-planes-rgb-inline-tables.tif": jpeg_tiff(photo, 2, 75, rows_per_strip=8, tables=False, planar=2),
+        "jpeg-planes-rgb-last-strip-full.tif": jpeg_tiff(photo, 2, 75, rows_per_strip=8, full_last=True, planar=2),
+        "jpeg-planes-gray.tif": jpeg_tiff(photo[..., 1], 1, 90, rows_per_strip=10, planar=2),
+        "jpeg-planes-cmyk-tiles.tif": jpeg_tiff(cmyk, 5, 80, tile=(32, 16), planar=2),
+        "jpeg-planes-ycbcr-1x1-strips-5.tif": jpeg_tiff(yuv, 6, 90, (1, 1), rows_per_strip=5, planar=2),
+        "jpeg-planes-ycbcr-1x1-tiles.tif": jpeg_tiff(yuv, 6, 70, (1, 1), tile=(16, 32), planar=2),
+        "jpeg-planes-ycbcr-1x1-tags-orientation-6.tif": jpeg_tiff(yuv, 6, 90, (1, 1), rows_per_strip=9, planar=2,
+                                                                  orientation=6, tags={
+            529: (5, [2126, 10000, 7152, 10000, 722, 10000]), 532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])}),
+    }
+    for hs, vs in ((1, 1), (2, 1), (2, 2), (4, 2), (4, 4)):
+        for width in (7, 13):
+            out[f"ycbcr-{hs}x{vs}-lzw-predictor-w{width}.tif"] = ycbcr_predictor_tiff(r, 11, width, hs, vs,
+                                                                                      rows_per_strip=4)
+        out[f"ycbcr-{hs}x{vs}-deflate-predictor-tiles.tif"] = ycbcr_predictor_tiff(r, 20, 19, hs, vs, 8, tile=(16, 16))
+    out["ycbcr-2x2-packbits-predictor.tif"] = ycbcr_predictor_tiff(r, 9, 7, 2, 2, 32773)
+    out["ycbcr-1x1-lzw-predictor-planar.tif"] = tiff_bytes(yuv, photometric=6, compression=5, planar=2, predictor=2,
+                                                           tags={530: (3, [1, 1])})
+    return {f"{RASTER}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def _refusal_draws():
+    """``tiff_refusals``' own draws for its YCbCr files, at the point where
+    it drew the planes of ycbcr-lzw-predictor.tif."""
+    rr = np.random.default_rng(1904)
+    ycbcr_planes(rr, 9, 7, 1, 4)
+    return rr
 
 
 def _reverse_bits(data: bytes) -> np.ndarray:
@@ -2482,8 +2560,6 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "jpeg-rgba.tif": (tiff_bytes(np.zeros((h, w, 4), np.uint8), compression=7, extra=(2,), data=junk),
                           "JPEG compression of other samples"),
         "ycbcr-1x4-lzw.tif": (ycbcr_tiff(*lzw_planes, 1, 4), "YCbCr pixels in this layout"),
-        "ycbcr-lzw-predictor.tif": (ycbcr_tiff(*ycbcr_planes(rr, h, w, 1, 1), 1, 1, predictor=2),
-                                    "YCbCr pixels in this layout"),
         "ycbcr-lzw-one-sample.tif": (tiff_bytes(rgb[..., 0], photometric=6, compression=5), "depth or sample layout"),
         "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk), "CCITT"),
         "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
@@ -2503,6 +2579,22 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "strip-past-the-end.tif": (_strip_at_the_end(lzw), "truncated"),
         "raw-past-the-end.tif": (_strip_at_the_end(tiff_bytes(rgb)), "truncated"),
         "no-width.tif": (_without_tag(tiff_bytes(rgb), 256), "first directory"),
+    }
+
+
+def jpeg_planes_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """JPEG TIFFs in separate planes that libtiff refuses: YCbCr subsampled
+    (no put routine for it; without the tag the default 2 x 2 stays), and
+    a plane's stream of 2 x 2 sampling factors."""
+    yuv = np.random.default_rng(2003).integers(16, 240, (16, 16, 3))
+    gray = jpeg_tiff(yuv, 2, 80, rows_per_strip=8, planar=2, tables=False)
+    at = gray.index(b"\xff\xc0") + 11  # the first stream's component: sampling factors 1 x 1 -> 2 x 2
+    return {
+        "jpeg-planes-ycbcr-2x2.tif": (jpeg_tiff(yuv, 6, 80, (2, 2), rows_per_strip=8, planar=2),
+                                      "YCbCr pixels in this layout"),
+        "jpeg-planes-ycbcr-no-subsampling-tag.tif": (jpeg_tiff(yuv, 6, 80, (1, 1), rows_per_strip=8, planar=2,
+                                                               sampling_tag=None), "YCbCr pixels in this layout"),
+        "jpeg-planes-factors-2x2.tif": (gray[:at] + b"\x22" + gray[at + 1:], "does not match the file's tags"),
     }
 
 
@@ -2578,17 +2670,19 @@ def committed_gif_tiff() -> Dict[str, bytes]:
     return dict(sorted(out.items()))
 
 
-def gif_tiff_entry(name: str, path: str) -> dict:
-    """A manifest entry of a file under ``gif_tiff/``: Pillow's RGB, or for
-    a refusal the reason the port names (``refused``) beside what Pillow
-    makes of the file (its error, or the mode it reads)."""
+def gif_tiff_entry(name: str, path: str, reasons: Optional[Dict[str, Tuple[bytes, str]]] = None) -> dict:
+    """A manifest entry of a file under ``gif_tiff/`` (or, with its
+    ``reasons``, under ``psd_pcx_sgi_qoi/``, and a card original of that
+    folder): Pillow's RGB, or for a refusal the reason the port names
+    (``refused``) beside what Pillow makes of the file (its error, or the
+    mode it reads)."""
     from PIL import Image
 
     with open(path, "rb") as f:
         data = f.read()
     entry = {"bytes": len(data), "sha256": sha256(data)}
     if "/refused/" in name:
-        reasons = {**gif_refusals(), **tiff_refusals()}
+        reasons = reasons or {**gif_refusals(), **tiff_refusals()}
         try:
             with Image.open(path) as im:
                 entry["pillow"] = f"reads it ({im.mode})"
@@ -3026,6 +3120,452 @@ def check_card_originals(folder: str, decode: Callable[[str], np.ndarray]) -> Li
         if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
             raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
         paths.append(path)
+    return paths
+
+
+
+# --- PSD, PCX, SGI and QOI: the JAX package's Pillow lane -----------------------
+
+RASTER = "psd_pcx_sgi_qoi"  # their files' folder under FIXTURES
+#: the card's originals, each by the listed name cli.prep reads it under,
+#: or None for one only timed: written on the card from seeded numpy by
+#: ``raster_card_originals`` (a 1024 px photo as a PackBits and a raw RGB
+#: PSD, a 1024 px poster as a PCX of 8 bits in 3 planes, the photo as an
+#: RLE SGI and as a QOI), or committed under ``psd_pcx_sgi_qoi/card/``
+#: (Pillow's libjpeg wrote their streams: the photo as a YCbCr 1 x 1
+#: JPEG TIFF in separate planes, one one-component stream a plane a strip,
+#: and as its twin, an RGB JPEG TIFF of one three-component stream a strip)
+RASTER_CARD = {"photo-1024-packbits.psd": "photo-1024-psd.png", "photo-1024-raw.psd": None,
+               "poster-1024.pcx": "poster-1024-pcx.jpg", "photo-1024-rle.sgi": "photo-1024-sgi.bmp",
+               "photo-1024.qoi": "photo-1024-qoi.webp", "photo-1024-jpeg-planes.tif": "photo-1024-jpeg-planes.jpg",
+               "photo-1024-jpeg-contig.tif": None}
+RASTER_COMMITTED_CARD = ("photo-1024-jpeg-planes.tif", "photo-1024-jpeg-contig.tif")
+
+
+def _runs(row: np.ndarray, limit: int) -> List[Tuple[int, int]]:
+    """(start, length) of each run of equal items of ``row`` (a 1-D array,
+    or 2-D: an item a row), a run at most ``limit`` long."""
+    row = np.asarray(row)
+    flat = row.reshape(len(row), -1)
+    change = np.flatnonzero((flat[1:] != flat[:-1]).any(axis=1)) + 1
+    starts = np.concatenate([[0], change]).tolist()
+    ends = starts[1:] + [len(row)]
+    out = []
+    for a, b in zip(starts, ends):
+        out += [(k, min(limit, b - k)) for k in range(a, b, limit)]
+    return out
+
+
+def packbits_row(row: np.ndarray) -> bytes:
+    """A row's bytes in PackBits (runs of 2-128 as 257 - n, literals of up to
+    128 as n - 1), run by run."""
+    row = np.asarray(row, np.uint8)
+    out, lit = bytearray(), []
+    for a, n in _runs(row, 128) + [(len(row), 0)]:
+        if n == 1:
+            lit.append(a)
+            if len(lit) < 128:
+                continue
+        if lit:
+            out += bytes([len(lit) - 1]) + row[lit[0]:lit[-1] + 1].tobytes()
+            lit = []
+        if n >= 2:
+            out += bytes([257 - n, row[a]])
+    return bytes(out)
+
+
+def psd_resource(rid: int, name: bytes, data: bytes) -> bytes:
+    """An image resource block: its signature, id, Pascal name padded to an
+    even length and data padded to even."""
+    label = bytes([len(name)]) + name
+    return (b"8BIM" + struct.pack(">H", rid) + label + b"\0" * (len(label) % 2) + struct.pack(">I", len(data)) + data
+            + b"\0" * (len(data) % 2))
+
+
+def psd_file(planes, mode: int, w: int, bits: int = 8, compression: int = 0, channels: Optional[int] = None,
+             color: bytes = b"", resources: bytes = b"", layers: bytes = b"", streams: Optional[List[bytes]] = None,
+             counts: Optional[List[int]] = None, version: int = 1) -> bytes:
+    """A PSD of ``planes`` ((c, h, row bytes) uint8: each channel's rows as
+    stored, 1-bit rows packed most significant bit first) in colour
+    ``mode`` at ``bits``, ``channels`` in the header (c by default); raw, or
+    PackBits (compression 1) a row at a time, or the channels' ``streams``
+    with the row byte ``counts`` given; the colour mode data, the image
+    resources and the layer section (its bytes) as given."""
+    planes = np.asarray(planes, np.uint8)
+    c, h = planes.shape[:2]
+    head = b"8BPS" + struct.pack(">H6xHIIHH", version, c if channels is None else channels, h, w, bits, mode)
+    sections = b"".join(struct.pack(">I", len(x)) + x for x in (color, resources, layers))
+    body = struct.pack(">H", compression)
+    if compression == 1:
+        if streams is None:
+            coded = [packbits_row(r) for p in planes for r in p]
+            counts, streams = [len(x) for x in coded], [b"".join(coded)]
+        body += struct.pack(f">{len(counts)}H", *counts) + b"".join(streams)
+    else:
+        body += planes.tobytes() if streams is None else b"".join(streams)
+    return head + sections + body
+
+
+def pcx_rle_rows(rows: np.ndarray, cross_rows: bool = False) -> bytes:
+    """PCX RLE of ``rows`` ((h, row bytes)): a run of 2-63 equal bytes, or a
+    byte of 0xC0 and up, as 0xC0 | n and the byte, any other byte as
+    itself; runs stop at each row's end unless ``cross_rows``."""
+    rows = np.asarray(rows, np.uint8)
+    out = bytearray()
+    for line in [rows.reshape(-1)] if cross_rows else rows:
+        for a, n in _runs(line, 63):
+            v = int(line[a])
+            out += bytes([v]) if n == 1 and v < 0xC0 else bytes([0xC0 | n, v])
+    return bytes(out)
+
+
+def pcx_file(rows: np.ndarray, w: int, h: int, bits: int, planes: int, version: int = 5, stride: Optional[int] = None,
+             palette16: bytes = bytes(48), trailing: Optional[bytes] = None, origin=(0, 0), body: Optional[bytes] = None,
+             cross_rows: bool = False) -> bytes:
+    """A PCX of ``rows`` ((h, planes * the header's stride) bytes, each row its
+    planes one after the other), RLE (``pcx_rle_rows``) or ``body`` as
+    given; the header's bbox from ``origin``, ``stride`` its bytes a plane
+    row ((w * bits + 7) // 8 rounded up to even by default), its 16-colour
+    palette, and ``trailing`` (a 12 and 768 bytes of palette) after the
+    data."""
+    stride = -(-((w * bits + 7) // 8) // 2) * 2 if stride is None else stride
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH48sBBHHHH", 10, version, 1, bits, x0, y0, x0 + w - 1, y0 + h - 1, 72, 72,
+                       palette16, 0, planes, stride, 1, 0, 0)
+    data = pcx_rle_rows(rows, cross_rows) if body is None else body
+    return head + bytes(128 - len(head)) + data + (trailing or b"")
+
+
+def sgi_rle_row(samples: np.ndarray, bpc: int) -> bytes:
+    """One channel's row in SGI RLE: runs of 2-127 as n and the sample,
+    copies of up to 127 as 0x80 | n and the samples, a 0 at the end; 16-bit
+    samples as big-endian atoms, each count the low byte of one."""
+    samples = np.asarray(samples)
+    atom = (lambda v: bytes([v])) if bpc == 1 else (lambda v: struct.pack(">H", v))
+    out, lit = bytearray(), []
+    for a, n in _runs(samples, 127) + [(len(samples), 0)]:
+        if n == 1:
+            lit.append(a)
+            if len(lit) < 127:
+                continue
+        if lit:
+            out += atom(0x80 | len(lit)) + b"".join(atom(int(v)) for v in samples[lit[0]:lit[-1] + 1])
+            lit = []
+        if n >= 2:
+            out += atom(n) + atom(int(samples[a]))
+    return bytes(out + atom(0))
+
+
+def sgi_file(samples: np.ndarray, bpc: int = 1, storage: int = 0, dimension: Optional[int] = None,
+             rows: Optional[Dict[Tuple[int, int], bytes]] = None, tables: Optional[Tuple[list, list]] = None,
+             zsize: Optional[int] = None) -> bytes:
+    """An SGI image of ``samples`` ((h, w, z) integers of ``bpc`` bytes, top
+    row first; stored bottom-up), raw (each channel's plane after the
+    other) or RLE (storage 1: a packet row per channel and row,
+    ``sgi_rle_row``, or ``rows`` {(row from the bottom, channel): bytes}),
+    its offset and length tables, or ``tables`` as given; ``dimension``
+    (3, or 2 for one channel, by default) and ``zsize`` as given."""
+    s = np.asarray(samples)
+    s = s[:, :, None] if s.ndim == 2 else s
+    h, w, z = s.shape
+    dimension = dimension or (2 if z == 1 else 3)
+    head = struct.pack(">HBBHHHHII4s80sI", 474, storage, bpc, dimension, w, h, zsize or z, 0, 255 * bpc - 1, b"",
+                       b"seeded", 0)
+    head += bytes(512 - len(head))
+    up = s[::-1]
+    if storage != 1:
+        return head + up.transpose(2, 0, 1).astype(">u2" if bpc == 2 else np.uint8).tobytes()
+    data = rows or {(y, c): sgi_rle_row(up[y, :, c], bpc) for c in range(z) for y in range(h)}
+    at = 512 + 8 * h * z
+    offsets, lengths, body = [], [], bytearray()
+    for c in range(z):
+        for y in range(h):
+            offsets.append(at + len(body))
+            lengths.append(len(data[y, c]))
+            body += data[y, c]
+    offsets, lengths = tables or (offsets, lengths)
+    return head + struct.pack(f">{len(offsets)}I{len(lengths)}I", *offsets, *lengths) + bytes(body)
+
+
+def qoi_file(w: int, h: int, channels: int, ops: bytes, end: bytes = b"\0" * 7 + b"\1") -> bytes:
+    """A QOI file: its header, then ``ops`` and ``end`` as given."""
+    return b"qoif" + struct.pack(">IIBB", w, h, channels, 0) + ops + end
+
+
+def qoi_encode(img: np.ndarray) -> bytes:
+    """A QOI file of ``img`` (uint8 (h, w, 3) or (h, w, 4)), in numpy alone
+    (so the card's machine writes it): runs of up to 62, then DIFF, LUMA,
+    RGB or RGBA, each from the pixel before; no INDEX op."""
+    h, w, c = img.shape
+    px = np.concatenate([img.reshape(-1, c), np.full((h * w, 4 - c), 255, np.uint8)], 1).astype(np.int64)
+    prev = np.concatenate([[[0, 0, 0, 255]], px[:-1]])
+    same = (px == prev).all(axis=1)
+    d = (px - prev + 128) % 256 - 128
+    dg = d[:, 1]
+    diff = ~same & (d[:, :3] >= -2).all(axis=1) & (d[:, :3] <= 1).all(axis=1) & (d[:, 3] == 0)
+    dr, db = d[:, 0] - dg, d[:, 2] - dg
+    luma = ~same & ~diff & (d[:, 3] == 0) & (dg >= -32) & (dg <= 31) & (dr >= -8) & (dr <= 7) & (db >= -8) & (db <= 7)
+    rgb = ~same & ~diff & ~luma & (d[:, 3] == 0)
+    ops = np.zeros((h * w, 5), np.int64)
+    size = np.zeros(h * w, np.int64)
+    ops[diff, 0] = 0x40 | (d[diff, 0] + 2) << 4 | (d[diff, 1] + 2) << 2 | (d[diff, 2] + 2)
+    size[diff] = 1
+    ops[luma, 0], ops[luma, 1] = 0x80 | (dg[luma] + 32), (dr[luma] + 8) << 4 | (db[luma] + 8)
+    size[luma] = 2
+    ops[rgb, 0], ops[rgb, 1:4], size[rgb] = 0xFE, px[rgb, :3], 4
+    full = ~same & ~diff & ~luma & ~rgb
+    ops[full, 0], ops[full, 1:5], size[full] = 0xFF, px[full], 5
+    # each run of repeated pixels, cut into runs of 62: one byte at its first pixel
+    edge = np.diff(np.concatenate([[0], same.astype(np.int8), [0]]))
+    for a, b in zip(np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)):
+        for k in range(a, b, 62):
+            ops[k, 0], size[k] = 0xC0 | (min(62, b - k) - 1), 1
+    keep = np.arange(5)[None, :] < size[:, None]
+    return qoi_file(w, h, c, ops[keep].astype(np.uint8).tobytes())
+
+
+
+def _pil_raster(img: np.ndarray, mode: str, fmt: str, **kw) -> bytes:
+    from PIL import Image
+
+    return pil_bytes(Image.fromarray(img).convert(mode), fmt, **kw)
+
+
+def raster_layouts() -> Dict[str, bytes]:
+    """A file of each PSD, PCX, SGI and QOI layout the port reads (name ->
+    bytes; Pillow reads each): PSD of every mode but Lab, raw and PackBits,
+    with colour data, resources and layers to skip, PackBits streams of
+    no-ops and runs across rows; PCX of 1 bit in 1, 2 and 4 planes, 8 bits
+    in 1 plane (gray, with a palette, with the gray ramp) and in 3, strides
+    Pillow pads and does not, Pillow's writer; SGI of the eight layouts
+    raw and RLE, Pillow's writer, rows left unterminated, offsets shared;
+    QOI from Pillow's writer and of every op by hand, INDEX on empty slots
+    and runs the index does not take in."""
+    r = np.random.default_rng(2011)
+    h, w = 11, 13
+    img = np.clip(smooth_scene(2012, h, w, cell=8, step=4).astype(np.int64) + r.integers(-6, 7, (h, w, 3)), 0, 255)
+    img = img.astype(np.uint8)
+    planes = np.concatenate([img, img[..., :2] // 2], 2).transpose(2, 0, 1)  # five channels
+    gray = planes[1:2]
+    bits1 = _pack(r.integers(0, 2, (h, w, 1)), 1)[None]
+    out = {}
+    # PSD
+    res = psd_resource(1005, b"", bytes(16)) + psd_resource(1039, b"icc", bytes(7)) + psd_resource(1060, b"ab", b"x")
+    layers = struct.pack(">I", 20) + bytes(r.integers(0, 256, 20, dtype=np.uint8)) + bytes(6)
+    palette = bytes(r.integers(0, 256, 768, dtype=np.uint8))
+    for comp, tag in ((0, "raw"), (1, "packbits")):
+        out[f"psd/rgb-{tag}.psd"] = psd_file(planes[:3], 3, w, compression=comp)
+        out[f"psd/rgba-{tag}.psd"] = psd_file(planes[:4], 3, w, compression=comp)
+        out[f"psd/rgb-5-channels-{tag}.psd"] = psd_file(planes, 3, w, compression=comp)
+        out[f"psd/cmyk-{tag}.psd"] = psd_file(planes[:4], 4, w, compression=comp)
+        out[f"psd/cmyk-5-channels-{tag}.psd"] = psd_file(planes, 4, w, compression=comp)
+        out[f"psd/gray-{tag}.psd"] = psd_file(gray, 1, w, compression=comp)
+        out[f"psd/indexed-{tag}.psd"] = psd_file(gray, 2, w, compression=comp, color=palette)
+        out[f"psd/bitmap-{tag}.psd"] = psd_file(bits1, 0, w, bits=1, compression=comp)
+    out["psd/bitmap-8-bit.psd"] = psd_file(gray, 0, w)
+    out["psd/multichannel.psd"] = psd_file(planes[:2], 7, w, compression=1)
+    out["psd/duotone.psd"] = psd_file(gray, 8, w, color=bytes(range(40)))
+    out["psd/indexed-no-palette.psd"] = psd_file(gray, 2, w)
+    out["psd/indexed-short-colour-data.psd"] = psd_file(gray, 2, w, color=palette[:767])
+    out["psd/resources-and-layers.psd"] = psd_file(planes[:3], 3, w, compression=1, color=b"\x01\x02\x03",
+                                                   resources=res, layers=layers)
+    # a channel in one stream, over and over: a packet that crosses a row's end is cut there, and the
+    # rows go on filling from the copies after it
+    streams = [bytes([0x80]) + packbits_row(p.reshape(-1)) * 8 for p in planes[:3]]
+    counts = [len(st) if y == 0 else 0 for st in streams for y in range(h)]
+    out["psd/packbits-runs-across-rows.psd"] = psd_file(planes[:3], 3, w, compression=1, streams=streams,
+                                                        counts=counts)
+    # PCX
+    for mode in ("1", "L", "P", "RGB"):
+        out[f"pcx/pillow-{mode}.pcx"] = _pil_raster(img, mode, "PCX")
+    idx2, idx4 = r.integers(0, 4, (h, w)), r.integers(0, 16, (h, w))
+    pal16 = bytes(r.integers(0, 256, 48, dtype=np.uint8))
+
+    def planes_of(idx, n, stride):
+        rows = np.zeros((h, n * stride), np.uint8)
+        for j in range(n):
+            rows[:, j * stride:j * stride + (w + 7) // 8] = _pack(((idx >> j) & 1)[..., None], 1)
+        return rows
+
+    out["pcx/1-bit-2-planes.pcx"] = pcx_file(planes_of(idx2, 2, 2), w, h, 1, 2, palette16=pal16)
+    out["pcx/1-bit-4-planes.pcx"] = pcx_file(planes_of(idx4, 4, 2), w, h, 1, 4, palette16=pal16)
+    out["pcx/1-bit-4-planes-stride-3.pcx"] = pcx_file(planes_of(idx4, 4, 3), w, h, 1, 4, stride=3, palette16=pal16)
+    out["pcx/1-bit-1-plane-version-0.pcx"] = pcx_file(bits1[0], w, h, 1, 1, version=0)
+    trailing_ramp = b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    padded = np.pad(gray[0], ((0, 0), (0, 1)))
+    out["pcx/8-bit-gray.pcx"] = pcx_file(padded, w, h, 8, 1, trailing=bytes(800))
+    out["pcx/8-bit-gray-ramp.pcx"] = pcx_file(padded, w, h, 8, 1, trailing=trailing_ramp)
+    out["pcx/8-bit-palette.pcx"] = pcx_file(padded, w, h, 8, 1, trailing=b"\x0c" + palette)
+    out["pcx/8-bit-odd-stride.pcx"] = pcx_file(gray[0], w, h, 8, 1, stride=w, trailing=b"\x0c" + palette)
+    rgb_rows = np.concatenate([np.pad(img[..., k], ((0, 0), (0, 1))) for k in range(3)], 1)
+    out["pcx/8-bit-3-planes.pcx"] = pcx_file(rgb_rows, w, h, 8, 3, origin=(3, 7))
+    tga = bytearray(tga_file(img[..., ::-1], 2, 24, id_field=b"0123456789"))
+    tga[4] = 5  # as PCX: xmin 5 past xmax 0 (bad PCX image size), so Pillow tries the next format, Targa
+    out["pcx/bad-bbox-read-as-targa.tga"] = bytes(tga)
+    out["pcx/8-bit-3-planes-header-stride-odd.pcx"] = pcx_file(
+        np.concatenate([np.pad(img[..., k], ((0, 0), (0, 1))) for k in range(3)], 1), w, h, 8, 3, stride=15)
+    # SGI
+    wide = img.astype(np.int64) * 257 + r.integers(0, 256, img.shape)
+    four = np.concatenate([img, img[..., :1]], 2)
+    for bpc, src in ((1, img), (2, wide)):
+        for storage in (0, 1):
+            tag = f"{8 * bpc}-bit-{'rle' if storage else 'raw'}"
+            out[f"sgi/gray-{tag}.sgi"] = sgi_file(src[..., 0], bpc, storage)
+            out[f"sgi/gray-dimension-1-{tag}.sgi"] = sgi_file(src[..., 0], bpc, storage, dimension=1)
+            out[f"sgi/rgb-{tag}.sgi"] = sgi_file(src, bpc, storage)
+            out[f"sgi/rgba-{tag}.sgi"] = sgi_file(np.concatenate([src, src[..., :1]], 2), bpc, storage)
+    for mode in ("L", "RGB", "RGBA"):
+        out[f"sgi/pillow-{mode}.sgi"] = _pil_raster(four, mode, "SGI")
+    n = h * 3
+    rle = sgi_file(img, 1, 1)
+    tab = list(struct.unpack(f">{2 * n}I", rle[512:512 + 8 * n]))
+    shared = tab.copy()
+    shared[5], shared[n + 5] = tab[0], tab[n]  # one row's packets read for another
+    out["sgi/rle-shared-offsets.sgi"] = rle[:512] + struct.pack(f">{2 * n}I", *shared) + rle[512 + 8 * n:]
+    short = tab.copy()
+    short[n + h + 4] = 1  # channel 1 of row 4 from the bottom: one packet, not the terminator, and Pillow stops
+    out["sgi/rle-one-packet-row.sgi"] = rle[:512] + struct.pack(f">{2 * n}I", *short) + rle[512 + 8 * n:]
+    # QOI
+    out["qoi/pillow-RGB.qoi"] = _pil_raster(img, "RGB", "QOI")
+    out["qoi/pillow-RGBA.qoi"] = _pil_raster(four, "RGBA", "QOI")
+    out["qoi/numpy-rgb.qoi"] = qoi_encode(img)
+    out["qoi/numpy-rgba.qoi"] = qoi_encode(four)
+    ops = (b"\x05" + b"\xc3" + b"\xfe\x10\x20\x30" + b"\x6a" + b"\xa0\x88" + b"\xff\x01\x02\x03\x04" + b"\x35"
+           + b"\xc0" + b"\x00" + bytes([(0x10 * 3 + 0x20 * 5 + 0x30 * 7 + 255 * 11) % 64]) + b"\xfe\xff\x00\x00"
+           + b"\xcb")
+    out["qoi/every-op.qoi"] = qoi_file(5, 5, 3, ops)
+    out["qoi/every-op-4-channels.qoi"] = qoi_file(5, 5, 4, ops)
+    out["qoi/channels-0.qoi"] = qoi_file(5, 5, 0, ops)
+    return {f"{RASTER}/{k}": v for k, v in sorted(out.items())}
+
+
+def raster_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """PSD, PCX, SGI and QOI files Pillow 12.1.0 refuses (and PSD's Lab
+    colour, which the port refuses by name): name -> (bytes, the reason the
+    port's ``OSError`` names, a regular expression)."""
+    r = np.random.default_rng(2013)
+    h, w = 5, 7
+    planes = r.integers(0, 256, (4, h, w)).astype(np.uint8)
+    rgb = planes[:3].transpose(1, 2, 0)
+    psd = psd_file(planes[:3], 3, w, compression=1)
+    rows = np.concatenate([np.pad(rgb[..., k], ((0, 0), (0, 1))) for k in range(3)], 1)
+    sgi = sgi_file(rgb, 1, 1)
+    n = 3 * h
+    tab = list(struct.unpack(f">{2 * n}I", sgi[512:512 + 8 * n]))
+    tab[2] = 100
+    return {
+        "psd-16-bit.psd": (psd_file(planes[:3], 3, w, bits=16), "which Pillow does not identify"),
+        "psd-version-2.psd": (psd_file(planes[:3], 3, w, version=2), "which Pillow does not identify"),
+        "psd-zip.psd": (psd_file(planes[:3], 3, w, compression=2), "ZIP"),
+        "psd-rgb-2-channels.psd": (psd_file(planes[:2], 3, w), "not enough channels"),
+        "psd-lab.psd": (psd_file(planes[:3], 9, w), "Lab colour are not read"),
+        "psd-raw-cut-short.psd": (psd_file(planes[:3], 3, w)[:-5], "truncated"),
+        "psd-packbits-cut-short.psd": (psd[:-3], "truncated"),
+        "psd-counts-cut-short.psd": (psd_file(planes[:3], 3, w, compression=1, streams=[b""], counts=[1] * 4),
+                                     "which Pillow does not identify"),
+        "psd-header-cut-short.psd": (psd[:40], "which Pillow does not identify"),
+        "pcx-unknown-mode.pcx": (pcx_file(rows, w, h, 8, 4), "unknown PCX mode"),
+        "pcx-8-bit-version-2.pcx": (pcx_file(rows[:, :8], w, h, 8, 1, version=2), "unknown PCX mode"),
+        "pcx-8-bit-shorter-than-its-palette.pcx": (pcx_file(rows[:, :8], w, h, 8, 1), "769-byte palette"),
+        "pcx-bad-bbox.pcx": (pcx_file(rows, w, h, 8, 3)[:4] + struct.pack("<HHHH", 5, 5, 2, 2)
+                             + pcx_file(rows, w, h, 8, 3)[12:], "bad PCX image size"),
+        "pcx-run-across-rows.pcx": (pcx_file(rows, w, h, 8, 3, body=bytes([0xC0 | 30, 9]) + bytes(2000)),
+                                    "past the end of its row"),
+        "pcx-cut-short.pcx": (pcx_file(rows, w, h, 8, 3)[:140], "truncated"),
+        "sgi-unknown-layout.sgi": (sgi_file(rgb, 1, 0, zsize=2), "Unsupported SGI image mode"),
+        "sgi-storage-2.sgi": (sgi_file(rgb, 1, 2), "cannot load"),
+        "sgi-raw-cut-short.sgi": (sgi_file(rgb, 1, 0)[:-3], "truncated"),
+        "sgi-rle-tables-past-the-end.sgi": (sgi[:512 + 8 * n - 4], "table past the file's end"),
+        "sgi-rle-offset-in-header.sgi": (sgi[:512] + struct.pack(f">{2 * n}I", *tab) + sgi[512 + 8 * n:],
+                                         "buffer overrun"),
+        "sgi-rle-run-past-row.sgi": (sgi_file(rgb, 1, 1, rows={(y, c): bytes([w + 1, 7, 0]) for y in range(h)
+                                                               for c in range(3)}), "run past the end of its row"),
+        "qoi-cut-short.qoi": (qoi_encode(rgb)[:-20], "truncated"),
+        "qoi-rgb-op-cut-short.qoi": (qoi_file(2, 1, 3, b"\xfe\x01\x02\x03\xfe\x01", b""), "truncated"),
+        "qoi-header-cut-short.qoi": (b"qoif" + struct.pack(">II", 4, 4), "which Pillow does not identify"),
+        **jpeg_planes_refusals(),
+    }
+
+
+def raster_card_originals() -> Dict[str, bytes]:
+    """The card's written originals of ``RASTER_CARD`` (all but the
+    committed ones), from seeded numpy alone: name (under
+    ``psd_pcx_sgi_qoi/card/``) -> bytes."""
+    side = 1024
+    photo = smooth_scene(2021, side, side, cell=128, step=4)
+    poster = smooth_scene(2022, side, side, cell=128, step=32)
+    planes = photo.transpose(2, 0, 1)
+    pcx_rows = np.concatenate([poster[..., k] for k in range(3)], 1)
+    out = {
+        "photo-1024-packbits.psd": psd_file(planes, 3, side, compression=1,
+                                            resources=psd_resource(1005, b"", bytes(16))),
+        "photo-1024-raw.psd": psd_file(planes, 3, side),
+        "poster-1024.pcx": pcx_file(pcx_rows, side, side, 8, 3),
+        "photo-1024-rle.sgi": sgi_file(photo, 1, 1),
+        "photo-1024.qoi": qoi_encode(photo),
+    }
+    assert sorted(out) == sorted(set(RASTER_CARD) - set(RASTER_COMMITTED_CARD))
+    return {f"{RASTER}/card/{k}": v for k, v in out.items()}
+
+
+def raster_committed_card() -> Dict[str, bytes]:
+    """The committed card originals of ``RASTER_COMMITTED_CARD``, written by
+    Pillow's libjpeg: the photo of ``raster_card_originals`` as a YCbCr 1 x
+    1 JPEG TIFF in separate planes (64-row strips, JPEGTables) and as an RGB
+    JPEG TIFF of the same strips, quality 75."""
+    from PIL import Image
+
+    photo = smooth_scene(2021, 1024, 1024, cell=128, step=4)
+    ycc = np.asarray(Image.fromarray(photo).convert("YCbCr"))
+    return {f"{RASTER}/card/photo-1024-jpeg-planes.tif": jpeg_tiff(ycc, 6, 75, (1, 1), rows_per_strip=64, planar=2),
+            f"{RASTER}/card/photo-1024-jpeg-contig.tif": jpeg_tiff(photo, 2, 75, rows_per_strip=64)}
+
+
+def raster_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``psd_pcx_sgi_qoi/`` (name -> bytes),
+    written anew: the layouts, the refusals and the committed card
+    originals."""
+    refused = {f"{RASTER}/refused/{k}": v for k, (v, _) in raster_refusals().items()}
+    return dict(sorted({**raster_layouts(), **jpeg_planes_predictor_layouts(), **refused,
+                        **raster_committed_card()}.items()))
+
+
+def committed_raster() -> Dict[str, bytes]:
+    """The committed files under ``psd_pcx_sgi_qoi/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, RASTER)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def check_raster_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Writes ``raster_card_originals`` into ``folder`` and holds each, and
+    each committed card original, to the manifest (``raster_card``; the
+    committed ones under ``files``): bytes and ``decode``'s RGB.  Returns
+    name -> path of each; raises ``AssertionError`` naming the first that
+    differs."""
+    manifest = load_manifest()
+    want = {**manifest["raster_card"], **{n: e for n, e in manifest["files"].items()
+                                          if n.startswith(f"{RASTER}/card/")}}
+    paths = {}
+    written = raster_card_originals()
+    for name in sorted(want):
+        path = os.path.join(FIXTURES, name)
+        if name in written:
+            if sha256(written[name]) != want[name]["sha256"]:
+                raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+            path = os.path.join(folder, os.path.basename(name))
+            with open(path, "wb") as f:
+                f.write(written[name])
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths[os.path.basename(name)] = path
+    if sorted(paths) != sorted(RASTER_CARD):
+        raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(RASTER_CARD)}")
     return paths
 
 
