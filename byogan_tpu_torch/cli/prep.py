@@ -3,8 +3,11 @@
     python -m byogan_tpu_torch.cli.prep <datapath> [start_size] [end_size]
                                         [-y] [-w WORKERS] [--pack] [-d DEVICE]
 
-Moves the PNG, JPEG or BMP originals under ``<datapath>`` into
-``original/images`` and writes ``prepared/set_{k}/images/image-{n}.png``
+Moves the originals under ``<datapath>`` (files named .png, .jpg, .jpeg,
+.bmp or .webp, each read by its bytes whatever its name, as the JAX
+package's prep reads it through Pillow: PNG, JPEG, BMP, WebP, GIF, TIFF and
+BigTIFF (Lab and CCITT fax among them), ICO, CUR, DIB, PNM, Targa, PSD
+(Lab among them), PCX, SGI or QOI) into ``original/images`` and writes ``prepared/set_{k}/images/image-{n}.png``
 for every size from ``start_size`` to ``end_size`` (``data/prep.py``),
 asking before it rebuilds an existing set unless ``-y``.  ``--pack`` also
 writes each set's ``packed.npy``, which training reads with no decode.
@@ -21,8 +24,12 @@ from byogan_tpu_torch.data.prep import prepare_pyramid
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Prepare a dataset pyramid")
-    parser.add_argument("datapath", help="path to data set. Eg './data/images'", type=str)
+    parser = argparse.ArgumentParser(
+        description="Prepare a dataset pyramid from image originals, each read by its bytes: PNG, JPEG, BMP, WebP, "
+                    "GIF, TIFF and BigTIFF (Lab and CCITT fax among them), ICO, CUR, DIB, PNM, Targa, PSD, PCX, SGI "
+                    "or QOI")
+    parser.add_argument("datapath", help="path to data set, a folder of image originals named .png, .jpg, .jpeg, .bmp or .webp. "
+                                         "Eg './data/images'", type=str)
     parser.add_argument(
         "start_size", nargs="?", default=4, type=int,
         help="first progression image size (default is 4)",

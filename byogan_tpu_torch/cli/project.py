@@ -3,15 +3,16 @@
     python -m byogan_tpu_torch.cli.project ckpt.pth a.png [b.png ...] -o out/
         [--iters 400] [--lr 0.05] [--w-plus] [--ema] [--seed 0] [-d cpu]
 
-Inverts images (PNG, JPEG, BMP, WebP, GIF, TIFF, ICO, CUR, PNM or
-Targa, told apart by their bytes whatever their names, ``data/images.py``:
-the port's own codecs, on any machine) into the generator's W space
-(``projector.project``, float32) and writes ``{stem}-proj.png`` (the reconstruction) and
-``{stem}-w.npy`` (its w, or its W+ rows) per input.  An input whose size
-is not the checkpoint's stage resolution is resized with
-``F.interpolate(mode="bilinear", antialias=True)``; the JAX CLI resizes
-with PIL's bilinear filter, so the two targets differ slightly.  On the
-GPU unless ``-d cpu``.
+Inverts images (PNG, JPEG, BMP, WebP, GIF, TIFF, BigTIFF, ICO, CUR, DIB,
+PNM, Targa, PSD, PCX, SGI or QOI, told apart by their bytes whatever
+their names, ``data/images.py``: the port's own codecs, on any machine)
+into the generator's W space (``projector.project``, float32) and writes
+``{stem}-proj.png`` (the reconstruction) and ``{stem}-w.npy`` (its w, or
+its W+ rows) per input.  An input whose size is not the checkpoint's
+stage resolution is resized with Pillow's bilinear filter
+(``core.resize.resize_uint8_bilinear_pil_plain``), as the JAX CLI's
+``im.resize((res, res), Image.BILINEAR)`` does, bit for bit.  On the GPU
+unless ``-d cpu``.
 """
 
 from __future__ import annotations
@@ -20,27 +21,24 @@ import argparse
 import os
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 
 def load_target(path: str, res: int) -> np.ndarray:
     """One image file (any format ``read_image`` reads, in the lane of the
     JAX CLI, Pillow's ``convert("RGB")``) as uint8 (res, res, 3)."""
+    from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil_plain
     from byogan_tpu_torch.data.images import read_image
 
     img = read_image(path, lane="pillow")
     if img.shape[:2] == (res, res):
         return img
-    x = torch.from_numpy(img).permute(2, 0, 1)[None].float()
-    x = F.interpolate(x, size=(res, res), mode="bilinear", align_corners=False, antialias=True)
-    return x[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+    return resize_uint8_bilinear_pil_plain(img, res)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Project images into the generator's W space")
     parser.add_argument("checkpoint", help="checkpoint (.pth)")
-    parser.add_argument("images", nargs="+", help="input PNG file(s)")
+    parser.add_argument("images", nargs="+", help="input image file(s): PNG, JPEG, BMP, WebP, GIF, TIFF, ICO, CUR, DIB, PNM, Targa, PSD, PCX, SGI or QOI")
     parser.add_argument("-o", "--output", default=".", help="output directory")
     parser.add_argument("--iters", default=400, type=int, help="optimization iterations")
     parser.add_argument("--lr", default=0.05, type=float, help="Adam LR")

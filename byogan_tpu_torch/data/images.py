@@ -3,13 +3,13 @@
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
 first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
-GIF (the first frame) and TIFF (the first page) through the port's own
-codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
+GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax and Lab
+among them) through the port's own codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_pnm``), Targa (``decode_tga``), PSD (``decode_psd``), PCX
 (``decode_pcx``), SGI (``decode_sgi``) and QOI (``decode_qoi``) in numpy
 below, their sequential loops (plain PNM samples, Targa RLE packets,
-PackBits, PCX and SGI RLE, QOI ops) in the native library; each as the
-JAX package's lane for it reads it.  A file of another format that
+PackBits, PCX and SGI RLE, QOI ops) and a Lab PSD's conversion to sRGB
+in the native library; each as the JAX package's lane for it reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
 files are not read by the PyTorch port"), one that no Pillow plugin
 accepts "unknown format", and one a decoder refuses names the reason: no
@@ -755,11 +755,14 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     - the header, colour mode data, image resources and layer section as
       Pillow's ``_open`` walks them (``_Reader``), layers skipped by their
       section's length;
-    - every (mode, bits) of ``PSD_MODES`` but Lab: bitmap (1-bit, a set bit
-      white, as Pillow reads it), gray, multichannel, duotone and 8-bit
-      bitmap as L, indexed through the colour mode data where it is 768
-      bytes (planar R, G, B; black without), RGB from the first 3 channels
-      (4 channels: RGBA, the alpha dropped), CMYK inverted then ``cmyk2rgb``;
+    - every (mode, bits) of ``PSD_MODES``: bitmap (1-bit, a set bit white,
+      as Pillow reads it), gray, multichannel, duotone and 8-bit bitmap as
+      L, indexed through the colour mode data where it is 768 bytes
+      (planar R, G, B; black without), RGB from the first 3 channels (4
+      channels: RGBA, the alpha dropped), CMYK inverted then ``cmyk2rgb``,
+      Lab from the first 3 channels (each plane read as L, so a* and b*
+      stay with 128 as zero) through LittleCMS's Lab -> sRGB transform as
+      Pillow's ``convert`` applies it (``native.lab_to_rgb``);
     - raw channels, and PackBits through the native library
       (``native.packbits``: Pillow's PackbitsDecode.c, a channel's stream
       from the offset its row counts give to the file's end).
@@ -767,7 +770,7 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     What Pillow does not identify (another version, mode or depth, a
     header cut short) raises ``NotThisFormat``; what it refuses (too few
     channels, ZIP or another compression, data cut short, too many pixels)
-    and Lab colour raise ``OSError`` naming the file and the reason."""
+    raises ``OSError`` naming the file and the reason."""
 
     def refuse(why: str) -> OSError:
         return OSError(f"{name}: PSD {why}, which Pillow (the JAX package's PSD lane) does not read")
@@ -783,8 +786,6 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     mode, need = PSD_MODES[psd_mode, bits]
     if need > channels:
         raise refuse(f"of mode {mode} with {channels} channels (not enough channels)")
-    if mode == "LAB":
-        raise OSError(f"{name}: PSD files in Lab colour are not read by the PyTorch port")
     if mode == "RGB" and channels == 4:
         mode, need = "RGBA", 4
     palette = None
@@ -846,6 +847,8 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     px = np.stack(planes, -1)
     if mode == "CMYK":
         return _cmyk2rgb(255 - px)
+    if mode == "LAB":
+        return native.lab_to_rgb(px)
     return _rgb(px)
 
 

@@ -8,10 +8,12 @@ lanes part, as either lane reads them); the JPEG kinds that lane
 refuses or reads otherwise (CMYK, YCCK, lossless, progressive files left
 for block smoothing), WebP files (VP8, VP8L, VP8X with its alpha
 dropped, the first frame of an animation), GIF files (the first frame)
-and TIFF files (the first page) bit for bit with its Pillow lane
-(libjpeg-turbo 3.1.3, libwebp, Pillow 12.1.0's GIF decoder, libtiff
-4.7.1); ``decode_buffer`` does the same for bytes in memory (an icon's PNG
-frame); ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``
+and TIFF files (the first page; BigTIFF, CCITT fax and CIELab among
+them) bit for bit with its Pillow lane (libjpeg-turbo 3.1.3, libwebp,
+Pillow 12.1.0's GIF decoder, libtiff 4.7.1, LittleCMS 2.17's Lab -> sRGB
+transform); ``lab_to_rgb`` runs that transform alone (a Lab PSD's
+planes); ``decode_buffer`` does the same as ``decode_image`` for bytes in
+memory (an icon's PNG frame); ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``
 and ``qoi`` run the sequential loops of ``data/images.py``'s PNM, Targa,
 PSD, PCX, SGI and QOI readers as Pillow's decoders do;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
@@ -31,7 +33,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 9
+ABI_VERSION = 10
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -62,22 +64,25 @@ ERRORS = {
     -25: "more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)",
     -26: "a TIFF header or first directory that does not describe an image Pillow reads (a bad version, a tag "
          "missing or not an integer, strip or tile offsets that do not match the image)",
-    -27: "BigTIFF files are not read by the PyTorch port",
+    -27: "a big-endian (MM) BigTIFF, which Pillow 12.1.0 takes for a classic TIFF (it tests the version's first "
+         "byte alone) and cannot identify",
     -28: "TIFF files with old-style JPEG compression, or with JPEG compression of other samples than 8-bit gray, "
          "RGB, CMYK or YCbCr, are not read by the PyTorch port",
-    -29: "TIFF files with CCITT (fax) compression are not read by the PyTorch port",
+    -29: "TIFF files with CCITT (fax) compression of other samples than 1-bit gray, which libtiff does not decode "
+         "(Bits/sample must be 1 for Group 3/4 encoding/decoding) or the PyTorch port does not read (a palette)",
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
     -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
     -32: "TIFF files of YCbCr pixels in this layout (a subsampling libtiff has no routine for, subsampled "
          "separate planes, one sample under compression, bad coefficients) are not read by the "
          "PyTorch port",
-    -34: "TIFF files of this photometric interpretation (Lab, which Pillow converts through LittleCMS, a "
-         "mask...) are not read by the PyTorch port",
+    -34: "TIFF files of this photometric interpretation (ICCLab, ITULab, a mask...) are not read by the "
+         "PyTorch port",
     -37: "uncompressed TIFF files with FillOrder 2 of MinIsWhite 8-bit gray or 1-, 2- or 4-bit palettes, which "
          "Pillow's raw decoder has no raw mode for (unknown raw mode)",
     -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-, 2-, 4- and "
          "8-bit gray, unsigned and signed 16-bit gray, 32-bit float gray, 8-bit gray with alpha, 8- and 16-bit "
-         "RGB with extra samples, 1- to 8-bit palettes and 8- and 16-bit CMYK, as Pillow's keys list them)",
+         "RGB with extra samples, 1- to 8-bit palettes, 8- and 16-bit CMYK and 8-bit Lab of three samples, as "
+         "Pillow's keys list them)",
     -39: "a TIFF predictor that libtiff refuses on these samples",
     -40: "TIFF files of old-style LZW codes are not read by the PyTorch port",
     -41: "a plain PBM sample other than 0 or 1 (Pillow: Invalid token for this mode)",
@@ -91,6 +96,8 @@ ERRORS = {
     -48: "a PCX RLE run past the end of its row (Pillow: buffer overrun when reading image file)",
     -49: "an SGI RLE offset or length table past the file's end, a row outside the file's data or a run past the "
          "end of its row (Pillow: buffer overrun when reading image file)",
+    -50: "CCITT (fax) data that libtiff decodes only with errors, which Pillow shows as decoded (a bad code word, "
+         "an uncompressed-mode extension, a row of the wrong length, data that end before the last row)",
 }
 
 _P = ctypes.c_void_p
@@ -108,6 +115,7 @@ SIGNATURES = {
     "byogan_pcx_rle": [_P, _N, _I, _I, _P],
     "byogan_sgi_rle": [_P, _N, _I, _I, _I, _I, _P],
     "byogan_qoi": [_P, _N, _I, _N, _P],
+    "byogan_lab_rgb": [_P, _N, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
@@ -260,6 +268,19 @@ def qoi(data: bytes, name: str, bands: int, h: int, w: int) -> np.ndarray:
     rc = load_library().byogan_qoi(data, len(data), bands, h * w, out.ctypes.data)
     if rc != 0:
         raise _failed(name, "QOI decode", rc)
+    return out
+
+
+def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
+    """8-bit CIE Lab triples, uint8 (..., 3) of Pillow's LAB bands (L, then
+    a and b with 128 as zero), as uint8 sRGB of the same shape: what
+    Pillow 12.1.0's ``convert("RGB")`` of a LAB image makes of them through
+    LittleCMS 2.17 (``native/lab.cpp``)."""
+    lab = np.ascontiguousarray(lab, np.uint8)
+    if lab.shape[-1:] != (3,):
+        raise ValueError(f"expected (..., 3) Lab triples, got {lab.shape}")
+    out = np.empty_like(lab)
+    load_library().byogan_lab_rgb(lab.ctypes.data, lab.size // 3, out.ctypes.data)
     return out
 
 

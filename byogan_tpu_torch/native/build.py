@@ -5,10 +5,15 @@ One ``g++`` call compiles the port's own codecs into
 the CUDA kernels of ``ops/build.py``), at first use and again whenever a
 source is newer:
 
-    g++ -O3 -shared -fPIC -std=c++17 byogan_io.cpp png.cpp jpeg_decode.cpp \\
-        jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp jpeg_tables.cpp webp.cpp \\
-        vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp gif.cpp tiff.cpp pnm_tga.cpp \\
-        psd_pcx_sgi_qoi.cpp -o build/libbyogan_io.so -lz
+    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off byogan_io.cpp png.cpp \\
+        jpeg_decode.cpp jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp \\
+        jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp \\
+        gif.cpp tiff.cpp ccitt.cpp lab.cpp pnm_tga.cpp psd_pcx_sgi_qoi.cpp \\
+        -o build/libbyogan_io.so -lz
+
+``-ffp-contract=off`` keeps the compiler from fusing a multiply and an add
+into one rounding on machines with FMA instructions, so that lab.cpp's
+float pipeline rounds as LittleCMS's does wherever it is built.
 
 zlib is the one library it links (PNG's inflate), on every machine: no
 libpng, libjpeg or libwebp.  A machine without ``zlib.h`` fails the build,
@@ -31,12 +36,12 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
-                                   "webp_tables.cpp", "gif.cpp", "tiff.cpp", "pnm_tga.cpp",
+                                   "webp_tables.cpp", "gif.cpp", "tiff.cpp", "ccitt.cpp", "lab.cpp", "pnm_tga.cpp",
                                    "psd_pcx_sgi_qoi.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 LIBS = ("-lz",)
 
 

@@ -4,7 +4,8 @@
 // decode (jpeg_decode.cpp) and JPEG encode (jpeg_encode.cpp), each bit for
 // bit with the JAX package's libpng and libjpeg-turbo lane, WebP decode
 // (webp.cpp, vp8_decode.cpp, vp8l_decode.cpp), GIF decode (gif.cpp) and
-// TIFF decode (tiff.cpp), bit for bit with the JAX package's Pillow lane,
+// TIFF decode (tiff.cpp, with ccitt.cpp's fax decoders and lab.cpp's Lab ->
+// sRGB transform), bit for bit with the JAX package's Pillow lane,
 // the plain PNM and Targa RLE loops of the PNM and Targa readers
 // (pnm_tga.cpp), the PackBits, PCX RLE, SGI RLE and QOI loops of the PSD,
 // PCX, SGI and QOI readers (psd_pcx_sgi_qoi.cpp), and the PNG row unfilter
@@ -143,7 +144,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 9; }
+int byogan_abi_version() { return 10; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -222,6 +223,14 @@ int byogan_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsi
 // (Pillow's QoiDecoder): `pixels` pixels of `bands` (3 or 4) bytes into out.
 int byogan_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out) {
   return byogan::decode_qoi(data, size, bands, pixels, out);
+}
+
+// n 8-bit CIE Lab triples (L, a + 128, b + 128: Pillow's LAB bands) into n
+// sRGB triples, as Pillow 12.1.0 converts a LAB image to RGB through
+// LittleCMS 2.17 (lab.cpp).  The PSD reader's Lab planes go through it.
+int byogan_lab_rgb(const uint8_t* lab, size_t n, uint8_t* rgb) {
+  byogan::lab_to_rgb(lab, n, rgb);
+  return byogan::kOk;
 }
 
 // For the tests alone: the Y, U and V planes of a lossy WebP file's frame

@@ -37,13 +37,13 @@ enum Status {
   kGifEmptyFrame = -24,    // a GIF whose first frame has no width or no height
   kTooLarge = -25,         // more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)
   kTiffDirectory = -26,    // a TIFF header or first directory that does not describe an image Pillow reads
-  kTiffBig = -27,          // BigTIFF
+  kTiffBig = -27,          // a big-endian (MM) BigTIFF, which Pillow reads as a classic TIFF and cannot identify
   kTiffJpeg = -28,         // TIFF with old-style JPEG compression, or JPEG of samples the port does not read
-  kTiffCcitt = -29,        // TIFF with CCITT (fax) compression
+  kTiffCcitt = -29,        // TIFF with CCITT (fax) compression of other samples than 1-bit gray
   kTiffLogLuv = -30,       // TIFF with LogLuv or LogL data
   kTiffCompression = -31,  // TIFF with another compression (LZMA, ZSTD, WebP, JBIG...)
   kTiffYcbcr = -32,        // TIFF with YCbCr pixels in a layout the port does not read
-  kTiffPhotometric = -34,  // TIFF with another photometric interpretation (Lab, a mask...)
+  kTiffPhotometric = -34,  // TIFF with another photometric interpretation (ICCLab, ITULab, a mask...)
   kTiffFillOrder = -37,    // TIFF with FillOrder 2 of samples Pillow's raw decoder has no raw mode for
   kTiffLayout = -38,       // TIFF samples of another depth or layout than the port reads
   kTiffPredictor = -39,    // a TIFF predictor libtiff refuses on these samples
@@ -57,6 +57,7 @@ enum Status {
   kTiffJpegStream = -47,   // a JPEG-compressed TIFF strip or tile that does not match the file's tags
   kPcxOverrun = -48,       // a PCX RLE run past the end of its row
   kSgiOverrun = -49,       // an SGI RLE table or row past the file's end, or a run past its row's end
+  kTiffCcittData = -50,    // CCITT data libtiff decodes only with errors (a bad code word, a row of the wrong length...)
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -83,6 +84,20 @@ int decode_packbits_rows(const uint8_t* data, size_t size, int row_bytes, int ro
 int decode_pcx_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
 int decode_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsize, int ysize, uint8_t* out);
 int decode_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out);
+
+// One strip or tile of CCITT data (compression 2, 3, 4 or 32771; T4Options
+// `t4options`) of rows of `width` pixels, as libtiff's tif_fax3.c decodes
+// it (ccitt.cpp): rows * row_bytes bytes into out, a bit a pixel, most
+// significant first, 1 for black runs.  `file_at` is the data's offset in
+// the file (32771 aligns each row to 16 bits of the file).  Fails with
+// kTiffCcittData where libtiff reports an error or a warning.
+int decode_ccitt(const uint8_t* in, size_t n, uint64_t file_at, uint32_t compression, uint32_t t4options,
+                 uint32_t width, uint32_t rows, size_t row_bytes, uint8_t* out);
+
+// n 8-bit CIE Lab triples (L, then a and b with 128 as zero: Pillow's LAB
+// bands) to n sRGB triples, as Pillow 12.1.0's convert("RGB") of a LAB
+// image makes them through LittleCMS 2.17 (lab.cpp).
+void lab_to_rgb(const uint8_t* lab, size_t n, uint8_t* rgb);
 
 // One strip or tile of a JPEG-compressed TIFF (tiff.cpp): `tables` (the
 // JPEGTables tag, empty where there is none) read before `data`; YCbCr ->

@@ -5,14 +5,19 @@
 //
 // What is read, as Pillow reads it:
 //
-// - classic TIFF, II or MM byte order, the first image file directory;
-//   strips or tiles; PlanarConfiguration 1 and 2;
+// - classic TIFF, II or MM byte order, and little-endian BigTIFF (8-byte
+//   offsets and counts, 20-byte entries, LONG8 values; Pillow takes an MM
+//   BigTIFF for a classic one and cannot identify it), the first image file
+//   directory; strips or tiles; PlanarConfiguration 1 and 2;
 // - compression none, PackBits, LZW (libtiff's decoder: MSB-first codes,
 //   the width one code early, a table that may grow past 4096 entries
 //   without a Clear) and Deflate (8 and 32946), with Predictor 2
 //   (horizontal differencing of 8-, 16- and 32-bit samples) where libtiff
 //   applies it: under LZW and Deflate; uncompressed and PackBits data take
-//   no predictor, as libtiff installs none for them;
+//   no predictor, as libtiff installs none for them; CCITT of bilevel
+//   samples: Modified Huffman (2, and 32771 word-aligned), T.4 1-D and 2-D
+//   (3) and T.6 (4), libtiff's tif_fax3.c decoders in ccitt.cpp, data that
+//   libtiff decodes only with errors refused;
 // - the pixel kinds of Pillow's OPEN_INFO keys that need no codec library:
 //   bilevel and 2- and 4-bit gray (MinIsWhite and MinIsBlack), 8-bit gray
 //   (MinIsWhite inverted; signed samples read unsigned), 16-bit gray (I;16
@@ -22,7 +27,9 @@
 //   16-bit RGB with extra samples (dropped; an associated alpha first is
 //   divided out as Pillow's RGBa unpackers do; 16-bit samples keep their
 //   high byte), 1-, 2-, 4- and 8-bit palettes (each 16-bit colour map entry
-//   / 256) and 8- and 16-bit CMYK (Pillow's cmyk2rgb);
+//   / 256), 8- and 16-bit CMYK (Pillow's cmyk2rgb) and 8-bit CIELab of three
+//   samples (Pillow's LAB: a* and b* XOR 0x80 in one plane, as they are in
+//   separate planes, then LittleCMS's Lab -> sRGB, lab.cpp);
 // - FillOrder 2: Pillow's raw decoder reverses each byte's bits (its ;R raw
 //   modes), libtiff the coded bytes' before it decodes them;
 // - Pillow's quirks: a plane of separate planes read by one character of
@@ -52,10 +59,10 @@
 // - the Orientation tag, applied as Pillow's load does
 //   (ImageOps.exif_transpose).
 //
-// Everything else returns a code of codec.h that names it: BigTIFF, old
-// JPEG and JPEG of other samples, CCITT, LogLuv and other compressions,
-// YCbCr in a layout libtiff has no routine for (1x4, 2x4, subsampled
-// planes), Lab and other photometric interpretations,
+// Everything else returns a code of codec.h that names it: MM BigTIFF, old
+// JPEG and JPEG of other samples, CCITT of other samples, LogLuv and other
+// compressions, YCbCr in a layout libtiff has no routine for (1x4, 2x4,
+// subsampled planes), ICCLab, ITULab and other photometric interpretations,
 // other depths and sample layouts, FillOrder 2 where Pillow has no raw
 // mode for it, old-style LZW, truncated or corrupt data (where libtiff or
 // Pillow's raw decoder fails; YCbCr data short of the tags, and YCbCr
@@ -84,10 +91,15 @@ struct Bytes {
     return big ? (uint32_t)data[at] << 24 | data[at + 1] << 16 | data[at + 2] << 8 | data[at + 3]
                : data[at] | data[at + 1] << 8 | data[at + 2] << 16 | (uint32_t)data[at + 3] << 24;
   }
+  uint64_t u64(size_t at) const {
+    return big ? (uint64_t)u32(at) << 32 | u32(at + 4) : (uint64_t)u32(at + 4) << 32 | u32(at);
+  }
 };
 
-// One tag's values, read as unsigned integers (BYTE, SHORT, LONG), or as
-// floats (RATIONAL, as libtiff reads them), and where they lie in the file.
+// One tag's values, read as unsigned integers (BYTE, SHORT, LONG, and in
+// BigTIFF LONG8, a value past 32 bits held as 0xffffffff: past any file this
+// reader opens), or as floats (RATIONAL, as libtiff reads them), and where
+// they lie in the file.
 struct Tag {
   bool present = false;
   std::vector<uint32_t> v;
@@ -100,12 +112,12 @@ enum TagId {
   kStripOffsets = 273, kOrientation = 274, kSamples = 277, kRowsPerStrip = 278, kStripBytes = 279,
   kPlanar = 284, kPredictor = 317, kColorMap = 320, kTileWidth = 322, kTileLength = 323, kTileOffsets = 324,
   kTileBytes = 325, kExtraSamples = 338, kSampleFormat = 339, kJpegTables = 347, kYcbcrCoefficients = 529,
-  kYcbcrSubsampling = 530, kReferenceBlackWhite = 532,
+  kYcbcrSubsampling = 530, kReferenceBlackWhite = 532, kT4Options = 292,
 };
 const int kTags[] = {kWidth, kLength, kBits, kCompression, kPhotometric, kFillOrder, kStripOffsets,
                      kOrientation, kSamples, kRowsPerStrip, kStripBytes, kPlanar, kPredictor, kColorMap,
                      kTileWidth, kTileLength, kTileOffsets, kTileBytes, kExtraSamples, kSampleFormat,
-                     kJpegTables, kYcbcrCoefficients, kYcbcrSubsampling, kReferenceBlackWhite};
+                     kJpegTables, kYcbcrCoefficients, kYcbcrSubsampling, kReferenceBlackWhite, kT4Options};
 
 int tag_slot(int id) {
   for (int i = 0; i < (int)(sizeof(kTags) / sizeof(kTags[0])); i++)
@@ -119,34 +131,44 @@ int tag_slot(int id) {
 // skipped.  *whole is false where either happened (libtiff refuses such a
 // directory).  kTiffDirectory where a tag of kTags holds no integers (the
 // JPEG tables: bytes; the YCbCr coefficients and reference black and
-// white: rationals).
-int read_directory(const Bytes& f, size_t at, std::vector<Tag>* tags, bool* whole) {
+// white: rationals).  BigTIFF (`bigtiff`): an 8-byte entry count, 20-byte
+// entries of an 8-byte count and an 8-byte value or offset, and LONG8 (16)
+// among the integers; SLONG8 and IFD8, which Pillow's reader skips, are no
+// integers here.
+int read_directory(const Bytes& f, uint64_t at, bool bigtiff, std::vector<Tag>* tags, bool* whole) {
   tags->assign(sizeof(kTags) / sizeof(kTags[0]), Tag());
   *whole = true;
-  if (at < 8 || at + 2 > f.size) return kTiffDirectory;
-  const uint32_t n = f.u16(at);
-  for (uint32_t i = 0; i < n; i++) {
-    const size_t e = at + 2 + 12 * i;
-    if (e + 12 > f.size) {
+  const size_t head = bigtiff ? 8 : 2, entry = bigtiff ? 20 : 12, field = bigtiff ? 8 : 4;
+  if (at < 2 * field || at > f.size || f.size - at < head) return kTiffDirectory;
+  const uint64_t n = bigtiff ? f.u64(at) : f.u16(at);
+  for (uint64_t i = 0; i < n; i++) {
+    if ((f.size - at - head) / entry <= i) {
       *whole = false;
       break;
     }
+    const size_t e = at + head + entry * i;
     const int slot = tag_slot((int)f.u16(e));
     if (slot < 0) continue;
-    const uint32_t type = f.u16(e + 2), count = f.u32(e + 4);
+    const uint32_t type = f.u16(e + 2);
+    const uint64_t count = bigtiff ? f.u64(e + 4) : f.u32(e + 4);
     const int id = kTags[slot];
     const bool rational = id == kYcbcrCoefficients || id == kReferenceBlackWhite;
     const int size = rational ? (type == 5 ? 8 : 0)
                      : id == kJpegTables ? (type == 7 || type == 1 ? 1 : 0)
-                     : type == 1 ? 1 : type == 3 ? 2 : type == 4 ? 4 : 0;
+                     : type == 1 ? 1 : type == 3 ? 2 : type == 4 ? 4 : type == 16 && bigtiff ? 8 : 0;
     if (!size || count == 0) return kTiffDirectory;
-    size_t pos = e + 8;
-    if ((uint64_t)size * count > 4) {
-      pos = f.u32(e + 8);
-      if (pos + (uint64_t)size * count > f.size) {
+    size_t pos = e + 4 + field;
+    if (count > f.size / size) {  // more values than the file holds
+      *whole = false;
+      continue;
+    }
+    if ((uint64_t)size * count > field) {
+      const uint64_t where = bigtiff ? f.u64(pos) : f.u32(pos);
+      if (where > f.size || (uint64_t)size * count > f.size - where) {
         *whole = false;
         continue;
       }
+      pos = (size_t)where;
     }
     Tag& t = (*tags)[slot];
     t.present = true;
@@ -166,7 +188,10 @@ int read_directory(const Bytes& f, size_t at, std::vector<Tag>* tags, bool* whol
     t.v.resize(count);
     for (uint32_t k = 0; k < count; k++) {
       const size_t p = pos + (size_t)size * k;
-      t.v[k] = size == 1 ? f.data[p] : size == 2 ? f.u16(p) : f.u32(p);
+      t.v[k] = size == 1   ? f.data[p]
+               : size == 2 ? f.u16(p)
+               : size == 4 ? f.u32(p)
+                           : (uint32_t)std::min<uint64_t>(f.u64(p), 0xffffffffu);
     }
   }
   return kOk;
@@ -298,7 +323,7 @@ int deflate_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
 }
 
 // The pixel kinds read (Pillow's mode and raw mode).
-enum Kind { kBilevel, kGray, kGray16, kSigned16, kFloat, kGrayAlpha, kRgb, kPalette, kCmyk };
+enum Kind { kBilevel, kGray, kGray16, kSigned16, kFloat, kGrayAlpha, kRgb, kPalette, kCmyk, kLab };
 
 // Each byte's bits in reverse order (FillOrder 2).
 void reverse_bits(uint8_t* p, size_t n) {
@@ -449,11 +474,16 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   Bytes f{file, size, file[0] == 'M'};
   if (!((file[0] == 'I' && file[1] == 'I') || (file[0] == 'M' && file[1] == 'M'))) return kNotImage;
   const uint32_t version = f.u16(2);
-  if (version == 43) return kTiffBig;
-  if (version != 42) return kTiffDirectory;  // libtiff: "bad version number"
+  if (version != 42 && version != 43) return kTiffDirectory;  // libtiff: "bad version number"
+  // BigTIFF: the first directory's offset in 8 bytes after the offset size
+  // (8) and a zero, which libtiff checks and Pillow's own reader does not
+  const bool bigtiff = version == 43;
+  if (bigtiff && f.big) return kTiffBig;  // Pillow tests byte 2 alone for 43: an MM BigTIFF reads as classic
+  if (bigtiff && size < 16) return kTiffDirectory;
+  const bool libtiff_header = !bigtiff || (f.u16(4) == 8 && f.u16(6) == 0);
   std::vector<Tag> tags;
   bool whole;
-  int rc = read_directory(f, f.u32(4), &tags, &whole);
+  int rc = read_directory(f, bigtiff ? f.u64(8) : f.u32(4), bigtiff, &tags, &whole);
   if (rc) return rc;
   auto tag = [&](int id) -> const Tag& { return tags[tag_slot(id)]; };
   auto one = [&](int id, uint32_t fallback) -> uint32_t { return tag(id).present ? tag(id).v[0] : fallback; };
@@ -467,14 +497,15 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const uint32_t compression = one(kCompression, 1);
   if (compression == 6) return kTiffJpeg;  // old-style JPEG
   const bool jpeg = compression == 7;
-  if ((compression >= 2 && compression <= 4) || compression == 32771) return kTiffCcitt;
+  const bool ccitt = (compression >= 2 && compression <= 4) || compression == 32771;
   if (compression == 34676 || compression == 34677) return kTiffLogLuv;
   const bool deflate = compression == 8 || compression == 32946;
-  if (compression != 1 && compression != 5 && compression != 32773 && !deflate && !jpeg) return kTiffCompression;
+  if (compression != 1 && compression != 5 && compression != 32773 && !deflate && !jpeg && !ccitt)
+    return kTiffCompression;
   const bool raw = compression == 1;  // Pillow's own raw decoder; libtiff for the rest
   const uint32_t photometric = one(kPhotometric, 0);  // Pillow's default: MinIsWhite
   if (photometric == 32844 || photometric == 32845) return kTiffLogLuv;
-  if (photometric > 3 && photometric != 5 && photometric != 6) return kTiffPhotometric;  // Lab goes through LittleCMS in Pillow
+  if (photometric > 3 && photometric != 5 && photometric != 6 && photometric != 8) return kTiffPhotometric;
   // SampleFormat: one value, or one a sample all 1 (Pillow's (1,))
   std::vector<uint32_t> formats = tag(kSampleFormat).present ? tag(kSampleFormat).v : std::vector<uint32_t>{1};
   if (formats.size() > 1 && *std::max_element(formats.begin(), formats.end()) == 1 &&
@@ -543,6 +574,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     kind = kCmyk;  // CMYK CMYKX CMYKXX CMYK;16
     for (uint32_t e : extras)
       if (e != 0) return kTiffLayout;
+  } else if (photometric == 8 && format == 1 && bps == 8 && samples == 3 && extras.empty() && fill == 1) {
+    kind = kLab;  // Pillow's LAB, its one key of CIELab: 8 bits, three samples, FillOrder 1
   } else if (photometric == 6 && format == 1 && bps == 8 && extras.empty() && (samples == 3 || raw)) {
     // Pillow's keys: RGB (raw mode RGBX; RGB under JPEG) and L, FillOrder 1
     // alone; one sample is read by the raw decoder alone (libtiff refuses it)
@@ -553,8 +586,10 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   } else {
     return kTiffLayout;
   }
+  if (ccitt && kind != kBilevel) return kTiffCcitt;  // Fax3SetupState: 1-bit samples; Pillow's 1 and 1;I
   if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 &&
-                ((kind == kGray && samples == 1) || (kind == kRgb && samples == 3) || (kind == kCmyk && samples == 4))))
+                ((kind == kGray && samples == 1) || ((kind == kRgb || kind == kLab) && samples == 3) ||
+                 (kind == kCmyk && samples == 4))))
     return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples, as Pillow reads them here
   // YCbCr: Pillow's raw decoder reads an uncompressed file as RGBX, four
   // bytes a pixel, unconverted; libjpeg converts it under JPEG in one
@@ -594,7 +629,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   if (fill == 2 && kind != kBilevel && kind != kGray && kind != kGray16 && kind != kPalette &&
       !(kind == kRgb && bps == 8 && samples == 3 && extras.empty()))
     return kTiffLayout;  // no key of Pillow's holds FillOrder 2 with these samples
-  if (!raw && !whole) return kTiffDirectory;
+  if (!raw && !(whole && libtiff_header)) return kTiffDirectory;
   const bool tiled = tag(kTileOffsets).present || (!tag(kStripOffsets).present && tag(kTileWidth).present);
   // Pillow's raw decoder reads each plane of separate planes with one
   // character of the raw mode: 1 (1-bit, not inverted), L, P, R, G, B, A, C,
@@ -668,7 +703,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // Pillow's raw decoder steps the rows of a tile past the right edge by
   // int(w * sum(bits) / 8), over the planes' count Pillow expects where
   // planar (3 + the extra samples for RGB); other rows by their width
-  const uint32_t expected = (photometric == 2 || photometric == 6 ? 3 : photometric == 5 ? 4 : 1) + (uint32_t)extras.size();
+  const uint32_t expected =
+      (photometric == 2 || photometric == 6 || photometric == 8 ? 3 : photometric == 5 ? 4 : 1) + (uint32_t)extras.size();
   const size_t edge_stride = (size_t)((uint64_t)cw * samples * bps / (8ull * (planar ? expected : 1)));
 
   // a single uncompressed chunk of a mode Pillow maps (L, P, I;16, I;16B,
@@ -760,7 +796,9 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
         }
         const size_t need = row_bytes * rows;
         int rc;
-        if (compression == 5)
+        if (ccitt)
+          rc = decode_ccitt(in, count, offset, compression, one(kT4Options, 0), cw, rows, row_bytes, buffer.data());
+        else if (compression == 5)
           rc = lzw_decode(in, count, buffer.data(), need);
         else if (deflate)
           rc = deflate_decode(in, count, buffer.data(), need);
@@ -965,6 +1003,15 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
           const uint32_t c[4] = {(uint32_t)s[0] >> high, (uint32_t)s[1] >> high, (uint32_t)s[2] >> high,
                                  (uint32_t)s[3] >> high};
           cmyk2rgb(c, o);
+          break;
+        }
+        case kLab: {
+          // TIFF's a* and b* are signed: Pillow's LAB unpacker turns them
+          // into band values (128 the zero) by XOR 0x80; separate planes
+          // are read by its L, A and B unpackers, which copy the bytes
+          const uint8_t lab[3] = {(uint8_t)s[0], (uint8_t)(s[1] ^ (planar ? 0 : 0x80)),
+                                  (uint8_t)(s[2] ^ (planar ? 0 : 0x80))};
+          lab_to_rgb(lab, 1, o);
           break;
         }
       }

@@ -65,12 +65,16 @@ both paths of the port at full width (``ModelSpec()``):
   of libjpeg-turbo's, libpng's, libwebp's and Pillow's output (every BMP
   layout Pillow reads and its refusals, 16-bit gray PNGs in both lanes,
   JPEG blocks past 16 bits, GIF, TIFF, ICO, CUR, DIB, PNM, Targa, PSD,
-  PCX, SGI and QOI layouts, and the kinds refused by name among them:
-  Lab TIFF and PSD, CCITT, DDS, ICNS...), the PNG decode bit-equal to
-  data/png.py's on smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG
-  and BMP files, the codecs' times by decode threads, cli.prep on JPEG,
-  WebP, JPEG-kind, Pillow-lane, GIF/TIFF/PNM/Targa/ICO and PSD/PCX/SGI/
-  QOI/TIFF originals held to the JAX package's pyramids ("io prep"), and
+  PCX, SGI and QOI layouts, Lab TIFF and PSD, BigTIFF and CCITT TIFF
+  layouts, and the kinds refused by name among them: ICCLab, MM BigTIFF,
+  CCITT data libtiff decodes with errors, DDS, ICNS...), the Lab -> sRGB
+  conversion of every 8-bit Lab triple held to the hash of Pillow's
+  (LittleCMS's) table, the PNG decode bit-equal to data/png.py's on
+  smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
+  the codecs' times by decode threads, cli.prep on JPEG, WebP, JPEG-kind,
+  Pillow-lane, GIF/TIFF/PNM/Targa/ICO and PSD/PCX/SGI/QOI/TIFF originals
+  (Lab TIFF and PSD, BigTIFF and Group 4 among them) held to the JAX
+  package's pyramids ("io prep"), and
   the training CLI on a set with JPEG, WebP, palette and 16-bit BMP files
   among its PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
@@ -3430,6 +3434,23 @@ def io_checks(tmp) -> dict:
     os.makedirs(written)
     card_paths = fx.check_card_originals(written, images.read_image)
     raster_card = fx.check_raster_card(written, images.read_image)
+    lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
+    lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
+        ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
+    t0 = time.perf_counter()
+    lab_table = native.lab_to_rgb(fx.lab_table_triples())
+    lab_s = time.perf_counter() - t0
+    require(fx.sha256(lab_table) == fx.load_manifest()["lab_table"]["sha256_rgb"],
+            "the Lab -> sRGB table differs from Pillow's (LittleCMS 2.17)")
+    require(len(lab_read) >= 50 and len(lab_refused) >= 15,
+            f"the manifest holds {len(lab_read)} Lab, BigTIFF and CCITT layouts and {len(lab_refused)} of their "
+            "refusals")
+    print(f"io fixtures: the Lab -> sRGB conversion (native/lab.cpp) of all 2^24 8-bit Lab triples hashes to Pillow "
+          f"12.1.0's table through LittleCMS 2.17 (the manifest's lab_table; this machine has no LittleCMS), "
+          f"{lab_s:.3f} s for the table; {len(lab_read)} Lab TIFF and PSD, BigTIFF and CCITT layouts decoded to "
+          f"Pillow's RGB ({', '.join(os.path.basename(m) for m in lab_read)}) and {len(lab_refused)} refused by "
+          f"name ({', '.join(os.path.basename(m)[:-12] for m in lab_refused)}); each counted again below with its "
+          "folder's files")
     print(f"io fixtures: {len(raster_read)} PSD, PCX, SGI, QOI and TIFF (JPEG in separate planes, YCbCr under "
           f"Predictor 2) layouts decoded to Pillow 12.1.0's RGB ({', '.join(f'{k} {v}' for k, v in raster_kind.items())}: "
           f"{', '.join(m.split('/', 1)[1] for m in raster_read)}) and {len(raster_refused)} refused with Pillow's "
@@ -3445,7 +3466,7 @@ def io_checks(tmp) -> dict:
           f"({', '.join(os.path.basename(m)[:-4] for m in jpeg_ycbcr)}); {len(card_paths)} card originals written "
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
-    hashes = len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD)
+    hashes = len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + 1  # + the Lab table
     print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
@@ -3466,7 +3487,8 @@ def io_checks(tmp) -> dict:
           f"and {len(tiff_refused)} kinds refused by name ({', '.join(os.path.basename(m)[:-12] for m in tiff_refused)}); "
           f"{len(gif_tiff_card)} GIF/TIFF card originals; {len(ico_pnm_tga)} ICO/CUR/DIB/PNM/Targa files and "
           f"{len(card_paths)} written card originals; {len(raster)} PSD/PCX/SGI/QOI/TIFF files and "
-          f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals of this slice (above)")
+          f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals of this slice (above); "
+          "the Lab table (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3830,13 +3852,39 @@ def raster_codec_times(paths: dict) -> dict:
     return ms
 
 
+def lab_big_ccitt_codec_times(paths: dict) -> dict:
+    """Host ms of the Lab, BigTIFF and CCITT readers, one call at a time on
+    one thread (median of ``CODEC_REPEATS``), on the card's written 1024 px
+    originals (``paths``: name -> path): a Lab TIFF (LZW, Predictor 2,
+    64-row strips), a PackBits Lab PSD, a BigTIFF of Deflate RGB tiles, and
+    a scan as Group 4, as T.4 2-D with fill bits and as Modified Huffman
+    (128-row strips); and the Lab -> sRGB conversion alone of a 1024 px
+    image's triples."""
+    from byogan_tpu_torch.data import images, native
+
+    files = {"tiff_lab_lzw_1024": "photo-1024-lab.tif", "psd_lab_packbits_1024": "photo-1024-lab.psd",
+             "bigtiff_deflate_tiles_1024": "photo-1024-big.tif", "tiff_g4_1024": "scan-1024-g4.tif",
+             "tiff_g3_2d_1024": "scan-1024-g3-2d.tif", "tiff_mh_1024": "scan-1024-mh.tif"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    lab = np.random.default_rng(37).integers(0, 256, (PREP_SIDE, PREP_SIDE, 3), dtype=np.uint8)
+    ms["lab_to_rgb_1024"] = host_ms(lambda: native.lab_to_rgb(lab))
+    print(f"io codecs: Lab, BigTIFF and CCITT, host ms, median of {CODEC_REPEATS} calls, one thread, {PREP_SIDE} px: "
+          f"Lab TIFF LZW + Predictor 2 {ms['tiff_lab_lzw_1024']:.3f}, Lab PSD PackBits "
+          f"{ms['psd_lab_packbits_1024']:.3f}, the Lab -> sRGB conversion alone {ms['lab_to_rgb_1024']:.3f}; BigTIFF "
+          f"Deflate RGB tiles {ms['bigtiff_deflate_tiles_1024']:.3f}; scan Group 4 {ms['tiff_g4_1024']:.3f}, T.4 2-D "
+          f"{ms['tiff_g3_2d_1024']:.3f}, Modified Huffman {ms['tiff_mh_1024']:.3f}; card {card_name()}")
+    return ms
+
+
 def prep_raster_cli(tmp, root, paths: dict) -> float:
     """``prep_committed_cli`` on the card originals of this slice that prep
     reads (``fx.RASTER_CARD``: a 1024 px PackBits PSD under .png, a PCX of
     8 bits in 3 planes under .jpg, an RLE SGI under .bmp, a QOI under
-    .webp, all written in this run, and the committed YCbCr 1 x 1 JPEG
-    TIFF in separate planes under .jpg), held to the JAX package's prep of
-    them (Pillow's decode).  Returns the seconds per original."""
+    .webp, a Lab TIFF under .jpg, a Lab PSD under .png, a BigTIFF under
+    .bmp and a Group 4 scan under .png, all written in this run, and the
+    committed YCbCr 1 x 1 JPEG TIFF in separate planes under .jpg), held to
+    the JAX package's prep of them (Pillow's decode).  Returns the seconds
+    per original."""
     fx = codec_fixtures()
     committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
     written = {fx.RASTER_CARD[n]: p for n, p in paths.items() if fx.RASTER_CARD[n] and n not in committed}
@@ -4167,8 +4215,8 @@ def io_train(tmp, root) -> tuple:
 def io_main() -> int:
     """The image-IO phases alone (``python -c "import chip_smoke;
     chip_smoke.io_main()"``), for a short call: "io", "io prep" and "io
-    train", which ``main`` runs too, and "time loader", which only this
-    entry point runs."""
+    train", which ``main`` runs too, and "time codecs Lab, BigTIFF, CCITT"
+    and "time loader", which only this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4183,6 +4231,8 @@ def io_main() -> int:
             io_state = io_checks(tmp)
         with phase("io prep"):
             io_prep(io_state, tmp, root)
+        with phase("time codecs Lab, BigTIFF, CCITT"):
+            lab_big_ccitt_codec_times(io_state["raster_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

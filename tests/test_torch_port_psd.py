@@ -6,11 +6,11 @@ Pillow alone: its prep and ``cli.project`` call
 call.  So the port's ``data/images.decode_psd`` (numpy, with the PackBits
 loop in the native library) is held bit for bit to Pillow 12.1.0's
 ``convert("RGB")`` of the merged image: on every colour mode Pillow reads
-but Lab (bitmap, gray, indexed, RGB, RGBA, CMYK, multichannel, duotone),
-raw and PackBits, colour data, resources and layers to skip, PackBits
-streams whose packets cross rows and hold no-ops, on 240 seeded files,
-and on Pillow's refusals (and Lab, which the port refuses by name) with
-the file and the reason named.  Then a folder of PSD originals under
+(bitmap, gray, indexed, RGB, RGBA, CMYK, multichannel, duotone, and Lab
+through LittleCMS's Lab -> sRGB transform, ``fx.lab_psd_layouts``), raw
+and PackBits, colour data, resources and layers to skip, PackBits streams
+whose packets cross rows and hold no-ops, on 240 seeded files, and on
+Pillow's refusals with the file and the reason named.  Then a folder of PSD originals under
 listed names through the port's ``cli.prep`` against the JAX package's
 ``prepare_pyramid``, the loader against the JAX loader's Pillow fallback,
 and ``cli.project`` targets against the JAX CLI's arrays.  Tolerance 0.
@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_port_codec_fixtures as fx  # noqa: E402
 from test_torch_port_gif import _pillow, _same_as_pillow, _write  # noqa: E402
 
-LAYOUTS = {k: v for k, v in fx.raster_layouts().items() if k.split("/")[1] == "psd"}
+LAYOUTS = {**{k: v for k, v in fx.raster_layouts().items() if k.split("/")[1] == "psd"}, **fx.lab_psd_layouts()}
 REFUSALS = {k: v for k, v in fx.raster_refusals().items() if k.startswith("psd")}
 LISTED = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -46,11 +46,10 @@ def test_layout_matches_pillow(tmp_path, name):
 
 @pytest.mark.parametrize("name", sorted(REFUSALS), ids=lambda n: n[:-4])
 def test_refused_file_raises_naming_the_file_and_the_reason(tmp_path, name):
-    """Pillow refuses each (Lab it reads: the port refuses it by name until
-    it has LittleCMS's transform)."""
+    """Pillow refuses each."""
     data, reason = REFUSALS[name]
     path = _write(tmp_path, name[:-4] + ".jpg", data)
-    assert isinstance(_pillow(path), Exception) != (name == "psd-lab.psd")
+    assert isinstance(_pillow(path), Exception)
     with pytest.raises(OSError, match=f"{re.escape(path)}: .*{reason}"):
         images.read_image(path)
 
@@ -72,15 +71,15 @@ def _packets(r, nbytes: int) -> bytes:
     return bytes(out)
 
 
-def _seeded_psd(r) -> bytes:
+def _seeded_psd(r, modes=None) -> bytes:
     """A PSD over the reader's parameters together: colour mode and depth
-    (some Pillow does not identify), channels (too few, more), size,
-    colour data, resources, layers, raw or PackBits (a row at a time, or
-    random packets whose counts only place the channels), ZIP,
-    truncation."""
-    mode, bits = [(0, 1), (0, 8), (1, 8), (2, 8), (3, 8), (3, 8), (4, 8), (7, 8), (8, 8), (3, 16), (5, 8)][
-        int(r.integers(0, 11))]
-    need = {2: 1, 3: 3, 4: 4}.get(mode, 3 if mode == 5 else 1)
+    (some Pillow does not identify; one of ``modes`` where given), channels
+    (too few, more), size, colour data, resources, layers, raw or PackBits
+    (a row at a time, or random packets whose counts only place the
+    channels), ZIP, truncation."""
+    modes = modes or [(0, 1), (0, 8), (1, 8), (2, 8), (3, 8), (3, 8), (4, 8), (7, 8), (8, 8), (3, 16), (5, 8)]
+    mode, bits = modes[int(r.integers(0, len(modes)))]
+    need = {2: 1, 3: 3, 4: 4}.get(mode, 3 if mode in (5, 9) else 1)
     channels = max(1, need + int(r.choice([0, 0, 1, 2, -1])))
     h, w = int(r.integers(1, 12)), int(r.integers(1, 14))
     row = (w + 7) // 8 if bits == 1 else w
@@ -123,6 +122,16 @@ def test_seeded_psd_match_pillow(tmp_path, seed):
     decoded = sum(_same_as_pillow(_write(tmp_path, f"f{t}{LISTED[t % 5]}", _seeded_psd(r)), f"file {t}")
                   for t in range(80))
     assert decoded > 20
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_seeded_lab_psd_match_pillow(tmp_path, seed):
+    """80 seeded Lab PSDs a seed (8 bits, and 16, which Pillow does not
+    identify) under the same rule."""
+    r = np.random.default_rng(2035 + seed)
+    decoded = sum(_same_as_pillow(_write(tmp_path, f"f{t}{LISTED[t % 5]}", _seeded_psd(r, [(9, 8), (9, 8), (9, 16)])),
+                                  f"file {t}") for t in range(80))
+    assert decoded > 12
 
 
 @pytest.mark.parametrize("channel", range(3))

@@ -12,9 +12,13 @@ it, 1-, 2-, 4-, 8- and 16-bit gray, signed and float gray, gray with
 alpha, 8- and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and
 16-bit CMYK, FillOrder 2, every Orientation; JPEG compression and YCbCr,
 ``fx.ycbcr_jpeg_layouts``, more in ``test_torch_port_tiff_jpeg.py``), on
-TIFFs Pillow writes through libtiff and on seeded files; and each kind it
-does not read is refused naming the file and the kind, whether Pillow
-reads it or not.  Tolerance 0.
+TIFFs Pillow writes through libtiff and on seeded files; on little-endian
+BigTIFFs of those kinds (``fx.bigtiff_layouts``, Pillow's ``big_tiff``
+writer, seeded files; Lab in ``test_torch_port_lab.py``, CCITT in
+``test_torch_port_tiff_ccitt.py``); and each kind it does not read is
+refused naming the file and the kind, whether Pillow reads it or not (an
+MM BigTIFF, which Pillow takes for a classic TIFF, among them).
+Tolerance 0.
 """
 
 import os
@@ -33,6 +37,7 @@ from test_torch_port_gif import _pillow, _same_as_pillow, _write  # noqa: E402
 
 LAYOUTS = fx.tiff_layouts()
 REFUSALS = fx.tiff_refusals()
+BIG_LAYOUTS = fx.bigtiff_layouts()
 
 
 @pytest.mark.parametrize("name", sorted(LAYOUTS), ids=lambda n: os.path.basename(n)[:-4])
@@ -68,10 +73,37 @@ def test_pillow_written_tiff_matches_pillow(tmp_path, compression, mode):
     assert _same_as_pillow(path, f"{mode} {compression}")
 
 
-def _seeded_tiff(r) -> bytes:
+@pytest.mark.parametrize("name", sorted(BIG_LAYOUTS), ids=lambda n: os.path.basename(n)[:-4])
+def test_bigtiff_layout_matches_pillow(tmp_path, name):
+    path = _write(tmp_path, name.replace(".tif", ".bmp"), BIG_LAYOUTS[name])
+    assert _same_as_pillow(path, name)
+
+
+@pytest.mark.parametrize("mode", ["1", "L", "I;16", "RGB", "RGBA", "P", "CMYK", "LAB"])
+def test_pillow_written_bigtiff_matches_pillow(tmp_path, mode):
+    """Pillow's own BigTIFF writer (``big_tiff=True``, which its writer
+    honours for uncompressed files alone: libtiff writes classic TIFFs)."""
+    img = fx.smooth_scene(1781, 19, 29, cell=8, step=8)
+    im = Image.fromarray(img)
+    if mode == "LAB":
+        im = Image.merge("LAB", im.split())
+    elif mode == "I;16":
+        im = Image.fromarray(img[..., 0].astype(np.uint16) * 5 + 3)
+    elif mode == "P":
+        im = im.quantize(40)
+    else:
+        im = im.convert(mode)
+    path = str(tmp_path / "a.jpg")
+    im.save(path, format="TIFF", big_tiff=True)
+    with open(path, "rb") as f:
+        assert f.read(4) == b"II+\0"
+    assert _same_as_pillow(path, mode)
+
+
+def _seeded_tiff(r, big: bool = False) -> bytes:
     """A TIFF over the layouts' parameters together: kind, size, byte
     order, compression, predictor, planes, strips or tiles, fill order,
-    orientation, truncation."""
+    orientation, truncation; a little-endian BigTIFF where ``big``."""
     kind = r.choice(["bilevel", "gray8", "gray16", "gray-alpha", "rgb", "rgba", "palette", "gray-low", "signed",
                      "float", "cmyk", "rgb16"])
     h, w = int(r.integers(1, 40)), int(r.integers(1, 40))
@@ -138,8 +170,24 @@ def _seeded_tiff(r) -> bytes:
         kw["orientation"] = int(r.integers(0, 10))
     if r.random() < 0.1:
         tags[266] = (3, [2])  # FillOrder 2: the coded bytes are not reversed, so compressed ones decode to other data
+    if big:
+        kw.update(order="<", big=True)
     data = fx.tiff_bytes(s, tags=tags, **kw)
     return data[:int(r.integers(8, len(data)))] if r.random() < 0.08 else data
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_seeded_bigtiffs_match_pillow(tmp_path, seed):
+    """The seeded files of ``_seeded_tiff`` written as little-endian
+    BigTIFFs: 60 a seed, each Pillow reads decoded to its pixels, each it
+    refuses raising naming the file."""
+    r = np.random.default_rng(1795 + seed)
+    decoded = 0
+    for t in range(60):
+        data = _seeded_tiff(r, big=True)
+        assert data[:4] == b"II+\0"
+        decoded += _same_as_pillow(_write(tmp_path, f"b{t}.png", data), f"file {t}")
+    assert decoded > 40
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -1153,7 +1153,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     ``pillow/card/`` and of those under ``gif_tiff/card/`` together with
     the written ones cli.prep reads (by their listed names,
     ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``), and of the PSD, PCX, SGI,
-    QOI and TIFF originals of ``RASTER_CARD`` by their listed names."""
+    QOI and TIFF originals of ``RASTER_CARD`` by their listed names; and
+    the hash of Pillow's RGB of every 8-bit Lab triple (``lab_table``)."""
     import PIL
     from PIL import features
 
@@ -1262,6 +1263,10 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
         "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed),
+        "lab_table": {"sha256_rgb": sha256(lab_table_pillow()),
+                      "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") through LittleCMS "
+                                 f"{features.version('littlecms2')} of every 8-bit Lab triple (L, a, b bands, "
+                                 "the index's bytes high to low), uint8 RGB in index order"},
     }
 
 
@@ -2092,7 +2097,7 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
                predictor: int = 1, planar: int = 1, rows_per_strip: Optional[int] = None,
                tile: Optional[Tuple[int, int]] = None, extra=None, colormap=None, orientation: Optional[int] = None,
                tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None,
-               chunks: Optional[List[bytes]] = None) -> bytes:
+               chunks: Optional[List[bytes]] = None, big: bool = False, offset_type: int = 16) -> bytes:
     """A TIFF of ``samples`` ((h, w) or (h, w, c) integers of ``bits``) in
     byte order ``order`` ("<" II, ">" MM): strips of ``rows_per_strip`` or
     tiles (th, tw), each plane apart where ``planar`` is 2, differenced
@@ -2101,7 +2106,9 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     (``TIFF_COMPRESS``, or ``data`` as every chunk, or ``chunks``, one
     each); ``tags`` (id -> (type, values), a RATIONAL's values numerator,
     denominator pairs, UNDEFINED (7) bytes) add to or replace the
-    directory's."""
+    directory's.  ``big``: a BigTIFF (version 43, 8-byte offsets, 20-byte
+    entries), its chunks' offsets and byte counts of ``offset_type``
+    (LONG8, 16, or LONG, 4)."""
     s = np.asarray(samples)
     s = s[:, :, None] if s.ndim == 2 else s
     h, w, c = s.shape
@@ -2127,7 +2134,8 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
         if chunks is None:
             coded.append(data if data is not None else TIFF_COMPRESS[compression](_tiff_rows(blk, bits, order).tobytes()))
     chunks = coded if chunks is None else chunks
-    body = bytearray((b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, 0))
+    body = bytearray((b"II" if order == "<" else b"MM") +
+                     (struct.pack(order + "HHHQ", 43, 8, 0, 0) if big else struct.pack(order + "HI", 42, 0)))
     offsets = []
     for chunk in chunks:
         offsets.append(len(body))
@@ -2136,10 +2144,11 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
          277: (3, [c]), 284: (3, [planar])}
     if predictor != 1:
         t[317] = (3, [predictor])
+    at = offset_type if big else 4
     if tile:
-        t.update({322: (3, [tile[1]]), 323: (3, [tile[0]]), 324: (4, offsets), 325: (4, list(map(len, chunks)))})
+        t.update({322: (3, [tile[1]]), 323: (3, [tile[0]]), 324: (at, offsets), 325: (at, list(map(len, chunks)))})
     else:
-        t.update({273: (4, offsets), 278: (4, [rows_per_strip or h]), 279: (4, list(map(len, chunks)))})
+        t.update({273: (at, offsets), 278: (4, [rows_per_strip or h]), 279: (at, list(map(len, chunks)))})
     if extra is not None:
         t[338] = (3, list(extra))
     if colormap is not None:
@@ -2149,19 +2158,24 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     t.update(tags or {})
     entries = sorted(t.items())
     ifd_at = len(body)
-    values_at = ifd_at + 2 + 12 * len(entries) + 4
-    ifd, values = bytearray(struct.pack(order + "H", len(entries))), bytearray()
+    field, entry, count = (8, "HHQ", "Q") if big else (4, "HHI", "H")
+    values_at = ifd_at + struct.calcsize(order + count) + (20 if big else 12) * len(entries) + field
+    ifd, values = bytearray(struct.pack(order + count, len(entries))), bytearray()
     for tag, (typ, vals) in entries:
         # RATIONAL (5): vals are numerator, denominator pairs
-        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f"}[typ] * len(vals), *map(int, vals))
-        if len(raw) > 4:
-            field = struct.pack(order + "I", values_at + len(values))
+        raw = struct.pack(order + {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f", 16: "Q"}[typ] * len(vals),
+                          *map(int, vals))
+        if len(raw) > field:
+            where = struct.pack(order + ("Q" if big else "I"), values_at + len(values))
             values += raw + b"\0" * (len(raw) % 2)
         else:
-            field = raw + bytes(4 - len(raw))
-        ifd += struct.pack(order + "HHI", tag, typ, len(vals) // 2 if typ == 5 else len(vals)) + field
-    body[4:8] = struct.pack(order + "I", ifd_at)
-    return bytes(body + ifd + b"\0\0\0\0" + values)
+            where = raw + bytes(field - len(raw))
+        ifd += struct.pack(order + entry, tag, typ, len(vals) // 2 if typ == 5 else len(vals)) + where
+    if big:
+        body[8:16] = struct.pack(order + "Q", ifd_at)
+    else:
+        body[4:8] = struct.pack(order + "I", ifd_at)
+    return bytes(body + ifd + bytes(field) + values)
 
 
 JPEG_TIFF_MODES = {1: "L", 2: "RGB", 5: "CMYK", 6: "RGB"}  # photometric -> Pillow's JPEG mode
@@ -2518,6 +2532,402 @@ def jpeg_planes_predictor_layouts() -> Dict[str, bytes]:
     return {f"{RASTER}/tiff/{k}": v for k, v in sorted(out.items())}
 
 
+# --- Lab, BigTIFF and CCITT TIFFs and Lab PSDs: the JAX package's Pillow lane ---
+
+# T.4's codes as it writes them, first bit first: white and black terminating
+# codes (runs 0-63), make-up codes (64-1728) and the extended make-up codes
+# both colours share (1792-2560)
+_FAX_WHITE_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 110101 101010 "
+    "101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 00000010 "
+    "00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110 00010111 00101000 00101001 00101010 "
+    "00101011 00101100 00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 00100100 "
+    "00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 00110011 00110100").split()
+_FAX_WHITE_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 011001101 "
+    "011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 011011010 011011011 "
+    "010011000 010011001 010011010 011000 010011011").split()
+_FAX_BLACK_TERM = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 00000111 000011000 "
+    "0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 00000110111 00000101000 00000010111 "
+    "00000011000 000011001010 000011001011 000011001100 000011001101 000001101000 000001101001 000001101010 "
+    "000001101011 000011010010 000011010011 000011010100 000011010101 000011010110 000011010111 000001101100 "
+    "000001101101 000011011010 000011011011 000001010100 000001010101 000001010110 000001010111 000001100100 "
+    "000001100101 000001010010 000001010011 000000100100 000000110111 000000111000 000000100111 000000101000 "
+    "000001011000 000001011001 000000101011 000000101100 000001011010 000001100110 000001100111").split()
+_FAX_BLACK_MAKEUP = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 0000001101100 "
+    "0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 0000001110010 0000001110011 "
+    "0000001110100 0000001110101 0000001110110 0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 0000001100101").split()
+_FAX_EXT_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 "
+                   "000000010110 000000010111 000000011100 000000011101 000000011110 000000011111").split()
+_FAX_EOL = "000000000001"
+#: the 2-D modes: pass, horizontal, and vertical by b1 - a1 (-3 .. 3)
+_FAX_PASS, _FAX_HORIZ = "0001", "001"
+_FAX_VERTICAL = {-3: "0000011", -2: "000011", -1: "011", 0: "1", 1: "010", 2: "000010", 3: "0000010"}
+
+
+def _fax_codes(term, makeup):
+    codes = {i: c for i, c in enumerate(term)}
+    codes.update({64 * (i + 1): c for i, c in enumerate(makeup + _FAX_EXT_MAKEUP)})
+    return codes
+
+
+_FAX_CODES = (_fax_codes(_FAX_WHITE_TERM, _FAX_WHITE_MAKEUP), _fax_codes(_FAX_BLACK_TERM, _FAX_BLACK_MAKEUP))
+
+
+def _fax_span(out: List[str], run: int, black: int) -> None:
+    """libtiff's putspan: 2560s while the run is at least 2624, a make-up
+    code, then a terminating code."""
+    codes = _FAX_CODES[black]
+    while run >= 2624:
+        out.append(codes[2560])
+        run -= 2560
+    if run >= 64:
+        out.append(codes[run & ~63])
+        run &= 63
+    out.append(codes[run])
+
+
+def _finddiff(row: np.ndarray, start: int, colour: int) -> int:
+    """The first place at or after ``start`` whose pixel is not ``colour``,
+    else the row's width (libtiff's finddiff)."""
+    rest = np.flatnonzero(row[start:] != colour)
+    return start + int(rest[0]) if len(rest) else len(row)
+
+
+def fax_row_1d(row: np.ndarray, colours: Optional[List[int]] = None) -> List[str]:
+    """A row of 0/1 samples (1 coded black) as T.4 1-D codes, white first
+    (libtiff's Fax3Encode1DRow); ``colours`` gets each code's colour."""
+    out, x, black = [], 0, 0
+    while True:
+        end = _finddiff(row, x, black)
+        n = len(out)
+        _fax_span(out, end - x, black)
+        if colours is not None:
+            colours += [black] * (len(out) - n)
+        x, black = end, 1 - black
+        if x >= len(row):
+            return out
+
+
+def rlew_stream(samples: np.ndarray) -> bytes:
+    """Compression 32771 as libtiff's Fax3DecodeRLE reads it back: each
+    row's codes from where the reader stands after the row before.  Its
+    lookahead loads whole bytes, 12 bits for a white code and 13 for a
+    black one; at a row's end it drops the loaded bits short of 16 and, where
+    none are left, a byte more to an even offset.  (libtiff's own encoder
+    pads each row to 16 bits of its codes, which its decoder does not
+    read back.)"""
+    out, pos = bytearray(), 0
+    for row in np.asarray(samples, np.uint8):
+        colours: List[int] = []
+        codes = fax_row_1d(row, colours)
+        out[pos:] = _bits_bytes("".join(codes))
+        avail = loaded = 0
+        for code, black in zip(codes, colours):
+            need = 13 if black else 12
+            while avail < need:
+                loaded, avail = loaded + 1, avail + 8
+            avail -= len(code)
+        avail -= avail % 16
+        end = pos + loaded + (avail == 0 and (pos + loaded) % 2)
+        pos = end - avail // 8
+        out += bytes(max(0, pos - len(out)))
+    return bytes(out)
+
+
+def fax_row_2d(row: np.ndarray, ref: np.ndarray) -> List[str]:
+    """A row as T.4 2-D codes against the row above (libtiff's
+    Fax3Encode2DRow: pass, vertical within 3, else horizontal)."""
+    n = len(row)
+    out = []
+    a0 = 0
+    a1 = 0 if row[0] else _finddiff(row, 0, 0)
+    b1 = 0 if ref[0] else _finddiff(ref, 0, 0)
+    while True:
+        b2 = _finddiff(ref, b1, ref[b1]) if b1 < n else n
+        if b2 >= a1:
+            d = b1 - a1
+            if -3 <= d <= 3:
+                out.append(_FAX_VERTICAL[d])
+                a0 = a1
+            else:
+                a2 = _finddiff(row, a1, row[a1]) if a1 < n else n
+                out.append(_FAX_HORIZ)
+                colour = 0 if a0 + a1 == 0 or row[a0] == 0 else 1
+                _fax_span(out, a1 - a0, colour)
+                _fax_span(out, a2 - a1, 1 - colour)
+                a0 = a2
+        else:
+            out.append(_FAX_PASS)
+            a0 = b2
+        if a0 >= n:
+            return out
+        colour = int(row[a0])
+        a1 = _finddiff(row, a0, colour)
+        b1 = _finddiff(ref, _finddiff(ref, a0, 1 - colour), colour)
+
+
+def _bits_bytes(bits: str) -> bytes:
+    return np.packbits(np.frombuffer((bits + "0" * (-len(bits) % 8)).encode(), np.uint8) - 48).tobytes()
+
+
+def ccitt_stream(samples: np.ndarray, compression: int, t4options: int = 0, k: int = 4, fill_bits: bool = False,
+                 rtc: bool = True, eofb: bool = True) -> bytes:
+    """One strip or tile of 0/1 ``samples`` (rows, width) as CCITT data,
+    most significant bit first: Modified Huffman rows padded to a byte
+    (compression 2) or to 16 bits (32771); T.4 (3) each row after an EOL
+    (byte-aligned where ``fill_bits``), and in 2-D (``t4options`` bit 0)
+    the EOL's tag bit, every ``k``-th row 1-D, then the RTC (six EOLs)
+    where ``rtc``; T.6 (4) rows against the row above, then the EOFB where
+    ``eofb``."""
+    bits, ref = "", np.zeros(samples.shape[1], np.uint8)
+    two_d = compression == 4 or (compression == 3 and t4options & 1)
+    for y, row in enumerate(np.asarray(samples, np.uint8)):
+        if compression == 3:
+            if fill_bits:
+                bits += "0" * (-(len(bits) + 12) % 8)
+            bits += _FAX_EOL + (("1" if y % k == 0 else "0") if two_d else "")
+        one_d = compression in (2, 32771) or (compression == 3 and (not two_d or y % k == 0))
+        bits += "".join(fax_row_1d(row) if one_d else fax_row_2d(row, ref))
+        if compression in (2, 32771):
+            bits += "0" * (-len(bits) % (8 if compression == 2 else 16))
+        ref = row
+    if compression == 3 and rtc:
+        bits += (_FAX_EOL + ("1" if two_d else "")) * 6
+    if compression == 4 and eofb:
+        bits += _FAX_EOL * 2
+    return _bits_bytes(bits)
+
+
+def ccitt_tiff(samples: np.ndarray, compression: int = 4, photometric: int = 0, t4options: int = 0,
+               rows_per_strip: Optional[int] = None, tile: Optional[Tuple[int, int]] = None, fill_order: int = 1,
+               stream: Optional[Callable[[np.ndarray], bytes]] = None, **kw) -> bytes:
+    """A bilevel TIFF of 0/1 ``samples`` (h, w) in CCITT ``compression``: a
+    stream (``ccitt_stream``, or ``stream`` of a block) a strip or tile, each
+    byte's bits reversed where ``fill_order`` is 2; ``kw`` goes to
+    ``ccitt_stream`` where it names one of its options, else to
+    ``tiff_bytes``."""
+    s = np.asarray(samples, np.uint8)
+    h, w = s.shape
+    options = {k: kw.pop(k) for k in ("k", "fill_bits", "rtc", "eofb") if k in kw}
+    if tile:
+        th, tw = tile
+        padded = np.pad(s, ((0, -h % th), (0, -w % tw)))
+        blocks = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        blocks = [s[y:y + (rows_per_strip or h)] for y in range(0, h, rows_per_strip or h)]
+    if stream is None and compression == 32771:
+        stream = rlew_stream
+    chunks = [stream(b) if stream else ccitt_stream(b, compression, t4options, **options) for b in blocks]
+    if fill_order == 2:
+        chunks = [bytes(_reverse_bits(c)) for c in chunks]
+    tags = dict(kw.pop("tags", {}) or {})
+    if compression == 3:
+        tags.setdefault(292, (4, [t4options]))
+    if fill_order == 2:
+        tags[266] = (3, [2])
+    return tiff_bytes(s, 1, photometric, compression=compression, rows_per_strip=rows_per_strip, tile=tile,
+                      chunks=chunks, tags=tags, **kw)
+
+
+def _scan(seed: int, h: int, w: int, cell: Optional[int] = None) -> np.ndarray:
+    """Seeded 0/1 samples like a scanned page: dark blots (of about
+    ``cell`` pixels) on a light field and a few full-width rules, 1 black."""
+    return ((smooth_scene(seed, h, w, cell=cell or max(4, min(h, w) // 6), step=64)[..., 0] < 90)
+            | (np.arange(h)[:, None] % max(3, h // 3) == 1)).astype(np.uint8)
+
+
+def ccitt_layouts() -> Dict[str, bytes]:
+    """CCITT TIFFs of each layout the port reads (name -> bytes; Pillow
+    reads each through libtiff): Modified Huffman, 32771 with rows that
+    leave it word-aligned, T.4 1-D and 2-D (EOLs with and without fill
+    bits, with and without the RTC), T.6 with and without the EOFB; both
+    photometrics, FillOrder 2, both byte orders, strips and tiles, widths
+    past 2560 (the extended make-up codes), all white and all black rows."""
+    r = np.random.default_rng(2101)
+    scan = _scan(2102, 29, 61)
+    noise = (r.random((17, 37)) < 0.35).astype(np.uint8)
+    wide = np.zeros((6, 2900), np.uint8)
+    wide[1, 5:2700] = 1
+    wide[3, 2640:] = 1
+    wide[4, ::7] = 1
+    flat = np.zeros((5, 40), np.uint8)
+    flat[2] = 1
+    out = {
+        "ccitt-mh.tif": ccitt_tiff(scan, 2),
+        "ccitt-mh-black-is-zero.tif": ccitt_tiff(noise, 2, photometric=1),
+        "ccitt-mh-strips-mm.tif": ccitt_tiff(scan, 2, rows_per_strip=7, order=">"),
+        "ccitt-mh-fill-order-2.tif": ccitt_tiff(noise, 2, fill_order=2),
+        "ccitt-rlew.tif": ccitt_tiff(scan, 32771),
+        "ccitt-rlew-noise-strips-fill-order-2.tif": ccitt_tiff(noise, 32771, rows_per_strip=6, fill_order=2),
+        "ccitt-rlew-wide.tif": ccitt_tiff(wide, 32771),
+        "ccitt-g3-1d.tif": ccitt_tiff(scan, 3),
+        "ccitt-g3-1d-fill-bits.tif": ccitt_tiff(scan, 3, t4options=4, fill_bits=True),
+        "ccitt-g3-1d-no-rtc-strips.tif": ccitt_tiff(noise, 3, rows_per_strip=5, rtc=False),
+        "ccitt-g3-1d-black-is-zero-fill-order-2.tif": ccitt_tiff(noise, 3, photometric=1, fill_order=2),
+        "ccitt-g3-2d.tif": ccitt_tiff(scan, 3, t4options=1),
+        "ccitt-g3-2d-k1.tif": ccitt_tiff(noise, 3, t4options=1, k=1),
+        "ccitt-g3-2d-k1000-fill-bits.tif": ccitt_tiff(scan, 3, t4options=5, k=1000, fill_bits=True),
+        "ccitt-g3-2d-tiles.tif": ccitt_tiff(_scan(2103, 40, 50), 3, t4options=1, tile=(16, 32)),
+        "ccitt-g4.tif": ccitt_tiff(scan, 4),
+        "ccitt-g4-no-eofb.tif": ccitt_tiff(noise, 4, eofb=False),
+        "ccitt-g4-black-is-zero-mm.tif": ccitt_tiff(scan, 4, photometric=1, order=">"),
+        "ccitt-g4-fill-order-2.tif": ccitt_tiff(noise, 4, fill_order=2),
+        "ccitt-g4-strips-3.tif": ccitt_tiff(scan, 4, rows_per_strip=3),
+        "ccitt-g4-tiles.tif": ccitt_tiff(_scan(2104, 40, 70), 4, tile=(32, 48)),
+        "ccitt-g4-wide.tif": ccitt_tiff(wide, 4),
+        "ccitt-g3-1d-wide.tif": ccitt_tiff(wide, 3),
+        "ccitt-mh-wide.tif": ccitt_tiff(wide, 2),
+        "ccitt-g4-flat.tif": ccitt_tiff(flat, 4),
+        "ccitt-g4-width-1.tif": ccitt_tiff(noise[:, :1], 4),
+        "ccitt-g4-orientation-6.tif": ccitt_tiff(noise, 4, orientation=6),
+    }
+    return {f"{RASTER}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def lab_tiff_layouts() -> Dict[str, bytes]:
+    """CIELab TIFFs of each layout Pillow reads (8 bits, three samples, no
+    extra samples, FillOrder 1: its one LAB key): name -> bytes; both byte
+    orders, no compression, LZW with and without Predictor 2, Deflate,
+    PackBits, JPEG (the streams' components as they are), strips, tiles,
+    separate planes (whose a* and b* Pillow does not XOR) and Orientation;
+    a* and b* stored signed."""
+    r = np.random.default_rng(2111)
+    h, w = 15, 13
+    lab = r.integers(0, 256, (h, w, 3))
+    lab[0, :6] = [[0, 128, 128], [255, 128, 128], [0, 0, 0], [255, 255, 255], [100, 127, 129], [50, 0, 255]]
+    photo = smooth_scene(2112, h, w, cell=8, step=8)
+    out = {
+        "lab-raw.tif": tiff_bytes(lab, photometric=8),
+        "lab-raw-mm.tif": tiff_bytes(lab, photometric=8, order=">"),
+        "lab-lzw.tif": tiff_bytes(lab, photometric=8, compression=5),
+        "lab-lzw-predictor-2.tif": tiff_bytes(lab, photometric=8, compression=5, predictor=2, rows_per_strip=4),
+        "lab-deflate-mm.tif": tiff_bytes(lab, photometric=8, compression=8, order=">"),
+        "lab-adobe-deflate-predictor-2.tif": tiff_bytes(lab, photometric=8, compression=32946, predictor=2),
+        "lab-packbits.tif": tiff_bytes(lab, photometric=8, compression=32773),
+        "lab-raw-strips-2.tif": tiff_bytes(lab, photometric=8, rows_per_strip=2),
+        "lab-raw-tiles.tif": tiff_bytes(lab, photometric=8, tile=(16, 16)),
+        "lab-lzw-tiles-mm.tif": tiff_bytes(lab, photometric=8, compression=5, tile=(16, 32), order=">"),
+        "lab-raw-planar.tif": tiff_bytes(lab, photometric=8, planar=2),
+        "lab-lzw-planar-tiles.tif": tiff_bytes(lab, photometric=8, compression=5, planar=2, tile=(16, 16)),
+        "lab-deflate-orientation-7.tif": tiff_bytes(lab, photometric=8, compression=8, orientation=7),
+        "lab-jpeg.tif": jpeg_tiff(photo, 2, 90, rows_per_strip=8, tags={262: (3, [8])}),
+        "lab-jpeg-planar.tif": jpeg_tiff(photo, 2, 80, rows_per_strip=8, planar=2, tags={262: (3, [8])}),
+    }
+    return {f"{RASTER}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def bigtiff_layouts() -> Dict[str, bytes]:
+    """Little-endian BigTIFFs (version 43, 8-byte offsets) of the kinds the
+    port reads in classic TIFF: name -> bytes; offsets and byte counts as
+    LONG8 or LONG, strips, tiles, planes, each compression, Lab, CCITT,
+    JPEG, a palette, 16-bit gray and a directory past its values."""
+    r = np.random.default_rng(2121)
+    h, w = 14, 12
+    rgb = r.integers(0, 256, (h, w, 3))
+    gray16 = r.integers(0, 65536, (h, w))
+    photo = smooth_scene(2122, h, w, cell=8, step=8)
+    out = {
+        "bigtiff-rgb-raw.tif": tiff_bytes(rgb, big=True),
+        "bigtiff-rgb-raw-long-offsets.tif": tiff_bytes(rgb, big=True, offset_type=4),
+        "bigtiff-rgb-lzw-predictor-2-strips.tif": tiff_bytes(rgb, big=True, compression=5, predictor=2,
+                                                             rows_per_strip=5),
+        "bigtiff-rgb-deflate-tiles.tif": tiff_bytes(rgb, big=True, compression=8, tile=(16, 16)),
+        "bigtiff-rgb-packbits-planar.tif": tiff_bytes(rgb, big=True, compression=32773, planar=2),
+        "bigtiff-gray16-raw.tif": tiff_bytes(gray16, 16, 1, big=True),
+        "bigtiff-palette4.tif": tiff_bytes(r.integers(0, 16, (h, w)), 4, 3, big=True,
+                                           colormap=r.integers(0, 65536, (16, 3))),
+        "bigtiff-lab-lzw.tif": tiff_bytes(r.integers(0, 256, (h, w, 3)), photometric=8, compression=5, big=True),
+        "bigtiff-ccitt-g4.tif": ccitt_tiff(_scan(2123, 20, 33), 4, big=True),
+        "bigtiff-jpeg-ycbcr.tif": jpeg_tiff(photo, 6, 85, (2, 2), rows_per_strip=8, big=True),
+        "bigtiff-cmyk-orientation-3.tif": tiff_bytes(r.integers(0, 256, (h, w, 4)), photometric=5, big=True,
+                                                     orientation=3),
+    }
+    return {f"{RASTER}/tiff/{k}": v for k, v in sorted(out.items())}
+
+
+def lab_big_ccitt_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Lab, BigTIFF and CCITT TIFFs the port refuses by name: those Pillow
+    does not identify (Lab of another layout than its key's, ICCLab,
+    ITULab, a big-endian BigTIFF) and those libtiff decodes only with
+    errors, which Pillow shows concealed (a bad code word, an
+    uncompressed-mode extension, an EOL inside a row, a row too long, data
+    cut short): name -> (bytes, reason)."""
+    r = np.random.default_rng(2131)
+    h, w = 9, 7
+    lab = r.integers(0, 256, (h, w, 3))
+    scan = _scan(2132, 12, 30)
+    g4 = ccitt_stream(scan, 4, eofb=False)
+    bad_code = _FAX_HORIZ + "000000000100"  # horizontal mode, then a white code word no table holds
+    return {
+        "lab-16-bit.tif": (tiff_bytes(lab * 257, 16, 8), "depth or sample layout"),
+        "lab-alpha.tif": (tiff_bytes(np.concatenate([lab, lab[..., :1]], 2), photometric=8, extra=(2,)),
+                          "depth or sample layout"),
+        "lab-one-sample.tif": (tiff_bytes(lab[..., 0], photometric=8), "depth or sample layout"),
+        "lab-fill-order-2.tif": (tiff_bytes(lab, photometric=8, tags={266: (3, [2])}), "depth or sample layout"),
+        "icclab.tif": (tiff_bytes(lab, photometric=9), "photometric interpretation"),
+        "itulab.tif": (tiff_bytes(lab, photometric=10, compression=5), "photometric interpretation"),
+        "bigtiff-mm.tif": (tiff_bytes(lab, photometric=8, big=True, order=">"), "big-endian"),
+        "ccitt-gray8.tif": (tiff_bytes(r.integers(0, 256, (h, w)), photometric=1, compression=4, data=g4),
+                            "CCITT .* other samples"),
+        "ccitt-g4-cut-short.tif": (ccitt_tiff(scan, 4, stream=lambda b: g4[:len(g4) // 2]), "decodes only with errors"),
+        "ccitt-g4-bad-code.tif": (ccitt_tiff(scan, 4, stream=lambda b: _bits_bytes(
+            "".join(fax_row_2d(b[0], np.zeros(b.shape[1], np.uint8))) + bad_code + "0" * 64)),
+                                  "decodes only with errors"),
+        "ccitt-g4-extension.tif": (ccitt_tiff(scan, 4, stream=lambda b: _bits_bytes("0000001111" + "0" * 40)),
+                                   "decodes only with errors"),
+        "ccitt-g4-eol-in-a-row.tif": (ccitt_tiff(scan, 4, stream=lambda b: _bits_bytes(
+            "".join(fax_row_2d(b[0], np.zeros(b.shape[1], np.uint8)))[:6] + _FAX_EOL * 2)), "decodes only with errors"),
+        "ccitt-g3-row-too-long.tif": (ccitt_tiff(scan[:, :20], 3, stream=lambda b: ccitt_stream(scan, 3)),
+                                      "decodes only with errors"),
+        "ccitt-g3-no-eol.tif": (ccitt_tiff(scan, 3, stream=lambda b: _bits_bytes("".join(
+            "".join(fax_row_1d(row)) for row in b))), "decodes only with errors"),
+        "ccitt-mh-rows-short.tif": (ccitt_tiff(scan, 2, stream=lambda b: ccitt_stream(b[:-2], 2)),
+                                    "decodes only with errors"),
+        "ccitt-rlew-rows-padded-to-16-bits.tif": (ccitt_tiff(scan, 32771, stream=lambda b: ccitt_stream(b, 32771)),
+                                                  "decodes only with errors"),
+    }
+
+
+def lab_psd_layouts() -> Dict[str, bytes]:
+    """Lab PSDs (colour mode 9, 8 bits) Pillow reads: raw and PackBits, raw
+    with a fourth (alpha) channel, with image resources, every a*/b*
+    extreme: name -> bytes."""
+    r = np.random.default_rng(2141)
+    h, w = 11, 9
+    planes = r.integers(0, 256, (4, h, w)).astype(np.uint8)
+    planes[:3, 0, :4] = np.array([[0, 128, 128], [255, 128, 128], [0, 0, 255], [255, 255, 0]]).T
+    out = {
+        "lab-raw.psd": psd_file(planes[:3], 9, w),
+        "lab-packbits.psd": psd_file(planes[:3], 9, w, compression=1),
+        "lab-alpha-raw.psd": psd_file(planes, 9, w),
+        "lab-resources-raw.psd": psd_file(planes[:3], 9, w, resources=psd_resource(1005, b"res", bytes(16))),
+        "lab-flat.psd": psd_file(np.full((3, h, w), 128, np.uint8), 9, w, compression=1),
+    }
+    return {f"{RASTER}/psd/{k}": v for k, v in sorted(out.items())}
+
+
+def lab_table_pillow() -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of every 8-bit Lab triple (L, a, b band
+    values, the index's bytes high to low), uint8 (2^24, 3): the oracle of
+    ``native.lab_to_rgb``.  A LAB image is built from its bands with
+    ``Image.merge``: ``np.asarray`` of one shows a* and b* XOR 0x80."""
+    from PIL import Image
+
+    idx = np.arange(1 << 24, dtype=np.uint32)
+    bands = [Image.fromarray(((idx >> s) & 255).astype(np.uint8).reshape(4096, 4096), "L") for s in (16, 8, 0)]
+    return np.asarray(Image.merge("LAB", bands).convert("RGB")).reshape(-1, 3)
+
+
+def lab_table_triples() -> np.ndarray:
+    """Every 8-bit Lab triple in ``lab_table_pillow``'s order: uint8 (2^24, 3)."""
+    idx = np.arange(1 << 24, dtype=np.uint32)
+    return np.stack([(idx >> 16) & 255, (idx >> 8) & 255, idx & 255], -1).astype(np.uint8)
+
+
 def _refusal_draws():
     """``tiff_refusals``' own draws for its YCbCr files, at the point where
     it drew the planes of ycbcr-lzw-predictor.tif."""
@@ -2532,8 +2942,9 @@ def _reverse_bits(data: bytes) -> np.ndarray:
 
 
 def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
-    """TIFFs the port refuses by name (Pillow reads some of them: Lab,
-    CCITT, a JPEG stream cut short): name -> (bytes, the reason the port's
+    """TIFFs the port refuses by name (Pillow reads some of them: CCITT data
+    libtiff decodes with errors, a JPEG stream cut short), with
+    ``lab_big_ccitt_refusals``: name -> (bytes, the reason the port's
     ``OSError`` names, a regular expression)."""
     r = np.random.default_rng(1705)
     h, w = 9, 7
@@ -2550,7 +2961,7 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
     rr = np.random.default_rng(1904)  # the JPEG and YCbCr refusals' own draws
     lzw_planes = ycbcr_planes(rr, h, w, 1, 4)
     return {
-        "bigtiff.tif": (b"II+\0\x08\0\0\0" + bytes(32), "BigTIFF"),
+        "bigtiff.tif": (b"II+\0\x08\0\0\0" + bytes(32), "first directory"),  # its directory at offset 0
         "jpeg.tif": (tiff_bytes(rgb, compression=7, data=junk), "breaks the format's rules"),
         "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "old-style JPEG compression"),
         "jpeg-12-bit.tif": (jpeg12, "12-bit"),
@@ -2561,10 +2972,10 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
                           "JPEG compression of other samples"),
         "ycbcr-1x4-lzw.tif": (ycbcr_tiff(*lzw_planes, 1, 4), "YCbCr pixels in this layout"),
         "ycbcr-lzw-one-sample.tif": (tiff_bytes(rgb[..., 0], photometric=6, compression=5), "depth or sample layout"),
-        "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk), "CCITT"),
+        "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk),
+                             "decodes only with errors"),
         "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
         "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "with this compression"),
-        "lab.tif": (tiff_bytes(rgb, photometric=8), "photometric interpretation"),
         "fill-order-2-gray8-white-raw.tif": (tiff_bytes(gray, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
         "fill-order-2-palette4-raw.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3)),
                                                      tags={266: (3, [2])}), "FillOrder 2"),
@@ -2579,6 +2990,7 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "strip-past-the-end.tif": (_strip_at_the_end(lzw), "truncated"),
         "raw-past-the-end.tif": (_strip_at_the_end(tiff_bytes(rgb)), "truncated"),
         "no-width.tif": (_without_tag(tiff_bytes(rgb), 256), "first directory"),
+        **lab_big_ccitt_refusals(),
     }
 
 
@@ -3138,7 +3550,11 @@ RASTER = "psd_pcx_sgi_qoi"  # their files' folder under FIXTURES
 RASTER_CARD = {"photo-1024-packbits.psd": "photo-1024-psd.png", "photo-1024-raw.psd": None,
                "poster-1024.pcx": "poster-1024-pcx.jpg", "photo-1024-rle.sgi": "photo-1024-sgi.bmp",
                "photo-1024.qoi": "photo-1024-qoi.webp", "photo-1024-jpeg-planes.tif": "photo-1024-jpeg-planes.jpg",
-               "photo-1024-jpeg-contig.tif": None}
+               "photo-1024-jpeg-contig.tif": None,
+               # Lab, BigTIFF and CCITT: written on the card by ``raster_card_originals`` too
+               "photo-1024-lab.tif": "photo-1024-lab.jpg", "photo-1024-lab.psd": "photo-1024-lab-psd.png",
+               "photo-1024-big.tif": "photo-1024-big.bmp", "scan-1024-g4.tif": "scan-1024-g4.png",
+               "scan-1024-g3-2d.tif": None, "scan-1024-mh.tif": None}
 RASTER_COMMITTED_CARD = ("photo-1024-jpeg-planes.tif", "photo-1024-jpeg-contig.tif")
 
 
@@ -3333,7 +3749,7 @@ def _pil_raster(img: np.ndarray, mode: str, fmt: str, **kw) -> bytes:
 
 def raster_layouts() -> Dict[str, bytes]:
     """A file of each PSD, PCX, SGI and QOI layout the port reads (name ->
-    bytes; Pillow reads each): PSD of every mode but Lab, raw and PackBits,
+    bytes; Pillow reads each): PSD of every mode (Lab in ``lab_psd_layouts``), raw and PackBits,
     with colour data, resources and layers to skip, PackBits streams of
     no-ops and runs across rows; PCX of 1 bit in 1, 2 and 4 planes, 8 bits
     in 1 plane (gray, with a palette, with the gray ramp) and in 3, strides
@@ -3440,9 +3856,8 @@ def raster_layouts() -> Dict[str, bytes]:
 
 
 def raster_refusals() -> Dict[str, Tuple[bytes, str]]:
-    """PSD, PCX, SGI and QOI files Pillow 12.1.0 refuses (and PSD's Lab
-    colour, which the port refuses by name): name -> (bytes, the reason the
-    port's ``OSError`` names, a regular expression)."""
+    """PSD, PCX, SGI and QOI files Pillow 12.1.0 refuses: name -> (bytes,
+    the reason the port's ``OSError`` names, a regular expression)."""
     r = np.random.default_rng(2013)
     h, w = 5, 7
     planes = r.integers(0, 256, (4, h, w)).astype(np.uint8)
@@ -3458,7 +3873,10 @@ def raster_refusals() -> Dict[str, Tuple[bytes, str]]:
         "psd-version-2.psd": (psd_file(planes[:3], 3, w, version=2), "which Pillow does not identify"),
         "psd-zip.psd": (psd_file(planes[:3], 3, w, compression=2), "ZIP"),
         "psd-rgb-2-channels.psd": (psd_file(planes[:2], 3, w), "not enough channels"),
-        "psd-lab.psd": (psd_file(planes[:3], 9, w), "Lab colour are not read"),
+        "psd-lab-16-bit.psd": (psd_file(planes[:3], 9, w, bits=16), "which Pillow does not identify"),
+        "psd-lab-2-channels.psd": (psd_file(planes[:2], 9, w), "not enough channels"),
+        # Pillow reads the row counts of 3 channels, Lab's, and takes the fourth's for data
+        "psd-lab-alpha-packbits.psd": (psd_file(planes, 9, w, compression=1), "truncated"),
         "psd-raw-cut-short.psd": (psd_file(planes[:3], 3, w)[:-5], "truncated"),
         "psd-packbits-cut-short.psd": (psd[:-3], "truncated"),
         "psd-counts-cut-short.psd": (psd_file(planes[:3], 3, w, compression=1, streams=[b""], counts=[1] * 4),
@@ -3487,6 +3905,15 @@ def raster_refusals() -> Dict[str, Tuple[bytes, str]]:
     }
 
 
+def card_scans() -> Dict[str, bytes]:
+    """The card's 1024 px scan (``_scan``) as Group 4, as T.4 2-D with fill
+    bits and as Modified Huffman, 128-row strips: name -> bytes."""
+    scan = _scan(2125, 1024, 1024, cell=16)
+    return {"scan-1024-g4.tif": ccitt_tiff(scan, 4, rows_per_strip=128),
+            "scan-1024-g3-2d.tif": ccitt_tiff(scan, 3, t4options=5, fill_bits=True, rows_per_strip=128),
+            "scan-1024-mh.tif": ccitt_tiff(scan, 2, rows_per_strip=128)}
+
+
 def raster_card_originals() -> Dict[str, bytes]:
     """The card's written originals of ``RASTER_CARD`` (all but the
     committed ones), from seeded numpy alone: name (under
@@ -3496,7 +3923,13 @@ def raster_card_originals() -> Dict[str, bytes]:
     poster = smooth_scene(2022, side, side, cell=128, step=32)
     planes = photo.transpose(2, 0, 1)
     pcx_rows = np.concatenate([poster[..., k] for k in range(3)], 1)
+    lab = smooth_scene(2124, side, side, cell=128, step=4)  # seeded L, a, b bands
     out = {
+        "photo-1024-lab.tif": tiff_bytes(lab ^ np.array([0, 128, 128]), photometric=8, compression=5, predictor=2,
+                                         rows_per_strip=64),
+        "photo-1024-lab.psd": psd_file(lab.transpose(2, 0, 1), 9, side, compression=1),
+        "photo-1024-big.tif": tiff_bytes(photo, compression=8, tile=(256, 256), big=True),
+        **card_scans(),
         "photo-1024-packbits.psd": psd_file(planes, 3, side, compression=1,
                                             resources=psd_resource(1005, b"", bytes(16))),
         "photo-1024-raw.psd": psd_file(planes, 3, side),
@@ -3523,10 +3956,11 @@ def raster_committed_card() -> Dict[str, bytes]:
 
 def raster_fixtures() -> Dict[str, bytes]:
     """Every committed file under ``psd_pcx_sgi_qoi/`` (name -> bytes),
-    written anew: the layouts, the refusals and the committed card
-    originals."""
+    written anew: the layouts (the Lab, BigTIFF and CCITT TIFFs among
+    them), the refusals and the committed card originals."""
     refused = {f"{RASTER}/refused/{k}": v for k, (v, _) in raster_refusals().items()}
-    return dict(sorted({**raster_layouts(), **jpeg_planes_predictor_layouts(), **refused,
+    return dict(sorted({**raster_layouts(), **jpeg_planes_predictor_layouts(), **lab_psd_layouts(),
+                        **lab_tiff_layouts(), **bigtiff_layouts(), **ccitt_layouts(), **refused,
                         **raster_committed_card()}.items()))
 
 
