@@ -6,10 +6,13 @@ first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
 GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax and Lab
 among them) through the port's own codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_pnm``), Targa (``decode_tga``), PSD (``decode_psd``), PCX
-(``decode_pcx``), SGI (``decode_sgi``) and QOI (``decode_qoi``) in numpy
-below, their sequential loops (plain PNM samples, Targa RLE packets,
-PackBits, PCX and SGI RLE, QOI ops) and a Lab PSD's conversion to sRGB
-in the native library; each as the JAX package's lane for it reads it.  A file of another format that
+(``decode_pcx``), SGI (``decode_sgi``), QOI (``decode_qoi``), DDS
+(``decode_dds``), BLP (``decode_blp``), FTEX (``decode_ftex``), ICNS
+(``decode_icns``) and Sun raster (``decode_sun``) in numpy below, their
+sequential loops (plain PNM samples, Targa RLE packets, PackBits, PCX,
+SGI, Sun and ICNS RLE, QOI ops), BCn blocks and a Lab PSD's conversion
+to sRGB in the native library; each as the JAX package's lane for it
+reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
 files are not read by the PyTorch port"), one that no Pillow plugin
 accepts "unknown format", and one a decoder refuses names the reason: no
@@ -36,7 +39,8 @@ class NotThisFormat(OSError):
     IndexError, TypeError, struct.error): Pillow then tries the plugins
     after it, and so does ``read_image``."""
 #: the formats the port decodes; ``sniff`` names any other Pillow opens
-READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA")
+READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA",
+        "DDS", "BLP", "FTEX", "ICNS", "Sun raster")
 
 
 def is_image(name: str) -> bool:
@@ -49,6 +53,14 @@ def _u16(b: bytes, at: int, order: str = "<") -> int:
 
 def _u32(b: bytes, at: int, order: str = "<") -> int:
     return struct.unpack_from(order + "I", b, at)[0] if len(b) >= at + 4 else -1
+
+
+def _raw(data: bytes, at: int, n: int, name: str, fmt: str) -> np.ndarray:
+    """``n`` bytes of ``data`` from ``at``, which must hold them (Pillow's
+    raw decoder: "image file is truncated")."""
+    if at + n > len(data):
+        raise OSError(f"{name}: {fmt} truncated ({len(data)} bytes, its pixels end at {at + n})")
+    return np.frombuffer(data, np.uint8, n, at)
 
 
 #: the ``_accept`` test of each Pillow 12.1.0 plugin, in the order
@@ -310,9 +322,7 @@ def _bitmap(data: bytes, at: int, offset: int, name: str, fmt: str = "BMP", halv
         if stride < row and not mapped:  # the raw decoder's rows would overlap: "bad configuration"
             raise refuse(f"gray palette of {bits}-bit pixels read a byte a pixel, its rows overlapping")
         # 8-bit gray over rows of fewer bytes: Pillow maps the file, which must hold every row's stride
-        need = offset + (h * stride if stride < row else (h - 1) * stride + row)
-        if need > len(data):
-            raise OSError(f"{name}: {fmt} truncated ({len(data)} bytes, its pixels end at {need})")
+        _raw(data, offset, h * stride if stride < row else (h - 1) * stride + row, name, fmt)
         span = np.frombuffer(data[offset:offset + (h - 1) * stride + row], np.uint8)
         if span.size < (h - 1) * stride + row:  # overlapping rows: the last reads past the file's end as zeros
             span = np.concatenate([span, np.zeros((h - 1) * stride + row - span.size, np.uint8)])
@@ -598,9 +608,7 @@ def decode_pnm(data: bytes, name: str = "PPM") -> np.ndarray:
         return _rgb(px if bands > 1 else px[:, :, 0])
 
     def body(n: int) -> np.ndarray:
-        if pos + n > len(data):
-            raise OSError(f"{name}: PPM truncated ({len(data)} bytes, its pixels end at {pos + n})")
-        return np.frombuffer(data, np.uint8, n, pos)
+        return _raw(data, pos, n, name, "PPM")
 
     if mode == "1":
         row = (w + 7) // 8
@@ -696,9 +704,7 @@ def decode_tga(data: bytes, name: str = "TGA") -> np.ndarray:
     if itype & 8:
         rows = native.tga_rle(data[pos:], name, bits // 8, row, h)
     else:
-        if pos + h * row > len(data):
-            raise OSError(f"{name}: TGA truncated ({len(data)} bytes, its pixels end at {pos + h * row})")
-        rows = np.frombuffer(data, np.uint8, h * row, pos).reshape(h, row)
+        rows = _raw(data, pos, h * row, name, "TGA").reshape(h, row)
     if not flags & 0x20:
         rows = rows[::-1]
     if rawmode == "1":
@@ -820,9 +826,7 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     if compression == 0:
         planes = []
         for at in (f.pos + k * w * h for k in range(need)):
-            if at + h * row > len(data):
-                raise refuse(f"truncated ({len(data)} bytes, a channel's pixels end at {at + h * row})")
-            planes.append(np.frombuffer(data, np.uint8, h * row, at).reshape(h, row))
+            planes.append(_raw(data, at, h * row, name, "PSD").reshape(h, row))
     elif compression == 1:
         counts = f.read(need * h * 2)
         if len(counts) < need * h * 2:
@@ -959,9 +963,7 @@ def decode_sgi(data: bytes, name: str = "SGI") -> np.ndarray:
     _too_large(name, "SGI", w, h)
     if storage == 0:
         page = w * h * bpc
-        if 512 + bands * page > len(data):
-            raise refuse(f"truncated ({len(data)} bytes, its pixels end at {512 + bands * page})")
-        px = np.frombuffer(data, np.uint8, bands * page, 512).reshape(bands, h, w, bpc)[..., 0].transpose(1, 2, 0)
+        px = _raw(data, 512, bands * page, name, "SGI").reshape(bands, h, w, bpc)[..., 0].transpose(1, 2, 0)
     elif storage == 1:
         px = native.sgi_rle(data[512:], name, bpc, bands, w, h)[..., ::bpc]
     else:
@@ -990,9 +992,419 @@ def decode_qoi(data: bytes, name: str = "QOI") -> np.ndarray:
     return _rgb(native.qoi(data[14:], name, bands, h, w))
 
 
+#: Pillow 12.1.0's DDS formats (``DdsImagePlugin``): a FourCC -> the bcn
+#: format it decodes, and a DX10 header's DXGI format -> the same (None:
+#: R8G8B8A8, read raw as RGBA)
+DDS_FOURCC = {b"DXT1": "BC1", b"DXT3": "BC2", b"DXT5": "BC3", b"BC4U": "BC4", b"ATI1": "BC4", b"BC5S": "BC5S",
+              b"BC5U": "BC5", b"ATI2": "BC5"}
+DDS_DXGI = {70: "BC1", 71: "BC1", 73: "BC2", 74: "BC2", 76: "BC3", 77: "BC3", 79: "BC4", 80: "BC4", 82: "BC5",
+            83: "BC5", 84: "BC5S", 95: "BC6H", 96: "BC6HS", 97: "BC7", 98: "BC7", 99: "BC7", 27: None, 28: None,
+            29: None}
+_DDPF_ALPHAPIXELS, _DDPF_FOURCC, _DDPF_PAL8, _DDPF_RGB, _DDPF_LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
+
+
+def _dds_masks(data: bytes, at: int, w: int, h: int, bitcount: int, masks: Tuple[int, ...]) -> np.ndarray:
+    """Pillow's ``DdsRgbDecoder``: a little-endian value of ``bitcount // 8``
+    bytes a pixel from ``data[at:]`` (past the file's end, zero bytes), and
+    each of the R, G and B ``masks``' fields scaled to 8 bits as int(field /
+    (mask >> shift) * 255) in float64: (h, w, 3)."""
+    step, n = bitcount // 8, w * h
+    value = np.zeros(n, np.uint64)
+    if step:
+        take = min(step, 4)  # the masks are 32-bit: bytes past the fourth of a value never reach them
+        count = min(n, max(0, -(-(len(data) - at) // step)))
+        base = at + np.arange(count, dtype=np.int64) * step
+        tail = np.frombuffer(data + bytes(take), np.uint8)
+        for k in range(take):
+            idx = base + k
+            byte = np.where(idx < len(data), tail[np.minimum(idx, len(data))], 0).astype(np.uint64)
+            value[:count] |= byte << np.uint64(8 * k)
+    out = np.zeros((n, 3), np.uint8)
+    for c, mask in enumerate(masks):
+        if not mask:
+            continue
+        shift = (mask & -mask).bit_length() - 1
+        total = mask >> shift
+        field = ((value & np.uint64(mask)) >> np.uint64(shift)).astype(np.float64)
+        out[:, c] = (field / total * 255).astype(np.uint8)
+    return out.reshape(h, w, 3)
+
+
+def decode_dds(data: bytes, name: str = "DDS") -> np.ndarray:
+    """A DirectDraw Surface's first surface as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``DdsImagePlugin`` and ``convert("RGB")``: uncompressed
+    RGB and RGBA by bit masks (``DdsRgbDecoder``: any byte count a pixel,
+    each field scaled as ``_dds_masks`` does, pixels past the file's end
+    zero), 8-bit luminance, 16-bit luminance with alpha, 8-bit palette
+    (1024 bytes of RGBA entries after the header), the FourCCs of
+    ``DDS_FOURCC`` and a DX10 header's DXGI formats of ``DDS_DXGI`` through
+    the native BCn decoder (``native.bcn``), R8G8B8A8 raw; the data read
+    from where Pillow's header reads stop (128 bytes, 148 after a DX10
+    header, 1152 after a palette), as its plugin never seeks.  A header cut
+    in its size field raises ``NotThisFormat``; what Pillow refuses (another
+    header size, a header cut short, another luminance depth, an unknown
+    FourCC or DXGI format or pixel format flags, data cut short) raises
+    ``OSError`` naming the file and the kind."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: DDS {why}, which Pillow (the JAX package's DDS lane) does not read")
+
+    if len(data) < 8:
+        raise NotThisFormat(f"{name}: DDS cut short in its header size, which Pillow does not identify")
+    size = _u32(data, 4)
+    if size != 124:
+        raise refuse(f"with a header of {size} bytes (Unsupported header size)")
+    if len(data) < 128:
+        raise refuse(f"header cut short at {len(data) - 8} of 120 bytes (Incomplete header)")
+    h, w = _u32(data, 12), _u32(data, 16)
+    pfflags, fourcc, bitcount = _u32(data, 80), data[84:88], _u32(data, 88)
+    masks = struct.unpack_from("<4I", data, 92)
+    _too_large(name, "DDS", w, h)
+    if w <= 0 or h <= 0:
+        raise refuse(f"of {w} x {h} pixels (tile cannot extend outside image)")
+    if pfflags & _DDPF_RGB:
+        return _dds_masks(data, 128, w, h, bitcount, masks[:3])  # RGBA's alpha mask: dropped by convert("RGB")
+    if pfflags & _DDPF_LUMINANCE:
+        if bitcount == 8:
+            return _rgb(_raw(data, 128, w * h, name, "DDS").reshape(h, w))
+        if bitcount == 16 and pfflags & _DDPF_ALPHAPIXELS:
+            return _rgb(_raw(data, 128, 2 * w * h, name, "DDS").reshape(h, w, 2)[:, :, 0])
+        raise refuse(f"of {bitcount}-bit luminance with pixel format flags {pfflags:#x} (Unsupported bitcount)")
+    if pfflags & _DDPF_PAL8:
+        palette = np.zeros((256, 3), np.uint8)
+        table = np.frombuffer(data, np.uint8, min(1024, len(data) - 128) // 4 * 4, 128).reshape(-1, 4)
+        palette[:len(table)] = table[:, :3]
+        return palette[_raw(data, 128 + 1024, w * h, name, "DDS").reshape(h, w)]
+    if not pfflags & _DDPF_FOURCC:
+        raise refuse(f"with pixel format flags {pfflags:#x} (Unknown pixel format flags)")
+    at = 128
+    if fourcc == b"DX10":
+        if len(data) < 132:
+            raise NotThisFormat(f"{name}: DDS cut short in its DX10 header, which Pillow does not identify")
+        dxgi, at = _u32(data, 128), 148
+        if dxgi not in DDS_DXGI:
+            raise refuse(f"of DXGI format {dxgi} (Unimplemented DXGI format)")
+        kind = DDS_DXGI[dxgi]
+        if kind is None:
+            return _rgb(_raw(data, at, 4 * w * h, name, "DDS").reshape(h, w, 4))
+    elif fourcc in DDS_FOURCC:
+        kind = DDS_FOURCC[fourcc]
+    else:
+        raise refuse(f"of FourCC {fourcc!r} (Unimplemented pixel format)")
+    return _rgb(_bcn(data[at:], name, kind, w, h))
+
+
+def _bcn(data: bytes, name: str, kind: str, w: int, h: int) -> np.ndarray:
+    px = native.bcn(data, name, kind, w, h)
+    return px[:, :, 0] if px.shape[2] == 1 else px
+
+
+def decode_ftex(data: bytes, name: str = "FTEX") -> np.ndarray:
+    """An FTEX texture's first mipmap as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``FtexImagePlugin`` and ``convert("RGB")``: format 0 as BC1
+    through the native BCn decoder, format 1 raw RGB, from the mipmap whose
+    offset and size the header gives (a size of -1 reads to the file's
+    end).  A header cut short raises ``NotThisFormat``; what Pillow refuses
+    (a file of other than one format, another format, data cut short)
+    raises ``OSError`` naming the file and the kind."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: FTEX {why}, which Pillow (the JAX package's FTEX lane) does not read")
+
+    if len(data) < 32:
+        raise NotThisFormat(f"{name}: FTEX header cut short ({len(data)} bytes), which Pillow does not identify")
+    w, h, _, formats, fmt, where = struct.unpack_from("<6i", data, 8)
+    if formats != 1:
+        raise refuse(f"of {formats} formats (Pillow asserts one)")
+    if where < 0:
+        raise refuse(f"whose mipmap offset {where} is negative")
+    if len(data[where:where + 4]) < 4:
+        raise NotThisFormat(f"{name}: FTEX mipmap size cut short, which Pillow does not identify")
+    (size,) = struct.unpack_from("<i", data, where)
+    if size < -1:
+        raise refuse(f"of mipmap size {size} (read length must be non-negative or -1)")
+    mip = data[where + 4:] if size == -1 else data[where + 4:where + 4 + size]
+    _too_large(name, "FTEX", w, h)
+    if w <= 0 or h <= 0:
+        raise refuse(f"of {w} x {h} pixels")
+    if fmt == 0:
+        return _rgb(_bcn(mip, name, "BC1", w, h))
+    if fmt == 1:
+        return _raw(mip, 0, 3 * w * h, name, "FTEX").reshape(h, w, 3).copy()
+    raise refuse(f"of format {fmt} (Invalid texture compression format)")
+
+
+#: BLP2's alpha encodings (``BlpImagePlugin.AlphaEncoding``) -> its DXT decode
+_BLP_DXT = {0: "BLP DXT1", 1: "BLP DXT3", 7: "BLP DXT5"}
+
+
+def decode_blp(data: bytes, name: str = "BLP") -> np.ndarray:
+    """A Blizzard Mipmap's first mip as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``BlpImagePlugin`` and ``convert("RGB")``:
+
+    - BLP1 JPEG: the shared header in front of the first mip, decoded by the
+      port's JPEG codec as Pillow's jpegmode CMYK reads it (four components
+      read as CMYK, an Adobe YCCK stream not converted: ``native.decode_blp_jpeg``),
+      its RGB bytes then read back as BGR rows of the BLP's width (alpha,
+      where the file has it, 255);
+    - BLP1 palette (encodings 4 and 5): the 256 BGRA entries, then the
+      indices read right after them, wherever the mip offset points;
+    - BLP2 palette (encoding 1) from the mip offset, and BLP2 DXT1 (with
+      or without alpha), DXT3 and DXT5 through the native decoder's BLP
+      variants, whose 5:6:5 colours do not replicate their top bits;
+      each block row gives four rows of whole blocks, and the stream is
+      read back as rows of the BLP's width, 3 bytes a pixel where the file
+      has no alpha (so a DXT3 or DXT5 file without alpha, or a width not a
+      multiple of 4, reads its pixels skewed, as Pillow shows them).
+
+    A header cut short raises ``NotThisFormat``; what Pillow refuses
+    (another compression or encoding, BLP2 JPEG, raw BGRA, tables or data
+    cut short, too few pixels) raises ``OSError`` naming the file and the
+    kind."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: BLP {why}, which Pillow (the JAX package's BLP lane) does not read")
+
+    blp1 = data[:4] == b"BLP1"
+    start = 28 if blp1 else 20
+    if len(data) < start - (4 if blp1 else 0):  # BLP1's subtype is skipped, not read
+        raise NotThisFormat(f"{name}: BLP header cut short ({len(data)} bytes), which Pillow does not identify")
+    (compression,) = struct.unpack_from("<i", data, 4)
+    if blp1:
+        alpha = _u32(data, 8) != 0
+        w, h = _u32(data, 12), _u32(data, 16)
+        (encoding,) = struct.unpack_from("<i", data, 20)
+    else:
+        encoding, alpha, alpha_encoding = struct.unpack_from("<bbb", data, 8)
+        alpha = alpha != 0
+        w, h = _u32(data, 12), _u32(data, 16)
+    _too_large(name, "BLP", w, h)
+    if w <= 0 or h <= 0:
+        raise refuse(f"of {w} x {h} pixels")
+    bands = 4 if alpha else 3
+    if len(data) < start + 128:
+        raise refuse("cut short in its mip offsets and lengths (Truncated File Read)")
+    offsets = struct.unpack_from("<16I", data, start)
+    lengths = struct.unpack_from("<16I", data, start + 64)
+    pos = start + 128
+
+    def read(at: int, n: int) -> bytes:
+        if n > 0 and at + n > len(data):
+            raise refuse(f"cut short: {n} bytes at {at} past its end at {len(data)} (Truncated File Read)")
+        return data[at:at + max(n, 0)]
+
+    def palette_at(at: int) -> np.ndarray:
+        return np.frombuffer(read(at, 1024), np.uint8).reshape(256, 4)[:, 2::-1]  # BGRA entries -> RGB
+
+    def by_index(at: int, table: np.ndarray) -> np.ndarray:
+        idx = np.frombuffer(read(at, lengths[0]), np.uint8)
+        if idx.size < w * h:
+            raise refuse(f"palette mip of {idx.size} indices for {w} x {h} pixels (not enough image data)")
+        return table[idx[:w * h]].reshape(h, w, 3)
+
+    if blp1:
+        if compression == 0:
+            (head,) = struct.unpack_from("<I", read(pos, 4))
+            at = max(offsets[0], pos + 4 + head)  # a skip of a negative count reads nothing
+            stream = read(pos + 4, head) + read(at, lengths[0])
+            if not stream.startswith(b"\xff\xd8\xff"):
+                raise refuse("JPEG mip that is not a JPEG stream (not a JPEG file)")
+            jpeg = native.decode_blp_jpeg(stream, name)
+            _too_large(name, "BLP JPEG", jpeg.shape[1], jpeg.shape[0])
+            flat = jpeg.reshape(-1)
+            if flat.size < 3 * w * h:
+                raise refuse(f"JPEG of {jpeg.shape[1]} x {jpeg.shape[0]} pixels for {w} x {h} (not enough image data)")
+            return flat[:3 * w * h].reshape(h, w, 3)[:, :, ::-1].copy()
+        if compression != 1:
+            raise refuse(f"BLP1 of compression {compression} (Unsupported BLP compression)")
+        if encoding not in (4, 5):
+            raise refuse(f"BLP1 of encoding {encoding} (Unsupported BLP encoding)")
+        return by_index(pos + 1024, palette_at(pos))
+    table = palette_at(pos)
+    if compression != 1:
+        raise refuse(f"BLP2 of compression {compression} (Unknown BLP compression)")
+    if encoding == 1:
+        return by_index(offsets[0], table)
+    if encoding != 2:
+        raise refuse(f"BLP2 of encoding {encoding} (Unknown BLP encoding)")
+    if alpha_encoding not in _BLP_DXT:
+        raise refuse(f"BLP2 DXT of alpha encoding {alpha_encoding} (Unsupported alpha encoding)")
+    kind = _BLP_DXT[alpha_encoding] + (" alpha" if alpha_encoding == 0 and alpha else "")
+    across, down = (w + 3) // 4, (h + 3) // 4
+    block = 8 if alpha_encoding == 0 else 16
+    blocks = read(offsets[0], across * down * block)
+    stream = native.bcn(blocks, name, kind, 4 * across, 4 * down).reshape(-1)
+    return stream[:bands * w * h].reshape(h, w, bands)[:, :, :3].copy()
+
+
+#: Pillow 12.1.0's ICNS sizes (``IcnsFile.SIZES``): (width, height, scale)
+#: -> the elements read for it, in order, each "png" (a PNG or JPEG 2000
+#: stream), "rle" (24-bit RGB, raw or RLE), "rle4" (it32: four zero bytes,
+#: then as "rle") or "mask" (8-bit alpha)
+ICNS_SIZES = {
+    (512, 512, 2): ((b"ic10", "png"),), (512, 512, 1): ((b"ic09", "png"),), (256, 256, 2): ((b"ic14", "png"),),
+    (256, 256, 1): ((b"ic08", "png"),), (128, 128, 2): ((b"ic13", "png"),),
+    (128, 128, 1): ((b"ic07", "png"), (b"it32", "rle4"), (b"t8mk", "mask")), (64, 64, 1): ((b"icp6", "png"),),
+    (32, 32, 2): ((b"ic12", "png"),), (48, 48, 1): ((b"ih32", "rle"), (b"h8mk", "mask")),
+    (32, 32, 1): ((b"icp5", "png"), (b"il32", "rle"), (b"l8mk", "mask")), (16, 16, 2): ((b"ic11", "png"),),
+    (16, 16, 1): ((b"icp4", "png"), (b"is32", "rle"), (b"s8mk", "mask")),
+}
+
+
+def decode_icns(data: bytes, name: str = "ICNS") -> np.ndarray:
+    """A macOS icon's image as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``IcnsImagePlugin`` and ``convert("RGB")``: the elements found by
+    walking the file up to the size its header gives (a later one of a
+    type replacing an earlier), the largest size of ``ICNS_SIZES`` with
+    an element (Pillow's ``bestsize``), and every element of that size
+    read in order, as ``dataforsize`` reads them: a PNG through the port's
+    PNG codec in Pillow's lane (its own size, which must be one of the
+    file's sizes over a whole scale, as Pillow's size setter asks), 24-bit
+    RGB raw where the element holds 3 bytes a pixel and else RLE through
+    the native library (``native.icns_rle``, ``it32`` after four zero
+    bytes), an 8-bit mask (read, then dropped with the alpha).  A PNG
+    element wins; else the RGB.  A file Pillow does not identify (a
+    directory cut short or holding an empty element, no element of a
+    listed size) raises ``NotThisFormat``; what it refuses (a JPEG 2000
+    element, which the port does not read, another stream, RLE that passes
+    its channel or ends early, a mask or raw RGB cut short, a size holding
+    a mask alone) raises ``OSError`` naming the file and the kind."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: ICNS {why}, which Pillow (the JAX package's ICNS lane) does not read")
+
+    if len(data) < 8:
+        raise NotThisFormat(f"{name}: ICNS header cut short, which Pillow does not identify")
+    size = _u32(data, 4, ">")
+    elements = {}
+    i = 8
+    while i < size:
+        if i + 8 > len(data):
+            raise NotThisFormat(f"{name}: ICNS directory cut short at byte {i}, which Pillow does not identify")
+        sig, block = data[i:i + 4], _u32(data, i + 4, ">")
+        if block <= 0:
+            raise NotThisFormat(f"{name}: ICNS element {sig!r} of no bytes (invalid block header), which Pillow does "
+                                "not identify")
+        elements[sig] = (i + 8, block - 8)
+        i += block
+    present = [s for s, kinds in ICNS_SIZES.items() if any(code in elements for code, _ in kinds)]
+    if not present:
+        raise NotThisFormat(f"{name}: ICNS with no 32-bit icon element (No 32bit icon resources found), which "
+                            "Pillow does not identify")
+    best = max(present)
+    pw, ph = best[0] * best[2], best[1] * best[2]
+    png = rgb = None
+    for code, kind in ICNS_SIZES[best]:
+        if code not in elements:
+            continue
+        start, length = elements[code]
+        if kind == "png":
+            head = data[start:start + 12]
+            if head.startswith(_PNG_MAGIC):
+                png = native.decode_buffer(data[start:], name, "pillow")
+                _too_large(name, "ICNS PNG element", png.shape[1], png.shape[0])
+            elif head.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) or head == b"\0\0\0\x0cjP  \r\n\x87\n":
+                raise OSError(f"{name}: ICNS element {code.decode()} holds a JPEG 2000 stream: JPEG 2000 files are not "
+                              "read by the PyTorch port")
+            else:
+                raise refuse(f"element {code.decode()} of another stream than PNG or JPEG 2000 (Unsupported icon "
+                             "subimage format)")
+        elif kind == "mask":
+            if start + pw * ph > len(data):
+                raise refuse(f"mask {code.decode()} cut short (buffer is not large enough)")
+        else:
+            if kind == "rle4":
+                if data[start:start + 4] != bytes(4):
+                    raise refuse(f"element {code.decode()} without its four zero bytes (Unknown signature)")
+                start, length = start + 4, length - 4
+            if length == 3 * pw * ph:
+                raw = data[start:start + length]
+                if len(raw) < length:
+                    raise refuse(f"RGB element {code.decode()} cut short (not enough image data)")
+                rgb = np.frombuffer(raw, np.uint8).reshape(ph, pw, 3)
+            else:
+                planes = native.icns_rle(data[start:], name, pw * ph)
+                rgb = planes.reshape(3, ph, pw).transpose(1, 2, 0)
+    if png is not None:
+        # Pillow's load sets the image's size to the PNG's, which must be one
+        # of the file's sizes over a whole scale
+        png_h, png_w = png.shape[:2]
+        if not any((s[0] * s[2]) // png_w == (s[1] * s[2]) / png_h for s in present):
+            raise refuse(f"PNG element of {png_w} x {png_h} pixels, none of its sizes {present} over a whole scale "
+                         "(This is not one of the allowed sizes of this image)")
+        return png
+    if rgb is None:
+        raise refuse(f"size {best} holding a mask alone (no RGB channels)")
+    return np.ascontiguousarray(rgb)
+
+
+#: Pillow 12.1.0's Sun raster raw modes (``SunImagePlugin``) by depth:
+#: (bits a pixel, the mode without a colour map)
+_SUN_DEPTHS = {1: "1", 4: "L", 8: "L", 24: "RGB", 32: "RGB"}
+
+
+def decode_sun(data: bytes, name: str = "Sun raster") -> np.ndarray:
+    """A Sun raster file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``SunImagePlugin`` and ``convert("RGB")``: depths 1 (a set bit black),
+    4 and 8 (gray, or indices through a colour map of planar R, G and B of
+    up to 1024 bytes, an index past it black), 24 (BGR; RGB where the type
+    is 3) and 32 (BGRX; RGBX for type 3); types 0, 1, 3, 4 and 5 raw with
+    rows padded to 16 bits, type 2 RLE through the native library
+    (``native.sun_rle``: Pillow's SunRleDecode.c, rows not padded, a run
+    going on into the next rows).  What Pillow does not identify (another
+    depth or type, a colour map of another type or past 1024 bytes, a
+    header cut short) raises ``NotThisFormat``; what it refuses (a colour
+    map on 1-, 24- or 32-bit pixels, data cut short) raises ``OSError``
+    naming the file and the kind."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: Sun raster {why}, which Pillow (the JAX package's Sun raster lane) does not read")
+
+    if len(data) < 32:
+        raise NotThisFormat(f"{name}: Sun raster header cut short, which Pillow does not identify")
+    _, w, h, depth, _, ftype, ptype, plength = struct.unpack_from(">8I", data)
+    if depth not in _SUN_DEPTHS:
+        raise NotThisFormat(f"{name}: Sun raster of depth {depth} (Unsupported Mode/Bit Depth), which Pillow does "
+                            "not identify")
+    mode = _SUN_DEPTHS[depth]
+    lut = None
+    if plength:
+        if plength > 1024 or ptype != 1:
+            raise NotThisFormat(f"{name}: Sun raster colour map of {plength} bytes and type {ptype}, which Pillow "
+                                "does not identify")
+        table = np.frombuffer(data, np.uint8, max(0, min(plength, len(data) - 32)), 32)
+        n = table.size // 3
+        if mode != "L":
+            raise refuse(f"of depth {depth} with a colour map (unrecognized image mode)")
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:n] = table[:3 * n].reshape(3, n).T
+    if ftype not in (0, 1, 2, 3, 4, 5):
+        raise NotThisFormat(f"{name}: Sun raster of type {ftype} (Unsupported Sun Raster file type), which Pillow "
+                            "does not identify")
+    _too_large(name, "Sun raster", w, h)
+    if w <= 0 or h <= 0:
+        raise refuse(f"of {w} x {h} pixels")
+    at = 32 + plength
+    row = (w * depth + 7) // 8
+    if ftype == 2:
+        rows = native.sun_rle(data[at:], name, row, h)
+    else:
+        stride = (w * depth + 15) // 16 * 2
+        span = _raw(data, at, (h - 1) * stride + row, name, "Sun raster")
+        rows = np.lib.stride_tricks.as_strided(span, (h, row), (stride, 1))
+    if depth == 1:
+        return _rgb(np.where(_unpack_bits(rows, 1, w), 0, 255).astype(np.uint8))
+    if depth in (4, 8):
+        px = _unpack_bits(rows, depth, w) if depth == 4 else rows[:, :w]
+        return _rgb(px * np.uint8(17) if depth == 4 and lut is None else px, lut)
+    px = rows[:, :w * depth // 8].reshape(h, w, depth // 8)
+    return np.ascontiguousarray(px[:, :, :3] if ftype == 3 else px[:, :, 2::-1])
+
+
 #: the formats read in numpy here, each from the whole file's bytes
 _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_pnm,
-             "TGA": decode_tga, "PCX": decode_pcx, "PSD": decode_psd, "QOI": decode_qoi, "SGI": decode_sgi}
+             "TGA": decode_tga, "PCX": decode_pcx, "PSD": decode_psd, "QOI": decode_qoi, "SGI": decode_sgi,
+             "DDS": decode_dds, "BLP": decode_blp, "FTEX": decode_ftex, "ICNS": decode_icns, "Sun raster": decode_sun}
 
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:

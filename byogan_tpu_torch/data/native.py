@@ -13,9 +13,12 @@ them) bit for bit with its Pillow lane (libjpeg-turbo 3.1.3, libwebp,
 Pillow 12.1.0's GIF decoder, libtiff 4.7.1, LittleCMS 2.17's Lab -> sRGB
 transform); ``lab_to_rgb`` runs that transform alone (a Lab PSD's
 planes); ``decode_buffer`` does the same as ``decode_image`` for bytes in
-memory (an icon's PNG frame); ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``
-and ``qoi`` run the sequential loops of ``data/images.py``'s PNM, Targa,
-PSD, PCX, SGI and QOI readers as Pillow's decoders do;
+memory (an icon's PNG frame), and ``decode_blp_jpeg`` for a BLP1 mip's
+JPEG; ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``,
+``qoi``, ``sun_rle`` and ``icns_rle`` run the sequential loops of
+``data/images.py``'s PNM, Targa, PSD, PCX, SGI, QOI, Sun raster and ICNS
+readers as Pillow's decoders do; ``bcn`` decodes the BCn blocks of DDS,
+FTEX and BLP2 textures as Pillow's bcn decoder and BLP plugin do;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
 naming the compiler's error: there is no other lane to fall back on.
@@ -33,7 +36,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 10
+ABI_VERSION = 11
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -80,8 +83,8 @@ ERRORS = {
     -37: "uncompressed TIFF files with FillOrder 2 of MinIsWhite 8-bit gray or 1-, 2- or 4-bit palettes, which "
          "Pillow's raw decoder has no raw mode for (unknown raw mode)",
     -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-, 2-, 4- and "
-         "8-bit gray, unsigned and signed 16-bit gray, 32-bit float gray, 8-bit gray with alpha, 8- and 16-bit "
-         "RGB with extra samples, 1- to 8-bit palettes, 8- and 16-bit CMYK and 8-bit Lab of three samples, as "
+         "8-bit gray, unsigned and signed 16-bit gray, 32-bit integer and float gray, 8-bit gray with alpha, 8- "
+         "and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and 16-bit CMYK and 8-bit Lab of three samples, as "
          "Pillow's keys list them)",
     -39: "a TIFF predictor that libtiff refuses on these samples",
     -40: "TIFF files of old-style LZW codes are not read by the PyTorch port",
@@ -98,6 +101,7 @@ ERRORS = {
          "end of its row (Pillow: buffer overrun when reading image file)",
     -50: "CCITT (fax) data that libtiff decodes only with errors, which Pillow shows as decoded (a bad code word, "
          "an uncompressed-mode extension, a row of the wrong length, data that end before the last row)",
+    -51: "an ICNS RLE run past the end of its channel (Pillow: Error reading channel)",
 }
 
 _P = ctypes.c_void_p
@@ -109,13 +113,17 @@ SIGNATURES = {
     "byogan_abi_version": [],
     "byogan_decode": [_S, _P, _IP, _IP, _I],
     "byogan_decode_buffer": [_P, _N, _P, _IP, _IP, _I],
+    "byogan_decode_blp_jpeg": [_P, _N, _P, _IP, _IP],
     "byogan_pnm_plain": [_P, _N, _I, _I, _I, _I, _I, _P],
     "byogan_tga_rle": [_P, _N, _I, _I, _I, _P],
     "byogan_packbits": [_P, _N, _I, _I, _P],
     "byogan_pcx_rle": [_P, _N, _I, _I, _P],
     "byogan_sgi_rle": [_P, _N, _I, _I, _I, _I, _P],
     "byogan_qoi": [_P, _N, _I, _N, _P],
+    "byogan_sun_rle": [_P, _N, _N, _N, _P],
+    "byogan_icns_rle": [_P, _N, _N, _P],
     "byogan_lab_rgb": [_P, _N, _P],
+    "byogan_bcn": [_P, _N, _I, _I, _I, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
@@ -204,6 +212,15 @@ def decode_buffer(data: bytes, name: str, lane: str = "native") -> np.ndarray:
     return _decode(lambda out, h, w: lib.byogan_decode_buffer(data, len(data), out, h, w, flag), name, None)
 
 
+def decode_blp_jpeg(data: bytes, name: str) -> np.ndarray:
+    """A BLP1 mip's JPEG stream as uint8 RGB, as ``decode_buffer`` decodes a
+    JPEG but for four components, which are read as CMYK whatever the Adobe
+    marker says (BlpImagePlugin sets Pillow's jpegmode to CMYK: no YCCK
+    conversion); ``name`` is the file errors name."""
+    lib = load_library()
+    return _decode(lambda out, h, w: lib.byogan_decode_blp_jpeg(data, len(data), out, h, w), name, None)
+
+
 def pnm_plain(data: bytes, name: str, h: int, w: int, bands: int, maxval: int, wide: bool) -> np.ndarray:
     """The samples of a plain PBM, PGM or PPM from ``data``, the bytes after
     its header, as uint8 (h, w, bands), as Pillow's ``PpmPlainDecoder``
@@ -268,6 +285,49 @@ def qoi(data: bytes, name: str, bands: int, h: int, w: int) -> np.ndarray:
     rc = load_library().byogan_qoi(data, len(data), bands, h * w, out.ctypes.data)
     if rc != 0:
         raise _failed(name, "QOI decode", rc)
+    return out
+
+
+def sun_rle(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of a Sun raster RLE image from ``data``, the bytes after its
+    colour map: uint8 (rows, row_bytes), as Pillow's SunRleDecode.c reads
+    them (rows not padded, a run going on into the next rows)."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_sun_rle(data, len(data), row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "Sun raster RLE decode", rc)
+    return out
+
+
+def icns_rle(data: bytes, name: str, pixels: int) -> np.ndarray:
+    """The R, G and B channels of an ICNS 24-bit RLE element, ``data`` from
+    its first byte to the file's end: uint8 (3, pixels), as Pillow's
+    ``IcnsImagePlugin.read_32`` reads them."""
+    out = np.empty((3, pixels), np.uint8)
+    rc = load_library().byogan_icns_rle(data, len(data), pixels, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "ICNS RLE decode", rc)
+    return out
+
+
+#: the formats of ``bcn`` (``native/codec.h``'s BcnFormat) and the channels
+#: each gives: BC1 to BC7 as Pillow's bcn decoder gives them (DDS, FTEX),
+#: and BLP2's DXT1 (three channels, or four where the file has alpha),
+#: DXT3 and DXT5 as BlpImagePlugin.py's Python decodes them
+BCN = {"BC1": (1, 4), "BC2": (2, 4), "BC3": (3, 4), "BC4": (4, 1), "BC5": (5, 3), "BC5S": (6, 3), "BC6H": (7, 3),
+       "BC6HS": (8, 3), "BC7": (9, 4), "BLP DXT1": (10, 3), "BLP DXT1 alpha": (11, 4), "BLP DXT3": (12, 4),
+       "BLP DXT5": (13, 4)}
+
+
+def bcn(data: bytes, name: str, pixel_format: str, w: int, h: int) -> np.ndarray:
+    """The 4 x 4 blocks of a w x h BCn texture, ``data`` from its first
+    block, as uint8 (h, w, channels) of ``BCN[pixel_format]`` (``native/bcn.cpp``):
+    blocks in rows, the edge blocks' pixels past the image dropped."""
+    code, channels = BCN[pixel_format]
+    out = np.empty((h, w, channels), np.uint8)
+    rc = load_library().byogan_bcn(data, len(data), code, w, h, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, f"{pixel_format} block decode", rc)
     return out
 
 

@@ -8,7 +8,7 @@ source is newer:
     g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off byogan_io.cpp png.cpp \\
         jpeg_decode.cpp jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp \\
         jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp \\
-        gif.cpp tiff.cpp ccitt.cpp lab.cpp pnm_tga.cpp psd_pcx_sgi_qoi.cpp \\
+        gif.cpp tiff.cpp ccitt.cpp lab.cpp pnm_tga.cpp psd_pcx_sgi_qoi.cpp bcn.cpp \\
         -o build/libbyogan_io.so -lz
 
 ``-ffp-contract=off`` keeps the compiler from fusing a multiply and an add
@@ -37,7 +37,7 @@ HERE = Path(__file__).resolve().parent
 SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
                                    "webp_tables.cpp", "gif.cpp", "tiff.cpp", "ccitt.cpp", "lab.cpp", "pnm_tga.cpp",
-                                   "psd_pcx_sgi_qoi.cpp"))
+                                   "psd_pcx_sgi_qoi.cpp", "bcn.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"

@@ -7,9 +7,10 @@
 // TIFF decode (tiff.cpp, with ccitt.cpp's fax decoders and lab.cpp's Lab ->
 // sRGB transform), bit for bit with the JAX package's Pillow lane,
 // the plain PNM and Targa RLE loops of the PNM and Targa readers
-// (pnm_tga.cpp), the PackBits, PCX RLE, SGI RLE and QOI loops of the PSD,
-// PCX, SGI and QOI readers (psd_pcx_sgi_qoi.cpp), and the PNG row unfilter
-// below.  The
+// (pnm_tga.cpp), the PackBits, PCX RLE, SGI RLE, QOI, Sun raster RLE and
+// ICNS RLE loops of the PSD, PCX, SGI, QOI, Sun raster and ICNS readers
+// (psd_pcx_sgi_qoi.cpp), the BCn block decoder of the DDS, FTEX and BLP
+// readers (bcn.cpp), and the PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -144,7 +145,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 10; }
+int byogan_abi_version() { return 11; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -223,6 +224,35 @@ int byogan_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsi
 // (Pillow's QoiDecoder): `pixels` pixels of `bands` (3 or 4) bytes into out.
 int byogan_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out) {
   return byogan::decode_qoi(data, size, bands, pixels, out);
+}
+
+// A BLP1 mip's JPEG stream held in memory into out, RGB of size (*h, *w), as
+// the byogan_decode_buffer of a JPEG but for four components, which are
+// read as CMYK whatever the Adobe marker says (Pillow's jpegmode CMYK, which
+// BlpImagePlugin sets: no YCCK conversion).
+int byogan_decode_blp_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
+  return byogan::decode_jpeg(data, size, out, h, w, true);
+}
+
+// The 4 x 4 blocks of a w x h BCn texture (bcn.cpp, codec.h's BcnFormat):
+// h * w pixels of the format's channels into out, as Pillow 12.1.0's bcn
+// decoder (DDS, FTEX) or BlpImagePlugin.py's DXT functions (BLP2) give them.
+int byogan_bcn(const uint8_t* data, size_t size, int pixel_format, int w, int h, uint8_t* out) {
+  return byogan::decode_bcn(data, size, pixel_format, w, h, out);
+}
+
+// The rows of a Sun raster RLE image from the bytes after its colour map
+// (Pillow's SunRleDecode.c): rows * row_bytes bytes into out, a run going on
+// into the rows after its own.
+int byogan_sun_rle(const uint8_t* data, size_t size, size_t row_bytes, size_t rows, uint8_t* out) {
+  return byogan::decode_sun_rle(data, size, row_bytes, rows, out);
+}
+
+// The three channels of an ICNS 24-bit RLE element from its first byte to
+// the file's end (IcnsImagePlugin.read_32): 3 * pixels bytes into out, a
+// channel after the other.
+int byogan_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* out) {
+  return byogan::decode_icns_rle(data, size, pixels, out);
 }
 
 // n 8-bit CIE Lab triples (L, a + 128, b + 128: Pillow's LAB bands) into n

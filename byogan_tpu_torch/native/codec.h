@@ -58,6 +58,7 @@ enum Status {
   kPcxOverrun = -48,       // a PCX RLE run past the end of its row
   kSgiOverrun = -49,       // an SGI RLE table or row past the file's end, or a run past its row's end
   kTiffCcittData = -50,    // CCITT data libtiff decodes only with errors (a bad code word, a row of the wrong length...)
+  kIcnsOverrun = -51,      // an ICNS RLE run past the end of its channel
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -68,22 +69,41 @@ enum Lane { kNativeLane = 0, kPillowLane = 1 };
 
 // Decode a whole file held in memory into out, uint8 RGB (*h, *w, 3).  Where
 // out is null or the image has another size, *h and *w get the image's and
-// the return is kSize.
+// the return is kSize.  decode_jpeg's force_cmyk reads four components as
+// CMYK whatever the Adobe marker says (no YCCK conversion), as BLP1's
+// reader sets Pillow's jpegmode to CMYK.
 int decode_png(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane lane);
-int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
+int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, bool force_cmyk = false);
 int decode_webp(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_gif(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 int decode_tiff(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w);
 
-// The loops of the PNM, Targa, PSD, PCX, SGI and QOI readers (byogan_pnm_plain,
-// byogan_tga_rle, byogan_packbits, byogan_pcx_rle, byogan_sgi_rle and
-// byogan_qoi in byogan_io.cpp).
+// The loops of the PNM, Targa, PSD, PCX, SGI, QOI, Sun raster and ICNS
+// readers (byogan_pnm_plain, byogan_tga_rle, byogan_packbits,
+// byogan_pcx_rle, byogan_sgi_rle, byogan_qoi, byogan_sun_rle and
+// byogan_icns_rle in byogan_io.cpp).
 int decode_pnm_plain(const uint8_t* data, size_t size, int bands, int w, int h, int maxval, int wide, uint8_t* out);
 int decode_tga_rle(const uint8_t* data, size_t size, int pixel_bytes, int row_bytes, int rows, uint8_t* out);
 int decode_packbits_rows(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
 int decode_pcx_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
 int decode_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsize, int ysize, uint8_t* out);
 int decode_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out);
+int decode_sun_rle(const uint8_t* data, size_t size, size_t row_bytes, size_t rows, uint8_t* out);
+int decode_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* out);
+
+// The formats of decode_bcn (byogan_bcn in byogan_io.cpp): BC1 to BC7 as
+// Pillow's bcn decoder gives them (BC1, BC2, BC3, BC7: RGBA; BC4: L; BC5,
+// BC5S, BC6H, BC6HS: RGB), and BLP2's DXT1 (RGB, or RGBA where the file has
+// alpha), DXT3 and DXT5 (RGBA) as BlpImagePlugin.py's Python decodes them.
+enum BcnFormat {
+  kBc1 = 1, kBc2, kBc3, kBc4, kBc5, kBc5s, kBc6h, kBc6hs, kBc7,
+  kBlpDxt1, kBlpDxt1Alpha, kBlpDxt3, kBlpDxt5
+};
+
+// The 4 x 4 blocks of a BCn texture of w x h pixels (bcn.cpp), blocks in
+// rows, into out: h * w pixels of the format's channels.  kTruncated where
+// the data hold fewer blocks than the image needs.
+int decode_bcn(const uint8_t* data, size_t size, int pixel_format, int w, int h, uint8_t* out);
 
 // One strip or tile of CCITT data (compression 2, 3, 4 or 32771; T4Options
 // `t4options`) of rows of `width` pixels, as libtiff's tif_fax3.c decodes

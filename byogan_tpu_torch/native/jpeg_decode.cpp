@@ -489,6 +489,10 @@ class Decoder {
  public:
   Decoder(const uint8_t* data, size_t size) : d_(data), end_(data + size) {}
 
+  // four components read as CMYK whatever the Adobe marker says (no YCCK
+  // conversion): BLP1's JPEG, whose reader sets Pillow's jpegmode to CMYK
+  bool force_cmyk_ = false;
+
   int run(uint8_t* out, int* h, int* w) {
     if (end_ - d_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail(kNotImage);
     p_ = d_ + 2;
@@ -1115,7 +1119,7 @@ class Decoder {
   Space color_space() const {
     if (ncomp_ == 1) return kGray;
     if (ncomp_ == 4) {
-      const Space s = adobe_ && adobe_transform_ != 0 ? kYcck : kCmyk;
+      const Space s = adobe_ && adobe_transform_ != 0 && !force_cmyk_ ? kYcck : kCmyk;
       if (lossless_ && s != kCmyk) fail(kJpegLossless);
       return s;
     }
@@ -1216,9 +1220,10 @@ int decode_jpeg_tiff(const uint8_t* tables, size_t tables_size, const uint8_t* d
   }
 }
 
-int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
+int decode_jpeg(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, bool force_cmyk) {
   try {
     jpeg::Decoder dec(data, size);
+    dec.force_cmyk_ = force_cmyk;
     return dec.run(out, h, w);
   } catch (const jpeg::Error& e) {
     return e.code;

@@ -1,9 +1,12 @@
-// PackBits, PCX RLE, SGI RLE and QOI: the byte-sequential loops of the PSD,
-// PCX, SGI and QOI readers (data/images.py reads their headers and raw
-// pixels in numpy), bit for bit with Pillow 12.1.0's PackbitsDecode.c,
-// PcxDecode.c, SgiRleDecode.c and QoiImagePlugin.py's QoiDecoder, the lane
-// through which the JAX package reads those files.
+// PackBits, PCX RLE, SGI RLE, QOI, Sun raster RLE and ICNS RLE: the
+// byte-sequential loops of the PSD, PCX, SGI, QOI, Sun raster and ICNS
+// readers (data/images.py reads their headers and raw pixels in numpy), bit
+// for bit with Pillow 12.1.0's PackbitsDecode.c, PcxDecode.c,
+// SgiRleDecode.c, QoiImagePlugin.py's QoiDecoder, SunRleDecode.c and
+// IcnsImagePlugin.py's read_32, the lane through which the JAX package reads
+// those files.
 
+#include <algorithm>
 #include <cstring>
 #include <new>
 
@@ -180,6 +183,61 @@ int decode_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8
     remember(v);
     memcpy(out + n * bands, v, bands);
     n++;
+  }
+  return kOk;
+}
+
+int decode_sun_rle(const uint8_t* data, size_t size, size_t row_bytes, size_t rows, uint8_t* out) {
+  const size_t need = row_bytes * rows;
+  size_t pos = 0, o = 0;
+  while (o < need) {
+    if (pos >= size) return kTruncated;
+    if (data[pos] != 0x80) {  // a literal byte
+      out[o++] = data[pos++];
+      continue;
+    }
+    if (size - pos < 2) return kTruncated;
+    if (data[pos + 1] == 0) {  // 0x80 0: a literal 0x80
+      out[o++] = 0x80;
+      pos += 2;
+      continue;
+    }
+    if (size - pos < 3) return kTruncated;
+    // 0x80 n v: n + 1 copies of v, the rest of a row's end carried into
+    // the rows after it
+    const size_t n = std::min<size_t>((size_t)data[pos + 1] + 1, need - o);
+    memset(out + o, data[pos + 2], n);
+    o += n;
+    pos += 3;
+  }
+  return kOk;
+}
+
+int decode_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* out) {
+  size_t pos = 0;
+  for (int band = 0; band < 3; band++) {
+    uint8_t* o = out + band * pixels;
+    size_t left = pixels;
+    while (left > 0) {
+      if (pos >= size) return kTruncated;  // "Error reading channel"
+      const uint8_t b = data[pos++];
+      if (b & 0x80) {  // b - 125 copies of the next byte
+        const size_t n = (size_t)b - 125;
+        if (n > left) return kIcnsOverrun;
+        if (pos >= size) return kTruncated;
+        memset(o, data[pos++], n);
+        o += n;
+        left -= n;
+      } else {  // b + 1 literal bytes
+        const size_t n = (size_t)b + 1;
+        if (n > left) return kIcnsOverrun;
+        if (size - pos < n) return kTruncated;
+        memcpy(o, data + pos, n);
+        o += n;
+        pos += n;
+        left -= n;
+      }
+    }
   }
   return kOk;
 }

@@ -22,7 +22,9 @@
 //   bilevel and 2- and 4-bit gray (MinIsWhite and MinIsBlack), 8-bit gray
 //   (MinIsWhite inverted; signed samples read unsigned), 16-bit gray (I;16
 //   and I;16B clipped at 255 by convert("RGB"), MinIsWhite not inverted),
-//   signed 16-bit gray (I;16S, clipped at 0 and 255), 32-bit float gray (F,
+//   signed 16-bit gray (I;16S, clipped at 0 and 255), 32-bit integer gray
+//   (I;32N, I;32S, I;32BS: clipped at 0 and 255, an unsigned sample past
+//   2^31 read as negative), 32-bit float gray (F,
 //   Pillow's f2l), 8-bit gray with an unassociated alpha (LA), 8- and
 //   16-bit RGB with extra samples (dropped; an associated alpha first is
 //   divided out as Pillow's RGBa unpackers do; 16-bit samples keep their
@@ -323,7 +325,7 @@ int deflate_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
 }
 
 // The pixel kinds read (Pillow's mode and raw mode).
-enum Kind { kBilevel, kGray, kGray16, kSigned16, kFloat, kGrayAlpha, kRgb, kPalette, kCmyk, kLab };
+enum Kind { kBilevel, kGray, kGray16, kSigned16, kInt32, kFloat, kGrayAlpha, kRgb, kPalette, kCmyk, kLab };
 
 // Each byte's bits in reverse order (FillOrder 2).
 void reverse_bits(uint8_t* p, size_t n) {
@@ -546,6 +548,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     fill_known = true;
   } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 16 && format == 2) {
     kind = kSigned16;  // I;16S I;16BS
+  } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 32 && (format == 2 || (format == 1 && !big))) {
+    kind = kInt32;  // I;32N I;32S I;32BS (Pillow has no key of big-endian unsigned 32-bit gray)
   } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 32 && format == 3) {
     kind = kFloat;  // F;32F F;32BF
     invert = false;
@@ -643,7 +647,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     if (kind == kGray16 || kind == kGrayAlpha || samples > 4 ||
         (samples == 4 && kind == kRgb && !extras.empty() && extras[0] != 2 && extras[0] != 999))
       return kTiffLayout;  // "unknown raw mode for given image mode" (I, LA's A, a, X)
-    rbits = kind == kBilevel ? 1 : kind == kSigned16 || kind == kFloat ? 32 : 8;
+    rbits = kind == kBilevel ? 1 : kind == kSigned16 || kind == kInt32 || kind == kFloat ? 32 : 8;
     native = rbits == 32;
     invert = false;
     fill_known = true;
@@ -660,7 +664,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // libtiff hands Pillow native-order (little-endian) samples, which Pillow
   // unpacks as big-endian where its raw mode names the order and is not
   // renamed (I;16BS, F;32BF): each such sample reads byte-swapped
-  const bool byteswap = !raw && big && (kind == kSigned16 || kind == kFloat);
+  const bool byteswap = !raw && big && (kind == kSigned16 || kind == kInt32 || kind == kFloat);
   const uint32_t predictor = one(kPredictor, 1);
   const bool predict = (compression == 5 || deflate) && predictor != 1;
   if (predict && (predictor != 2 || (bps != 8 && bps != 16 && bps != 32)))
@@ -979,6 +983,11 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
           const uint32_t v = byteswap ? ((uint32_t)s[0] >> 8 | (s[0] & 255) << 8) : s[0];
           const int value = rbits == 32 ? (int)(int32_t)v : (int)(int16_t)(uint16_t)v;
           o[0] = o[1] = o[2] = (uint8_t)std::min(255, std::max(0, value));
+          break;
+        }
+        case kInt32: {  // Pillow's I -> RGB clips at 0 and 255; an unsigned sample past 2^31 reads negative
+          const int32_t value = (int32_t)(byteswap ? __builtin_bswap32((uint32_t)s[0]) : (uint32_t)s[0]);
+          o[0] = o[1] = o[2] = (uint8_t)std::min<int32_t>(255, std::max<int32_t>(0, value));
           break;
         }
         case kFloat:

@@ -66,17 +66,19 @@ both paths of the port at full width (``ModelSpec()``):
   layout Pillow reads and its refusals, 16-bit gray PNGs in both lanes,
   JPEG blocks past 16 bits, GIF, TIFF, ICO, CUR, DIB, PNM, Targa, PSD,
   PCX, SGI and QOI layouts, Lab TIFF and PSD, BigTIFF and CCITT TIFF
-  layouts, and the kinds refused by name among them: ICCLab, MM BigTIFF,
-  CCITT data libtiff decodes with errors, DDS, ICNS...), the Lab -> sRGB
+  layouts, DDS (BC1-BC7 blocks of every mode), BLP, FTEX, ICNS, Sun
+  raster and 32-bit gray TIFF layouts, and the kinds refused by name among
+  them: ICCLab, MM BigTIFF, CCITT data libtiff decodes with errors, BLP2
+  JPEG, JPEG 2000 in ICNS...), the Lab -> sRGB
   conversion of every 8-bit Lab triple held to the hash of Pillow's
   (LittleCMS's) table, the PNG decode bit-equal to data/png.py's on
   smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
   the codecs' times by decode threads, cli.prep on JPEG, WebP, JPEG-kind,
-  Pillow-lane, GIF/TIFF/PNM/Targa/ICO and PSD/PCX/SGI/QOI/TIFF originals
-  (Lab TIFF and PSD, BigTIFF and Group 4 among them) held to the JAX
-  package's pyramids ("io prep"), and
-  the training CLI on a set with JPEG, WebP, palette and 16-bit BMP files
-  among its PNGs, stopped by SIGTERM and resumed with
+  Pillow-lane, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF (Lab TIFF and
+  PSD, BigTIFF and Group 4 among them) and DDS/BLP/FTEX/ICNS/Sun/32-bit
+  TIFF originals held to the JAX package's pyramids ("io prep"), and
+  the training CLI on a set with JPEG, WebP, palette and 16-bit BMP, BC7
+  DDS and ICNS files among its PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
   on its FINAL.pth.
 
@@ -3257,8 +3259,10 @@ IO_PREP_ORIGINALS = 4  # per format, 1024 px, prepare_pyramid in this process
 IO_PREP_JPEGS = 6  # 1024 px JPEG originals through cli.prep
 CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
 CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
-# per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files and a JPEG of each kind of fx.JPEG_KINDS among them
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 13
+# per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files, a JPEG of each kind of fx.JPEG_KINDS, a BC7 DDS and an
+# ICNS among them
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 15
+IO_TRAIN_BC7_MEAN_ERR = 6.0  # mean |error| (LSB) of a stage-8 BC7 file against its source, fx.bc7_encode's
 IO_CONFIG = (
     "[io]\n"
     "data = {data}\n"
@@ -3386,7 +3390,7 @@ def io_checks(tmp) -> dict:
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
-                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/"))]
+                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3434,6 +3438,22 @@ def io_checks(tmp) -> dict:
     os.makedirs(written)
     card_paths = fx.check_card_originals(written, images.read_image)
     raster_card = fx.check_raster_card(written, images.read_image)
+    dbfis = [m for m in matched if m.startswith(f"{fx.DBFIS}/")]
+    dbfis_read = [m for m in dbfis if "@" not in m]
+    dbfis_refused = [m for m in dbfis if m.endswith("@refused")]
+    dbfis_kind = {k: sum(f"/{k}/" in m for m in dbfis_read) for k in ("dds", "blp", "ftex", "icns", "sun", "tiff")}
+    require(min(dbfis_kind.values()) >= 4 and len(dbfis_refused) >= 30,
+            f"the manifest holds DDS/BLP/FTEX/ICNS/Sun/TIFF layouts {dbfis_kind} and {len(dbfis_refused)} of their "
+            "refusals")
+    dbfis_card = fx.check_dbfis_card(written, images.read_image)
+    print(f"io fixtures: {len(dbfis_read)} DDS, BLP, FTEX, ICNS, Sun raster and 32-bit gray TIFF layouts decoded to "
+          f"Pillow 12.1.0's RGB ({', '.join(f'{k} {v}' for k, v in dbfis_kind.items())}; BC1-BC7 blocks of every BC6H "
+          f"and BC7 mode through native/bcn.cpp: {', '.join(m.split('/', 1)[1] for m in dbfis_read)}) and "
+          f"{len(dbfis_refused)} refused with Pillow's reason "
+          f"({', '.join(os.path.basename(m)[:-8] for m in dbfis_refused)}); {len(dbfis_card)} card originals of this "
+          f"slice written here by the fixtures' numpy writers (the BC1 and BC7 blocks by their encoders, the BLP1 "
+          f"JPEG's stream by the port's), each the manifest's bytes, and each decoded to Pillow's RGB "
+          f"({', '.join(sorted(dbfis_card))})")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3466,7 +3486,8 @@ def io_checks(tmp) -> dict:
           f"({', '.join(os.path.basename(m)[:-4] for m in jpeg_ycbcr)}); {len(card_paths)} card originals written "
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
-    hashes = len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + 1  # + the Lab table
+    hashes = (len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + len(dbfis_card)
+              + 1)  # + the Lab table
     print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
@@ -3487,7 +3508,8 @@ def io_checks(tmp) -> dict:
           f"and {len(tiff_refused)} kinds refused by name ({', '.join(os.path.basename(m)[:-12] for m in tiff_refused)}); "
           f"{len(gif_tiff_card)} GIF/TIFF card originals; {len(ico_pnm_tga)} ICO/CUR/DIB/PNM/Targa files and "
           f"{len(card_paths)} written card originals; {len(raster)} PSD/PCX/SGI/QOI/TIFF files and "
-          f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals of this slice (above); "
+          f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals (above); {len(dbfis)} "
+          f"DDS/BLP/FTEX/ICNS/Sun/TIFF files and {len(dbfis_card)} written card originals (above); "
           "the Lab table (above)")
 
     rng = np.random.default_rng(31)
@@ -3555,6 +3577,7 @@ def io_checks(tmp) -> dict:
     out["codec_ms"].update(raster_codec_times(raster_card))
     out["card_originals"] = written
     out["raster_card"] = raster_card
+    out["dbfis_card"] = dbfis_card
     return out
 
 
@@ -3694,92 +3717,6 @@ def lane_codec_times(fx, folder: str) -> dict:
     return ms
 
 
-def prep_committed_cli(tmp, root, folder: str, names, key: str, listed: dict = None, written: dict = None) -> tuple:
-    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
-    committed originals ``names`` of ``fx.FIXTURES/folder`` (``listed``
-    renames each to the listed name prep reads it under) and the files
-    ``written`` (listed name -> path of an original written in this run),
-    the resizes on the card: every image of the 8 sets equal to the one the
-    JAX package's ``prepare_pyramid`` wrote from them (the fixtures'
-    manifest's ``key``).  Returns the seconds the CLI took, process start
-    included, and the images matched."""
-    from byogan_tpu_torch.data import images
-
-    fx = codec_fixtures()
-    data = os.path.join(tmp, f"prep_{key}")
-    os.makedirs(data)
-    for name in sorted(names):
-        shutil.copy(os.path.join(fx.FIXTURES, folder, name), os.path.join(data, (listed or {}).get(name, name)))
-    for name, path in (written or {}).items():
-        shutil.copy(path, os.path.join(data, name))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
-                          cwd=root, capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    matched = fx.check_prep(data, images.read_image, key)
-    require(matched == 8 * (len(names) + len(written or {})),
-            f"{matched} prepared images, expected {8 * (len(names) + len(written or {}))}")
-    return cli_s, matched
-
-
-def prep_kinds_cli(tmp, root) -> float:
-    """``prep_committed_cli`` on the originals of the JPEG kinds
-    (arithmetic sequential and progressive, CMYK, YCCK, 4:4:0 and
-    block-smoothed at 1024 px, lossless at 512 px), held to the JAX
-    package's prep of them (Pillow's decode).  Returns the seconds per
-    original."""
-    fx = codec_fixtures()
-    n = len(fx.KINDS_CARD)
-    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.KINDS, "card"), fx.KINDS_CARD, "jpeg_prep")
-    print(f"io prep: cli.prep of {n} originals of the JPEG kinds ({', '.join(sorted(fx.KINDS_CARD))}) to 8 sets in "
-          f"{cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker threads, resizes on the "
-          f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
-          f"resize, hashes in the fixtures' manifest); card {card_name()}")
-    return cli_s / n
-
-
-def prep_pillow_cli(tmp, root) -> float:
-    """``prep_committed_cli`` on the originals the Pillow lane added (an
-    8-bit palette BMP, an RLE8 BMP and a 16-bit gray PNG scan of 10 bits,
-    1024 px), held to the JAX package's prep of them (Pillow's decode: the
-    scan clipped at 255).  Returns the seconds per original."""
-    fx = codec_fixtures()
-    n = len(fx.PILLOW_CARD)
-    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.PILLOW, "card"), fx.PILLOW_CARD, "pillow_prep")
-    print(f"io prep: cli.prep of {n} originals of the Pillow lane ({', '.join(fx.PILLOW_CARD)}) to 8 sets in "
-          f"{cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker threads, resizes on the "
-          f"card); {matched} of {matched} images equal to the JAX package's prepare_pyramid (Pillow's decode and "
-          f"resize, hashes in the fixtures' manifest); card {card_name()}")
-    return cli_s / n
-
-
-def prep_gif_tiff_cli(tmp, root, card_originals: str) -> float:
-    """``prep_committed_cli`` on the GIF and TIFF originals (a posterised
-    1024 px photo as a GIF with a global table under a .jpg name, the same
-    pixels interlaced under a .png name, a two-frame GIF with a local table
-    and transparency at an offset under a .jpeg name, an LZW TIFF with
-    predictor 2 under a .png name) and, in the same process, the written
-    originals of ``card_originals`` (a folder ``fx.check_card_originals``
-    filled) that prep reads (a 1024 px P6 under .jpg, a 1024 px RLE Targa
-    and a 1024 px 4-bit gray LZW TIFF under .png, a 256 px icon under
-    .bmp, a 1024 px YCbCr 2 x 2 JPEG TIFF under .jpg), held to the JAX
-    package's prep of them (Pillow's decode).  Returns the seconds per
-    original."""
-    fx = codec_fixtures()
-    written = {listed: os.path.join(card_originals, name) for name, listed in fx.CARD_ORIGINALS.items() if listed}
-    n = len(fx.GIF_TIFF_CARD) + len(written)
-    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.GIF_TIFF, "card"), fx.GIF_TIFF_CARD,
-                                        "gif_tiff_prep", listed=fx.GIF_TIFF_CARD, written=written)
-    print(f"io prep: cli.prep of {n} GIF, TIFF, PNM, Targa and ICO originals ("
-          + ", ".join(f"{k} as {v}" for k, v in fx.GIF_TIFF_CARD.items())
-          + ", " + ", ".join(f"{k} as {v}" for k, v in fx.CARD_ORIGINALS.items() if v)
-          + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
-          f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
-          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
-    return cli_s / n
-
-
 def gif_tiff_codec_times(fx) -> dict:
     """Host ms of the GIF and TIFF decoders, one call at a time on one
     thread (median of ``CODEC_REPEATS``), on the card's committed 1024 px
@@ -3876,38 +3813,108 @@ def lab_big_ccitt_codec_times(paths: dict) -> dict:
     return ms
 
 
-def prep_raster_cli(tmp, root, paths: dict) -> float:
-    """``prep_committed_cli`` on the card originals of this slice that prep
-    reads (``fx.RASTER_CARD``: a 1024 px PackBits PSD under .png, a PCX of
-    8 bits in 3 planes under .jpg, an RLE SGI under .bmp, a QOI under
-    .webp, a Lab TIFF under .jpg, a Lab PSD under .png, a BigTIFF under
-    .bmp and a Group 4 scan under .png, all written in this run, and the
-    committed YCbCr 1 x 1 JPEG TIFF in separate planes under .jpg), held to
-    the JAX package's prep of them (Pillow's decode).  Returns the seconds
-    per original."""
+def dbfis_codec_times(paths: dict) -> dict:
+    """The "time codecs DDS, BLP, FTEX, ICNS, Sun" phase (``io_main`` runs
+    it; ``main`` does not): host ms of each reader of this slice, one call
+    at a time on one thread (median of ``CODEC_REPEATS``), on the card's
+    written 1024 px originals (``paths``: name -> path): a photo as a BC7
+    and a BC1 DDS, a BLP2 DXT5, a BLP1 JPEG and a BC1 FTEX, an ICNS of a
+    PNG element, a 64-colour poster as an 8-bit RLE Sun raster and a 32-bit
+    integer gray TIFF (LZW, Predictor 2); and the BC7 and BC1 block decode
+    alone (``native.bcn`` on the DDS's blocks)."""
+    from byogan_tpu_torch.data import images, native
+
+    files = {"dds_bc7_1024": "photo-1024-bc7.dds", "dds_bc1_1024": "photo-1024-bc1.dds",
+             "blp2_dxt5_1024": "photo-1024-dxt5.blp", "blp1_jpeg_1024": "photo-1024-jpeg.blp",
+             "ftex_bc1_1024": "photo-1024-bc1.ftex", "icns_png_1024": "icon-1024-png.icns",
+             "sun_rle8_1024": "poster-1024-rle.ras", "tiff_int32_1024": "gray-1024-int32.tif"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    for kind, name in (("BC7", "photo-1024-bc7.dds"), ("BC1", "photo-1024-bc1.dds")):
+        with open(paths[name], "rb") as fh:
+            blocks = fh.read()[148 if kind == "BC7" else 128:]
+        ms[f"bcn_{kind.lower()}_1024"] = host_ms(lambda: native.bcn(blocks, name, kind, PREP_SIDE, PREP_SIDE))
+    print(f"time codecs: DDS, BLP, FTEX, ICNS and Sun raster, host ms, median of {CODEC_REPEATS} calls, one thread, "
+          f"{PREP_SIDE} px: DDS BC7 {ms['dds_bc7_1024']:.3f} (the blocks alone {ms['bcn_bc7_1024']:.3f}), DDS BC1 "
+          f"{ms['dds_bc1_1024']:.3f} (the blocks alone {ms['bcn_bc1_1024']:.3f}), BLP2 DXT5 {ms['blp2_dxt5_1024']:.3f}, "
+          f"BLP1 JPEG {ms['blp1_jpeg_1024']:.3f}, FTEX BC1 {ms['ftex_bc1_1024']:.3f}, ICNS PNG element "
+          f"{ms['icns_png_1024']:.3f}, Sun raster 8-bit RLE {ms['sun_rle8_1024']:.3f}, TIFF 32-bit gray LZW "
+          f"{ms['tiff_int32_1024']:.3f}; card {card_name()}")
+    return ms
+
+
+def prep_sets(io_state: dict) -> list:
+    """The originals of each slice of image formats that "io prep" runs
+    ``cli.prep`` on, as (slice, what they are, folder under ``fx.FIXTURES``
+    of the committed ones, their names, the manifest's key of the JAX
+    package's prep of them, listed name of each committed original that
+    prep reads under another, listed name -> path of each original written
+    in this run): the WebP originals (VP8 512 px, 640 x 480 and 1024 px,
+    VP8L 512 px, VP8X + ALPH 448 x 320); the JPEG kinds' (arithmetic
+    sequential and progressive, CMYK, YCCK, 4:4:0 and block-smoothed at
+    1024 px, lossless at 512 px); the Pillow lane's (an 8-bit palette BMP,
+    an RLE8 BMP and a 16-bit gray PNG scan of 10 bits, clipped at 255);
+    the GIF and TIFF ones (a posterised photo as a GIF with a global table,
+    interlaced, a two-frame GIF with a local table and transparency at an
+    offset, an LZW TIFF with predictor 2) with the written ones of
+    ``io_state["card_originals"]`` prep reads (a P6, an RLE Targa, a 4-bit
+    gray LZW TIFF, a 256 px icon, a YCbCr 2 x 2 JPEG TIFF); the committed
+    YCbCr 1 x 1 JPEG TIFF in planes with the written PSD, PCX, SGI, QOI,
+    Lab TIFF, Lab PSD, BigTIFF and Group 4 originals
+    (``io_state["raster_card"]``); and the written BC7 and BC1 DDS, BLP2
+    DXT5, BLP1 JPEG, BC1 FTEX, ICNS of a PNG element, RLE Sun raster and
+    32-bit gray TIFF (``io_state["dbfis_card"]``).  Each original is 1024
+    px unless named otherwise, under a listed name whatever its format."""
     fx = codec_fixtures()
-    committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
-    written = {fx.RASTER_CARD[n]: p for n, p in paths.items() if fx.RASTER_CARD[n] and n not in committed}
-    n = len(committed) + len(written)
-    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.RASTER, "card"), committed, "raster_prep",
-                                        listed=fx.RASTER_CARD, written=written)
-    print(f"io prep: cli.prep of {n} PSD, PCX, SGI, QOI and TIFF originals ("
-          + ", ".join(f"{k} as {v}" for k, v in fx.RASTER_CARD.items() if v)
+    card_originals = io_state["card_originals"]
+    raster_committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
+    return [
+        ("webp", "WebP", os.path.join(fx.WEBP, "card"), fx.WEBP_CARD, "webp_prep", None, {}),
+        ("kinds", "JPEG kinds'", os.path.join(fx.KINDS, "card"), sorted(fx.KINDS_CARD), "jpeg_prep", None, {}),
+        ("pillow", "Pillow lane's", os.path.join(fx.PILLOW, "card"), fx.PILLOW_CARD, "pillow_prep", None, {}),
+        ("gif_tiff", "GIF, TIFF, PNM, Targa and ICO", os.path.join(fx.GIF_TIFF, "card"), fx.GIF_TIFF_CARD,
+         "gif_tiff_prep", fx.GIF_TIFF_CARD,
+         {v: os.path.join(card_originals, k) for k, v in fx.CARD_ORIGINALS.items() if v}),
+        ("raster", "PSD, PCX, SGI, QOI and TIFF", os.path.join(fx.RASTER, "card"), raster_committed, "raster_prep",
+         fx.RASTER_CARD, {fx.RASTER_CARD[n]: p for n, p in io_state["raster_card"].items()
+                          if fx.RASTER_CARD[n] and n not in raster_committed}),
+        ("dbfis", "DDS, BLP, FTEX, ICNS, Sun raster and 32-bit TIFF", fx.DBFIS, [], "dbfis_prep", None,
+         {fx.DBFIS_CARD[n]: p for n, p in io_state["dbfis_card"].items() if fx.DBFIS_CARD[n]}),
+    ]
+
+
+def prep_committed_cli(tmp, root, what: str, folder: str, names, key: str, listed: dict = None,
+                       written: dict = None) -> float:
+    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
+    committed originals ``names`` of ``fx.FIXTURES/folder`` (``listed``
+    renames each to the listed name prep reads it under) and the files
+    ``written`` (listed name -> path of an original written in this run),
+    the resizes on the card: every image of the 8 sets equal to the one the
+    JAX package's ``prepare_pyramid`` wrote from them (the fixtures'
+    manifest's ``key``).  Prints a line naming ``what`` they are and each
+    original as prep reads it.  Returns the seconds per original the CLI
+    took, process start included."""
+    from byogan_tpu_torch.data import images
+
+    fx = codec_fixtures()
+    data = os.path.join(tmp, f"prep_{key}")
+    os.makedirs(data)
+    read_as = [(name, (listed or {}).get(name, name)) for name in sorted(names)]
+    read_as += [(os.path.basename(path), name) for name, path in (written or {}).items()]
+    for name in sorted(names):
+        shutil.copy(os.path.join(fx.FIXTURES, folder, name), os.path.join(data, (listed or {}).get(name, name)))
+    for name, path in (written or {}).items():
+        shutil.copy(path, os.path.join(data, name))
+    n = len(read_as)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    matched = fx.check_prep(data, images.read_image, key)
+    require(matched == 8 * n, f"{matched} prepared images, expected {8 * n}")
+    print(f"io prep: cli.prep of {n} {what} originals ("
+          + ", ".join(a if a == b else f"{a} as {b}" for a, b in read_as)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
-          f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
-          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
-    return cli_s / n
-
-
-def prep_webp_cli(tmp, root) -> float:
-    """``prep_committed_cli`` on the WebP originals (lossy 512 px, 640 x
-    480 and 1024 px, lossless 512 px, lossy with alpha 448 x 320), held to
-    the JAX package's prep of them.  Returns the seconds per original."""
-    fx = codec_fixtures()
-    n = len(fx.WEBP_CARD)
-    cli_s, matched = prep_committed_cli(tmp, root, os.path.join(fx.WEBP, "card"), fx.WEBP_CARD, "webp_prep")
-    print(f"io prep: cli.prep of {n} WebP originals (VP8 512 px, 640 x 480 and 1024 px, VP8L 512 px, VP8X + ALPH "
-          f"448 x 320) to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
           f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
     return cli_s / n
@@ -3959,12 +3966,13 @@ def io_prep(io_state: dict, tmp, root) -> dict:
     bit-equal to the plain resize (``prep_jpeg_cli``), and on the committed
     and written originals of each slice of image formats, every image equal
     to the JAX package's recorded prep (WebP, the JPEG kinds, the Pillow
-    lane's, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF).  Returns the
-    seconds per original of each."""
-    return {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root), "prep_webp_cli_s": prep_webp_cli(tmp, root),
-            "prep_kinds_cli_s": prep_kinds_cli(tmp, root), "prep_pillow_cli_s": prep_pillow_cli(tmp, root),
-            "prep_gif_tiff_cli_s": prep_gif_tiff_cli(tmp, root, io_state["card_originals"]),
-            "prep_raster_cli_s": prep_raster_cli(tmp, root, io_state["raster_card"])}
+    lane's, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF,
+    DDS/BLP/FTEX/ICNS/Sun/TIFF).  Returns the seconds per original of
+    each."""
+    out = {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root)}
+    for kind, what, folder, names, key, listed, written in prep_sets(io_state):
+        out[f"prep_{kind}_cli_s"] = prep_committed_cli(tmp, root, what, folder, names, key, listed, written)
+    return out
 
 
 def time_loader(io_state: dict) -> dict:
@@ -4075,8 +4083,12 @@ def io_train(tmp, root) -> tuple:
     decodes VP8 and VP8L on every stage-8 batch; and a committed JPEG of
     each kind of ``fx.JPEG_KINDS`` at each stage's size: 4:4:0,
     arithmetic sequential and progressive, block-smoothed, CMYK, YCCK,
-    lossless), stage 8 uncached: ``len()`` counts them, the stage-8
-    dataset's batch of the kinds' files equals their manifest hashes; a
+    lossless; a BC7 DDS (``fx.bc7_encode``) and an ICNS of a PNG element
+    written a stage, so the loader decodes BCn blocks and ICNS on every
+    stage-8 batch), stage 8 uncached: ``len()`` counts them, the stage-8
+    dataset's batch of the kinds' files equals their manifest hashes, the
+    ICNS its PNG's pixels and the DDS its blocks' decode by ``native.bcn``
+    (within ``IO_TRAIN_BC7_MEAN_ERR`` of its source); a
     subprocess stopped by SIGTERM once its metrics
     show stage 5; ``--auto-resume`` with no ``-c`` picks the checkpoint the
     stop wrote and runs to FINAL (launches per iteration counted); then
@@ -4094,6 +4106,7 @@ def io_train(tmp, root) -> tuple:
     data = os.path.join(tmp, "io_data")
     params = scenes(np.random.default_rng(51), IO_TRAIN_IMAGES)
     bmp_want = {}
+    bc7_src = icns_src = None  # stage 8's sources of its BC7 DDS and its ICNS
     for stage in range(1, 9):
         size = 4 * 2 ** (stage - 1)
         folder = os.path.join(data, "prepared", f"set_{stage}", "images")
@@ -4101,7 +4114,18 @@ def io_train(tmp, root) -> tuple:
         for i, p in enumerate(params):
             img = render(p, size)
             k = i - (IO_TRAIN_IMAGES - IO_TRAIN_OTHER)
-            if k >= 6:
+            if k == 13:  # a BC7 DDS under .png
+                rgba = np.concatenate([img, np.full((size, size, 1), 255, np.uint8)], 2)
+                with open(os.path.join(folder, f"image-{i}.png"), "wb") as fh:
+                    fh.write(fx.dds_file(size, size, fx.bc7_encode(rgba).tobytes(), dxgi=fx.DXGI["BC7_UNORM"]))
+                if stage == 8:
+                    bc7_src = img
+            elif k == 14:  # an ICNS of a PNG element (ic10, 1024 px over whole scales) under .jpg
+                with open(os.path.join(folder, f"image-{i}.jpg"), "wb") as fh:
+                    fh.write(fx.icns_file([(b"ic10", encode_png_filtered(img, 4))]))
+                if stage == 8:
+                    icns_src = img
+            elif k >= 6:
                 kind = fx.JPEG_KINDS[k - 6]
                 shutil.copy(os.path.join(fx.FIXTURES, fx.KINDS, "train", f"{size}-{kind}.jpg"),
                             os.path.join(folder, f"image-{i}.jpg"))
@@ -4134,8 +4158,21 @@ def io_train(tmp, root) -> tuple:
     rows = np.array([stage8.files.index(os.path.join(data, "prepared", "set_8", "images", n)) for n in sorted(bmp_want)])
     for name, img in zip(sorted(bmp_want), stage8.get_batch_uint8(rows, 2)):
         require(np.array_equal(img, bmp_want[name]), f"the stage-8 dataset read {name} to other pixels than its own")
-    print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}) in {time.perf_counter() - t0:.2f} s; "
-          f"len() of set_8 {len(stage8)}")
+    folder8 = os.path.join(data, "prepared", "set_8", "images")
+    dds_i, icns_i = IO_TRAIN_IMAGES - 2, IO_TRAIN_IMAGES - 1
+    rows = np.array([stage8.files.index(os.path.join(folder8, f"image-{dds_i}.png")),
+                     stage8.files.index(os.path.join(folder8, f"image-{icns_i}.jpg"))])
+    bc7_img, icns_img = stage8.get_batch_uint8(rows, 2)
+    with open(os.path.join(folder8, f"image-{dds_i}.png"), "rb") as fh:
+        blocks = fh.read()[148:]
+    require(np.array_equal(bc7_img, native.bcn(blocks, "stage-8 DDS", "BC7", 512, 512)[..., :3]),
+            "the stage-8 dataset read its BC7 DDS to other pixels than its blocks' decode")
+    bc7_err = float(np.abs(bc7_img.astype(np.int16) - bc7_src).mean())
+    require(bc7_err <= IO_TRAIN_BC7_MEAN_ERR, f"the stage-8 BC7 DDS is {bc7_err} LSB from its source")
+    require(np.array_equal(icns_img, icns_src), "the stage-8 dataset read its ICNS to other pixels than its PNG's")
+    print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}; a BC7 DDS under .png and an ICNS under "
+          f".jpg among them) in {time.perf_counter() - t0:.2f} s; len() of set_8 {len(stage8)}; the stage-8 BC7 DDS "
+          f"equal to its blocks' decode, {bc7_err:.3f} LSB mean from its source, the ICNS equal to its PNG")
 
     cfg = os.path.join(tmp, "io.txt")
     with open(cfg, "w") as f:
@@ -4215,8 +4252,9 @@ def io_train(tmp, root) -> tuple:
 def io_main() -> int:
     """The image-IO phases alone (``python -c "import chip_smoke;
     chip_smoke.io_main()"``), for a short call: "io", "io prep" and "io
-    train", which ``main`` runs too, and "time codecs Lab, BigTIFF, CCITT"
-    and "time loader", which only this entry point runs."""
+    train", which ``main`` runs too, and "time codecs Lab, BigTIFF, CCITT",
+    "time codecs DDS, BLP, FTEX, ICNS, Sun" and "time loader", which only
+    this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4233,6 +4271,8 @@ def io_main() -> int:
             io_prep(io_state, tmp, root)
         with phase("time codecs Lab, BigTIFF, CCITT"):
             lab_big_ccitt_codec_times(io_state["raster_card"])
+        with phase("time codecs DDS, BLP, FTEX, ICNS, Sun"):
+            dbfis_codec_times(io_state["dbfis_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

@@ -12,6 +12,8 @@ it, 1-, 2-, 4-, 8- and 16-bit gray, signed and float gray, gray with
 alpha, 8- and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and
 16-bit CMYK, FillOrder 2, every Orientation; JPEG compression and YCbCr,
 ``fx.ycbcr_jpeg_layouts``, more in ``test_torch_port_tiff_jpeg.py``), on
+32-bit integer gray of both sample formats, byte orders, compressions and
+layouts (Pillow's mode I, clipped at 0 and 255 by its I -> RGB), on
 TIFFs Pillow writes through libtiff and on seeded files; on little-endian
 BigTIFFs of those kinds (``fx.bigtiff_layouts``, Pillow's ``big_tiff``
 writer, seeded files; Lab in ``test_torch_port_lab.py``, CCITT in
@@ -54,8 +56,32 @@ def test_refused_tiff_raises_naming_the_file_and_the_kind(tmp_path, name):
         images.read_image(path)
 
 
+@pytest.mark.parametrize("layout", ["strip", "strips", "tiles", "planar"])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("order,sample_format", [("<", 1), ("<", 2), (">", 2), (">", 1)])
+def test_32_bit_integer_gray_matches_pillow(tmp_path, order, sample_format, compression, layout):
+    """32-bit integer gray (SampleFormat 1 and 2, II and MM; Predictor 2
+    under LZW and Deflate): Pillow's I;32N, I;32S and I;32BS, each sample
+    clipped at 0 and 255 (an unsigned one past 2^31 reads negative);
+    Pillow has no key of MM unsigned, which both refuse."""
+    r = np.random.default_rng(2500 + compression + 3 * sample_format + (order == ">"))
+    values = r.integers(-400, 700, (13, 19))
+    values[0, :4] = [2 ** 31 - 1, -(2 ** 31), 255, 256]
+    if sample_format == 1:
+        values = np.abs(values)
+    kw = {"strip": {}, "strips": {"rows_per_strip": 4}, "tiles": {"tile": (16, 16)}, "planar": {"planar": 2}}[layout]
+    data = fx.tiff_bytes(values % 2 ** 32, 32, 1, order, compression, predictor=2 if compression in (5, 8) else 1,
+                         tags={339: (3, [sample_format])}, **kw)
+    path = _write(tmp_path, "int32.png", data)
+    decoded = _same_as_pillow(path, f"{order} {sample_format} {compression} {layout}")
+    assert decoded == (order == "<" or sample_format == 2)
+    if not decoded:
+        with pytest.raises(OSError, match=re.escape(path) + ": .*depth or sample layout"):
+            images.read_image(path)
+
+
 @pytest.mark.parametrize("compression", ["raw", "tiff_lzw", "tiff_deflate", "tiff_adobe_deflate", "packbits"])
-@pytest.mark.parametrize("mode", ["1", "L", "I;16", "LA", "RGB", "RGBA", "P", "CMYK", "F"])
+@pytest.mark.parametrize("mode", ["1", "L", "I;16", "LA", "RGB", "RGBA", "P", "CMYK", "F", "I"])
 def test_pillow_written_tiff_matches_pillow(tmp_path, compression, mode):
     """Pillow's own writer (libtiff for the compressed ones)."""
     img = fx.smooth_scene(1780, 24, 37, cell=8, step=8)

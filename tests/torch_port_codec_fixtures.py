@@ -1132,7 +1132,8 @@ def kinds_entry(lib: ctypes.CDLL, name: str, path: str) -> dict:
 def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scratch: str,
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
-                   ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None) -> dict:
+                   ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None,
+                   dbfis: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1153,8 +1154,10 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     ``pillow/card/`` and of those under ``gif_tiff/card/`` together with
     the written ones cli.prep reads (by their listed names,
     ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``), and of the PSD, PCX, SGI,
-    QOI and TIFF originals of ``RASTER_CARD`` by their listed names; and
-    the hash of Pillow's RGB of every 8-bit Lab triple (``lab_table``)."""
+    QOI and TIFF originals of ``RASTER_CARD`` by their listed names; the
+    hash of Pillow's RGB of every 8-bit Lab triple (``lab_table``); and
+    each file under ``dds_blp_ftex_icns_sun/`` (``dbfis``, likewise), its
+    card originals and their pyramids as ``dbfis_manifest`` records them."""
     import PIL
     from PIL import features
 
@@ -1164,7 +1167,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     gif_tiff = committed_gif_tiff() if gif_tiff is None else gif_tiff
     ico_pnm_tga = committed_ico_pnm_tga() if ico_pnm_tga is None else ico_pnm_tga
     raster = committed_raster() if raster is None else raster
-    entries = {}
+    dbfis_parts = dbfis_manifest(scratch, committed_dbfis() if dbfis is None else dbfis)
+    entries = dict(dbfis_parts.pop("files"))
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
         with open(path, "wb") as f:
@@ -1257,12 +1261,15 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       "Targa), refusals with Pillow's error; card: the originals card_originals writes on the "
                       f"card, never committed; {RASTER}/ and raster_card: Pillow {PIL.__version__}'s "
                       "convert(\"RGB\") (PSD, PCX, SGI, QOI, TIFF), refusals with what Pillow makes of the file; "
-                      "raster_card: the originals raster_card_originals writes on the card, never committed",
+                      "raster_card: the originals raster_card_originals writes on the card, never committed; "
+                      f"{DBFIS}/ and dbfis_card: Pillow {PIL.__version__}'s convert(\"RGB\") (DDS, BLP, FTEX, "
+                      "ICNS, Sun raster, 32-bit gray TIFF), refusals with what Pillow makes of the file; "
+                      "dbfis_card: the originals dbfis_card_originals writes on the card, never committed",
         "files": entries, "card": card_entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
-        "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed),
+        "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed), **dbfis_parts,
         "lab_table": {"sha256_rgb": sha256(lab_table_pillow()),
                       "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") through LittleCMS "
                                  f"{features.version('littlecms2')} of every 8-bit Lab triple (L, a, b bands, "
@@ -1278,15 +1285,16 @@ def write(scratch: str) -> dict:
     gif_tiff = gif_tiff_fixtures()
     ico_pnm_tga = ico_pnm_tga_fixtures()
     raster = raster_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER):
+    dbfis = dbfis_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga, **raster}.items():
+                       **ico_pnm_tga, **raster, **dbfis}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga, raster)
+                              ico_pnm_tga, raster, dbfis)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -4000,6 +4008,581 @@ def check_raster_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[
         paths[os.path.basename(name)] = path
     if sorted(paths) != sorted(RASTER_CARD):
         raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(RASTER_CARD)}")
+    return paths
+
+
+# --- DDS, BLP, FTEX, ICNS, Sun raster and 32-bit gray TIFF: the Pillow lane ------
+
+DBFIS = "dds_blp_ftex_icns_sun"  # their files' folder under FIXTURES
+#: the card's originals, each by the listed name cli.prep reads it under,
+#: or None for one only timed: written on the card from seeded numpy by
+#: ``dbfis_card_originals`` (a 1024 px photo as a BC7 and a BC1 DDS, a
+#: BLP2 DXT5, a BLP1 JPEG whose stream the port's encoder writes, a BC1
+#: FTEX, an ICNS of a 1024 px PNG element, a 1024 px poster of 64 colours
+#: as an 8-bit RLE Sun raster with a colour map and a 32-bit integer gray
+#: TIFF)
+DBFIS_CARD = {"photo-1024-bc7.dds": "photo-1024-bc7.png", "photo-1024-bc1.dds": "photo-1024-bc1.jpg",
+              "photo-1024-dxt5.blp": "photo-1024-blp2.bmp", "photo-1024-jpeg.blp": "photo-1024-blp1.webp",
+              "photo-1024-bc1.ftex": "photo-1024-ftex.png", "icon-1024-png.icns": "icon-1024-icns.png",
+              "poster-1024-rle.ras": "poster-1024-sun.jpg", "gray-1024-int32.tif": "gray-1024-int32.bmp"}
+#: DXGI formats by name (dxgiformat.h), those Pillow reads and some it does not
+DXGI = {"R8G8B8A8_TYPELESS": 27, "R8G8B8A8_UNORM": 28, "R8G8B8A8_UNORM_SRGB": 29, "BC1_TYPELESS": 70,
+        "BC1_UNORM": 71, "BC1_UNORM_SRGB": 72, "BC2_TYPELESS": 73, "BC2_UNORM": 74, "BC3_TYPELESS": 76,
+        "BC3_UNORM": 77, "BC4_TYPELESS": 79, "BC4_UNORM": 80, "BC4_SNORM": 81, "BC5_TYPELESS": 82, "BC5_UNORM": 83,
+        "BC5_SNORM": 84, "BC6H_TYPELESS": 94, "BC6H_UF16": 95, "BC6H_SF16": 96, "BC7_TYPELESS": 97, "BC7_UNORM": 98,
+        "BC7_UNORM_SRGB": 99, "B8G8R8A8_UNORM": 87}
+#: BC6H's mode bits (the first 2 or 5 bits of a block), in the format's order
+BC6_MODE_BITS = (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15)
+
+
+def bcn_blocks(r, kind: str, n: int, mode: Optional[int] = None) -> np.ndarray:
+    """``n`` seeded random blocks of ``kind`` (BC1-BC5: any bytes; BC6H:
+    ``mode`` of ``BC6_MODE_BITS``' index, 14 a reserved one, or each block
+    one of them at random; BC7: ``mode`` 0-7, 8 the reserved, or random):
+    uint8 (n, block bytes)."""
+    size = 8 if kind in ("BC1", "BC4") else 16
+    b = r.integers(0, 256, (n, size), dtype=np.uint8)
+    if kind.startswith("BC6"):
+        modes = np.full(n, mode) if mode is not None else r.integers(0, 15, n)
+        bits = np.array(BC6_MODE_BITS + (19,))[modes]  # 19: a reserved mode
+        two = bits < 2
+        b[:, 0] = np.where(two, (b[:, 0] & 0xFC) | bits, (b[:, 0] & 0xE0) | bits).astype(np.uint8)
+    elif kind == "BC7":
+        modes = np.full(n, mode) if mode is not None else r.integers(0, 9, n)
+        first = (b[:, 0].astype(np.int64) << (modes + 1) | (1 << modes)) & 255
+        b[:, 0] = np.where(modes == 8, 0, first).astype(np.uint8)
+    return b
+
+
+def _bits_le(fields: List[Tuple[np.ndarray, int]], n: int, total: int) -> np.ndarray:
+    """Blocks of ``total`` bits from (values (n,), bits) fields, each least
+    significant bit first, in order: uint8 (n, total // 8)."""
+    out = np.zeros((n, total), np.uint8)
+    at = 0
+    for values, bits in fields:
+        v = np.asarray(values, np.int64).reshape(n, -1)
+        for k in range(v.shape[1]):
+            out[:, at:at + bits] = (v[:, k:k + 1] >> np.arange(bits)) & 1
+            at += bits
+    assert at == total
+    return np.packbits(out, axis=1, bitorder="little")
+
+
+def _blocks_of(img: np.ndarray) -> np.ndarray:
+    """(h, w, c) with h and w multiples of 4 as (h/4 * w/4, 16, c) pixels,
+    blocks in rows, pixels in rows."""
+    h, w, c = img.shape
+    return img.reshape(h // 4, 4, w // 4, 4, c).transpose(0, 2, 1, 3, 4).reshape(-1, 16, c)
+
+
+def bc1_encode(img: np.ndarray) -> np.ndarray:
+    """A simple BC1 encoder for the card's originals: each 4 x 4 block's
+    brightest and darkest pixel as 5:6:5 endpoints (color0 > color1, the
+    four-colour mode; a flat block gives both the same, read as three
+    colours and black, which no index picks) and each pixel's nearest of
+    the four colours (bcn's expansion): uint8 (blocks, 8)."""
+    px = _blocks_of(img).astype(np.int64)
+    luma = px @ np.array([2, 4, 1])
+    hi = px[np.arange(len(px)), luma.argmax(1)]
+    lo = px[np.arange(len(px)), luma.argmin(1)]
+
+    def pack(c):
+        return (c[:, 0] >> 3) << 11 | (c[:, 1] >> 2) << 5 | c[:, 2] >> 3
+
+    c0, c1 = pack(hi), pack(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+
+    def expand(c):
+        r, g, b = (c >> 11 & 31) << 3, (c >> 5 & 63) << 2, (c & 31) << 3
+        return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], -1)
+
+    e0, e1 = expand(c0), expand(c1)
+    colours = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], 1)
+    idx = ((px[:, :, None, :] - colours[:, None]) ** 2).sum(-1).argmin(-1)
+    return _bits_le([(c0, 16), (c1, 16), (idx, 2)], len(px), 64)
+
+
+def bc7_encode(img: np.ndarray) -> np.ndarray:
+    """A simple BC7 encoder for the card's originals: mode 6 (one subset,
+    7-bit RGBA endpoints and a p-bit each, 4-bit indices), each block's
+    per-channel minimum and maximum as the endpoints (p-bit 0, alpha 255
+    but for the p-bit), each pixel's index its projection on the line
+    between them: uint8 (blocks, 16)."""
+    px = _blocks_of(img).astype(np.int64)
+    n = len(px)
+    lo, hi = px.min(1) >> 1, (px.max(1) + 1) >> 1
+    hi = np.minimum(hi, 127)
+    e0, e1 = lo << 1, hi << 1
+    d = e1 - e0
+    dot = ((px - e0[:, None]) * d[:, None]).sum(-1)
+    den = np.maximum((d * d).sum(-1), 1)[:, None]
+    idx = np.clip((dot * 15 * 2 + den) // (2 * den), 0, 15)
+    flip = idx[:, 0] >= 8  # the anchor's index has 3 bits: swap the endpoints where it is past them
+    e0f, e1f = np.where(flip[:, None], hi, lo), np.where(flip[:, None], lo, hi)
+    idx = np.where(flip[:, None], 15 - idx, idx)
+    fields = [(np.full(n, 1 << 6), 7)]
+    for c in range(3):
+        fields.append((np.stack([e0f[:, c], e1f[:, c]], 1), 7))
+    fields += [(np.full((n, 2), 127), 7), (np.zeros((n, 2)), 1), (idx[:, :1], 3), (idx[:, 1:], 4)]
+    return _bits_le(fields, n, 128)
+
+
+def dds_file(w: int, h: int, payload: bytes, fourcc: bytes = b"", dxgi: Optional[int] = None, pfflags: int = 0x4,
+             bitcount: int = 0, masks=(0, 0, 0, 0), header_size: int = 124, palette: bytes = b"",
+             mipmaps: int = 0) -> bytes:
+    """A DDS of one surface: the 128-byte header (``header_size`` in its
+    size field), the pixel format (``pfflags``, ``fourcc``, ``bitcount``,
+    ``masks``), a DX10 header where ``dxgi`` is given (FourCC DX10),
+    ``palette`` and then ``payload``."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    pf = struct.pack("<2I", 32, pfflags) + (fourcc or bytes(4)) + struct.pack("<5I", bitcount, *masks)
+    head = b"DDS " + struct.pack("<7I", header_size, 0x1007 | (0x20000 if mipmaps else 0), h, w, 0, 0, mipmaps)
+    head += bytes(44) + pf + struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + palette + payload
+
+
+def dds_rgb_values(pixels: np.ndarray, masks, bitcount: int) -> bytes:
+    """(h, w, c) channel values in [0, 255] packed into ``bitcount``-bit
+    little-endian words by ``masks`` (each value scaled to its field)."""
+    v = np.zeros(pixels.shape[:2], np.int64)
+    for c, mask in enumerate(masks):
+        if mask:
+            shift = (mask & -mask).bit_length() - 1
+            v |= ((pixels[..., c].astype(np.int64) * (mask >> shift) // 255) << shift) & mask
+    return v.astype("<u8").view(np.uint8).reshape(v.shape + (8,))[..., :bitcount // 8].tobytes()
+
+
+def blp_file(version: int, w: int, h: int, mip: bytes, compression: int = 1, encoding: int = 1, alpha: int = 0,
+             alpha_encoding: int = 0, palette: Optional[bytes] = None, offset: Optional[int] = None,
+             length: Optional[int] = None, jpeg_header: Optional[bytes] = None) -> bytes:
+    """A BLP1 or BLP2 of one mip: the header, 16 mip offsets and lengths
+    (the first ``offset`` and ``length``, by default where ``mip`` is),
+    then (BLP1 JPEG) ``jpeg_header``'s size and bytes or else a 1024-byte
+    palette (``palette``, seeded where None), then ``mip``."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 1, w, h)
+    if jpeg_header is not None:
+        table = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        table = palette if palette is not None else np.random.default_rng(w * 131 + h).integers(
+            0, 256, 1024, dtype=np.uint8).tobytes()
+    at = len(head) + 128 + len(table)
+    offsets = struct.pack("<16I", at if offset is None else offset, *(0,) * 15)
+    lengths = struct.pack("<16I", len(mip) if length is None else length, *(0,) * 15)
+    return head + offsets + lengths + table + mip
+
+
+def jpeg_split(jpeg: bytes) -> Tuple[bytes, bytes]:
+    """A JPEG stream split as BLP1 keeps it: the header shared by every
+    mip (up to the scan) and the first mip's bytes (the scan onward)."""
+    at = jpeg.index(b"\xff\xda")
+    return jpeg[:at], jpeg[at:]
+
+
+def ftex_file(w: int, h: int, fmt: int, mip: bytes, formats: int = 1, size: Optional[int] = None) -> bytes:
+    """An FTEX of one format: header, the format and where its first mipmap
+    is, then the mipmap's size (``size``, by default its length) and bytes."""
+    head = b"FTEX" + struct.pack("<6i", 1, w, h, 1, formats, fmt) + struct.pack("<i", 32)
+    return head + struct.pack("<i", len(mip) if size is None else size) + mip
+
+
+def icns_rle(channel: np.ndarray) -> bytes:
+    """One channel of an ICNS 24-bit element as its RLE: runs of 3-130
+    equal bytes as (count + 125, value), other bytes in literals of up to
+    128 as (count - 1, bytes)."""
+    v = np.asarray(channel, np.uint8).reshape(-1)
+    out, i, n = bytearray(), 0, v.size
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and v[j] == v[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes((j - i + 125, int(v[i])))
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        out += bytes((j - i - 1,)) + v[i:j].tobytes()
+        i = j
+    return bytes(out)
+
+
+def icns_file(elements: List[Tuple[bytes, bytes]], size: Optional[int] = None) -> bytes:
+    """An ICNS of ``elements`` (type, bytes) in order, its header's size the
+    file's unless ``size`` is given."""
+    body = b"".join(code + struct.pack(">I", len(data) + 8) + data for code, data in elements)
+    return b"icns" + struct.pack(">I", len(body) + 8 if size is None else size) + body
+
+
+def icns_rgb(img: np.ndarray, raw: bool = False, it32: bool = False) -> bytes:
+    """An ICNS 24-bit element of ``img``: RLE channels after each other, or
+    ``raw`` RGB; ``it32`` puts its four zero bytes first."""
+    data = img.astype(np.uint8).tobytes() if raw else b"".join(icns_rle(img[..., c]) for c in range(3))
+    return (bytes(4) if it32 else b"") + data
+
+
+def sun_rle(rows: np.ndarray, cross_rows: bool = True) -> bytes:
+    """Sun raster RLE of byte rows: runs of 2-256 as (0x80, count - 1,
+    value), a 0x80 alone as (0x80, 0), other bytes as they are; runs cross
+    row ends where ``cross_rows``."""
+    out = bytearray()
+    for seq in ([rows.reshape(-1)] if cross_rows else list(rows)):
+        i, n = 0, len(seq)
+        while i < n:
+            j = i
+            while j < n and j - i < 256 and seq[j] == seq[i]:
+                j += 1
+            if j - i >= 3 or (j - i >= 2 and seq[i] == 0x80):
+                out += bytes((0x80, j - i - 1, int(seq[i])))
+                i = j
+            elif seq[i] == 0x80:
+                out += b"\x80\x00"
+                i += 1
+            else:
+                out.append(int(seq[i]))
+                i += 1
+    return bytes(out)
+
+
+def sun_file(w: int, h: int, depth: int, ftype: int, body: bytes, palette: bytes = b"", ptype: int = 1) -> bytes:
+    """A Sun raster: the 32-byte header, the colour map and ``body``."""
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype, ptype if palette else 0,
+                       len(palette)) + palette + body
+
+
+def sun_rows(px: np.ndarray, depth: int, pad: bool = True) -> np.ndarray:
+    """Pixels as Sun raster rows: (h, w) samples of 1, 4 or 8 bits, or
+    (h, w, 3|4) bytes in file order; each row padded to 16 bits where
+    ``pad``."""
+    h, w = px.shape[:2]
+    rows = _pack(px[..., None], depth) if depth < 8 else px.reshape(h, -1).astype(np.uint8)
+    if pad and rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], 1)
+    return rows
+
+
+def _dds_layouts(r) -> Dict[str, bytes]:
+    out = {}
+    for name, fourcc, kind in (("bc1-dxt1", b"DXT1", "BC1"), ("bc2-dxt3", b"DXT3", "BC2"), ("bc3-dxt5", b"DXT5", "BC3"),
+                               ("bc4-ati1", b"ATI1", "BC4"), ("bc4-bc4u", b"BC4U", "BC4"),
+                               ("bc5-ati2", b"ATI2", "BC5"), ("bc5-bc5u", b"BC5U", "BC5"), ("bc5s", b"BC5S", "BC5")):
+        for w, h in ((16, 12), (13, 7)):
+            out[f"dds/{name}-{w}x{h}.dds"] = dds_file(w, h, bcn_blocks(r, kind, (w + 3) // 4 * ((h + 3) // 4)).tobytes(),
+                                                     fourcc)
+    for dxgi in ("BC1_TYPELESS", "BC1_UNORM", "BC2_TYPELESS", "BC2_UNORM", "BC3_TYPELESS", "BC3_UNORM", "BC4_TYPELESS",
+                 "BC4_UNORM", "BC5_TYPELESS", "BC5_UNORM", "BC5_SNORM", "BC7_TYPELESS", "BC7_UNORM_SRGB"):
+        kind = dxgi[:3]
+        out[f"dds/dx10-{dxgi.lower()}-9x10.dds"] = dds_file(9, 10, bcn_blocks(r, kind, 9).tobytes(), dxgi=DXGI[dxgi])
+    for mode in range(9):
+        out[f"dds/bc7-mode{mode}-16x8.dds"] = dds_file(16, 8, bcn_blocks(r, "BC7", 8, mode).tobytes(),
+                                                      dxgi=DXGI["BC7_UNORM"])
+    for mode in range(15):
+        for dxgi in ("BC6H_UF16", "BC6H_SF16"):
+            out[f"dds/{dxgi[:4].lower()}{'s' if 'SF' in dxgi else ''}-mode{mode}-16x8.dds"] = dds_file(
+                16, 8, bcn_blocks(r, "BC6", 8, mode).tobytes(), dxgi=DXGI[dxgi])
+    out["dds/bc7-every-mode-29x23.dds"] = dds_file(29, 23, bcn_blocks(r, "BC7", 48).tobytes(), dxgi=DXGI["BC7_UNORM"])
+    out["dds/bc6h-every-mode-29x23.dds"] = dds_file(29, 23, bcn_blocks(r, "BC6", 48).tobytes(), dxgi=DXGI["BC6H_UF16"])
+    img = source_image(2201, 11, 14)
+    rgba = np.concatenate([img, r.integers(0, 256, (11, 14, 1))], 2)
+    for dxgi in ("R8G8B8A8_TYPELESS", "R8G8B8A8_UNORM", "R8G8B8A8_UNORM_SRGB"):
+        out[f"dds/dx10-{dxgi.lower()}-14x11.dds"] = dds_file(14, 11, rgba.astype(np.uint8).tobytes(), dxgi=DXGI[dxgi])
+    for name, bitcount, masks, alpha in (
+            ("rgb24", 24, (0xFF0000, 0xFF00, 0xFF, 0), False), ("bgr24", 24, (0xFF, 0xFF00, 0xFF0000, 0), False),
+            ("rgba32", 32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000), True), ("xrgb32", 32, (0xFF0000, 0xFF00, 0xFF, 0), False),
+            ("rgb565", 16, (0xF800, 0x7E0, 0x1F, 0), False), ("argb1555", 16, (0x7C00, 0x3E0, 0x1F, 0x8000), True),
+            ("argb4444", 16, (0xF00, 0xF0, 0xF, 0xF000), True), ("rgb332", 8, (0xE0, 0x1C, 0x3, 0), False),
+            ("rgb10a2", 32, (0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000), True),
+            ("split-masks", 16, (0b1010000000000000, 0x0FF0, 0b101, 0), False)):
+        body = dds_rgb_values(rgba, masks, bitcount)
+        out[f"dds/{name}-14x11.dds"] = dds_file(14, 11, body, pfflags=0x40 | (1 if alpha else 0), bitcount=bitcount,
+                                               masks=masks)
+    out["dds/rgb24-cut-short-14x11.dds"] = dds_file(14, 11, dds_rgb_values(rgba, (0xFF0000, 0xFF00, 0xFF), 24)[:200],
+                                                   pfflags=0x40, bitcount=24, masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    out["dds/l8-14x11.dds"] = dds_file(14, 11, img[..., 0].tobytes(), pfflags=0x20000, bitcount=8)
+    out["dds/la16-14x11.dds"] = dds_file(14, 11, rgba[..., ::3].astype(np.uint8).tobytes(), pfflags=0x20001,
+                                         bitcount=16)
+    out["dds/p8-14x11.dds"] = dds_file(14, 11, r.integers(0, 256, 154, dtype=np.uint8).tobytes(), pfflags=0x20,
+                                       bitcount=8, palette=r.integers(0, 256, 1024, dtype=np.uint8).tobytes())
+    out["dds/bc1-mipmaps-8x8.dds"] = dds_file(8, 8, bcn_blocks(r, "BC1", 4 + 1 + 1).tobytes(), b"DXT1", mipmaps=3)
+    return out
+
+
+def _blp_layouts(r) -> Dict[str, bytes]:
+    from PIL import Image
+
+    out = {}
+    img = source_image(2202, 13, 18)
+    for q, sub in ((85, "4:2:0"), (60, "4:4:4")):
+        header, mip = jpeg_split(pil_bytes(Image.fromarray(img), "JPEG", quality=q, subsampling=sub))
+        out[f"blp/blp1-jpeg-q{q}-18x13.blp"] = blp_file(1, 18, 13, mip, compression=0, jpeg_header=header)
+    header, mip = jpeg_split(pil_bytes(Image.fromarray(img).convert("L"), "JPEG", quality=80))
+    out["blp/blp1-jpeg-gray-18x13.blp"] = blp_file(1, 18, 13, mip, compression=0, jpeg_header=header)
+    cmyk = np.concatenate([255 - img, img.min(2, keepdims=True) // 2], 2).astype(np.uint8)
+    header, mip = jpeg_split(pil_bytes(Image.fromarray(cmyk, "CMYK"), "JPEG", quality=90))
+    out["blp/blp1-jpeg-cmyk-18x13.blp"] = blp_file(1, 18, 13, mip, compression=0, jpeg_header=header)
+    wide = source_image(2203, 13, 24)
+    header, mip = jpeg_split(port_jpeg(wide, 75))
+    out["blp/blp1-jpeg-narrower-than-stream-18x13.blp"] = blp_file(1, 18, 13, mip, compression=0, jpeg_header=header)
+    out["blp/blp1-jpeg-alpha-18x13.blp"] = blp_file(1, 18, 13, mip, compression=0, jpeg_header=header, alpha=8)
+    for kind in ("ycck-420", "cmyk-no-adobe"):  # the committed JPEG kinds' files, which the system's libjpeg wrote
+        with open(os.path.join(FIXTURES, KINDS, f"{kind}.jpg"), "rb") as f:
+            header, mip = jpeg_split(f.read())
+        out[f"blp/blp1-jpeg-{kind}.blp"] = blp_file(1, 17, 11, mip, compression=0, jpeg_header=header)
+    out["blp/blp1-jpeg-gap-24x13.blp"] = blp_file(1, 24, 13, b"\0" * 7 + mip, compression=0, jpeg_header=header,
+                                                 offset=28 + 128 + 4 + len(header) + 7, length=len(mip))
+    idx = r.integers(0, 256, (13, 18), dtype=np.uint8)
+    alpha_plane = r.integers(0, 256, 13 * 18, dtype=np.uint8).tobytes()
+    for version in (1, 2):
+        for depth in (0, 1, 4, 8):
+            out[f"blp/blp{version}-palette-alpha{depth}-18x13.blp"] = blp_file(
+                version, 18, 13, idx.tobytes() + alpha_plane[:13 * 18 * depth // 8], encoding=4 + (depth > 0)
+                if version == 1 else 1, alpha=depth)
+    out["blp/blp1-palette-offset-elsewhere-18x13.blp"] = blp_file(1, 18, 13, idx.tobytes(), encoding=5, offset=9)
+    out["blp/blp2-palette-long-mip-18x13.blp"] = blp_file(2, 18, 13, idx.tobytes() + bytes(40), alpha=8)
+    for w, h in ((16, 8), (18, 13)):
+        n = (w + 3) // 4 * ((h + 3) // 4)
+        for name, enc, size in (("dxt1", 0, 8), ("dxt3", 1, 16), ("dxt5", 7, 16)):
+            kind = {"dxt1": "BC1", "dxt3": "BC2", "dxt5": "BC3"}[name]
+            blocks = bcn_blocks(r, kind, n).tobytes()
+            for alpha in (0, 8) if name != "dxt1" else (0, 1):
+                out[f"blp/blp2-{name}-alpha{alpha}-{w}x{h}.blp"] = blp_file(2, w, h, blocks, encoding=2, alpha=alpha,
+                                                                           alpha_encoding=enc)
+    return out
+
+
+def _ftex_icns_sun_layouts(r) -> Dict[str, bytes]:
+    out = {}
+    for w, h in ((16, 8), (13, 10)):
+        n = (w + 3) // 4 * ((h + 3) // 4)
+        out[f"ftex/bc1-{w}x{h}.ftc"] = ftex_file(w, h, 0, bcn_blocks(r, "BC1", n).tobytes() + bytes(24))
+        out[f"ftex/rgb-{w}x{h}.ftu"] = ftex_file(w, h, 1, source_image(2204 + w, h, w).tobytes())
+    out["ftex/rgb-size-to-end-13x10.ftu"] = ftex_file(13, 10, 1, source_image(2206, 10, 13).tobytes(), size=-1)
+    icon = {s: smooth_scene(2210 + s, s, s, cell=4, step=8) for s in (16, 32, 48, 128)}
+    mask = {s: r.integers(0, 256, s * s, dtype=np.uint8).tobytes() for s in icon}
+    out["icns/is32-s8mk-16.icns"] = icns_file([(b"is32", icns_rgb(icon[16])), (b"s8mk", mask[16])])
+    out["icns/il32-32.icns"] = icns_file([(b"il32", icns_rgb(icon[32]))])
+    out["icns/ih32-h8mk-48.icns"] = icns_file([(b"is32", icns_rgb(icon[16])), (b"ih32", icns_rgb(icon[48])),
+                                              (b"h8mk", mask[48])])
+    out["icns/it32-t8mk-128.icns"] = icns_file([(b"TOC ", bytes(16)), (b"it32", icns_rgb(icon[128], it32=True)),
+                                               (b"t8mk", mask[128])])
+    out["icns/il32-raw-32.icns"] = icns_file([(b"il32", icns_rgb(icon[32], raw=True))])
+    noisy = r.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    out["icns/il32-noisy-32.icns"] = icns_file([(b"il32", icns_rgb(noisy))])
+    png64 = png_bytes(np.concatenate([icon[128][::2, ::2], icon[128][::2, ::2, :1]], 2), 8, 6)
+    out["icns/ic07-png-64-in-128.icns"] = icns_file([(b"ic07", png64), (b"it32", icns_rgb(icon[128], it32=True)),
+                                                    (b"t8mk", mask[128])])
+    out["icns/ic10-png-gray-32.icns"] = icns_file([(b"is32", icns_rgb(icon[16])),
+                                                  (b"ic10", png_bytes(icon[32][..., :1], 8, 0))])
+    out["icns/icp4-png-16-replaced.icns"] = icns_file([(b"icp4", png_bytes(icon[48], 8, 2)),
+                                                      (b"icp4", png_bytes(icon[16], 8, 2))])
+    for depth in (1, 4, 8):
+        for w in (13, 16):
+            px = r.integers(0, 1 << depth, (9, w))
+            out[f"sun/depth{depth}-{w}x9.ras"] = sun_file(w, 9, depth, 1, sun_rows(px, depth).tobytes())
+            out[f"sun/depth{depth}-rle-{w}x9.ras"] = sun_file(w, 9, depth, 2, sun_rle(sun_rows(px, depth, pad=False)))
+    pal = r.integers(0, 256, 3 * 200, dtype=np.uint8).tobytes()
+    idx = r.integers(0, 256, (9, 13)) // 8 * 8
+    out["sun/depth8-map-13x9.ras"] = sun_file(13, 9, 8, 1, sun_rows(idx, 8).tobytes(), pal)
+    out["sun/depth8-map-rle-13x9.ras"] = sun_file(13, 9, 8, 2, sun_rle(sun_rows(idx, 8, pad=False)), pal[:301])
+    out["sun/depth4-map-13x9.ras"] = sun_file(13, 9, 4, 0, sun_rows(idx % 16, 4).tobytes(), pal[:48])
+    img = smooth_scene(2212, 9, 13, cell=4, step=16)
+    for ftype in (0, 1, 2, 3, 4, 5):
+        for depth in (24, 32):
+            order = img if ftype == 3 else img[..., ::-1]
+            px = np.concatenate([order, r.integers(0, 256, (9, 13, 1))], 2).astype(np.uint8) if depth == 32 else order
+            body = sun_rle(sun_rows(px, 8, pad=False)) if ftype == 2 else sun_rows(px, 8).tobytes()
+            out[f"sun/depth{depth}-type{ftype}-13x9.ras"] = sun_file(13, 9, depth, ftype, body)
+    runs = np.repeat(np.array([[0x80, 7, 0x80, 0x80, 9]], np.uint8), 40, 0).reshape(8, 25)
+    out["sun/depth8-rle-escapes-25x8.ras"] = sun_file(25, 8, 8, 2, sun_rle(runs) + b"\x80\xff\x11")
+    gray = r.integers(-300, 600, (11, 17))
+    for name, fmt, kw in (("ii-unsigned", 1, {}), ("ii-signed", 2, {}), ("mm-signed", 2, {"order": ">"}),
+                          ("ii-unsigned-lzw-predictor", 1, {"compression": 5, "predictor": 2}),
+                          ("mm-signed-deflate-predictor", 2, {"order": ">", "compression": 8, "predictor": 2}),
+                          ("ii-signed-packbits-strips", 2, {"compression": 32773, "rows_per_strip": 4}),
+                          ("mm-signed-lzw-tiles", 2, {"order": ">", "compression": 5, "tile": (16, 16)}),
+                          ("ii-unsigned-planar", 1, {"planar": 2}), ("mm-signed-planar", 2, {"order": ">", "planar": 2})):
+        values = gray % 2 ** 32 if fmt == 2 else np.abs(gray) * (1 + (gray > 500) * 2 ** 22)
+        out[f"tiff/int32-{name}-17x11.tif"] = tiff_bytes(values % 2 ** 32, 32, 1, compression=kw.pop("compression", 1),
+                                                         tags={339: (3, [fmt])}, **kw)
+    return out
+
+
+def dbfis_layouts() -> Dict[str, bytes]:
+    """A file of each DDS, BLP, FTEX, ICNS, Sun raster and 32-bit integer
+    gray TIFF layout the port reads (name -> bytes; Pillow reads each):
+    seeded random BCn blocks of every BC1-BC7 kind and every BC6H and BC7
+    mode (the reserved ones too), edge blocks, each FourCC and DXGI format
+    Pillow reads, bit masks, luminance and palette; BLP1 JPEG (RGB, gray,
+    CMYK, a stream wider than the file, a gap before the mip) and palette,
+    BLP2 palette and DXT1/3/5 with and without alpha; FTEX BC1 and raw;
+    ICNS of RLE, raw, PNG elements and masks; Sun raster of every depth,
+    type and colour map; 32-bit gray TIFF of both sample formats, orders,
+    compressions and layouts."""
+    r = np.random.default_rng(2200)
+    out = {**_dds_layouts(r), **_blp_layouts(r), **_ftex_icns_sun_layouts(r)}
+    return {f"{DBFIS}/{k}": v for k, v in sorted(out.items())}
+
+
+def dbfis_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Files of these formats that Pillow refuses (name -> (bytes, the
+    reason the port names)), and a JPEG 2000 ICNS element."""
+    r = np.random.default_rng(2230)
+    bc1 = bcn_blocks(r, "BC1", 6).tobytes()
+    img = source_image(2231, 8, 8)
+    icon = smooth_scene(2232, 16, 16, cell=4, step=8)
+    jp2 = b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(40)
+    idx = r.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    return {
+        "dds-header-size.dds": (dds_file(8, 8, bc1, b"DXT1", header_size=100), "Unsupported header size"),
+        "dds-incomplete-header.dds": (dds_file(8, 8, b"", b"DXT1")[:90], "Incomplete header"),
+        "dds-fourcc-dxt2.dds": (dds_file(8, 8, bc1, b"DXT2"), "Unimplemented pixel format"),
+        "dds-fourcc-bc4s.dds": (dds_file(8, 8, bc1, b"BC4S"), "Unimplemented pixel format"),
+        "dds-dxgi-bc1-srgb.dds": (dds_file(8, 8, bc1, dxgi=DXGI["BC1_UNORM_SRGB"]), "Unimplemented DXGI format"),
+        "dds-dxgi-bc6h-typeless.dds": (dds_file(8, 8, bc1 * 2, dxgi=DXGI["BC6H_TYPELESS"]), "Unimplemented DXGI"),
+        "dds-dxgi-b8g8r8a8.dds": (dds_file(8, 8, bytes(256), dxgi=DXGI["B8G8R8A8_UNORM"]), "Unimplemented DXGI"),
+        "dds-luminance-16.dds": (dds_file(8, 8, bytes(128), pfflags=0x20000, bitcount=16), "Unsupported bitcount"),
+        "dds-no-format-flags.dds": (dds_file(8, 8, bytes(256), pfflags=0), "Unknown pixel format flags"),
+        "dds-bc1-cut-short.dds": (dds_file(8, 8, bc1[:20], b"DXT1"), "truncated"),
+        "dds-l8-cut-short.dds": (dds_file(8, 8, bytes(40), pfflags=0x20000, bitcount=8), "truncated"),
+        "blp1-compression-2.blp": (blp_file(1, 8, 8, idx, compression=2, encoding=5), "Unsupported BLP compression"),
+        "blp1-encoding-3.blp": (blp_file(1, 8, 8, idx, encoding=3), "Unsupported BLP encoding"),
+        "blp2-jpeg.blp": (blp_file(2, 8, 8, idx, compression=0), "Unknown BLP compression"),
+        "blp2-raw-bgra.blp": (blp_file(2, 8, 8, bytes(256), encoding=3), "Unknown BLP encoding"),
+        "blp2-alpha-encoding-2.blp": (blp_file(2, 8, 8, bc1 * 2, encoding=2, alpha_encoding=2),
+                                      "Unsupported alpha encoding"),
+        "blp2-palette-too-few.blp": (blp_file(2, 8, 8, idx[:50]), "not enough image data"),
+        "blp2-palette-past-the-end.blp": (blp_file(2, 8, 8, idx, length=200), "Truncated File Read"),
+        "blp2-dxt1-cut-short.blp": (blp_file(2, 8, 8, bc1[:24], encoding=2), "Truncated File Read"),
+        "blp1-palette-cut-short.blp": (blp_file(1, 8, 8, b"", encoding=5)[:600], "Truncated File Read"),
+        "blp1-jpeg-too-small.blp": (blp_file(1, 8, 9, jpeg_split(port_jpeg(img, 80))[1], compression=0,
+                                             jpeg_header=jpeg_split(port_jpeg(img, 80))[0]), "not enough image data"),
+        "ftex-two-formats.ftc": (ftex_file(8, 8, 0, bc1[:32], formats=2), "Pillow asserts one"),
+        "ftex-format-2.ftc": (ftex_file(8, 8, 2, bc1[:32]), "Invalid texture compression format"),
+        "ftex-bc1-cut-short.ftc": (ftex_file(8, 8, 0, bc1[:24]), "truncated"),
+        "icns-jpeg2000.icns": (icns_file([(b"ic08", jp2)]), "JPEG 2000 files are not read by the PyTorch port"),
+        "icns-other-stream.icns": (icns_file([(b"ic09", b"GIF89a" + bytes(30))]), "Unsupported icon subimage"),
+        "icns-rle-overrun.icns": (icns_file([(b"is32", b"\xff\x01" * 4)]), "run past the end of its channel"),
+        "icns-rle-cut-short.icns": (icns_file([(b"is32", icns_rgb(icon)[:300])]), "truncated"),
+        "icns-mask-cut-short.icns": (icns_file([(b"is32", icns_rgb(icon)), (b"s8mk", bytes(100))]), "mask"),
+        "icns-it32-signature.icns": (icns_file([(b"it32", b"\0\0\0\1" + bytes(60))]), "Unknown signature"),
+        "icns-mask-alone.icns": (icns_file([(b"s8mk", bytes(256))]), "mask alone"),
+        "icns-png-of-another-size.icns": (icns_file([(b"ic07", png_bytes(icon[:12, :12], 8, 2))]),
+                                          "not one of the allowed sizes"),
+        "sun-map-on-24-bit.ras": (sun_file(4, 2, 24, 1, bytes(24), bytes(30)), "unrecognized image mode"),
+        "sun-map-on-1-bit.ras": (sun_file(16, 2, 1, 1, bytes(4), bytes(30)), "unrecognized image mode"),
+        "sun-raw-cut-short.ras": (sun_file(13, 9, 8, 1, bytes(100)), "truncated"),
+        "sun-rle-cut-short.ras": (sun_file(13, 9, 8, 2, b"\x80\x20\x05" + bytes(20)), "truncated"),
+        "tiff-int32-mm-unsigned.tif": (tiff_bytes(np.arange(64).reshape(8, 8), 32, 1, ">", tags={339: (3, [1])}),
+                                       "depth or sample layout"),
+    }
+
+
+def dbfis_card_originals() -> Dict[str, bytes]:
+    """The card's written originals of ``DBFIS_CARD``, from seeded numpy
+    alone (the BLP1 JPEG's stream by the port's encoder): name (under
+    ``dds_blp_ftex_icns_sun/card/``) -> bytes."""
+    side = 1024
+    photo = smooth_scene(2240, side, side, cell=128, step=4)
+    r = np.random.default_rng(2241)
+    noisy = np.clip(photo.astype(np.int64) + r.integers(-5, 6, photo.shape), 0, 255).astype(np.uint8)
+    rgba = np.concatenate([noisy, np.full((side, side, 1), 255, np.uint8)], 2)
+    bc1 = bc1_encode(noisy).tobytes()
+    alpha = np.tile(np.array([[255, 255, 0, 0, 0, 0, 0, 0]], np.uint8), (side * side // 16, 1))
+    header, mip = jpeg_split(port_jpeg(noisy, 85))
+    icon = smooth_scene(2242, side, side, cell=64, step=8)
+    small = smooth_scene(2243, 16, 16, cell=4, step=8)
+    gray = (smooth_scene(2244, side, side, cell=128, step=1)[..., 0].astype(np.int64) * 3 - 200) * 37 // 36
+    levels = smooth_scene(2245, side, side, cell=128, step=64) // 64  # 4 levels a channel: 64 colours, long runs
+    poster = (levels[..., 0] * 16 + levels[..., 1] * 4 + levels[..., 2]).astype(np.uint8)
+    sun_map = np.stack([np.arange(64) // 16, np.arange(64) // 4 % 4, np.arange(64) % 4]).astype(np.uint8) * 85
+    sun_map = sun_map.tobytes()  # planar: every red, then every green, then every blue
+    out = {
+        "photo-1024-bc7.dds": dds_file(side, side, bc7_encode(rgba).tobytes(), dxgi=DXGI["BC7_UNORM"]),
+        "photo-1024-bc1.dds": dds_file(side, side, bc1, b"DXT1"),
+        "photo-1024-dxt5.blp": blp_file(2, side, side, np.concatenate([alpha, bc1_encode(noisy)], 1).tobytes(),
+                                        encoding=2, alpha=8, alpha_encoding=7),
+        "photo-1024-jpeg.blp": blp_file(1, side, side, mip, compression=0, jpeg_header=header),
+        "photo-1024-bc1.ftex": ftex_file(side, side, 0, bc1),
+        "icon-1024-png.icns": icns_file([(b"is32", icns_rgb(small)), (b"s8mk", bytes(256)),
+                                         (b"ic10", png_bytes(icon, 8, 2, kinds=(1, 4)))]),
+        "poster-1024-rle.ras": sun_file(side, side, 8, 2, sun_rle(sun_rows(poster, 8, pad=False)), sun_map),
+        "gray-1024-int32.tif": tiff_bytes(gray % 2 ** 32, 32, 1, compression=5, predictor=2, rows_per_strip=64,
+                                          tags={339: (3, [2])}),
+    }
+    assert sorted(out) == sorted(DBFIS_CARD)
+    return {f"{DBFIS}/card/{k}": v for k, v in out.items()}
+
+
+def dbfis_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``dds_blp_ftex_icns_sun/`` (name ->
+    bytes), written anew: the layouts and the refusals (the card's
+    originals are written on the card, ``dbfis_card_originals``)."""
+    refused = {f"{DBFIS}/refused/{k}": v for k, (v, _) in dbfis_refusals().items()}
+    return dict(sorted({**dbfis_layouts(), **refused}.items()))
+
+
+def committed_dbfis() -> Dict[str, bytes]:
+    """The committed files under ``dds_blp_ftex_icns_sun/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, DBFIS)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def dbfis_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest's parts of this folder: each committed file
+    (``files``, the committed ones by default) as ``gif_tiff_entry``
+    records it with ``dbfis_refusals``; each card original written on
+    the card (``dbfis_card``); the JAX package's pyramids of the card's
+    originals by their listed names (``dbfis_prep``)."""
+    files = committed_dbfis() if files is None else files
+    reasons = dbfis_refusals()
+    entries = {}
+    for name, data in files.items():
+        path = os.path.join(scratch, "dbfis" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, reasons)
+    written = dbfis_card_originals()
+    card = {}
+    for name, data in written.items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        card[name] = gif_tiff_entry(name, path, reasons)
+    listed = {DBFIS_CARD[os.path.basename(n)]: d for n, d in written.items() if DBFIS_CARD[os.path.basename(n)]}
+    return {"files": entries, "dbfis_card": card, "dbfis_prep": jax_prep_digests(scratch, listed)}
+
+
+def check_dbfis_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Writes ``dbfis_card_originals`` into ``folder`` and holds each to
+    the manifest (``dbfis_card``): bytes and ``decode``'s RGB.  Returns
+    name -> path of each; raises ``AssertionError`` naming the first that
+    differs."""
+    want = load_manifest()["dbfis_card"]
+    paths = {}
+    for name, data in sorted(dbfis_card_originals().items()):
+        if sha256(data) != want[name]["sha256"]:
+            raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+        path = os.path.join(folder, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths[os.path.basename(name)] = path
+    if sorted(paths) != sorted(DBFIS_CARD):
+        raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(DBFIS_CARD)}")
     return paths
 
 
