@@ -3,27 +3,37 @@
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
 first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
-GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax and Lab
-among them) through the port's own codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
+GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax, Lab
+and 12-bit gray among them) through the port's own codecs
+(``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_pnm``), Targa (``decode_tga``), PSD (``decode_psd``), PCX
 (``decode_pcx``), SGI (``decode_sgi``), QOI (``decode_qoi``), DDS
 (``decode_dds``), BLP (``decode_blp``), FTEX (``decode_ftex``), ICNS
-(``decode_icns``) and Sun raster (``decode_sun``) in numpy below, their
-sequential loops (plain PNM samples, Targa RLE packets, PackBits, PCX,
-SGI, Sun and ICNS RLE, QOI ops), BCn blocks and a Lab PSD's conversion
-to sRGB in the native library; each as the JAX package's lane for it
-reads it.  A file of another format that
+(``decode_icns``), Sun raster (``decode_sun``), XBM (``decode_xbm``), XPM
+(``decode_xpm``), MSP (``decode_msp``), FLI/FLC (``decode_fli``), DCX
+(``decode_dcx``), GBR (``decode_gbr``), PIXAR (``decode_pixar``), FITS
+(``decode_fits``), McIdas (``decode_mcidas``) and XV thumbnail
+(``decode_xv``) in numpy below, their sequential loops (plain PNM samples,
+Targa RLE packets, PackBits, PCX, SGI, Sun and ICNS RLE, QOI ops, XBM's
+hex bytes, MSP's RLE, FLI's chunks), BCn blocks and a Lab PSD's
+conversion to sRGB in the native library; each as the JAX package's lane
+for it reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
-files are not read by the PyTorch port"), one that no Pillow plugin
+files are not read by the PyTorch port", with Pillow's own verdict where
+it cannot read the format either: MPEG), one that no Pillow plugin
 accepts "unknown format", and one a decoder refuses names the reason: no
 listed file is skipped.
 """
 
 from __future__ import annotations
 
+import gzip
+import io
 import math
 import os
+import re
 import struct
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,7 +50,8 @@ class NotThisFormat(OSError):
     after it, and so does ``read_image``."""
 #: the formats the port decodes; ``sniff`` names any other Pillow opens
 READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA",
-        "DDS", "BLP", "FTEX", "ICNS", "Sun raster")
+        "DDS", "BLP", "FTEX", "ICNS", "Sun raster", "XBM", "XPM", "MSP", "FLI", "DCX", "GBR", "PIXAR", "FITS", "McIdas",
+        "XV thumbnail")
 
 
 def is_image(name: str) -> bool:
@@ -125,6 +136,10 @@ def _gbr(head: bytes) -> bool:
             and _u32(head, 12, ">") > 0 and _u32(head, 16, ">") in (1, 4)
             and (version == 1 or (len(head) >= 28 and head[20:24] == b"GIMP")))
 
+
+#: what Pillow 12.1.0 makes of an MPEG file, which it identifies and cannot
+#: read either (``unreadable`` names it beside the port's refusal)
+MPEG_VERDICT = "Pillow identifies an MPEG stream's size and cannot load its pixels: OSError cannot load this image"
 
 #: the first bytes of a file ``candidates`` reads
 HEAD = 28
@@ -856,7 +871,7 @@ def decode_psd(data: bytes, name: str = "PSD") -> np.ndarray:
     return _rgb(px)
 
 
-def decode_pcx(data: bytes, name: str = "PCX") -> np.ndarray:
+def decode_pcx(data: bytes, name: str = "PCX", at: int = 0, fmt: str = "PCX") -> np.ndarray:
     """A PCX file as uint8 RGB, bit for bit with Pillow 12.1.0's
     ``PcxImagePlugin`` and ``convert("RGB")``: the size from the bbox; 1 bit
     in 1 plane as 1-bit pixels (the header's palette ignored), 1 bit in 2 or
@@ -870,26 +885,31 @@ def decode_pcx(data: bytes, name: str = "PCX") -> np.ndarray:
     ``NotThisFormat``; what Pillow refuses (another layout, "unknown PCX
     mode", which it passes to no other format; 8 bits in 1 plane in a file
     of fewer than 769 bytes, where its seek to the palette fails; a run
-    past its row; data cut short) raises ``OSError`` naming the file."""
+    past its row; data cut short) raises ``OSError`` naming the file.
+    ``at`` is where the PCX starts in ``data`` (a DCX's first page: its
+    palette is still the last 769 bytes of the whole file, as Pillow seeks
+    from the file's end), ``fmt`` the format errors name."""
 
     def refuse(why: str) -> OSError:
-        return OSError(f"{name}: PCX {why}, which Pillow (the JAX package's PCX lane) does not read")
+        return OSError(f"{name}: {fmt} {why}, which Pillow (the JAX package's {fmt} lane) does not read")
 
-    if len(data) < 68:
-        raise NotThisFormat(f"{name}: PCX header cut short ({len(data)} bytes), which Pillow does not identify")
-    xmin, ymin, xmax, ymax = struct.unpack_from("<HHHH", data, 4)
+    head = data[at:at + 128]
+    if len(head) < 68 or head[0] != 10 or head[1] not in (0, 2, 3, 5):
+        raise NotThisFormat(f"{name}: {fmt} PCX header cut short or not a PCX's ({len(head)} bytes), which Pillow "
+                            "does not identify")
+    xmin, ymin, xmax, ymax = struct.unpack_from("<HHHH", head, 4)
     w, h = xmax + 1 - xmin, ymax + 1 - ymin
     if w <= 0 or h <= 0:
         raise NotThisFormat(f"{name}: PCX of bbox ({xmin}, {ymin}, {xmax}, {ymax}) (bad PCX image size), which Pillow "
                             "does not identify")
-    version, bits, planes, provided = data[1], data[3], data[65], _u16(data, 66)
+    version, bits, planes, provided = head[1], head[3], head[65], _u16(head, 66)
     lut = None
     if bits == 1 and planes == 1:
         rawmode = "1"
     elif bits == 1 and planes in (2, 4):
         rawmode = f"P;{planes}L"
         lut = np.zeros((256, 3), np.uint8)
-        lut[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+        lut[:16] = np.frombuffer(head, np.uint8, 48, 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         rawmode = "L"
         if len(data) < 769:
@@ -902,12 +922,12 @@ def decode_pcx(data: bytes, name: str = "PCX") -> np.ndarray:
         rawmode = "RGB;L"
     else:
         raise refuse(f"version {version} of {bits} bits in {planes} planes (unknown PCX mode)")
-    _too_large(name, "PCX", w, h)
+    _too_large(name, fmt, w, h)
     stride = (w * bits + 7) // 8
     if provided != stride:
         stride += stride % 2
     size = planes * stride
-    rows = native.pcx_rle(data[128:], name, size, h)
+    rows = native.pcx_rle(data[at + 128:], name, size, h)
     # PcxDecode.c moves each plane after the first next to the one before
     # it: planes of (w + 7) // 8 bytes at size // planes apart for 1-bit
     # planes, else planes of w bytes at size // (size // w) apart
@@ -1401,10 +1421,544 @@ def decode_sun(data: bytes, name: str = "Sun raster") -> np.ndarray:
     return np.ascontiguousarray(px[:, :, :3] if ftype == 3 else px[:, :, 2::-1])
 
 
+class _Opening:
+    """``with _Opening(name, fmt):`` around the part of a reader that
+    follows a Pillow plugin's ``_open``: the errors ``ImageFile`` takes as
+    "not this plugin's file" (SyntaxError, and IndexError, TypeError,
+    KeyError, EOFError and struct.error, which it turns into SyntaxError)
+    become ``NotThisFormat``, and a ValueError, which Pillow lets through,
+    an ``OSError`` naming the file."""
+
+    def __init__(self, name: str, fmt: str):
+        self.name, self.fmt = name, fmt
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, e, tb):
+        if kind is not None and issubclass(kind, (SyntaxError, IndexError, TypeError, KeyError, EOFError,
+                                                  struct.error)):
+            raise NotThisFormat(f"{self.name}: {self.fmt} header that Pillow does not identify "
+                                f"({kind.__name__}: {e})") from e
+        if kind is not None and issubclass(kind, ValueError):
+            raise OSError(f"{self.name}: {self.fmt} header that Pillow refuses ({e}), which Pillow (the JAX "
+                          f"package's {self.fmt} lane) does not read") from e
+        return False
+
+
+def _identified(name: str, fmt: str, w: int, h: int) -> None:
+    """``ImageFile``'s checks after ``_open`` and ``Image.open``'s: a size
+    of no pixels is not the plugin's file; too many pixels are refused."""
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: {fmt} of {w} x {h} pixels, which Pillow does not identify")
+    _too_large(name, fmt, w, h)
+
+
+#: XbmImagePlugin's header: width, height, an optional hot spot, then
+#: anything up to the last ``_bits[]`` of the first 512 bytes
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    b"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    b"(?P<hotspot>"
+    b"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    b"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    b")?"
+    rb"[\000-\377]*_bits\[]"
+)
+
+
+def decode_xbm(data: bytes, name: str = "XBM") -> np.ndarray:
+    """An X11 bitmap as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``XbmImagePlugin`` and ``convert("RGB")``: the header Pillow's pattern
+    matches in the first 512 bytes, then each byte the two characters after
+    the next 'x' (``native.xbm``: XbmDecode.c, a character other than a hex
+    digit counted 0), rows padded to a byte, bits least significant first,
+    a set bit white.  A header the pattern does not match raises
+    ``NotThisFormat``; data that end before the last row raise ``OSError``
+    naming the file."""
+    m = _XBM_HEAD.match(data[:512])
+    if not m:
+        raise NotThisFormat(f"{name}: XBM header that Pillow's pattern does not match (not a XBM file), which Pillow "
+                            "does not identify")
+    w, h = int(m.group("width")), int(m.group("height"))
+    _identified(name, "XBM", w, h)
+    rows = native.xbm(data[m.end():], name, (w + 7) // 8, h)
+    return _rgb(np.unpackbits(rows, axis=1, bitorder="little")[:, :w] * np.uint8(255))
+
+
+#: XpmImagePlugin's values line: width, height, colours, characters a pixel
+_XPM_HEAD = re.compile(b'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
+
+
+def _xpm_keys(parts: List[bytes], bpp: int, table: dict, name: str) -> np.ndarray:
+    """Each pixel's entry of ``table`` (key -> row of the colour table) for
+    the keys of ``parts`` (each line's text between its first and last
+    quote), ``bpp`` characters a key, the last of a line cut short where
+    the line is; raises naming the first key the table lacks (Pillow's
+    KeyError or ValueError)."""
+
+    def missing(key: bytes) -> OSError:
+        return OSError(f"{name}: XPM pixel key {key!r} not in its colour table, which Pillow (the JAX package's XPM "
+                       "lane) does not read")
+
+    full = sorted((k, v) for k, v in table.items() if len(k) == bpp)
+    keys = np.array([k for k, _ in full], f"V{bpp}")
+    rows = np.array([v for _, v in full], np.int64)
+    out = []
+    for line in parts:
+        n, cut = divmod(len(line), bpp)
+        if n:
+            got = np.frombuffer(line, f"V{bpp}", n)
+            at = np.minimum(np.searchsorted(keys, got), max(len(keys) - 1, 0))
+            found = keys[at] == got if len(keys) else np.zeros(n, bool)
+            if not found.all():
+                raise missing(line[int(np.argmin(found)) * bpp:][:bpp])
+            out.append(rows[at])
+        if cut:
+            if line[n * bpp:] not in table:
+                raise missing(line[n * bpp:])
+            out.append(np.array([table[line[n * bpp:]]], np.int64))
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def decode_xpm(data: bytes, name: str = "XPM") -> np.ndarray:
+    """An X11 pixmap as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``XpmImagePlugin`` and ``convert("RGB")``: the ``/* XPM */`` header,
+    the first line that opens with the values, the colour table of that
+    many lines as Pillow reads them (each key's ``c`` colour: ``#`` and hex
+    digits through Python's int, its low 24 bits; ``None`` for no
+    colour, which no pixel may use), a later entry of a key replacing its
+    colour; then ``XpmDecoder``'s lines (a first ``/* pixels */`` line
+    skipped, each line's text between its first and last quote, keys of
+    that many characters, the last cut short where the line is) until the
+    image is full, each key through the table (a palette of at most 256
+    lines, RGB above: the same colours).  What Pillow does not identify
+    raises ``NotThisFormat``; what it refuses (another colour, a key of no
+    colour or not in the table, too few pixels) raises ``OSError`` naming
+    the file."""
+    f = io.BytesIO(data)
+    with _Opening(name, "XPM"):
+        if not f.read(9).startswith(b"/* XPM */"):
+            raise SyntaxError("not an XPM file")
+        while True:
+            line = f.readline()
+            if not line:
+                raise SyntaxError("broken XPM file")
+            m = _XPM_HEAD.match(line)
+            if m:
+                break
+        w, h = int(m.group(1)), int(m.group(2))
+        colors, bpp = int(m.group(3)), int(m.group(4))
+        table = {}
+        for _ in range(colors):
+            line = f.readline().rstrip()
+            key = line[1:bpp + 1]
+            words = line[bpp + 1:-2].split()
+            for i in range(0, len(words), 2):
+                if words[i] == b"c":
+                    rgb = words[i + 1]
+                    if rgb == b"None":
+                        pass  # transparency: in no entry of the table
+                    elif rgb.startswith(b"#"):
+                        v = int(rgb[1:], 16)
+                        table[key] = ((v >> 16) & 255, (v >> 8) & 255, v & 255)
+                    else:
+                        raise ValueError(f"cannot read this XPM file (colour {rgb!r})")
+                    break
+            else:
+                raise ValueError(f"cannot read this XPM file (no c key on {line[:40]!r})")
+    _identified(name, "XPM", w, h)
+    need = w * h
+    parts, got, header = [], 0, False
+    while got < need:
+        line = f.readline()
+        if not line:
+            break
+        if line.rstrip() == b"/* pixels */" and not header:
+            header = True
+            continue
+        if bpp == 0:
+            raise OSError(f"{name}: XPM of 0 characters a pixel, which Pillow (the JAX package's XPM lane) does not "
+                          "read")
+        line = b'"'.join(line.split(b'"')[1:-1])
+        parts.append(line)
+        got += -(-len(line) // bpp)
+    order = {k: i for i, k in enumerate(table)}
+    idx = _xpm_keys(parts, bpp, order, name)
+    if idx.size < need:
+        raise OSError(f"{name}: XPM of {idx.size} pixels for {w} x {h} (not enough image data), which Pillow (the JAX "
+                      "package's XPM lane) does not read")
+    lut = np.array(list(table.values()), np.uint8).reshape(-1, 3)
+    return lut[idx[:need]].reshape(h, w, 3)
+
+
+def decode_msp(data: bytes, name: str = "MSP") -> np.ndarray:
+    """A Windows Paint (MSP) file as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``MspImagePlugin`` and ``convert("RGB")``: the 32-byte header
+    whose 16-bit words XOR to 0, version 1 (``DanM``) raw 1-bit rows from
+    byte 32, version 2 (``LinS``) through the row map and RLE of Pillow's
+    ``MspDecoder`` (``native.msp_rle``: a blank row white, every row's
+    bytes written on after the last, however many it decodes to); a set
+    bit white.  A header cut short or of a bad checksum raises
+    ``NotThisFormat``; what Pillow refuses (data cut short, a run cut
+    short, too few bytes) raises ``OSError`` naming the file."""
+    s = data[:32]
+    if len(s) < 32 or not s.startswith((b"DanM", b"LinS")):
+        raise NotThisFormat(f"{name}: MSP header cut short ({len(s)} bytes), which Pillow does not identify")
+    checksum = 0
+    for (word,) in struct.iter_unpack("<H", s):
+        checksum ^= word
+    if checksum:
+        raise NotThisFormat(f"{name}: MSP header of checksum {checksum:#x} (bad MSP checksum), which Pillow does not "
+                            "identify")
+    w, h = _u16(s, 4), _u16(s, 6)
+    _identified(name, "MSP", w, h)
+    row = (w + 7) // 8
+    if s.startswith(b"DanM"):
+        rows = _raw(data, 32, h * row, name, "MSP").reshape(h, row)
+    else:
+        rows = native.msp_rle(data[32:], name, row, h)
+    return _rgb(_unpack_bits(rows, 1, w) * np.uint8(255))
+
+
+def decode_fli(data: bytes, name: str = "FLI") -> np.ndarray:
+    """An FLI or FLC animation's first frame as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``FliImagePlugin`` and ``convert("RGB")``: the 128-byte
+    header's checks; the palette of the first colour chunk (4: 8-bit
+    values, 11: 6-bit ones shifted left by 2, the low 8 bits kept) among
+    the subchunks of the first frame chunk (after a prefix chunk, which
+    Pillow skips here), else a gray ramp; the frame read from byte 128,
+    whatever precedes it there, its chunks applied by the native library
+    (``native.fli``: FliDecode.c's BLACK, BRUN, COPY, LC and SS2, colour
+    and PSTAMP chunks skipped) onto index 0.  What Pillow does not
+    identify (a header or a palette chunk cut short, no frames, a colour
+    past index 255) raises ``NotThisFormat``; what it refuses (a frame
+    that is not a frame chunk, as a prefix chunk at byte 128 is, an
+    unknown chunk, data past a chunk's or the frame's end, data cut short)
+    raises ``OSError`` naming the file."""
+    f = io.BytesIO(data)
+    with _Opening(name, "FLI"):
+        s = f.read(128)
+        if not (len(s) >= 16 and _u16(s, 4) in (0xAF11, 0xAF12) and _u16(s, 14) in (0, 3) and s[20:22] == bytes(2)
+                and s[42:80] == bytes(38) and s[88:] == bytes(40)):
+            raise SyntaxError("not an FLI/FLC file")
+        frames, w, h = struct.unpack_from("<HHH", s, 6)
+        palette = [(a, a, a) for a in range(256)]
+        s = f.read(16)
+        if struct.unpack_from("<H", s, 4)[0] == 0xF100:  # a prefix chunk: skipped to find the palette
+            f.seek(128 + struct.unpack_from("<I", s)[0])
+            s = f.read(16)
+        if struct.unpack_from("<H", s, 4)[0] == 0xF1FA:
+            size = None
+            for _ in range(struct.unpack_from("<H", s, 6)[0]):
+                if size is not None:
+                    f.seek(size - 6, os.SEEK_CUR)
+                s = f.read(6)
+                kind = struct.unpack_from("<H", s, 4)[0]
+                if kind in (4, 11):
+                    shift = 2 if kind == 11 else 0
+                    i = 0
+                    for _ in range(struct.unpack_from("<H", f.read(2))[0]):
+                        s = f.read(2)
+                        i += s[0]
+                        s = f.read((s[1] or 256) * 3)
+                        for n in range(0, len(s), 3):
+                            palette[i] = (s[n] << shift, s[n + 1] << shift, s[n + 2] << shift)
+                            i += 1
+                    break
+                size = struct.unpack_from("<I", s)[0]
+                if not size:
+                    break
+        if frames == 0:
+            raise EOFError("attempt to seek outside sequence")
+        if len(data) < 128 + 4:
+            raise EOFError("missing frame size")
+    _identified(name, "FLI", w, h)
+    lut = np.array(palette, np.int64).astype(np.uint8)  # o8: the low 8 bits
+    return lut[native.fli(data[128:], name, w, h)]
+
+
+def decode_dcx(data: bytes, name: str = "DCX") -> np.ndarray:
+    """An Intel DCX fax file's first page as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``DcxImagePlugin`` and ``convert("RGB")``: the offset
+    table after the magic (up to 1024 entries, ended by a 0), then the PCX
+    at the first offset through ``decode_pcx`` (its 8-bit palette the
+    whole file's last 769 bytes, as Pillow seeks from the file's end).  A
+    table cut short or empty, or no PCX at the offset, raises
+    ``NotThisFormat``."""
+    f = io.BytesIO(data)
+    with _Opening(name, "DCX"):
+        if _u32(f.read(4), 0) != 987654321:
+            raise SyntaxError("not a DCX file")
+        offsets = []
+        for _ in range(1024):
+            (offset,) = struct.unpack("<I", f.read(4))
+            if not offset:
+                break
+            offsets.append(offset)
+        if not offsets:
+            raise EOFError("attempt to seek outside sequence")
+    return decode_pcx(data, name, at=offsets[0], fmt="DCX")
+
+
+def decode_gbr(data: bytes, name: str = "GBR") -> np.ndarray:
+    """A GIMP brush as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``GbrImagePlugin`` and ``convert("RGB")``: versions 1 and 2 (its
+    ``GIMP`` magic and spacing), the comment of the header's size less 20
+    or 28 bytes read past (a negative count, as Python's read takes it,
+    reads to the file's end), then depth 1 as gray and depth 4 as RGBA,
+    its alpha dropped.  What Pillow's ``_open`` does not identify raises
+    ``NotThisFormat``; pixels cut short (not enough image data) raise
+    ``OSError`` naming the file."""
+    f = io.BytesIO(data)
+    with _Opening(name, "GBR"):
+        header, version, w, h, depth = struct.unpack(">5I", f.read(20))
+        if header < 20 or version not in (1, 2) or w == 0 or h == 0 or depth not in (1, 4):
+            raise SyntaxError("not a GIMP brush")
+        if version == 2:
+            if f.read(4) != b"GIMP":
+                raise SyntaxError("not a GIMP brush, bad magic number")
+            struct.unpack(">I", f.read(4))
+        f.read(header - (20 if version == 1 else 28))
+    _identified(name, "GBR", w, h)
+    px = f.read(w * h * depth)
+    if len(px) < w * h * depth:
+        raise OSError(f"{name}: GBR of {len(px)} bytes of pixels for {w} x {h} x {depth} (not enough image data), "
+                      "which Pillow (the JAX package's GBR lane) does not read")
+    return _rgb(np.frombuffer(px, np.uint8).reshape(h, w, depth)[..., :3] if depth == 4 else
+                np.frombuffer(px, np.uint8).reshape(h, w))
+
+
+def decode_pixar(data: bytes, name: str = "PIXAR") -> np.ndarray:
+    """A PIXAR raster as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``PixarImagePlugin``: the size at bytes 416 and 418, the mode pair at
+    424 and 426, of which Pillow reads (14, 2) alone, raw RGB at byte 1024.
+    A header cut short or another mode pair raises ``NotThisFormat``
+    (Pillow sets no mode); pixels cut short raise ``OSError`` naming the
+    file."""
+    s = data[:512]
+    if len(s) < 428:
+        raise NotThisFormat(f"{name}: PIXAR header cut short ({len(s)} bytes), which Pillow does not identify")
+    h, w = _u16(s, 416), _u16(s, 418)
+    mode = (_u16(s, 424), _u16(s, 426))
+    if mode != (14, 2):
+        raise NotThisFormat(f"{name}: PIXAR of channel and depth descriptions {mode} (Pillow reads (14, 2) alone and "
+                            "sets no mode for others), which Pillow does not identify")
+    _identified(name, "PIXAR", w, h)
+    return _raw(data, 1024, 3 * w * h, name, "PIXAR").reshape(h, w, 3).copy()
+
+
+#: FitsImagePlugin's modes by BITPIX, with the bytes of a sample read
+_FITS_MODES = {8: ("L", 1), 16: ("I;16", 2), 32: ("I", 4), -32: ("F", 4), -64: ("F", 4)}
+
+
+def _fits_headers(f: io.BytesIO):
+    """FitsImageFile._open's walk of the header cards: (headers, the first
+    header unit with a size's decoder, offset, args, the size), Pillow's
+    errors raised as it raises them."""
+    headers, in_progress, decoder, offset, args, size = {}, False, "", 0, (), None
+    while True:
+        card = f.read(80)
+        if not card:
+            raise OSError("Truncated FITS file")
+        keyword = card[:8].strip()
+        if keyword in (b"SIMPLE", b"XTENSION"):
+            in_progress = True
+        elif headers and not in_progress:
+            break  # the data unit
+        elif keyword == b"END":
+            f.seek(math.ceil(f.tell() / 2880) * 2880)
+            if not decoder:
+                decoder, offset, args, size = _fits_parse(headers)
+            in_progress = False
+            continue
+        if decoder:
+            continue
+        value = card[8:].split(b"/")[0].strip()
+        if value.startswith(b"="):
+            value = value[1:].strip()
+        if not headers and (not keyword.startswith(b"SIMPLE") or value != b"T"):
+            raise SyntaxError("Not a FITS file")
+        headers[keyword] = value
+    if not decoder:
+        raise ValueError("No image data")
+    return decoder, offset + f.tell() - 80, args, size
+
+
+def _fits_size(headers: dict, prefix: bytes):
+    naxis = int(headers[prefix + b"NAXIS"])
+    if naxis == 0:
+        return None
+    if naxis == 1:
+        return 1, int(headers[prefix + b"NAXIS1"])
+    return int(headers[prefix + b"NAXIS1"]), int(headers[prefix + b"NAXIS2"])
+
+
+def _fits_parse(headers: dict):
+    """FitsImageFile._parse_headers: (decoder, offset, args, (w, h))."""
+    prefix, decoder, offset = b"", "raw", 0
+    if (headers.get(b"XTENSION") == b"'BINTABLE'" and headers.get(b"ZIMAGE") == b"T"
+            and headers[b"ZCMPTYPE"] == b"'GZIP_1  '"):
+        table = _fits_size(headers, prefix) or (0, 0)
+        offset = table[0] * table[1] * (int(headers[b"BITPIX"]) // 8)
+        prefix, decoder = b"Z", "fits_gzip"
+    size = _fits_size(headers, prefix)
+    if not size:
+        return "", 0, (), None
+    bits = int(headers[prefix + b"BITPIX"])
+    return decoder, offset, (bits,), size
+
+
+def _gray_rgb(v: np.ndarray, mode: str) -> np.ndarray:
+    """Pillow's L, I;16 (and I;16B), I and F -> RGB: I;16 clipped at 255, I
+    at 0 and 255, F as ``f2l``."""
+    if mode == "F":
+        return _rgb(_f2l(v))
+    if mode == "L":
+        return _rgb(v.astype(np.uint8))
+    return _rgb(np.clip(v.astype(np.int64), 0, 255).astype(np.uint8))
+
+
+def decode_fits(data: bytes, name: str = "FITS") -> np.ndarray:
+    """A FITS file's first image as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``FitsImagePlugin`` and ``convert("RGB")``: the 80-byte header
+    cards as Pillow walks them (a value up to a ``/``, after an ``=``; the
+    units padded to 2880 bytes; the first header of a size, NAXIS 1 read as
+    1 x NAXIS1), BITPIX 8, 16, 32, -32 and -64 as Pillow's L, I;16, I and
+    F, whose raw modes read little-endian samples (I;16 of 2 bytes, I and F
+    of 4, so a -64 image reads its doubles' halves as floats), rows
+    bottom-up; a ``GZIP_1`` tile of a binary table through gzip as
+    ``FitsGzipDecoder`` reads it (the last BITPIX / 8 bytes of every 4,
+    rows bottom-up: no bytes for a negative BITPIX); then I;16 clipped at
+    255, I at 0 and 255, F as ``f2l`` (the integer part, NaN 0, infinities
+    0 and 255).  What Pillow does not identify (the first card not SIMPLE
+    = T, a missing NAXIS, another BITPIX, no pixels) raises
+    ``NotThisFormat``; what it refuses (a header cut short, no image data,
+    a value that is no integer, pixels cut short, a gzip stream that does
+    not decompress) raises ``OSError`` naming the file."""
+    f = io.BytesIO(data)
+    with _Opening(name, "FITS"):
+        try:
+            decoder, offset, args, size = _fits_headers(f)
+        except OSError as e:
+            raise OSError(f"{name}: FITS header cut short ({e}), which Pillow (the JAX package's FITS lane) does not "
+                          "read") from e
+        if args[0] not in _FITS_MODES:
+            raise SyntaxError(f"BITPIX {args[0]}: no mode")
+    mode, k = _FITS_MODES[args[0]]
+    w, h = size
+    _identified(name, "FITS", w, h)
+    dtype = {"L": np.uint8, "I;16": "<u2", "I": "<i4", "F": "<f4"}[mode]
+    if decoder == "raw":
+        v = _raw(data, offset, w * h * k, name, "FITS").view(dtype).reshape(h, w)[::-1]
+        return _gray_rgb(v, mode)
+    if offset < 0:
+        raise OSError(f"{name}: FITS GZIP_1 tile at offset {offset}, which Pillow (the JAX package's FITS lane) does "
+                      "not read")
+    try:
+        value = gzip.decompress(data[offset:])
+    except (OSError, EOFError, zlib.error) as e:
+        raise OSError(f"{name}: FITS GZIP_1 tile that does not decompress ({e}), which Pillow (the JAX package's "
+                      "FITS lane) does not read") from e
+    take = min(args[0] // 8, 4)
+    if take <= 0 or len(value) < 4 * w * h:
+        raise OSError(f"{name}: FITS GZIP_1 tile of {len(value)} bytes for {w} x {h} pixels of BITPIX {args[0]} (not "
+                      "enough image data), which Pillow (the JAX package's FITS lane) does not read")
+    px = np.frombuffer(value, np.uint8, 4 * w * h).reshape(h, w, 4)[::-1, :, 4 - take:]
+    return _gray_rgb(np.ascontiguousarray(px).view(dtype).reshape(h, w), mode)
+
+
+#: McIdasImagePlugin's modes by bytes a sample: (mode, big-endian dtype)
+_MCIDAS_MODES = {1: ("L", np.uint8), 2: ("I;16B", ">u2"), 4: ("I", ">i4")}
+
+
+def decode_mcidas(data: bytes, name: str = "McIdas") -> np.ndarray:
+    """A McIdas area file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``McIdasImagePlugin`` and ``convert("RGB")``: the 256-byte directory of
+    big-endian words, 1, 2 or 4 bytes a sample as L, I;16B and I (from
+    I;32B), the offset and row stride Pillow computes from words 15, 34,
+    10, 11 and 14; L and I;16B rows as Pillow maps them where the file
+    holds every row's stride (rows that overlap where the stride is short
+    of a row, a stride of 0 or less taken as the row's size) and as its
+    raw decoder reads them where it does not (the last row without its
+    padding, a stride short of a row refused), I's always so; then I;16B
+    clipped at 255 and I at 0 and 255.  A directory cut short or of
+    another sample size raises ``NotThisFormat``; what Pillow refuses
+    (pixels cut short, a negative offset, a stride short of a row) raises
+    ``OSError`` naming the file."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: McIdas {why}, which Pillow (the JAX package's McIdas lane) does not read")
+
+    s = data[:256]
+    if len(s) != 256:
+        raise NotThisFormat(f"{name}: McIdas directory cut short ({len(s)} bytes), which Pillow does not identify")
+    word = (0,) + struct.unpack(">64i", s)
+    if word[11] not in _MCIDAS_MODES:
+        raise NotThisFormat(f"{name}: McIdas of {word[11]} bytes a sample (unsupported McIdas format), which Pillow "
+                            "does not identify")
+    mode, dtype = _MCIDAS_MODES[word[11]]
+    w, h = word[10], word[9]
+    _identified(name, "McIdas", w, h)
+    offset, stride = word[34] + word[15], word[15] + word[10] * word[11] * word[14]
+    row = w * word[11]
+    if offset < 0:
+        raise refuse(f"of pixel offset {offset} (a negative seek)")
+    if mode != "I" and (stride <= 0 or offset + h * stride <= len(data)):  # mapped
+        stride = stride if stride > 0 else row
+        if offset + h * stride > len(data):
+            raise refuse(f"of {h} rows of {stride} bytes from byte {offset} past its end at {len(data)} (buffer is not "
+                         "large enough)")
+    elif stride and stride < row:
+        raise refuse(f"of row stride {stride} short of its {row}-byte rows (bad configuration)")
+    else:
+        stride = stride or row
+        _raw(data, offset, (h - 1) * stride + row, name, "McIdas")
+    span = np.frombuffer(data[offset:offset + (h - 1) * stride + row], np.uint8)
+    if span.size < (h - 1) * stride + row:  # mapped rows that overlap: the last reads past the file's end as zeros
+        span = np.concatenate([span, np.zeros((h - 1) * stride + row - span.size, np.uint8)])
+    rows = np.lib.stride_tricks.as_strided(span, (h, row), (stride, 1))
+    return _gray_rgb(np.ascontiguousarray(rows).view(dtype).reshape(h, w), "L" if mode == "L" else "I")
+
+
+#: XVThumbImagePlugin's palette: index r << 5 | g << 2 | b of 3, 3 and 2 bits
+_XV_PALETTE = np.array([((r * 255) // 7, (g * 255) // 7, (b * 255) // 3)
+                        for r in range(8) for g in range(8) for b in range(4)], np.uint8)
+
+
+def decode_xv(data: bytes, name: str = "XV thumbnail") -> np.ndarray:
+    """An XV thumbnail as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``XVThumbImagePlugin`` and ``convert("RGB")``: the rest of the ``P7
+    332`` line and the comment lines after it (each opening with ``#``)
+    skipped, the width and height of the next line through Python's int,
+    then a byte a pixel through the fixed 3-3-2 palette.  A file that ends
+    before that line raises ``NotThisFormat``; what Pillow refuses (a size
+    line of fewer than two integers, pixels cut short) raises ``OSError``
+    naming the file."""
+    f = io.BytesIO(data)
+    with _Opening(name, "XV thumbnail"):
+        if not f.read(6).startswith(b"P7 332"):
+            raise SyntaxError("not an XV thumbnail file")
+        f.readline()
+        while True:
+            s = f.readline()
+            if not s:
+                raise SyntaxError("Unexpected EOF reading XV thumbnail file")
+            if s[0] != 35:
+                break
+        w, h = s.strip().split(maxsplit=2)[:2]
+        w, h = int(w), int(h)
+    _identified(name, "XV thumbnail", w, h)
+    return _XV_PALETTE[_raw(data, f.tell(), w * h, name, "XV thumbnail").reshape(h, w)]
+
+
 #: the formats read in numpy here, each from the whole file's bytes
 _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_pnm,
              "TGA": decode_tga, "PCX": decode_pcx, "PSD": decode_psd, "QOI": decode_qoi, "SGI": decode_sgi,
-             "DDS": decode_dds, "BLP": decode_blp, "FTEX": decode_ftex, "ICNS": decode_icns, "Sun raster": decode_sun}
+             "DDS": decode_dds, "BLP": decode_blp, "FTEX": decode_ftex, "ICNS": decode_icns, "Sun raster": decode_sun,
+             "XBM": decode_xbm, "XPM": decode_xpm, "MSP": decode_msp, "FLI": decode_fli, "DCX": decode_dcx,
+             "GBR": decode_gbr, "PIXAR": decode_pixar, "FITS": decode_fits, "McIdas": decode_mcidas,
+             "XV thumbnail": decode_xv}
 
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
@@ -1448,4 +2002,5 @@ def unreadable(path: str, head: bytes, fmt: Optional[str] = None) -> OSError:
     decodes = f"the PyTorch port decodes {', '.join(READ[:-1])} and {READ[-1]} files"
     if fmt == "unknown":
         return OSError(f"{path}: unknown format (first bytes {head[:4]!r}): no Pillow plugin accepts it, and {decodes}")
-    return OSError(f"{path}: {fmt} files are not read by the PyTorch port ({decodes})")
+    verdict = f"{MPEG_VERDICT}; " if fmt == "MPEG" else ""
+    return OSError(f"{path}: {fmt} files are not read by the PyTorch port ({verdict}{decodes})")

@@ -15,9 +15,10 @@ transform); ``lab_to_rgb`` runs that transform alone (a Lab PSD's
 planes); ``decode_buffer`` does the same as ``decode_image`` for bytes in
 memory (an icon's PNG frame), and ``decode_blp_jpeg`` for a BLP1 mip's
 JPEG; ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``,
-``qoi``, ``sun_rle`` and ``icns_rle`` run the sequential loops of
-``data/images.py``'s PNM, Targa, PSD, PCX, SGI, QOI, Sun raster and ICNS
-readers as Pillow's decoders do; ``bcn`` decodes the BCn blocks of DDS,
+``qoi``, ``sun_rle``, ``icns_rle``, ``xbm``, ``msp_rle`` and ``fli`` run
+the sequential loops of ``data/images.py``'s PNM, Targa, PSD, PCX, SGI,
+QOI, Sun raster, ICNS, XBM, MSP and FLI readers as Pillow's decoders do;
+``bcn`` decodes the BCn blocks of DDS,
 FTEX and BLP2 textures as Pillow's bcn decoder and BLP plugin do;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
@@ -36,7 +37,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 11
+ABI_VERSION = 12
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -71,8 +72,8 @@ ERRORS = {
          "byte alone) and cannot identify",
     -28: "TIFF files with old-style JPEG compression, or with JPEG compression of other samples than 8-bit gray, "
          "RGB, CMYK or YCbCr, are not read by the PyTorch port",
-    -29: "TIFF files with CCITT (fax) compression of other samples than 1-bit gray, which libtiff does not decode "
-         "(Bits/sample must be 1 for Group 3/4 encoding/decoding) or the PyTorch port does not read (a palette)",
+    -29: "TIFF files with CCITT (fax) compression of other samples than 1-bit gray or a 1-bit palette, which "
+         "libtiff does not decode (Bits/sample must be 1 for Group 3/4 encoding/decoding)",
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
     -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
     -32: "TIFF files of YCbCr pixels in this layout (a subsampling libtiff has no routine for, subsampled "
@@ -83,7 +84,7 @@ ERRORS = {
     -37: "uncompressed TIFF files with FillOrder 2 of MinIsWhite 8-bit gray or 1-, 2- or 4-bit palettes, which "
          "Pillow's raw decoder has no raw mode for (unknown raw mode)",
     -38: "TIFF files of this depth or sample layout are not read by the PyTorch port (it reads 1-, 2-, 4- and "
-         "8-bit gray, unsigned and signed 16-bit gray, 32-bit integer and float gray, 8-bit gray with alpha, 8- "
+         "8-bit gray, II 12-bit gray, unsigned and signed 16-bit gray, 32-bit integer and float gray, 8-bit gray with alpha, 8- "
          "and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and 16-bit CMYK and 8-bit Lab of three samples, as "
          "Pillow's keys list them)",
     -39: "a TIFF predictor that libtiff refuses on these samples",
@@ -102,6 +103,16 @@ ERRORS = {
     -50: "CCITT (fax) data that libtiff decodes only with errors, which Pillow shows as decoded (a bad code word, "
          "an uncompressed-mode extension, a row of the wrong length, data that end before the last row)",
     -51: "an ICNS RLE run past the end of its channel (Pillow: Error reading channel)",
+    -52: "an MSP file cut short in its row map (Pillow: Truncated MSP file in row map)",
+    -53: "an MSP row cut short by the file's end (Pillow: Truncated MSP file, expected more bytes on a row)",
+    -54: "an MSP run cut short by its row's end (Pillow: Corrupted MSP file in row)",
+    -55: "MSP rows that decode to fewer bytes than the image holds (Pillow: not enough image data)",
+    -56: "FLI/FLC frame data past the frame's end or a run past its row (Pillow: image buffer overrun error)",
+    -57: "an FLI/FLC chunk of no size (Pillow: decoding error)",
+    -58: "an FLI/FLC frame of an unknown chunk, or a first frame that is not a frame chunk (Pillow: unknown "
+         "error)",
+    -59: "a big-endian (MM) 12-bit gray TIFF: Pillow's one key of 12-bit gray is little-endian's, so it cannot "
+         "identify the file",
 }
 
 _P = ctypes.c_void_p
@@ -122,6 +133,9 @@ SIGNATURES = {
     "byogan_qoi": [_P, _N, _I, _N, _P],
     "byogan_sun_rle": [_P, _N, _N, _N, _P],
     "byogan_icns_rle": [_P, _N, _N, _P],
+    "byogan_xbm": [_P, _N, _I, _I, _P],
+    "byogan_msp_rle": [_P, _N, _I, _I, _P],
+    "byogan_fli": [_P, _N, _I, _I, _P],
     "byogan_lab_rgb": [_P, _N, _P],
     "byogan_bcn": [_P, _N, _I, _I, _I, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
@@ -296,6 +310,43 @@ def sun_rle(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
     rc = load_library().byogan_sun_rle(data, len(data), row_bytes, rows, out.ctypes.data)
     if rc != 0:
         raise _failed(name, "Sun raster RLE decode", rc)
+    return out
+
+
+def xbm(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of an XBM image from ``data``, the bytes after its header:
+    uint8 (rows, row_bytes), each byte the two characters after the next
+    'x' (a character other than a hex digit counts 0), as Pillow's
+    XbmDecode.c reads them; bits least significant first."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_xbm(data, len(data), row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "XBM decode", rc)
+    return out
+
+
+def msp_rle(data: bytes, name: str, row_bytes: int, rows: int) -> np.ndarray:
+    """The rows of an MSP version 2 image from ``data``, its bytes from
+    offset 32 (the row map, then the rows): uint8 (rows, row_bytes) of 1-bit
+    pixels, most significant first, as MspImagePlugin.py's MspDecoder
+    writes its rows one after the other and reads them back."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    rc = load_library().byogan_msp_rle(data, len(data), row_bytes, rows, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "MSP RLE decode", rc)
+    return out
+
+
+def fli(data: bytes, name: str, w: int, h: int) -> np.ndarray:
+    """The first frame of an FLI/FLC animation from ``data``, its bytes from
+    offset 128 to the file's end: uint8 (h, w) palette indices, as
+    Pillow's FliDecode.c applies the frame's chunks (BLACK, BRUN, COPY,
+    LC, SS2; colour and PSTAMP chunks skipped) fed as ImageFile.load feeds
+    it."""
+    out = np.empty((h, w), np.uint8)
+    rc = load_library().byogan_fli(data, len(data), w, h, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "FLI frame decode", rc)
     return out
 
 

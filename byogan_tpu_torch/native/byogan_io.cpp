@@ -10,7 +10,8 @@
 // (pnm_tga.cpp), the PackBits, PCX RLE, SGI RLE, QOI, Sun raster RLE and
 // ICNS RLE loops of the PSD, PCX, SGI, QOI, Sun raster and ICNS readers
 // (psd_pcx_sgi_qoi.cpp), the BCn block decoder of the DDS, FTEX and BLP
-// readers (bcn.cpp), and the PNG row unfilter below.  The
+// readers (bcn.cpp), the XBM, MSP and FLI loops of their readers
+// (fli_msp_xbm.cpp), and the PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -145,7 +146,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 11; }
+int byogan_abi_version() { return 12; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -253,6 +254,27 @@ int byogan_sun_rle(const uint8_t* data, size_t size, size_t row_bytes, size_t ro
 // channel after the other.
 int byogan_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* out) {
   return byogan::decode_icns_rle(data, size, pixels, out);
+}
+
+// An XBM's bytes from the end of its header (XbmDecode.c): rows * row_bytes
+// bytes into out, each the two characters after the next 'x', bits least
+// significant first.
+int byogan_xbm(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out) {
+  return byogan::decode_xbm(data, size, row_bytes, rows, out);
+}
+
+// An MSP version 2 file's row map and RLE rows from its byte 32
+// (MspImagePlugin.py's MspDecoder): rows * row_bytes bytes of 1-bit pixels,
+// most significant first, into out.
+int byogan_msp_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out) {
+  return byogan::decode_msp_rle(data, size, row_bytes, rows, out);
+}
+
+// An FLI/FLC file's first frame from its byte 128 to the file's end, as
+// FliDecode.c applies its chunks and ImageFile.load feeds it: w * h palette
+// indices into out, zero where no chunk writes.
+int byogan_fli(const uint8_t* data, size_t size, int w, int h, uint8_t* out) {
+  return byogan::decode_fli(data, size, w, h, out);
 }
 
 // n 8-bit CIE Lab triples (L, a + 128, b + 128: Pillow's LAB bands) into n

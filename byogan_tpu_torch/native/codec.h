@@ -59,6 +59,14 @@ enum Status {
   kSgiOverrun = -49,       // an SGI RLE table or row past the file's end, or a run past its row's end
   kTiffCcittData = -50,    // CCITT data libtiff decodes only with errors (a bad code word, a row of the wrong length...)
   kIcnsOverrun = -51,      // an ICNS RLE run past the end of its channel
+  kMspRowMap = -52,        // an MSP version 2 file cut short in its row map
+  kMspRowCut = -53,        // an MSP version 2 row cut short by the file's end
+  kMspCorrupt = -54,       // an MSP version 2 run cut short by its row's end
+  kMspShort = -55,         // MSP version 2 rows that decode to fewer bytes than the image holds
+  kFliOverrun = -56,       // FLI/FLC frame data past the frame's end, or a run past its row
+  kFliBroken = -57,        // an FLI/FLC chunk of no size
+  kFliUnknown = -58,       // an FLI/FLC frame of an unknown chunk, or not a frame chunk
+  kTiffMm12 = -59,         // a big-endian (MM) 12-bit gray TIFF, which Pillow cannot identify
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -90,6 +98,15 @@ int decode_sgi_rle(const uint8_t* data, size_t size, int bpc, int bands, int xsi
 int decode_qoi(const uint8_t* data, size_t size, int bands, size_t pixels, uint8_t* out);
 int decode_sun_rle(const uint8_t* data, size_t size, size_t row_bytes, size_t rows, uint8_t* out);
 int decode_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* out);
+
+// The loops of the XBM, MSP and FLI readers (fli_msp_xbm.cpp; byogan_xbm,
+// byogan_msp_rle and byogan_fli in byogan_io.cpp): XBM's hex bytes and MSP
+// version 2's RLE into rows * row_bytes packed bytes, an FLI/FLC file's
+// first frame (its bytes from offset 128 to the file's end) into w * h
+// palette indices.
+int decode_xbm(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
+int decode_msp_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
+int decode_fli(const uint8_t* data, size_t size, int w, int h, uint8_t* out);
 
 // The formats of decode_bcn (byogan_bcn in byogan_io.cpp): BC1 to BC7 as
 // Pillow's bcn decoder gives them (BC1, BC2, BC3, BC7: RGBA; BC4: L; BC5,

@@ -17,10 +17,12 @@
 //   no predictor, as libtiff installs none for them; CCITT of bilevel
 //   samples: Modified Huffman (2, and 32771 word-aligned), T.4 1-D and 2-D
 //   (3) and T.6 (4), libtiff's tif_fax3.c decoders in ccitt.cpp, data that
-//   libtiff decodes only with errors refused;
+//   libtiff decodes only with errors refused, and the same of a 1-bit
+//   palette (each decoded bit an index into the two-entry ColorMap);
 // - the pixel kinds of Pillow's OPEN_INFO keys that need no codec library:
 //   bilevel and 2- and 4-bit gray (MinIsWhite and MinIsBlack), 8-bit gray
-//   (MinIsWhite inverted; signed samples read unsigned), 16-bit gray (I;16
+//   (MinIsWhite inverted; signed samples read unsigned), II 12-bit gray
+//   (Pillow's I;12 into I;16, clipped at 255 by convert("RGB")), 16-bit gray (I;16
 //   and I;16B clipped at 255 by convert("RGB"), MinIsWhite not inverted),
 //   signed 16-bit gray (I;16S, clipped at 0 and 255), 32-bit integer gray
 //   (I;32N, I;32S, I;32BS: clipped at 0 and 255, an unsigned sample past
@@ -61,8 +63,8 @@
 // - the Orientation tag, applied as Pillow's load does
 //   (ImageOps.exif_transpose).
 //
-// Everything else returns a code of codec.h that names it: MM BigTIFF, old
-// JPEG and JPEG of other samples, CCITT of other samples, LogLuv and other
+// Everything else returns a code of codec.h that names it: MM BigTIFF, MM
+// 12-bit gray, old JPEG and JPEG of other samples, CCITT of other samples, LogLuv and other
 // compressions, YCbCr in a layout libtiff has no routine for (1x4, 2x4,
 // subsampled planes), ICCLab, ITULab and other photometric interpretations,
 // other depths and sample layouts, FillOrder 2 where Pillow has no raw
@@ -355,7 +357,7 @@ void cmyk2rgb(const uint32_t* c, uint8_t* o) {
 }
 
 // n pixels of a row, per samples each, read at `bits` a sample (MSB first
-// under 8 bits; 16 and 32 bits big-endian where be) into dst, a pixel every
+// under 8 bits and at 12; 16 and 32 bits big-endian where be) into dst, a pixel every
 // step entries: the depth is picked once a row, not once a sample.
 template <typename T>
 void unpack(const uint8_t* row, uint32_t bits, bool be, size_t n, uint32_t per, uint32_t step, T* dst) {
@@ -368,6 +370,12 @@ void unpack(const uint8_t* row, uint32_t bits, bool be, size_t n, uint32_t per, 
     case 2: put([&](size_t i) { return (row[i >> 2] >> (6 - 2 * (i & 3))) & 3; }); break;
     case 4: put([&](size_t i) { return (row[i >> 1] >> (4 - 4 * (i & 1))) & 15; }); break;
     case 8: put([&](size_t i) { return row[i]; }); break;
+    case 12:  // Pillow's I;12: two samples in three bytes, the first's high bits first
+      put([&](size_t i) {
+        const uint8_t* p = row + 3 * (i >> 1);
+        return i & 1 ? (p[1] & 15) << 8 | p[2] : p[0] << 4 | p[1] >> 4;
+      });
+      break;
     case 16:
       if (be)
         put([&](size_t i) { return row[2 * i] << 8 | row[2 * i + 1]; });
@@ -546,6 +554,10 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     kind = kGray16;  // I;16 I;16B, and I;16R (II, FillOrder 2)
     invert = false;
     fill_known = true;
+  } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 12 && format == 1 && fill == 1) {
+    if (big) return kTiffMm12;  // Pillow's one key of 12-bit gray is II's: an MM file it cannot identify
+    kind = kGray16;             // I;16 from I;12: samples MSB first, rows padded to a byte
+    invert = false;
   } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 16 && format == 2) {
     kind = kSigned16;  // I;16S I;16BS
   } else if (photometric == 1 && samples == 1 && extras.empty() && bps == 32 && (format == 2 || (format == 1 && !big))) {
@@ -590,7 +602,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   } else {
     return kTiffLayout;
   }
-  if (ccitt && kind != kBilevel) return kTiffCcitt;  // Fax3SetupState: 1-bit samples; Pillow's 1 and 1;I
+  // Fax3SetupState: 1-bit samples; Pillow's 1, 1;I and P;1 (a palette of two entries, each index a fax bit)
+  if (ccitt && kind != kBilevel && !(kind == kPalette && bps == 1)) return kTiffCcitt;
   if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 &&
                 ((kind == kGray && samples == 1) || ((kind == kRgb || kind == kLab) && samples == 3) ||
                  (kind == kCmyk && samples == 4))))
@@ -718,7 +731,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const bool swap = orientation >= 5 && orientation <= 8;
   const bool mappable = (by_char && (kind == kGray || kind == kPalette)) ||
                         (kind == kGray && bps == 8 && (photometric == 1 || photometric == 6) && fill == 1) ||
-                        (kind == kPalette && bps == 8 && fill == 1) || (kind == kGray16 && fill == 1) ||
+                        (kind == kPalette && bps == 8 && fill == 1) || (kind == kGray16 && bps == 16 && fill == 1) ||
                         (kind == kRgb && bps == 8 && samples == 4 && !planar &&
                          (extras.empty() || extras[0] == 2 || extras[0] == 999)) ||
                         (kind == kCmyk && bps == 8 && samples == 4 && !planar);

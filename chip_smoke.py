@@ -67,24 +67,28 @@ both paths of the port at full width (``ModelSpec()``):
   JPEG blocks past 16 bits, GIF, TIFF, ICO, CUR, DIB, PNM, Targa, PSD,
   PCX, SGI and QOI layouts, Lab TIFF and PSD, BigTIFF and CCITT TIFF
   layouts, DDS (BC1-BC7 blocks of every mode), BLP, FTEX, ICNS, Sun
-  raster and 32-bit gray TIFF layouts, and the kinds refused by name among
-  them: ICCLab, MM BigTIFF, CCITT data libtiff decodes with errors, BLP2
-  JPEG, JPEG 2000 in ICNS...), the Lab -> sRGB
+  raster and 32-bit gray TIFF layouts, 12-bit gray and CCITT palette
+  TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV
+  thumbnail layouts, and the kinds refused by name among them: ICCLab, MM
+  BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000 in
+  ICNS, old-style JPEG and LZW TIFF, MPEG...), the Lab -> sRGB
   conversion of every 8-bit Lab triple held to the hash of Pillow's
   (LittleCMS's) table, the PNG decode bit-equal to data/png.py's on
   smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
-  the codecs' times by decode threads, cli.prep on JPEG, WebP, JPEG-kind,
-  Pillow-lane, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF (Lab TIFF and
-  PSD, BigTIFF and Group 4 among them) and DDS/BLP/FTEX/ICNS/Sun/32-bit
-  TIFF originals held to the JAX package's pyramids ("io prep"), and
-  the training CLI on a set with JPEG, WebP, palette and 16-bit BMP, BC7
-  DDS and ICNS files among its PNGs, stopped by SIGTERM and resumed with
+  cli.prep on JPEG, WebP, JPEG-kind, Pillow-lane, GIF/TIFF/PNM/Targa/ICO,
+  PSD/PCX/SGI/QOI/TIFF (Lab TIFF and PSD, BigTIFF and Group 4 among them),
+  DDS/BLP/FTEX/ICNS/Sun/32-bit TIFF and 12-bit TIFF/Group 4 palette
+  TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR originals held to the JAX package's
+  pyramids ("io prep"), and the training CLI on a set with JPEG, WebP,
+  palette and 16-bit BMP, BC7 DDS, ICNS, FITS and FLC files among its
+  PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
   on its FINAL.pth.
 
 The phases that only time (the data-parallel and model-axis iterations,
-"time dp" and "time tp"; the loader, in-process prep and frame writers,
-"time loader") run in the entry points of their slices, not in ``main``:
+"time dp" and "time tp"; the codecs, "time codecs"; the loader, in-process
+prep and frame writers, "time loader") run in the entry points of their
+slices, not in ``main``:
 ``python -c "import chip_smoke; chip_smoke.dp_main()"`` (and ``tp_main()``,
 ``io_main()``) runs a slice's phases with its timing phase.
 
@@ -3259,9 +3263,9 @@ IO_PREP_ORIGINALS = 4  # per format, 1024 px, prepare_pyramid in this process
 IO_PREP_JPEGS = 6  # 1024 px JPEG originals through cli.prep
 CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
 CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
-# per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files, a JPEG of each kind of fx.JPEG_KINDS, a BC7 DDS and an
-# ICNS among them
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 15
+# per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files, a JPEG of each kind of fx.JPEG_KINDS, a BC7 DDS, an
+# ICNS, a FITS and an FLC among them
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 17
 IO_TRAIN_BC7_MEAN_ERR = 6.0  # mean |error| (LSB) of a stage-8 BC7 file against its source, fx.bc7_encode's
 IO_CONFIG = (
     "[io]\n"
@@ -3353,9 +3357,9 @@ def io_checks(tmp) -> dict:
     ``IO_JPEG_QUALITY``; holds each PNG set's decode (``maybe_cache``)
     bit-equal to data/png.py in Python alone and to the sources, and the
     JPEG set's within ``IO_JPEG_MEAN_ERR`` of its sources and equal to
-    one file's decode at a time; BMP files decode exactly.  Then the
-    codecs' host times beside the card's name.  Returns the sets and the
-    timings."""
+    one file's decode at a time; BMP files decode exactly.  Returns the
+    sets and the paths of the files it wrote, which "io prep", "io train"
+    and the "time codecs" phases of ``io_main`` read."""
     from byogan_tpu_torch.data import images, native, png
     from byogan_tpu_torch.data.pipeline import StageDataset
     from byogan_tpu_torch.data.synthetic import encode_bmp, encode_png_filtered, render
@@ -3390,7 +3394,7 @@ def io_checks(tmp) -> dict:
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
-                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/"))]
+                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3454,6 +3458,22 @@ def io_checks(tmp) -> dict:
           f"slice written here by the fixtures' numpy writers (the BC1 and BC7 blocks by their encoders, the BLP1 "
           f"JPEG's stream by the port's), each the manifest's bytes, and each decoded to Pillow's RGB "
           f"({', '.join(sorted(dbfis_card))})")
+    legacy = [m for m in matched if m.startswith(f"{fx.LEGACY}/")]
+    legacy_read = [m for m in legacy if "@" not in m]
+    legacy_refused = [m for m in legacy if m.endswith("@refused")]
+    legacy_kind = {k: sum(f"/{k}/" in m for m in legacy_read)
+                   for k in ("tiff", "xbm", "xpm", "msp", "fli", "dcx", "gbr", "pixar", "fits", "mcidas", "xv")}
+    require(min(legacy_kind.values()) >= 2 and len(legacy_refused) >= 45,
+            f"the manifest holds 12-bit and CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and "
+            f"XV layouts {legacy_kind} and {len(legacy_refused)} of their refusals")
+    legacy_card = fx.check_legacy_card(written, images.read_image)
+    print(f"io fixtures: {len(legacy_read)} 12-bit gray and CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, "
+          f"FITS, McIdas and XV thumbnail layouts decoded to Pillow 12.1.0's RGB "
+          f"({', '.join(f'{k} {v}' for k, v in legacy_kind.items())}: XBM, MSP and FLI loops through "
+          f"native/fli_msp_xbm.cpp: {', '.join(m.split('/', 1)[1] for m in legacy_read)}) and {len(legacy_refused)} "
+          f"refused with Pillow's reason ({', '.join(os.path.basename(m)[:-8] for m in legacy_refused)}); "
+          f"{len(legacy_card)} card originals of this slice written here by the fixtures' numpy writers, each the "
+          f"manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(legacy_card))})")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3487,7 +3507,7 @@ def io_checks(tmp) -> dict:
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
     hashes = (len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + len(dbfis_card)
-              + 1)  # + the Lab table
+              + len(legacy_card) + 1)  # + the Lab table
     print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
@@ -3509,8 +3529,9 @@ def io_checks(tmp) -> dict:
           f"{len(gif_tiff_card)} GIF/TIFF card originals; {len(ico_pnm_tga)} ICO/CUR/DIB/PNM/Targa files and "
           f"{len(card_paths)} written card originals; {len(raster)} PSD/PCX/SGI/QOI/TIFF files and "
           f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals (above); {len(dbfis)} "
-          f"DDS/BLP/FTEX/ICNS/Sun/TIFF files and {len(dbfis_card)} written card originals (above); "
-          "the Lab table (above)")
+          f"DDS/BLP/FTEX/ICNS/Sun/TIFF files and {len(dbfis_card)} written card originals (above); {len(legacy)} "
+          f"12-bit and CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV files and "
+          f"{len(legacy_card)} written card originals (above); the Lab table (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3568,17 +3589,31 @@ def io_checks(tmp) -> dict:
             fh.write(encode_bmp(img))
         require(np.array_equal(images.read_image(path), img), f"{path} decodes to other pixels")
     print("io: 4 BMPs (odd widths) exact")
-    out["codec_ms"] = codec_times(other)
-    out["codec_ms"].update(webp_codec_times(fx))
-    out["codec_ms"].update(kinds_codec_times(fx, other))
-    out["codec_ms"].update(lane_codec_times(fx, other))
-    out["codec_ms"].update(gif_tiff_codec_times(fx))
-    out["codec_ms"].update(ico_pnm_tga_codec_times(written))
-    out["codec_ms"].update(raster_codec_times(raster_card))
+    out["other"] = other
     out["card_originals"] = written
     out["raster_card"] = raster_card
     out["dbfis_card"] = dbfis_card
+    out["legacy_card"] = legacy_card
     return out
+
+
+def time_codecs(io_state: dict) -> dict:
+    """The "time codecs" phase (``io_main`` runs it; ``main`` does not): the
+    host ms of the earlier slices' codecs ("io codecs" lines), on the files
+    "io" wrote (``io_state``): JPEG, PNG and the JPEG encoder, WebP, the
+    JPEG kinds, the Pillow lane's BMP and 16-bit PNG, GIF and TIFF, PNM,
+    Targa, the TIFF kinds and ICO, PSD, PCX, SGI, QOI and the JPEG TIFF in
+    planes."""
+    fx = codec_fixtures()
+    other = io_state["other"]
+    ms = codec_times(other)
+    ms.update(webp_codec_times(fx))
+    ms.update(kinds_codec_times(fx, other))
+    ms.update(lane_codec_times(fx, other))
+    ms.update(gif_tiff_codec_times(fx))
+    ms.update(ico_pnm_tga_codec_times(io_state["card_originals"]))
+    ms.update(raster_codec_times(io_state["raster_card"]))
+    return ms
 
 
 def codec_times(folder: str) -> dict:
@@ -3842,6 +3877,33 @@ def dbfis_codec_times(paths: dict) -> dict:
     return ms
 
 
+def legacy_codec_times(paths: dict) -> dict:
+    """The "time codecs 12-bit TIFF, XBM ... XV" phase (``io_main`` runs it;
+    ``main`` does not): host ms of each reader of this slice, one call at
+    a time on one thread (median of ``CODEC_REPEATS``), on the card's
+    written 1024 px originals (``paths``: name -> path): a 12-bit gray LZW
+    TIFF, a Group 4 scan of a 1-bit palette, an XPM of 288 colours, an MSP
+    version 2 scan, an FLC of a BRUN frame, a DCX of 1-bit PCX pages, a GBR
+    version 2 brush, a BITPIX -32 FITS, a PIXAR, an XBM scan, a McIdas area
+    of 2-byte samples and an XV thumbnail."""
+    from byogan_tpu_torch.data import images
+
+    files = {"tiff_gray12_lzw_1024": "gray-1024-12bit.tif", "tiff_g4_palette_1024": "scan-1024-g4-palette.tif",
+             "xpm_288_colors_1024": "poster-1024.xpm", "msp_v2_1024": "scan-1024-rle.msp",
+             "flc_brun_1024": "anim-1024-brun.flc", "dcx_1024": "scan-1024.dcx", "gbr_v2_rgba_1024": "brush-1024.gbr",
+             "fits_float_1024": "sky-1024-float.fits", "pixar_1024": "photo-1024.pxr", "xbm_1024": "scan-1024.xbm",
+             "mcidas_16_1024": "area-1024.mcidas", "xv_1024": "thumb-1024.xv"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    print(f"time codecs: 12-bit TIFF, CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV, host "
+          f"ms, median of {CODEC_REPEATS} calls, one thread, {PREP_SIDE} px: TIFF 12-bit gray LZW "
+          f"{ms['tiff_gray12_lzw_1024']:.3f}, TIFF Group 4 palette {ms['tiff_g4_palette_1024']:.3f}, XPM 288 colours "
+          f"{ms['xpm_288_colors_1024']:.3f}, MSP version 2 {ms['msp_v2_1024']:.3f}, FLC BRUN {ms['flc_brun_1024']:.3f}, "
+          f"DCX {ms['dcx_1024']:.3f}, GBR RGBA {ms['gbr_v2_rgba_1024']:.3f}, FITS BITPIX -32 "
+          f"{ms['fits_float_1024']:.3f}, PIXAR {ms['pixar_1024']:.3f}, XBM {ms['xbm_1024']:.3f}, McIdas 16-bit "
+          f"{ms['mcidas_16_1024']:.3f}, XV thumbnail {ms['xv_1024']:.3f}; card {card_name()}")
+    return ms
+
+
 def prep_sets(io_state: dict) -> list:
     """The originals of each slice of image formats that "io prep" runs
     ``cli.prep`` on, as (slice, what they are, folder under ``fx.FIXTURES``
@@ -3862,8 +3924,11 @@ def prep_sets(io_state: dict) -> list:
     Lab TIFF, Lab PSD, BigTIFF and Group 4 originals
     (``io_state["raster_card"]``); and the written BC7 and BC1 DDS, BLP2
     DXT5, BLP1 JPEG, BC1 FTEX, ICNS of a PNG element, RLE Sun raster and
-    32-bit gray TIFF (``io_state["dbfis_card"]``).  Each original is 1024
-    px unless named otherwise, under a listed name whatever its format."""
+    32-bit gray TIFF (``io_state["dbfis_card"]``); and the written 12-bit
+    gray LZW TIFF, Group 4 palette TIFF, XPM of 288 colours, MSP version 2,
+    FLC of a BRUN frame, DCX, GBR version 2, BITPIX -32 FITS and PIXAR
+    (``io_state["legacy_card"]``).  Each original is 1024 px unless named
+    otherwise, under a listed name whatever its format."""
     fx = codec_fixtures()
     card_originals = io_state["card_originals"]
     raster_committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
@@ -3879,6 +3944,8 @@ def prep_sets(io_state: dict) -> list:
                           if fx.RASTER_CARD[n] and n not in raster_committed}),
         ("dbfis", "DDS, BLP, FTEX, ICNS, Sun raster and 32-bit TIFF", fx.DBFIS, [], "dbfis_prep", None,
          {fx.DBFIS_CARD[n]: p for n, p in io_state["dbfis_card"].items() if fx.DBFIS_CARD[n]}),
+        ("legacy", "12-bit and CCITT palette TIFF, XPM, MSP, FLC, DCX, GBR, FITS and PIXAR", fx.LEGACY, [],
+         "legacy_prep", None, {fx.LEGACY_CARD[n]: p for n, p in io_state["legacy_card"].items() if fx.LEGACY_CARD[n]}),
     ]
 
 
@@ -3967,8 +4034,8 @@ def io_prep(io_state: dict, tmp, root) -> dict:
     and written originals of each slice of image formats, every image equal
     to the JAX package's recorded prep (WebP, the JPEG kinds, the Pillow
     lane's, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF,
-    DDS/BLP/FTEX/ICNS/Sun/TIFF).  Returns the seconds per original of
-    each."""
+    DDS/BLP/FTEX/ICNS/Sun/TIFF, 12-bit and palette TIFF/XPM/MSP/FLC/DCX/
+    GBR/FITS/PIXAR).  Returns the seconds per original of each."""
     out = {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root)}
     for kind, what, folder, names, key, listed, written in prep_sets(io_state):
         out[f"prep_{kind}_cli_s"] = prep_committed_cli(tmp, root, what, folder, names, key, listed, written)
@@ -4083,12 +4150,14 @@ def io_train(tmp, root) -> tuple:
     decodes VP8 and VP8L on every stage-8 batch; and a committed JPEG of
     each kind of ``fx.JPEG_KINDS`` at each stage's size: 4:4:0,
     arithmetic sequential and progressive, block-smoothed, CMYK, YCCK,
-    lossless; a BC7 DDS (``fx.bc7_encode``) and an ICNS of a PNG element
-    written a stage, so the loader decodes BCn blocks and ICNS on every
-    stage-8 batch), stage 8 uncached: ``len()`` counts them, the stage-8
-    dataset's batch of the kinds' files equals their manifest hashes, the
-    ICNS its PNG's pixels and the DDS its blocks' decode by ``native.bcn``
-    (within ``IO_TRAIN_BC7_MEAN_ERR`` of its source); a
+    lossless; a BC7 DDS (``fx.bc7_encode``), an ICNS of a PNG element, a
+    BITPIX -32 FITS of the red channel and an FLC of a 3-3-2 palette's
+    BRUN frame written a stage, so the loader decodes BCn blocks, ICNS,
+    FITS and FLI chunks on every stage-8 batch), stage 8 uncached:
+    ``len()`` counts them, the stage-8 dataset's batch of the kinds' files
+    equals their manifest hashes, the ICNS its PNG's pixels, the FITS its
+    channel, the FLC its palette's colours and the DDS its blocks' decode
+    by ``native.bcn`` (within ``IO_TRAIN_BC7_MEAN_ERR`` of its source); a
     subprocess stopped by SIGTERM once its metrics
     show stage 5; ``--auto-resume`` with no ``-c`` picks the checkpoint the
     stop wrote and runs to FINAL (launches per iteration counted); then
@@ -4107,6 +4176,9 @@ def io_train(tmp, root) -> tuple:
     params = scenes(np.random.default_rng(51), IO_TRAIN_IMAGES)
     bmp_want = {}
     bc7_src = icns_src = None  # stage 8's sources of its BC7 DDS and its ICNS
+    palette = np.array([((r * 255) // 7, (g * 255) // 7, (b * 255) // 3) for r in range(8) for g in range(8)
+                        for b in range(4)], np.uint8)  # the FLC's: 3-3-2 colours
+    fits_want = flc_want = None
     for stage in range(1, 9):
         size = 4 * 2 ** (stage - 1)
         folder = os.path.join(data, "prepared", f"set_{stage}", "images")
@@ -4125,6 +4197,15 @@ def io_train(tmp, root) -> tuple:
                     fh.write(fx.icns_file([(b"ic10", encode_png_filtered(img, 4))]))
                 if stage == 8:
                     icns_src = img
+            elif k == 15:  # a BITPIX -32 FITS of the red channel under .jpeg: the loader floors each float
+                with open(os.path.join(folder, f"image-{i}.jpeg"), "wb") as fh:  # little-endian: as Pillow reads
+                    fh.write(fx.fits_file(img[..., 0].astype(np.float32) + 0.25, -32, order="<"))
+                fits_want = np.repeat(img[..., :1], 3, 2)
+            elif k == 16:  # an FLC of a BRUN frame of 3-3-2 colour indices under .bmp
+                idx = (img[..., 0] >> 5 << 5 | img[..., 1] >> 5 << 2 | img[..., 2] >> 6).astype(np.uint8)
+                with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
+                    fh.write(fx.fli_file(size, size, [fx.fli_frame([fx.fli_palette(palette), fx.fli_brun(idx)])]))
+                flc_want = palette[idx]
             elif k >= 6:
                 kind = fx.JPEG_KINDS[k - 6]
                 shutil.copy(os.path.join(fx.FIXTURES, fx.KINDS, "train", f"{size}-{kind}.jpg"),
@@ -4159,10 +4240,12 @@ def io_train(tmp, root) -> tuple:
     for name, img in zip(sorted(bmp_want), stage8.get_batch_uint8(rows, 2)):
         require(np.array_equal(img, bmp_want[name]), f"the stage-8 dataset read {name} to other pixels than its own")
     folder8 = os.path.join(data, "prepared", "set_8", "images")
-    dds_i, icns_i = IO_TRAIN_IMAGES - 2, IO_TRAIN_IMAGES - 1
-    rows = np.array([stage8.files.index(os.path.join(folder8, f"image-{dds_i}.png")),
-                     stage8.files.index(os.path.join(folder8, f"image-{icns_i}.jpg"))])
-    bc7_img, icns_img = stage8.get_batch_uint8(rows, 2)
+    dds_i = IO_TRAIN_IMAGES - IO_TRAIN_OTHER + 13  # then the ICNS, the FITS and the FLC
+    rows = np.array([stage8.files.index(os.path.join(folder8, f"image-{dds_i + j}.{ext}"))
+                     for j, ext in enumerate(("png", "jpg", "jpeg", "bmp"))])
+    bc7_img, icns_img, fits_img, flc_img = stage8.get_batch_uint8(rows, 2)
+    require(np.array_equal(fits_img, fits_want), "the stage-8 dataset read its FITS to other pixels than its channel")
+    require(np.array_equal(flc_img, flc_want), "the stage-8 dataset read its FLC to other pixels than its colours")
     with open(os.path.join(folder8, f"image-{dds_i}.png"), "rb") as fh:
         blocks = fh.read()[148:]
     require(np.array_equal(bc7_img, native.bcn(blocks, "stage-8 DDS", "BC7", 512, 512)[..., :3]),
@@ -4170,9 +4253,10 @@ def io_train(tmp, root) -> tuple:
     bc7_err = float(np.abs(bc7_img.astype(np.int16) - bc7_src).mean())
     require(bc7_err <= IO_TRAIN_BC7_MEAN_ERR, f"the stage-8 BC7 DDS is {bc7_err} LSB from its source")
     require(np.array_equal(icns_img, icns_src), "the stage-8 dataset read its ICNS to other pixels than its PNG's")
-    print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}; a BC7 DDS under .png and an ICNS under "
-          f".jpg among them) in {time.perf_counter() - t0:.2f} s; len() of set_8 {len(stage8)}; the stage-8 BC7 DDS "
-          f"equal to its blocks' decode, {bc7_err:.3f} LSB mean from its source, the ICNS equal to its PNG")
+    print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}; a BC7 DDS under .png, an ICNS under .jpg, "
+          f"a FITS under .jpeg and an FLC under .bmp among them) in {time.perf_counter() - t0:.2f} s; len() of set_8 "
+          f"{len(stage8)}; the stage-8 BC7 DDS equal to its blocks' decode, {bc7_err:.3f} LSB mean from its source, "
+          f"the ICNS equal to its PNG, the FITS to its channel, the FLC to its palette's colours")
 
     cfg = os.path.join(tmp, "io.txt")
     with open(cfg, "w") as f:
@@ -4252,9 +4336,10 @@ def io_train(tmp, root) -> tuple:
 def io_main() -> int:
     """The image-IO phases alone (``python -c "import chip_smoke;
     chip_smoke.io_main()"``), for a short call: "io", "io prep" and "io
-    train", which ``main`` runs too, and "time codecs Lab, BigTIFF, CCITT",
-    "time codecs DDS, BLP, FTEX, ICNS, Sun" and "time loader", which only
-    this entry point runs."""
+    train", which ``main`` runs too, and "time codecs" (the earlier
+    slices' "io codecs" lines), "time codecs Lab, BigTIFF, CCITT", "time
+    codecs DDS, BLP, FTEX, ICNS, Sun", "time codecs 12-bit TIFF, XBM ...
+    XV" and "time loader", which only this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4269,10 +4354,14 @@ def io_main() -> int:
             io_state = io_checks(tmp)
         with phase("io prep"):
             io_prep(io_state, tmp, root)
+        with phase("time codecs"):
+            time_codecs(io_state)
         with phase("time codecs Lab, BigTIFF, CCITT"):
             lab_big_ccitt_codec_times(io_state["raster_card"])
         with phase("time codecs DDS, BLP, FTEX, ICNS, Sun"):
             dbfis_codec_times(io_state["dbfis_card"])
+        with phase("time codecs 12-bit TIFF, XBM ... XV"):
+            legacy_codec_times(io_state["legacy_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):
@@ -4662,8 +4751,8 @@ def main() -> int:
             tp_launches = tp_train(tmp, root)
 
         # Phases 33-35: the image-IO slice: the native library (every
-        # fixture's hash, the codecs against the plain decoder, their host
-        # times), cli.prep on every slice's originals against the JAX
+        # fixture's hash, the codecs against the plain decoder; their host
+        # times: io_main), cli.prep on every slice's originals against the JAX
         # package's recorded prep, and the training CLI on a set with JPEG
         # or BMP files, stopped and resumed with --auto-resume, then JPEG
         # frames (the loader's rate, in-process prep and frame encode times:

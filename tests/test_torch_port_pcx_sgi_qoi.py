@@ -192,7 +192,7 @@ def test_seeded_files_match_pillow(tmp_path, fmt, seed):
 def test_qoi_of_width_one_or_two_is_not_a_gimp_brush(tmp_path):
     """GBR's ``_accept`` takes a QOI of width 1 or 2 (its version field);
     its ``_open`` then refuses it, and Pillow reads the file as QOI, as the
-    port does; a file GBR's ``_open`` takes is named as GBR."""
+    port does; a file GBR's ``_open`` takes is read as a GIMP brush."""
     for w in (1, 2):
         data = fx.qoi_encode(fx.smooth_scene(2070 + w, 5, w, cell=2, step=4))
         assert images.candidates(data[:images.HEAD])[0] == "QOI" and _same_as_pillow(
@@ -200,8 +200,7 @@ def test_qoi_of_width_one_or_two_is_not_a_gimp_brush(tmp_path):
     brush = struct.pack(">IIIII", 28, 2, 3, 2, 1) + b"GIMP" + struct.pack(">I", 25) + bytes(6)
     path = _write(tmp_path, "brush.jpg", brush)
     assert images.sniff(brush[:images.HEAD]) == "GBR" and not isinstance(_pillow(path), Exception)
-    with pytest.raises(OSError, match=re.escape(path) + ": GBR files are not read by the PyTorch port"):
-        images.read_image(path)
+    assert _same_as_pillow(path, "a GIMP brush")
 
 
 def test_committed_fixtures_are_what_the_writers_make():

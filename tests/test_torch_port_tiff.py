@@ -14,6 +14,8 @@ alpha, 8- and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and
 ``fx.ycbcr_jpeg_layouts``, more in ``test_torch_port_tiff_jpeg.py``), on
 32-bit integer gray of both sample formats, byte orders, compressions and
 layouts (Pillow's mode I, clipped at 0 and 255 by its I -> RGB), on
+12-bit gray (I;12 into I;16, clipped at 255; MM and Predictor 2 refused as
+Pillow refuses them), on
 TIFFs Pillow writes through libtiff and on seeded files; on little-endian
 BigTIFFs of those kinds (``fx.bigtiff_layouts``, Pillow's ``big_tiff``
 writer, seeded files; Lab in ``test_torch_port_lab.py``, CCITT in
@@ -77,6 +79,28 @@ def test_32_bit_integer_gray_matches_pillow(tmp_path, order, sample_format, comp
     assert decoded == (order == "<" or sample_format == 2)
     if not decoded:
         with pytest.raises(OSError, match=re.escape(path) + ": .*depth or sample layout"):
+            images.read_image(path)
+
+
+@pytest.mark.parametrize("layout", ["strip", "strips", "tiles", "predictor"])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("order", ["<", ">"])
+def test_12_bit_gray_matches_pillow(tmp_path, order, compression, layout):
+    """12-bit integer gray: Pillow's one key is II's (I;16 from I;12, two
+    samples in three bytes, rows padded to a byte; each sample clipped at
+    255 by its I;16 -> RGB), so an MM file it cannot identify, and libtiff
+    refuses Predictor 2 on 12-bit samples (under LZW and Deflate; the raw
+    and PackBits lanes take no predictor): both are refused by name."""
+    r = np.random.default_rng(2520 + compression + (order == ">"))
+    values = r.integers(0, 4096, (13, 19))
+    values[:4] = r.integers(0, 300, (4, 19))
+    values[0, :4] = [0, 255, 256, 4095]
+    kw = {"strip": {}, "strips": {"rows_per_strip": 4}, "tiles": {"tile": (16, 16)}, "predictor": {"predictor": 2}}
+    path = _write(tmp_path, "gray12.webp", fx.tiff_bytes(values, 12, 1, order, compression, **kw[layout]))
+    decoded = _same_as_pillow(path, f"{order} {compression} {layout}")
+    assert decoded == (order == "<" and not (layout == "predictor" and compression in (5, 8)))
+    if not decoded:
+        with pytest.raises(OSError, match=re.escape(path) + (": .*big-endian" if order == ">" else ": .*predictor")):
             images.read_image(path)
 
 

@@ -19,6 +19,7 @@ import ctypes
 import glob
 import os
 import re
+import struct
 import sys
 
 import numpy as np
@@ -33,6 +34,7 @@ from test_torch_port_gif import _pillow, _same_as_pillow, _write  # noqa: E402
 
 LAYOUTS = fx.ccitt_layouts()
 REFUSALS = {k: v for k, v in fx.tiff_refusals().items() if k.startswith("ccitt-")}
+PALETTE_LAYOUTS = {k: v for k, v in fx.legacy_layouts().items() if "/tiff/ccitt-palette-" in k}
 
 _HANDLER = ctypes.CFUNCTYPE(None, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_void_p)
 
@@ -195,6 +197,62 @@ def test_many_seeded_ccitt_follow_libtiff(tmp_path, libtiff):
     r = np.random.default_rng(2180)
     assert sum(_held(_write(tmp_path, f"c{t % 50}.tif", _seeded_ccitt(r)), libtiff, f"file {t}")
                for t in range(2400)) > 1200
+
+
+@pytest.mark.parametrize("name", sorted(PALETTE_LAYOUTS), ids=lambda n: os.path.basename(n)[:-4])
+def test_palette_layout_matches_pillow_and_libtiff(tmp_path, libtiff, name):
+    """CCITT of a 1-bit palette (photometric 3, a ColorMap of two entries):
+    every compression, T4Options, FillOrder 2, strips, tiles, MM; each
+    decoded bit an index, each 16-bit entry taken to 8 bits as Pillow's
+    palette takes it."""
+    path = _write(tmp_path, os.path.basename(name).replace(".tif", ".bmp"), PALETTE_LAYOUTS[name])
+    assert libtiff.clean(path), libtiff.messages
+    assert _same_as_pillow(path, name)
+
+
+def _seeded_palette_ccitt(r) -> bytes:
+    """``_seeded_ccitt``'s files as 1-bit palettes of random colours, some
+    ColorMaps of another length."""
+    data = bytearray(_seeded_ccitt(r))
+    order = "<" if data[:2] == b"II" else ">"
+    end = "little" if order == "<" else "big"
+    at = int.from_bytes(data[4:8], end)
+    for i in range(int.from_bytes(data[at:at + 2], end)):  # photometric 0 or 1 -> 3 in place
+        where = at + 2 + 12 * i
+        if int.from_bytes(data[where:where + 2], end) == 262:
+            data[where + 8:where + 10] = (3).to_bytes(2, end)
+    return _with_colormap(bytes(data), r.integers(0, 65536, (2 if r.random() < 0.9 else 4, 3)), order)
+
+
+def _with_colormap(data: bytes, colors: np.ndarray, order: str) -> bytes:
+    """``data`` (a TIFF of one directory) with a ColorMap of ``colors``
+    ((n, 3) 16-bit) added: its directory copied to the file's end with the
+    new entry among its own."""
+    end = "little" if order == "<" else "big"
+    at = int.from_bytes(data[4:8], end)
+    count = int.from_bytes(data[at:at + 2], end)
+    entries = [data[at + 2 + 12 * i:at + 14 + 12 * i] for i in range(count)]
+    values = np.asarray(colors).T.reshape(-1).astype(order + "u2").tobytes()
+    out = bytearray(data)
+    out += bytes(len(out) % 2)
+    values_at = len(out)
+    out += values
+    entries.append(struct.pack(order + "HHII", 320, 3, len(values) // 2, values_at))
+    entries.sort(key=lambda e: int.from_bytes(e[:2], end))
+    new_at = len(out)
+    out += struct.pack(order + "H", len(entries)) + b"".join(entries) + bytes(4)
+    out[4:8] = new_at.to_bytes(4, end)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_seeded_palette_ccitt_follows_libtiff(tmp_path, libtiff, seed):
+    """60 seeded 1-bit palette files a seed: read as Pillow where libtiff
+    decodes them cleanly, refused by name where it does not."""
+    r = np.random.default_rng(2190 + seed)
+    read = sum(_held(_write(tmp_path, f"p{t}.tif", _seeded_palette_ccitt(r)), libtiff, f"file {t}")
+               for t in range(60))
+    assert read > 25
 
 
 def test_card_scans_match_pillow_and_the_manifest(tmp_path):

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import gzip
 import hashlib
 import io
 import json
@@ -1133,7 +1134,7 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
                    ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None,
-                   dbfis: Optional[Dict[str, bytes]] = None) -> dict:
+                   dbfis: Optional[Dict[str, bytes]] = None, legacy: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1157,7 +1158,9 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     QOI and TIFF originals of ``RASTER_CARD`` by their listed names; the
     hash of Pillow's RGB of every 8-bit Lab triple (``lab_table``); and
     each file under ``dds_blp_ftex_icns_sun/`` (``dbfis``, likewise), its
-    card originals and their pyramids as ``dbfis_manifest`` records them."""
+    card originals and their pyramids as ``dbfis_manifest`` records them;
+    and each under ``legacy_rasters/`` (``legacy``, likewise), its card
+    originals and their pyramids as ``legacy_manifest`` records them."""
     import PIL
     from PIL import features
 
@@ -1168,7 +1171,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     ico_pnm_tga = committed_ico_pnm_tga() if ico_pnm_tga is None else ico_pnm_tga
     raster = committed_raster() if raster is None else raster
     dbfis_parts = dbfis_manifest(scratch, committed_dbfis() if dbfis is None else dbfis)
-    entries = dict(dbfis_parts.pop("files"))
+    legacy_parts = legacy_manifest(scratch, committed_legacy() if legacy is None else legacy)
+    entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files")}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
         with open(path, "wb") as f:
@@ -1264,12 +1268,17 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       "raster_card: the originals raster_card_originals writes on the card, never committed; "
                       f"{DBFIS}/ and dbfis_card: Pillow {PIL.__version__}'s convert(\"RGB\") (DDS, BLP, FTEX, "
                       "ICNS, Sun raster, 32-bit gray TIFF), refusals with what Pillow makes of the file; "
-                      "dbfis_card: the originals dbfis_card_originals writes on the card, never committed",
+                      "dbfis_card: the originals dbfis_card_originals writes on the card, never committed; "
+                      f"{LEGACY}/ and legacy_card: Pillow {PIL.__version__}'s convert(\"RGB\") (12-bit gray and "
+                      "CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas, XV thumbnail), "
+                      "refusals with what Pillow makes of the file; legacy_card: the originals legacy_card_originals "
+                      "writes on the card, never committed",
         "files": entries, "card": card_entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
         "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
         "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed), **dbfis_parts,
+        **legacy_parts,
         "lab_table": {"sha256_rgb": sha256(lab_table_pillow()),
                       "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") through LittleCMS "
                                  f"{features.version('littlecms2')} of every 8-bit Lab triple (L, a, b bands, "
@@ -1286,15 +1295,16 @@ def write(scratch: str) -> dict:
     ico_pnm_tga = ico_pnm_tga_fixtures()
     raster = raster_fixtures()
     dbfis = dbfis_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS):
+    legacy = legacy_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga, **raster, **dbfis}.items():
+                       **ico_pnm_tga, **raster, **dbfis, **legacy}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga, raster, dbfis)
+                              ico_pnm_tga, raster, dbfis, legacy)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -2098,6 +2108,9 @@ def _tiff_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
         return block.astype(f"{order}u{bits // 8}").view(np.uint8).reshape(h, w * c * bits // 8)
     if bits == 8:
         return block.astype(np.uint8).reshape(h, w * c)
+    if bits == 12:  # two samples in three bytes, the first's high bits first; rows padded to a byte
+        bit = (block.reshape(h, w * c, 1).astype(np.int64) >> np.arange(11, -1, -1)) & 1
+        return np.packbits(bit.astype(np.uint8).reshape(h, -1), axis=1)
     return _pack(block.reshape(h, w * c, 1), bits)
 
 
@@ -4583,6 +4596,735 @@ def check_dbfis_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[s
         paths[os.path.basename(name)] = path
     if sorted(paths) != sorted(DBFIS_CARD):
         raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(DBFIS_CARD)}")
+    return paths
+
+
+# --- XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas, XV thumbnail; 12-bit gray and CCITT palette TIFF ----
+
+LEGACY = "legacy_rasters"  # their files' folder under FIXTURES
+#: the card's 1024 px originals of this folder, written on the card by
+#: ``legacy_card_originals`` (never committed): name -> the listed name
+#: ``cli.prep`` reads it under, or None for one only timed
+LEGACY_CARD = {"gray-1024-12bit.tif": "gray-1024-12bit.bmp", "scan-1024-g4-palette.tif": "scan-1024-g4-palette.png",
+               "poster-1024.xpm": "poster-1024-xpm.png", "scan-1024-rle.msp": "scan-1024-msp.bmp",
+               "anim-1024-brun.flc": "anim-1024-flc.jpg", "scan-1024.dcx": "scan-1024-dcx.png",
+               "brush-1024.gbr": "brush-1024-gbr.png", "sky-1024-float.fits": "sky-1024-fits.jpg",
+               "photo-1024.pxr": "photo-1024-pixar.webp", "scan-1024.xbm": None, "area-1024.mcidas": None,
+               "thumb-1024.xv": None}
+#: XPM keys: the printable characters but the quote and the backslash
+XPM_CHARS = bytes(c for c in range(33, 127) if c not in b'"\\')
+
+
+def xbm_file(bits: np.ndarray, hotspot=None, prefix: str = "im", unsigned: bool = False, per_line: int = 12,
+             upper: bool = False) -> bytes:
+    """An X11 bitmap of 0/1 ``bits`` (h, w), 1 white as Pillow reads it:
+    rows padded to a byte, bits least significant first, as C hex bytes
+    ``per_line`` a line (upper-case where ``upper``), after the width,
+    height and optional hot spot defines of ``prefix``."""
+    h, w = bits.shape
+    packed = np.packbits(np.asarray(bits, np.uint8), axis=1, bitorder="little").reshape(-1)
+    head = f"#define {prefix}_width {w}\n#define {prefix}_height {h}\n"
+    if hotspot:
+        head += f"#define {prefix}_x_hot {hotspot[0]}\n#define {prefix}_y_hot {hotspot[1]}\n"
+    head += f"static {'unsigned ' if unsigned else ''}char {prefix}_bits[] = {{\n"
+    hexes = [("0x%02X" if upper else "0x%02x") % v for v in packed]
+    return (head + ",\n".join(", ".join(hexes[i:i + per_line]) for i in range(0, len(hexes), per_line))
+            + "};\n").encode()
+
+
+def xpm_keys(n: int, bpp: int) -> List[bytes]:
+    """``n`` distinct XPM keys of ``bpp`` characters."""
+    k = len(XPM_CHARS)
+    return [bytes(XPM_CHARS[i // k ** j % k] for j in range(bpp - 1, -1, -1)) for i in range(n)]
+
+
+def xpm_file(index: np.ndarray, colors: List[bytes], bpp: int, keys: Optional[List[bytes]] = None,
+             pixels_comment: bool = True, per_line: Optional[int] = None) -> bytes:
+    """An X11 pixmap of ``index`` ((h, w) rows of the colour table), the
+    colour table's ``c`` values ``colors`` (``#rrggbb``, ``None``...), keys
+    of ``bpp`` characters (``keys``, or ``xpm_keys``), a ``/* pixels */``
+    line where ``pixels_comment``, the pixels ``per_line`` a line (a row's
+    by default)."""
+    h, w = index.shape
+    keys = keys or xpm_keys(len(colors), bpp)
+    lines = [b"/* XPM */", b"static char *image[] = {", b"/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {len(colors)} {bpp} ",'.encode()]
+    lines += [b'"' + key + b" c " + spec + b'",' for key, spec in zip(keys, colors)]
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    flat = [keys[i] for i in np.asarray(index).reshape(-1)]
+    step = per_line or w
+    lines += [b'"' + b"".join(flat[i:i + step]) + b'",' for i in range(0, len(flat), step)]
+    lines[-1] = lines[-1][:-1]
+    return b"\n".join(lines + [b"};"]) + b"\n"
+
+
+def msp_header(w: int, h: int, version: int) -> bytes:
+    """The 32-byte MSP header Pillow's writer makes (``LinS`` for version
+    2), its words XORed to 0 by the checksum word."""
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<HH", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3], words[4], words[5], words[6], words[7], words[8], words[9] = w, h, 1, 1, 1, 1, w, h
+    for word in words[:12]:
+        words[12] ^= word
+    return struct.pack("<16H", *words)
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    """An MSP version 2 row: runs of 3 to 255 bytes (0, count, byte), the
+    rest literal (count, bytes)."""
+    out, i = bytearray(), 0
+    while i < len(row):
+        j = i
+        while j < len(row) and j - i < 255 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes((0, j - i, row[i]))
+            i = j
+            continue
+        k = i
+        while k < len(row) and k - i < 255 and not (k + 2 < len(row) and row[k] == row[k + 1] == row[k + 2]):
+            k += 1
+        out += bytes((k - i,)) + row[i:k]
+        i = k
+    return bytes(out)
+
+
+def msp_file(bits: np.ndarray, version: int = 1, rows: Optional[List[bytes]] = None) -> bytes:
+    """An MSP of 0/1 ``bits`` (h, w), 1 white: version 1 raw rows, version 2
+    a row map and ``msp_rle_row`` rows (or ``rows`` as given)."""
+    h, w = bits.shape
+    packed = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    if version == 1:
+        return msp_header(w, h, 1) + packed.tobytes()
+    rows = [msp_rle_row(r.tobytes()) for r in packed] if rows is None else rows
+    return msp_header(w, h, 2) + struct.pack(f"<{len(rows)}H", *map(len, rows)) + b"".join(rows)
+
+
+def fli_chunk(kind: int, payload: bytes = b"") -> bytes:
+    return struct.pack("<IH", 6 + len(payload), kind) + payload
+
+
+def fli_frame(chunks: List[bytes], pad: int = 0) -> bytes:
+    body = b"".join(chunks) + bytes(pad)
+    return struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(chunks)) + body
+
+
+def fli_file(w: int, h: int, frames: List[bytes], magic: int = 0xAF12, count: Optional[int] = None) -> bytes:
+    """An FLI (magic 0xAF11) or FLC (0xAF12) of ``frames`` (``fli_frame``s,
+    or any chunks) after the 128-byte header, ``count`` frames by its
+    field."""
+    body = b"".join(frames)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(body), magic, len(frames) if count is None else count, w, h, 8,
+                     0, 70)
+    return bytes(head) + body
+
+
+def fli_palette(colors: np.ndarray, kind: int = 4, skip: int = 0) -> bytes:
+    """A colour chunk (4: 8-bit values, 11: 6-bit) of one packet: ``skip``
+    entries skipped, then ``colors`` ((n, 3), n up to 256)."""
+    n = len(colors)
+    return fli_chunk(kind, struct.pack("<HBB", 1, skip, n % 256) + np.asarray(colors, np.uint8).tobytes())
+
+
+def fli_brun(px: np.ndarray) -> bytes:
+    """A BRUN chunk of ``px`` (h, w indices): each row a packet count, then
+    runs (count, byte) of 2 to 127 and literals (256 - count, bytes) of up
+    to 128."""
+    out = bytearray()
+    for row in np.asarray(px, np.uint8):
+        row, i, packets = row.tobytes(), 0, bytearray()
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 127 and row[j] == row[i]:
+                j += 1
+            if j - i >= 2:
+                packets += bytes((j - i, row[i]))
+                i = j
+                continue
+            k = i
+            while k < len(row) and k - i < 128 and not (k + 1 < len(row) and row[k] == row[k + 1]):
+                k += 1
+            packets += bytes((256 - (k - i),)) + row[i:k]
+            i = k
+        out += bytes((0,)) + packets
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(px: np.ndarray, first: int = 0) -> bytes:
+    """An LC chunk writing rows ``first``... of ``px`` (their indices):
+    each row a packet count, then packets (skip 0, count n, n bytes) of up
+    to 127, or a run (skip, 256 - n, byte) where the bytes repeat."""
+    out = bytearray(struct.pack("<HH", first, len(px)))
+    for row in np.asarray(px, np.uint8):
+        row, packets, n = row.tobytes(), bytearray(), 0
+        i = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 127 and row[j] == row[i]:
+                j += 1
+            if j - i >= 3:
+                packets += bytes((0, 256 - (j - i), row[i]))
+            else:
+                j = min(i + 127, len(row))
+                packets += bytes((0, j - i)) + row[i:j]
+            n += 1
+            i = j
+        out += bytes((n,)) + packets
+    return fli_chunk(12, bytes(out))
+
+
+def fli_ss2(px: np.ndarray, skip_first: int = 0) -> bytes:
+    """An SS2 chunk writing the rows of ``px`` (an even width) after
+    ``skip_first`` rows skipped: each row its packets of words (skip 0,
+    count n, n words), a run of words (skip, 256 - n, word) where they
+    repeat."""
+    px = np.asarray(px, np.uint8)
+    out = bytearray(struct.pack("<H", len(px)))
+    for y, row in enumerate(px):
+        if y == 0 and skip_first:
+            out += struct.pack("<H", 65536 - skip_first)
+        words = [row[i:i + 2].tobytes() for i in range(0, len(row), 2)]
+        packets, n, i = bytearray(), 0, 0
+        while i < len(words):
+            j = i
+            while j < len(words) and j - i < 127 and words[j] == words[i]:
+                j += 1
+            if j - i >= 2:
+                packets += bytes((0, 256 - (j - i))) + words[i]
+            else:
+                j = min(i + 127, len(words))
+                packets += bytes((0, j - i)) + b"".join(words[i:j])
+            n += 1
+            i = j
+        out += struct.pack("<H", n) + packets
+    return fli_chunk(7, bytes(out))
+
+
+def dcx_file(pages: List[bytes]) -> bytes:
+    """A DCX of PCX ``pages``: the magic, the offset table ended by 0, the
+    pages."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for page in pages:
+        offsets.append(at)
+        at += len(page)
+    return struct.pack(f"<I{len(pages)}I", 987654321, *offsets) + bytes(4) + b"".join(pages)
+
+
+def gbr_file(px: np.ndarray, version: int = 2, comment: bytes = b"brush\0", spacing: int = 25,
+             header: Optional[int] = None) -> bytes:
+    """A GIMP brush of ``px`` ((h, w) gray, depth 1, or (h, w, 4) RGBA,
+    depth 4), version 1 or 2, its comment after the header (``header`` its
+    size field, by default the header's bytes and the comment's)."""
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    size = (20 if version == 1 else 28) + len(comment) if header is None else header
+    out = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        out += b"GIMP" + struct.pack(">I", spacing)
+    return out + comment + np.asarray(px, np.uint8).tobytes()
+
+
+def pixar_file(rgb: np.ndarray, mode=(14, 2)) -> bytes:
+    """A PIXAR raster of ``rgb`` (h, w, 3): the 1024-byte header (its
+    magic, height at 416, width at 418, the mode pair at 424), raw RGB."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, *mode)
+    return bytes(head) + np.asarray(rgb, np.uint8).tobytes()
+
+
+def fits_card(key: str, value: str = "", comment: str = "") -> bytes:
+    """An 80-byte FITS header card: ``key = value / comment``, or ``key``
+    alone (END)."""
+    if not value:
+        return key.ljust(80).encode()
+    return (key.ljust(8) + "= " + value.rjust(20) + (f" / {comment}" if comment else "")).ljust(80).encode()
+
+
+def fits_unit(cards: List[bytes], fill: bytes = b" ") -> bytes:
+    body = b"".join(cards)
+    return body + fill * (-len(body) % 2880)
+
+
+FITS_DTYPES = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def fits_file(values: np.ndarray, bitpix: int, cards: List[bytes] = (), naxis1: bool = False,
+              order: str = ">") -> bytes:
+    """A FITS image of ``values`` (h, w), the first row shown at the top
+    (FITS stores the bottom row first), samples of ``bitpix`` in byte
+    ``order`` (FITS's big-endian; "<" writes what Pillow's little-endian
+    raw modes read back as ``values``), ``cards`` among the header's;
+    ``naxis1``: a 1-D image of the values."""
+    h, w = values.shape
+    axes = [fits_card("NAXIS", "1"), fits_card("NAXIS1", str(h * w))] if naxis1 else [
+        fits_card("NAXIS", "2"), fits_card("NAXIS1", str(w)), fits_card("NAXIS2", str(h))]
+    head = fits_unit([fits_card("SIMPLE", "T", "conforms to FITS"), fits_card("BITPIX", str(bitpix)), *axes, *cards,
+                      fits_card("END")])
+    return head + fits_unit([np.asarray(values)[::-1].astype(order + FITS_DTYPES[bitpix][1:]).tobytes()], b"\0")
+
+
+def fits_gzip_file(values: np.ndarray, zbitpix: int = 32, cmptype: str = "'GZIP_1  '") -> bytes:
+    """A FITS of a primary header without data and a binary table of a
+    tile-compressed image (``ZIMAGE``, ``GZIP_1``): a row of descriptors a
+    tile, then the heap of one gzip member a row of 4-byte big-endian
+    samples (what Pillow's ``FitsGzipDecoder`` reads 4 bytes a pixel)."""
+    h, w = values.shape
+    members = [gzip.compress(np.asarray(row).astype(">i4").tobytes(), mtime=0) for row in np.asarray(values)[::-1]]
+    table = b"".join(struct.pack(">ii", len(m), sum(map(len, members[:i]))) for i, m in enumerate(members))
+    heap = b"".join(members)
+    primary = fits_unit([fits_card("SIMPLE", "T"), fits_card("BITPIX", "8"), fits_card("NAXIS", "0"),
+                         fits_card("EXTEND", "T"), fits_card("END")])
+    ext = fits_unit([fits_card("XTENSION", "'BINTABLE'"), fits_card("BITPIX", "8"), fits_card("NAXIS", "2"),
+                     fits_card("NAXIS1", "8"), fits_card("NAXIS2", str(h)), fits_card("PCOUNT", str(len(heap))),
+                     fits_card("GCOUNT", "1"), fits_card("TFIELDS", "1"), fits_card("TTYPE1", "'COMPRESSED_DATA'"),
+                     fits_card("TFORM1", "'1PB'"), fits_card("ZIMAGE", "T"), fits_card("ZBITPIX", str(zbitpix)),
+                     fits_card("ZNAXIS", "2"), fits_card("ZNAXIS1", str(w)), fits_card("ZNAXIS2", str(h)),
+                     fits_card("ZCMPTYPE", cmptype), fits_card("END")])
+    return primary + ext + fits_unit([table + heap], b"\0")
+
+
+def mcidas_file(samples: np.ndarray, size: int = 1, bands: int = 1, prefix: int = 0, at: int = 256,
+                tail: int = 0) -> bytes:
+    """A McIdas area file of ``samples`` ((h, w) big-endian values of
+    ``size`` bytes, the first of ``bands``): the 256-byte directory (words
+    9, 10, 11, 14, 15 and 34: rows, columns, bytes a sample, bands, a
+    row's prefix bytes, the data's offset), each row its prefix (none
+    where it is negative) and its bands from ``at``, ``tail`` bytes
+    after."""
+    h, w = samples.shape
+    words = [0] * 64
+    words[1], words[8], words[9], words[10], words[13], words[14], words[33] = 4, h, w, size, bands, prefix, at
+    head = struct.pack(">64i", *words)
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[size]
+    band = np.ascontiguousarray(np.asarray(samples).astype(dt)).view(np.uint8).reshape(h, w * size)
+    rows = np.concatenate([np.full((h, max(prefix, 0)), 7, np.uint8), np.tile(band, (1, bands))], 1)
+    return head + bytes(at - 256) + rows.tobytes() + bytes(tail)
+
+
+def xv_file(index: np.ndarray, comments=(b"#XVVERSION:Version 2.28", b"#IMGINFO:1024x1024 Color JPEG",
+                                          b"#END_OF_COMMENTS"), size_line: Optional[bytes] = None) -> bytes:
+    """An XV thumbnail of ``index`` ((h, w) 3-3-2 colour bytes): the magic
+    line, ``comments``, the size line, the bytes."""
+    h, w = index.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments) + (size_line or f"{w} {h} 255\n".encode())
+            + np.asarray(index, np.uint8).tobytes())
+
+
+def old_style_lzw(data: bytes) -> bytes:
+    """``data`` as old-style (pre-5.0, LSB-first) TIFF LZW: a Clear code,
+    each byte a literal 9-bit code, the end code (short enough that the
+    code width never grows)."""
+    codes = [256, *data, 257]
+    assert len(codes) < 250
+    value = sum(c << (9 * k) for k, c in enumerate(codes))
+    return value.to_bytes((9 * len(codes) + 7) // 8, "little")
+
+
+def sgilog_rows(planes: np.ndarray) -> bytes:
+    """SGILog RLE rows of ``planes`` ((h, bytes a pixel, w)): each plane of a
+    row as literal runs of up to 127 bytes."""
+    out = bytearray()
+    for row in planes:
+        for plane in row:
+            p = plane.tobytes()
+            for i in range(0, len(p), 127):
+                out += bytes((len(p[i:i + 127]),)) + p[i:i + 127]
+    return bytes(out)
+
+
+def _legacy_tiff_layouts(r) -> Dict[str, bytes]:
+    out = {}
+    values = r.integers(0, 4096, (11, 13))
+    values[0, :6] = [0, 1, 255, 256, 4095, 300]
+    values[1:4] = r.integers(0, 300, (3, 13))
+    for comp, cname in ((1, "raw"), (5, "lzw"), (8, "deflate"), (32773, "packbits")):
+        out[f"tiff/gray12-{cname}-13x11.tif"] = tiff_bytes(values, 12, 1, compression=comp)
+        out[f"tiff/gray12-{cname}-strips-13x11.tif"] = tiff_bytes(values, 12, 1, compression=comp, rows_per_strip=4)
+        out[f"tiff/gray12-{cname}-tiles-13x11.tif"] = tiff_bytes(values, 12, 1, compression=comp, tile=(16, 16))
+    out["tiff/gray12-raw-predictor-2-13x11.tif"] = tiff_bytes(values, 12, 1, predictor=2)  # no predictor: raw
+    out["tiff/gray12-packbits-predictor-2-13x11.tif"] = tiff_bytes(values, 12, 1, compression=32773, predictor=2)
+    out["tiff/gray12-lzw-orientation-6-13x11.tif"] = tiff_bytes(values, 12, 1, compression=5, orientation=6)
+    out["tiff/gray12-raw-20x3.tif"] = tiff_bytes(values[:3, :10].repeat(2, 1), 12, 1)
+    scan = _scan(2301, 23, 37)
+    cm = np.array([[0x1000, 0x2000, 0x7000], [0xF0F0, 0xEE00, 0xD8FF]])
+    for comp, cname, opts in ((2, "mh", {}), (3, "t4-1d", {}), (3, "t4-2d", {"t4options": 1}),
+                              (3, "t4-2d-fill", {"t4options": 5}), (4, "g4", {}), (32771, "rlew", {})):
+        out[f"tiff/ccitt-palette-{cname}-37x23.tif"] = ccitt_tiff(scan, comp, 3, colormap=cm, **opts)
+        out[f"tiff/ccitt-palette-{cname}-fill-order-2-37x23.tif"] = ccitt_tiff(scan, comp, 3, colormap=cm,
+                                                                               fill_order=2, **opts)
+    out["tiff/ccitt-palette-g4-strips-37x23.tif"] = ccitt_tiff(scan, 4, 3, colormap=cm, rows_per_strip=5)
+    out["tiff/ccitt-palette-g4-tiles-37x23.tif"] = ccitt_tiff(scan, 4, 3, colormap=cm, tile=(16, 16))
+    out["tiff/ccitt-palette-g4-mm-37x23.tif"] = ccitt_tiff(scan, 4, 3, colormap=cm[::-1], order=">")
+    y, cb, cr = r.integers(16, 236, (8, 12)), r.integers(16, 240, (4, 6)), r.integers(16, 240, (4, 6))
+    out["tiff/ycbcr-planes-2x2-raw-12x8.tif"] = tiff_bytes(
+        np.zeros((8, 12, 3), np.uint8), 8, 6, planar=2, tags={530: (3, [2, 2])},
+        chunks=[p.astype(np.uint8).tobytes() for p in (y, cb, cr)])
+    return out
+
+
+def _legacy_layouts_a(r) -> Dict[str, bytes]:
+    """XBM, XPM and MSP layouts."""
+    out = {}
+    for w, h in ((1, 1), (8, 3), (13, 7), (17, 5)):
+        bits = r.integers(0, 2, (h, w))
+        out[f"xbm/plain-{w}x{h}.xbm"] = xbm_file(bits)
+        out[f"msp/v1-{w}x{h}.msp"] = msp_file(bits, 1)
+        out[f"msp/v2-{w}x{h}.msp"] = msp_file(bits, 2)
+    bits = r.integers(0, 2, (9, 21))
+    out["xbm/hotspot-unsigned-upper-21x9.xbm"] = xbm_file(bits, (3, 4), "cursor", True, 5, True)
+    out["xbm/one-line-21x9.xbm"] = xbm_file(bits, per_line=1000)
+    packed = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").reshape(-1)
+    odd = b"#define a_width 21\n#define a_height 9\n/* x in a comment */ static char a_bits[] = {\n" + b",".join(
+        b"0x%x" % v if k % 3 else b"0x%X%s" % (v, b"g" if v < 16 else b"") for k, v in enumerate(packed)) + b"};\n"
+    out["xbm/short-hex-and-junk-21x9.xbm"] = odd
+    out["xbm/leading-space-21x9.xbm"] = b"  \n" + xbm_file(bits)
+    idx = r.integers(0, 5, (7, 11))
+    colors = [b"#ff0000", b"#00Ff00", b"#0000ff", b"#123", b"#fedcba98"]
+    out["xpm/p-5-colors-11x7.xpm"] = xpm_file(idx, colors, 1)
+    out["xpm/p-none-unused-11x7.xpm"] = xpm_file(idx, colors + [b"None"], 2)
+    out["xpm/p-no-pixels-comment-wrapped-11x7.xpm"] = xpm_file(idx, colors, 3, pixels_comment=False, per_line=5)
+    out["xpm/p-repeated-key-11x7.xpm"] = xpm_file(idx, colors + [b"#808080"], 1,
+                                                   keys=xpm_keys(5, 1) + xpm_keys(1, 1))
+    many = r.integers(0, 300, (9, 14))
+    out["xpm/rgb-300-colors-14x9.xpm"] = xpm_file(many, [b"#%06x" % v for v in r.integers(0, 2 ** 24, 300)], 2)
+    out["xpm/p-256-colors-14x9.xpm"] = xpm_file(many % 256, [b"#%06x" % v for v in r.integers(0, 2 ** 24, 256)], 2)
+    run = np.ones((6, 40), np.uint8)
+    run[2, 5:30] = 0
+    run[4] = r.integers(0, 2, 40)
+    out["msp/v2-runs-40x6.msp"] = msp_file(run, 2)
+    packed = np.packbits(run, axis=1)
+    rows = [msp_rle_row(p.tobytes()) for p in packed]
+    rows[1] = b""  # a blank row: white
+    rows[3] = bytes((0, 7, 0x55))  # a row of 7 bytes where it holds 5: the rows after it move on
+    rows[5] = msp_rle_row(packed[5].tobytes()) + bytes((9,)) + bytes(3)  # a literal cut at the row's end
+    out["msp/v2-odd-rows-40x6.msp"] = msp_file(run, 2, rows)
+    return out
+
+
+def _legacy_layouts_b(r) -> Dict[str, bytes]:
+    """FLI, DCX, GBR, PIXAR, FITS, McIdas and XV thumbnail layouts."""
+    out = {}
+    w, h = 13, 9
+    px = (r.integers(0, 6, (h, w)) * 40).astype(np.uint8)
+    pal = r.integers(0, 256, (256, 3), dtype=np.uint8)
+    pal64 = r.integers(0, 64, (256, 3), dtype=np.uint8)
+    out["fli/flc-palette-brun-13x9.flc"] = fli_file(w, h, [fli_frame([fli_palette(pal), fli_brun(px)])])
+    out["fli/fli-palette64-brun-13x9.fli"] = fli_file(w, h, [fli_frame([fli_palette(pal64, 11), fli_brun(px)])],
+                                                      0xAF11)
+    out["fli/fli-palette64-high-bits-13x9.fli"] = fli_file(w, h, [fli_frame([fli_palette(pal, 11), fli_brun(px)])],
+                                                           0xAF11)
+    out["fli/flc-no-palette-copy-13x9.flc"] = fli_file(w, h, [fli_frame([fli_chunk(16, px.tobytes())])])
+    out["fli/flc-partial-palette-lc-13x9.flc"] = fli_file(w, h, [fli_frame(
+        [fli_palette(pal[:40], 4, skip=30), fli_lc(px[2:7], 2)])])
+    out["fli/flc-black-then-ss2-14x9.flc"] = fli_file(14, h, [fli_frame(
+        [fli_palette(pal), fli_chunk(13), fli_ss2(np.pad(px, ((0, 0), (0, 1)))[3:], 3)])])
+    out["fli/flc-pstamp-brun-two-frames-13x9.flc"] = fli_file(w, h, [
+        fli_frame([fli_chunk(18, bytes(20)), fli_palette(pal), fli_brun(px)]), fli_frame([fli_lc(px[:2][::-1])])])
+    out["fli/flc-frame-padded-13x9.flc"] = fli_file(w, h, [fli_frame([fli_palette(pal), fli_brun(px)], pad=1)])
+    out["fli/flc-ss2-last-byte-13x9.flc"] = fli_file(w, h, [fli_frame([fli_palette(pal), _ss2_last_byte(px)])])
+    rows = np.packbits(r.integers(0, 2, (9, 30)).astype(np.uint8), axis=1)
+    page1 = pcx_file(rows, 30, 9, 1, 1)
+    page2 = pcx_file(np.packbits(r.integers(0, 2, (5, 12)).astype(np.uint8), axis=1), 12, 5, 1, 1)
+    out["dcx/two-1-bit-pages-30x9.dcx"] = dcx_file([page1, page2])
+    gray = r.integers(0, 256, (7, 11), dtype=np.uint8)
+    tail = b"\x0c" + r.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    out["dcx/8-bit-page-palette-at-the-end-11x7.dcx"] = dcx_file(
+        [pcx_file(gray, 11, 7, 8, 1, trailing=b"\x0c" + bytes(768)), page2 + tail])
+    rgb = r.integers(0, 256, (7, 11, 3), dtype=np.uint8)
+    out["dcx/rgb-page-11x7.dcx"] = dcx_file([pcx_file(rgb.transpose(0, 2, 1).reshape(7, 33), 11, 7, 8, 3,
+                                                      stride=11)])
+    brush = r.integers(0, 256, (9, 13, 4), dtype=np.uint8)
+    out["gbr/v2-rgba-13x9.gbr"] = gbr_file(brush)
+    out["gbr/v2-gray-13x9.gbr"] = gbr_file(brush[..., 0])
+    out["gbr/v1-gray-13x9.gbr"] = gbr_file(brush[..., 0], 1, b"old\0")
+    out["gbr/v1-rgba-no-comment-13x9.gbr"] = gbr_file(brush, 1, b"")
+    out["gbr/v2-comment-longer-than-its-field-13x9.gbr"] = gbr_file(brush[..., 1], 2, b"ab\0", header=29) + bytes(2)
+    out["pixar/rgb-13x9.pxr"] = pixar_file(brush[..., :3])
+    out["pixar/rgb-trailing-13x9.pxr"] = pixar_file(brush[..., :3]) + bytes(100)
+    sky = r.normal(120, 150, (9, 13))
+    sky[0, :6] = [np.nan, np.inf, -np.inf, 254.99, 255, -0.5]
+    for bitpix in (8, 16, 32, -32, -64):
+        v = np.clip(np.nan_to_num(np.abs(sky), posinf=0), 0, 250) if bitpix == 8 else sky if bitpix < 0 else np.clip(
+            np.nan_to_num(sky, posinf=0, neginf=0), -30000, 30000)
+        out[f"fits/bitpix{bitpix}-13x9.fits"] = fits_file(v, bitpix, [fits_card("BZERO", "0", "offset")])
+    flat = np.clip(np.nan_to_num(sky, posinf=0, neginf=0), -30000, 30000)
+    out["fits/naxis1-13x9.fits"] = fits_file(np.abs(flat[:3]) % 256, 8, naxis1=True)
+    out["fits/comments-and-equals-13x9.fits"] = fits_file(flat, 16, [
+        b"COMMENT   a comment card".ljust(80), fits_card("OBJECT", "'M 31/andromeda'"),
+        b"HISTORY x = y".ljust(80), b"".ljust(80)])
+    out["fits/gzip-zbitpix32-13x9.fits"] = fits_gzip_file(flat.astype(np.int64) * 3, 32)
+    out["fits/gzip-zbitpix16-13x9.fits"] = fits_gzip_file(flat.astype(np.int64), 16)
+    out["fits/gzip-zbitpix8-13x9.fits"] = fits_gzip_file(np.abs(flat).astype(np.int64), 8)
+    out["fits/gzip-cmptype-rice-read-as-table-13x9.fits"] = fits_gzip_file(np.zeros((9, 13), np.int64), 32,
+                                                                          "'RICE_1  '")
+    area = r.integers(0, 400, (9, 13))
+    for size in (1, 2, 4):
+        v = area % 256 if size == 1 else area - 60 if size == 4 else area
+        out[f"mcidas/size{size}-13x9.mcidas"] = mcidas_file(v % 2 ** (8 * size) if size < 4 else v, size)
+        out[f"mcidas/size{size}-prefix-bands-13x9.mcidas"] = mcidas_file(v % 2 ** (8 * size) if size < 4 else v,
+                                                                         size, bands=2, prefix=4, at=300)
+        out[f"mcidas/size{size}-prefix-mapped-13x9.mcidas"] = mcidas_file(v % 2 ** (8 * size) if size < 4 else v,
+                                                                          size, prefix=3, tail=3)
+    idx = r.integers(0, 256, (9, 13), dtype=np.uint8)
+    out["xv/thumb-13x9.xv"] = xv_file(idx)
+    out["xv/no-comments-13x9.xv"] = xv_file(idx, ())
+    out["xv/size-line-extra-13x9.xv"] = xv_file(idx, (b"#a",), b"  13   9 255 extra\n")
+    return out
+
+
+def _ss2_last_byte(px: np.ndarray) -> bytes:
+    """An SS2 chunk of ``px``'s first two rows (an odd width) whose first row
+    stores its last byte in a flag word before its packets."""
+    even = np.asarray(px, np.uint8)[:2, :-1]
+    chunk = bytearray(fli_ss2(even))
+    at = 6 + 2  # the chunk header, the line count: the first row's packet count
+    chunk[at:at] = struct.pack("<H", 0x8000 | int(px[0, -1]))
+    struct.pack_into("<I", chunk, 0, len(chunk))
+    return bytes(chunk)
+
+
+def legacy_layouts() -> Dict[str, bytes]:
+    """A file of each layout of this slice the port reads (name -> bytes;
+    Pillow reads each): 12-bit gray TIFF of every compression, strips and
+    tiles; CCITT of a 1-bit palette of every compression and fill order;
+    YCbCr in subsampled raw planes; XBM (hot spot, upper-case, short hex
+    and junk), XPM (P and RGB, None, repeated keys, rows wrapped), MSP
+    version 1 and 2 (blank, long and cut rows), FLI and FLC (both palette
+    chunks, BLACK, BRUN, COPY, LC, SS2, PSTAMP, padding), DCX (1-bit, 8-bit
+    with the file's last palette, RGB), GBR (versions, depths, comments),
+    PIXAR, FITS (every BITPIX, 1-D, comments, GZIP_1 tiles), McIdas (every
+    sample size, prefixes, bands, mapped and not) and XV thumbnail."""
+    r = np.random.default_rng(2300)
+    out = {**_legacy_tiff_layouts(r), **_legacy_layouts_a(r), **_legacy_layouts_b(r)}
+    return {f"{LEGACY}/{k}": v for k, v in sorted(out.items())}
+
+
+
+def legacy_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Files of this slice the port refuses (name -> (bytes, the reason the
+    port names, a regular expression)): those Pillow refuses too, and the
+    valid TIFF kinds Pillow reads through a decoder the port lacks (old-style
+    JPEG, 12-bit JPEG, old-style LZW; ROADMAP's fault 7, queue item 4)."""
+    r = np.random.default_rng(2330)
+    values = r.integers(0, 4096, (9, 7))
+    photo = smooth_scene(2331, 24, 20, cell=8, step=4)
+    jpg = port_jpeg(photo, 85)
+    jpeg_gray = jpeg_tiff(photo[..., 0], 1, 85)
+    sof = jpeg_gray.index(b"\xff\xc0")
+    jpeg12 = bytearray(jpeg_gray[:sof + 4] + b"\x0c" + jpeg_gray[sof + 5:])  # the frame's precision 12 bits
+    at = struct.unpack_from("<I", jpeg12, 4)[0]
+    for i in range(struct.unpack_from("<H", jpeg12, at)[0]):
+        if struct.unpack_from("<H", jpeg12, at + 2 + 12 * i)[0] == 258:  # BitsPerSample 12
+            struct.pack_into("<H", jpeg12, at + 2 + 12 * i + 8, 12)
+    y, cb, cr = r.integers(16, 236, (8, 12)), r.integers(16, 240, (4, 6)), r.integers(16, 240, (4, 6))
+    lum = r.integers(0, 65536, (8, 12)).astype("<u2")
+    luv = r.integers(0, 2 ** 32, (8, 12)).astype("<u4")
+    gray = r.integers(0, 256, (9, 7)).astype(np.uint8)
+    bits = r.integers(0, 2, (5, 11))
+    idx = r.integers(0, 3, (4, 6))
+    px = (r.integers(0, 6, (6, 8)) * 40).astype(np.uint8)
+    pal = r.integers(0, 256, (256, 3), dtype=np.uint8)
+    brun = fli_brun(px)
+    sky = r.normal(100, 60, (5, 7))
+    head = b"#define b_width 11\n#define b_height 5\n"
+    return {
+        "tiff-gray12-mm.tif": (tiff_bytes(values, 12, 1, ">"), r"big-endian \(MM\) 12-bit"),
+        "tiff-gray12-lzw-predictor-2.tif": (tiff_bytes(values, 12, 1, compression=5, predictor=2), "predictor"),
+        "tiff-gray12-white.tif": (tiff_bytes(values, 12, 0), "depth or sample layout"),
+        "tiff-gray12-fill-order-2.tif": (tiff_bytes(values, 12, 1, tags={266: (3, [2])}), "depth or sample layout"),
+        "tiff-ccitt-palette-4-entries.tif": (ccitt_tiff(_scan(2332, 9, 20), 4, 3, colormap=r.integers(0, 65536, (4, 3))),
+                                             "first directory"),
+        "tiff-old-jpeg-interchange.tif": (tiff_bytes(photo, 8, 6, compression=6, chunks=[jpg], tags={
+            530: (3, [2, 2]), 513: (4, [8]), 514: (4, [len(jpg)])}), "old-style JPEG"),
+        "tiff-jpeg-12-bit-gray.tif": (bytes(jpeg12), "JPEG compression of other samples"),
+        "tiff-ycbcr-planes-2x2-lzw.tif": (tiff_bytes(np.zeros((8, 12, 3), np.uint8), 8, 6, compression=5, planar=2, tags={
+            530: (3, [2, 2])}, chunks=[tiff_lzw(p.astype(np.uint8).tobytes()) for p in (y, cb, cr)]),
+                                          "YCbCr pixels in this layout"),
+        "tiff-logl.tif": (tiff_bytes(lum, 16, 32844, compression=34676, tags={339: (3, [2])}, chunks=[sgilog_rows(
+            lum.view(np.uint8).reshape(8, 12, 2)[..., ::-1].transpose(0, 2, 1))]), "LogLuv"),
+        "tiff-logluv-32.tif": (tiff_bytes(np.zeros((8, 12, 3), np.uint8), 16, 32845, compression=34676, chunks=[
+            sgilog_rows(luv.view(np.uint8).reshape(8, 12, 4)[..., ::-1].transpose(0, 2, 1))]), "LogLuv"),
+        "tiff-logluv-24.tif": (tiff_bytes(np.zeros((8, 12, 3), np.uint8), 16, 32845, compression=34677, chunks=[
+            r.integers(0, 256, 288, dtype=np.uint8).tobytes()]), "LogLuv"),
+        "tiff-old-style-lzw-gray.tif": (tiff_bytes(gray, 8, 1, compression=5, chunks=[old_style_lzw(gray.tobytes())]),
+                                        "old-style LZW"),
+        "xbm-no-bits-in-512-bytes.xbm": (head + b" " * 500 + b"static char b_bits[] = {0x00};\n", "does not match"),
+        "xbm-cut-short.xbm": (xbm_file(bits)[:-20], "truncated"),
+        "xpm-colour-name.xpm": (xpm_file(idx, [b"#ff0000", b"red", b"#0000ff"], 1), "refuses"),
+        "xpm-key-not-in-table.xpm": (_last_row_key(xpm_file(idx, [b"#ff0000", b"#00ff00", b"#0000ff"], 1)),
+                                     "not in its colour table"),
+        "xpm-none-used.xpm": (xpm_file(idx, [b"#ff0000", b"None", b"#0000ff"], 1), "not in its colour table"),
+        "xpm-too-few-pixels.xpm": (xpm_file(idx, [b"#ff0000", b"#00ff00", b"#0000ff"], 1)[:-10] + b"\n",
+                                   "not enough image data"),
+        "xpm-rgb-key-not-in-table.xpm": (xpm_file(r.integers(0, 300, (3, 4)), [b"#%06x" % i for i in range(300)], 2,
+                                                  )[:-12] + b'~~"\n};\n', "not in its colour table"),
+        "msp-v1-cut-short.msp": (msp_file(bits, 1)[:-3], "truncated"),
+        "msp-v2-row-map-cut-short.msp": (msp_file(bits, 2)[:36], "row map"),
+        "msp-v2-row-cut-short.msp": (msp_file(bits, 2)[:-2], "row cut short"),
+        "msp-v2-run-cut-short.msp": (msp_file(bits, 2, [b"\x02\xff\xff"] * 4 + [b"\x00\x05"]), "run cut short"),
+        "msp-v2-too-few-bytes.msp": (msp_file(bits, 2, [b"\x01\xff"] * 5), "not enough image data"),
+        "fli-prefix-chunk.flc": (fli_file(8, 6, [fli_chunk(0xF100, bytes(10)), fli_frame([fli_palette(pal), brun])]),
+                                 "unknown error"),
+        "fli-unknown-chunk.flc": (fli_file(8, 6, [fli_frame([fli_palette(pal), fli_chunk(99, bytes(4))])]),
+                                  "unknown error"),
+        "fli-brun-past-its-row.flc": (fli_file(8, 6, [fli_frame([fli_chunk(15, bytes((0, 9, 1)) * 6)])]),
+                                      "buffer overrun"),
+        "fli-lc-past-the-rows.flc": (fli_file(8, 6, [fli_frame([fli_chunk(12, struct.pack("<HH", 4, 4)
+                                                                          + bytes(8))])]), "buffer overrun"),
+        "fli-ss2-skip-past-the-rows.flc": (fli_file(8, 6, [fli_frame([fli_chunk(7, struct.pack("<HH", 1, 65536 - 9))])]),
+                                           "buffer overrun"),
+        "fli-chunk-of-no-size.flc": (fli_file(8, 6, [fli_frame([struct.pack("<IH", 0, 18) + bytes(4), fli_chunk(13)])]),
+                                     "no size"),
+        "fli-frame-cut-short.flc": (fli_file(8, 6, [fli_frame([fli_palette(pal), brun])])[:-8], "truncated"),
+        "fli-copy-cut-short.flc": (fli_file(8, 6, [fli_frame([fli_chunk(16, bytes(30))])]), "truncated"),
+        "dcx-page-not-a-pcx.dcx": (dcx_file([b"GIF89a" + bytes(200)]), "not a PCX's"),
+        "gbr-pixels-cut-short.gbr": (gbr_file(r.integers(0, 256, (5, 6, 4), dtype=np.uint8))[:-7],
+                                     "not enough image data"),
+        "pixar-cut-short.pxr": (pixar_file(r.integers(0, 256, (5, 6, 3), dtype=np.uint8))[:-5], "truncated"),
+        "pixar-mode-14-1.pxr": (pixar_file(r.integers(0, 256, (5, 6, 3), dtype=np.uint8), (14, 1)), "sets no mode"),
+        "fits-bitpix-64.fits": (fits_file(sky, -32)[:2880].replace(b"BITPIX  =                  -32",
+                                                                   b"BITPIX  =                   64") + bytes(2880),
+                                "does not identify"),
+        "fits-no-end.fits": (fits_card("SIMPLE", "T") + fits_card("BITPIX", "8") + fits_card("NAXIS", "0"),
+                             "Truncated FITS file"),
+        "fits-no-image-data.fits": (fits_unit([fits_card("SIMPLE", "T"), fits_card("BITPIX", "8"),
+                                               fits_card("NAXIS", "0"), fits_card("END")]) + bytes(2880),
+                                    "No image data"),
+        "fits-data-cut-short.fits": (fits_file(sky, -32)[:2880 + 100], "truncated"),
+        "fits-naxis-not-an-integer.fits": (fits_file(sky, 8).replace(b"NAXIS1  =                    7",
+                                                                     b"NAXIS1  =                  7.0"), "refuses"),
+        "fits-gzip-zbitpix-minus-32.fits": (fits_gzip_file(np.zeros((5, 7), np.int64), -32), "not enough image data"),
+        "fits-gzip-not-gzip.fits": (fits_gzip_file(np.zeros((5, 7), np.int64), 32).replace(b"\x1f\x8b", b"\x1f\x8c"),
+                                    "does not decompress"),
+        "mcidas-3-bytes-a-sample.mcidas": (mcidas_file(gray, 1)[:40] + struct.pack(">i", 3) + mcidas_file(gray, 1)[44:],
+                                           "unsupported McIdas format"),
+        "mcidas-stride-short-of-a-row.mcidas": (mcidas_file(gray.astype(np.int64) * 300, 4, prefix=-20, at=300),
+                                                "bad configuration"),
+        "mcidas-cut-short.mcidas": (mcidas_file(gray, 2)[:-10], "truncated"),
+        "mcidas-mapped-cut-short.mcidas": (mcidas_file(gray, 2, prefix=-14)[:-20], "buffer is not large enough"),
+        "mcidas-int-cut-short.mcidas": (mcidas_file(gray.astype(np.int64), 4)[:-10], "truncated"),
+        "xv-one-number.xv": (xv_file(gray, (), b"7\n"), "refuses"),
+        "xv-cut-short.xv": (xv_file(gray)[:-5], "truncated"),
+        "mpeg.mpg": (b"\0\0\1\xb3" + bytes((0x0A, 0x00, 0x78, 0x13)) + bytes(60), "cannot load this image"),
+    }
+
+
+def _last_row_key(xpm: bytes) -> bytes:
+    """``xpm`` with the first key of its last row of pixels replaced by one
+    its colour table lacks."""
+    at = xpm.rindex(b'\n"') + 2
+    return xpm[:at] + b"~" + xpm[at + 1:]
+
+
+def legacy_card_originals() -> Dict[str, bytes]:
+    """The card's written originals of ``LEGACY_CARD``, 1024 px, from seeded
+    numpy alone: name (under ``legacy_rasters/card/``) -> bytes."""
+    side = 1024
+    photo = smooth_scene(2340, side, side, cell=128, step=4)
+    r = np.random.default_rng(2341)
+    noisy = np.clip(photo.astype(np.int64) + r.integers(-5, 6, photo.shape), 0, 255).astype(np.uint8)
+    dark = smooth_scene(2342, side, side, cell=128, step=1)[..., 0].astype(np.int64) * 9 // 8 + r.integers(0, 16, (
+        side, side))  # a 12-bit camera's dark frame: most samples under 256, some over
+    scan = _scan(2343, side, side, cell=48)
+    levels = smooth_scene(2344, side, side, cell=96, step=1).astype(np.int64) * np.array([6, 8, 6]) // 256
+    poster = levels[..., 0] * 48 + levels[..., 1] * 6 + levels[..., 2]  # 288 colours
+    colors = [b"#%02x%02x%02x" % (a * 51, b * 36, c * 51) for a in range(6) for b in range(8) for c in range(6)]
+    anim = (smooth_scene(2345, side, side, cell=128, step=32)[..., 0] // 32 * 32).astype(np.uint8)
+    pal = np.stack([np.arange(256), 255 - np.arange(256), np.arange(256) // 2 + 64], 1).astype(np.uint8)
+    sky = smooth_scene(2346, side, side, cell=64, step=1)[..., 0].astype(np.float32) * 1.1 - 10.25
+    sky[::97, ::89] = np.nan
+    area = smooth_scene(2347, side, side, cell=128, step=1)[..., 1].astype(np.int64) + 40
+    thumb = (photo[..., 0] >> 5 << 5 | photo[..., 1] >> 5 << 2 | photo[..., 2] >> 6).astype(np.uint8)
+    brush = np.concatenate([noisy, np.full((side, side, 1), 200, np.uint8)], 2)
+    page = np.packbits(scan.astype(np.uint8) ^ 1, axis=1)
+    out = {
+        "gray-1024-12bit.tif": tiff_bytes(dark, 12, 1, compression=5, rows_per_strip=64),
+        "scan-1024-g4-palette.tif": ccitt_tiff(scan, 4, 3, colormap=np.array([[0xFFFF, 0xF8F8, 0xE0E0],
+                                                                              [0x1010, 0x2020, 0x7070]])),
+        "poster-1024.xpm": xpm_file(poster, colors, 2),
+        "scan-1024-rle.msp": msp_file(scan ^ 1, 2),
+        "anim-1024-brun.flc": fli_file(side, side, [fli_frame([fli_palette(pal), fli_brun(anim)]),
+                                                    fli_frame([fli_lc(anim[:8][::-1])])]),
+        "scan-1024.dcx": dcx_file([pcx_file(page, side, side, 1, 1), pcx_file(page[:64], side, 64, 1, 1)]),
+        "brush-1024.gbr": gbr_file(brush, 2, b"GIMP brush from a photo\0"),
+        "sky-1024-float.fits": fits_file(sky, -32, [fits_card("BUNIT", "'ADU'")]),
+        "photo-1024.pxr": pixar_file(noisy),
+        "scan-1024.xbm": xbm_file(scan ^ 1),
+        "area-1024.mcidas": mcidas_file(area, 2, prefix=4, tail=4),
+        "thumb-1024.xv": xv_file(thumb),
+    }
+    assert sorted(out) == sorted(LEGACY_CARD)
+    return {f"{LEGACY}/card/{k}": v for k, v in out.items()}
+
+
+def legacy_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``legacy_rasters/`` (name -> bytes), written
+    anew: the layouts and the refusals (the card's originals are written on
+    the card, ``legacy_card_originals``)."""
+    refused = {f"{LEGACY}/refused/{k}": v for k, (v, _) in legacy_refusals().items()}
+    return dict(sorted({**legacy_layouts(), **refused}.items()))
+
+
+def committed_legacy() -> Dict[str, bytes]:
+    """The committed files under ``legacy_rasters/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, LEGACY)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def legacy_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest's parts of this folder: each committed file as
+    ``gif_tiff_entry`` records it with ``legacy_refusals``; each card
+    original written on the card (``legacy_card``); the JAX package's
+    pyramids of the listed ones by their listed names (``legacy_prep``)."""
+    files = committed_legacy() if files is None else files
+    reasons = legacy_refusals()
+    entries = {}
+    for name, data in files.items():
+        path = os.path.join(scratch, "legacy" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, reasons)
+    written = legacy_card_originals()
+    card = {}
+    for name, data in written.items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        card[name] = gif_tiff_entry(name, path, reasons)
+    listed = {LEGACY_CARD[os.path.basename(n)]: d for n, d in written.items() if LEGACY_CARD[os.path.basename(n)]}
+    return {"files": entries, "legacy_card": card, "legacy_prep": jax_prep_digests(scratch, listed)}
+
+
+def check_legacy_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Writes ``legacy_card_originals`` into ``folder`` and holds each to the
+    manifest (``legacy_card``): bytes and ``decode``'s RGB.  Returns name
+    -> path of each; raises ``AssertionError`` naming the first that
+    differs."""
+    want = load_manifest()["legacy_card"]
+    paths = {}
+    for name, data in sorted(legacy_card_originals().items()):
+        if sha256(data) != want[name]["sha256"]:
+            raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+        path = os.path.join(folder, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths[os.path.basename(name)] = path
+    if sorted(paths) != sorted(LEGACY_CARD):
+        raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(LEGACY_CARD)}")
     return paths
 
 
