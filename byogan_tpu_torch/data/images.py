@@ -2,27 +2,33 @@
 
 A file is listed by its extension, as the JAX package lists them
 (``IMAGE_EXTENSIONS``, byogan_tpu/data/prep.py:25-29), and decoded by its
-first bytes, as Pillow's ``Image.open`` identifies it: PNG, JPEG, WebP,
-GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax, Lab
-and 12-bit gray among them) through the port's own codecs
-(``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
+bytes, as Pillow's ``Image.open`` identifies it: each plugin of Pillow
+12.1.0 in its order, by its ``_accept`` test on the first 16 bytes or,
+where it has none, by its ``_open`` on the file (``walk``).  PNG, JPEG,
+WebP, GIF (the first frame) and TIFF (the first page; BigTIFF, CCITT fax,
+Lab, 12-bit gray and old-style LZW among them) go through the port's own
+codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_pnm``), Targa (``decode_tga``), PSD (``decode_psd``), PCX
 (``decode_pcx``), SGI (``decode_sgi``), QOI (``decode_qoi``), DDS
 (``decode_dds``), BLP (``decode_blp``), FTEX (``decode_ftex``), ICNS
 (``decode_icns``), Sun raster (``decode_sun``), XBM (``decode_xbm``), XPM
 (``decode_xpm``), MSP (``decode_msp``), FLI/FLC (``decode_fli``), DCX
 (``decode_dcx``), GBR (``decode_gbr``), PIXAR (``decode_pixar``), FITS
-(``decode_fits``), McIdas (``decode_mcidas``) and XV thumbnail
-(``decode_xv``) in numpy below, their sequential loops (plain PNM samples,
-Targa RLE packets, PackBits, PCX, SGI, Sun and ICNS RLE, QOI ops, XBM's
-hex bytes, MSP's RLE, FLI's chunks), BCn blocks and a Lab PSD's
-conversion to sRGB in the native library; each as the JAX package's lane
-for it reads it.  A file of another format that
+(``decode_fits``), McIdas (``decode_mcidas``), XV thumbnail
+(``decode_xv``), IM (``decode_im``), IMT (``decode_imt``), IPTC
+(``decode_iptc``), PhotoCD (``decode_pcd``) and SPIDER
+(``decode_spider``) in numpy below, their sequential loops (plain PNM
+samples, Targa RLE packets, PackBits, PCX, SGI, Sun and ICNS RLE, QOI
+ops, XBM's hex bytes, MSP's RLE, FLI's chunks, IM's bit decoder), BCn
+blocks and a Lab PSD's conversion to sRGB in the native library; each as
+the JAX package's lane for it reads it.  A file of another format that
 Pillow opens raises ``OSError`` naming the file and the format ("<format>
 files are not read by the PyTorch port", with Pillow's own verdict where
 it cannot read the format either: MPEG), one that no Pillow plugin
-accepts "unknown format", and one a decoder refuses names the reason: no
-listed file is skipped.
+accepts "unknown format", one whose plugin ends Pillow's walk with an
+error (an IPTC field length above 132, an IM size that is no number)
+Pillow's verdict, and one a decoder refuses names the reason: no listed
+file is skipped.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import os
 import re
 import struct
 import zlib
-from typing import List, Optional, Tuple
+from types import SimpleNamespace
+from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,10 +55,10 @@ class NotThisFormat(OSError):
     ``Image.open`` takes as "not this plugin's file" (SyntaxError,
     IndexError, TypeError, struct.error): Pillow then tries the plugins
     after it, and so does ``read_image``."""
-#: the formats the port decodes; ``sniff`` names any other Pillow opens
+#: the formats the port decodes; ``walk`` names any other Pillow opens
 READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA",
         "DDS", "BLP", "FTEX", "ICNS", "Sun raster", "XBM", "XPM", "MSP", "FLI", "DCX", "GBR", "PIXAR", "FITS", "McIdas",
-        "XV thumbnail")
+        "XV thumbnail", "IM", "IMT", "IPTC", "PCD", "SPIDER")
 
 
 def is_image(name: str) -> bool:
@@ -74,11 +81,13 @@ def _raw(data: bytes, at: int, n: int, name: str, fmt: str) -> np.ndarray:
     return np.frombuffer(data, np.uint8, n, at)
 
 
-#: the ``_accept`` test of each Pillow 12.1.0 plugin, in the order
-#: ``Image.open`` tries them (the five it loads first, then the rest as
-#: ``Image.init`` registers them), on a file's first 16 bytes; TGA, which
-#: has none, by the header fields its ``_open`` checks (18 bytes)
-SIGNATURES = (
+#: Pillow 12.1.0's plugins in the order ``Image.open`` tries them: the five
+#: ``preinit`` loads first (BMP and DIB, GIF, JPEG, PPM, PNG), then the rest
+#: as ``init`` registers them.  Each is paired with its ``_accept`` test on
+#: the file's first 16 bytes, or with None where the plugin has none and
+#: Pillow runs its ``_open`` on the file (``_opens``: IM, IMT, IPTC, PCD,
+#: SPIDER and TGA)
+ORDER = (
     ("BMP", lambda b: b.startswith(b"BM")),
     ("DIB", lambda b: _u32(b, 0) in (12, 40, 52, 56, 64, 108, 124)),
     ("GIF", lambda b: b.startswith((b"GIF87a", b"GIF89a"))),
@@ -102,16 +111,22 @@ SIGNATURES = (
     ("JPEG 2000", lambda b: b.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
     ("ICNS", lambda b: b.startswith(b"icns")),
     ("ICO", lambda b: b.startswith(b"\0\0\1\0")),
+    ("IM", None),
+    ("IMT", None),
+    ("IPTC", None),
     ("McIdas", lambda b: b.startswith(b"\0\0\0\0\0\0\0\x04")),
     ("MPEG", lambda b: b.startswith(b"\0\0\1\xb3")),
     ("TIFF", lambda b: b.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
                                       b"II\x2b\x00"))),
     ("MSP", lambda b: b.startswith((b"DanM", b"LinS"))),
+    ("PCD", None),
     ("PIXAR", lambda b: b.startswith(b"\200\350\000\000")),
     ("PSD", lambda b: b.startswith(b"8BPS")),
     ("QOI", lambda b: b.startswith(b"qoif")),
     ("SGI", lambda b: _u16(b, 0, ">") == 474),
+    ("SPIDER", None),
     ("Sun raster", lambda b: _u32(b, 0, ">") == 0x59A66A95),
+    ("TGA", None),
     ("WebP", lambda b: b[:4] == b"RIFF" and b[8:12] == b"WEBP"),
     ("WMF", lambda b: b.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"))),
     ("XBM", lambda b: b.lstrip().startswith(b"#define")),
@@ -141,27 +156,63 @@ def _gbr(head: bytes) -> bool:
 #: read either (``unreadable`` names it beside the port's refusal)
 MPEG_VERDICT = "Pillow identifies an MPEG stream's size and cannot load its pixels: OSError cannot load this image"
 
-#: the first bytes of a file ``candidates`` reads
+#: the first bytes of a file the ``_accept`` tests, GBR's ``_open`` checks
+#: and TGA's header test read (the other plugins without an ``_accept``
+#: read the file itself)
 HEAD = 28
 
 
-def candidates(head: bytes) -> List[str]:
-    """The formats whose plugins accept a file by its first ``HEAD`` bytes,
-    in the order Pillow's ``Image.open`` tries them (``SIGNATURES`` on the
-    first 16 bytes, GBR where its ``_open`` identifies the file too, then
-    TGA by its header checks)."""
+def _opens(fmt: str, f: BinaryIO, head: bytes, name: str):
+    """The header that the plugin of ``fmt``, which has no ``_accept``,
+    reads from the file ``f`` where it identifies it (its ``_open`` and
+    ``ImageFile``'s checks as the port's reader runs them; TGA's: the
+    first bytes), which the format's reader then takes; None where it
+    does not (``NotThisFormat``).  What Pillow raises beyond SyntaxError,
+    IndexError, TypeError and struct.error stops its walk, and raises here
+    (``OSError`` naming the file and Pillow's verdict)."""
+    if fmt == "TGA":
+        return head if _tga(head) else None
+    try:
+        return _HEADERS[fmt](f, name)
+    except NotThisFormat:
+        return None
+
+
+def walk(f: BinaryIO, name: str) -> Iterator[Tuple[str, object]]:
+    """The formats that identify the open file ``f`` (``name`` the path
+    errors name), in the order Pillow's ``Image.open`` tries them
+    (``ORDER``), each with the header its plugin read: a plugin with an
+    ``_accept`` by that test on the first 16 bytes (GBR by its ``_open``
+    checks too, since its ``_accept`` takes a QOI of width 1 or 2; header
+    None), one without by its ``_open`` on the file (``_opens``), which may
+    raise Pillow's verdict and end the walk."""
+    f.seek(0)
+    head = f.read(HEAD)
     prefix = head[:16]
-    names = [name for name, accept in SIGNATURES if accept(prefix) and (name != "GBR" or _gbr(head))]
-    return names + ["TGA"] if _tga(head) else names
+    for fmt, accept in ORDER:
+        if accept is None:
+            hd = _opens(fmt, f, head, name)
+            if hd is not None:
+                yield fmt, hd
+        elif accept(prefix) and (fmt != "GBR" or _gbr(head)):
+            yield fmt, None
 
 
-def sniff(head: bytes) -> str:
-    """The format of a file from its first ``HEAD`` bytes, as Pillow's
-    ``Image.open`` identifies it: the first of ``candidates``, a name of
-    ``READ`` or of another format Pillow opens, or "unknown" (Pillow's
-    other formats without a signature, IM, IPTC, PCD and SPIDER, among
-    them)."""
-    return (candidates(head) or ["unknown"])[0]
+def sniff(data: bytes) -> str:
+    """The format of a file from its bytes (or its first bytes), as Pillow's
+    ``Image.open`` identifies it: the first of ``walk``, a name of ``READ``
+    or of another format Pillow opens, or "unknown" where no plugin
+    identifies it.  Raises ``OSError`` where a plugin without an
+    ``_accept`` stops Pillow's walk with an error (IPTC's illegal field
+    length, IM's size that is not a number...)."""
+    return next(walk(io.BytesIO(data), "<bytes>"), ("unknown", None))[0]
+
+
+def identify(path: str) -> str:
+    """``sniff`` of the file at ``path``, reading no more of it than the
+    plugins' tests read."""
+    with open(path, "rb") as f:
+        return next(walk(f, path), ("unknown", None))[0]
 
 
 #: the BMP header sizes Pillow reads (BmpImagePlugin): OS/2 1.x's 12 bytes,
@@ -505,6 +556,19 @@ _BANDS = {"1": 1, "L": 1, "I": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4, "CMYK": 4
 _WHITESPACE = b" \t\n\x0b\x0c\r"
 
 
+def _pnm_magic(data: bytes) -> Tuple[bytes, int]:
+    """``PpmImageFile``'s magic: up to 6 bytes before a whitespace byte,
+    which it reads past.  Returns the magic and the position after it."""
+    magic, pos = b"", 0
+    while len(magic) < 6 and pos < len(data):
+        c = data[pos:pos + 1]
+        pos += 1
+        if c in _WHITESPACE:
+            break
+        magic += c
+    return magic, pos
+
+
 def _pnm_token(data: bytes, pos: int, name: str) -> Tuple[bytes, int]:
     """``PpmImageFile._read_token`` from ``data[pos]``: leading whitespace
     skipped, a ``#`` comment dropped up to and through its CR or LF (the
@@ -582,13 +646,7 @@ def decode_pnm(data: bytes, name: str = "PPM") -> np.ndarray:
     Bytes Pillow does not identify raise "unknown format"; what it refuses
     (a bad token, maxval or scale, data cut short) raises ``OSError``
     naming the file and the reason."""
-    magic, pos = b"", 0
-    while len(magic) < 6 and pos < len(data):
-        c = data[pos:pos + 1]
-        pos += 1
-        if c in _WHITESPACE:
-            break
-        magic += c
+    magic, pos = _pnm_magic(data)
     mode = PNM_MODES.get(magic)
     if mode is None:
         raise NotThisFormat(f"{name}: unknown format: Pillow's PPM reader does not identify the magic {magic!r}")
@@ -1952,13 +2010,661 @@ def decode_xv(data: bytes, name: str = "XV thumbnail") -> np.ndarray:
     return _XV_PALETTE[_raw(data, f.tell(), w * h, name, "XV thumbnail").reshape(h, w)]
 
 
-#: the formats read in numpy here, each from the whole file's bytes
+# --- IM, IMT, IPTC, PCD and SPIDER: the plugins Pillow runs without an _accept ---
+
+
+def _c_round(v: np.ndarray) -> np.ndarray:
+    """C's ``(int)(v + 0.5)``: a half away from zero above 0, toward it below."""
+    return np.trunc(v + 0.5).astype(np.int64)
+
+
+_I256 = np.arange(256)
+#: Pillow's YCbCr -> RGB tables (ConvertYCbCr.c): the JFIF coefficients
+#: times (i - 128) in 6 fraction bits, each rounded as C's (int)(v + 0.5)
+_YCBCR_R = _c_round(1.402 * (_I256 - 128) * 64) >> 6
+_YCBCR_G_CB = _c_round(-0.34414 * (_I256 - 128) * 64)
+_YCBCR_G_CR = _c_round(-0.71414 * (_I256 - 128) * 64)
+_YCBCR_B = _c_round(1.772 * (_I256 - 128) * 64) >> 6
+#: Pillow's PhotoYCC tables (UnpackYCC.c, the "YCC;P" raw mode): luma
+#: times 1.3584, C1 about 156 and C2 about 137 times 2.2179 and 1.8215, and
+#: green's 0.194 of C1's and 0.509 of C2's, rounded as C's (int)(v + 0.5)
+_YCC_L = _c_round(1.3584 * _I256)
+_YCC_CB = _c_round(2.2179 * (_I256 - 156))
+_YCC_CR = _c_round(1.8215 * (_I256 - 137))
+_YCC_G_CB = _c_round(-0.4302726 * (_I256 - 156))
+_YCC_G_CR = _c_round(-0.9271435 * (_I256 - 137))
+
+
+def ycbcr_to_rgb(ycbcr: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of YCbCr (uint8 (..., 3) -> (..., 3)):
+    luma plus each table's entry, the sum shifted down 6 bits, clipped."""
+    y = ycbcr[..., 0].astype(np.int64)
+    cb, cr = ycbcr[..., 1], ycbcr[..., 2]
+    rgb = np.stack([y + _YCBCR_R[cr], y + ((_YCBCR_G_CB[cb] + _YCBCR_G_CR[cr]) >> 6), y + _YCBCR_B[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def ycc_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """Pillow's "YCC;P" unpacker (Y, C1, C2 uint8 (..., 3) -> RGB): the luma
+    table's entry plus the chroma ones, clipped."""
+    y = _YCC_L[ycc[..., 0]]
+    c1, c2 = ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([y + _YCC_CR[c2], y + _YCC_G_CB[c1] + _YCC_G_CR[c2], y + _YCC_CB[c1]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _im_types() -> dict:
+    """ImImagePlugin's "Image type" table (its ``OPEN``), built as the
+    plugin builds it: type -> (mode, raw mode); "L*16 image" ends as F;16."""
+    types = {
+        "0 1 image": ("1", "1"), "L 1 image": ("1", "1"), "Greyscale image": ("L", "L"),
+        "Grayscale image": ("L", "L"), "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+        "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"), "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
+        "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"), "L 32 F image": ("F", "F;32"),
+        "RGB3 image": ("RGB", "RGB;T"), "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"),
+        "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"), "RGBX image": ("RGB", "RGBX;L"),
+        "CMYK image": ("CMYK", "CMYK;L"), "YCC image": ("YCbCr", "YCbCr;L")}
+    for i in ("8", "8S", "16", "16S", "32", "32F"):
+        types[f"L {i} image"] = types[f"L*{i} image"] = ("F", f"F;{i}")
+    for i in ("16", "16L", "16B"):
+        types[f"L {i} image"] = types[f"L*{i} image"] = (f"I;{i}", f"I;{i}")
+    types["L 32S image"] = types["L*32S image"] = ("I", "I;32S")
+    for j in range(2, 33):
+        types[f"L*{j} image"] = ("F", f"F;{j}")
+    return types
+
+
+IM_TYPES = _im_types()
+#: the header keys ImImagePlugin counts (its TAGS): a file needs one
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut", "Name",
+            "Scale (x,y)", "Image size (x*y)", "Image type")
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+#: the bits a pixel of each raw mode an IM file's one tile reads
+_IM_BITS = {"1": 1, "L": 8, "P": 8, "P;2": 2, "P;4": 4, "RGB": 24, "RGB;L": 24, "RGBA;L": 32, "RGBX;L": 32,
+            "CMYK;L": 32, "YCbCr;L": 24, "LA;L": 16, "PA;L": 16, "I;16": 16, "I;16L": 16, "I;16B": 16, "I;32": 32,
+            "I;32S": 32, "F;8": 8, "F;8S": 8, "F;16": 16, "F;16S": 16, "F;32": 32, "F;32F": 32}
+#: the raw modes Pillow 12.1.0 unpacks into each mode an IM header may
+#: name (an "Image type" of the table, or one that is a mode itself and
+#: keeps the raw mode of the type before it); RGB;T and RYB;T are three
+#: whole planes, F;n of another n its bit decoder
+_IM_PAIRS = {"1": ("1",), "L": ("L",), "P": ("L", "P", "P;2", "P;4"), "LAB": ("L",), "LA": ("LA;L",),
+             "PA": ("PA;L",), "RGB": ("RGB", "RGB;L", "RGB;T", "RYB;T", "RGBA;L", "RGBX;L"),
+             "RGBX": ("RGB", "RGB;L", "RGB;T", "RYB;T", "RGBX;L"), "RGBA": ("RGB;T", "RYB;T", "RGBA;L"),
+             "CMYK": ("CMYK;L",), "YCbCr": ("YCbCr;L",), "I": ("I;16", "I;16B", "I;32", "I;32S"),
+             "I;16": ("I;16", "I;16B"), "I;16L": ("I;16L",), "I;16B": ("I;16B",),
+             "F": tuple(f"F;{j}" for j in ("8", "8S", "16", "16S", "32", "32F", *range(2, 32)))}
+#: the sample type of each raw mode read as numbers
+_IM_DTYPES = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32": "<i4", "I;32S": "<i4", "F;8": "u1",
+              "F;8S": "i1", "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4", "F;32F": "<f4"}
+
+
+def _im_number(s: str):
+    """ImImagePlugin's ``number``: an int, else a float (else ValueError)."""
+    try:
+        return int(s)
+    except ValueError:
+        return float(s)
+
+
+def _checked(name: str, fmt: str, mode, size) -> None:
+    """``ImageFile``'s checks after ``_open`` (a mode and a positive size,
+    else the plugin does not identify the file; a size that cannot be
+    indexed or compared passes it on too) and ``Image.open``'s (too many
+    pixels stop the walk)."""
+    with _Opening(name, fmt):
+        if not mode or size[0] <= 0 or size[1] <= 0:
+            raise SyntaxError("not identified by this plugin")
+        pixels = max(1, size[0]) * max(1, size[1])
+    if pixels > MAX_PIXELS:
+        raise OSError(f"{name}: {fmt} of {size[0]} x {size[1]} pixels, more than {MAX_PIXELS}, which Pillow does not "
+                      "read")
+
+
+def _im_header(f: BinaryIO, name: str) -> SimpleNamespace:
+    """``ImImageFile._open`` on the file ``f``: the text header's lines up
+    to a 0x00 or 0x1a byte or the file's end, each of at most 100 bytes and
+    ``key: value``; the size, frame count and scale through ``number``; an
+    "Image type" of the table gives the mode and raw mode (any other value
+    is the mode, the raw mode left as it was, L at first); L and 512 x 512
+    by default; the data after the next 0x1a, the 768 bytes of a ``Lut``
+    first, which make an L/LA/P/PA image P/PA where they are not gray
+    (any other LUT Pillow keeps and never applies).  Raises
+    ``NotThisFormat`` where Pillow passes the file on and ``OSError``
+    where it stops (a number that is no number)."""
+    f.seek(0)
+    with _Opening(name, "IM"):
+        if b"\n" not in f.read(100):
+            raise SyntaxError("not an IM file")
+        f.seek(0)
+        info = {"Image type": "L", "Image size (x*y)": (512, 512), "File size (no of images)": 1}
+        rawmode, n, s = "L", 0, b""
+        while True:
+            s = f.read(1)
+            if s == b"\r":
+                continue
+            if not s or s == b"\0" or s == b"\x1a":
+                break
+            s = s + f.readline()
+            if len(s) > 100:
+                raise SyntaxError("not an IM file")
+            s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
+            m = _IM_LINE.match(s)
+            if not m:
+                raise SyntaxError(f"Syntax error in IM header: {s.decode('ascii', 'replace')}")
+            k, v = (g.decode("latin-1", "replace") for g in m.group(1, 2))
+            if k in ("File size (no of images)", "Scale (x,y)", "Image size (x*y)"):
+                v = tuple(map(_im_number, v.replace("*", ",").split(",")))
+                v = v[0] if len(v) == 1 else v
+            elif k == "Image type" and v in IM_TYPES:
+                v, rawmode = IM_TYPES[v]
+            info[k] = v
+            n += k in _IM_TAGS
+        if not n:
+            raise SyntaxError("Not an IM file")
+        size, mode = info["Image size (x*y)"], info["Image type"]
+        while s and not s.startswith(b"\x1a"):
+            s = f.read(1)
+        if not s:
+            raise SyntaxError("File truncated")
+        palette = None
+        if "Lut" in info:
+            lut = f.read(768)
+            gray = True
+            for i in range(256):
+                if not lut[i] == lut[i + 256] == lut[i + 512]:
+                    gray = False
+            if mode in ("L", "LA", "P", "PA") and not gray:
+                mode, rawmode = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
+                palette = lut
+        offset = f.tell()
+    _checked(name, "IM", mode, size)
+    return SimpleNamespace(mode=mode, rawmode=rawmode, size=size, palette=palette, offset=offset)
+
+
+def decode_im(data: bytes, name: str, hd: SimpleNamespace) -> np.ndarray:
+    """An IFUNC/LabEye IM file's first frame as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``ImImagePlugin`` and ``convert("RGB")``: the header
+    ``hd`` that ``_im_header`` read in the walk, then one raw tile of the
+    mode's raw mode (``_IM_PAIRS``: 1-bit, L, 2- and 4-bit palettes, RGB,
+    each row's planes of RGB;L, RGBA;L, RGBX;L, CMYK;L, YCbCr;L, LA;L and
+    PA;L, 16- and 32-bit integers, F of 8, 16 and 32 bits) or, for RGB;T
+    and RYB;T, three whole planes in the order G, R, B, or for F;n Pillow's
+    bit decoder (``native.im_bits``); every row bottom-up; a palette image
+    through its ``Lut`` (black without one); then Pillow's conversions
+    (CMYK as ``cmyk2rgb``, YCbCr as ``ycbcr_to_rgb``, Lab through
+    ``native.lab_to_rgb``, 16- and 32-bit integers clipped, F as ``f2l``).
+    What Pillow refuses (a size that is no pair of integers, a mode without
+    an unpacker, pixels cut short) raises ``OSError`` naming the file."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: IM {why}, which Pillow (the JAX package's IM lane) does not read")
+
+    mode, rawmode, size = hd.mode, hd.rawmode, hd.size
+    if not (isinstance(size, tuple) and len(size) == 2 and all(type(v) is int for v in size)):
+        raise refuse(f"of size {size!r}, no pair of integers")
+    if rawmode not in _IM_PAIRS.get(mode, ()):
+        raise refuse(f"of mode {mode!r} and raw mode {rawmode!r} (unknown raw mode for given image mode)")
+    w, h = size
+    if rawmode in ("RGB;T", "RYB;T"):
+        planes = _raw(data, hd.offset, 3 * w * h, name, "IM").reshape(3, h, w)[:, ::-1]
+        return np.ascontiguousarray(planes[[1, 0, 2]].transpose(1, 2, 0))
+    if rawmode.startswith("F;") and rawmode[2:].isdigit() and int(rawmode[2:]) not in (8, 16, 32):
+        return _gray_rgb(native.im_bits(data[hd.offset:], name, int(rawmode[2:]), w, h), "F")
+    stride = (w * _IM_BITS[rawmode] + 7) // 8
+    rows = _raw(data, hd.offset, stride * h, name, "IM").reshape(h, stride)[::-1]
+    if rawmode in _IM_DTYPES:
+        v = np.ascontiguousarray(rows).view(_IM_DTYPES[rawmode])[:, :w]
+        return _gray_rgb(v, "F" if mode == "F" else "I")
+    if rawmode == "1":
+        return _rgb(np.unpackbits(rows, axis=1)[:, :w] * np.uint8(255))
+    if rawmode in ("P;2", "P;4"):
+        rows = _unpack_bits(rows, int(rawmode[2]), w)
+    if rawmode.endswith(";L"):  # a row of each band's plane after the other
+        rows = rows[:, :w * (_IM_BITS[rawmode] // 8)].reshape(h, -1, w).transpose(0, 2, 1)
+    elif rawmode == "RGB":
+        rows = rows.reshape(h, w, 3)
+    px = np.ascontiguousarray(rows)
+    if mode in ("P", "PA"):
+        lut = np.zeros((256, 3), np.uint8)
+        if hd.palette is not None:
+            lut = np.frombuffer(hd.palette, np.uint8).reshape(3, 256).T.copy()
+        return _rgb(px[..., 0] if px.ndim == 3 else px, lut)
+    if mode == "LAB":
+        return native.lab_to_rgb(np.stack([px, np.zeros_like(px), np.zeros_like(px)], -1).reshape(-1, 3)).reshape(
+            h, w, 3)
+    if mode == "CMYK":
+        return _cmyk2rgb(px)
+    if mode == "YCbCr":
+        return ycbcr_to_rgb(px)
+    return _rgb(px[..., 0] if px.ndim == 3 and px.shape[2] == 2 else px)
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _imt_header(f: BinaryIO, name: str) -> SimpleNamespace:
+    """``ImtImageFile._open`` on the file ``f``: ``width``, ``height`` and
+    ``pixel n8`` lines (``*`` a comment) read in blocks of 100 bytes, up to
+    a 0x0c byte, where the raw L data begin, a line that is no field, one of
+    1 or more than 100 bytes, or the file's end (then no tile: Pillow
+    identifies the file and cannot load it).  Raises ``NotThisFormat``
+    where Pillow passes the file on (no mode, no size) and ``OSError``
+    where it stops (a size that is no integer)."""
+    f.seek(0)
+    with _Opening(name, "IMT"):
+        buffer = f.read(100)
+        if b"\n" not in buffer:
+            raise SyntaxError("not an IM file")
+        xsize = ysize = 0
+        size, mode, offset = (0, 0), "", None
+        while True:
+            if buffer:
+                s, buffer = buffer[:1], buffer[1:]
+            else:
+                s = f.read(1)
+            if not s:
+                break
+            if s == b"\x0c":
+                offset = f.tell() - len(buffer)
+                break
+            if b"\n" not in buffer:
+                buffer += f.read(100)
+            lines = buffer.split(b"\n")
+            s += lines.pop(0)
+            buffer = b"\n".join(lines)
+            if len(s) == 1 or len(s) > 100:
+                break
+            if s[0] == ord(b"*"):
+                continue
+            m = _IMT_FIELD.match(s)
+            if not m:
+                break
+            k, v = m.group(1, 2)
+            if k == b"width":
+                xsize = int(v)
+                size = xsize, ysize
+            elif k == b"height":
+                ysize = int(v)
+                size = xsize, ysize
+            elif k == b"pixel" and v == b"n8":
+                mode = "L"
+    _checked(name, "IMT", mode, size)
+    return SimpleNamespace(size=size, offset=offset)
+
+
+def decode_imt(data: bytes, name: str, hd: SimpleNamespace) -> np.ndarray:
+    """An NIH IM Tools file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``ImtImagePlugin`` and ``convert("RGB")``: the header ``hd`` that
+    ``_imt_header`` read in the walk, then the raw L rows after its 0x0c
+    byte, top-down.  What Pillow refuses (a header without its 0x0c byte,
+    pixels cut short) raises ``OSError`` naming the file."""
+    if hd.offset is None:
+        raise OSError(f"{name}: IMT header without the 0x0c byte its data follow (cannot load this image), which "
+                      "Pillow (the JAX package's IMT lane) does not read")
+    w, h = hd.size
+    return _rgb(_raw(data, hd.offset, w * h, name, "IMT").reshape(h, w))
+
+
+#: IptcImagePlugin's compressions: 1 raw, 5 an embedded image file
+_IPTC_COMPRESSION = {1: "raw", 5: "jpeg"}
+
+
+def _iptc_field(f: BinaryIO):
+    """``IptcImageFile.field``: (record, dataset) and the size of the next
+    field, or (None, 0) at five zero bytes or the file's end."""
+    s = f.read(5)
+    if not s.strip(b"\x00"):
+        return None, 0
+    tag = s[1], s[2]
+    if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        raise SyntaxError("invalid IPTC/NAA file")
+    size = s[3]
+    if size > 132:
+        raise OSError("illegal field length in IPTC/NAA file")
+    if size == 128:
+        size = 0
+    elif size > 128:
+        size = struct.unpack(">I", (b"\0\0\0\0" + f.read(size - 128))[-4:])[0]
+    else:
+        size = struct.unpack_from(">H", s, 3)[0]
+    return tag, size
+
+
+def _iptc_int(info: dict, key) -> int:
+    """``IptcImageFile.getint``: a field's last 4 bytes, big-endian."""
+    return struct.unpack(">I", (b"\0\0\0\0" + info[key])[-4:])[0]
+
+
+def _iptc_header(f: BinaryIO, name: str) -> SimpleNamespace:
+    """``IptcImageFile._open`` on the file ``f``: the fields up to the first
+    (8, 10), the data's; layers and component from (3, 60) (1 and 0: L;
+    3 or 4 and a component: RGB or CMYK, of the band (3, 65) less 1), the
+    size from (3, 20) and (3, 30), the compression from (3, 120).  Raises
+    ``NotThisFormat`` where Pillow passes the file on and ``OSError`` where
+    it stops: a field length byte above 132 (illegal field length), a
+    compression missing or not 1 or 5 (Unknown IPTC image compression)."""
+    f.seek(0)
+    try:
+        with _Opening(name, "IPTC"):
+            info = {}
+            while True:
+                offset = f.tell()
+                tag, size = _iptc_field(f)
+                if not tag or tag == (8, 10):
+                    break
+                data = f.read(size) if size else None
+                if tag in info:
+                    info[tag] = (info[tag] if isinstance(info[tag], list) else [info[tag]]) + [data]
+                else:
+                    info[tag] = data
+            layers, component = info[(3, 60)][0], info[(3, 60)][1]
+            mode, band = "", None
+            if layers == 1 and not component:
+                mode = "L"
+            else:
+                mode = "RGB" if layers == 3 and component else "CMYK" if layers == 4 and component else ""
+                band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
+            size = _iptc_int(info, (3, 20)), _iptc_int(info, (3, 30))
+            try:
+                compression = _IPTC_COMPRESSION[_iptc_int(info, (3, 120))]
+            except KeyError as e:
+                raise OSError("Unknown IPTC image compression") from e
+    except NotThisFormat:
+        raise
+    except OSError as e:
+        raise OSError(f"{name}: IPTC file that Pillow refuses ({e}), which Pillow (the JAX package's IPTC lane) does "
+                      "not read") from e
+    _checked(name, "IPTC", mode, size)
+    return SimpleNamespace(mode=mode, band=band, size=size, compression=compression,
+                   offset=offset if tag == (8, 10) else None)
+
+
+def _jpeg_components(data: bytes) -> Optional[int]:
+    """The components of a JPEG stream's first frame header, or None."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker, length = data[pos + 1], _u16(data, pos + 2, ">")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return data[pos + 9] if pos + 9 < len(data) else None
+        pos += 2 + length
+    return None
+
+
+def _tiff_mode(data: bytes) -> Optional[str]:
+    """The mode Pillow opens a classic TIFF's first directory in, where its
+    tags tell it plainly: unsigned gray of one sample (1, L of 2 to 8
+    bits, I;16 or I;16B, I), F (SampleFormat 3) and LAB (CIELab); None for
+    the others."""
+    order = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if order is None or _u16(data, 2, order) != 42:
+        return None
+    at, tags = _u32(data, 4, order), {}
+    for i in range(max(_u16(data, at, order), 0) if at >= 0 else 0):
+        entry = at + 2 + 12 * i
+        if entry + 12 > len(data):
+            break
+        tag, kind = _u16(data, entry, order), _u16(data, entry + 2, order)
+        tags[tag] = _u16(data, entry + 8, order) if kind == 3 else _u32(data, entry + 8, order)
+    if tags.get(339) == 3:
+        return "F"
+    if tags.get(262) == 8:
+        return "LAB"
+    if tags.get(277, 1) != 1 or tags.get(262) not in (0, 1) or tags.get(339, 1) != 1:
+        return None
+    bits = tags.get(258, 1)
+    return {1: "1", 2: "L", 4: "L", 8: "L", 12: "I;16", 16: "I;16" if order == "<" else "I;16B", 32: "I"}.get(bits)
+
+
+def _embedded_mode(fmt: str, data: bytes, name: str, hd: Optional[SimpleNamespace]) -> Optional[str]:
+    """The mode Pillow opens an IPTC file's embedded image in, where the
+    port can tell it from the bytes or from the header ``hd`` its plugin's
+    ``_open`` read (L, 1 and the modes Pillow's core cannot convert to RGB
+    among them); None where it cannot."""
+    if fmt == "JPEG":
+        return {1: "L", 3: "RGB", 4: "CMYK"}.get(_jpeg_components(data))
+    if fmt == "PNG" and len(data) >= 26:
+        depth, color = data[24], data[25]
+        return {0: "1" if depth == 1 else "I;16" if depth == 16 else "L", 2: "RGB", 3: "P", 4: "LA",
+                6: "RGBA"}.get(color)
+    if fmt == "PPM":
+        magic, pos = _pnm_magic(data)
+        mode = PNM_MODES.get(magic)
+        if mode != "L":
+            return mode
+        try:
+            for _ in range(3):
+                tok, pos = _pnm_token(data, pos, name)
+            return "I" if _pnm_int(tok, name) > 255 else "L"
+        except OSError:
+            return None
+    if fmt == "SPIDER":
+        return "F"
+    if fmt == "IM":
+        return hd.mode
+    if fmt == "FITS":
+        try:
+            return _FITS_MODES[_fits_headers(io.BytesIO(data))[2][0]][0]
+        except (OSError, SyntaxError, ValueError, KeyError, IndexError, TypeError):
+            return None
+    if fmt == "McIdas":
+        return {1: "L", 2: "I;16B", 4: "I"}.get(_u32(data, 40, ">"))
+    if fmt == "TIFF":
+        return _tiff_mode(data)
+    if fmt == "PSD":
+        return "LAB" if _u16(data, 24, ">") == 9 else None
+    return None
+
+
+def decode_iptc(data: bytes, name: str, hd: SimpleNamespace) -> np.ndarray:
+    """An IPTC/NAA file's image as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``IptcImagePlugin`` and ``convert("RGB")``: the header ``hd``
+    that ``_iptc_header`` read in the walk, then the data of each (8, 10) field from the
+    first on, joined; raw data (compression 1) wrapped as a P5 of the
+    header's size, an embedded file (compression 5) opened in the port's
+    own walk (``read_bytes``), as Pillow opens either; an L file shows that
+    image as Pillow's core converts it (its size, not the header's; F,
+    I;16B, I;16L and LAB, which the core does not convert, refused), a band
+    of an RGB or CMYK one is that band of the mode, the others zero
+    (``Image.merge``: an embedded image of another mode than L refused, as
+    1 in the first band).  What Pillow refuses raises ``OSError`` naming the
+    file and Pillow's verdict."""
+
+    def refuse(why: str) -> OSError:
+        return OSError(f"{name}: IPTC {why}, which Pillow (the JAX package's IPTC lane) does not read")
+
+    if hd.offset is None:
+        raise refuse("file without image data fields (8, 10) (cannot load this image)")
+    f = io.BytesIO(data)
+    f.seek(hd.offset)
+    embedded = bytearray(b"P5\n%d %d\n255\n" % hd.size if hd.compression == "raw" else b"")
+    try:
+        while True:
+            tag, size = _iptc_field(f)
+            if tag != (8, 10):
+                break
+            embedded += f.read(max(size, 0))
+    except (SyntaxError, OSError, IndexError, struct.error) as e:
+        raise refuse(f"data field that Pillow refuses ({type(e).__name__}: {e})") from e
+    inner = f"{name} (its embedded image)"
+    if hd.compression == "raw":
+        fmt, mode = "PPM", "L"
+    else:
+        fmt, inner_hd = next(walk(io.BytesIO(bytes(embedded)), inner), ("unknown", None))
+        mode = _embedded_mode(fmt, bytes(embedded), inner, inner_hd)
+    if hd.band is None:
+        if mode in ("F", "I;16B", "I;16L", "LAB", "La"):
+            raise refuse(f"of an embedded {fmt} image of mode {mode} (conversion from {mode} to RGB not supported)")
+        return read_bytes(bytes(embedded), inner)
+    bands = 3 if hd.mode == "RGB" else 4
+    if not -bands <= hd.band < bands:
+        raise refuse(f"band {hd.band + 1} of a {hd.mode} image (list assignment index out of range)")
+    at = hd.band % bands
+    if mode is None:
+        raise refuse(f"band of an embedded {fmt} image, whose mode the port does not tell (Image.merge's check)")
+    if at and mode != "L":
+        raise refuse(f"band {at + 1} of an embedded image of mode {mode} (mode mismatch)")
+    if not at and mode not in ("L", "1", "P", "I", "F", "I;16", "I;16L", "I;16B"):
+        raise refuse(f"first band of an embedded image of mode {mode} (image has wrong mode)")
+    if mode not in ("L", "1"):
+        raise OSError(f"{name}: IPTC first band of an embedded image of mode {mode}, whose stored bytes Pillow's "
+                      "merge copies as they are: not read by the PyTorch port")
+    gray = read_bytes(bytes(embedded), inner)[..., 0]
+    px = np.zeros(gray.shape + (bands,), np.uint8)
+    px[..., at] = gray
+    return _cmyk2rgb(px) if bands == 4 else px
+
+
+def _pcd_header(f: BinaryIO, name: str) -> SimpleNamespace:
+    """``PcdImageFile._open`` on the file ``f``: ``PCD_`` at byte 2048 and
+    the orientation, byte 3586's low two bits (1 and 3 turn the image by 90
+    and 270 degrees); fewer bytes than that pass the file on
+    (``NotThisFormat``)."""
+    f.seek(2048)
+    s = f.read(1539)
+    with _Opening(name, "PCD"):
+        if not s.startswith(b"PCD_"):
+            raise SyntaxError("not a PCD file")
+        orientation = s[1538] & 3
+    return SimpleNamespace(rotate={1: 1, 3: 3}.get(orientation, 0))
+
+
+#: a PhotoCD base image: 768 x 512, at byte 96 * 2048, in chunks of two luma
+#: rows and one row each of the two chroma planes at half width
+PCD_SIZE, PCD_OFFSET = (768, 512), 96 * 2048
+
+
+def decode_pcd(data: bytes, name: str, hd: SimpleNamespace) -> np.ndarray:
+    """A Kodak PhotoCD's base image as uint8 RGB, bit for bit with Pillow
+    12.1.0's ``PcdImagePlugin`` and ``convert("RGB")``: 768 x 512 pixels at
+    byte 96 * 2048, each chunk of two rows as Pillow's pcd decoder reads
+    it (each row's luma, the chunk's two chroma rows at half width) through
+    the "YCC;P" unpacker (``ycc_to_rgb``), then turned by 90 or 270 degrees
+    as the orientation in the header ``hd`` that ``_pcd_header`` read in the
+    walk asks (``rotate(expand=True)``).  Pixels cut short raise ``OSError``
+    naming the file."""
+    w, h = PCD_SIZE
+    chunks = _raw(data, PCD_OFFSET, 3 * w * h // 2, name, "PCD").reshape(h // 2, 3 * w)
+    luma = chunks[:, :2 * w].reshape(h, w)
+    c1 = np.repeat(chunks[:, 2 * w:5 * w // 2], 2, axis=1)
+    c2 = np.repeat(chunks[:, 5 * w // 2:], 2, axis=1)
+    ycc = np.stack([luma, np.repeat(c1, 2, axis=0), np.repeat(c2, 2, axis=0)], -1)
+    return np.ascontiguousarray(np.rot90(ycc_to_rgb(ycc), hd.rotate))
+
+
+def _spider_header_len(t: Tuple[float, ...]) -> int:
+    """SpiderImagePlugin's ``isSpiderHeader``: the header's bytes where its
+    fields 1, 2, 5, 12, 13, 22 and 23 are integers, the form one of
+    Pillow's and labbyt labrec * lenbyt, else 0."""
+    h = (99,) + t
+    for i in (1, 2, 5, 12, 13, 22, 23):
+        try:
+            if h[i] - int(h[i]) != 0:
+                return 0
+        except (ValueError, OverflowError):
+            return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return 0
+    labrec, labbyt, lenbyt = int(h[13]), int(h[22]), int(h[23])
+    return labbyt if labbyt == labrec * lenbyt else 0
+
+
+def _spider_header(f: BinaryIO, name: str) -> SimpleNamespace:
+    """``SpiderImageFile._open`` on the file ``f``: 27 big-endian floats,
+    else little-endian ones, that ``_spider_header_len`` takes; form 1 (a 2D
+    image); a single image's data at the header's length, a stack's first
+    image at twice it.  Raises ``NotThisFormat`` where Pillow passes the
+    file on and ``OSError`` where it stops (a stack field that is no
+    number, an image of a stack, whose offset Pillow lacks)."""
+    f.seek(0)
+    s = f.read(108)
+    with _Opening(name, "SPIDER"):
+        if len(s) < 108:
+            raise SyntaxError("not a valid Spider file")
+        big, t = True, struct.unpack(">27f", s)
+        hdrlen = _spider_header_len(t)
+        if hdrlen == 0:
+            big, t = False, struct.unpack("<27f", s)
+            hdrlen = _spider_header_len(t)
+        if hdrlen == 0:
+            raise SyntaxError("not a valid Spider file")
+        h = (99,) + t
+        if int(h[5]) != 1:
+            raise SyntaxError("not a Spider 2D image")
+    size = int(h[12]), int(h[2])
+    try:
+        istack, imgnumber = int(h[24]), int(h[27])
+        if istack > 0 and imgnumber == 0:
+            int(h[26])
+    except (ValueError, OverflowError) as e:
+        raise OSError(f"{name}: SPIDER header that Pillow refuses ({type(e).__name__}: {e}), which Pillow (the JAX "
+                      "package's SPIDER lane) does not read") from e
+    if istack == 0 and imgnumber == 0:
+        offset = hdrlen
+    elif istack > 0 and imgnumber == 0:
+        offset = 2 * hdrlen
+    elif istack == 0 and imgnumber > 0:
+        raise OSError(f"{name}: SPIDER image {imgnumber} of a stack opened alone (AttributeError: "
+                      "'SpiderImageFile' object has no attribute 'stkoffset'), which Pillow (the JAX package's SPIDER "
+                      "lane) does not read")
+    else:
+        raise NotThisFormat(f"{name}: SPIDER of inconsistent stack header values, which Pillow does not identify")
+    _checked(name, "SPIDER", "F", size)
+    return SimpleNamespace(size=size, offset=offset, big=big)
+
+
+def decode_spider(data: bytes, name: str, hd: SimpleNamespace) -> np.ndarray:
+    """A SPIDER image (the first of a stack) as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``SpiderImagePlugin`` and ``convert("RGB")``: the header
+    ``hd`` that ``_spider_header`` read in the walk, then 32-bit floats of
+    its byte order, rows top-down, as ``f2l`` converts F.  What Pillow
+    refuses (a negative offset, pixels cut short) raises ``OSError`` naming
+    the file."""
+    w, h = hd.size
+    if hd.offset < 0:
+        raise OSError(f"{name}: SPIDER data at offset {hd.offset} (negative seek position), which Pillow (the JAX "
+                      "package's SPIDER lane) does not read")
+    v = _raw(data, hd.offset, 4 * w * h, name, "SPIDER").view(">f4" if hd.big else "<f4").reshape(h, w)
+    return _gray_rgb(v, "F")
+
+
+#: the ``_open`` of each plugin without an ``_accept`` (``_opens``; TGA's
+#: header test is ``_tga``)
+_HEADERS = {"IM": _im_header, "IMT": _imt_header, "IPTC": _iptc_header, "PCD": _pcd_header, "SPIDER": _spider_header}
+
+
+#: the formats read in numpy here, each from the whole file's bytes (those
+#: of ``_HEADERS`` with the header their ``_open`` read in the walk too)
 _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": decode_cur, "PPM": decode_pnm,
              "TGA": decode_tga, "PCX": decode_pcx, "PSD": decode_psd, "QOI": decode_qoi, "SGI": decode_sgi,
              "DDS": decode_dds, "BLP": decode_blp, "FTEX": decode_ftex, "ICNS": decode_icns, "Sun raster": decode_sun,
              "XBM": decode_xbm, "XPM": decode_xpm, "MSP": decode_msp, "FLI": decode_fli, "DCX": decode_dcx,
              "GBR": decode_gbr, "PIXAR": decode_pixar, "FITS": decode_fits, "McIdas": decode_mcidas,
-             "XV thumbnail": decode_xv}
+             "XV thumbnail": decode_xv, "IM": decode_im, "IMT": decode_imt, "IPTC": decode_iptc, "PCD": decode_pcd,
+             "SPIDER": decode_spider}
+
+
+def _read(f: BinaryIO, name: str, native_read) -> np.ndarray:
+    """The walk of ``read_image`` on the open file ``f``; ``native_read()``
+    decodes it as PNG, JPEG, WebP, GIF or TIFF.  A reader of ``_HEADERS``
+    takes the header the walk's ``_open`` read."""
+    last = data = None
+    for fmt, hd in walk(f, name):
+        if fmt not in READ:
+            f.seek(0)
+            raise unreadable(name, f.read(HEAD), fmt)
+        if fmt not in _DECODERS:
+            return native_read()
+        if data is None:  # read once, whichever of the formats reads it
+            f.seek(0)
+            data = f.read()
+        try:
+            return _DECODERS[fmt](data, name, hd) if fmt in _HEADERS else _DECODERS[fmt](data, name)
+        except NotThisFormat as e:
+            last = e
+    if last is not None:
+        raise last
+    f.seek(0)
+    raise unreadable(name, f.read(HEAD))
 
 
 def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "native") -> np.ndarray:
@@ -1970,35 +2676,26 @@ def read_image(path: str, shape: Optional[Tuple[int, int]] = None, lane: str = "
     its ``StageDataset`` reads, "pillow" for originals, as its prep and
     ``cli.project`` read them (``Image.open(path).convert("RGB")``).  The
     formats of ``_DECODERS`` reach the JAX package through Pillow alone, so
-    they read alike in both lanes.  As ``Image.open`` does, a file that a
-    format's reader does not identify (``NotThisFormat``) goes on to the
-    next format that accepts its first bytes: a true-colour Targa whose
-    first bytes are a cursor's magic is read as Targa."""
+    they read alike in both lanes.  The formats are tried as ``Image.open``
+    tries them (``walk``): a file that a format's reader does not identify
+    (``NotThisFormat``) goes on to the next format that accepts or opens
+    it (a true-colour Targa whose first bytes are a cursor's magic is read
+    as Targa), and a plugin's verdict that ends Pillow's walk raises."""
     with open(path, "rb") as f:
-        head = f.read(HEAD)
-    last = data = None
-    for fmt in candidates(head):
-        if fmt not in READ:
-            raise unreadable(path, head, fmt)
-        if fmt not in _DECODERS:
-            return native.decode_image(path, shape, lane)
-        if data is None:  # read once, whichever of the candidates reads it
-            with open(path, "rb") as f:
-                data = f.read()
-        try:
-            return _DECODERS[fmt](data, path)
-        except NotThisFormat as e:
-            last = e
-    if last is not None:
-        raise last
-    raise unreadable(path, head)
+        return _read(f, path, lambda: native.decode_image(path, shape, lane))
+
+
+def read_bytes(data: bytes, name: str, lane: str = "pillow") -> np.ndarray:
+    """``read_image`` of a file's bytes held in memory (an IPTC file's
+    embedded image); ``name`` is what errors name."""
+    return _read(io.BytesIO(data), name, lambda: native.decode_buffer(data, name, lane))
 
 
 def unreadable(path: str, head: bytes, fmt: Optional[str] = None) -> OSError:
-    """The error for a file whose first bytes (``head``) are of no format
-    the port reads: it names the file and the format (``fmt``, or the one
-    ``sniff`` finds)."""
-    fmt = fmt or sniff(head)
+    """The error for a file of no format the port reads (``head``, its
+    first bytes): it names the file and the format ``fmt`` Pillow would
+    open it as, or "unknown" where no plugin identifies it."""
+    fmt = fmt or "unknown"
     decodes = f"the PyTorch port decodes {', '.join(READ[:-1])} and {READ[-1]} files"
     if fmt == "unknown":
         return OSError(f"{path}: unknown format (first bytes {head[:4]!r}): no Pillow plugin accepts it, and {decodes}")

@@ -15,9 +15,10 @@ transform); ``lab_to_rgb`` runs that transform alone (a Lab PSD's
 planes); ``decode_buffer`` does the same as ``decode_image`` for bytes in
 memory (an icon's PNG frame), and ``decode_blp_jpeg`` for a BLP1 mip's
 JPEG; ``pnm_plain``, ``tga_rle``, ``packbits``, ``pcx_rle``, ``sgi_rle``,
-``qoi``, ``sun_rle``, ``icns_rle``, ``xbm``, ``msp_rle`` and ``fli`` run
-the sequential loops of ``data/images.py``'s PNM, Targa, PSD, PCX, SGI,
-QOI, Sun raster, ICNS, XBM, MSP and FLI readers as Pillow's decoders do;
+``qoi``, ``sun_rle``, ``icns_rle``, ``xbm``, ``msp_rle``, ``fli`` and
+``im_bits`` run the sequential loops of ``data/images.py``'s PNM, Targa,
+PSD, PCX, SGI, QOI, Sun raster, ICNS, XBM, MSP, FLI and IM readers as
+Pillow's decoders do;
 ``bcn`` decodes the BCn blocks of DDS,
 FTEX and BLP2 textures as Pillow's bcn decoder and BLP plugin do;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
@@ -37,7 +38,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 12
+ABI_VERSION = 13
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -88,7 +89,6 @@ ERRORS = {
          "and 16-bit RGB with extra samples, 1- to 8-bit palettes, 8- and 16-bit CMYK and 8-bit Lab of three samples, as "
          "Pillow's keys list them)",
     -39: "a TIFF predictor that libtiff refuses on these samples",
-    -40: "TIFF files of old-style LZW codes are not read by the PyTorch port",
     -41: "a plain PBM sample other than 0 or 1 (Pillow: Invalid token for this mode)",
     -42: "a plain PNM token longer than 10 characters (Pillow: Token too long found in data)",
     -43: "a plain PNM token that is not an integer (Pillow: invalid literal for int())",
@@ -136,6 +136,7 @@ SIGNATURES = {
     "byogan_xbm": [_P, _N, _I, _I, _P],
     "byogan_msp_rle": [_P, _N, _I, _I, _P],
     "byogan_fli": [_P, _N, _I, _I, _P],
+    "byogan_im_bits": [_P, _N, _I, _I, _I, _P],
     "byogan_lab_rgb": [_P, _N, _P],
     "byogan_bcn": [_P, _N, _I, _I, _I, _P],
     "byogan_unfilter": [_P, _I, _I, _I, _P],
@@ -347,6 +348,18 @@ def fli(data: bytes, name: str, w: int, h: int) -> np.ndarray:
     rc = load_library().byogan_fli(data, len(data), w, h, out.ctypes.data)
     if rc != 0:
         raise _failed(name, "FLI frame decode", rc)
+    return out
+
+
+def im_bits(data: bytes, name: str, bits: int, w: int, h: int) -> np.ndarray:
+    """An IM file's "L*n" samples from ``data``, its bytes from the end of
+    its header: float32 (h, w), as Pillow's bit decoder reads them under
+    ImImagePlugin's arguments (``bits`` a code, least significant bit
+    first, rows bottom-up and padded to a byte)."""
+    out = np.empty((h, w), np.float32)
+    rc = load_library().byogan_im_bits(data, len(data), bits, w, h, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "IM bit decode", rc)
     return out
 
 

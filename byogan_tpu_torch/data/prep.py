@@ -9,13 +9,15 @@ size from the previous result, with Pillow's ``Image.BILINEAR`` filter
 reproduced bit for bit (``core/resize.py``): the sets equal the JAX
 package's.  Decoding (``data/images.py``: PNG, JPEG, WebP, GIF and TIFF
 through the port's own codecs, which need no libpng, libjpeg, libwebp or
-libtiff; BMP, DIB, ICO, CUR, PNM and Targa in numpy with the native
-library's loops; each in the lane of the JAX package's prep, Pillow's
-``convert("RGB")``, so a 16-bit gray PNG clips at 255) and encoding
+libtiff; the other formats Pillow opens, BMP to SPIDER, in numpy with the
+native library's loops; each in the lane of the JAX package's prep,
+Pillow's ``convert("RGB")``, so a 16-bit gray PNG clips at 255) and encoding
 (``serve.encode_png``)
 run on a pool of host threads; the resizes run on ``device``, the GPU
 unless ``"cpu"`` is asked for.  An original of a format the port does not
-read raises before any set is written, naming the file and the format.
+read, as ``Image.open``'s walk of Pillow's plugins finds it
+(``images.identify``), raises before any set is written, naming the file
+and the format or Pillow's verdict.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from byogan_tpu_torch.core.device import resolve_device
 from byogan_tpu_torch.core.resize import resize_uint8_bilinear_pil
-from byogan_tpu_torch.data.images import HEAD, READ, is_image, read_image, sniff, unreadable
+from byogan_tpu_torch.data.images import HEAD, READ, identify, is_image, read_image, unreadable
 from byogan_tpu_torch.serve import encode_png
 
 
@@ -65,11 +67,11 @@ def prepare_pyramid(
             if name not in ("original", "prepared"):
                 shutil.move(os.path.join(datapath, name), dest)
     files = sorted(os.path.join(dest, f) for f in os.listdir(dest) if is_image(f))
-    for path in files:  # every original's format before any set is written
-        with open(path, "rb") as f:
-            head = f.read(HEAD)
-        if sniff(head) not in READ:
-            raise unreadable(path, head)
+    for path in files:  # every original's format, as Image.open's walk finds it, before any set is written
+        fmt = identify(path)
+        if fmt not in READ:
+            with open(path, "rb") as f:
+                raise unreadable(path, f.read(HEAD), fmt)
 
     sizes = _gather_sizes(start_size, end_size)
     prepared = os.path.join(datapath, "prepared")

@@ -9,7 +9,7 @@ source is newer:
         jpeg_decode.cpp jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp \\
         jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp \\
         gif.cpp tiff.cpp ccitt.cpp lab.cpp pnm_tga.cpp psd_pcx_sgi_qoi.cpp bcn.cpp \\
-        fli_msp_xbm.cpp -o build/libbyogan_io.so -lz
+        fli_msp_xbm.cpp im_bit.cpp -o build/libbyogan_io.so -lz
 
 ``-ffp-contract=off`` keeps the compiler from fusing a multiply and an add
 into one rounding on machines with FMA instructions, so that lab.cpp's
@@ -37,7 +37,7 @@ HERE = Path(__file__).resolve().parent
 SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
                                    "webp_tables.cpp", "gif.cpp", "tiff.cpp", "ccitt.cpp", "lab.cpp", "pnm_tga.cpp",
-                                   "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp"))
+                                   "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp", "im_bit.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"

@@ -11,7 +11,8 @@
 // ICNS RLE loops of the PSD, PCX, SGI, QOI, Sun raster and ICNS readers
 // (psd_pcx_sgi_qoi.cpp), the BCn block decoder of the DDS, FTEX and BLP
 // readers (bcn.cpp), the XBM, MSP and FLI loops of their readers
-// (fli_msp_xbm.cpp), and the PNG row unfilter below.  The
+// (fli_msp_xbm.cpp), the IM reader's bit decoder (im_bit.cpp), and the
+// PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -146,7 +147,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 12; }
+int byogan_abi_version() { return 13; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -275,6 +276,14 @@ int byogan_msp_rle(const uint8_t* data, size_t size, int row_bytes, int rows, ui
 // indices into out, zero where no chunk writes.
 int byogan_fli(const uint8_t* data, size_t size, int w, int h, uint8_t* out) {
   return byogan::decode_fli(data, size, w, h, out);
+}
+
+// An IM file's "L*n" pixel data from the end of its header (Pillow's Bit.c
+// under ImImagePlugin's arguments): h rows of w samples of `bits` bits,
+// least significant first, rows bottom-up and padded to a byte, into w * h
+// floats.
+int byogan_im_bits(const uint8_t* data, size_t size, int bits, int w, int h, float* out) {
+  return byogan::decode_im_bits(data, size, bits, w, h, out);
 }
 
 // n 8-bit CIE Lab triples (L, a + 128, b + 128: Pillow's LAB bands) into n

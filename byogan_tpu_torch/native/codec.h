@@ -47,7 +47,6 @@ enum Status {
   kTiffFillOrder = -37,    // TIFF with FillOrder 2 of samples Pillow's raw decoder has no raw mode for
   kTiffLayout = -38,       // TIFF samples of another depth or layout than the port reads
   kTiffPredictor = -39,    // a TIFF predictor libtiff refuses on these samples
-  kTiffOldLzw = -40,       // TIFF with old-style LZW codes
   kPnmBitonal = -41,       // a plain PBM sample other than 0 or 1
   kPnmToken = -42,         // a plain PNM token longer than 10 characters
   kPnmInteger = -43,       // a plain PNM token that is not an integer
@@ -107,6 +106,10 @@ int decode_icns_rle(const uint8_t* data, size_t size, size_t pixels, uint8_t* ou
 int decode_xbm(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
 int decode_msp_rle(const uint8_t* data, size_t size, int row_bytes, int rows, uint8_t* out);
 int decode_fli(const uint8_t* data, size_t size, int w, int h, uint8_t* out);
+
+// The loop of the IM reader's "L*n" images (im_bit.cpp; byogan_im_bits in
+// byogan_io.cpp): h rows of w samples of `bits` bits into w * h floats.
+int decode_im_bits(const uint8_t* data, size_t size, int bits, int w, int h, float* out);
 
 // The formats of decode_bcn (byogan_bcn in byogan_io.cpp): BC1 to BC7 as
 // Pillow's bcn decoder gives them (BC1, BC2, BC3, BC7: RGBA; BC4: L; BC5,

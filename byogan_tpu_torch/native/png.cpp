@@ -3,8 +3,11 @@
 // and depth, Adam7 interlacing, 16-bit samples cut to their high byte,
 // palettes and low-depth gray expanded, tRNS and alpha dropped, gray
 // repeated into three channels.  In the Pillow lane (kPillowLane) a 16-bit
-// gray sample is clipped at 255 instead, as Pillow's I;16 -> RGB does; every
-// other kind decodes alike in Pillow and libpng.
+// gray sample is clipped at 255 instead, as Pillow's I;16 -> RGB does, and
+// the chunks are read as PngImagePlugin reads them: every chunk's CRC
+// checked before the image data, none of the IDATs', the data read as far
+// as the image's last byte (a file cut after it is whole) and ended by any
+// other chunk; every other kind decodes alike in Pillow and libpng.
 //
 // As libpng does by default: the CRC of every critical chunk is checked
 // (an ancillary chunk's is not: libpng would drop the chunk, and none
@@ -113,8 +116,9 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
     *type = be32(data + pos + 4);
     if (*len > 0x7FFFFFFFu || size - pos - 12 < *len) return kTruncated;
     *body = data + pos + 8;
-    const bool critical = !(data[pos + 4] & 0x20);
-    if (critical && (uint32_t)crc32(0, data + pos + 4, *len + 4) != be32(data + pos + 8 + *len)) return kBadCrc;
+    // libpng checks the critical chunks' CRCs; Pillow every chunk's before its image data
+    const bool checked = !(data[pos + 4] & 0x20) || lane == kPillowLane;
+    if (checked && (uint32_t)crc32(0, data + pos + 4, *len + 4) != be32(data + pos + 8 + *len)) return kBadCrc;
     pos += 12 + (size_t)*len;
     return kOk;
   };
@@ -156,8 +160,35 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
   inf.open = true;
   inf.z.next_out = raw.data();
   inf.z.avail_out = (uInt)need;
+  constexpr uint32_t kIdat = 0x49444154u;
+  auto feed = [&](const uint8_t* in, size_t n) -> int {  // an IDAT's bytes into the inflater
+    if (!inf.z.avail_out) return kOk;
+    inf.z.next_in = const_cast<uint8_t*>(in);
+    inf.z.avail_in = (uInt)n;
+    const int z = inflate(&inf.z, Z_NO_FLUSH);
+    if (z == Z_STREAM_END && inf.z.avail_out) return kCorrupt;  // not enough image data
+    if (z != Z_OK && z != Z_STREAM_END && z != Z_BUF_ERROR) return kCorrupt;
+    return kOk;
+  };
   bool seen_idat = false, done = false;
   while (!done) {
+    if (lane == kPillowLane && (seen_idat || (size - pos >= 8 && be32(data + pos + 4) == kIdat))) {
+      // Pillow's reading of the image data (PngImageFile.load_read): each IDAT's body as far as the file
+      // holds it, its CRC skipped unread, then the next chunk's header; the data end at any other chunk or
+      // at the file's end, and nothing past the image's last byte is read
+      if (seen_idat) pos += std::min<size_t>(4, size - pos);
+      if (size - pos < 8 || be32(data + pos + 4) != kIdat) return kTruncated;
+      if (l.color == 3 && !has_palette) return kCorrupt;
+      len = be32(data + pos);
+      const size_t held = std::min<size_t>(len, size - pos - 8);
+      rc = feed(data + pos + 8, held);
+      if (rc) return rc;
+      pos += 8 + held;
+      seen_idat = true;
+      if (!inf.z.avail_out) break;
+      if (held < len) return kTruncated;
+      continue;
+    }
     rc = chunk(&body, &len, &type);
     if (rc) return rc;
     switch (type) {
@@ -169,16 +200,11 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
           has_palette = true;
         }
         break;
-      case 0x49444154u:  // IDAT
+      case kIdat:
         if (l.color == 3 && !has_palette) return kCorrupt;
         seen_idat = true;
-        if (inf.z.avail_out) {
-          inf.z.next_in = const_cast<uint8_t*>(body);
-          inf.z.avail_in = len;
-          const int z = inflate(&inf.z, Z_NO_FLUSH);
-          if (z == Z_STREAM_END && inf.z.avail_out) return kCorrupt;  // not enough image data
-          if (z != Z_OK && z != Z_STREAM_END && z != Z_BUF_ERROR) return kCorrupt;
-        }
+        rc = feed(body, len);
+        if (rc) return rc;
         break;
       case 0x49454E44u:  // IEND
         done = true;

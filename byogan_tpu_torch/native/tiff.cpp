@@ -9,9 +9,11 @@
 //   offsets and counts, 20-byte entries, LONG8 values; Pillow takes an MM
 //   BigTIFF for a classic one and cannot identify it), the first image file
 //   directory; strips or tiles; PlanarConfiguration 1 and 2;
-// - compression none, PackBits, LZW (libtiff's decoder: MSB-first codes,
+// - compression none, PackBits, LZW (libtiff's decoders: MSB-first codes,
 //   the width one code early, a table that may grow past 4096 entries
-//   without a Clear) and Deflate (8 and 32946), with Predictor 2
+//   without a Clear; and the old-style codes of libtiff before 5.0,
+//   LSB-first, the width one code late, where the first strip or tile
+//   begins 0x00 and an odd byte) and Deflate (8 and 32946), with Predictor 2
 //   (horizontal differencing of 8-, 16- and 32-bit samples) where libtiff
 //   applies it: under LZW and Deflate; uncompressed and PackBits data take
 //   no predictor, as libtiff installs none for them; CCITT of bilevel
@@ -68,7 +70,7 @@
 // compressions, YCbCr in a layout libtiff has no routine for (1x4, 2x4,
 // subsampled planes), ICCLab, ITULab and other photometric interpretations,
 // other depths and sample layouts, FillOrder 2 where Pillow has no raw
-// mode for it, old-style LZW, truncated or corrupt data (where libtiff or
+// mode for it, truncated or corrupt data (where libtiff or
 // Pillow's raw decoder fails; YCbCr data short of the tags, and YCbCr
 // planes whose JPEG stream libtiff refuses, which Pillow shows as the
 // buffer's bytes, are refused too).
@@ -201,8 +203,12 @@ int read_directory(const Bytes& f, uint64_t at, bool bigtiff, std::vector<Tag>* 
   return kOk;
 }
 
-// libtiff's LZW decoder (tif_lzw.c, new-style codes) filling out[0, occ).
-int lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
+// libtiff's LZW decoders (tif_lzw.c) filling out[0, occ): LZWDecode's
+// new-style codes (most significant bit first, one code wider as the table
+// reaches 2^bits - 1 entries) or, where `old_style`, LZWDecodeCompat's codes
+// of libtiff before 5.0 (least significant bit first, one code wider as it
+// reaches 2^bits).
+int lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ, bool old_style) {
   constexpr int kClear = 256, kEoi = 257, kFirst = 258, kBitsMax = 12;
   constexpr int kSize = (1 << kBitsMax) - 1 + 1024;  // CSIZE: room past 4096 for late Clears
   struct Entry {
@@ -210,23 +216,26 @@ int lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
     uint16_t length;
     uint8_t value, first;
   };
-  if (n >= 2 && in[0] == 0 && (in[1] & 1)) return kTiffOldLzw;  // LZWPreDecode's test for the old codes
+  const int late = old_style ? 1 : 2;  // MAXCODE(bits) for the old codes, one less for the new
   std::vector<Entry> table(kSize);
   for (int i = 0; i < 256; i++) table[i] = {-1, 1, (uint8_t)i, (uint8_t)i};
   std::vector<uint8_t> string;
   size_t bitpos = 0;
   const size_t bits_total = n * 8;
-  int nbits = 9, maxcode = (1 << 9) - 2, free_ent = kFirst, old = -1;
+  int nbits = 9, maxcode = (1 << 9) - late, free_ent = kFirst, old = -1;
   auto reset = [&]() {
     for (int i = kFirst; i < kSize; i++) table[i] = {-1, 0, 0, 0};
     nbits = 9;
-    maxcode = (1 << 9) - 2;
+    maxcode = (1 << 9) - late;
     free_ent = kFirst;
   };
   auto next_code = [&]() -> int {
     if (bits_total - bitpos < (size_t)nbits) return kEoi;  // "not terminated with EOI": the data end
     int code = 0;
-    for (int k = 0; k < nbits; k++, bitpos++) code = code << 1 | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    if (old_style)
+      for (int k = 0; k < nbits; k++, bitpos++) code |= ((in[bitpos >> 3] >> (bitpos & 7)) & 1) << k;
+    else
+      for (int k = 0; k < nbits; k++, bitpos++) code = code << 1 | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
     return code;
   };
   size_t o = 0;
@@ -253,7 +262,7 @@ int lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
     e.value = code < free_ent ? table[code].first : e.first;
     if (++free_ent > maxcode) {
       if (++nbits > kBitsMax) nbits = kBitsMax;
-      maxcode = (1 << nbits) - 2;
+      maxcode = (1 << nbits) - late;
     }
     old = code;
     if (code >= 256) {
@@ -773,6 +782,15 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   } catch (const std::bad_alloc&) {
     return kNoMemory;
   }
+  // libtiff picks its LZW decoder once, on the first strip or tile read
+  // (LZWPreDecode): the old codes where that chunk's data (their bits
+  // reversed under FillOrder 2) begin with 0x00 and an odd byte
+  bool lzw_old = false;
+  if (compression == 5 && chunks && offsets[0] <= size && counts.v[0] >= 2 && counts.v[0] <= size - offsets[0]) {
+    uint8_t first[2] = {file[offsets[0]], file[offsets[0] + 1]};
+    if (reverse) reverse_bits(first, 2);
+    lzw_old = first[0] == 0 && (first[1] & 1);
+  }
   const bool be = big && !native;
   auto read_px = [&](auto* px) -> int {
     if (mapped) {
@@ -816,7 +834,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
         if (ccitt)
           rc = decode_ccitt(in, count, offset, compression, one(kT4Options, 0), cw, rows, row_bytes, buffer.data());
         else if (compression == 5)
-          rc = lzw_decode(in, count, buffer.data(), need);
+          rc = lzw_decode(in, count, buffer.data(), need, lzw_old);
         else if (deflate)
           rc = deflate_decode(in, count, buffer.data(), need);
         else
@@ -842,7 +860,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     return kOk;
   };
   auto inflate = [&](const uint8_t* in, size_t count, uint8_t* out, size_t need) -> int {
-    if (compression == 5) return lzw_decode(in, count, out, need);
+    if (compression == 5) return lzw_decode(in, count, out, need, lzw_old);
     if (deflate) return deflate_decode(in, count, out, need);
     return packbits_decode(in, count, out, need);
   };

@@ -69,17 +69,20 @@ both paths of the port at full width (``ModelSpec()``):
   layouts, DDS (BC1-BC7 blocks of every mode), BLP, FTEX, ICNS, Sun
   raster and 32-bit gray TIFF layouts, 12-bit gray and CCITT palette
   TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV
-  thumbnail layouts, and the kinds refused by name among them: ICCLab, MM
-  BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000 in
-  ICNS, old-style JPEG and LZW TIFF, MPEG...), the Lab -> sRGB
-  conversion of every 8-bit Lab triple held to the hash of Pillow's
-  (LittleCMS's) table, the PNG decode bit-equal to data/png.py's on
+  thumbnail layouts, IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF
+  layouts, and the kinds refused by name among them: ICCLab, MM BigTIFF,
+  CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000 in ICNS,
+  old-style JPEG TIFF, MPEG, an IPTC field length Pillow calls
+  illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
+  the YCC;P and YCbCr -> RGB conversions of every triple held to the
+  hashes of Pillow's tables, the PNG decode bit-equal to data/png.py's on
   smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
-  cli.prep on JPEG, WebP, JPEG-kind, Pillow-lane, GIF/TIFF/PNM/Targa/ICO,
-  PSD/PCX/SGI/QOI/TIFF (Lab TIFF and PSD, BigTIFF and Group 4 among them),
-  DDS/BLP/FTEX/ICNS/Sun/32-bit TIFF and 12-bit TIFF/Group 4 palette
-  TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR originals held to the JAX package's
-  pyramids ("io prep"), and the training CLI on a set with JPEG, WebP,
+  cli.prep on JPEG originals and, in one process, on every slice's
+  originals of the Pillow lane (WebP, JPEG-kind, Pillow-lane,
+  GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF, DDS/BLP/FTEX/ICNS/Sun/TIFF,
+  12-bit TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR and IM/IMT/IPTC/PCD/SPIDER/
+  old-style LZW TIFF) held to the JAX package's pyramid of them ("io
+  prep"), and the training CLI on a set with JPEG, WebP,
   palette and 16-bit BMP, BC7 DDS, ICNS, FITS and FLC files among its
   PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
@@ -3394,7 +3397,8 @@ def io_checks(tmp) -> dict:
     matched = fx.check(images.read_image, encode_bytes, native.decode_vp8_yuv)
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
-                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/"))]
+                                   f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/",
+                                   f"{fx.IMIPS}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3474,6 +3478,29 @@ def io_checks(tmp) -> dict:
           f"refused with Pillow's reason ({', '.join(os.path.basename(m)[:-8] for m in legacy_refused)}); "
           f"{len(legacy_card)} card originals of this slice written here by the fixtures' numpy writers, each the "
           f"manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(legacy_card))})")
+    imips = [m for m in matched if m.startswith(f"{fx.IMIPS}/")]
+    imips_read = [m for m in imips if "@" not in m]
+    imips_refused = [m for m in imips if m.endswith("@refused")]
+    imips_kind = {k: sum(f"/{k}/" in m for m in imips_read) for k in ("im", "imt", "iptc", "spider", "tiff")}
+    require(min(imips_kind.values()) >= 3 and len(imips_refused) >= 25,
+            f"the manifest holds IM, IMT, IPTC, SPIDER and old-style LZW TIFF layouts {imips_kind} and "
+            f"{len(imips_refused)} of their refusals")
+    imips_card = fx.check_imips_card(written, images.read_image)
+    t0 = time.perf_counter()
+    triples = fx.lab_table_triples()
+    conversions = {"ycc_table": images.ycc_to_rgb(triples), "ycbcr_table": images.ycbcr_to_rgb(triples)}
+    conversion_s = time.perf_counter() - t0
+    for key, table in conversions.items():
+        require(fx.sha256(table) == fx.load_manifest()[key]["sha256_rgb"], f"the {key} differs from Pillow's")
+    print(f"io fixtures: {len(imips_read)} IM, IMT, IPTC, SPIDER and old-style LZW TIFF layouts decoded to Pillow "
+          f"12.1.0's RGB ({', '.join(f'{k} {v}' for k, v in imips_kind.items())}: IM's bit decoder through "
+          f"native/im_bit.cpp, old-style LZW through native/tiff.cpp: {', '.join(m.split('/', 1)[1] for m in imips_read)}) "
+          f"and {len(imips_refused)} refused with Pillow's verdict "
+          f"({', '.join(os.path.basename(m)[:-8] for m in imips_refused)}); {len(imips_card)} card originals of this "
+          f"slice written here by the fixtures' numpy writers, each the manifest's bytes, and each decoded to Pillow's "
+          f"RGB ({', '.join(sorted(imips_card))}); the YCC;P (PhotoCD) and YCbCr -> RGB conversions of all 2^24 "
+          f"triples hash to Pillow 12.1.0's tables (the manifest's ycc_table and ycbcr_table), {conversion_s:.3f} s "
+          "for both")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3507,7 +3534,7 @@ def io_checks(tmp) -> dict:
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
     hashes = (len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + len(dbfis_card)
-              + len(legacy_card) + 1)  # + the Lab table
+              + len(legacy_card) + len(imips_card) + 3)  # + the Lab, YCC;P and YCbCr tables
     print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
@@ -3531,7 +3558,9 @@ def io_checks(tmp) -> dict:
           f"{len(raster_card) - len(fx.RASTER_COMMITTED_CARD)} written card originals (above); {len(dbfis)} "
           f"DDS/BLP/FTEX/ICNS/Sun/TIFF files and {len(dbfis_card)} written card originals (above); {len(legacy)} "
           f"12-bit and CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV files and "
-          f"{len(legacy_card)} written card originals (above); the Lab table (above)")
+          f"{len(legacy_card)} written card originals (above); {len(imips)} IM, IMT, IPTC, PCD, SPIDER and old-style "
+          f"LZW TIFF files and {len(imips_card)} written card originals (above); the Lab, YCC;P and YCbCr tables "
+          "(above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3594,6 +3623,7 @@ def io_checks(tmp) -> dict:
     out["raster_card"] = raster_card
     out["dbfis_card"] = dbfis_card
     out["legacy_card"] = legacy_card
+    out["imips_card"] = imips_card
     return out
 
 
@@ -3904,86 +3934,64 @@ def legacy_codec_times(paths: dict) -> dict:
     return ms
 
 
-def prep_sets(io_state: dict) -> list:
-    """The originals of each slice of image formats that "io prep" runs
-    ``cli.prep`` on, as (slice, what they are, folder under ``fx.FIXTURES``
-    of the committed ones, their names, the manifest's key of the JAX
-    package's prep of them, listed name of each committed original that
-    prep reads under another, listed name -> path of each original written
-    in this run): the WebP originals (VP8 512 px, 640 x 480 and 1024 px,
-    VP8L 512 px, VP8X + ALPH 448 x 320); the JPEG kinds' (arithmetic
-    sequential and progressive, CMYK, YCCK, 4:4:0 and block-smoothed at
-    1024 px, lossless at 512 px); the Pillow lane's (an 8-bit palette BMP,
-    an RLE8 BMP and a 16-bit gray PNG scan of 10 bits, clipped at 255);
-    the GIF and TIFF ones (a posterised photo as a GIF with a global table,
-    interlaced, a two-frame GIF with a local table and transparency at an
-    offset, an LZW TIFF with predictor 2) with the written ones of
-    ``io_state["card_originals"]`` prep reads (a P6, an RLE Targa, a 4-bit
-    gray LZW TIFF, a 256 px icon, a YCbCr 2 x 2 JPEG TIFF); the committed
-    YCbCr 1 x 1 JPEG TIFF in planes with the written PSD, PCX, SGI, QOI,
-    Lab TIFF, Lab PSD, BigTIFF and Group 4 originals
-    (``io_state["raster_card"]``); and the written BC7 and BC1 DDS, BLP2
-    DXT5, BLP1 JPEG, BC1 FTEX, ICNS of a PNG element, RLE Sun raster and
-    32-bit gray TIFF (``io_state["dbfis_card"]``); and the written 12-bit
-    gray LZW TIFF, Group 4 palette TIFF, XPM of 288 colours, MSP version 2,
-    FLC of a BRUN frame, DCX, GBR version 2, BITPIX -32 FITS and PIXAR
-    (``io_state["legacy_card"]``).  Each original is 1024 px unless named
-    otherwise, under a listed name whatever its format."""
-    fx = codec_fixtures()
-    card_originals = io_state["card_originals"]
-    raster_committed = [n for n in fx.RASTER_COMMITTED_CARD if fx.RASTER_CARD[n]]
-    return [
-        ("webp", "WebP", os.path.join(fx.WEBP, "card"), fx.WEBP_CARD, "webp_prep", None, {}),
-        ("kinds", "JPEG kinds'", os.path.join(fx.KINDS, "card"), sorted(fx.KINDS_CARD), "jpeg_prep", None, {}),
-        ("pillow", "Pillow lane's", os.path.join(fx.PILLOW, "card"), fx.PILLOW_CARD, "pillow_prep", None, {}),
-        ("gif_tiff", "GIF, TIFF, PNM, Targa and ICO", os.path.join(fx.GIF_TIFF, "card"), fx.GIF_TIFF_CARD,
-         "gif_tiff_prep", fx.GIF_TIFF_CARD,
-         {v: os.path.join(card_originals, k) for k, v in fx.CARD_ORIGINALS.items() if v}),
-        ("raster", "PSD, PCX, SGI, QOI and TIFF", os.path.join(fx.RASTER, "card"), raster_committed, "raster_prep",
-         fx.RASTER_CARD, {fx.RASTER_CARD[n]: p for n, p in io_state["raster_card"].items()
-                          if fx.RASTER_CARD[n] and n not in raster_committed}),
-        ("dbfis", "DDS, BLP, FTEX, ICNS, Sun raster and 32-bit TIFF", fx.DBFIS, [], "dbfis_prep", None,
-         {fx.DBFIS_CARD[n]: p for n, p in io_state["dbfis_card"].items() if fx.DBFIS_CARD[n]}),
-        ("legacy", "12-bit and CCITT palette TIFF, XPM, MSP, FLC, DCX, GBR, FITS and PIXAR", fx.LEGACY, [],
-         "legacy_prep", None, {fx.LEGACY_CARD[n]: p for n, p in io_state["legacy_card"].items() if fx.LEGACY_CARD[n]}),
-    ]
+def imips_codec_times(paths: dict) -> dict:
+    """The "time codecs IM, IMT, IPTC, PCD, SPIDER" phase (``io_main`` runs
+    it; ``main`` does not): host ms of each reader of this slice, one call
+    at a time on one thread (median of ``CODEC_REPEATS``), on the card's
+    written originals (``paths``: name -> path): a 1024 px RGB;L IM, IMT
+    and raw IPTC, the two 768 x 512 PCDs (upright and turned), a 1024 px
+    big-endian SPIDER and a 1024 px old-style LZW TIFF (Predictor 2)."""
+    from byogan_tpu_torch.data import images
+
+    files = {"im_rgbl_1024": "photo-1024-rgbl.im", "imt_1024": "scan-1024.imt", "iptc_raw_1024": "gray-1024-raw.iptc",
+             "pcd_768x512": "photo-768x512.pcd", "pcd_rotated_512x768": "photo-512x768-rotated.pcd",
+             "spider_be_1024": "micrograph-1024-be.spi", "tiff_old_lzw_1024": "photo-1024-old-lzw.tif"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    print(f"time codecs: IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF, host ms, median of {CODEC_REPEATS} calls, "
+          f"one thread, {PREP_SIDE} px (PCD 768 x 512): IM RGB;L {ms['im_rgbl_1024']:.3f}, IMT {ms['imt_1024']:.3f}, "
+          f"IPTC raw {ms['iptc_raw_1024']:.3f}, PCD {ms['pcd_768x512']:.3f}, PCD turned "
+          f"{ms['pcd_rotated_512x768']:.3f}, SPIDER big-endian {ms['spider_be_1024']:.3f}, TIFF old-style LZW "
+          f"{ms['tiff_old_lzw_1024']:.3f}; card {card_name()}")
+    return ms
 
 
-def prep_committed_cli(tmp, root, what: str, folder: str, names, key: str, listed: dict = None,
-                       written: dict = None) -> float:
-    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` on the
-    committed originals ``names`` of ``fx.FIXTURES/folder`` (``listed``
-    renames each to the listed name prep reads it under) and the files
-    ``written`` (listed name -> path of an original written in this run),
-    the resizes on the card: every image of the 8 sets equal to the one the
-    JAX package's ``prepare_pyramid`` wrote from them (the fixtures'
-    manifest's ``key``).  Prints a line naming ``what`` they are and each
-    original as prep reads it.  Returns the seconds per original the CLI
-    took, process start included."""
+def prep_pillow_lane_cli(io_state: dict, tmp, root) -> float:
+    """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` once, on every
+    slice's originals of the Pillow lane together (``fx.pillow_lane_sources``:
+    the committed WebP, JPEG kinds', Pillow lane's, GIF/TIFF and JPEG TIFF
+    originals and the ones "io" wrote here, each under the listed name its
+    slice gives it, whatever its format), the resizes on the card: every
+    image of the 8 sets equal to the one the JAX package's
+    ``prepare_pyramid`` wrote from the same folder (the fixtures'
+    manifest's ``pillow_lane_prep``).  Prints a line naming each original
+    as prep reads it.  Returns the seconds per original the CLI took,
+    process start included."""
     from byogan_tpu_torch.data import images
 
     fx = codec_fixtures()
-    data = os.path.join(tmp, f"prep_{key}")
+    data = os.path.join(tmp, "prep_pillow_lane")
     os.makedirs(data)
-    read_as = [(name, (listed or {}).get(name, name)) for name in sorted(names)]
-    read_as += [(os.path.basename(path), name) for name, path in (written or {}).items()]
-    for name in sorted(names):
-        shutil.copy(os.path.join(fx.FIXTURES, folder, name), os.path.join(data, (listed or {}).get(name, name)))
-    for name, path in (written or {}).items():
-        shutil.copy(path, os.path.join(data, name))
+    read_as = []
+    for listed, committed, made in fx.pillow_lane_sources():
+        src = (os.path.join(fx.FIXTURES, committed) if committed else
+               os.path.join(io_state["card_originals"], os.path.basename(made)))
+        shutil.copy(src, os.path.join(data, listed))
+        read_as.append((os.path.basename(committed or made), listed))
     n = len(read_as)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "byogan_tpu_torch.cli.prep", data, "4", "512", "-y"],
-                          cwd=root, capture_output=True, text=True, timeout=600)
+                          cwd=root, capture_output=True, text=True, timeout=900)
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0, f"cli.prep exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    matched = fx.check_prep(data, images.read_image, key)
+    matched = fx.check_prep(data, images.read_image, fx.PILLOW_LANE_PREP)
     require(matched == 8 * n, f"{matched} prepared images, expected {8 * n}")
-    print(f"io prep: cli.prep of {n} {what} originals ("
+    print(f"io prep: cli.prep, one process, of {n} originals of the Pillow lane (every slice's: WebP, the JPEG kinds, "
+          f"BMP and 16-bit PNG, GIF, TIFF, PNM, Targa, ICO, PSD, PCX, SGI, QOI, DDS, BLP, FTEX, ICNS, Sun raster, XPM, "
+          f"MSP, FLC, DCX, GBR, FITS, PIXAR, IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF: "
           + ", ".join(a if a == b else f"{a} as {b}" for a, b in read_as)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
-          f"(Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
+          f"of the same folder (Pillow's decode and resize, hashes in the fixtures' manifest); card {card_name()}")
     return cli_s / n
 
 
@@ -4030,16 +4038,12 @@ def prep_jpeg_cli(tmp, root) -> float:
 
 def io_prep(io_state: dict, tmp, root) -> dict:
     """The "io prep" phase: ``cli.prep`` on JPEG originals, every level
-    bit-equal to the plain resize (``prep_jpeg_cli``), and on the committed
-    and written originals of each slice of image formats, every image equal
-    to the JAX package's recorded prep (WebP, the JPEG kinds, the Pillow
-    lane's, GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF,
-    DDS/BLP/FTEX/ICNS/Sun/TIFF, 12-bit and palette TIFF/XPM/MSP/FLC/DCX/
-    GBR/FITS/PIXAR).  Returns the seconds per original of each."""
-    out = {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root)}
-    for kind, what, folder, names, key, listed, written in prep_sets(io_state):
-        out[f"prep_{kind}_cli_s"] = prep_committed_cli(tmp, root, what, folder, names, key, listed, written)
-    return out
+    bit-equal to the plain resize (``prep_jpeg_cli``), and one ``cli.prep``
+    on every slice's committed and written originals of the Pillow lane,
+    every image equal to the JAX package's recorded prep of them
+    (``prep_pillow_lane_cli``).  Returns the seconds per original of each."""
+    return {"prep_jpeg_cli_s": prep_jpeg_cli(tmp, root), "prep_pillow_lane_cli_s": prep_pillow_lane_cli(
+        io_state, tmp, root)}
 
 
 def time_loader(io_state: dict) -> dict:
@@ -4339,7 +4343,8 @@ def io_main() -> int:
     train", which ``main`` runs too, and "time codecs" (the earlier
     slices' "io codecs" lines), "time codecs Lab, BigTIFF, CCITT", "time
     codecs DDS, BLP, FTEX, ICNS, Sun", "time codecs 12-bit TIFF, XBM ...
-    XV" and "time loader", which only this entry point runs."""
+    XV", "time codecs IM, IMT, IPTC, PCD, SPIDER" and "time loader", which
+    only this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4362,6 +4367,8 @@ def io_main() -> int:
             dbfis_codec_times(io_state["dbfis_card"])
         with phase("time codecs 12-bit TIFF, XBM ... XV"):
             legacy_codec_times(io_state["legacy_card"])
+        with phase("time codecs IM, IMT, IPTC, PCD, SPIDER"):
+            imips_codec_times(io_state["imips_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

@@ -266,8 +266,9 @@ def test_committed_fixtures_are_what_the_writers_make():
     """The committed files under ``dds_blp_ftex_icns_sun/`` are what
     ``dbfis_fixtures`` writes here, and the manifest records each: Pillow's
     RGB, or for a refusal the reason and what Pillow makes of it; the
-    card's written originals (never committed) and the JAX package's prep
-    of each by its listed name."""
+    card's written originals (never committed) and each, by its listed
+    name, in the JAX package's prep of every slice's originals of the
+    Pillow lane (``PILLOW_LANE_PREP``)."""
     made = fx.dbfis_fixtures()
     committed = fx.committed_dbfis()
     assert sorted(made) == sorted(committed)
@@ -281,8 +282,9 @@ def test_committed_fixtures_are_what_the_writers_make():
             committed[name]), name
     assert sorted(manifest["dbfis_card"]) == sorted(fx.dbfis_card_originals())
     listed = sorted(v for v in fx.DBFIS_CARD.values() if v)
-    assert sorted(n for d in manifest["dbfis_prep"].values() for n in d) == sorted(
-        f"image-{i}.png" for i in range(len(listed)) for _ in range(8))
+    part = fx.pillow_lane_images(listed)
+    assert len(part) == len(listed) and len(manifest[fx.PILLOW_LANE_PREP]) == 8
+    assert all(set(part) <= set(d) for d in manifest[fx.PILLOW_LANE_PREP].values())
     assert sum(map(len, committed.values())) < 400_000
 
 

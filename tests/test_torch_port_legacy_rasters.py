@@ -56,12 +56,13 @@ def test_layout_matches_pillow(tmp_path, name):
 def test_refused_file_raises_naming_the_file_and_the_kind(tmp_path, name):
     """Each refusal names the file and the kind; the manifest records
     Pillow's verdict beside it (Pillow reads the TIFF kinds sent to fault
-    7's queue item 4, and refuses the rest)."""
+    7's queue item 4, and refuses the rest; old-style LZW is read since,
+    ``tiff/old-style-lzw-gray-7x9.tif`` among the layouts)."""
     data, reason = REFUSALS[name]
     path = _write(tmp_path, name.rsplit(".", 1)[0] + ".png", data)
     pillow = _pillow(path)
     assert isinstance(pillow, Exception) == (name not in (
-        "tiff-old-jpeg-interchange.tif", "tiff-jpeg-12-bit-gray.tif", "tiff-old-style-lzw-gray.tif")), name
+        "tiff-old-jpeg-interchange.tif", "tiff-jpeg-12-bit-gray.tif")), name
     with pytest.raises(OSError, match=f"{re.escape(path)}: .*{reason}"):
         images.read_image(path)
 
@@ -298,8 +299,9 @@ def test_committed_fixtures_are_what_the_writers_make():
     """The committed files under ``legacy_rasters/`` are what
     ``legacy_fixtures`` writes here, and the manifest records each: Pillow's
     RGB, or for a refusal the reason and what Pillow makes of it; the card's
-    written originals (never committed) and the JAX package's prep of each
-    listed one by its listed name."""
+    written originals (never committed) and each listed one, by its listed
+    name, in the JAX package's prep of every slice's originals of the
+    Pillow lane (``PILLOW_LANE_PREP``)."""
     made = fx.legacy_fixtures()
     committed = fx.committed_legacy()
     assert sorted(made) == sorted(committed)
@@ -313,8 +315,9 @@ def test_committed_fixtures_are_what_the_writers_make():
             committed[name]), name
     assert sorted(manifest["legacy_card"]) == sorted(fx.legacy_card_originals())
     listed = sorted(v for v in fx.LEGACY_CARD.values() if v)
-    assert sorted(n for d in manifest["legacy_prep"].values() for n in d) == sorted(
-        f"image-{i}.png" for i in range(len(listed)) for _ in range(8))
+    part = fx.pillow_lane_images(listed)
+    assert len(part) == len(listed) and len(manifest[fx.PILLOW_LANE_PREP]) == 8
+    assert all(set(part) <= set(d) for d in manifest[fx.PILLOW_LANE_PREP].values())
     assert sum(map(len, committed.values())) < 400_000
 
 
@@ -458,8 +461,8 @@ def test_gbr_gate_keeps_a_narrow_qoi_a_qoi():
     take reads as a brush."""
     for w in (1, 2):
         data = fx.qoi_encode(fx.smooth_scene(2386 + w, 5, w, cell=2, step=4))
-        assert images.candidates(data[:images.HEAD])[0] == "QOI"
+        assert images.sniff(data[:images.HEAD]) == "QOI"
     brush = fx.gbr_file(np.arange(12, dtype=np.uint8).reshape(3, 4))
-    assert images.candidates(brush[:images.HEAD])[0] == "GBR"
+    assert images.sniff(brush[:images.HEAD]) == "GBR"
     with Image.open(io.BytesIO(brush)) as im:
         np.testing.assert_array_equal(images.decode_gbr(brush), np.asarray(im.convert("RGB")))

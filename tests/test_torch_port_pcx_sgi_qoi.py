@@ -195,7 +195,7 @@ def test_qoi_of_width_one_or_two_is_not_a_gimp_brush(tmp_path):
     port does; a file GBR's ``_open`` takes is read as a GIMP brush."""
     for w in (1, 2):
         data = fx.qoi_encode(fx.smooth_scene(2070 + w, 5, w, cell=2, step=4))
-        assert images.candidates(data[:images.HEAD])[0] == "QOI" and _same_as_pillow(
+        assert images.sniff(data[:images.HEAD]) == "QOI" and _same_as_pillow(
             _write(tmp_path, f"q{w}.png", data), f"width {w}")
     brush = struct.pack(">IIIII", 28, 2, 3, 2, 1) + b"GIMP" + struct.pack(">I", 25) + bytes(6)
     path = _write(tmp_path, "brush.jpg", brush)
@@ -207,8 +207,9 @@ def test_committed_fixtures_are_what_the_writers_make():
     """The committed files under ``psd_pcx_sgi_qoi/`` are what
     ``raster_fixtures`` writes here, and the manifest records each:
     Pillow's RGB, or for a refusal the reason and what Pillow makes of it;
-    the card's written originals (never committed) and the JAX package's
-    prep of every card original by its listed name."""
+    the card's written originals (never committed) and every card original,
+    by its listed name, in the JAX package's prep of every slice's
+    originals of the Pillow lane (``PILLOW_LANE_PREP``)."""
     made = fx.raster_fixtures()
     committed = fx.committed_raster()
     assert sorted(made) == sorted(committed)
@@ -222,8 +223,9 @@ def test_committed_fixtures_are_what_the_writers_make():
             committed[name]), name
     assert sorted(manifest["raster_card"]) == sorted(fx.raster_card_originals())
     listed = sorted(v for v in fx.RASTER_CARD.values() if v)
-    assert sorted(n for d in manifest["raster_prep"].values() for n in d) == sorted(
-        f"image-{i}.png" for i in range(len(listed)) for _ in range(8))
+    part = fx.pillow_lane_images(listed)
+    assert len(part) == len(listed) and len(manifest[fx.PILLOW_LANE_PREP]) == 8
+    assert all(set(part) <= set(d) for d in manifest[fx.PILLOW_LANE_PREP].values())
     assert sum(map(len, committed.values())) < 400_000
 
 

@@ -1134,7 +1134,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                    webp: Optional[Dict[str, bytes]] = None, kinds: Optional[Dict[str, bytes]] = None,
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
                    ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None,
-                   dbfis: Optional[Dict[str, bytes]] = None, legacy: Optional[Dict[str, bytes]] = None) -> dict:
+                   dbfis: Optional[Dict[str, bytes]] = None, legacy: Optional[Dict[str, bytes]] = None,
+                   imips: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1151,16 +1152,20 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     likewise) and each of the card's written originals of that folder
     (``raster_card_originals``, under ``raster_card``) as ``gif_tiff_entry``
     does with ``raster_refusals``; the JAX package's pyramids of the card's
-    WebP originals, of its originals of the kinds, of its originals under
-    ``pillow/card/`` and of those under ``gif_tiff/card/`` together with
-    the written ones cli.prep reads (by their listed names,
-    ``GIF_TIFF_CARD`` and ``CARD_ORIGINALS``), and of the PSD, PCX, SGI,
-    QOI and TIFF originals of ``RASTER_CARD`` by their listed names; the
-    hash of Pillow's RGB of every 8-bit Lab triple (``lab_table``); and
-    each file under ``dds_blp_ftex_icns_sun/`` (``dbfis``, likewise), its
-    card originals and their pyramids as ``dbfis_manifest`` records them;
-    and each under ``legacy_rasters/`` (``legacy``, likewise), its card
-    originals and their pyramids as ``legacy_manifest`` records them."""
+    originals of the kinds, of its originals under ``pillow/card/`` and of
+    those under ``gif_tiff/card/`` together with the written ones cli.prep
+    reads (by their listed names, ``GIF_TIFF_CARD`` and
+    ``CARD_ORIGINALS``), which tests check by hash on their own; the hash
+    of Pillow's RGB of every 8-bit Lab triple (``lab_table``); and each
+    file under ``dds_blp_ftex_icns_sun/`` (``dbfis``, likewise) and its
+    card originals as ``dbfis_manifest`` records them; and each under
+    ``legacy_rasters/`` (``legacy``, likewise) and its card originals as
+    ``legacy_manifest`` records them; each
+    under ``im_iptc_pcd_spider/`` (``imips``, likewise) and its card
+    originals as ``imips_manifest`` records them; and the JAX package's
+    pyramids of every slice's originals of the Pillow lane together
+    (``pillow_lane_originals``, under ``PILLOW_LANE_PREP``), the one
+    ``cli.prep`` the card's "io prep" runs on them."""
     import PIL
     from PIL import features
 
@@ -1172,7 +1177,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     raster = committed_raster() if raster is None else raster
     dbfis_parts = dbfis_manifest(scratch, committed_dbfis() if dbfis is None else dbfis)
     legacy_parts = legacy_manifest(scratch, committed_legacy() if legacy is None else legacy)
-    entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files")}
+    imips_parts = imips_manifest(scratch, committed_imips() if imips is None else imips)
+    entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files"), **imips_parts.pop("files")}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
         with open(path, "wb") as f:
@@ -1218,15 +1224,12 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
         with open(path, "wb") as f:
             f.write(data)
         entries[name] = gif_tiff_entry(name, path, raster_refusals())
-    raster_written = raster_card_originals()
     raster_card = {}
-    for name, data in raster_written.items():
+    for name, data in raster_card_originals().items():
         path = os.path.join(scratch, os.path.basename(name))
         with open(path, "wb") as f:
             f.write(data)
         raster_card[name] = gif_tiff_entry(name, path, raster_refusals())
-    raster_listed = {RASTER_CARD[os.path.basename(n)]: d for n, d in {**raster_written, **raster}.items()
-                     if n.startswith(f"{RASTER}/card/") and RASTER_CARD[os.path.basename(n)]}
     written = card_originals()
     card_entries = {}
     for name, data in written.items():
@@ -1242,7 +1245,6 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
             "sha256_jpeg": {str(q): sha256(jax_encode(lib, img, q, os.path.join(scratch, f"{name}-{q}.jpg")))
                             for q in QUALITIES},
         }
-    card = {n: d for n, d in webp.items() if n.startswith(f"{WEBP}/card/")}
     kinds_card = {n: d for n, d in kinds.items() if n.startswith(f"{KINDS}/card/")}
     pillow_card_files = {n: d for n, d in pillow.items() if n.startswith(f"{PILLOW}/card/")}
     gif_tiff_card_files = {GIF_TIFF_CARD[os.path.basename(n)]: d for n, d in gif_tiff.items()
@@ -1272,17 +1274,26 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       f"{LEGACY}/ and legacy_card: Pillow {PIL.__version__}'s convert(\"RGB\") (12-bit gray and "
                       "CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas, XV thumbnail), "
                       "refusals with what Pillow makes of the file; legacy_card: the originals legacy_card_originals "
-                      "writes on the card, never committed",
-        "files": entries, "card": card_entries, "sources": sources, "webp_prep": jax_prep_digests(scratch, card),
-        "jpeg_prep": jax_prep_digests(scratch, kinds_card),
+                      f"writes on the card, never committed; {IMIPS}/ and imips_card: Pillow {PIL.__version__}'s "
+                      "convert(\"RGB\") (IM, IMT, IPTC, PCD, SPIDER, old-style LZW TIFF), refusals with what Pillow "
+                      "makes of the file; imips_card: the originals imips_card_originals writes on the card, never "
+                      f"committed; {PILLOW_LANE_PREP}: the JAX package's prepare_pyramid of every slice's originals "
+                      "of the Pillow lane in one folder (pillow_lane_sources)",
+        "files": entries, "card": card_entries, "sources": sources, "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
-        "raster_card": raster_card, "raster_prep": jax_prep_digests(scratch, raster_listed), **dbfis_parts,
-        **legacy_parts,
+        "raster_card": raster_card, **dbfis_parts,
+        **legacy_parts, **imips_parts, PILLOW_LANE_PREP: jax_prep_digests(scratch, pillow_lane_originals()),
         "lab_table": {"sha256_rgb": sha256(lab_table_pillow()),
                       "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") through LittleCMS "
                                  f"{features.version('littlecms2')} of every 8-bit Lab triple (L, a, b bands, "
                                  "the index's bytes high to low), uint8 RGB in index order"},
+        "ycc_table": {"sha256_rgb": sha256(ycc_table_pillow()),
+                      "made_by": f"Pillow {PIL.__version__}'s \"YCC;P\" raw mode of every triple (Y, C1, C2, the "
+                                 "index's bytes high to low), uint8 RGB in index order"},
+        "ycbcr_table": {"sha256_rgb": sha256(ycbcr_table_pillow()),
+                        "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") of every YCbCr triple (the index's "
+                                   "bytes high to low), uint8 RGB in index order"},
     }
 
 
@@ -1296,15 +1307,16 @@ def write(scratch: str) -> dict:
     raster = raster_fixtures()
     dbfis = dbfis_fixtures()
     legacy = legacy_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY):
+    imips = imips_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY, IMIPS):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga, **raster, **dbfis, **legacy}.items():
+                       **ico_pnm_tga, **raster, **dbfis, **legacy, **imips}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga, raster, dbfis, legacy)
+                              ico_pnm_tga, raster, dbfis, legacy, imips)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -1369,14 +1381,14 @@ def check(decode: Callable[..., np.ndarray], encode: Callable[[np.ndarray, int],
     return matched
 
 
-def check_prep(root: str, read: Callable[[str], np.ndarray], key: str = "webp_prep") -> int:
-    """The pyramid prepared under ``root`` from the card's WebP originals
-    (``key`` "webp_prep"), its originals of the JPEG kinds ("jpeg_prep"),
-    its originals under ``pillow/card/`` ("pillow_prep") or those under
-    ``gif_tiff/card/`` with the written ones cli.prep reads
-    (``card_originals``; "gif_tiff_prep") against the JAX
-    package's recorded one: the number of images matched;
-    raises ``AssertionError`` naming the first that differs."""
+def check_prep(root: str, read: Callable[[str], np.ndarray], key: str) -> int:
+    """The pyramid prepared under ``root`` from the card's originals of the
+    JPEG kinds (``key`` "jpeg_prep"), its originals under ``pillow/card/``
+    ("pillow_prep"), those under ``gif_tiff/card/`` with the written ones
+    cli.prep reads (``card_originals``; "gif_tiff_prep") or every slice's
+    originals of the Pillow lane (``PILLOW_LANE_PREP``) against the JAX
+    package's recorded one: the number of images matched; raises
+    ``AssertionError`` naming the first that differs."""
     want = load_manifest()[key]
     n = 0
     for set_name, digests in sorted(want.items()):
@@ -2024,29 +2036,40 @@ def gif_refusals() -> Dict[str, Tuple[bytes, str]]:
     }
 
 
-def tiff_lzw(data: bytes) -> bytes:
+def tiff_lzw(data: bytes, old_style: bool = False) -> bytes:
     """TIFF LZW (MSB-first codes, widened one code early as libtiff
-    reads them): a Clear first, a Clear whenever the table reaches 4094
-    entries, the end code last."""
+    reads them; or, ``old_style``, the codes of libtiff before 5.0, which
+    its LZWDecodeCompat reads: LSB-first, widened one code late): a Clear
+    first, a Clear whenever the table reaches 4094 entries, the end code
+    last."""
     out = bytearray()
     acc = nbits = 0
     bits, decoder_next, first = 9, 258, True
+    late = 1 if old_style else 2
 
     def emit(code):
         nonlocal acc, nbits, bits, decoder_next, first
-        acc = (acc << bits) | code
-        nbits += bits
-        while nbits >= 8:
-            nbits -= 8
-            out.append((acc >> nbits) & 255)
-        acc &= (1 << nbits) - 1
+        if old_style:
+            acc |= code << nbits
+            nbits += bits
+            while nbits >= 8:
+                nbits -= 8
+                out.append(acc & 255)
+                acc >>= 8
+        else:
+            acc = (acc << bits) | code
+            nbits += bits
+            while nbits >= 8:
+                nbits -= 8
+                out.append((acc >> nbits) & 255)
+            acc &= (1 << nbits) - 1
         if code == 256:
             bits, decoder_next, first = 9, 258, True
         elif first:
             first = False
         else:
             decoder_next += 1
-            if decoder_next > (1 << bits) - 2 and bits < 12:
+            if decoder_next > (1 << bits) - late and bits < 12:
                 bits += 1
 
     emit(256)
@@ -2074,7 +2097,7 @@ def tiff_lzw(data: bytes) -> bytes:
         emit(run)
     emit(257)
     if nbits:
-        out.append((acc << (8 - nbits)) & 255)
+        out.append(acc & 255 if old_style else (acc << (8 - nbits)) & 255)
     return bytes(out)
 
 
@@ -2118,7 +2141,8 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
                predictor: int = 1, planar: int = 1, rows_per_strip: Optional[int] = None,
                tile: Optional[Tuple[int, int]] = None, extra=None, colormap=None, orientation: Optional[int] = None,
                tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None,
-               chunks: Optional[List[bytes]] = None, big: bool = False, offset_type: int = 16) -> bytes:
+               chunks: Optional[List[bytes]] = None, big: bool = False, offset_type: int = 16,
+               old_lzw: bool = False) -> bytes:
     """A TIFF of ``samples`` ((h, w) or (h, w, c) integers of ``bits``) in
     byte order ``order`` ("<" II, ">" MM): strips of ``rows_per_strip`` or
     tiles (th, tw), each plane apart where ``planar`` is 2, differenced
@@ -2129,7 +2153,8 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     denominator pairs, UNDEFINED (7) bytes) add to or replace the
     directory's.  ``big``: a BigTIFF (version 43, 8-byte offsets, 20-byte
     entries), its chunks' offsets and byte counts of ``offset_type``
-    (LONG8, 16, or LONG, 4)."""
+    (LONG8, 16, or LONG, 4).  ``old_lzw``: LZW of old-style codes
+    (``tiff_lzw(old_style=True)``)."""
     s = np.asarray(samples)
     s = s[:, :, None] if s.ndim == 2 else s
     h, w, c = s.shape
@@ -2153,7 +2178,9 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
             blk[:, 1:] -= blk[:, :-1].copy()
             blk %= 1 << bits
         if chunks is None:
-            coded.append(data if data is not None else TIFF_COMPRESS[compression](_tiff_rows(blk, bits, order).tobytes()))
+            raw = _tiff_rows(blk, bits, order).tobytes()
+            coded.append(data if data is not None else tiff_lzw(raw, True) if old_lzw and compression == 5 else
+                         TIFF_COMPRESS[compression](raw))
     chunks = coded if chunks is None else chunks
     body = bytearray((b"II" if order == "<" else b"MM") +
                      (struct.pack(order + "HHHQ", 43, 8, 0, 0) if big else struct.pack(order + "HI", 42, 0)))
@@ -2943,6 +2970,24 @@ def lab_table_pillow() -> np.ndarray:
     return np.asarray(Image.merge("LAB", bands).convert("RGB")).reshape(-1, 3)
 
 
+def ycc_table_pillow() -> np.ndarray:
+    """Pillow's "YCC;P" unpacker (a PhotoCD's) of every triple of
+    ``lab_table_triples`` as Y, C1, C2: uint8 RGB (2^24, 3)."""
+    from PIL import Image
+
+    return np.asarray(Image.frombytes("RGB", (4096, 4096), lab_table_triples().tobytes(), "raw", "YCC;P")).reshape(
+        -1, 3)
+
+
+def ycbcr_table_pillow() -> np.ndarray:
+    """Pillow's YCbCr -> RGB ``convert`` of every triple of
+    ``lab_table_triples`` as Y, Cb, Cr: uint8 RGB (2^24, 3)."""
+    from PIL import Image
+
+    return np.asarray(Image.frombytes("YCbCr", (4096, 4096), lab_table_triples().tobytes()).convert("RGB")).reshape(
+        -1, 3)
+
+
 def lab_table_triples() -> np.ndarray:
     """Every 8-bit Lab triple in ``lab_table_pillow``'s order: uint8 (2^24, 3)."""
     idx = np.arange(1 << 24, dtype=np.uint32)
@@ -3005,7 +3050,7 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "gray4-predictor-2.tif": (tiff_bytes(gray & 15, 4, photometric=1, compression=5, predictor=2), "predictor"),
         "predictor-3.tif": (tiff_bytes(rgb, compression=5, tags={317: (3, [3])}), "predictor"),
         "bilevel-predictor-2.tif": (tiff_bytes(gray & 1, 1, photometric=1, compression=5, predictor=2), "predictor"),
-        "old-style-lzw.tif": (old_lzw, "old-style LZW"),
+        "old-style-lzw.tif": (old_lzw, "refused the data|breaks the format"),
         "lzw-cut-short.tif": (tiff_bytes(rgb, compression=5, data=tiff_lzw(rgb.astype(np.uint8).tobytes())[:40]),
                               "refused the data|breaks the format"),
         "strip-past-the-end.tif": (_strip_at_the_end(lzw), "truncated"),
@@ -4556,8 +4601,7 @@ def dbfis_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> di
     """The manifest's parts of this folder: each committed file
     (``files``, the committed ones by default) as ``gif_tiff_entry``
     records it with ``dbfis_refusals``; each card original written on
-    the card (``dbfis_card``); the JAX package's pyramids of the card's
-    originals by their listed names (``dbfis_prep``)."""
+    the card (``dbfis_card``)."""
     files = committed_dbfis() if files is None else files
     reasons = dbfis_refusals()
     entries = {}
@@ -4573,8 +4617,7 @@ def dbfis_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> di
         with open(path, "wb") as f:
             f.write(data)
         card[name] = gif_tiff_entry(name, path, reasons)
-    listed = {DBFIS_CARD[os.path.basename(n)]: d for n, d in written.items() if DBFIS_CARD[os.path.basename(n)]}
-    return {"files": entries, "dbfis_card": card, "dbfis_prep": jax_prep_digests(scratch, listed)}
+    return {"files": entries, "dbfis_card": card}
 
 
 def check_dbfis_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
@@ -5099,9 +5142,12 @@ def legacy_layouts() -> Dict[str, bytes]:
     chunks, BLACK, BRUN, COPY, LC, SS2, PSTAMP, padding), DCX (1-bit, 8-bit
     with the file's last palette, RGB), GBR (versions, depths, comments),
     PIXAR, FITS (every BITPIX, 1-D, comments, GZIP_1 tiles), McIdas (every
-    sample size, prefixes, bands, mapped and not) and XV thumbnail."""
+    sample size, prefixes, bands, mapped and not) and XV thumbnail; and an
+    8-bit gray TIFF of old-style LZW codes."""
     r = np.random.default_rng(2300)
     out = {**_legacy_tiff_layouts(r), **_legacy_layouts_a(r), **_legacy_layouts_b(r)}
+    gray = np.random.default_rng(2303).integers(0, 256, (9, 7)).astype(np.uint8)
+    out["tiff/old-style-lzw-gray-7x9.tif"] = tiff_bytes(gray, 8, 1, compression=5, chunks=[old_style_lzw(gray.tobytes())])
     return {f"{LEGACY}/{k}": v for k, v in sorted(out.items())}
 
 
@@ -5110,7 +5156,7 @@ def legacy_refusals() -> Dict[str, Tuple[bytes, str]]:
     """Files of this slice the port refuses (name -> (bytes, the reason the
     port names, a regular expression)): those Pillow refuses too, and the
     valid TIFF kinds Pillow reads through a decoder the port lacks (old-style
-    JPEG, 12-bit JPEG, old-style LZW; ROADMAP's fault 7, queue item 4)."""
+    JPEG, 12-bit JPEG; ROADMAP's fault 7, queue item 4)."""
     r = np.random.default_rng(2330)
     values = r.integers(0, 4096, (9, 7))
     photo = smooth_scene(2331, 24, 20, cell=8, step=4)
@@ -5152,8 +5198,6 @@ def legacy_refusals() -> Dict[str, Tuple[bytes, str]]:
             sgilog_rows(luv.view(np.uint8).reshape(8, 12, 4)[..., ::-1].transpose(0, 2, 1))]), "LogLuv"),
         "tiff-logluv-24.tif": (tiff_bytes(np.zeros((8, 12, 3), np.uint8), 16, 32845, compression=34677, chunks=[
             r.integers(0, 256, 288, dtype=np.uint8).tobytes()]), "LogLuv"),
-        "tiff-old-style-lzw-gray.tif": (tiff_bytes(gray, 8, 1, compression=5, chunks=[old_style_lzw(gray.tobytes())]),
-                                        "old-style LZW"),
         "xbm-no-bits-in-512-bytes.xbm": (head + b" " * 500 + b"static char b_bits[] = {0x00};\n", "does not match"),
         "xbm-cut-short.xbm": (xbm_file(bits)[:-20], "truncated"),
         "xpm-colour-name.xpm": (xpm_file(idx, [b"#ff0000", b"red", b"#0000ff"], 1), "refuses"),
@@ -5285,8 +5329,7 @@ def committed_legacy() -> Dict[str, bytes]:
 def legacy_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest's parts of this folder: each committed file as
     ``gif_tiff_entry`` records it with ``legacy_refusals``; each card
-    original written on the card (``legacy_card``); the JAX package's
-    pyramids of the listed ones by their listed names (``legacy_prep``)."""
+    original written on the card (``legacy_card``)."""
     files = committed_legacy() if files is None else files
     reasons = legacy_refusals()
     entries = {}
@@ -5302,8 +5345,7 @@ def legacy_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> d
         with open(path, "wb") as f:
             f.write(data)
         card[name] = gif_tiff_entry(name, path, reasons)
-    listed = {LEGACY_CARD[os.path.basename(n)]: d for n, d in written.items() if LEGACY_CARD[os.path.basename(n)]}
-    return {"files": entries, "legacy_card": card, "legacy_prep": jax_prep_digests(scratch, listed)}
+    return {"files": entries, "legacy_card": card}
 
 
 def check_legacy_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
@@ -5326,6 +5368,419 @@ def check_legacy_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[
     if sorted(paths) != sorted(LEGACY_CARD):
         raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(LEGACY_CARD)}")
     return paths
+
+
+# --- IM, IMT, IPTC, PCD and SPIDER, which Pillow identifies without an _accept; old-style LZW TIFF ----
+
+IMIPS = "im_iptc_pcd_spider"  # their files' folder under FIXTURES
+#: the card's originals of this folder, written on the card by
+#: ``imips_card_originals`` (never committed): name -> the listed name
+#: ``cli.prep`` reads it under
+IMIPS_CARD = {"photo-1024-rgbl.im": "photo-1024-im.png", "scan-1024.imt": "scan-1024-imt.jpg",
+              "gray-1024-raw.iptc": "gray-1024-iptc.bmp", "photo-768x512.pcd": "photo-768x512-pcd.webp",
+              "photo-512x768-rotated.pcd": "photo-512x768-pcd.png", "micrograph-1024-be.spi": "micrograph-1024-spi.jpg",
+              "photo-1024-old-lzw.tif": "photo-1024-old-lzw.jpeg"}
+
+
+def im_file(lines: List[bytes], body: bytes, lut: bytes = b"", pad: bool = True) -> bytes:
+    """An IFUNC IM file as Pillow's writer lays one out: the header lines,
+    each ended by CR LF, NULs up to byte 511 (``pad``), 0x1a, a LUT's 768
+    bytes, then the data."""
+    head = b"".join(line + b"\r\n" for line in lines)
+    return head + (b"\0" * max(0, 511 - len(head)) if pad else b"") + b"\x1a" + lut + body
+
+
+def im_planes(img: np.ndarray) -> bytes:
+    """An RGB image's rows bottom-up, each its red, green and blue planes
+    one after the other (IM's ``RGB;L``)."""
+    return np.ascontiguousarray(np.asarray(img, np.uint8)[::-1].transpose(0, 2, 1)).tobytes()
+
+
+def imt_file(px: np.ndarray, lines: Optional[List[bytes]] = None) -> bytes:
+    """An IM Tools file: ``width``, ``height`` and ``pixel n8`` lines (or
+    ``lines``), 0x0c, then the L rows top-down."""
+    h, w = px.shape
+    lines = [b"width %d" % w, b"height %d" % h, b"pixel n8"] if lines is None else lines
+    return b"".join(line + b"\n" for line in lines) + b"\x0c" + np.asarray(px, np.uint8).tobytes()
+
+
+def iptc_field(record: int, dataset: int, data: bytes, extended: int = 0) -> bytes:
+    """An IPTC/NAA field: 0x1c, record, dataset, a 15-bit length (or, with
+    ``extended`` bytes, 0x80 + that count and the length), the data."""
+    if extended:
+        return bytes([0x1C, record, dataset, 0x80 | extended]) + len(data).to_bytes(extended, "big") + data
+    return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+
+
+def iptc_file(w: int, h: int, layers: int, component: int, compression: int, body: bytes,
+              band: Optional[int] = None, chunk: int = 32000, extra: bytes = b"", end: bytes = b"\0" * 5) -> bytes:
+    """An IPTC/NAA image: a character set field, ``extra``, the size (3, 20)
+    and (3, 30), layers and component (3, 60), the compression (3, 120)
+    and a band (3, 65), then ``body`` in (8, 10) fields of ``chunk`` bytes,
+    then ``end``."""
+    out = iptc_field(1, 90, b"\x1b%G") + extra + iptc_field(3, 20, struct.pack(">H", w))
+    out += iptc_field(3, 30, struct.pack(">H", h)) + iptc_field(3, 60, bytes([layers, component]))
+    out += iptc_field(3, 120, bytes([compression]))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    for i in range(0, len(body), chunk):
+        out += iptc_field(8, 10, body[i:i + chunk])
+    return out + end
+
+
+def pcd_file(y: np.ndarray, c1: np.ndarray, c2: np.ndarray, orientation: int = 0, head: bytes = b"") -> bytes:
+    """A Kodak PhotoCD of the base image alone: ``PCD_`` at byte 2048 and the
+    orientation at byte 3586, ``head`` at byte 0, then from byte 96 * 2048
+    the chunks of two rows of ``y`` (512, 768) and one row each of ``c1``
+    and ``c2`` (256, 384)."""
+    out = bytearray(96 * 2048)
+    out[:len(head)] = head
+    out[2048:2052] = b"PCD_"
+    out[2048 + 1538] = orientation
+    y, c1, c2 = (np.asarray(p, np.uint8) for p in (y, c1, c2))
+    chunks = np.concatenate([y.reshape(256, 2 * 768), c1, c2], 1)
+    return bytes(out) + chunks.tobytes()
+
+
+def pcd_planes(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """PhotoYCC planes of an RGB image (512, 768, 3), roughly as a scanner
+    writes them: luma over 1.3584, the chroma planes at half size about
+    156 and 137."""
+    rgb = np.asarray(img, np.float64)
+    y = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]) / 1.3584
+    c1 = 156 + (rgb[..., 2] - 1.3584 * y) / 2.2179
+    c2 = 137 + (rgb[..., 0] - 1.3584 * y) / 1.8215
+    half = [np.clip(p.reshape(256, 2, 384, 2).mean((1, 3)), 0, 255) for p in (c1, c2)]
+    return np.clip(np.rint(y), 0, 255).astype(np.uint8), *(np.rint(p).astype(np.uint8) for p in half)
+
+
+def spider_file(values: np.ndarray, big: bool = True, istack: int = 0, imgnum: int = 0, maxim: int = 1,
+                iform: int = 1, labrec: Optional[int] = None, lenbyt: Optional[int] = None,
+                labbyt: Optional[int] = None, images: int = 1, fields: Tuple[Tuple[int, float], ...] = ()) -> bytes:
+    """A SPIDER file of float ``values`` (h, w): a header of ``labrec``
+    records of ``lenbyt`` bytes (by default as SPIDER writes one: records of
+    a row, enough for 1024 bytes), its fields 1, 2, 5, 12, 13, 22, 23, 24,
+    26 and 27 set (``fields``: more, by their 1-based index), then the
+    floats; a stack (``istack`` > 0) repeats the header before each of its
+    ``images``."""
+    h, w = values.shape
+    lenbyt = 4 * w if lenbyt is None else lenbyt
+    labrec = (-(-1024 // lenbyt) if lenbyt > 0 else 1) if labrec is None else labrec
+    labbyt = labrec * lenbyt if labbyt is None else labbyt
+    hd = np.zeros(max(27, labbyt // 4), np.float64)
+    for k, v in ((1, 1), (2, h), (5, iform), (12, w), (13, labrec), (22, labbyt), (23, lenbyt), (24, istack),
+                 (26, maxim), (27, imgnum), *fields):
+        hd[k - 1] = v
+    dtype = ">f4" if big else "<f4"
+    head = hd.astype(dtype).tobytes()[:max(labbyt, 108)]
+    body = np.asarray(values).astype(dtype).tobytes()
+    return head + b"".join(head + body for _ in range(images)) if istack > 0 else head + body
+
+
+def _im_layouts(r) -> Dict[str, bytes]:
+    out = {}
+    seen = set()
+    for typ, (mode, raw) in sorted(_pillow_im_types().items()):
+        if (mode, raw) in seen or raw == "RLB" or typ == "PA image":
+            continue
+        seen.add((mode, raw))
+        body = r.integers(0, 256, 13 * 9 * 4, dtype=np.uint8).tobytes()
+        out[f"im/{typ[:-6].replace(' ', '-').replace('*', 'x').replace(';', '')}-13x9.im"] = im_file(
+            [b"Image type: " + typ.encode(), b"Image size (x*y): 13*9"], body)
+    lut = r.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    gray_lut = np.tile(np.arange(256)[::-1], 3).astype(np.uint8).tobytes()
+    for typ in ("Greyscale", "B2", "B4", "LA", "PA"):
+        body = r.integers(0, 256, 13 * 9 * 2, dtype=np.uint8).tobytes()
+        lines = [b"Image type: %s image" % typ.encode(), b"Image size (x*y): 13*9", b"Lut: 1"]
+        out[f"im/lut-{typ.lower()}-13x9.im"] = im_file(lines, body, lut)
+        if typ != "PA":  # a gray LUT leaves a PA image LA of raw mode PA;L, which Pillow cannot unpack
+            out[f"im/lut-gray-{typ.lower()}-13x9.im"] = im_file(lines, body, gray_lut)
+    out["im/lut-rgb-kept-13x9.im"] = im_file([b"Image type: RGB image", b"Image size (x*y): 13*9", b"Lut: 1"],
+                                             r.integers(0, 256, 13 * 9 * 3, dtype=np.uint8).tobytes(), lut)
+    out["im/type-p-raw-l-13x9.im"] = im_file([b"Image type: P", b"Image size (x*y): 13*9"],
+                                             r.integers(0, 256, 13 * 9, dtype=np.uint8).tobytes())
+    out["im/type-lab-raw-l-13x9.im"] = im_file([b"Image type: LAB", b"Image size (x*y): 13*9"],
+                                               r.integers(0, 256, 13 * 9, dtype=np.uint8).tobytes())
+    out["im/lf-and-lfcr-lines-no-padding-13x9.im"] = (
+        b"Image type: RGB image\n\rName: a\nComment: b\nImage size (x*y): 13,9\n\x1a"
+        + r.integers(0, 256, 13 * 9 * 3, dtype=np.uint8).tobytes())
+    out["im/second-frame-ignored-13x9.im"] = im_file(
+        [b"Image type: RGB image", b"Image size (x*y): 13*9", b"File size (no of images): 2"],
+        r.integers(0, 256, 2 * 13 * 9 * 3, dtype=np.uint8).tobytes())
+    return out
+
+
+def _imips_layouts(r) -> Dict[str, bytes]:
+    from PIL import Image
+
+    out = _im_layouts(r)
+    photo = smooth_scene(2401, 9, 13, cell=4, step=2)
+    gray = photo[..., 1]
+    for mode in ("1", "L", "P", "LA", "RGB", "RGBA", "CMYK", "YCbCr", "I", "F"):
+        im = Image.fromarray(photo).convert(mode) if mode not in ("I", "F") else Image.fromarray(
+            gray.astype(np.int32) * 3 - 100 if mode == "I" else gray.astype(np.float32) * 1.5 - 20.25)
+        if mode == "P":
+            im = Image.fromarray(photo).quantize(13)
+        buf = io.BytesIO()
+        im.save(buf, "IM")
+        out[f"im/pillow-written-{mode.lower()}-13x9.im"] = buf.getvalue()
+    out["imt/gray-13x9.imt"] = imt_file(gray)
+    out["imt/comments-and-other-fields-13x9.imt"] = imt_file(gray, [b"* IM Tools", b"width 13", b"height 9",
+                                                                   b"format raw", b"pixel n8"])
+    out["imt/data-longer-13x9.imt"] = imt_file(gray) + bytes(7)
+    out["iptc/raw-gray-13x9.iptc"] = iptc_file(13, 9, 1, 0, 1, gray.tobytes())
+    out["iptc/raw-gray-fields-of-20-13x9.iptc"] = iptc_file(13, 9, 1, 0, 1, gray.tobytes(), chunk=20)
+    out["iptc/raw-gray-extended-length-13x9.iptc"] = (
+        iptc_field(3, 20, b"\0\x0d") + iptc_field(3, 30, b"\0\x09") + iptc_field(3, 60, b"\1\0")
+        + iptc_field(3, 120, b"\1") + iptc_field(8, 10, gray.tobytes(), extended=4) + bytes(5))
+    for band in (0, 1, 2, 3):
+        out[f"iptc/raw-rgb-band-{band}-13x9.iptc"] = iptc_file(13, 9, 3, 1, 1, gray.tobytes(), band=band)
+    out["iptc/raw-rgb-no-band-13x9.iptc"] = iptc_file(13, 9, 3, 1, 1, gray.tobytes())
+    out["iptc/raw-cmyk-band-4-13x9.iptc"] = iptc_file(13, 9, 4, 1, 1, gray.tobytes(), band=4)
+    out["iptc/jpeg-rgb-13x9.iptc"] = iptc_file(13, 9, 1, 0, 5, port_jpeg(photo, 90))
+    gray_jpeg = io.BytesIO()
+    Image.fromarray(gray).save(gray_jpeg, "JPEG", quality=90)
+    out["iptc/jpeg-gray-band-2-13x9.iptc"] = iptc_file(13, 9, 3, 1, 5, gray_jpeg.getvalue(), band=2)
+    out["iptc/png-16-bit-gray-13x9.iptc"] = iptc_file(13, 9, 1, 0, 5, png_bytes(gray[..., None].astype(np.uint16) * 250, 16, 0))
+    values = gray.astype(np.float32) * 2.5 - 100.125
+    values[0, :3] = [np.nan, np.inf, -np.inf]
+    out["spider/big-endian-13x9.spi"] = spider_file(values)
+    out["spider/little-endian-13x9.spi"] = spider_file(values, big=False)
+    out["spider/stack-of-2-13x9.spi"] = spider_file(values, istack=2, maxim=2, images=2)
+    out["spider/header-of-3-records-13x9.spi"] = spider_file(values, labrec=3, lenbyt=52 * 7)
+    buf = io.BytesIO()
+    Image.fromarray(values).save(buf, "SPIDER")
+    out["spider/pillow-written-13x9.spi"] = buf.getvalue()
+    rgb = smooth_scene(2402, 37, 53, cell=8, step=4)
+    for name, kw in (("strip", {}), ("strips", {"rows_per_strip": 7}), ("tiles", {"tile": (16, 32)}),
+                     ("predictor-2", {"predictor": 2}), ("planes", {"planar": 2, "rows_per_strip": 9}),
+                     ("mm", {"order": ">"})):
+        out[f"tiff/old-style-lzw-rgb-{name}-53x37.tif"] = tiff_bytes(rgb, compression=5, old_lzw=True, **kw)
+    out["tiff/old-style-lzw-gray-16-predictor-2-53x37.tif"] = tiff_bytes(
+        rgb[..., 0].astype(np.int64) * 250, 16, 1, compression=5, predictor=2, old_lzw=True)
+    out["tiff/old-style-lzw-palette-4-53x37.tif"] = tiff_bytes(rgb[..., 1] >> 4, 4, 3, compression=5, old_lzw=True,
+                                                              colormap=r.integers(0, 65536, (16, 3)))
+    out["tiff/old-style-lzw-fill-order-2-53x37.tif"] = tiff_bytes(
+        rgb[..., 2], 8, 1, compression=5, tags={266: (3, [2])},
+        chunks=[bytes(_reverse_bits(tiff_lzw(rgb[..., 2].tobytes(), True)))])
+    out["tiff/old-style-lzw-no-end-code-53x37.tif"] = tiff_bytes(
+        rgb[..., 0], 8, 1, compression=5, chunks=[tiff_lzw(rgb[..., 0].tobytes(), True)[:-1]])
+    return out
+
+
+def _pillow_im_types() -> Dict[str, Tuple[str, str]]:
+    """ImImagePlugin's "Image type" table: type -> (mode, raw mode)."""
+    from PIL import ImImagePlugin
+
+    return dict(ImImagePlugin.OPEN)
+
+
+def imips_layouts() -> Dict[str, bytes]:
+    """Every layout of this folder the port reads (name -> bytes): IM of
+    each type of Pillow's table the port reads (random bytes of the size),
+    with a LUT of colours and of grays, LF and LF CR lines, files Pillow's
+    IM writer makes; IMT; IPTC raw (in fields of
+    20 bytes, of an extended length, each band of RGB and CMYK) and of an
+    embedded JPEG or 16-bit PNG; SPIDER in both byte orders, a stack,
+    Pillow's writer's; old-style LZW TIFF in strips, tiles, planes, with
+    Predictor 2, MM, FillOrder 2, a 4-bit palette and 16-bit gray."""
+    r = np.random.default_rng(2400)
+    return {f"{IMIPS}/{k}": v for k, v in sorted(_imips_layouts(r).items())}
+
+
+def imips_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Files of this slice the port refuses (name -> (bytes, the reason the
+    port names, a regular expression)), each of which Pillow refuses too:
+    where its walk ends on an error of one of these plugins (an IPTC field
+    length above 132 or an unknown compression, an IM size that is no
+    number, a SPIDER stack field that is no number or an image of a stack)
+    and where it opens the file and cannot load it."""
+    r = np.random.default_rng(2410)
+    gray = r.integers(0, 256, (9, 13)).astype(np.uint8)
+    body = gray.tobytes()
+    values = gray.astype(np.float32)
+    jpg = port_jpeg(np.stack([gray] * 3, -1) ^ np.uint8(0x55), 85)
+    lines = [b"Image type: RGB image", b"Image size (x*y): 13*9"]
+    a, b = gray[:5], gray[5:]
+    return {
+        "im-rlb.im": (im_file([b"Image type: RLB image", b"Image size (x*y): 13*9"], body * 3), "unknown raw mode"),
+        "im-pa.im": (im_file([b"Image type: PA image", b"Image size (x*y): 13*9"], body * 2), "unknown raw mode"),
+        "im-pa-gray-lut.im": (im_file([b"Image type: PA image", b"Image size (x*y): 13*9", b"Lut: 1"], body * 2,
+                                      np.tile(np.arange(256), 3).astype(np.uint8).tobytes()), "unknown raw mode"),
+        "im-mode-rgb-raw-l.im": (im_file([b"Image type: RGB", b"Image size (x*y): 13*9"], body * 3), "unknown raw mode"),
+        "im-size-not-a-number.im": (im_file([b"Image type: L 8 image", b"Image size (x*y): 13*nine"], body),
+                                    "refuses"),
+        "im-size-floats.im": (im_file([b"Image type: Greyscale image", b"Image size (x*y): 13.0*9"], body),
+                              "no pair of integers"),
+        "im-size-of-three.im": (im_file([b"Image type: Greyscale image", b"Image size (x*y): 13*9*1"], body),
+                                "no pair of integers"),
+        "im-cut-short.im": (im_file(lines, body * 3)[:-5], "truncated"),
+        "im-bits-cut-short.im": (im_file([b"Image type: L*12 image", b"Image size (x*y): 13*9"], body), "truncated"),
+        "im-too-many-pixels.im": (im_file([b"Image type: Greyscale image", b"Image size (x*y): 20000*20000"], body),
+                                  "more than"),
+        "imt-no-data-byte.imt": (b"width 13\nheight 9\npixel n8\n" + body, "0x0c"),
+        "imt-cut-short.imt": (imt_file(gray)[:-4], "truncated"),
+        "imt-width-not-a-number.imt": (imt_file(gray, [b"width 13x", b"height 9", b"pixel n8"]), "refuses"),
+        "iptc-illegal-field-length.iptc": (iptc_file(13, 9, 1, 0, 1, body, extra=bytes([0x1C, 2, 5, 133, 0])),
+                                           "illegal field length"),
+        "iptc-compression-3.iptc": (iptc_file(13, 9, 1, 0, 3, body), "Unknown IPTC image compression"),
+        "iptc-no-data-fields.iptc": (iptc_file(13, 9, 1, 0, 1, b""), "cannot load this image"),
+        "iptc-data-cut-short.iptc": (iptc_file(13, 9, 1, 0, 1, body[:-3]), "truncated"),
+        "iptc-band-5-of-rgb.iptc": (iptc_file(13, 9, 3, 1, 1, body, band=5), "index out of range"),
+        "iptc-rgb-jpeg-in-a-band.iptc": (iptc_file(13, 9, 3, 1, 5, jpg, band=2), "mode mismatch"),
+        "iptc-rgb-jpeg-in-the-first-band.iptc": (iptc_file(13, 9, 3, 1, 5, jpg, band=1), "image has wrong mode"),
+        "iptc-float-tiff.iptc": (iptc_file(13, 9, 1, 0, 5, tiff_bytes(values.view(np.uint32), 32, 1, tags={
+            339: (3, [3])})), "conversion from F to RGB"),
+        "pcd-cut-short.pcd": (pcd_file(*pcd_planes(smooth_scene(2411, 512, 768, cell=128)))[:4000], "truncated"),
+        "spider-image-of-a-stack.spi": (spider_file(values, imgnum=1), "stkoffset"),
+        "spider-stack-field-nan.spi": (spider_file(values, fields=((24, float("nan")),)), "NaN"),
+        "spider-negative-header-length.spi": (spider_file(values, labrec=-1, lenbyt=52), "negative seek"),
+        "spider-cut-short.spi": (spider_file(values)[:-9], "truncated"),
+        "tiff-old-style-lzw-then-new.tif": (tiff_bytes(gray, 8, 1, compression=5, rows_per_strip=5, chunks=[
+            tiff_lzw(a.tobytes(), True), tiff_lzw(b.tobytes())]), "refused the data|breaks the format"),
+        "tiff-old-style-lzw-cut-short.tif": (tiff_bytes(gray, 8, 1, compression=5, chunks=[
+            tiff_lzw(body, True)[:40]]), "refused the data|breaks the format"),
+    }
+
+
+def imips_card_originals() -> Dict[str, bytes]:
+    """The card's written originals of ``IMIPS_CARD``, from seeded numpy
+    alone: name (under ``im_iptc_pcd_spider/card/``) -> bytes."""
+    side = 1024
+    photo = smooth_scene(2420, side, side, cell=128, step=1)
+    r = np.random.default_rng(2421)
+    noisy = np.clip(photo.astype(np.int64) + r.integers(-6, 7, photo.shape), 0, 255).astype(np.uint8)
+    scan = smooth_scene(2422, side, side, cell=64, step=1)[..., 0]
+    wide = smooth_scene(2423, 512, 768, cell=96, step=1)
+    tall = smooth_scene(2424, 768, 512, cell=96, step=1)
+    micrograph = smooth_scene(2425, side, side, cell=32, step=1)[..., 1].astype(np.float32) * 0.9 - 12.375
+    micrograph += r.normal(0, 4, micrograph.shape).astype(np.float32)
+    out = {
+        "photo-1024-rgbl.im": im_file([b"Image type: RGB image", b"Name: photo-1024.im",
+                                       b"Image size (x*y): 1024*1024", b"File size (no of images): 1"],
+                                      im_planes(noisy)),
+        "scan-1024.imt": imt_file(scan),
+        "gray-1024-raw.iptc": iptc_file(side, side, 1, 0, 1, noisy[..., 1].tobytes()),
+        "photo-768x512.pcd": pcd_file(*pcd_planes(wide)),
+        "photo-512x768-rotated.pcd": pcd_file(*pcd_planes(np.rot90(tall, 3)), orientation=1),
+        "micrograph-1024-be.spi": spider_file(micrograph),
+        "photo-1024-old-lzw.tif": tiff_bytes(noisy, compression=5, predictor=2, rows_per_strip=64, old_lzw=True),
+    }
+    assert sorted(out) == sorted(IMIPS_CARD)
+    return {f"{IMIPS}/card/{k}": v for k, v in out.items()}
+
+
+def imips_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``im_iptc_pcd_spider/`` (name -> bytes),
+    written anew: the layouts and the refusals (the card's originals are
+    written on the card, ``imips_card_originals``)."""
+    refused = {f"{IMIPS}/refused/{k}": v for k, (v, _) in imips_refusals().items()}
+    return dict(sorted({**imips_layouts(), **refused}.items()))
+
+
+def committed_imips() -> Dict[str, bytes]:
+    """The committed files under ``im_iptc_pcd_spider/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, IMIPS)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def imips_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest's parts of this folder: each committed file as
+    ``gif_tiff_entry`` records it with ``imips_refusals``; each card
+    original written on the card (``imips_card``)."""
+    files = committed_imips() if files is None else files
+    reasons = imips_refusals()
+    entries = {}
+    for name, data in files.items():
+        path = os.path.join(scratch, "imips" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, reasons)
+    card = {}
+    for name, data in imips_card_originals().items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        card[name] = gif_tiff_entry(name, path, reasons)
+    return {"files": entries, "imips_card": card}
+
+
+def check_imips_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Writes ``imips_card_originals`` into ``folder`` and holds each to the
+    manifest (``imips_card``): bytes and ``decode``'s RGB.  Returns name ->
+    path of each; raises ``AssertionError`` naming the first that
+    differs."""
+    want = load_manifest()["imips_card"]
+    paths = {}
+    for name, data in sorted(imips_card_originals().items()):
+        if sha256(data) != want[name]["sha256"]:
+            raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+        path = os.path.join(folder, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths[os.path.basename(name)] = path
+    if sorted(paths) != sorted(IMIPS_CARD):
+        raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(IMIPS_CARD)}")
+    return paths
+
+
+# --- every slice's originals of the Pillow lane in one cli.prep ----------------------------------
+
+#: the manifest's key of the JAX package's prep of ``pillow_lane_originals``
+PILLOW_LANE_PREP = "pillow_lane_prep"
+
+
+def pillow_lane_sources() -> List[Tuple[str, str, Optional[str]]]:
+    """Every original the card's "io prep" reads in its one ``cli.prep``
+    of the Pillow lane: (listed name, the committed file's name under
+    ``FIXTURES``, or None, the written card original's name): the committed
+    WebP, JPEG kinds', Pillow lane's, GIF/TIFF and JPEG TIFF originals and
+    the written ones of each slice that ``cli.prep`` reads, each under the
+    listed name its slice gives it."""
+    out = [(n, f"{WEBP}/card/{n}", None) for n in sorted(WEBP_CARD)]
+    out += [(n, f"{KINDS}/card/{n}", None) for n in sorted(KINDS_CARD)]
+    out += [(n, f"{PILLOW}/card/{n}", None) for n in PILLOW_CARD]
+    out += [(GIF_TIFF_CARD[n], f"{GIF_TIFF}/card/{n}", None) for n in sorted(GIF_TIFF_CARD)]
+    out += [(v, None, f"{ICO_PNM_TGA}/card/{k}") for k, v in sorted(CARD_ORIGINALS.items()) if v]
+    out += [(RASTER_CARD[n], f"{RASTER}/card/{n}" if n in RASTER_COMMITTED_CARD else None,
+             None if n in RASTER_COMMITTED_CARD else f"{RASTER}/card/{n}") for n in sorted(RASTER_CARD) if RASTER_CARD[n]]
+    for folder, card in ((DBFIS, DBFIS_CARD), (LEGACY, LEGACY_CARD), (IMIPS, IMIPS_CARD)):
+        out += [(v, None, f"{folder}/card/{k}") for k, v in sorted(card.items()) if v]
+    names = [n for n, _, _ in out]
+    assert len(set(names)) == len(names), "two originals under one listed name"
+    return out
+
+
+def pillow_lane_images(listed: List[str]) -> List[str]:
+    """The names ``cli.prep`` gives the originals of ``pillow_lane_sources``
+    listed as ``listed`` in each set of ``PILLOW_LANE_PREP``: ``image-i.png``,
+    ``i`` the original's place among the listed names in sorted order."""
+    order = sorted(n for n, _, _ in pillow_lane_sources())
+    return sorted(f"image-{order.index(n)}.png" for n in listed)
+
+
+def pillow_lane_originals() -> Dict[str, bytes]:
+    """``pillow_lane_sources``' originals: listed name -> bytes (the written
+    ones made anew by their slices' writers)."""
+    written = {**card_originals(), **raster_card_originals(), **dbfis_card_originals(), **legacy_card_originals(),
+               **imips_card_originals()}
+    out = {}
+    for listed, committed, made in pillow_lane_sources():
+        if committed is not None:
+            with open(os.path.join(FIXTURES, committed), "rb") as f:
+                out[listed] = f.read()
+        else:
+            out[listed] = written[made]
+    return out
+
 
 
 if __name__ == "__main__":
