@@ -38,7 +38,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 13
+ABI_VERSION = 14
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -71,12 +71,12 @@ ERRORS = {
          "missing or not an integer, strip or tile offsets that do not match the image)",
     -27: "a big-endian (MM) BigTIFF, which Pillow 12.1.0 takes for a classic TIFF (it tests the version's first "
          "byte alone) and cannot identify",
-    -28: "TIFF files with old-style JPEG compression, or with JPEG compression of other samples than 8-bit gray, "
-         "RGB, CMYK or YCbCr, are not read by the PyTorch port",
+    -28: "TIFF files with JPEG compression of other samples than 8-bit gray, RGB, CMYK or YCbCr, or 12-bit gray, "
+         "are not read by the PyTorch port",
     -29: "TIFF files with CCITT (fax) compression of other samples than 1-bit gray or a 1-bit palette, which "
          "libtiff does not decode (Bits/sample must be 1 for Group 3/4 encoding/decoding)",
     -30: "TIFF files of LogLuv or LogL data are not read by the PyTorch port",
-    -31: "TIFF files with this compression (LZMA, ZSTD, WebP, JBIG...) are not read by the PyTorch port",
+    -31: "TIFF files with this compression (WebP, JBIG, JPEG 2000, LERC...) are not read by the PyTorch port",
     -32: "TIFF files of YCbCr pixels in this layout (a subsampling libtiff has no routine for, subsampled "
          "separate planes, one sample under compression, bad coefficients) are not read by the "
          "PyTorch port",
@@ -113,6 +113,19 @@ ERRORS = {
          "error)",
     -59: "a big-endian (MM) 12-bit gray TIFF: Pillow's one key of 12-bit gray is little-endian's, so it cannot "
          "identify the file",
+    -60: "a PNG chunk after the image data cut short by the file's end (Pillow: Truncated File Read)",
+    -61: "a PNG chunk after the image data that Pillow's chunk handler refuses (a short IHDR, tRNS, gAMA, cHRM, "
+         "sRGB, pHYs, acTL, fcTL or fdAT, an unknown filter or compression method, text inflating past "
+         "MAX_TEXT_CHUNK, an APNG sequence or frame error)",
+    -62: "an LZMA TIFF strip whose .xz block has a BCJ filter (x86, PowerPC, IA-64, ARM, ARM-Thumb, SPARC, ARM64, "
+         "RISC-V), which liblzma decodes and libtiff never writes: not read by the PyTorch port",
+    -63: "a ZSTD TIFF strip whose frame names a dictionary (libzstd: Dictionary mismatch)",
+    -64: "an old-style JPEG TIFF in a layout the PyTorch port does not read (tiles, separate planes, other samples "
+         "than 8-bit gray or YCbCr, FillOrder 2, a frame built from the tags taller than 65535 rows, whose height "
+         "libtiff cuts to 16 bits and whose rows below that Pillow shows as libtiff's buffers held them), or whose "
+         "tags libtiff's codec refuses (no JPEGQTables, strips that do not hold whole rows of blocks)",
+    -65: "a 12-bit JPEG TIFF strip or tile of an odd width: libtiff packs the samples two at a time and leaves each "
+         "row's last one unwritten, where Pillow shows whatever its buffer held",
 }
 
 _P = ctypes.c_void_p
@@ -142,6 +155,8 @@ SIGNATURES = {
     "byogan_unfilter": [_P, _I, _I, _I, _P],
     "byogan_encode_jpeg": [_S, _P, _I, _I, _I],
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
+    "byogan_xz": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
+    "byogan_zstd": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
 }
 
 
@@ -393,6 +408,20 @@ def bcn(data: bytes, name: str, pixel_format: str, w: int, h: int) -> np.ndarray
     if rc != 0:
         raise _failed(name, f"{pixel_format} block decode", rc)
     return out
+
+
+def stream_decode(kind: str, data: bytes, occ: Optional[int] = None, cap: int = 1 << 26) -> Tuple[int, bytes]:
+    """``data`` decoded by the port's .xz (``kind`` "xz", ``native/xz.cpp``)
+    or Zstandard (``"zstd"``, ``native/zstd.cpp``) decoder: ``occ`` bytes of
+    a TIFF strip or tile as libtiff's LZMA or ZSTD codec reads them, or,
+    where ``occ`` is None, the whole stream (at most ``cap`` bytes).  Returns
+    the library's code (0, or ``ERRORS``' key) and the bytes made."""
+    out = ctypes.create_string_buffer(max(1, cap if occ is None else occ))
+    written = _N()
+    call = {"xz": "byogan_xz", "zstd": "byogan_zstd"}[kind]
+    rc = getattr(load_library(), call)(data, len(data), -1 if occ is None else occ, out, len(out),
+                                       ctypes.byref(written))
+    return rc, out.raw[:min(written.value, len(out))]
 
 
 def lab_to_rgb(lab: np.ndarray) -> np.ndarray:

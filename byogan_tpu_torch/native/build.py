@@ -1,25 +1,24 @@
 """Build the native image-IO library (byogan_tpu/native/build.py).
 
-One ``g++`` call compiles the port's own codecs into
-``build/libbyogan_io.so`` at the root of the checkout (git-ignored, beside
-the CUDA kernels of ``ops/build.py``), at first use and again whenever a
-source is newer:
+One ``g++ -c`` a source, as many at once as the process has cores, then
+one link make the port's own codecs into ``build/libbyogan_io.so`` at the
+root of the checkout (git-ignored, beside the CUDA kernels of
+``ops/build.py``), at first use and again whenever a source is newer:
 
-    g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off byogan_io.cpp png.cpp \\
-        jpeg_decode.cpp jpeg_arith.cpp jpeg_lossless.cpp jpeg_encode.cpp \\
-        jpeg_tables.cpp webp.cpp vp8_decode.cpp vp8l_decode.cpp webp_tables.cpp \\
-        gif.cpp tiff.cpp ccitt.cpp lab.cpp pnm_tga.cpp psd_pcx_sgi_qoi.cpp bcn.cpp \\
-        fli_msp_xbm.cpp im_bit.cpp -o build/libbyogan_io.so -lz
+    g++ -O3 -fPIC -std=c++17 -ffp-contract=off -c <source> -o <source>.o   (each of SOURCES)
+    g++ -shared byogan_io.o png.o ... zstd.o -o build/libbyogan_io.so -lz
 
 ``-ffp-contract=off`` keeps the compiler from fusing a multiply and an add
 into one rounding on machines with FMA instructions, so that lab.cpp's
 float pipeline rounds as LittleCMS's does wherever it is built.
 
 zlib is the one library it links (PNG's inflate), on every machine: no
-libpng, libjpeg or libwebp.  A machine without ``zlib.h`` fails the build,
-and the ``RuntimeError`` carries the compiler's output.  Concurrent
-builds, such as test workers starting together, take a file lock and
-compile to a name of their own, which replaces the library in one step.
+libpng, libjpeg, libwebp, liblzma or libzstd (xz.cpp and zstd.cpp are the
+port's own decoders of LZMA and ZSTD TIFF).  A machine without ``zlib.h``
+fails the build, and the ``RuntimeError`` carries the compiler's output.
+Concurrent builds, such as test workers starting together, take a file
+lock and compile into a directory of their own, whose library replaces
+the old one in one step.
 
     python -m byogan_tpu_torch.native.build [--force]
 """
@@ -31,26 +30,45 @@ import os
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp", "jpeg_arith.cpp", "jpeg_lossless.cpp",
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
                                    "webp_tables.cpp", "gif.cpp", "tiff.cpp", "ccitt.cpp", "lab.cpp", "pnm_tga.cpp",
-                                   "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp", "im_bit.cpp"))
+                                   "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp", "im_bit.cpp", "xz.cpp",
+                                   "zstd.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+FLAGS = ("-O3", "-fPIC", "-std=c++17", "-ffp-contract=off")
 LIBS = ("-lz",)
 
 
-def command(out: str) -> list:
-    return ["g++", *FLAGS, *map(str, SOURCES), "-o", out, *LIBS]
+def compile_command(source: Path, obj: str) -> list:
+    return ["g++", *FLAGS, "-c", str(source), "-o", obj]
+
+
+def command(out: str, objects: list) -> list:
+    """The link of ``objects`` into ``out``."""
+    return ["g++", "-shared", *map(str, objects), "-o", out, *LIBS]
 
 
 def _stale() -> bool:
     return not LIBRARY.exists() or LIBRARY.stat().st_mtime < max(p.stat().st_mtime for p in SOURCES + HEADERS)
+
+
+def _run_all(commands: list) -> None:
+    """Runs ``commands``, as many at once as this process has cores;
+    raises ``RuntimeError`` naming the first that fails, with its output."""
+    def run(cmd):
+        return subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
+        for cmd, done in zip(commands, pool.map(run, commands)):
+            if done.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)} failed:\n{done.stdout}")
 
 
 def build(force: bool = False) -> Path:
@@ -62,17 +80,12 @@ def build(force: bool = False) -> Path:
     with open(BUILD / "libbyogan_io.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if force or _stale():  # another process may have built it meanwhile
-            fd, tmp = tempfile.mkstemp(prefix=".libbyogan_io.", suffix=".so", dir=BUILD)
-            os.close(fd)
-            cmd = command(tmp)
-            try:
-                done = subprocess.run(cmd, capture_output=True, text=True)
-                if done.returncode != 0:
-                    raise RuntimeError(f"{' '.join(cmd)} failed:\n{done.stdout}{done.stderr}")
-                os.replace(tmp, LIBRARY)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+            with tempfile.TemporaryDirectory(prefix=".libbyogan_io.", dir=BUILD) as tmp:
+                objs = [os.path.join(tmp, s.with_suffix(".o").name) for s in SOURCES]
+                _run_all([compile_command(s, o) for s, o in zip(SOURCES, objs)])
+                out = os.path.join(tmp, LIBRARY.name)
+                _run_all([command(out, objs)])
+                os.replace(out, LIBRARY)
     return LIBRARY
 
 

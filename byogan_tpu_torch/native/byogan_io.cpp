@@ -18,8 +18,8 @@
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
 // so threads decode in parallel.
 //
-// Build: python -m byogan_tpu_torch.native.build (one g++ -O3 -shared of
-// the sources, -lz).
+// Build: python -m byogan_tpu_torch.native.build (one g++ -O3 -c a source,
+// all at once, then g++ -shared ... -lz).
 //
 // Every entry returns 0 on success or a negative code of codec.h.
 
@@ -147,7 +147,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 13; }
+int byogan_abi_version() { return 14; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -170,6 +170,34 @@ int byogan_decode_buffer(const uint8_t* data, size_t size, uint8_t* out, int* h,
       ((data[2] == 42 || data[2] == 43) ? data[3] == 0 : data[2] == 0 && (data[3] == 42 || data[3] == 43)))
     return byogan::decode_tiff(data, size, out, h, w);
   return byogan::kNotImage;
+}
+
+// An .xz stream (byogan_xz) or Zstandard data (byogan_zstd) in memory
+// decoded into out (room for cap bytes): `occ` bytes of a TIFF strip or
+// tile as libtiff's codec reads them, or, where occ is negative, the whole
+// stream (codec.h's xz_decode, zstd_decode).  *written gets the bytes made,
+// also where the decode fails; -3 where they do not fit in cap.
+static int stream_decode(int (*decode)(const uint8_t*, size_t, size_t, std::vector<uint8_t>*), const uint8_t* in,
+                         size_t n, long long occ, uint8_t* out, size_t cap, size_t* written) {
+  std::vector<uint8_t> bytes;
+  int rc;
+  try {
+    rc = decode(in, n, occ < 0 ? byogan::kWholeStream : (size_t)occ, &bytes);
+  } catch (const std::bad_alloc&) {
+    return byogan::kNoMemory;
+  }
+  *written = bytes.size();
+  if (bytes.size() > cap) return byogan::kNoMemory;
+  if (!bytes.empty()) memcpy(out, bytes.data(), bytes.size());
+  return rc;
+}
+
+int byogan_xz(const uint8_t* in, size_t n, long long occ, uint8_t* out, size_t cap, size_t* written) {
+  return stream_decode(byogan::xz_decode, in, n, occ, out, cap, written);
+}
+
+int byogan_zstd(const uint8_t* in, size_t n, long long occ, uint8_t* out, size_t cap, size_t* written) {
+  return stream_decode(byogan::zstd_decode, in, n, occ, out, cap, written);
 }
 
 // byogan_decode_buffer on a file's bytes.

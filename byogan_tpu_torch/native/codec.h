@@ -24,7 +24,7 @@ enum Status {
   kBadFilter = -8,         // an unknown PNG row filter
   kBadCrc = -9,            // a PNG critical chunk's CRC does not match
   kTruncated = -10,        // the file ends before its image data do
-  kJpeg12Bit = -12,        // a DCT frame's samples of other than 8 bits
+  kJpeg12Bit = -12,        // a DCT frame's samples of other than 8 bits (12-bit gray TIFF strips aside)
   kJpegLossless = -14,     // a lossless frame Pillow's libjpeg-turbo refuses: arithmetic (SOF11), not 8-bit, or converted
   kJpegHierarchical = -15, // a hierarchical (differential) frame
   kJpegSampling = -16,     // a fractional sampling ratio (a component's factors do not divide the largest)
@@ -38,10 +38,10 @@ enum Status {
   kTooLarge = -25,         // more pixels than Pillow opens (twice Image.MAX_IMAGE_PIXELS)
   kTiffDirectory = -26,    // a TIFF header or first directory that does not describe an image Pillow reads
   kTiffBig = -27,          // a big-endian (MM) BigTIFF, which Pillow reads as a classic TIFF and cannot identify
-  kTiffJpeg = -28,         // TIFF with old-style JPEG compression, or JPEG of samples the port does not read
+  kTiffJpeg = -28,         // TIFF with JPEG compression of samples the port does not read
   kTiffCcitt = -29,        // TIFF with CCITT (fax) compression of other samples than 1-bit gray
   kTiffLogLuv = -30,       // TIFF with LogLuv or LogL data
-  kTiffCompression = -31,  // TIFF with another compression (LZMA, ZSTD, WebP, JBIG...)
+  kTiffCompression = -31,  // TIFF with another compression (WebP, JBIG, JPEG 2000...)
   kTiffYcbcr = -32,        // TIFF with YCbCr pixels in a layout the port does not read
   kTiffPhotometric = -34,  // TIFF with another photometric interpretation (ICCLab, ITULab, a mask...)
   kTiffFillOrder = -37,    // TIFF with FillOrder 2 of samples Pillow's raw decoder has no raw mode for
@@ -66,6 +66,12 @@ enum Status {
   kFliBroken = -57,        // an FLI/FLC chunk of no size
   kFliUnknown = -58,       // an FLI/FLC frame of an unknown chunk, or not a frame chunk
   kTiffMm12 = -59,         // a big-endian (MM) 12-bit gray TIFF, which Pillow cannot identify
+  kPngChunkCut = -60,      // a PNG chunk after the image data cut short by the file's end
+  kPngChunkRefused = -61,  // a PNG chunk after the image data that Pillow's chunk handler refuses
+  kXzFilter = -62,         // an .xz block of a BCJ filter, which liblzma decodes and libtiff never writes
+  kZstdDictionary = -63,   // a Zstandard frame that names a dictionary (libzstd: Dictionary mismatch)
+  kTiffOjpeg = -64,        // an old-style JPEG TIFF in a layout the port does not read (tiles, separate planes)
+  kTiffJpeg12Odd = -65,    // a 12-bit JPEG TIFF strip or tile of odd width (libtiff leaves a sample of each row unset)
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -134,6 +140,17 @@ int decode_bcn(const uint8_t* data, size_t size, int pixel_format, int w, int h,
 int decode_ccitt(const uint8_t* in, size_t n, uint64_t file_at, uint32_t compression, uint32_t t4options,
                  uint32_t width, uint32_t rows, size_t row_bytes, uint8_t* out);
 
+// An .xz stream (xz.cpp) or a Zstandard frame (zstd.cpp) held in memory,
+// decoded into *out: `occ` bytes of a TIFF strip or tile as libtiff 4.7.1's
+// LZMA and ZSTD codecs read them (the rest of the data unread once the
+// buffer is full), or, where occ is kWholeStream, the whole stream as
+// lzma_code reads it to LZMA_STREAM_END (one .xz stream, its index and
+// footer verified) and as ZSTD_decompress reads it (every frame, skippable
+// ones skipped).  kOk, or the code of the first fault.
+constexpr size_t kWholeStream = ~(size_t)0;
+int xz_decode(const uint8_t* in, size_t n, size_t occ, std::vector<uint8_t>* out);
+int zstd_decode(const uint8_t* in, size_t n, size_t occ, std::vector<uint8_t>* out);
+
 // n 8-bit CIE Lab triples (L, then a and b with 128 as zero: Pillow's LAB
 // bands) to n sRGB triples, as Pillow 12.1.0's convert("RGB") of a LAB
 // image makes them through LittleCMS 2.17 (lab.cpp).
@@ -151,6 +168,18 @@ struct JpegFrame {
 };
 int decode_jpeg_tiff(const uint8_t* tables, size_t tables_size, const uint8_t* data, size_t size, bool ycbcr,
                      int components, JpegFrame* frame, std::vector<uint8_t>* out);
+
+// One strip or tile of a 12-bit gray JPEG-compressed TIFF: the samples
+// (frame->h x frame->w, 0-4095) libjpeg-turbo's 12-bit decoder gives;
+// kTiffJpegStream where the stream is not one 12-bit component.
+int decode_jpeg_tiff12(const uint8_t* tables, size_t tables_size, const uint8_t* data, size_t size, JpegFrame* frame,
+                       std::vector<uint16_t>* out);
+
+// A sequential DCT stream's components after the IDCT, not upsampled and
+// not converted (libjpeg's raw_data_out): planes[c] of strides[c] columns
+// (whole blocks) and 8 rows a block row.
+int decode_jpeg_planes(const uint8_t* data, size_t size, JpegFrame* frame, std::vector<uint8_t>* planes,
+                       int* strides);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

@@ -133,6 +133,7 @@ struct Component {
   int pred = 0;
   bool latched = false;
   int16_t q[64] = {0};        // the quantiser latched at the first scan (ISLOW_MULT_TYPE: short)
+  int32_t q12[64] = {0};      // the same for 12-bit samples (ISLOW_MULT_TYPE: JLONG)
   int bits[64];               // progressive: the Al of the last scan of each coefficient, -1 before
   int16_t* block(int row, int col) { return coef.data() + ((size_t)row * bwp + col) * 64; }
 };

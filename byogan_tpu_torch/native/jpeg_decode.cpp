@@ -454,6 +454,86 @@ void idct_wide(const int16_t* coef, const int16_t* q, uint8_t* out, int stride) 
   }
 }
 
+// jidctint.c's jpeg_idct_islow compiled for 12-bit samples, as
+// libjpeg-turbo 3 decodes a 12-bit frame (no SIMD code there): PASS1_BITS
+// 1, products in JLONG, the workspace in int, and the range limit's
+// table: the sample masked to 14 bits and read as x + 2048 clamped to
+// [0, 4095], wrapping where |x| passes 8191.
+void idct12(const int16_t* coef, const int32_t* q, uint16_t* out, int stride) {
+  constexpr int kConst = 13, kPass1 = 1;
+  auto fix = [](double x) { return (int64_t)(x * (1 << kConst) + 0.5); };
+  const int64_t f0298 = fix(0.298631336), f0390 = fix(0.390180644), f0541 = fix(0.541196100),
+                f0765 = fix(0.765366865), f0899 = fix(0.899976223), f1175 = fix(1.175875602),
+                f1501 = fix(1.501321110), f1847 = fix(1.847759065), f1961 = fix(1.961570560),
+                f2053 = fix(2.053119869), f2562 = fix(2.562915447), f3072 = fix(3.072711026);
+  auto descale = [](int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; };
+  auto limit = [](int64_t x) -> uint16_t {
+    const int v = (int)(x & 16383), s = v < 8192 ? v : v - 16384;
+    const int r = s + 2048;
+    return (uint16_t)(r < 0 ? 0 : r > 4095 ? 4095 : r);
+  };
+  int ws[64];
+  for (int c = 0; c < 8; c++) {
+    const int16_t* in = coef + c;
+    const int32_t* qq = q + c;
+    auto dq = [&](int r) { return (int64_t)in[8 * r] * qq[8 * r]; };
+    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
+      const int dc = (int)(dq(0) * (1 << kPass1));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
+      continue;
+    }
+    int64_t z2 = dq(2), z3 = dq(6);
+    int64_t z1 = (z2 + z3) * f0541;
+    const int64_t t2 = z1 + z3 * -f1847, t3 = z1 + z2 * f0765;
+    z2 = dq(0), z3 = dq(4);
+    const int64_t t0 = (z2 + z3) * (1 << kConst), t1 = (z2 - z3) * (1 << kConst);
+    const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    int64_t o0 = dq(7), o1 = dq(5), o2 = dq(3), o3 = dq(1);
+    z1 = o0 + o3, z2 = o1 + o2, z3 = o0 + o2;
+    int64_t z4 = o1 + o3;
+    const int64_t z5 = (z3 + z4) * f1175;
+    o0 *= f0298, o1 *= f2053, o2 *= f3072, o3 *= f1501;
+    z1 *= -f0899, z2 *= -f2562, z3 *= -f1961, z4 *= -f0390;
+    z3 += z5, z4 += z5;
+    o0 += z1 + z3, o1 += z2 + z4, o2 += z2 + z3, o3 += z1 + z4;
+    ws[c] = (int)descale(t10 + o3, kConst - kPass1);
+    ws[56 + c] = (int)descale(t10 - o3, kConst - kPass1);
+    ws[8 + c] = (int)descale(t11 + o2, kConst - kPass1);
+    ws[48 + c] = (int)descale(t11 - o2, kConst - kPass1);
+    ws[16 + c] = (int)descale(t12 + o1, kConst - kPass1);
+    ws[40 + c] = (int)descale(t12 - o1, kConst - kPass1);
+    ws[24 + c] = (int)descale(t13 + o0, kConst - kPass1);
+    ws[32 + c] = (int)descale(t13 - o0, kConst - kPass1);
+  }
+  for (int r = 0; r < 8; r++) {
+    const int* w = ws + 8 * r;
+    uint16_t* o = out + (size_t)r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
+      const uint16_t dc = limit(descale(w[0], kPass1 + 3));
+      for (int k = 0; k < 8; k++) o[k] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * f0541;
+    const int64_t t2 = z1 + z3 * -f1847, t3 = z1 + z2 * f0765;
+    const int64_t t0 = ((int64_t)w[0] + w[4]) * (1 << kConst), t1 = ((int64_t)w[0] - w[4]) * (1 << kConst);
+    const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    int64_t o0 = w[7], o1 = w[5], o2 = w[3], o3 = w[1];
+    z1 = o0 + o3, z2 = o1 + o2, z3 = o0 + o2;
+    int64_t z4 = o1 + o3;
+    const int64_t z5 = (z3 + z4) * f1175;
+    o0 *= f0298, o1 *= f2053, o2 *= f3072, o3 *= f1501;
+    z1 *= -f0899, z2 *= -f2562, z3 *= -f1961, z4 *= -f0390;
+    z3 += z5, z4 += z5;
+    o0 += z1 + z3, o1 += z2 + z4, o2 += z2 + z3, o3 += z1 + z4;
+    const int n = kConst + kPass1 + 3;
+    o[0] = limit(descale(t10 + o3, n)), o[7] = limit(descale(t10 - o3, n));
+    o[1] = limit(descale(t11 + o2, n)), o[6] = limit(descale(t11 - o2, n));
+    o[2] = limit(descale(t12 + o1, n)), o[5] = limit(descale(t12 - o1, n));
+    o[3] = limit(descale(t13 + o0, n)), o[4] = limit(descale(t13 - o0, n));
+  }
+}
+
 // libjpeg-turbo's islow IDCT on one block as its SIMD code computes it (what
 // both of the JAX package's lanes run): the 64-bit arithmetic where the
 // block's coefficients keep it exact, the 16-bit lanes elsewhere.
@@ -512,6 +592,44 @@ class Decoder {
   // JFIF and Adobe markers; the colour space is the codec's, not the
   // stream's.  `ycbcr` (PHOTOMETRIC_YCBCR under JPEGCOLORMODE_RGB): YCbCr
   // -> RGB, 3 samples a pixel; else JCS_UNKNOWN, every component as it is.
+  // A stream's components after the IDCT, each at its own sampling
+  // (libjpeg's raw_data_out, as libtiff's old-JPEG codec reads YCbCr):
+  // planes[c] of bw * 8 columns (strides[c]) and bh * 8 rows.
+  int run_planes(JpegFrame* f, std::vector<uint8_t>* planes, int* strides) {
+    if (end_ - d_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail(kCorrupt);
+    p_ = d_ + 2;
+    forced_ = kUnknown;
+    const int m = read_header();
+    if (lossless_ || progressive_) fail(kCorrupt);
+    f->h = height_, f->w = width_, f->components = ncomp_, f->marker = sof_;
+    for (int c = 0; c < ncomp_; c++) f->hsamp[c] = comp_[c].h, f->vsamp[c] = comp_[c].v;
+    raw_planes_ = planes;
+    raw_strides_ = strides;
+    decode(m, nullptr);
+    return kOk;
+  }
+
+  // One strip or tile of a 12-bit gray JPEG-compressed TIFF (libtiff's
+  // JPEG codec over libjpeg-turbo's 12-bit decoder): the JPEGTables stream
+  // first, then a one-component frame of 12-bit precision, its samples.
+  int run_tiff12(const uint8_t* tables, size_t tables_size, JpegFrame* f, std::vector<uint16_t>* out) {
+    allow12_ = true;
+    if (tables_size) read_tables(tables, tables_size);
+    if (end_ - d_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail(kCorrupt);
+    p_ = d_ + 2;
+    forced_ = kUnknown;
+    const int m = read_header();
+    f->h = height_, f->w = width_, f->components = ncomp_, f->marker = sof_;
+    f->hsamp[0] = comp_[0].h, f->vsamp[0] = comp_[0].v;
+    // "Improper JPEG data precision", "Improper JPEG component count"; the
+    // sequential frames alone
+    if (precision_ != 12 || ncomp_ != 1 || (sof_ != 0xC0 && sof_ != 0xC1)) return kTiffJpegStream;
+    out->resize((size_t)height_ * width_);
+    out12_ = out->data();
+    decode(m, nullptr);
+    return kOk;
+  }
+
   int run_tiff(const uint8_t* tables, size_t tables_size, bool ycbcr, int components, JpegFrame* f,
                std::vector<uint8_t>* out) {
     if (tables_size) read_tables(tables, tables_size);
@@ -534,6 +652,11 @@ class Decoder {
   const uint8_t* p_ = nullptr;
   int forced_ = -1;  // a colour space the caller sets (run_tiff), or -1
   int sof_ = 0;      // the frame's marker
+  std::vector<uint8_t>* raw_planes_ = nullptr;  // run_planes: where the IDCT's planes go
+  int* raw_strides_ = nullptr;
+  bool allow12_ = false;  // run_tiff12: a 12-bit frame is read
+  int precision_ = 8;
+  uint16_t* out12_ = nullptr;
 
   void read_tables(const uint8_t* t, size_t n) {
     const uint8_t *save_p = p_, *save_end = end_;
@@ -572,7 +695,21 @@ class Decoder {
       m = next_marker(&p_, end_);
     }
     if (!eoi) fail(kTruncated);
-    output(out);
+    if (out12_) output12();
+    else output(out);
+  }
+
+  // A 12-bit frame's one component: the IDCT of each block, its rows cut
+  // to the image.
+  void output12() {
+    Component& k = comp_[0];
+    const int stride = k.bw * 8;
+    std::vector<uint16_t> plane((size_t)stride * k.bh * 8);
+    for (int by = 0; by < k.bh; by++)
+      for (int bx = 0; bx < k.bw; bx++)
+        idct12(k.block(by, bx), k.q12, plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+    for (int y = 0; y < height_; y++)
+      memcpy(out12_ + (size_t)y * width_, plane.data() + (size_t)y * stride, (size_t)width_ * 2);
   }
 
   int width_ = 0, height_ = 0, ncomp_ = 0;
@@ -694,9 +831,11 @@ class Decoder {
     // Pillow reads 8-bit samples alone; its libjpeg-turbo has no lossless
     // arithmetic decoder.
     if (lossless_ && (arith_ || precision != 8)) fail(kJpegLossless);
-    if (precision != 8) fail(kJpeg12Bit);
+    if (precision == 12 && allow12_) precision_ = 12;
+    else if (precision != 8) fail(kJpeg12Bit);
     if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4) fail(kNotRgb);
     if (len != 6 + 3 * ncomp_ || height_ == 0 || width_ == 0) fail(kCorrupt);
+    if (height_ > 65500 || width_ > 65500) fail(kCorrupt);  // libjpeg's JPEG_MAX_DIMENSION
     for (int c = 0; c < ncomp_; c++) {
       Component& k = comp_[c];
       k.id = s[6 + 3 * c];
@@ -829,8 +968,13 @@ class Decoder {
       Component& k = *sc.comp[i];
       if (k.latched) continue;
       if (!has_q_[k.tq]) fail(kCorrupt);
-      for (int j = 0; j < 64; j++) k.q[j] = (int16_t)qt_[k.tq][j];
+      for (int j = 0; j < 64; j++) k.q[j] = (int16_t)qt_[k.tq][j], k.q12[j] = qt_[k.tq][j];
       k.latched = true;
+    }
+    if (n > 1) {  // jdinput.c's per_scan_setup: D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < n; i++) blocks += sc.comp[i]->h * sc.comp[i]->v;
+      if (blocks > 10) fail(kCorrupt);
     }
     int rows, cols;  // MCUs
     if (n == 1) {
@@ -1058,6 +1202,13 @@ class Decoder {
         for (int bx = 0; bx < k.bw; bx++)
           idct_islow(k.block(by, bx), k.q, plane[c].data() + (size_t)by * 8 * stride[c] + bx * 8, stride[c]);
     }
+    if (raw_planes_) {
+      for (int c = 0; c < ncomp_; c++) {
+        raw_planes_[c].swap(plane[c]);
+        raw_strides_[c] = stride[c];
+      }
+      return;
+    }
     // upsample each component's row to the image's width, then convert
     const int oc = space_ == kUnknown ? ncomp_ : 3;  // samples a pixel out
     const size_t pitch = (size_t)width_ + 16;
@@ -1213,6 +1364,30 @@ int decode_jpeg_tiff(const uint8_t* tables, size_t tables_size, const uint8_t* d
   try {
     jpeg::Decoder dec(data, size);
     return dec.run_tiff(tables, tables_size, ycbcr, components, frame, out);
+  } catch (const jpeg::Error& e) {
+    return e.code == kNotImage ? kCorrupt : e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+int decode_jpeg_tiff12(const uint8_t* tables, size_t tables_size, const uint8_t* data, size_t size, JpegFrame* frame,
+                       std::vector<uint16_t>* out) {
+  try {
+    jpeg::Decoder dec(data, size);
+    return dec.run_tiff12(tables, tables_size, frame, out);
+  } catch (const jpeg::Error& e) {
+    return e.code == kNotImage ? kCorrupt : e.code;
+  } catch (const std::bad_alloc&) {
+    return kNoMemory;
+  }
+}
+
+int decode_jpeg_planes(const uint8_t* data, size_t size, JpegFrame* frame, std::vector<uint8_t>* planes,
+                       int* strides) {
+  try {
+    jpeg::Decoder dec(data, size);
+    return dec.run_planes(frame, planes, strides);
   } catch (const jpeg::Error& e) {
     return e.code == kNotImage ? kCorrupt : e.code;
   } catch (const std::bad_alloc&) {

@@ -6,8 +6,12 @@
 // gray sample is clipped at 255 instead, as Pillow's I;16 -> RGB does, and
 // the chunks are read as PngImagePlugin reads them: every chunk's CRC
 // checked before the image data, none of the IDATs', the data read as far
-// as the image's last byte (a file cut after it is whole) and ended by any
-// other chunk; every other kind decodes alike in Pillow and libpng.
+// as the image's last byte and ended by any other chunk, then the chunks
+// after it up to IEND as load_end reads them (pillow_load_end: a body cut
+// short or one a chunk handler refuses fails, the file's end or a chunk
+// name that is not four word characters ends the walk); a palette image
+// without PLTE reads black, as Pillow's empty palette shows it.  Every
+// other kind decodes alike in Pillow and libpng.
 //
 // As libpng does by default: the CRC of every critical chunk is checked
 // (an ancillary chunk's is not: libpng would drop the chunk, and none
@@ -97,6 +101,135 @@ void expand_row(const Layout& l, const uint8_t* row, int n, const uint8_t (*pale
   }
 }
 
+// Pillow's _safe_zlib_decompress (MAX_TEXT_CHUNK, 1 MiB): fails where the
+// text or profile inflates past 1 MiB with input left over; a zlib error
+// is no failure (the handler drops the text).
+bool inflates_too_large(const uint8_t* in, size_t n) {
+  z_stream z;
+  memset(&z, 0, sizeof(z));
+  if (inflateInit(&z) != Z_OK) return false;
+  std::vector<uint8_t> out(1 << 20);
+  z.next_in = const_cast<uint8_t*>(in);
+  z.avail_in = (uInt)n;
+  z.next_out = out.data();
+  z.avail_out = (uInt)out.size();
+  int rc;
+  do {
+    rc = inflate(&z, Z_SYNC_FLUSH);
+  } while (rc == Z_OK && z.avail_out > 0 && z.avail_in > 0);
+  const bool too_large = (rc == Z_OK || rc == Z_BUF_ERROR) && z.avail_out == 0 && z.avail_in > 0;
+  inflateEnd(&z);
+  return too_large;
+}
+
+// What PngImagePlugin knows of the file when its image data end: the
+// IHDR's mode (bit depth, colour type), its size, and the APNG state.
+struct PillowState {
+  int depth, color;
+  uint32_t w, h;
+  bool animated = false;
+  int64_t seq = -1;  // _seq_num; -1: None
+};
+
+// PngImageFile.load_end from `pos` (after the last image IDAT's body and
+// CRC): each chunk's handler (PngStream.chunk_*) or, for an unknown name,
+// a _safe_read of its body; the CRCs are read, never checked.  Fails with
+// kPngChunkCut where a body runs past the file's end ("Truncated File
+// Read") and kPngChunkRefused where a handler raises (a short IHDR, gAMA,
+// cHRM, sRGB, pHYs, tRNS, acTL, fcTL or fdAT, a filter method, a
+// compression method, text inflating past 1 MiB, an APNG sequence or
+// frame error).
+int pillow_load_end(const uint8_t* data, size_t size, size_t pos, PillowState st) {
+  auto word = [](uint8_t c) { return (c >= '0' && c <= '9') || (c >= 'A' && c <= 'Z') || (c >= 'a' && c <= 'z') || c == '_'; };
+  while (true) {
+    if (pos >= size || size - pos < 8) return kOk;  // struct.error or a short name: the walk ends
+    const uint32_t len = be32(data + pos);
+    const uint8_t* id = data + pos + 4;
+    if (!(word(id[0]) && word(id[1]) && word(id[2]) && word(id[3]))) return kOk;  // "broken PNG file"
+    const uint32_t type = be32(id);
+    if (type == 0x49454E44u) return kOk;  // IEND
+    if (type == 0x6663544Cu && st.animated) return kOk;  // fcTL: the next frame's
+    const size_t at = pos + 8;
+    const bool whole = size - at >= len;
+    const uint8_t* s = data + at;
+    auto need = [&](uint32_t n) { return len < n ? kPngChunkRefused : kOk; };
+    int rc = kOk;
+    if (type == 0x66644154u) {  // fdAT: its sequence number, then the data skipped as an IDAT's
+      if (len < 4) return kPngChunkRefused;
+      if (size - at < 4) return kPngChunkCut;
+      if (st.seq < 0 || st.seq != (int64_t)be32(s) - 1) return kPngChunkRefused;  // None != seq - 1
+      st.seq = be32(s);
+    }
+    if (!whole) return kPngChunkCut;  // every handler reads the whole body first
+    switch (type) {
+      case 0x49484452u:  // IHDR
+        if (len < 13) return kPngChunkRefused;
+        if (s[11]) return kPngChunkRefused;  // "unknown filter category"
+        {
+          const int d = s[8], c = s[9];
+          const bool known = (c == 0 && (d == 1 || d == 2 || d == 4 || d == 8 || d == 16)) ||
+                             (c == 3 && (d == 1 || d == 2 || d == 4 || d == 8)) ||
+                             ((c == 2 || c == 4 || c == 6) && (d == 8 || d == 16));
+          if (known) st.depth = d, st.color = c;
+          st.w = be32(s), st.h = be32(s + 4);
+        }
+        break;
+      case 0x74524E53u:  // tRNS: one 16-bit value of gray, three of RGB
+        if (st.color == 0) rc = need(2);
+        else if (st.color == 2) rc = need(6);
+        break;
+      case 0x67414D41u: rc = need(4); break;  // gAMA
+      case 0x6348524Du: rc = len % 4 ? kPngChunkRefused : kOk; break;  // cHRM: struct.unpack of whole words
+      case 0x73524742u: rc = need(1); break;  // sRGB
+      case 0x70485973u: rc = need(9); break;  // pHYs
+      case 0x6163544Cu: rc = need(8); break;  // acTL
+      case 0x69434350u: {  // iCCP: the byte after the name's NUL, which must be 0, then the profile
+        const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
+        const size_t i = nul ? (size_t)(nul - s) + 1 : 0;
+        if (i >= len) return kPngChunkRefused;  // IndexError
+        if (s[i] != 0) return kPngChunkRefused;
+        if (inflates_too_large(s + i + 1, len - i - 1)) return kPngChunkRefused;
+        break;
+      }
+      case 0x7A545874u: {  // zTXt
+        const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
+        if (nul && (size_t)(nul - s) + 1 < len) {
+          const size_t i = (size_t)(nul - s) + 1;
+          if (s[i] != 0) return kPngChunkRefused;
+          if (inflates_too_large(s + i + 1, len - i - 1)) return kPngChunkRefused;
+        }
+        break;
+      }
+      case 0x69545874u: {  // iTXt: keyword, flag, method, language, translated keyword, text
+        const uint8_t* e = s + len;
+        const uint8_t* p = (const uint8_t*)memchr(s, 0, len);
+        if (!p || e - (p + 1) < 2) break;
+        const int flag = p[1], method = p[2];
+        p += 3;
+        for (int k = 0; k < 2 && p; k++) {
+          const uint8_t* q = (const uint8_t*)memchr(p, 0, e - p);
+          p = q ? q + 1 : nullptr;
+        }
+        if (p && flag != 0 && method == 0 && inflates_too_large(p, e - p)) return kPngChunkRefused;
+        break;
+      }
+      case 0x6663544Cu: {  // fcTL of a file that is not animated
+        if (len < 26) return kPngChunkRefused;
+        const int64_t seq = be32(s);
+        if ((st.seq < 0 && seq != 0) || (st.seq >= 0 && st.seq != seq - 1)) return kPngChunkRefused;
+        st.seq = seq;
+        if ((uint64_t)be32(s + 12) + be32(s + 4) > st.w || (uint64_t)be32(s + 16) + be32(s + 8) > st.h)
+          return kPngChunkRefused;  // "APNG contains invalid frames"
+        break;
+      }
+      default:  // PLTE, IDAT, fdAT, tEXt, eXIf and unknown chunks: the body read
+        break;
+    }
+    if (rc) return rc;
+    pos = at + len + 4;
+  }
+}
+
 struct Inflater {
   z_stream z;
   bool open = false;
@@ -171,21 +304,32 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
     return kOk;
   };
   bool seen_idat = false, done = false;
+  // the APNG state PngImageFile._open leaves: acTL's frame count, the last fcTL's sequence number
+  bool frames_set = false, fctl_seen = false;
+  uint32_t frames = 0;
+  int64_t seq = -1;
   while (!done) {
     if (lane == kPillowLane && (seen_idat || (size - pos >= 8 && be32(data + pos + 4) == kIdat))) {
       // Pillow's reading of the image data (PngImageFile.load_read): each IDAT's body as far as the file
       // holds it, its CRC skipped unread, then the next chunk's header; the data end at any other chunk or
-      // at the file's end, and nothing past the image's last byte is read
+      // at the file's end; then load_end reads the rest of the IDAT that held the image's last byte, its
+      // CRC and the chunks after it
       if (seen_idat) pos += std::min<size_t>(4, size - pos);
       if (size - pos < 8 || be32(data + pos + 4) != kIdat) return kTruncated;
-      if (l.color == 3 && !has_palette) return kCorrupt;
       len = be32(data + pos);
       const size_t held = std::min<size_t>(len, size - pos - 8);
       rc = feed(data + pos + 8, held);
       if (rc) return rc;
+      const size_t after = pos + 8 + (size_t)len + 4;
       pos += 8 + held;
       seen_idat = true;
-      if (!inf.z.avail_out) break;
+      if (!inf.z.avail_out) {
+        // n_frames counts the IDAT image where no fcTL came before it
+        const bool animated = frames_set && (uint64_t)frames + (fctl_seen ? 0 : 1) > 1;
+        rc = pillow_load_end(data, size, after, PillowState{l.depth, l.color, iw, ih, animated, seq});
+        if (rc) return rc;
+        break;
+      }
       if (held < len) return kTruncated;
       continue;
     }
@@ -200,7 +344,7 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
           has_palette = true;
         }
         break;
-      case kIdat:
+      case kIdat:  // the native lane's (libpng's): a palette image needs its PLTE
         if (l.color == 3 && !has_palette) return kCorrupt;
         seen_idat = true;
         rc = feed(body, len);
@@ -208,6 +352,17 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
         break;
       case 0x49454E44u:  // IEND
         done = true;
+        break;
+      case 0x6163544Cu:  // acTL: a second one leaves no frame count (PngStream.chunk_acTL)
+        if (len >= 8) {
+          const uint32_t n = be32(body);
+          if (frames_set) frames_set = false;
+          else if (n != 0 && n <= 0x80000000u) frames_set = true, frames = n;
+        }
+        break;
+      case 0x6663544Cu:  // fcTL
+        if (len >= 4) seq = be32(body);
+        fctl_seen = true;
         break;
       default:
         if (!(type & 0x20000000u)) return kCorrupt;  // an unknown critical chunk

@@ -13,10 +13,12 @@
 //   the width one code early, a table that may grow past 4096 entries
 //   without a Clear; and the old-style codes of libtiff before 5.0,
 //   LSB-first, the width one code late, where the first strip or tile
-//   begins 0x00 and an odd byte) and Deflate (8 and 32946), with Predictor 2
-//   (horizontal differencing of 8-, 16- and 32-bit samples) where libtiff
-//   applies it: under LZW and Deflate; uncompressed and PackBits data take
-//   no predictor, as libtiff installs none for them; CCITT of bilevel
+//   begins 0x00 and an odd byte), Deflate (8 and 32946), LZMA (34925: an
+//   .xz stream a strip, xz.cpp) and ZSTD (50000: Zstandard, zstd.cpp), with
+//   Predictor 2 (horizontal differencing of 8-, 16- and 32-bit samples)
+//   where libtiff applies it: under LZW, Deflate, LZMA and ZSTD (one table,
+//   kCodecs); uncompressed and PackBits data take no predictor, as libtiff
+//   installs none for them; CCITT of bilevel
 //   samples: Modified Huffman (2, and 32771 word-aligned), T.4 1-D and 2-D
 //   (3) and T.6 (4), libtiff's tif_fax3.c decoders in ccitt.cpp, data that
 //   libtiff decodes only with errors refused, and the same of a 1-bit
@@ -54,7 +56,13 @@
 //   it has; the decode is jpeg_decode.cpp's.  In separate planes each
 //   plane's chunk is a one-component stream of 1 x 1 factors, its samples
 //   kept as they are: gray, RGB and CMYK planes interleaved back, YCbCr 1 x 1
-//   through TIFFRGBAImage's putseparate8bitYCbCr11tile (YcbcrTables);
+//   through TIFFRGBAImage's putseparate8bitYCbCr11tile (YcbcrTables); and
+//   12-bit gray (Pillow's I;16 from libtiff's I;12 packing, libjpeg-turbo's
+//   12-bit decoder) where a chunk's width is even;
+// - old-style JPEG (6) in strips of 8-bit gray (as it is: Pillow keys old
+//   JPEG as YCbCr whatever the tag) and YCbCr: the one stream libtiff's
+//   codec rebuilds (ojpeg_rebuild), YCbCr read raw (libjpeg's
+//   raw_data_out) into TIFFRGBAImage's put routine;
 // - YCbCr: uncompressed, Pillow's raw decoder reads it as RGBX (four bytes
 //   a pixel, unconverted); under LZW, Deflate or PackBits, Pillow's
 //   _decodeAsRGBA, libtiff's TIFFRGBAImage (YcbcrTables, put_ycbcr), with
@@ -66,8 +74,10 @@
 //   (ImageOps.exif_transpose).
 //
 // Everything else returns a code of codec.h that names it: MM BigTIFF, MM
-// 12-bit gray, old JPEG and JPEG of other samples, CCITT of other samples, LogLuv and other
-// compressions, YCbCr in a layout libtiff has no routine for (1x4, 2x4,
+// 12-bit gray, JPEG of other samples, 12-bit JPEG of an odd width, old JPEG
+// in tiles, planes or of other samples, CCITT of other samples, an .xz BCJ
+// filter, a Zstandard dictionary, LogLuv and other compressions (WebP,
+// JBIG...), YCbCr in a layout libtiff has no routine for (1x4, 2x4,
 // subsampled planes), ICCLab, ITULab and other photometric interpretations,
 // other depths and sample layouts, FillOrder 2 where Pillow has no raw
 // mode for it, truncated or corrupt data (where libtiff or
@@ -119,11 +129,16 @@ enum TagId {
   kPlanar = 284, kPredictor = 317, kColorMap = 320, kTileWidth = 322, kTileLength = 323, kTileOffsets = 324,
   kTileBytes = 325, kExtraSamples = 338, kSampleFormat = 339, kJpegTables = 347, kYcbcrCoefficients = 529,
   kYcbcrSubsampling = 530, kReferenceBlackWhite = 532, kT4Options = 292,
+  // old-style JPEG (compression 6)
+  kJpegInterchange = 513, kJpegInterchangeLength = 514, kJpegRestartInterval = 515, kJpegQTables = 519,
+  kJpegDcTables = 520, kJpegAcTables = 521,
 };
 const int kTags[] = {kWidth, kLength, kBits, kCompression, kPhotometric, kFillOrder, kStripOffsets,
                      kOrientation, kSamples, kRowsPerStrip, kStripBytes, kPlanar, kPredictor, kColorMap,
                      kTileWidth, kTileLength, kTileOffsets, kTileBytes, kExtraSamples, kSampleFormat,
-                     kJpegTables, kYcbcrCoefficients, kYcbcrSubsampling, kReferenceBlackWhite, kT4Options};
+                     kJpegTables, kYcbcrCoefficients, kYcbcrSubsampling, kReferenceBlackWhite, kT4Options,
+                     kJpegInterchange, kJpegInterchangeLength, kJpegRestartInterval, kJpegQTables, kJpegDcTables,
+                     kJpegAcTables};
 
 int tag_slot(int id) {
   for (int i = 0; i < (int)(sizeof(kTags) / sizeof(kTags[0])); i++)
@@ -162,7 +177,10 @@ int read_directory(const Bytes& f, uint64_t at, bool bigtiff, std::vector<Tag>* 
     const int size = rational ? (type == 5 ? 8 : 0)
                      : id == kJpegTables ? (type == 7 || type == 1 ? 1 : 0)
                      : type == 1 ? 1 : type == 3 ? 2 : type == 4 ? 4 : type == 16 && bigtiff ? 8 : 0;
-    if (!size || count == 0) return kTiffDirectory;
+    if (!size || count == 0) {
+      if (id >= kJpegInterchange && id <= kJpegAcTables) continue;  // old JPEG's tags: libtiff ignores a bad one
+      return kTiffDirectory;
+    }
     size_t pos = e + 4 + field;
     if (count > f.size / size) {  // more values than the file holds
       *whole = false;
@@ -333,6 +351,326 @@ int deflate_decode(const uint8_t* in, size_t n, uint8_t* out, size_t occ) {
   inflateEnd(&z);
   if (rc == Z_DATA_ERROR || rc == Z_NEED_DICT || rc == Z_MEM_ERROR) return kCorrupt;
   return full ? kOk : kCorrupt;
+}
+
+// An .xz stream (xz.cpp) or Zstandard frame (zstd.cpp) into exactly occ
+// bytes, as libtiff's LZMADecode and ZSTDDecode fill a strip.
+int stream_decode(int (*decode)(const uint8_t*, size_t, size_t, std::vector<uint8_t>*), const uint8_t* in,
+                  size_t n, uint8_t* out, size_t occ) {
+  std::vector<uint8_t> bytes;
+  const int rc = decode(in, n, occ, &bytes);
+  if (rc) return rc;
+  memcpy(out, bytes.data(), occ);
+  return kOk;
+}
+
+// The compressions read, by their tag's value: which decoder, and whether
+// libtiff's codec installs its predictor (TIFFPredictorInit: LZW, Deflate,
+// LZMA and ZSTD; none, PackBits, CCITT and JPEG take none).
+enum Codec { kRaw, kPackBits, kLzw, kDeflate, kLzma, kZstd, kCcitt, kJpeg, kOldJpeg };
+struct CodecOf {
+  uint32_t compression;
+  Codec codec;
+  bool predictor;
+};
+constexpr CodecOf kCodecs[] = {
+    {1, kRaw, false},      {2, kCcitt, false},         {3, kCcitt, false},   {4, kCcitt, false},
+    {5, kLzw, true},       {6, kOldJpeg, false},       {7, kJpeg, false},    {8, kDeflate, true},
+    {32771, kCcitt, false}, {32773, kPackBits, false}, {32946, kDeflate, true}, {34925, kLzma, true},
+    {50000, kZstd, true},
+};
+
+// One strip's or tile's coded bytes into exactly occ bytes, by the
+// codec libtiff reads them with (not CCITT, JPEG or old JPEG).
+int inflate_chunk(Codec codec, const uint8_t* in, size_t n, uint8_t* out, size_t occ, bool lzw_old) {
+  switch (codec) {
+    case kLzw: return lzw_decode(in, n, out, occ, lzw_old);
+    case kDeflate: return deflate_decode(in, n, out, occ);
+    case kLzma: return stream_decode(xz_decode, in, n, out, occ);
+    case kZstd: return stream_decode(zstd_decode, in, n, out, occ);
+    default: return packbits_decode(in, n, out, occ);
+  }
+}
+
+// Old-style JPEG (tif_ojpeg.c): the one JPEG stream libtiff's codec hands
+// libjpeg for a file of strips.  It reads one byte stream, the
+// JPEGInterchangeFormat's bytes and then every strip's, for the markers
+// up to SOS (OJPEGReadHeaderInfoSec: SOI, APPn and COM skipped, DRI, DQT,
+// DHT a table each, SOF0/1/3 held to the tags, SOS); where the stream
+// holds no SOF it builds the frame from the tags (JPEGQTables,
+// JPEGDcTables, JPEGAcTables, YCbCrSubsampling: the tables route).  Then
+// it writes SOI, the tables, DRI, SOF and SOS anew (Ss 0, Se 63) and the
+// rest of the byte stream as the scan, a restart marker after each strip
+// but the last (a strip a restart interval, where there are several),
+// and EOI.  YCbCr takes its subsampling from the stream's SOF where that
+// has a TIFF equivalent (OJPEGSubsamplingCorrect); where it has none
+// (`forced`), libtiff would have libjpeg upsample, and its read fails.
+struct Ojpeg {
+  uint32_t width, height, strip_rows;
+  int samples;
+  bool ycbcr;
+  uint32_t hs, vs;              // in: the tag's (or 2, 2); out: the codec's
+  bool forced = false;          // YCbCr factors TIFF has no name for
+  std::vector<uint8_t> stream;  // what libjpeg reads
+};
+
+int ojpeg_rebuild(const uint8_t* file, size_t size, uint64_t jif, uint64_t jif_len, int64_t restart_tag,
+                  const std::vector<uint32_t>& qt, const std::vector<uint32_t>& dct, const std::vector<uint32_t>& act,
+                  const std::vector<uint32_t>& offsets, const std::vector<uint32_t>& counts, Ojpeg* o) {
+  // the byte stream: JPEGInterchangeFormat's bytes, then the strips' (OJPEGReadBufferFill)
+  std::vector<uint8_t> in;
+  std::vector<size_t> strip_end;  // where each strip's bytes end in `in`
+  if (jif != 0 && jif < size) {
+    const uint64_t len = jif_len == 0 || jif_len > size - jif ? size - jif : jif_len;
+    in.insert(in.end(), file + jif, file + jif + len);
+  }
+  for (size_t c = 0; c < offsets.size(); c++) {
+    const uint64_t at = offsets[c];
+    if (at == 0 || at >= size) continue;
+    const uint64_t n = c < counts.size() && counts[c] != 0 && counts[c] <= size - at ? counts[c] : size - at;
+    in.insert(in.end(), file + at, file + at + n);
+    strip_end.push_back(in.size());
+  }
+  const bool multi = o->strip_rows < o->height;
+  // OJPEGSubsamplingCorrect: a YCbCr stream's SOF sets the subsampling
+  uint32_t hs = o->samples == 3 && o->ycbcr ? o->hs : 1, vs = o->samples == 3 && o->ycbcr ? o->vs : 1;
+  struct Segment {
+    uint8_t marker;
+    std::vector<uint8_t> body;
+  };
+  std::vector<uint8_t> qtable[4], dctable[4], actable[4];  // whole markers, as they are written again
+  bool have_q[4] = {false}, have_dc[4] = {false}, have_ac[4] = {false};
+  int64_t restart = restart_tag;
+  bool sof = false, sos = false;
+  uint8_t sof_marker = 0xC0;
+  uint32_t sof_y = 0, sof_x = 0;
+  uint8_t sof_c[3] = {0, 1, 2}, sof_hv[3] = {0x11, 0x11, 0x11}, sof_tq[3] = {0, 0, 0}, sos_cs[3] = {0, 1, 2},
+          sos_tda[3] = {0, 0, 0};
+  size_t p = 0;
+  auto byte = [&]() -> int {
+    if (p >= in.size()) throw 0;
+    return in[p++];
+  };
+  auto word = [&]() { const int hi = byte(); return hi << 8 | byte(); };
+  // the first pass (subsamplingcorrect): up to the first SOF, for the YCbCr factors
+  auto scan_markers = [&](bool correct) -> int {
+    p = 0;
+    while (true) {
+      if (p >= in.size()) return kTiffJpegStream;
+      if (in[p] != 0xFF) return kOk;
+      p++;
+      int m;
+      do m = byte(); while (m == 0xFF);
+      if (m == 0xD8) continue;
+      if (m == 0xFE || (m >= 0xE0 && m <= 0xEF)) {
+        const int n = word();
+        if (n < 2) return kTiffJpegStream;
+        p += (size_t)n - 2;
+        continue;
+      }
+      if (m == 0xDD) {  // DRI
+        if (word() != 4) return kTiffJpegStream;
+        const int r = word();
+        if (!correct) restart = r;
+        continue;
+      }
+      if (m == 0xDB) {  // DQT: tables of 65 bytes
+        int n = word();
+        if (n < 3) return kTiffJpegStream;
+        n -= 2;
+        while (n > 0) {
+          if (n < 65) return kTiffJpegStream;
+          if (p + 65 > in.size()) throw 0;
+          const int id = in[p] & 15;
+          if (id > 3) return kTiffJpegStream;
+          if (!correct) {
+            qtable[id].assign({0xFF, 0xDB, 0, 67});
+            qtable[id].insert(qtable[id].end(), in.begin() + p, in.begin() + p + 65);
+            have_q[id] = true;
+          }
+          p += 65;
+          n -= 65;
+        }
+        continue;
+      }
+      if (m == 0xC4) {  // DHT: the whole marker, one table
+        const int n = word();
+        if (n <= 2) return kTiffJpegStream;
+        if (p + n - 2 > in.size()) throw 0;
+        if (!correct) {
+          const int id = in[p];
+          std::vector<uint8_t> marker = {0xFF, 0xC4, (uint8_t)(n >> 8), (uint8_t)n};
+          marker.insert(marker.end(), in.begin() + p, in.begin() + p + n - 2);
+          if ((id & 0xF0) == 0 && id <= 3) {
+            dctable[id] = marker;
+            have_dc[id] = true;
+          } else if ((id & 0xF0) == 0x10 && (id & 15) <= 3) {
+            actable[id & 15] = marker;
+            have_ac[id & 15] = true;
+          } else {
+            return kTiffJpegStream;
+          }
+        }
+        p += (size_t)n - 2;
+        continue;
+      }
+      if (m == 0xC0 || m == 0xC1 || m == 0xC3) {  // OJPEGReadHeaderInfoSecStreamSof
+        if (!correct && sof) return kTiffJpegStream;
+        int n = word();
+        if (n < 11 || (n - 8) % 3) return kTiffJpegStream;
+        n = (n - 8) / 3;
+        if (!correct && n != o->samples) return kTiffJpegStream;
+        if (byte() != 8) return kTiffJpegStream;
+        const uint32_t y = (uint32_t)word(), x = (uint32_t)word();
+        if (byte() != n) return kTiffJpegStream;
+        if (!correct) {
+          if (y < o->height || x != o->width)
+            return kTiffJpegStream;  // "unexpected height", "unexpected width", "width exceeds expected"
+          sof_y = y, sof_x = x;
+          sof_marker = (uint8_t)m;
+        }
+        for (int q = 0; q < n; q++) {
+          const int c = byte(), hv = byte(), tq = byte();
+          if (correct) {
+            if (q == 0) {
+              hs = (uint32_t)hv >> 4, vs = (uint32_t)hv & 15;
+              auto ok = [](uint32_t v) { return v == 1 || v == 2 || v == 4; };
+              if (!ok(hs) || !ok(vs)) o->forced = true;
+            } else if (hv != 0x11) {
+              o->forced = true;
+            }
+            continue;
+          }
+          if (q < 3) sof_c[q] = (uint8_t)c, sof_hv[q] = (uint8_t)hv, sof_tq[q] = (uint8_t)tq;
+          if (!o->forced && hv != (q == 0 ? (int)(hs << 4 | vs) : 0x11)) return kTiffJpegStream;
+        }
+        if (correct) return kOk;
+        sof = true;
+        continue;
+      }
+      if (m == 0xDA) {  // OJPEGReadHeaderInfoSecStreamSos
+        if (correct) return kOk;
+        if (!sof) return kTiffJpegStream;
+        if (word() != 6 + o->samples * 2 || byte() != o->samples) return kTiffJpegStream;
+        for (int q = 0; q < o->samples; q++) sos_cs[q] = (uint8_t)byte(), sos_tda[q] = (uint8_t)byte();
+        p += 3;
+        sos = true;
+        return kOk;
+      }
+      return kTiffJpegStream;  // "Unknown marker type"
+    }
+  };
+  if (o->samples == 3 && o->ycbcr) {
+    try {
+      scan_markers(true);  // its faults are libtiff's silent ones: the pass just stops
+    } catch (int) {
+    }
+    if (o->forced) hs = vs = 1;
+  }
+  try {
+    if (multi) {
+      auto ok = [](uint32_t v) { return v == 1 || v == 2 || v == 4; };
+      if (!ok(hs) || !ok(vs)) return kTiffOjpeg;  // "Invalid subsampling values"
+      if (o->strip_rows % (vs * 8)) return kTiffOjpeg;  // "Incompatible vertical subsampling and image strip/tile length"
+      restart = (int64_t)((o->width + hs * 8 - 1) / (hs * 8)) * (o->strip_rows / (vs * 8));
+    }
+    const int rc = scan_markers(false);
+    if (rc) return rc;
+  } catch (int) {
+    return kTruncated;  // the bytes end inside a marker
+  }
+  if (sof && !sos) return kTiffJpegStream;
+  const size_t sos_end = p;
+  if (!sof) {  // the tables route: the frame from the tags
+    // OJPEGWriteStreamSof writes the tags' size in 16 bits.  A width past
+    // 65535 then differs from the frame libjpeg decodes, which libtiff
+    // refuses after jpeg_start_decompress (or libjpeg refuses first, a
+    // size of 0 or past 65500); a height past it leaves the rows below the
+    // cut height to whatever libtiff's buffers held, which Pillow shows
+    if (o->width > 0xFFFF) return kTiffJpegStream;
+    if (o->height > 0xFFFF) return (o->height & 0xFFFF) - 1u < 65500u ? kTiffOjpeg : kTiffJpegStream;
+    auto fetch = [&](uint32_t at, size_t n, std::vector<uint8_t>* out) {
+      if (at > size || n > size - at) return false;
+      out->insert(out->end(), file + at, file + at + n);
+      return true;
+    };
+    if (qt.empty() || qt[0] == 0) return kTiffOjpeg;  // "Missing JPEG tables"
+    for (int m = 0; m < o->samples; m++) {
+      auto table_of = [&](const std::vector<uint32_t>& offs, int m) -> uint32_t { return m < (int)offs.size() ? offs[m] : 0; };
+      auto repeats = [&](const std::vector<uint32_t>& offs) {
+        for (int n = 0; n < m - 1; n++)
+          if (table_of(offs, m) == table_of(offs, n)) return true;
+        return false;
+      };
+      const uint32_t q = table_of(qt, m), d = table_of(dct, m), a = table_of(act, m);
+      if (q != 0 && (m == 0 || q != table_of(qt, m - 1))) {
+        if (repeats(qt)) return kTiffJpegStream;  // "Corrupt JpegQTables tag value"
+        qtable[m] = {0xFF, 0xDB, 0, 67, (uint8_t)m};
+        if (!fetch(q, 64, &qtable[m])) return kTruncated;
+        have_q[m] = true;
+        sof_tq[m] = (uint8_t)m;
+      } else if (m > 0) {
+        sof_tq[m] = sof_tq[m - 1];
+      }
+      for (int ac = 0; ac < 2; ac++) {
+        const uint32_t at = ac ? a : d;
+        const std::vector<uint32_t>& offs = ac ? act : dct;
+        std::vector<uint8_t>* table = ac ? actable : dctable;
+        bool* have = ac ? have_ac : have_dc;
+        if (at != 0 && (m == 0 || at != table_of(offs, m - 1))) {
+          if (repeats(offs)) return kTiffJpegStream;
+          std::vector<uint8_t> counts16;
+          if (!fetch(at, 16, &counts16)) return kTruncated;
+          size_t total = 0;
+          for (uint8_t c : counts16) total += c;
+          table[m] = {0xFF, 0xC4, (uint8_t)((19 + total) >> 8), (uint8_t)(19 + total), (uint8_t)(ac << 4 | m)};
+          table[m].insert(table[m].end(), counts16.begin(), counts16.end());
+          if (!fetch(at + 16, total, &table[m])) return kTruncated;
+          have[m] = true;
+          sos_tda[m] = (uint8_t)(ac ? (sos_tda[m] | m) : m << 4);
+        } else if (m > 0) {
+          sos_tda[m] = (uint8_t)(ac ? ((sos_tda[m] & 0xF0) | (sos_tda[m - 1] & 15)) : (sos_tda[m - 1] & 0xF0));
+        }
+      }
+    }
+    sof_marker = 0xC0;
+    for (int m = 0; m < o->samples; m++) sof_c[m] = (uint8_t)m, sof_hv[m] = 0x11, sos_cs[m] = (uint8_t)m;
+    sof_hv[0] = (uint8_t)(hs << 4 | vs);
+    sof_x = o->width;
+    sof_y = o->height;
+  }
+  // OJPEGWriteStream
+  std::vector<uint8_t>& s = o->stream;
+  s = {0xFF, 0xD8};
+  for (int m = 0; m < 4; m++)
+    if (have_q[m]) s.insert(s.end(), qtable[m].begin(), qtable[m].end());
+  for (int m = 0; m < 4; m++)
+    if (have_dc[m]) s.insert(s.end(), dctable[m].begin(), dctable[m].end());
+  for (int m = 0; m < 4; m++)
+    if (have_ac[m]) s.insert(s.end(), actable[m].begin(), actable[m].end());
+  if (restart > 0) s.insert(s.end(), {0xFF, 0xDD, 0, 4, (uint8_t)(restart >> 8), (uint8_t)restart});
+  const int n = o->samples;
+  s.insert(s.end(), {0xFF, sof_marker, 0, (uint8_t)(8 + 3 * n), 8, (uint8_t)(sof_y >> 8), (uint8_t)sof_y,
+                     (uint8_t)(sof_x >> 8), (uint8_t)sof_x, (uint8_t)n});
+  for (int m = 0; m < n; m++) s.insert(s.end(), {sof_c[m], sof_hv[m], sof_tq[m]});
+  s.insert(s.end(), {0xFF, 0xDA, 0, (uint8_t)(6 + 2 * n), (uint8_t)n});
+  for (int m = 0; m < n; m++) s.insert(s.end(), {sos_cs[m], sos_tda[m]});
+  s.insert(s.end(), {0, 63, 0});
+  size_t at = sos_end;
+  int rst = 0;
+  for (size_t k = 0; k < strip_end.size(); k++) {
+    if (strip_end[k] <= at) continue;
+    s.insert(s.end(), in.begin() + at, in.begin() + strip_end[k]);
+    at = strip_end[k];
+    if (k + 1 < strip_end.size()) {
+      s.insert(s.end(), {0xFF, (uint8_t)(0xD0 + rst)});
+      rst = (rst + 1) & 7;
+    }
+  }
+  if (at < in.size()) s.insert(s.end(), in.begin() + at, in.end());
+  s.insert(s.end(), {0xFF, 0xD9});
+  o->hs = hs, o->vs = vs;
+  return kOk;
 }
 
 // The pixel kinds read (Pillow's mode and raw mode).
@@ -514,14 +852,16 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
 
   // compression and pixel kind, by Pillow's OPEN_INFO key
   const uint32_t compression = one(kCompression, 1);
-  if (compression == 6) return kTiffJpeg;  // old-style JPEG
-  const bool jpeg = compression == 7;
-  const bool ccitt = (compression >= 2 && compression <= 4) || compression == 32771;
   if (compression == 34676 || compression == 34677) return kTiffLogLuv;
-  const bool deflate = compression == 8 || compression == 32946;
-  if (compression != 1 && compression != 5 && compression != 32773 && !deflate && !jpeg && !ccitt)
-    return kTiffCompression;
-  const bool raw = compression == 1;  // Pillow's own raw decoder; libtiff for the rest
+  const CodecOf* found = nullptr;
+  for (const CodecOf& c : kCodecs)
+    if (c.compression == compression) found = &c;
+  if (!found) return kTiffCompression;
+  const Codec codec = found->codec;
+  const bool ojpeg = codec == kOldJpeg;
+  const bool jpeg = codec == kJpeg;
+  const bool ccitt = codec == kCcitt;
+  const bool raw = codec == kRaw;  // Pillow's own raw decoder; libtiff for the rest
   const uint32_t photometric = one(kPhotometric, 0);  // Pillow's default: MinIsWhite
   if (photometric == 32844 || photometric == 32845) return kTiffLogLuv;
   if (photometric > 3 && photometric != 5 && photometric != 6 && photometric != 8) return kTiffPhotometric;
@@ -551,7 +891,15 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   const bool big = f.big;
   Kind kind;
   bool invert = photometric == 0, unpremultiply = false, fill_known = fill == 1;
-  if (photometric <= 1 && samples == 1 && extras.empty() && format == 1 && (bps == 1 || bps == 2 || bps == 4)) {
+  if (ojpeg) {
+    // Pillow keys old JPEG as YCbCr whatever the tag (L of one sample, RGB of three);
+    // libtiff's codec gives gray samples as they are and YCbCr to TIFFRGBAImage
+    if (!tag(kSamples).present || planar || fill != 1 || format != 1 || !extras.empty() || bps != 8 ||
+        !((samples == 1 && photometric <= 1) || (samples == 3 && photometric == 6)))
+      return kTiffOjpeg;
+    kind = samples == 1 ? kGray : kRgb;
+    invert = false;
+  } else if (photometric <= 1 && samples == 1 && extras.empty() && format == 1 && (bps == 1 || bps == 2 || bps == 4)) {
     kind = bps == 1 ? kBilevel : kGray;  // 1;I 1 L;2I L;2 L;4I L;4, and each with R (FillOrder 2)
     fill_known = true;
   } else if (photometric <= 1 && samples == 1 && extras.empty() && bps == 8 && format <= 2 &&
@@ -615,8 +963,9 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   if (ccitt && kind != kBilevel && !(kind == kPalette && bps == 1)) return kTiffCcitt;
   if (jpeg && !(bps == 8 && format == 1 && extras.empty() && fill == 1 &&
                 ((kind == kGray && samples == 1) || ((kind == kRgb || kind == kLab) && samples == 3) ||
-                 (kind == kCmyk && samples == 4))))
-    return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples, as Pillow reads them here
+                 (kind == kCmyk && samples == 4))) &&
+      !(bps == 12 && kind == kGray16))
+    return kTiffJpeg;  // libtiff's JPEG codec: 8-bit samples and 12-bit gray, as Pillow reads them here
   // YCbCr: Pillow's raw decoder reads an uncompressed file as RGBX, four
   // bytes a pixel, unconverted; libjpeg converts it under JPEG in one
   // plane; libtiff's TIFFRGBAImage under LZW, Deflate and PackBits
@@ -624,7 +973,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // one-component stream, read as it is)
   const bool ycbcr = photometric == 6 && samples == 3;
   const bool rgbx = ycbcr && raw && !planar;
-  const bool ycbcr_rgba = ycbcr && !raw && !jpeg;
+  const bool ycbcr_rgba = ycbcr && !raw && !jpeg && !ojpeg;
   const bool ycbcr_planes = ycbcr && jpeg && planar;
   uint32_t hs = 2, vs = 2;  // YCbCrSubsampling: libtiff's default 2, 2
   if (ycbcr && tag(kYcbcrSubsampling).present) {
@@ -633,12 +982,15 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     vs = tag(kYcbcrSubsampling).v[1];
   }
   float luma[3] = {0.299f, 0.587f, 0.114f}, rbw[6] = {0, 255, 128, 255, 128, 255};
-  if (ycbcr_rgba || ycbcr_planes) {
+  auto put_routine = [](uint32_t h, uint32_t v) {  // TIFFRGBAImage's putcontig8bitYCbCr routines
+    const uint32_t code = h << 4 | v;
+    return code == 0x11 || code == 0x12 || code == 0x21 || code == 0x22 || code == 0x41 || code == 0x42 || code == 0x44;
+  };
+  if (ycbcr_rgba || ycbcr_planes || (ojpeg && ycbcr)) {
     // libtiff's strip and scanline sizes take 1, 2 or 4 alone; put routines
-    // exist for these; separate planes, 1 x 1 alone
+    // exist for these; separate planes, 1 x 1 alone (old JPEG's are the codec's, checked later)
     const uint32_t code = hs << 4 | vs;
-    if (code != 0x11 && code != 0x12 && code != 0x21 && code != 0x22 && code != 0x41 && code != 0x42 && code != 0x44)
-      return kTiffYcbcr;
+    if (!ojpeg && !put_routine(hs, vs)) return kTiffYcbcr;
     if (planar && code != 0x11) return kTiffYcbcr;
     if (tag(kYcbcrCoefficients).present) {
       if (tag(kYcbcrCoefficients).f.size() != 3) return kTiffDirectory;
@@ -657,6 +1009,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     return kTiffLayout;  // no key of Pillow's holds FillOrder 2 with these samples
   if (!raw && !(whole && libtiff_header)) return kTiffDirectory;
   const bool tiled = tag(kTileOffsets).present || (!tag(kStripOffsets).present && tag(kTileWidth).present);
+  if (ojpeg && tiled) return kTiffOjpeg;
   // Pillow's raw decoder reads each plane of separate planes with one
   // character of the raw mode: 1 (1-bit, not inverted), L, P, R, G, B, A, C,
   // M, Y, K (a byte, whatever the samples' depth: a 2- or 4-bit or a 16-bit
@@ -688,7 +1041,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // renamed (I;16BS, F;32BF): each such sample reads byte-swapped
   const bool byteswap = !raw && big && (kind == kSigned16 || kind == kInt32 || kind == kFloat);
   const uint32_t predictor = one(kPredictor, 1);
-  const bool predict = (compression == 5 || deflate) && predictor != 1;
+  const bool predict = found->predictor && predictor != 1;
   if (predict && (predictor != 2 || (bps != 8 && bps != 16 && bps != 32)))
     return kTiffPredictor;  // libtiff's PredictorSetup
   std::vector<uint8_t> cmap;  // Pillow's "RGB;L" palette: every red, then every green, then every blue
@@ -719,6 +1072,9 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     if (ch == 0) return kTiffDirectory;
     if (ch > height) ch = height;
   }
+  // libtiff packs a 12-bit JPEG row's samples two at a time: an odd row's
+  // last is never written, and Pillow shows what its buffer held there
+  if (jpeg && bps == 12 && (cw & 1)) return kTiffJpeg12Odd;
   const uint64_t across = (width + cw - 1) / cw, down = (height + ch - 1) / ch;
   const uint64_t chunks = across * down * planes;
   const std::vector<uint32_t>& offsets = tag(tiled ? kTileOffsets : kStripOffsets).v;
@@ -786,7 +1142,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   // (LZWPreDecode): the old codes where that chunk's data (their bits
   // reversed under FillOrder 2) begin with 0x00 and an odd byte
   bool lzw_old = false;
-  if (compression == 5 && chunks && offsets[0] <= size && counts.v[0] >= 2 && counts.v[0] <= size - offsets[0]) {
+  if (codec == kLzw && chunks && offsets[0] <= size && counts.v[0] >= 2 && counts.v[0] <= size - offsets[0]) {
     uint8_t first[2] = {file[offsets[0]], file[offsets[0] + 1]};
     if (reverse) reverse_bits(first, 2);
     lzw_old = first[0] == 0 && (first[1] & 1);
@@ -833,12 +1189,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
         int rc;
         if (ccitt)
           rc = decode_ccitt(in, count, offset, compression, one(kT4Options, 0), cw, rows, row_bytes, buffer.data());
-        else if (compression == 5)
-          rc = lzw_decode(in, count, buffer.data(), need, lzw_old);
-        else if (deflate)
-          rc = deflate_decode(in, count, buffer.data(), need);
         else
-          rc = packbits_decode(in, count, buffer.data(), need);
+          rc = inflate_chunk(codec, in, count, buffer.data(), need, lzw_old);
         if (rc) return rc;
         if (predict)
           for (uint32_t r = 0; r < rows; r++) undo_predictor(buffer.data() + row_bytes * r, row_bytes, bps, per_plane, big);
@@ -860,9 +1212,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     return kOk;
   };
   auto inflate = [&](const uint8_t* in, size_t count, uint8_t* out, size_t need) -> int {
-    if (compression == 5) return lzw_decode(in, count, out, need, lzw_old);
-    if (deflate) return deflate_decode(in, count, out, need);
-    return packbits_decode(in, count, out, need);
+    return inflate_chunk(codec, in, count, out, need, lzw_old);
   };
   // JPEG: each strip or tile a JPEG stream after the JPEGTables stream, held
   // to the tags as libtiff's JPEGPreDecode holds it; in separate planes
@@ -877,6 +1227,7 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
     const bool convert = ycbcr && !planar;  // libjpeg's YCbCr -> RGB
     JpegFrame frame;
     std::vector<uint8_t> pixels;
+    std::vector<uint16_t> pixels12;
     for (uint64_t c = 0; c < chunks; c++) {
       const uint32_t plane = (uint32_t)(c / (across * down)), at = (uint32_t)(c % (across * down));
       const uint32_t x0 = (uint32_t)(at % across) * cw, y0 = (uint32_t)(at / across) * ch;
@@ -884,7 +1235,10 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
       const uint8_t* in;
       size_t count;
       int rc = coded(c, &in, &count);
-      if (!rc) rc = decode_jpeg_tiff(tables, tables_size, in, count, convert, (int)components, &frame, &pixels);
+      if (!rc && bps == 12)
+        rc = decode_jpeg_tiff12(tables, tables_size, in, count, &frame, &pixels12);
+      else if (!rc)
+        rc = decode_jpeg_tiff(tables, tables_size, in, count, convert, (int)components, &frame, &pixels);
       if (rc) return rc;
       if (c == 0 && convert && !tag(kYcbcrSubsampling).present) {
         // JPEGFixupTagsSubsampling: without the tag, the first chunk's luma
@@ -906,6 +1260,12 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
       if ((uint32_t)frame.w != cw ||
           !((uint32_t)frame.h == seg_h || (!tiled && (uint32_t)frame.h > seg_h && y0 + seg_h == height)))
         return kTiffJpegStream;
+      if (bps == 12) {
+        for (uint32_t r = 0; r < used; r++)
+          for (uint32_t x = 0; x < cols; x++)
+            px16[(size_t)(y0 + r) * width + x0 + x] = pixels12[(size_t)r * frame.w + x];
+        continue;
+      }
       for (uint32_t r = 0; r < used; r++)
         for (uint32_t x = 0; x < cols; x++)
           for (uint32_t k = 0; k < components; k++)
@@ -919,6 +1279,46 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
         tabs.rgb(p[0], p[1], p[2], p);
       }
     }
+    return kOk;
+  };
+  // old JPEG: the stream ojpeg_rebuild makes, its YCbCr read raw (libjpeg's
+  // raw_data_out) into TIFFRGBAImage's put routine (each pixel its own Y
+  // and its block's Cb and Cr, libtiff's conversion), gray as it is
+  auto read_ojpeg = [&]() -> int {
+    Ojpeg o;
+    o.width = width, o.height = height, o.strip_rows = ch, o.samples = (int)samples, o.ycbcr = ycbcr, o.hs = hs,
+    o.vs = vs;
+    auto first = [&](int id) -> uint64_t { return tag(id).present ? tag(id).v[0] : 0; };
+    int rc = ojpeg_rebuild(file, size, first(kJpegInterchange), first(kJpegInterchangeLength),
+                           (int64_t)first(kJpegRestartInterval), tag(kJpegQTables).v, tag(kJpegDcTables).v,
+                           tag(kJpegAcTables).v, offsets, counts.v, &o);
+    if (rc) return rc;
+    // a stream whose factors TIFF has no name for: libtiff 4.7.1's codec
+    // would upsample inside libjpeg, and its reading fails there
+    if (o.forced) return kTiffOjpeg;
+    if (ycbcr && !put_routine(o.hs, o.vs)) return kTiffYcbcr;
+    const YcbcrTables tabs(luma, rbw);
+    JpegFrame frame;
+    if (ycbcr) {
+      std::vector<uint8_t> planes[4];
+      int strides[4];
+      rc = decode_jpeg_planes(o.stream.data(), o.stream.size(), &frame, planes, strides);
+      if (rc) return rc;
+      if ((uint32_t)frame.w != width || (uint32_t)frame.h < height) return kTiffJpegStream;
+      for (uint32_t y = 0; y < height; y++)
+        for (uint32_t x = 0; x < width; x++) {
+          const size_t c = (size_t)(y / o.vs) * strides[1] + x / o.hs;
+          tabs.rgb(planes[0][(size_t)y * strides[0] + x], planes[1][c], planes[2][(size_t)(y / o.vs) * strides[2] + x / o.hs],
+                   px16.data() + 3 * ((size_t)y * width + x));
+        }
+      return kOk;
+    }
+    std::vector<uint8_t> pixels;  // gray: the samples as they are
+    rc = decode_jpeg_tiff(nullptr, 0, o.stream.data(), o.stream.size(), false, 1, &frame, &pixels);
+    if (rc) return rc;
+    if ((uint32_t)frame.w != width || (uint32_t)frame.h < height) return kTiffJpegStream;
+    for (uint32_t y = 0; y < height; y++)
+      for (uint32_t x = 0; x < width; x++) px16[(size_t)y * width + x] = pixels[(size_t)y * frame.w + x];
     return kOk;
   };
   // YCbCr under LZW, Deflate or PackBits: Pillow's _decodeAsRGBA, one
@@ -986,6 +1386,8 @@ int decode_tiff(const uint8_t* file, size_t size, uint8_t* rgb, int* h, int* w) 
   };
   if (jpeg)
     rc = read_jpeg();
+  else if (ojpeg)
+    rc = read_ojpeg();
   else if (ycbcr_rgba)
     rc = read_ycbcr();
   else

@@ -70,18 +70,22 @@ both paths of the port at full width (``ModelSpec()``):
   raster and 32-bit gray TIFF layouts, 12-bit gray and CCITT palette
   TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV
   thumbnail layouts, IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF
-  layouts, and the kinds refused by name among them: ICCLab, MM BigTIFF,
-  CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000 in ICNS,
-  old-style JPEG TIFF, MPEG, an IPTC field length Pillow calls
-  illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
+  layouts, LZMA, ZSTD, old-style JPEG and 12-bit JPEG TIFF layouts through
+  the port's own .xz and Zstandard decoders (the library links neither
+  liblzma nor libzstd), and the kinds refused by name among them: ICCLab,
+  MM BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000
+  in ICNS, an .xz BCJ filter, a Zstandard dictionary, MPEG, an IPTC field
+  length Pillow calls illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
   the YCC;P and YCbCr -> RGB conversions of every triple held to the
   hashes of Pillow's tables, the PNG decode bit-equal to data/png.py's on
   smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
   cli.prep on JPEG originals and, in one process, on every slice's
   originals of the Pillow lane (WebP, JPEG-kind, Pillow-lane,
   GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF, DDS/BLP/FTEX/ICNS/Sun/TIFF,
-  12-bit TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR and IM/IMT/IPTC/PCD/SPIDER/
-  old-style LZW TIFF) held to the JAX package's pyramid of them ("io
+  12-bit TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR, IM/IMT/IPTC/PCD/SPIDER/
+  old-style LZW TIFF and ZSTD/LZMA/old-style and 12-bit JPEG TIFF/PNG
+  with chunks after its image data) held to the JAX package's pyramid
+  of them ("io
   prep"), and the training CLI on a set with JPEG, WebP,
   palette and 16-bit BMP, BC7 DDS, ICNS, FITS and FLC files among its
   PNGs, stopped by SIGTERM and resumed with
@@ -117,6 +121,7 @@ import os
 import re
 import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3380,11 +3385,13 @@ def io_checks(tmp) -> dict:
                             check=True).stdout
     libs = sorted({line.split()[0] for line in linked.splitlines() if line.strip()})
     require(any(lib.startswith("libz.") for lib in libs), f"the library does not link zlib: {libs}")
-    require(not any("png" in lib or "jpeg" in lib or "webp" in lib for lib in libs),
-            f"the library links libpng, libjpeg or libwebp: {libs}")
+    require(not any(k in lib for lib in libs for k in ("png", "jpeg", "webp", "lzma", "zstd")),
+            f"the library links libpng, libjpeg, libwebp, liblzma or libzstd: {libs}")
     print(f"io: {gxx}; headers {headers}; {native_build.LIBRARY.name} built in {build_s:.2f} s by "
-          f"{' '.join(native_build.command(native_build.LIBRARY.name)[:5])} ... {' '.join(native_build.LIBS)}; "
-          f"links {', '.join(libs)} (zlib only: no libpng, no libjpeg, no libwebp)")
+          f"{' '.join(['g++', *native_build.FLAGS])} -c of its {len(native_build.SOURCES)} sources, "
+          f"{len(os.sched_getaffinity(0))} at once, then "
+          f"g++ -shared ... {' '.join(native_build.LIBS)}; "
+          f"links {', '.join(libs)} (zlib only: no libpng, no libjpeg, no libwebp, no liblzma, no libzstd)")
 
     fx = codec_fixtures()
 
@@ -3398,7 +3405,7 @@ def io_checks(tmp) -> dict:
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
                                    f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/",
-                                   f"{fx.IMIPS}/"))]
+                                   f"{fx.IMIPS}/", f"{fx.LZO}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3501,6 +3508,23 @@ def io_checks(tmp) -> dict:
           f"RGB ({', '.join(sorted(imips_card))}); the YCC;P (PhotoCD) and YCbCr -> RGB conversions of all 2^24 "
           f"triples hash to Pillow 12.1.0's tables (the manifest's ycc_table and ycbcr_table), {conversion_s:.3f} s "
           "for both")
+    lzo = [m for m in matched if m.startswith(f"{fx.LZO}/")]
+    lzo_read = [m for m in lzo if "@" not in m]
+    lzo_refused = [m for m in lzo if m.endswith("@refused")]
+    lzo_kind = {k: sum(f"/{k}/" in m for m in lzo_read) for k in ("lzma", "zstd", "ojpeg", "jpeg12")}
+    require(min(lzo_kind.values()) >= 5 and len(lzo_refused) >= 15,
+            f"the manifest holds LZMA, ZSTD, old-style and 12-bit JPEG TIFF layouts {lzo_kind} and "
+            f"{len(lzo_refused)} of their refusals")
+    lzo_card = fx.check_lzo_card(written, images.read_image)
+    print(f"io fixtures: {len(lzo_read)} LZMA, ZSTD, old-style JPEG and 12-bit JPEG TIFF layouts decoded to Pillow "
+          f"12.1.0's RGB ({', '.join(f'{k} {v}' for k, v in lzo_kind.items())}: the port's .xz and Zstandard "
+          f"decoders (native/xz.cpp, native/zstd.cpp; this machine has no liblzma or libzstd to link), libtiff's "
+          f"old-JPEG stream rebuilt, libjpeg-turbo's 12-bit IDCT: {', '.join(m.split('/', 1)[1] for m in lzo_read)}) "
+          f"and {len(lzo_refused)} refused with Pillow's verdict "
+          f"({', '.join(os.path.basename(m)[:-8] for m in lzo_refused)}); {len(lzo_card)} card originals of this "
+          f"slice, {len(lzo_card) - len(fx.LZO_COMMITTED_CARD)} written here by the fixtures' numpy writers and the "
+          f"port's JPEG encoder, each the manifest's bytes, and each decoded to Pillow's RGB "
+          f"({', '.join(sorted(lzo_card))})")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3534,7 +3558,8 @@ def io_checks(tmp) -> dict:
           f"here by the fixtures' seeded writers (the JPEG TIFF's streams by the port's encoder), each the "
           f"manifest's bytes and decoded to Pillow's RGB ({', '.join(map(os.path.basename, card_paths))})")
     hashes = (len(matched) + len(card_paths) + len(raster_card) - len(fx.RASTER_COMMITTED_CARD) + len(dbfis_card)
-              + len(legacy_card) + len(imips_card) + 3)  # + the Lab, YCC;P and YCbCr tables
+              + len(legacy_card) + len(imips_card) + len(lzo_card) - len(fx.LZO_COMMITTED_CARD)
+              + 3)  # + the Lab, YCC;P and YCbCr tables
     print(f"io fixtures: {hashes} of {hashes} hashes matched: "
           f"{len(files)} JPEG/PNG files decoded to "
           f"libjpeg-turbo's / libpng's RGB ({', '.join(files)}), {len(encodes)} encodes to libjpeg's bytes "
@@ -3559,8 +3584,9 @@ def io_checks(tmp) -> dict:
           f"DDS/BLP/FTEX/ICNS/Sun/TIFF files and {len(dbfis_card)} written card originals (above); {len(legacy)} "
           f"12-bit and CCITT palette TIFF, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas and XV files and "
           f"{len(legacy_card)} written card originals (above); {len(imips)} IM, IMT, IPTC, PCD, SPIDER and old-style "
-          f"LZW TIFF files and {len(imips_card)} written card originals (above); the Lab, YCC;P and YCbCr tables "
-          "(above)")
+          f"LZW TIFF files and {len(imips_card)} written card originals (above); {len(lzo)} LZMA, ZSTD, old-style "
+          f"and 12-bit JPEG TIFF files and {len(lzo_card) - len(fx.LZO_COMMITTED_CARD)} written card originals "
+          "(above); the Lab, YCC;P and YCbCr tables (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3624,6 +3650,7 @@ def io_checks(tmp) -> dict:
     out["dbfis_card"] = dbfis_card
     out["legacy_card"] = legacy_card
     out["imips_card"] = imips_card
+    out["lzo_card"] = lzo_card
     return out
 
 
@@ -3955,6 +3982,58 @@ def imips_codec_times(paths: dict) -> dict:
     return ms
 
 
+def lzo_codec_times(paths: dict) -> dict:
+    """The "time codecs TIFF LZMA, ZSTD, OJPEG, 12-bit JPEG" phase
+    (``io_main`` runs it; ``main`` does not): host ms of each new kind of
+    this slice, one call at a time on one thread (median of
+    ``CODEC_REPEATS``), on the card's 1024 px originals (``paths``: name ->
+    path): a ZSTD RGB TIFF after Predictor 2 and an LZMA RGB TIFF of Delta
+    (64-row strips each), an old-style JPEG TIFF of 2 x 2 YCbCr, a 12-bit
+    gray JPEG TIFF (64-row strips, JPEGTables) and a PNG with chunks after
+    its image data in both lanes; and the .xz and Zstandard decoders alone
+    on the two TIFFs' strips."""
+    from byogan_tpu_torch.data import images, native
+
+    files = {"tiff_zstd_predictor_1024": "photo-1024-zstd-predictor.tif", "tiff_lzma_delta_1024": "photo-1024-lzma.tif",
+             "tiff_ojpeg_2x2_1024": "photo-1024-ojpeg-2x2.tif", "tiff_jpeg12_gray_1024": "scan-1024-jpeg12.tif",
+             "png_chunks_after_native_1024": "photo-1024-chunks-after.png"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    ms["png_chunks_after_pillow_1024"] = host_ms(
+        lambda: images.read_image(paths["photo-1024-chunks-after.png"], lane="pillow"))
+    strips = {}
+    for kind, name in (("zstd", "photo-1024-zstd-predictor.tif"), ("xz", "photo-1024-lzma.tif")):
+        with open(paths[name], "rb") as f:
+            data = f.read()
+        offsets, counts = tiff_strips(data)
+        strips[kind] = [data[o:o + c] for o, c in zip(offsets, counts)]
+        occ = 64 * 1024 * 3
+        for chunk in strips[kind]:
+            require(native.stream_decode(kind, chunk, occ)[0] == 0, f"a {kind} strip of {name} does not decode")
+        ms[f"{kind}_strips_only_1024"] = host_ms(lambda: [native.stream_decode(kind, c, occ) for c in strips[kind]])
+    print(f"time codecs: TIFF LZMA, ZSTD, old-style JPEG, 12-bit JPEG and PNG past its image data, host ms, median of "
+          f"{CODEC_REPEATS} calls, one thread, {PREP_SIDE} px: TIFF ZSTD after Predictor 2 "
+          f"{ms['tiff_zstd_predictor_1024']:.3f} (the 16 strips' frames alone {ms['zstd_strips_only_1024']:.3f}), "
+          f"TIFF LZMA of Delta {ms['tiff_lzma_delta_1024']:.3f} (the .xz streams alone "
+          f"{ms['xz_strips_only_1024']:.3f}), TIFF old-style JPEG 2 x 2 {ms['tiff_ojpeg_2x2_1024']:.3f}, TIFF 12-bit "
+          f"gray JPEG {ms['tiff_jpeg12_gray_1024']:.3f}, PNG with chunks after its image data: native lane "
+          f"{ms['png_chunks_after_native_1024']:.3f}, Pillow lane {ms['png_chunks_after_pillow_1024']:.3f}; card "
+          f"{card_name()}")
+    return ms
+
+
+def tiff_strips(data: bytes) -> tuple:
+    """A little-endian classic TIFF's StripOffsets and StripByteCounts (LONG
+    arrays), read here to time the strip decoders alone."""
+    at = struct.unpack_from("<I", data, 4)[0]
+    found = {}
+    for i in range(struct.unpack_from("<H", data, at)[0]):
+        tag, typ, count, value = struct.unpack_from("<HHII", data, at + 2 + 12 * i)
+        if tag in (273, 279):
+            where = value if count * 4 > 4 else at + 2 + 12 * i + 8
+            found[tag] = struct.unpack_from(f"<{count}I", data, where)
+    return found[273], found[279]
+
+
 def prep_pillow_lane_cli(io_state: dict, tmp, root) -> float:
     """``python -m byogan_tpu_torch.cli.prep <dir> 4 512 -y`` once, on every
     slice's originals of the Pillow lane together (``fx.pillow_lane_sources``:
@@ -3987,7 +4066,8 @@ def prep_pillow_lane_cli(io_state: dict, tmp, root) -> float:
     require(matched == 8 * n, f"{matched} prepared images, expected {8 * n}")
     print(f"io prep: cli.prep, one process, of {n} originals of the Pillow lane (every slice's: WebP, the JPEG kinds, "
           f"BMP and 16-bit PNG, GIF, TIFF, PNM, Targa, ICO, PSD, PCX, SGI, QOI, DDS, BLP, FTEX, ICNS, Sun raster, XPM, "
-          f"MSP, FLC, DCX, GBR, FITS, PIXAR, IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF: "
+          f"MSP, FLC, DCX, GBR, FITS, PIXAR, IM, IMT, IPTC, PCD, SPIDER, old-style LZW TIFF, LZMA and ZSTD TIFF, "
+          f"old-style and 12-bit JPEG TIFF and PNG with chunks after its image data: "
           + ", ".join(a if a == b else f"{a} as {b}" for a, b in read_as)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
@@ -4343,8 +4423,9 @@ def io_main() -> int:
     train", which ``main`` runs too, and "time codecs" (the earlier
     slices' "io codecs" lines), "time codecs Lab, BigTIFF, CCITT", "time
     codecs DDS, BLP, FTEX, ICNS, Sun", "time codecs 12-bit TIFF, XBM ...
-    XV", "time codecs IM, IMT, IPTC, PCD, SPIDER" and "time loader", which
-    only this entry point runs."""
+    XV", "time codecs IM, IMT, IPTC, PCD, SPIDER", "time codecs TIFF
+    LZMA, ZSTD, OJPEG, 12-bit JPEG" and "time loader", which only this
+    entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4369,6 +4450,8 @@ def io_main() -> int:
             legacy_codec_times(io_state["legacy_card"])
         with phase("time codecs IM, IMT, IPTC, PCD, SPIDER"):
             imips_codec_times(io_state["imips_card"])
+        with phase("time codecs TIFF LZMA, ZSTD, OJPEG, 12-bit JPEG"):
+            lzo_codec_times(io_state["lzo_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

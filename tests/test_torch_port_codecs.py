@@ -238,7 +238,7 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     files = fx.fixtures()
     assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES)
                                    if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF,
-                                                fx.ICO_PNM_TGA, fx.RASTER, fx.DBFIS, fx.LEGACY, fx.IMIPS))
+                                                fx.ICO_PNM_TGA, fx.RASTER, fx.DBFIS, fx.LEGACY, fx.IMIPS, fx.LZO))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
@@ -247,8 +247,8 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     # pillow/ (test_torch_port_lanes.py does), gif_tiff/ (test_torch_port_gif.py does), ico_pnm_tga/
     # (test_torch_port_pnm_tga.py does), psd_pcx_sgi_qoi/ (test_torch_port_pcx_sgi_qoi.py does),
     # dds_blp_ftex_icns_sun/ (test_torch_port_dds_blp_ftex_icns_sun.py does), legacy_rasters/
-    # (test_torch_port_legacy_rasters.py does) and im_iptc_pcd_spider/ (test_torch_port_im_imt_iptc_pcd_spider.py
-    # does).
+    # (test_torch_port_legacy_rasters.py does), im_iptc_pcd_spider/ (test_torch_port_im_imt_iptc_pcd_spider.py
+    # does) and tiff_lzma_zstd_ojpeg/ (test_torch_port_tiff_lzma_zstd_ojpeg.py does).
     webp = fx.committed_webp()
     assert sorted(webp) == sorted(fx.webp_fixtures())
     assert fx.build_manifest(files, jax_lane, str(tmp_path), webp, fx.committed_kinds(),
@@ -276,16 +276,18 @@ def test_port_matches_the_fixtures(tmp_path):
     planes = sum("sha256_yuv" in e for e in manifest["files"].values())
     pillow = sum("sha256_rgb_pillow" in e for e in manifest["files"].values())
     assert len(matched) == len(manifest["files"]) + planes + pillow + len(fx.SOURCES) * len(fx.QUALITIES)
-    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 10 + len(fx.committed_webp())
+    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 11 + len(fx.committed_webp())
                                       + len(fx.committed_kinds()) + len(fx.committed_pillow())
                                       + len(fx.committed_gif_tiff()) + len(fx.committed_ico_pnm_tga())
                                       + len(fx.committed_raster()) + len(fx.committed_dbfis())
-                                      + len(fx.committed_legacy()) + len(fx.committed_imips()))
+                                      + len(fx.committed_legacy()) + len(fx.committed_imips())
+                                      + len(fx.committed_lzo()))
     assert len(fx.check_card_originals(str(tmp_path), images.read_image)) == len(fx.CARD_ORIGINALS)
     assert len(fx.check_raster_card(str(tmp_path), images.read_image)) == len(fx.RASTER_CARD)
     assert len(fx.check_dbfis_card(str(tmp_path), images.read_image)) == len(fx.DBFIS_CARD)
     assert len(fx.check_legacy_card(str(tmp_path), images.read_image)) == len(fx.LEGACY_CARD)
     assert len(fx.check_imips_card(str(tmp_path), images.read_image)) == len(fx.IMIPS_CARD)
+    assert len(fx.check_lzo_card(str(tmp_path), images.read_image)) == len(fx.LZO_CARD)
 
 
 # --- failures ---------------------------------------------------------------
@@ -385,7 +387,7 @@ def test_eight_threads_equal_one(tmp_path):
     give what one thread gives, and the encoder likewise."""
     paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES))
              if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF, fx.ICO_PNM_TGA, fx.RASTER,
-                          fx.DBFIS, fx.LEGACY, fx.IMIPS)]
+                          fx.DBFIS, fx.LEGACY, fx.IMIPS, fx.LZO)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

@@ -320,7 +320,7 @@ def test_lanes_without_the_libraries(tmp_path, monkeypatch):
     library asks the loader for no png_* or jpeg_* symbol, and both formats
     decode through it (never data/png.py) and JPEG encodes through it."""
     assert native_build.LIBS == ("-lz",)
-    command = " ".join(native_build.command("lib.so"))
+    command = " ".join(native_build.command("lib.so", ["a.o"]))
     assert "-lpng" not in command and "-ljpeg" not in command
     for source in native_build.SOURCES + native_build.HEADERS:
         text = source.read_text()

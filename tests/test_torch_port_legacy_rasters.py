@@ -55,14 +55,14 @@ def test_layout_matches_pillow(tmp_path, name):
 @pytest.mark.parametrize("name", sorted(REFUSALS), ids=lambda n: n.rsplit(".", 1)[0])
 def test_refused_file_raises_naming_the_file_and_the_kind(tmp_path, name):
     """Each refusal names the file and the kind; the manifest records
-    Pillow's verdict beside it (Pillow reads the TIFF kinds sent to fault
-    7's queue item 4, and refuses the rest; old-style LZW is read since,
-    ``tiff/old-style-lzw-gray-7x9.tif`` among the layouts)."""
+    Pillow's verdict beside it, a refusal (the TIFF kinds once sent to
+    fault 7's queue item 4 are read since: old-style LZW,
+    ``tiff/old-style-lzw-gray-7x9.tif`` among the layouts; old-style and
+    12-bit JPEG, ``test_torch_port_tiff_lzma_zstd_ojpeg.py``)."""
     data, reason = REFUSALS[name]
     path = _write(tmp_path, name.rsplit(".", 1)[0] + ".png", data)
     pillow = _pillow(path)
-    assert isinstance(pillow, Exception) == (name not in (
-        "tiff-old-jpeg-interchange.tif", "tiff-jpeg-12-bit-gray.tif")), name
+    assert isinstance(pillow, Exception), name
     with pytest.raises(OSError, match=f"{re.escape(path)}: .*{reason}"):
         images.read_image(path)
 

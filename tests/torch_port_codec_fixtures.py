@@ -45,10 +45,11 @@ what those writers make here.  So are the files under ``pillow/``
 (``tests/test_torch_port_lanes.py`` holds them to this module's BMP and
 PNG writers and the system libjpeg's coefficient writer).
 
-At import this module needs numpy alone: Pillow, libwebp, libjpeg and the
-JAX lane (built from ``byogan_tpu/native/byogan_io.cpp`` into a directory
-the caller names, never the JAX package's own library) are reached inside
-the functions that need them.
+At import this module needs numpy alone: Pillow, libwebp, libjpeg, Python's
+lzma, Pillow's libzstd and libtiff (through ctypes) and the JAX lane (built
+from ``byogan_tpu/native/byogan_io.cpp`` into a directory the caller names,
+never the JAX package's own library) are reached inside the functions that
+need them; the card's written originals need none of them.
 """
 
 from __future__ import annotations
@@ -422,6 +423,109 @@ def jpeg_lossless(planes: List[np.ndarray], psv: int, pt: int = 0, sampling: Opt
             out += bytes([0xFF, 0xD0 + (at // step - 1) % 8])
         out += _pack_bits(values[at:at + step].reshape(-1), lengths[at:at + step].reshape(-1))
     return bytes(out + b"\xff\xd9")
+
+
+# 12-bit gray JPEG: DC categories 0-15 in 5 bits, the AC run/size symbols
+# of sizes 1-15 (and EOB, ZRL) in 8 bits
+_DC12_SYMBOLS = list(range(16))
+_AC12_SYMBOLS = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 16)]
+_DCT8 = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                  for u in range(8)])
+
+
+def jpeg12_tables(scale: float) -> Tuple[np.ndarray, bytes]:
+    """A quantisation table (natural order) of the standard luminance table
+    times ``scale``, and the DQT (16-bit entries where one passes 255) and
+    DHT segments of a 12-bit gray JPEG."""
+    base = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+                     14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+    quant = np.clip(np.round(base * scale), 1, 65535).astype(np.int64)
+    zz = [int(quant[kNatural]) for kNatural in _ZIGZAG]
+    wide = max(zz) > 255
+    body = bytes([0x10 if wide else 0]) + (struct.pack(">64H", *zz) if wide else bytes(zz))
+    tables = b"\xff\xdb" + struct.pack(">H", 2 + len(body)) + body
+    tables += _dht(0x00, 5, _DC12_SYMBOLS) + _dht(0x10, 8, _AC12_SYMBOLS)
+    return quant, tables
+
+
+# the natural places of zigzag 0-63
+_ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
+           21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+           60, 61, 54, 47, 55, 62, 63]
+
+
+def jpeg12_gray(samples: np.ndarray, scale: float = 1.0, restart: int = 0, tables: bool = True) -> bytes:
+    """A 12-bit gray JPEG (SOF1, precision 12) of ``samples`` (h, w) in
+    0-4095: each 8 x 8 block (the edges repeated) through the float DCT,
+    quantised by ``jpeg12_tables(scale)`` and Huffman-coded with its
+    fixed-length tables; restart markers every ``restart`` blocks; without
+    its tables (``tables`` False: an abbreviated stream, as a TIFF's strips
+    with JPEGTables)."""
+    s = np.asarray(samples, np.float64)
+    h, w = s.shape
+    quant, segs = jpeg12_tables(scale)
+    bh, bw = _ceil(h, 8), _ceil(w, 8)
+    pad = np.pad(s, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge") - 2048
+    head = b"\xff\xd8" + (segs if tables else b"")
+    head += b"\xff\xc1" + struct.pack(">HBHHB", 11, 12, h, w, 1) + bytes([1, 0x11, 0])
+    if restart:
+        head += b"\xff\xdd" + struct.pack(">HH", 4, restart)
+    head += b"\xff\xda" + struct.pack(">HB", 8, 1) + bytes([1, 0x00, 0, 63, 0])
+    dc_code = {v: (i, 5) for i, v in enumerate(_DC12_SYMBOLS)}
+    ac_code = {v: (i, 8) for i, v in enumerate(_AC12_SYMBOLS)}
+    out, bits, pred = bytearray(), _BitWriter(), 0
+    for k in range(bh * bw):
+        if restart and k and k % restart == 0:
+            out += bits.flush() + bytes([0xFF, 0xD0 + (k // restart - 1) % 8])
+            bits, pred = _BitWriter(), 0
+        by, bx = divmod(k, bw)
+        coef = _DCT8 @ pad[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8] @ _DCT8.T
+        q = np.round(coef.reshape(64) / quant).astype(np.int64)
+        zz = [int(q[n]) for n in _ZIGZAG]
+        n, b = _category(zz[0] - pred)
+        pred = zz[0]
+        bits.put(*dc_code[n])
+        if n:
+            bits.put(b, n)
+        run = 0
+        for v in zz[1:]:
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                bits.put(*ac_code[0xF0])
+                run -= 16
+            n, b = _category(v)
+            bits.put(*ac_code[(run << 4) | n])
+            bits.put(b, n)
+            run = 0
+        if run:
+            bits.put(*ac_code[0x00])
+    return head + bytes(out) + bits.flush() + b"\xff\xd9"
+
+
+def jpeg12_tiff(samples: np.ndarray, scale: float = 1.0, rows_per_strip: Optional[int] = None,
+                tile: Optional[Tuple[int, int]] = None, shared_tables: bool = False, restart: int = 0) -> bytes:
+    """A 12-bit gray JPEG-compressed TIFF (II, MinIsBlack, Pillow's I;16):
+    each strip or tile a ``jpeg12_gray`` stream of its samples, whole, or
+    abbreviated beside a JPEGTables tag (``shared_tables``)."""
+    s = np.asarray(samples)
+    h, w = s.shape
+    chunks = []
+    if tile:
+        th, tw = tile
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                blk = np.zeros((th, tw), s.dtype)
+                part = s[ty:ty + th, tx:tx + tw]
+                blk[:part.shape[0], :part.shape[1]] = part
+                chunks.append(jpeg12_gray(blk, scale, restart, not shared_tables))
+    else:
+        rps = rows_per_strip or h
+        chunks = [jpeg12_gray(s[y:y + rps], scale, restart, not shared_tables) for y in range(0, h, rps)]
+    tags = {347: (7, list(b"\xff\xd8" + jpeg12_tables(scale)[1] + b"\xff\xd9"))} if shared_tables else {}
+    return tiff_bytes(s, 12, 1, compression=7, rows_per_strip=rows_per_strip, tile=tile, chunks=chunks, tags=tags)
 
 
 def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
@@ -1135,7 +1239,7 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
                    ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None,
                    dbfis: Optional[Dict[str, bytes]] = None, legacy: Optional[Dict[str, bytes]] = None,
-                   imips: Optional[Dict[str, bytes]] = None) -> dict:
+                   imips: Optional[Dict[str, bytes]] = None, lzo: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1162,7 +1266,9 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     ``legacy_rasters/`` (``legacy``, likewise) and its card originals as
     ``legacy_manifest`` records them; each
     under ``im_iptc_pcd_spider/`` (``imips``, likewise) and its card
-    originals as ``imips_manifest`` records them; and the JAX package's
+    originals as ``imips_manifest`` records them; each under
+    ``tiff_lzma_zstd_ojpeg/`` (``lzo``, likewise) and its card originals as
+    ``lzo_manifest`` records them; and the JAX package's
     pyramids of every slice's originals of the Pillow lane together
     (``pillow_lane_originals``, under ``PILLOW_LANE_PREP``), the one
     ``cli.prep`` the card's "io prep" runs on them."""
@@ -1178,7 +1284,9 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     dbfis_parts = dbfis_manifest(scratch, committed_dbfis() if dbfis is None else dbfis)
     legacy_parts = legacy_manifest(scratch, committed_legacy() if legacy is None else legacy)
     imips_parts = imips_manifest(scratch, committed_imips() if imips is None else imips)
-    entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files"), **imips_parts.pop("files")}
+    lzo_parts = lzo_manifest(scratch, committed_lzo() if lzo is None else lzo)
+    entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files"), **imips_parts.pop("files"),
+               **lzo_parts.pop("files")}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
         with open(path, "wb") as f:
@@ -1277,13 +1385,18 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       f"writes on the card, never committed; {IMIPS}/ and imips_card: Pillow {PIL.__version__}'s "
                       "convert(\"RGB\") (IM, IMT, IPTC, PCD, SPIDER, old-style LZW TIFF), refusals with what Pillow "
                       "makes of the file; imips_card: the originals imips_card_originals writes on the card, never "
-                      f"committed; {PILLOW_LANE_PREP}: the JAX package's prepare_pyramid of every slice's originals "
+                      f"committed; {LZO}/ and lzo_card: Pillow {PIL.__version__}'s convert(\"RGB\") (LZMA and ZSTD "
+                      f"TIFF through libtiff {features.version('libtiff')}'s liblzma and libzstd, old-style and "
+                      "12-bit JPEG TIFF, PNG past its image data), refusals with what Pillow makes of the file; "
+                      "lzo_card: the originals lzo_card_originals writes on the card, never committed; "
+                      f"{PILLOW_LANE_PREP}: the JAX package's prepare_pyramid of every slice's originals "
                       "of the Pillow lane in one folder (pillow_lane_sources)",
         "files": entries, "card": card_entries, "sources": sources, "jpeg_prep": jax_prep_digests(scratch, kinds_card),
         "pillow_prep": jax_prep_digests(scratch, pillow_card_files),
         "gif_tiff_prep": jax_prep_digests(scratch, gif_tiff_card_files),
         "raster_card": raster_card, **dbfis_parts,
-        **legacy_parts, **imips_parts, PILLOW_LANE_PREP: jax_prep_digests(scratch, pillow_lane_originals()),
+        **legacy_parts, **imips_parts, **lzo_parts,
+        PILLOW_LANE_PREP: jax_prep_digests(scratch, pillow_lane_originals()),
         "lab_table": {"sha256_rgb": sha256(lab_table_pillow()),
                       "made_by": f"Pillow {PIL.__version__}'s convert(\"RGB\") through LittleCMS "
                                  f"{features.version('littlecms2')} of every 8-bit Lab triple (L, a, b bands, "
@@ -1308,15 +1421,16 @@ def write(scratch: str) -> dict:
     dbfis = dbfis_fixtures()
     legacy = legacy_fixtures()
     imips = imips_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY, IMIPS):
+    lzo = lzo_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY, IMIPS, LZO):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga, **raster, **dbfis, **legacy, **imips}.items():
+                       **ico_pnm_tga, **raster, **dbfis, **legacy, **imips, **lzo}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga, raster, dbfis, legacy, imips)
+                              ico_pnm_tga, raster, dbfis, legacy, imips, lzo)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -2142,7 +2256,7 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
                tile: Optional[Tuple[int, int]] = None, extra=None, colormap=None, orientation: Optional[int] = None,
                tags: Optional[Dict[int, Tuple[int, list]]] = None, data: Optional[bytes] = None,
                chunks: Optional[List[bytes]] = None, big: bool = False, offset_type: int = 16,
-               old_lzw: bool = False) -> bytes:
+               old_lzw: bool = False, compress: Optional[Callable[[bytes], bytes]] = None) -> bytes:
     """A TIFF of ``samples`` ((h, w) or (h, w, c) integers of ``bits``) in
     byte order ``order`` ("<" II, ">" MM): strips of ``rows_per_strip`` or
     tiles (th, tw), each plane apart where ``planar`` is 2, differenced
@@ -2154,7 +2268,8 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
     directory's.  ``big``: a BigTIFF (version 43, 8-byte offsets, 20-byte
     entries), its chunks' offsets and byte counts of ``offset_type``
     (LONG8, 16, or LONG, 4).  ``old_lzw``: LZW of old-style codes
-    (``tiff_lzw(old_style=True)``)."""
+    (``tiff_lzw(old_style=True)``); ``compress``: each chunk's coder where
+    ``TIFF_COMPRESS`` has none (LZMA's, ZSTD's)."""
     s = np.asarray(samples)
     s = s[:, :, None] if s.ndim == 2 else s
     h, w, c = s.shape
@@ -2180,7 +2295,7 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2, order: str = "<", c
         if chunks is None:
             raw = _tiff_rows(blk, bits, order).tobytes()
             coded.append(data if data is not None else tiff_lzw(raw, True) if old_lzw and compression == 5 else
-                         TIFF_COMPRESS[compression](raw))
+                         compress(raw) if compress is not None else TIFF_COMPRESS[compression](raw))
     chunks = coded if chunks is None else chunks
     body = bytearray((b"II" if order == "<" else b"MM") +
                      (struct.pack(order + "HHHQ", 43, 8, 0, 0) if big else struct.pack(order + "HI", 42, 0)))
@@ -3029,7 +3144,7 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
     return {
         "bigtiff.tif": (b"II+\0\x08\0\0\0" + bytes(32), "first directory"),  # its directory at offset 0
         "jpeg.tif": (tiff_bytes(rgb, compression=7, data=junk), "breaks the format's rules"),
-        "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "old-style JPEG compression"),
+        "old-jpeg.tif": (tiff_bytes(rgb, compression=6, data=junk), "old-style JPEG"),
         "jpeg-12-bit.tif": (jpeg12, "12-bit"),
         "jpeg-cut-short.tif": (_cut_strip(cut, 60), "truncated"),
         "jpeg-subsampling-tag-1x1.tif": (jpeg_tiff(photo, 6, 80, (2, 2), sampling_tag=(1, 1)),
@@ -3041,7 +3156,7 @@ def tiff_refusals() -> Dict[str, Tuple[bytes, str]]:
         "ccitt-group4.tif": (tiff_bytes(gray & 1, 1, photometric=0, compression=4, data=junk),
                              "decodes only with errors"),
         "logluv.tif": (tiff_bytes(rgb, photometric=32845, compression=34676, data=junk), "LogLuv"),
-        "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "with this compression"),
+        "lzma.tif": (tiff_bytes(rgb, compression=34925, data=junk), "breaks the format's rules"),
         "fill-order-2-gray8-white-raw.tif": (tiff_bytes(gray, photometric=0, tags={266: (3, [2])}), "FillOrder 2"),
         "fill-order-2-palette4-raw.tif": (tiff_bytes(gray & 15, 4, photometric=3, colormap=r.integers(0, 65536, (16, 3)),
                                                      tags={266: (3, [2])}), "FillOrder 2"),
@@ -5154,20 +5269,11 @@ def legacy_layouts() -> Dict[str, bytes]:
 
 def legacy_refusals() -> Dict[str, Tuple[bytes, str]]:
     """Files of this slice the port refuses (name -> (bytes, the reason the
-    port names, a regular expression)): those Pillow refuses too, and the
-    valid TIFF kinds Pillow reads through a decoder the port lacks (old-style
-    JPEG, 12-bit JPEG; ROADMAP's fault 7, queue item 4)."""
+    port names, a regular expression)), each one Pillow refuses too (the
+    old-style and 12-bit JPEG TIFFs once here are read since:
+    ``legacy_old_jpeg``, ``legacy_jpeg12``)."""
     r = np.random.default_rng(2330)
     values = r.integers(0, 4096, (9, 7))
-    photo = smooth_scene(2331, 24, 20, cell=8, step=4)
-    jpg = port_jpeg(photo, 85)
-    jpeg_gray = jpeg_tiff(photo[..., 0], 1, 85)
-    sof = jpeg_gray.index(b"\xff\xc0")
-    jpeg12 = bytearray(jpeg_gray[:sof + 4] + b"\x0c" + jpeg_gray[sof + 5:])  # the frame's precision 12 bits
-    at = struct.unpack_from("<I", jpeg12, 4)[0]
-    for i in range(struct.unpack_from("<H", jpeg12, at)[0]):
-        if struct.unpack_from("<H", jpeg12, at + 2 + 12 * i)[0] == 258:  # BitsPerSample 12
-            struct.pack_into("<H", jpeg12, at + 2 + 12 * i + 8, 12)
     y, cb, cr = r.integers(16, 236, (8, 12)), r.integers(16, 240, (4, 6)), r.integers(16, 240, (4, 6))
     lum = r.integers(0, 65536, (8, 12)).astype("<u2")
     luv = r.integers(0, 2 ** 32, (8, 12)).astype("<u4")
@@ -5186,9 +5292,6 @@ def legacy_refusals() -> Dict[str, Tuple[bytes, str]]:
         "tiff-gray12-fill-order-2.tif": (tiff_bytes(values, 12, 1, tags={266: (3, [2])}), "depth or sample layout"),
         "tiff-ccitt-palette-4-entries.tif": (ccitt_tiff(_scan(2332, 9, 20), 4, 3, colormap=r.integers(0, 65536, (4, 3))),
                                              "first directory"),
-        "tiff-old-jpeg-interchange.tif": (tiff_bytes(photo, 8, 6, compression=6, chunks=[jpg], tags={
-            530: (3, [2, 2]), 513: (4, [8]), 514: (4, [len(jpg)])}), "old-style JPEG"),
-        "tiff-jpeg-12-bit-gray.tif": (bytes(jpeg12), "JPEG compression of other samples"),
         "tiff-ycbcr-planes-2x2-lzw.tif": (tiff_bytes(np.zeros((8, 12, 3), np.uint8), 8, 6, compression=5, planar=2, tags={
             530: (3, [2, 2])}, chunks=[tiff_lzw(p.astype(np.uint8).tobytes()) for p in (y, cb, cr)]),
                                           "YCbCr pixels in this layout"),
@@ -5732,6 +5835,865 @@ def check_imips_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[s
     return paths
 
 
+# --- LZMA, ZSTD, old-style JPEG and 12-bit JPEG TIFF; the Pillow lane's PNG past its image data ---
+
+LZO = "tiff_lzma_zstd_ojpeg"  # their files' folder under FIXTURES
+#: the card's originals (under ``tiff_lzma_zstd_ojpeg/card/``), each by the
+#: listed name cli.prep reads it under: a 1024 px photo as a ZSTD RGB TIFF
+#: with Predictor 2 and as an LZMA RGB TIFF (64-row strips, committed:
+#: written by libzstd and liblzma, which the card's machine may lack), as
+#: an old-style JPEG TIFF of 2 x 2 YCbCr (its stream by the port's encoder,
+#: after JPEGInterchangeFormat), a 12-bit gray scan as a JPEG TIFF
+#: (64-row strips, JPEGTables) and the photo as a PNG with chunks after its
+#: image data
+LZO_CARD = {"photo-1024-zstd-predictor.tif": "photo-1024-zstd.png", "photo-1024-lzma.tif": "photo-1024-lzma.jpg",
+            "photo-1024-ojpeg-2x2.tif": "photo-1024-ojpeg.bmp", "scan-1024-jpeg12.tif": "scan-1024-jpeg12.webp",
+            "photo-1024-chunks-after.png": "photo-1024-chunks-after.jpeg"}
+LZO_COMMITTED_CARD = ("photo-1024-zstd-predictor.tif", "photo-1024-lzma.tif")
+XZ_CHECKS = {"none": 0, "crc32": 1, "crc64": 4, "sha256": 10}
+
+
+def libzstd() -> ctypes.CDLL:
+    """Pillow's own libzstd (1.5.7), through ctypes: the writer of the ZSTD
+    fixtures and the reference the tests hold the port's decoder to."""
+    import glob
+
+    import PIL
+    from PIL import Image  # noqa: F401 - loads the libraries Pillow's libzstd sits beside
+
+    found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs", "libzstd-*.so*"))
+    lib = ctypes.CDLL(found[0])
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+    lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.ZSTD_CCtx_setParameter.restype = ctypes.c_size_t
+    lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                   ctypes.c_size_t]
+    lib.ZSTD_compress2.restype = ctypes.c_size_t
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    return lib
+
+
+#: ZSTD_cParameter values
+_ZSTD_PARAMS = {"level": 100, "window_log": 101, "strategy": 107, "content_size": 200, "checksum": 201}
+
+
+def zstd_compress(data: bytes, **params) -> bytes:
+    """One Zstandard frame of ``data`` by libzstd's ZSTD_compress2, with
+    ``params`` (level, window_log, strategy, content_size, checksum)."""
+    lib = libzstd()
+    cctx = lib.ZSTD_createCCtx()
+    try:
+        for k, v in params.items():
+            assert not lib.ZSTD_isError(lib.ZSTD_CCtx_setParameter(cctx, _ZSTD_PARAMS[k], int(v))), k
+        cap = lib.ZSTD_compressBound(len(data))
+        out = ctypes.create_string_buffer(cap)
+        n = lib.ZSTD_compress2(cctx, out, cap, data, len(data))
+        assert not lib.ZSTD_isError(n)
+        return out.raw[:n]
+    finally:
+        lib.ZSTD_freeCCtx(cctx)
+
+
+def zstd_frame(blocks: List[Tuple[str, bytes]], content: Optional[bytes] = None, checksum: bool = False,
+               window_log: int = 17, dict_id: int = 0) -> bytes:
+    """A Zstandard frame built here of raw (``("raw", bytes)``) and RLE
+    (``("rle", byte * count)``) blocks: no content size, a window of
+    2^window_log, ``dict_id`` a 4-byte dictionary ID where not 0, and the
+    XXH64 checksum of ``content`` (the blocks' bytes) where ``checksum``;
+    ``("compressed", section)`` a compressed block of ``zstd_literals``' section."""
+    fhd = (4 if checksum else 0) | (3 if dict_id else 0)
+    out = bytearray(struct.pack("<IB", 0xFD2FB528, fhd) + bytes([(window_log - 10) << 3]))
+    if dict_id:
+        out += struct.pack("<I", dict_id)
+    for k, (kind, payload) in enumerate(blocks):
+        last = k == len(blocks) - 1
+        if kind == "raw":
+            out += struct.pack("<I", int(last) | len(payload) << 3)[:3] + payload
+        elif kind == "compressed":
+            out += struct.pack("<I", int(last) | 4 | len(payload) << 3)[:3] + payload
+        else:
+            out += struct.pack("<I", int(last) | 2 | len(payload) << 3)[:3] + payload[:1]
+    if checksum:
+        out += struct.pack("<I", xxh64(content if content is not None else b"".join(
+            p for _, p in blocks)) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def xxh64(data: bytes) -> int:
+    """XXH64 of ``data``, seed 0 (Zstandard's content checksum)."""
+    p1, p2, p3, p4, p5 = (11400714785074694791, 14029467366897019727, 1609587929392839161, 9650029242287828579,
+                          2870177450012600261)
+    m = (1 << 64) - 1
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & m
+
+    def rnd(acc, v):
+        return rotl((acc + v * p2) & m, 31) * p1 & m
+
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(p1 + p2) & m, p2, 0, (-p1) & m]
+        while n - i >= 32:
+            for k in range(4):
+                v[k] = rnd(v[k], struct.unpack_from("<Q", data, i + 8 * k)[0])
+            i += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18)) & m
+        for k in range(4):
+            h = ((h ^ rnd(0, v[k])) * p1 + p4) & m
+    else:
+        h = p5
+    h = (h + n) & m
+    while n - i >= 8:
+        h = (rotl(h ^ rnd(0, struct.unpack_from("<Q", data, i)[0]), 27) * p1 + p4) & m
+        i += 8
+    if n - i >= 4:
+        h = (rotl(h ^ (struct.unpack_from("<I", data, i)[0] * p1 & m), 23) * p2 + p3) & m
+        i += 4
+    while i < n:
+        h = rotl(h ^ (data[i] * p5 & m), 11) * p1 & m
+        i += 1
+    h = ((h ^ (h >> 33)) * p2) & m
+    h = ((h ^ (h >> 29)) * p3) & m
+    return h ^ (h >> 32)
+
+
+def zstd_literals(data: bytes, weights: Optional[Dict[int, int]] = None, streams: int = 1) -> bytes:
+    """A compressed block's literals section built here: ``data`` as RLE
+    literals (``weights`` None: every byte the same) or Huffman-coded in 1
+    or 4 ``streams`` under the table of ``weights`` (symbol -> weight, the
+    largest symbol's weight left implied, as the direct 4-bit header writes
+    them), each stream's symbols written last first, LSB-first, with the
+    end mark; then the empty sequences section (no sequences)."""
+    n = len(data)
+    if weights is None:
+        assert len(set(data)) <= 1
+        head = struct.pack("<I", 1 | 3 << 2 | n << 4)[:3] if n >= 4096 else struct.pack("<H", 1 | 1 << 2 | n << 4)
+        return head + data[:1] + b"\0"
+    top = max(weights)
+    given = [weights.get(k, 0) for k in range(top)]
+    total = sum(1 << w >> 1 for w in given)
+    log = total.bit_length()
+    assert (1 << log) - total == 1 << (weights[top] - 1), "the implied weight must complete the code"
+    full = given + [weights[top]]
+    # the codes as the decoder's table lays them out: by weight from 1, symbols in order
+    code, at = {}, 0
+    for w in range(1, log + 1):
+        for k in range(top + 1):
+            if full[k] == w:
+                code[k] = (at >> (w - 1), log + 1 - w)
+                at += 1 << (w - 1)
+    description = bytes([127 + len(given)]) + bytes(
+        (given[i] << 4) | (given[i + 1] if i + 1 < len(given) else 0) for i in range(0, len(given), 2))
+
+    def stream(part: bytes) -> bytes:
+        acc = nbits = 0
+        for b in reversed(part):
+            v, nb = code[b]
+            acc |= v << nbits
+            nbits += nb
+        acc |= 1 << nbits  # the end mark
+        return (acc).to_bytes((nbits + 8) // 8, "little")
+
+    if streams == 1:
+        coded = stream(data)
+    else:
+        seg = (n + 3) // 4
+        parts = [stream(data[k * seg:(k + 1) * seg]) for k in range(4)]
+        coded = struct.pack("<3H", *map(len, parts[:3])) + b"".join(parts)
+    csize = len(description) + len(coded)
+    fmt = 0 if streams == 1 else 1 if max(n, csize) < 1024 else 2
+    assert max(n, csize) < (1 << 10 if streams == 1 else 1 << 14)  # one stream: 10-bit sizes alone
+    head = (struct.pack("<I", 2 | fmt << 2 | n << 4 | csize << 14)[:3] if fmt < 2 else
+            struct.pack("<I", 2 | fmt << 2 | n << 4 | csize << 18))
+    return head + description + coded + b"\0"
+
+
+def skippable(payload: bytes, nibble: int = 0) -> bytes:
+    """A Zstandard skippable frame."""
+    return struct.pack("<II", 0x184D2A50 | nibble, len(payload)) + payload
+
+
+def _xz_vli(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    return bytes(out + bytes([v]))
+
+
+def lzma2_raw(data: bytes, preset: int = 6, dict_size: Optional[int] = None, lc: int = 3, lp: int = 0,
+              pb: int = 2) -> bytes:
+    """Raw LZMA2 chunks of ``data`` (its end marker included) by Python's
+    lzma (liblzma)."""
+    import lzma
+
+    f = {"id": lzma.FILTER_LZMA2, "preset": preset, "lc": lc, "lp": lp, "pb": pb}
+    if dict_size:
+        f["dict_size"] = dict_size
+    return lzma.compress(data, format=lzma.FORMAT_RAW, filters=[f])
+
+
+def lzma2_uncompressed(data: bytes) -> bytes:
+    """LZMA2 of uncompressed chunks alone: the first resets the dictionary
+    (control 1), the rest do not (2)."""
+    out = bytearray()
+    for k in range(0, max(len(data), 1), 65536):
+        part = data[k:k + 65536]
+        out += bytes([1 if k == 0 else 2]) + struct.pack(">H", len(part) - 1) + part
+    return bytes(out + b"\0")
+
+
+def lzma2_spliced(a: bytes, b: bytes, mode: str) -> bytes:
+    """The LZMA2 of ``a`` then ``b``'s bytes in one stream: ``b``'s first
+    chunk (an LZMA chunk that resets the dictionary, 0xE0) made one that
+    keeps the dictionary and resets the state with new properties
+    (``mode`` "props", 0xC0) or the state alone ("state", 0xA0, its
+    properties byte dropped).  ``b`` is coded without literal context
+    (lc, lp and pb 0, ``a`` too for "state"), so its coder's start, which
+    knew no bytes before it, reads alike after ``a``'s."""
+    ra = lzma2_raw(a, dict_size=1 << 20, **({"lc": 0, "pb": 0} if mode == "state" else {}))
+    rb = lzma2_raw(b, dict_size=1 << 20, lc=0, pb=0)
+    assert ra[-1] == 0 and rb[0] == 0xE0 | (rb[0] & 0x1F)
+    if mode == "props":
+        return ra[:-1] + bytes([0xC0 | (rb[0] & 0x1F)]) + rb[1:]
+    return ra[:-1] + bytes([0xA0 | (rb[0] & 0x1F)]) + rb[1:5] + rb[6:]
+
+
+def xz_file(blocks: List[Tuple[bytes, bytes, bytes]], check: str = "crc32", sizes: bool = False) -> bytes:
+    """An .xz stream built here: each block (filter flags, raw LZMA2,
+    uncompressed data) with its header (its compressed and uncompressed
+    sizes where ``sizes``), padding and check, then the index and footer."""
+    cid = XZ_CHECKS[check]
+    flags = bytes([0, cid])
+    out = bytearray(b"\xfd7zXZ\0" + flags + struct.pack("<I", zlib.crc32(flags)))
+    records = []
+    for filters, raw, data in blocks:
+        body = (_xz_vli(len(raw)) + _xz_vli(len(data)) if sizes else b"") + filters[1:]
+        head = bytes([filters[0] | (0xC0 if sizes else 0)]) + body
+        head = head + bytes(-(len(head) + 1 + 4) % 4)
+        head = bytes([(len(head) + 1 + 4) // 4 - 1]) + head
+        head += struct.pack("<I", zlib.crc32(head))
+        if cid == 0:
+            chk = b""
+        elif cid == 1:
+            chk = struct.pack("<I", zlib.crc32(data))
+        elif cid == 4:
+            chk = _crc64(data)
+        else:
+            chk = hashlib.sha256(data).digest()
+        out += head + raw + bytes(-len(raw) % 4) + chk
+        records.append((len(head) + len(raw) + len(chk), len(data)))
+    index = bytearray(b"\0" + _xz_vli(len(records)))
+    for unpadded, size in records:
+        index += _xz_vli(unpadded) + _xz_vli(size)
+    index += bytes(-len(index) % 4)
+    index += struct.pack("<I", zlib.crc32(index))
+    foot = struct.pack("<I", len(index) // 4 - 1) + flags
+    return bytes(out + index + struct.pack("<I", zlib.crc32(foot)) + foot + b"YZ")
+
+
+def _crc64(data: bytes) -> bytes:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0xC96C5795D7870F42 if c & 1 else c >> 1
+        table.append(c)
+    crc = (1 << 64) - 1
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return struct.pack("<Q", crc ^ ((1 << 64) - 1))
+
+
+def xz_filters(delta: int = 0, bcj: int = 0, dict_byte: int = 16) -> bytes:
+    """A block header's flags byte (the filter count less one) and filter
+    flags: Delta of ``delta`` bytes and a BCJ filter of id ``bcj`` where not
+    0, then LZMA2 of the dictionary ``dict_byte``."""
+    filters = b""
+    if bcj:
+        filters += bytes([bcj, 0])
+    if delta:
+        filters += b"\x03\x01" + bytes([delta - 1])
+    filters += b"\x21\x01" + bytes([dict_byte])
+    return bytes([bool(bcj) + bool(delta)]) + filters
+
+
+def xz_of(data: bytes, check: str = "crc32", delta: int = 0, preset: int = 6, chunking: str = "lzma",
+          blocks: int = 1, sizes: bool = False, bcj: int = 0) -> bytes:
+    """``data`` as an .xz stream built here: ``blocks`` blocks, each of
+    LZMA2 by liblzma (``chunking`` "lzma"), of uncompressed chunks
+    ("uncompressed"), or of two halves whose second keeps the dictionary
+    and resets the state with new properties ("props") or alone ("state");
+    Delta of ``delta`` bytes first where not 0, and a BCJ filter ``bcj``
+    named before them (the data not run through it: a decoder's inverse
+    applies to whatever bytes there are)."""
+    step = -(-len(data) // blocks) if data else 1
+    out = []
+    for k in range(blocks):
+        part = data[k * step:(k + 1) * step]
+        coded = np.frombuffer(part, np.uint8).astype(np.int64)
+        if delta:
+            coded = coded.copy()
+            coded[delta:] -= np.frombuffer(part, np.uint8)[:-delta].astype(np.int64)
+        coded = (coded % 256).astype(np.uint8).tobytes()
+        if chunking == "lzma":
+            raw = lzma2_raw(coded, preset)
+        elif chunking == "uncompressed":
+            raw = lzma2_uncompressed(coded)
+        else:
+            raw = lzma2_spliced(coded[:len(coded) // 2], coded[len(coded) // 2:], chunking)
+        out.append((xz_filters(delta, bcj, 20), raw, part))
+    return xz_file(out, check, sizes)
+
+
+def ojpeg_tiff(samples: np.ndarray, jpg: bytes, route: str = "tables", rows_per_strip: Optional[int] = None,
+               photometric: int = 6, subsampling: Optional[Tuple[int, int]] = (2, 2),
+               tags: Optional[Dict[int, Tuple[int, list]]] = None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of the baseline JPEG ``jpg``
+    (of ``samples``' size), its scan one strip, or with ``rows_per_strip``
+    a strip each of its restart intervals: ``route`` "tables", its
+    tables in JPEGQTables, JPEGDcTables and
+    JPEGAcTables (JPEGProc 1); "header", JPEGInterchangeFormat the stream's
+    markers up to its scan; or "whole",
+    JPEGInterchangeFormat the whole stream and the strips inside it."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    segs = [(m, seg[4:]) for m, seg in _jpeg_segments(jpg) if m != 0xDA]  # the segments' bodies
+    sof = next(b for m, b in segs if m == 0xC0)
+    sos_at = jpg.index(b"\xff\xda")
+    head_end = sos_at + 2 + struct.unpack(">H", jpg[sos_at + 2:sos_at + 4])[0]
+    scan = jpg[head_end:jpg.rindex(b"\xff\xd9")]
+    parts, cur, i = [], bytearray(), 0
+    while rows_per_strip and i < len(scan):  # strips: the scan's restart intervals, one each
+        if scan[i] == 0xFF and i + 1 < len(scan) and 0xD0 <= scan[i + 1] <= 0xD7:
+            parts.append(bytes(cur))
+            cur, i = bytearray(), i + 2
+            continue
+        cur.append(scan[i])
+        i += 1
+    parts.append(bytes(cur) if rows_per_strip else scan)
+    nc = sof[5]
+    pre = bytearray()  # what goes after the 8-byte header: tables or the interchange stream
+    t = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * nc), 259: (3, [6]), 262: (3, [photometric]),
+         277: (3, [nc]), 278: (4, [rows_per_strip or h])}
+    if route == "tables":
+        dqt, dht = {}, {}
+        for m, b in segs:
+            q = 0
+            while m == 0xDB and q < len(b):
+                dqt[b[q] & 15] = b[q + 1:q + 65]
+                q += 65
+            while m == 0xC4 and q < len(b):
+                n = sum(b[q + 1:q + 17])
+                dht[b[q] >> 4, b[q] & 15] = b[q + 1:q + 17 + n]
+                q += 17 + n
+        sos = jpg[sos_at + 4:head_end]
+        sel = {sos[1 + 2 * k]: sos[2 + 2 * k] for k in range(sos[0])}
+        comps = [sof[6 + 3 * k:9 + 3 * k] for k in range(nc)]
+        at = {}
+        for key, table in [(("q", c[2]), dqt[c[2]]) for c in comps] + \
+                          [(("dc", sel[c[0]] >> 4), dht[0, sel[c[0]] >> 4]) for c in comps] + \
+                          [(("ac", sel[c[0]] & 15), dht[1, sel[c[0]] & 15]) for c in comps]:
+            if key not in at:
+                at[key] = 8 + len(pre)
+                pre += table + bytes(len(table) % 2)
+        dri = [struct.unpack(">H", b[:2])[0] for m, b in segs if m == 0xDD]
+        if dri and not rows_per_strip:  # the stream's restart interval, in JPEGRestartInterval
+            t[515] = (3, dri[-1:])
+        t.update({512: (3, [1]), 519: (4, [at["q", c[2]] for c in comps]),
+                  520: (4, [at["dc", sel[c[0]] >> 4] for c in comps]), 521: (4, [at["ac", sel[c[0]] & 15] for c in comps])})
+    elif route == "header":
+        t.update({513: (4, [8]), 514: (4, [head_end])})
+        pre += jpg[:head_end] + bytes(head_end % 2)
+    else:
+        t.update({513: (4, [8]), 514: (4, [len(jpg)])})
+        pre += jpg + bytes(len(jpg) % 2)
+    if nc == 3 and photometric == 6 and subsampling:
+        t[530] = (3, list(subsampling))
+    if route == "whole":  # the strips' bytes are the interchange stream's own
+        offs, at = [], 8 + head_end
+        for part in parts:
+            offs.append(at)
+            at += len(part) + 2
+        t.update({273: (4, offs), 279: (4, [len(p) for p in parts])})
+        t.update(tags or {})
+        return _tiff_directory(bytes(pre), t, 8)
+    offs, body = [], bytearray(pre)
+    for part in parts:
+        offs.append(8 + len(body))
+        body += part + bytes(len(part) % 2)
+    t.update({273: (4, offs), 279: (4, [len(p) for p in parts])})
+    t.update(tags or {})
+    return _tiff_directory(bytes(body), t, 8)
+
+
+def _tiff_directory(body: bytes, tags: Dict[int, Tuple[int, list]], at: int) -> bytes:
+    """An II TIFF: its header, ``body`` (offsets in ``tags`` count from the
+    file's start, the body at ``at``), then the directory of ``tags``."""
+    head = bytearray(b"II*\0\0\0\0\0")
+    out = head + body
+    entries = sorted(tags.items())
+    ifd_at = len(out) + len(out) % 2
+    out += bytes(len(out) % 2)
+    values_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, values = bytearray(struct.pack("<H", len(entries))), bytearray()
+    for tag, (typ, vals) in entries:
+        # RATIONAL (5): vals are numerator, denominator pairs
+        raw = struct.pack("<" + {1: "B", 3: "H", 4: "I", 5: "I", 7: "B"}[typ] * len(vals), *map(int, vals))
+        if len(raw) > 4:
+            where = struct.pack("<I", values_at + len(values))
+            values += raw + bytes(len(raw) % 2)
+        else:
+            where = raw + bytes(4 - len(raw))
+        ifd += struct.pack("<HHI", tag, typ, len(vals) // 2 if typ == 5 else len(vals)) + where
+    out[4:8] = struct.pack("<I", ifd_at)
+    return bytes(out + ifd + bytes(4) + values)
+
+
+def png_after(data: bytes, chunks: List[Tuple[bytes, bytes]], end: bool = True) -> bytes:
+    """A PNG (``png_bytes``' one IDAT, then IEND) with ``chunks`` between
+    its image data and IEND (no IEND where not ``end``)."""
+    assert data.endswith(png_chunk(b"IEND", b""))
+    return data[:-12] + b"".join(png_chunk(k, d) for k, d in chunks) + (data[-12:] if end else b"")
+
+
+def libtiff_jpeg12(samples: np.ndarray, quality: int = 90) -> bytes:
+    """A 12-bit gray JPEG TIFF of one strip written by Pillow's own libtiff
+    (4.7.1, libjpeg-turbo's 12-bit encoder) through ctypes.  One strip
+    only: libtiff codes each strip with Huffman tables of its own but
+    writes the first strip's alone into JPEGTables, so its strips past the
+    first read as damaged data."""
+    import glob
+    import tempfile
+
+    import PIL
+    from PIL import Image  # noqa: F401 - loads the libraries Pillow's libtiff sits beside
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs",
+                                             "libtiff-*.so*"))[0])
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    lib.TIFFWriteEncodedStrip.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_ssize_t]
+    lib.TIFFWriteEncodedStrip.restype = ctypes.c_ssize_t
+    s = np.asarray(samples, np.uint16)
+    h, w = s.shape
+    assert w % 2 == 0, "libtiff's 12-bit JPEG codec reads a row's samples two at a time"
+    rows = _tiff_rows(s[:, :, None], 12, ">")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.tif").encode()
+        t = lib.TIFFOpen(path, b"w")
+        for tag, value in ((256, w), (257, h), (258, 12), (277, 1), (262, 1), (259, 7), (284, 1), (278, h),
+                           (65537, quality)):  # 65537: TIFFTAG_JPEGQUALITY
+            lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag), ctypes.c_int(value))
+        data = rows.tobytes()
+        assert lib.TIFFWriteEncodedStrip(t, 0, data, len(data)) >= 0
+        lib.TIFFClose(t)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def _pil_tiff(im, **kw) -> bytes:
+    out = io.BytesIO()
+    im.save(out, "TIFF", **kw)
+    return out.getvalue()
+
+
+def _lzo_tiff_layouts(r) -> Dict[str, bytes]:
+    """LZMA and ZSTD TIFFs: Pillow's writer (libtiff 4.7.1) in L, RGB, P,
+    I;16, RGBA and CMYK with Predictor 1 and 2 (in strips: it writes no
+    tiles); and this module's, in strips and tiles: .xz streams of each check kind, Delta,
+    two blocks, sizes in the block header, uncompressed chunks, chunks that
+    reset the state with and without new properties, presets 0 and 9, a
+    check, index and footer damaged after the strip's last byte (libtiff
+    never reads them); Zstandard frames of levels -5 to 19, with a
+    checksum, a content size, a 1 KiB window, of raw and RLE blocks built
+    here, a frame followed by another or by a skippable frame (libtiff
+    reads the first alone), 16-bit gray with Predictor 2."""
+    from PIL import Image
+
+    photo = smooth_scene(2511, 23, 37, cell=8, step=4)
+    im = Image.fromarray(photo)
+    modes = {"L": im.convert("L"), "RGB": im, "P": im.quantize(16),
+             "I16": Image.fromarray(photo[..., 0].astype(np.uint16) * 7 + 3),
+             "RGBA": Image.fromarray(with_alpha(photo, 2512)), "CMYK": im.convert("CMYK")}
+    out = {}
+    for comp in ("lzma", "zstd"):
+        for mode, m in modes.items():
+            for pred in (1, 2):
+                out[f"{comp}/pillow-{mode}-p{pred}.tif"] = _pil_tiff(m, compression=comp, tiffinfo={317: pred})
+    noisy = np.clip(photo.astype(np.int64) + r.integers(-30, 31, photo.shape), 0, 255).astype(np.uint8)
+    gray16 = photo[..., 1].astype(np.int64) * 200 + r.integers(0, 200, photo.shape[:2])
+
+    def lz(**kw):
+        return lambda raw: xz_of(raw, **kw)
+
+    def zs(**kw):
+        return lambda raw: zstd_compress(raw, **kw)
+
+    for check in XZ_CHECKS:
+        out[f"lzma/check-{check}.tif"] = tiff_bytes(photo, compression=34925, rows_per_strip=8, compress=lz(check=check))
+    out["lzma/delta-3.tif"] = tiff_bytes(photo, compression=34925, compress=lz(delta=3, check="crc64"))
+    out["lzma/delta-1-predictor-2.tif"] = tiff_bytes(photo, compression=34925, predictor=2, compress=lz(delta=1))
+    out["lzma/two-blocks.tif"] = tiff_bytes(noisy, compression=34925, compress=lz(blocks=2, check="sha256"))
+    out["lzma/sizes-in-header.tif"] = tiff_bytes(photo, compression=34925, compress=lz(blocks=3, sizes=True))
+    out["lzma/uncompressed-chunks.tif"] = tiff_bytes(noisy, compression=34925, compress=lz(chunking="uncompressed"))
+    out["lzma/props-reset.tif"] = tiff_bytes(photo, compression=34925, compress=lz(chunking="props"))
+    out["lzma/state-reset.tif"] = tiff_bytes(photo, compression=34925, compress=lz(chunking="state"))
+    out["lzma/preset-0.tif"] = tiff_bytes(noisy, compression=34925, tile=(16, 16), compress=lz(preset=0))
+    out["lzma/preset-9.tif"] = tiff_bytes(noisy, compression=34925, compress=lz(preset=9, check="crc64"))
+    out["lzma/gray16-predictor-2.tif"] = tiff_bytes(gray16, 16, 1, compression=34925, predictor=2, compress=lz())
+    # damage past the strip's last byte: the check, the index, the footer
+    good = xz_of(photo.tobytes(), check="crc32")
+    out["lzma/bad-check-after-strip.tif"] = tiff_bytes(photo, compression=34925, chunks=[
+        good[:-28] + bytes([good[-28] ^ 1]) + good[-27:]])
+    out["lzma/bad-footer-after-strip.tif"] = tiff_bytes(photo, compression=34925, chunks=[good[:-2] + b"ZY"])
+    for level in (-5, 1, 9, 19):
+        out[f"zstd/level-{level}.tif"] = tiff_bytes(noisy if level < 9 else photo, compression=50000,
+                                                     rows_per_strip=12, compress=zs(level=level))
+    out["zstd/checksum.tif"] = tiff_bytes(photo, compression=50000, compress=zs(level=3, checksum=1))
+    out["zstd/no-content-size.tif"] = tiff_bytes(photo, compression=50000, compress=zs(level=3, content_size=0,
+                                                                                       checksum=1))
+    out["zstd/window-1k.tif"] = tiff_bytes(noisy, compression=50000, compress=zs(level=5, window_log=10))
+    out["zstd/raw-and-rle-blocks.tif"] = tiff_bytes(
+        photo, compression=50000, compress=lambda raw: zstd_frame(
+            [("raw", raw[:700]), ("rle", raw[700:701] * 300), ("raw", raw[1000:])], raw[:700] + raw[700:701] * 300 +
+            raw[1000:], checksum=True))
+    out["zstd/two-frames.tif"] = tiff_bytes(photo, compression=50000, compress=lambda raw: zstd_compress(
+        raw, level=3) + zstd_compress(raw[::-1], level=3))
+    out["zstd/frame-then-skippable.tif"] = tiff_bytes(photo, compression=50000, compress=lambda raw: zstd_compress(
+        raw, level=3, checksum=1) + skippable(b"metadata"))
+    out["zstd/gray16-predictor-2.tif"] = tiff_bytes(gray16, 16, 1, compression=50000, predictor=2,
+                                                    compress=zs(level=12))
+    out["zstd/tiles.tif"] = tiff_bytes(noisy, compression=50000, tile=(16, 16), compress=zs(level=7, checksum=1))
+    return out
+
+
+def _lzo_jpeg_layouts(r) -> Dict[str, bytes]:
+    """Old-style JPEG TIFFs by each route (the tables, the interchange
+    stream's header, the whole stream) at 1 x 1, 2 x 1 and 2 x 2, 4 x 1,
+    4 x 2 and 1 x 2 (this module's JPEG writer), strips of a restart
+    interval each,
+    gray, the interchange file once refused; 12-bit gray JPEG TIFFs
+    (``jpeg12_tiff``) in one strip, strips, tiles, beside JPEGTables and
+    with restart markers, one libtiff wrote, the 8-bit stream read at 12
+    bits once refused."""
+    from PIL import Image
+
+    photo = smooth_scene(2513, 23, 37, cell=8, step=4)
+    tall = smooth_scene(2514, 40, 21, cell=8, step=4)
+    out = {}
+    for ss, sub in ((0, (1, 1)), (1, (2, 1)), (2, (2, 2))):
+        jpg = _pil_jpeg(photo, quality=88, subsampling=ss)
+        for route in ("tables", "header", "whole"):
+            out[f"ojpeg/{route}-{sub[0]}x{sub[1]}.tif"] = ojpeg_tiff(photo, jpg, route, subsampling=sub)
+        rows = 16 if ss == 2 else 8
+        jpg = _pil_jpeg(tall, quality=80, subsampling=ss, restart_marker_rows=1)
+        for route in ("tables", "header"):
+            out[f"ojpeg/{route}-{sub[0]}x{sub[1]}-strips.tif"] = ojpeg_tiff(tall, jpg, route, rows, subsampling=sub)
+    for sampling, route in (([(4, 1), (1, 1), (1, 1)], "tables"), ([(4, 2), (1, 1), (1, 1)], "header"),
+                            ([(1, 2), (1, 1), (1, 1)], "header")):
+        name = "x".join(map(str, sampling[0]))
+        out[f"ojpeg/{route}-{name}.tif"] = ojpeg_tiff(photo, jpeg_from_blocks(23, 37, sampling, 2515 + len(out)),
+                                                      route, subsampling=sampling[0])
+    gray = np.asarray(Image.fromarray(photo).convert("L"))
+    gjpg = _pil_jpeg(gray, quality=85)
+    for route in ("tables", "header"):
+        out[f"ojpeg/gray-{route}.tif"] = ojpeg_tiff(gray, gjpg, route, photometric=1)
+    out["ojpeg/interchange-twice.tif"] = legacy_old_jpeg()
+    scan = (smooth_scene(2516, 24, 30, cell=8, step=4)[..., 0].astype(np.int64) * 5 + 40 +
+            r.integers(0, 40, (24, 30)))
+    for scale in (0.25, 1.0, 4.0):
+        out[f"jpeg12/one-strip-{scale}.tif"] = jpeg12_tiff(scan, scale)
+    out["jpeg12/strips.tif"] = jpeg12_tiff(scan, 1.0, rows_per_strip=8)
+    out["jpeg12/tiles.tif"] = jpeg12_tiff(scan, 1.0, tile=(16, 16))
+    out["jpeg12/shared-tables.tif"] = jpeg12_tiff(scan, 0.5, rows_per_strip=16, shared_tables=True)
+    out["jpeg12/restarts.tif"] = jpeg12_tiff(scan, 1.0, restart=3)
+    out["jpeg12/libtiff-written.tif"] = libtiff_jpeg12(scan % 4096, 85)
+    out["jpeg12/eight-bit-stream-at-12.tif"] = legacy_jpeg12()
+    return out
+
+
+def legacy_old_jpeg() -> bytes:
+    """An old-style JPEG TIFF whose JPEGInterchangeFormat and only strip are
+    one whole JPEG stream (the port's encoder's), as ``legacy_refusals``
+    wrote it before the port read it."""
+    photo = smooth_scene(2331, 24, 20, cell=8, step=4)
+    jpg = port_jpeg(photo, 85)
+    return tiff_bytes(photo, 8, 6, compression=6, chunks=[jpg], tags={530: (3, [2, 2]), 513: (4, [8]),
+                                                                      514: (4, [len(jpg)])})
+
+
+def legacy_jpeg12() -> bytes:
+    """A gray JPEG TIFF whose 8-bit stream's precision byte and
+    BitsPerSample say 12, as ``legacy_refusals`` wrote it before the port
+    read it."""
+    photo = smooth_scene(2331, 24, 20, cell=8, step=4)
+    jpeg_gray = jpeg_tiff(photo[..., 0], 1, 85)
+    sof = jpeg_gray.index(b"\xff\xc0")
+    jpeg12 = bytearray(jpeg_gray[:sof + 4] + b"\x0c" + jpeg_gray[sof + 5:])
+    at = struct.unpack_from("<I", jpeg12, 4)[0]
+    for i in range(struct.unpack_from("<H", jpeg12, at)[0]):
+        if struct.unpack_from("<H", jpeg12, at + 2 + 12 * i)[0] == 258:  # BitsPerSample 12
+            struct.pack_into("<H", jpeg12, at + 2 + 12 * i + 8, 12)
+    return bytes(jpeg12)
+
+
+def lzo_png_layouts() -> Dict[str, bytes]:
+    """The Pillow lane's PNG past its image data (PngImageFile.load_end),
+    never committed (a PNG's lanes part here: the native lane reads
+    libpng's way, and refuses a palette without PLTE):
+    palettes without PLTE at each depth (Pillow's empty palette: black), a
+    PLTE after the image data (too late for Pillow), text, compressed text
+    and an unknown chunk after it, a second IDAT, an fcTL of a file that is
+    not animated, a bad CRC after the image data (never checked), a file
+    cut inside the last CRC."""
+    r = np.random.default_rng(2517)
+    photo = smooth_scene(2517, 13, 17, cell=4, step=8)
+    base = png_bytes(photo, 8, 2)
+    idx = r.integers(0, 256, (13, 17, 1))
+    out = {f"png/palette-{d}-no-plte.png": png_bytes(idx % (1 << d), d, 3) for d in (1, 2, 4, 8)}
+    out["png/plte-after-image.png"] = png_after(png_bytes(idx, 8, 3, chunks=[(b"PLTE", bytes(range(256)) * 3)]),
+                                                [(b"PLTE", bytes(r.integers(0, 256, 768, dtype=np.uint8)))])
+    itxt = b"Title\0\1\0en\0Titel\0" + zlib.compress("a caption, déjà vu".encode())
+    out["png/text-after-image.png"] = png_after(base, [(b"tEXt", b"Comment\0after the image"),
+                                                       (b"zTXt", b"Software\0\0" + zlib.compress(b"port" * 50)),
+                                                       (b"iTXt", itxt), (b"eXIf", b"MM\0*\0\0\0\x08\0\0"),
+                                                       (b"prVt", bytes(40))])
+    out["png/second-idat.png"] = png_after(base, [(b"IDAT", zlib.compress(b"more"))])
+    fctl = struct.pack(">IIIIIHHBB", 0, 17, 13, 0, 0, 1, 10, 0, 0)
+    out["png/fctl-not-animated.png"] = png_after(base, [(b"fcTL", fctl)])
+    bad = png_after(base, [(b"tEXt", b"k\0v")])
+    out["png/bad-crc-after-image.png"] = bad[:-13] + bytes([bad[-13] ^ 0xFF]) + bad[-12:]
+    out["png/cut-in-last-crc.png"] = base[:-12 - 2]
+    return out
+
+
+def lzo_layouts() -> Dict[str, bytes]:
+    """Every committed file of this folder the port reads (name under
+    ``tiff_lzma_zstd_ojpeg/`` -> bytes)."""
+    r = np.random.default_rng(2510)
+    out = {**_lzo_tiff_layouts(r), **_lzo_jpeg_layouts(r)}
+    return {f"{LZO}/{k}": v for k, v in sorted(out.items())}
+
+
+def lzo_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Files of this slice the port refuses (name -> (bytes, the reason
+    its error names, a regular expression)): those Pillow refuses too, and
+    those Pillow reads that the port leaves out by name (an .xz BCJ filter,
+    old JPEG of RGB samples or of a frame taller than 65535 rows built from
+    the tags, a 12-bit JPEG row libtiff leaves short)."""
+    r = np.random.default_rng(2520)
+    photo = smooth_scene(2521, 12, 20, cell=4, step=8)
+    raw = photo.tobytes()
+    xz = xz_of(raw)
+    z = zstd_compress(raw, level=3, checksum=1)
+    zh = _zstd_header_size(z)
+    dictz = bytearray(zstd_compress(raw, level=3))
+    dictz = bytes(dictz[:4]) + bytes([dictz[4] | 1]) + bytes(dictz[5:6]) + b"\x2a" + bytes(dictz[6:])
+    jpg = _pil_jpeg(photo, quality=85, subsampling=0)
+    jpg22 = _pil_jpeg(photo, quality=85, subsampling=2)
+    scan = (photo[..., 0].astype(np.int64) * 9) % 4096
+    odd = r.integers(0, 4096, (12, 21))
+    wide = tiff_bytes(odd, 12, 1, compression=7, chunks=[jpeg12_gray(odd, 1.0)])
+    out = {
+        "lzma-bcj-x86.tif": (tiff_bytes(photo, compression=34925, compress=lambda b: xz_of(b, bcj=4)), "BCJ"),
+        "lzma-cut-short.tif": (tiff_bytes(photo, compression=34925, chunks=[xz[:len(xz) // 2]]),
+                               "truncated|breaks the format"),
+        "lzma-stream-short-of-the-strip.tif": (tiff_bytes(photo, compression=34925, chunks=[xz_of(raw[:-7])]),
+                                               "truncated"),
+        "lzma-bad-first-block-check.tif": (tiff_bytes(photo, compression=34925, chunks=[
+            _flip_xz_check(xz_of(raw, blocks=2))]), "breaks the format"),
+        "lzma-bad-data.tif": (tiff_bytes(photo, compression=34925, chunks=[xz[:40] + bytes(b ^ 0x55 for b in xz[40:60])
+                                                                              + xz[60:]]), "breaks the format|truncated"),
+        "zstd-dictionary.tif": (tiff_bytes(photo, compression=50000, chunks=[dictz]), "Dictionary mismatch"),
+        "zstd-skippable-first.tif": (tiff_bytes(photo, compression=50000, chunks=[skippable(b"x") + z]), "truncated"),
+        "zstd-bad-checksum.tif": (tiff_bytes(photo, compression=50000, chunks=[z[:-1] + bytes([z[-1] ^ 1])]),
+                                  "breaks the format"),
+        "zstd-cut-short.tif": (tiff_bytes(photo, compression=50000, chunks=[z[:len(z) // 2]]),
+                               "truncated|breaks the format"),
+        "zstd-reserved-block.tif": (tiff_bytes(photo, compression=50000, chunks=[
+            z[:zh] + bytes([z[zh] | 6]) + z[zh + 1:]]), "breaks the format"),
+        "ojpeg-rgb.tif": (ojpeg_tiff(photo, jpg, "tables", photometric=2), "old-style JPEG"),
+        "ojpeg-tiled.tif": (tiff_bytes(photo, 8, 6, compression=6, tile=(16, 16), data=jpg, tags={
+            530: (3, [1, 1])}), "old-style JPEG"),
+        "ojpeg-no-tables.tif": (ojpeg_tiff(photo, jpg, "tables", subsampling=(1, 1), tags={519: (4, [0])}),
+                                "old-style JPEG"),
+        "ojpeg-2x4.tif": (ojpeg_tiff(photo, jpeg_from_blocks(12, 20, [(2, 4), (1, 1), (1, 1)], 2522), "header",
+                                     subsampling=(2, 4)), "YCbCr pixels in this layout"),
+        # the tables route's frame takes the tags' size in 16 bits
+        "ojpeg-width-70000.tif": (ojpeg_tiff(photo, jpg22, "tables", tags={256: (4, [70000])}),
+                                  "does not match the file's tags"),
+        "ojpeg-height-65537.tif": (ojpeg_tiff(photo, jpg22, "tables", tags={257: (4, [65537]), 278: (4, [65537])}),
+                                   "taller than 65535 rows"),
+        "ojpeg-chroma-2x1.tif": (ojpeg_tiff(photo, jpeg_from_blocks(12, 20, [(2, 2), (2, 1), (1, 1)], 2523), "header"),
+                                 "old-style JPEG"),
+        "jpeg12-rgb.tif": (tiff_bytes(np.zeros((12, 20, 3), np.uint16), 12, 2, compression=7, chunks=[b"\xff\xd8"]),
+                           "depth or sample layout"),
+        "jpeg12-odd-width.tif": (wide, "odd width"),
+        "jpeg12-eight-bit-stream.tif": (tiff_bytes(scan, 12, 1, compression=7, chunks=[_pil_jpeg(
+            photo[..., 0], quality=80)]), "does not match the file's tags"),
+        "webp-in-tiff.tif": (tiff_bytes(photo, compression=50001, chunks=[pil_webp(photo, lossless=True)]),
+                             "with this compression"),
+        "jbig.tif": (tiff_bytes(photo[..., 0] & 1, 1, 0, compression=34661, chunks=[bytes(40)]),
+                     "with this compression"),
+    }
+    return out
+
+
+def lzo_png_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """PNGs whose chunks after the image data Pillow's Pillow lane refuses
+    (a body cut short: "Truncated File Read"; a chunk handler's error),
+    never committed: the native lane reads them."""
+    png = png_bytes(smooth_scene(2521, 12, 20, cell=4, step=8), 8, 2)
+    return {
+        "png-text-cut-after-image.png": (png_after(png, [(b"tEXt", b"Comment\0" + bytes(60))], end=False)[:-30],
+                                         "Truncated File Read"),
+        "png-idat-cut-after-image.png": (png_after(png, [(b"IDAT", bytes(100))], end=False)[:-50],
+                                         "Truncated File Read"),
+        "png-ztxt-method-after-image.png": (png_after(png, [(b"zTXt", b"k\0\1xyz")]), "chunk handler refuses"),
+        "png-gama-short-after-image.png": (png_after(png, [(b"gAMA", b"\0\1")]), "chunk handler refuses"),
+        "png-ztxt-too-large-after-image.png": (png_after(png, [(b"zTXt", b"k\0\0" + zlib.compress(bytes(1 << 21)))]),
+                                               "chunk handler refuses"),
+        "png-fctl-sequence-after-image.png": (png_after(png, [(b"fcTL", struct.pack(">IIIIIHHBB", 4, 20, 12, 0, 0,
+                                                                                      1, 10, 0, 0))]),
+                                              "chunk handler refuses"),
+    }
+
+
+def _flip_xz_check(stream: bytes) -> bytes:
+    """A two-block .xz stream (CRC32) with its first block's check
+    changed: a fault liblzma finds before the strip's buffer is full."""
+    at = 12
+    assert not stream[at + 1] & 0xC0  # no sizes in the block header
+    data = at + (stream[at] + 1) * 4
+    # the first block's LZMA2 ends at its end marker: walk its chunks
+    q = data
+    while stream[q] != 0:
+        c = stream[q]
+        if c >= 0x80:
+            packed = (stream[q + 3] << 8 | stream[q + 4]) + 1
+            q += 5 + (c >= 0xC0) + packed
+        else:
+            q += 3 + (stream[q + 1] << 8 | stream[q + 2]) + 1
+    q += 1
+    q += -(q - data) % 4
+    return stream[:q] + bytes([stream[q] ^ 1]) + stream[q + 1:]
+
+
+def _zstd_header_size(frame: bytes) -> int:
+    """The size of a Zstandard frame's header: magic, descriptor, window,
+    dictionary ID and content size."""
+    fhd = frame[4]
+    single = fhd >> 5 & 1
+    return 5 + (not single) + (0, 1, 2, 4)[fhd & 3] + ((1 if single else 0), 2, 4, 8)[fhd >> 6]
+
+
+def lzo_card_committed() -> Dict[str, bytes]:
+    """The committed card originals of ``LZO_COMMITTED_CARD``: the 1024 px
+    photo of ``lzo_card_originals`` as an RGB TIFF of 64-row strips, ZSTD
+    (level 12) after Predictor 2 and LZMA (Delta of 3 bytes, preset 6,
+    CRC32), as libtiff's own LZMA writer chains Delta before LZMA2."""
+    photo = lzo_card_photo()
+    return {f"{LZO}/card/photo-1024-zstd-predictor.tif": tiff_bytes(
+        photo, compression=50000, predictor=2, rows_per_strip=64, compress=lambda b: zstd_compress(b, level=12)),
+            f"{LZO}/card/photo-1024-lzma.tif": tiff_bytes(photo, compression=34925, rows_per_strip=64,
+                                                           compress=lambda b: xz_of(b, delta=3))}
+
+
+def lzo_card_photo() -> np.ndarray:
+    return smooth_scene(2530, 1024, 1024, cell=256, step=1)
+
+
+def lzo_card_originals() -> Dict[str, bytes]:
+    """The card's written originals of ``LZO_CARD`` (all but the committed
+    ones), from seeded numpy and the port's JPEG encoder alone: name (under
+    ``tiff_lzma_zstd_ojpeg/card/``) -> bytes."""
+    photo = lzo_card_photo()
+    scan = smooth_scene(2531, 1024, 1024, cell=128, step=1)[..., 1].astype(np.int64) * 9 + 100
+    png = png_bytes(photo, 8, 2)
+    out = {
+        "photo-1024-ojpeg-2x2.tif": ojpeg_tiff(photo, port_jpeg(photo, 90), "header"),
+        "scan-1024-jpeg12.tif": jpeg12_tiff(scan, 1.0, rows_per_strip=64, shared_tables=True),
+        "photo-1024-chunks-after.png": png_after(png, [(b"tEXt", b"Comment\0" + b"written after the image " * 8),
+                                                       (b"zTXt", b"Software\0\0" + zlib.compress(b"port" * 64)),
+                                                       (b"eXIf", b"MM\0*\0\0\0\x08\0\0")]),
+    }
+    assert sorted(out) == sorted(set(LZO_CARD) - set(LZO_COMMITTED_CARD))
+    return {f"{LZO}/card/{k}": v for k, v in out.items()}
+
+
+def lzo_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``tiff_lzma_zstd_ojpeg/`` (name -> bytes),
+    written anew: the layouts, the refusals and the committed card
+    originals."""
+    refused = {f"{LZO}/refused/{k}": v for k, (v, _) in lzo_refusals().items()}
+    return dict(sorted({**lzo_layouts(), **refused, **lzo_card_committed()}.items()))
+
+
+def committed_lzo() -> Dict[str, bytes]:
+    """The committed files under ``tiff_lzma_zstd_ojpeg/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, LZO)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def lzo_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest's parts of this folder: each committed file as
+    ``gif_tiff_entry`` records it with ``lzo_refusals``; each card original
+    written on the card (``lzo_card``)."""
+    files = committed_lzo() if files is None else files
+    reasons = lzo_refusals()
+    entries = {}
+    for name, data in files.items():
+        path = os.path.join(scratch, "lzo" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, reasons)
+    card = {}
+    for name, data in lzo_card_originals().items():
+        path = os.path.join(scratch, os.path.basename(name))
+        with open(path, "wb") as f:
+            f.write(data)
+        card[name] = gif_tiff_entry(name, path, reasons)
+    return {"files": entries, "lzo_card": card}
+
+
+def check_lzo_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Writes ``lzo_card_originals`` into ``folder`` and holds each, and
+    each committed card original, to the manifest (``lzo_card``; the
+    committed ones under ``files``): bytes and ``decode``'s RGB.  Returns
+    name -> path of each; raises ``AssertionError`` naming the first that
+    differs."""
+    manifest = load_manifest()
+    want = {**manifest["lzo_card"], **{n: e for n, e in manifest["files"].items() if n.startswith(f"{LZO}/card/")}}
+    written = lzo_card_originals()
+    paths = {}
+    for name in sorted(want):
+        path = os.path.join(FIXTURES, name)
+        if name in written:
+            if sha256(written[name]) != want[name]["sha256"]:
+                raise AssertionError(f"{name}: the writer made other bytes than the manifest records")
+            path = os.path.join(folder, os.path.basename(name))
+            with open(path, "wb") as f:
+                f.write(written[name])
+        got = decode(path)
+        if list(got.shape[:2]) != want[name]["shape"] or sha256(got) != want[name]["sha256_rgb"]:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
+        paths[os.path.basename(name)] = path
+    if sorted(paths) != sorted(LZO_CARD):
+        raise AssertionError(f"card originals {sorted(paths)}, expected {sorted(LZO_CARD)}")
+    return paths
+
+
 # --- every slice's originals of the Pillow lane in one cli.prep ----------------------------------
 
 #: the manifest's key of the JAX package's prep of ``pillow_lane_originals``
@@ -5754,6 +6716,8 @@ def pillow_lane_sources() -> List[Tuple[str, str, Optional[str]]]:
              None if n in RASTER_COMMITTED_CARD else f"{RASTER}/card/{n}") for n in sorted(RASTER_CARD) if RASTER_CARD[n]]
     for folder, card in ((DBFIS, DBFIS_CARD), (LEGACY, LEGACY_CARD), (IMIPS, IMIPS_CARD)):
         out += [(v, None, f"{folder}/card/{k}") for k, v in sorted(card.items()) if v]
+    out += [(LZO_CARD[n], f"{LZO}/card/{n}" if n in LZO_COMMITTED_CARD else None,
+             None if n in LZO_COMMITTED_CARD else f"{LZO}/card/{n}") for n in sorted(LZO_CARD)]
     names = [n for n, _, _ in out]
     assert len(set(names)) == len(names), "two originals under one listed name"
     return out
@@ -5771,7 +6735,7 @@ def pillow_lane_originals() -> Dict[str, bytes]:
     """``pillow_lane_sources``' originals: listed name -> bytes (the written
     ones made anew by their slices' writers)."""
     written = {**card_originals(), **raster_card_originals(), **dbfis_card_originals(), **legacy_card_originals(),
-               **imips_card_originals()}
+               **imips_card_originals(), **lzo_card_originals()}
     out = {}
     for listed, committed, made in pillow_lane_sources():
         if committed is not None:
