@@ -16,8 +16,9 @@ codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_dcx``), GBR (``decode_gbr``), PIXAR (``decode_pixar``), FITS
 (``decode_fits``), McIdas (``decode_mcidas``), XV thumbnail
 (``decode_xv``), IM (``decode_im``), IMT (``decode_imt``), IPTC
-(``decode_iptc``), PhotoCD (``decode_pcd``) and SPIDER
-(``decode_spider``) in numpy below, their sequential loops (plain PNM
+(``decode_iptc``), PhotoCD (``decode_pcd``), SPIDER
+(``decode_spider``) and JPEG 2000 (``decode_jpeg2000``, its pixels from
+the port's own decoder) in numpy below, their sequential loops (plain PNM
 samples, Targa RLE packets, PackBits, PCX, SGI, Sun and ICNS RLE, QOI
 ops, XBM's hex bytes, MSP's RLE, FLI's chunks, IM's bit decoder), BCn
 blocks and a Lab PSD's conversion to sRGB in the native library; each as
@@ -58,7 +59,7 @@ class NotThisFormat(OSError):
 #: the formats the port decodes; ``walk`` names any other Pillow opens
 READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA",
         "DDS", "BLP", "FTEX", "ICNS", "Sun raster", "XBM", "XPM", "MSP", "FLI", "DCX", "GBR", "PIXAR", "FITS", "McIdas",
-        "XV thumbnail", "IM", "IMT", "IPTC", "PCD", "SPIDER")
+        "XV thumbnail", "IM", "IMT", "IPTC", "PCD", "SPIDER", "JPEG 2000")
 
 
 def is_image(name: str) -> bool:
@@ -1336,7 +1337,8 @@ def decode_icns(data: bytes, name: str = "ICNS") -> np.ndarray:
     type replacing an earlier), the largest size of ``ICNS_SIZES`` with
     an element (Pillow's ``bestsize``), and every element of that size
     read in order, as ``dataforsize`` reads them: a PNG through the port's
-    PNG codec in Pillow's lane (its own size, which must be one of the
+    PNG codec in Pillow's lane, a JPEG 2000 stream through
+    ``decode_jpeg2000`` (either of its own size, which must be one of the
     file's sizes over a whole scale, as Pillow's size setter asks), 24-bit
     RGB raw where the element holds 3 bytes a pixel and else RLE through
     the native library (``native.icns_rle``, ``it32`` after four zero
@@ -1344,7 +1346,7 @@ def decode_icns(data: bytes, name: str = "ICNS") -> np.ndarray:
     element wins; else the RGB.  A file Pillow does not identify (a
     directory cut short or holding an empty element, no element of a
     listed size) raises ``NotThisFormat``; what it refuses (a JPEG 2000
-    element, which the port does not read, another stream, RLE that passes
+    element Pillow refuses, another stream, RLE that passes
     its channel or ends early, a mask or raw RGB cut short, a size holding
     a mask alone) raises ``OSError`` naming the file and the kind."""
 
@@ -1381,9 +1383,15 @@ def decode_icns(data: bytes, name: str = "ICNS") -> np.ndarray:
             if head.startswith(_PNG_MAGIC):
                 png = native.decode_buffer(data[start:], name, "pillow")
                 _too_large(name, "ICNS PNG element", png.shape[1], png.shape[0])
-            elif head.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) or head == b"\0\0\0\x0cjP  \r\n\x87\n":
-                raise OSError(f"{name}: ICNS element {code.decode()} holds a JPEG 2000 stream: JPEG 2000 files are not "
-                              "read by the PyTorch port")
+            elif head.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) or head == _JP2_MAGIC:
+                # Pillow opens the element's bytes as a JPEG 2000 file, then
+                # converts it to RGBA (the same RGB as convert("RGB") gives)
+                element = f"{name} (ICNS element {code.decode()})"
+                try:
+                    png = decode_jpeg2000(data[start:start + length], element)
+                except NotThisFormat as e:
+                    raise refuse(f"element {code.decode()} that Pillow's JPEG 2000 plugin does not open ({e})") from e
+                _too_large(name, "ICNS JPEG 2000 element", png.shape[1], png.shape[0])
             else:
                 raise refuse(f"element {code.decode()} of another stream than PNG or JPEG 2000 (Unsupported icon "
                              "subimage format)")
@@ -1408,12 +1416,229 @@ def decode_icns(data: bytes, name: str = "ICNS") -> np.ndarray:
         # of the file's sizes over a whole scale
         png_h, png_w = png.shape[:2]
         if not any((s[0] * s[2]) // png_w == (s[1] * s[2]) / png_h for s in present):
-            raise refuse(f"PNG element of {png_w} x {png_h} pixels, none of its sizes {present} over a whole scale "
+            raise refuse(f"element of {png_w} x {png_h} pixels, none of its sizes {present} over a whole scale "
                          "(This is not one of the allowed sizes of this image)")
         return png
     if rgb is None:
         raise refuse(f"size {best} holding a mask alone (no RGB channels)")
     return np.ascontiguousarray(rgb)
+
+
+#: the JP2 signature box Pillow's plugin accepts beside a bare codestream
+#: (``FF4F FF51``: SOC, then SIZ)
+_JP2_MAGIC = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
+
+
+class _Boxes:
+    """Jpeg2KImagePlugin's ``BoxReader`` on the file ``f``: its reads bounded
+    by ``length`` (where given) and by the box it is in."""
+
+    def __init__(self, f: BinaryIO, length: int = -1):
+        self.f, self.has_length, self.length, self.remaining = f, length >= 0, length, -1
+
+    def _can_read(self, n: int) -> bool:
+        if self.has_length and self.f.tell() + n > self.length:
+            return False
+        return n <= self.remaining if self.remaining >= 0 else True
+
+    def _read(self, n: int) -> bytes:
+        if not self._can_read(n):
+            raise SyntaxError("Not enough data in header")
+        data = self.f.read(n)
+        if len(data) < n:
+            raise OSError(f"Expected to read {n} bytes but only got {len(data)}.")
+        if self.remaining > 0:
+            self.remaining -= n
+        return data
+
+    def fields(self, fmt: str) -> tuple:
+        return struct.unpack(fmt, self._read(struct.calcsize(fmt)))
+
+    def boxes(self) -> "_Boxes":
+        n = self.remaining
+        return _Boxes(io.BytesIO(self._read(n)), n)
+
+    def has_next(self) -> bool:
+        return self.f.tell() + self.remaining < self.length if self.has_length else True
+
+    def next_type(self) -> bytes:
+        if self.remaining > 0:
+            self.f.seek(self.remaining, os.SEEK_CUR)
+        self.remaining = -1
+        lbox, tbox = self.fields(">I4s")
+        hlen = 8
+        if lbox == 1:
+            lbox, hlen = self.fields(">Q")[0], 16
+        if lbox < hlen or not self._can_read(lbox - hlen):
+            raise SyntaxError("Invalid header length")
+        self.remaining = lbox - hlen
+        return tbox
+
+
+class _Palette:
+    """``ImagePalette.getcolor`` as Jpeg2KImagePlugin fills a palette from a
+    ``pclr`` box: a colour seen before keeps its index, a new one takes the
+    index of the palette's length in colours of its mode (``len(mode)``
+    bytes, whatever the entry's own length), overwriting the bytes there."""
+
+    def __init__(self, mode: str):
+        self.mode, self.palette, self.colors = mode, bytearray(), {}
+
+    def getcolor(self, color: tuple) -> None:
+        if color in self.colors:
+            return
+        n = len(self.mode)
+        index = len(self.palette) // n
+        if index >= 256:
+            raise ValueError("cannot allocate more than 256 colors")
+        self.colors[color] = index
+        if index * n < len(self.palette):
+            self.palette = self.palette[:index * n] + bytes(color) + self.palette[index * n + n:]
+        else:
+            self.palette += bytes(color)
+
+    def lut(self) -> np.ndarray:
+        """The RGB of each index as the image's palette holds it after
+        ``putpalette``: the whole colours of the bytes, then black."""
+        n = len(self.mode)
+        size = len(self.palette) // n
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:size] = np.frombuffer(bytes(self.palette[:size * n]), np.uint8).reshape(size, n)[:, :3]
+        return lut
+
+
+def _j2k_siz(f: BinaryIO) -> Tuple[Tuple[int, int], str]:
+    """``_parse_codestream``: the size and mode from the SIZ segment."""
+    hdr = f.read(2)
+    lsiz = struct.unpack(">H", hdr)[0]
+    siz = hdr + f.read(lsiz - 2)
+    _, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
+    if csiz == 1:
+        mode = "I;16" if (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1 > 8 else "L"
+    elif csiz in (2, 3, 4):
+        mode = ("LA", "RGB", "RGBA")[csiz - 2]
+    else:
+        raise SyntaxError("unable to determine J2K image mode")
+    return (xsiz - xosiz, ysiz - yosiz), mode
+
+
+def _j2k_comment(f: BinaryIO) -> None:
+    """``_parse_comment``: the markers after SIZ walked up to SOT, EOC or a
+    COM (their reads can fail as Pillow's do)."""
+    for _ in range(1 << 16):
+        marker = f.read(2)
+        if not marker:
+            return
+        typ = marker[1]
+        if typ in (0x90, 0xD9):
+            return
+        length = struct.unpack(">H", f.read(2))[0]
+        if typ == 0x64:
+            f.read(length - 2)
+            return
+        f.seek(length - 2, os.SEEK_CUR)
+
+
+def _jp2_header(f: BinaryIO) -> Tuple[Tuple[int, int], str, Optional[_Palette]]:
+    """``_parse_jp2_header``: the size, mode and palette from the ``jp2h``
+    box (``ihdr``; ``colr`` read where ``ihdr`` gave four components; a
+    ``pclr`` of at most 8 bits a column on L or LA)."""
+    reader = _Boxes(f)
+    header = None
+    while reader.has_next():
+        tbox = reader.next_type()
+        if tbox == b"jp2h":
+            header = reader.boxes()
+            break
+        if tbox == b"ftyp":
+            reader.fields(">4s")
+    size = mode = nc = palette = None
+    while header.has_next():
+        tbox = header.next_type()
+        if tbox == b"ihdr":
+            height, width, nc, bpc = header.fields(">IIHB")
+            size = (width, height)
+            if nc == 1:
+                mode = "I;16" if (bpc & 0x7F) > 8 else "L"
+            elif nc in (2, 3, 4):
+                mode = ("LA", "RGB", "RGBA")[nc - 2]
+        elif tbox == b"colr" and nc == 4:
+            meth, _, _, enumcs = header.fields(">BBBI")
+            if meth == 1 and enumcs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and mode in ("L", "LA"):
+            ne, npc = header.fields(">HB")
+            if max(header.fields(">" + "B" * npc), default=0) <= 8:
+                palette = _Palette("RGBA" if npc == 4 else "RGB")
+                for _ in range(ne):
+                    palette.getcolor(header.fields(">" + "B" * npc))
+                mode = "P" if mode == "L" else "PA"
+        elif tbox == b"res ":
+            res = header.boxes()
+            while res.has_next():
+                if res.next_type() == b"resc":
+                    res.fields(">HHHHBB")
+                    break
+    if size is None or mode is None:
+        raise SyntaxError("Malformed JP2 header")
+    return size, mode, palette
+
+
+def _jpeg2000_open(data: bytes, name: str) -> Tuple[Tuple[int, int], str, Optional[_Palette]]:
+    """``Jpeg2KImageFile._open`` on a file's bytes: (size, mode, palette),
+    ``NotThisFormat`` where Pillow does not identify the file, and Pillow's
+    verdict where its reads stop the walk."""
+    f = io.BytesIO(data)
+    with _Opening(name, "JPEG 2000"):
+        palette = None
+        try:
+            sig = f.read(4)
+            if sig == b"\xff\x4f\xff\x51":
+                size, mode = _j2k_siz(f)
+                _j2k_comment(f)
+            else:
+                if sig + f.read(8) != _JP2_MAGIC:
+                    raise SyntaxError("not a JPEG 2000 file")
+                size, mode, palette = _jp2_header(f)
+                if f.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
+                    length = struct.unpack(">H", f.read(2))[0]
+                    f.seek(length - 2, os.SEEK_CUR)
+                    _j2k_comment(f)
+        except OSError as e:  # a box cut short: Pillow's verdict stops its walk
+            raise OSError(f"{name}: JPEG 2000 header that Pillow refuses ({e}), which Pillow (the JAX package's "
+                          "JPEG 2000 lane) does not read") from e
+    _checked(name, "JPEG 2000", mode, size)
+    return size, mode, palette
+
+
+def _jpeg2000_rgb(mode: str, px: np.ndarray, palette: Optional[_Palette]) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of a JPEG 2000 image of ``mode``."""
+    if mode == "I;16":
+        return _gray_rgb(px.view("<u2")[..., 0], mode)
+    if mode in ("P", "PA"):
+        return np.ascontiguousarray(palette.lut()[px[..., 0]])
+    if mode == "CMYK":
+        return _cmyk2rgb(px)
+    if mode in ("L", "LA"):
+        return _rgb(px[..., 0])
+    return np.ascontiguousarray(px[..., :3])
+
+
+def decode_jpeg2000(data: bytes, name: str = "JPEG 2000") -> np.ndarray:
+    """A JPEG 2000 codestream or JP2 file as uint8 RGB, bit for bit with
+    Pillow 12.1.0's ``Jpeg2KImagePlugin`` (OpenJPEG 2.5.4) and
+    ``convert("RGB")``: the size and mode its ``_open`` reads (the SIZ
+    segment's components and precision, or the JP2 header's ``ihdr``, a
+    CMYK ``colr`` and a ``pclr`` palette, filled as ``ImagePalette`` fills
+    it), the port's decoder (``native.decode_jpeg2000``) for the pixels
+    Pillow's unpackers make of OpenJPEG's tiles, then the mode's
+    conversion.  What Pillow does not identify raises ``NotThisFormat``;
+    what OpenJPEG or Pillow's decoder refuses (a cut or damaged stream, an
+    ``ihdr`` of another size than the codestream's, components and a
+    colour space no unpacker takes) raises ``OSError`` naming the file and
+    Pillow's verdict, and HTJ2K and Part 2 markers the port's refusal."""
+    (w, h), mode, palette = _jpeg2000_open(data, name)
+    return _jpeg2000_rgb(mode, native.decode_jpeg2000(data, name, mode, w, h), palette)
 
 
 #: Pillow 12.1.0's Sun raster raw modes (``SunImagePlugin``) by depth:
@@ -2640,7 +2865,7 @@ _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": dec
              "XBM": decode_xbm, "XPM": decode_xpm, "MSP": decode_msp, "FLI": decode_fli, "DCX": decode_dcx,
              "GBR": decode_gbr, "PIXAR": decode_pixar, "FITS": decode_fits, "McIdas": decode_mcidas,
              "XV thumbnail": decode_xv, "IM": decode_im, "IMT": decode_imt, "IPTC": decode_iptc, "PCD": decode_pcd,
-             "SPIDER": decode_spider}
+             "SPIDER": decode_spider, "JPEG 2000": decode_jpeg2000}
 
 
 def _read(f: BinaryIO, name: str, native_read) -> np.ndarray:

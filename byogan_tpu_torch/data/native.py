@@ -21,6 +21,8 @@ PSD, PCX, SGI, QOI, Sun raster, ICNS, XBM, MSP, FLI and IM readers as
 Pillow's decoders do;
 ``bcn`` decodes the BCn blocks of DDS,
 FTEX and BLP2 textures as Pillow's bcn decoder and BLP plugin do;
+``decode_jpeg2000`` a JPEG 2000 codestream or JP2 file as Pillow's
+decoder over OpenJPEG 2.5.4 fills an image of Pillow's mode;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
 naming the compiler's error: there is no other lane to fall back on.
@@ -38,7 +40,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 14
+ABI_VERSION = 15
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -126,6 +128,14 @@ ERRORS = {
          "tags libtiff's codec refuses (no JPEGQTables, strips that do not hold whole rows of blocks)",
     -65: "a 12-bit JPEG TIFF strip or tile of an odd width: libtiff packs the samples two at a time and leaves each "
          "row's last one unwritten, where Pillow shows whatever its buffer held",
+    -66: "a JPEG 2000 codestream or JP2 box that OpenJPEG's strict mode refuses, or one cut short or damaged "
+         "(Pillow: broken data stream when reading image file)",
+    -67: "HTJ2K (JPEG 2000 Part 15) code-blocks, which OpenJPEG 2.5.4 decodes and the PyTorch port does not read",
+    -68: "a JPEG 2000 codestream with Part 2 markers (MCT, MCC, MCO, CBD) or a component whose top resolution level "
+         "has no packet, which the PyTorch port does not read",
+    -69: "JPEG 2000 components, colour space and mode that Pillow's decoder has no unpacker for (five or more "
+         "components, an ICC or unknown colour space, subsampled gray, a palette of gray...; Pillow: broken data "
+         "stream when reading image file)",
 }
 
 _P = ctypes.c_void_p
@@ -157,6 +167,7 @@ SIGNATURES = {
     "byogan_decode_vp8_yuv": [_S, _P, _P, _P, _IP, _IP],
     "byogan_xz": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
     "byogan_zstd": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
+    "byogan_decode_jpeg2000": [_P, _N, _I, _I, _I, _P],
 }
 
 
@@ -407,6 +418,24 @@ def bcn(data: bytes, name: str, pixel_format: str, w: int, h: int) -> np.ndarray
     rc = load_library().byogan_bcn(data, len(data), code, w, h, out.ctypes.data)
     if rc != 0:
         raise _failed(name, f"{pixel_format} block decode", rc)
+    return out
+
+
+#: Pillow's JPEG 2000 modes in the order of ``native/jpeg2000.cpp``'s Mode,
+#: and the bytes a pixel of each in Pillow's image
+J2K_MODES = {"L": 1, "I;16": 2, "LA": 4, "RGB": 4, "RGBA": 4, "CMYK": 4, "P": 1, "PA": 4}
+
+
+def decode_jpeg2000(data: bytes, name: str, mode: str, w: int, h: int) -> np.ndarray:
+    """A JPEG 2000 codestream or JP2 file as Pillow 12.1.0's decoder
+    (OpenJPEG 2.5.4, then Jpeg2KDecode.c's unpackers, YCbCr converted to
+    RGB where they convert it) fills an image of Pillow's ``mode`` and
+    w x h pixels (``native/jpeg2000.cpp``): uint8 (h, w, bytes a pixel),
+    I;16 as its two little-endian bytes."""
+    out = np.empty((h, w, J2K_MODES[mode]), np.uint8)
+    rc = load_library().byogan_decode_jpeg2000(data, len(data), list(J2K_MODES).index(mode), w, h, out.ctypes.data)
+    if rc != 0:
+        raise _failed(name, "JPEG 2000 decode", rc)
     return out
 
 

@@ -147,7 +147,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 14; }
+int byogan_abi_version() { return 15; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -190,6 +190,12 @@ static int stream_decode(int (*decode)(const uint8_t*, size_t, size_t, std::vect
   if (bytes.size() > cap) return byogan::kNoMemory;
   if (!bytes.empty()) memcpy(out, bytes.data(), bytes.size());
   return rc;
+}
+
+// A JPEG 2000 codestream or JP2 file in memory as Pillow's decoder unpacks it
+// into an image of Pillow's mode `mode` (codec.h's decode_jpeg2000).
+int byogan_decode_jpeg2000(const uint8_t* data, size_t size, int mode, int w, int h, uint8_t* out) {
+  return byogan::decode_jpeg2000(data, size, mode, w, h, out);
 }
 
 int byogan_xz(const uint8_t* in, size_t n, long long occ, uint8_t* out, size_t cap, size_t* written) {

@@ -72,6 +72,10 @@ enum Status {
   kZstdDictionary = -63,   // a Zstandard frame that names a dictionary (libzstd: Dictionary mismatch)
   kTiffOjpeg = -64,        // an old-style JPEG TIFF in a layout the port does not read (tiles, separate planes)
   kTiffJpeg12Odd = -65,    // a 12-bit JPEG TIFF strip or tile of odd width (libtiff leaves a sample of each row unset)
+  kJ2kBroken = -66,        // a JPEG 2000 file OpenJPEG refuses or that is cut short (Pillow: broken data stream)
+  kJ2kHt = -67,            // HTJ2K (Part 15) code-blocks
+  kJ2kMarker = -68,        // a JPEG 2000 codestream of Part 2 markers, or a component whose top level has no packet
+  kJ2kUnpack = -69,        // components, colour space and mode Pillow's JPEG 2000 decoder has no unpacker for
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -180,6 +184,12 @@ int decode_jpeg_tiff12(const uint8_t* tables, size_t tables_size, const uint8_t*
 // (whole blocks) and 8 rows a block row.
 int decode_jpeg_planes(const uint8_t* data, size_t size, JpegFrame* frame, std::vector<uint8_t>* planes,
                        int* strides);
+
+// A JPEG 2000 codestream or JP2 file (jpeg2000.cpp) as Pillow's Jpeg2KDecode
+// unpacks it into an image of Pillow's `mode` (jpeg2000.cpp's Mode: L, I;16,
+// LA, RGB, RGBA, CMYK, P, PA) of im_w x im_h pixels, 1, 2 or 4 bytes each,
+// into out (YCbCr converted to RGB where Pillow's unpacker converts it).
+int decode_jpeg2000(const uint8_t* data, size_t size, int mode, int im_w, int im_h, uint8_t* out);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

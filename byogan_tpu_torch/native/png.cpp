@@ -5,7 +5,10 @@
 // repeated into three channels.  In the Pillow lane (kPillowLane) a 16-bit
 // gray sample is clipped at 255 instead, as Pillow's I;16 -> RGB does, and
 // the chunks are read as PngImagePlugin reads them: every chunk's CRC
-// checked before the image data, none of the IDATs', the data read as far
+// checked before the image data, none of the IDATs', each chunk before
+// them through its handler (pillow_chunk: a short or wrong body fails, an
+// unknown one is skipped, a name that is not four word characters
+// fails), the first 13 bytes of a longer IHDR, the data read as far
 // as the image's last byte and ended by any other chunk, then the chunks
 // after it up to IEND as load_end reads them (pillow_load_end: a body cut
 // short or one a chunk handler refuses fails, the file's end or a chunk
@@ -131,16 +134,88 @@ struct PillowState {
   int64_t seq = -1;  // _seq_num; -1: None
 };
 
+bool word(uint8_t c) { return (c >= '0' && c <= '9') || (c >= 'A' && c <= 'Z') || (c >= 'a' && c <= 'z') || c == '_'; }
+
+// The chunk handler PngStream.chunk_<type> on a whole body s of len bytes,
+// as PngImageFile._open (before the image data) and load_end (after them)
+// call it: kPngChunkRefused where it raises (a short IHDR, gAMA, cHRM,
+// sRGB, pHYs, tRNS, acTL or fcTL, a filter method, a compression method,
+// text inflating past 1 MiB, an APNG sequence or frame error), else kOk;
+// IHDR and fcTL update st.  PLTE, IDAT, fdAT, tEXt, eXIf and unknown
+// chunks only have their body read.
+int pillow_chunk(uint32_t type, const uint8_t* s, uint32_t len, PillowState& st) {
+  auto need = [&](uint32_t n) { return len < n ? kPngChunkRefused : kOk; };
+  switch (type) {
+    case 0x49484452u:  // IHDR
+      if (len < 13) return kPngChunkRefused;
+      if (s[11]) return kPngChunkRefused;  // "unknown filter category"
+      {
+        const int d = s[8], c = s[9];
+        const bool known = (c == 0 && (d == 1 || d == 2 || d == 4 || d == 8 || d == 16)) ||
+                           (c == 3 && (d == 1 || d == 2 || d == 4 || d == 8)) ||
+                           ((c == 2 || c == 4 || c == 6) && (d == 8 || d == 16));
+        if (known) st.depth = d, st.color = c;
+        st.w = be32(s), st.h = be32(s + 4);
+      }
+      return kOk;
+    case 0x74524E53u:  // tRNS: one 16-bit value of gray, three of RGB
+      if (st.color == 0) return need(2);
+      if (st.color == 2) return need(6);
+      return kOk;
+    case 0x67414D41u: return need(4);  // gAMA
+    case 0x6348524Du: return len % 4 ? kPngChunkRefused : kOk;  // cHRM: struct.unpack of whole words
+    case 0x73524742u: return need(1);  // sRGB
+    case 0x70485973u: return need(9);  // pHYs
+    case 0x6163544Cu: return need(8);  // acTL
+    case 0x69434350u: {  // iCCP: the byte after the name's NUL, which must be 0, then the profile
+      const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
+      const size_t i = nul ? (size_t)(nul - s) + 1 : 0;
+      if (i >= len) return kPngChunkRefused;  // IndexError
+      if (s[i] != 0) return kPngChunkRefused;
+      return inflates_too_large(s + i + 1, len - i - 1) ? kPngChunkRefused : kOk;
+    }
+    case 0x7A545874u: {  // zTXt
+      const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
+      if (nul && (size_t)(nul - s) + 1 < len) {
+        const size_t i = (size_t)(nul - s) + 1;
+        if (s[i] != 0) return kPngChunkRefused;
+        if (inflates_too_large(s + i + 1, len - i - 1)) return kPngChunkRefused;
+      }
+      return kOk;
+    }
+    case 0x69545874u: {  // iTXt: keyword, flag, method, language, translated keyword, text
+      const uint8_t* e = s + len;
+      const uint8_t* p = (const uint8_t*)memchr(s, 0, len);
+      if (!p || e - (p + 1) < 2) return kOk;
+      const int flag = p[1], method = p[2];
+      p += 3;
+      for (int k = 0; k < 2 && p; k++) {
+        const uint8_t* q = (const uint8_t*)memchr(p, 0, e - p);
+        p = q ? q + 1 : nullptr;
+      }
+      return p && flag != 0 && method == 0 && inflates_too_large(p, e - p) ? kPngChunkRefused : kOk;
+    }
+    case 0x6663544Cu: {  // fcTL
+      if (len < 26) return kPngChunkRefused;
+      const int64_t seq = be32(s);
+      if ((st.seq < 0 && seq != 0) || (st.seq >= 0 && st.seq != seq - 1)) return kPngChunkRefused;
+      st.seq = seq;
+      if ((uint64_t)be32(s + 12) + be32(s + 4) > st.w || (uint64_t)be32(s + 16) + be32(s + 8) > st.h)
+        return kPngChunkRefused;  // "APNG contains invalid frames"
+      return kOk;
+    }
+    default:
+      return kOk;
+  }
+}
+
 // PngImageFile.load_end from `pos` (after the last image IDAT's body and
-// CRC): each chunk's handler (PngStream.chunk_*) or, for an unknown name,
-// a _safe_read of its body; the CRCs are read, never checked.  Fails with
+// CRC): each chunk's handler (pillow_chunk) or, for an unknown name, a
+// _safe_read of its body; the CRCs are read, never checked.  Fails with
 // kPngChunkCut where a body runs past the file's end ("Truncated File
-// Read") and kPngChunkRefused where a handler raises (a short IHDR, gAMA,
-// cHRM, sRGB, pHYs, tRNS, acTL, fcTL or fdAT, a filter method, a
-// compression method, text inflating past 1 MiB, an APNG sequence or
-// frame error).
+// Read") and kPngChunkRefused where a handler raises (an fdAT out of
+// sequence too).
 int pillow_load_end(const uint8_t* data, size_t size, size_t pos, PillowState st) {
-  auto word = [](uint8_t c) { return (c >= '0' && c <= '9') || (c >= 'A' && c <= 'Z') || (c >= 'a' && c <= 'z') || c == '_'; };
   while (true) {
     if (pos >= size || size - pos < 8) return kOk;  // struct.error or a short name: the walk ends
     const uint32_t len = be32(data + pos);
@@ -150,81 +225,15 @@ int pillow_load_end(const uint8_t* data, size_t size, size_t pos, PillowState st
     if (type == 0x49454E44u) return kOk;  // IEND
     if (type == 0x6663544Cu && st.animated) return kOk;  // fcTL: the next frame's
     const size_t at = pos + 8;
-    const bool whole = size - at >= len;
     const uint8_t* s = data + at;
-    auto need = [&](uint32_t n) { return len < n ? kPngChunkRefused : kOk; };
-    int rc = kOk;
     if (type == 0x66644154u) {  // fdAT: its sequence number, then the data skipped as an IDAT's
       if (len < 4) return kPngChunkRefused;
       if (size - at < 4) return kPngChunkCut;
       if (st.seq < 0 || st.seq != (int64_t)be32(s) - 1) return kPngChunkRefused;  // None != seq - 1
       st.seq = be32(s);
     }
-    if (!whole) return kPngChunkCut;  // every handler reads the whole body first
-    switch (type) {
-      case 0x49484452u:  // IHDR
-        if (len < 13) return kPngChunkRefused;
-        if (s[11]) return kPngChunkRefused;  // "unknown filter category"
-        {
-          const int d = s[8], c = s[9];
-          const bool known = (c == 0 && (d == 1 || d == 2 || d == 4 || d == 8 || d == 16)) ||
-                             (c == 3 && (d == 1 || d == 2 || d == 4 || d == 8)) ||
-                             ((c == 2 || c == 4 || c == 6) && (d == 8 || d == 16));
-          if (known) st.depth = d, st.color = c;
-          st.w = be32(s), st.h = be32(s + 4);
-        }
-        break;
-      case 0x74524E53u:  // tRNS: one 16-bit value of gray, three of RGB
-        if (st.color == 0) rc = need(2);
-        else if (st.color == 2) rc = need(6);
-        break;
-      case 0x67414D41u: rc = need(4); break;  // gAMA
-      case 0x6348524Du: rc = len % 4 ? kPngChunkRefused : kOk; break;  // cHRM: struct.unpack of whole words
-      case 0x73524742u: rc = need(1); break;  // sRGB
-      case 0x70485973u: rc = need(9); break;  // pHYs
-      case 0x6163544Cu: rc = need(8); break;  // acTL
-      case 0x69434350u: {  // iCCP: the byte after the name's NUL, which must be 0, then the profile
-        const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
-        const size_t i = nul ? (size_t)(nul - s) + 1 : 0;
-        if (i >= len) return kPngChunkRefused;  // IndexError
-        if (s[i] != 0) return kPngChunkRefused;
-        if (inflates_too_large(s + i + 1, len - i - 1)) return kPngChunkRefused;
-        break;
-      }
-      case 0x7A545874u: {  // zTXt
-        const uint8_t* nul = (const uint8_t*)memchr(s, 0, len);
-        if (nul && (size_t)(nul - s) + 1 < len) {
-          const size_t i = (size_t)(nul - s) + 1;
-          if (s[i] != 0) return kPngChunkRefused;
-          if (inflates_too_large(s + i + 1, len - i - 1)) return kPngChunkRefused;
-        }
-        break;
-      }
-      case 0x69545874u: {  // iTXt: keyword, flag, method, language, translated keyword, text
-        const uint8_t* e = s + len;
-        const uint8_t* p = (const uint8_t*)memchr(s, 0, len);
-        if (!p || e - (p + 1) < 2) break;
-        const int flag = p[1], method = p[2];
-        p += 3;
-        for (int k = 0; k < 2 && p; k++) {
-          const uint8_t* q = (const uint8_t*)memchr(p, 0, e - p);
-          p = q ? q + 1 : nullptr;
-        }
-        if (p && flag != 0 && method == 0 && inflates_too_large(p, e - p)) return kPngChunkRefused;
-        break;
-      }
-      case 0x6663544Cu: {  // fcTL of a file that is not animated
-        if (len < 26) return kPngChunkRefused;
-        const int64_t seq = be32(s);
-        if ((st.seq < 0 && seq != 0) || (st.seq >= 0 && st.seq != seq - 1)) return kPngChunkRefused;
-        st.seq = seq;
-        if ((uint64_t)be32(s + 12) + be32(s + 4) > st.w || (uint64_t)be32(s + 16) + be32(s + 8) > st.h)
-          return kPngChunkRefused;  // "APNG contains invalid frames"
-        break;
-      }
-      default:  // PLTE, IDAT, fdAT, tEXt, eXIf and unknown chunks: the body read
-        break;
-    }
+    if (size - at < len) return kPngChunkCut;  // every handler reads the whole body first
+    const int rc = pillow_chunk(type, s, len, st);
     if (rc) return rc;
     pos = at + len + 4;
   }
@@ -248,6 +257,11 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
     *len = be32(data + pos);
     *type = be32(data + pos + 4);
     if (*len > 0x7FFFFFFFu || size - pos - 12 < *len) return kTruncated;
+    // libpng's png_check_chunk_name: four ASCII letters (Pillow's walk tests word characters itself)
+    for (int k = 4; k < 8 && lane != kPillowLane; k++) {
+      const uint8_t c = data[pos + k] & 0xDF;
+      if (c < 'A' || c > 'Z') return kCorrupt;
+    }
     *body = data + pos + 8;
     // libpng checks the critical chunks' CRCs; Pillow every chunk's before its image data
     const bool checked = !(data[pos + 4] & 0x20) || lane == kPillowLane;
@@ -259,7 +273,8 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
   uint32_t len, type;
   int rc = chunk(&body, &len, &type);
   if (rc) return rc;
-  if (type != 0x49484452u || len != 13) return kCorrupt;  // IHDR first
+  // IHDR first: libpng's of 13 bytes; Pillow reads the first 13 of a longer one (a shorter one fails its handler)
+  if (type != 0x49484452u || len < 13 || (len != 13 && lane != kPillowLane)) return kCorrupt;
   Layout l;
   const uint32_t iw = be32(body), ih = be32(body + 4);
   l.depth = body[8], l.color = body[9];
@@ -267,7 +282,8 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
   const bool depth_ok = l.color == 0   ? (l.depth == 1 || l.depth == 2 || l.depth == 4 || l.depth == 8 || l.depth == 16)
                         : l.color == 3 ? (l.depth == 1 || l.depth == 2 || l.depth == 4 || l.depth == 8)
                         : (l.color == 2 || l.color == 4 || l.color == 6) && (l.depth == 8 || l.depth == 16);
-  if (!depth_ok || body[10] != 0 || body[11] != 0 || body[12] > 1) return kCorrupt;
+  // Pillow never reads the compression method (its zip decoder inflates whatever it says)
+  if (!depth_ok || (body[10] != 0 && lane != kPillowLane) || body[11] != 0 || body[12] > 1) return kCorrupt;
   if (iw == 0 || ih == 0 || iw > kMaxSide || ih > kMaxSide) return kCorrupt;
   l.channels = channels[l.color];
   l.interlaced = body[12] == 1;
@@ -307,7 +323,7 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
   // the APNG state PngImageFile._open leaves: acTL's frame count, the last fcTL's sequence number
   bool frames_set = false, fctl_seen = false;
   uint32_t frames = 0;
-  int64_t seq = -1;
+  PillowState st{l.depth, l.color, iw, ih};
   while (!done) {
     if (lane == kPillowLane && (seen_idat || (size - pos >= 8 && be32(data + pos + 4) == kIdat))) {
       // Pillow's reading of the image data (PngImageFile.load_read): each IDAT's body as far as the file
@@ -325,8 +341,8 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
       seen_idat = true;
       if (!inf.z.avail_out) {
         // n_frames counts the IDAT image where no fcTL came before it
-        const bool animated = frames_set && (uint64_t)frames + (fctl_seen ? 0 : 1) > 1;
-        rc = pillow_load_end(data, size, after, PillowState{l.depth, l.color, iw, ih, animated, seq});
+        st.animated = frames_set && (uint64_t)frames + (fctl_seen ? 0 : 1) > 1;
+        rc = pillow_load_end(data, size, after, st);
         if (rc) return rc;
         break;
       }
@@ -335,6 +351,13 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
     }
     rc = chunk(&body, &len, &type);
     if (rc) return rc;
+    if (lane == kPillowLane) {
+      // PngImageFile._open's walk: a name of four word characters, then the chunk's handler
+      const uint8_t* id = body - 4;
+      if (!(word(id[0]) && word(id[1]) && word(id[2]) && word(id[3]))) return kPngChunkRefused;
+      rc = pillow_chunk(type, body, len, st);
+      if (rc) return rc;
+    }
     switch (type) {
       case 0x504C5445u:  // PLTE
         if (seen_idat) return kCorrupt;
@@ -360,12 +383,11 @@ int decode(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w, Lane 
           else if (n != 0 && n <= 0x80000000u) frames_set = true, frames = n;
         }
         break;
-      case 0x6663544Cu:  // fcTL
-        if (len >= 4) seq = be32(body);
+      case 0x6663544Cu:  // fcTL (its sequence number kept by pillow_chunk)
         fctl_seen = true;
         break;
-      default:
-        if (!(type & 0x20000000u)) return kCorrupt;  // an unknown critical chunk
+      default:  // an unknown critical chunk: libpng fails, Pillow reads past its body
+        if (!(type & 0x20000000u) && lane != kPillowLane) return kCorrupt;
         break;
     }
     if (inf.z.avail_out == 0 && seen_idat) done = true;

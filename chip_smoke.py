@@ -72,10 +72,12 @@ both paths of the port at full width (``ModelSpec()``):
   thumbnail layouts, IM, IMT, IPTC, PCD, SPIDER and old-style LZW TIFF
   layouts, LZMA, ZSTD, old-style JPEG and 12-bit JPEG TIFF layouts through
   the port's own .xz and Zstandard decoders (the library links neither
-  liblzma nor libzstd), and the kinds refused by name among them: ICCLab,
-  MM BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG, JPEG 2000
-  in ICNS, an .xz BCJ filter, a Zstandard dictionary, MPEG, an IPTC field
-  length Pillow calls illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
+  liblzma nor libzstd), JPEG 2000 codestreams, JP2 files and ICNS elements
+  through the port's own JPEG 2000 decoder (nor libopenjp2), and the kinds
+  refused by name among them: ICCLab, MM BigTIFF, CCITT data libtiff
+  decodes with errors, BLP2 JPEG, HTJ2K code-blocks, an .xz BCJ filter, a
+  Zstandard dictionary, MPEG, an IPTC field length Pillow calls
+  illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
   the YCC;P and YCbCr -> RGB conversions of every triple held to the
   hashes of Pillow's tables, the PNG decode bit-equal to data/png.py's on
   smooth (Paeth, Average) and noisy (Up, Sub) sets, JPEG and BMP files,
@@ -83,8 +85,9 @@ both paths of the port at full width (``ModelSpec()``):
   originals of the Pillow lane (WebP, JPEG-kind, Pillow-lane,
   GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF, DDS/BLP/FTEX/ICNS/Sun/TIFF,
   12-bit TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR, IM/IMT/IPTC/PCD/SPIDER/
-  old-style LZW TIFF and ZSTD/LZMA/old-style and 12-bit JPEG TIFF/PNG
-  with chunks after its image data) held to the JAX package's pyramid
+  old-style LZW TIFF, ZSTD/LZMA/old-style and 12-bit JPEG TIFF/PNG
+  with chunks after its image data and a JP2 and an ICNS of a JP2
+  element) held to the JAX package's pyramid
   of them ("io
   prep"), and the training CLI on a set with JPEG, WebP,
   palette and 16-bit BMP, BC7 DDS, ICNS, FITS and FLC files among its
@@ -3405,7 +3408,7 @@ def io_checks(tmp) -> dict:
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
                                    f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/",
-                                   f"{fx.IMIPS}/", f"{fx.LZO}/"))]
+                                   f"{fx.IMIPS}/", f"{fx.LZO}/", f"{fx.J2K}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3525,6 +3528,20 @@ def io_checks(tmp) -> dict:
           f"slice, {len(lzo_card) - len(fx.LZO_COMMITTED_CARD)} written here by the fixtures' numpy writers and the "
           f"port's JPEG encoder, each the manifest's bytes, and each decoded to Pillow's RGB "
           f"({', '.join(sorted(lzo_card))})")
+    j2k = [m for m in matched if m.startswith(f"{fx.J2K}/")]
+    j2k_read = [m for m in j2k if "@" not in m and "/card/" not in m]
+    j2k_refused = [m for m in j2k if m.endswith("@refused")]
+    j2k_kind = {k: sum(os.path.basename(m).startswith(k) for m in j2k_read)
+                for k in ("pil-", "opj-", "rw-", "box-", "icns-")}
+    require(min(j2k_kind.values()) >= 4 and len(j2k_read) >= 100 and len(j2k_refused) >= 15,
+            f"the manifest holds JPEG 2000 layouts {j2k_kind} and {len(j2k_refused)} of their refusals")
+    j2k_card = fx.check_j2k_card(images.read_image)
+    print(f"io fixtures: {len(j2k_read)} JPEG 2000 layouts decoded to Pillow 12.1.0's RGB through OpenJPEG 2.5.4 "
+          f"({', '.join(f'{k[:-1]} {v}' for k, v in j2k_kind.items())}: the port's own decoder, native/jpeg2000.cpp "
+          f"and jpeg2000_t1.cpp (this machine has no libopenjp2): {', '.join(m.split('/', 1)[1] for m in j2k_read)}) "
+          f"and {len(j2k_refused)} refused with Pillow's verdict "
+          f"({', '.join(os.path.basename(m)[:-8] for m in j2k_refused)}); {len(j2k_card)} committed card originals "
+          f"of this slice, each the manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(j2k_card))})")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3586,7 +3603,7 @@ def io_checks(tmp) -> dict:
           f"{len(legacy_card)} written card originals (above); {len(imips)} IM, IMT, IPTC, PCD, SPIDER and old-style "
           f"LZW TIFF files and {len(imips_card)} written card originals (above); {len(lzo)} LZMA, ZSTD, old-style "
           f"and 12-bit JPEG TIFF files and {len(lzo_card) - len(fx.LZO_COMMITTED_CARD)} written card originals "
-          "(above); the Lab, YCC;P and YCbCr tables (above)")
+          f"(above); {len(j2k)} JPEG 2000 files (above); the Lab, YCC;P and YCbCr tables (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3651,6 +3668,7 @@ def io_checks(tmp) -> dict:
     out["legacy_card"] = legacy_card
     out["imips_card"] = imips_card
     out["lzo_card"] = lzo_card
+    out["j2k_card"] = j2k_card
     return out
 
 
@@ -4021,6 +4039,29 @@ def lzo_codec_times(paths: dict) -> dict:
     return ms
 
 
+def j2k_codec_times(paths: dict) -> dict:
+    """The "time codecs JPEG 2000" phase (``io_main`` runs it; ``main`` does
+    not): host ms of the port's JPEG 2000 decoder, one call at a time on
+    one thread (median of ``CODEC_REPEATS``), on the card's 1024 px
+    originals (``paths``: name -> path): a 5/3 lossless codestream, a JP2
+    of 9/7 in three quality layers, a JP2 of 9/7 in 256 px tiles, RPCL
+    order and 64 px precincts; and the 128 px icon whose element is a
+    JP2."""
+    from byogan_tpu_torch.data import images
+
+    files = {"j2k_53_lossless_1024": "photo-1024-53.j2k", "jp2_97_layers_1024": "photo-1024-97-layers.jp2",
+             "jp2_97_rpcl_tiles_1024": "photo-1024-97-rpcl-tiles.jp2", "icns_jp2_128": "icon-128-jpeg2000.icns"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    sizes = {k: os.path.getsize(paths[name]) for k, name in files.items()}
+    print(f"time codecs: JPEG 2000 (native/jpeg2000.cpp), host ms, median of {CODEC_REPEATS} calls, one thread, "
+          f"{PREP_SIDE} px RGB: 5/3 lossless codestream ({sizes['j2k_53_lossless_1024']} bytes) "
+          f"{ms['j2k_53_lossless_1024']:.3f}, 9/7 JP2 in 3 quality layers ({sizes['jp2_97_layers_1024']} bytes) "
+          f"{ms['jp2_97_layers_1024']:.3f}, 9/7 JP2 in 256 px tiles, RPCL, 64 px precincts "
+          f"({sizes['jp2_97_rpcl_tiles_1024']} bytes) {ms['jp2_97_rpcl_tiles_1024']:.3f}; a 128 px ICNS of a JP2 "
+          f"element {ms['icns_jp2_128']:.3f}; card {card_name()}")
+    return ms
+
+
 def tiff_strips(data: bytes) -> tuple:
     """A little-endian classic TIFF's StripOffsets and StripByteCounts (LONG
     arrays), read here to time the strip decoders alone."""
@@ -4067,7 +4108,8 @@ def prep_pillow_lane_cli(io_state: dict, tmp, root) -> float:
     print(f"io prep: cli.prep, one process, of {n} originals of the Pillow lane (every slice's: WebP, the JPEG kinds, "
           f"BMP and 16-bit PNG, GIF, TIFF, PNM, Targa, ICO, PSD, PCX, SGI, QOI, DDS, BLP, FTEX, ICNS, Sun raster, XPM, "
           f"MSP, FLC, DCX, GBR, FITS, PIXAR, IM, IMT, IPTC, PCD, SPIDER, old-style LZW TIFF, LZMA and ZSTD TIFF, "
-          f"old-style and 12-bit JPEG TIFF and PNG with chunks after its image data: "
+          f"old-style and 12-bit JPEG TIFF, PNG with chunks after its image data, JPEG 2000 and ICNS of a JPEG 2000 "
+          f"element: "
           + ", ".join(a if a == b else f"{a} as {b}" for a, b in read_as)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
@@ -4424,8 +4466,8 @@ def io_main() -> int:
     slices' "io codecs" lines), "time codecs Lab, BigTIFF, CCITT", "time
     codecs DDS, BLP, FTEX, ICNS, Sun", "time codecs 12-bit TIFF, XBM ...
     XV", "time codecs IM, IMT, IPTC, PCD, SPIDER", "time codecs TIFF
-    LZMA, ZSTD, OJPEG, 12-bit JPEG" and "time loader", which only this
-    entry point runs."""
+    LZMA, ZSTD, OJPEG, 12-bit JPEG", "time codecs JPEG 2000" and "time
+    loader", which only this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4452,6 +4494,8 @@ def io_main() -> int:
             imips_codec_times(io_state["imips_card"])
         with phase("time codecs TIFF LZMA, ZSTD, OJPEG, 12-bit JPEG"):
             lzo_codec_times(io_state["lzo_card"])
+        with phase("time codecs JPEG 2000"):
+            j2k_codec_times(io_state["j2k_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

@@ -298,8 +298,8 @@ def test_unreadable_files_raise_naming_the_file(tmp_path):
         _pil_rgb(tmp_path / "b.png")
     with pytest.raises(OSError, match=r"b\.png: decode failed: the GIF holds no image"):
         images.read_image(str(tmp_path / "b.png"))
-    (tmp_path / "j2k.png").write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40))  # a JPEG 2000 signature
-    with pytest.raises(OSError, match=r"j2k\.png: JPEG 2000 files are not read by the PyTorch port"):
+    (tmp_path / "j2k.png").write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40))  # a JP2 signature, no boxes
+    with pytest.raises(OSError, match=r"j2k\.png: JPEG 2000 header that Pillow does not identify"):
         images.read_image(str(tmp_path / "j2k.png"))
     noise = bytes(np.random.default_rng(5).integers(0, 256, 64, dtype=np.uint8))
     (tmp_path / "noise.jpg").write_bytes(noise)

@@ -1239,7 +1239,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                    pillow: Optional[Dict[str, bytes]] = None, gif_tiff: Optional[Dict[str, bytes]] = None,
                    ico_pnm_tga: Optional[Dict[str, bytes]] = None, raster: Optional[Dict[str, bytes]] = None,
                    dbfis: Optional[Dict[str, bytes]] = None, legacy: Optional[Dict[str, bytes]] = None,
-                   imips: Optional[Dict[str, bytes]] = None, lzo: Optional[Dict[str, bytes]] = None) -> dict:
+                   imips: Optional[Dict[str, bytes]] = None, lzo: Optional[Dict[str, bytes]] = None,
+                   j2k: Optional[Dict[str, bytes]] = None) -> dict:
     """The manifest of ``fixtures()``, of the WebP files (``webp``, the
     committed ones by default) and of the JPEG kinds' (``kinds``, likewise):
     each JPEG or PNG decoded by the JAX lane, which must agree with Pillow
@@ -1268,7 +1269,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     under ``im_iptc_pcd_spider/`` (``imips``, likewise) and its card
     originals as ``imips_manifest`` records them; each under
     ``tiff_lzma_zstd_ojpeg/`` (``lzo``, likewise) and its card originals as
-    ``lzo_manifest`` records them; and the JAX package's
+    ``lzo_manifest`` records them; each under ``jpeg2000/`` (``j2k``,
+    likewise) as ``j2k_manifest`` records it; and the JAX package's
     pyramids of every slice's originals of the Pillow lane together
     (``pillow_lane_originals``, under ``PILLOW_LANE_PREP``), the one
     ``cli.prep`` the card's "io prep" runs on them."""
@@ -1285,8 +1287,9 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
     legacy_parts = legacy_manifest(scratch, committed_legacy() if legacy is None else legacy)
     imips_parts = imips_manifest(scratch, committed_imips() if imips is None else imips)
     lzo_parts = lzo_manifest(scratch, committed_lzo() if lzo is None else lzo)
+    j2k_parts = j2k_manifest(scratch, committed_j2k() if j2k is None else j2k)
     entries = {**dbfis_parts.pop("files"), **legacy_parts.pop("files"), **imips_parts.pop("files"),
-               **lzo_parts.pop("files")}
+               **lzo_parts.pop("files"), **j2k_parts.pop("files")}
     for name, (data, truth) in sorted(files.items()):
         path = os.path.join(scratch, name)
         with open(path, "wb") as f:
@@ -1389,6 +1392,9 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       f"TIFF through libtiff {features.version('libtiff')}'s liblzma and libzstd, old-style and "
                       "12-bit JPEG TIFF, PNG past its image data), refusals with what Pillow makes of the file; "
                       "lzo_card: the originals lzo_card_originals writes on the card, never committed; "
+                      f"{J2K}/: Pillow {PIL.__version__}'s convert(\"RGB\") through OpenJPEG "
+                      f"{features.version('jpg_2000')} (codestreams, JP2 files, ICNS elements), refusals with what "
+                      "Pillow makes of the file; "
                       f"{PILLOW_LANE_PREP}: the JAX package's prepare_pyramid of every slice's originals "
                       "of the Pillow lane in one folder (pillow_lane_sources)",
         "files": entries, "card": card_entries, "sources": sources, "jpeg_prep": jax_prep_digests(scratch, kinds_card),
@@ -1422,15 +1428,16 @@ def write(scratch: str) -> dict:
     legacy = legacy_fixtures()
     imips = imips_fixtures()
     lzo = lzo_fixtures()
-    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY, IMIPS, LZO):
+    j2k = j2k_fixtures()
+    for folder in (WEBP, KINDS, PILLOW, GIF_TIFF, ICO_PNM_TGA, RASTER, DBFIS, LEGACY, IMIPS, LZO, J2K):
         shutil.rmtree(os.path.join(FIXTURES, folder), ignore_errors=True)
     for name, data in {**{k: d for k, (d, _) in files.items()}, **webp, **kinds, **pillow, **gif_tiff,
-                       **ico_pnm_tga, **raster, **dbfis, **legacy, **imips, **lzo}.items():
+                       **ico_pnm_tga, **raster, **dbfis, **legacy, **imips, **lzo, **j2k}.items():
         os.makedirs(os.path.dirname(os.path.join(FIXTURES, name)), exist_ok=True)
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
     manifest = build_manifest(files, jax_lane(os.path.join(scratch, "build")), scratch, webp, kinds, pillow, gif_tiff,
-                              ico_pnm_tga, raster, dbfis, legacy, imips, lzo)
+                              ico_pnm_tga, raster, dbfis, legacy, imips, lzo, j2k)
     with open(MANIFEST, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -4639,7 +4646,7 @@ def dbfis_refusals() -> Dict[str, Tuple[bytes, str]]:
         "ftex-two-formats.ftc": (ftex_file(8, 8, 0, bc1[:32], formats=2), "Pillow asserts one"),
         "ftex-format-2.ftc": (ftex_file(8, 8, 2, bc1[:32]), "Invalid texture compression format"),
         "ftex-bc1-cut-short.ftc": (ftex_file(8, 8, 0, bc1[:24]), "truncated"),
-        "icns-jpeg2000.icns": (icns_file([(b"ic08", jp2)]), "JPEG 2000 files are not read by the PyTorch port"),
+        "icns-jpeg2000.icns": (icns_file([(b"ic08", jp2)]), "Pillow's JPEG 2000 plugin does not open"),
         "icns-other-stream.icns": (icns_file([(b"ic09", b"GIF89a" + bytes(30))]), "Unsupported icon subimage"),
         "icns-rle-overrun.icns": (icns_file([(b"is32", b"\xff\x01" * 4)]), "run past the end of its channel"),
         "icns-rle-cut-short.icns": (icns_file([(b"is32", icns_rgb(icon)[:300])]), "truncated"),
@@ -6694,6 +6701,681 @@ def check_lzo_card(folder: str, decode: Callable[[str], np.ndarray]) -> Dict[str
     return paths
 
 
+# --- JPEG 2000: the JAX package's Pillow lane through OpenJPEG ------------------------------------
+
+J2K = "jpeg2000"  # their files' folder under FIXTURES
+#: the card's originals (under ``jpeg2000/card/``, committed: the card's
+#: machine has no JPEG 2000 writer), each by the listed name cli.prep reads
+#: it under, or None for one only timed: a 1024 px photo as a 5/3 lossless
+#: codestream, as a JP2 of 9/7 in three quality layers, and as a JP2 of 9/7
+#: in 256 px tiles, RPCL order and 64 px precincts; a 128 px icon whose
+#: ``ic07`` element is a JP2
+J2K_CARD = {"photo-1024-53.j2k": None, "photo-1024-97-layers.jp2": "photo-1024-jp2.jpg",
+            "photo-1024-97-rpcl-tiles.jp2": None, "icon-128-jpeg2000.icns": "icon-128-jpeg2000.png"}
+#: the progression orders by OpenJPEG's numbers
+J2K_PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+_JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+
+
+def openjpeg() -> ctypes.CDLL:
+    """Pillow's own libopenjp2 (2.5.4), through ctypes, with its encoder's
+    structures (``opj_cparameters_t``, ``opj_image_t``) declared on it: the
+    writer of what Pillow's encoder cannot set (code-block styles, POC,
+    RGN, subsampled components, 1- to 16-bit and signed samples,
+    tile-parts, TLM and PLT)."""
+    import glob
+
+    import PIL
+    from PIL import Image  # noqa: F401 - loads the libraries Pillow's libopenjp2 sits beside
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs",
+                                             "libopenjp2-*.so*"))[0])
+    if hasattr(lib, "Params"):
+        return lib
+    u, i = ctypes.c_uint32, ctypes.c_int
+
+    class Poc(ctypes.Structure):
+        _fields_ = ([(n, u) for n in "resno0 compno0 layno1 resno1 compno1 layno0 precno0 precno1".split()]
+                    + [("prg1", i), ("prg", i), ("progorder", ctypes.c_char * 5), ("tile", u)]
+                    + [(n, ctypes.c_int32) for n in "tx0 tx1 ty0 ty1".split()]
+                    + [(n, u) for n in ("layS resS compS prcS layE resE compE prcE txS txE tyS tyE dx dy lay_t res_t "
+                                        "comp_t prc_t tx0_t ty0_t").split()])
+
+    class Params(ctypes.Structure):
+        _fields_ = [("tile_size_on", i), ("cp_tx0", i), ("cp_ty0", i), ("cp_tdx", i), ("cp_tdy", i),
+                    ("cp_disto_alloc", i), ("cp_fixed_alloc", i), ("cp_fixed_quality", i),
+                    ("cp_matrice", ctypes.c_void_p), ("cp_comment", ctypes.c_char_p), ("csty", i), ("prog_order", i),
+                    ("POC", Poc * 32), ("numpocs", u), ("tcp_numlayers", i), ("tcp_rates", ctypes.c_float * 100),
+                    ("tcp_distoratio", ctypes.c_float * 100), ("numresolution", i), ("cblockw_init", i),
+                    ("cblockh_init", i), ("mode", i), ("irreversible", i), ("roi_compno", i), ("roi_shift", i),
+                    ("res_spec", i), ("prcw_init", i * 33), ("prch_init", i * 33), ("infile", ctypes.c_char * 4096),
+                    ("outfile", ctypes.c_char * 4096), ("index_on", i), ("index", ctypes.c_char * 4096),
+                    ("image_offset_x0", i), ("image_offset_y0", i), ("subsampling_dx", i), ("subsampling_dy", i),
+                    ("decod_format", i), ("cod_format", i), ("jpwl_epc_on", i), ("jpwl_hprot_MH", i),
+                    ("jpwl_hprot_TPH_tileno", i * 16), ("jpwl_hprot_TPH", i * 16), ("jpwl_pprot_tileno", i * 16),
+                    ("jpwl_pprot_packno", i * 16), ("jpwl_pprot", i * 16), ("jpwl_sens_size", i),
+                    ("jpwl_sens_addr", i), ("jpwl_sens_range", i), ("jpwl_sens_MH", i),
+                    ("jpwl_sens_TPH_tileno", i * 16), ("jpwl_sens_TPH", i * 16), ("cp_cinema", i),
+                    ("max_comp_size", i), ("cp_rsiz", i), ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char),
+                    ("tcp_mct", ctypes.c_char), ("jpip_on", i), ("mct_data", ctypes.c_void_p), ("max_cs_size", i),
+                    ("rsiz", ctypes.c_uint16)]
+
+    class ComponentParams(ctypes.Structure):
+        _fields_ = [(n, u) for n in "dx dy w h x0 y0 prec bpp sgnd".split()]
+
+    class Component(ctypes.Structure):
+        _fields_ = ([(n, u) for n in "dx dy w h x0 y0 prec bpp sgnd resno_decoded factor".split()]
+                    + [("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)])
+
+    class OpjImage(ctypes.Structure):
+        _fields_ = [("x0", u), ("y0", u), ("x1", u), ("y1", u), ("numcomps", u), ("color_space", i),
+                    ("comps", ctypes.POINTER(Component)), ("icc_profile_buf", ctypes.c_void_p),
+                    ("icc_profile_len", u)]
+
+    p = ctypes.c_void_p
+    lib.opj_image_create.restype = ctypes.POINTER(OpjImage)
+    lib.opj_image_destroy.argtypes = [ctypes.POINTER(OpjImage)]
+    lib.opj_create_compress.restype = p
+    lib.opj_stream_create_default_file_stream.restype = p
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, i]
+    lib.opj_setup_encoder.argtypes = [p, ctypes.POINTER(Params), ctypes.POINTER(OpjImage)]
+    lib.opj_start_compress.argtypes = [p, ctypes.POINTER(OpjImage), p]
+    lib.opj_encode.argtypes = [p, p]
+    lib.opj_end_compress.argtypes = [p, p]
+    lib.opj_encoder_set_extra_options.argtypes = [p, ctypes.POINTER(ctypes.c_char_p)]
+    lib.opj_stream_destroy.argtypes = [p]
+    lib.opj_destroy_codec.argtypes = [p]
+    lib.Params, lib.ComponentParams = Params, ComponentParams
+    params = Params()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(params))
+    # the layout as OpenJPEG 2.5's defaults place them
+    assert (params.numresolution, params.cblockw_init, params.roi_compno, params.subsampling_dx, params.decod_format,
+            params.cod_format) == (6, 64, -1, 1, -1, -1)
+    return lib
+
+
+def opj_stream(planes: List[np.ndarray], prec=8, sgnd=False, sub=None, offset=(0, 0), layers=None,
+               irreversible: bool = False, numres: int = 3, cblk=None, mode: int = 0, progression: str = "LRCP",
+               pocs=(), roi=None, tiles=None, tile_offset=(0, 0), precincts=None, csty: int = 0,
+               mct: Optional[int] = None, tile_parts: Optional[str] = None, extra=(), comment: Optional[bytes] = None,
+               color_space: int = 0) -> bytes:
+    """A raw codestream of ``planes`` (one integer array a component, each
+    at its subsampled size ``sub``) by libopenjp2's encoder (``openjpeg``):
+    ``prec``/``sgnd`` (or a list a component), ``layers`` the rates of the
+    quality layers, ``mode`` the code-block style flags, ``pocs`` (res0,
+    comp0, layer1, res1, comp1, order) entries, ``roi`` (component, shift),
+    ``precincts`` (w, h) a resolution from the highest, ``csty`` 2 for SOP
+    and 4 for EPH, ``tile_parts`` OpenJPEG's "R", "L" or "C", ``extra``
+    its options ("PLT=YES", "TLM=YES")."""
+    import tempfile
+
+    lib = openjpeg()
+    n = len(planes)
+    sub = sub or [(1, 1)] * n
+    precs = list(prec) if isinstance(prec, (list, tuple)) else [prec] * n
+    signs = list(sgnd) if isinstance(sgnd, (list, tuple)) else [sgnd] * n
+    cparams = (lib.ComponentParams * n)()
+    for c, plane in enumerate(planes):
+        cp = cparams[c]
+        cp.dx, cp.dy = sub[c]
+        cp.h, cp.w = plane.shape
+        cp.x0, cp.y0 = offset
+        cp.prec = cp.bpp = precs[c]
+        cp.sgnd = int(signs[c])
+    image = lib.opj_image_create(n, cparams, color_space)
+    im = image.contents
+    im.x0, im.y0 = offset
+    im.x1 = offset[0] + (planes[0].shape[1] - 1) * sub[0][0] + 1
+    im.y1 = offset[1] + (planes[0].shape[0] - 1) * sub[0][1] + 1
+    for c, plane in enumerate(planes):
+        a = np.ascontiguousarray(plane, np.int32)
+        ctypes.memmove(im.comps[c].data, a.ctypes.data, a.nbytes)
+    p = lib.Params()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.tcp_numlayers = len(layers) if layers else 1
+    for k, rate in enumerate(layers or [0]):
+        p.tcp_rates[k] = rate
+    p.cp_disto_alloc = 1
+    p.irreversible = int(irreversible)
+    p.numresolution = numres
+    if cblk:
+        p.cblockw_init, p.cblockh_init = cblk
+    p.mode = mode
+    p.prog_order = J2K_PROGRESSIONS.index(progression)
+    p.image_offset_x0, p.image_offset_y0 = offset
+    if tiles:
+        p.tile_size_on = 1
+        p.cp_tdx, p.cp_tdy = tiles
+        p.cp_tx0, p.cp_ty0 = tile_offset
+    if precincts:
+        p.csty |= 1
+        p.res_spec = len(precincts)
+        for k, (pw, ph) in enumerate(precincts):
+            p.prcw_init[k], p.prch_init[k] = pw, ph
+    p.csty |= csty
+    if roi:
+        p.roi_compno, p.roi_shift = roi
+    for k, (r0, c0, l1, r1, c1, order) in enumerate(pocs):
+        q = p.POC[k]
+        q.resno0, q.compno0, q.layno1, q.resno1, q.compno1 = r0, c0, l1, r1, c1
+        q.prg1 = J2K_PROGRESSIONS.index(order)
+        q.tile = 1
+    p.numpocs = len(pocs)
+    p.tcp_mct = bytes([mct if mct is not None else int(n >= 3)])
+    if tile_parts:
+        p.tp_on, p.tp_flag = b"\x01", tile_parts.encode()
+    if comment:
+        p.cp_comment = comment
+    codec = lib.opj_create_compress(0)
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    try:
+        assert lib.opj_setup_encoder(codec, ctypes.byref(p), image)
+        if extra:
+            options = (ctypes.c_char_p * (len(extra) + 1))(*[e.encode() for e in extra], None)
+            assert lib.opj_encoder_set_extra_options(codec, options)
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+              and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        with open(path, "rb") as f:
+            data = f.read()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+        os.unlink(path)
+    assert ok, "libopenjp2 refused the encode"
+    return data
+
+
+def pil_j2k(img: np.ndarray, mode: Optional[str] = None, **kw) -> bytes:
+    """``img`` saved by Pillow's JPEG 2000 encoder (OpenJPEG) with ``kw``."""
+    from PIL import Image
+
+    out = io.BytesIO()
+    if mode == "I;16":
+        im = Image.frombuffer("I;16", img.shape[::-1], np.ascontiguousarray(img, "<u2").tobytes(), "raw", "I;16", 0, 1)
+    else:
+        im = Image.fromarray(img, mode) if mode else Image.fromarray(img)
+    im.save(out, "JPEG2000", **kw)
+    return out.getvalue()
+
+
+def jp2_box(kind: bytes, body: bytes, xl: bool = False) -> bytes:
+    """A JP2 box; ``xl`` writes its length in the 64-bit field."""
+    if xl:
+        return struct.pack(">I", 1) + kind + struct.pack(">Q", 16 + len(body)) + body
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def colr(enumcs: int) -> bytes:
+    return jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+
+
+def jp2_file(codestream: bytes, size: Optional[Tuple[int, int]] = None, nc: Optional[int] = None, bpc: int = 7,
+             boxes: Optional[bytes] = None, brand: bytes = b"jp2 ", xl: bool = False, after: bytes = b"") -> bytes:
+    """A JP2 file around ``codestream``: the signature, ``ftyp``, ``jp2h``
+    (``ihdr`` of ``size`` (w, h) and ``nc``, the codestream's by default,
+    then ``boxes``: an sRGB or greyscale ``colr`` by default) and ``jp2c``
+    (``xl``: its 64-bit length), then ``after``."""
+    siz = struct.unpack_from(">HHIIIIIIIIH", codestream, 4)
+    w, h = size or (siz[2] - siz[4], siz[3] - siz[5])
+    nc = nc or siz[10]
+    if boxes is None:
+        boxes = colr(16 if nc >= 3 else 17)
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    return (_JP2_SIGNATURE + jp2_box(b"ftyp", brand + b"\0\0\0\0" + brand) + jp2_box(b"jp2h", ihdr + boxes)
+            + jp2_box(b"jp2c", codestream, xl) + after)
+
+
+def pclr(entries: List[Tuple[int, ...]], depth: int = 8) -> bytes:
+    """A ``pclr`` box of ``entries`` (one tuple a colour) and its ``cmap``."""
+    npc = len(entries[0])
+    body = struct.pack(">HB", len(entries), npc) + bytes([depth - 1] * npc) + b"".join(bytes(e) for e in entries)
+    return jp2_box(b"pclr", body) + jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k) for k in range(npc)))
+
+
+def j2k_split(stream: bytes) -> Tuple[List[Tuple[int, bytes]], List[Tuple[List[Tuple[int, bytes]], bytes]]]:
+    """A codestream's main header markers after SIZ ((marker, body) each,
+    SIZ first) and its tile-parts ((header markers after SOT, SOT first),
+    data), for the rewriters below."""
+    at, main = 2, []
+    while be16(stream, at) != 0xFF90:
+        length = be16(stream, at + 2)
+        main.append((be16(stream, at), stream[at + 4:at + 2 + length]))
+        at += 2 + length
+    parts = []
+    while be16(stream, at) == 0xFF90:
+        psot = struct.unpack_from(">I", stream, at + 6)[0]
+        end = at + psot
+        markers, k = [(0xFF90, stream[at + 4:at + 12])], at + 12
+        while be16(stream, k) != 0xFF93:
+            length = be16(stream, k + 2)
+            markers.append((be16(stream, k), stream[k + 4:k + 2 + length]))
+            k += 2 + length
+        parts.append((markers, stream[k + 2:end]))
+        at = end
+    assert stream[at:] == b"\xff\xd9"
+    return main, parts
+
+
+def be16(data: bytes, at: int) -> int:
+    return struct.unpack_from(">H", data, at)[0]
+
+
+def j2k_join(main: List[Tuple[int, bytes]], parts: List[Tuple[List[Tuple[int, bytes]], bytes]]) -> bytes:
+    """``j2k_split``'s parts as a codestream again, each Psot recomputed."""
+    seg = lambda m, body: struct.pack(">HH", m, len(body) + 2) + body  # noqa: E731
+    out = b"\xff\x4f" + b"".join(seg(m, b) for m, b in main)
+    for markers, data in parts:
+        rest = b"".join(seg(m, b) for m, b in markers[1:]) + b"\xff\x93" + data
+        sot = bytearray(markers[0][1])
+        struct.pack_into(">I", sot, 2, 12 + len(rest))
+        out += seg(0xFF90, bytes(sot)) + rest
+    return out + b"\xff\xd9"
+
+
+def _packets(data: bytes) -> List[Tuple[bytes, bytes]]:
+    """A tile-part's packets of a stream with SOP and EPH: (header with its
+    EPH, body), each SOP dropped."""
+    starts = [k for k in range(len(data) - 3) if data[k:k + 4] == b"\xff\x91\x00\x04"]
+    out = []
+    for n, k in enumerate(starts):
+        end = starts[n + 1] if n + 1 < len(starts) else len(data)
+        eph = data.index(b"\xff\x92", k + 6) + 2
+        out.append((data[k + 6:eph], data[eph:end]))
+    return out
+
+
+def packed_headers(stream: bytes, where: str) -> bytes:
+    """A codestream of SOP and EPH markers with its packet headers moved to
+    a PPT marker in each tile-part header (``where`` "ppt"; Zppt counting a
+    tile's markers) or to PPM markers in the main header ("ppm"), each
+    packet's SOP kept before its body."""
+    main, parts = j2k_split(stream)
+    ppm, out_parts, zppt = b"", [], {}
+    for markers, data in parts:
+        packets = _packets(data)
+        headers = b"".join(h for h, _ in packets)
+        body = b"".join(b"\xff\x91\x00\x04" + struct.pack(">H", n) + b for n, (_, b) in enumerate(packets))
+        if where == "ppt":  # Zppt counts a tile's PPT markers
+            tile = be16(markers[0][1], 0)
+            zppt[tile] = zppt.get(tile, -1) + 1
+            markers = markers + [(0xFF61, bytes([zppt[tile]]) + headers)]
+        else:
+            ppm += struct.pack(">I", len(headers)) + headers
+        out_parts.append((markers, body))
+    if where == "ppm":
+        main = main + [(0xFF60, b"\0" + ppm)]
+    return j2k_join(main, out_parts)
+
+
+def interleaved_tile_parts(stream: bytes) -> bytes:
+    """A codestream of several tile-parts a tile with them taken in turn
+    from each tile (the first of every tile, then the second...)."""
+    main, parts = j2k_split(stream)
+    by_tile: Dict[int, list] = {}
+    for part in parts:
+        by_tile.setdefault(be16(part[0][0][1], 0), []).append(part)
+    out = []
+    for k in range(max(len(v) for v in by_tile.values())):
+        out += [v[k] for _, v in sorted(by_tile.items()) if k < len(v)]
+    return j2k_join(main, out)
+
+
+def with_markers(stream: bytes, main_extra=(), tile_extra=(), first=None) -> bytes:
+    """``stream`` with ``main_extra`` (marker, body) appended to its main
+    header and ``tile_extra`` to each tile-part header; ``first`` (marker,
+    body) placed first after SIZ."""
+    main, parts = j2k_split(stream)
+    main = main[:1] + ([first] if first else []) + main[1:] + list(main_extra)
+    return j2k_join(main, [(markers + list(tile_extra), data) for markers, data in parts])
+
+
+def _j2k_planes(r, h: int, w: int, n: int, prec: int = 8, sgnd: bool = False) -> List[np.ndarray]:
+    """n seeded components of smooth ramps and noise at ``prec`` bits."""
+    y, x = np.mgrid[0:h, 0:w]
+    out = []
+    for c in range(n):
+        v = ((x * (3 + c) + y * (5 - c)) << max(0, prec - 8)) // 2 + r.integers(0, 1 << max(1, prec - 3), (h, w))
+        v %= 1 << prec
+        out.append(v - (1 << (prec - 1)) if sgnd else v)
+    return out
+
+
+def _j2k_pillow_layouts(r) -> Dict[str, bytes]:
+    """What Pillow's encoder writes: each mode, 5/3 and 9/7, its layers,
+    resolutions, code-block and precinct sizes, tiles and offsets, the five
+    orders, MCT off, signed samples, PLT, a bare codestream and a
+    comment."""
+    rgb = smooth_scene(2600, 30, 41, cell=8, step=1)
+    rgb = ((rgb.astype(np.int64) + r.integers(0, 24, rgb.shape)) % 256).astype(np.uint8)
+    gray = rgb[..., 1]
+    out = {
+        "pil-rgb-53.jp2": pil_j2k(rgb),
+        "pil-rgb-97.jp2": pil_j2k(rgb, irreversible=True),
+        "pil-rgb-97-layers-rates.j2k": pil_j2k(rgb, irreversible=True, quality_mode="rates",
+                                                quality_layers=[40, 12, 4], no_jp2=True),
+        "pil-rgb-97-layers-db.jp2": pil_j2k(rgb, irreversible=True, quality_mode="dB", quality_layers=[28, 36, 44]),
+        "pil-rgb-one-resolution.jp2": pil_j2k(rgb, num_resolutions=1),
+        "pil-rgb-two-resolutions-97.jp2": pil_j2k(rgb, num_resolutions=2, irreversible=True),
+        "pil-rgb-codeblocks-8x32.jp2": pil_j2k(rgb, codeblock_size=(8, 32)),
+        "pil-rgb-tiles-offsets.jp2": pil_j2k(rgb, tile_size=(16, 12), tile_offset=(3, 2), offset=(5, 7),
+                                             irreversible=True),
+        "pil-rgb-mct-off-97.jp2": pil_j2k(rgb, mct=0, irreversible=True),
+        "pil-rgb-plt.j2k": pil_j2k(rgb, plt=True, no_jp2=True, quality_layers=[20, 5], quality_mode="rates"),
+        "pil-rgb-comment.jp2": pil_j2k(rgb, comment="written by Pillow"),
+        "pil-l-53.j2k": pil_j2k(gray, "L", no_jp2=True),
+        "pil-l-97.jp2": pil_j2k(gray, "L", irreversible=True),
+        "pil-la-53.jp2": pil_j2k(np.stack([gray, rgb[..., 2]], -1), "LA"),
+        "pil-rgba-97.jp2": pil_j2k(with_alpha(rgb), "RGBA", irreversible=True),
+        "pil-i16-53.jp2": pil_j2k(gray.astype(np.uint16) * 181 + 7, "I;16"),
+        "pil-i16-97.j2k": pil_j2k(gray.astype(np.uint16) * 97, "I;16", irreversible=True, no_jp2=True),
+        "pil-rgb-signed-53.jp2": pil_j2k(rgb, signed=True),
+        "pil-l-signed-97.j2k": pil_j2k(gray, "L", signed=True, irreversible=True, no_jp2=True),
+    }
+    for order in J2K_PROGRESSIONS:
+        out[f"pil-rgb-{order.lower()}-precincts.jp2"] = pil_j2k(
+            rgb, progression=order, num_resolutions=3, precinct_size=(16, 16), codeblock_size=(8, 8),
+            quality_layers=[30, 10], quality_mode="rates", irreversible=order in ("RPCL", "CPRL"))
+    return out
+
+
+def _j2k_openjpeg_layouts(r) -> Dict[str, bytes]:
+    """What libopenjp2's encoder writes beyond Pillow's options: each
+    code-block style flag and all of them, POC, RGN, SOP and EPH,
+    tile-parts by resolution, layer and component with TLM, PLT, a
+    digital-cinema frame's coding choices, 1- to 16-bit samples unsigned
+    and signed, components of other depths (QCC) and subsampled ones (an
+    unspecified space Pillow takes for YCbCr)."""
+    rgb = _j2k_planes(r, 26, 35, 3)
+    out = {}
+    styles = {"bypass": 1, "reset": 2, "termall": 4, "vsc": 8, "erterm": 16, "segsym": 32, "all": 63}
+    for name, flags in styles.items():
+        out[f"opj-style-{name}-53.j2k"] = opj_stream(rgb, mode=flags, layers=[8, 2, 1])
+        out[f"opj-style-{name}-97.j2k"] = opj_stream(rgb, mode=flags, irreversible=True, layers=[16, 4, 1])
+    out["opj-poc.j2k"] = opj_stream(rgb, layers=[10, 3], pocs=[(0, 0, 1, 3, 3, "RLCP"), (0, 0, 2, 3, 3, "CPRL")])
+    out["opj-rgn-53.j2k"] = opj_stream(rgb, roi=(0, 6))
+    out["opj-rgn-97.j2k"] = opj_stream(rgb, roi=(2, 9), irreversible=True, layers=[12, 3])
+    out["opj-sop-eph.j2k"] = opj_stream(rgb, csty=6, layers=[10, 3, 1], mode=1)
+    for kind in "RLC":
+        out[f"opj-tile-parts-{kind}-tlm.j2k"] = opj_stream(rgb, tiles=(16, 16), tile_parts=kind, layers=[8, 2],
+                                                            extra=("TLM=YES",))
+    out["opj-plt-tiles.j2k"] = opj_stream(rgb, tiles=(16, 16), irreversible=True, extra=("PLT=YES",))
+    # a digital-cinema frame's coding choices (Pillow's cinema_mode fails to encode here): 12-bit samples, no
+    # component transform, 9/7, CPRL, 32 x 32 code-blocks, 256/128 px precincts, a tile-part a component, TLM
+    out["opj-dcp-like-12bit-cprl.j2k"] = opj_stream(
+        _j2k_planes(r, 40, 56, 3, 12), prec=12, mct=0, irreversible=True, progression="CPRL", cblk=(32, 32),
+        precincts=[(256, 256), (128, 128), (128, 128)], tile_parts="C", extra=("TLM=YES",), layers=[20])
+    out["opj-big-codeblocks-1024x4.j2k"] = opj_stream(rgb, cblk=(1024, 4))
+    out["opj-odd-offsets-tiles.j2k"] = opj_stream(rgb, offset=(5, 3), tiles=(7, 11), tile_offset=(2, 1),
+                                                  irreversible=True, numres=2)
+    for prec in (1, 2, 4, 5, 9, 12, 16):
+        for sgnd in (False, True):
+            tag = f"{prec}bit{'-signed' if sgnd else ''}"
+            out[f"opj-gray-{tag}.j2k"] = opj_stream(_j2k_planes(r, 13, 17, 1, prec, sgnd), prec=prec, sgnd=sgnd)
+            out[f"opj-rgb-{tag}.j2k"] = opj_stream(_j2k_planes(r, 13, 17, 3, prec, sgnd), prec=prec, sgnd=sgnd,
+                                                   irreversible=prec % 2 == 0)
+    out["opj-mixed-depths-qcc.j2k"] = opj_stream(
+        [_j2k_planes(r, 13, 17, 1, p)[0] for p in (8, 4, 12, 1)], prec=[8, 4, 12, 1])
+    for name, sub in (("420", [(1, 1), (2, 2), (2, 2)]), ("422", [(1, 1), (2, 1), (2, 1)]),
+                      ("440", [(1, 1), (1, 2), (1, 2)]), ("411-odd", [(1, 1), (3, 3), (3, 3)]),
+                      ("all-2x2", [(2, 2), (2, 2), (2, 2)])):
+        planes = [_j2k_planes(r, -(-26 // dy), -(-35 // dx), 1)[0] for dx, dy in sub]
+        out[f"opj-sub-{name}.j2k"] = opj_stream(planes, sub=sub, mct=0)
+        out[f"opj-sub-{name}-offset-97.j2k"] = opj_stream(planes, sub=sub, mct=0, offset=(3, 5), irreversible=True)
+    planes = [_j2k_planes(r, 26, 35, 1)[0]] + [_j2k_planes(r, 13, 18, 1)[0] for _ in range(2)]
+    out["opj-sub-420-alpha.j2k"] = opj_stream(planes + [_j2k_planes(r, 26, 35, 1)[0]],
+                                              sub=[(1, 1), (2, 2), (2, 2), (1, 1)], mct=0)
+    return out
+
+
+def _j2k_rewritten_layouts(r) -> Dict[str, bytes]:
+    """Markers no encoder here writes, put into written streams: packet
+    headers in PPT and PPM, a restated COC and QCC, CRG, PLM, COM in a
+    tile-part header, an unknown main-header marker, tile-parts taken in
+    turn from each tile; and the orders OpenJPEG's reading decides (its
+    own seed): a tile-part COD after a main COC of another style (the COD
+    wins), a QCC before and after a QCD (the later wins), a tile-part QCD
+    after a main QCC, POC in the main header alone and in both headers,
+    PPT over several tile-parts a tile taken in turn; a QCD of scalar
+    derived quantization."""
+    rgb = _j2k_planes(r, 26, 35, 3)
+    sop_eph = opj_stream(rgb, csty=6, layers=[10, 3, 1], tiles=(16, 16))
+    tiled_parts = opj_stream(rgb, tiles=(16, 16), tile_parts="R", irreversible=True)
+    plain = opj_stream(rgb)
+    main, _ = j2k_split(plain)
+    cod = dict(main)[0xFF52]
+    qcd = dict(main)[0xFF5C]
+    return {
+        "rw-ppt.j2k": packed_headers(sop_eph, "ppt"),
+        "rw-ppm.j2k": packed_headers(sop_eph, "ppm"),
+        "rw-coc-qcc-restated.j2k": with_markers(plain, [(0xFF53, b"\1" + bytes([cod[0] & 1]) + cod[5:]),
+                                                        (0xFF5D, b"\2" + qcd)]),
+        "rw-crg-plm-com.j2k": with_markers(plain, [(0xFF63, bytes(12)), (0xFF57, b"\0\1\5"),
+                                                   (0xFF64, b"\0\1main")], [(0xFF64, b"\0\1tile-part")]),
+        "rw-unknown-marker.j2k": with_markers(plain, [(0xFF6F, b"\x12\x34\x56\x78")]),
+        "rw-tile-parts-in-turn.j2k": interleaved_tile_parts(tiled_parts),
+        **_j2k_reading_orders(np.random.default_rng(2605)),
+    }
+
+
+def _j2k_reading_orders(r) -> Dict[str, bytes]:
+    rgb = _j2k_planes(r, 26, 35, 3)
+    main, parts = j2k_split(opj_stream(rgb, layers=[10, 3]))
+    cod, qcd = dict(main)[0xFF52], dict(main)[0xFF5C]
+    coc_bypass = b"\1" + bytes([cod[0] & 1]) + cod[5:8] + bytes([cod[8] | 1]) + cod[9:]
+    qcc = b"\1" + bytes([(qcd[0] & 0x1F) | (((qcd[0] >> 5) + 1) << 5)]) + qcd[1:]  # one more guard bit
+    no_qcd = [m for m in main if m[0] != 0xFF5C]
+    poc_main, poc_parts = j2k_split(opj_stream(rgb, layers=[10, 3], pocs=[(0, 0, 1, 3, 3, "RLCP"),
+                                                                           (0, 0, 2, 3, 3, "CPRL")]))
+    poc = next(b for m, b in poc_parts[0][0] if m == 0xFF5F)
+    tile_parts = opj_stream(rgb, csty=6, layers=[10, 3, 1], tiles=(16, 16), tile_parts="R")
+    return {
+        "rw-tile-cod-after-main-coc.j2k": j2k_join(main + [(0xFF53, coc_bypass)],
+                                                   [(m + [(0xFF52, cod)], d) for m, d in parts]),
+        "rw-qcc-before-qcd.j2k": j2k_join(no_qcd + [(0xFF5D, qcc), (0xFF5C, qcd)], parts),
+        "rw-qcd-before-qcc.j2k": j2k_join(no_qcd + [(0xFF5C, qcd), (0xFF5D, qcc)], parts),
+        "rw-tile-qcd-after-main-qcc.j2k": j2k_join(no_qcd + [(0xFF5C, qcd), (0xFF5D, qcc)],
+                                                   [(m + [(0xFF5C, qcd)], d) for m, d in parts]),
+        "rw-poc-main.j2k": j2k_join(poc_main + [(0xFF5F, poc)],
+                                    [([x for x in m if x[0] != 0xFF5F], d) for m, d in poc_parts]),
+        "rw-poc-main-and-tile.j2k": j2k_join(poc_main + [(0xFF5F, poc)], poc_parts),
+        "rw-ppt-tile-parts-in-turn.j2k": interleaved_tile_parts(packed_headers(tile_parts, "ppt")),
+        **_j2k_derived_quantization(np.random.default_rng(2606)),
+    }
+
+
+def _j2k_derived_quantization(r) -> Dict[str, bytes]:
+    """A 9/7 stream's QCD rewritten to scalar derived quantization (its LL
+    band's step alone; no encoder here writes one)."""
+    main, parts = j2k_split(opj_stream(_j2k_planes(r, 26, 35, 3), layers=[12, 4], irreversible=True))
+    qcd = dict(main)[0xFF5C]
+    derived = bytes([(qcd[0] & 0xE0) | 1]) + qcd[1:3]
+    return {"rw-qcd-scalar-derived.j2k": j2k_join([(m, derived if m == 0xFF5C else b) for m, b in main], parts)}
+
+
+def _j2k_box_layouts(r) -> Dict[str, bytes]:
+    """JP2 boxes: palettes (P and PA; colours repeated, one, two and four
+    columns), cdef, res with resc, an ICC profile, an unknown enumerated
+    space, sYCC, CMYK, a greyscale colr on a three-component ihdr, bpcc,
+    an XL jp2c box and bytes after it."""
+    gray = _j2k_planes(r, 12, 15, 1)[0]
+    rgb = _j2k_planes(r, 12, 15, 3)
+    idx = r.integers(0, 6, (12, 15))
+    cs_idx = opj_stream([idx], numres=2)
+    cs_pa = opj_stream([idx, gray], numres=2)
+    cs_gray, cs_rgb = opj_stream([gray], numres=2), opj_stream(rgb, numres=2)
+    colours = [(255, 0, 0), (0, 200, 0), (255, 0, 0), (0, 0, 250), (9, 9, 9), (0, 200, 0)]
+    srgb = colr(16)
+    cmyk = opj_stream(_j2k_planes(r, 12, 15, 4), numres=2, mct=0)
+    sycc = opj_stream([rgb[0], rgb[1][::2, ::2], rgb[2][::2, ::2]], sub=[(1, 1), (2, 2), (2, 2)], mct=0, numres=2)
+    return {
+        "box-pclr-p.jp2": jp2_file(cs_idx, boxes=srgb + pclr(colours)),
+        "box-pclr-pa.jp2": jp2_file(cs_pa, boxes=srgb + pclr(colours)),
+        "box-pclr-one-column.jp2": jp2_file(cs_idx, boxes=srgb + pclr([(k * 40,) for k in range(6)])),
+        "box-pclr-two-columns.jp2": jp2_file(cs_idx, boxes=srgb + pclr([(k * 40, 7) for k in range(6)])),
+        "box-pclr-rgba.jp2": jp2_file(cs_idx, boxes=srgb + pclr([c + (128,) for c in colours])),
+        "box-cdef-res.jp2": jp2_file(cs_rgb, boxes=srgb + jp2_box(b"cdef", struct.pack(">HHHHHHHHHH", 3, 0, 0, 1, 1, 0,
+                                                                                        2, 2, 0, 3)) +
+                                     jp2_box(b"res ", jp2_box(b"resc", struct.pack(">HHHHBB", 72, 1, 72, 1, 0, 0)))),
+        "box-icc.jp2": jp2_file(cs_rgb, boxes=jp2_box(b"colr", b"\2\0\0" + bytes(32))),
+        "box-enumcs-unknown.jp2": jp2_file(cs_gray, boxes=colr(99)),
+        "box-sycc-420.jp2": jp2_file(sycc, boxes=colr(18)),
+        "box-cmyk.jp2": jp2_file(cmyk, boxes=colr(12)),
+        "box-gray-colr-three-ihdr.jp2": jp2_file(cs_gray, nc=3, boxes=colr(17)),
+        "box-bpcc.jp2": jp2_file(cs_gray, bpc=255, boxes=jp2_box(b"bpcc", b"\7") + colr(17)),
+        "box-xl-jp2c-and-after.jp2": jp2_file(cs_rgb, xl=True, after=jp2_box(b"xml ", b"<x/>")),
+    }
+
+
+def _j2k_icns_layouts(r) -> Dict[str, bytes]:
+    """ICNS files whose element is a JPEG 2000 stream, of each mode."""
+    rgb = smooth_scene(2610, 32, 32, cell=8, step=1)
+    return {
+        "icns-icp5-jp2-rgb.icns": icns_file([(b"icp5", pil_j2k(rgb, num_resolutions=3))]),
+        "icns-icp4-j2k-l.icns": icns_file([(b"icp4", pil_j2k(rgb[:16, :16, 0], "L", no_jp2=True,
+                                                             num_resolutions=2))]),
+        "icns-ic11-jp2-rgba-97.icns": icns_file([(b"ic11", pil_j2k(with_alpha(rgb), "RGBA", irreversible=True,
+                                                                   num_resolutions=3))]),
+        "icns-icp5-jp2-i16.icns": icns_file([(b"icp5", pil_j2k(rgb[..., 0].astype(np.uint16) * 2, "I;16",
+                                                               num_resolutions=3))]),
+    }
+
+
+def j2k_layouts() -> Dict[str, bytes]:
+    """Every committed file of ``jpeg2000/`` the port reads (name under
+    ``jpeg2000/`` -> bytes)."""
+    r = np.random.default_rng(2601)
+    out = {**_j2k_pillow_layouts(r), **_j2k_openjpeg_layouts(r), **_j2k_rewritten_layouts(r), **_j2k_box_layouts(r),
+           **_j2k_icns_layouts(r)}
+    return {f"{J2K}/{k}": v for k, v in sorted(out.items())}
+
+
+def j2k_refusals() -> Dict[str, Tuple[bytes, str]]:
+    """Files of this slice the port refuses (name -> (bytes, the reason its
+    error names, a regular expression)): those Pillow refuses too, and
+    HTJ2K code-blocks, which OpenJPEG decodes and the port leaves out by
+    name."""
+    r = np.random.default_rng(2620)
+    rgb = smooth_scene(2621, 30, 41, cell=8, step=1)
+    c53, c97 = pil_j2k(rgb, no_jp2=True), pil_j2k(rgb, irreversible=True, no_jp2=True)
+    gray = opj_stream(_j2k_planes(r, 12, 15, 1), numres=2)
+    five = opj_stream(_j2k_planes(r, 12, 15, 5), numres=2, mct=0)
+    broken = "broken data stream"
+    sop_eph = opj_stream(_j2k_planes(r, 12, 15, 3), csty=6, numres=2)
+    eph = sop_eph.rindex(b"\xff\x92")
+    siz = bytearray(gray)
+    siz[6] |= 0x40  # Rsiz: Part 15
+    ht = with_markers(bytes(siz), first=(0xFF50, struct.pack(">IH", 1 << 17, 0)))
+    cod_at = ht.index(b"\xff\x52")
+    ht = ht[:cod_at + 12] + bytes([ht[cod_at + 12] | 0x40]) + ht[cod_at + 13:]  # SPcod's code-block style
+    return {
+        "cut-60-53.j2k": (c53[:len(c53) * 6 // 10], broken),
+        "cut-95-97.j2k": (c97[:len(c97) * 95 // 100], broken),
+        "cut-95-53.jp2": (jp2_file(c53)[:len(jp2_file(c53)) * 95 // 100], broken),
+        "no-eoc.j2k": (c53[:-2], broken),
+        "no-eph.j2k": (sop_eph[:eph] + b"\0\0" + sop_eph[eph + 2:], broken),
+        "five-components.j2k": (five, "unable to determine J2K image mode"),
+        "ihdr-wider.jp2": (jp2_file(gray, size=(16, 12)), broken),
+        "colr-sycc-on-gray.jp2": (jp2_file(gray, boxes=colr(18)), "no unpacker"),
+        "colr-eycc-on-gray.jp2": (jp2_file(gray, boxes=colr(24)), "no unpacker"),
+        "colr-cmyk-on-rgb.jp2": (jp2_file(opj_stream(_j2k_planes(r, 12, 15, 3), numres=2), boxes=colr(12)),
+                                 "no unpacker"),
+        "pclr-on-greyscale-colr.jp2": (jp2_file(opj_stream([r.integers(0, 4, (12, 15))], numres=2),
+                                                boxes=colr(17) + pclr([(1, 2, 3)] * 4)), "no unpacker"),
+        "pclr-300-colours.jp2": (jp2_file(gray, boxes=colr(16) + pclr([(k % 256, k // 256, 0) for k in range(300)])),
+                                 "cannot allocate more than 256 colors"),
+        # Pillow's precincts halve at each level down to 1 px, which OpenJPEG's decoder refuses
+        "precincts-down-to-one.jp2": (pil_j2k(smooth_scene(2622, 64, 64), precinct_size=(16, 16)), broken),
+        "not-a-jp2.jp2": (_JP2_SIGNATURE + bytes(12), "unknown format|does not identify"),
+        # OpenJPEG reads the PPM headers in its tiles' decoding order, not in the tile-parts' order
+        "ppm-tile-parts-in-turn.j2k": (packed_headers(interleaved_tile_parts(opj_stream(
+            _j2k_planes(r, 26, 35, 3), csty=6, layers=[10, 3, 1], tiles=(16, 16), tile_parts="R")), "ppm"),
+            broken),
+        "htj2k.j2k": (ht, "HTJ2K"),
+        "part2-mct-marker.j2k": (with_markers(gray, [(0xFF74, b"\0\0" + bytes(8))]), "Part 2"),
+        "icns-element-jp2-box-alone.icns": (icns_file([(b"ic07", b"\x0d\x0a\x87\x0a" + bytes(20))]),
+                                            "does not open"),
+        "icns-element-of-other-size.icns": (icns_file([(b"icp5", pil_j2k(rgb[:24, :24], num_resolutions=2))]),
+                                            "none of its sizes"),
+    }
+
+
+def j2k_card_photo() -> np.ndarray:
+    return smooth_scene(2630, 1024, 1024, cell=64, step=1)
+
+
+def j2k_card_originals() -> Dict[str, bytes]:
+    """The card's originals of ``J2K_CARD``, all committed: name (under
+    ``jpeg2000/card/``) -> bytes as Pillow's encoder writes them."""
+    photo = j2k_card_photo()
+    icon = smooth_scene(2631, 128, 128, cell=16, step=1)
+    out = {
+        "photo-1024-53.j2k": pil_j2k(photo, no_jp2=True),
+        "photo-1024-97-layers.jp2": pil_j2k(photo, irreversible=True, quality_mode="rates",
+                                            quality_layers=[40, 20, 10]),
+        "photo-1024-97-rpcl-tiles.jp2": pil_j2k(photo, irreversible=True, quality_mode="rates",
+                                                quality_layers=[20, 10], tile_size=(256, 256), progression="RPCL",
+                                                precinct_size=(64, 64), num_resolutions=5),
+        "icon-128-jpeg2000.icns": icns_file([(b"ic07", pil_j2k(icon, irreversible=True, quality_mode="rates",
+                                                               quality_layers=[8]))]),
+    }
+    assert sorted(out) == sorted(J2K_CARD)
+    return {f"{J2K}/card/{k}": v for k, v in out.items()}
+
+
+def j2k_fixtures() -> Dict[str, bytes]:
+    """Every committed file under ``jpeg2000/`` (name -> bytes), written
+    anew: the layouts, the refusals and the card's originals."""
+    refused = {f"{J2K}/refused/{k}": v for k, (v, _) in j2k_refusals().items()}
+    return dict(sorted({**j2k_layouts(), **refused, **j2k_card_originals()}.items()))
+
+
+def committed_j2k() -> Dict[str, bytes]:
+    """The committed files under ``jpeg2000/``: name -> bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(os.path.join(FIXTURES, J2K)):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, FIXTURES)] = f.read()
+    return dict(sorted(out.items()))
+
+
+def j2k_manifest(scratch: str, files: Optional[Dict[str, bytes]] = None) -> dict:
+    """The manifest's entries of this folder: each committed file as
+    ``gif_tiff_entry`` records it with ``j2k_refusals``."""
+    files = committed_j2k() if files is None else files
+    reasons = j2k_refusals()
+    entries = {}
+    for name, data in files.items():
+        path = os.path.join(scratch, "j2k" + os.path.splitext(name)[1])
+        with open(path, "wb") as f:
+            f.write(data)
+        entries[name] = gif_tiff_entry(name, path, reasons)
+    return {"files": entries}
+
+
+def check_j2k_card(decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
+    """Holds each committed card original of ``J2K_CARD`` to the manifest:
+    bytes and ``decode``'s RGB.  Returns name -> path of each; raises
+    ``AssertionError`` naming the first that differs."""
+    manifest = load_manifest()["files"]
+    paths = {}
+    for name in sorted(J2K_CARD):
+        key = f"{J2K}/card/{name}"
+        path = os.path.join(FIXTURES, key)
+        with open(path, "rb") as f:
+            if sha256(f.read()) != manifest[key]["sha256"]:
+                raise AssertionError(f"{key}: the file is not the one the manifest records")
+        got = decode(path)
+        if list(got.shape[:2]) != manifest[key]["shape"] or sha256(got) != manifest[key]["sha256_rgb"]:
+            raise AssertionError(f"{key}: decoded to other pixels than Pillow's")
+        paths[name] = path
+    return paths
+
+
 # --- every slice's originals of the Pillow lane in one cli.prep ----------------------------------
 
 #: the manifest's key of the JAX package's prep of ``pillow_lane_originals``
@@ -6718,6 +7400,7 @@ def pillow_lane_sources() -> List[Tuple[str, str, Optional[str]]]:
         out += [(v, None, f"{folder}/card/{k}") for k, v in sorted(card.items()) if v]
     out += [(LZO_CARD[n], f"{LZO}/card/{n}" if n in LZO_COMMITTED_CARD else None,
              None if n in LZO_COMMITTED_CARD else f"{LZO}/card/{n}") for n in sorted(LZO_CARD)]
+    out += [(J2K_CARD[n], f"{J2K}/card/{n}", None) for n in sorted(J2K_CARD) if J2K_CARD[n]]
     names = [n for n, _, _ in out]
     assert len(set(names)) == len(names), "two originals under one listed name"
     return out
