@@ -17,8 +17,9 @@ codecs (``data/native.py``); BMP, DIB, ICO and CUR (``_bitmap``), PNM
 (``decode_fits``), McIdas (``decode_mcidas``), XV thumbnail
 (``decode_xv``), IM (``decode_im``), IMT (``decode_imt``), IPTC
 (``decode_iptc``), PhotoCD (``decode_pcd``), SPIDER
-(``decode_spider``) and JPEG 2000 (``decode_jpeg2000``, its pixels from
-the port's own decoder) in numpy below, their sequential loops (plain PNM
+(``decode_spider``), JPEG 2000 (``decode_jpeg2000``, its pixels from
+the port's own decoder) and AVIF (``decode_avif``, its pixels from the
+port's own AV1 decoder and libavif's YUV-to-RGB) in numpy below, their sequential loops (plain PNM
 samples, Targa RLE packets, PackBits, PCX, SGI, Sun and ICNS RLE, QOI
 ops, XBM's hex bytes, MSP's RLE, FLI's chunks, IM's bit decoder), BCn
 blocks and a Lab PSD's conversion to sRGB in the native library; each as
@@ -59,7 +60,7 @@ class NotThisFormat(OSError):
 #: the formats the port decodes; ``walk`` names any other Pillow opens
 READ = ("PNG", "JPEG", "BMP", "WebP", "GIF", "TIFF", "DIB", "ICO", "CUR", "PPM", "PCX", "PSD", "QOI", "SGI", "TGA",
         "DDS", "BLP", "FTEX", "ICNS", "Sun raster", "XBM", "XPM", "MSP", "FLI", "DCX", "GBR", "PIXAR", "FITS", "McIdas",
-        "XV thumbnail", "IM", "IMT", "IPTC", "PCD", "SPIDER", "JPEG 2000")
+        "XV thumbnail", "IM", "IMT", "IPTC", "PCD", "SPIDER", "JPEG 2000", "AVIF")
 
 
 def is_image(name: str) -> bool:
@@ -1641,6 +1642,365 @@ def decode_jpeg2000(data: bytes, name: str = "JPEG 2000") -> np.ndarray:
     return _jpeg2000_rgb(mode, native.decode_jpeg2000(data, name, mode, w, h), palette)
 
 
+#: the auxiliary type URNs libavif takes for an alpha item ('auxC')
+_AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+#: libavif's default limits (``imageSizeLimit``, ``imageDimensionLimit``)
+_AVIF_SIZE_LIMIT = 16384 * 16384
+_AVIF_DIMENSION_LIMIT = 32768
+
+
+class _AvifReject(Exception):
+    """libavif's verdict on a file's boxes: ``syntax`` where Pillow's
+    ``_avif`` raises SyntaxError (Image.open goes on to the next plugin),
+    else the RuntimeError it raises."""
+
+    def __init__(self, what: str, syntax: bool = True):
+        super().__init__(what)
+        self.syntax = syntax
+
+
+def _avif_boxes(data: bytes, at: int, end: int):
+    """The boxes of ``data[at:end]`` as libavif's box reader walks them:
+    (type, payload start, box end); a header cut short or a size past
+    ``end`` is libavif's BMFF_PARSE_FAILED."""
+    while at < end:
+        if at + 8 > end:
+            raise _AvifReject("box header cut short")
+        size, kind = struct.unpack(">I4s", data[at:at + 8])
+        head = 8
+        if size == 1:
+            if at + 16 > end:
+                raise _AvifReject("box header cut short")
+            size = struct.unpack(">Q", data[at + 8:at + 16])[0]
+            head = 16
+        elif size == 0:
+            size = end - at
+        if kind == b"uuid":
+            head += 16
+        if size < head or at + size > end:
+            raise _AvifReject(f"box {kind!r} of {size} bytes past its parent")
+        yield kind, at + head, at + size
+        at += size
+
+
+class _AvifReader:
+    """Big-endian fields of a box's payload; a read past it is libavif's
+    BMFF_PARSE_FAILED."""
+
+    def __init__(self, data: bytes, at: int, end: int):
+        self.data, self.at, self.end = data, at, end
+
+    def u(self, n: int) -> int:
+        if self.at + n > self.end:
+            raise _AvifReject("box field past its end")
+        v = int.from_bytes(self.data[self.at:self.at + n], "big")
+        self.at += n
+        return v
+
+    def full(self) -> Tuple[int, int]:
+        v = self.u(4)
+        return v >> 24, v & 0xFFFFFF
+
+    def string(self) -> bytes:
+        z = self.data.find(b"\0", self.at, self.end)
+        if z < 0:
+            raise _AvifReject("string without its terminating zero")
+        v = self.data[self.at:z]
+        self.at = z + 1
+        return v
+
+
+def _avif_top(data: bytes) -> List[Tuple[bytes, int, int]]:
+    """The file's top-level boxes as libavif's avifParse reads them: a
+    header cut short is BMFF_PARSE_FAILED; ftyp, meta and moov must be
+    whole (TRUNCATED_DATA); other boxes (mdat) are not read, so their sizes
+    may run past the file; the walk ends once ftyp and meta are read (and
+    moov, for the avis brand of image sequences)."""
+    out, at, end = [], 0, len(data)
+    needs_moov = False
+    while at < end:
+        if at + 8 > end:
+            raise _AvifReject("box header cut short")
+        size, kind = struct.unpack(">I4s", data[at:at + 8])
+        head = 8
+        if size == 1:
+            if at + 16 > end:
+                raise _AvifReject("box header cut short")
+            size, head = struct.unpack(">Q", data[at + 8:at + 16])[0], 16
+        elif size == 0:
+            size = end - at
+        if size < head:
+            raise _AvifReject(f"box {kind!r} smaller than its header")
+        if not out and kind != b"ftyp":
+            raise _AvifReject("the first box is not ftyp")
+        if kind in (b"ftyp", b"meta", b"moov") and at + size > end:
+            raise _AvifReject(f"box {kind!r} cut short")
+        out.append((kind, at + head, min(at + size, end)))
+        if kind == b"ftyp":
+            needs_moov = any(data[i:i + 4] == b"avis" for i in range(at + head, at + size - 3, 4))
+        kinds = [k for k, _, _ in out]
+        if b"meta" in kinds and (not needs_moov or b"moov" in kinds):
+            break
+        at += size
+    return out
+
+
+def _avif_meta(data: bytes, at: int, end: int) -> SimpleNamespace:
+    """libavif's avifParseMetaBox: the items (type, extents, construction
+    method), their properties (by ipma), references (iref) and the
+    primary item (pitm)."""
+    r = _AvifReader(data, at, end)
+    version, _ = r.full()
+    if version != 0:
+        raise _AvifReject("meta box of another version than 0")
+    meta = SimpleNamespace(items={}, props=[], assoc={}, refs=[], primary=None, idat=b"")
+    first = True
+    for kind, a, z in _avif_boxes(data, r.at, end):
+        b = _AvifReader(data, a, z)
+        if first:
+            if kind != b"hdlr":
+                raise _AvifReject("meta box whose first box is not hdlr")
+            if b.full()[0] != 0:
+                raise _AvifReject("hdlr of another version than 0")
+            if b.u(4):
+                raise _AvifReject("hdlr of a non-zero pre_defined")
+            if data[b.at:b.at + 4] != b"pict":
+                raise _AvifReject("handler type other than pict")
+            b.u(4 + 12)
+            b.string()
+            first = False
+        elif kind == b"pitm":
+            version, _ = b.full()
+            if version > 1:
+                raise _AvifReject("pitm of version above 1")
+            meta.primary = b.u(2 if version == 0 else 4)
+        elif kind == b"idat":
+            meta.idat = data[a:z]
+        elif kind == b"iloc":
+            version, _ = b.full()
+            if version > 2:
+                raise _AvifReject("iloc of version above 2")
+            sizes = b.u(2)
+            off_size, len_size, base_size = sizes >> 12, (sizes >> 8) & 15, (sizes >> 4) & 15
+            index_size = sizes & 15 if version in (1, 2) else 0
+            if any(n not in (0, 4, 8) for n in (off_size, len_size, base_size, index_size)):
+                raise _AvifReject("iloc field size other than 0, 4 or 8")
+            for _ in range(b.u(2 if version < 2 else 4)):
+                item = b.u(2 if version < 2 else 4)
+                field = b.u(2) if version in (1, 2) else 0
+                method = field & 15
+                if field >> 4:
+                    raise _AvifReject("iloc reserved bits set")
+                if method > 1:
+                    raise _AvifReject(f"iloc construction method {method}", syntax=False)
+                b.u(2)  # data_reference_index
+                base = b.u(base_size)
+                extents = []
+                for _ in range(b.u(2)):
+                    b.u(index_size)
+                    extents.append((base + b.u(off_size), b.u(len_size)))
+                if item in meta.items:
+                    raise _AvifReject("iloc of an item listed twice")
+                meta.items[item] = SimpleNamespace(type=None, extents=extents, method=method, hidden=False)
+        elif kind == b"iinf":
+            version, _ = b.full()
+            if version > 1:
+                raise _AvifReject("iinf of version above 1")
+            count = b.u(2 if version == 0 else 4)
+            entries = list(_avif_boxes(data, b.at, z))
+            if len(entries) < count:
+                raise _AvifReject("iinf of fewer entries than its count")
+            for kind2, a2, z2 in entries[:count]:
+                if kind2 != b"infe":
+                    raise _AvifReject("iinf entry other than infe")
+                e = _AvifReader(data, a2, z2)
+                version2, flags = e.full()
+                if version2 not in (2, 3):
+                    raise _AvifReject("infe of another version than 2 or 3")
+                item = e.u(2 if version2 == 2 else 4)
+                e.u(2)
+                typ = data[e.at:e.at + 4]
+                e.u(4)
+                e.string()  # item_name
+                if typ == b"mime":
+                    e.string()  # content_type
+                meta.items.setdefault(item, SimpleNamespace(type=None, extents=None, method=0, hidden=False))
+                meta.items[item].type = typ
+                meta.items[item].hidden = bool(flags & 1)
+        elif kind == b"iref":
+            version, _ = b.full()
+            if version > 1:
+                raise _AvifReject("iref of version above 1")
+            for kind2, a2, z2 in _avif_boxes(data, b.at, z):
+                e = _AvifReader(data, a2, z2)
+                src = e.u(2 if version == 0 else 4)
+                for _ in range(e.u(2)):
+                    meta.refs.append((kind2, src, e.u(2 if version == 0 else 4)))
+        elif kind == b"iprp":
+            for kind2, a2, z2 in _avif_boxes(data, a, z):
+                if kind2 == b"ipco":
+                    meta.props = [(k, pa, pz) for k, pa, pz in _avif_boxes(data, a2, z2)]
+                elif kind2 == b"ipma":
+                    e = _AvifReader(data, a2, z2)
+                    version, flags = e.full()
+                    if version > 1:
+                        raise _AvifReject("ipma of version above 1")
+                    for _ in range(e.u(4)):
+                        item = e.u(2 if version < 1 else 4)
+                        for _ in range(e.u(1)):
+                            v = e.u(2 if flags & 1 else 1)
+                            index = v & (0x7FFF if flags & 1 else 0x7F)
+                            if index:
+                                meta.assoc.setdefault(item, []).append(index)
+    if first:
+        raise _AvifReject("meta box without hdlr")
+    if any(item not in meta.items for item in meta.assoc):
+        raise _AvifReject("ipma of an item no iinf or iloc names")
+    return meta
+
+
+def _avif_props(data: bytes, meta: SimpleNamespace, item: int) -> dict:
+    """The properties associated with ``item`` by kind (the first of each),
+    each checked as libavif parses it: ispe, pixi and auxC of version 0,
+    av1C's marker and version 1, pixi's depths one depth (else libavif's
+    NOT_IMPLEMENTED) and av1C's (else BMFF_PARSE_FAILED)."""
+    out = {}
+    for index in meta.assoc.get(item, ()):
+        if index > len(meta.props):
+            raise _AvifReject("ipma index past ipco's properties")
+        kind, a, z = meta.props[index - 1]
+        out.setdefault(kind, (a, z))
+    for kind in (b"ispe", b"pixi", b"auxC"):
+        if kind in out and _AvifReader(data, *out[kind]).full()[0] != 0:
+            raise _AvifReject(f"{kind.decode()} of another version than 0")
+    if b"av1C" in out:
+        a, z = out[b"av1C"]
+        if z - a < 4 or data[a] != 0x81:
+            raise _AvifReject("av1C of another marker or version than 1")
+    if b"pixi" in out and b"av1C" in out:
+        pixi = _AvifReader(data, *out[b"pixi"])
+        pixi.full()
+        depths = [pixi.u(1) for _ in range(pixi.u(1))]
+        flags = data[out[b"av1C"][0] + 2]
+        depth = 12 if flags & 0x20 else 10 if flags & 0x40 else 8
+        if len(set(depths)) > 1:
+            raise _AvifReject("Not implemented (pixi of unequal depths)", syntax=False)
+        if depths and depths[0] != depth:
+            raise _AvifReject("pixi depth other than av1C's")
+    return out
+
+
+def _avif_payload(data: bytes, meta: SimpleNamespace, item: int, name: str) -> bytes:
+    """An item's bytes, its extents joined (from the file or from idat)."""
+    it = meta.items[item]
+    src = meta.idat if it.method == 1 else data
+    out = bytearray()
+    for off, length in it.extents or ():  # a length of 0 is no bytes, as libavif reads it
+        if off + length > len(src):
+            raise OSError(f"{name}: AVIF item data past the end of the file (Pillow: Failed to decode frame 0: "
+                          "Truncated data), which Pillow does not read")
+        out += src[off:off + length]
+    return bytes(out)
+
+
+def _avif_open(data: bytes, name: str) -> SimpleNamespace:
+    """``AvifImageFile._open`` over libavif 1.3.0's avifDecoderParse, on a
+    file's bytes: the size and mode Pillow reports, the colour and alpha
+    items' AV1 streams, their nclx and the 'prem' reference.  What libavif
+    refuses with a SyntaxError raises ``NotThisFormat`` (Pillow tries the
+    next plugin), other verdicts ``OSError`` naming the file and Pillow's
+    verdict, and the kinds the port does not read their refusal by name."""
+    def refuse(what: str) -> OSError:
+        return OSError(f"{name}: AVIF {what} is not read by the PyTorch port")
+
+    try:
+        top = _avif_top(data)
+        if not top or top[0][0] != b"ftyp":
+            raise _AvifReject("the first box is not ftyp")
+        a, z = top[0][1], top[0][2]
+        brands = [data[i:i + 4] for i in range(a, z - 3, 4) if i != a + 4]
+        if not any(b in (b"avif", b"avis") for b in brands):
+            raise _AvifReject("no avif or avis brand")
+        metas = [(a, z) for kind, a, z in top if kind == b"meta"]
+        if not metas:
+            raise _AvifReject("no meta box")
+        meta = _avif_meta(data, *metas[0])
+        primary = meta.primary
+        if primary is None or primary not in meta.items or meta.items[primary].type is None:
+            if any(kind == b"moov" for kind, _, _ in top):
+                raise refuse("image sequence without a still primary item")
+            raise _AvifReject("no primary item")
+        item = meta.items[primary]
+        if item.type == b"grid":
+            raise refuse("grid derived image")
+        if item.type != b"av01":
+            raise _AvifReject("Missing or empty image item", syntax=False)
+        props = _avif_props(data, meta, primary)
+        for layered in (b"a1lx", b"lsel"):
+            if layered in props:
+                raise refuse(f"layered image ({layered.decode()})")
+        if b"av1C" not in props:
+            raise _AvifReject("Missing or empty image item", syntax=False)
+        if b"ispe" not in props:
+            raise _AvifReject("no ispe")
+        ispe = _AvifReader(data, *props[b"ispe"])
+        ispe.full()
+        w, h = ispe.u(4), ispe.u(4)
+        if w == 0 or h == 0:
+            raise _AvifReject("ispe of no pixels")
+        if w * h > _AVIF_SIZE_LIMIT or w > _AVIF_DIMENSION_LIMIT or h > _AVIF_DIMENSION_LIMIT:
+            raise _AvifReject("image larger than libavif's limits", syntax=False)
+        nclx = None
+        for kind, a, z in (meta.props[i - 1] for i in meta.assoc.get(primary, ())):
+            if kind == b"colr" and data[a:a + 4] == b"nclx" and nclx is None:
+                c = _AvifReader(data, a + 4, z)
+                nclx = (c.u(2), c.u(2), c.u(2), c.u(1))
+                if nclx[3] & 0x7F:
+                    raise _AvifReject("nclx reserved bits set")
+                nclx = nclx[:3] + (nclx[3] >> 7,)
+        alpha = None
+        premultiplied = False
+        for kind, src, dst in meta.refs:
+            if kind == b"auxl" and dst == primary and src in meta.items and meta.items[src].type == b"av01":
+                aprops = _avif_props(data, meta, src)
+                if b"auxC" in aprops and b"av1C" in aprops:
+                    c = _AvifReader(data, *aprops[b"auxC"])
+                    c.full()
+                    if c.string() in _AVIF_ALPHA_URNS:
+                        alpha = src
+                        break
+        if alpha is not None:
+            premultiplied = any(kind == b"prem" and src == primary and dst == alpha for kind, src, dst in meta.refs)
+        color = _avif_payload(data, meta, primary, name)
+        alpha_bytes = _avif_payload(data, meta, alpha, name) if alpha is not None else None
+        if not color:
+            raise _AvifReject("Missing or empty image item", syntax=False)
+    except _AvifReject as e:
+        if e.syntax:
+            raise NotThisFormat(f"{name}: AVIF boxes libavif does not parse ({e}), which Pillow does not "
+                                "identify") from e
+        raise OSError(f"{name}: AVIF file libavif refuses (Pillow: Failed to decode image: {e}), which Pillow "
+                      "does not read") from e
+    _too_large(name, "AVIF", w, h)
+    return SimpleNamespace(size=(w, h), mode="RGBA" if alpha is not None else "RGB", color=color, alpha=alpha_bytes,
+                           nclx=nclx, premultiplied=premultiplied)
+
+
+def decode_avif(data: bytes, name: str = "AVIF", counts: Optional[dict] = None) -> np.ndarray:
+    """An AVIF file as uint8 RGB, bit for bit with Pillow 12.1.0's
+    ``AvifImagePlugin`` (libavif 1.3.0 over dav1d 1.5.1 and libyuv) and
+    ``convert("RGB")``: the boxes as libavif parses them (``_avif_open``),
+    the primary item's AV1 stream (and its alpha item's) through the port's
+    AV1 intra decoder, then libavif's YUV-to-RGB, a premultiplied image
+    unpremultiplied first (``native.decode_avif``).  Rotation, mirroring and
+    cropping properties are not applied, as libavif and Pillow do not apply
+    them to the pixels.  ``counts``, if given, takes what the colour
+    stream met (``native.AV1_COUNTS``)."""
+    hd = _avif_open(data, name)
+    w, h = hd.size
+    return native.decode_avif(hd.color, hd.alpha, name, w, h, hd.nclx, hd.premultiplied, counts)
+
+
 #: Pillow 12.1.0's Sun raster raw modes (``SunImagePlugin``) by depth:
 #: (bits a pixel, the mode without a colour map)
 _SUN_DEPTHS = {1: "1", 4: "L", 8: "L", 24: "RGB", 32: "RGB"}
@@ -2865,7 +3225,7 @@ _DECODERS = {"BMP": decode_bmp, "DIB": decode_dib, "ICO": decode_ico, "CUR": dec
              "XBM": decode_xbm, "XPM": decode_xpm, "MSP": decode_msp, "FLI": decode_fli, "DCX": decode_dcx,
              "GBR": decode_gbr, "PIXAR": decode_pixar, "FITS": decode_fits, "McIdas": decode_mcidas,
              "XV thumbnail": decode_xv, "IM": decode_im, "IMT": decode_imt, "IPTC": decode_iptc, "PCD": decode_pcd,
-             "SPIDER": decode_spider, "JPEG 2000": decode_jpeg2000}
+             "SPIDER": decode_spider, "JPEG 2000": decode_jpeg2000, "AVIF": decode_avif}
 
 
 def _read(f: BinaryIO, name: str, native_read) -> np.ndarray:

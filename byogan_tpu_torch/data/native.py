@@ -23,6 +23,9 @@ Pillow's decoders do;
 FTEX and BLP2 textures as Pillow's bcn decoder and BLP plugin do;
 ``decode_jpeg2000`` a JPEG 2000 codestream or JP2 file as Pillow's
 decoder over OpenJPEG 2.5.4 fills an image of Pillow's mode;
+``decode_avif`` an AVIF item's AV1 streams (the port's AV1 intra decoder)
+into the RGB Pillow's decoder over libavif 1.3.0 and dav1d makes, and
+``av1_planes`` a stream's planes before the colour conversion;
 ``encode_jpeg`` writes libjpeg's JPEG bytes.  All of it runs on
 any machine with a C++ compiler and zlib.  A build that fails raises,
 naming the compiler's error: there is no other lane to fall back on.
@@ -33,6 +36,7 @@ in parallel.
 from __future__ import annotations
 
 import ctypes
+import re
 import threading
 from typing import Optional, Tuple
 
@@ -40,7 +44,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 15
+ABI_VERSION = 16
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -136,6 +140,23 @@ ERRORS = {
     -69: "JPEG 2000 components, colour space and mode that Pillow's decoder has no unpacker for (five or more "
          "components, an ICC or unknown colour space, subsampled gray, a palette of gray...; Pillow: broken data "
          "stream when reading image file)",
+    -70: "an AV1 stream dav1d refuses, or one cut short or damaged (libavif: Failed to decode image)",
+    -71: "AVIF 10- or 12-bit samples, which the PyTorch port does not read",
+    -72: "AVIF film grain (film_grain_params_present, apply_grain), which the PyTorch port does not read",
+    -73: "AVIF intra block copy (allow_intrabc), which the PyTorch port does not read",
+    -74: "AVIF quantizer matrices (using_qmatrix), which the PyTorch port does not read",
+    -75: "AVIF superresolution (use_superres), which the PyTorch port does not read",
+    -76: "AVIF layered image (spatial layers in the AV1 operating points), which the PyTorch port does not read",
+    -77: "AVIF stream whose first frame is not a key or intra-only frame, which the PyTorch port does not read",
+    -78: "AVIF frame of another size than its item's 'ispe', which libavif scales to that size and the PyTorch "
+         "port does not read",
+    -79: "the identity matrix with subsampled chroma, or a matrix libavif does not know (3, 10, 11, 13, 14, 16 and "
+         "above), which libavif does not convert (libavif: Reformat failed)",
+    -80: "AVIF colour conversion of libavif's float bilinear chroma path (YCgCo or another matrix than BT.601, "
+         "BT.709 and BT.2020 in subsampled chroma), of YCgCo-Re or of a chroma-derived matrix of other primaries, which "
+         "the PyTorch port does not read",
+    -81: "AVIF alpha plane of another size than its image, which libavif scales to that size and the PyTorch port "
+         "does not read",
 }
 
 _P = ctypes.c_void_p
@@ -168,6 +189,8 @@ SIGNATURES = {
     "byogan_xz": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
     "byogan_zstd": [_P, _N, ctypes.c_longlong, _P, _N, ctypes.POINTER(_N)],
     "byogan_decode_jpeg2000": [_P, _N, _I, _I, _I, _P],
+    "byogan_decode_avif": [_P, _N, _P, _N, _P, _I, _I, _P, _P],
+    "byogan_decode_av1": [_P, _N, _P, _P, _P, _P, _N],
 }
 
 
@@ -437,6 +460,67 @@ def decode_jpeg2000(data: bytes, name: str, mode: str, w: int, h: int) -> np.nda
     if rc != 0:
         raise _failed(name, "JPEG 2000 decode", rc)
     return out
+
+
+#: the AVIF kinds the port refuses by name (ROADMAP §3 fault 7's AVIF queue)
+AVIF_REFUSED = (-71, -72, -73, -74, -75, -76, -77, -78, -80, -81)
+#: the fields of ``native/av1.h``'s Counts, in order, and their lengths
+AV1_COUNTS = (("partition", 10), ("y_mode", 13), ("uv_mode", 14), ("filter_intra_mode", 5), ("palette_y", 9),
+              ("palette_uv", 9), ("tx_size", 19), ("tx_type", 16), ("cdef_on", 1), ("cdef_off", 1), ("lr_type", 4),
+              ("lossless", 1), ("superblock128", 1), ("tiles", 1))
+
+
+def decode_avif(color: bytes, alpha: Optional[bytes], name: str, w: int, h: int,
+                nclx: Optional[Tuple[int, int, int, int]],
+                premultiplied: bool, counts: Optional[dict] = None) -> np.ndarray:
+    """An AVIF image's RGB (uint8 (h, w, 3)) as Pillow 12.1.0 reads it and
+    ``convert("RGB")`` keeps it: the colour item's AV1 stream (and the alpha
+    item's, if any) through the port's AV1 decoder, then libavif 1.3.0's
+    YUV-to-RGB (``native/avif_rgb.cpp``).  ``nclx`` is the item's nclx
+    (primaries, transfer, matrix, full range) or None, where the stream's
+    own colour description and range hold.  ``counts``, if given, is filled with what the
+    colour stream met (``AV1_COUNTS``' fields, each a list)."""
+    params = (ctypes.c_int32 * 8)(int(nclx is not None), *(nclx or (2, 2, 2, 0))[:3], int(premultiplied), 0, 0,
+                                  (nclx or (0, 0, 0, 0))[3])
+    raw = (ctypes.c_int32 * sum(n for _, n in AV1_COUNTS))() if counts is not None else None
+    alpha = alpha or b""
+    lib = load_library()
+    out = np.empty((h, w, 3), np.uint8)
+    rc = lib.byogan_decode_avif(color, len(color), alpha or None, len(alpha), params, w, h, out.ctypes.data, raw)
+    if rc in AVIF_REFUSED:
+        what = re.sub(r",? which (the PyTorch port does not read|libavif scales to that size and the PyTorch port "
+                      r"does not read)", "", ERRORS[rc])
+        raise OSError(f"{name}: {what} is not read by the PyTorch port")
+    if rc != 0:
+        raise _failed(name, "AVIF decode", rc)
+    if counts is not None:
+        at = 0
+        for field, n in AV1_COUNTS:
+            counts[field] = list(raw[at:at + n])
+            at += n
+    return out
+
+
+def av1_planes(obus: bytes, name: str = "AV1") -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
+    """An AV1 stream's Y, U and V planes (uint8, U and V None in 4:0:0) as
+    the port's AV1 decoder makes them (``native/av1_*.cpp``), before any
+    colour conversion: what the tests hold to libdav1d's planes."""
+    info = (ctypes.c_int32 * 5)()
+    cap = max(1 << 16, 64 * len(obus))
+    while True:
+        bufs = [np.empty(cap, np.uint8) for _ in range(3)]
+        rc = load_library().byogan_decode_av1(obus, len(obus), info, *(b.ctypes.data for b in bufs), cap)
+        if rc != -5:
+            break
+        cap = 3 * info[0] * info[1]
+    if rc != 0:
+        raise _failed(name, "AV1 decode", rc)
+    w, h, sx, sy, mono = info
+    y = bufs[0][:w * h].reshape(h, w)
+    if mono:
+        return y, None, None
+    cw, ch = (w + sx) >> sx, (h + sy) >> sy
+    return y, bufs[1][:cw * ch].reshape(ch, cw), bufs[2][:cw * ch].reshape(ch, cw)
 
 
 def stream_decode(kind: str, data: bytes, occ: Optional[int] = None, cap: int = 1 << 26) -> Tuple[int, bytes]:

@@ -10,13 +10,14 @@ root of the checkout (git-ignored, beside the CUDA kernels of
 
 ``-ffp-contract=off`` keeps the compiler from fusing a multiply and an add
 into one rounding on machines with FMA instructions, so that lab.cpp's
-float pipeline rounds as LittleCMS's does, and jpeg2000.cpp's 9/7 wavelet
-and ICT as OpenJPEG's, wherever it is built.
+float pipeline rounds as LittleCMS's does, jpeg2000.cpp's 9/7 wavelet and
+ICT as OpenJPEG's, and avif_rgb.cpp's float conversions as libavif's,
+wherever it is built.
 
 zlib is the one library it links (PNG's inflate), on every machine: no
 libpng, libjpeg, libwebp, liblzma, libzstd or libopenjp2 (xz.cpp and zstd.cpp
 are the port's own decoders of LZMA and ZSTD TIFF, jpeg2000.cpp and
-jpeg2000_t1.cpp its JPEG 2000 decoder).  A machine without ``zlib.h``
+jpeg2000_t1.cpp its JPEG 2000 decoder, av1_*.cpp its AV1 decoder).  A machine without ``zlib.h``
 fails the build, and the ``RuntimeError`` carries the compiler's output.
 Concurrent builds, such as test workers starting together, take a file
 lock and compile into a directory of their own, whose library replaces
@@ -40,8 +41,10 @@ SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp"
                                    "jpeg_encode.cpp", "jpeg_tables.cpp", "webp.cpp", "vp8_decode.cpp", "vp8l_decode.cpp",
                                    "webp_tables.cpp", "gif.cpp", "tiff.cpp", "ccitt.cpp", "lab.cpp", "pnm_tga.cpp",
                                    "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp", "im_bit.cpp", "xz.cpp",
-                                   "zstd.cpp", "jpeg2000.cpp", "jpeg2000_t1.cpp"))
-HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h", HERE / "jpeg2000.h")
+                                   "zstd.cpp", "jpeg2000.cpp", "jpeg2000_t1.cpp", "av1_obu.cpp", "av1_symbol.cpp",
+                                   "av1_cdfs.cpp", "av1_tables.cpp", "av1_modes.cpp", "av1_coefs.cpp", "av1_intra.cpp",
+                                   "av1_itx.cpp", "av1_deblock.cpp", "av1_cdef.cpp", "av1_lr.cpp", "avif_rgb.cpp"))
+HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h", HERE / "jpeg2000.h", HERE / "av1.h", HERE / "av1_decoder.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"
 FLAGS = ("-O3", "-fPIC", "-std=c++17", "-ffp-contract=off")

@@ -11,8 +11,9 @@
 // ICNS RLE loops of the PSD, PCX, SGI, QOI, Sun raster and ICNS readers
 // (psd_pcx_sgi_qoi.cpp), the BCn block decoder of the DDS, FTEX and BLP
 // readers (bcn.cpp), the XBM, MSP and FLI loops of their readers
-// (fli_msp_xbm.cpp), the IM reader's bit decoder (im_bit.cpp), and the
-// PNG row unfilter below.  The
+// (fli_msp_xbm.cpp), the IM reader's bit decoder (im_bit.cpp), the AVIF
+// reader's AV1 decoder and YUV-to-RGB conversion (av1_*.cpp, avif_rgb.cpp),
+// and the PNG row unfilter below.  The
 // data loader, dataset preparation, the projection CLI and the JPEG frame
 // writer reach them through the C functions here, by ctypes
 // (byogan_tpu_torch/data/native.py).  No codec keeps state between calls,
@@ -147,7 +148,7 @@ int unfilter_rows(const uint8_t* raw, int h, int stride, int bpp, uint8_t* out) 
 
 extern "C" {
 
-int byogan_abi_version() { return 15; }
+int byogan_abi_version() { return 16; }
 
 // Decode one PNG, JPEG, WebP, GIF or TIFF file held in memory (told apart
 // by its first bytes) into out, RGB of size (*h, *w).  Where out is null or
@@ -196,6 +197,19 @@ static int stream_decode(int (*decode)(const uint8_t*, size_t, size_t, std::vect
 // into an image of Pillow's mode `mode` (codec.h's decode_jpeg2000).
 int byogan_decode_jpeg2000(const uint8_t* data, size_t size, int mode, int w, int h, uint8_t* out) {
   return byogan::decode_jpeg2000(data, size, mode, w, h, out);
+}
+
+// An AVIF image's colour and alpha AV1 streams into RGB (codec.h's
+// decode_avif; counts may be null).
+int byogan_decode_avif(const uint8_t* color, size_t csize, const uint8_t* alpha, size_t asize, int32_t* params,
+                       int w, int h, uint8_t* out, int32_t* counts) {
+  return byogan::decode_avif(color, csize, alpha, asize, params, w, h, out, counts);
+}
+
+// An AV1 stream's planes (codec.h's decode_av1_planes).
+int byogan_decode_av1(const uint8_t* data, size_t size, int32_t* info, uint8_t* y, uint8_t* u, uint8_t* v,
+                      size_t cap) {
+  return byogan::decode_av1_planes(data, size, info, y, u, v, cap);
 }
 
 int byogan_xz(const uint8_t* in, size_t n, long long occ, uint8_t* out, size_t cap, size_t* written) {

@@ -76,6 +76,18 @@ enum Status {
   kJ2kHt = -67,            // HTJ2K (Part 15) code-blocks
   kJ2kMarker = -68,        // a JPEG 2000 codestream of Part 2 markers, or a component whose top level has no packet
   kJ2kUnpack = -69,        // components, colour space and mode Pillow's JPEG 2000 decoder has no unpacker for
+  kAvifBroken = -70,       // an AV1 stream dav1d refuses, or one cut short (libavif: failed to decode)
+  kAvifDepth = -71,        // an AV1 stream of 10- or 12-bit samples
+  kAvifFilmGrain = -72,    // an AV1 frame with film grain to apply
+  kAvifIntrabc = -73,      // an AV1 frame that allows intra block copy
+  kAvifQmatrix = -74,      // an AV1 frame of quantizer matrices
+  kAvifSuperres = -75,     // a superresolved AV1 frame
+  kAvifLayers = -76,       // an AV1 stream of spatial layers
+  kAvifNotIntra = -77,     // an AV1 stream whose first frame is not a key or intra-only frame
+  kAvifSize = -78,         // a decoded frame of another size than its item ('ispe')
+  kAvifColour = -79,       // a colour conversion libavif refuses (identity with subsampled chroma, unknown matrices)
+  kAvifConversion = -80,   // libavif's float conversion of subsampled chroma (YCgCo and other matrices)
+  kAvifAlpha = -81,        // an alpha plane of another size than the image
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -190,6 +202,24 @@ int decode_jpeg_planes(const uint8_t* data, size_t size, JpegFrame* frame, std::
 // LA, RGB, RGBA, CMYK, P, PA) of im_w x im_h pixels, 1, 2 or 4 bytes each,
 // into out (YCbCr converted to RGB where Pillow's unpacker converts it).
 int decode_jpeg2000(const uint8_t* data, size_t size, int mode, int im_w, int im_h, uint8_t* out);
+
+// An AVIF image's RGB (avif_rgb.cpp): the AV1 streams of its colour item
+// and of its alpha item (null, 0 if none) decoded by the port's AV1 decoder
+// (av1.h) and converted as libavif 1.3.0 converts them for Pillow 12.1.0,
+// into out (h x w x 3).  params: whether the item has an nclx 'colr', its
+// colour primaries, transfer characteristics and matrix coefficients, and
+// whether the alpha is premultiplied ('prem'), then two slots that receive
+// the decoded frame's width and height (kAvifSize where they are not w and
+// h), then the nclx's full-range flag.  counts, if not null, takes av1::Counts of the colour
+// stream.
+int decode_avif(const uint8_t* color, size_t csize, const uint8_t* alpha, size_t asize, int32_t* params, int w,
+                int h, uint8_t* out, int32_t* counts);
+
+// An AV1 stream's planes as the port's AV1 decoder makes them (avif_rgb.cpp):
+// info receives width, height, subsampling x and y and monochrome; y, u and
+// v (cap bytes each; u and v unused in 4:0:0) the planes, rows packed.
+int decode_av1_planes(const uint8_t* data, size_t size, int32_t* info, uint8_t* y, uint8_t* u, uint8_t* v,
+                      size_t cap);
 
 // An RGB uint8 (h, w, 3) image as the bytes of a baseline JPEG file.
 int encode_jpeg(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* file);

@@ -73,9 +73,12 @@ both paths of the port at full width (``ModelSpec()``):
   layouts, LZMA, ZSTD, old-style JPEG and 12-bit JPEG TIFF layouts through
   the port's own .xz and Zstandard decoders (the library links neither
   liblzma nor libzstd), JPEG 2000 codestreams, JP2 files and ICNS elements
-  through the port's own JPEG 2000 decoder (nor libopenjp2), and the kinds
-  refused by name among them: ICCLab, MM BigTIFF, CCITT data libtiff
-  decodes with errors, BLP2 JPEG, HTJ2K code-blocks, an .xz BCJ filter, a
+  through the port's own JPEG 2000 decoder (nor libopenjp2), AVIF files
+  through the port's own AV1 intra decoder and libavif's YUV-to-RGB (nor
+  libdav1d, libavif or libyuv), and the kinds refused by name among them:
+  ICCLab, MM BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG,
+  HTJ2K code-blocks, AVIF grids, film grain and intra block copy, an .xz
+  BCJ filter, a
   Zstandard dictionary, MPEG, an IPTC field length Pillow calls
   illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
   the YCC;P and YCbCr -> RGB conversions of every triple held to the
@@ -86,11 +89,11 @@ both paths of the port at full width (``ModelSpec()``):
   GIF/TIFF/PNM/Targa/ICO, PSD/PCX/SGI/QOI/TIFF, DDS/BLP/FTEX/ICNS/Sun/TIFF,
   12-bit TIFF/XPM/MSP/FLC/DCX/GBR/FITS/PIXAR, IM/IMT/IPTC/PCD/SPIDER/
   old-style LZW TIFF, ZSTD/LZMA/old-style and 12-bit JPEG TIFF/PNG
-  with chunks after its image data and a JP2 and an ICNS of a JP2
-  element) held to the JAX package's pyramid
+  with chunks after its image data, a JP2 and an ICNS of a JP2
+  element, and four AVIF files) held to the JAX package's pyramid
   of them ("io
   prep"), and the training CLI on a set with JPEG, WebP,
-  palette and 16-bit BMP, BC7 DDS, ICNS, FITS and FLC files among its
+  palette and 16-bit BMP, BC7 DDS, ICNS, FITS, FLC and AVIF files among its
   PNGs, stopped by SIGTERM and resumed with
   ``--auto-resume``, then ``cli.generate_samples --format jpeg --pallas``
   on its FINAL.pth.
@@ -1857,7 +1860,7 @@ REMAT_CONFIG = (
     "checkpoint_dir = {tmp}/remat_ck\noutput_dir = {tmp}/remat_out\n"
 )
 REMAT_STAGE = 7  # [ffhq-tpu-tuned]'s remat_progression flags stage 7 (256 px), at batch 128
-PREP_ORIGINALS, PREP_SIDE = 16, 1024
+PREP_ORIGINALS, PREP_SIDE = 12, 1024  # 16 before "io" held AVIF files: cut to pay for those checks
 PROGRAM_FRAMES = 128  # frames timed per sampler in the serving-program phase
 
 
@@ -3276,7 +3279,7 @@ CODEC_REPEATS = 10  # timed calls per codec reading, after one untimed
 CODEC_POOL_CALLS = 40  # decodes timed on a pool of threads
 # per stage: Paeth PNGs, then 2 JPEG, 2 BMP, 2 WebP files, a JPEG of each kind of fx.JPEG_KINDS, a BC7 DDS, an
 # ICNS, a FITS and an FLC among them
-IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 17
+IO_TRAIN_IMAGES, IO_TRAIN_OTHER = 24, 18
 IO_TRAIN_BC7_MEAN_ERR = 6.0  # mean |error| (LSB) of a stage-8 BC7 file against its source, fx.bc7_encode's
 IO_CONFIG = (
     "[io]\n"
@@ -3408,7 +3411,7 @@ def io_checks(tmp) -> dict:
     files = [m for m in matched if "@" not in m
              and not m.startswith((f"{fx.WEBP}/", f"{fx.KINDS}/", f"{fx.PILLOW}/", f"{fx.GIF_TIFF}/",
                                    f"{fx.ICO_PNM_TGA}/", f"{fx.RASTER}/", f"{fx.DBFIS}/", f"{fx.LEGACY}/",
-                                   f"{fx.IMIPS}/", f"{fx.LZO}/", f"{fx.J2K}/"))]
+                                   f"{fx.IMIPS}/", f"{fx.LZO}/", f"{fx.J2K}/", f"{fx.AVIF}/"))]
     webp = [m for m in matched if "@" not in m and m.startswith(f"{fx.WEBP}/")]
     kinds = [m for m in matched if m.startswith(f"{fx.KINDS}/")]
     planes = [m for m in matched if m.endswith("@yuv")]
@@ -3542,6 +3545,20 @@ def io_checks(tmp) -> dict:
           f"and {len(j2k_refused)} refused with Pillow's verdict "
           f"({', '.join(os.path.basename(m)[:-8] for m in j2k_refused)}); {len(j2k_card)} committed card originals "
           f"of this slice, each the manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(j2k_card))})")
+    avif = [m for m in matched if m.startswith(f"{fx.AVIF}/")]
+    avif_read = [m for m in avif if "@" not in m and "/card/" not in m]
+    avif_refused = [m for m in avif if m.endswith("@refused")]
+    avif_kind = {k: sum(os.path.basename(m).startswith(k) for m in avif_read) for k in ("pil-", "cov-", "box-")}
+    require(min(avif_kind.values()) >= 4 and len(avif_read) >= 100 and len(avif_refused) >= 15,
+            f"the manifest holds AVIF layouts {avif_kind} and {len(avif_refused)} of their refusals")
+    avif_card = fx.check_avif_card(images.read_image)
+    print(f"io fixtures: {len(avif_read)} AVIF files decoded to Pillow 12.1.0's RGB through libavif 1.3.0, dav1d "
+          f"1.5.1 and libyuv ({', '.join(f'{k[:-1]} {v}' for k, v in avif_kind.items())}, train 8: the port's own AV1 "
+          f"intra decoder, native/av1_*.cpp, and libavif's conversion, native/avif_rgb.cpp (the card's machine has "
+          f"no libdav1d, libavif or libyuv): {', '.join(m.split('/', 1)[1] for m in avif_read)}) and "
+          f"{len(avif_refused)} refused with their reason beside Pillow's verdict "
+          f"({', '.join(os.path.basename(m)[:-8] for m in avif_refused)}); {len(avif_card)} committed card originals "
+          f"of this slice, each the manifest's bytes, and each decoded to Pillow's RGB ({', '.join(sorted(avif_card))})")
     lab_read = [m for m in raster_read if os.path.basename(m).startswith(("lab-", "bigtiff-", "ccitt-"))]
     lab_refused = [m for m in matched if m.endswith("@refused") and os.path.basename(m).startswith(
         ("lab-", "icclab", "itulab", "bigtiff", "ccitt-", "psd-lab"))]
@@ -3603,7 +3620,8 @@ def io_checks(tmp) -> dict:
           f"{len(legacy_card)} written card originals (above); {len(imips)} IM, IMT, IPTC, PCD, SPIDER and old-style "
           f"LZW TIFF files and {len(imips_card)} written card originals (above); {len(lzo)} LZMA, ZSTD, old-style "
           f"and 12-bit JPEG TIFF files and {len(lzo_card) - len(fx.LZO_COMMITTED_CARD)} written card originals "
-          f"(above); {len(j2k)} JPEG 2000 files (above); the Lab, YCC;P and YCbCr tables (above)")
+          f"(above); {len(j2k)} JPEG 2000 files (above); {len(avif)} AVIF files (above); the Lab, YCC;P and YCbCr "
+          f"tables (above)")
 
     rng = np.random.default_rng(31)
     out = {"sets": {}, "cache_s": {}}
@@ -3669,6 +3687,7 @@ def io_checks(tmp) -> dict:
     out["imips_card"] = imips_card
     out["lzo_card"] = lzo_card
     out["j2k_card"] = j2k_card
+    out["avif_card"] = avif_card
     return out
 
 
@@ -4062,6 +4081,33 @@ def j2k_codec_times(paths: dict) -> dict:
     return ms
 
 
+def avif_codec_times(paths: dict) -> dict:
+    """The "time codecs AVIF" phase (``io_main`` runs it; ``main`` does not):
+    host ms of the port's AVIF reader (its AV1 intra decoder and libavif's
+    YUV-to-RGB), one call at a time on one thread (median of
+    ``CODEC_REPEATS``), on the card's originals (``paths``: name -> path):
+    a 1024 px 4:2:0 photo at Pillow's defaults, a 1024 px 4:4:4 one with
+    CDEF, loop restoration, 128 px superblocks and 2 x 2 tiles, a 1024 px
+    screen-content file with palette, and a 512 px file of premultiplied
+    alpha."""
+    from byogan_tpu_torch.data import images
+
+    files = {"avif_420_default_1024": "photo-1024.avif",
+             "avif_444_cdef_lr_sb128_tiles_1024": "photo-1024-444-cdef-lr-sb128-tiles.avif",
+             "avif_screen_palette_1024": "screen-1024-palette.avif",
+             "avif_premultiplied_512": "photo-512-premultiplied.avif"}
+    ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
+    sizes = {k: os.path.getsize(paths[name]) for k, name in files.items()}
+    print(f"time codecs: AVIF (native/av1_*.cpp, avif_rgb.cpp), host ms, median of {CODEC_REPEATS} calls, one "
+          f"thread, RGB: 1024 px 4:2:0 at Pillow's defaults ({sizes['avif_420_default_1024']} bytes) "
+          f"{ms['avif_420_default_1024']:.3f}, 1024 px 4:4:4 with CDEF, restoration, 128 px superblocks, 2 x 2 "
+          f"tiles ({sizes['avif_444_cdef_lr_sb128_tiles_1024']} bytes) {ms['avif_444_cdef_lr_sb128_tiles_1024']:.3f}, "
+          f"1024 px screen content with palette ({sizes['avif_screen_palette_1024']} bytes) "
+          f"{ms['avif_screen_palette_1024']:.3f}, 512 px premultiplied alpha ({sizes['avif_premultiplied_512']} "
+          f"bytes) {ms['avif_premultiplied_512']:.3f}; card {card_name()}")
+    return ms
+
+
 def tiff_strips(data: bytes) -> tuple:
     """A little-endian classic TIFF's StripOffsets and StripByteCounts (LONG
     arrays), read here to time the strip decoders alone."""
@@ -4108,8 +4154,8 @@ def prep_pillow_lane_cli(io_state: dict, tmp, root) -> float:
     print(f"io prep: cli.prep, one process, of {n} originals of the Pillow lane (every slice's: WebP, the JPEG kinds, "
           f"BMP and 16-bit PNG, GIF, TIFF, PNM, Targa, ICO, PSD, PCX, SGI, QOI, DDS, BLP, FTEX, ICNS, Sun raster, XPM, "
           f"MSP, FLC, DCX, GBR, FITS, PIXAR, IM, IMT, IPTC, PCD, SPIDER, old-style LZW TIFF, LZMA and ZSTD TIFF, "
-          f"old-style and 12-bit JPEG TIFF, PNG with chunks after its image data, JPEG 2000 and ICNS of a JPEG 2000 "
-          f"element: "
+          f"old-style and 12-bit JPEG TIFF, PNG with chunks after its image data, JPEG 2000, ICNS of a JPEG 2000 "
+          f"element and AVIF: "
           + ", ".join(a if a == b else f"{a} as {b}" for a, b in read_as)
           + f") to 8 sets in {cli_s:.2f} s, {cli_s / n:.3f} s per original (process start included, 8 worker "
           f"threads, resizes on the card); {matched} of {matched} images equal to the JAX package's prepare_pyramid "
@@ -4278,8 +4324,9 @@ def io_train(tmp, root) -> tuple:
     arithmetic sequential and progressive, block-smoothed, CMYK, YCCK,
     lossless; a BC7 DDS (``fx.bc7_encode``), an ICNS of a PNG element, a
     BITPIX -32 FITS of the red channel and an FLC of a 3-3-2 palette's
-    BRUN frame written a stage, so the loader decodes BCn blocks, ICNS,
-    FITS and FLI chunks on every stage-8 batch), stage 8 uncached:
+    BRUN frame written a stage, and a committed AVIF of the stage's size
+    under .webp, so the loader decodes BCn blocks, ICNS, FITS, FLI chunks
+    and AV1 on every stage-8 batch), stage 8 uncached:
     ``len()`` counts them, the stage-8 dataset's batch of the kinds' files
     equals their manifest hashes, the ICNS its PNG's pixels, the FITS its
     channel, the FLC its palette's colours and the DDS its blocks' decode
@@ -4327,6 +4374,9 @@ def io_train(tmp, root) -> tuple:
                 with open(os.path.join(folder, f"image-{i}.jpeg"), "wb") as fh:  # little-endian: as Pillow reads
                     fh.write(fx.fits_file(img[..., 0].astype(np.float32) + 0.25, -32, order="<"))
                 fits_want = np.repeat(img[..., :1], 3, 2)
+            elif k == 17:  # a committed AVIF of the stage's size under .webp
+                shutil.copy(os.path.join(fx.FIXTURES, fx.AVIF, "train", f"{size}.avif"),
+                            os.path.join(folder, f"image-{i}.webp"))
             elif k == 16:  # an FLC of a BRUN frame of 3-3-2 colour indices under .bmp
                 idx = (img[..., 0] >> 5 << 5 | img[..., 1] >> 5 << 2 | img[..., 2] >> 6).astype(np.uint8)
                 with open(os.path.join(folder, f"image-{i}.bmp"), "wb") as fh:
@@ -4379,10 +4429,15 @@ def io_train(tmp, root) -> tuple:
     bc7_err = float(np.abs(bc7_img.astype(np.int16) - bc7_src).mean())
     require(bc7_err <= IO_TRAIN_BC7_MEAN_ERR, f"the stage-8 BC7 DDS is {bc7_err} LSB from its source")
     require(np.array_equal(icns_img, icns_src), "the stage-8 dataset read its ICNS to other pixels than its PNG's")
+    avif_row = stage8.files.index(os.path.join(folder8, f"image-{IO_TRAIN_IMAGES - IO_TRAIN_OTHER + 17}.webp"))
+    avif_img = stage8.get_batch_uint8(np.array([avif_row]), 1)[0]
+    require(fx.sha256(avif_img) == manifest[f"{fx.AVIF}/train/512.avif"]["sha256_rgb"],
+            "the stage-8 dataset read its AVIF to other pixels than Pillow's")
     print(f"io train: wrote {IO_TRAIN_IMAGES} images x 8 stages ({kinds}; a BC7 DDS under .png, an ICNS under .jpg, "
-          f"a FITS under .jpeg and an FLC under .bmp among them) in {time.perf_counter() - t0:.2f} s; len() of set_8 "
-          f"{len(stage8)}; the stage-8 BC7 DDS equal to its blocks' decode, {bc7_err:.3f} LSB mean from its source, "
-          f"the ICNS equal to its PNG, the FITS to its channel, the FLC to its palette's colours")
+          f"a FITS under .jpeg, an FLC under .bmp and an AVIF under .webp among them) in "
+          f"{time.perf_counter() - t0:.2f} s; len() of set_8 {len(stage8)}; the stage-8 BC7 DDS equal to its blocks' "
+          f"decode, {bc7_err:.3f} LSB mean from its source, the ICNS equal to its PNG, the FITS to its channel, the "
+          f"FLC to its palette's colours, the AVIF to Pillow's RGB")
 
     cfg = os.path.join(tmp, "io.txt")
     with open(cfg, "w") as f:
@@ -4466,8 +4521,8 @@ def io_main() -> int:
     slices' "io codecs" lines), "time codecs Lab, BigTIFF, CCITT", "time
     codecs DDS, BLP, FTEX, ICNS, Sun", "time codecs 12-bit TIFF, XBM ...
     XV", "time codecs IM, IMT, IPTC, PCD, SPIDER", "time codecs TIFF
-    LZMA, ZSTD, OJPEG, 12-bit JPEG", "time codecs JPEG 2000" and "time
-    loader", which only this entry point runs."""
+    LZMA, ZSTD, OJPEG, 12-bit JPEG", "time codecs JPEG 2000", "time codecs
+    AVIF" and "time loader", which only this entry point runs."""
     require(torch.cuda.is_available(), "no CUDA device")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4496,6 +4551,8 @@ def io_main() -> int:
             lzo_codec_times(io_state["lzo_card"])
         with phase("time codecs JPEG 2000"):
             j2k_codec_times(io_state["j2k_card"])
+        with phase("time codecs AVIF"):
+            avif_codec_times(io_state["avif_card"])
         with phase("time loader"):
             time_loader(io_state)
         with phase("io train"):

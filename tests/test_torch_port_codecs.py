@@ -239,7 +239,7 @@ def test_fixture_manifest_is_what_the_libraries_make(tmp_path, jax_lane):
     assert sorted(files) == sorted(n for n in os.listdir(fx.FIXTURES)
                                    if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF,
                                                 fx.ICO_PNM_TGA, fx.RASTER, fx.DBFIS, fx.LEGACY, fx.IMIPS, fx.LZO,
-                                                fx.J2K))
+                                                fx.J2K, fx.AVIF))
     for name, (data, _) in files.items():
         with open(os.path.join(fx.FIXTURES, name), "rb") as f:
             assert f.read() == data, name
@@ -263,7 +263,7 @@ def test_port_matches_the_fixtures(tmp_path):
     decodes to the manifest's hash (a 16-bit gray PNG in both lanes), each
     BMP, ICO, CUR, DIB, PNM, Targa, PSD, PCX, SGI, QOI, DDS, BLP, FTEX,
     ICNS, Sun raster, XBM, XPM, MSP, FLI, DCX, GBR, PIXAR, FITS, McIdas,
-    XV thumbnail, IM, IMT, IPTC, PCD, SPIDER and JPEG 2000 file Pillow refuses and each GIF and TIFF the port
+    XV thumbnail, IM, IMT, IPTC, PCD, SPIDER, JPEG 2000 and AVIF file Pillow refuses and each GIF and TIFF the port
     refuses raises naming the file
     and the reason, every source encodes to its hash, and the card's
     written originals are the manifest's bytes and decode to its hashes."""
@@ -277,12 +277,13 @@ def test_port_matches_the_fixtures(tmp_path):
     planes = sum("sha256_yuv" in e for e in manifest["files"].values())
     pillow = sum("sha256_rgb_pillow" in e for e in manifest["files"].values())
     assert len(matched) == len(manifest["files"]) + planes + pillow + len(fx.SOURCES) * len(fx.QUALITIES)
-    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 12 + len(fx.committed_webp())
+    assert len(manifest["files"]) == (len(os.listdir(fx.FIXTURES)) - 13 + len(fx.committed_webp())
                                       + len(fx.committed_kinds()) + len(fx.committed_pillow())
                                       + len(fx.committed_gif_tiff()) + len(fx.committed_ico_pnm_tga())
                                       + len(fx.committed_raster()) + len(fx.committed_dbfis())
                                       + len(fx.committed_legacy()) + len(fx.committed_imips())
-                                      + len(fx.committed_lzo()) + len(fx.committed_j2k()))
+                                      + len(fx.committed_lzo()) + len(fx.committed_j2k())
+                                      + len(fx.committed_avif()))
     assert len(fx.check_card_originals(str(tmp_path), images.read_image)) == len(fx.CARD_ORIGINALS)
     assert len(fx.check_raster_card(str(tmp_path), images.read_image)) == len(fx.RASTER_CARD)
     assert len(fx.check_dbfis_card(str(tmp_path), images.read_image)) == len(fx.DBFIS_CARD)
@@ -290,6 +291,7 @@ def test_port_matches_the_fixtures(tmp_path):
     assert len(fx.check_imips_card(str(tmp_path), images.read_image)) == len(fx.IMIPS_CARD)
     assert len(fx.check_lzo_card(str(tmp_path), images.read_image)) == len(fx.LZO_CARD)
     assert len(fx.check_j2k_card(images.read_image)) == len(fx.J2K_CARD)
+    assert len(fx.check_avif_card(images.read_image)) == len(fx.AVIF_CARD)
 
 
 # --- failures ---------------------------------------------------------------
@@ -389,7 +391,7 @@ def test_eight_threads_equal_one(tmp_path):
     give what one thread gives, and the encoder likewise."""
     paths = [os.path.join(fx.FIXTURES, n) for n in sorted(os.listdir(fx.FIXTURES))
              if n not in ("manifest.json", fx.WEBP, fx.KINDS, fx.PILLOW, fx.GIF_TIFF, fx.ICO_PNM_TGA, fx.RASTER,
-                          fx.DBFIS, fx.LEGACY, fx.IMIPS, fx.LZO, fx.J2K)]
+                          fx.DBFIS, fx.LEGACY, fx.IMIPS, fx.LZO, fx.J2K, fx.AVIF)]
     big = fx.source_image(9, 200, 160)
     for i, kw in enumerate((dict(), dict(progressive=True), dict(restart_marker_blocks=3))):
         paths.append(_write(tmp_path, f"big{i}.jpg", _jpeg(big, quality=85, **kw)))

@@ -248,14 +248,14 @@ def test_many_seeded_files_match_pillow(tmp_path, fmt):
 
 
 @pytest.mark.parametrize("fmt,data", [
-    ("AVIF", b"\0\0\0\x1cftypavif" + bytes(60)),
     ("MPEG", b"\0\0\1\xb3\x0a\x00\x78\x13" + bytes(60)),
 ])
 def test_formats_still_in_the_queue_are_refused_by_name(tmp_path, fmt, data):
-    """The formats of fault 7's queue item 4 that ``sniff`` names, and
-    MPEG, which Pillow identifies and cannot load: each refused by name (the
+    """MPEG, which Pillow identifies and cannot load, refused by name (the
     queue's XBM, XPM, MSP and FITS are read since, ``test_torch_port_legacy_rasters.py``,
-    and JPEG 2000, ``test_torch_port_jpeg2000.py``)."""
+    JPEG 2000, ``test_torch_port_jpeg2000.py``, and AVIF, ``test_torch_port_avif.py``,
+    which holds the AVIF case this test had, an ftyp box and no meta, to
+    Pillow's verdict)."""
     path = _write(tmp_path, "q.png", data)
     with pytest.raises(OSError, match=re.escape(path) + f": {fmt} files are not read by the PyTorch port"):
         images.read_image(path)
