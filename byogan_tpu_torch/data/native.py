@@ -44,7 +44,7 @@ import numpy as np
 
 from byogan_tpu_torch.native import build as native_build
 
-ABI_VERSION = 16
+ABI_VERSION = 17
 #: the JAX package's lanes, where they part (``native/codec.h``'s Lane):
 #: "native", its libpng lane (its loader), and "pillow", its Pillow lane
 #: (its prep and cli.project); only 16-bit gray PNGs decode otherwise
@@ -141,22 +141,21 @@ ERRORS = {
          "components, an ICC or unknown colour space, subsampled gray, a palette of gray...; Pillow: broken data "
          "stream when reading image file)",
     -70: "an AV1 stream dav1d refuses, or one cut short or damaged (libavif: Failed to decode image)",
-    -71: "AVIF 10- or 12-bit samples, which the PyTorch port does not read",
     -72: "AVIF film grain (film_grain_params_present, apply_grain), which the PyTorch port does not read",
-    -73: "AVIF intra block copy (allow_intrabc), which the PyTorch port does not read",
     -74: "AVIF quantizer matrices (using_qmatrix), which the PyTorch port does not read",
     -75: "AVIF superresolution (use_superres), which the PyTorch port does not read",
     -76: "AVIF layered image (spatial layers in the AV1 operating points), which the PyTorch port does not read",
     -77: "AVIF stream whose first frame is not a key or intra-only frame, which the PyTorch port does not read",
     -78: "AVIF frame of another size than its item's 'ispe', which libavif scales to that size and the PyTorch "
          "port does not read",
-    -79: "the identity matrix with subsampled chroma, or a matrix libavif does not know (3, 10, 11, 13, 14, 16 and "
-         "above), which libavif does not convert (libavif: Reformat failed)",
+    -79: "the identity matrix with subsampled chroma, YCgCo of limited range, or a matrix libavif does not know (3, "
+         "10, 11, 13, 14, 16 and above), which libavif does not convert (libavif: Reformat failed)",
     -80: "AVIF colour conversion of libavif's float bilinear chroma path (YCgCo or another matrix than BT.601, "
          "BT.709 and BT.2020 in subsampled chroma), of YCgCo-Re or of a chroma-derived matrix of other primaries, which "
          "the PyTorch port does not read",
     -81: "AVIF alpha plane of another size than its image, which libavif scales to that size and the PyTorch port "
          "does not read",
+    -82: "AVIF alpha plane of another bit depth than its image (libavif: Decoding of alpha plane failed)",
 }
 
 _P = ctypes.c_void_p
@@ -463,11 +462,12 @@ def decode_jpeg2000(data: bytes, name: str, mode: str, w: int, h: int) -> np.nda
 
 
 #: the AVIF kinds the port refuses by name (ROADMAP §3 fault 7's AVIF queue)
-AVIF_REFUSED = (-71, -72, -73, -74, -75, -76, -77, -78, -80, -81)
+AVIF_REFUSED = (-72, -74, -75, -76, -77, -78, -80, -81)
 #: the fields of ``native/av1.h``'s Counts, in order, and their lengths
 AV1_COUNTS = (("partition", 10), ("y_mode", 13), ("uv_mode", 14), ("filter_intra_mode", 5), ("palette_y", 9),
               ("palette_uv", 9), ("tx_size", 19), ("tx_type", 16), ("cdef_on", 1), ("cdef_off", 1), ("lr_type", 4),
-              ("lossless", 1), ("superblock128", 1), ("tiles", 1))
+              ("lossless", 1), ("superblock128", 1), ("tiles", 1), ("use_intrabc", 2), ("mv_joint", 4),
+              ("mv_class", 11), ("txfm_split", 3), ("inter_tx_type", 16), ("bit_depth", 12))
 
 
 def decode_avif(color: bytes, alpha: Optional[bytes], name: str, w: int, h: int,
@@ -502,20 +502,23 @@ def decode_avif(color: bytes, alpha: Optional[bytes], name: str, w: int, h: int,
 
 
 def av1_planes(obus: bytes, name: str = "AV1") -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-    """An AV1 stream's Y, U and V planes (uint8, U and V None in 4:0:0) as
-    the port's AV1 decoder makes them (``native/av1_*.cpp``), before any
-    colour conversion: what the tests hold to libdav1d's planes."""
-    info = (ctypes.c_int32 * 5)()
+    """An AV1 stream's Y, U and V planes (uint8, or uint16 of 10- or 12-bit
+    samples; U and V None in 4:0:0) as the port's AV1 decoder makes them
+    (``native/av1_*.cpp``), before any colour conversion: what the tests
+    hold to libdav1d's planes."""
+    info = (ctypes.c_int32 * 6)()
     cap = max(1 << 16, 64 * len(obus))
     while True:
         bufs = [np.empty(cap, np.uint8) for _ in range(3)]
         rc = load_library().byogan_decode_av1(obus, len(obus), info, *(b.ctypes.data for b in bufs), cap)
         if rc != -5:
             break
-        cap = 3 * info[0] * info[1]
+        cap = 6 * info[0] * info[1]
     if rc != 0:
         raise _failed(name, "AV1 decode", rc)
-    w, h, sx, sy, mono = info
+    w, h, sx, sy, mono, depth = info
+    if depth > 8:
+        bufs = [b.view(np.uint16) for b in bufs]
     y = bufs[0][:w * h].reshape(h, w)
     if mono:
         return y, None, None

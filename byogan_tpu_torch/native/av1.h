@@ -1,7 +1,8 @@
 // What the AV1 intra decoder's files share.  The decoder reads the still
-// frame of an AVIF item (a key frame, or an intra-only frame) as the AV1
-// Bitstream & Decoding Process Specification decodes it, 8-bit samples in
-// 4:2:0, 4:2:2, 4:4:4 or 4:0:0:
+// frame of an AVIF item (a key frame, or an intra-only frame, intra block
+// copy among its tools) as the AV1 Bitstream & Decoding Process
+// Specification decodes it, samples of 8, 10 or 12 bits in 4:2:0, 4:2:2,
+// 4:4:4 or 4:0:0:
 //
 //   av1_obu.cpp      OBUs, the sequence header, the frame header, tile info,
 //                    the tile groups and the decode's entry
@@ -9,6 +10,8 @@
 //   av1_cdfs.cpp     the default CDFs
 //   av1_tables.cpp   the other constants
 //   av1_modes.cpp    partitions and intra mode info, palette colours and maps
+//   av1_intrabc.cpp  intra block copy: the vector stack, the vector and the
+//                    block's copy (spec 7.10.2, 5.11.32, 7.11.3)
 //   av1_coefs.cpp    transform sizes and types, coefficients, dequantization
 //                    and reconstruction
 //   av1_intra.cpp    intra prediction (spec 7.11.2), CfL and palette
@@ -33,9 +36,7 @@ namespace av1 {
 // Why a stream is not decoded (codec.h's kAvif* codes).
 enum Fault {
   kFaultBroken = 1,     // a stream dav1d refuses, or cut short
-  kFaultDepth,          // samples of 10 or 12 bits
   kFaultFilmGrain,      // film grain parameters
-  kFaultIntrabc,        // a frame that allows intra block copy
   kFaultQmatrix,        // quantizer matrices
   kFaultSuperres,       // a superresolved frame
   kFaultLayers,         // spatial layers (operating points of more than one layer)
@@ -89,8 +90,8 @@ extern const uint8_t kTxSizeSqrUp[TX_SIZES_ALL];
 extern const uint8_t kSplitTxSize[TX_SIZES_ALL];
 extern const uint8_t kAdjustedTxSize[TX_SIZES_ALL];
 extern const uint8_t kTransformRowShift[TX_SIZES_ALL];
-extern const int16_t kDcQLookup[256];
-extern const int16_t kAcQLookup[256];
+extern const int16_t kDcQLookup[3][256];          // by (BitDepth - 8) / 2
+extern const int16_t kAcQLookup[3][256];
 extern const uint8_t kModeToAngle[13];
 extern const int16_t kDrIntraDerivative[90];
 extern const uint8_t kSmWeights[128];                // the weights of size n at [n .. 2n)
@@ -159,6 +160,15 @@ extern const uint16_t kDcSign[4][2][3][3];
 extern const uint16_t kCoeffBaseEob[4][5][2][4][4];
 extern const uint16_t kCoeffBase[4][5][2][42][5];
 extern const uint16_t kCoeffBr[4][5][2][21][5];
+extern const uint16_t kMvJoint[5];
+extern const uint16_t kMvClass[12];
+extern const uint16_t kMvClass0Bit[3];
+extern const uint16_t kMvBit[10][3];
+extern const uint16_t kMvSign[3];
+extern const uint16_t kTxfmSplit[21][3];
+extern const uint16_t kInterTxSet1[2][17];
+extern const uint16_t kInterTxSet2[13];
+extern const uint16_t kInterTxSet3[4][3];
 
 // The CDFs a tile adapts, initialised from the defaults (spec 7.20's
 // init_non_coeff_cdfs and init_coeff_cdfs).
@@ -209,6 +219,18 @@ struct Cdfs {
   uint16_t coeffBaseEob[5][2][4][4];
   uint16_t coeffBase[5][2][42][5];
   uint16_t coeffBr[5][2][21][5];
+  // Intra block copy: use_intrabc, the vector (MV_INTRABC_CONTEXT's CDFs,
+  // [comp] the row's and the column's), txfm_split, the inter transform sets.
+  uint16_t intrabc[3];
+  uint16_t mvJoint[5];
+  uint16_t mvClass[2][12];
+  uint16_t mvClass0Bit[2][3];
+  uint16_t mvBit[2][10][3];
+  uint16_t mvSign[2][3];
+  uint16_t txfmSplit[21][3];
+  uint16_t interTxSet1[2][17];
+  uint16_t interTxSet2[13];
+  uint16_t interTxSet3[4][3];
 
   void init(int base_q_idx);
 };
@@ -248,6 +270,12 @@ struct Counts {
   int32_t lossless;
   int32_t superblock128;
   int32_t tiles;
+  int32_t useIntrabc[2];         // blocks of a frame that allows intra block copy, by use_intrabc
+  int32_t mvJoint[4];            // intra block copy vectors by mv_joint
+  int32_t mvClass[11];           // their components by mv_class
+  int32_t txfmSplit[3];          // variable transform sizes by their depth in the txfm_split tree
+  int32_t interTxType[16];       // luma transform blocks of intra block copy by type
+  int32_t bitDepth[3][4];        // frames by (BitDepth - 8) / 2 and 4:2:0, 4:2:2, 4:4:4, 4:0:0
 };
 
 struct SequenceHeader {
@@ -311,12 +339,14 @@ struct FrameHeader {
   int txModeSelect = 0, reducedTxSet = 0;
 };
 
-// One decoded frame: 8-bit planes of the frame's size (chroma subsampled).
+// One decoded frame: planes of the frame's size (chroma subsampled), of
+// 8-bit samples in plane, of 10 or 12 in plane16.
 struct Planes {
-  int width = 0, height = 0;
+  int width = 0, height = 0, bitDepth = 8;
   int subX = 1, subY = 1, mono = 0;
   int colorRange = 0, colorPrimaries = 2, transferCharacteristics = 2, matrixCoefficients = 2;
   std::vector<uint8_t> plane[3];
+  std::vector<uint16_t> plane16[3];
   int stride[3] = {0, 0, 0};
   int planeWidth[3] = {0, 0, 0}, planeHeight[3] = {0, 0, 0};
 };

@@ -1,7 +1,8 @@
 // CDEF (AV1 specification 7.15): each 8x8 block not skipped whole, in each
 // 64x64 unit with a strength index, finds its direction and variance on the
 // deblocked luma (7.15.2) and is filtered with the primary and secondary
-// taps and their damping (7.15.3), reading the deblocked frame.
+// taps and their damping (7.15.3), reading the deblocked frame; strengths
+// and damping scaled by coeff_shift (BitDepth - 8).
 
 #include <algorithm>
 #include <climits>
@@ -25,7 +26,8 @@ inline int constrain(int diff, int threshold, int dampingAdj) {
 
 }  // namespace
 
-void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
+template <typename Pixel>
+void Decoder<Pixel>::cdef_frame(std::vector<Pixel> (&pre)[3]) {
   const FrameHeader& h = fh;
   // The deblocked planes with a border of 2 (the taps' reach) marked
   // unavailable, as is_inside_filter_region marks what lies outside the
@@ -39,11 +41,12 @@ void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
     pstride[p] = w + 4;
     padded[p].assign((size_t)(hgt + 4) * pstride[p], kNone);
     for (int y = 0; y < hgt; y++) {
-      const uint8_t* src = &pre[p][(size_t)y * stride[p]];
+      const Pixel* src = &pre[p][(size_t)y * stride[p]];
       int16_t* dst = &padded[p][(size_t)(y + 2) * pstride[p] + 2];
       for (int x = 0; x < w; x++) dst[x] = src[x];
     }
   }
+  const int coeffShift = depth_shift();
   for (int fbr = 0; fbr < h.miRows; fbr += 16) {
     for (int fbc = 0; fbc < h.miCols; fbc += 16) {
       int idx = cdefIdx[(fbr >> 4) * cdefStride + (fbc >> 4)];
@@ -58,7 +61,7 @@ void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
           for (int i = 0; i < 8; i++) {
             const int16_t* row = &padded[0][(size_t)(y0 + i + 2) * pstride[0] + x0 + 2];
             for (int j = 0; j < 8; j++) {
-              int x = row[j] - 128;
+              int x = (row[j] >> coeffShift) - 128;
               partial[0][i + j] += x;
               partial[1][i + j / 2] += x;
               partial[2][i] += x;
@@ -103,8 +106,9 @@ void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
             int ps = pstride[plane];
             int priAdj = priStr ? std::max(0, damping - floor_log2(priStr)) : 0;
             int secAdj = secStr ? std::max(0, damping - floor_log2(secStr)) : 0;
-            int priTaps[2] = {kCdefPriTaps[priStr & 1][0], kCdefPriTaps[priStr & 1][1]};
-            int secTaps[2] = {kCdefSecTaps[priStr & 1][0], kCdefSecTaps[priStr & 1][1]};
+            int t = (priStr >> coeffShift) & 1;
+            int priTaps[2] = {kCdefPriTaps[t][0], kCdefPriTaps[t][1]};
+            int secTaps[2] = {kCdefSecTaps[t][0], kCdefSecTaps[t][1]};
             // The 12 taps: the primary direction's 4, then dir + 2's and
             // dir - 2's 8, each with its weight, threshold and damping.
             ptrdiff_t off[12];
@@ -122,7 +126,7 @@ void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
             }
             for (int i = 0; i < hh; i++) {
               const int16_t* src = &padded[plane][(size_t)(py0 + i + 2) * ps + px0 + 2];
-              uint8_t* dst = &px(plane, py0 + i, px0);
+              Pixel* dst = &px(plane, py0 + i, px0);
               for (int j = 0; j < w; j++) {
                 const int16_t* q = src + j;
                 int x = *q;
@@ -135,26 +139,30 @@ void Decoder::cdef_frame(std::vector<uint8_t> (&pre)[3]) {
                   mx = std::max(p, mx);
                   mn = (unsigned)p < (unsigned)mn ? p : mn;
                 }
-                dst[j] = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+                dst[j] = (Pixel)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
               }
             }
           };
-          int priStr = h.cdefYPri[idx], secStr = h.cdefYSec[idx];
+          int priStr = h.cdefYPri[idx] << coeffShift, secStr = h.cdefYSec[idx] << coeffShift;
           int dir = priStr == 0 ? 0 : yDir;
           int varStr = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
           priStr = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
-          filter(0, priStr, secStr, h.cdefDamping, dir);
+          int damping = h.cdefDamping + coeffShift;
+          filter(0, priStr, secStr, damping, dir);
           if (numPlanes == 1) continue;
-          priStr = h.cdefUvPri[idx];
-          secStr = h.cdefUvSec[idx];
+          priStr = h.cdefUvPri[idx] << coeffShift;
+          secStr = h.cdefUvSec[idx] << coeffShift;
           dir = priStr == 0 ? 0 : kCdefUvDir[subX][subY][yDir];
-          filter(1, priStr, secStr, h.cdefDamping - 1, dir);
-          filter(2, priStr, secStr, h.cdefDamping - 1, dir);
+          filter(1, priStr, secStr, damping - 1, dir);
+          filter(2, priStr, secStr, damping - 1, dir);
         }
       }
     }
   }
 }
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

@@ -1,7 +1,8 @@
 // The loop filter (AV1 specification 7.14): every vertical edge of a plane,
 // then every horizontal one, at each transform edge; levels per plane and
 // direction with the segment's and the delta's adjustments, sharpness, the
-// intra reference delta; the 4-, 6-, 8- and 14-tap filters.
+// intra reference delta; the 4-, 6-, 8- and 14-tap filters, their limits
+// and the narrow filter's range scaled to BitDepth.
 
 #include <algorithm>
 
@@ -12,15 +13,14 @@ namespace av1 {
 
 namespace {
 
-inline int c8(int v) { return clip3(-128, 127, v); }
-
 struct Strength {
   int lvl, limit, blimit, thresh;
 };
 
 }  // namespace
 
-void Decoder::loop_filter_frame() {
+template <typename Pixel>
+void Decoder<Pixel>::loop_filter_frame() {
   const FrameHeader& h = fh;
   if (!h.loopFilterLevel[0] && !h.loopFilterLevel[1]) return;
   auto strength = [&](int row, int col, int plane, int pass) {
@@ -46,6 +46,10 @@ void Decoder::loop_filter_frame() {
     s.thresh = s.lvl >> 4;
     return s;
   };
+  const int shift = depth_shift();
+  const int half = 128 << shift, flatThresh = 1 << shift;
+  // filter4_clamp: the signed range of BitDepth bits.
+  auto c8 = [half](int v) { return clip3(-half, half - 1, v); };
   for (int plane = 0; plane < numPlanes; plane++) {
     if (plane > 0 && !h.loopFilterLevel[1 + plane]) continue;
     int sx = plane ? subX : 0, sy = plane ? subY : 0;
@@ -72,50 +76,51 @@ void Decoder::loop_filter_frame() {
           Strength s = strength(row, col, plane, pass);
           if (s.lvl == 0) s = strength(prevRow, prevCol, plane, pass);
           if (s.lvl == 0) continue;
+          int limit = s.limit << shift, blimit = s.blimit << shift, thresh = s.thresh << shift;
           for (int i = 0; i < 4; i++) {
             int px0 = xP + dy * i, py0 = yP + dx * i;
-            uint8_t* q = &cur[plane][(size_t)py0 * st + px0];
+            Pixel* q = &cur[plane][(size_t)py0 * st + px0];
             ptrdiff_t step = dx ? 1 : st;
-            auto P = [&](int k) -> uint8_t& { return q[-(k + 1) * step]; };
-            auto Q = [&](int k) -> uint8_t& { return q[k * step]; };
+            auto P = [&](int k) -> Pixel& { return q[-(k + 1) * step]; };
+            auto Q = [&](int k) -> Pixel& { return q[k * step]; };
             int p0 = P(0), p1 = P(1), q0 = Q(0), q1 = Q(1);
-            int hev = std::abs(p1 - p0) > s.thresh || std::abs(q1 - q0) > s.thresh;
-            int mask = std::abs(p1 - p0) <= s.limit && std::abs(q1 - q0) <= s.limit &&
-                       std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 <= s.blimit;
+            int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+            int mask = std::abs(p1 - p0) <= limit && std::abs(q1 - q0) <= limit &&
+                       std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 <= blimit;
             int p2 = 0, q2 = 0, p3 = 0, q3 = 0;
             int flat = 0, flat2 = 0;
             if (filterSize >= 6) {
               p2 = P(2);
               q2 = Q(2);
-              mask = mask && std::abs(p2 - p1) <= s.limit && std::abs(q2 - q1) <= s.limit;
-              flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
-                     std::abs(q2 - q0) <= 1;
+              mask = mask && std::abs(p2 - p1) <= limit && std::abs(q2 - q1) <= limit;
+              flat = std::abs(p1 - p0) <= flatThresh && std::abs(q1 - q0) <= flatThresh &&
+                     std::abs(p2 - p0) <= flatThresh && std::abs(q2 - q0) <= flatThresh;
             }
             if (filterSize >= 8) {
               p3 = P(3);
               q3 = Q(3);
-              mask = mask && std::abs(p3 - p2) <= s.limit && std::abs(q3 - q2) <= s.limit;
-              flat = flat && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+              mask = mask && std::abs(p3 - p2) <= limit && std::abs(q3 - q2) <= limit;
+              flat = flat && std::abs(p3 - p0) <= flatThresh && std::abs(q3 - q0) <= flatThresh;
             }
             if (!mask) continue;
             if (filterSize == 16) {
               flat2 = 1;
               for (int k = 4; k <= 6; k++)
-                flat2 = flat2 && std::abs(P(k) - p0) <= 1 && std::abs(Q(k) - q0) <= 1;
+                flat2 = flat2 && std::abs(P(k) - p0) <= flatThresh && std::abs(Q(k) - q0) <= flatThresh;
             }
             if (filterSize == 4 || !flat) {
               // narrow filter
-              int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+              int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half, qs1 = q1 - half;
               int filter = hev ? c8(ps1 - qs1) : 0;
               filter = c8(filter + 3 * (qs0 - ps0));
               int filter1 = c8(filter + 4) >> 3;
               int filter2 = c8(filter + 3) >> 3;
-              Q(0) = (uint8_t)(c8(qs0 - filter1) + 128);
-              P(0) = (uint8_t)(c8(ps0 + filter2) + 128);
+              Q(0) = (Pixel)(c8(qs0 - filter1) + half);
+              P(0) = (Pixel)(c8(ps0 + filter2) + half);
               if (!hev) {
                 filter = round2(filter1, 1);
-                Q(1) = (uint8_t)(c8(qs1 - filter) + 128);
-                P(1) = (uint8_t)(c8(ps1 + filter) + 128);
+                Q(1) = (Pixel)(c8(qs1 - filter) + half);
+                P(1) = (Pixel)(c8(ps1 + filter) + half);
               }
             } else {
               int log2Size = (filterSize == 16 && flat2) ? 4 : 3;
@@ -134,9 +139,9 @@ void Decoder::loop_filter_frame() {
               }
               for (int k = -n; k < n; k++) {
                 if (k < 0)
-                  P(-k - 1) = (uint8_t)F2[k + 8];
+                  P(-k - 1) = (Pixel)F2[k + 8];
                 else
-                  Q(k) = (uint8_t)F2[k + 8];
+                  Q(k) = (Pixel)F2[k + 8];
               }
             }
           }
@@ -145,6 +150,9 @@ void Decoder::loop_filter_frame() {
     }
   }
 }
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

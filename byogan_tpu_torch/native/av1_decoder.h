@@ -1,6 +1,8 @@
 // The AV1 decoder's state across its files: the headers, the frame being
 // reconstructed (the specification's CurrFrame), the per-4x4 arrays the
 // contexts, the loop filter and CDEF read, and the block being decoded.
+// Decoder<uint8_t> decodes 8-bit samples, Decoder<uint16_t> 10- and 12-bit
+// ones; each file instantiates both (its members, which it defines).
 
 #pragma once
 
@@ -19,22 +21,34 @@ inline int block_h4(int bs) { return 1 << kBlockHeightLog2[bs]; }
 inline int tx_w(int t) { return 1 << kTxWidthLog2[t]; }
 inline int tx_h(int t) { return 1 << kTxHeightLog2[t]; }
 
+template <typename Pixel>
 struct Decoder {
   SequenceHeader seq;
   FrameHeader fh;
   Counts* counts = nullptr;
   int numPlanes = 3, subX = 1, subY = 1;
+  int bitDepth = 8;
+  // Clip1's bound, and BitDepth - 8: constants of 8-bit samples.
+  int pixel_max() const { return sizeof(Pixel) == 1 ? 255 : (1 << bitDepth) - 1; }
+  int depth_shift() const { return sizeof(Pixel) == 1 ? 0 : bitDepth - 8; }
 
   // CurrFrame: plane p at cur[p][y * stride[p] + x], allocated to whole
   // superblocks.
-  std::vector<uint8_t> cur[3];
+  std::vector<Pixel> cur[3];
   int stride[3] = {0, 0, 0}, allocH[3] = {0, 0, 0};
-  uint8_t& px(int p, int y, int x) { return cur[p][(size_t)y * stride[p] + x]; }
+  Pixel& px(int p, int y, int x) { return cur[p][(size_t)y * stride[p] + x]; }
 
   // Per 4x4 (mi) arrays over the allocated frame, miStride a row.
   int miStride = 0, miRowsAlloc = 0;
-  std::vector<uint8_t> yModes, uvModes, skips, txSizesMi, miSizes, segmentIds, paletteSizes[2];
-  std::vector<uint8_t> paletteColors[2];  // 8 a mi
+  std::vector<uint8_t> yModes, uvModes, skips, miSizes, segmentIds, paletteSizes[2];
+  std::vector<Pixel> paletteColors[2];  // 8 a mi
+  // kNotDecoded, kIntra or kIntrabc (the RefFrames and IsInters of a frame
+  // that allows intra block copy; kNotDecoded throughout one that does
+  // not); the vectors of intra block copy (Mvs: row, column in eighths of
+  // a sample); InterTxSizes.
+  enum { kNotDecoded, kIntra, kIntrabc };
+  std::vector<uint8_t> blockKinds, interTxSizes;
+  std::vector<int32_t> mvs;  // 2 a mi
   std::vector<int8_t> deltaLFs;           // 4 a mi
   std::vector<uint8_t> lfTxSizes[3];      // transform size a 4x4 of each plane (in that plane's units)
   std::vector<int8_t> cdefIdx;            // a 64x64 unit
@@ -62,17 +76,19 @@ struct Decoder {
   int miRow = 0, miCol = 0, miSize = 0;
   int hasChroma = 0, availU = 0, availL = 0, availUChroma = 0, availLChroma = 0;
   int skip = 0, segmentId = 0, lossless = 0;
+  int useIntrabc = 0, mv[2] = {0, 0};
   int yMode = 0, uvMode = 0, angleDeltaY = 0, angleDeltaUV = 0;
   int useFilterIntra = 0, filterIntraMode = 0;
   int cflAlphaU = 0, cflAlphaV = 0;
   int paletteSizeY = 0, paletteSizeUV = 0;
-  uint8_t paletteColorsY[8] = {0}, paletteColorsU[8] = {0}, paletteColorsV[8] = {0};
+  Pixel paletteColorsY[8] = {0}, paletteColorsU[8] = {0}, paletteColorsV[8] = {0};
   uint8_t colorMapY[64][64];
   uint8_t colorMapUV[64][64];
   int txSize = 0;
   int maxLumaW = 0, maxLumaH = 0;
   uint8_t blockDecoded[3][35][35];  // [plane][y + 1][x + 1]
   int planeTxType = 0;
+  uint8_t txTypes[32][32];  // an intra block copy block's TxTypes of its luma 4x4s, [y4 - miRow][x4 - miCol]
   int32_t quant[1024];
   int32_t dequant[32][32];
 
@@ -82,6 +98,7 @@ struct Decoder {
   void decode_partition(int r, int c, int bSize);
   void decode_block(int r, int c, int subSize);
   void intra_frame_mode_info();
+  void palette_mode_info();
   void read_cdef();
   void read_lr(int r, int c, int bSize);
   void palette_tokens();
@@ -90,8 +107,17 @@ struct Decoder {
   }
   int mi(int r, int c) const { return r * miStride + c; }
   int get_qindex(int ignoreDeltaQ, int segId) const;
+  // av1_intrabc.cpp
+  void intrabc_mode_info();
+  int read_mv_component(int comp);
+  void predict_inter(int plane, int baseX, int baseY, int w, int h);
   // av1_coefs.cpp
   void read_block_tx_size();
+  void read_tx_depth();
+  void read_var_tx_size(int row, int col, int txSz, int depth);
+  int above_tx_width(int row, int col);
+  int left_tx_height(int row, int col);
+  void transform_tree(int startX, int startY, int w, int h);
   void reset_block_context(int bw4, int bh4);
   void residual();
   void transform_block(int plane, int baseX, int baseY, int txSz, int x, int y);
@@ -104,8 +130,8 @@ struct Decoder {
   void predict_palette(int plane, int startX, int startY, int x, int y, int txSz);
   // av1_deblock.cpp, av1_cdef.cpp, av1_lr.cpp
   void loop_filter_frame();
-  void cdef_frame(std::vector<uint8_t> (&pre)[3]);
-  void lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t> (&cdefed)[3]);
+  void cdef_frame(std::vector<Pixel> (&pre)[3]);
+  void lr_frame(std::vector<Pixel> (&deblocked)[3], std::vector<Pixel> (&cdefed)[3]);
 };
 
 // The residual size of a block in plane `plane` (subsampling sx, sy): the
@@ -114,8 +140,10 @@ struct Decoder {
 int get_plane_residual_size(int bs, int plane, int sx, int sy);
 
 // av1_itx.cpp: the 2D inverse transform of `coefs` (h x w, only the top
-// left 32x32 non-zero) into residual (h x w), spec 7.13.3.
-void inverse_transform_2d(const int32_t (*coefs)[32], int txSz, int txType, int lossless, int32_t* residual);
+// left 32x32 non-zero) into residual (h x w), spec 7.13.3, its intermediate
+// clamps of BitDepth.
+void inverse_transform_2d(const int32_t (*coefs)[32], int txSz, int txType, int lossless, int bitDepth,
+                          int32_t* residual);
 
 }  // namespace av1
 }  // namespace byogan

@@ -1,5 +1,5 @@
 // Intra prediction (AV1 specification 7.11.2): the edges with their
-// availability at tile and frame borders, the directional modes with the
+// availability at tile and frame borders (the base values of BitDepth), the directional modes with the
 // intra edge filter and upsampling, DC, the three smooth modes, Paeth,
 // recursive filter intra; chroma from luma (7.11.5) and palette (7.11.4).
 
@@ -71,7 +71,7 @@ void edge_filter(int* buf, int sz, int strength) {
   }
 }
 
-void edge_upsample(int* buf, int numPx) {
+void edge_upsample(int* buf, int numPx, int maxV) {
   int dup[300];
   dup[0] = buf[-1];
   for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
@@ -79,7 +79,7 @@ void edge_upsample(int* buf, int numPx) {
   buf[-2] = dup[0];
   for (int i = 0; i < numPx; i++) {
     int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-    s = clip3(0, 255, round2(s, 4));
+    s = clip3(0, maxV, round2(s, 4));
     buf[2 * i - 1] = s;
     buf[2 * i] = dup[i + 2];
   }
@@ -87,11 +87,13 @@ void edge_upsample(int* buf, int numPx) {
 
 }  // namespace
 
-void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove, int haveAboveRt, int haveBelowLft,
+template <typename Pixel>
+void Decoder<Pixel>::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove, int haveAboveRt, int haveBelowLft,
                             int mode, int log2W, int log2H) {
   int w = 1 << log2W, h = 1 << log2H;
   int sx = plane ? subX : 0, sy = plane ? subY : 0;
   int maxX = ((fh.miCols * 4) >> sx) - 1, maxY = ((fh.miRows * 4) >> sy) - 1;
+  int maxV = pixel_max(), base = (maxV + 1) >> 1;
   int aboveBuf[320], leftBuf[320];
   int* aboveRow = aboveBuf + 16;
   int* leftCol = leftBuf + 16;
@@ -100,17 +102,17 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
     int v = px(plane, y, x - 1);
     for (int i = 0; i < n; i++) aboveRow[i] = v;
   } else if (!haveAbove && !haveLeft) {
-    for (int i = 0; i < n; i++) aboveRow[i] = 127;
+    for (int i = 0; i < n; i++) aboveRow[i] = base - 1;
   } else {
     int aboveLimit = std::min(maxX, x + (haveAboveRt ? 2 * w : w) - 1);
-    const uint8_t* src = &px(plane, y - 1, 0);
+    const Pixel* src = &px(plane, y - 1, 0);
     for (int i = 0; i < n; i++) aboveRow[i] = src[std::min(aboveLimit, x + i)];
   }
   if (!haveLeft && haveAbove) {
     int v = px(plane, y - 1, x);
     for (int i = 0; i < n; i++) leftCol[i] = v;
   } else if (!haveLeft && !haveAbove) {
-    for (int i = 0; i < n; i++) leftCol[i] = 129;
+    for (int i = 0; i < n; i++) leftCol[i] = base + 1;
   } else {
     int leftLimit = std::min(maxY, y + (haveBelowLft ? 2 * h : h) - 1);
     for (int i = 0; i < n; i++) leftCol[i] = px(plane, std::min(leftLimit, y + i), x - 1);
@@ -122,7 +124,7 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
   else if (haveLeft)
     aboveRow[-1] = px(plane, y, x - 1);
   else
-    aboveRow[-1] = 128;
+    aboveRow[-1] = base;
   leftCol[-1] = aboveRow[-1];
 
   static thread_local int pred[64][64];
@@ -149,7 +151,7 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
         for (int i = 0; i < 8; i++) {
           int pr = 0;
           for (int j = 0; j < 7; j++) pr += kFilterIntraTaps[filterIntraMode][i][j] * p[j];
-          pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip3(0, 255, round2signed(pr, 4));
+          pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip3(0, maxV, round2signed(pr, 4));
         }
       }
     }
@@ -194,10 +196,10 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
         }
         upsampleAbove = use_upsample(w, h, filterType, pAngle - 90);
         int numPx = w + (pAngle < 90 ? h : 0);
-        if (upsampleAbove) edge_upsample(aboveRow, numPx);
+        if (upsampleAbove) edge_upsample(aboveRow, numPx, maxV);
         upsampleLeft = use_upsample(w, h, filterType, pAngle - 180);
         numPx = h + (pAngle > 180 ? w : 0);
-        if (upsampleLeft) edge_upsample(leftCol, numPx);
+        if (upsampleLeft) edge_upsample(leftCol, numPx, maxV);
       }
     }
     int dx = 0, dy = 0;
@@ -273,13 +275,13 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
     } else if (haveLeft) {
       int sum = 0;
       for (int k = 0; k < h; k++) sum += leftCol[k];
-      avg = clip3(0, 255, (sum + (h >> 1)) >> log2H);
+      avg = clip3(0, maxV, (sum + (h >> 1)) >> log2H);
     } else if (haveAbove) {
       int sum = 0;
       for (int k = 0; k < w; k++) sum += aboveRow[k];
-      avg = clip3(0, 255, (sum + (w >> 1)) >> log2W);
+      avg = clip3(0, maxV, (sum + (w >> 1)) >> log2W);
     } else {
-      avg = 128;
+      avg = base;
     }
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) pred[i][j] = avg;
@@ -300,12 +302,13 @@ void Decoder::predict_intra(int plane, int x, int y, int haveLeft, int haveAbove
     }
   }
   for (int i = 0; i < h; i++) {
-    uint8_t* dst = &px(plane, y + i, x);
-    for (int j = 0; j < w; j++) dst[j] = (uint8_t)pred[i][j];
+    Pixel* dst = &px(plane, y + i, x);
+    for (int j = 0; j < w; j++) dst[j] = (Pixel)pred[i][j];
   }
 }
 
-void Decoder::predict_cfl(int plane, int startX, int startY, int txSz) {
+template <typename Pixel>
+void Decoder<Pixel>::predict_cfl(int plane, int startX, int startY, int txSz) {
   int w = tx_w(txSz), h = tx_h(txSz);
   int alpha = plane == 1 ? cflAlphaU : cflAlphaV;
   static thread_local int L[32][32];
@@ -323,26 +326,31 @@ void Decoder::predict_cfl(int plane, int startX, int startY, int txSz) {
     }
   }
   lumaAvg = round2(lumaAvg, kTxWidthLog2[txSz] + kTxHeightLog2[txSz]);
+  int maxV = pixel_max();
   for (int i = 0; i < h; i++) {
-    uint8_t* dst = &px(plane, startY + i, startX);
+    Pixel* dst = &px(plane, startY + i, startX);
     for (int j = 0; j < w; j++) {
       int scaledLuma = round2signed((int64_t)alpha * (L[i][j] - lumaAvg), 6);
-      dst[j] = (uint8_t)clip3(0, 255, dst[j] + scaledLuma);
+      dst[j] = (Pixel)clip3(0, maxV, dst[j] + scaledLuma);
     }
   }
 }
 
-void Decoder::predict_palette(int plane, int startX, int startY, int x, int y, int txSz) {
+template <typename Pixel>
+void Decoder<Pixel>::predict_palette(int plane, int startX, int startY, int x, int y, int txSz) {
   int w = tx_w(txSz), h = tx_h(txSz);
-  const uint8_t* palette = plane == 0 ? paletteColorsY : plane == 1 ? paletteColorsU : paletteColorsV;
+  const Pixel* palette = plane == 0 ? paletteColorsY : plane == 1 ? paletteColorsU : paletteColorsV;
   for (int i = 0; i < h; i++) {
-    uint8_t* dst = &px(plane, startY + i, startX);
+    Pixel* dst = &px(plane, startY + i, startX);
     for (int j = 0; j < w; j++) {
       int idx = plane == 0 ? colorMapY[y * 4 + i][x * 4 + j] : colorMapUV[y * 4 + i][x * 4 + j];
       dst[j] = palette[idx];
     }
   }
 }
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

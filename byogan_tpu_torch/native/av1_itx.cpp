@@ -246,12 +246,13 @@ void transform_1d(int32_t* T, int kind, int n, int r) {
 
 }  // namespace
 
-void inverse_transform_2d(const int32_t (*coefs)[32], int txSz, int txType, int lossless, int32_t* residual) {
+void inverse_transform_2d(const int32_t (*coefs)[32], int txSz, int txType, int lossless, int bitDepth,
+                          int32_t* residual) {
   int log2W = kTxWidthLog2[txSz], log2H = kTxHeightLog2[txSz];
   int w = 1 << log2W, h = 1 << log2H;
   int rowShift = lossless ? 0 : kTransformRowShift[txSz];
   int colShift = lossless ? 0 : 4;
-  int rowClampRange = 8 + 8, colClampRange = 16;
+  int rowClampRange = bitDepth + 8, colClampRange = std::max(bitDepth + 6, 16);
   int rowKind, colKind;
   switch (txType) {
     case DCT_DCT: case ADST_DCT: case FLIPADST_DCT: case H_DCT: rowKind = kDct; break;

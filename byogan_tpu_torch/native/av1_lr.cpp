@@ -1,6 +1,7 @@
 // Loop restoration (AV1 specification 7.17): each 4x4 block (in luma units)
-// of a plane with a restoration type takes its unit's Wiener or self-guided
-// filter; samples come from the CDEF output inside the block's 64-row
+// of a plane with a restoration type takes its unit's Wiener (12-bit
+// samples with their own rounding) or self-guided filter (its variance of
+// samples brought to 8 bits); samples come from the CDEF output inside the block's 64-row
 // stripe and from the deblocked frame within two rows outside it.  A
 // stripe's samples are gathered once, with summed-area tables of them and
 // of their squares for the self-guided filter's box sums.
@@ -12,8 +13,10 @@
 namespace byogan {
 namespace av1 {
 
-void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t> (&cdefed)[3]) {
+template <typename Pixel>
+void Decoder<Pixel>::lr_frame(std::vector<Pixel> (&deblocked)[3], std::vector<Pixel> (&cdefed)[3]) {
   const FrameHeader& h = fh;
+  const int maxV = pixel_max(), shift8 = depth_shift();
   for (int plane = 0; plane < numPlanes; plane++) {
     if (h.frameRestorationType[plane] == RESTORE_NONE) continue;
     int sx = plane ? subX : 0, sy = plane ? subY : 0;
@@ -22,8 +25,8 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
     int unitRows = lrUnitRows[plane], unitCols = lrUnitCols[plane];
     int planeEndX = ((h.upscaledWidth + sx) >> sx) - 1;
     int planeEndY = ((h.frameHeight + sy) >> sy) - 1;
-    const uint8_t* cdefP = cdefed[plane].data();
-    const uint8_t* curP = deblocked[plane].data();
+    const Pixel* cdefP = cdefed[plane].data();
+    const Pixel* curP = deblocked[plane].data();
     // One 64-row stripe (in luma rows, 8 above the frame's first) at a time:
     // its samples as get_source_sample reads them, 3 rows and 4 columns
     // around, and the running sums of those samples and their squares.
@@ -40,7 +43,7 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
       buf.assign((size_t)bw * bh, 0);
       for (int r = 0; r < bh; r++) {
         int y = std::max(0, std::min(planeEndY, by0 + r));
-        const uint8_t* src;
+        const Pixel* src;
         if (y < stripeStartY)
           src = curP + (size_t)std::max(stripeStartY - 2, y) * st;
         else if (y > stripeEndY)
@@ -95,23 +98,23 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
             }
             const int* vfilter = filter[0];
             const int* hfilter = filter[1];
-            const int round0 = 3, round1 = 11;
-            int offset = 1 << (8 + 7 - round0 - 1);
-            int limit = (1 << (8 + 1 + 7 - round0)) - 1;
+            const int round0 = bitDepth == 12 ? 5 : 3, round1 = bitDepth == 12 ? 9 : 11;
+            int offset = 1 << (bitDepth + 7 - round0 - 1);
+            int limit = (1 << (bitDepth + 1 + 7 - round0)) - 1;
             int inter[10][4];
             for (int r = 0; r < hh + 6; r++) {
               const int32_t* row = &buf[(size_t)(y + r - 3 - by0) * bw + x + pad - 3];
               for (int c = 0; c < w; c++) {
                 int s = 0;
                 for (int t = 0; t < 7; t++) s += hfilter[t] * row[c + t];
-                inter[r][c] = clip3(-offset, limit - offset, (s + 4) >> round0);
+                inter[r][c] = clip3(-offset, limit - offset, (s + (1 << (round0 - 1))) >> round0);
               }
             }
             for (int r = 0; r < hh; r++) {
               for (int c = 0; c < w; c++) {
                 int s = 0;
                 for (int t = 0; t < 7; t++) s += vfilter[t] * inter[r + t][c];
-                px(plane, y + r, x + c) = (uint8_t)clip3(0, 255, round2(s, round1));
+                px(plane, y + r, x + c) = (Pixel)clip3(0, maxV, round2(s, round1));
               }
             }
           } else if (rType == RESTORE_SGRPROJ) {
@@ -127,11 +130,16 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
               for (int i = -1; i < hh + 1; i++) {
                 for (int j = -1; j < w + 1; j++) {
                   uint32_t a = box(sq, x + j, y + i, r), b = box(sum, x + j, y + i, r);
-                  int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)b * b);
+                  uint32_t d = b;
+                  if (shift8) {
+                    a = (uint32_t)round2(a, 2 * shift8);
+                    d = (uint32_t)round2(b, shift8);
+                  }
+                  int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)d * d);
                   uint32_t z = (uint32_t)round2(p * s, 20);
                   int a2 = z >= 255 ? 256 : z == 0 ? 1 : (int)(((z << 8) + (z / 2)) / (z + 1));
                   A[i + 1][j + 1] = a2;
-                  B[i + 1][j + 1] = round2((uint32_t)((256 - a2) * b * (uint32_t)oneOverN), 12);
+                  B[i + 1][j + 1] = round2((uint64_t)(256 - a2) * b * (uint32_t)oneOverN, 12);
                 }
               }
               for (int i = 0; i < hh; i++) {
@@ -163,7 +171,7 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
                 int v = w1 * uu;
                 v += r0 ? w0 * flt[0][i][j] : w0 * uu;
                 v += r1 ? w2 * flt[1][i][j] : w2 * uu;
-                px(plane, y + i, x + j) = (uint8_t)clip3(0, 255, round2(v, 4 + 7));
+                px(plane, y + i, x + j) = (Pixel)clip3(0, maxV, round2(v, 4 + 7));
               }
             }
           }
@@ -172,6 +180,9 @@ void Decoder::lr_frame(std::vector<uint8_t> (&deblocked)[3], std::vector<uint8_t
     }
   }
 }
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

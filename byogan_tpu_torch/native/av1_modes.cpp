@@ -1,7 +1,8 @@
 // Partitions and the intra mode info of a block (AV1 specification 5.11.4-
 // 5.11.46 for an intra frame): segment ids, skip, CDEF indices, delta q and
-// delta lf, the luma and chroma modes with their angle deltas and CfL
-// alphas, filter intra, palette sizes, colours and colour-index maps, and
+// delta lf, use_intrabc (av1_intrabc.cpp reads the rest of such a block),
+// the luma and chroma modes with their angle deltas and CfL alphas, filter
+// intra, palette sizes, colours of BitDepth bits and colour-index maps, and
 // the loop restoration units each superblock reads.
 
 #include <algorithm>
@@ -58,7 +59,8 @@ int decode_signed_subexp_with_ref_bool(SymbolDecoder& sd, int low, int high, int
 
 }  // namespace
 
-void Decoder::read_lr(int r, int c, int bSize) {
+template <typename Pixel>
+void Decoder<Pixel>::read_lr(int r, int c, int bSize) {
   int w = block_w4(bSize), h = block_h4(bSize);
   for (int plane = 0; plane < numPlanes; plane++) {
     if (fh.frameRestorationType[plane] == RESTORE_NONE) continue;
@@ -118,7 +120,8 @@ void Decoder::read_lr(int r, int c, int bSize) {
   }
 }
 
-void Decoder::decode_partition(int r, int c, int bSize) {
+template <typename Pixel>
+void Decoder<Pixel>::decode_partition(int r, int c, int bSize) {
   if (r >= fh.miRows || c >= fh.miCols) return;
   int availUp = is_inside(r - 1, c), availLeft = is_inside(r, c - 1);
   int num4x4 = block_w4(bSize);
@@ -255,7 +258,8 @@ int get_plane_residual_size(int bs, int plane, int sx, int sy) {
   return plane ? plane_residual_size(bs, sx, sy) : bs;
 }
 
-void Decoder::decode_block(int r, int c, int subSize) {
+template <typename Pixel>
+void Decoder<Pixel>::decode_block(int r, int c, int subSize) {
   miRow = r;
   miCol = c;
   miSize = subSize;
@@ -285,8 +289,12 @@ void Decoder::decode_block(int r, int c, int subSize) {
       int m = mi(r + y, c + x);
       yModes[m] = (uint8_t)yMode;
       if (hasChroma) uvModes[m] = (uint8_t)uvMode;
+      if (fh.allowIntrabc) {
+        blockKinds[m] = useIntrabc ? kIntrabc : kIntra;
+        mvs[(size_t)m * 2] = mv[0];
+        mvs[(size_t)m * 2 + 1] = mv[1];
+      }
       skips[m] = (uint8_t)skip;
-      txSizesMi[m] = (uint8_t)txSize;
       miSizes[m] = (uint8_t)miSize;
       segmentIds[m] = (uint8_t)segmentId;
       paletteSizes[0][m] = (uint8_t)paletteSizeY;
@@ -296,11 +304,22 @@ void Decoder::decode_block(int r, int c, int subSize) {
       for (int i = 0; i < 4; i++) deltaLFs[(size_t)m * 4 + i] = (int8_t)deltaLF[i];
     }
   }
+  if (useIntrabc) {
+    // compute_prediction: in an intra frame every block's RefFrame[0] is
+    // INTRA_FRAME, so each plane is one prediction of the plane's residual
+    // size with this block's vector (sub-8x8 chroma too).
+    for (int plane = 0; plane < 1 + 2 * hasChroma; plane++) {
+      int sx = plane ? subX : 0, sy = plane ? subY : 0;
+      int planeSz = get_plane_residual_size(miSize, plane, sx, sy);
+      predict_inter(plane, (miCol >> sx) * 4, (miRow >> sy) * 4, 4 * block_w4(planeSz), 4 * block_h4(planeSz));
+    }
+  }
   residual();
 }
 
-void Decoder::read_cdef() {
-  if (skip || fh.codedLossless || !seq.enableCdef) return;
+template <typename Pixel>
+void Decoder<Pixel>::read_cdef() {
+  if (skip || fh.codedLossless || !seq.enableCdef || fh.allowIntrabc) return;
   int r = miRow & ~15, c = miCol & ~15;
   int8_t& idx = cdefIdx[(r >> 4) * cdefStride + (c >> 4)];
   if (idx == -1) {
@@ -311,7 +330,8 @@ void Decoder::read_cdef() {
   }
 }
 
-void Decoder::intra_frame_mode_info() {
+template <typename Pixel>
+void Decoder<Pixel>::intra_frame_mode_info() {
   skip = 0;
   // intra_segment_id(), read_skip()
   auto read_segment_id = [&]() {
@@ -394,7 +414,18 @@ void Decoder::intra_frame_mode_info() {
     }
   }
   readDeltas = 0;
-  // use_intrabc is 0: the frame header refuses allow_intrabc.
+  useIntrabc = fh.allowIntrabc ? sd.symbol(cdf.intrabc, 2) : 0;
+  if (counts && fh.allowIntrabc) counts->useIntrabc[useIntrabc]++;
+  useFilterIntra = 0;
+  paletteSizeY = paletteSizeUV = 0;
+  if (useIntrabc) {
+    // An inter block of the BILINEAR filter, DC_PRED in the mode arrays.
+    yMode = uvMode = DC_PRED;
+    angleDeltaY = angleDeltaUV = 0;
+    cflAlphaU = cflAlphaV = 0;
+    intrabc_mode_info();
+    return;
+  }
   int aboveMode = availU ? yModes[mi(miRow - 1, miCol)] : DC_PRED;
   int leftMode = availL ? yModes[mi(miRow, miCol - 1)] : DC_PRED;
   yMode = sd.symbol(cdf.yMode[kIntraModeContext[aboveMode]][kIntraModeContext[leftMode]], 13);
@@ -433,108 +464,13 @@ void Decoder::intra_frame_mode_info() {
     counts->yMode[yMode]++;
     if (hasChroma) counts->uvMode[uvMode]++;
   }
-  // palette_mode_info()
-  paletteSizeY = paletteSizeUV = 0;
-  if (miSize >= BLOCK_8X8 && block_w4(miSize) <= 16 && block_h4(miSize) <= 16 && fh.allowScreenContentTools) {
-    int bsizeCtx = kBlockWidthLog2[miSize] + kBlockHeightLog2[miSize] - 2;
-    auto get_palette_cache = [&](int plane, uint8_t* cache) {
-      int aboveN = 0, leftN = 0;
-      if (((miRow * 4) % 64) && availU) aboveN = paletteSizes[plane][mi(miRow - 1, miCol)];
-      if (availL) leftN = paletteSizes[plane][mi(miRow, miCol - 1)];
-      const uint8_t* aboveC = &paletteColors[plane][(size_t)mi(miRow - 1, miCol) * 8];
-      const uint8_t* leftC = &paletteColors[plane][(size_t)mi(miRow, miCol - 1) * 8];
-      int aboveIdx = 0, leftIdx = 0, n = 0;
-      while (aboveIdx < aboveN && leftIdx < leftN) {
-        int a = aboveC[aboveIdx], l = leftC[leftIdx];
-        if (l < a) {
-          if (n == 0 || l != cache[n - 1]) cache[n++] = (uint8_t)l;
-          leftIdx++;
-        } else {
-          if (n == 0 || a != cache[n - 1]) cache[n++] = (uint8_t)a;
-          aboveIdx++;
-          if (l == a) leftIdx++;
-        }
-      }
-      while (aboveIdx < aboveN) {
-        int v = aboveC[aboveIdx++];
-        if (n == 0 || v != cache[n - 1]) cache[n++] = (uint8_t)v;
-      }
-      while (leftIdx < leftN) {
-        int v = leftC[leftIdx++];
-        if (n == 0 || v != cache[n - 1]) cache[n++] = (uint8_t)v;
-      }
-      return n;
-    };
-    if (yMode == DC_PRED) {
-      int ctx = 0;
-      if (availU && paletteSizes[0][mi(miRow - 1, miCol)] > 0) ctx++;
-      if (availL && paletteSizes[0][mi(miRow, miCol - 1)] > 0) ctx++;
-      if (sd.symbol(cdf.paletteYMode[bsizeCtx][ctx], 2)) {
-        paletteSizeY = sd.symbol(cdf.paletteYSize[bsizeCtx], 7) + 2;
-        uint8_t cache[16];
-        int cacheN = get_palette_cache(0, cache);
-        int idx = 0;
-        for (int i = 0; i < cacheN && idx < paletteSizeY; i++)
-          if (sd.literal(1)) paletteColorsY[idx++] = cache[i];
-        if (idx < paletteSizeY) paletteColorsY[idx++] = (uint8_t)sd.literal(8);
-        int paletteBits = 0;
-        if (idx < paletteSizeY) paletteBits = 5 + sd.literal(2);
-        while (idx < paletteSizeY) {
-          int delta = sd.literal(paletteBits) + 1;
-          int v = std::min(255, paletteColorsY[idx - 1] + delta);
-          paletteColorsY[idx] = (uint8_t)v;
-          int range = 256 - v - 1;
-          paletteBits = std::min(paletteBits, ceil_log2(range));
-          idx++;
-        }
-        std::sort(paletteColorsY, paletteColorsY + paletteSizeY);
-      }
-    }
-    if (hasChroma && uvMode == DC_PRED) {
-      int ctx = paletteSizeY > 0;
-      if (sd.symbol(cdf.paletteUvMode[ctx], 2)) {
-        paletteSizeUV = sd.symbol(cdf.paletteUvSize[bsizeCtx], 7) + 2;
-        uint8_t cache[16];
-        int cacheN = get_palette_cache(1, cache);
-        int idx = 0;
-        for (int i = 0; i < cacheN && idx < paletteSizeUV; i++)
-          if (sd.literal(1)) paletteColorsU[idx++] = cache[i];
-        if (idx < paletteSizeUV) paletteColorsU[idx++] = (uint8_t)sd.literal(8);
-        int paletteBits = 0;
-        if (idx < paletteSizeUV) paletteBits = 5 + sd.literal(2);
-        while (idx < paletteSizeUV) {
-          int delta = sd.literal(paletteBits);
-          int v = std::min(255, paletteColorsU[idx - 1] + delta);
-          paletteColorsU[idx] = (uint8_t)v;
-          int range = 256 - v;
-          paletteBits = std::min(paletteBits, ceil_log2(range));
-          idx++;
-        }
-        std::sort(paletteColorsU, paletteColorsU + paletteSizeUV);
-        if (sd.literal(1)) {  // delta_encode_palette_colors_v
-          int maxVal = 256;
-          int bits = 4 + sd.literal(2);
-          paletteColorsV[0] = (uint8_t)sd.literal(8);
-          for (idx = 1; idx < paletteSizeUV; idx++) {
-            int delta = sd.literal(bits);
-            if (delta && sd.literal(1)) delta = -delta;
-            int val = paletteColorsV[idx - 1] + delta;
-            if (val < 0) val += maxVal;
-            if (val >= maxVal) val -= maxVal;
-            paletteColorsV[idx] = (uint8_t)clip3(0, 255, val);
-          }
-        } else {
-          for (idx = 0; idx < paletteSizeUV; idx++) paletteColorsV[idx] = (uint8_t)sd.literal(8);
-        }
-      }
-    }
-  }
+  if (miSize >= BLOCK_8X8 && block_w4(miSize) <= 16 && block_h4(miSize) <= 16 && fh.allowScreenContentTools)
+    palette_mode_info();
   if (counts) {
     if (paletteSizeY) counts->paletteY[paletteSizeY]++;
     if (paletteSizeUV) counts->paletteUv[paletteSizeUV]++;
   }
   // filter_intra_mode_info()
-  useFilterIntra = 0;
   if (seq.enableFilterIntra && yMode == DC_PRED && paletteSizeY == 0 &&
       std::max(block_w4(miSize), block_h4(miSize)) <= 8) {
     useFilterIntra = sd.symbol(cdf.filterIntra[miSize], 2);
@@ -545,7 +481,104 @@ void Decoder::intra_frame_mode_info() {
   }
 }
 
-void Decoder::palette_tokens() {
+template <typename Pixel>
+void Decoder<Pixel>::palette_mode_info() {
+  int maxVal = 1 << bitDepth;
+  int bsizeCtx = kBlockWidthLog2[miSize] + kBlockHeightLog2[miSize] - 2;
+  auto get_palette_cache = [&](int plane, Pixel* cache) {
+    int aboveN = 0, leftN = 0;
+    if (((miRow * 4) % 64) && availU) aboveN = paletteSizes[plane][mi(miRow - 1, miCol)];
+    if (availL) leftN = paletteSizes[plane][mi(miRow, miCol - 1)];
+    const Pixel* aboveC = &paletteColors[plane][(size_t)mi(miRow - 1, miCol) * 8];
+    const Pixel* leftC = &paletteColors[plane][(size_t)mi(miRow, miCol - 1) * 8];
+    int aboveIdx = 0, leftIdx = 0, n = 0;
+    while (aboveIdx < aboveN && leftIdx < leftN) {
+      int a = aboveC[aboveIdx], l = leftC[leftIdx];
+      if (l < a) {
+        if (n == 0 || l != cache[n - 1]) cache[n++] = (Pixel)l;
+        leftIdx++;
+      } else {
+        if (n == 0 || a != cache[n - 1]) cache[n++] = (Pixel)a;
+        aboveIdx++;
+        if (l == a) leftIdx++;
+      }
+    }
+    while (aboveIdx < aboveN) {
+      int v = aboveC[aboveIdx++];
+      if (n == 0 || v != cache[n - 1]) cache[n++] = (Pixel)v;
+    }
+    while (leftIdx < leftN) {
+      int v = leftC[leftIdx++];
+      if (n == 0 || v != cache[n - 1]) cache[n++] = (Pixel)v;
+    }
+    return n;
+  };
+  if (yMode == DC_PRED) {
+    int ctx = 0;
+    if (availU && paletteSizes[0][mi(miRow - 1, miCol)] > 0) ctx++;
+    if (availL && paletteSizes[0][mi(miRow, miCol - 1)] > 0) ctx++;
+    if (sd.symbol(cdf.paletteYMode[bsizeCtx][ctx], 2)) {
+      paletteSizeY = sd.symbol(cdf.paletteYSize[bsizeCtx], 7) + 2;
+      Pixel cache[16];
+      int cacheN = get_palette_cache(0, cache);
+      int idx = 0;
+      for (int i = 0; i < cacheN && idx < paletteSizeY; i++)
+        if (sd.literal(1)) paletteColorsY[idx++] = cache[i];
+      if (idx < paletteSizeY) paletteColorsY[idx++] = (Pixel)sd.literal(bitDepth);
+      int paletteBits = 0;
+      if (idx < paletteSizeY) paletteBits = bitDepth - 3 + sd.literal(2);
+      while (idx < paletteSizeY) {
+        int delta = sd.literal(paletteBits) + 1;
+        int v = std::min(maxVal - 1, paletteColorsY[idx - 1] + delta);
+        paletteColorsY[idx] = (Pixel)v;
+        int range = maxVal - v - 1;
+        paletteBits = std::min(paletteBits, ceil_log2(range));
+        idx++;
+      }
+      std::sort(paletteColorsY, paletteColorsY + paletteSizeY);
+    }
+  }
+  if (hasChroma && uvMode == DC_PRED) {
+    int ctx = paletteSizeY > 0;
+    if (sd.symbol(cdf.paletteUvMode[ctx], 2)) {
+      paletteSizeUV = sd.symbol(cdf.paletteUvSize[bsizeCtx], 7) + 2;
+      Pixel cache[16];
+      int cacheN = get_palette_cache(1, cache);
+      int idx = 0;
+      for (int i = 0; i < cacheN && idx < paletteSizeUV; i++)
+        if (sd.literal(1)) paletteColorsU[idx++] = cache[i];
+      if (idx < paletteSizeUV) paletteColorsU[idx++] = (Pixel)sd.literal(bitDepth);
+      int paletteBits = 0;
+      if (idx < paletteSizeUV) paletteBits = bitDepth - 3 + sd.literal(2);
+      while (idx < paletteSizeUV) {
+        int delta = sd.literal(paletteBits);
+        int v = std::min(maxVal - 1, paletteColorsU[idx - 1] + delta);
+        paletteColorsU[idx] = (Pixel)v;
+        int range = maxVal - v;
+        paletteBits = std::min(paletteBits, ceil_log2(range));
+        idx++;
+      }
+      std::sort(paletteColorsU, paletteColorsU + paletteSizeUV);
+      if (sd.literal(1)) {  // delta_encode_palette_colors_v
+        int bits = bitDepth - 4 + sd.literal(2);
+        paletteColorsV[0] = (Pixel)sd.literal(bitDepth);
+        for (idx = 1; idx < paletteSizeUV; idx++) {
+          int delta = sd.literal(bits);
+          if (delta && sd.literal(1)) delta = -delta;
+          int val = paletteColorsV[idx - 1] + delta;
+          if (val < 0) val += maxVal;
+          if (val >= maxVal) val -= maxVal;
+          paletteColorsV[idx] = (Pixel)clip3(0, maxVal - 1, val);
+        }
+      } else {
+        for (idx = 0; idx < paletteSizeUV; idx++) paletteColorsV[idx] = (Pixel)sd.literal(bitDepth);
+      }
+    }
+  }
+}
+
+template <typename Pixel>
+void Decoder<Pixel>::palette_tokens() {
   int blockHeight = 4 * block_h4(miSize), blockWidth = 4 * block_w4(miSize);
   int onscreenHeight = std::min(blockHeight, (fh.miRows - miRow) * 4);
   int onscreenWidth = std::min(blockWidth, (fh.miCols - miCol) * 4);
@@ -608,6 +641,9 @@ void Decoder::palette_tokens() {
              onscreenWidth, onscreenHeight);
   }
 }
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

@@ -1,7 +1,9 @@
 // OBUs, the sequence header, the frame header of a key or intra-only frame,
 // tile info and the tile groups (AV1 specification 5.3-5.11 and 6.8), the
 // tiles' decode (5.11's decode_tile), and the frame's post-filters in the
-// specification's order: the loop filter, CDEF, loop restoration.  Where a
+// specification's order: the loop filter, CDEF, loop restoration (none of
+// them in a frame that allows intra block copy).  8-bit streams decode into
+// Decoder<uint8_t>, 10- and 12-bit ones into Decoder<uint16_t>.  Where a
 // stream breaks the specification's rules, the decode stops as dav1d 1.5.1
 // stops (kFaultBroken): a header that reads past its OBU, an OBU past the
 // data, a tile past its tile group, tiles missing at the end of the data.
@@ -279,7 +281,6 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
     h.renderHeight = h.frameHeight;
   }
   if (h.allowScreenContentTools && h.upscaledWidth == h.frameWidth) h.allowIntrabc = (int)b.f(1);
-  if (h.allowIntrabc) fail(kFaultIntrabc);
   h.disableFrameEndUpdateCdf = (s.reducedStillPictureHeader || h.disableCdfUpdate) ? 1 : (int)b.f(1);
 
   // tile_info()
@@ -400,7 +401,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
   if (h.baseQIdx > 0) h.deltaQPresent = (int)b.f(1);
   if (h.deltaQPresent) {
     h.deltaQRes = (int)b.f(2);
-    h.deltaLfPresent = (int)b.f(1);
+    if (!h.allowIntrabc) h.deltaLfPresent = (int)b.f(1);
     if (h.deltaLfPresent) {
       h.deltaLfRes = (int)b.f(2);
       h.deltaLfMulti = (int)b.f(1);
@@ -417,7 +418,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
   h.allLossless = h.codedLossless && h.frameWidth == h.upscaledWidth;
 
   // loop_filter_params()
-  if (!h.codedLossless) {
+  if (!h.codedLossless && !h.allowIntrabc) {
     h.loopFilterLevel[0] = (int)b.f(6);
     h.loopFilterLevel[1] = (int)b.f(6);
     if (!s.mono && (h.loopFilterLevel[0] || h.loopFilterLevel[1])) {
@@ -436,7 +437,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
     }
   }
   // cdef_params()
-  if (!h.codedLossless && s.enableCdef) {
+  if (!h.codedLossless && !h.allowIntrabc && s.enableCdef) {
     h.cdefDamping = (int)b.f(2) + 3;
     h.cdefBits = (int)b.f(2);
     for (int i = 0; i < (1 << h.cdefBits); i++) {
@@ -451,7 +452,7 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
     }
   }
   // lr_params()
-  if (!h.allLossless && s.enableRestoration) {
+  if (!h.allLossless && !h.allowIntrabc && s.enableRestoration) {
     static const int kRemapLrType[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ};
     int usesChromaLr = 0;
     for (int i = 0; i < (s.mono ? 1 : 3); i++) {
@@ -486,7 +487,8 @@ void parse_frame_header(Bits& b, const SequenceHeader& s, FrameHeader& h, int te
 
 }  // namespace
 
-int Decoder::get_qindex(int ignoreDeltaQ, int segId) const {
+template <typename Pixel>
+int Decoder<Pixel>::get_qindex(int ignoreDeltaQ, int segId) const {
   if (fh.segmentationEnabled && fh.featureEnabled[segId][0]) {
     int data = fh.featureData[segId][0];
     int qindex = fh.baseQIdx + data;
@@ -497,7 +499,8 @@ int Decoder::get_qindex(int ignoreDeltaQ, int segId) const {
   return fh.baseQIdx;
 }
 
-void Decoder::decode_tile() {
+template <typename Pixel>
+void Decoder<Pixel>::decode_tile() {
   for (int p = 0; p < numPlanes; p++) {
     int sx = p ? subX : 0;
     int x0 = miColStart >> sx, x1 = std::min<int>((miColEnd + (1 << sx) - 1) >> sx, (int)aboveLevel[p].size());
@@ -556,13 +559,20 @@ void Decoder::decode_tile() {
   }
 }
 
-void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
-  Decoder* dp = new Decoder();
+namespace {
+
+// A sequence header of samples of the other decoder's width, met before
+// any frame header.
+struct DepthSwitch {};
+
+template <typename Pixel>
+void decode_frame(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
+  Decoder<Pixel>* dp = new Decoder<Pixel>();
   struct Guard {
-    Decoder* d;
+    Decoder<Pixel>* d;
     ~Guard() { delete d; }
   } guard{dp};
-  Decoder& d = *dp;
+  Decoder<Pixel>& d = *dp;
   d.counts = counts;
   bool haveSeq = false, haveFrame = false, done = false;
   int tileNum = 0;
@@ -608,8 +618,12 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
         int spatial = s.operatingPointIdc[i] >> 8;
         if (spatial & (spatial - 1)) fail(kFaultLayers);
       }
-      if (s.bitDepth != 8) fail(kFaultDepth);
+      if ((s.bitDepth > 8) != (sizeof(Pixel) > 1)) {
+        if (haveFrame) fail(kFaultBroken);
+        throw DepthSwitch{};
+      }
       d.seq = s;
+      d.bitDepth = s.bitDepth;
       operatingPointIdc = s.operatingPointIdc[0];
       haveSeq = true;
     } else if (type == 3 || type == 6 || type == 4) {  // FRAME_HEADER, FRAME, TILE_GROUP
@@ -646,13 +660,15 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
         d.yModes.assign(nmi, 0);
         d.uvModes.assign(nmi, 0);
         d.skips.assign(nmi, 0);
-        d.txSizesMi.assign(nmi, 0);
         d.miSizes.assign(nmi, 0);
         d.segmentIds.assign(nmi, 0);
         d.paletteSizes[0].assign(nmi, 0);
         d.paletteSizes[1].assign(nmi, 0);
         d.paletteColors[0].assign(nmi * 8, 0);
         d.paletteColors[1].assign(nmi * 8, 0);
+        d.blockKinds.assign(nmi, 0);
+        d.interTxSizes.assign(nmi, 0);
+        if (h.allowIntrabc) d.mvs.assign(nmi * 2, 0);
         d.deltaLFs.assign(nmi * 4, 0);
         d.cdefStride = alignedW / 64 + 2;
         d.cdefIdx.assign((size_t)d.cdefStride * (alignedH / 64 + 2), -1);
@@ -671,6 +687,7 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
           d.lrSgrXqd[p].assign(n * 2, 0);
         }
         if (counts) {
+          counts->bitDepth[(s.bitDepth - 8) >> 1][s.mono ? 3 : s.subY ? 0 : s.subX ? 1 : 2]++;
           counts->superblock128 += s.use128;
           counts->tiles += h.tileCols * h.tileRows;
           if (h.codedLossless) counts->lossless++;
@@ -735,19 +752,19 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
   // decode_frame_wrapup: the loop filter, CDEF and loop restoration.
   const FrameHeader& h = d.fh;
   d.loop_filter_frame();
-  bool cdefOn = d.seq.enableCdef && !h.codedLossless;
+  bool cdefOn = d.seq.enableCdef && !h.codedLossless && !h.allowIntrabc;
   bool lrOn = h.usesLr;
-  std::vector<uint8_t> deblocked[3];
+  std::vector<Pixel> deblocked[3];
   if (lrOn)
     for (int p = 0; p < d.numPlanes; p++) deblocked[p] = d.cur[p];
   if (d.counts) (cdefOn ? d.counts->cdefOn : d.counts->cdefOff)++;
   if (cdefOn) {
-    std::vector<uint8_t> pre[3];
+    std::vector<Pixel> pre[3];
     for (int p = 0; p < d.numPlanes; p++) pre[p] = d.cur[p];
     d.cdef_frame(pre);
   }
   if (lrOn) {
-    std::vector<uint8_t> cdefed[3];
+    std::vector<Pixel> cdefed[3];
     for (int p = 0; p < d.numPlanes; p++) cdefed[p] = d.cur[p];
     d.lr_frame(deblocked, cdefed);
   }
@@ -755,6 +772,7 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
   Planes& o = *out;
   o.width = h.upscaledWidth;
   o.height = h.frameHeight;
+  o.bitDepth = d.bitDepth;
   o.subX = d.subX;
   o.subY = d.subY;
   o.mono = d.seq.mono;
@@ -768,10 +786,34 @@ void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
     o.planeWidth[p] = pw;
     o.planeHeight[p] = ph;
     o.stride[p] = pw;
-    o.plane[p].resize((size_t)pw * ph);
-    for (int y = 0; y < ph; y++) std::memcpy(&o.plane[p][(size_t)y * pw], &d.px(p, y, 0), pw);
+    Pixel* dst;
+    if constexpr (sizeof(Pixel) == 1) {
+      o.plane[p].resize((size_t)pw * ph);
+      dst = o.plane[p].data();
+    } else {
+      o.plane16[p].resize((size_t)pw * ph);
+      dst = o.plane16[p].data();
+    }
+    for (int y = 0; y < ph; y++) std::memcpy(dst + (size_t)y * pw, &d.px(p, y, 0), pw * sizeof(Pixel));
   }
 }
+
+}  // namespace
+
+void decode(const uint8_t* data, size_t size, Planes* out, Counts* counts) {
+  try {
+    decode_frame<uint8_t>(data, size, out, counts);
+  } catch (const DepthSwitch&) {
+    try {
+      decode_frame<uint16_t>(data, size, out, counts);
+    } catch (const DepthSwitch&) {
+      fail(kFaultBroken);  // sequence headers of both widths before the frame
+    }
+  }
+}
+
+template struct Decoder<uint8_t>;
+template struct Decoder<uint16_t>;
 
 }  // namespace av1
 }  // namespace byogan

@@ -124,6 +124,18 @@ void Cdfs::init(int base_q_idx) {
   COPY(restorationType, kRestorationType);
   COPY(useWiener, kUseWiener);
   COPY(useSgrproj, kUseSgrproj);
+  COPY(intrabc, kIntrabc);
+  COPY(mvJoint, kMvJoint);
+  for (int comp = 0; comp < 2; comp++) {
+    COPY(mvClass[comp], kMvClass);
+    COPY(mvClass0Bit[comp], kMvClass0Bit);
+    COPY(mvBit[comp], kMvBit);
+    COPY(mvSign[comp], kMvSign);
+  }
+  COPY(txfmSplit, kTxfmSplit);
+  COPY(interTxSet1, kInterTxSet1);
+  COPY(interTxSet2, kInterTxSet2);
+  COPY(interTxSet3, kInterTxSet3);
   int idx = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
   COPY(txbSkip, kTxbSkip[idx]);
   COPY(eobPt16, kEobPt16[idx]);

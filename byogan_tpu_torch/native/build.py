@@ -43,7 +43,8 @@ SOURCES = tuple(HERE / f for f in ("byogan_io.cpp", "png.cpp", "jpeg_decode.cpp"
                                    "psd_pcx_sgi_qoi.cpp", "bcn.cpp", "fli_msp_xbm.cpp", "im_bit.cpp", "xz.cpp",
                                    "zstd.cpp", "jpeg2000.cpp", "jpeg2000_t1.cpp", "av1_obu.cpp", "av1_symbol.cpp",
                                    "av1_cdfs.cpp", "av1_tables.cpp", "av1_modes.cpp", "av1_coefs.cpp", "av1_intra.cpp",
-                                   "av1_itx.cpp", "av1_deblock.cpp", "av1_cdef.cpp", "av1_lr.cpp", "avif_rgb.cpp"))
+                                   "av1_itx.cpp", "av1_deblock.cpp", "av1_cdef.cpp", "av1_lr.cpp", "av1_intrabc.cpp",
+                                   "avif_rgb.cpp"))
 HEADERS = (HERE / "codec.h", HERE / "jpeg.h", HERE / "webp.h", HERE / "jpeg2000.h", HERE / "av1.h", HERE / "av1_decoder.h")
 BUILD = HERE.parent.parent / "build"
 LIBRARY = BUILD / "libbyogan_io.so"

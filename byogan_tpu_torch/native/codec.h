@@ -77,17 +77,17 @@ enum Status {
   kJ2kMarker = -68,        // a JPEG 2000 codestream of Part 2 markers, or a component whose top level has no packet
   kJ2kUnpack = -69,        // components, colour space and mode Pillow's JPEG 2000 decoder has no unpacker for
   kAvifBroken = -70,       // an AV1 stream dav1d refuses, or one cut short (libavif: failed to decode)
-  kAvifDepth = -71,        // an AV1 stream of 10- or 12-bit samples
   kAvifFilmGrain = -72,    // an AV1 frame with film grain to apply
-  kAvifIntrabc = -73,      // an AV1 frame that allows intra block copy
   kAvifQmatrix = -74,      // an AV1 frame of quantizer matrices
   kAvifSuperres = -75,     // a superresolved AV1 frame
   kAvifLayers = -76,       // an AV1 stream of spatial layers
   kAvifNotIntra = -77,     // an AV1 stream whose first frame is not a key or intra-only frame
   kAvifSize = -78,         // a decoded frame of another size than its item ('ispe')
-  kAvifColour = -79,       // a colour conversion libavif refuses (identity with subsampled chroma, unknown matrices)
+  kAvifColour = -79,       // a colour conversion libavif refuses (identity with subsampled chroma, YCgCo of limited
+                           // range, unknown matrices)
   kAvifConversion = -80,   // libavif's float conversion of subsampled chroma (YCgCo and other matrices)
   kAvifAlpha = -81,        // an alpha plane of another size than the image
+  kAvifAlphaDepth = -82,   // an alpha plane of another bit depth than the image
 };
 
 // Which of the JAX package's lanes a decode follows where they part: its
@@ -216,8 +216,9 @@ int decode_avif(const uint8_t* color, size_t csize, const uint8_t* alpha, size_t
                 int h, uint8_t* out, int32_t* counts);
 
 // An AV1 stream's planes as the port's AV1 decoder makes them (avif_rgb.cpp):
-// info receives width, height, subsampling x and y and monochrome; y, u and
-// v (cap bytes each; u and v unused in 4:0:0) the planes, rows packed.
+// info receives width, height, subsampling x and y, monochrome and the bit
+// depth; y, u and v (cap bytes each; u and v unused in 4:0:0) the planes,
+// rows packed, samples of 10 or 12 bits as native-endian 16-bit words.
 int decode_av1_planes(const uint8_t* data, size_t size, int32_t* info, uint8_t* y, uint8_t* u, uint8_t* v,
                       size_t cap);
 

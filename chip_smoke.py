@@ -74,10 +74,11 @@ both paths of the port at full width (``ModelSpec()``):
   the port's own .xz and Zstandard decoders (the library links neither
   liblzma nor libzstd), JPEG 2000 codestreams, JP2 files and ICNS elements
   through the port's own JPEG 2000 decoder (nor libopenjp2), AVIF files
-  through the port's own AV1 intra decoder and libavif's YUV-to-RGB (nor
-  libdav1d, libavif or libyuv), and the kinds refused by name among them:
-  ICCLab, MM BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG,
-  HTJ2K code-blocks, AVIF grids, film grain and intra block copy, an .xz
+  (8-, 10- and 12-bit, intra block copy among their tools) through the
+  port's own AV1 intra decoder and libavif's YUV-to-RGB (nor libdav1d,
+  libavif or libyuv), and the kinds refused by name among them: ICCLab,
+  MM BigTIFF, CCITT data libtiff decodes with errors, BLP2 JPEG, HTJ2K
+  code-blocks, AVIF grids, film grain and libavif's float bilinear path, an .xz
   BCJ filter, a
   Zstandard dictionary, MPEG, an IPTC field length Pillow calls
   illegal...), the Lab -> sRGB conversion of every 8-bit Lab triple and
@@ -3548,12 +3549,14 @@ def io_checks(tmp) -> dict:
     avif = [m for m in matched if m.startswith(f"{fx.AVIF}/")]
     avif_read = [m for m in avif if "@" not in m and "/card/" not in m]
     avif_refused = [m for m in avif if m.endswith("@refused")]
-    avif_kind = {k: sum(os.path.basename(m).startswith(k) for m in avif_read) for k in ("pil-", "cov-", "box-")}
+    avif_kind = {k: sum(os.path.basename(m).startswith(k) for m in avif_read)
+                 for k in ("pil-", "cov-", "box-", "ibc-", "deep-")}
     require(min(avif_kind.values()) >= 4 and len(avif_read) >= 100 and len(avif_refused) >= 15,
             f"the manifest holds AVIF layouts {avif_kind} and {len(avif_refused)} of their refusals")
     avif_card = fx.check_avif_card(images.read_image)
     print(f"io fixtures: {len(avif_read)} AVIF files decoded to Pillow 12.1.0's RGB through libavif 1.3.0, dav1d "
-          f"1.5.1 and libyuv ({', '.join(f'{k[:-1]} {v}' for k, v in avif_kind.items())}, train 8: the port's own AV1 "
+          f"1.5.1 and libyuv ({', '.join(f'{k[:-1]} {v}' for k, v in avif_kind.items())}, train 8; ibc: intra block "
+          f"copy, deep: 10- and 12-bit samples: the port's own AV1 "
           f"intra decoder, native/av1_*.cpp, and libavif's conversion, native/avif_rgb.cpp (the card's machine has "
           f"no libdav1d, libavif or libyuv): {', '.join(m.split('/', 1)[1] for m in avif_read)}) and "
           f"{len(avif_refused)} refused with their reason beside Pillow's verdict "
@@ -4089,13 +4092,16 @@ def avif_codec_times(paths: dict) -> dict:
     a 1024 px 4:2:0 photo at Pillow's defaults, a 1024 px 4:4:4 one with
     CDEF, loop restoration, 128 px superblocks and 2 x 2 tiles, a 1024 px
     screen-content file with palette, and a 512 px file of premultiplied
-    alpha."""
+    alpha; then the 1024 px screen-content file with aom's intra block copy
+    left on, and a 1024 px 10-bit 4:2:0 photo."""
     from byogan_tpu_torch.data import images
 
     files = {"avif_420_default_1024": "photo-1024.avif",
              "avif_444_cdef_lr_sb128_tiles_1024": "photo-1024-444-cdef-lr-sb128-tiles.avif",
              "avif_screen_palette_1024": "screen-1024-palette.avif",
-             "avif_premultiplied_512": "photo-512-premultiplied.avif"}
+             "avif_premultiplied_512": "photo-512-premultiplied.avif",
+             "avif_screen_intrabc_1024": "screen-1024-intrabc.avif",
+             "avif_420_10bit_1024": "photo-1024-10bit.avif"}
     ms = {k: host_ms(lambda: images.read_image(paths[name])) for k, name in files.items()}
     sizes = {k: os.path.getsize(paths[name]) for k, name in files.items()}
     print(f"time codecs: AVIF (native/av1_*.cpp, avif_rgb.cpp), host ms, median of {CODEC_REPEATS} calls, one "
@@ -4104,7 +4110,9 @@ def avif_codec_times(paths: dict) -> dict:
           f"tiles ({sizes['avif_444_cdef_lr_sb128_tiles_1024']} bytes) {ms['avif_444_cdef_lr_sb128_tiles_1024']:.3f}, "
           f"1024 px screen content with palette ({sizes['avif_screen_palette_1024']} bytes) "
           f"{ms['avif_screen_palette_1024']:.3f}, 512 px premultiplied alpha ({sizes['avif_premultiplied_512']} "
-          f"bytes) {ms['avif_premultiplied_512']:.3f}; card {card_name()}")
+          f"bytes) {ms['avif_premultiplied_512']:.3f}, 1024 px screen content with intra block copy "
+          f"({sizes['avif_screen_intrabc_1024']} bytes) {ms['avif_screen_intrabc_1024']:.3f}, 1024 px 10-bit 4:2:0 "
+          f"({sizes['avif_420_10bit_1024']} bytes) {ms['avif_420_10bit_1024']:.3f}; card {card_name()}")
     return ms
 
 

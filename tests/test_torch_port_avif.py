@@ -1,5 +1,6 @@
-"""The port's AVIF reader (its own AV1 intra decoder and libavif's
-YUV-to-RGB) against Pillow, libdav1d and the JAX package, on the CPU.
+"""The port's AVIF reader (its own AV1 intra decoder, intra block copy and
+10- and 12-bit samples among its tools, and libavif's YUV-to-RGB) against
+Pillow, libdav1d and the JAX package, on the CPU.
 
 The JAX package reads an original under a listed extension through
 ``Image.open(path).convert("RGB")``: AVIF through Pillow 12.1.0's plugin
@@ -8,10 +9,12 @@ lacks, so the port carries its own AV1 decoder (``native/av1_*.cpp``),
 libavif's conversion (``native/avif_rgb.cpp``) and the container as
 libavif parses it (``data/images.py``'s ``decode_avif``).  So every
 committed layout of ``fx.avif_layouts`` (Pillow's encoder over aom's
-settings, and containers written here around its streams) is held bit for
-bit to Pillow's ``convert("RGB")`` in both of the port's lanes and, before
-the conversion, to the planes the system's libdav1d (1.0.0, through
-ctypes) decodes; each refusal (``fx.avif_refusals``) to its reason with the
+settings, screen content aom codes with intra block copy, containers
+written here around its streams, and 10- and 12-bit files the system's
+libavif writes through ctypes, in this sandbox only) is held bit for bit
+to Pillow's ``convert("RGB")`` in both of the port's lanes and, before the
+conversion, to the planes (16-bit ones of 10- and 12-bit streams) the
+system's libdav1d (1.0.0, through ctypes) decodes; each refusal (``fx.avif_refusals``) to its reason with the
 file named; seeded damaged files to Pillow's pixels or verdict; the
 committed layouts together to every partition, mode, palette size,
 transform size and type and post-filter the decoder names.  Then AVIF
@@ -43,8 +46,9 @@ LAYOUTS = fx.avif_layouts()
 REFUSALS = fx.avif_refusals()
 LISTED = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 #: the refusals Pillow reads: the kinds the port leaves out by name
-PILLOW_READS = ("high-bitdepth.avif", "sequence-no-primary-item.avif", "film-grain.avif", "intrabc.avif",
-                "qmatrix.avif", "superres.avif", "layered-a1lx.avif", "layered-lsel.avif", "nclx-ycgco-420.avif")
+PILLOW_READS = ("sequence-no-primary-item.avif", "film-grain.avif", "qmatrix.avif", "superres.avif",
+                "layered-a1lx.avif", "layered-lsel.avif", "nclx-ycgco-420.avif", "deep-10-ycgco-420.avif",
+                "deep-12-fcc-422.avif")
 #: the port's refusals by name of what Pillow may read (ROADMAP §3 fault 7's
 #: AVIF queue, and frames libavif scales to their item's size)
 BY_NAME = "is not read by the PyTorch port"
@@ -58,6 +62,19 @@ def _rgb(data: bytes):
             return np.asarray(im.convert("RGB"))
     except Exception as e:  # noqa: BLE001 - OSError, ValueError, SyntaxError, RuntimeError and Pillow's own
         return e
+
+
+def _sweep(files) -> dict:
+    """``_held_to_pillow`` over many files, every file run: the names of
+    those that fail it, and how many were read, refused and refused by
+    name (a slow sweep's report)."""
+    out = {"read": 0, "refused": 0, "by name": 0, "failed": []}
+    for name, data in files:
+        try:
+            out[_held_to_pillow(data, name)] += 1
+        except (AssertionError, OSError, pytest.fail.Exception) as e:
+            out["failed"].append(f"{name}: {next((ln for ln in str(e).splitlines() if ln.strip()), '')[:160]}")
+    return out
 
 
 def _held_to_pillow(data: bytes, name: str) -> str:
@@ -92,7 +109,8 @@ def test_layout_matches_pillow(tmp_path, name):
 def test_layout_planes_match_libdav1d():
     """Before the colour conversion: each committed layout's AV1 streams
     (colour, and alpha where there is one) decode to the planes libdav1d
-    decodes, every stream of them conforming."""
+    decodes (16-bit ones of the 10- and 12-bit streams), every stream of
+    them conforming."""
     try:
         dav1d = fx.Dav1dPicture(DAV1D)
     except OSError as e:
@@ -154,7 +172,7 @@ def test_committed_fixtures_are_what_the_writers_make():
     for name in committed:
         assert ("refused" in files[name]) == ("/refused/" in name) and files[name]["sha256"] == fx.sha256(
             committed[name]), name
-    listed = sorted(fx.AVIF_CARD.values())
+    listed = sorted(v for v in fx.AVIF_CARD.values() if v)
     part = fx.pillow_lane_images(listed)
     assert len(part) == len(listed) and len(manifest[fx.PILLOW_LANE_PREP]) == 8
     assert all(set(part) <= set(d) for d in manifest[fx.PILLOW_LANE_PREP].values())
@@ -192,7 +210,11 @@ def test_committed_layouts_meet_every_syntax_value():
     layouts together meet every partition type, every luma and chroma mode
     (CfL among them), every filter-intra mode, palettes of 2-8 colours in
     luma and in chroma, every transform size, every intra transform type,
-    frames with CDEF and without, and restoration units of each type."""
+    frames with CDEF and without, and restoration units of each type; and
+    of intra block copy, use_intrabc 0 and 1, each MV joint, the MV classes
+    0-7 (aom's copies reach no farther), txfm_split leaves at depths 0 and
+    1 (aom splits no intra block copy twice) and every inter transform
+    type; and 10- and 12-bit frames in each subsampling."""
     total = {}
     for name in sorted(LAYOUTS):
         counts = {}
@@ -209,18 +231,21 @@ def test_committed_layouts_meet_every_syntax_value():
     assert total["cdef_on"][0] and total["cdef_off"][0]
     assert all(total["lr_type"][:3]), total["lr_type"]
     assert total["lossless"][0] and total["superblock128"][0] and total["tiles"][0] > len(LAYOUTS)
+    assert all(total["use_intrabc"]) and all(total["mv_joint"]), (total["use_intrabc"], total["mv_joint"])
+    assert all(total["mv_class"][:8]), total["mv_class"]
+    assert all(total["txfm_split"][:2]) and all(total["inter_tx_type"]), (total["txfm_split"], total["inter_tx_type"])
+    assert all(total["bit_depth"][4:]), total["bit_depth"]  # [10-bit, 12-bit] x [4:2:0, 4:2:2, 4:4:4, 4:0:0]
 
 
 # --- damaged files ------------------------------------------------------------------------------
 
 
-def _damaged(r, n: int):
-    """``n`` files damaged from a few committed layouts: a container byte
-    replaced, the file cut, a bit of the AV1 stream's first bytes (its OBU
-    and sequence headers) or of its tile data flipped."""
-    bases = [LAYOUTS[f"{fx.AVIF}/{k}"] for k in ("pil-420-full.avif", "pil-444-cdef-restoration.avif",
-                                                 "pil-alpha-premultiplied.avif", "box-idat.avif",
-                                                 "pil-420-screen.avif", "pil-tiles-2x2.avif")]
+def _damaged(r, n: int, names=("pil-420-full.avif", "pil-444-cdef-restoration.avif", "pil-alpha-premultiplied.avif",
+                                "box-idat.avif", "pil-420-screen.avif", "pil-tiles-2x2.avif")):
+    """``n`` files damaged from a few committed layouts (``names``): a
+    container byte replaced, the file cut, a bit of the AV1 stream's first
+    bytes (its OBU and sequence headers) or of its tile data flipped."""
+    bases = [LAYOUTS[f"{fx.AVIF}/{k}"] for k in names]
     for _ in range(n):
         d = bytearray(bases[int(r.integers(0, len(bases)))])
         kind = int(r.integers(0, 4))
@@ -252,8 +277,34 @@ def test_seeded_damaged_files_match_pillow(part):
 @pytest.mark.slow
 def test_many_seeded_damaged_files_match_pillow():
     r = np.random.default_rng(2760)
-    for k, d in enumerate(_damaged(r, 5000)):
-        _held_to_pillow(d, f"damaged {k}")
+    got = _sweep((f"damaged {k}", d) for k, d in enumerate(_damaged(r, 5000)))
+    print(got)
+    assert not got["failed"], got
+
+
+#: the bases of the damaged files of intra block copy and of 10- and 12-bit samples
+IBC_DEEP_BASES = ("ibc-420.avif", "ibc-444-no-palette.avif", "ibc-texture-q70.avif", "ibc-tiles-2x2.avif",
+                  "deep-10-420-full.avif", "deep-12-422-q55.avif", "deep-10-420-mc6-alpha-premultiplied.avif",
+                  "deep-12-420-cdef-restoration.avif", "deep-10-420-screen-intrabc.avif")
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_seeded_damaged_intrabc_and_deep_files_match_pillow(part):
+    """200 damaged files of intra block copy and of 10- and 12-bit samples
+    (four parts of 50), held to Pillow as ``_damaged``'s are: a corrupt
+    vector, a transform tree or a high-depth sample path meets Pillow's
+    pixels or its refusal."""
+    r = np.random.default_rng(2870 + part)
+    got = [_held_to_pillow(d, f"damaged {part}.{k}") for k, d in enumerate(_damaged(r, 50, IBC_DEEP_BASES))]
+    assert got.count("read") >= 10 and got.count("refused") >= 10
+
+
+@pytest.mark.slow
+def test_many_seeded_damaged_intrabc_and_deep_files_match_pillow():
+    r = np.random.default_rng(2880)
+    got = _sweep((f"damaged {k}", d) for k, d in enumerate(_damaged(r, 4000, IBC_DEEP_BASES)))
+    print(got)
+    assert not got["failed"], got
 
 
 # --- originals under listed names through the port and the JAX package -----------------------------
@@ -263,7 +314,9 @@ def _originals(root: str) -> str:
     """Small AVIF originals under listed names: 4:2:0 at the defaults (.jpg),
     4:4:4 with CDEF and restoration (.png), screen content (.jpeg), 4:0:0
     limited range (.bmp), premultiplied alpha (.webp), a 4:2:2 file of
-    128 px superblocks (.png)."""
+    128 px superblocks (.png), screen content of intra block copy (.jpg), a
+    10-bit 4:2:0 file (.png) and a 12-bit 4:4:4 one of premultiplied alpha
+    (.webp)."""
     os.makedirs(root)
     img = fx._avif_scene(2770, 40, 48)
     data = {
@@ -274,6 +327,10 @@ def _originals(root: str) -> str:
         "d.bmp": fx.pil_avif(img, subsampling="4:0:0", range="limited"),
         "e.webp": fx.pil_avif(fx.with_alpha(img, 2772), alpha_premultiplied=True),
         "f.png": fx.pil_avif(img, subsampling="4:2:2", speed=0),
+        "g.jpg": fx.pil_avif(fx._avif_text(2774, 192, 192), advanced={"tune-content": "screen"}),
+        "h.png": fx.deep_avif(fx.deep_planes(2775, 40, 48, 10), 10),
+        "i.webp": fx.deep_avif(fx.deep_planes(2776, 40, 48, 12, "4:4:4"), 12, "4:4:4",
+                               alpha=fx.deep_planes(2777, 40, 48, 12, "4:0:0")[0], premultiplied=True),
     }
     for name, d in data.items():
         with open(os.path.join(root, name), "wb") as f:
@@ -296,19 +353,19 @@ def test_prep_cli_on_these_originals_matches_jax(tmp_path):
     for k in range(1, 5):
         sub = os.path.join("prepared", f"set_{k}", "images")
         names = sorted(os.listdir(os.path.join(port_root, sub)))
-        assert names == sorted(os.listdir(os.path.join(jax_root, sub))) and len(names) == 6
+        assert names == sorted(os.listdir(os.path.join(jax_root, sub))) and len(names) == 9
         for name in names:
             with Image.open(os.path.join(jax_root, sub, name)) as im:
                 np.testing.assert_array_equal(read_png(os.path.join(port_root, sub, name)), np.asarray(im),
                                               err_msg=f"set_{k} {name}")
             n += 1
-    assert n == 24
+    assert n == 36
 
 
 def test_loader_reads_avif_as_jax_pillow_fallback(tmp_path):
-    """A prepared set of AVIF files under listed names: the port's loader
-    reads each as the JAX package's ``StageDataset`` does through its
-    Pillow fallback, on threads."""
+    """A prepared set of AVIF files under listed names (two of them 10- and
+    12-bit): the port's loader reads each as the JAX package's
+    ``StageDataset`` does through its Pillow fallback, on threads."""
     from byogan_tpu.data import pipeline as jax_pipe
 
     root = tmp_path / "ds"
@@ -317,7 +374,11 @@ def test_loader_reads_avif_as_jax_pillow_fallback(tmp_path):
     for i in range(8):
         img = fx.smooth_scene(2773 + i, 16, 16, cell=4, step=8)
         kw = ({}, {"subsampling": "4:4:4"}, {"speed": 0, "quality": 40}, {"range": "limited"})[i % 4]
-        (folder / f"image-{i}.{('png', 'jpg', 'webp', 'bmp')[i % 4]}").write_bytes(fx.pil_avif(img, **kw))
+        data = fx.pil_avif(img, **kw)
+        if i >= 6:  # 10-bit 4:2:0 and 12-bit 4:2:2 of limited range
+            depth, ss = (10, "4:2:0") if i == 6 else (12, "4:2:2")
+            data = fx.deep_avif(fx.deep_planes(2773 + i, 16, 16, depth, ss), depth, ss, full=i == 6)
+        (folder / f"image-{i}.{('png', 'jpg', 'webp', 'bmp')[i % 4]}").write_bytes(data)
     idx = np.array([5, 0, 3, 1, 4, 2, 7, 6])
     with mock.patch("byogan_tpu.data.native.load_library", lambda: None):
         want = jax_pipe.StageDataset(str(root), 3, cache_limit_bytes=0).get_batch_uint8(idx, workers=2)
@@ -328,14 +389,18 @@ def test_loader_reads_avif_as_jax_pillow_fallback(tmp_path):
 
 def test_project_targets_given_as_avif_match_jax_cli(tmp_path):
     """``cli.project``'s ``load_target`` on AVIF files (4:2:0, 4:4:4 with
-    CDEF, premultiplied alpha) at the stage's size: the arrays the JAX CLI
-    builds (``Image.open(path).convert("RGB")``)."""
+    CDEF, premultiplied alpha, 10-bit 4:2:0, 12-bit 4:0:0 with alpha) at
+    the stage's size: the arrays the JAX CLI builds
+    (``Image.open(path).convert("RGB")``)."""
     from byogan_tpu_torch.cli.project import load_target
 
     img = fx.source_image(2781, 32, 32)
     files = {"face.avif": fx.pil_avif(img),
              "face.jpg": fx.pil_avif(img, subsampling="4:4:4", advanced={"enable-cdef": "1"}),
-             "face.png": fx.pil_avif(fx.with_alpha(img, 2782), alpha_premultiplied=True)}
+             "face.png": fx.pil_avif(fx.with_alpha(img, 2782), alpha_premultiplied=True),
+             "face.webp": fx.deep_avif(fx.deep_planes(2783, 32, 32, 10), 10),
+             "face.bmp": fx.deep_avif(fx.deep_planes(2784, 32, 32, 12, "4:0:0"), 12, "4:0:0",
+                                      alpha=fx.deep_planes(2785, 32, 32, 12, "4:0:0")[0])}
     for name, data in files.items():
         path = _write(tmp_path, name, data)
         with Image.open(path) as im:  # byogan_tpu/cli/project.py's target

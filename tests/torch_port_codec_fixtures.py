@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import gzip
 import hashlib
 import io
@@ -1399,7 +1400,8 @@ def build_manifest(files: Dict[str, Tuple[bytes, object]], lib: ctypes.CDLL, scr
                       "Pillow makes of the file; "
                       f"{AVIF}/: Pillow {PIL.__version__}'s convert(\"RGB\") through libavif "
                       f"{features.version('avif')} and dav1d (Pillow's encoder over aom's settings, containers "
-                      "written around its streams), refusals with what Pillow makes of the file; "
+                      "written around its streams, 10- and 12-bit files of the system's libavif over libaom), "
+                      "refusals with what Pillow makes of the file; "
                       f"{PILLOW_LANE_PREP}: the JAX package's prepare_pyramid of every slice's originals "
                       "of the Pillow lane in one folder (pillow_lane_sources)",
         "files": entries, "card": card_entries, "sources": sources, "jpeg_prep": jax_prep_digests(scratch, kinds_card),
@@ -7386,11 +7388,15 @@ def check_j2k_card(decode: Callable[[str], np.ndarray]) -> Dict[str, str]:
 
 AVIF = "avif"  # their files' folder under FIXTURES
 #: the card's originals (under ``avif/card/``, committed: the card's machine
-#: has no AVIF writer), each by the listed name cli.prep reads it under
+#: has no AVIF writer), each by the listed name cli.prep reads it under, or
+#: None for one only decoded and timed
 AVIF_CARD = {"photo-1024.avif": "photo-1024-avif.jpg",
              "photo-1024-444-cdef-lr-sb128-tiles.avif": "photo-1024-avif444.png",
              "screen-1024-palette.avif": "screen-1024-avif.png",
-             "photo-512-premultiplied.avif": "photo-512-avif-prem.jpg"}
+             "photo-512-premultiplied.avif": "photo-512-avif-prem.jpg",
+             # decoded and timed only (None: not among cli.prep's originals)
+             "screen-1024-intrabc.avif": None,
+             "photo-1024-10bit.avif": None}
 #: the alpha auxiliary type libavif writes
 AVIF_ALPHA_URN = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha"
 
@@ -7403,6 +7409,95 @@ def pil_avif(img: np.ndarray, **kw) -> bytes:
     f = io.BytesIO()
     Image.fromarray(img).save(f, "AVIF", **kw)
     return f.getvalue()
+
+
+#: the system's libavif (0.11.1, its encoder libaom 3.6.0 built for 10- and
+#: 12-bit samples; Pillow's bundled libavif carries an aom of 8 bits alone)
+SYSTEM_LIBAVIF = "libavif.so.15"
+#: avifPixelFormat of each subsampling
+_AVIF_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+
+
+def deep_planes(seed: int, h: int, w: int, depth: int, subsampling: str = "4:2:0") -> List[np.ndarray]:
+    """Y, U and V planes (uint16, U and V subsampled, none in 4:0:0) of
+    ``depth`` bits: a smooth scene's BT.601 luma and chroma widened to that
+    depth, a seeded fine noise in the low bits and a few flat bars."""
+    r = np.random.default_rng(seed)
+    rgb = smooth_scene(seed, h, w, cell=max(8, min(h, w) // 3), step=1).astype(np.float64)
+    top = (1 << depth) - 1
+    y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    u = (rgb[..., 2] - y) / 1.772 + 128
+    v = (rgb[..., 0] - y) / 1.402 + 128
+    out = []
+    for k, p in enumerate((y, u, v) if subsampling != "4:0:0" else (y,)):
+        p = p * top / 255 + r.normal(0, 1 << (depth - 8), (h, w))
+        bar = int(r.integers(0, max(1, h - 6)))
+        p[bar:bar + 6] = r.integers(0, top + 1)
+        if k and subsampling != "4:4:4":
+            sy = 2 if subsampling == "4:2:0" else 1
+            p = np.pad(p, ((0, h % sy), (0, w % 2)), mode="edge")
+            p = p.reshape(p.shape[0] // sy, sy, p.shape[1] // 2, 2).mean(axis=(1, 3))
+        out.append(np.clip(np.rint(p), 0, top).astype(np.uint16))
+    return out
+
+
+def deep_avif(planes: List[np.ndarray], depth: int, subsampling: str = "4:2:0", full: bool = True,
+              cicp: Tuple[int, int, int] = (2, 2, 2), alpha: Optional[np.ndarray] = None, premultiplied: bool = False,
+              quantizer: int = 24, speed: int = 6, tiles_log2: Tuple[int, int] = (0, 0),
+              advanced: Optional[Dict[str, str]] = None) -> bytes:
+    """An AVIF of ``planes`` (``deep_planes``' Y, U, V of ``depth`` bits)
+    written by the system's libavif over libaom through ctypes: ``full`` or
+    limited range, ``cicp`` (primaries, transfer, matrix), an alpha plane of
+    the same depth, premultiplied or not, quantizer (0-63, the encoder's
+    min and max), speed, tile rows and columns (log2), and aom options."""
+    lib = ctypes.CDLL(SYSTEM_LIBAVIF)
+    lib.avifImageCreate.restype = ctypes.c_void_p
+    lib.avifImageAllocatePlanes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.avifEncoderCreate.restype = ctypes.c_void_p
+    lib.avifEncoderAddImage.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int]
+    lib.avifEncoderFinish.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.avifEncoderSetCodecSpecificOption.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+    lib.avifEncoderSetCodecSpecificOption.restype = None
+    for name in ("avifImageDestroy", "avifEncoderDestroy", "avifRWDataFree"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    h, w = planes[0].shape
+    img = lib.avifImageCreate(w, h, depth, _AVIF_FORMATS[subsampling])
+    # avifImage (0.11.1): yuvRange at 16, yuvPlanes at 24, yuvRowBytes at 48,
+    # alphaPlane at 64, alphaRowBytes at 72, alphaPremultiplied at 80, CICP at 104.
+    ctypes.c_uint32.from_address(img + 16).value = int(full)
+    ctypes.c_int32.from_address(img + 80).value = int(premultiplied)
+    for k, v in enumerate(cicp):
+        ctypes.c_uint16.from_address(img + 104 + 2 * k).value = v
+    enc = None
+    try:
+        if lib.avifImageAllocatePlanes(img, 0xFF if alpha is not None else 1):
+            raise OSError("avifImageAllocatePlanes failed")
+        for k, p in enumerate(list(planes) + ([alpha] if alpha is not None else [])):
+            at, rb_at = (24 + 8 * k, 48 + 4 * k) if k < len(planes) else (64, 72)
+            rb = ctypes.c_uint32.from_address(img + rb_at).value
+            buf = (ctypes.c_uint8 * (rb * p.shape[0])).from_address(ctypes.c_uint64.from_address(img + at).value)
+            kind = np.uint16 if depth > 8 else np.uint8
+            np.frombuffer(buf, kind).reshape(p.shape[0], -1)[:, :p.shape[1]] = p
+        enc = lib.avifEncoderCreate()
+        # avifEncoder (0.11.1): codecChoice (1, aom) at 0, maxThreads at 4,
+        # speed at 8, min/max quantizer (and of alpha) at 24-36, tile rows
+        # and columns (log2) at 40 and 44.
+        for off, v in ((0, 1), (4, 1), (8, speed), (24, quantizer), (28, quantizer), (32, quantizer), (36, quantizer),
+                       (40, tiles_log2[0]), (44, tiles_log2[1])):
+            ctypes.c_int32.from_address(enc + off).value = v
+        for key, value in (advanced or {}).items():  # aom checks each as it starts
+            lib.avifEncoderSetCodecSpecificOption(enc, key.encode(), value.encode())
+        rc = lib.avifEncoderAddImage(enc, img, 1, 2)  # AVIF_ADD_IMAGE_FLAG_SINGLE
+        out = (ctypes.c_uint64 * 2)()
+        if rc or lib.avifEncoderFinish(enc, out):
+            raise OSError(f"libavif's encoder failed ({rc})")
+        data = ctypes.string_at(out[0], out[1])
+        lib.avifRWDataFree(out)
+        return data
+    finally:
+        if enc:
+            lib.avifEncoderDestroy(enc)
+        lib.avifImageDestroy(img)
 
 
 def _box(kind: bytes, payload: bytes) -> bytes:
@@ -7528,7 +7623,8 @@ def avif_file(color: bytes, av1c: bytes, size: Tuple[int, int], alpha: Optional[
         for i in range(len(grid[2])):
             assoc[2 + i] = [tile_ispe, pixi, 0x80 | av1]
     if alpha is not None:
-        a_pixi = prop(b"pixi", struct.pack(">IB", 0, 1) + b"\x08")
+        a_depth = 12 if alpha_av1c[2] & 0x20 else 10 if alpha_av1c[2] & 0x40 else 8
+        a_pixi = prop(b"pixi", struct.pack(">IB", 0, 1) + bytes([a_depth]))
         a_av1 = prop(b"av1C", alpha_av1c)
         a_aux = prop(b"auxC", struct.pack(">I", 0) + AVIF_ALPHA_URN + b"\0")
         assoc[alpha_id] = [ispe, a_pixi, 0x80 | a_av1, a_aux]
@@ -7832,23 +7928,156 @@ def _avif_box_layouts() -> Dict[str, bytes]:
     return out
 
 
+def _avif_text(seed: int, h: int, w: int, colours: int = 4, density: float = 0.85) -> np.ndarray:
+    """Lines of glyphs from a font of 16 random 12 x 8 bitmaps over a flat
+    ground, and a few bars: screen content whose repeats aom copies with
+    intra block copy."""
+    r = np.random.default_rng(seed)
+    pal = r.integers(0, 256, (colours, 3)).astype(np.uint8)
+    glyphs = r.integers(0, 2, (16, 12, 8)).astype(bool)
+    img = np.zeros((h, w, 3), np.uint8) + pal[0]
+    for y in range(4, h - 12, 16):
+        for x in range(4, w - 8, 9):
+            if r.random() < density:
+                img[y:y + 12, x:x + 8][glyphs[r.integers(0, 16)]] = pal[1 + (y // 40) % (colours - 1)]
+    for _ in range(3):
+        y, x = int(r.integers(0, h - 20)), int(r.integers(0, w - 30))
+        img[y:y + 20, x:x + 30] = pal[r.integers(0, colours)]
+    return img
+
+
+def _avif_intrabc_layouts() -> Dict[str, bytes]:
+    """Screen content that aom (Pillow's encoder, tune-content=screen) codes
+    with intra block copy, from 192 px: each subsampling, palette colours
+    on and off, lossless (quality 100), 128 px superblocks, 2 x 2 tiles,
+    alpha, speeds 0 and 7 (aom searches no block copy from speed 8, so a
+    speed 10 file holds none), a
+    tiled texture whose copies keep residuals (every inter transform type
+    and txfm_split), and the file PR 27 refused (``intrabc.avif``)."""
+    screen = {"tune-content": "screen"}
+    text = _avif_text(2800, 192, 192)
+    out = {f"ibc-{ss.replace(':', '')}.avif": pil_avif(text, subsampling=ss, advanced=screen)
+           for ss in ("4:2:0", "4:2:2", "4:4:4", "4:0:0")}
+    out["ibc-420-no-palette.avif"] = pil_avif(text, advanced={**screen, "enable-palette": "0"})
+    out["ibc-444-no-palette.avif"] = pil_avif(text, subsampling="4:4:4", advanced={**screen, "enable-palette": "0"})
+    out["ibc-lossless-420.avif"] = pil_avif(text, quality=100, advanced=screen)
+    out["ibc-lossless-444.avif"] = pil_avif(text, quality=100, subsampling="4:4:4", advanced=screen)
+    out["ibc-sb128.avif"] = pil_avif(text, advanced={**screen, "sb-size": "128"})
+    out["ibc-speed0.avif"] = pil_avif(_avif_text(2805, 256, 256), speed=0, advanced=screen)
+    out["ibc-speed7.avif"] = pil_avif(text, speed=7, advanced=screen)
+    out["ibc-q20.avif"] = pil_avif(text, quality=20, advanced=screen)
+    out["ibc-alpha.avif"] = pil_avif(with_alpha(text), advanced=screen)
+    band = np.full(text.shape[:2] + (1,), 255, np.uint8)  # premultiplied glyphs stay copies outside the band
+    band[40:100, 20:150] = 96
+    out["ibc-alpha-premultiplied.avif"] = pil_avif(np.concatenate([text, band], -1), alpha_premultiplied=True,
+                                                   advanced=screen)
+    out["ibc-tiles-2x2.avif"] = pil_avif(_avif_text(2803, 512, 512, density=0.3), tile_rows=1, tile_cols=1,
+                                         advanced=screen)
+    r = np.random.default_rng(2804)
+    texture = np.tile(_avif_scene(2804, 64, 64), (4, 4, 1)).astype(np.int64)
+    texture = np.clip(texture + r.integers(-4, 5, texture.shape), 0, 255).astype(np.uint8)
+    out["ibc-texture-q70.avif"] = pil_avif(texture, quality=70, speed=4, advanced=screen)
+    # aom turns intra block copy on for screen content from about 192 px
+    out["intrabc.avif"] = pil_avif(_avif_screen(2722, 192, 192, colours=8), advanced=screen)
+    return out
+
+
+def deep_scene(seed: int, h: int, w: int, depth: int, subsampling: str = "4:2:0") -> List[np.ndarray]:
+    """``deep_planes`` without their noise and bars: a scene smooth at
+    ``depth`` bits (a random grid upsampled bilinearly in floats), the
+    card's 10-bit photo."""
+    r = np.random.default_rng(seed)
+    cell = 64
+    grid = r.random((h // cell + 2, w // cell + 2, 3))
+    y, x = np.arange(h) / cell, np.arange(w) / cell
+    y0, fy = y.astype(int), (y % 1)[:, None, None]
+    x0, fx = x.astype(int), (x % 1)[None, :, None]
+    rgb = ((1 - fy) * ((1 - fx) * grid[y0][:, x0] + fx * grid[y0][:, x0 + 1])
+           + fy * ((1 - fx) * grid[y0 + 1][:, x0] + fx * grid[y0 + 1][:, x0 + 1])) * 255
+    top = (1 << depth) - 1
+    yy = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    planes = [yy, (rgb[..., 2] - yy) / 1.772 + 128, (rgb[..., 0] - yy) / 1.402 + 128]
+    out = []
+    for k, p in enumerate(planes if subsampling != "4:0:0" else planes[:1]):
+        if k and subsampling != "4:4:4":
+            sy = 2 if subsampling == "4:2:0" else 1
+            p = p[::sy, ::2]
+        out.append(np.clip(np.rint(p * top / 255), 0, top).astype(np.uint16))
+    return out
+
+
+def _avif_deep_layouts() -> Dict[str, bytes]:
+    """10- and 12-bit files (``deep_avif``: the system's libavif over libaom
+    3.6.0): every subsampling at both depths (profiles 0, 1 and 2) in full
+    and limited range, BT.709 and BT.2020, alpha and premultiplied alpha on
+    each of libavif's conversion paths (libyuv's 10-bit and 12-bit ones,
+    the 8-bit one after its shift, I400, the float one), the identity
+    matrix, YCgCo and FCC in 4:4:4, CDEF and restoration, lossless,
+    screen content with palettes and intra block copy at 10 bits, and a
+    Pillow file whose sequence header and av1C claim 10 bits."""
+    out = {}
+    for depth in (10, 12):
+        for ss in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+            planes = deep_planes(2810 + depth, 24, 40, depth, ss)
+            for full in (True, False):
+                out[f"deep-{depth}-{ss.replace(':', '')}-{'full' if full else 'limited'}.avif"] = deep_avif(
+                    planes, depth, ss, full=full, quantizer=12)
+    planes = {(d, ss): deep_planes(2830 + d, 30, 44, d, ss) for d in (10, 12) for ss in ("4:2:0", "4:2:2", "4:4:4",
+                                                                                          "4:0:0")}
+    alpha = {d: deep_planes(2840 + d, 30, 44, d, "4:0:0")[0] for d in (10, 12)}
+    out["deep-10-420-bt709.avif"] = deep_avif(planes[10, "4:2:0"], 10, cicp=(1, 1, 1), full=False)
+    out["deep-10-420-bt2020.avif"] = deep_avif(planes[10, "4:2:0"], 10, cicp=(9, 16, 9))
+    out["deep-12-444-bt709-limited.avif"] = deep_avif(planes[12, "4:4:4"], 12, "4:4:4", cicp=(1, 1, 1), full=False)
+    for depth, ss, cicp, prem in ((10, "4:2:0", (1, 13, 6), False), (10, "4:2:0", (1, 13, 6), True),
+                                  (10, "4:2:2", (9, 16, 9), True), (10, "4:4:4", (1, 13, 1), False),
+                                  (12, "4:2:0", (1, 13, 6), True), (12, "4:2:2", (1, 13, 1), False),
+                                  (12, "4:4:4", (1, 13, 6), True), (10, "4:0:0", (2, 2, 2), True),
+                                  (12, "4:0:0", (2, 2, 2), False), (10, "4:4:4", (1, 13, 0), True),
+                                  (12, "4:4:4", (1, 13, 8), True), (10, "4:4:4", (1, 13, 4), True)):
+        name = f"deep-{depth}-{ss.replace(':', '')}-mc{cicp[2]}-alpha{'-premultiplied' if prem else ''}.avif"
+        out[name] = deep_avif(planes[depth, ss], depth, ss, cicp=cicp, alpha=alpha[depth], premultiplied=prem)
+    out["deep-10-444-identity.avif"] = deep_avif(planes[10, "4:4:4"], 10, "4:4:4", cicp=(1, 13, 0))
+    out["deep-12-444-ycgco.avif"] = deep_avif(planes[12, "4:4:4"], 12, "4:4:4", cicp=(1, 13, 8))
+    out["deep-10-444-fcc-limited.avif"] = deep_avif(planes[10, "4:4:4"], 10, "4:4:4", cicp=(1, 13, 4), full=False)
+    out["deep-10-444-lossless.avif"] = deep_avif([p[:16, :16] for p in planes[10, "4:4:4"]], 10, "4:4:4", quantizer=0)
+    filtered = {"enable-cdef": "1", "enable-restoration": "1"}
+    out["deep-10-420-cdef-restoration.avif"] = deep_avif(deep_planes(2850, 128, 256, 10), 10, quantizer=40, speed=1,
+                                                         advanced=filtered)
+    out["deep-12-420-cdef-restoration.avif"] = deep_avif(deep_planes(2851, 128, 256, 12), 12, quantizer=30, speed=1,
+                                                         advanced=filtered)
+    out["deep-12-422-q55.avif"] = deep_avif(deep_planes(2852, 64, 96, 12, "4:2:2"), 12, "4:2:2", quantizer=55,
+                                            speed=2)
+    text = _avif_text(2853, 192, 192).astype(np.uint16) * 4
+    chroma = [text[::2, ::2, 1], text[::2, ::2, 2]]
+    out["deep-10-420-screen-intrabc.avif"] = deep_avif([text[..., 0]] + chroma, 10, quantizer=20, speed=4,
+                                                       advanced={"tune-content": "screen"})
+    # PR 27's refusal of 10-bit streams: the 10-bit flags over 8-bit data,
+    # which dav1d decodes as 10-bit samples
+    out["high-bitdepth.avif"] = avif_stream_edit(pil_avif(_avif_scene(2720, 40, 48)), "high_bitdepth")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def avif_layouts() -> Dict[str, bytes]:
     """Every committed file of ``avif/`` the port reads (name under
     ``avif/`` -> bytes): Pillow's encoder over the subsamplings, ranges,
-    qualities, speeds, sizes and aom's tool switches, and containers this
+    qualities, speeds, sizes and aom's tool switches, containers this
     module writes around its streams (iloc versions, idat, extents, colr
-    variants, alpha)."""
-    out = {**_avif_pillow_layouts(), **_avif_box_layouts()}
+    variants, alpha), screen content of intra block copy, 10- and 12-bit
+    files of the system's libavif, and a file whose 10-bit flags sit over
+    8-bit data (``high-bitdepth.avif``, read as Pillow reads it).  Made
+    once a process (the encoders take seconds): not to be changed."""
+    out = {**_avif_pillow_layouts(), **_avif_box_layouts(), **_avif_intrabc_layouts(), **_avif_deep_layouts()}
     return {f"{AVIF}/{k}": v for k, v in sorted(out.items())}
 
 
 def avif_refusals() -> Dict[str, Tuple[bytes, str]]:
     """Files of this slice the port refuses (name -> (bytes, the reason its
-    error names, a regular expression)): the eight kinds left out by name
+    error names, a regular expression)): the kinds left out by name
     (ROADMAP §3 fault 7's AVIF queue), each the nearest file to its kind
-    that can be made here, and files Pillow refuses too."""
+    that can be made here, the 10- and 12-bit layouts of libavif's float
+    bilinear path, and files Pillow refuses too."""
     scene = _avif_scene(2720, 40, 48)
-    screen = _avif_screen(2721, 48, 64)
     base = pil_avif(scene)
     parts = avif_parts(base)
     t1 = avif_parts(pil_avif(scene[:, :24]))
@@ -7867,14 +8096,14 @@ def avif_refusals() -> Dict[str, Tuple[bytes, str]]:
     no_primary = seq[:pitm] + b"pitx" + seq[pitm + 4:]
     c, a, size = parts["color"], parts["av1c"], parts["size"]
     failed = "Failed to decode|not read|does not read|cannot identify|does not identify"
+    deep = {10: deep_planes(2860, 40, 48, 10), 12: deep_planes(2861, 40, 48, 12, "4:2:2"),
+            4: deep_planes(2862, 40, 48, 10, "4:4:4")}
+    d10 = avif_parts(deep_avif(deep[10], 10))
+    rgba = avif_parts(pil_avif(with_alpha(scene, 2863)))
     return {
-        "high-bitdepth.avif": (avif_stream_edit(base, "high_bitdepth"), "10- or 12-bit"),
         "grid-2x1.avif": (avif_file(b"", a, size, grid=(1, 2, [t1["color"], t2["color"]])), "grid derived image"),
         "sequence-no-primary-item.avif": (no_primary, "image sequence without a still primary item"),
         "film-grain.avif": (pil_avif(scene, advanced={"film-grain-test": "1"}), "film grain"),
-        # aom turns intra block copy on for screen content from about 192 px
-        "intrabc.avif": (pil_avif(_avif_screen(2722, 192, 192, colours=8), advanced={"tune-content": "screen"}),
-                         "intra block copy"),
         "qmatrix.avif": (pil_avif(scene, advanced={"enable-qm": "1"}), "quantizer matrices"),
         "superres.avif": (avif_stream_edit(base, "use_superres"), "superresolution"),
         "layered-a1lx.avif": (avif_file(c, a, size, extra_props=((b"a1lx", b"\0" + bytes(6)),)), "layered image"),
@@ -7888,9 +8117,18 @@ def avif_refusals() -> Dict[str, Tuple[bytes, str]]:
         "nclx-identity-420.avif": (avif_file(c, a, size, colr=(nclx(1, 13, 0),)), "Reformat failed|identity"),
         "nclx-ycgco-420.avif": (avif_file(c, a, size, colr=(nclx(1, 13, 8),)), "float bilinear"),
         "obu-size-past-end.avif": (avif_file(c[:2] + bytes([c[2] | 0x40]) + c[3:], a, size), failed),
+        # 10- and 12-bit files of libavif's float bilinear path, YCgCo of
+        # limited range, and an 8-bit alpha plane under a 10-bit image
+        "deep-10-ycgco-420.avif": (deep_avif(deep[10], 10, cicp=(1, 13, 8)), "float bilinear"),
+        "deep-12-fcc-422.avif": (deep_avif(deep[12], 12, "4:2:2", cicp=(1, 13, 4)), "float bilinear"),
+        "deep-10-ycgco-444-limited.avif": (deep_avif(deep[4], 10, "4:4:4", cicp=(1, 13, 8), full=False),
+                                           "Reformat failed|YCgCo of limited range"),
+        "deep-10-alpha-8-bit.avif": (avif_file(d10["color"], d10["av1c"], d10["size"], alpha=rgba["alpha"],
+                                               alpha_av1c=rgba["alpha_av1c"]), "alpha plane of another bit depth"),
     }
 
 
+@functools.lru_cache(maxsize=None)
 def avif_card_originals() -> Dict[str, bytes]:
     """The card's originals of ``AVIF_CARD``, all committed: name (under
     ``avif/card/``) -> bytes as Pillow's encoder writes them."""
@@ -7904,6 +8142,12 @@ def avif_card_originals() -> Dict[str, bytes]:
                                              advanced={"tune-content": "screen", "enable-intrabc": "0"}),
         "photo-512-premultiplied.avif": pil_avif(with_alpha(smooth_scene(2732, 512, 512, cell=64, step=1)),
                                                  alpha_premultiplied=True),
+        # the screen original's recipe with aom's intra block copy left on
+        "screen-1024-intrabc.avif": pil_avif(_avif_screen(2731, 1024, 1024, colours=8),
+                                             advanced={"tune-content": "screen"}),
+        # 4:2:0 at Pillow's defaults carried to the system's encoder (quality
+        # 75, its quantizer 16; speed 6)
+        "photo-1024-10bit.avif": deep_avif(deep_scene(2733, 1024, 1024, 10), 10, quantizer=16, speed=6),
     }
     assert sorted(out) == sorted(AVIF_CARD)
     return {f"{AVIF}/card/{k}": v for k, v in out.items()}
@@ -7972,7 +8216,8 @@ class Dav1dPicture:
     """The Y, U and V planes the system's libdav1d (``libdav1d.so.6``,
     through ctypes; the loader's search path finds it) decodes from an AV1
     stream: ``planes(obus)`` -> (Y, U,
-    V) uint8 arrays (U and V None in 4:0:0), or the library's error code."""
+    V) uint8 arrays, uint16 of 10- or 12-bit samples (U and V None in
+    4:0:0), or the library's error code."""
 
     def __init__(self, path: str = "libdav1d.so.6"):
         self.lib = ctypes.CDLL(path)
@@ -8002,9 +8247,12 @@ class Dav1dPicture:
             strides = struct.unpack("<2q", raw[40:56])
             w, h, layout, _ = struct.unpack("<4i", raw[56:72])
 
+            w, h, layout, bpc = struct.unpack("<4i", raw[56:72])
+            kind = np.uint8 if bpc == 8 else np.uint16
+
             def plane(p, pw, ph, stride):
                 buf = (ctypes.c_uint8 * (stride * ph)).from_address(p)
-                return np.frombuffer(buf, np.uint8).reshape(ph, stride)[:, :pw].copy()
+                return np.frombuffer(buf, kind).reshape(ph, stride // kind().itemsize)[:, :pw].copy()
 
             y = plane(ptrs[0], w, h, strides[0])
             if layout == 0:
@@ -8045,7 +8293,7 @@ def pillow_lane_sources() -> List[Tuple[str, str, Optional[str]]]:
     out += [(LZO_CARD[n], f"{LZO}/card/{n}" if n in LZO_COMMITTED_CARD else None,
              None if n in LZO_COMMITTED_CARD else f"{LZO}/card/{n}") for n in sorted(LZO_CARD)]
     out += [(J2K_CARD[n], f"{J2K}/card/{n}", None) for n in sorted(J2K_CARD) if J2K_CARD[n]]
-    out += [(AVIF_CARD[n], f"{AVIF}/card/{n}", None) for n in sorted(AVIF_CARD)]
+    out += [(AVIF_CARD[n], f"{AVIF}/card/{n}", None) for n in sorted(AVIF_CARD) if AVIF_CARD[n]]
     names = [n for n, _, _ in out]
     assert len(set(names)) == len(names), "two originals under one listed name"
     return out
